@@ -1,0 +1,384 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``tf2_gnn_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py            # the check, on card 0
+    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of a step
+
+Phases, each of which fails the run by raising:
+
+1. Build the hand-written CUDA kernels from ``tf2_gnn_tpu_torch/csrc``
+   (one nvcc per source, started together) and print the card.
+2. Kernel checks at the PPI workload's real plan shapes: the joint kernel
+   (K2, forward layout) and the stream kernel (K1, backward layout with
+   all-zero types) against their plain PyTorch versions on the card, bf16
+   tables, f32 outputs.
+3. The shipped PPI_RGCN model at full width (4 layers, hidden 320, bf16 edge
+   stream, input dropout 0.1, Adam at lr 1e-3), random weights from a seed:
+   one eval forward held against the same model run through the plain
+   versions; then the main path, a few train steps with the launch counts
+   set to 0 just before and read just after (each kernel must launch once
+   per layer per step).
+4. Timings (CUDA events): each kernel, its plain version and one PyTorch
+   library call computing the same function (``torch.sparse.mm``, CSR
+   built from the plan outside the timed window), the train step and the
+   eval forward.
+
+The line before the last two is the JSON ``kernels`` line; then the card's
+name and power limit (nvidia-smi); the last line is the JSON result. Exits
+non-zero, printing no result, without a card or without the repository
+beside this script.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+ROOT = Path(__file__).resolve().parent
+
+TRAIN_STEPS = 5          # main-path train steps (launch counts read after)
+TIMED_STEPS = 20         # train steps in the step-time window
+KERNEL_REPS = 20         # launches per kernel timing
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak
+F32_FLOPS_PER_S = 67e12     # H100 SXM float32 peak outside the tensor cores
+# Kernel vs plain version: both sum f32 products, in different orders
+# (the kernel's atomics reorder run to run).
+KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
+# Whole model, kernels vs plain versions: besides the f32 reorder, a sum
+# that lands on the other side of a bf16 rounding boundary re-rounds one
+# stream entry by a bf16 ulp in the next layer.
+MODEL_ATOL = 2e-2
+LOSS_RTOL = 1e-3
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def require_card():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check "
+              "needs a CUDA card.", file=sys.stderr)
+        raise SystemExit(2)
+    return torch.device("cuda", 0)
+
+
+def time_ms(fn, reps: int = KERNEL_REPS, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def stream_args(plan, direction: str):
+    """The plan arrays one kernel reads, per direction of the joint op."""
+    if direction == "fwd":
+        return (plan.scale_fwd, plan.rel_src_f, plan.rel_tgt_f,
+                plan.src_blk_f, plan.grp_tgt_fl, plan.grp_type_f)
+    return (plan.scale_bwd, plan.rel_src_b, plan.rel_tgt_b, plan.src_blk_b,
+            plan.grp_tgt_b, plan.type_b_zeros)
+
+
+def slot_matrix(ps, args, v: int, out_rows: int, in_rows: int):
+    """CSR [out_rows, in_rows] of the plan's valid slots (duplicates summed)
+    in f32 and in bf16, the operands of the library yardstick; also the
+    distinct input rows and the valid slot count."""
+    import torch
+
+    scale, rel_s, rel_t, src_blk, grp_tgt, grp_type = args
+    srcabs, tgtabs, valid = ps._stream_slot_abs_ids(
+        rel_s, rel_t, src_blk, grp_tgt, grp_type, v)
+    idx = torch.stack([tgtabs[valid], srcabs[valid]])
+    coo = torch.sparse_coo_tensor(idx, scale.reshape(-1)[valid],
+                                  (out_rows, in_rows)).coalesce()
+    csr = coo.to_sparse_csr()
+    csr_bf16 = torch.sparse_coo_tensor(
+        coo.indices(), coo.values().to(torch.bfloat16),
+        (out_rows, in_rows)).coalesce().to_sparse_csr()
+    return (csr, csr_bf16, int(torch.unique(srcabs[valid]).numel()),
+            int(valid.sum()))
+
+
+def kernel_bound_ms(rows_read: int, h: int, itemsize: int, slots: int,
+                    chunks: int, groups: int, out_rows: int,
+                    valid_slots: int):
+    """(bound ms, what bounds it): bytes = distinct table rows read + the
+    plan (12 B a slot, 4 B a chunk, 8 B a group) + the f32 output written
+    once, over HBM bandwidth; operations = a multiply and an add per valid
+    slot and column, over the f32 rate."""
+    nbytes = (rows_read * h * itemsize + slots * 12 + chunks * 4
+              + groups * 8 + out_rows * h * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * valid_slots * h / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(name: str, got, want, rtol: float, atol: float) -> float:
+    import torch
+
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"(max abs err {err}, rtol {rtol}, atol {atol})")
+    return err
+
+
+def main(argv) -> int:
+    import torch
+
+    device = require_card()
+    sys.path.insert(0, str(ROOT))
+    from tf2_gnn_tpu_torch.harness.optimizers import make_optimizer
+    from tf2_gnn_tpu_torch.harness.training import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+    from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
+    from tf2_gnn_tpu_torch.ops import cuda_build
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.workloads import (
+        FEATURE_DIM,
+        NUM_LABELS,
+        build_ppi_batch,
+    )
+
+    # A reference states its float32 product precision: full f32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 1. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = cuda_build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s for "
+        f"{sorted(logs) or 'cached libraries'}")
+    for source, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  {source}: {line.strip()}")
+    log(f"device: {torch.cuda.get_device_name(device)} "
+        f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
+
+    # -- 2. kernel checks at the real plan shapes ------------------------
+    t0 = time.perf_counter()
+    batch, labels, real_edges = build_ppi_batch(SEED, device=device)
+    log(f"workload: {real_edges} edges, V={batch.num_nodes_padded}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    plan = batch.pair_stream_joint
+    v, num_types, h = plan.v_out, plan.num_types, 320
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    tables = torch.randn((num_types * v, h), generator=gen,
+                         device=device).to(torch.bfloat16)
+    cot = torch.randn((v, h), generator=gen, device=device).to(torch.bfloat16)
+    fwd_args, bwd_args = stream_args(plan, "fwd"), stream_args(plan, "bwd")
+
+    def k2():
+        return ps.pair_spmm_stream_joint(tables, *fwd_args, v, v)
+
+    def k2_plain():
+        return ps.pair_spmm_stream_plain(tables, *fwd_args, v, v)
+
+    def k1():
+        return ps.pair_spmm_stream(cot, *bwd_args, v, num_types * v)
+
+    def k1_plain():
+        return ps.pair_spmm_stream_plain(cot, *bwd_args, v, num_types * v)
+
+    out2, want2 = k2(), k2_plain()
+    out1, want1 = k1(), k1_plain()
+    torch.cuda.synchronize()
+    err2 = check_close("pair_stream_joint", out2, want2, KERNEL_RTOL,
+                       KERNEL_ATOL)
+    err1 = check_close("pair_stream", out1, want1, KERNEL_RTOL, KERNEL_ATOL)
+    log(f"kernel check: pair_stream_joint max_abs_err {err2:.3e}, "
+        f"pair_stream max_abs_err {err1:.3e} "
+        f"(rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
+    del out1, out2, want1, want2
+
+    # -- 3. the full-width model -----------------------------------------
+    hypers = json.loads((ROOT / "tf2_gnn_tpu_torch" / "harness"
+                         / "default_hypers" / "PPI_RGCN.json").read_text())
+    params = NodeMulticlassTask.get_default_hyperparameters("rgcn")
+    params.update(hypers["model_params"])
+    params["learning_rate"] = 0.001
+    model = NodeMulticlassTask.from_params(
+        params, input_dim=FEATURE_DIM, num_edge_types=num_types,
+        device=device, seed=SEED, num_labels=NUM_LABELS)
+    log(f"model: {sum(p.numel() for p in model.parameters())} parameters, "
+        f"{params['gnn_num_layers']} layers, hidden {params['gnn_hidden_dim']}, "
+        f"edge stream {params['gnn_edge_dtype']}")
+
+    with torch.no_grad():
+        (logits,) = model(batch, False)
+        with mock.patch.object(ps, "pair_spmm_stream_joint",
+                               ps.pair_spmm_stream_plain), \
+                mock.patch.object(ps, "pair_spmm_stream",
+                                  ps.pair_spmm_stream_plain):
+            (logits_plain,) = model(batch, False)
+        loss = model.compute_task_metrics(batch, (logits,), labels)["loss"]
+        loss_plain = model.compute_task_metrics(
+            batch, (logits_plain,), labels)["loss"]
+    if tuple(logits.shape) != (v, NUM_LABELS):
+        raise AssertionError(f"eval forward: logits of shape "
+                             f"{tuple(logits.shape)}, expected {(v, NUM_LABELS)}")
+    model_err = float((logits - logits_plain).abs().max())
+    if not (torch.isfinite(logits).all() and model_err <= MODEL_ATOL
+            and abs(float(loss) - float(loss_plain))
+            <= LOSS_RTOL * abs(float(loss_plain))):
+        raise AssertionError(
+            f"eval forward: kernels vs plain versions max abs logit err "
+            f"{model_err} (atol {MODEL_ATOL}), loss {float(loss)} vs "
+            f"{float(loss_plain)}")
+    log(f"eval forward vs plain versions: max abs logit err {model_err:.3e}, "
+        f"loss {float(loss):.6f} vs {float(loss_plain):.6f}")
+    del logits, logits_plain
+
+    optimizer = make_optimizer(params, model.parameters())
+    state = create_train_state(model, optimizer, seed=SEED)
+    train_step = make_train_step(model, optimizer)
+    eval_step = make_eval_step(model)
+
+    ps.reset_launch_counts()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = train_step(state, batch, labels)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    launches = dict(ps.LAUNCHES)
+    losses = [float(x) for x in losses]
+    log(f"train: {TRAIN_STEPS} steps, losses {losses}, launches {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training did not lower the loss: {losses}")
+    per_step = params["gnn_num_layers"]
+    for name, count in launches.items():
+        if count != per_step * TRAIN_STEPS:
+            raise AssertionError(
+                f"{name} launched {count} times in {TRAIN_STEPS} steps; "
+                f"expected {per_step} per step (one per layer)")
+    final = eval_step(batch, labels)
+    if not math.isfinite(float(final["loss"])):
+        raise AssertionError("non-finite eval loss after training")
+    log(f"eval after training: loss {float(final['loss']):.6f}, "
+        f"f1 {float(final['f1_score']):.4f}")
+
+    # -- 4. timings ------------------------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        state, metrics = train_step(state, batch, labels)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    eval_ms = time_ms(lambda: eval_step(batch, labels), reps=10)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    log(f"train step: {step_ms:.3f} ms ({real_edges / step_ms * 1e3:.4g} "
+        f"edges/s), eval forward: {eval_ms:.3f} ms, peak memory "
+        f"{peak_gib:.2f} GiB")
+
+    # The library yardstick: torch.sparse.mm of the plan's CSR matrix with
+    # the same bf16 table (bf16 output, f32-rounded scales rounded to bf16),
+    # and, for reference, with f32 copies of both (the kernel's f32 output).
+    a_fwd, a_fwd16, rows_fwd, valid_fwd = slot_matrix(ps, fwd_args, v, v,
+                                                      num_types * v)
+    a_bwd, a_bwd16, rows_bwd, valid_bwd = slot_matrix(
+        ps, bwd_args, v, num_types * v, v)
+    tables_f32, cot_f32 = tables.float(), cot.float()
+    kernels = []
+    for name, source_fn, plain_fn, lib_fn, lib32_fn, args, tab, out_rows, \
+            rows, valid, replaces in (
+            ("pair_stream_joint", k2, k2_plain,
+             lambda: torch.sparse.mm(a_fwd16, tables),
+             lambda: torch.sparse.mm(a_fwd, tables_f32), fwd_args, tables,
+             v, rows_fwd, valid_fwd,
+             "tf2_gnn_tpu/ops/pair_spmm.py:1057"),
+            ("pair_stream", k1, k1_plain,
+             lambda: torch.sparse.mm(a_bwd16, cot),
+             lambda: torch.sparse.mm(a_bwd, cot_f32), bwd_args, cot,
+             num_types * v, rows_bwd, valid_bwd,
+             "tf2_gnn_tpu/ops/pair_spmm.py:895")):
+        ms = time_ms(source_fn)
+        plain_ms = time_ms(plain_fn)
+        library_ms = time_ms(lib_fn)
+        library32_ms = time_ms(lib32_fn)
+        lib_err = float((lib32_fn() - source_fn()).abs().max())
+        bound, bound_by = kernel_bound_ms(
+            rows, h, tab.element_size(), args[1].numel(),
+            args[3].numel(), args[4].numel(), out_rows, valid)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tf2_gnn_tpu_torch/csrc/pair_stream.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err2 if name == "pair_stream_joint" else err1,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms,
+        })
+        log(f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.sparse.mm bf16 {library_ms:.4f} ms, f32 "
+            f"{library32_ms:.4f} ms (max abs diff to the kernel "
+            f"{lib_err:.2e}), bound {bound:.4f} ms "
+            f"({bound_by}), {valid} valid of {args[1].numel()} slots, "
+            f"{rows} distinct rows read")
+
+    if "--profile" in argv:
+        profile_step(train_step, state, batch, labels, step_ms)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(json.dumps({"kernels": kernels}))
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def profile_step(train_step, state, batch, labels, step_ms: float,
+                 steps: int = 5) -> None:
+    """Device time by kernel over a few train steps (torch.profiler), and
+    the device's busy share of the unprofiled step time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, metrics = train_step(state, batch, labels)
+        torch.cuda.synchronize()
+
+    def self_us(e):  # the attribute's name changed across torch versions
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and self_us(e) > 0]
+    kernels.sort(key=self_us, reverse=True)
+    busy_ms = sum(self_us(e) for e in kernels) / steps / 1e3
+    log(f"profile: {steps} steps, kernel time {busy_ms:.3f} ms/step of a "
+        f"{step_ms:.3f} ms unprofiled step (device busy share "
+        f"{busy_ms / step_ms:.3f})")
+    for e in kernels[:15]:
+        log(f"  {self_us(e) / steps / 1e3:8.4f} ms/step  "
+            f"{e.count // steps:4d}x  {e.key[:100]}")
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,127 @@
+"""Guards of the PyTorch port:
+
+* no module of ``tf2_gnn_tpu_torch`` and not ``chip_smoke.py`` imports
+  jax, flax, optax, the JAX package or ``bench``;
+* the entry points default to the card and raise without one instead of
+  running on the CPU;
+* a CUDA tensor given to a kernel wrapper whose library cannot be built
+  raises; it does not fall back to the plain version.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import tf2_gnn_tpu_torch
+from tf2_gnn_tpu_torch import workloads
+from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
+from tf2_gnn_tpu_torch.ops import cuda_build
+from tf2_gnn_tpu_torch.ops import pair_spmm as tps
+from tf2_gnn_tpu_torch.utils.device import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = Path(tf2_gnn_tpu_torch.__file__).resolve().parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tf2_gnn_tpu", "bench"}
+PORT_FILES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_nothing_of_jax(path):
+    bad = sorted(set(imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_port_has_its_own_modules():
+    expected = [
+        "utils/constants.py", "utils/shapes.py", "utils/schedules.py",
+        "data/graph_batch.py", "ops/pair_spmm.py", "ops/activations.py",
+        "layers/gnn.py", "layers/message_passing/base.py",
+        "layers/message_passing/typed_linear.py",
+        "layers/message_passing/gnn_edge_mlp.py",
+        "layers/message_passing/rgcn.py", "models/graph_task_model.py",
+        "models/node_multiclass_task.py", "harness/optimizers.py",
+        "harness/training.py", "harness/import_jax.py", "workloads.py",
+        "csrc/pair_stream.cu",
+    ]
+    missing = [p for p in expected if not (PACKAGE / p).is_file()]
+    assert not missing
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this guards the card-less path")
+
+
+def test_default_device_raises_without_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        workloads.build_ppi_batch(0)
+    params = NodeMulticlassTask.get_default_hyperparameters("rgcn")
+    params["gnn_global_exchange_every_num_layers"] = 10000
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NodeMulticlassTask.from_params(params, input_dim=4, num_edge_types=3)
+    batch, _, _ = workloads.build_ppi_batch_host(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch.to()
+
+
+class _CudaTensorStandIn:
+    """What a wrapper sees of a CUDA tensor before it loads the library:
+    its device. (This machine's torch cannot allocate CUDA tensors.)"""
+
+    device = torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("wrapper", [tps.pair_spmm_stream,
+                                     tps.pair_spmm_stream_joint])
+def test_cuda_tensor_without_library_raises(wrapper, monkeypatch, tmp_path):
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "DEFAULT_NVCC", tmp_path / "no-nvcc")
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    before = dict(tps.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        wrapper(_CudaTensorStandIn(), None, None, None, None, None, None,
+                128, 128)
+    assert tps.LAUNCHES == before
+
+
+def test_wrappers_refuse_other_devices():
+    meta = torch.empty((4, 4), device="meta")
+    with pytest.raises(TypeError, match="unsupported device"):
+        tps.pair_spmm_stream_joint(meta, None, None, None, None, None, None,
+                                   128, 128)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On the CPU the wrapper returns its plain version's result and counts
+    no launch."""
+    rng = np.random.RandomState(0)
+    v = 128
+    src = rng.randint(0, v, 300)
+    tgt = rng.randint(0, v, 300)
+    plans = (tps.build_pair_plans([src], [tgt], [300], v).astuple(),)
+    plan = tps.stream_joint_plan(plans, v, v).to("cpu")
+    tables = torch.randn(v, 8)
+    args = (plan.scale_fwd, plan.rel_src_f, plan.rel_tgt_f, plan.src_blk_f,
+            plan.grp_tgt_fl, plan.grp_type_f, v, v)
+    before = dict(tps.LAUNCHES)
+    got = tps.pair_spmm_stream_joint(tables, *args)
+    assert torch.equal(got, tps.pair_spmm_stream_plain(tables, *args))
+    assert tps.LAUNCHES == before

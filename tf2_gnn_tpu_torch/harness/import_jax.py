@@ -1,0 +1,71 @@
+"""Bridge a flax ``params`` tree of the JAX package to the port's
+``state_dict``.
+
+The tree is given as nested dicts of numpy arrays (``jax.device_get`` of
+the reference's params), so this module needs no JAX. Flax leaf names map
+as follows:
+
+* ``<path>/kernel`` of rank 2 (``nn.Dense``, [in, out]) ->
+  ``<path>.weight``, transposed to ``nn.Linear``'s [out, in];
+* ``<path>/kernel`` of rank 3 (``TypedLinear``, [L, D, H]) ->
+  ``<path>.kernel`` as is;
+* ``<path>/bias`` -> ``<path>.bias``;
+* ``<path>/scale`` (``nn.LayerNorm``) -> ``<path>.weight``.
+
+A leaf of another name, or one the model does not hold, raises; so does a
+model parameter that the tree leaves unset.
+"""
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
+    flat = {}
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            flat.update(_flatten(value, path))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
+def flax_params_to_state_dict(params: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The port's parameter names and tensors for a flax ``params`` tree."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    state = {}
+    for path, value in _flatten(params).items():
+        leaf, module = path[-1], ".".join(path[:-1])
+        if leaf == "kernel" and value.ndim == 2:
+            name, value = f"{module}.weight", value.T
+        elif leaf == "kernel" and value.ndim == 3:
+            name = f"{module}.kernel"
+        elif leaf == "bias":
+            name = f"{module}.bias"
+        elif leaf == "scale":
+            name = f"{module}.weight"
+        else:
+            raise ValueError(f"flax leaf {'/'.join(path)} (shape "
+                             f"{value.shape}) has no counterpart in the port")
+        state[name] = torch.tensor(np.asarray(value, np.float32))
+    return state
+
+
+def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
+    """Copy a flax ``params`` tree into ``model`` (strict: every leaf must
+    map to a parameter of the model and every parameter must be set)."""
+    state = flax_params_to_state_dict(params)
+    own = model.state_dict()
+    unknown = sorted(set(state) - set(own))
+    if unknown:
+        raise ValueError(f"flax leaves without a model parameter: {unknown}")
+    for name, value in state.items():
+        if tuple(value.shape) != tuple(own[name].shape):
+            raise ValueError(f"{name}: flax shape {tuple(value.shape)} vs "
+                             f"model shape {tuple(own[name].shape)}")
+    model.load_state_dict(state, strict=True)

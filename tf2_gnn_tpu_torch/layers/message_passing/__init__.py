@@ -1,0 +1,22 @@
+"""Message-passing flavours + registry (port of
+``tf2_gnn_tpu/layers/message_passing``; RGCN and the source-only
+GNN_Edge_MLP so far)."""
+from .base import (
+    MESSAGE_PASSING_IMPLEMENTATIONS,
+    MessagePassing,
+    get_message_passing_class,
+    register_message_passing_implementation,
+)
+from .typed_linear import TypedLinear
+from .gnn_edge_mlp import GNN_Edge_MLP
+from .rgcn import RGCN
+
+__all__ = [
+    "MESSAGE_PASSING_IMPLEMENTATIONS",
+    "MessagePassing",
+    "TypedLinear",
+    "get_message_passing_class",
+    "register_message_passing_implementation",
+    "GNN_Edge_MLP",
+    "RGCN",
+]

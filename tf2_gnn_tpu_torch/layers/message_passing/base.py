@@ -1,0 +1,119 @@
+"""Message-passing template + registry (port of
+``tf2_gnn_tpu/layers/message_passing/base.py``).
+
+A layer maps node states ``[V, D] -> [V, hidden_dim]``: node-space
+transforms run densely first, the block-pair streamed op aggregates them
+over the edges, and ``_post_aggregate`` applies the message activation.
+
+Only the fused pair path is ported. The unfused per-edge segment path and
+the SPMD halo branches are not; a batch without per-type pair plans raises
+``NotImplementedError`` instead of silently taking another path.
+"""
+import inspect
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from ...data.graph_batch import GraphBatch
+from ...ops.activations import get_activation_function
+
+MESSAGE_PASSING_IMPLEMENTATIONS: Dict[str, type] = {}
+
+
+def register_message_passing_implementation(cls):
+    """Register an MP flavour under its lowercased class name
+    (reference: message_passing.py:221-227)."""
+    MESSAGE_PASSING_IMPLEMENTATIONS[cls.__name__.lower()] = cls
+    return cls
+
+
+def get_message_passing_class(name: str):
+    cls = MESSAGE_PASSING_IMPLEMENTATIONS.get(name.lower())
+    if cls is None:
+        raise ValueError(
+            f"Unknown message passing class '{name}'. Known: "
+            f"{sorted(MESSAGE_PASSING_IMPLEMENTATIONS)}"
+        )
+    return cls
+
+
+class MessagePassing(nn.Module):
+    """Template for one message-passing step: ``[V, D] -> [V, hidden_dim]``.
+
+    Subclasses implement ``_fused_sum_aggregate`` (the [V, H] sum-aggregated
+    messages) and may override ``_post_aggregate``.
+    """
+
+    def __init__(self, num_edge_types: int, input_dim: int,
+                 hidden_dim: int = 7,
+                 aggregation_function: str = "sum",
+                 message_activation_function: str = "relu",
+                 message_activation_before_aggregation: bool = False,
+                 edge_dtype: str = "float32",
+                 dense_dtype: str = "float32"):
+        super().__init__()
+        if aggregation_function != "sum":
+            raise NotImplementedError(
+                f"aggregation_function={aggregation_function!r}: only 'sum' "
+                "(the pair kernels' aggregation) is ported.")
+        if message_activation_before_aggregation:
+            raise NotImplementedError(
+                "message_activation_before_aggregation=True needs the "
+                "per-edge segment path, which is not ported.")
+        self.num_edge_types = num_edge_types
+        self.input_dim = input_dim
+        self.hidden_dim = hidden_dim
+        self.message_activation_function = message_activation_function
+        # Dtype of the per-edge message stream the kernels gather; the
+        # aggregation accumulates in float32.
+        self.edge_dtype = getattr(torch, edge_dtype)
+
+    @classmethod
+    def get_default_hyperparameters(cls) -> Dict[str, Any]:
+        return {
+            "aggregation_function": "sum",
+            "message_activation_function": "relu",
+            "message_activation_before_aggregation": False,
+            "hidden_dim": 7,
+            "edge_dtype": "float32",
+            "dense_dtype": "float32",
+        }
+
+    @classmethod
+    def from_params(cls, params: Dict[str, Any], num_edge_types: int,
+                    input_dim: int) -> "MessagePassing":
+        """Build from a flat hyperparameter dict, ignoring keys that are not
+        constructor arguments of ``cls``."""
+        accepted = set(inspect.signature(cls.__init__).parameters)
+        accepted -= {"self", "num_edge_types", "input_dim"}
+        kwargs = {k: v for k, v in params.items() if k in accepted}
+        return cls(num_edge_types=num_edge_types, input_dim=input_dim,
+                   **kwargs)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for module in self.children():
+            module.reset_parameters(generator)
+
+    def _fused_sum_aggregate(self, node_states: torch.Tensor,
+                             batch: GraphBatch,
+                             training: bool) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _post_aggregate(self, aggregated: torch.Tensor,
+                        node_states: torch.Tensor, batch: GraphBatch,
+                        training: bool) -> torch.Tensor:
+        """The (after-aggregation) message activation."""
+        return get_activation_function(self.message_activation_function)(
+            aggregated)
+
+    def forward(self, node_states: torch.Tensor, batch: GraphBatch,
+                training: bool = False) -> torch.Tensor:
+        if batch.pair_stream_joint is None:
+            raise NotImplementedError(
+                "this batch has no per-type pair plans on its device: build "
+                "it with pair_plans_typed and move it with .to(device). The "
+                "unfused segment path and the SPMD halo branches are not "
+                "ported.")
+        fused = self._fused_sum_aggregate(node_states, batch, training)
+        return self._post_aggregate(fused, node_states, batch, training)

@@ -1,0 +1,74 @@
+"""Per-node multiclass (multi-label) task, the PPI head (port of
+``tf2_gnn_tpu/models/node_multiclass_task.py``).
+
+A dense layer with bias maps final node states to per-node logits; the loss
+is sigmoid cross-entropy summed over labels and averaged over REAL nodes;
+the tracked metric is batch micro-F1, negated so that lower is better.
+"""
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from ..data.graph_batch import GraphBatch
+from ..layers.init import init_dense_
+from ..utils.constants import SMALL_NUMBER
+from .graph_task_model import GraphTaskModel
+
+
+def masked_f1_counts(logits: torch.Tensor, labels: torch.Tensor,
+                     mask: torch.Tensor):
+    """(TP, FP, FN) over real nodes."""
+    # round(sigmoid(x)) == (x > 0), exactly.
+    predicted = (logits > 0.0).to(logits.dtype) * mask[:, None]
+    labels = labels * mask[:, None]
+    true_pos = torch.sum(predicted * labels)
+    false_pos = torch.sum(predicted * (1.0 - labels) * mask[:, None])
+    false_neg = torch.sum((1.0 - predicted) * labels)
+    return true_pos, false_pos, false_neg
+
+
+def f1_from_counts(true_pos, false_pos, false_neg):
+    precision = true_pos / torch.clamp(true_pos + false_pos, min=SMALL_NUMBER)
+    recall = true_pos / torch.clamp(true_pos + false_neg, min=SMALL_NUMBER)
+    return (2.0 * precision * recall) / torch.clamp(precision + recall,
+                                                    min=SMALL_NUMBER)
+
+
+class NodeMulticlassTask(GraphTaskModel):
+    def __init__(self, params: Dict[str, Any], input_dim: int,
+                 num_edge_types: int, num_labels: int = 121):
+        super().__init__(params, input_dim, num_edge_types)
+        self.num_labels = num_labels
+        self.node_to_labels = nn.Linear(self.gnn.hidden_dim, num_labels,
+                                        bias=True)
+
+    @classmethod
+    def get_default_hyperparameters(
+            cls, mp_style: Optional[str] = None) -> Dict[str, Any]:
+        return super().get_default_hyperparameters(mp_style)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        super().reset_parameters(generator)
+        init_dense_(self.node_to_labels, generator)
+
+    def compute_task_output(self, batch: GraphBatch, node_representations,
+                            training: bool):
+        return (self.node_to_labels(node_representations),)
+
+    @staticmethod
+    def compute_task_metrics(batch: GraphBatch, task_output,
+                             labels: Dict[str, torch.Tensor]
+                             ) -> Dict[str, torch.Tensor]:
+        (x,) = task_output
+        z = labels["node_labels"]
+        mask = batch.node_mask
+        # Numerically-stable sigmoid BCE with logits, summed over labels.
+        per_entry = (torch.clamp(x, min=0.0) - x * z
+                     + torch.log1p(torch.exp(-torch.abs(x))))
+        per_node = torch.sum(per_entry, dim=-1) * mask
+        loss = torch.sum(per_node) / max(float(batch.num_nodes), 1.0)
+        tp, fp, fn = masked_f1_counts(x, z, mask)
+        return {"loss": loss, "f1_score": f1_from_counts(tp, fp, fn),
+                "num_graphs": batch.num_graphs,
+                "f1_tp": tp, "f1_fp": fp, "f1_fn": fn}

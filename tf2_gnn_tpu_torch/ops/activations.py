@@ -1,0 +1,49 @@
+"""Activation-function registry (port of ``tf2_gnn_tpu/ops/activations.py``).
+
+The reference's name->fn lookup, with its tanh-approximated GELU and a
+leaky_relu pinned to slope 0.2.
+"""
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+Activation = Callable[[torch.Tensor], torch.Tensor]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximated GELU, matching the reference's custom implementation
+    (reference: tf2_gnn/utils/activation.py:7-14)."""
+    cdf = 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                  * (x + 0.044715 * torch.pow(x, 3))))
+    return x * cdf
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+_ACTIVATIONS = {
+    "linear": _identity,
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    # tf.nn.leaky_relu's alpha=0.2 (torch's default slope is 0.01).
+    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.2),
+    "elu": F.elu,
+    "selu": F.selu,
+    "gelu": gelu,
+    "sigmoid": torch.sigmoid,
+}
+
+
+def get_activation_function(name: Optional[str]) -> Activation:
+    """Map an activation name to its function (case-insensitive); ``None``
+    and ``"linear"`` both map to identity."""
+    if name is None:
+        return _identity
+    fn = _ACTIVATIONS.get(name.lower())
+    if fn is None:
+        raise ValueError(f"Unknown activation function: {name}")
+    return fn
+

@@ -1,0 +1,719 @@
+"""Block-pair streamed SpMM for ``out[v] = sum over edges e=(u -> v) of
+scale_e * table[src_e]`` (port of ``tf2_gnn_tpu/ops/pair_spmm.py``).
+
+Host half (numpy, the JAX package's layout byte for byte): the planner sorts
+real edges by (target block, source block), pads each pair's edges into
+chunks of ``E_C`` slots, aligns output-block runs to the plan's grid
+``group`` and spills what does not fit a chunk budget into a small overflow
+list. ``concat_typed_plans`` concatenates per-type plans into the streamed
+single-launch layout. Only the numpy planner is ported; the JAX package's
+C++ planner (``native/src/graphpack.cc``) produces the same layout faster.
+
+Device half: ``pair_stream_joint`` is a ``torch.autograd.Function`` whose
+forward runs the joint kernel (K2, ``pair_spmm_stream_joint``) and whose
+backward runs the stream kernel (K1, ``pair_spmm_stream``) over the
+backward plan. Both kernels are hand-written CUDA (``csrc/pair_stream.cu``).
+Each wrapper runs its plain PyTorch version on a CPU tensor and launches the
+kernel on a CUDA tensor, or raises; there is no fallback between the two.
+"""
+import ctypes
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.constants import SMALL_NUMBER
+from ..utils.device import as_tensor
+from ..utils.shapes import round_up as _round_up
+
+BLK = 128    # rows per node block
+E_C = 128    # edge slots per chunk (one (tgt_block, src_block) pair each)
+GROUP = 16   # chunks per group in the forward plan (all share one target block)
+# The BACKWARD plan uses a smaller group: its output blocks are merged
+# source rows, whose runs are shorter than the forward plan's target runs,
+# so GROUP-16 run alignment would pad it ~2x. Each plan's group is encoded
+# by its array shapes (src_blk.size // grp_tgt.size).
+BWD_GROUP = 8
+# Feature tile of the JAX package's Pallas kernels (the TPU's 128 lanes).
+# The CUDA kernels mask the ragged feature edge and need no padding; the
+# constant is kept for layout parity with the reference.
+TILE = 128
+
+
+# ---------------------------------------------------------------------------
+# Host half: plans (numpy)
+
+
+class PairPlan(NamedTuple):
+    """Host-built plan for one direction.
+
+    ``rel_*`` use sentinel ``BLK`` on padded slots; ``src_blk``/``grp_tgt``
+    address table/output blocks per chunk/group. Absolute slot ids:
+    ``srcabs = src_blk[slot // E_C] * BLK + rel_src`` (invalid where
+    ``rel_src >= BLK``), likewise for targets via ``grp_tgt``.
+    """
+
+    rel_src: np.ndarray    # int32 [C, E_C]
+    rel_tgt: np.ndarray    # int32 [C, E_C]
+    src_blk: np.ndarray    # int32 [C]
+    grp_tgt: np.ndarray    # int32 [C // group]; group = C // grp_tgt.size
+
+
+def plan_group(src_blk, grp_tgt) -> int:
+    """Chunks per group of a plan, encoded by its array shapes."""
+    return src_blk.shape[0] // grp_tgt.shape[0]
+
+
+class PairPlans(NamedTuple):
+    """Forward + backward plans + overflow edges + per-slot 1/deg scales
+    (``inv_*``, precomputed on the host; slots without a real edge carry
+    scale 0)."""
+
+    fwd: PairPlan          # out rows = num_nodes (scatter by target)
+    bwd: PairPlan          # out rows = table rows (gradient scatter by source)
+    ovf_src: np.ndarray    # int32 [OVF] merged source row ids (sentinel 0)
+    ovf_tgt: np.ndarray    # int32 [OVF] target ids (sentinel num_nodes)
+    inv_fwd: np.ndarray    # f32 [C_f * E_C] 1/deg scale per forward slot
+    inv_bwd: np.ndarray    # f32 [C_b * E_C] 1/deg scale per backward slot
+    inv_ovf: np.ndarray    # f32 [OVF] 1/deg scale per overflow slot
+
+    def astuple(self) -> Tuple[np.ndarray, ...]:
+        return (tuple(self.fwd) + tuple(self.bwd)
+                + (self.ovf_src, self.ovf_tgt,
+                   self.inv_fwd, self.inv_bwd, self.inv_ovf))
+
+
+def _plan_one_direction(
+    src: np.ndarray, tgt: np.ndarray, chunk_budget: Optional[int],
+    group: int = GROUP,
+) -> Tuple[PairPlan, np.ndarray, np.ndarray]:
+    """Pair-chunk one direction. ``chunk_budget=None`` sizes the plan to the
+    data. Returns (plan, overflow_edge_mask, edge_slot): the mask marks input
+    edges that did not fit the chunk budget (smallest pairs spill first) and
+    ``edge_slot[i]`` is input edge i's slot (-1 when spilled). ``group``
+    chunks share one target block (runs pad to a multiple of it);
+    ``chunk_budget`` must divide by it.
+    """
+    n = src.shape[0]
+    overflow_mask = np.zeros((n,), bool)
+    edge_slot = np.full((n,), -1, np.int64)
+    if chunk_budget is not None and chunk_budget % group:
+        raise ValueError(
+            f"pair chunk budget {chunk_budget} not a multiple of {group}")
+
+    if n == 0:
+        chunk_budget = chunk_budget or group
+        num_groups = chunk_budget // group
+        rel = np.full((chunk_budget, E_C), BLK, np.int32)
+        plan = PairPlan(rel, rel.copy(),
+                        np.zeros((chunk_budget,), np.int32),
+                        np.zeros((num_groups,), np.int32))
+        return plan, overflow_mask, edge_slot
+
+    sb = src // BLK
+    tb = tgt // BLK
+    order = np.lexsort((sb, tb))
+    s_src, s_tgt, s_sb, s_tb = src[order], tgt[order], sb[order], tb[order]
+    pair = s_tb.astype(np.int64) * (int(sb.max()) + 2) + s_sb
+    change = np.flatnonzero(np.diff(pair)) + 1
+    starts = np.concatenate(([0], change))
+    counts = np.diff(np.concatenate((starts, [n])))
+    keep_pair = np.ones(starts.shape[0], bool)
+
+    def grouping(keep):
+        """Per-kept-pair chunk starts with tgt-run group alignment."""
+        p_tb = s_tb[starts[keep]]
+        p_chunks = (counts[keep] + E_C - 1) // E_C
+        run_change = np.flatnonzero(np.diff(p_tb)) + 1
+        run_starts = np.concatenate(([0], run_change))
+        run_ends = np.concatenate((run_change, [p_tb.shape[0]]))
+        csum = np.concatenate(([0], np.cumsum(p_chunks)))
+        run_sizes = csum[run_ends] - csum[run_starts]
+        run_padded = ((run_sizes + group - 1) // group) * group
+        run_base = np.concatenate(([0], np.cumsum(run_padded)))[:-1]
+        pair_run = np.repeat(np.arange(run_starts.shape[0]),
+                             run_ends - run_starts)
+        pair_off = csum[:-1] - csum[run_starts][pair_run]
+        chunk_start = run_base[pair_run] + pair_off
+        total = int(run_base[-1] + run_padded[-1]) if run_padded.size else 0
+        return chunk_start, p_chunks, total
+
+    chunk_start, p_chunks, total = grouping(keep_pair)
+    if chunk_budget is None:
+        chunk_budget = max(total, group)
+    if total > chunk_budget:
+        # Spill smallest pairs (least dense) until fit, dropping batches of
+        # pairs per re-grouping pass.
+        by_size = list(np.argsort(counts, kind="stable"))
+        while total > chunk_budget and by_size:
+            need = total - chunk_budget
+            acc = 0
+            while by_size and acc < need:
+                idx = by_size.pop(0)
+                if keep_pair[idx]:
+                    keep_pair[idx] = False
+                    acc += int((counts[idx] + E_C - 1) // E_C)
+            chunk_start, p_chunks, total = grouping(keep_pair)
+        if total > chunk_budget:  # pragma: no cover - all pairs spilled
+            keep_pair[:] = False
+            total = 0
+
+    rel_src = np.full((chunk_budget * E_C,), BLK, np.int32)
+    rel_tgt = np.full((chunk_budget * E_C,), BLK, np.int32)
+    src_blk = np.zeros((chunk_budget,), np.int32)
+    tgt_blk = np.zeros((chunk_budget,), np.int32)
+
+    kept_idx = np.flatnonzero(keep_pair)
+    if kept_idx.size:
+        kept_edge = np.repeat(keep_pair, counts)
+        e_counts = counts[kept_idx]
+        offs = (np.arange(n) - np.repeat(starts, counts))[kept_edge]
+        slot = np.repeat(chunk_start, e_counts) * E_C + offs
+        rel_src[slot] = (s_src - s_sb * BLK)[kept_edge]
+        rel_tgt[slot] = (s_tgt - s_tb * BLK)[kept_edge]
+        edge_slot[order[kept_edge]] = slot
+        chunk_pair = np.full((chunk_budget,), -1, np.int64)
+        tot = int(p_chunks.sum())
+        pair_of_chunk = np.repeat(np.arange(kept_idx.shape[0]), p_chunks)
+        csum_pc = np.concatenate(([0], np.cumsum(p_chunks)))[:-1]
+        ch_idx = (np.repeat(chunk_start, p_chunks)
+                  + np.arange(tot) - np.repeat(csum_pc, p_chunks))
+        chunk_pair[ch_idx] = pair_of_chunk
+        have = chunk_pair >= 0
+        src_blk[have] = s_sb[starts[kept_idx]][chunk_pair[have]]
+        tgt_blk[have] = s_tb[starts[kept_idx]][chunk_pair[have]]
+        # Padding chunks inherit a non-decreasing tgt block and the previous
+        # real chunk's src block (the reference layout, kept byte for byte).
+        if not have.all():
+            fill = np.maximum.accumulate(np.where(have, tgt_blk, 0))
+            tgt_blk[~have] = fill[~have]
+            last_real = np.maximum.accumulate(
+                np.where(have, np.arange(chunk_budget), 0))
+            src_blk[~have] = src_blk[last_real[~have]]
+    if not keep_pair.all():
+        spilled_edge_sorted = np.repeat(~keep_pair, counts)
+        overflow_mask[order[spilled_edge_sorted]] = True
+
+    plan = PairPlan(
+        rel_src.reshape(chunk_budget, E_C),
+        rel_tgt.reshape(chunk_budget, E_C),
+        src_blk,
+        tgt_blk[::group].copy(),
+    )
+    return plan, overflow_mask, edge_slot
+
+
+def _host_inv_degree_scales(fwd_slots: int, edge_slot_fwd,
+                            bwd_slots: int, edge_slot_bwd,
+                            ovf_src, ovf_tgt,
+                            all_src, all_tgt, v: int, src_space: int,
+                            num_types: int, merge_targets: bool = False):
+    """Per-slot 1/(per-type in-degree + eps) for fwd/bwd/overflow slots
+    (reference gnn_edge_mlp.py:102-106): deg_l(t) counts real edges of type
+    l into t. Padded slots keep 0."""
+    if all_src.size:
+        if merge_targets:
+            idx = all_tgt
+        else:
+            idx = (all_src // src_space) * v + all_tgt
+        deg = np.bincount(idx, minlength=num_types * v).astype(np.float32)
+        inv_edge = (1.0 / (deg + SMALL_NUMBER)).astype(np.float32)[idx]
+    else:
+        deg = np.zeros((num_types * v,), np.float32)
+        inv_edge = np.zeros((0,), np.float32)
+
+    inv_fwd = np.zeros((fwd_slots,), np.float32)
+    m = edge_slot_fwd >= 0
+    inv_fwd[edge_slot_fwd[m]] = inv_edge[m]
+    inv_bwd = np.zeros((bwd_slots,), np.float32)
+    m = edge_slot_bwd >= 0
+    inv_bwd[edge_slot_bwd[m]] = inv_edge[m]
+
+    out_rows = num_types * v if merge_targets else v
+    inv = (1.0 / (deg + SMALL_NUMBER)).astype(np.float32)
+    top = inv.shape[0] - 1
+    ovf_valid = ovf_tgt < out_rows
+    if merge_targets:
+        ovf_idx = np.minimum(ovf_tgt, top)
+    else:
+        ovf_l = ovf_src.astype(np.int64) // src_space
+        ovf_idx = np.minimum(ovf_l * v + np.minimum(ovf_tgt, v - 1), top)
+    inv_ovf = (inv[ovf_idx] * ovf_valid).astype(np.float32)
+    return inv_fwd, inv_bwd, inv_ovf
+
+
+def _merged_edges(sources_per_type, targets_per_type, counts_per_type,
+                  v: int, src_space: int, merge_targets: bool):
+    srcs, tgts = [], []
+    for l in range(len(sources_per_type)):
+        c = int(counts_per_type[l])
+        srcs.append(np.asarray(sources_per_type[l][:c], np.int64)
+                    + l * src_space)
+        tgts.append(np.asarray(targets_per_type[l][:c], np.int64)
+                    + (l * v if merge_targets else 0))
+    all_src = np.concatenate(srcs) if srcs else np.zeros((0,), np.int64)
+    all_tgt = np.concatenate(tgts) if tgts else np.zeros((0,), np.int64)
+    return all_src, all_tgt
+
+
+def build_pair_plans(
+    sources_per_type,
+    targets_per_type,
+    counts_per_type,
+    num_nodes_padded: int,
+    src_space: int = None,
+    chunk_budget_fwd: int = None,
+    chunk_budget_bwd: int = None,
+    overflow_budget: int = 2048,
+    merge_targets: bool = False,
+    overflow_size: int = None,
+    group_fwd: int = None,
+    group_bwd: int = None,
+) -> PairPlans:
+    """Build forward+backward pair plans over ALL edge types of a batch.
+
+    Sources are merged into the stacked row space ``l * src_space + u``
+    (matching the [L*V, H] node tables). ``merge_targets=True`` puts targets
+    in the merged space ``l * V + t`` as well (per-type aggregates).
+    """
+    v = num_nodes_padded
+    if src_space is None:
+        src_space = v
+    group_fwd = GROUP if group_fwd is None else group_fwd
+    group_bwd = BWD_GROUP if group_bwd is None else group_bwd
+    num_types = len(sources_per_type)
+    out_rows = num_types * v if merge_targets else v
+    all_src, all_tgt = _merged_edges(sources_per_type, targets_per_type,
+                                     counts_per_type, v, src_space,
+                                     merge_targets)
+
+    fwd, ovf_f, slot_f = _plan_one_direction(all_src, all_tgt,
+                                             chunk_budget_fwd,
+                                             group=group_fwd)
+    bwd, ovf_b, slot_b = _plan_one_direction(all_tgt, all_src,
+                                             chunk_budget_bwd,
+                                             group=group_bwd)
+    ovf = ovf_f | ovf_b  # an edge must take the same path in fwd and bwd
+    if ovf.any():
+        # Re-plan excluding ALL overflow edges so fwd/bwd stay consistent
+        # (shapes fixed by the first pass).
+        keep = ~ovf
+        fwd, extra_f, sf_k = _plan_one_direction(all_src[keep],
+                                                 all_tgt[keep],
+                                                 fwd.rel_src.shape[0],
+                                                 group=group_fwd)
+        bwd, extra_b, sb_k = _plan_one_direction(all_tgt[keep],
+                                                 all_src[keep],
+                                                 bwd.rel_src.shape[0],
+                                                 group=group_bwd)
+        if extra_f.any() or extra_b.any():  # pragma: no cover
+            raise AssertionError("pair plan did not converge")
+        slot_f = np.full(all_src.shape, -1, np.int64)
+        slot_b = np.full(all_src.shape, -1, np.int64)
+        slot_f[keep] = sf_k
+        slot_b[keep] = sb_k
+    num_overflow = int(ovf.sum())
+    if num_overflow > overflow_budget:
+        raise ValueError(
+            f"{num_overflow} edges spilled the pair-chunk budget "
+            f"(fwd {chunk_budget_fwd} / bwd {chunk_budget_bwd}) but the "
+            f"overflow budget is {overflow_budget}."
+        )
+    # Overflow arrays are sized by the real spill (zero-size skips the
+    # overflow term); callers needing a fixed shape pass overflow_size.
+    ovf_slots = (_round_up(num_overflow, 8) if num_overflow
+                 else 0) if overflow_size is None else overflow_size
+    if num_overflow > ovf_slots:
+        raise ValueError(
+            f"{num_overflow} spilled edges exceed overflow_size {ovf_slots}."
+        )
+    ovf_src = np.zeros((ovf_slots,), np.int32)
+    ovf_tgt = np.full((ovf_slots,), out_rows, np.int32)  # discard row
+    if num_overflow:
+        ovf_src[:num_overflow] = all_src[ovf]
+        ovf_tgt[:num_overflow] = all_tgt[ovf]
+    inv_fwd, inv_bwd, inv_ovf = _host_inv_degree_scales(
+        fwd.rel_src.size, slot_f, bwd.rel_src.size, slot_b,
+        ovf_src, ovf_tgt, all_src, all_tgt, v, src_space, num_types,
+        merge_targets,
+    )
+    return PairPlans(fwd, bwd, ovf_src, ovf_tgt, inv_fwd, inv_bwd, inv_ovf)
+
+
+def measure_pair_chunks(
+    sources_per_type, targets_per_type, counts_per_type,
+    num_nodes_padded: int, src_space: int = None,
+    merge_targets: bool = False,
+    group_fwd: int = GROUP,
+    group_bwd: int = BWD_GROUP,
+) -> Tuple[int, int]:
+    """Chunk counts both directions would need for this batch."""
+    v = num_nodes_padded
+    if src_space is None:
+        src_space = v
+    all_src, all_tgt = _merged_edges(sources_per_type, targets_per_type,
+                                     counts_per_type, v, src_space,
+                                     merge_targets)
+    fwd, _, _ = _plan_one_direction(all_src, all_tgt, None, group=group_fwd)
+    bwd, _, _ = _plan_one_direction(all_tgt, all_src, None, group=group_bwd)
+    return fwd.rel_src.shape[0], bwd.rel_src.shape[0]
+
+
+def choose_pair_groups(
+    sources_per_type, targets_per_type, counts_per_type,
+    num_nodes_padded: int, src_space: int = None,
+    merge_targets: bool = False,
+    candidates: Tuple[int, ...] = (8, 16),
+) -> Tuple[int, int]:
+    """Pick (group_fwd, group_bwd) by measured run statistics: cost =
+    padded_chunks + 6 * groups (the reference's cost model, kept so the
+    port's plans are the reference's)."""
+    def cost_of(group, swap):
+        f, b = measure_pair_chunks(
+            sources_per_type, targets_per_type, counts_per_type,
+            num_nodes_padded, src_space=src_space,
+            merge_targets=merge_targets,
+            group_fwd=group if not swap else GROUP,
+            group_bwd=group if swap else BWD_GROUP,
+        )
+        chunks = b if swap else f
+        return chunks + 6 * (chunks // group)
+
+    best_f = min(candidates, key=lambda g: cost_of(g, swap=False))
+    best_b = min(candidates, key=lambda g: cost_of(g, swap=True))
+    return best_f, best_b
+
+
+def concat_typed_plans(plans_typed, v_src: int, v_out: int,
+                       normalize: bool):
+    """Concatenate per-type ``PairPlans.astuple()`` tuples into the streamed
+    layout (numpy): (scales, fwd arrays + grp_type, bwd arrays + grp_type,
+    global overflow ids). Forward output blocks globalize to the stacked
+    [L*Vo] target row space, backward output blocks to the stacked [L*Vs]
+    source row space; per-slot scales are the host-precomputed ``inv_*``
+    (normalize) or unit scales. All types must share each direction's
+    group."""
+    plans_typed = [tuple(np.asarray(a) for a in p) for p in plans_typed]
+    num_types = len(plans_typed)
+    gf = plan_group(plans_typed[0][2], plans_typed[0][3])
+    gb = plan_group(plans_typed[0][6], plans_typed[0][7])
+    for ty, p in enumerate(plans_typed[1:], start=1):
+        got = (plan_group(p[2], p[3]), plan_group(p[6], p[7]))
+        if got != (gf, gb):
+            raise ValueError(
+                f"concat_typed_plans: type {ty} plan groups {got} differ "
+                f"from type 0's ({gf}, {gb}); build every per-type plan "
+                "with one shared (group_fwd, group_bwd) config."
+            )
+
+    def cat(i):
+        return np.concatenate([p[i] for p in plans_typed])
+
+    def cat_groups(i, out_blocks):
+        parts, types = [], []
+        for ty, p in enumerate(plans_typed):
+            parts.append((p[i] + ty * out_blocks).astype(np.int32))
+            types.append(np.full(p[i].shape, ty, np.int32))
+        return np.concatenate(parts), np.concatenate(types)
+
+    grp_tgt_f, grp_type_f = cat_groups(3, v_out // BLK)
+    grp_tgt_b, grp_type_b = cat_groups(7, v_src // BLK)
+
+    ovf_srcs, ovf_tgts, ovf_scales = [], [], []
+    for ty, p in enumerate(plans_typed):
+        o_src, o_tgt = p[8], p[9]
+        ovf_srcs.append((ty * v_src + o_src).astype(np.int32))
+        # Per-type sentinel (== v_out) maps to the global discard row
+        # L*Vo -- NOT ty*v_out + v_out, a real row of the next type.
+        ovf_tgts.append(np.where(o_tgt >= v_out, num_types * v_out,
+                                 ty * v_out + o_tgt).astype(np.int32))
+        if normalize:
+            ovf_scales.append(p[12])
+        else:
+            ovf_scales.append((o_tgt < v_out).astype(np.float32))
+    if normalize:
+        scale_fwd, scale_bwd = cat(10), cat(11)
+    else:
+        scale_fwd = np.ones((sum(p[0].size for p in plans_typed),),
+                            np.float32)
+        scale_bwd = np.ones((sum(p[4].size for p in plans_typed),),
+                            np.float32)
+    return (scale_fwd, scale_bwd, np.concatenate(ovf_scales),
+            cat(0), cat(1), cat(2), grp_tgt_f, grp_type_f,
+            cat(4), cat(5), cat(6), grp_tgt_b, grp_type_b,
+            np.concatenate(ovf_srcs), np.concatenate(ovf_tgts))
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamJointPlan:
+    """The operands of ``pair_stream_joint`` for one batch: the
+    concatenated per-type plans with LOCAL forward output blocks and LOCAL
+    overflow targets (sentinel ``v_out``), and the all-zero backward types
+    (one un-broadcast [Vo, H] cotangent slab). Built once per batch on the
+    host (``stream_joint_plan``) and moved with ``.to(device)``."""
+
+    scale_fwd: object
+    scale_bwd: object
+    ovf_scale: object
+    rel_src_f: object
+    rel_tgt_f: object
+    src_blk_f: object
+    grp_tgt_fl: object
+    grp_type_f: object
+    rel_src_b: object
+    rel_tgt_b: object
+    src_blk_b: object
+    grp_tgt_b: object
+    type_b_zeros: object
+    ovf_src: object
+    ovf_tgt_l: object
+    v_src: int
+    v_out: int
+    num_types: int
+
+    def to(self, device) -> "StreamJointPlan":
+        """Every array field as a tensor on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: as_tensor(getattr(self, f.name), device)
+            for f in dataclasses.fields(self) if f.type is object})
+
+
+def stream_joint_plan(plans_typed, v_src: int,
+                      v_out: int) -> StreamJointPlan:
+    """Concatenate per-type plans (``concat_typed_plans``, with the 1/deg
+    scales; ``pair_stream_joint`` substitutes unit scales) and localize the
+    forward output blocks and overflow targets (the localisation of the
+    reference's ``pair_stream_joint_from_typed``). Sentinel overflow rows
+    carry zero scales, so mapping them to the pad row ``v_out`` is safe."""
+    num_types = len(plans_typed)
+    (sf, sb, so, rsf, rtf, sbf, gtf, gyf, rsb, rtb, sbb, gtb, gyb,
+     osrc, otgt) = concat_typed_plans(plans_typed, v_src, v_out, True)
+    gtf_l = (gtf - gyf * (v_out // BLK)).astype(np.int32)
+    otgt_l = np.where(otgt >= num_types * v_out, v_out,
+                      otgt % v_out).astype(np.int32)
+    return StreamJointPlan(
+        sf, sb, so, rsf, rtf, sbf, gtf_l, gyf, rsb, rtb, sbb, gtb,
+        np.zeros_like(gyb), osrc, otgt_l, v_src, v_out, num_types)
+
+
+# ---------------------------------------------------------------------------
+# Device half: the two kernels, their plain versions and the autograd op
+
+# Launch counts of the two CUDA kernels: each wrapper adds one where it
+# launches its kernel, and nowhere else.
+LAUNCHES = {"pair_stream": 0, "pair_stream_joint": 0}
+
+_SOURCE = "pair_stream.cu"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _stream_slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt, grp_type,
+                         v: int):
+    """Global (src_row, out_row, valid) per slot of the streamed layout:
+    sources globalize through the group's TYPE (``ty * V + src_blk * BLK +
+    rel``), outputs through the group's output block."""
+    rel_s = rel_src.reshape(-1).long()
+    rel_t = rel_tgt.reshape(-1).long()
+    chunk = torch.arange(rel_s.shape[0], device=rel_s.device) // E_C
+    group = plan_group(src_blk, grp_tgt)
+    ty = grp_type.long()[chunk // group]
+    srcabs = (ty * v + src_blk.long()[chunk] * BLK
+              + torch.clamp(rel_s, max=BLK - 1))
+    tgtabs = grp_tgt.long()[chunk // group] * BLK + torch.clamp(rel_t, max=BLK - 1)
+    valid = (rel_s < BLK) & (rel_t < BLK)
+    return srcabs, tgtabs, valid
+
+
+def pair_spmm_stream_plain(tables, scale, rel_src, rel_tgt, src_blk,
+                           grp_tgt, grp_type, v: int, out_rows: int):
+    """Plain PyTorch version of both kernels: gather every slot's row
+    (clipped, as ``jnp.take(mode="clip")``), upcast to f32, scale, and
+    ``index_add_`` into ``out_rows`` rows (invalid slots go to a discard
+    row)."""
+    srcabs, tgtabs, valid = _stream_slot_abs_ids(
+        rel_src, rel_tgt, src_blk, grp_tgt, grp_type, v)
+    srcabs = torch.clamp(srcabs, 0, tables.shape[0] - 1)
+    msgs = tables[srcabs].to(torch.float32)
+    msgs = msgs * (scale.reshape(-1) * valid)[:, None]
+    seg = torch.where(valid & (tgtabs < out_rows), tgtabs,
+                      torch.full_like(tgtabs, out_rows))
+    out = torch.zeros((out_rows + 1, tables.shape[1]), dtype=torch.float32,
+                      device=tables.device)
+    out.index_add_(0, seg, msgs)
+    return out[:out_rows]
+
+
+def _launch(entry: str, tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
+            grp_type, v: int, out_rows: int):
+    """Launch one CUDA kernel of ``csrc/pair_stream.cu`` on the current
+    stream into a fresh zero-initialised f32 output."""
+    from .cuda_build import load_library
+
+    lib = load_library(_SOURCE)
+    if tables.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{entry}: tables must be float32 or bfloat16, "
+                        f"got {tables.dtype}")
+    if tables.dim() != 2 or not tables.is_contiguous():
+        raise ValueError(f"{entry}: tables must be a contiguous 2-D tensor")
+    ints = {"rel_src": rel_src, "rel_tgt": rel_tgt, "src_blk": src_blk,
+            "grp_tgt": grp_tgt, "grp_type": grp_type}
+    for name, a in ints.items():
+        if a.dtype != torch.int32 or not a.is_contiguous():
+            raise TypeError(f"{entry}: {name} must be contiguous int32")
+        if a.device != tables.device:
+            raise ValueError(f"{entry}: {name} is on {a.device}, tables on "
+                             f"{tables.device}")
+    if (scale.dtype != torch.float32 or not scale.is_contiguous()
+            or scale.device != tables.device):
+        raise TypeError(f"{entry}: scale must be contiguous float32 on the "
+                        "tables' device")
+    num_chunks = src_blk.shape[0]
+    group = plan_group(src_blk, grp_tgt)
+    num_groups = grp_tgt.shape[0]
+    if (rel_src.numel() != num_chunks * E_C or rel_tgt.numel() != rel_src.numel()
+            or scale.numel() != rel_src.numel() or grp_type.shape != grp_tgt.shape
+            or group * num_groups != num_chunks or num_groups == 0):
+        raise ValueError(f"{entry}: inconsistent plan shapes")
+    h = tables.shape[1]
+    out = torch.zeros((out_rows, h), dtype=torch.float32, device=tables.device)
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(tables.device).cuda_stream
+    err = fn(tables.device.index or 0, _DTYPE_CODES[tables.dtype],
+             tables.data_ptr(), tables.shape[0], h, scale.data_ptr(),
+             rel_src.data_ptr(), rel_tgt.data_ptr(), src_blk.data_ptr(),
+             grp_tgt.data_ptr(), grp_type.data_ptr(), num_groups, group, v,
+             out.data_ptr(), out_rows, stream)
+    if err != 0:
+        lib.pair_stream_error_string.restype = ctypes.c_char_p
+        lib.pair_stream_error_string.argtypes = [ctypes.c_int]
+        msg = lib.pair_stream_error_string(err).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
+    return out
+
+
+def _dispatch(name: str, entry: str, tables, *args):
+    if tables.device.type == "cpu":
+        return pair_spmm_stream_plain(tables, *args)
+    if tables.device.type != "cuda":
+        raise TypeError(f"{name}: unsupported device {tables.device}")
+    out = _launch(entry, tables, *args)
+    LAUNCHES[name] += 1
+    return out
+
+
+def pair_spmm_stream(tables, scale, rel_src, rel_tgt, src_blk, grp_tgt_g,
+                     grp_type, v: int, out_rows: int):
+    """K1, the streamed per-type kernel: f32 [out_rows, H] with GLOBAL
+    output blocks ``grp_tgt_g``; ``tables`` [L*v, H] f32 or bf16."""
+    return _dispatch("pair_stream", "pair_stream_launch", tables, scale,
+                     rel_src, rel_tgt, src_blk, grp_tgt_g, grp_type, v,
+                     out_rows)
+
+
+def pair_spmm_stream_joint(tables, scale, rel_src, rel_tgt, src_blk,
+                           grp_tgt_l, grp_type, v: int, v_out: int):
+    """K2, the joint kernel: the sum over all types into f32 [v_out, H],
+    with LOCAL output blocks ``grp_tgt_l``."""
+    return _dispatch("pair_stream_joint", "pair_stream_joint_launch", tables,
+                     scale, rel_src, rel_tgt, src_blk, grp_tgt_l, grp_type,
+                     v, v_out)
+
+
+class PairStreamJoint(torch.autograd.Function):
+    """JOINT sum over types, f32 [Vo, H]: ``out[t] = sum over ALL edges
+    (u -> t, type l) of scale_e * tables[l*Vs + u]``.
+
+    Forward: the tables cast to ``stream_dtype``, the joint kernel K2, plus
+    the overflow edges in plain torch. Backward: the stream kernel K1 over
+    the backward plan with all-zero types, so every backward group reads
+    the one un-broadcast [Vo, H] cotangent slab. Unlike the TPU, where a
+    VMEM budget routes large windows to stream-plus-reduce, the joint output
+    always lives in device memory here, so the forward is always the joint
+    kernel.
+
+    The cast to the stream dtype happens inside the op so that the table
+    gradient leaves it in f32: in the reference the transpose of
+    ``astype(bf16)`` passes the f32 cotangent through unrounded, while a
+    bf16 input here would have its gradient rounded to bf16.
+    """
+
+    @staticmethod
+    def forward(ctx, tables_flat, plan: StreamJointPlan, scale_fwd,
+                scale_bwd, ovf_scale, stream_dtype):
+        tables = tables_flat.to(stream_dtype).contiguous()
+        out = pair_spmm_stream_joint(
+            tables, scale_fwd, plan.rel_src_f, plan.rel_tgt_f,
+            plan.src_blk_f, plan.grp_tgt_fl, plan.grp_type_f, plan.v_src,
+            plan.v_out)
+        if plan.ovf_src.shape[0]:
+            msgs = tables[plan.ovf_src.long()].to(torch.float32)
+            msgs = msgs * ovf_scale[:, None]
+            ext = torch.zeros((plan.v_out + 1, out.shape[1]),
+                              dtype=torch.float32, device=out.device)
+            ext.index_add_(0, plan.ovf_tgt_l.long(), msgs)
+            out = out + ext[:plan.v_out]
+        ctx.plan = plan
+        ctx.stream_dtype = stream_dtype
+        ctx.save_for_backward(scale_bwd, ovf_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        plan: StreamJointPlan = ctx.plan
+        scale_bwd, ovf_scale = ctx.saved_tensors
+        rows = plan.num_types * plan.v_src
+        # The cotangent streams at the FORWARD table dtype (bf16 tables:
+        # half the gather bytes), as in the reference (pair_spmm.py:1309).
+        g_stream = g.to(ctx.stream_dtype).contiguous()
+        d_tables = pair_spmm_stream(
+            g_stream, scale_bwd, plan.rel_src_b, plan.rel_tgt_b,
+            plan.src_blk_b, plan.grp_tgt_b, plan.type_b_zeros, plan.v_out,
+            rows)
+        if plan.ovf_src.shape[0]:
+            g_rows = g[torch.clamp(plan.ovf_tgt_l.long(), max=plan.v_out - 1)]
+            g_rows = g_rows.to(torch.float32) * ovf_scale[:, None]
+            d_tables.index_add_(0, plan.ovf_src.long(), g_rows)
+        return d_tables, None, None, None, None, None
+
+
+def pair_stream_joint(tables_flat, plan: StreamJointPlan, normalize: bool,
+                      stream_dtype: torch.dtype = None) -> torch.Tensor:
+    """Apply the joint streamed op with the plan's 1/deg scales
+    (``normalize``) or unit scales (sentinel slots are skipped either way;
+    overflow slots keep their validity mask). ``stream_dtype`` (default:
+    the tables' dtype) is the dtype the kernels gather."""
+    if normalize:
+        sf, sb, so = plan.scale_fwd, plan.scale_bwd, plan.ovf_scale
+    else:
+        sf = torch.ones_like(plan.scale_fwd)
+        sb = torch.ones_like(plan.scale_bwd)
+        so = (plan.ovf_tgt_l < plan.v_out).to(torch.float32)
+    return PairStreamJoint.apply(tables_flat, plan, sf, sb, so,
+                                 stream_dtype or tables_flat.dtype)
+
+
+def pair_stream_joint_from_typed(tables_flat, plans_typed, v_out: int,
+                                 normalize: bool,
+                                 stream_dtype: torch.dtype = None
+                                 ) -> torch.Tensor:
+    """Joint [Vo, H] sum over per-type plans (host arrays): concatenate and
+    localize them on the host, move them to the tables' device, and run
+    ``pair_stream_joint``. Model code builds the plan once per batch
+    (``GraphBatch.pair_stream_joint``) and calls ``pair_stream_joint``."""
+    v_src = tables_flat.shape[0] // len(plans_typed)
+    plan = stream_joint_plan(plans_typed, v_src, v_out)
+    return pair_stream_joint(tables_flat, plan.to(tables_flat.device),
+                             normalize, stream_dtype)
