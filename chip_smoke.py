@@ -2,26 +2,39 @@
 """Drive the PyTorch port (``tf2_gnn_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py            # the check, on card 0
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of a step
+    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
+                                     # each path's train step
 
 Phases, each of which fails the run by raising:
 
 1. Build the hand-written CUDA kernels from ``tf2_gnn_tpu_torch/csrc``
    (one nvcc per source, started together) and print the card.
-2. Kernel checks at the PPI workload's real plan shapes: the joint kernel
-   (K2, forward layout) and the stream kernel (K1, backward layout with
-   all-zero types) against their plain PyTorch versions on the card, bf16
-   tables, f32 outputs.
-3. The shipped PPI_RGCN model at full width (4 layers, hidden 320, bf16 edge
-   stream, input dropout 0.1, Adam at lr 1e-3), random weights from a seed:
-   one eval forward held against the same model run through the plain
-   versions; then the main path, a few train steps with the launch counts
-   set to 0 just before and read just after (each kernel must launch once
-   per layer per step).
-4. Timings (CUDA events): each kernel, its plain version and one PyTorch
-   library call computing the same function (``torch.sparse.mm``, CSR
-   built from the plan outside the timed window), the train step and the
-   eval forward.
+2. PPI_RGCN on the per-type-plan PPI batch:
+   a. kernel checks at the real plan shapes: the joint kernel (K2, forward
+      layout) and the stream kernel (K1, backward layout with all-zero
+      types) against their plain PyTorch versions on the card, bf16
+      tables, f32 outputs;
+   b. the shipped PPI_RGCN model at full width (4 layers, hidden 320, bf16
+      edge stream, input dropout 0.1, Adam at lr 1e-3), random weights
+      from a seed: one eval forward held against the same model run
+      through the plain versions; then its main path, a few train steps
+      with the launch counts set to 0 just before and read just after
+      (K1 and K2 must each launch once per layer per step);
+   c. timings (CUDA events): each kernel, its plain version and one
+      PyTorch library call computing the same function
+      (``torch.sparse.mm``, CSR built from the plan outside the timed
+      window), the train step and the eval forward.
+3. PPI_RGAT on the merged-plan PPI batch, the same three steps:
+   a. the expd kernel (B8), one head's merged-plan SpMM (B3) and the fused
+      attention backward (B9) against their plain versions at the real
+      plan shapes;
+   b. the shipped PPI_RGAT model at full width (3 layers, hidden 320, 4
+      heads, tanh, bf16 edge stream, input dropout 0.1, Adam at lr 1e-3):
+      the eval forward against the plain versions, then its main path
+      (per step B8 and B9 launch once per layer, B3 once per head and
+      layer);
+   c. timings as in 2c (B3's library call is ``torch.sparse.mm`` of the
+      expd-scaled CSR; B8 and B9 have no single PyTorch call).
 
 The line before the last two is the JSON ``kernels`` line; then the card's
 name and power limit (nvidia-smi); the last line is the JSON result. Exits
@@ -45,7 +58,8 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 peak outside the tensor cores
 # Kernel vs plain version: both sum f32 products, in different orders
-# (the kernel's atomics reorder run to run).
+# (the kernel's atomics reorder run to run); B8/B9 take expf of the same
+# f32 arguments as torch.exp.
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
 # Whole model, kernels vs plain versions: besides the f32 reorder, a sum
 # that lands on the other side of a bf16 rounding boundary re-rounds one
@@ -93,15 +107,12 @@ def stream_args(plan, direction: str):
             plan.grp_tgt_b, plan.type_b_zeros)
 
 
-def slot_matrix(ps, args, v: int, out_rows: int, in_rows: int):
-    """CSR [out_rows, in_rows] of the plan's valid slots (duplicates summed)
+def slot_matrix(srcabs, tgtabs, valid, scale, out_rows: int, in_rows: int):
+    """CSR [out_rows, in_rows] of a plan's valid slots (duplicates summed)
     in f32 and in bf16, the operands of the library yardstick; also the
     distinct input rows and the valid slot count."""
     import torch
 
-    scale, rel_s, rel_t, src_blk, grp_tgt, grp_type = args
-    srcabs, tgtabs, valid = ps._stream_slot_abs_ids(
-        rel_s, rel_t, src_blk, grp_tgt, grp_type, v)
     idx = torch.stack([tgtabs[valid], srcabs[valid]])
     coo = torch.sparse_coo_tensor(idx, scale.reshape(-1)[valid],
                                   (out_rows, in_rows)).coalesce()
@@ -113,18 +124,24 @@ def slot_matrix(ps, args, v: int, out_rows: int, in_rows: int):
             int(valid.sum()))
 
 
+def bound_ms(nbytes: float, flops: float):
+    """(bound ms, what bounds it): the larger of the bytes over HBM
+    bandwidth and the f32 operations over the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def kernel_bound_ms(rows_read: int, h: int, itemsize: int, slots: int,
                     chunks: int, groups: int, out_rows: int,
                     valid_slots: int):
-    """(bound ms, what bounds it): bytes = distinct table rows read + the
-    plan (12 B a slot, 4 B a chunk, 8 B a group) + the f32 output written
-    once, over HBM bandwidth; operations = a multiply and an add per valid
-    slot and column, over the f32 rate."""
+    """The stream SpMM kernels' bound (K1, K2, B3): bytes = distinct table
+    rows read + the plan (12 B a slot, 4 B a chunk, 8 B a group) + the f32
+    output written once; operations = a multiply and an add per valid slot
+    and column."""
     nbytes = (rows_read * h * itemsize + slots * 12 + chunks * 4
               + groups * 8 + out_rows * h * 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * valid_slots * h / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_ms(nbytes, 2.0 * valid_slots * h)
 
 
 def check_close(name: str, got, want, rtol: float, atol: float) -> float:
@@ -137,43 +154,143 @@ def check_close(name: str, got, want, rtol: float, atol: float) -> float:
     return err
 
 
-def main(argv) -> int:
+def build_model(hypers_file: str, style: str, device, num_types: int):
+    from tf2_gnn_tpu_torch.models.node_multiclass_task import (
+        NodeMulticlassTask,
+    )
+    from tf2_gnn_tpu_torch.workloads import FEATURE_DIM, NUM_LABELS
+
+    hypers = json.loads((ROOT / "tf2_gnn_tpu_torch" / "harness"
+                         / "default_hypers" / hypers_file).read_text())
+    params = NodeMulticlassTask.get_default_hyperparameters(style)
+    params.update(hypers["model_params"])
+    params["learning_rate"] = 0.001
+    model = NodeMulticlassTask.from_params(
+        params, input_dim=FEATURE_DIM, num_edge_types=num_types,
+        device=device, seed=SEED, num_labels=NUM_LABELS)
+    log(f"model {hypers_file}: "
+        f"{sum(p.numel() for p in model.parameters())} parameters, "
+        f"{params['gnn_num_layers']} layers, hidden {params['gnn_hidden_dim']}, "
+        f"edge stream {params['gnn_edge_dtype']}")
+    return model, params
+
+
+def check_eval_forward(model, batch, labels, patches) -> None:
+    """One eval forward with the kernels against the same model with every
+    wrapper in ``patches`` ((module, name, plain version)) replaced by its
+    plain version."""
     import torch
 
-    device = require_card()
-    sys.path.insert(0, str(ROOT))
+    from tf2_gnn_tpu_torch.workloads import NUM_LABELS
+
+    v = batch.num_nodes_padded
+    with torch.no_grad():
+        (logits,) = model(batch, False)
+        with _patched(patches):
+            (logits_plain,) = model(batch, False)
+        loss = model.compute_task_metrics(batch, (logits,), labels)["loss"]
+        loss_plain = model.compute_task_metrics(
+            batch, (logits_plain,), labels)["loss"]
+    if tuple(logits.shape) != (v, NUM_LABELS):
+        raise AssertionError(f"eval forward: logits of shape "
+                             f"{tuple(logits.shape)}, expected {(v, NUM_LABELS)}")
+    model_err = float((logits - logits_plain).abs().max())
+    if not (torch.isfinite(logits).all() and model_err <= MODEL_ATOL
+            and abs(float(loss) - float(loss_plain))
+            <= LOSS_RTOL * abs(float(loss_plain))):
+        raise AssertionError(
+            f"eval forward: kernels vs plain versions max abs logit err "
+            f"{model_err} (atol {MODEL_ATOL}), loss {float(loss)} vs "
+            f"{float(loss_plain)}")
+    log(f"eval forward vs plain versions: max abs logit err {model_err:.3e}, "
+        f"loss {float(loss):.6f} vs {float(loss_plain):.6f}")
+
+
+def _patched(patches):
+    from contextlib import ExitStack
+
+    stack = ExitStack()
+    for module, name, plain in patches:
+        stack.enter_context(mock.patch.object(module, name, plain))
+    return stack
+
+
+def train_and_count(model, params, batch, labels, counters, expected):
+    """The path's main run: TRAIN_STEPS train steps with every launch
+    count set to 0 just before and read just after; each kernel in
+    ``expected`` must have launched exactly that many times. Returns
+    (state, train_step, eval_step, launches)."""
+    import torch
+
     from tf2_gnn_tpu_torch.harness.optimizers import make_optimizer
     from tf2_gnn_tpu_torch.harness.training import (
         create_train_state,
         make_eval_step,
         make_train_step,
     )
-    from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
-    from tf2_gnn_tpu_torch.ops import cuda_build
-    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
-    from tf2_gnn_tpu_torch.workloads import (
-        FEATURE_DIM,
-        NUM_LABELS,
-        build_ppi_batch,
-    )
 
-    # A reference states its float32 product precision: full f32.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    optimizer = make_optimizer(params, model.parameters())
+    state = create_train_state(model, optimizer, seed=SEED)
+    train_step = make_train_step(model, optimizer)
+    eval_step = make_eval_step(model)
 
-    # -- 1. build --------------------------------------------------------
+    for reset, _ in counters:
+        reset()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = train_step(state, batch, labels)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    launches = {}
+    for _, counts in counters:
+        launches.update(counts)
+    losses = [float(x) for x in losses]
+    log(f"train: {TRAIN_STEPS} steps, losses {losses}, launches {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training did not lower the loss: {losses}")
+    for name, count in expected.items():
+        if launches[name] != count:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
+                f"steps; expected {count}")
+    final = eval_step(batch, labels)
+    if not math.isfinite(float(final["loss"])):
+        raise AssertionError("non-finite eval loss after training")
+    log(f"eval after training: loss {float(final['loss']):.6f}, "
+        f"f1 {float(final['f1_score']):.4f}")
+    return state, train_step, eval_step, launches
+
+
+def time_path(state, train_step, eval_step, batch, labels, real_edges,
+              device, argv, name: str) -> None:
+    import torch
+
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logs = cuda_build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s for "
-        f"{sorted(logs) or 'cached libraries'}")
-    for source, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  {source}: {line.strip()}")
-    log(f"device: {torch.cuda.get_device_name(device)} "
-        f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
+    for _ in range(TIMED_STEPS):
+        state, metrics = train_step(state, batch, labels)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    eval_ms = time_ms(lambda: eval_step(batch, labels), reps=10)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    log(f"{name} train step: {step_ms:.3f} ms ({real_edges / step_ms * 1e3:.4g} "
+        f"edges/s), eval forward: {eval_ms:.3f} ms, peak memory "
+        f"{peak_gib:.2f} GiB")
+    if "--profile" in argv:
+        profile_step(train_step, state, batch, labels, step_ms)
 
-    # -- 2. kernel checks at the real plan shapes ------------------------
+
+def rgcn_path(device, argv):
+    """Phase 2: PPI_RGCN through K1 and K2. Returns their kernel entries."""
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.workloads import build_ppi_batch
+
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     batch, labels, real_edges = build_ppi_batch(SEED, device=device)
     log(f"workload: {real_edges} edges, V={batch.num_nodes_padded}, "
@@ -209,134 +326,238 @@ def main(argv) -> int:
         f"(rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
     del out1, out2, want1, want2
 
-    # -- 3. the full-width model -----------------------------------------
-    hypers = json.loads((ROOT / "tf2_gnn_tpu_torch" / "harness"
-                         / "default_hypers" / "PPI_RGCN.json").read_text())
-    params = NodeMulticlassTask.get_default_hyperparameters("rgcn")
-    params.update(hypers["model_params"])
-    params["learning_rate"] = 0.001
-    model = NodeMulticlassTask.from_params(
-        params, input_dim=FEATURE_DIM, num_edge_types=num_types,
-        device=device, seed=SEED, num_labels=NUM_LABELS)
-    log(f"model: {sum(p.numel() for p in model.parameters())} parameters, "
-        f"{params['gnn_num_layers']} layers, hidden {params['gnn_hidden_dim']}, "
-        f"edge stream {params['gnn_edge_dtype']}")
-
-    with torch.no_grad():
-        (logits,) = model(batch, False)
-        with mock.patch.object(ps, "pair_spmm_stream_joint",
-                               ps.pair_spmm_stream_plain), \
-                mock.patch.object(ps, "pair_spmm_stream",
-                                  ps.pair_spmm_stream_plain):
-            (logits_plain,) = model(batch, False)
-        loss = model.compute_task_metrics(batch, (logits,), labels)["loss"]
-        loss_plain = model.compute_task_metrics(
-            batch, (logits_plain,), labels)["loss"]
-    if tuple(logits.shape) != (v, NUM_LABELS):
-        raise AssertionError(f"eval forward: logits of shape "
-                             f"{tuple(logits.shape)}, expected {(v, NUM_LABELS)}")
-    model_err = float((logits - logits_plain).abs().max())
-    if not (torch.isfinite(logits).all() and model_err <= MODEL_ATOL
-            and abs(float(loss) - float(loss_plain))
-            <= LOSS_RTOL * abs(float(loss_plain))):
-        raise AssertionError(
-            f"eval forward: kernels vs plain versions max abs logit err "
-            f"{model_err} (atol {MODEL_ATOL}), loss {float(loss)} vs "
-            f"{float(loss_plain)}")
-    log(f"eval forward vs plain versions: max abs logit err {model_err:.3e}, "
-        f"loss {float(loss):.6f} vs {float(loss_plain):.6f}")
-    del logits, logits_plain
-
-    optimizer = make_optimizer(params, model.parameters())
-    state = create_train_state(model, optimizer, seed=SEED)
-    train_step = make_train_step(model, optimizer)
-    eval_step = make_eval_step(model)
-
-    ps.reset_launch_counts()
-    losses = []
-    for _ in range(TRAIN_STEPS):
-        state, metrics = train_step(state, batch, labels)
-        losses.append(metrics["loss"])
-    torch.cuda.synchronize()
-    launches = dict(ps.LAUNCHES)
-    losses = [float(x) for x in losses]
-    log(f"train: {TRAIN_STEPS} steps, losses {losses}, launches {launches}")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite training loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"training did not lower the loss: {losses}")
-    per_step = params["gnn_num_layers"]
-    for name, count in launches.items():
-        if count != per_step * TRAIN_STEPS:
-            raise AssertionError(
-                f"{name} launched {count} times in {TRAIN_STEPS} steps; "
-                f"expected {per_step} per step (one per layer)")
-    final = eval_step(batch, labels)
-    if not math.isfinite(float(final["loss"])):
-        raise AssertionError("non-finite eval loss after training")
-    log(f"eval after training: loss {float(final['loss']):.6f}, "
-        f"f1 {float(final['f1_score']):.4f}")
-
-    # -- 4. timings ------------------------------------------------------
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        state, metrics = train_step(state, batch, labels)
-    float(metrics["loss"])
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
-    eval_ms = time_ms(lambda: eval_step(batch, labels), reps=10)
-    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
-    log(f"train step: {step_ms:.3f} ms ({real_edges / step_ms * 1e3:.4g} "
-        f"edges/s), eval forward: {eval_ms:.3f} ms, peak memory "
-        f"{peak_gib:.2f} GiB")
+    model, params = build_model("PPI_RGCN.json", "rgcn", device, num_types)
+    check_eval_forward(model, batch, labels, [
+        (ps, "pair_spmm_stream_joint", ps.pair_spmm_stream_plain),
+        (ps, "pair_spmm_stream", ps.pair_spmm_stream_plain)])
+    per_step = params["gnn_num_layers"] * TRAIN_STEPS
+    state, train_step, eval_step, launches = train_and_count(
+        model, params, batch, labels, [(ps.reset_launch_counts, ps.LAUNCHES)],
+        {"pair_stream": per_step, "pair_stream_joint": per_step})
+    time_path(state, train_step, eval_step, batch, labels, real_edges,
+              device, argv, "PPI_RGCN")
 
     # The library yardstick: torch.sparse.mm of the plan's CSR matrix with
     # the same bf16 table (bf16 output, f32-rounded scales rounded to bf16),
     # and, for reference, with f32 copies of both (the kernel's f32 output).
-    a_fwd, a_fwd16, rows_fwd, valid_fwd = slot_matrix(ps, fwd_args, v, v,
-                                                      num_types * v)
+    a_fwd, a_fwd16, rows_fwd, valid_fwd = slot_matrix(
+        *ps._stream_slot_abs_ids(*fwd_args[1:], v), fwd_args[0], v,
+        num_types * v)
     a_bwd, a_bwd16, rows_bwd, valid_bwd = slot_matrix(
-        ps, bwd_args, v, num_types * v, v)
+        *ps._stream_slot_abs_ids(*bwd_args[1:], v), bwd_args[0],
+        num_types * v, v)
     tables_f32, cot_f32 = tables.float(), cot.float()
     kernels = []
     for name, source_fn, plain_fn, lib_fn, lib32_fn, args, tab, out_rows, \
-            rows, valid, replaces in (
+            rows, valid, replaces, err in (
             ("pair_stream_joint", k2, k2_plain,
              lambda: torch.sparse.mm(a_fwd16, tables),
              lambda: torch.sparse.mm(a_fwd, tables_f32), fwd_args, tables,
              v, rows_fwd, valid_fwd,
-             "tf2_gnn_tpu/ops/pair_spmm.py:1057"),
+             "tf2_gnn_tpu/ops/pair_spmm.py:1057", err2),
             ("pair_stream", k1, k1_plain,
              lambda: torch.sparse.mm(a_bwd16, cot),
              lambda: torch.sparse.mm(a_bwd, cot_f32), bwd_args, cot,
              num_types * v, rows_bwd, valid_bwd,
-             "tf2_gnn_tpu/ops/pair_spmm.py:895")):
-        ms = time_ms(source_fn)
-        plain_ms = time_ms(plain_fn)
-        library_ms = time_ms(lib_fn)
-        library32_ms = time_ms(lib32_fn)
-        lib_err = float((lib32_fn() - source_fn()).abs().max())
+             "tf2_gnn_tpu/ops/pair_spmm.py:895", err1)):
         bound, bound_by = kernel_bound_ms(
             rows, h, tab.element_size(), args[1].numel(),
             args[3].numel(), args[4].numel(), out_rows, valid)
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "tf2_gnn_tpu_torch/csrc/pair_stream.cu",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err2 if name == "pair_stream_joint" else err1,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library_ms,
-        })
-        log(f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"torch.sparse.mm bf16 {library_ms:.4f} ms, f32 "
-            f"{library32_ms:.4f} ms (max abs diff to the kernel "
-            f"{lib_err:.2e}), bound {bound:.4f} ms "
-            f"({bound_by}), {valid} valid of {args[1].numel()} slots, "
-            f"{rows} distinct rows read")
+        kernels.append(time_kernel(
+            name, "tf2_gnn_tpu_torch/csrc/pair_stream.cu", replaces,
+            launches[name], err, source_fn, plain_fn, lib_fn, lib32_fn,
+            bound, bound_by,
+            f"{valid} valid of {args[1].numel()} slots, {rows} distinct "
+            "rows read"))
+    return kernels
 
-    if "--profile" in argv:
-        profile_step(train_step, state, batch, labels, step_ms)
+
+def time_kernel(name, source, replaces, launches, err, source_fn, plain_fn,
+                lib_fn, lib32_fn, bound, bound_by, detail):
+    """One entry of the kernels line: the kernel, its plain version and
+    (where there is one) the library call, timed with CUDA events."""
+    ms = time_ms(source_fn)
+    plain_ms = time_ms(plain_fn)
+    library_ms = None if lib_fn is None else time_ms(lib_fn)
+    line = (f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by}), {detail}")
+    if lib_fn is not None:
+        library32_ms = time_ms(lib32_fn)
+        lib_err = float((lib32_fn() - source_fn()).abs().max())
+        line += (f"; torch.sparse.mm bf16 {library_ms:.4f} ms, f32 "
+                 f"{library32_ms:.4f} ms (max abs diff to the kernel "
+                 f"{lib_err:.2e})")
+    log(line)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def rgat_path(device, argv):
+    """Phase 3: PPI_RGAT through B8, B3 and B9. Returns their entries."""
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_attention as pa
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.workloads import build_ppi_batch
+
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    batch, labels, real_edges = build_ppi_batch(SEED, device=device,
+                                                merged=True)
+    plan = batch.pair_merged
+    v, num_types = batch.num_nodes_padded, batch.num_edge_types
+    log(f"workload (merged plans): {real_edges} edges, V={v}, "
+        f"{plan.rel_src_f.shape[0]} forward / {plan.rel_src_b.shape[0]} "
+        f"backward chunks, {plan.ovf_src.shape[0]} overflow slots, built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    model, params = build_model("PPI_RGAT.json", "rgat", device, num_types)
+    # The kernels' widths on the main path: [L*V, H] hk-major tables with
+    # the heads padded to a divisor of 128 (none at 4 heads).
+    k = model.gnn.mp_layer_0._padded_heads()
+    head_dim = params["gnn_hidden_dim"] // params["gnn_num_heads"]
+    h, rows = head_dim * k, num_types * v
+
+    # Kernel inputs at the main path's shapes and dtypes.
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    table = torch.randn((rows, h), generator=gen,
+                        device=device).to(torch.bfloat16)
+    scores = (0.5 * torch.randn((rows, 2 * k), generator=gen,
+                                device=device)).to(torch.bfloat16)
+    m = pa._stabilise(pa._bound_stabiliser(scores, v, k), torch.bfloat16)
+    dw = torch.randn((v, h), generator=gen, device=device).to(torch.bfloat16)
+    d_denom = torch.randn((v, k), generator=gen, device=device)
+    expd_want = pa.pair_attention_expd_plain(scores, m, *plan.fwd, v, k)
+    head0 = torch.cat([table.reshape(rows, head_dim, k)[:, :, 0],
+                       table.new_ones((rows, 1))], dim=1).contiguous()
+    scale0 = expd_want[0]
+
+    def b8():
+        return pa.pair_attention_expd(scores, m, *plan.fwd, v, k)
+
+    def b8_plain():
+        return pa.pair_attention_expd_plain(scores, m, *plan.fwd, v, k)
+
+    def b3():
+        return ps.pair_spmm(head0, scale0, *plan.fwd, v)
+
+    def b3_plain():
+        return ps.pair_spmm_plain(head0, scale0, *plan.fwd, v)
+
+    bwd_args = (table, dw, d_denom, scores, m, *plan.bwd, v, k)
+
+    def b9():
+        return pa.pair_attention_bwd_fused(*bwd_args)
+
+    def b9_plain():
+        return pa.pair_attention_bwd_fused_plain(*bwd_args)
+
+    err8 = check_close("pair_attention_expd", b8(), expd_want, KERNEL_RTOL,
+                       KERNEL_ATOL)
+    err3 = check_close("pair_spmm", b3(), b3_plain(), KERNEL_RTOL,
+                       KERNEL_ATOL)
+    err9 = max(check_close(f"pair_attention_bwd_fused {part}", got, want,
+                           KERNEL_RTOL, KERNEL_ATOL)
+               for part, got, want in zip(("d_ss", "d_ts", "d_table"),
+                                          b9(), b9_plain()))
+    torch.cuda.synchronize()
+    log(f"kernel check: pair_attention_expd max_abs_err {err8:.3e}, "
+        f"pair_spmm max_abs_err {err3:.3e}, pair_attention_bwd_fused "
+        f"max_abs_err {err9:.3e} (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
+
+    check_eval_forward(model, batch, labels, [
+        (ps, "pair_spmm", ps.pair_spmm_plain),
+        (pa, "pair_spmm", ps.pair_spmm_plain),
+        (pa, "pair_attention_expd", pa.pair_attention_expd_plain),
+        (pa, "pair_attention_bwd_fused", pa.pair_attention_bwd_fused_plain)])
+    per_step = params["gnn_num_layers"] * TRAIN_STEPS
+    counters = [(ps.reset_launch_counts, ps.LAUNCHES),
+                (pa.reset_launch_counts, pa.LAUNCHES)]
+    state, train_step, eval_step, launches = train_and_count(
+        model, params, batch, labels, counters,
+        {"pair_attention_expd": per_step, "pair_spmm": k * per_step,
+         "pair_attention_bwd_fused": per_step, "pair_stream": 0,
+         "pair_stream_joint": 0})
+    time_path(state, train_step, eval_step, batch, labels, real_edges,
+              device, argv, "PPI_RGAT")
+
+    # Bounds from this run's plan: the bytes each kernel must move (each
+    # input read once, each output written once) and its f32 operations.
+    srcabs, tgtabs, valid = ps.slot_abs_ids(*plan.fwd)
+    fwd_slots, fwd_chunks = plan.rel_src_f.numel(), plan.src_blk_f.numel()
+    fwd_groups = plan.grp_tgt_f.numel()
+    fwd_valid = int(valid.sum())
+    plan_bytes = fwd_slots * 8 + fwd_chunks * 4 + fwd_groups * 4
+    b8_bound = bound_ms(
+        plan_bytes + scores.numel() * 2 + m.numel() * 4 + k * fwd_slots * 4,
+        6.0 * fwd_valid * k)   # add, leaky, subtract, exp per slot and head
+    a_s, a_s16, rows_read, _ = slot_matrix(srcabs, tgtabs, valid, scale0, v,
+                                           rows)
+    b3_bound = kernel_bound_ms(rows_read, head0.shape[1], 2, fwd_slots,
+                               fwd_chunks, fwd_groups, v, fwd_valid)
+    b_src, b_tgt, b_valid = ps.slot_abs_ids(*plan.bwd)
+    bwd_valid = int(b_valid.sum())
+    bwd_bytes = (plan.rel_src_b.numel() * 8 + plan.src_blk_b.numel() * 4
+                 + plan.grp_tgt_b.numel() * 4
+                 + int(torch.unique(b_tgt[b_valid]).numel()) * h * 2
+                 + int(torch.unique(b_src[b_valid]).numel()) * h * 2
+                 + scores.numel() * 2 + (m.numel() + d_denom.numel()) * 4
+                 + rows * (h + 2 * k) * 4)
+    # Per valid slot and column: the head sum's multiply-add and the
+    # d_table multiply-add.
+    b9_bound = bound_ms(bwd_bytes, 4.0 * bwd_valid * h)
+    head0_f32 = head0.float()
+    return [
+        time_kernel("pair_spmm", "tf2_gnn_tpu_torch/csrc/pair_stream.cu",
+                    "tf2_gnn_tpu/ops/pair_spmm.py:678", launches["pair_spmm"],
+                    err3, b3, b3_plain,
+                    lambda: torch.sparse.mm(a_s16, head0),
+                    lambda: torch.sparse.mm(a_s, head0_f32), *b3_bound,
+                    f"one head's launch, [{rows}, {head0.shape[1]}] bf16 "
+                    f"table, {fwd_valid} valid of {fwd_slots} slots"),
+        time_kernel("pair_attention_expd",
+                    "tf2_gnn_tpu_torch/csrc/pair_attention.cu",
+                    "tf2_gnn_tpu/ops/pair_attention.py:427",
+                    launches["pair_attention_expd"], err8, b8, b8_plain,
+                    None, None, *b8_bound,
+                    f"[{k}, {fwd_slots}] f32 out"),
+        time_kernel("pair_attention_bwd_fused",
+                    "tf2_gnn_tpu_torch/csrc/pair_attention.cu",
+                    "tf2_gnn_tpu/ops/pair_attention.py:860",
+                    launches["pair_attention_bwd_fused"], err9, b9, b9_plain,
+                    None, None, *b9_bound,
+                    f"{bwd_valid} valid of {plan.rel_src_b.numel()} slots"),
+    ]
+
+
+def main(argv) -> int:
+    import torch
+
+    device = require_card()
+    sys.path.insert(0, str(ROOT))
+    from tf2_gnn_tpu_torch.ops import cuda_build
+
+    # A reference states its float32 product precision: full f32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 1. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = cuda_build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s for "
+        f"{sorted(logs) or 'cached libraries'}")
+    for source, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  {source}: {line.strip()}")
+    log(f"device: {torch.cuda.get_device_name(device)} "
+        f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
+
+    # -- 2. PPI_RGCN, 3. PPI_RGAT -----------------------------------------
+    kernels = rgcn_path(device, argv)
+    torch.cuda.empty_cache()
+    kernels += rgat_path(device, argv)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernels (tf2_gnn_tpu_torch/csrc/pair_stream.cu)
-against their plain PyTorch versions on the card, at small shapes with a
-ragged feature width, f32 and bf16 tables, and through the autograd op.
-Marked ``cuda``; each test skips without a card. On a machine with one:
+"""The hand-written CUDA kernels (tf2_gnn_tpu_torch/csrc/pair_stream.cu:
+K1, K2 and B3; csrc/pair_attention.cu: B8 and B9) against their plain
+PyTorch versions on the card, at small shapes with a ragged feature width,
+f32 and bf16 tables, and through the autograd ops. Marked ``cuda``; each
+test skips without a card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -9,12 +10,16 @@ Marked ``cuda``; each test skips without a card. On a machine with one:
 machines need not have.)
 
 Tolerance: rtol 1e-5 / atol 1e-5; both sides sum the same f32 products,
-the kernel in a run-dependent order (atomics).
+the kernel in a run-dependent order (atomics), and B8/B9 take expf of the
+same f32 argument as torch.exp (each within 2 ulp). Gradients of the
+attention op in bf16 are rounded to bf16 after those sums: rtol 1e-2 /
+atol 1e-4 there (one bf16 ulp).
 """
 import numpy as np
 import pytest
 import torch
 
+from tf2_gnn_tpu_torch.ops import pair_attention as tpa
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 
 pytestmark = pytest.mark.cuda
@@ -84,3 +89,109 @@ def test_autograd_op_matches_plain_on_card(device):
         out_p, grad_p = run()
     torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(grad, grad_p, rtol=1e-5, atol=1e-5)
+
+
+def _merged_plan(seed, v=384, num_types=3):
+    rng = np.random.RandomState(seed)
+    srcs, tgts, counts = [], [], []
+    for _ in range(num_types):
+        e = rng.randint(v, 6 * v)
+        srcs.append(rng.randint(0, v, e))
+        tgts.append(rng.randint(0, v, e))
+        counts.append(e)
+    plans = tps.build_pair_plans(srcs, tgts, counts, v, group_fwd=16,
+                                 group_bwd=8)
+    return tps.MergedPlan(*plans.astuple())
+
+
+def _attention_inputs(device, dtype, rows, v, k, head_dim, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    table = torch.randn((rows, head_dim * k), generator=gen, device=device)
+    scores = 0.5 * torch.randn((rows, 2 * k), generator=gen, device=device)
+    m = tpa._stabilise(tpa._bound_stabiliser(scores.to(dtype), v, k), dtype)
+    return table.to(dtype), scores.to(dtype), m, gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [5, 81, 100])
+def test_pair_spmm_matches_plain_version(device, dtype, h):
+    plan = _merged_plan(4).to(device)
+    v = 384
+    gen = torch.Generator(device=device).manual_seed(5)
+    table = torch.randn((3 * v, h), generator=gen, device=device).to(dtype)
+    scale = torch.rand((plan.rel_src_f.numel(),), generator=gen,
+                       device=device)
+    before = tps.LAUNCHES["pair_spmm"]
+    got = tps.pair_spmm(table, scale, *plan.fwd, v)
+    got_b = tps.pair_spmm(table[:v].contiguous(), plan.inv_bwd, *plan.bwd,
+                          3 * v)
+    torch.cuda.synchronize()
+    assert tps.LAUNCHES["pair_spmm"] == before + 2
+    torch.testing.assert_close(
+        got, tps.pair_spmm_plain(table, scale, *plan.fwd, v),
+        rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        got_b, tps.pair_spmm_plain(table[:v].contiguous(), plan.inv_bwd,
+                                   *plan.bwd, 3 * v), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,head_dim", [(4, 20), (4, 3), (8, 5), (1, 16)])
+def test_attention_kernels_match_plain_versions(device, dtype, k, head_dim):
+    plan = _merged_plan(6).to(device)
+    v = 384
+    table, scores, m, gen = _attention_inputs(device, dtype, 3 * v, v, k,
+                                              head_dim, 7)
+    dw = torch.randn((v, head_dim * k), generator=gen,
+                     device=device).to(dtype)
+    d_denom = torch.randn((v, k), generator=gen, device=device)
+    before = dict(tpa.LAUNCHES)
+    expd = tpa.pair_attention_expd(scores, m, *plan.fwd, v, k)
+    grads = tpa.pair_attention_bwd_fused(table, dw, d_denom, scores, m,
+                                         *plan.bwd, v, k)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["pair_attention_expd"] == \
+        before["pair_attention_expd"] + 1
+    assert tpa.LAUNCHES["pair_attention_bwd_fused"] == \
+        before["pair_attention_bwd_fused"] + 1
+    torch.testing.assert_close(
+        expd, tpa.pair_attention_expd_plain(scores, m, *plan.fwd, v, k),
+        rtol=1e-5, atol=1e-5)
+    want = tpa.pair_attention_bwd_fused_plain(table, dw, d_denom, scores, m,
+                                              *plan.bwd, v, k)
+    for name, g, w in zip(("d_ss", "d_ts", "d_table"), grads, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_op_matches_plain_on_card(device, dtype):
+    plan = _merged_plan(8).to(device)
+    v, k, head_dim = 384, 4, 20
+    base, scores0, _, gen = _attention_inputs(device, torch.float32, 3 * v,
+                                              v, k, head_dim, 9)
+    cot_d = torch.randn((v, k), generator=gen, device=device)
+    cot_w = torch.randn((v, head_dim * k), generator=gen, device=device)
+
+    def run():
+        t = base.to(dtype).requires_grad_(True)
+        s = scores0.to(dtype).requires_grad_(True)
+        denom, weighted = tpa.pair_attention(t, s, plan, v, k, "bound")
+        ((denom * cot_d).sum() + (weighted * cot_w).sum()).backward()
+        return denom.detach(), weighted.detach(), t.grad, s.grad
+
+    got = run()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tps, "pair_spmm", tps.pair_spmm_plain)
+        mp.setattr(tpa, "pair_spmm", tps.pair_spmm_plain)
+        mp.setattr(tpa, "pair_attention_expd", tpa.pair_attention_expd_plain)
+        mp.setattr(tpa, "pair_attention_bwd_fused",
+                   tpa.pair_attention_bwd_fused_plain)
+        want = run()
+    grad_tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+                else dict(rtol=1e-2, atol=1e-4))
+    for i, name in enumerate(("denom", "weighted")):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=1e-5,
+                                   msg=name)
+    for i, name in ((2, "d_table"), (3, "d_scores")):
+        torch.testing.assert_close(got[i].float(), want[i].float(),
+                                   msg=name, **grad_tol)

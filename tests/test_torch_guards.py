@@ -18,6 +18,7 @@ import tf2_gnn_tpu_torch
 from tf2_gnn_tpu_torch import workloads
 from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
 from tf2_gnn_tpu_torch.ops import cuda_build
+from tf2_gnn_tpu_torch.ops import pair_attention as tpa
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 from tf2_gnn_tpu_torch.utils.device import resolve_device
 
@@ -54,7 +55,9 @@ def test_port_has_its_own_modules():
         "layers/message_passing/rgcn.py", "models/graph_task_model.py",
         "models/node_multiclass_task.py", "harness/optimizers.py",
         "harness/training.py", "harness/import_jax.py", "workloads.py",
-        "csrc/pair_stream.cu",
+        "csrc/pair_stream.cu", "ops/pair_attention.py", "layers/init.py",
+        "layers/message_passing/rgat.py", "csrc/pair_attention.cu",
+        "harness/default_hypers/PPI_RGAT.json",
     ]
     missing = [p for p in expected if not (PACKAGE / p).is_file()]
     assert not missing
@@ -87,26 +90,36 @@ class _CudaTensorStandIn:
     device = torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("wrapper", [tps.pair_spmm_stream,
-                                     tps.pair_spmm_stream_joint])
+# Every kernel wrapper: its launch counts and the positional arguments
+# after its first tensor.
+WRAPPERS = {
+    tps.pair_spmm_stream: (tps.LAUNCHES, (None,) * 6 + (128, 128)),
+    tps.pair_spmm_stream_joint: (tps.LAUNCHES, (None,) * 6 + (128, 128)),
+    tps.pair_spmm: (tps.LAUNCHES, (None,) * 5 + (128,)),
+    tpa.pair_attention_expd: (tpa.LAUNCHES, (None,) * 5 + (128, 4)),
+    tpa.pair_attention_bwd_fused: (tpa.LAUNCHES, (None,) * 8 + (128, 4)),
+}
+
+
+@pytest.mark.parametrize("wrapper", list(WRAPPERS))
 def test_cuda_tensor_without_library_raises(wrapper, monkeypatch, tmp_path):
+    launches, args = WRAPPERS[wrapper]
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(cuda_build, "DEFAULT_NVCC", tmp_path / "no-nvcc")
     monkeypatch.setattr(cuda_build, "_LOADED", {})
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
-    before = dict(tps.LAUNCHES)
+    before = dict(launches)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        wrapper(_CudaTensorStandIn(), None, None, None, None, None, None,
-                128, 128)
-    assert tps.LAUNCHES == before
+        wrapper(_CudaTensorStandIn(), *args)
+    assert launches == before
 
 
 def test_wrappers_refuse_other_devices():
     meta = torch.empty((4, 4), device="meta")
-    with pytest.raises(TypeError, match="unsupported device"):
-        tps.pair_spmm_stream_joint(meta, None, None, None, None, None, None,
-                                   128, 128)
+    for wrapper, (_, args) in WRAPPERS.items():
+        with pytest.raises(TypeError, match="unsupported device"):
+            wrapper(meta, *args)
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -125,3 +138,30 @@ def test_cpu_tensors_take_the_plain_version():
     got = tps.pair_spmm_stream_joint(tables, *args)
     assert torch.equal(got, tps.pair_spmm_stream_plain(tables, *args))
     assert tps.LAUNCHES == before
+
+
+def test_cpu_tensors_take_the_plain_versions_of_the_attention_kernels():
+    """B3, B8 and B9 on CPU tensors: the plain versions' results, no
+    launch counted."""
+    rng = np.random.RandomState(1)
+    v, k = 128, 4
+    src = rng.randint(0, v, (2, 200))
+    tgt = rng.randint(0, v, (2, 200))
+    plan = tps.MergedPlan(*tps.build_pair_plans(
+        list(src), list(tgt), [200, 200], v).astuple()).to("cpu")
+    table = torch.randn(2 * v, 8 * k)
+    scores = torch.randn(2 * v, 2 * k)
+    maxes = torch.randn(v, k)
+    scale = torch.rand(plan.rel_src_f.numel())
+    dw, d_denom = torch.randn(v, 8 * k), torch.randn(v, k)
+    before = (dict(tps.LAUNCHES), dict(tpa.LAUNCHES))
+    assert torch.equal(tps.pair_spmm(table, scale, *plan.fwd, v),
+                       tps.pair_spmm_plain(table, scale, *plan.fwd, v))
+    assert torch.equal(
+        tpa.pair_attention_expd(scores, maxes, *plan.fwd, v, k),
+        tpa.pair_attention_expd_plain(scores, maxes, *plan.fwd, v, k))
+    bwd_args = (table, dw, d_denom, scores, maxes, *plan.bwd, v, k)
+    for got, want in zip(tpa.pair_attention_bwd_fused(*bwd_args),
+                         tpa.pair_attention_bwd_fused_plain(*bwd_args)):
+        assert torch.equal(got, want)
+    assert (dict(tps.LAUNCHES), dict(tpa.LAUNCHES)) == before

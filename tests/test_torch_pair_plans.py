@@ -1,6 +1,7 @@
 """The port's host planner (tf2_gnn_tpu_torch/ops/pair_spmm.py) against the
 JAX package's: plans, groups and the streamed concatenation must be
-byte-identical, on the full PPI bench workload and on degenerate fuzz cases
+byte-identical, on the full PPI bench workload (per-type and merged plans)
+and on degenerate fuzz cases
 (empty edge types, tiny types, one hot target row, self loops, and a chunk
 budget small enough to spill pairs into the overflow list)."""
 import numpy as np
@@ -59,6 +60,53 @@ def test_bench_typed_plans_are_byte_identical(bench_batches):
             tps.concat_typed_plans(batch.pair_plans_typed, v, v, normalize),
             jps.concat_typed_plans(ref_batch.pair_plans_typed, v, v,
                                    normalize))
+
+
+@pytest.fixture(scope="module")
+def bench_merged_batches():
+    ref = bench.build_batch(0, use_pallas=False, use_pairs=True)
+    return ref, workloads.build_ppi_batch_host(0, merged=True)
+
+
+def test_bench_merged_plans_are_byte_identical(bench_merged_batches):
+    """The RGAT form: one merged plan over all three types, groups chosen
+    from all of them, overflow budget 256 (bench.py:125-139)."""
+    (ref_batch, ref_labels, ref_edges), (batch, labels, edges) = \
+        bench_merged_batches
+    assert ref_batch.pair_plans_typed is None
+    assert batch.pair_plans_typed is None
+    assert batch.pair_targets_merged is ref_batch.pair_targets_merged is False
+    assert_same_arrays(batch.pair_plans, ref_batch.pair_plans)
+    assert edges == ref_edges == 211200
+    assert_same_arrays(
+        [batch.node_features, batch.node_to_graph, batch.num_edges,
+         *batch.edge_sources, *batch.edge_targets, labels["node_labels"]],
+        [ref_batch.node_features, ref_batch.node_to_graph,
+         ref_batch.num_edges, *ref_batch.edge_sources,
+         *ref_batch.edge_targets, ref_labels["node_labels"]])
+    plans = tps.PairPlans.fromtuple(batch.pair_plans)
+    # The shapes the RGAT kernels run at: 2800 forward chunks in groups of
+    # 16, 3256 backward chunks in groups of 8, no spilled edge.
+    assert plans.fwd.rel_src.shape == (2800, tps.E_C)
+    assert tps.plan_group(plans.fwd.src_blk, plans.fwd.grp_tgt) == 16
+    assert plans.bwd.rel_src.shape == (3256, tps.E_C)
+    assert tps.plan_group(plans.bwd.src_blk, plans.bwd.grp_tgt) == 8
+    assert plans.ovf_src.shape == (0,)
+    assert int(np.sum(plans.fwd.rel_src < tps.BLK)) == 211200
+    assert_same_arrays(plans.kernel_arrays,
+                       jps.PairPlans.fromtuple(
+                           ref_batch.pair_plans).kernel_arrays)
+
+
+def test_merged_plan_moves_to_the_device_form():
+    rng = np.random.RandomState(3)
+    v = 256
+    srcs, tgts, counts = _case(rng, "random", v, 3)
+    host = tps.build_pair_plans(srcs, tgts, counts, v).astuple()
+    plan = tps.MergedPlan(*host).to("cpu")
+    assert_same_arrays([t.numpy() for t in plan.fwd + plan.bwd], host[:8])
+    assert_same_arrays([plan.ovf_src.numpy(), plan.ovf_tgt.numpy(),
+                        plan.inv_fwd.numpy()], host[8:11])
 
 
 def test_bench_groups_match():

@@ -127,4 +127,5 @@ def test_plain_version_matches_dense_reference():
     out_g = tps.pair_spmm_stream(torch.from_numpy(tables), args[0], *args[3:8],
                                  v, num_types * v)
     np.testing.assert_allclose(out_g.numpy(), per_type, rtol=1e-5, atol=1e-5)
-    assert tps.LAUNCHES == {"pair_stream": 0, "pair_stream_joint": 0}
+    assert tps.LAUNCHES == {"pair_stream": 0, "pair_stream_joint": 0,
+                            "pair_spmm": 0}

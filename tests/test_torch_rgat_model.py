@@ -1,0 +1,187 @@
+"""The port's NodeMulticlassTask with RGAT (pair attention over a merged
+plan) against the JAX package's on the CPU, from weights bridged out of the
+flax params: logits, loss and the gradient of every parameter, at hidden 24
+with 4 heads and at hidden 12 with 3 heads (padded to 4), and three Adam
+steps along the reference's loss trajectory. Dropout is 0, since the two
+frameworks' dropout bits cannot match.
+
+Tolerances. f32 edge streams: rtol 1e-4 / atol 1e-6 (the same products
+summed in other orders; observed 1e-7 absolute on logits, 1e-8 on
+gradients). bf16 edge streams: logits rtol 1e-2 / atol 1e-3, gradients
+rtol 2e-2 / atol 3e-5: the tables and scores are rounded to bf16 from f32
+values that differ in their last bits, so an entry may round to the
+neighbouring bf16 value (2**-8 relative), and both sides round the
+attention gradients to bf16 too (observed 2.5e-4 absolute on logits of
+magnitude ~1, 9e-6 on gradients of magnitude up to 3e-2). Losses along the
+Adam steps: rtol 1e-4 (f32) and 1e-3 (bf16).
+"""
+import json
+import math
+import types
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tf2_gnn_tpu.harness import optimizers as joptimizers
+from tf2_gnn_tpu.harness.training import create_train_state as jcreate
+from tf2_gnn_tpu.harness.training import make_train_step as jmake_step
+from tf2_gnn_tpu.models.node_multiclass_task import (
+    NodeMulticlassTask as JaxNodeMulticlassTask,
+)
+from tf2_gnn_tpu_torch.harness.import_jax import (
+    flax_params_to_state_dict,
+    load_flax_params,
+)
+from tf2_gnn_tpu_torch.harness.optimizers import make_optimizer
+from tf2_gnn_tpu_torch.harness.training import (
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
+from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
+
+from .test_torch_rgcn_model import FEATURES, NUM_LABELS, small_workload
+
+REPO = Path(__file__).resolve().parents[1]
+TOLS = {"float32": (dict(rtol=1e-4, atol=1e-6), dict(rtol=1e-4, atol=1e-6)),
+        "bfloat16": (dict(rtol=1e-2, atol=1e-3), dict(rtol=2e-2, atol=3e-5))}
+LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+WIDTHS = {"h24_k4": (24, 4), "h12_k3": (12, 3)}
+
+
+def make_params(width: str, edge_dtype: str):
+    """The shipped PPI_RGAT layout at small width, dropout 0."""
+    hidden, heads = WIDTHS[width]
+    params = JaxNodeMulticlassTask.get_default_hyperparameters("rgat")
+    shipped = json.loads((REPO / "tf2_gnn_tpu_torch" / "harness"
+                          / "default_hypers" / "PPI_RGAT.json").read_text())
+    params.update(shipped["model_params"])
+    params.update({"gnn_hidden_dim": hidden, "gnn_num_heads": heads,
+                   "gnn_edge_dtype": edge_dtype,
+                   "gnn_layer_input_dropout_rate": 0.0})
+    return params
+
+
+def build_pair(params, jbatch, seed=0):
+    jmodel = JaxNodeMulticlassTask.from_params(
+        params, types.SimpleNamespace(num_node_target_labels=NUM_LABELS))
+    jparams = jmodel.init(jax.random.PRNGKey(seed), jbatch, False)["params"]
+    tmodel = NodeMulticlassTask.from_params(
+        params, input_dim=FEATURES, num_edge_types=3, device="cpu",
+        num_labels=NUM_LABELS)
+    load_flax_params(tmodel, jax.device_get(jparams))
+    return jmodel, jparams, tmodel
+
+
+def test_default_hypers_are_the_shipped_file():
+    ours = REPO / "tf2_gnn_tpu_torch" / "harness" / "default_hypers"
+    theirs = REPO / "tf2_gnn_tpu" / "harness" / "default_hypers"
+    assert (json.loads((ours / "PPI_RGAT.json").read_text())
+            == json.loads((theirs / "PPI_RGAT.json").read_text()))
+
+
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+@pytest.mark.parametrize("edge_dtype", ["float32", "bfloat16"])
+def test_forward_loss_and_gradients_match_jax(width, edge_dtype):
+    jbatch, tbatch, labels = small_workload(seed=3, merged=True)
+    params = make_params(width, edge_dtype)
+    jmodel, jparams, tmodel = build_pair(params, jbatch)
+    out_tol, grad_tol = TOLS[edge_dtype]
+
+    def jloss(p):
+        out = jmodel.apply({"params": p}, jbatch, False)
+        metrics = jmodel.compute_task_metrics(
+            jbatch, out, {"node_labels": jnp.asarray(labels)})
+        return metrics["loss"], out[0]
+
+    (jl, jlogits), jgrads = jax.value_and_grad(jloss, has_aux=True)(jparams)
+
+    out = tmodel(tbatch, False)
+    metrics = tmodel.compute_task_metrics(
+        tbatch, out, {"node_labels": torch.from_numpy(labels)})
+    metrics["loss"].backward()
+
+    np.testing.assert_allclose(out[0].detach().numpy(), np.asarray(jlogits),
+                               **out_tol)
+    np.testing.assert_allclose(float(metrics["loss"].detach()), float(jl),
+                               rtol=LOSS_RTOL[edge_dtype])
+    want = flax_params_to_state_dict(jax.device_get(jgrads))
+    got = dict(tmodel.named_parameters())
+    assert set(want) == set(got)
+    assert any("edge_attention_parameters" in name for name in want)
+    for name, grad in want.items():
+        np.testing.assert_allclose(got[name].grad.numpy(), grad.numpy(),
+                                   err_msg=name, **grad_tol)
+
+
+@pytest.mark.parametrize("edge_dtype", ["float32", "bfloat16"])
+def test_three_adam_steps_follow_jax(edge_dtype):
+    jbatch, tbatch, labels = small_workload(seed=6, merged=True)
+    params = make_params("h24_k4", edge_dtype)
+    jmodel, jparams, tmodel = build_pair(params, jbatch)
+
+    joptimizer = joptimizers.make_optimizer(params)
+    jstate = jcreate(jmodel, jbatch, joptimizer, seed=0)
+    jstate = jstate.replace(params=jparams,
+                            opt_state=joptimizer.init(jparams))
+    jstep = jmake_step(jmodel, joptimizer)
+    jlabels = {"node_labels": jnp.asarray(labels)}
+
+    optimizer = make_optimizer(params, tmodel.parameters())
+    state = create_train_state(tmodel, optimizer, seed=0)
+    step = make_train_step(tmodel, optimizer)
+    tlabels = {"node_labels": torch.from_numpy(labels)}
+
+    jlosses, losses = [], []
+    for _ in range(3):
+        jstate, jmetrics = jstep(jstate, jbatch, jlabels)
+        jlosses.append(float(jmetrics["loss"]))
+        state, metrics = step(state, tbatch, tlabels)
+        losses.append(float(metrics["loss"]))
+    np.testing.assert_allclose(losses, jlosses, rtol=LOSS_RTOL[edge_dtype])
+    assert losses[-1] < losses[0]
+    assert math.isfinite(float(make_eval_step(tmodel)(tbatch,
+                                                      tlabels)["loss"]))
+
+
+def test_attention_parameters_get_batch_axis_glorot_init():
+    params = make_params("h24_k4", "float32")
+    model = NodeMulticlassTask.from_params(
+        params, input_dim=FEATURES, num_edge_types=3, device="cpu",
+        num_labels=NUM_LABELS)
+    attention = model.gnn.mp_layer_0.edge_attention_parameters.detach()
+    assert tuple(attention.shape) == (3, 4, 12)
+    limit = math.sqrt(6.0 / (4 + 12))  # fans: heads in, 2 * head_dim out
+    assert float(attention.abs().max()) <= limit
+    assert float(attention.abs().max()) > 0.5 * limit
+    assert float(attention.std()) > 0.25 * limit
+
+
+def test_unported_routes_raise():
+    params = make_params("h24_k4", "float32")
+    _, typed_batch, _ = small_workload(seed=5)
+    _, merged_batch, _ = small_workload(seed=5, merged=True)
+    model = NodeMulticlassTask.from_params(
+        params, input_dim=FEATURES, num_edge_types=3, device="cpu",
+        num_labels=NUM_LABELS)
+    with pytest.raises(NotImplementedError, match="pair_attention_typed"):
+        model(typed_batch, False)
+    bare = merged_batch.replace(pair_plans=None, pair_merged=None)
+    with pytest.raises(NotImplementedError, match="merged pair plans"):
+        model(bare, False)
+    with pytest.raises(NotImplementedError, match="B14"):
+        model(merged_batch.replace(pair_targets_merged=True), False)
+    exact = dict(params, gnn_attention_stabiliser="exact")
+    model = NodeMulticlassTask.from_params(
+        exact, input_dim=FEATURES, num_edge_types=3, device="cpu",
+        num_labels=NUM_LABELS)
+    with pytest.raises(NotImplementedError, match="B11"):
+        model(merged_batch, False)
+    with pytest.raises(ValueError, match="divisible"):
+        NodeMulticlassTask.from_params(
+            dict(params, gnn_hidden_dim=25), input_dim=FEATURES,
+            num_edge_types=3, device="cpu")

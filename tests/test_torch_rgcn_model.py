@@ -38,9 +38,11 @@ TOLS = {"float32": dict(rtol=1e-4, atol=1e-5),
 
 
 def small_workload(seed: int, graphs=2, nodes_per_graph=150, edges=500,
-                   v_pad=384):
+                   v_pad=384, merged=False):
     """A PPI-shaped batch at small size (self loops, random forward edges
-    and their reverses per graph), padded and planned by both packages."""
+    and their reverses per graph), padded and planned by both packages:
+    per-type plans, or with ``merged`` one merged plan over all types
+    (the RGAT form of ``bench.py::build_batch``)."""
     rng = np.random.RandomState(seed)
     loops, fwd = [], []
     for g in range(graphs):
@@ -66,6 +68,13 @@ def small_workload(seed: int, graphs=2, nodes_per_graph=150, edges=500,
         srcs = [np.asarray(s) for s in batch.edge_sources]
         tgts = [np.asarray(t) for t in batch.edge_targets]
         cnts = [int(c) for c in np.asarray(batch.num_edges)]
+        if merged:
+            gf, gb = ps_mod.choose_pair_groups(srcs, tgts, cnts, v_pad)
+            plans = ps_mod.build_pair_plans(srcs, tgts, cnts, v_pad,
+                                            overflow_budget=256,
+                                            group_fwd=gf, group_bwd=gb)
+            return batch.replace(pair_plans=plans.astuple(),
+                                 pair_targets_merged=False)
         gf, gb = ps_mod.choose_pair_groups([srcs[0]], [tgts[0]], [cnts[0]],
                                            v_pad)
         typed = tuple(

@@ -1,15 +1,15 @@
 // Streamed block-pair SpMM kernels for Hopper (sm_90a), bound through a
 // plain C interface (ctypes) by tf2_gnn_tpu_torch/ops/pair_spmm.py.
 //
-// Both kernels compute the plan-slot semantics of the JAX package's jnp
-// twins (tf2_gnn_tpu/ops/pair_spmm.py::_pair_spmm_stream_jnp and
-// ::_pair_spmm_stream_joint_jnp):
+// The three kernels compute the plan-slot semantics of the JAX package's
+// jnp twins (tf2_gnn_tpu/ops/pair_spmm.py::_pair_spmm_stream_jnp,
+// ::_pair_spmm_stream_joint_jnp and ::_pair_spmm_jnp):
 //
 //   for every slot s of group g (chunk c = s / E_C) with rel_src, rel_tgt < BLK:
 //     out[grp_tgt[g] * BLK + rel_tgt[s], :] +=
 //         scale[s] * f32(tables[grp_type[g] * v + src_blk[c] * BLK + rel_src[s], :])
 //
-// into a zero-initialised f32 output. They replace two Pallas TPU kernels:
+// into a zero-initialised f32 output. They replace three Pallas TPU kernels:
 //
 //   pair_stream_kernel        <- tf2_gnn_tpu/ops/pair_spmm.py:800
 //                                (_pair_spmm_stream_device, pallas_call :895).
@@ -24,6 +24,18 @@
 //                                types revisit output blocks in any order.
 //                                The model runs it as the forward of every
 //                                layer.
+//   pair_spmm_kernel          <- tf2_gnn_tpu/ops/pair_spmm.py:585
+//                                (_pair_spmm_device, pallas_call :678; its
+//                                jnp twin _pair_spmm_jnp). One direction of
+//                                a MERGED plan: every group of type 0
+//                                (grp_type == nullptr) and GLOBAL output
+//                                blocks. RGAT runs it once per head on a
+//                                head-major [L*V, head_dim + 1] table whose
+//                                last column is ones (the denominators),
+//                                with that head's expd row as the scale.
+//                                Unlike the TPU kernel, which rounds
+//                                onehot * scale to the table dtype, the
+//                                scale stays f32, as in the jnp twin.
 //
 // Design. The TPU kernels build one-hot factors and run two MXU matmuls per
 // chunk because Mosaic cannot gather rows; Hopper gathers rows natively, so
@@ -95,7 +107,8 @@ __device__ __forceinline__ void accumulate_group(const StreamArgs& a) {
   for (int i = threadIdx.x; i < BLK; i += THREADS) touched[i] = 0;
   __syncthreads();
 
-  const int64_t type_base = static_cast<int64_t>(a.grp_type[g]) * a.v;
+  const int64_t type_base =
+      a.grp_type ? static_cast<int64_t>(a.grp_type[g]) * a.v : 0;
   const int64_t slot0 = static_cast<int64_t>(g) * a.group * E_C;
   const int num_slots = a.group * E_C;
 
@@ -172,6 +185,11 @@ __global__ void __launch_bounds__(THREADS)
   accumulate_group<T>(a);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(THREADS) pair_spmm_kernel(StreamArgs a) {
+  accumulate_group<T>(a);
+}
+
 // dtype codes shared with the Python wrapper.
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
@@ -208,6 +226,7 @@ constexpr int DTYPE_BF16 = 1;
 
 DEFINE_LAUNCH(pair_stream_launch, pair_stream_kernel)
 DEFINE_LAUNCH(pair_stream_joint_launch, pair_stream_joint_kernel)
+DEFINE_LAUNCH(pair_spmm_launch, pair_spmm_kernel)
 
 extern "C" const char* pair_stream_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

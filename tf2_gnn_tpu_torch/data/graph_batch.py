@@ -11,10 +11,11 @@ The padding contract is the JAX package's, unchanged:
 
 ``pad_batch_arrays`` and the label pads are the same numpy code. The
 ``GraphBatch`` here is a plain dataclass holding only the fields the RGCN
-node-classification path reads; the SPMD and halo fields are not ported
-yet. ``.to(device)`` moves every array field to a device and builds, once
-per batch, the concatenated streamed plan the pair kernels read
-(``pair_stream_joint``) from the host-side per-type plans.
+and RGAT node-classification paths read; the SPMD and halo fields are not
+ported yet. ``.to(device)`` moves every array field to a device and builds,
+once per batch, the device forms of the host plans: the concatenated
+streamed plan of the per-type plans (``pair_stream_joint``) and the merged
+plan (``pair_merged``).
 """
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
@@ -22,7 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.pair_spmm import StreamJointPlan, stream_joint_plan
+from ..ops.pair_spmm import MergedPlan, StreamJointPlan, stream_joint_plan
 from ..utils.device import as_tensor, resolve_device
 
 
@@ -55,6 +56,12 @@ class GraphBatch:
       type (ops/pair_spmm.py), or None; host (numpy) plan data
     * ``pair_stream_joint``: the per-type plans concatenated into the
       streamed layout on the batch's device (``.to`` builds it)
+    * ``pair_plans``: one merged 13-array ``PairPlans.astuple()`` over all
+      edge types (sources in the stacked ``l * V + u`` row space), or None;
+      host (numpy) plan data. ``pair_targets_merged``: it was built with
+      ``merge_targets=True``
+    * ``pair_merged``: ``pair_plans`` on the batch's device (``.to`` builds
+      it)
 
     Array fields hold numpy arrays after ``pad_batch_arrays`` and tensors
     after ``.to(device)``.
@@ -70,6 +77,9 @@ class GraphBatch:
     num_graphs_padded: int
     pair_plans_typed: Optional[Tuple[Tuple[object, ...], ...]] = None
     pair_stream_joint: Optional[StreamJointPlan] = None
+    pair_plans: Optional[Tuple[object, ...]] = None
+    pair_targets_merged: bool = False
+    pair_merged: Optional[MergedPlan] = None
 
     @property
     def num_nodes_padded(self) -> int:
@@ -91,13 +101,18 @@ class GraphBatch:
         return dataclasses.replace(self, **changes)
 
     def to(self, device="cuda") -> "GraphBatch":
-        """Every array field as a tensor on ``device``; the per-type plans
-        stay host data and their streamed concatenation moves instead."""
+        """Every array field as a tensor on ``device``; the host plans stay
+        host data and their device forms move instead (the per-type plans
+        as their streamed concatenation, the merged plans as a
+        ``MergedPlan``)."""
         dev = resolve_device(device)
         joint = self.pair_stream_joint
         if joint is None and self.pair_plans_typed is not None:
             v = self.num_nodes_padded
             joint = stream_joint_plan(self.pair_plans_typed, v, v)
+        merged = self.pair_merged
+        if merged is None and self.pair_plans is not None:
+            merged = MergedPlan(*self.pair_plans)
         return dataclasses.replace(
             self,
             node_features=as_tensor(self.node_features, dev),
@@ -106,6 +121,7 @@ class GraphBatch:
             node_to_graph=as_tensor(self.node_to_graph, dev),
             num_edges=as_tensor(self.num_edges, dev),
             pair_stream_joint=None if joint is None else joint.to(dev),
+            pair_merged=None if merged is None else merged.to(dev),
         )
 
 

@@ -10,7 +10,9 @@ as follows:
 * ``<path>/kernel`` of rank 3 (``TypedLinear``, [L, D, H]) ->
   ``<path>.kernel`` as is;
 * ``<path>/bias`` -> ``<path>.bias``;
-* ``<path>/scale`` (``nn.LayerNorm``) -> ``<path>.weight``.
+* ``<path>/scale`` (``nn.LayerNorm``) -> ``<path>.weight``;
+* ``<path>/edge_attention_parameters`` (RGAT's raw [L, K, 2 * head_dim]
+  parameter) -> ``<path>.edge_attention_parameters`` as is.
 
 A leaf of another name, or one the model does not hold, raises; so does a
 model parameter that the tree leaves unset.
@@ -49,6 +51,8 @@ def flax_params_to_state_dict(params: Mapping[str, Any]
             name = f"{module}.bias"
         elif leaf == "scale":
             name = f"{module}.weight"
+        elif leaf == "edge_attention_parameters":
+            name = f"{module}.{leaf}"
         else:
             raise ValueError(f"flax leaf {'/'.join(path)} (shape "
                              f"{value.shape}) has no counterpart in the port")

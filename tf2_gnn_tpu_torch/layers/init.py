@@ -21,6 +21,17 @@ def glorot_uniform_(tensor: torch.Tensor, fan_in: int, fan_out: int,
     return tensor
 
 
+def glorot_uniform_batched_(tensor: torch.Tensor,
+                            generator: torch.Generator) -> torch.Tensor:
+    """Flax ``glorot_uniform(batch_axis=(0,))``: axis 0 is a batch of
+    independent matrices, the last two axes are (fan in, fan out) and any
+    axes between them the receptive field."""
+    shape = tensor.shape
+    receptive = math.prod(shape[1:-2])
+    return glorot_uniform_(tensor, shape[-2] * receptive,
+                           shape[-1] * receptive, generator)
+
+
 def init_dense_(layer: nn.Linear, generator: torch.Generator) -> None:
     """Glorot-uniform kernel and zero bias, as flax ``nn.Dense`` here."""
     glorot_uniform_(layer.weight, layer.in_features, layer.out_features,

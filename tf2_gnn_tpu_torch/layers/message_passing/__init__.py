@@ -1,6 +1,6 @@
 """Message-passing flavours + registry (port of
-``tf2_gnn_tpu/layers/message_passing``; RGCN and the source-only
-GNN_Edge_MLP so far)."""
+``tf2_gnn_tpu/layers/message_passing``; RGCN, the source-only
+GNN_Edge_MLP and RGAT so far)."""
 from .base import (
     MESSAGE_PASSING_IMPLEMENTATIONS,
     MessagePassing,
@@ -10,6 +10,7 @@ from .base import (
 from .typed_linear import TypedLinear
 from .gnn_edge_mlp import GNN_Edge_MLP
 from .rgcn import RGCN
+from .rgat import RGAT
 
 __all__ = [
     "MESSAGE_PASSING_IMPLEMENTATIONS",
@@ -18,5 +19,6 @@ __all__ = [
     "get_message_passing_class",
     "register_message_passing_implementation",
     "GNN_Edge_MLP",
+    "RGAT",
     "RGCN",
 ]

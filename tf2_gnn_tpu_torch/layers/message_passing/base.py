@@ -5,9 +5,10 @@ A layer maps node states ``[V, D] -> [V, hidden_dim]``: node-space
 transforms run densely first, the block-pair streamed op aggregates them
 over the edges, and ``_post_aggregate`` applies the message activation.
 
-Only the fused pair path is ported. The unfused per-edge segment path and
-the SPMD halo branches are not; a batch without per-type pair plans raises
-``NotImplementedError`` instead of silently taking another path.
+Only the fused pair paths are ported. The unfused per-edge segment path
+and the SPMD halo branches are not; a batch without the plans a flavour's
+fused path reads (``_check_batch``) raises ``NotImplementedError`` instead
+of silently taking another path.
 """
 import inspect
 from typing import Any, Dict
@@ -100,6 +101,11 @@ class MessagePassing(nn.Module):
                              training: bool) -> torch.Tensor:
         raise NotImplementedError
 
+    def _check_batch(self, batch: GraphBatch) -> None:
+        """Raise ``NotImplementedError`` when ``batch`` lacks the device
+        plans this flavour's fused path reads."""
+        raise NotImplementedError
+
     def _post_aggregate(self, aggregated: torch.Tensor,
                         node_states: torch.Tensor, batch: GraphBatch,
                         training: bool) -> torch.Tensor:
@@ -109,11 +115,6 @@ class MessagePassing(nn.Module):
 
     def forward(self, node_states: torch.Tensor, batch: GraphBatch,
                 training: bool = False) -> torch.Tensor:
-        if batch.pair_stream_joint is None:
-            raise NotImplementedError(
-                "this batch has no per-type pair plans on its device: build "
-                "it with pair_plans_typed and move it with .to(device). The "
-                "unfused segment path and the SPMD halo branches are not "
-                "ported.")
+        self._check_batch(batch)
         fused = self._fused_sum_aggregate(node_states, batch, training)
         return self._post_aggregate(fused, node_states, batch, training)

@@ -89,6 +89,14 @@ class GNN_Edge_MLP(MessagePassing):
                                  self.normalize_by_num_incoming,
                                  stream_dtype=self.edge_dtype)
 
+    def _check_batch(self, batch: GraphBatch) -> None:
+        if batch.pair_stream_joint is None:
+            raise NotImplementedError(
+                "this batch has no per-type pair plans on its device: build "
+                "it with pair_plans_typed and move it with .to(device). The "
+                "unfused segment path and the SPMD halo branches are not "
+                "ported.")
+
     def _fused_sum_aggregate(self, node_states: torch.Tensor,
                              batch: GraphBatch,
                              training: bool) -> torch.Tensor:

@@ -1,0 +1,520 @@
+"""Relational multi-head attention on the merged block-pair plans (port of
+``tf2_gnn_tpu/ops/pair_attention.py``, the merged-plan route with the
+``"bound"`` stabiliser).
+
+``pair_attention`` computes, per target node v and head k,
+
+    denom[v, k]         = sum over edges e=(u -> v) of expd_e[k]
+    weighted[v, hd*K+k] = sum over edges e of expd_e[k] * table[row_e, hd*K+k]
+
+with ``expd_e = exp(LeakyReLU(ss[row_e] + ts[l_e*V + v]) - m_v)``, ``ss`` /
+``ts`` the source / target halves of the packed score table and ``m`` a
+softmax stabiliser per (target, head) over all edge types jointly. Messages
+use the HK-MAJOR head layout (column ``hd*K + k``). The caller divides and
+re-layouts heads.
+
+The forward runs the expd kernel (B8, ``pair_attention_expd``) once and the
+merged-plan SpMM (B3, ``pair_spmm``) once per head on a head-major table;
+the backward runs the fused backward kernel (B9,
+``pair_attention_bwd_fused``) once over the backward plan. All three are
+hand-written CUDA (``csrc/pair_attention.cu`` and ``csrc/pair_stream.cu``).
+Each wrapper runs its plain PyTorch version on a CPU tensor and launches
+its kernel on a CUDA tensor, or raises.
+
+Not ported, and raising ``NotImplementedError``: the exact max stabiliser
+(B11), the hk-major aggregation kernel (B10) for heads wider than a tile or
+more heads than the head-major route takes, and the per-type form
+``pair_attention_typed``.
+"""
+import ctypes
+from typing import Optional
+
+import torch
+
+from .pair_spmm import (
+    _DTYPE_CODES,
+    BLK,
+    E_C,
+    MergedPlan,
+    pair_spmm,
+    plan_group,
+    slot_abs_ids,
+)
+
+TILE = 128
+NEG = -1e30
+LEAKY_SLOPE = 0.2
+# Lane width of the reference's streamed expd arrays and transposed VMEM
+# accumulators: a TPU layout artefact that the port drops (its expd stream
+# is [K, slots]); kept for ``pair_attention_applicable``, whose routing the
+# port mirrors.
+ACC_W = 16
+# The reference's resident VMEM budgets (bytes), read only by
+# ``pair_attention_applicable``.
+SCORE_BUDGET_BYTES = 12 * 1024 * 1024
+TABLE_BUDGET_BYTES = 11 * 1024 * 1024
+RESIDENT_BUDGET_BYTES = 13 * 1024 * 1024
+
+
+def _expd_width(num_heads: int) -> int:
+    return max(ACC_W, num_heads)
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def pair_attention_applicable(rows: int, num_nodes: int, hidden_dim: int,
+                              num_heads: int, table_dtype, score_dtype,
+                              src_space: int = None) -> bool:
+    """The reference's static gate of the pair-attention path (its VMEM
+    budgets included), so that the port takes the path the reference takes
+    on the same shapes. ``src_space`` is one type's source-row count."""
+    if num_heads <= 0 or hidden_dim % num_heads or TILE % num_heads:
+        return False
+    if num_heads > min(ACC_W, 8):
+        return False
+    vs = num_nodes if src_space is None else src_space
+    if num_nodes % BLK or vs % BLK or rows % vs:
+        return False
+    t_item = _itemsize(table_dtype)
+    s_item = _itemsize(score_dtype)
+    if rows * 128 * s_item + num_nodes * 128 * 4 > SCORE_BUDGET_BYTES:
+        return False
+    if rows * TILE * t_item + ACC_W * num_nodes * 4 > TABLE_BUDGET_BYTES:
+        return False
+    num_types = max(rows // max(vs, 1), 1)
+    extra = ACC_W + _expd_width(num_heads) + num_heads * num_types
+    haug = max(-(-(hidden_dim + extra) // TILE) * TILE, TILE)
+    return (num_nodes * haug * t_item + ACC_W * rows * 4
+            <= RESIDENT_BUDGET_BYTES)
+
+
+def _leaky(p):
+    return torch.where(p >= 0, p, LEAKY_SLOPE * p)
+
+
+def _take(x, idx):
+    """Rows of ``x`` at ``idx`` clipped into range (``jnp.take`` with
+    ``mode="clip"``)."""
+    return x[torch.clamp(idx, 0, x.shape[0] - 1)]
+
+
+def _slot_logits(scores, rel_src, rel_tgt, src_blk, grp_tgt,
+                 num_nodes: int, swap: bool, src_space: int = None):
+    """Per-slot (pre-activation p, logit, tgt node, src row, valid) on one
+    plan direction. ``swap=True`` reads a BACKWARD plan, whose plan-"src"
+    role is the original target node and plan-"tgt" role the source row."""
+    a_abs, b_abs, valid = slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt)
+    src_rows, tgt_nodes = (b_abs, a_abs) if swap else (a_abs, b_abs)
+    k = scores.shape[1] // 2
+    vs = num_nodes if src_space is None else src_space
+    ltype = src_rows // vs
+    ss = _take(scores, src_rows)[:, :k]
+    ts = _take(scores, ltype * vs + tgt_nodes)[:, k:]
+    p = ss.float() + ts.float()
+    return p, _leaky(p), tgt_nodes, src_rows, valid
+
+
+def _overflow_logits(scores, ovf_src, ovf_tgt, num_nodes: int,
+                     src_space: int = None):
+    """(p, logit, valid) of the overflow edges."""
+    k = scores.shape[1] // 2
+    v = num_nodes
+    vs = v if src_space is None else src_space
+    ovf_src = ovf_src.long()
+    ovf_tgt = ovf_tgt.long()
+    valid = ovf_tgt < v
+    ltype = ovf_src // vs
+    ss = _take(scores, ovf_src)[:, :k]
+    ts = _take(scores, ltype * vs + torch.clamp(ovf_tgt, max=v - 1))[:, k:]
+    p = ss.float() + ts.float()
+    return p, _leaky(p), valid
+
+
+def _bound_stabiliser(scores, v: int, k: int, src_space: int = None):
+    """[V, K] upper bound on the per-(target, head) max logit from two
+    dense node-space reduces (no pass over the edges):
+
+        m[t, j] = leaky(max over types l of (max over sources u of
+                        ss[l*V+u, j]) + ts[l*V+t, j]).
+
+    Softmax is shift-invariant, so the normalised output is exact under any
+    stabiliser at or above the true max. Pad heads (source half 0, target
+    half NEG) get a huge negative finite bound."""
+    vs = v if src_space is None else src_space
+    num_types = scores.shape[0] // vs
+    ss = scores[:, :k].float().reshape(num_types, vs, k)
+    ts = scores[:, k:2 * k].float().reshape(num_types, vs, k)[:, :v]
+    smax = ss.amax(dim=1)                                 # [L, K]
+    return _leaky((smax[:, None, :] + ts).amax(dim=0))    # [V, K]
+
+
+def _stabilise(m, stream_dtype):
+    """A finite stabiliser rounded to the stream dtype and never
+    differentiated: forward and backward read the same rounded value.
+    Targets with no in-edges keep a finite value so exp() stays 0."""
+    m_safe = torch.where(m > 0.5 * NEG, m, torch.zeros_like(m)).detach()
+    return m_safe.to(stream_dtype).float()
+
+
+# ---------------------------------------------------------------------------
+# The two kernels of csrc/pair_attention.cu, their plain versions and
+# wrappers.
+
+# Launch counts of the CUDA kernels of this module: each wrapper adds one
+# where it launches its kernel, and nowhere else.
+LAUNCHES = {"pair_attention_expd": 0, "pair_attention_bwd_fused": 0}
+
+_SOURCE = "pair_attention.cu"
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def pair_attention_expd_plain(scores, maxes, rel_src, rel_tgt, src_blk,
+                              grp_tgt, num_nodes: int, num_heads: int,
+                              src_space: int = None):
+    """Plain PyTorch version of B8, a mirror of the reference's
+    ``_expd_kernel_jnp`` in forward slot order without the slope: f32
+    ``[K, slots]``, row k the head-k expd of every slot (0 on padded
+    slots)."""
+    _, logit, tgt, _, valid = _slot_logits(
+        scores, rel_src, rel_tgt, src_blk, grp_tgt, num_nodes, swap=False,
+        src_space=src_space)
+    expd = torch.where(valid[:, None], torch.exp(logit - _take(maxes, tgt)),
+                       torch.zeros_like(logit))
+    return expd[:, :num_heads].t().contiguous()
+
+
+def pair_attention_bwd_fused_plain(table, d_weighted, d_denom, scores,
+                                   maxes, rel_src, rel_tgt, src_blk, grp_tgt,
+                                   num_nodes: int, num_heads: int,
+                                   src_space: int = None):
+    """Plain PyTorch version of B9, a mirror of the reference's
+    ``_bwd_fused_jnp`` over the backward plan: (d_src_scores [rows, K],
+    d_tgt_scores [rows, K], d_table [rows, H]), all f32, with
+
+        d_p = expd * slope * (head-sum(table[u] * dw[t]) + d_denom[t])
+        d_src_scores[u] += d_p,  d_tgt_scores[l*V + t] += d_p,
+        d_table[u, hd*K + k] += expd[k] * dw[t, hd*K + k].
+    """
+    rows = table.shape[0]
+    vs = num_nodes if src_space is None else src_space
+    k = num_heads
+    head_dim = table.shape[1] // k
+    a_abs, b_abs, valid = slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt)
+    src_rows, tgt_nodes = b_abs, a_abs
+    msgs = _take(table, src_rows).float()
+    dwg = _take(d_weighted, tgt_nodes).float()
+    ddg = _take(d_denom, tgt_nodes)
+    de = (msgs * dwg).reshape(-1, head_dim, k).sum(dim=1) + ddg
+    p, logit, tgt_b, _, _ = _slot_logits(
+        scores, rel_src, rel_tgt, src_blk, grp_tgt, num_nodes, swap=True,
+        src_space=src_space)
+    valid_f = valid[:, None].float()
+    e_n = torch.where(valid[:, None], torch.exp(logit - _take(maxes, tgt_b)),
+                      torch.zeros_like(logit))
+    slope = torch.where(p >= 0, 1.0, LEAKY_SLOPE)
+    d_p = e_n * slope * de * valid_f
+
+    def segment_sum(values, seg):
+        seg = torch.where(valid & (seg < rows), seg, torch.full_like(seg, rows))
+        out = values.new_zeros((rows + 1, values.shape[1]))
+        return out.index_add_(0, seg, values)[:rows]
+
+    d_ss = segment_sum(d_p, src_rows)
+    d_ts = segment_sum(d_p, (src_rows // vs) * vs + tgt_nodes)
+    d_table = segment_sum(dwg * (e_n * valid_f).repeat(1, head_dim), src_rows)
+    return d_ss, d_ts, d_table
+
+
+def _check(entry: str, device, **tensors) -> None:
+    for name, (t, dtypes) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{entry}: {name} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{entry}: {name} has dtype {t.dtype}, expected "
+                            f"one of {dtypes}")
+        if not t.is_contiguous():
+            raise ValueError(f"{entry}: {name} must be contiguous")
+
+
+def _plan_checks(entry: str, device, rel_src, rel_tgt, src_blk, grp_tgt):
+    i32 = (torch.int32,)
+    _check(entry, device, rel_src=(rel_src, i32), rel_tgt=(rel_tgt, i32),
+           src_blk=(src_blk, i32), grp_tgt=(grp_tgt, i32))
+    num_chunks, num_groups = src_blk.shape[0], grp_tgt.shape[0]
+    if (num_groups == 0 or num_chunks % num_groups
+            or rel_src.numel() != num_chunks * E_C
+            or rel_tgt.numel() != rel_src.numel()):
+        raise ValueError(f"{entry}: inconsistent plan shapes")
+    return plan_group(src_blk, grp_tgt), num_groups
+
+
+def _heads_checks(entry: str, k: int, scores) -> None:
+    if k <= 0 or 32 % k or scores.dim() != 2 or scores.shape[1] != 2 * k:
+        raise ValueError(f"{entry}: needs 32 % num_heads == 0 and scores of "
+                         f"[rows, 2 * num_heads], got num_heads={k} and "
+                         f"scores of {tuple(scores.shape)}")
+
+
+def _call(lib, entry: str, argtypes, *args) -> None:
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    err = fn(*args)
+    if err != 0:
+        lib.pair_attention_error_string.restype = ctypes.c_char_p
+        lib.pair_attention_error_string.argtypes = [ctypes.c_int]
+        msg = lib.pair_attention_error_string(err).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
+
+
+def pair_attention_expd(scores, maxes, rel_src, rel_tgt, src_blk, grp_tgt,
+                        num_nodes: int, num_heads: int,
+                        src_space: int = None):
+    """B8: per-slot expd of the forward plan, f32 ``[K, slots]`` (each
+    head's row is the contiguous per-slot scale of its B3 launch).
+    ``scores`` [rows, 2K] f32 or bf16, ``maxes`` the f32 [V, K]
+    stabiliser."""
+    if scores.device.type == "cpu":
+        return pair_attention_expd_plain(
+            scores, maxes, rel_src, rel_tgt, src_blk, grp_tgt, num_nodes,
+            num_heads, src_space)
+    if scores.device.type != "cuda":
+        raise TypeError(f"pair_attention_expd: unsupported device "
+                        f"{scores.device}")
+    from .cuda_build import load_library
+
+    lib = load_library(_SOURCE)
+    entry = "pair_attention_expd_launch"
+    k, v = num_heads, num_nodes
+    vs = v if src_space is None else src_space
+    _check(entry, scores.device, scores=(scores, tuple(_DTYPE_CODES)),
+           maxes=(maxes, (torch.float32,)))
+    _heads_checks(entry, k, scores)
+    group, _ = _plan_checks(entry, scores.device, rel_src, rel_tgt, src_blk,
+                            grp_tgt)
+    if tuple(maxes.shape) != (v, k) or vs <= 0:
+        raise ValueError(f"{entry}: maxes must be [{v}, {k}]")
+    slots = rel_src.numel()
+    out = torch.empty((k, slots), dtype=torch.float32, device=scores.device)
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    _call(lib, entry, [i, i, p, i64, p, i, i, p, p, p, p, i, i64, i, p, p],
+          scores.device.index or 0, _DTYPE_CODES[scores.dtype],
+          scores.data_ptr(), scores.shape[0], maxes.data_ptr(), v, k,
+          rel_src.data_ptr(), rel_tgt.data_ptr(), src_blk.data_ptr(),
+          grp_tgt.data_ptr(), group, slots, vs, out.data_ptr(),
+          torch.cuda.current_stream(scores.device).cuda_stream)
+    LAUNCHES["pair_attention_expd"] += 1
+    return out
+
+
+def pair_attention_bwd_fused(table, d_weighted, d_denom, scores, maxes,
+                             rel_src, rel_tgt, src_blk, grp_tgt,
+                             num_nodes: int, num_heads: int,
+                             src_space: int = None):
+    """B9: the three gradients of one backward-plan pass, (d_src_scores
+    [rows, K], d_tgt_scores [rows, K], d_table [rows, H]) in f32 (see
+    ``pair_attention_bwd_fused_plain``). ``table``, ``d_weighted`` and
+    ``scores`` share the stream dtype (f32 or bf16); ``d_denom`` and
+    ``maxes`` are f32 [V, K]."""
+    if table.device.type == "cpu":
+        return pair_attention_bwd_fused_plain(
+            table, d_weighted, d_denom, scores, maxes, rel_src, rel_tgt,
+            src_blk, grp_tgt, num_nodes, num_heads, src_space)
+    if table.device.type != "cuda":
+        raise TypeError(f"pair_attention_bwd_fused: unsupported device "
+                        f"{table.device}")
+    from .cuda_build import load_library
+
+    lib = load_library(_SOURCE)
+    entry = "pair_attention_bwd_fused_launch"
+    k, v = num_heads, num_nodes
+    vs = v if src_space is None else src_space
+    stream = (table.dtype,)
+    f32 = (torch.float32,)
+    _check(entry, table.device, table=(table, tuple(_DTYPE_CODES)),
+           d_weighted=(d_weighted, stream), scores=(scores, stream),
+           d_denom=(d_denom, f32), maxes=(maxes, f32))
+    _heads_checks(entry, k, scores)
+    group, num_groups = _plan_checks(entry, table.device, rel_src, rel_tgt,
+                                     src_blk, grp_tgt)
+    if table.dim() != 2:
+        raise ValueError(f"{entry}: table must be 2-D")
+    rows, h = table.shape
+    if (h % k or tuple(d_weighted.shape) != (v, h)
+            or scores.shape[0] != rows or tuple(d_denom.shape) != (v, k)
+            or tuple(maxes.shape) != (v, k) or vs <= 0):
+        raise ValueError(f"{entry}: inconsistent operand shapes")
+    dev = table.device
+    d_ss = torch.zeros((rows, k), dtype=torch.float32, device=dev)
+    d_ts = torch.zeros((rows, k), dtype=torch.float32, device=dev)
+    d_table = torch.zeros((rows, h), dtype=torch.float32, device=dev)
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    _call(lib, entry,
+          [i, i, p, p, p, p, p, i64, i, i, i, i, p, p, p, p, i, i, p, p, p,
+           p],
+          dev.index or 0, _DTYPE_CODES[table.dtype], table.data_ptr(),
+          d_weighted.data_ptr(), d_denom.data_ptr(), scores.data_ptr(),
+          maxes.data_ptr(), rows, h, k, v, vs, rel_src.data_ptr(),
+          rel_tgt.data_ptr(), src_blk.data_ptr(), grp_tgt.data_ptr(), group,
+          num_groups, d_ss.data_ptr(), d_ts.data_ptr(), d_table.data_ptr(),
+          torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["pair_attention_bwd_fused"] += 1
+    return d_ss, d_ts, d_table
+
+
+# ---------------------------------------------------------------------------
+# The attention op.
+
+
+def _headmajor_sums(table, expd_f, fwd_plan, v: int, k: int):
+    """(denom, weighted) through K ``pair_spmm`` launches, one per head, on
+    a head-major layout: head kk's table is its head_dim columns plus a
+    column of ones, whose output column is the head's denominator; its
+    per-slot scale is row kk of ``expd_f``. The reference pads each head's
+    table to the TPU's 128-lane tile; the CUDA kernel masks the ragged
+    edge, so the port does not."""
+    rows = table.shape[0]
+    head_dim = table.shape[1] // k
+    heads_km = table.reshape(rows, head_dim, k).permute(2, 0, 1)
+    t_heads = torch.cat(
+        [heads_km, table.new_ones((k, rows, 1))], dim=2).contiguous()
+    outs = [pair_spmm(t_heads[kk], expd_f[kk], *fwd_plan, v)
+            for kk in range(k)]
+    denom = torch.stack([o[:, head_dim] for o in outs], dim=-1)
+    weighted = torch.stack([o[:, :head_dim] for o in outs],
+                           dim=-1).reshape(v, head_dim * k)
+    return denom, weighted
+
+
+def _launch_sums(table, scores, m_safe, plan: MergedPlan, v: int, k: int,
+                 src_space: Optional[int]):
+    """(denom, weighted, expd_o, slope_o) under a given stabiliser: B8,
+    the head-major B3 launches, and the overflow edges in plain torch."""
+    head_dim = table.shape[1] // k
+    h_tiles = max(-(-table.shape[1] // TILE), 1)
+    if not (head_dim + 1 <= TILE and k <= 4 * h_tiles):
+        raise NotImplementedError(
+            f"pair attention with head_dim {head_dim} and {k} heads takes "
+            "the hk-major aggregation kernel (B10, _agg_kernel_device), "
+            "which is not ported.")
+    expd_f = pair_attention_expd(scores, m_safe, *plan.fwd, v, k,
+                                 src_space=src_space)
+    denom, weighted = _headmajor_sums(table, expd_f, plan.fwd, v, k)
+    if plan.ovf_src.shape[0] == 0:  # no spilled edges (the common case)
+        zero_o = table.new_zeros((0, k), dtype=torch.float32)
+        return denom, weighted, zero_o, zero_o
+    ovf_src, ovf_tgt = plan.ovf_src.long(), plan.ovf_tgt.long()
+    p_o, l_o, valid_o = _overflow_logits(scores, ovf_src, ovf_tgt, v,
+                                         src_space)
+    seg_o = torch.where(valid_o, ovf_tgt, torch.full_like(ovf_tgt, v))
+    expd_o = torch.where(
+        valid_o[:, None],
+        torch.exp(l_o - _take(m_safe, torch.clamp(ovf_tgt, max=v - 1))),
+        torch.zeros_like(l_o))
+    slope_o = torch.where(p_o >= 0, 1.0, LEAKY_SLOPE)
+    msgs_o = _take(table, ovf_src).float()
+    denom = denom + denom.new_zeros((v + 1, k)).index_add_(
+        0, seg_o, expd_o)[:v]
+    weighted = weighted + weighted.new_zeros(
+        (v + 1, weighted.shape[1])).index_add_(
+        0, seg_o, msgs_o * expd_o.repeat(1, head_dim))[:v]
+    return denom, weighted, expd_o, slope_o
+
+
+def _launch_bwd(table, scores, m_safe, d_denom, d_weighted, dw_stream,
+                plan: MergedPlan, expd_o, slope_o, v: int, k: int,
+                src_space: Optional[int]):
+    """(d_src_scores, d_tgt_scores, d_table): B9 plus the overflow terms."""
+    rows = table.shape[0]
+    head_dim = table.shape[1] // k
+    d_ss, d_ts, d_table = pair_attention_bwd_fused(
+        table, dw_stream, d_denom, scores, m_safe, *plan.bwd, v, k,
+        src_space=src_space)
+    if plan.ovf_src.shape[0] == 0:
+        return d_ss, d_ts, d_table
+    ovf_src, ovf_tgt = plan.ovf_src.long(), plan.ovf_tgt.long()
+    valid_o = (ovf_tgt < v)[:, None].float()
+    tgt_o = torch.clamp(ovf_tgt, max=v - 1)
+    dwg_o = d_weighted[tgt_o] * valid_o
+    ddg_o = d_denom[tgt_o] * valid_o
+    msgs_o = _take(table, ovf_src).float()
+    de_o = (msgs_o * dwg_o).reshape(-1, head_dim, k).sum(dim=1) + ddg_o
+    d_p_o = expd_o * slope_o * de_o
+    d_table = d_table.index_add(0, ovf_src, dwg_o * expd_o.repeat(1, head_dim))
+    d_ss = d_ss.index_add(0, ovf_src, d_p_o)
+    vs = v if src_space is None else src_space
+    seg = torch.where(ovf_tgt < v, (ovf_src // vs) * vs + tgt_o,
+                      torch.full_like(ovf_tgt, rows))
+    d_ts = torch.cat([d_ts, d_ts.new_zeros((1, k))]).index_add_(
+        0, seg, d_p_o)[:rows]
+    return d_ss, d_ts, d_table
+
+
+class PairAttention(torch.autograd.Function):
+    """``pair_attention`` as an autograd op: the forward saves the rounded
+    stabiliser and the overflow edges' expd and slope, the backward runs
+    B9. Gradients come back in the input dtypes (bf16 inputs get bf16
+    gradients, as the reference's custom VJP returns them), so callers cast
+    to the stream dtype OUTSIDE the op."""
+
+    @staticmethod
+    def forward(ctx, table_hk, scores, plan: MergedPlan, num_nodes: int,
+                num_heads: int, stabiliser: str, src_space: Optional[int]):
+        v, k = num_nodes, num_heads
+        if stabiliser == "bound":
+            m = _bound_stabiliser(scores, v, k, src_space)
+        elif stabiliser == "exact":
+            raise NotImplementedError(
+                "stabiliser='exact' needs the per-(target, head) max kernel "
+                "(B11, _max_kernel_device), which is not ported; use "
+                "'bound'.")
+        else:
+            raise ValueError(f"unknown stabiliser {stabiliser!r}")
+        m_safe = _stabilise(m, table_hk.dtype)
+        table = table_hk.contiguous()
+        scores = scores.contiguous()
+        denom, weighted, expd_o, slope_o = _launch_sums(
+            table, scores, m_safe, plan, v, k, src_space)
+        ctx.save_for_backward(table, scores, m_safe, expd_o, slope_o)
+        ctx.plan, ctx.v, ctx.k, ctx.src_space = plan, v, k, src_space
+        return denom, weighted
+
+    @staticmethod
+    def backward(ctx, g_denom, g_weighted):
+        table, scores, m_safe, expd_o, slope_o = ctx.saved_tensors
+        d_denom = g_denom.float().contiguous()
+        d_weighted = g_weighted.float()
+        # The cotangent streams at the table dtype, as the forward messages.
+        dw_stream = d_weighted.to(table.dtype).contiguous()
+        d_ss, d_ts, d_table = _launch_bwd(
+            table, scores, m_safe, d_denom, d_weighted, dw_stream, ctx.plan,
+            expd_o, slope_o, ctx.v, ctx.k, ctx.src_space)
+        d_scores = torch.cat([d_ss, d_ts], dim=1).to(scores.dtype)
+        return (d_table.to(table.dtype), d_scores, None, None, None, None,
+                None)
+
+
+def pair_attention(table_hk, scores, plan: MergedPlan, num_nodes: int,
+                   num_heads: int, stabiliser: str,
+                   src_space: Optional[int] = None):
+    """(denom [V, K], weighted [V, H]) of relational multi-head attention
+    over a merged plan on the tables' device. ``table_hk`` [L*Vs, H]
+    (hk-major heads) and ``scores`` [L*Vs, 2K] (source | target halves)
+    in the stream dtype; ``stabiliser`` must be ``"bound"``."""
+    return PairAttention.apply(table_hk, scores, plan, num_nodes, num_heads,
+                               stabiliser, src_space)
+
+
+def pair_attention_typed(table_hk, scores, plans_typed, num_nodes: int,
+                         num_heads: int, stabiliser: str):
+    """The per-type (row-split) form of ``pair_attention``: not ported."""
+    raise NotImplementedError(
+        "pair_attention_typed (per-type RGAT over pair_plans_typed) is not "
+        "ported; build the batch with merged pair plans (pair_plans).")

@@ -12,8 +12,10 @@ C++ planner (``native/src/graphpack.cc``) produces the same layout faster.
 Device half: ``pair_stream_joint`` is a ``torch.autograd.Function`` whose
 forward runs the joint kernel (K2, ``pair_spmm_stream_joint``) and whose
 backward runs the stream kernel (K1, ``pair_spmm_stream``) over the
-backward plan. Both kernels are hand-written CUDA (``csrc/pair_stream.cu``).
-Each wrapper runs its plain PyTorch version on a CPU tensor and launches the
+backward plan. ``pair_spmm`` (B3) is the same SpMM over one direction of a
+merged plan (``MergedPlan``); RGAT's head-major sums run it once per head.
+All three kernels are hand-written CUDA (``csrc/pair_stream.cu``). Each
+wrapper runs its plain PyTorch version on a CPU tensor and launches the
 kernel on a CUDA tensor, or raises; there is no fallback between the two.
 """
 import ctypes
@@ -82,6 +84,19 @@ class PairPlans(NamedTuple):
         return (tuple(self.fwd) + tuple(self.bwd)
                 + (self.ovf_src, self.ovf_tgt,
                    self.inv_fwd, self.inv_bwd, self.inv_ovf))
+
+    @classmethod
+    def fromtuple(cls, arrays) -> "PairPlans":
+        return cls(
+            PairPlan(*arrays[0:4]), PairPlan(*arrays[4:8]),
+            arrays[8], arrays[9], arrays[10], arrays[11], arrays[12],
+        )
+
+    @property
+    def kernel_arrays(self) -> Tuple[np.ndarray, ...]:
+        """The 10 plan arrays the merged-plan ops read: both directions and
+        the overflow edges."""
+        return tuple(self.fwd) + tuple(self.bwd) + (self.ovf_src, self.ovf_tgt)
 
 
 def _plan_one_direction(
@@ -497,12 +512,48 @@ def stream_joint_plan(plans_typed, v_src: int,
         np.zeros_like(gyb), osrc, otgt_l, v_src, v_out, num_types)
 
 
-# ---------------------------------------------------------------------------
-# Device half: the two kernels, their plain versions and the autograd op
+@dataclasses.dataclass(frozen=True)
+class MergedPlan:
+    """A merged plan over all edge types (``PairPlans.astuple()``, 13
+    arrays: sources in the stacked ``l * src_space + u`` row space, targets
+    local) as the merged-plan ops read it. Built once per batch from the
+    host tuple (``MergedPlan(*arrays)``) and moved with ``.to(device)``."""
 
-# Launch counts of the two CUDA kernels: each wrapper adds one where it
-# launches its kernel, and nowhere else.
-LAUNCHES = {"pair_stream": 0, "pair_stream_joint": 0}
+    rel_src_f: object
+    rel_tgt_f: object
+    src_blk_f: object
+    grp_tgt_f: object
+    rel_src_b: object
+    rel_tgt_b: object
+    src_blk_b: object
+    grp_tgt_b: object
+    ovf_src: object
+    ovf_tgt: object
+    inv_fwd: object
+    inv_bwd: object
+    inv_ovf: object
+
+    @property
+    def fwd(self) -> tuple:
+        return (self.rel_src_f, self.rel_tgt_f, self.src_blk_f, self.grp_tgt_f)
+
+    @property
+    def bwd(self) -> tuple:
+        return (self.rel_src_b, self.rel_tgt_b, self.src_blk_b, self.grp_tgt_b)
+
+    def to(self, device) -> "MergedPlan":
+        """Every array as a tensor on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: as_tensor(getattr(self, f.name), device)
+            for f in dataclasses.fields(self)})
+
+
+# ---------------------------------------------------------------------------
+# Device half: the three kernels, their plain versions and the autograd op
+
+# Launch counts of the CUDA kernels of this module: each wrapper adds one
+# where it launches its kernel, and nowhere else.
+LAUNCHES = {"pair_stream": 0, "pair_stream_joint": 0, "pair_spmm": 0}
 
 _SOURCE = "pair_stream.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -513,31 +564,54 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt):
+    """Absolute (src_row, tgt_row, valid) per slot of one plan direction:
+    ``srcabs = src_blk[slot // E_C] * BLK + rel_src``, targets through the
+    group's ``grp_tgt``; a sentinel ``rel >= BLK`` marks a padded slot
+    (its ids are clipped into the block)."""
+    rel_s = rel_src.reshape(-1).long()
+    rel_t = rel_tgt.reshape(-1).long()
+    chunk = torch.arange(rel_s.shape[0], device=rel_s.device) // E_C
+    group = plan_group(src_blk, grp_tgt)
+    srcabs = src_blk.long()[chunk] * BLK + torch.clamp(rel_s, max=BLK - 1)
+    tgtabs = (grp_tgt.long()[chunk // group] * BLK
+              + torch.clamp(rel_t, max=BLK - 1))
+    valid = (rel_s < BLK) & (rel_t < BLK)
+    return srcabs, tgtabs, valid
+
+
 def _stream_slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt, grp_type,
                          v: int):
     """Global (src_row, out_row, valid) per slot of the streamed layout:
     sources globalize through the group's TYPE (``ty * V + src_blk * BLK +
     rel``), outputs through the group's output block."""
-    rel_s = rel_src.reshape(-1).long()
-    rel_t = rel_tgt.reshape(-1).long()
-    chunk = torch.arange(rel_s.shape[0], device=rel_s.device) // E_C
-    group = plan_group(src_blk, grp_tgt)
-    ty = grp_type.long()[chunk // group]
-    srcabs = (ty * v + src_blk.long()[chunk] * BLK
-              + torch.clamp(rel_s, max=BLK - 1))
-    tgtabs = grp_tgt.long()[chunk // group] * BLK + torch.clamp(rel_t, max=BLK - 1)
-    valid = (rel_s < BLK) & (rel_t < BLK)
-    return srcabs, tgtabs, valid
+    srcabs, tgtabs, valid = slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt)
+    chunk = torch.arange(srcabs.shape[0], device=srcabs.device) // E_C
+    ty = grp_type.long()[chunk // plan_group(src_blk, grp_tgt)]
+    return ty * v + srcabs, tgtabs, valid
 
 
 def pair_spmm_stream_plain(tables, scale, rel_src, rel_tgt, src_blk,
                            grp_tgt, grp_type, v: int, out_rows: int):
-    """Plain PyTorch version of both kernels: gather every slot's row
+    """Plain PyTorch version of K1 and K2: gather every slot's row
     (clipped, as ``jnp.take(mode="clip")``), upcast to f32, scale, and
     ``index_add_`` into ``out_rows`` rows (invalid slots go to a discard
     row)."""
     srcabs, tgtabs, valid = _stream_slot_abs_ids(
         rel_src, rel_tgt, src_blk, grp_tgt, grp_type, v)
+    return _scatter_slots(tables, scale, srcabs, tgtabs, valid, out_rows)
+
+
+def pair_spmm_plain(table, scale, rel_src, rel_tgt, src_blk, grp_tgt,
+                    out_rows: int):
+    """Plain PyTorch version of B3, a mirror of the reference's
+    ``_pair_spmm_jnp``: the slots' clipped source rows, upcast to f32,
+    times the f32 scale, summed into ``out_rows`` rows."""
+    srcabs, tgtabs, valid = slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt)
+    return _scatter_slots(table, scale, srcabs, tgtabs, valid, out_rows)
+
+
+def _scatter_slots(tables, scale, srcabs, tgtabs, valid, out_rows: int):
     srcabs = torch.clamp(srcabs, 0, tables.shape[0] - 1)
     msgs = tables[srcabs].to(torch.float32)
     msgs = msgs * (scale.reshape(-1) * valid)[:, None]
@@ -552,7 +626,8 @@ def pair_spmm_stream_plain(tables, scale, rel_src, rel_tgt, src_blk,
 def _launch(entry: str, tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
             grp_type, v: int, out_rows: int):
     """Launch one CUDA kernel of ``csrc/pair_stream.cu`` on the current
-    stream into a fresh zero-initialised f32 output."""
+    stream into a fresh zero-initialised f32 output. ``grp_type`` None
+    reads every group as type 0 (B3)."""
     from .cuda_build import load_library
 
     lib = load_library(_SOURCE)
@@ -562,7 +637,11 @@ def _launch(entry: str, tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
     if tables.dim() != 2 or not tables.is_contiguous():
         raise ValueError(f"{entry}: tables must be a contiguous 2-D tensor")
     ints = {"rel_src": rel_src, "rel_tgt": rel_tgt, "src_blk": src_blk,
-            "grp_tgt": grp_tgt, "grp_type": grp_type}
+            "grp_tgt": grp_tgt}
+    if grp_type is not None:
+        ints["grp_type"] = grp_type
+        if grp_type.shape != grp_tgt.shape:
+            raise ValueError(f"{entry}: grp_type and grp_tgt differ in shape")
     for name, a in ints.items():
         if a.dtype != torch.int32 or not a.is_contiguous():
             raise TypeError(f"{entry}: {name} must be contiguous int32")
@@ -577,7 +656,7 @@ def _launch(entry: str, tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
     group = plan_group(src_blk, grp_tgt)
     num_groups = grp_tgt.shape[0]
     if (rel_src.numel() != num_chunks * E_C or rel_tgt.numel() != rel_src.numel()
-            or scale.numel() != rel_src.numel() or grp_type.shape != grp_tgt.shape
+            or scale.numel() != rel_src.numel()
             or group * num_groups != num_chunks or num_groups == 0):
         raise ValueError(f"{entry}: inconsistent plan shapes")
     h = tables.shape[1]
@@ -594,8 +673,9 @@ def _launch(entry: str, tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
     err = fn(tables.device.index or 0, _DTYPE_CODES[tables.dtype],
              tables.data_ptr(), tables.shape[0], h, scale.data_ptr(),
              rel_src.data_ptr(), rel_tgt.data_ptr(), src_blk.data_ptr(),
-             grp_tgt.data_ptr(), grp_type.data_ptr(), num_groups, group, v,
-             out.data_ptr(), out_rows, stream)
+             grp_tgt.data_ptr(),
+             None if grp_type is None else grp_type.data_ptr(), num_groups,
+             group, v, out.data_ptr(), out_rows, stream)
     if err != 0:
         lib.pair_stream_error_string.restype = ctypes.c_char_p
         lib.pair_stream_error_string.argtypes = [ctypes.c_int]
@@ -630,6 +710,23 @@ def pair_spmm_stream_joint(tables, scale, rel_src, rel_tgt, src_blk,
     return _dispatch("pair_stream_joint", "pair_stream_joint_launch", tables,
                      scale, rel_src, rel_tgt, src_blk, grp_tgt_l, grp_type,
                      v, v_out)
+
+
+def pair_spmm(table, scale, rel_src, rel_tgt, src_blk, grp_tgt,
+              out_rows: int):
+    """B3, the merged-plan kernel: ``out[tgt] += scale * table[src]`` over
+    one plan direction into f32 [out_rows, H] (``table`` [rows, H] f32 or
+    bf16, ``scale`` a contiguous f32 row of one value per slot). It is K1
+    with every group of type 0 and global output blocks."""
+    if table.device.type == "cpu":
+        return pair_spmm_plain(table, scale, rel_src, rel_tgt, src_blk,
+                               grp_tgt, out_rows)
+    if table.device.type != "cuda":
+        raise TypeError(f"pair_spmm: unsupported device {table.device}")
+    out = _launch("pair_spmm_launch", table, scale, rel_src, rel_tgt,
+                  src_blk, grp_tgt, None, 0, out_rows)
+    LAUNCHES["pair_spmm"] += 1
+    return out
 
 
 class PairStreamJoint(torch.autograd.Function):

@@ -1,12 +1,14 @@
 """The PPI-shaped workload of the main path, made from a seed.
 
 A numpy copy of the JAX repo's ``bench.py::build_raw_arrays`` and of the
-``pair_per_type`` branch of ``bench.py::build_batch``: 3 graphs of 2400
+two pair-plan branches of ``bench.py::build_batch``: 3 graphs of 2400
 nodes padded to V = 8064 (63 node blocks), three edge types (self loops,
 34k random forward edges per graph and their reverses, ~211k edges in
 all), 50 input features and 121 labels with a 10% positive rate. Plans
-are per-type pair plans whose groups are chosen from type 0, as the
-dataset path chooses them.
+are per-type pair plans whose groups are chosen from type 0 (the RGCN
+form, ``pair_per_type``), or one merged plan over all three types with
+groups chosen from all of them and an overflow budget of 256 (the RGAT
+form), as the dataset path chooses them.
 """
 from typing import Dict, Tuple
 
@@ -55,9 +57,11 @@ def build_raw_arrays(seed: int):
     return node_features, adjacency, node_to_graph
 
 
-def build_ppi_batch_host(seed: int
+def build_ppi_batch_host(seed: int, merged: bool = False
                          ) -> Tuple[GraphBatch, Dict[str, np.ndarray], int]:
-    """(host batch with per-type pair plans, labels, real edge count)."""
+    """(host batch, labels, real edge count). The batch carries per-type
+    pair plans, or with ``merged`` one merged plan over all three types
+    (the RGAT form; ``bench.py::build_batch`` with ``use_pairs=True``)."""
     rng = np.random.RandomState(seed)
     v = GRAPHS_PER_BATCH * NODES_PER_GRAPH
     node_features, (loops, fwd, bkwd), node_to_graph = build_raw_arrays(seed)
@@ -77,13 +81,23 @@ def build_ppi_batch_host(seed: int
     srcs = list(batch.edge_sources)
     tgts = list(batch.edge_targets)
     cnts = [int(c) for c in batch.num_edges]
-    gf, gb = choose_pair_groups([srcs[0]], [tgts[0]], [cnts[0]], NODE_BUDGET)
-    typed = tuple(
-        build_pair_plans([srcs[t]], [tgts[t]], [cnts[t]], NODE_BUDGET,
-                         group_fwd=gf, group_bwd=gb).astuple()
-        for t in range(len(srcs))
-    )
-    batch = batch.replace(pair_plans_typed=typed)
+    if merged:
+        # Groups chosen over all three types, as the dataset path does.
+        gf, gb = choose_pair_groups(srcs, tgts, cnts, NODE_BUDGET)
+        pairs = build_pair_plans(srcs, tgts, cnts, NODE_BUDGET,
+                                 overflow_budget=256, group_fwd=gf,
+                                 group_bwd=gb)
+        batch = batch.replace(pair_plans=pairs.astuple(),
+                              pair_targets_merged=False)
+    else:
+        gf, gb = choose_pair_groups([srcs[0]], [tgts[0]], [cnts[0]],
+                                    NODE_BUDGET)
+        typed = tuple(
+            build_pair_plans([srcs[t]], [tgts[t]], [cnts[t]], NODE_BUDGET,
+                             group_fwd=gf, group_bwd=gb).astuple()
+            for t in range(len(srcs))
+        )
+        batch = batch.replace(pair_plans_typed=typed)
     labels = {
         "node_labels": pad_node_label_array(
             (rng.rand(v, NUM_LABELS) > 0.9).astype(np.float32), NODE_BUDGET
@@ -93,13 +107,13 @@ def build_ppi_batch_host(seed: int
     return batch, labels, real_edges
 
 
-def build_ppi_batch(seed: int, device="cuda"):
-    """The PPI-shaped batch and labels as tensors on ``device``, and the
-    real edge count."""
+def build_ppi_batch(seed: int, device="cuda", merged: bool = False):
+    """The PPI-shaped batch (per-type plans, or with ``merged`` the merged
+    plan) and labels as tensors on ``device``, and the real edge count."""
     import torch
 
     dev = resolve_device(device)
-    batch, labels, real_edges = build_ppi_batch_host(seed)
+    batch, labels, real_edges = build_ppi_batch_host(seed, merged)
     batch = batch.to(dev)
     labels = {k: torch.as_tensor(v, device=dev) for k, v in labels.items()}
     return batch, labels, real_edges
