@@ -35,6 +35,19 @@ Phases, each of which fails the run by raising:
       layer);
    c. timings as in 2c (B3's library call is ``torch.sparse.mm`` of the
       expd-scaled CSR; B8 and B9 have no single PyTorch call).
+4. The reference-default GNN_Edge_MLP (target-state input, one hidden
+   edge-MLP layer, GRU global exchange after layer 2) on the merged-target
+   PPI batch, the same three steps:
+   a. the relu-pair kernels B4 (training forward, R and the mask sum M),
+      B5 (dA over the backward plan), B6 (eval forward) and B7 (dB over
+      the forward plan, on no call path) against their plain versions at
+      the real plan shapes: bf16 A and B, f32 cotangent, unit scales;
+   b. ``workloads.edge_mlp_default_params()`` at full width (4 layers,
+      hidden 320, bf16 edge stream, Adam at lr 1e-3): the eval forward
+      against the plain versions (B6 once per layer, B4 and B5 never),
+      then its main path (per step B4 and B5 once per layer, B6 and B7
+      never);
+   c. timings as in 2c (none of the four has a single PyTorch call).
 
 The line before the last two is the JSON ``kernels`` line; then the card's
 name and power limit (nvidia-smi); the last line is the JSON result. Exits
@@ -65,6 +78,12 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
 # that lands on the other side of a bf16 rounding boundary re-rounds one
 # stream entry by a bf16 ulp in the next layer.
 MODEL_ATOL = 2e-2
+# The GNN_Edge_MLP model at random weights sums unit-scaled relu messages,
+# so its logits reach about a hundred; a re-rounded bf16 entry (2**-8
+# relative) then moves a logit by a share of its size, not by a fixed
+# amount: the bound grows by 2e-2 (5 bf16 ulps) of the largest |logit|
+# (observed up to 1.3 ulps on an H100).
+EDGE_MLP_LOGIT_RTOL = 2e-2
 LOSS_RTOL = 1e-3
 
 
@@ -175,10 +194,12 @@ def build_model(hypers_file: str, style: str, device, num_types: int):
     return model, params
 
 
-def check_eval_forward(model, batch, labels, patches) -> None:
+def check_eval_forward(model, batch, labels, patches,
+                       logit_rtol: float = 0.0) -> None:
     """One eval forward with the kernels against the same model with every
     wrapper in ``patches`` ((module, name, plain version)) replaced by its
-    plain version."""
+    plain version: logits within ``MODEL_ATOL`` plus ``logit_rtol`` of the
+    largest plain |logit|, losses within ``LOSS_RTOL``."""
     import torch
 
     from tf2_gnn_tpu_torch.workloads import NUM_LABELS
@@ -195,15 +216,19 @@ def check_eval_forward(model, batch, labels, patches) -> None:
         raise AssertionError(f"eval forward: logits of shape "
                              f"{tuple(logits.shape)}, expected {(v, NUM_LABELS)}")
     model_err = float((logits - logits_plain).abs().max())
-    if not (torch.isfinite(logits).all() and model_err <= MODEL_ATOL
+    largest = float(logits_plain.abs().max())
+    limit = MODEL_ATOL + logit_rtol * largest
+    if not (torch.isfinite(logits).all() and model_err <= limit
             and abs(float(loss) - float(loss_plain))
             <= LOSS_RTOL * abs(float(loss_plain))):
         raise AssertionError(
             f"eval forward: kernels vs plain versions max abs logit err "
-            f"{model_err} (atol {MODEL_ATOL}), loss {float(loss)} vs "
+            f"{model_err} (limit {limit}: atol {MODEL_ATOL} + {logit_rtol} "
+            f"of the largest |logit| {largest}), loss {float(loss)} vs "
             f"{float(loss_plain)}")
-    log(f"eval forward vs plain versions: max abs logit err {model_err:.3e}, "
-        f"loss {float(loss):.6f} vs {float(loss_plain):.6f}")
+    log(f"eval forward vs plain versions: max abs logit err {model_err:.3e} "
+        f"(limit {limit:.3e}, largest |logit| {largest:.3e}), loss "
+        f"{float(loss):.6f} vs {float(loss_plain):.6f}")
 
 
 def _patched(patches):
@@ -531,6 +556,162 @@ def rgat_path(device, argv):
     ]
 
 
+def relu_pair_bound_ms(plan_args, table_rows_read, cot_rows_read, h: int,
+                       outputs: int, out_rows: int, ops_per_slot: float):
+    """A relu-pair kernel's bound: bytes = the distinct bf16 rows of A and
+    B it reads, the distinct f32 cotangent rows (B5, B7), the plan (12 B a
+    slot, 4 B a chunk and a group) and its f32 outputs written once;
+    operations = ``ops_per_slot`` per valid slot and column."""
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+
+    rel_src, _, src_blk, grp_tgt = plan_args
+    valid = int(ps.slot_abs_ids(*plan_args)[2].sum())
+    nbytes = (table_rows_read * h * 2 + cot_rows_read * h * 4
+              + rel_src.numel() * 12 + src_blk.numel() * 4
+              + grp_tgt.numel() * 4 + outputs * out_rows * h * 4)
+    return bound_ms(nbytes, ops_per_slot * valid * h), valid
+
+
+def edge_mlp_path(device, argv):
+    """Phase 4: the reference-default GNN_Edge_MLP through B4, B5 and B6
+    (B7 checked and timed beside them). Returns the four entries."""
+    import torch
+
+    from tf2_gnn_tpu_torch.models.node_multiclass_task import (
+        NodeMulticlassTask,
+    )
+    from tf2_gnn_tpu_torch.ops import pair_attention as pa
+    from tf2_gnn_tpu_torch.ops import pair_edge_mlp as pem
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.workloads import (
+        FEATURE_DIM,
+        NUM_LABELS,
+        build_ppi_batch,
+        edge_mlp_default_params,
+    )
+
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    batch, labels, real_edges = build_ppi_batch(SEED, device=device,
+                                                merged=True,
+                                                merge_targets=True)
+    plan = batch.pair_merged
+    rows = plan.out_rows
+    log(f"workload (merged-target plans): {real_edges} edges, "
+        f"V={batch.num_nodes_padded}, {rows} output rows, "
+        f"{plan.rel_src_f.shape[0]} forward / {plan.rel_src_b.shape[0]} "
+        f"backward chunks, {plan.ovf_src.shape[0]} overflow slots, built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    params = edge_mlp_default_params()
+    model = NodeMulticlassTask.from_params(
+        params, input_dim=FEATURE_DIM, num_edge_types=batch.num_edge_types,
+        device=device, seed=SEED, num_labels=NUM_LABELS)
+    h = params["gnn_hidden_dim"]
+    log(f"model edge_mlp_default_params(): "
+        f"{sum(p.numel() for p in model.parameters())} parameters, "
+        f"{params['gnn_num_layers']} layers, hidden {h}, edge stream "
+        f"{params['gnn_edge_dtype']}, global exchange "
+        f"{params['gnn_global_exchange_mode']} after layers "
+        f"{list(model.gnn.exchange_layers)}")
+
+    # Kernel inputs at the main path's shapes and dtypes: A and B are the
+    # [L*V, H] bf16 halves (A's rows are L*V here too), g the f32
+    # cotangent of R, and the unit scales of the unnormalised model.
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    a = torch.randn((rows, h), generator=gen, device=device).to(torch.bfloat16)
+    b = torch.randn((rows, h), generator=gen, device=device).to(torch.bfloat16)
+    g = torch.randn((rows, h), generator=gen, device=device)
+    sf, sb, _ = ps.pair_unit_scales(plan, rows)
+    fwd_args = (a, b, sf, *plan.fwd, rows)
+    da_args = (a, b, g, sb, *plan.bwd, rows)
+    db_args = (a, b, g, sf, *plan.fwd, rows)
+    fns = {
+        "relu_pair_fwd_m": (lambda: pem.relu_pair_fwd_m(*fwd_args),
+                            lambda: pem.relu_pair_fwd_m_plain(*fwd_args)),
+        "relu_pair_da": (lambda: pem.relu_pair_da(*da_args),
+                         lambda: pem.relu_pair_da_plain(*da_args)),
+        "relu_pair_fwd": (lambda: pem.relu_pair_fwd(*fwd_args),
+                          lambda: pem.relu_pair_fwd_plain(*fwd_args)),
+        "relu_pair_db": (lambda: pem.relu_pair_db(*db_args),
+                         lambda: pem.relu_pair_db_plain(*db_args)),
+    }
+    errs = {}
+    for name, (kernel_fn, plain_fn) in fns.items():
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs[name] = max(check_close(f"{name} output {i}", x, y, KERNEL_RTOL,
+                                     KERNEL_ATOL)
+                         for i, (x, y) in enumerate(zip(got, want)))
+        del got, want
+    log("kernel check: " + ", ".join(f"{name} max_abs_err {err:.3e}"
+                                     for name, err in errs.items())
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
+
+    counters = [(ps.reset_launch_counts, ps.LAUNCHES),
+                (pa.reset_launch_counts, pa.LAUNCHES),
+                (pem.reset_launch_counts, pem.LAUNCHES)]
+    layers = params["gnn_num_layers"]
+    for reset, _ in counters:
+        reset()
+    check_eval_forward(model, batch, labels, [
+        (pem, name, getattr(pem, f"{name}_plain")) for name in fns],
+        logit_rtol=EDGE_MLP_LOGIT_RTOL)
+    torch.cuda.synchronize()
+    eval_launches = dict(pem.LAUNCHES)
+    log(f"eval forward launches {eval_launches}")
+    if eval_launches != {"relu_pair_fwd_m": 0, "relu_pair_da": 0,
+                         "relu_pair_fwd": layers, "relu_pair_db": 0}:
+        raise AssertionError(f"eval forward launched {eval_launches}; "
+                             f"expected relu_pair_fwd {layers} times only")
+    per_step = layers * TRAIN_STEPS
+    state, train_step, eval_step, launches = train_and_count(
+        model, params, batch, labels, counters,
+        {"relu_pair_fwd_m": per_step, "relu_pair_da": per_step,
+         "relu_pair_fwd": 0, "relu_pair_db": 0, "pair_stream": 0,
+         "pair_stream_joint": 0, "pair_spmm": 0, "pair_attention_expd": 0,
+         "pair_attention_bwd_fused": 0})
+    launches["relu_pair_fwd"] = eval_launches["relu_pair_fwd"]
+    time_path(state, train_step, eval_step, batch, labels, real_edges,
+              device, argv, "GNN_Edge_MLP")
+
+    # Bounds from this run's plan: distinct rows of A, B and g read once,
+    # the plan, the f32 outputs written once.
+    f_src, f_tgt, f_valid = ps.slot_abs_ids(*plan.fwd)
+    a_rows = int(torch.unique(f_src[f_valid]).numel())
+    t_rows = int(torch.unique(f_tgt[f_valid]).numel())
+    b_tgt, b_src, b_valid = ps.slot_abs_ids(*plan.bwd)
+    da_a_rows = int(torch.unique(b_src[b_valid]).numel())
+    da_t_rows = int(torch.unique(b_tgt[b_valid]).numel())
+    # Per valid slot and column: z = a + b, then relu, scale and add (B6);
+    # also compare, select and add for M (B4); compare, select, scale and
+    # add (B5); compare, select and add, and g's multiply per output (B7).
+    bounds = {
+        "relu_pair_fwd": relu_pair_bound_ms(plan.fwd, a_rows + t_rows, 0, h,
+                                            1, rows, 4.0),
+        "relu_pair_fwd_m": relu_pair_bound_ms(plan.fwd, a_rows + t_rows, 0,
+                                              h, 2, rows, 7.0),
+        "relu_pair_da": relu_pair_bound_ms(plan.bwd, da_a_rows + da_t_rows,
+                                           da_t_rows, h, 1, rows, 5.0),
+        "relu_pair_db": relu_pair_bound_ms(plan.fwd, a_rows + t_rows,
+                                           t_rows, h, 1, rows, 4.0),
+    }
+    replaces = {"relu_pair_fwd_m": "tf2_gnn_tpu/ops/pair_edge_mlp.py:289",
+                "relu_pair_da": "tf2_gnn_tpu/ops/pair_edge_mlp.py:523",
+                "relu_pair_fwd": "tf2_gnn_tpu/ops/pair_edge_mlp.py:171",
+                "relu_pair_db": "tf2_gnn_tpu/ops/pair_edge_mlp.py:402"}
+    kernels = []
+    for name, (kernel_fn, plain_fn) in fns.items():
+        (bound, bound_by), valid = bounds[name]
+        kernels.append(time_kernel(
+            name, "tf2_gnn_tpu_torch/csrc/pair_edge_mlp.cu", replaces[name],
+            launches[name], errs[name], kernel_fn, plain_fn, None, None,
+            bound, bound_by,
+            f"[{rows}, {h}] bf16 A and B, {valid} valid slots"))
+    return kernels
+
+
 def main(argv) -> int:
     import torch
 
@@ -554,10 +735,12 @@ def main(argv) -> int:
     log(f"device: {torch.cuda.get_device_name(device)} "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
 
-    # -- 2. PPI_RGCN, 3. PPI_RGAT -----------------------------------------
+    # -- 2. PPI_RGCN, 3. PPI_RGAT, 4. GNN_Edge_MLP ---------------------------
     kernels = rgcn_path(device, argv)
     torch.cuda.empty_cache()
     kernels += rgat_path(device, argv)
+    torch.cuda.empty_cache()
+    kernels += edge_mlp_path(device, argv)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

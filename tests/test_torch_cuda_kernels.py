@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels (tf2_gnn_tpu_torch/csrc/pair_stream.cu:
-K1, K2 and B3; csrc/pair_attention.cu: B8 and B9) against their plain
-PyTorch versions on the card, at small shapes with a ragged feature width,
-f32 and bf16 tables, and through the autograd ops. Marked ``cuda``; each
-test skips without a card. On a machine with one:
+K1, K2 and B3; csrc/pair_attention.cu: B8 and B9; csrc/pair_edge_mlp.cu:
+B4, B5, B6 and B7) against their plain PyTorch versions on the card, at
+small shapes with a ragged feature width, f32 and bf16 tables, plans with
+pad slots and an all-padding group, and through the autograd ops. Marked
+``cuda``; each test skips without a card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from tf2_gnn_tpu_torch.ops import pair_attention as tpa
+from tf2_gnn_tpu_torch.ops import pair_edge_mlp as tpem
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 
 pytestmark = pytest.mark.cuda
@@ -195,3 +197,93 @@ def test_attention_op_matches_plain_on_card(device, dtype):
     for i, name in ((2, "d_table"), (3, "d_scores")):
         torch.testing.assert_close(got[i].float(), want[i].float(),
                                    msg=name, **grad_tol)
+
+
+def _merged_target_plan(seed, v=384, num_types=3):
+    """A merged-target plan (pad slots in its partly filled chunks) with
+    one all-padding group appended to each direction."""
+    rng = np.random.RandomState(seed)
+    srcs, tgts, counts = [], [], []
+    for _ in range(num_types):
+        e = rng.randint(v, 4 * v)
+        srcs.append(rng.randint(0, v, e))
+        tgts.append(rng.randint(0, v, e))
+        counts.append(e)
+    host = list(tps.build_pair_plans(srcs, tgts, counts, v,
+                                     merge_targets=True).astuple())
+    for first, inv in ((0, 10), (4, 11)):  # forward, backward
+        rel_src, rel_tgt, src_blk, grp_tgt = host[first:first + 4]
+        group = tps.plan_group(src_blk, grp_tgt)
+        pad = np.full((group, tps.E_C), tps.BLK, np.int32)
+        host[first:first + 4] = (
+            np.concatenate([rel_src, pad]), np.concatenate([rel_tgt, pad]),
+            np.concatenate([src_blk, np.zeros(group, np.int32)]),
+            np.concatenate([grp_tgt, grp_tgt[-1:]]))
+        host[inv] = np.concatenate([host[inv],
+                                    np.zeros(pad.size, np.float32)])
+    return tps.MergedPlan(*host, out_rows=num_types * v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [5, 64, 100, 320])
+def test_relu_pair_kernels_match_plain_versions(device, dtype, h):
+    plan = _merged_target_plan(10).to(device)
+    rows = plan.out_rows
+    assert int((plan.rel_src_f >= tps.BLK).sum()) > 0
+    gen = torch.Generator(device=device).manual_seed(11)
+    a = torch.randn((rows, h), generator=gen, device=device).to(dtype)
+    b = torch.randn((rows, h), generator=gen, device=device).to(dtype)
+    g = torch.randn((rows, h), generator=gen, device=device)
+    sf = torch.rand((plan.rel_src_f.numel(),), generator=gen, device=device)
+    sb = torch.rand((plan.rel_src_b.numel(),), generator=gen, device=device)
+    before = dict(tpem.LAUNCHES)
+    got = {"relu_pair_fwd": (tpem.relu_pair_fwd(a, b, sf, *plan.fwd, rows),),
+           "relu_pair_fwd_m": tpem.relu_pair_fwd_m(a, b, sf, *plan.fwd, rows),
+           "relu_pair_da": (tpem.relu_pair_da(a, b, g, sb, *plan.bwd, rows),),
+           "relu_pair_db": (tpem.relu_pair_db(a, b, g, sf, *plan.fwd, rows),)}
+    torch.cuda.synchronize()
+    want = {"relu_pair_fwd": (tpem.relu_pair_fwd_plain(a, b, sf, *plan.fwd,
+                                                       rows),),
+            "relu_pair_fwd_m": tpem.relu_pair_fwd_m_plain(a, b, sf,
+                                                          *plan.fwd, rows),
+            "relu_pair_da": (tpem.relu_pair_da_plain(a, b, g, sb, *plan.bwd,
+                                                     rows),),
+            "relu_pair_db": (tpem.relu_pair_db_plain(a, b, g, sf, *plan.fwd,
+                                                     rows),)}
+    for name in got:
+        assert tpem.LAUNCHES[name] == before[name] + 1
+        for i, (x, y) in enumerate(zip(got[name], want[name])):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5,
+                                       msg=f"{name} output {i}")
+
+
+@pytest.mark.parametrize("stream_dtype", [torch.float32, torch.bfloat16])
+def test_relu_pair_op_matches_plain_on_card(device, stream_dtype):
+    plan = _merged_target_plan(12).to(device)
+    rows = plan.out_rows
+    gen = torch.Generator(device=device).manual_seed(13)
+    a0 = torch.randn((rows, 96), generator=gen, device=device)
+    b0 = torch.randn((rows, 96), generator=gen, device=device)
+    cot = torch.randn((rows, 96), generator=gen, device=device)
+
+    def run():
+        a = a0.clone().requires_grad_(True)
+        b = b0.clone().requires_grad_(True)
+        out = tpem.pair_relu_mlp_aggregate(
+            a, b, plan, plan.inv_fwd, plan.inv_bwd, plan.inv_ovf, rows,
+            stream_dtype)
+        (out * cot).sum().backward()
+        with torch.no_grad():
+            out_eval = tpem.pair_relu_mlp_aggregate(
+                a0, b0, plan, plan.inv_fwd, plan.inv_bwd, plan.inv_ovf, rows,
+                stream_dtype)
+        return out.detach(), out_eval, a.grad, b.grad
+
+    got = run()
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("relu_pair_fwd", "relu_pair_fwd_m", "relu_pair_da"):
+            mp.setattr(tpem, name, getattr(tpem, f"{name}_plain"))
+        want = run()
+    for name, x, y in zip(("out", "out_eval", "d_a", "d_b"), got, want):
+        assert x.dtype == torch.float32
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5, msg=name)

@@ -19,6 +19,7 @@ from tf2_gnn_tpu_torch import workloads
 from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
 from tf2_gnn_tpu_torch.ops import cuda_build
 from tf2_gnn_tpu_torch.ops import pair_attention as tpa
+from tf2_gnn_tpu_torch.ops import pair_edge_mlp as tpem
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 from tf2_gnn_tpu_torch.utils.device import resolve_device
 
@@ -57,7 +58,10 @@ def test_port_has_its_own_modules():
         "harness/training.py", "harness/import_jax.py", "workloads.py",
         "csrc/pair_stream.cu", "ops/pair_attention.py", "layers/init.py",
         "layers/message_passing/rgat.py", "csrc/pair_attention.cu",
-        "harness/default_hypers/PPI_RGAT.json",
+        "harness/default_hypers/PPI_RGAT.json", "ops/pair_edge_mlp.py",
+        "csrc/pair_edge_mlp.cu", "ops/segment.py", "ops/gru.py",
+        "layers/mlp.py", "layers/readout.py", "layers/global_exchange.py",
+        "layers/dropout.py",
     ]
     missing = [p for p in expected if not (PACKAGE / p).is_file()]
     assert not missing
@@ -83,6 +87,14 @@ def test_default_device_raises_without_card(no_card):
         batch.to()
 
 
+def test_edge_mlp_entry_points_default_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        workloads.build_ppi_batch(0, merged=True, merge_targets=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NodeMulticlassTask.from_params(workloads.edge_mlp_default_params(),
+                                       input_dim=4, num_edge_types=3)
+
+
 class _CudaTensorStandIn:
     """What a wrapper sees of a CUDA tensor before it loads the library:
     its device. (This machine's torch cannot allocate CUDA tensors.)"""
@@ -98,6 +110,10 @@ WRAPPERS = {
     tps.pair_spmm: (tps.LAUNCHES, (None,) * 5 + (128,)),
     tpa.pair_attention_expd: (tpa.LAUNCHES, (None,) * 5 + (128, 4)),
     tpa.pair_attention_bwd_fused: (tpa.LAUNCHES, (None,) * 8 + (128, 4)),
+    tpem.relu_pair_fwd: (tpem.LAUNCHES, (None,) * 6 + (128,)),
+    tpem.relu_pair_fwd_m: (tpem.LAUNCHES, (None,) * 6 + (128,)),
+    tpem.relu_pair_da: (tpem.LAUNCHES, (None,) * 7 + (128,)),
+    tpem.relu_pair_db: (tpem.LAUNCHES, (None,) * 7 + (128,)),
 }
 
 
@@ -165,3 +181,33 @@ def test_cpu_tensors_take_the_plain_versions_of_the_attention_kernels():
                          tpa.pair_attention_bwd_fused_plain(*bwd_args)):
         assert torch.equal(got, want)
     assert (dict(tps.LAUNCHES), dict(tpa.LAUNCHES)) == before
+
+
+def test_cpu_tensors_take_the_plain_versions_of_the_relu_pair_kernels():
+    """B4, B5, B6 and B7 on CPU tensors: the plain versions' results, no
+    launch counted."""
+    rng = np.random.RandomState(2)
+    v = 128
+    src = rng.randint(0, v, (2, 200))
+    tgt = rng.randint(0, v, (2, 200))
+    plan = tps.MergedPlan(*tps.build_pair_plans(
+        list(src), list(tgt), [200, 200], v,
+        merge_targets=True).astuple()).to("cpu")
+    a, b, g = (torch.randn(2 * v, 8) for _ in range(3))
+    sf, sb = plan.inv_fwd, plan.inv_bwd
+    before = dict(tpem.LAUNCHES)
+    pairs = (
+        (tpem.relu_pair_fwd(a, b, sf, *plan.fwd, 2 * v),
+         tpem.relu_pair_fwd_plain(a, b, sf, *plan.fwd, 2 * v)),
+        (tpem.relu_pair_fwd_m(a, b, sf, *plan.fwd, 2 * v),
+         tpem.relu_pair_fwd_m_plain(a, b, sf, *plan.fwd, 2 * v)),
+        (tpem.relu_pair_da(a, b, g, sb, *plan.bwd, 2 * v),
+         tpem.relu_pair_da_plain(a, b, g, sb, *plan.bwd, 2 * v)),
+        (tpem.relu_pair_db(a, b, g, sf, *plan.fwd, 2 * v),
+         tpem.relu_pair_db_plain(a, b, g, sf, *plan.fwd, 2 * v)))
+    for got, want in pairs:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert len(got) == len(want)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert tpem.LAUNCHES == before

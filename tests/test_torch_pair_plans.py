@@ -98,6 +98,55 @@ def test_bench_merged_plans_are_byte_identical(bench_merged_batches):
                            ref_batch.pair_plans).kernel_arrays)
 
 
+def test_bench_merged_target_plans_are_byte_identical():
+    """The target-state edge-MLP form: the merged plan with targets in the
+    merged ``l * V + t`` row space (bench.py with pair_merge_targets=True,
+    the configuration of benchmarks/edge_mlp_probe.py); on the device its
+    forward output rows are L * V."""
+    ref_batch, ref_labels, ref_edges = bench.build_batch(
+        0, use_pallas=False, use_pairs=True, pair_merge_targets=True)
+    batch, labels, edges = workloads.build_ppi_batch_host(
+        0, merged=True, merge_targets=True)
+    assert batch.pair_targets_merged is ref_batch.pair_targets_merged is True
+    assert_same_arrays(batch.pair_plans, ref_batch.pair_plans)
+    assert_same_arrays([labels["node_labels"]], [ref_labels["node_labels"]])
+    assert edges == ref_edges == 211200
+    plans = tps.PairPlans.fromtuple(batch.pair_plans)
+    v = workloads.NODE_BUDGET
+    # The shapes the relu-pair kernels run at: 3256 forward chunks in
+    # groups of 8, every edge in a kernel slot.
+    assert plans.fwd.rel_src.shape == (3256, tps.E_C)
+    assert tps.plan_group(plans.fwd.src_blk, plans.fwd.grp_tgt) == 8
+    assert int(np.sum(plans.fwd.rel_src < tps.BLK)) == 211200
+    assert int(plans.fwd.grp_tgt.max()) < 3 * v // tps.BLK
+    on_device = batch.to("cpu")
+    assert on_device.pair_merged.out_rows == 3 * v
+    merged_only = workloads.build_ppi_batch_host(0, merged=True)[0].to("cpu")
+    assert merged_only.pair_merged.out_rows == v
+    with pytest.raises(ValueError, match="merged=True"):
+        workloads.build_ppi_batch_host(0, merge_targets=True)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_unit_scales_match_jax(seed):
+    """Ones on the kernel slots, the overflow slots' validity mask (a
+    budget small enough that pairs spill)."""
+    rng = np.random.RandomState(40 + seed)
+    v = 256
+    srcs, tgts, counts = _case(rng, "random", v, 2)
+    need_f, need_b = tps.measure_pair_chunks(srcs, tgts, counts, v,
+                                             merge_targets=True)
+    host = tps.build_pair_plans(
+        srcs, tgts, counts, v, merge_targets=True, overflow_budget=4096,
+        overflow_size=4096, chunk_budget_fwd=need_f - tps.GROUP,
+        chunk_budget_bwd=need_b - tps.BWD_GROUP).astuple()
+    assert 0 < int(np.sum(host[9] < 2 * v)) < host[9].size
+    plan = tps.MergedPlan(*host, out_rows=2 * v).to("cpu")
+    got = tps.pair_unit_scales(plan, 2 * v)
+    want = jps.pair_unit_scales(host, 2 * v)
+    assert_same_arrays([t.numpy() for t in got], [np.asarray(w) for w in want])
+
+
 def test_merged_plan_moves_to_the_device_form():
     rng = np.random.RandomState(3)
     v = 256

@@ -38,11 +38,13 @@ TOLS = {"float32": dict(rtol=1e-4, atol=1e-5),
 
 
 def small_workload(seed: int, graphs=2, nodes_per_graph=150, edges=500,
-                   v_pad=384, merged=False):
+                   v_pad=384, merged=False, merge_targets=False):
     """A PPI-shaped batch at small size (self loops, random forward edges
     and their reverses per graph), padded and planned by both packages:
     per-type plans, or with ``merged`` one merged plan over all types
-    (the RGAT form of ``bench.py::build_batch``)."""
+    (the RGAT form of ``bench.py::build_batch``), whose targets lie in the
+    merged ``l * V + t`` row space with ``merge_targets`` (the target-state
+    edge-MLP form)."""
     rng = np.random.RandomState(seed)
     loops, fwd = [], []
     for g in range(graphs):
@@ -69,12 +71,14 @@ def small_workload(seed: int, graphs=2, nodes_per_graph=150, edges=500,
         tgts = [np.asarray(t) for t in batch.edge_targets]
         cnts = [int(c) for c in np.asarray(batch.num_edges)]
         if merged:
-            gf, gb = ps_mod.choose_pair_groups(srcs, tgts, cnts, v_pad)
+            gf, gb = ps_mod.choose_pair_groups(srcs, tgts, cnts, v_pad,
+                                               merge_targets=merge_targets)
             plans = ps_mod.build_pair_plans(srcs, tgts, cnts, v_pad,
                                             overflow_budget=256,
+                                            merge_targets=merge_targets,
                                             group_fwd=gf, group_bwd=gb)
             return batch.replace(pair_plans=plans.astuple(),
-                                 pair_targets_merged=False)
+                                 pair_targets_merged=merge_targets)
         gf, gb = ps_mod.choose_pair_groups([srcs[0]], [tgts[0]], [cnts[0]],
                                            v_pad)
         typed = tuple(
@@ -192,7 +196,7 @@ def test_batch_without_pair_plans_raises():
 
 
 @pytest.mark.parametrize("override", [
-    {"gnn_global_exchange_every_num_layers": 2},
+    {"gnn_message_activation_before_aggregation": True},
     {"gnn_use_target_state_as_input": True},
     {"gnn_aggregation_function": "mean"},
     {"gnn_use_remat": True},

@@ -10,9 +10,9 @@ The padding contract is the JAX package's, unchanged:
   last graph slot.
 
 ``pad_batch_arrays`` and the label pads are the same numpy code. The
-``GraphBatch`` here is a plain dataclass holding only the fields the RGCN
-and RGAT node-classification paths read; the SPMD and halo fields are not
-ported yet. ``.to(device)`` moves every array field to a device and builds,
+``GraphBatch`` here is a plain dataclass holding only the fields the RGCN,
+RGAT and GNN_Edge_MLP node-classification paths read; the SPMD and halo
+fields are not ported yet. ``.to(device)`` moves every array field to a device and builds,
 once per batch, the device forms of the host plans: the concatenated
 streamed plan of the per-type plans (``pair_stream_joint``) and the merged
 plan (``pair_merged``).
@@ -61,7 +61,7 @@ class GraphBatch:
       host (numpy) plan data. ``pair_targets_merged``: it was built with
       ``merge_targets=True``
     * ``pair_merged``: ``pair_plans`` on the batch's device (``.to`` builds
-      it)
+      it, with ``out_rows`` L * V for merged targets, else V)
 
     Array fields hold numpy arrays after ``pad_batch_arrays`` and tensors
     after ``.to(device)``.
@@ -112,7 +112,11 @@ class GraphBatch:
             joint = stream_joint_plan(self.pair_plans_typed, v, v)
         merged = self.pair_merged
         if merged is None and self.pair_plans is not None:
-            merged = MergedPlan(*self.pair_plans)
+            v = self.num_nodes_padded
+            merged = MergedPlan(
+                *self.pair_plans,
+                out_rows=(self.num_edge_types * v if self.pair_targets_merged
+                          else v))
         return dataclasses.replace(
             self,
             node_features=as_tensor(self.node_features, dev),

@@ -12,7 +12,10 @@ as follows:
 * ``<path>/bias`` -> ``<path>.bias``;
 * ``<path>/scale`` (``nn.LayerNorm``) -> ``<path>.weight``;
 * ``<path>/edge_attention_parameters`` (RGAT's raw [L, K, 2 * head_dim]
-  parameter) -> ``<path>.edge_attention_parameters`` as is.
+  parameter) -> ``<path>.edge_attention_parameters`` as is;
+* ``<path>/gru_cell/{kernel, recurrent_kernel, input_bias,
+  recurrent_bias}`` (the global exchange's GRU cell, ``ops/gru.py``, which
+  keeps flax's packed ``[in, 3H]`` layout) -> the same names as is.
 
 A leaf of another name, or one the model does not hold, raises; so does a
 model parameter that the tree leaves unset.
@@ -22,6 +25,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+_GRU_LEAVES = ("kernel", "recurrent_kernel", "input_bias", "recurrent_bias")
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
@@ -43,7 +48,9 @@ def flax_params_to_state_dict(params: Mapping[str, Any]
     state = {}
     for path, value in _flatten(params).items():
         leaf, module = path[-1], ".".join(path[:-1])
-        if leaf == "kernel" and value.ndim == 2:
+        if path[-2:-1] == ("gru_cell",) and leaf in _GRU_LEAVES:
+            name = f"{module}.{leaf}"
+        elif leaf == "kernel" and value.ndim == 2:
             name, value = f"{module}.weight", value.T
         elif leaf == "kernel" and value.ndim == 3:
             name = f"{module}.kernel"

@@ -6,12 +6,14 @@ reference order (gnn.py:116-180):
 1. initial projection [V, D] -> [V, H] + activation,
 2. per layer: input dropout (training), mean residual every k layers
    (``(cur + last) / 2``; at layer 0 it only records ``last``), the MP
-   layer, optional LayerNorm (Keras epsilon 1e-3), dense layer every k
-   layers (*including* layer 0),
-3. returns the final [V, H] plus all MP outputs (captured raw).
+   layer, a graph-global exchange every k layers but never at layer 0,
+   optional LayerNorm (Keras epsilon 1e-3), dense layer every k layers
+   (*including* layer 0),
+3. returns the final [V, H] plus all MP outputs (captured raw, before the
+   exchange).
 
-Global exchange and rematerialisation are not ported; a configuration that
-would use them raises at construction.
+Rematerialisation is not ported; a configuration that asks for it raises
+at construction.
 """
 from typing import Any, Dict, Optional, Tuple
 
@@ -20,6 +22,8 @@ from torch import nn
 
 from ..data.graph_batch import GraphBatch
 from ..ops.activations import get_activation_function
+from .dropout import dropout
+from .global_exchange import get_global_exchange_class
 from .init import init_dense_
 from .message_passing import get_message_passing_class
 
@@ -32,16 +36,6 @@ _GNN_HYPERS = (
     "global_exchange_weighting_fun", "global_exchange_num_heads",
     "global_exchange_dropout_rate",
 )
-
-
-def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator) -> torch.Tensor:
-    """Inverted dropout with flax's semantics: keep with probability
-    ``1 - rate`` and scale kept entries by ``1 / (1 - rate)``; the mask
-    comes from an explicit generator on ``x``'s device."""
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class GNN(nn.Module):
@@ -65,13 +59,6 @@ class GNN(nn.Module):
         super().__init__()
         if use_remat:
             raise NotImplementedError("use_remat=True is not ported.")
-        exchange_layers = [i for i in range(num_layers)
-                           if i and i % global_exchange_every_num_layers == 0]
-        if exchange_layers:
-            raise NotImplementedError(
-                f"global exchange (mode {global_exchange_mode!r}) would run "
-                f"after layers {exchange_layers}; it is not ported. Set "
-                "global_exchange_every_num_layers >= num_layers.")
         self.num_layers = num_layers
         self.hidden_dim = hidden_dim
         self.dense_every_num_layers = dense_every_num_layers
@@ -88,10 +75,22 @@ class GNN(nn.Module):
         mp_class = get_message_passing_class(message_calculation_class)
         mp_params = dict(mp_hypers or {})
         mp_params["hidden_dim"] = hidden_dim
+        # Global exchange every k layers, never at layer 0 (reference
+        # gnn.py:307-315).
+        self.exchange_layers = tuple(
+            i for i in range(num_layers)
+            if i and i % global_exchange_every_num_layers == 0)
         for i in range(num_layers):
             self.add_module(f"mp_layer_{i}", mp_class.from_params(
                 mp_params, num_edge_types=num_edge_types,
                 input_dim=hidden_dim))
+            if i in self.exchange_layers:
+                exchange_class = get_global_exchange_class(
+                    global_exchange_mode)
+                self.add_module(f"global_exchange_{i}", exchange_class(
+                    hidden_dim, weighting_fun=global_exchange_weighting_fun,
+                    num_heads=global_exchange_num_heads,
+                    dropout_rate=global_exchange_dropout_rate))
             if use_inter_layer_layernorm:
                 # Keras LayerNormalization defaults to epsilon=1e-3.
                 self.add_module(f"layernorm_{i}",
@@ -141,6 +140,9 @@ class GNN(nn.Module):
         init_dense_(self.initial_node_projection, generator)
         for i in range(self.num_layers):
             getattr(self, f"mp_layer_{i}").reset_parameters(generator)
+            if i in self.exchange_layers:
+                getattr(self, f"global_exchange_{i}").reset_parameters(
+                    generator)
             if self.use_inter_layer_layernorm:
                 getattr(self, f"layernorm_{i}").reset_parameters()
             if i % self.dense_every_num_layers == 0:
@@ -170,8 +172,13 @@ class GNN(nn.Module):
 
             cur = getattr(self, f"mp_layer_{layer_idx}")(cur, batch, training)
             # Intermediate representations are captured before
-            # layernorm/dense (reference gnn.py:305).
+            # exchange/layernorm/dense (reference gnn.py:305).
             all_reprs.append(cur)
+
+            if layer_idx in self.exchange_layers:
+                cur = getattr(self, f"global_exchange_{layer_idx}")(
+                    cur, batch.node_to_graph, batch.num_graphs_padded,
+                    training, generator)
 
             if self.use_inter_layer_layernorm:
                 cur = getattr(self, f"layernorm_{layer_idx}")(cur)

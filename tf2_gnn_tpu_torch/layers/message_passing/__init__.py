@@ -1,6 +1,7 @@
 """Message-passing flavours + registry (port of
-``tf2_gnn_tpu/layers/message_passing``; RGCN, the source-only
-GNN_Edge_MLP and RGAT so far)."""
+``tf2_gnn_tpu/layers/message_passing``; RGCN, GNN_Edge_MLP (the
+source-only form and the target-state form with one hidden layer) and RGAT
+so far)."""
 from .base import (
     MESSAGE_PASSING_IMPLEMENTATIONS,
     MessagePassing,

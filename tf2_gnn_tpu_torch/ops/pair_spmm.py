@@ -516,8 +516,12 @@ def stream_joint_plan(plans_typed, v_src: int,
 class MergedPlan:
     """A merged plan over all edge types (``PairPlans.astuple()``, 13
     arrays: sources in the stacked ``l * src_space + u`` row space, targets
-    local) as the merged-plan ops read it. Built once per batch from the
-    host tuple (``MergedPlan(*arrays)``) and moved with ``.to(device)``."""
+    local, or merged ``l * V + t`` when the plan was built with
+    ``merge_targets=True``) as the merged-plan ops read it. Built once per
+    batch from the host tuple (``MergedPlan(*arrays, out_rows=...)``) and
+    moved with ``.to(device)``. ``out_rows`` is the forward output row
+    count: V, or L * V for merged targets (None where the caller passes
+    it)."""
 
     rel_src_f: object
     rel_tgt_f: object
@@ -532,6 +536,7 @@ class MergedPlan:
     inv_fwd: object
     inv_bwd: object
     inv_ovf: object
+    out_rows: Optional[int] = None
 
     @property
     def fwd(self) -> tuple:
@@ -545,7 +550,20 @@ class MergedPlan:
         """Every array as a tensor on ``device``."""
         return dataclasses.replace(self, **{
             f.name: as_tensor(getattr(self, f.name), device)
-            for f in dataclasses.fields(self)})
+            for f in dataclasses.fields(self) if f.type is object})
+
+
+def pair_unit_scales(plan: MergedPlan, out_rows: int):
+    """(scale_fwd, scale_bwd, ovf_scale) for unweighted aggregation on the
+    plan's device: ones on kernel slots (padded slots are skipped anyway)
+    and a validity mask on the overflow slots (their sentinel targets would
+    otherwise clip-gather a real row)."""
+    sf = torch.ones((plan.rel_src_f.numel(),), dtype=torch.float32,
+                    device=plan.rel_src_f.device)
+    sb = torch.ones((plan.rel_src_b.numel(),), dtype=torch.float32,
+                    device=plan.rel_src_b.device)
+    so = (plan.ovf_tgt < out_rows).to(torch.float32)
+    return sf, sb, so
 
 
 # ---------------------------------------------------------------------------

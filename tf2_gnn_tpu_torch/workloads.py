@@ -8,9 +8,13 @@ all), 50 input features and 121 labels with a 10% positive rate. Plans
 are per-type pair plans whose groups are chosen from type 0 (the RGCN
 form, ``pair_per_type``), or one merged plan over all three types with
 groups chosen from all of them and an overflow budget of 256 (the RGAT
-form), as the dataset path chooses them.
+form, and with merged targets the target-state edge-MLP form), as the
+dataset path chooses them.
+
+``edge_mlp_default_params`` is the configuration of the JAX repo's
+``benchmarks/edge_mlp_probe.py``: the reference-default GNN_Edge_MLP.
 """
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 
@@ -30,6 +34,22 @@ GRAPHS_PER_BATCH = 3
 NUM_LABELS = 121
 FEATURE_DIM = 50
 NODE_BUDGET = 8064  # 63 * 128 node blocks
+
+
+def edge_mlp_default_params() -> Dict[str, Any]:
+    """The reference-default GNN_Edge_MLP node-classification model
+    (target-state input, one hidden edge-MLP layer, GRU global exchange
+    after layer 2) at hidden 320 and 4 layers, bf16 edge stream, Adam at
+    lr 1e-3: ``NodeMulticlassTask.get_default_hyperparameters(
+    "gnn_edge_mlp")`` with the updates of ``edge_mlp_probe.py``."""
+    from .models.node_multiclass_task import NodeMulticlassTask
+
+    params = NodeMulticlassTask.get_default_hyperparameters("gnn_edge_mlp")
+    params.update({"gnn_hidden_dim": 320, "gnn_num_layers": 4,
+                   "learning_rate": 0.001,
+                   "gnn_num_edge_MLP_hidden_layers": 1,
+                   "gnn_edge_dtype": "bfloat16"})
+    return params
 
 
 def build_raw_arrays(seed: int):
@@ -57,11 +77,16 @@ def build_raw_arrays(seed: int):
     return node_features, adjacency, node_to_graph
 
 
-def build_ppi_batch_host(seed: int, merged: bool = False
+def build_ppi_batch_host(seed: int, merged: bool = False,
+                         merge_targets: bool = False
                          ) -> Tuple[GraphBatch, Dict[str, np.ndarray], int]:
     """(host batch, labels, real edge count). The batch carries per-type
     pair plans, or with ``merged`` one merged plan over all three types
-    (the RGAT form; ``bench.py::build_batch`` with ``use_pairs=True``)."""
+    (the RGAT form; ``bench.py::build_batch`` with ``use_pairs=True``);
+    ``merge_targets`` puts that plan's targets in the merged ``l * V + t``
+    row space (the target-state edge-MLP form, ``pair_merge_targets=True``)."""
+    if merge_targets and not merged:
+        raise ValueError("merge_targets needs merged=True")
     rng = np.random.RandomState(seed)
     v = GRAPHS_PER_BATCH * NODES_PER_GRAPH
     node_features, (loops, fwd, bkwd), node_to_graph = build_raw_arrays(seed)
@@ -83,12 +108,14 @@ def build_ppi_batch_host(seed: int, merged: bool = False
     cnts = [int(c) for c in batch.num_edges]
     if merged:
         # Groups chosen over all three types, as the dataset path does.
-        gf, gb = choose_pair_groups(srcs, tgts, cnts, NODE_BUDGET)
+        gf, gb = choose_pair_groups(srcs, tgts, cnts, NODE_BUDGET,
+                                    merge_targets=merge_targets)
         pairs = build_pair_plans(srcs, tgts, cnts, NODE_BUDGET,
-                                 overflow_budget=256, group_fwd=gf,
+                                 overflow_budget=256,
+                                 merge_targets=merge_targets, group_fwd=gf,
                                  group_bwd=gb)
         batch = batch.replace(pair_plans=pairs.astuple(),
-                              pair_targets_merged=False)
+                              pair_targets_merged=merge_targets)
     else:
         gf, gb = choose_pair_groups([srcs[0]], [tgts[0]], [cnts[0]],
                                     NODE_BUDGET)
@@ -107,13 +134,16 @@ def build_ppi_batch_host(seed: int, merged: bool = False
     return batch, labels, real_edges
 
 
-def build_ppi_batch(seed: int, device="cuda", merged: bool = False):
+def build_ppi_batch(seed: int, device="cuda", merged: bool = False,
+                    merge_targets: bool = False):
     """The PPI-shaped batch (per-type plans, or with ``merged`` the merged
-    plan) and labels as tensors on ``device``, and the real edge count."""
+    plan, with merged targets under ``merge_targets``) and labels as
+    tensors on ``device``, and the real edge count."""
     import torch
 
     dev = resolve_device(device)
-    batch, labels, real_edges = build_ppi_batch_host(seed, merged)
+    batch, labels, real_edges = build_ppi_batch_host(seed, merged,
+                                                     merge_targets)
     batch = batch.to(dev)
     labels = {k: torch.as_tensor(v, device=dev) for k, v in labels.items()}
     return batch, labels, real_edges
