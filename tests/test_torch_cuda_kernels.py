@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels (tf2_gnn_tpu_torch/csrc/pair_stream.cu:
 K1, K2 and B3; csrc/pair_attention.cu: B8 and B9; csrc/pair_edge_mlp.cu:
-B4, B5, B6 and B7) against their plain PyTorch versions on the card, at
-small shapes with a ragged feature width, f32 and bf16 tables, plans with
-pad slots and an all-padding group, and through the autograd ops. Marked
+B4, B5, B6 and B7; csrc/sorted_scatter.cu: B12, B13, B14 and B15) against
+their plain PyTorch versions on the card, at small shapes with a ragged
+feature width, f32 and bf16 tables, plans with pad slots and an
+all-padding group (sorted plans: sentinel slots, an unused trailing chunk
+and an all-sentinel chunk of NaN rows), and through the autograd ops. Marked
 ``cuda``; each test skips without a card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -14,7 +16,7 @@ Tolerance: rtol 1e-5 / atol 1e-5; both sides sum the same f32 products,
 the kernel in a run-dependent order (atomics), and B8/B9 take expf of the
 same f32 argument as torch.exp (each within 2 ulp). Gradients of the
 attention op in bf16 are rounded to bf16 after those sums: rtol 1e-2 /
-atol 1e-4 there (one bf16 ulp).
+atol 1e-4 there (one bf16 ulp). B15, a max, matches exactly.
 """
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ import torch
 from tf2_gnn_tpu_torch.ops import pair_attention as tpa
 from tf2_gnn_tpu_torch.ops import pair_edge_mlp as tpem
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
+from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
 
 pytestmark = pytest.mark.cuda
 
@@ -285,5 +288,168 @@ def test_relu_pair_op_matches_plain_on_card(device, stream_dtype):
             mp.setattr(tpem, name, getattr(tpem, f"{name}_plain"))
         want = run()
     for name, x, y in zip(("out", "out_eval", "d_a", "d_b"), got, want):
+        assert x.dtype == torch.float32
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5, msg=name)
+
+
+def _sorted_case(seed, v=384, num_types=3):
+    """A host scatter plan over random edges whose targets skip node block
+    1, and its forward (rel, block_ids) with one all-sentinel chunk
+    inserted after chunk 0 (the plan's trailing chunks are unused ones)."""
+    rng = np.random.RandomState(seed)
+    srcs, tgts, counts = [], [], []
+    for _ in range(num_types):
+        e = rng.randint(v, 4 * v)
+        t = rng.randint(0, v, e)
+        t[t // tss.BLOCK_NODES == 1] += tss.BLOCK_NODES
+        srcs.append(rng.randint(0, v, e))
+        tgts.append(t)
+        counts.append(e)
+    host = tss.build_merged_plans(srcs, tgts, counts, v)
+    assert np.all(host.rel_tgt[-tss.CHUNK_EDGES:] == tss.BLOCK_NODES)
+    e_c = tss.CHUNK_EDGES
+    rel = np.concatenate([host.rel_tgt[:e_c],
+                          np.full(e_c, tss.BLOCK_NODES, np.int32),
+                          host.rel_tgt[e_c:]])
+    blocks = np.concatenate([host.tgt_blocks[:1], host.tgt_blocks[:1],
+                             host.tgt_blocks[1:]])
+    return host, rel, blocks
+
+
+def _stream(rel, h, gen, device, dtype=torch.float32):
+    """A [slots, h] stream with NaN rows on the inserted sentinel chunk."""
+    x = torch.randn((rel.shape[0], h), generator=gen, device=device)
+    x[tss.CHUNK_EDGES:2 * tss.CHUNK_EDGES] = float("nan")
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [4, 40, 324])
+def test_sorted_sums_match_plain_versions(device, dtype, h):
+    host, rel_np, blocks_np = _sorted_case(20)
+    v = 384
+    rel = torch.from_numpy(rel_np).to(device)
+    blocks = torch.from_numpy(blocks_np).to(device)
+    gen = torch.Generator(device=device).manual_seed(21)
+    msgs = _stream(rel_np, h, gen, device, dtype)
+    scale = torch.rand((rel.numel(),), generator=gen, device=device)
+    before = dict(tss.LAUNCHES)
+    got = tss.sorted_segment_sum(msgs, rel, blocks, v)
+    got_s = tss.sorted_segment_sum_scaled(msgs, scale, rel, blocks, v)
+    torch.cuda.synchronize()
+    assert tss.LAUNCHES["sorted_segment_sum"] == \
+        before["sorted_segment_sum"] + 1
+    assert tss.LAUNCHES["sorted_segment_sum_scaled"] == \
+        before["sorted_segment_sum_scaled"] + 1
+    want = tss.sorted_segment_sum_plain(msgs, rel, blocks, v)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert float(got[128:256].abs().max()) == 0.0  # the empty node block
+    torch.testing.assert_close(
+        got_s, tss.sorted_segment_sum_scaled_plain(msgs, scale, rel, blocks,
+                                                   v), rtol=1e-5, atol=1e-5)
+    # A row-strided view of a wider stream reads the same columns.
+    wide = torch.cat([msgs, msgs[:, :3]], dim=1)
+    torch.testing.assert_close(tss.sorted_segment_sum(wide[:, :h], rel,
+                                                      blocks, v), want,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_sorted_segment_sum_type_minor_rows(device):
+    """B12 with rel * L + type and R = 128 * L = 384."""
+    host, _, _ = _sorted_case(22)
+    v, num_types = 384, 3
+    plan = tss.ScatterPlan.from_host(host, v, num_types).to(device)
+    gen = torch.Generator(device=device).manual_seed(23)
+    g = torch.randn((plan.rel_typed.numel(), 4), generator=gen,
+                    device=device)
+    args = (g, plan.rel_typed, plan.tgt_blocks, v * num_types)
+    got = tss.sorted_segment_sum(*args, block_rows=384)
+    torch.testing.assert_close(
+        got, tss.sorted_segment_sum_plain(*args, block_rows=384),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_sorted_segment_max_matches_exactly(device):
+    host, rel_np, blocks_np = _sorted_case(24)
+    v = 384
+    rel = torch.from_numpy(rel_np).to(device)
+    blocks = torch.from_numpy(blocks_np).to(device)
+    gen = torch.Generator(device=device).manual_seed(25)
+    vals = _stream(rel_np, 4, gen, device)
+    vals[::7] = -vals[::7].abs()  # runs of negatives, and a -0.0
+    vals[3, 1] = -0.0
+    before = tss.LAUNCHES["sorted_segment_max"]
+    got = tss.sorted_segment_max(vals, rel, blocks, v)
+    torch.cuda.synchronize()
+    assert tss.LAUNCHES["sorted_segment_max"] == before + 1
+    want = tss.sorted_segment_max_plain(vals, rel, blocks, v)
+    assert torch.equal(got, want)
+    assert float(got[128:256].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("k,head_dim", [(4, 80), (2, 3), (1, 4)])
+def test_attention_scatter_sums_match_plain_version(device, k, head_dim):
+    host, rel_np, blocks_np = _sorted_case(26)
+    v = 384
+    rel = torch.from_numpy(rel_np).to(device)
+    blocks = torch.from_numpy(blocks_np).to(device)
+    gen = torch.Generator(device=device).manual_seed(27)
+    expd = torch.rand((rel.numel(), k), generator=gen, device=device)
+    bundle = _stream(rel_np, head_dim * k + k, gen, device)
+    msgs = bundle[:, :head_dim * k]  # the layer's strided message view
+    before = tss.LAUNCHES["attention_scatter_sums"]
+    denom, weighted = tss.attention_scatter_sums(expd, msgs, rel, blocks, v)
+    torch.cuda.synchronize()
+    assert tss.LAUNCHES["attention_scatter_sums"] == before + 1
+    want_d, want_w = tss.attention_scatter_sums_plain(expd, msgs, rel, blocks,
+                                                      v)
+    torch.testing.assert_close(denom, want_d, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(weighted, want_w, rtol=1e-5, atol=1e-5)
+
+
+_SORTED_WRAPPERS = ("sorted_segment_sum", "sorted_segment_sum_scaled",
+                    "sorted_segment_max", "attention_scatter_sums")
+
+
+@pytest.mark.parametrize("stream_dtype", [torch.float32, torch.bfloat16])
+def test_sorted_ops_match_plain_on_card(device, stream_dtype):
+    host, _, _ = _sorted_case(28)
+    v, num_types, h, k = 384, 3, 36, 4
+    plan = tss.ScatterPlan.from_host(host, v, num_types).to(device)
+    gen = torch.Generator(device=device).manual_seed(29)
+    tables0 = torch.randn((num_types * v, h + k), generator=gen,
+                          device=device)
+    tgt0 = torch.randn((v * num_types, k), generator=gen, device=device)
+    cot = torch.randn((v, h), generator=gen, device=device)
+    # Fixed cotangents: a loss whose cotangents depend on the forward sums
+    # (as denom**2 would) lets the bf16 rounding of the bundle cotangent
+    # land on either side of a bf16 value between the two runs.
+    cot_d = torch.randn((v, k), generator=gen, device=device)
+
+    def run():
+        tables = tables0.clone().requires_grad_(True)
+        tgt = tgt0.clone().requires_grad_(True)
+        out = tss.typed_gather_scatter(tables[:, :h].contiguous(), plan,
+                                       plan.inv_fwd, plan.inv_bwd,
+                                       stream_dtype)
+        bundle = tss.plan_gather_src(tables, plan, stream_dtype).float()
+        logits = bundle[:, h:] + tss.plan_gather_tgt_typed(tgt, plan)
+        m = tss.sorted_segment_max(logits.detach(), plan.rel_tgt,
+                                   plan.tgt_blocks, v)
+        expd = torch.where(plan.fwd_sentinel[:, None], 0.0,
+                           torch.exp(logits - m[plan.tgtabs_idx]))
+        denom, weighted = tss.attention_scatter(expd, bundle[:, :h], plan)
+        loss = ((out * cot).sum() + (weighted * cot).sum()
+                + (denom * cot_d).sum())
+        loss.backward()
+        return out.detach(), weighted.detach(), tables.grad, tgt.grad
+
+    got = run()
+    with pytest.MonkeyPatch.context() as mp:
+        for name in _SORTED_WRAPPERS:
+            mp.setattr(tss, name, getattr(tss, f"{name}_plain"))
+        want = run()
+    for name, x, y in zip(("out", "weighted", "d_tables", "d_tgt"), got,
+                          want):
         assert x.dtype == torch.float32
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5, msg=name)

@@ -5,7 +5,9 @@
 * the entry points default to the card and raise without one instead of
   running on the CPU;
 * a CUDA tensor given to a kernel wrapper whose library cannot be built
-  raises; it does not fall back to the plain version.
+  raises; it does not fall back to the plain version;
+* a batch with neither the pair plans nor the scatter plan a flavour
+  reads raises ``NotImplementedError``.
 """
 import ast
 from pathlib import Path
@@ -21,6 +23,7 @@ from tf2_gnn_tpu_torch.ops import cuda_build
 from tf2_gnn_tpu_torch.ops import pair_attention as tpa
 from tf2_gnn_tpu_torch.ops import pair_edge_mlp as tpem
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
+from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
 from tf2_gnn_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
@@ -61,7 +64,7 @@ def test_port_has_its_own_modules():
         "harness/default_hypers/PPI_RGAT.json", "ops/pair_edge_mlp.py",
         "csrc/pair_edge_mlp.cu", "ops/segment.py", "ops/gru.py",
         "layers/mlp.py", "layers/readout.py", "layers/global_exchange.py",
-        "layers/dropout.py",
+        "layers/dropout.py", "ops/sorted_spmm.py", "csrc/sorted_scatter.cu",
     ]
     missing = [p for p in expected if not (PACKAGE / p).is_file()]
     assert not missing
@@ -95,6 +98,14 @@ def test_edge_mlp_entry_points_default_to_the_card(no_card):
                                        input_dim=4, num_edge_types=3)
 
 
+def test_sorted_entry_points_default_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        workloads.build_ppi_batch(0, scatter=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NodeMulticlassTask.from_params(workloads.rgcn_sorted_params(),
+                                       input_dim=4, num_edge_types=3)
+
+
 class _CudaTensorStandIn:
     """What a wrapper sees of a CUDA tensor before it loads the library:
     its device. (This machine's torch cannot allocate CUDA tensors.)"""
@@ -114,6 +125,10 @@ WRAPPERS = {
     tpem.relu_pair_fwd_m: (tpem.LAUNCHES, (None,) * 6 + (128,)),
     tpem.relu_pair_da: (tpem.LAUNCHES, (None,) * 7 + (128,)),
     tpem.relu_pair_db: (tpem.LAUNCHES, (None,) * 7 + (128,)),
+    tss.sorted_segment_sum: (tss.LAUNCHES, (None,) * 2 + (128,)),
+    tss.sorted_segment_sum_scaled: (tss.LAUNCHES, (None,) * 3 + (128,)),
+    tss.sorted_segment_max: (tss.LAUNCHES, (None,) * 2 + (128,)),
+    tss.attention_scatter_sums: (tss.LAUNCHES, (None,) * 3 + (128,)),
 }
 
 
@@ -211,3 +226,55 @@ def test_cpu_tensors_take_the_plain_versions_of_the_relu_pair_kernels():
         assert len(got) == len(want)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert tpem.LAUNCHES == before
+
+
+def test_cpu_tensors_take_the_plain_versions_of_the_sorted_kernels():
+    """B12, B13, B14 and B15 on CPU tensors: the plain versions' results,
+    no launch counted."""
+    rng = np.random.RandomState(3)
+    v, k = 256, 4
+    srcs = list(rng.randint(0, v, (2, 300)))
+    tgts = list(rng.randint(0, v, (2, 300)))
+    host = tss.build_merged_plans(srcs, tgts, [300, 300], v)
+    plan = tss.ScatterPlan.from_host(host, v, 2).to("cpu")
+    slots = plan.rel_tgt.numel()
+    msgs = torch.randn(slots, 8 * k)
+    scale, expd = torch.rand(slots), torch.rand(slots, k)
+    fwd = (plan.rel_tgt, plan.tgt_blocks, v)
+    before = dict(tss.LAUNCHES)
+    pairs = (
+        (tss.sorted_segment_sum(msgs, *fwd),
+         tss.sorted_segment_sum_plain(msgs, *fwd)),
+        (tss.sorted_segment_sum(msgs[:, :k], plan.rel_typed,
+                                plan.tgt_blocks, 2 * v, block_rows=256),
+         tss.sorted_segment_sum_plain(msgs[:, :k], plan.rel_typed,
+                                      plan.tgt_blocks, 2 * v,
+                                      block_rows=256)),
+        (tss.sorted_segment_sum_scaled(msgs, scale, *fwd),
+         tss.sorted_segment_sum_scaled_plain(msgs, scale, *fwd)),
+        (tss.sorted_segment_max(expd, *fwd),
+         tss.sorted_segment_max_plain(expd, *fwd)),
+        (tss.attention_scatter_sums(expd, msgs, *fwd),
+         tss.attention_scatter_sums_plain(expd, msgs, *fwd)))
+    for got, want in pairs:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert tss.LAUNCHES == before
+
+
+@pytest.mark.parametrize("style", ["rgcn", "rgat"])
+def test_batch_without_any_plan_raises(style):
+    """A batch with neither pair plans nor a scatter plan: the unfused
+    segment path is not ported, so the model raises."""
+    host, _, _ = workloads.build_ppi_batch_host(0, scatter=True)
+    bare = host.replace(scatter_plans=None).to("cpu")
+    params = NodeMulticlassTask.get_default_hyperparameters(style)
+    params.update({"gnn_hidden_dim": 8, "gnn_num_layers": 1,
+                   "gnn_num_heads": 2,
+                   "gnn_global_exchange_every_num_layers": 10000})
+    model = NodeMulticlassTask.from_params(
+        params, input_dim=workloads.FEATURE_DIM, num_edge_types=3,
+        device="cpu", num_labels=workloads.NUM_LABELS)
+    with pytest.raises(NotImplementedError, match="scatter plans"):
+        model(bare, False)

@@ -12,10 +12,11 @@ The padding contract is the JAX package's, unchanged:
 ``pad_batch_arrays`` and the label pads are the same numpy code. The
 ``GraphBatch`` here is a plain dataclass holding only the fields the RGCN,
 RGAT and GNN_Edge_MLP node-classification paths read; the SPMD and halo
-fields are not ported yet. ``.to(device)`` moves every array field to a device and builds,
-once per batch, the device forms of the host plans: the concatenated
-streamed plan of the per-type plans (``pair_stream_joint``) and the merged
-plan (``pair_merged``).
+fields are not ported yet. ``.to(device)`` moves every array field to a
+device and builds, once per batch, the device forms of the host plans: the
+concatenated streamed plan of the per-type plans (``pair_stream_joint``),
+the merged pair plan (``pair_merged``) and the scatter plan
+(``scatter_merged``).
 """
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.pair_spmm import MergedPlan, StreamJointPlan, stream_joint_plan
+from ..ops.sorted_spmm import ScatterPlan
 from ..utils.device import as_tensor, resolve_device
 
 
@@ -62,6 +64,10 @@ class GraphBatch:
       ``merge_targets=True``
     * ``pair_merged``: ``pair_plans`` on the batch's device (``.to`` builds
       it, with ``out_rows`` L * V for merged targets, else V)
+    * ``scatter_plans``: the 12-array ``MergedScatterPlan.astuple()`` of the
+      scatter-plan route (ops/sorted_spmm.py), or None; host (numpy) plan
+      data. ``scatter_merged``: it on the batch's device (``.to`` builds
+      it)
 
     Array fields hold numpy arrays after ``pad_batch_arrays`` and tensors
     after ``.to(device)``.
@@ -80,6 +86,8 @@ class GraphBatch:
     pair_plans: Optional[Tuple[object, ...]] = None
     pair_targets_merged: bool = False
     pair_merged: Optional[MergedPlan] = None
+    scatter_plans: Optional[Tuple[object, ...]] = None
+    scatter_merged: Optional[ScatterPlan] = None
 
     @property
     def num_nodes_padded(self) -> int:
@@ -104,7 +112,7 @@ class GraphBatch:
         """Every array field as a tensor on ``device``; the host plans stay
         host data and their device forms move instead (the per-type plans
         as their streamed concatenation, the merged plans as a
-        ``MergedPlan``)."""
+        ``MergedPlan``, the scatter plans as a ``ScatterPlan``)."""
         dev = resolve_device(device)
         joint = self.pair_stream_joint
         if joint is None and self.pair_plans_typed is not None:
@@ -117,6 +125,11 @@ class GraphBatch:
                 *self.pair_plans,
                 out_rows=(self.num_edge_types * v if self.pair_targets_merged
                           else v))
+        scatter = self.scatter_merged
+        if scatter is None and self.scatter_plans is not None:
+            scatter = ScatterPlan.from_host(self.scatter_plans,
+                                            self.num_nodes_padded,
+                                            self.num_edge_types)
         return dataclasses.replace(
             self,
             node_features=as_tensor(self.node_features, dev),
@@ -126,6 +139,7 @@ class GraphBatch:
             num_edges=as_tensor(self.num_edges, dev),
             pair_stream_joint=None if joint is None else joint.to(dev),
             pair_merged=None if merged is None else merged.to(dev),
+            scatter_merged=None if scatter is None else scatter.to(dev),
         )
 
 

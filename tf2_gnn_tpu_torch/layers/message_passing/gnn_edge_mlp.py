@@ -8,8 +8,10 @@ are ported:
 
 * source-only (``use_target_state_as_input=False``, RGCN's form): the MLP
   is pointwise in the source node, so it runs densely in node space for
-  all types at once and the block-pair streamed op (per-type plans) gathers
-  and sums its rows per edge;
+  all types at once, and its rows are gathered and summed per edge by the
+  block-pair streamed op over per-type pair plans, or, on a batch with
+  scatter plans instead, by ``typed_gather_scatter``, the scatter-plan
+  route (``ops/sorted_spmm.py``);
 * target-state input with ONE hidden layer, the reference's default
   (``_pair_target_state_one_hidden``): the first layer splits into source
   and target halves run in node space, ``A = W1_src h`` over all rows and
@@ -22,8 +24,9 @@ are ported:
   which the relu-pair op (``ops/pair_edge_mlp.py``) computes over a
   merged-target plan, with ``s_e`` 1 or the plan's 1/deg scales.
 
-The target-state forms with 0 or with 2 or more hidden layers are not
-ported and raise.
+The target-state forms with 0 or with 2 or more hidden layers, the
+target-state forms on scatter plans, and the source-only form on merged
+pair plans are not ported and raise.
 """
 from typing import Any, Dict, List
 
@@ -35,6 +38,7 @@ from ...ops.pair_edge_mlp import (
     pair_relu_mlp_aggregate,
 )
 from ...ops.pair_spmm import pair_stream_joint, pair_unit_scales
+from ...ops.sorted_spmm import typed_gather_scatter
 from .base import MessagePassing, register_message_passing_implementation
 from .typed_linear import TypedLinear
 
@@ -100,9 +104,8 @@ class GNN_Edge_MLP(MessagePassing):
                                  batch: GraphBatch) -> torch.Tensor:
         """The per-type message MLP run densely in node space -> f32
         [L*V, H]. The reference casts these tables to ``edge_dtype`` here;
-        the port casts inside the pair op (``pair_stream_joint``'s
-        ``stream_dtype``) so that their gradient stays float32 as in the
-        reference."""
+        the port casts inside the aggregation op (its ``stream_dtype``) so
+        that their gradient stays float32 as in the reference."""
         hidden = node_states  # [V, D] -> [L, V, *]
         for i in range(len(self._edge_mlp_layer_sizes())):
             hidden = getattr(self, f"edge_mlp_layer_{i}")(hidden)
@@ -118,6 +121,21 @@ class GNN_Edge_MLP(MessagePassing):
         return pair_stream_joint(tables, batch.pair_stream_joint,
                                  self.normalize_by_num_incoming,
                                  stream_dtype=self.edge_dtype)
+
+    def _sorted_sum_aggregate(self, tables: torch.Tensor,
+                              batch: GraphBatch) -> torch.Tensor:
+        """Joint [V, H] sum over all types via the scatter-plan route: one
+        gather of the merged source rows and B13 forward, the cotangent's
+        gather by target and B13 backward, with the plan's 1/deg scales or
+        unit scales (sentinel slots are skipped either way)."""
+        plan = batch.scatter_merged
+        if self.normalize_by_num_incoming:
+            scale_fwd, scale_bwd = plan.inv_fwd, plan.inv_bwd
+        else:
+            scale_fwd = torch.ones_like(plan.inv_fwd)
+            scale_bwd = torch.ones_like(plan.inv_bwd)
+        return typed_gather_scatter(tables, plan, scale_fwd, scale_bwd,
+                                    stream_dtype=self.edge_dtype)
 
     def _pair_target_state_one_hidden(self, node_states: torch.Tensor,
                                       batch: GraphBatch) -> torch.Tensor:
@@ -156,12 +174,17 @@ class GNN_Edge_MLP(MessagePassing):
                     "and move it with .to(device). The scatter-plan and "
                     "unfused segment paths are not ported.")
             return
-        if batch.pair_stream_joint is None:
+        if batch.pair_stream_joint is None and batch.pair_merged is not None:
             raise NotImplementedError(
-                "this batch has no per-type pair plans on its device: build "
-                "it with pair_plans_typed and move it with .to(device). The "
-                "unfused segment path and the SPMD halo branches are not "
-                "ported.")
+                "the source-only edge MLP over merged pair plans "
+                "(pair_typed_gather_scatter) is not ported: build the batch "
+                "with pair_plans_typed or with scatter_plans.")
+        if batch.pair_stream_joint is None and batch.scatter_merged is None:
+            raise NotImplementedError(
+                "this batch has neither per-type pair plans nor scatter "
+                "plans on its device: build it with pair_plans_typed or "
+                "scatter_plans and move it with .to(device). The unfused "
+                "segment path and the SPMD halo branches are not ported.")
 
     def _fused_sum_aggregate(self, node_states: torch.Tensor,
                              batch: GraphBatch,
@@ -169,4 +192,6 @@ class GNN_Edge_MLP(MessagePassing):
         if self.use_target_state_as_input:
             return self._pair_target_state_one_hidden(node_states, batch)
         tables = self._fused_node_space_tables(node_states, batch)
-        return self._pair_sum_aggregate(tables, batch)
+        if batch.pair_stream_joint is not None:
+            return self._pair_sum_aggregate(tables, batch)
+        return self._sorted_sum_aggregate(tables, batch)

@@ -1,6 +1,7 @@
 """RGAT message passing, relational multi-head graph attention (port of
-``tf2_gnn_tpu/layers/message_passing/rgat.py``, the single-chip
-pair-attention route over merged plans).
+``tf2_gnn_tpu/layers/message_passing/rgat.py``: the single-chip
+pair-attention route over merged plans and the sorted fallback over
+scatter plans).
 
 Per edge type l and head k the attention logit of an edge u -> v is
 ``LeakyReLU(a_l_k . concat(W_l h_u, W_l h_v))``, normalised by a softmax
@@ -8,10 +9,14 @@ per target over all edge types jointly; the message is the head's slice of
 ``W_l h_u`` and heads are concatenated. Since ``a . concat(s, t) = a_src . s
 + a_tgt . t``, the logits come from two node-space score tables, and the
 pair-attention op (``ops/pair_attention.py``) does the rest on the plan.
+Where the pair-attention gate fails or the batch has no pair plans, the
+sorted fallback runs on the batch's scatter plan (``ops/sorted_spmm.py``):
+gathers of the source bundle and the target scores, the exact per-target
+max (B15) and one pass for the denominators and weighted sums (B14).
 
 Not ported, and raising: the per-type route (``pair_plans_typed`` only,
-``pair_attention_typed``), merged-target plans and shapes outside the pair
-path (the reference's sorted-scatter fallback and unfused segment path).
+``pair_attention_typed``) and batches outside the pair path without
+scatter plans (the reference's unfused segment path).
 """
 from typing import Any, Dict
 
@@ -27,6 +32,13 @@ from ...ops.pair_attention import (
     pair_attention_applicable,
     pair_attention_typed,
 )
+from ...ops.sorted_spmm import (
+    attention_scatter,
+    plan_gather_src,
+    plan_gather_tgt_typed,
+    sorted_segment_max,
+)
+from ...utils.constants import SMALL_NUMBER
 from ..init import glorot_uniform_batched_
 from .base import MessagePassing, register_message_passing_implementation
 from .typed_linear import TypedLinear
@@ -54,6 +66,7 @@ class RGAT(MessagePassing):
         self.num_heads = num_heads
         # "bound": the node-space upper bound on the per-(target, head) max
         # logit (the reference's default); "exact" needs the max kernel.
+        # The sorted route always takes the exact max (B15).
         self.attention_stabiliser = attention_stabiliser
         self.edge_weights = TypedLinear(num_edge_types, input_dim, hidden_dim,
                                         compute_dtype=dense_dtype)
@@ -94,11 +107,13 @@ class RGAT(MessagePassing):
             self.edge_dtype, src_space=v)
 
     def _check_batch(self, batch: GraphBatch) -> None:
-        if batch.pair_merged is None and batch.pair_plans_typed is None:
+        if (batch.pair_merged is None and batch.pair_plans_typed is None
+                and batch.scatter_merged is None):
             raise NotImplementedError(
-                "this batch has no merged pair plans on its device: build it "
-                "with pair_plans and move it with .to(device). The "
-                "sorted-scatter and unfused segment paths are not ported.")
+                "this batch has neither merged pair plans nor scatter plans "
+                "on its device: build it with pair_plans or scatter_plans "
+                "and move it with .to(device). The unfused segment path is "
+                "not ported.")
 
     def _pair_attention_aggregate(self, node_states: torch.Tensor,
                                   batch: GraphBatch) -> torch.Tensor:
@@ -154,12 +169,65 @@ class RGAT(MessagePassing):
         out = weighted.reshape(v, head_dim, k_pad)[:, :, :heads]
         return out.permute(0, 2, 1).reshape(v, self.hidden_dim)
 
+    def _sorted_attention_aggregate(self, node_states: torch.Tensor,
+                                    batch: GraphBatch) -> torch.Tensor:
+        """The sorted fallback over the batch's scatter plan, line for line
+        with the reference: one bundled source gather of the hk-major
+        messages and source scores in the stream dtype, read in f32; the
+        type-minor target gather of the f32 target scores; the per-target
+        max of the detached logits (B15); expd zeroed on sentinels; the
+        denominators and weighted sums in one pass (B14); and ``+ eps``
+        division, unlike the pair route's where-guarded one."""
+        plan = batch.scatter_merged
+        num_types = self.num_edge_types
+        v = batch.num_nodes_padded
+        vr = node_states.shape[0]
+        heads = self.num_heads
+        head_dim = self.hidden_dim // heads
+
+        transformed = self.edge_weights(node_states)  # [L, Vr, H]
+        attention = self.edge_attention_parameters
+        per_head = transformed.reshape(num_types, vr, heads, head_dim)
+        src_scores = torch.einsum("lvkd,lkd->lvk", per_head,
+                                  attention[:, :, :head_dim])
+        tgt_scores = torch.einsum("lvkd,lkd->lvk", per_head,
+                                  attention[:, :, head_dim:])
+        # One bundled source gather, [L*Vr, H + K], messages in HK-MAJOR
+        # head layout (column hk * K + k). The cast to the stream dtype is
+        # inside the gather op, so the bundle's gradient leaves it in f32.
+        transformed_hk = per_head.permute(0, 1, 3, 2).reshape(
+            num_types * vr, self.hidden_dim)
+        src_bundle = torch.cat(
+            [transformed_hk, src_scores.reshape(num_types * vr, heads)],
+            dim=1)
+        bundle_g = plan_gather_src(src_bundle, plan, self.edge_dtype).float()
+        msgs = bundle_g[:, :self.hidden_dim]
+        src_score_g = bundle_g[:, self.hidden_dim:]
+        tgt_score_g = plan_gather_tgt_typed(
+            tgt_scores[:, :v].permute(1, 0, 2).reshape(v * num_types, heads),
+            plan)
+        logits = F.leaky_relu(src_score_g + tgt_score_g, negative_slope=0.2)
+        # The stabiliser is never differentiated (its true gradient is 0).
+        maxes = sorted_segment_max(logits.detach(), plan.rel_tgt,
+                                   plan.tgt_blocks, v)
+        shifted = logits - maxes.index_select(0, plan.tgtabs_idx)
+        expd = torch.where(plan.fwd_sentinel[:, None], 0.0,
+                           torch.exp(shifted))
+        denom, weighted = attention_scatter(expd, msgs, plan)
+        weighted = weighted / (denom.repeat(1, head_dim) + SMALL_NUMBER)
+        # Back to the reference's concat-head (k-major) layout.
+        return weighted.reshape(v, head_dim, heads).permute(0, 2, 1).reshape(
+            v, self.hidden_dim)
+
     def _fused_sum_aggregate(self, node_states: torch.Tensor,
                              batch: GraphBatch,
                              training: bool) -> torch.Tensor:
-        if not self._pair_attention_applicable_static(batch):
+        if self._pair_attention_applicable_static(batch):
+            return self._pair_attention_aggregate(node_states, batch)
+        if batch.scatter_merged is None:
             raise NotImplementedError(
-                "this batch's shapes fall outside the pair-attention path; "
-                "the reference's sorted-scatter fallback (attention_scatter, "
-                "B14, and sorted_segment_max, B15) is not ported.")
-        return self._pair_attention_aggregate(node_states, batch)
+                "this batch's shapes fall outside the pair-attention path "
+                "and it has no scatter plans for the sorted fallback "
+                "(attention_scatter, B14, and sorted_segment_max, B15); the "
+                "unfused segment path is not ported.")
+        return self._sorted_attention_aggregate(node_states, batch)

@@ -18,7 +18,8 @@ from typing import Dict, List, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tf2_gnn_tpu_torch"
-SOURCES = ("pair_stream.cu", "pair_attention.cu", "pair_edge_mlp.cu")
+SOURCES = ("pair_stream.cu", "pair_attention.cu", "pair_edge_mlp.cu",
+           "sorted_scatter.cu")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default install
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

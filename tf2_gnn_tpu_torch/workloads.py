@@ -9,10 +9,13 @@ are per-type pair plans whose groups are chosen from type 0 (the RGCN
 form, ``pair_per_type``), or one merged plan over all three types with
 groups chosen from all of them and an overflow budget of 256 (the RGAT
 form, and with merged targets the target-state edge-MLP form), as the
-dataset path chooses them.
+dataset path chooses them; or, on the scatter-plan route, one merged
+sorted-scatter plan over all three types (``bench.py --no-pairs``).
 
 ``edge_mlp_default_params`` is the configuration of the JAX repo's
 ``benchmarks/edge_mlp_probe.py``: the reference-default GNN_Edge_MLP.
+``rgcn_sorted_params`` is the PPI_RGCN configuration that ``bench.py``
+times on the scatter-plan route (its ``"sorted"`` path).
 """
 from typing import Any, Dict, Tuple
 
@@ -25,6 +28,7 @@ from .data.graph_batch import (
     pad_node_label_array,
 )
 from .ops.pair_spmm import build_pair_plans, choose_pair_groups
+from .ops.sorted_spmm import build_merged_plans
 from .utils.device import resolve_device
 from .utils.shapes import round_up
 
@@ -49,6 +53,26 @@ def edge_mlp_default_params() -> Dict[str, Any]:
                    "learning_rate": 0.001,
                    "gnn_num_edge_MLP_hidden_layers": 1,
                    "gnn_edge_dtype": "bfloat16"})
+    return params
+
+
+def rgcn_sorted_params() -> Dict[str, Any]:
+    """PPI_RGCN as ``bench.py::measure(use_pairs=False, use_pallas=True)``
+    builds it: ``NodeMulticlassTask.get_default_hyperparameters("rgcn")``
+    at hidden 320 and 4 layers, 1/deg normalisation, input dropout 0.1,
+    dense, residual and global exchange every 10000 layers (never), Adam at
+    lr 1e-3, and the default f32 edge stream (the bench sets bf16 only with
+    pair plans)."""
+    from .models.node_multiclass_task import NodeMulticlassTask
+
+    params = NodeMulticlassTask.get_default_hyperparameters("rgcn")
+    params.update({"gnn_hidden_dim": 320, "gnn_num_layers": 4,
+                   "gnn_normalize_by_num_incoming": True,
+                   "gnn_layer_input_dropout_rate": 0.1,
+                   "gnn_dense_every_num_layers": 10000,
+                   "gnn_residual_every_num_layers": 10000,
+                   "gnn_global_exchange_every_num_layers": 10000,
+                   "learning_rate": 0.001})
     return params
 
 
@@ -78,15 +102,20 @@ def build_raw_arrays(seed: int):
 
 
 def build_ppi_batch_host(seed: int, merged: bool = False,
-                         merge_targets: bool = False
+                         merge_targets: bool = False, scatter: bool = False
                          ) -> Tuple[GraphBatch, Dict[str, np.ndarray], int]:
     """(host batch, labels, real edge count). The batch carries per-type
     pair plans, or with ``merged`` one merged plan over all three types
     (the RGAT form; ``bench.py::build_batch`` with ``use_pairs=True``);
     ``merge_targets`` puts that plan's targets in the merged ``l * V + t``
-    row space (the target-state edge-MLP form, ``pair_merge_targets=True``)."""
+    row space (the target-state edge-MLP form, ``pair_merge_targets=True``).
+    With ``scatter`` it carries the merged scatter plan instead, and no
+    pair plans (``build_batch(use_pallas=True, use_pairs=False)``)."""
     if merge_targets and not merged:
         raise ValueError("merge_targets needs merged=True")
+    if scatter and merged:
+        raise ValueError("scatter=True builds scatter plans only, without "
+                         "pair plans")
     rng = np.random.RandomState(seed)
     v = GRAPHS_PER_BATCH * NODES_PER_GRAPH
     node_features, (loops, fwd, bkwd), node_to_graph = build_raw_arrays(seed)
@@ -106,7 +135,10 @@ def build_ppi_batch_host(seed: int, merged: bool = False,
     srcs = list(batch.edge_sources)
     tgts = list(batch.edge_targets)
     cnts = [int(c) for c in batch.num_edges]
-    if merged:
+    if scatter:
+        batch = batch.replace(scatter_plans=build_merged_plans(
+            srcs, tgts, cnts, NODE_BUDGET).astuple())
+    elif merged:
         # Groups chosen over all three types, as the dataset path does.
         gf, gb = choose_pair_groups(srcs, tgts, cnts, NODE_BUDGET,
                                     merge_targets=merge_targets)
@@ -135,15 +167,16 @@ def build_ppi_batch_host(seed: int, merged: bool = False,
 
 
 def build_ppi_batch(seed: int, device="cuda", merged: bool = False,
-                    merge_targets: bool = False):
+                    merge_targets: bool = False, scatter: bool = False):
     """The PPI-shaped batch (per-type plans, or with ``merged`` the merged
-    plan, with merged targets under ``merge_targets``) and labels as
-    tensors on ``device``, and the real edge count."""
+    plan, with merged targets under ``merge_targets``, or with ``scatter``
+    the scatter plan) and labels as tensors on ``device``, and the real
+    edge count."""
     import torch
 
     dev = resolve_device(device)
     batch, labels, real_edges = build_ppi_batch_host(seed, merged,
-                                                     merge_targets)
+                                                     merge_targets, scatter)
     batch = batch.to(dev)
     labels = {k: torch.as_tensor(v, device=dev) for k, v in labels.items()}
     return batch, labels, real_edges
