@@ -66,6 +66,21 @@ Phases, each of which fails the run by raising:
    c. timings as in 2c; the library calls are ``torch.sparse.mm`` of the
       plan's [rows, slots] CSR (B12, B13) and one ``scatter_reduce_``
       (B15); B14 has none.
+6. RGAT on the per-type-plan PPI batch of phase 2 (one launch of each
+   attention kernel per edge type), the same three steps:
+   a. the max kernel (B11) against its plain version, exactly, on the
+      largest type's plan (bf16 [8064, 8] scores) and on the merged plan
+      of phase 3 (bf16 [24192, 8]); the hk-major aggregation kernel (B10)
+      in its two call forms (K = 8, H = 64 and K = 4, H = 512; bf16
+      table, B8's f32 expd);
+   b. the shipped PPI_RGAT with the ``"exact"`` stabiliser (per step
+      B11, B8 and B9 once per type and layer, B3 once per head, type and
+      layer) and ``workloads.rgat_eight_heads_params()`` (GAT's 8 heads of
+      8 features: B8, B10 and B9 once per type and layer): each model's
+      eval forward against the plain versions, then 5 train steps; no
+      kernel of phases 2-5 launches;
+   c. timings as in 2c; B11's library call is one ``scatter_reduce_`` of
+      the per-slot logits; B10 has none (it would take K sparse products).
 
 The line before the last two is the JSON ``kernels`` line; then the card's
 name and power limit (nvidia-smi); the last line is the JSON result. Exits
@@ -103,6 +118,12 @@ MODEL_ATOL = 2e-2
 # (observed up to 1.3 ulps on an H100).
 EDGE_MLP_LOGIT_RTOL = 2e-2
 LOSS_RTOL = 1e-3
+# Phase 6's RGAT models at random weights give logits below 0.1, where a
+# fixed 2e-2 would pass a mis-scaled attention sum: their check allows 1e-4
+# plus one bf16 ulp (2**-8) of the largest |logit|, and 1e-5 of the loss
+# (observed on an H100: 2e-5 of logits up to 8.8e-2, 1.8e-7 of the loss).
+TYPED_RGAT_ATOL, TYPED_RGAT_LOGIT_RTOL = 1e-4, 2.0 ** -8
+TYPED_RGAT_LOSS_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -191,33 +212,29 @@ def check_close(name: str, got, want, rtol: float, atol: float) -> float:
     return err
 
 
-def build_model(hypers_file: str, style: str, device, num_types: int):
+def model_from_params(params, device, num_types: int, name: str):
+    """The model of ``params`` on the card, random weights from the seed."""
     from tf2_gnn_tpu_torch.models.node_multiclass_task import (
         NodeMulticlassTask,
     )
     from tf2_gnn_tpu_torch.workloads import FEATURE_DIM, NUM_LABELS
 
-    hypers = json.loads((ROOT / "tf2_gnn_tpu_torch" / "harness"
-                         / "default_hypers" / hypers_file).read_text())
-    params = NodeMulticlassTask.get_default_hyperparameters(style)
-    params.update(hypers["model_params"])
-    params["learning_rate"] = 0.001
     model = NodeMulticlassTask.from_params(
         params, input_dim=FEATURE_DIM, num_edge_types=num_types,
         device=device, seed=SEED, num_labels=NUM_LABELS)
-    log(f"model {hypers_file}: "
-        f"{sum(p.numel() for p in model.parameters())} parameters, "
-        f"{params['gnn_num_layers']} layers, hidden {params['gnn_hidden_dim']}, "
-        f"edge stream {params['gnn_edge_dtype']}")
-    return model, params
+    log(f"model {name}: {sum(p.numel() for p in model.parameters())} "
+        f"parameters, {params['gnn_num_layers']} layers, hidden "
+        f"{params['gnn_hidden_dim']}, edge stream {params['gnn_edge_dtype']}")
+    return model
 
 
 def check_eval_forward(model, batch, labels, patches,
-                       logit_rtol: float = 0.0) -> None:
+                       logit_rtol: float = 0.0, atol: float = MODEL_ATOL,
+                       loss_rtol: float = LOSS_RTOL) -> None:
     """One eval forward with the kernels against the same model with every
     wrapper in ``patches`` ((module, name, plain version)) replaced by its
-    plain version: logits within ``MODEL_ATOL`` plus ``logit_rtol`` of the
-    largest plain |logit|, losses within ``LOSS_RTOL``."""
+    plain version: logits within ``atol`` plus ``logit_rtol`` of the
+    largest plain |logit|, losses within ``loss_rtol``."""
     import torch
 
     from tf2_gnn_tpu_torch.workloads import NUM_LABELS
@@ -235,15 +252,15 @@ def check_eval_forward(model, batch, labels, patches,
                              f"{tuple(logits.shape)}, expected {(v, NUM_LABELS)}")
     model_err = float((logits - logits_plain).abs().max())
     largest = float(logits_plain.abs().max())
-    limit = MODEL_ATOL + logit_rtol * largest
+    limit = atol + logit_rtol * largest
     if not (torch.isfinite(logits).all() and model_err <= limit
             and abs(float(loss) - float(loss_plain))
-            <= LOSS_RTOL * abs(float(loss_plain))):
+            <= loss_rtol * abs(float(loss_plain))):
         raise AssertionError(
             f"eval forward: kernels vs plain versions max abs logit err "
-            f"{model_err} (limit {limit}: atol {MODEL_ATOL} + {logit_rtol} "
-            f"of the largest |logit| {largest}), loss {float(loss)} vs "
-            f"{float(loss_plain)}")
+            f"{model_err} (limit {limit}: atol {atol} + {logit_rtol} of the "
+            f"largest |logit| {largest}), loss {float(loss)} vs "
+            f"{float(loss_plain)} (rtol {loss_rtol})")
     log(f"eval forward vs plain versions: max abs logit err {model_err:.3e} "
         f"(limit {limit:.3e}, largest |logit| {largest:.3e}), loss "
         f"{float(loss):.6f} vs {float(loss_plain):.6f}")
@@ -330,8 +347,9 @@ def rgcn_path(device, argv):
     """Phase 2: PPI_RGCN through K1 and K2. Returns their kernel entries."""
     import torch
 
+    from tf2_gnn_tpu_torch.ops import pair_attention as pa
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
-    from tf2_gnn_tpu_torch.workloads import build_ppi_batch
+    from tf2_gnn_tpu_torch.workloads import build_ppi_batch, shipped_params
 
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -369,14 +387,18 @@ def rgcn_path(device, argv):
         f"(rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
     del out1, out2, want1, want2
 
-    model, params = build_model("PPI_RGCN.json", "rgcn", device, num_types)
+    params = shipped_params("PPI_RGCN.json", "rgcn")
+    model = model_from_params(params, device, num_types, "PPI_RGCN.json")
     check_eval_forward(model, batch, labels, [
         (ps, "pair_spmm_stream_joint", ps.pair_spmm_stream_plain),
         (ps, "pair_spmm_stream", ps.pair_spmm_stream_plain)])
     per_step = params["gnn_num_layers"] * TRAIN_STEPS
     state, train_step, eval_step, launches = train_and_count(
-        model, params, batch, labels, [(ps.reset_launch_counts, ps.LAUNCHES)],
-        {"pair_stream": per_step, "pair_stream_joint": per_step})
+        model, params, batch, labels,
+        [(ps.reset_launch_counts, ps.LAUNCHES),
+         (pa.reset_launch_counts, pa.LAUNCHES)],
+        {"pair_stream": per_step, "pair_stream_joint": per_step,
+         "pair_attention_max": 0, "pair_attention_agg": 0})
     time_path(state, train_step, eval_step, batch, labels, real_edges,
               device, argv, "PPI_RGCN")
 
@@ -445,7 +467,7 @@ def rgat_path(device, argv):
 
     from tf2_gnn_tpu_torch.ops import pair_attention as pa
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
-    from tf2_gnn_tpu_torch.workloads import build_ppi_batch
+    from tf2_gnn_tpu_torch.workloads import build_ppi_batch, shipped_params
 
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -457,7 +479,8 @@ def rgat_path(device, argv):
         f"{plan.rel_src_f.shape[0]} forward / {plan.rel_src_b.shape[0]} "
         f"backward chunks, {plan.ovf_src.shape[0]} overflow slots, built "
         f"in {time.perf_counter() - t0:.1f} s")
-    model, params = build_model("PPI_RGAT.json", "rgat", device, num_types)
+    params = shipped_params("PPI_RGAT.json", "rgat")
+    model = model_from_params(params, device, num_types, "PPI_RGAT.json")
     # The kernels' widths on the main path: [L*V, H] hk-major tables with
     # the heads padded to a divisor of 128 (none at 4 heads).
     k = model.gnn.mp_layer_0._padded_heads()
@@ -523,7 +546,8 @@ def rgat_path(device, argv):
         model, params, batch, labels, counters,
         {"pair_attention_expd": per_step, "pair_spmm": k * per_step,
          "pair_attention_bwd_fused": per_step, "pair_stream": 0,
-         "pair_stream_joint": 0})
+         "pair_stream_joint": 0, "pair_attention_max": 0,
+         "pair_attention_agg": 0})
     time_path(state, train_step, eval_step, batch, labels, real_edges,
               device, argv, "PPI_RGAT")
 
@@ -691,7 +715,8 @@ def edge_mlp_path(device, argv):
         {"relu_pair_fwd_m": per_step, "relu_pair_da": per_step,
          "relu_pair_fwd": 0, "relu_pair_db": 0, "pair_stream": 0,
          "pair_stream_joint": 0, "pair_spmm": 0, "pair_attention_expd": 0,
-         "pair_attention_bwd_fused": 0})
+         "pair_attention_bwd_fused": 0, "pair_attention_max": 0,
+         "pair_attention_agg": 0})
     launches["relu_pair_fwd"] = eval_launches["relu_pair_fwd"]
     time_path(state, train_step, eval_step, batch, labels, real_edges,
               device, argv, "GNN_Edge_MLP")
@@ -764,6 +789,7 @@ def sorted_path(device, argv):
         NUM_LABELS,
         build_ppi_batch,
         rgcn_sorted_params,
+        shipped_params,
     )
 
     torch.cuda.reset_peak_memory_stats(device)
@@ -892,7 +918,8 @@ def sorted_path(device, argv):
 
     # The shipped PPI_RGAT on its sorted fallback.
     torch.cuda.reset_peak_memory_stats(device)
-    model, params = build_model("PPI_RGAT.json", "rgat", device, num_types)
+    params = shipped_params("PPI_RGAT.json", "rgat")
+    model = model_from_params(params, device, num_types, "PPI_RGAT.json")
     layers = params["gnn_num_layers"]
     rgat_eval = eval_launches(model)
     if rgat_eval != {"sorted_segment_sum": 0, "sorted_segment_sum_scaled": 0,
@@ -1002,6 +1029,204 @@ def sorted_path(device, argv):
     return kernels
 
 
+def typed_rgat_path(device, argv):
+    """Phase 6: RGAT on the per-type-plan PPI batch; the shipped PPI_RGAT
+    with the exact stabiliser through B11 (and B8, B3, B9), and GAT's
+    8-head layout through B10 (and B8, B9). Returns the B11 and B10
+    entries."""
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_attention as pa
+    from tf2_gnn_tpu_torch.ops import pair_edge_mlp as pem
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.ops import sorted_spmm as ss
+    from tf2_gnn_tpu_torch.workloads import (
+        build_ppi_batch,
+        rgat_eight_heads_params,
+        shipped_params,
+    )
+
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    batch, labels, real_edges = build_ppi_batch(SEED, device=device)
+    merged = build_ppi_batch(SEED, device=device, merged=True)[0].pair_merged
+    v, num_types = batch.num_nodes_padded, batch.num_edge_types
+    plans = batch.pair_typed
+    valid_slots = [int(ps.slot_abs_ids(*p.fwd)[2].sum()) for p in plans]
+    big = plans[valid_slots.index(max(valid_slots))]
+    log(f"workload (per-type plans): {real_edges} edges, V={v}, valid "
+        f"slots per type {valid_slots}, forward / backward chunks per type "
+        f"{[(p.rel_src_f.shape[0], p.rel_src_b.shape[0]) for p in plans]}, "
+        f"overflow slots {[p.ovf_src.shape[0] for p in plans]}; the "
+        f"merged plan of phase 3 for B11's merged form, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # Kernel inputs at the main path's shapes and dtypes: bf16 scores of
+    # the 4-head model, one type's [V, 8] slab and the merged [L*V, 8]
+    # table; for B10 a bf16 [V, H] slab of each call form with B8's f32
+    # expd on the largest type's plan.
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    k = 4
+    scores_t = (0.5 * torch.randn((v, 2 * k), generator=gen,
+                                  device=device)).to(torch.bfloat16)
+    scores_m = (0.5 * torch.randn((num_types * v, 2 * k), generator=gen,
+                                  device=device)).to(torch.bfloat16)
+    forms = {
+        "pair_attention_max": (scores_t, big.fwd, k, None),
+        "pair_attention_max merged": (scores_m, merged.fwd, k, None),
+    }
+    for agg_k, agg_h, form in ((8, 64, "pair_attention_agg"),
+                               (4, 512, "pair_attention_agg heads512")):
+        table = torch.randn((v, agg_h), generator=gen,
+                            device=device).to(torch.bfloat16)
+        sc = (0.5 * torch.randn((v, 2 * agg_k), generator=gen,
+                                device=device)).to(torch.bfloat16)
+        m = pa._stabilise(pa._bound_stabiliser(sc, v, agg_k), torch.bfloat16)
+        expd = pa.pair_attention_expd(sc, m, *big.fwd, v, agg_k)
+        forms[form] = (table, big.fwd, agg_k, expd)
+
+    def fns(form):
+        first, plan, kk, expd = forms[form]
+        if expd is None:
+            return (lambda: pa.pair_attention_max(first, *plan, v, kk),
+                    lambda: pa.pair_attention_max_plain(first, *plan, v, kk))
+        return (lambda: pa.pair_attention_agg(first, expd, *plan, v, kk),
+                lambda: pa.pair_attention_agg_plain(first, expd, *plan, v,
+                                                    kk))
+
+    errs = {}
+    for form in forms:
+        kernel_fn, plain_fn = fns(form)
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        if form.startswith("pair_attention_max"):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{form}: kernel differs from its plain "
+                                     "version (must match exactly)")
+            errs[form] = float((got - want).abs().max())
+        else:
+            errs[form] = max(check_close(f"{form} {part}", x, y, KERNEL_RTOL,
+                                         KERNEL_ATOL)
+                             for part, x, y in zip(("denom", "weighted"),
+                                                   got, want))
+        del got, want
+    log("kernel check: " + ", ".join(f"{form} max_abs_err {err:.3e}"
+                                     for form, err in errs.items())
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; the max exactly)")
+
+    counters = [(ps.reset_launch_counts, ps.LAUNCHES),
+                (pa.reset_launch_counts, pa.LAUNCHES),
+                (pem.reset_launch_counts, pem.LAUNCHES),
+                (ss.reset_launch_counts, ss.LAUNCHES)]
+    zero = {name: 0 for _, counts in counters for name in counts}
+    patches = [(ps, "pair_spmm", ps.pair_spmm_plain),
+               (pa, "pair_spmm", ps.pair_spmm_plain)]
+    patches += [(pa, name, getattr(pa, f"{name}_plain"))
+                for name in pa.LAUNCHES]
+
+    def run_config(model, params, name, counts):
+        check_eval_forward(model, batch, labels, patches,
+                           TYPED_RGAT_LOGIT_RTOL, TYPED_RGAT_ATOL,
+                           TYPED_RGAT_LOSS_RTOL)
+        per_step = params["gnn_num_layers"] * TRAIN_STEPS * num_types
+        state, train_step, eval_step, launches = train_and_count(
+            model, params, batch, labels, counters,
+            dict(zero, **{kernel: per_step * mult
+                          for kernel, mult in counts.items()}))
+        time_path(state, train_step, eval_step, batch, labels, real_edges,
+                  device, argv, name)
+        torch.cuda.empty_cache()
+        return launches
+
+    # 1. The shipped PPI_RGAT with the exact stabiliser: per layer B11,
+    # B8 and B9 once a type, B3 once a head and type.
+    params = dict(shipped_params("PPI_RGAT.json", "rgat"),
+                  gnn_attention_stabiliser="exact")
+    model = model_from_params(params, device, num_types,
+                              "PPI_RGAT.json, exact stabiliser")
+    heads = model.gnn.mp_layer_0._padded_heads()
+    exact_launches = run_config(
+        model, params, "PPI_RGAT exact (per-type plans)",
+        {"pair_attention_max": 1, "pair_attention_expd": 1,
+         "pair_spmm": heads, "pair_attention_bwd_fused": 1})
+    del model
+    torch.cuda.reset_peak_memory_stats(device)
+    # 2. GAT's 8-head layout: per layer B8, B10 and B9 once a type.
+    params = rgat_eight_heads_params()
+    model = model_from_params(params, device, num_types,
+                              "rgat_eight_heads_params()")
+    agg_launches = run_config(
+        model, params, "RGAT 8 heads (per-type plans)",
+        {"pair_attention_expd": 1, "pair_attention_agg": 1,
+         "pair_attention_bwd_fused": 1})
+    del model
+
+    # Bounds from this run's plans: the bytes each kernel must move (each
+    # input read once, each output written once) and its f32 operations.
+    def plan_bytes(plan):
+        return (plan[0].numel() * 8 + plan[2].numel() * 4
+                + plan[3].numel() * 4)
+
+    def max_bound(scores, plan, kk):
+        # The source half of each distinct source row, the target half of
+        # each distinct target row; per valid slot and head an add, the
+        # leaky multiply and select, and the max.
+        src, tgt, valid = ps.slot_abs_ids(*plan)
+        halves = (int(torch.unique(src[valid]).numel())
+                  + int(torch.unique((src[valid] // v) * v
+                                     + tgt[valid]).numel()))
+        return bound_ms(halves * kk * scores.element_size()
+                        + plan_bytes(plan) + v * kk * 4,
+                        4.0 * int(valid.sum()) * kk)
+
+    def agg_bound(table, plan, kk):
+        # The distinct table rows and the f32 expd of the valid slots (the
+        # kernel reads no padded slot's), the plan, both f32 outputs.
+        src, _, valid = ps.slot_abs_ids(*plan)
+        h = table.shape[1]
+        rows_read = int(torch.unique(src[valid]).numel())
+        return bound_ms(rows_read * h * table.element_size()
+                        + kk * int(valid.sum()) * 4 + plan_bytes(plan)
+                        + v * (h + kk) * 4, 2.0 * int(valid.sum()) * h)
+
+    # The library yardstick for B11: one scatter_reduce_ of the per-slot
+    # logits, built outside the timed window (B10 has no single call).
+    libraries = {}
+    for form in ("pair_attention_max", "pair_attention_max merged"):
+        scores, plan, kk, _ = forms[form]
+        _, logit, tgt, _, valid = pa._slot_logits(scores, *plan, v,
+                                                  swap=False)
+        seg = torch.where(valid, tgt, torch.full_like(tgt, v))
+        seg = seg[:, None].expand(logit.shape).contiguous()
+        out = torch.zeros((v + 1, kk), device=device)
+        libraries[form] = (lambda out=out, seg=seg, logit=logit:
+                           out.scatter_reduce_(0, seg, logit, "amax",
+                                               include_self=False))
+    launches = {"pair_attention_max": exact_launches["pair_attention_max"],
+                "pair_attention_agg": agg_launches["pair_attention_agg"]}
+    replaces = {"pair_attention_max": "tf2_gnn_tpu/ops/pair_attention.py:262",
+                "pair_attention_agg": "tf2_gnn_tpu/ops/pair_attention.py:596"}
+    kernels = []
+    for form, (first, plan, kk, expd) in forms.items():
+        name = form.split()[0]
+        kernel_fn, plain_fn = fns(form)
+        if expd is None:
+            bound = max_bound(first, plan, kk)
+            detail = (f"bf16 scores [{first.shape[0]}, {2 * kk}] -> f32 "
+                      f"[{v}, {kk}]")
+        else:
+            bound = agg_bound(first, plan, kk)
+            detail = (f"K = {kk}, bf16 table [{v}, {first.shape[1]}], f32 "
+                      f"expd [{kk}, {plan[0].numel()}]")
+        entry = time_kernel(
+            form, "tf2_gnn_tpu_torch/csrc/pair_attention.cu", replaces[name],
+            launches[name], errs[form], kernel_fn, plain_fn,
+            libraries.get(form), None, *bound, detail)
+        if form == name:  # the main call form of each kernel is its entry
+            kernels.append(entry)
+    return kernels
+
+
 def main(argv) -> int:
     import torch
 
@@ -1025,7 +1250,8 @@ def main(argv) -> int:
     log(f"device: {torch.cuda.get_device_name(device)} "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
 
-    # -- 2. PPI_RGCN, 3. PPI_RGAT, 4. GNN_Edge_MLP, 5. scatter plans -------
+    # -- 2. PPI_RGCN, 3. PPI_RGAT, 4. GNN_Edge_MLP, 5. scatter plans,
+    # -- 6. RGAT on per-type plans -----------------------------------------
     kernels = rgcn_path(device, argv)
     torch.cuda.empty_cache()
     kernels += rgat_path(device, argv)
@@ -1033,6 +1259,8 @@ def main(argv) -> int:
     kernels += edge_mlp_path(device, argv)
     torch.cuda.empty_cache()
     kernels += sorted_path(device, argv)
+    torch.cuda.empty_cache()
+    kernels += typed_rgat_path(device, argv)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,10 +1,12 @@
 """The hand-written CUDA kernels (tf2_gnn_tpu_torch/csrc/pair_stream.cu:
-K1, K2 and B3; csrc/pair_attention.cu: B8 and B9; csrc/pair_edge_mlp.cu:
-B4, B5, B6 and B7; csrc/sorted_scatter.cu: B12, B13, B14 and B15) against
-their plain PyTorch versions on the card, at small shapes with a ragged
-feature width, f32 and bf16 tables, plans with pad slots and an
-all-padding group (sorted plans: sentinel slots, an unused trailing chunk
-and an all-sentinel chunk of NaN rows), and through the autograd ops. Marked
+K1, K2 and B3; csrc/pair_attention.cu: B8, B9, B10 and B11;
+csrc/pair_edge_mlp.cu: B4, B5, B6 and B7; csrc/sorted_scatter.cu: B12, B13,
+B14 and B15) against their plain PyTorch versions on the card, at small
+shapes with a ragged feature width, f32 and bf16 tables, plans with pad
+slots and an all-padding group (sorted plans: sentinel slots, an unused
+trailing chunk and an all-sentinel chunk of NaN rows; B11: targets with no
+in-edges and a pad head), and through the autograd ops (the attention op in
+its merged and per-type forms). Marked
 ``cuda``; each test skips without a card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -16,7 +18,7 @@ Tolerance: rtol 1e-5 / atol 1e-5; both sides sum the same f32 products,
 the kernel in a run-dependent order (atomics), and B8/B9 take expf of the
 same f32 argument as torch.exp (each within 2 ulp). Gradients of the
 attention op in bf16 are rounded to bf16 after those sums: rtol 1e-2 /
-atol 1e-4 there (one bf16 ulp). B15, a max, matches exactly.
+atol 1e-4 there (one bf16 ulp). B15 and B11, maxes, match exactly.
 """
 import numpy as np
 import pytest
@@ -453,3 +455,123 @@ def test_sorted_ops_match_plain_on_card(device, stream_dtype):
                           want):
         assert x.dtype == torch.float32
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5, msg=name)
+
+
+def _typed_plans_empty_targets(seed, v=384, num_types=3):
+    """Per-type host plans (group 16 / 8) of random edges that never enter
+    a node whose id is a multiple of 5, and the merged plan of the same
+    edges."""
+    rng = np.random.RandomState(seed)
+    srcs, tgts, counts = [], [], []
+    for _ in range(num_types):
+        e = rng.randint(v, 4 * v)
+        t = rng.randint(0, v, e)
+        t[t % 5 == 0] += 1
+        srcs.append(rng.randint(0, v, e))
+        tgts.append(t)
+        counts.append(e)
+    typed = [tps.MergedPlan(*tps.build_pair_plans(
+        [s], [t], [c], v, group_fwd=16, group_bwd=8).astuple(), out_rows=v)
+        for s, t, c in zip(srcs, tgts, counts)]
+    merged = tps.MergedPlan(*tps.build_pair_plans(
+        srcs, tgts, counts, v, group_fwd=16, group_bwd=8).astuple())
+    return typed, merged
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["merged", "typed"])
+@pytest.mark.parametrize("k", [4, 8])
+def test_max_kernel_matches_exactly(device, dtype, form, k):
+    typed, merged = _typed_plans_empty_targets(40)
+    v = 384
+    plan = (merged if form == "merged" else typed[1]).to(device)
+    rows = 3 * v if form == "merged" else v
+    gen = torch.Generator(device=device).manual_seed(41)
+    scores = 0.5 * torch.randn((rows, 2 * k), generator=gen, device=device)
+    scores[:, k - 1] = 0.0           # the last head is a pad head
+    scores[:, 2 * k - 1] = tpa.NEG
+    scores[::3, 0] = -0.0            # logits of -0.0 beside positive ones
+    scores[::3, k] = -0.0
+    scores = scores.to(dtype)
+    before = tpa.LAUNCHES["pair_attention_max"]
+    got = tpa.pair_attention_max(scores, *plan.fwd, v, k)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["pair_attention_max"] == before + 1
+    want = tpa.pair_attention_max_plain(scores, *plan.fwd, v, k)
+    assert torch.equal(got, want)
+    empty = torch.arange(v, device=device) % 5 == 0
+    assert bool((got[empty] == tpa.NEG).all())
+    assert bool((got[~empty][:, :k - 1] > -1e3).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,head_dim", [(8, 2), (8, 8), (4, 128), (1, 160)])
+def test_agg_kernel_matches_plain_version(device, dtype, k, head_dim):
+    """Both call forms of B10 (K > 4 heads a tile; head_dim + 1 > 128),
+    with a ragged last column tile at 160 features."""
+    typed, _ = _typed_plans_empty_targets(42)
+    v = 384
+    plan = typed[2].to(device)
+    gen = torch.Generator(device=device).manual_seed(43)
+    table = torch.randn((v, head_dim * k), generator=gen,
+                        device=device).to(dtype)
+    scores = (0.5 * torch.randn((v, 2 * k), generator=gen,
+                                device=device)).to(dtype)
+    m = tpa._stabilise(tpa._bound_stabiliser(scores, v, k), dtype)
+    expd = tpa.pair_attention_expd_plain(scores, m, *plan.fwd, v, k)
+    before = tpa.LAUNCHES["pair_attention_agg"]
+    denom, weighted = tpa.pair_attention_agg(table, expd, *plan.fwd, v, k)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["pair_attention_agg"] == before + 1
+    want_d, want_w = tpa.pair_attention_agg_plain(table, expd, *plan.fwd, v,
+                                                  k)
+    torch.testing.assert_close(denom, want_d, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(weighted, want_w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stabiliser", ["bound", "exact"])
+@pytest.mark.parametrize("k,head_dim", [(4, 20), (8, 4)])
+def test_typed_attention_op_matches_plain_on_card(device, dtype, stabiliser,
+                                                  k, head_dim):
+    """``pair_attention_typed`` forward and backward through B11, B8, B3 or
+    B10, and B9, against the same op on the plain versions."""
+    typed, _ = _typed_plans_empty_targets(44)
+    plans = [p.to(device) for p in typed]
+    v = 384
+    base, scores0, _, gen = _attention_inputs(device, torch.float32, 3 * v,
+                                              v, k, head_dim, 45)
+    cot_d = torch.randn((v, k), generator=gen, device=device)
+    cot_w = torch.randn((v, head_dim * k), generator=gen, device=device)
+
+    def run():
+        t = base.to(dtype).requires_grad_(True)
+        s = scores0.to(dtype).requires_grad_(True)
+        denom, weighted = tpa.pair_attention_typed(t, s, plans, v, k,
+                                                   stabiliser)
+        ((denom * cot_d).sum() + (weighted * cot_w).sum()).backward()
+        return denom.detach(), weighted.detach(), t.grad, s.grad
+
+    before = dict(tpa.LAUNCHES)
+    got = run()
+    torch.cuda.synchronize()
+    launched = {name: tpa.LAUNCHES[name] - before[name]
+                for name in tpa.LAUNCHES}
+    assert launched == {
+        "pair_attention_expd": 3, "pair_attention_bwd_fused": 3,
+        "pair_attention_max": 3 if stabiliser == "exact" else 0,
+        "pair_attention_agg": 3 if k == 8 else 0}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tps, "pair_spmm", tps.pair_spmm_plain)
+        mp.setattr(tpa, "pair_spmm", tps.pair_spmm_plain)
+        for name in tpa.LAUNCHES:
+            mp.setattr(tpa, name, getattr(tpa, f"{name}_plain"))
+        want = run()
+    grad_tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+                else dict(rtol=1e-2, atol=1e-4))
+    for i, name in enumerate(("denom", "weighted")):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=1e-5,
+                                   msg=name)
+    for i, name in ((2, "d_table"), (3, "d_scores")):
+        torch.testing.assert_close(got[i].float(), want[i].float(),
+                                   msg=name, **grad_tol)

@@ -65,6 +65,7 @@ def test_port_has_its_own_modules():
         "csrc/pair_edge_mlp.cu", "ops/segment.py", "ops/gru.py",
         "layers/mlp.py", "layers/readout.py", "layers/global_exchange.py",
         "layers/dropout.py", "ops/sorted_spmm.py", "csrc/sorted_scatter.cu",
+        "csrc/float_atomics.cuh",
     ]
     missing = [p for p in expected if not (PACKAGE / p).is_file()]
     assert not missing
@@ -121,6 +122,8 @@ WRAPPERS = {
     tps.pair_spmm: (tps.LAUNCHES, (None,) * 5 + (128,)),
     tpa.pair_attention_expd: (tpa.LAUNCHES, (None,) * 5 + (128, 4)),
     tpa.pair_attention_bwd_fused: (tpa.LAUNCHES, (None,) * 8 + (128, 4)),
+    tpa.pair_attention_max: (tpa.LAUNCHES, (None,) * 4 + (128, 4)),
+    tpa.pair_attention_agg: (tpa.LAUNCHES, (None,) * 5 + (128, 4)),
     tpem.relu_pair_fwd: (tpem.LAUNCHES, (None,) * 6 + (128,)),
     tpem.relu_pair_fwd_m: (tpem.LAUNCHES, (None,) * 6 + (128,)),
     tpem.relu_pair_da: (tpem.LAUNCHES, (None,) * 7 + (128,)),
@@ -196,6 +199,32 @@ def test_cpu_tensors_take_the_plain_versions_of_the_attention_kernels():
                          tpa.pair_attention_bwd_fused_plain(*bwd_args)):
         assert torch.equal(got, want)
     assert (dict(tps.LAUNCHES), dict(tpa.LAUNCHES)) == before
+
+
+def test_cpu_tensors_take_the_plain_versions_of_max_and_agg_kernels():
+    """B11 and B10 on CPU tensors, in the merged form and on one type's
+    plan: the plain versions' results, no launch counted."""
+    rng = np.random.RandomState(4)
+    v, k = 128, 8
+    src = rng.randint(0, v, (2, 200))
+    tgt = rng.randint(0, v, (2, 200))
+    merged = tps.MergedPlan(*tps.build_pair_plans(
+        list(src), list(tgt), [200, 200], v).astuple()).to("cpu")
+    typed = tps.MergedPlan(*tps.build_pair_plans(
+        [src[0]], [tgt[0]], [200], v).astuple(), out_rows=v).to("cpu")
+    before = dict(tpa.LAUNCHES)
+    for plan, rows in ((merged, 2 * v), (typed, v)):
+        scores = torch.randn(rows, 2 * k)
+        assert torch.equal(
+            tpa.pair_attention_max(scores, *plan.fwd, v, k),
+            tpa.pair_attention_max_plain(scores, *plan.fwd, v, k))
+        table = torch.randn(rows, 2 * k)
+        expd = torch.rand(k, plan.rel_src_f.numel())
+        for got, want in zip(
+                tpa.pair_attention_agg(table, expd, *plan.fwd, v, k),
+                tpa.pair_attention_agg_plain(table, expd, *plan.fwd, v, k)):
+            assert torch.equal(got, want)
+    assert dict(tpa.LAUNCHES) == before
 
 
 def test_cpu_tensors_take_the_plain_versions_of_the_relu_pair_kernels():

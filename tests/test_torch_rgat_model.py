@@ -1,9 +1,13 @@
 """The port's NodeMulticlassTask with RGAT (pair attention over a merged
-plan) against the JAX package's on the CPU, from weights bridged out of the
-flax params: logits, loss and the gradient of every parameter, at hidden 24
-with 4 heads and at hidden 12 with 3 heads (padded to 4), and three Adam
-steps along the reference's loss trajectory. Dropout is 0, since the two
-frameworks' dropout bits cannot match.
+plan, or over per-type plans) against the JAX package's on the CPU, from
+weights bridged out of the flax params: logits, loss and the gradient of
+every parameter, at hidden 24 with 4 heads and at hidden 12 with 3 heads
+(padded to 4) on merged plans; on per-type plans under both stabilisers;
+at hidden 16 with 8 heads (whose attention sums take the hk-major
+aggregation kernel, B10) on both plan forms; and three Adam steps along the
+reference's loss trajectory, on merged plans and on per-type plans with the
+"exact" stabiliser (B11). Dropout is 0, since the two frameworks' dropout
+bits cannot match.
 
 Tolerances. f32 edge streams: rtol 1e-4 / atol 1e-6 (the same products
 summed in other orders; observed 1e-7 absolute on logits, 1e-8 on
@@ -51,17 +55,20 @@ TOLS = {"float32": (dict(rtol=1e-4, atol=1e-6), dict(rtol=1e-4, atol=1e-6)),
         "bfloat16": (dict(rtol=1e-2, atol=1e-3), dict(rtol=2e-2, atol=3e-5))}
 LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
 WIDTHS = {"h24_k4": (24, 4), "h12_k3": (12, 3)}
+EIGHT_HEADS = (16, 8)   # head_dim 2: K = 8 > 4 heads a 128-column tile
 
 
-def make_params(width: str, edge_dtype: str):
-    """The shipped PPI_RGAT layout at small width, dropout 0."""
-    hidden, heads = WIDTHS[width]
+def make_params(width, edge_dtype: str, stabiliser: str = "bound"):
+    """The shipped PPI_RGAT layout at small width (a name of ``WIDTHS`` or
+    a (hidden, heads) pair), dropout 0."""
+    hidden, heads = WIDTHS[width] if isinstance(width, str) else width
     params = JaxNodeMulticlassTask.get_default_hyperparameters("rgat")
     shipped = json.loads((REPO / "tf2_gnn_tpu_torch" / "harness"
                           / "default_hypers" / "PPI_RGAT.json").read_text())
     params.update(shipped["model_params"])
     params.update({"gnn_hidden_dim": hidden, "gnn_num_heads": heads,
                    "gnn_edge_dtype": edge_dtype,
+                   "gnn_attention_stabiliser": stabiliser,
                    "gnn_layer_input_dropout_rate": 0.0})
     return params
 
@@ -84,11 +91,8 @@ def test_default_hypers_are_the_shipped_file():
             == json.loads((theirs / "PPI_RGAT.json").read_text()))
 
 
-@pytest.mark.parametrize("width", sorted(WIDTHS))
-@pytest.mark.parametrize("edge_dtype", ["float32", "bfloat16"])
-def test_forward_loss_and_gradients_match_jax(width, edge_dtype):
-    jbatch, tbatch, labels = small_workload(seed=3, merged=True)
-    params = make_params(width, edge_dtype)
+def check_forward_loss_and_gradients(params, edge_dtype, jbatch, tbatch,
+                                     labels):
     jmodel, jparams, tmodel = build_pair(params, jbatch)
     out_tol, grad_tol = TOLS[edge_dtype]
 
@@ -118,10 +122,52 @@ def test_forward_loss_and_gradients_match_jax(width, edge_dtype):
                                    err_msg=name, **grad_tol)
 
 
+@pytest.mark.parametrize("width", sorted(WIDTHS))
 @pytest.mark.parametrize("edge_dtype", ["float32", "bfloat16"])
-def test_three_adam_steps_follow_jax(edge_dtype):
-    jbatch, tbatch, labels = small_workload(seed=6, merged=True)
-    params = make_params("h24_k4", edge_dtype)
+def test_forward_loss_and_gradients_match_jax(width, edge_dtype):
+    jbatch, tbatch, labels = small_workload(seed=3, merged=True)
+    check_forward_loss_and_gradients(make_params(width, edge_dtype),
+                                     edge_dtype, jbatch, tbatch, labels)
+
+
+@pytest.mark.parametrize("stabiliser", ["bound", "exact"])
+@pytest.mark.parametrize("edge_dtype", ["float32", "bfloat16"])
+def test_per_type_plans_match_jax(stabiliser, edge_dtype):
+    """Per-type plans: ``pair_attention_typed``, one launch per type."""
+    jbatch, tbatch, labels = small_workload(seed=7)
+    assert tbatch.pair_merged is None and len(tbatch.pair_typed) == 3
+    check_forward_loss_and_gradients(
+        make_params("h24_k4", edge_dtype, stabiliser), edge_dtype, jbatch,
+        tbatch, labels)
+
+
+def test_per_type_device_forms_built_at_first_read():
+    """A per-type batch builds each device form of its plans only when a
+    model reads it, once; a host batch has none."""
+    tbatch = small_workload(seed=7)[1]
+    host = tbatch.replace(node_features=tbatch.node_features.numpy())
+    assert host.pair_typed is None and host.pair_stream_joint is None
+    assert tbatch._typed_forms == {}
+    typed = tbatch.pair_typed
+    assert list(tbatch._typed_forms) == ["typed"]
+    assert tbatch.pair_typed is typed
+    assert all(p.fwd[0].device.type == "cpu" for p in typed)
+    assert tbatch.pair_stream_joint is not None
+    assert sorted(tbatch._typed_forms) == ["joint", "typed"]
+    assert tbatch.replace()._typed_forms == {}
+
+
+@pytest.mark.parametrize("merged", [True, False])
+@pytest.mark.parametrize("edge_dtype", ["float32", "bfloat16"])
+def test_eight_heads_match_jax(merged, edge_dtype):
+    """8 heads of 2 features: the attention sums take B10 on both plan
+    forms."""
+    jbatch, tbatch, labels = small_workload(seed=8, merged=merged)
+    check_forward_loss_and_gradients(make_params(EIGHT_HEADS, edge_dtype),
+                                     edge_dtype, jbatch, tbatch, labels)
+
+
+def check_three_adam_steps(params, edge_dtype, jbatch, tbatch, labels):
     jmodel, jparams, tmodel = build_pair(params, jbatch)
 
     joptimizer = joptimizers.make_optimizer(params)
@@ -148,6 +194,20 @@ def test_three_adam_steps_follow_jax(edge_dtype):
                                                       tlabels)["loss"]))
 
 
+@pytest.mark.parametrize("edge_dtype", ["float32", "bfloat16"])
+def test_three_adam_steps_follow_jax(edge_dtype):
+    jbatch, tbatch, labels = small_workload(seed=6, merged=True)
+    check_three_adam_steps(make_params("h24_k4", edge_dtype), edge_dtype,
+                           jbatch, tbatch, labels)
+
+
+@pytest.mark.parametrize("edge_dtype", ["float32", "bfloat16"])
+def test_three_adam_steps_per_type_exact_follow_jax(edge_dtype):
+    jbatch, tbatch, labels = small_workload(seed=9)
+    check_three_adam_steps(make_params("h24_k4", edge_dtype, "exact"),
+                           edge_dtype, jbatch, tbatch, labels)
+
+
 def test_attention_parameters_get_batch_axis_glorot_init():
     params = make_params("h24_k4", "float32")
     model = NodeMulticlassTask.from_params(
@@ -162,25 +222,32 @@ def test_attention_parameters_get_batch_axis_glorot_init():
 
 
 def test_unported_routes_raise():
+    """The per-type route and the exact stabiliser are ported now; what
+    still raises: a batch with no plans, merged targets (outside the pair
+    path, without the scatter plans of the B14 fallback), a hidden width
+    the heads do not divide, and an unknown stabiliser."""
     params = make_params("h24_k4", "float32")
     _, typed_batch, _ = small_workload(seed=5)
     _, merged_batch, _ = small_workload(seed=5, merged=True)
     model = NodeMulticlassTask.from_params(
         params, input_dim=FEATURES, num_edge_types=3, device="cpu",
         num_labels=NUM_LABELS)
-    with pytest.raises(NotImplementedError, match="pair_attention_typed"):
-        model(typed_batch, False)
+    (logits,) = model(typed_batch, False)
+    assert bool(torch.isfinite(logits).all())
     bare = merged_batch.replace(pair_plans=None, pair_merged=None)
     with pytest.raises(NotImplementedError, match="merged pair plans"):
         model(bare, False)
     with pytest.raises(NotImplementedError, match="B14"):
         model(merged_batch.replace(pair_targets_merged=True), False)
-    exact = dict(params, gnn_attention_stabiliser="exact")
-    model = NodeMulticlassTask.from_params(
-        exact, input_dim=FEATURES, num_edge_types=3, device="cpu",
-        num_labels=NUM_LABELS)
-    with pytest.raises(NotImplementedError, match="B11"):
-        model(merged_batch, False)
+    exact = NodeMulticlassTask.from_params(
+        dict(params, gnn_attention_stabiliser="exact"), input_dim=FEATURES,
+        num_edge_types=3, device="cpu", num_labels=NUM_LABELS)
+    assert bool(torch.isfinite(exact(merged_batch, False)[0]).all())
+    unknown = NodeMulticlassTask.from_params(
+        dict(params, gnn_attention_stabiliser="max"), input_dim=FEATURES,
+        num_edge_types=3, device="cpu", num_labels=NUM_LABELS)
+    with pytest.raises(ValueError, match="unknown stabiliser"):
+        unknown(merged_batch, False)
     with pytest.raises(ValueError, match="divisible"):
         NodeMulticlassTask.from_params(
             dict(params, gnn_hidden_dim=25), input_dim=FEATURES,

@@ -190,7 +190,7 @@ def test_batch_without_pair_plans_raises():
     tmodel = NodeMulticlassTask.from_params(
         params, input_dim=FEATURES, num_edge_types=3, device="cpu",
         num_labels=NUM_LABELS)
-    bare = tbatch.replace(pair_plans_typed=None, pair_stream_joint=None)
+    bare = tbatch.replace(pair_plans_typed=None)
     with pytest.raises(NotImplementedError, match="pair plans"):
         tmodel(bare, False)
 

@@ -73,7 +73,7 @@ def scatter_workload(seed: int):
         pair_plans_typed=None,
         scatter_plans=jsp.build_merged_plans(srcs, tgts, cnts, v).astuple())
     tbatch = tbatch.replace(
-        pair_plans_typed=None, pair_stream_joint=None,
+        pair_plans_typed=None,
         scatter_plans=tss.build_merged_plans(srcs, tgts, cnts,
                                              v).astuple()).to("cpu")
     return jbatch, tbatch, labels

@@ -1,7 +1,8 @@
 // Relational-attention kernels for Hopper (sm_90a), bound through a plain C
-// interface (ctypes) by tf2_gnn_tpu_torch/ops/pair_attention.py. Both read a
-// MERGED pair plan (ops/pair_spmm.py::build_pair_plans): per slot s of
-// group g (chunk c = s / E_C), padded where rel >= BLK,
+// interface (ctypes) by tf2_gnn_tpu_torch/ops/pair_attention.py. All four
+// read a pair plan (ops/pair_spmm.py::build_pair_plans; merged over the edge
+// types, or one type's plan over its [V]-row slab): per slot s of group g
+// (chunk c = s / E_C), padded where rel >= BLK,
 //
 //   a = src_blk[c] * BLK + rel_src[s],   b = grp_tgt[g] * BLK + rel_tgt[s].
 //
@@ -10,6 +11,50 @@
 // stabiliser, already rounded to the stream dtype by the caller. Products
 // and sums run in f32; exp is expf (not __expf), so a kernel agrees with
 // its plain version to f32 rounding.
+//
+// max_kernel   <- tf2_gnn_tpu/ops/pair_attention.py:174
+//                 (_max_kernel_device, pallas_call :262; jnp twin
+//                 _max_kernel_jnp), forward plan, the "exact" stabiliser.
+//                 Per valid slot (a = source row u, b = target node t):
+//                   out[t, k] = max(out[t, k],
+//                                   leaky(ss[u, k] + ts[(u / vs) * vs + t, k]))
+//                 into an output the wrapper fills with NEG, so a target
+//                 with no in-edges reads NEG. The TPU kernel gathers both
+//                 score halves with one-hot matmuls and takes a masked
+//                 [BLK, E_C] max per head, carrying the output block across
+//                 its sequential grid. Here one thread block takes one plan
+//                 group (its chunks share one target block); each thread
+//                 takes slots in turn, computes the K logits in f32 and folds
+//                 them into a shared [128, K] max tile; the tile's entries
+//                 then go out with one global atomic max each. Both maxes are
+//                 the integer atomic of float_atomics.cuh, and a max does not
+//                 depend on order, so the kernel equals its plain version
+//                 exactly. Bound: bytes (the plan's 8 B a slot, the score
+//                 rows, the f32 output); 4 f32 operations a slot and head.
+//
+// agg_kernel   <- tf2_gnn_tpu/ops/pair_attention.py:484
+//                 (_agg_kernel_device, pallas_call :596; jnp twin
+//                 _agg_kernel_jnp), forward plan, the hk-major aggregation
+//                 that RGAT takes where K > 4 * ceil(H / 128) or head_dim + 1
+//                 > 128. Per valid slot, with e = expd[:, s] (B8's [K, slots]
+//                 output; the TPU streams its transpose, [slots, 16]):
+//                   weighted[t, hd*K + k] += e[k] * table[u, hd*K + k],
+//                   denom[t, k] += e[k].
+//                 B3's structure: one thread block per (plan group, 64-column
+//                 tile) gathers its valid slots' row segments warp-wide, adds
+//                 e-scaled values into a shared [128, 64] f32 tile with
+//                 shared atomics and adds the touched rows into the zeroed
+//                 output with global atomics. K divides 32 and 64, so lane l
+//                 always holds columns of head l % K and reads one e per
+//                 slot. Only the blocks of column tile 0 sum the
+//                 denominators (lanes l < K, into a shared [128, K] tile), as
+//                 only the TPU's t == 0 sweep does; otherwise they would be
+//                 counted once a tile. The TPU kernel rounds each scaled
+//                 message to the table dtype before its one-hot product; like
+//                 the jnp twin, this kernel keeps it f32 (ROADMAP queue C).
+//                 Bound: bytes (the distinct table rows, the valid slots'
+//                 f32 expd, the plan, the f32 outputs); 2 operations a valid
+//                 slot and column.
 //
 // expd_kernel  <- tf2_gnn_tpu/ops/pair_attention.py:304
 //                 (_expd_kernel_device, pallas_call :427; jnp twin
@@ -56,11 +101,15 @@
 
 #include <cstdint>
 
+#include "float_atomics.cuh"
+
 namespace {
 
 constexpr int BLK = 128;
 constexpr int E_C = 128;
 constexpr float LEAKY_SLOPE = 0.2f;
+constexpr float NEG = -1e30f;   // the stabiliser of a target with no in-edges
+constexpr int MAX_HEADS = 32;
 constexpr int EXPD_THREADS = 256;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -110,6 +159,162 @@ __global__ void __launch_bounds__(EXPD_THREADS)
   for (int j = 0; j < k; ++j) {
     const float p = to_f32(ss[j]) + to_f32(ts[j]);
     out[j * slots + s] = expf(leaky(p) - mx[j]);
+  }
+}
+
+template <typename S>
+__global__ void __launch_bounds__(THREADS)
+    max_kernel(const S* __restrict__ scores, int64_t rows, int v, int k,
+               const int32_t* __restrict__ rel_src,
+               const int32_t* __restrict__ rel_tgt,
+               const int32_t* __restrict__ src_blk,
+               const int32_t* __restrict__ grp_tgt, int group, int vs,
+               float* __restrict__ out) {
+  __shared__ float tile[BLK * MAX_HEADS];
+  for (int i = threadIdx.x; i < BLK * k; i += THREADS) tile[i] = NEG;
+  __syncthreads();
+
+  const int num_slots = group * E_C;
+  const int64_t slot0 = static_cast<int64_t>(blockIdx.x) * num_slots;
+  const int64_t t_base = static_cast<int64_t>(grp_tgt[blockIdx.x]) * BLK;
+  for (int i = threadIdx.x; i < num_slots; i += THREADS) {
+    const int64_t s = slot0 + i;
+    const int rs = rel_src[s];
+    const int rt = rel_tgt[s];
+    if (!(rs >= 0 && rs < BLK && rt >= 0 && rt < BLK)) continue;
+    const int64_t u = static_cast<int64_t>(src_blk[s / E_C]) * BLK + rs;
+    const S* ss = scores + clip(u, rows) * 2 * k;
+    const S* ts = scores + clip((u / vs) * vs + t_base + rt, rows) * 2 * k + k;
+    for (int j = 0; j < k; ++j) {
+      atomic_max_f32(&tile[rt * k + j], leaky(to_f32(ss[j]) + to_f32(ts[j])));
+    }
+  }
+  __syncthreads();
+
+  // Entries still at the NEG fill leave the output's NEG as it is.
+  for (int i = threadIdx.x; i < BLK * k; i += THREADS) {
+    const int64_t t = t_base + i / k;
+    const float m = tile[i];
+    if (t < v && __float_as_int(m) != __float_as_int(NEG)) {
+      atomic_max_f32(&out[t * k + i % k], m);
+    }
+  }
+}
+
+struct AggArgs {
+  const void* table;      // [rows, h] stream dtype, hk-major heads
+  int64_t rows;
+  int h, k, v;
+  const float* expd;      // [k, slots]
+  int64_t slots;
+  const int32_t* rel_src;
+  const int32_t* rel_tgt;
+  const int32_t* src_blk;
+  const int32_t* grp_tgt;
+  int group;
+  float* denom;           // [v, k], zeroed
+  float* weighted;        // [v, h], zeroed
+};
+
+// Dynamic shared memory: the weighted tile, the denominator tile and the
+// touched-row flags.
+__host__ __device__ inline size_t agg_smem_bytes(int k) {
+  return (static_cast<size_t>(BLK) * HT + BLK * k) * sizeof(float)
+         + BLK * sizeof(int);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) agg_kernel(AggArgs a) {
+  extern __shared__ float smem[];
+  const int k = a.k;
+  float* acc = smem;                                     // [BLK, HT]
+  float* den = acc + BLK * HT;                           // [BLK, k]
+  int* touched = reinterpret_cast<int*>(den + BLK * k);  // [BLK]
+
+  const T* __restrict__ table = static_cast<const T*>(a.table);
+  const int g = blockIdx.x;
+  const int col0 = blockIdx.y * HT;
+  const bool with_denom = blockIdx.y == 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // Column col0 + lane + 32 * c belongs to head lane % k (k divides 32).
+  const float* __restrict__ e_row = a.expd + (lane % k) * a.slots;
+
+  for (int i = threadIdx.x; i < BLK * HT; i += THREADS) acc[i] = 0.0f;
+  for (int i = threadIdx.x; i < BLK * k; i += THREADS) den[i] = 0.0f;
+  for (int i = threadIdx.x; i < BLK; i += THREADS) touched[i] = 0;
+  __syncthreads();
+
+  const int num_slots = a.group * E_C;
+  const int64_t slot0 = static_cast<int64_t>(g) * num_slots;
+  for (int base = warp * 32; base < num_slots; base += WARPS * 32) {
+    const int64_t s = slot0 + base + lane;
+    const int rs = a.rel_src[s];
+    const int rt = a.rel_tgt[s];
+    const bool valid = rs >= 0 && rs < BLK && rt >= 0 && rt < BLK;
+    const int64_t row = clip(
+        static_cast<int64_t>(a.src_blk[s / E_C]) * BLK + (valid ? rs : 0),
+        a.rows);
+    if (valid) touched[rt] = 1;
+    unsigned mask = __ballot_sync(FULL, valid);
+    while (mask) {
+      int64_t r[UNROLL];
+      int t[UNROLL];
+      float e[UNROLL];
+      bool ok[UNROLL];
+#pragma unroll
+      for (int q = 0; q < UNROLL; ++q) {
+        ok[q] = mask != 0;
+        const int j = ok[q] ? __ffs(mask) - 1 : 0;
+        if (ok[q]) mask &= mask - 1;
+        r[q] = __shfl_sync(FULL, row, j);
+        t[q] = __shfl_sync(FULL, rt, j);
+        e[q] = ok[q] ? e_row[slot0 + base + j] : 0.0f;
+      }
+      float val[UNROLL][COLS_PER_LANE];
+#pragma unroll
+      for (int q = 0; q < UNROLL; ++q) {
+#pragma unroll
+        for (int c = 0; c < COLS_PER_LANE; ++c) {
+          const int col = col0 + lane + 32 * c;
+          val[q][c] = (ok[q] && col < a.h) ? to_f32(table[r[q] * a.h + col])
+                                           : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < UNROLL; ++q) {
+        if (!ok[q]) continue;
+#pragma unroll
+        for (int c = 0; c < COLS_PER_LANE; ++c) {
+          const int col = lane + 32 * c;
+          if (col0 + col < a.h) {
+            atomicAdd(&acc[t[q] * HT + col], val[q][c] * e[q]);
+          }
+        }
+        // Lane l < k holds head l's e.
+        if (with_denom && lane < k) atomicAdd(&den[t[q] * k + lane], e[q]);
+      }
+    }
+  }
+  __syncthreads();
+
+  const int64_t out_base = static_cast<int64_t>(a.grp_tgt[g]) * BLK;
+  for (int i = threadIdx.x; i < BLK * HT; i += THREADS) {
+    const int rr = i / HT;
+    const int col = col0 + i % HT;
+    const int64_t orow = out_base + rr;
+    if (touched[rr] && col < a.h && orow < a.v) {
+      atomicAdd(&a.weighted[orow * a.h + col], acc[i]);
+    }
+  }
+  if (with_denom) {
+    for (int i = threadIdx.x; i < BLK * k; i += THREADS) {
+      const int rr = i / k;
+      const int64_t orow = out_base + rr;
+      if (touched[rr] && orow < a.v) {
+        atomicAdd(&a.denom[orow * k + i % k], den[i]);
+      }
+    }
   }
 }
 
@@ -316,6 +521,66 @@ extern "C" int pair_attention_expd_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pair_attention_max_launch(
+    int device, int dtype, const void* scores, int64_t rows, int v, int k,
+    const int32_t* rel_src, const int32_t* rel_tgt, const int32_t* src_blk,
+    const int32_t* grp_tgt, int group, int num_groups, int vs, float* out,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!heads_ok(k) || group <= 0 || num_groups <= 0 || rows <= 0 || v <= 0
+      || vs <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_F32) {
+    max_kernel<float><<<num_groups, THREADS, 0, s>>>(
+        static_cast<const float*>(scores), rows, v, k, rel_src, rel_tgt,
+        src_blk, grp_tgt, group, vs, out);
+  } else if (dtype == DTYPE_BF16) {
+    max_kernel<__nv_bfloat16><<<num_groups, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(scores), rows, v, k, rel_src,
+        rel_tgt, src_blk, grp_tgt, group, vs, out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int launch_agg(const AggArgs& a, int num_groups, cudaStream_t s) {
+  const size_t smem = agg_smem_bytes(a.k);
+  cudaError_t err = cudaFuncSetAttribute(
+      agg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(num_groups),
+                  static_cast<unsigned>((a.h + HT - 1) / HT));
+  agg_kernel<T><<<grid, THREADS, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pair_attention_agg_launch(
+    int device, int dtype, const void* table, int64_t rows, int h, int k,
+    const float* expd, int64_t slots, const int32_t* rel_src,
+    const int32_t* rel_tgt, const int32_t* src_blk, const int32_t* grp_tgt,
+    int group, int num_groups, int v, float* denom, float* weighted,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!heads_ok(k) || h <= 0 || h % k || group <= 0 || num_groups <= 0
+      || rows <= 0 || v <= 0
+      || slots != static_cast<int64_t>(num_groups) * group * E_C) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const AggArgs a{table, rows, h, k, v, expd, slots, rel_src, rel_tgt,
+                  src_blk, grp_tgt, group, denom, weighted};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_F32) return launch_agg<float>(a, num_groups, s);
+  if (dtype == DTYPE_BF16) return launch_agg<__nv_bfloat16>(a, num_groups, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>

@@ -73,6 +73,8 @@
 
 #include <cstdint>
 
+#include "float_atomics.cuh"
+
 namespace {
 
 constexpr int CHUNK = 512;   // slots per chunk
@@ -84,17 +86,6 @@ enum Mode : int { kSum = 0, kScaled = 1, kMax = 2, kAttention = 3 };
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-// Float max as an integer atomic: values with the sign bit clear order like
-// their int bits, values with it set order inversely to their unsigned bits;
-// the -inf fill (0xff800000) is below every other value both ways.
-__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
-  if (__float_as_int(v) >= 0) {
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-  } else {
-    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
-  }
 }
 
 struct Args {

@@ -13,13 +13,16 @@ The padding contract is the JAX package's, unchanged:
 ``GraphBatch`` here is a plain dataclass holding only the fields the RGCN,
 RGAT and GNN_Edge_MLP node-classification paths read; the SPMD and halo
 fields are not ported yet. ``.to(device)`` moves every array field to a
-device and builds, once per batch, the device forms of the host plans: the
-concatenated streamed plan of the per-type plans (``pair_stream_joint``),
-the merged pair plan (``pair_merged``) and the scatter plan
-(``scatter_merged``).
+device and builds, once per batch, the device forms of the merged pair plan
+(``pair_merged``) and the scatter plan (``scatter_merged``). The per-type
+plans have two device forms, each read by other models: the concatenated
+streamed plan (``pair_stream_joint``, RGCN and GNN_Edge_MLP) and the plans
+one by one (``pair_typed``, RGAT). Each is built and moved at its first
+read and kept with the batch, so a batch moves only the form its model
+reads.
 """
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,8 +59,12 @@ class GraphBatch:
     * ``num_edges``: int32 [L] (real counts per type)
     * ``pair_plans_typed``: one 13-array ``PairPlans.astuple()`` per edge
       type (ops/pair_spmm.py), or None; host (numpy) plan data
-    * ``pair_stream_joint``: the per-type plans concatenated into the
-      streamed layout on the batch's device (``.to`` builds it)
+    * ``pair_stream_joint`` (property): the per-type plans concatenated
+      into the streamed layout on the batch's device, or None
+    * ``pair_typed`` (property): the per-type plans as they are, one
+      ``MergedPlan`` per type (``out_rows`` V, sources in that type's
+      [V]-row slab) on the batch's device, as RGAT's per-type attention
+      reads them, or None
     * ``pair_plans``: one merged 13-array ``PairPlans.astuple()`` over all
       edge types (sources in the stacked ``l * V + u`` row space), or None;
       host (numpy) plan data. ``pair_targets_merged``: it was built with
@@ -82,12 +89,15 @@ class GraphBatch:
     num_graphs: int
     num_graphs_padded: int
     pair_plans_typed: Optional[Tuple[Tuple[object, ...], ...]] = None
-    pair_stream_joint: Optional[StreamJointPlan] = None
     pair_plans: Optional[Tuple[object, ...]] = None
     pair_targets_merged: bool = False
     pair_merged: Optional[MergedPlan] = None
     scatter_plans: Optional[Tuple[object, ...]] = None
     scatter_merged: Optional[ScatterPlan] = None
+    # The per-type plans' device forms, by name, built at first read; a
+    # replaced or moved batch starts with none.
+    _typed_forms: Dict[str, object] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def num_nodes_padded(self) -> int:
@@ -105,19 +115,36 @@ class GraphBatch:
         return (torch.arange(self.num_nodes_padded, device=device)
                 < self.num_nodes).to(torch.float32)
 
+    def _typed_form(self, name: str, build):
+        if (self.pair_plans_typed is None
+                or not isinstance(self.node_features, torch.Tensor)):
+            return None
+        if name not in self._typed_forms:
+            self._typed_forms[name] = build(self.node_features.device)
+        return self._typed_forms[name]
+
+    @property
+    def pair_stream_joint(self) -> Optional[StreamJointPlan]:
+        v = self.num_nodes_padded
+        return self._typed_form("joint", lambda dev: stream_joint_plan(
+            self.pair_plans_typed, v, v).to(dev))
+
+    @property
+    def pair_typed(self) -> Optional[Tuple[MergedPlan, ...]]:
+        v = self.num_nodes_padded
+        return self._typed_form("typed", lambda dev: tuple(
+            MergedPlan(*p, out_rows=v).to(dev)
+            for p in self.pair_plans_typed))
+
     def replace(self, **changes) -> "GraphBatch":
         return dataclasses.replace(self, **changes)
 
     def to(self, device="cuda") -> "GraphBatch":
         """Every array field as a tensor on ``device``; the host plans stay
-        host data and their device forms move instead (the per-type plans
-        as their streamed concatenation, the merged plans as a
-        ``MergedPlan``, the scatter plans as a ``ScatterPlan``)."""
+        host data and their device forms move instead (the merged plans as
+        a ``MergedPlan``, the scatter plans as a ``ScatterPlan``; the
+        per-type plans' forms at their first read)."""
         dev = resolve_device(device)
-        joint = self.pair_stream_joint
-        if joint is None and self.pair_plans_typed is not None:
-            v = self.num_nodes_padded
-            joint = stream_joint_plan(self.pair_plans_typed, v, v)
         merged = self.pair_merged
         if merged is None and self.pair_plans is not None:
             v = self.num_nodes_padded
@@ -137,7 +164,6 @@ class GraphBatch:
             edge_targets=tuple(as_tensor(t, dev) for t in self.edge_targets),
             node_to_graph=as_tensor(self.node_to_graph, dev),
             num_edges=as_tensor(self.num_edges, dev),
-            pair_stream_joint=None if joint is None else joint.to(dev),
             pair_merged=None if merged is None else merged.to(dev),
             scatter_merged=None if scatter is None else scatter.to(dev),
         )

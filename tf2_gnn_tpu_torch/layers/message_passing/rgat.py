@@ -1,22 +1,24 @@
 """RGAT message passing, relational multi-head graph attention (port of
 ``tf2_gnn_tpu/layers/message_passing/rgat.py``: the single-chip
-pair-attention route over merged plans and the sorted fallback over
-scatter plans).
+pair-attention route over merged or per-type plans, under either softmax
+stabiliser, and the sorted fallback over scatter plans).
 
 Per edge type l and head k the attention logit of an edge u -> v is
 ``LeakyReLU(a_l_k . concat(W_l h_u, W_l h_v))``, normalised by a softmax
 per target over all edge types jointly; the message is the head's slice of
 ``W_l h_u`` and heads are concatenated. Since ``a . concat(s, t) = a_src . s
 + a_tgt . t``, the logits come from two node-space score tables, and the
-pair-attention op (``ops/pair_attention.py``) does the rest on the plan.
-Where the pair-attention gate fails or the batch has no pair plans, the
-sorted fallback runs on the batch's scatter plan (``ops/sorted_spmm.py``):
-gathers of the source bundle and the target scores, the exact per-target
-max (B15) and one pass for the denominators and weighted sums (B14).
+pair-attention op (``ops/pair_attention.py``) does the rest on the plan: a
+merged plan takes ``pair_attention``, per-type plans (``pair_plans_typed``,
+on the device as ``GraphBatch.pair_typed``) take ``pair_attention_typed``,
+one launch of each kernel per edge type. Where the pair-attention gate
+fails or the batch has no pair plans, the sorted fallback runs on the
+batch's scatter plan (``ops/sorted_spmm.py``): gathers of the source
+bundle and the target scores, the exact per-target max (B15) and one pass
+for the denominators and weighted sums (B14).
 
-Not ported, and raising: the per-type route (``pair_plans_typed`` only,
-``pair_attention_typed``) and batches outside the pair path without
-scatter plans (the reference's unfused segment path).
+Not ported, and raising: batches outside the pair path without scatter
+plans (the reference's unfused segment path).
 """
 from typing import Any, Dict
 
@@ -65,7 +67,7 @@ class RGAT(MessagePassing):
                              f"num_heads {num_heads}.")
         self.num_heads = num_heads
         # "bound": the node-space upper bound on the per-(target, head) max
-        # logit (the reference's default); "exact" needs the max kernel.
+        # logit (the reference's default); "exact": the max kernel (B11).
         # The sorted route always takes the exact max (B15).
         self.attention_stabiliser = attention_stabiliser
         self.edge_weights = TypedLinear(num_edge_types, input_dim, hidden_dim,
@@ -107,13 +109,13 @@ class RGAT(MessagePassing):
             self.edge_dtype, src_space=v)
 
     def _check_batch(self, batch: GraphBatch) -> None:
-        if (batch.pair_merged is None and batch.pair_plans_typed is None
+        if (batch.pair_merged is None and batch.pair_typed is None
                 and batch.scatter_merged is None):
             raise NotImplementedError(
-                "this batch has neither merged pair plans nor scatter plans "
-                "on its device: build it with pair_plans or scatter_plans "
-                "and move it with .to(device). The unfused segment path is "
-                "not ported.")
+                "this batch has neither merged pair plans, per-type pair "
+                "plans nor scatter plans on its device: build it with "
+                "pair_plans, pair_plans_typed or scatter_plans and move it "
+                "with .to(device). The unfused segment path is not ported.")
 
     def _pair_attention_aggregate(self, node_states: torch.Tensor,
                                   batch: GraphBatch) -> torch.Tensor:
@@ -153,8 +155,10 @@ class RGAT(MessagePassing):
                 table_hk, scores, batch.pair_merged, v, k_pad,
                 self.attention_stabiliser, vs if vs != v else None)
         else:
+            # Row-split form: one launch per edge type, the stabiliser
+            # spanning all of them.
             denom, weighted = pair_attention_typed(
-                table_hk, scores, batch.pair_plans_typed, v, k_pad,
+                table_hk, scores, batch.pair_typed, v, k_pad,
                 self.attention_stabiliser)
         # Where-guarded division, not + eps: the reference's softmax has no
         # epsilon, and targets without in-edges contribute exactly 0.

@@ -5,7 +5,7 @@ with a plain C interface, loaded with ``ctypes`` at first use. Nothing here
 runs at import time, so the CPU test suite imports every module without a
 CUDA toolkit. Libraries go under ``build/tf2_gnn_tpu_torch/`` beside the
 package (the checkout's git-ignored ``build/``), named by a hash of the
-source and flags so an edited source rebuilds. ``build_all`` starts one
+source, the shared headers and the flags, so an edited source rebuilds. ``build_all`` starts one
 ``nvcc`` per source, all at once.
 """
 import ctypes
@@ -52,7 +52,10 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    text = (CSRC_DIR / source).read_bytes()
+    """The library's path, named by a hash of the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    text = (CSRC_DIR / source).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{Path(source).stem}_{digest[:16]}.so"
 

@@ -1,6 +1,7 @@
-"""Relational multi-head attention on the merged block-pair plans (port of
-``tf2_gnn_tpu/ops/pair_attention.py``, the merged-plan route with the
-``"bound"`` stabiliser).
+"""Relational multi-head attention on the block-pair plans (port of
+``tf2_gnn_tpu/ops/pair_attention.py``: the merged-plan form
+``pair_attention`` and the per-type form ``pair_attention_typed``, under
+either softmax stabiliser).
 
 ``pair_attention`` computes, per target node v and head k,
 
@@ -13,20 +14,22 @@ softmax stabiliser per (target, head) over all edge types jointly. Messages
 use the HK-MAJOR head layout (column ``hd*K + k``). The caller divides and
 re-layouts heads.
 
-The forward runs the expd kernel (B8, ``pair_attention_expd``) once and the
-merged-plan SpMM (B3, ``pair_spmm``) once per head on a head-major table;
-the backward runs the fused backward kernel (B9,
-``pair_attention_bwd_fused``) once over the backward plan. All three are
-hand-written CUDA (``csrc/pair_attention.cu`` and ``csrc/pair_stream.cu``).
-Each wrapper runs its plain PyTorch version on a CPU tensor and launches
-its kernel on a CUDA tensor, or raises.
-
-Not ported, and raising ``NotImplementedError``: the exact max stabiliser
-(B11), the hk-major aggregation kernel (B10) for heads wider than a tile or
-more heads than the head-major route takes, and the per-type form
-``pair_attention_typed``.
+The ``"bound"`` stabiliser is a dense node-space bound; ``"exact"`` runs
+the max kernel (B11, ``pair_attention_max``) over the forward plan. The
+forward then runs the expd kernel (B8, ``pair_attention_expd``) once, and
+either the merged-plan SpMM (B3, ``pair_spmm``) once per head on a
+head-major table or, for heads wider than a tile or more heads than that
+route takes, the hk-major aggregation kernel (B10, ``pair_attention_agg``)
+once. The backward runs the fused backward kernel (B9,
+``pair_attention_bwd_fused``) once over the backward plan. The per-type
+form launches each of these once per edge type on that type's ``[V]``-row
+slab, with one stabiliser over all types. All five kernels are hand-written
+CUDA (``csrc/pair_attention.cu`` and ``csrc/pair_stream.cu``). Each wrapper
+runs its plain PyTorch version on a CPU tensor and launches its kernel on a
+CUDA tensor, or raises.
 """
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -159,12 +162,13 @@ def _stabilise(m, stream_dtype):
 
 
 # ---------------------------------------------------------------------------
-# The two kernels of csrc/pair_attention.cu, their plain versions and
+# The four kernels of csrc/pair_attention.cu, their plain versions and
 # wrappers.
 
 # Launch counts of the CUDA kernels of this module: each wrapper adds one
 # where it launches its kernel, and nowhere else.
-LAUNCHES = {"pair_attention_expd": 0, "pair_attention_bwd_fused": 0}
+LAUNCHES = {"pair_attention_expd": 0, "pair_attention_bwd_fused": 0,
+            "pair_attention_max": 0, "pair_attention_agg": 0}
 
 _SOURCE = "pair_attention.cu"
 
@@ -172,6 +176,56 @@ _SOURCE = "pair_attention.cu"
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _segment_max(values, seg, num_segments: int):
+    """[num_segments, K] max of ``values`` rows per segment id; ids at or
+    above ``num_segments`` are dropped and empty segments read NEG (the
+    reference's ``segment_max`` followed by ``jnp.maximum(out, NEG)``)."""
+    seg = torch.where(seg < num_segments, seg,
+                      torch.full_like(seg, num_segments))
+    out = values.new_full((num_segments + 1, values.shape[1]), -torch.inf)
+    out.scatter_reduce_(0, seg[:, None].expand(values.shape), values, "amax")
+    return out[:num_segments].clamp_min(NEG)
+
+
+def pair_attention_max_plain(scores, rel_src, rel_tgt, src_blk, grp_tgt,
+                             num_nodes: int, num_heads: int,
+                             src_space: int = None):
+    """Plain PyTorch version of B11, a mirror of the reference's
+    ``_max_kernel_jnp`` with its interpret path's ``maximum(out, NEG)``:
+    f32 ``[V, K]``, the per-(target, head) max logit over the forward
+    plan's valid slots, NEG where a target has none."""
+    del num_heads  # the scores' width, 2K
+    v = num_nodes
+    _, logit, tgt, _, valid = _slot_logits(
+        scores, rel_src, rel_tgt, src_blk, grp_tgt, v, swap=False,
+        src_space=src_space)
+    logit = torch.where(valid[:, None], logit, torch.full_like(logit, NEG))
+    seg = torch.where(valid, tgt, torch.full_like(tgt, v))
+    return _segment_max(logit, seg, v)
+
+
+def pair_attention_agg_plain(table, expd, rel_src, rel_tgt, src_blk, grp_tgt,
+                             num_nodes: int, num_heads: int):
+    """Plain PyTorch version of B10, a mirror of the reference's
+    ``_agg_kernel_jnp`` on the port's ``[K, slots]`` expd layout (the
+    reference's is its transpose): (denom [V, K], weighted [V, H]) in f32,
+
+        denom[t, k] = sum of expd[k, s],
+        weighted[t, hd*K + k] = sum of expd[k, s] * table[u, hd*K + k]
+
+    over the valid slots s = (u -> t)."""
+    v, k = num_nodes, num_heads
+    srcabs, tgtabs, valid = slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt)
+    head_dim = table.shape[1] // k
+    msgs = _take(table, srcabs).float()
+    e = expd.t() * valid[:, None]
+    seg = torch.where(valid & (tgtabs < v), tgtabs, torch.full_like(tgtabs, v))
+    weighted = msgs.new_zeros((v + 1, table.shape[1])).index_add_(
+        0, seg, msgs * e.repeat(1, head_dim))[:v]
+    denom = e.new_zeros((v + 1, k)).index_add_(0, seg, e)[:v]
+    return denom, weighted
 
 
 def pair_attention_expd_plain(scores, maxes, rel_src, rel_tgt, src_blk,
@@ -369,6 +423,91 @@ def pair_attention_bwd_fused(table, d_weighted, d_denom, scores, maxes,
     return d_ss, d_ts, d_table
 
 
+def pair_attention_max(scores, rel_src, rel_tgt, src_blk, grp_tgt,
+                       num_nodes: int, num_heads: int,
+                       src_space: int = None):
+    """B11: the per-(target, head) max logit over the forward plan's valid
+    slots, f32 ``[V, K]``, NEG on targets without in-edges. ``scores``
+    [rows, 2K] f32 or bf16."""
+    if scores.device.type == "cpu":
+        return pair_attention_max_plain(scores, rel_src, rel_tgt, src_blk,
+                                        grp_tgt, num_nodes, num_heads,
+                                        src_space)
+    if scores.device.type != "cuda":
+        raise TypeError(f"pair_attention_max: unsupported device "
+                        f"{scores.device}")
+    from .cuda_build import load_library
+
+    lib = load_library(_SOURCE)
+    entry = "pair_attention_max_launch"
+    k, v = num_heads, num_nodes
+    vs = v if src_space is None else src_space
+    _check(entry, scores.device, scores=(scores, tuple(_DTYPE_CODES)))
+    _heads_checks(entry, k, scores)
+    group, num_groups = _plan_checks(entry, scores.device, rel_src, rel_tgt,
+                                     src_blk, grp_tgt)
+    if v <= 0 or vs <= 0:
+        raise ValueError(f"{entry}: needs num_nodes and src_space > 0")
+    out = torch.full((v, k), NEG, dtype=torch.float32, device=scores.device)
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    _call(lib, entry, [i, i, p, i64, i, i, p, p, p, p, i, i, i, p, p],
+          scores.device.index or 0, _DTYPE_CODES[scores.dtype],
+          scores.data_ptr(), scores.shape[0], v, k, rel_src.data_ptr(),
+          rel_tgt.data_ptr(), src_blk.data_ptr(), grp_tgt.data_ptr(), group,
+          num_groups, vs, out.data_ptr(),
+          torch.cuda.current_stream(scores.device).cuda_stream)
+    LAUNCHES["pair_attention_max"] += 1
+    return out
+
+
+def pair_attention_agg(table, expd, rel_src, rel_tgt, src_blk, grp_tgt,
+                       num_nodes: int, num_heads: int):
+    """B10: (denom [V, K], weighted [V, H]) in f32, the softmax denominators
+    and expd-weighted hk-major message sums over the forward plan's valid
+    slots (see ``pair_attention_agg_plain``). ``table`` [rows, H] f32 or
+    bf16, ``expd`` B8's f32 ``[K, slots]``."""
+    if table.device.type == "cpu":
+        return pair_attention_agg_plain(table, expd, rel_src, rel_tgt,
+                                        src_blk, grp_tgt, num_nodes,
+                                        num_heads)
+    if table.device.type != "cuda":
+        raise TypeError(f"pair_attention_agg: unsupported device "
+                        f"{table.device}")
+    from .cuda_build import load_library
+
+    lib = load_library(_SOURCE)
+    entry = "pair_attention_agg_launch"
+    k, v = num_heads, num_nodes
+    _check(entry, table.device, table=(table, tuple(_DTYPE_CODES)),
+           expd=(expd, (torch.float32,)))
+    group, num_groups = _plan_checks(entry, table.device, rel_src, rel_tgt,
+                                     src_blk, grp_tgt)
+    slots = rel_src.numel()
+    if table.dim() != 2:
+        raise ValueError(f"{entry}: table must be 2-D")
+    rows, h = table.shape
+    if (k <= 0 or 32 % k or h % k or tuple(expd.shape) != (k, slots)
+            or v <= 0):
+        raise ValueError(f"{entry}: needs 32 % num_heads == 0, a table "
+                         f"width that num_heads divides and expd of "
+                         f"[{k}, {slots}], got num_heads={k}, table of "
+                         f"{tuple(table.shape)}, expd of "
+                         f"{tuple(expd.shape)}")
+    dev = table.device
+    denom = torch.zeros((v, k), dtype=torch.float32, device=dev)
+    weighted = torch.zeros((v, h), dtype=torch.float32, device=dev)
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    _call(lib, entry, [i, i, p, i64, i, i, p, i64, p, p, p, p, i, i, i, p, p,
+                       p],
+          dev.index or 0, _DTYPE_CODES[table.dtype], table.data_ptr(), rows,
+          h, k, expd.data_ptr(), slots, rel_src.data_ptr(),
+          rel_tgt.data_ptr(), src_blk.data_ptr(), grp_tgt.data_ptr(), group,
+          num_groups, v, denom.data_ptr(), weighted.data_ptr(),
+          torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["pair_attention_agg"] += 1
+    return denom, weighted
+
+
 # ---------------------------------------------------------------------------
 # The attention op.
 
@@ -393,20 +532,39 @@ def _headmajor_sums(table, expd_f, fwd_plan, v: int, k: int):
     return denom, weighted
 
 
+def _launch_max(scores, plan: MergedPlan, v: int, k: int,
+                src_space: Optional[int]):
+    """The raw per-(target, head) max of one launch, f32 [V, K] with NEG
+    on empty targets: B11 over the plan's slots and the overflow edges in
+    plain torch."""
+    m_k = pair_attention_max(scores, *plan.fwd, v, k, src_space=src_space)
+    if plan.ovf_src.shape[0] == 0:  # no spilled edges (the common case)
+        return m_k
+    ovf_tgt = plan.ovf_tgt.long()
+    _, l_o, valid_o = _overflow_logits(scores, plan.ovf_src, ovf_tgt, v,
+                                       src_space)
+    seg_o = torch.where(valid_o, ovf_tgt, torch.full_like(ovf_tgt, v))
+    m_o = _segment_max(
+        torch.where(valid_o[:, None], l_o, torch.full_like(l_o, NEG)), seg_o,
+        v)
+    return torch.maximum(m_k, m_o)
+
+
 def _launch_sums(table, scores, m_safe, plan: MergedPlan, v: int, k: int,
                  src_space: Optional[int]):
     """(denom, weighted, expd_o, slope_o) under a given stabiliser: B8,
-    the head-major B3 launches, and the overflow edges in plain torch."""
+    then the head-major B3 launches or B10, as the reference routes them
+    (its measured TPU cost model: head-major when its K sweeps beat B10's
+    feature-tile sweeps with a factor-4 margin), and the overflow edges in
+    plain torch."""
     head_dim = table.shape[1] // k
     h_tiles = max(-(-table.shape[1] // TILE), 1)
-    if not (head_dim + 1 <= TILE and k <= 4 * h_tiles):
-        raise NotImplementedError(
-            f"pair attention with head_dim {head_dim} and {k} heads takes "
-            "the hk-major aggregation kernel (B10, _agg_kernel_device), "
-            "which is not ported.")
     expd_f = pair_attention_expd(scores, m_safe, *plan.fwd, v, k,
                                  src_space=src_space)
-    denom, weighted = _headmajor_sums(table, expd_f, plan.fwd, v, k)
+    if head_dim + 1 <= TILE and k <= 4 * h_tiles:
+        denom, weighted = _headmajor_sums(table, expd_f, plan.fwd, v, k)
+    else:
+        denom, weighted = pair_attention_agg(table, expd_f, *plan.fwd, v, k)
     if plan.ovf_src.shape[0] == 0:  # no spilled edges (the common case)
         zero_o = table.new_zeros((0, k), dtype=torch.float32)
         return denom, weighted, zero_o, zero_o
@@ -457,47 +615,73 @@ def _launch_bwd(table, scores, m_safe, d_denom, d_weighted, dw_stream,
     return d_ss, d_ts, d_table
 
 
+def _check_stabiliser(stabiliser: str) -> None:
+    if stabiliser not in ("bound", "exact"):
+        raise ValueError(f"unknown stabiliser {stabiliser!r}; expected "
+                         "'bound' or 'exact'")
+
+
 class PairAttention(torch.autograd.Function):
-    """``pair_attention`` as an autograd op: the forward saves the rounded
-    stabiliser and the overflow edges' expd and slope, the backward runs
-    B9. Gradients come back in the input dtypes (bf16 inputs get bf16
+    """``pair_attention`` and ``pair_attention_typed`` as one autograd op
+    over ``plans``: one merged plan over the whole tables, or one plan per
+    edge type over the type's [V]-row slab (the reference's ``_pat_fwd`` /
+    ``_pat_bwd``). The forward takes one stabiliser for all plans (the
+    bound over the stacked scores, or the elementwise max of the B11
+    launches), sums B8 and B3 or B10 over the plans, and saves the rounded
+    stabiliser and the overflow edges' expd and slope; the backward runs B9
+    per plan with the same full cotangents and stacks the gradients along
+    rows. Gradients come back in the input dtypes (bf16 inputs get bf16
     gradients, as the reference's custom VJP returns them), so callers cast
     to the stream dtype OUTSIDE the op."""
 
     @staticmethod
-    def forward(ctx, table_hk, scores, plan: MergedPlan, num_nodes: int,
+    def forward(ctx, table_hk, scores, plans, num_nodes: int,
                 num_heads: int, stabiliser: str, src_space: Optional[int]):
         v, k = num_nodes, num_heads
-        if stabiliser == "bound":
-            m = _bound_stabiliser(scores, v, k, src_space)
-        elif stabiliser == "exact":
-            raise NotImplementedError(
-                "stabiliser='exact' needs the per-(target, head) max kernel "
-                "(B11, _max_kernel_device), which is not ported; use "
-                "'bound'.")
-        else:
-            raise ValueError(f"unknown stabiliser {stabiliser!r}")
-        m_safe = _stabilise(m, table_hk.dtype)
+        _check_stabiliser(stabiliser)
         table = table_hk.contiguous()
         scores = scores.contiguous()
-        denom, weighted, expd_o, slope_o = _launch_sums(
-            table, scores, m_safe, plan, v, k, src_space)
-        ctx.save_for_backward(table, scores, m_safe, expd_o, slope_o)
-        ctx.plan, ctx.v, ctx.k, ctx.src_space = plan, v, k, src_space
+        tables = table.reshape(len(plans), -1, table.shape[1])
+        sc = scores.reshape(len(plans), -1, scores.shape[1])
+        if stabiliser == "bound":
+            # The bound already spans all plans: one dense reduce over the
+            # stacked scores, no max kernel.
+            m = _bound_stabiliser(scores, v, k, src_space)
+        else:
+            m = functools.reduce(torch.maximum, (
+                _launch_max(s, plan, v, k, src_space)
+                for s, plan in zip(sc, plans)))
+        m_safe = _stabilise(m, table.dtype)
+        sums = [_launch_sums(t, s, m_safe, plan, v, k, src_space)
+                for t, s, plan in zip(tables, sc, plans)]
+        denom = functools.reduce(torch.add, (part[0] for part in sums))
+        weighted = functools.reduce(torch.add, (part[1] for part in sums))
+        ctx.save_for_backward(table, scores, m_safe,
+                              *(x for part in sums for x in part[2:]))
+        ctx.plans, ctx.v, ctx.k, ctx.src_space = plans, v, k, src_space
         return denom, weighted
 
     @staticmethod
     def backward(ctx, g_denom, g_weighted):
-        table, scores, m_safe, expd_o, slope_o = ctx.saved_tensors
+        table, scores, m_safe, *saved_o = ctx.saved_tensors
+        plans = ctx.plans
         d_denom = g_denom.float().contiguous()
         d_weighted = g_weighted.float()
         # The cotangent streams at the table dtype, as the forward messages.
         dw_stream = d_weighted.to(table.dtype).contiguous()
-        d_ss, d_ts, d_table = _launch_bwd(
-            table, scores, m_safe, d_denom, d_weighted, dw_stream, ctx.plan,
-            expd_o, slope_o, ctx.v, ctx.k, ctx.src_space)
-        d_scores = torch.cat([d_ss, d_ts], dim=1).to(scores.dtype)
-        return (d_table.to(table.dtype), d_scores, None, None, None, None,
+        tables = table.reshape(len(plans), -1, table.shape[1])
+        sc = scores.reshape(len(plans), -1, scores.shape[1])
+        d_tables, d_scores = [], []
+        for l, plan in enumerate(plans):
+            d_ss, d_ts, d_table = _launch_bwd(
+                tables[l], sc[l], m_safe, d_denom, d_weighted, dw_stream,
+                plan, saved_o[2 * l], saved_o[2 * l + 1], ctx.v, ctx.k,
+                ctx.src_space)
+            d_tables.append(d_table)
+            d_scores.append(torch.cat([d_ss, d_ts], dim=1))
+        rows = (lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs))
+        return (rows(d_tables).to(table.dtype),
+                rows(d_scores).to(scores.dtype), None, None, None, None,
                 None)
 
 
@@ -507,14 +691,26 @@ def pair_attention(table_hk, scores, plan: MergedPlan, num_nodes: int,
     """(denom [V, K], weighted [V, H]) of relational multi-head attention
     over a merged plan on the tables' device. ``table_hk`` [L*Vs, H]
     (hk-major heads) and ``scores`` [L*Vs, 2K] (source | target halves)
-    in the stream dtype; ``stabiliser`` must be ``"bound"``."""
-    return PairAttention.apply(table_hk, scores, plan, num_nodes, num_heads,
-                               stabiliser, src_space)
+    in the stream dtype; ``stabiliser`` is ``"bound"`` or ``"exact"``."""
+    return PairAttention.apply(table_hk, scores, (plan,), num_nodes,
+                               num_heads, stabiliser, src_space)
 
 
 def pair_attention_typed(table_hk, scores, plans_typed, num_nodes: int,
                          num_heads: int, stabiliser: str):
-    """The per-type (row-split) form of ``pair_attention``: not ported."""
-    raise NotImplementedError(
-        "pair_attention_typed (per-type RGAT over pair_plans_typed) is not "
-        "ported; build the batch with merged pair plans (pair_plans).")
+    """The per-type (row-split) form of ``pair_attention``: the same
+    (denom [V, K], weighted [V, H]) with one launch of each kernel per edge
+    type, over ``plans_typed``, one ``MergedPlan`` per type on the tables'
+    device (``GraphBatch.pair_typed``). ``table_hk`` [L*V, H] and
+    ``scores`` [L*V, 2K] in the stream dtype; the softmax still spans all
+    types jointly."""
+    plans = tuple(plans_typed)
+    v = num_nodes
+    if (not plans or table_hk.shape[0] != len(plans) * v
+            or scores.shape[0] != len(plans) * v):
+        raise ValueError(
+            f"pair_attention_typed: {len(plans)} per-type plans need "
+            f"tables of {len(plans)} * {v} rows, got {table_hk.shape[0]} "
+            f"and {scores.shape[0]}")
+    return PairAttention.apply(table_hk, scores, plans, num_nodes, num_heads,
+                               stabiliser, None)

@@ -16,7 +16,13 @@ sorted-scatter plan over all three types (``bench.py --no-pairs``).
 ``benchmarks/edge_mlp_probe.py``: the reference-default GNN_Edge_MLP.
 ``rgcn_sorted_params`` is the PPI_RGCN configuration that ``bench.py``
 times on the scatter-plan route (its ``"sorted"`` path).
+``shipped_params`` reads a shipped configuration file;
+``rgat_eight_heads_params`` is the shipped PPI_RGAT at the head layout of
+GAT's transductive models (8 heads of 8 features), a layout whose
+attention sums take the hk-major aggregation kernel.
 """
+import json
+from pathlib import Path
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -73,6 +79,37 @@ def rgcn_sorted_params() -> Dict[str, Any]:
                    "gnn_residual_every_num_layers": 10000,
                    "gnn_global_exchange_every_num_layers": 10000,
                    "learning_rate": 0.001})
+    return params
+
+
+def shipped_params(hypers_file: str, style: str) -> Dict[str, Any]:
+    """The shipped configuration ``harness/default_hypers/<hypers_file>``
+    over ``NodeMulticlassTask.get_default_hyperparameters(style)``, with
+    Adam at lr 1e-3."""
+    from .models.node_multiclass_task import NodeMulticlassTask
+
+    shipped = json.loads((Path(__file__).resolve().parent / "harness"
+                          / "default_hypers" / hypers_file).read_text())
+    params = NodeMulticlassTask.get_default_hyperparameters(style)
+    params.update(shipped["model_params"])
+    params["learning_rate"] = 0.001
+    return params
+
+
+def rgat_eight_heads_params() -> Dict[str, Any]:
+    """The shipped PPI_RGAT (``shipped_params("PPI_RGAT.json", "rgat")``:
+    3 layers, tanh, bf16 edge stream, input dropout 0.1, the ``"bound"``
+    stabiliser) at hidden 64 in K = 8 heads of F' = 8 features. That is
+    the head layout of GAT's transductive models (Veličković et al.,
+    "Graph Attention Networks", ICLR 2018, section 3.3: Cora, Citeseer,
+    Pubmed) carried over to PPI; GAT's own PPI model takes K = 4 heads of
+    F' = 256. With one 128-column tile and K = 8 > 4 heads a tile, the
+    reference routes its attention sums to the hk-major aggregation kernel
+    (``_agg_kernel_device``, B10) rather than one head-major SpMM a head;
+    GAT's PPI layout (head_dim + 1 > 128) would take B10 by its other
+    route."""
+    params = shipped_params("PPI_RGAT.json", "rgat")
+    params.update({"gnn_hidden_dim": 64, "gnn_num_heads": 8})
     return params
 
 
