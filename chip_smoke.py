@@ -81,8 +81,29 @@ Phases, each of which fails the run by raising:
       kernel of phases 2-5 launches;
    c. timings as in 2c; B11's library call is one ``scatter_reduce_`` of
       the per-slot logits; B10 has none (it would take K sparse products).
+7. The shipped QM9_RGCN on the QM9-shaped batch (``bench.py::measure_qm9``'s:
+   909 molecules, 5 edge types on per-type pair plans, V = 16384):
+   a. K2 and K1 against their plain versions at the QM9 plan's shapes
+      (bf16 [81920, 128] tables, a [16384, 128] cotangent);
+   b. ``workloads.qm9_shipped_params()`` at full width (8 layers, hidden
+      128, bf16 edge stream, RMSProp, clipping by value at 1.0): the eval
+      forward against the plain versions (K2 once per layer, nothing
+      else), then 5 train steps (per step K2 and K1 once per layer, no
+      other kernel);
+   c. timings as in 2c at this shape (logged; K1 and K2 keep their phase
+      2 entries), the train step, the eval forward and molecules/s.
+8. The design probes at their own shapes: P1 (8 chunks a group) and P2
+   (one) through B3's kernel on the probe's plans of the PPI edges merged
+   over 3 types (bf16 [24192, 384] table), against B3's plain version and
+   the probe's own ``np.add.at`` check; P3 in f32 and bf16 at 8192 x 128
+   x 64 shifts against its plain version. Their run is the phase's main
+   path: each launch count set to 0 just before each probe and read just
+   after. Timings as in 2c; the library calls are ``torch.sparse.mm`` of
+   the plan's CSR (P1, P2) and one ``torch.gather`` over all the shifted
+   index sets, then a sum (P3).
 
-The line before the last two is the JSON ``kernels`` line; then the card's
+The line before the last two is the JSON ``kernels`` line (all eighteen
+kernels); then the card's
 name and power limit (nvidia-smi); the last line is the JSON result. Exits
 non-zero, printing no result, without a card or without the repository
 beside this script.
@@ -124,6 +145,22 @@ LOSS_RTOL = 1e-3
 # (observed on an H100: 2e-5 of logits up to 8.8e-2, 1.8e-7 of the loss).
 TYPED_RGAT_ATOL, TYPED_RGAT_LOGIT_RTOL = 1e-4, 2.0 ** -8
 TYPED_RGAT_LOSS_RTOL = 1e-5
+# Phase 7's QM9_RGCN: 8 bf16-stream layers with LayerNorm, where an f32
+# sum in another order re-rounds a stream entry by a bf16 ulp, which the
+# later layers carry on and LayerNorm amplifies. On the CPU at 120
+# molecules (tests/test_torch_chip_smoke.py), K2's slots summed in a
+# random order move the outputs by 2.8e-3 of the largest |output| (4.0e-2
+# of 14.5) and the loss by 1.5e-4, and one edge type's scales doubled by
+# 0.74 of it; on an H100 the kernel's outputs were 4.9e-2 (of 14.2) from
+# the plain version's. So outputs within 1e-4 plus 2**-5 of the largest
+# |output|, the loss within 3e-3.
+QM9_ATOL, QM9_LOGIT_RTOL, QM9_LOSS_RTOL = 1e-4, 2.0 ** -5, 3e-3
+# Phase 8: the probe's shapes (dyngather_probe.py: R, C, shifts; the
+# pair probe's feature width) and its own check's limit on the
+# rel-max error (f32 sums in another order).
+DYNGATHER_SHAPE = (8192, 128, 64)
+PROBE_H = 384
+PROBE_CHECK_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -230,26 +267,29 @@ def model_from_params(params, device, num_types: int, name: str):
 
 def check_eval_forward(model, batch, labels, patches,
                        logit_rtol: float = 0.0, atol: float = MODEL_ATOL,
-                       loss_rtol: float = LOSS_RTOL) -> None:
+                       loss_rtol: float = LOSS_RTOL, shape=None) -> None:
     """One eval forward with the kernels against the same model with every
     wrapper in ``patches`` ((module, name, plain version)) replaced by its
-    plain version: logits within ``atol`` plus ``logit_rtol`` of the
-    largest plain |logit|, losses within ``loss_rtol``."""
+    plain version: logits (or a graph task's outputs, of ``shape``) within
+    ``atol`` plus ``logit_rtol`` of the largest plain |logit|, losses within
+    ``loss_rtol``."""
     import torch
 
     from tf2_gnn_tpu_torch.workloads import NUM_LABELS
 
-    v = batch.num_nodes_padded
+    shape = shape or (batch.num_nodes_padded, NUM_LABELS)
     with torch.no_grad():
-        (logits,) = model(batch, False)
+        out = model(batch, False)
         with _patched(patches):
-            (logits_plain,) = model(batch, False)
-        loss = model.compute_task_metrics(batch, (logits,), labels)["loss"]
-        loss_plain = model.compute_task_metrics(
-            batch, (logits_plain,), labels)["loss"]
-    if tuple(logits.shape) != (v, NUM_LABELS):
-        raise AssertionError(f"eval forward: logits of shape "
-                             f"{tuple(logits.shape)}, expected {(v, NUM_LABELS)}")
+            out_plain = model(batch, False)
+        loss = model.compute_task_metrics(batch, out, labels)["loss"]
+        loss_plain = model.compute_task_metrics(batch, out_plain,
+                                                labels)["loss"]
+    logits = out[0] if isinstance(out, tuple) else out
+    logits_plain = out_plain[0] if isinstance(out, tuple) else out_plain
+    if tuple(logits.shape) != tuple(shape):
+        raise AssertionError(f"eval forward: outputs of shape "
+                             f"{tuple(logits.shape)}, expected {tuple(shape)}")
     model_err = float((logits - logits_plain).abs().max())
     largest = float(logits_plain.abs().max())
     limit = atol + logit_rtol * largest
@@ -318,8 +358,9 @@ def train_and_count(model, params, batch, labels, counters, expected):
     final = eval_step(batch, labels)
     if not math.isfinite(float(final["loss"])):
         raise AssertionError("non-finite eval loss after training")
-    log(f"eval after training: loss {float(final['loss']):.6f}, "
-        f"f1 {float(final['f1_score']):.4f}")
+    log(f"eval after training: loss {float(final['loss']):.6f}"
+        + (f", f1 {float(final['f1_score']):.4f}" if "f1_score" in final
+           else ""))
     return state, train_step, eval_step, launches
 
 
@@ -341,13 +382,13 @@ def time_path(state, train_step, eval_step, batch, labels, real_edges,
         f"{peak_gib:.2f} GiB")
     if "--profile" in argv:
         profile_step(train_step, state, batch, labels, step_ms)
+    return step_ms, eval_ms
 
 
 def rgcn_path(device, argv):
     """Phase 2: PPI_RGCN through K1 and K2. Returns their kernel entries."""
     import torch
 
-    from tf2_gnn_tpu_torch.ops import pair_attention as pa
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
     from tf2_gnn_tpu_torch.workloads import build_ppi_batch, shipped_params
 
@@ -357,51 +398,72 @@ def rgcn_path(device, argv):
     log(f"workload: {real_edges} edges, V={batch.num_nodes_padded}, "
         f"built in {time.perf_counter() - t0:.1f} s")
     plan = batch.pair_stream_joint
-    v, num_types, h = plan.v_out, plan.num_types, 320
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    tables = torch.randn((num_types * v, h), generator=gen,
-                         device=device).to(torch.bfloat16)
-    cot = torch.randn((v, h), generator=gen, device=device).to(torch.bfloat16)
-    fwd_args, bwd_args = stream_args(plan, "fwd"), stream_args(plan, "bwd")
-
-    def k2():
-        return ps.pair_spmm_stream_joint(tables, *fwd_args, v, v)
-
-    def k2_plain():
-        return ps.pair_spmm_stream_plain(tables, *fwd_args, v, v)
-
-    def k1():
-        return ps.pair_spmm_stream(cot, *bwd_args, v, num_types * v)
-
-    def k1_plain():
-        return ps.pair_spmm_stream_plain(cot, *bwd_args, v, num_types * v)
-
-    out2, want2 = k2(), k2_plain()
-    out1, want1 = k1(), k1_plain()
-    torch.cuda.synchronize()
-    err2 = check_close("pair_stream_joint", out2, want2, KERNEL_RTOL,
-                       KERNEL_ATOL)
-    err1 = check_close("pair_stream", out1, want1, KERNEL_RTOL, KERNEL_ATOL)
-    log(f"kernel check: pair_stream_joint max_abs_err {err2:.3e}, "
-        f"pair_stream max_abs_err {err1:.3e} "
-        f"(rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
-    del out1, out2, want1, want2
+    checked = check_stream_kernels(plan, 320, device)
 
     params = shipped_params("PPI_RGCN.json", "rgcn")
-    model = model_from_params(params, device, num_types, "PPI_RGCN.json")
+    model = model_from_params(params, device, plan.num_types,
+                              "PPI_RGCN.json")
     check_eval_forward(model, batch, labels, [
         (ps, "pair_spmm_stream_joint", ps.pair_spmm_stream_plain),
         (ps, "pair_spmm_stream", ps.pair_spmm_stream_plain)])
     per_step = params["gnn_num_layers"] * TRAIN_STEPS
     state, train_step, eval_step, launches = train_and_count(
-        model, params, batch, labels,
-        [(ps.reset_launch_counts, ps.LAUNCHES),
-         (pa.reset_launch_counts, pa.LAUNCHES)],
+        model, params, batch, labels, launch_counters(),
         {"pair_stream": per_step, "pair_stream_joint": per_step,
          "pair_attention_max": 0, "pair_attention_agg": 0})
     time_path(state, train_step, eval_step, batch, labels, real_edges,
               device, argv, "PPI_RGCN")
 
+    return stream_kernel_entries(plan, checked, launches)
+
+
+def check_stream_kernels(plan, h: int, device):
+    """K2 (forward layout) and K1 (backward layout, all-zero types) on
+    ``plan``'s streamed layout against their plain versions, with bf16
+    [L*V, h] tables and a bf16 [V, h] cotangent from the seed. Returns
+    (tables, cot, {name: (kernel, plain version)}, {name: max abs err})."""
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+
+    v, num_types = plan.v_out, plan.num_types
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    tables = torch.randn((num_types * v, h), generator=gen,
+                         device=device).to(torch.bfloat16)
+    cot = torch.randn((v, h), generator=gen, device=device).to(torch.bfloat16)
+    fwd_args, bwd_args = stream_args(plan, "fwd"), stream_args(plan, "bwd")
+    fns = {
+        "pair_stream_joint": (
+            lambda: ps.pair_spmm_stream_joint(tables, *fwd_args, v, v),
+            lambda: ps.pair_spmm_stream_plain(tables, *fwd_args, v, v)),
+        "pair_stream": (
+            lambda: ps.pair_spmm_stream(cot, *bwd_args, v, num_types * v),
+            lambda: ps.pair_spmm_stream_plain(cot, *bwd_args, v,
+                                              num_types * v)),
+    }
+    errs = {}
+    for name, (kernel_fn, plain_fn) in fns.items():
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        errs[name] = check_close(name, got, want, KERNEL_RTOL, KERNEL_ATOL)
+        del got, want
+    log(f"kernel check: pair_stream_joint max_abs_err "
+        f"{errs['pair_stream_joint']:.3e}, pair_stream max_abs_err "
+        f"{errs['pair_stream']:.3e} (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
+    return tables, cot, fns, errs
+
+
+def stream_kernel_entries(plan, checked, launches):
+    """Time K2 and K1 on ``plan``'s streamed layout (``checked``, what
+    ``check_stream_kernels`` returned) beside their bounds and the library
+    yardstick; returns their two entries."""
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+
+    tables, cot, fns, errs = checked
+    v, num_types, h = plan.v_out, plan.num_types, tables.shape[1]
+    fwd_args, bwd_args = stream_args(plan, "fwd"), stream_args(plan, "bwd")
     # The library yardstick: torch.sparse.mm of the plan's CSR matrix with
     # the same bf16 table (bf16 output, f32-rounded scales rounded to bf16),
     # and, for reference, with f32 copies of both (the kernel's f32 output).
@@ -413,27 +475,26 @@ def rgcn_path(device, argv):
         num_types * v, v)
     tables_f32, cot_f32 = tables.float(), cot.float()
     kernels = []
-    for name, source_fn, plain_fn, lib_fn, lib32_fn, args, tab, out_rows, \
-            rows, valid, replaces, err in (
-            ("pair_stream_joint", k2, k2_plain,
+    for name, lib_fn, lib32_fn, args, tab, out_rows, rows, valid, \
+            replaces in (
+            ("pair_stream_joint",
              lambda: torch.sparse.mm(a_fwd16, tables),
              lambda: torch.sparse.mm(a_fwd, tables_f32), fwd_args, tables,
-             v, rows_fwd, valid_fwd,
-             "tf2_gnn_tpu/ops/pair_spmm.py:1057", err2),
-            ("pair_stream", k1, k1_plain,
+             v, rows_fwd, valid_fwd, "tf2_gnn_tpu/ops/pair_spmm.py:1057"),
+            ("pair_stream",
              lambda: torch.sparse.mm(a_bwd16, cot),
              lambda: torch.sparse.mm(a_bwd, cot_f32), bwd_args, cot,
              num_types * v, rows_bwd, valid_bwd,
-             "tf2_gnn_tpu/ops/pair_spmm.py:895", err1)):
+             "tf2_gnn_tpu/ops/pair_spmm.py:895")):
         bound, bound_by = kernel_bound_ms(
             rows, h, tab.element_size(), args[1].numel(),
             args[3].numel(), args[4].numel(), out_rows, valid)
         kernels.append(time_kernel(
             name, "tf2_gnn_tpu_torch/csrc/pair_stream.cu", replaces,
-            launches[name], err, source_fn, plain_fn, lib_fn, lib32_fn,
+            launches[name], errs[name], *fns[name], lib_fn, lib32_fn,
             bound, bound_by,
-            f"{valid} valid of {args[1].numel()} slots, {rows} distinct "
-            "rows read"))
+            f"[{tab.shape[0]}, {h}] table, {valid} valid of "
+            f"{args[1].numel()} slots, {rows} distinct rows read"))
     return kernels
 
 
@@ -540,8 +601,7 @@ def rgat_path(device, argv):
         (pa, "pair_attention_expd", pa.pair_attention_expd_plain),
         (pa, "pair_attention_bwd_fused", pa.pair_attention_bwd_fused_plain)])
     per_step = params["gnn_num_layers"] * TRAIN_STEPS
-    counters = [(ps.reset_launch_counts, ps.LAUNCHES),
-                (pa.reset_launch_counts, pa.LAUNCHES)]
+    counters = launch_counters()
     state, train_step, eval_step, launches = train_and_count(
         model, params, batch, labels, counters,
         {"pair_attention_expd": per_step, "pair_spmm": k * per_step,
@@ -624,7 +684,6 @@ def edge_mlp_path(device, argv):
     from tf2_gnn_tpu_torch.models.node_multiclass_task import (
         NodeMulticlassTask,
     )
-    from tf2_gnn_tpu_torch.ops import pair_attention as pa
     from tf2_gnn_tpu_torch.ops import pair_edge_mlp as pem
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
     from tf2_gnn_tpu_torch.workloads import (
@@ -693,9 +752,7 @@ def edge_mlp_path(device, argv):
                                      for name, err in errs.items())
         + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
 
-    counters = [(ps.reset_launch_counts, ps.LAUNCHES),
-                (pa.reset_launch_counts, pa.LAUNCHES),
-                (pem.reset_launch_counts, pem.LAUNCHES)]
+    counters = launch_counters()
     layers = params["gnn_num_layers"]
     for reset, _ in counters:
         reset()
@@ -780,9 +837,6 @@ def sorted_path(device, argv):
     from tf2_gnn_tpu_torch.models.node_multiclass_task import (
         NodeMulticlassTask,
     )
-    from tf2_gnn_tpu_torch.ops import pair_attention as pa
-    from tf2_gnn_tpu_torch.ops import pair_edge_mlp as pem
-    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
     from tf2_gnn_tpu_torch.ops import sorted_spmm as ss
     from tf2_gnn_tpu_torch.workloads import (
         FEATURE_DIM,
@@ -871,10 +925,7 @@ def sorted_path(device, argv):
                                      for form, err in errs.items())
         + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; the max exactly)")
 
-    counters = [(ps.reset_launch_counts, ps.LAUNCHES),
-                (pa.reset_launch_counts, pa.LAUNCHES),
-                (pem.reset_launch_counts, pem.LAUNCHES),
-                (ss.reset_launch_counts, ss.LAUNCHES)]
+    counters = launch_counters()
     earlier = {name: 0 for _, counts in counters[:3] for name in counts}
     patches = [(ss, name, getattr(ss, f"{name}_plain")) for name in ss.LAUNCHES]
     patches.append((rgat_layer, "sorted_segment_max",
@@ -1037,9 +1088,7 @@ def typed_rgat_path(device, argv):
     import torch
 
     from tf2_gnn_tpu_torch.ops import pair_attention as pa
-    from tf2_gnn_tpu_torch.ops import pair_edge_mlp as pem
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
-    from tf2_gnn_tpu_torch.ops import sorted_spmm as ss
     from tf2_gnn_tpu_torch.workloads import (
         build_ppi_batch,
         rgat_eight_heads_params,
@@ -1114,11 +1163,8 @@ def typed_rgat_path(device, argv):
                                      for form, err in errs.items())
         + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; the max exactly)")
 
-    counters = [(ps.reset_launch_counts, ps.LAUNCHES),
-                (pa.reset_launch_counts, pa.LAUNCHES),
-                (pem.reset_launch_counts, pem.LAUNCHES),
-                (ss.reset_launch_counts, ss.LAUNCHES)]
-    zero = {name: 0 for _, counts in counters for name in counts}
+    counters = launch_counters()
+    zero = zero_counts(counters)
     patches = [(ps, "pair_spmm", ps.pair_spmm_plain),
                (pa, "pair_spmm", ps.pair_spmm_plain)]
     patches += [(pa, name, getattr(pa, f"{name}_plain"))
@@ -1227,6 +1273,214 @@ def typed_rgat_path(device, argv):
     return kernels
 
 
+def qm9_path(device, argv):
+    """Phase 7: the shipped QM9_RGCN on the QM9-shaped batch through K2 and
+    K1, at the QM9 plan's shapes. Returns nothing for the kernels line
+    (K1 and K2 have their entries from phase 2); logs their times here."""
+    import torch
+
+    from tf2_gnn_tpu_torch.models.qm9_regression_task import (
+        QM9RegressionTask,
+    )
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.workloads import (
+        QM9_FEATURE_DIM,
+        build_qm9_batch,
+        qm9_shipped_params,
+    )
+
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    batch, labels, molecules = build_qm9_batch(SEED, device=device)
+    plan = batch.pair_stream_joint
+    real_edges = int(batch.num_edges.sum())
+    log(f"workload (QM9): {molecules} molecules, {real_edges} edges of "
+        f"{plan.num_types} types, V={batch.num_nodes_padded}, "
+        f"{batch.num_graphs_padded} graph slots, per-type forward / backward "
+        f"chunks {[(p[0].shape[0], p[4].shape[0]) for p in batch.pair_plans_typed]}"
+        f", forward group {ps.plan_group(plan.src_blk_f, plan.grp_tgt_fl)}, "
+        f"backward group {ps.plan_group(plan.src_blk_b, plan.grp_tgt_b)}, "
+        f"overflow slots {plan.ovf_src.shape[0]}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    params = qm9_shipped_params()
+    checked = check_stream_kernels(plan, params["gnn_hidden_dim"], device)
+
+    model = QM9RegressionTask.from_params(
+        params, input_dim=QM9_FEATURE_DIM, num_edge_types=plan.num_types,
+        device=device, seed=SEED)
+    layers = params["gnn_num_layers"]
+    log(f"model QM9_RGCN.json: {sum(p.numel() for p in model.parameters())} "
+        f"parameters, {layers} layers, hidden {params['gnn_hidden_dim']}, "
+        f"edge stream {params['gnn_edge_dtype']}, {params['optimizer']} "
+        f"(lr {params['learning_rate']}, clip by value "
+        f"{params['gradient_clip_value']}), global exchange after layers "
+        f"{list(model.gnn.exchange_layers)}")
+    counters = launch_counters()
+    for reset, _ in counters:
+        reset()
+    check_eval_forward(model, batch, labels, [
+        (ps, "pair_spmm_stream_joint", ps.pair_spmm_stream_plain),
+        (ps, "pair_spmm_stream", ps.pair_spmm_stream_plain)],
+        QM9_LOGIT_RTOL, QM9_ATOL, QM9_LOSS_RTOL,
+        shape=(batch.num_graphs_padded,))
+    torch.cuda.synchronize()
+    eval_launches = {n: c for _, counts in counters for n, c in counts.items()}
+    if eval_launches != dict(zero_counts(counters), pair_stream_joint=layers):
+        raise AssertionError(f"QM9 eval forward launched {eval_launches}; "
+                             f"expected pair_stream_joint {layers} times only")
+    per_step = layers * TRAIN_STEPS
+    state, train_step, eval_step, launches = train_and_count(
+        model, params, batch, labels, counters,
+        dict(zero_counts(counters), pair_stream=per_step,
+             pair_stream_joint=per_step))
+    step_ms, eval_ms = time_path(state, train_step, eval_step, batch, labels,
+                                 real_edges, device, argv, "QM9_RGCN")
+    log(f"QM9_RGCN: {molecules / step_ms * 1e3:.1f} molecules/s training, "
+        f"{molecules / eval_ms * 1e3:.1f} molecules/s evaluating")
+    del model, state, train_step, eval_step
+    torch.cuda.empty_cache()
+    stream_kernel_entries(plan, checked, launches)
+
+
+def launch_counters():
+    """(reset, counts) of every kernel module's launch counts, in the order
+    of the phases that introduced them."""
+    from tf2_gnn_tpu_torch.ops import pair_attention as pa
+    from tf2_gnn_tpu_torch.ops import pair_edge_mlp as pem
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.ops import probes
+    from tf2_gnn_tpu_torch.ops import sorted_spmm as ss
+
+    return [(m.reset_launch_counts, m.LAUNCHES)
+            for m in (ps, pa, pem, ss, probes)]
+
+
+def zero_counts(counters):
+    return {name: 0 for _, counts in counters for name in counts}
+
+
+def probe_path(device, argv):
+    """Phase 8: the design probes at their own shapes; P1 and P2 through
+    B3's kernel on the probe's plans of the PPI edges, P3 in f32 and bf16.
+    Returns their three entries."""
+    import numpy as np
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.ops import probes
+    from tf2_gnn_tpu_torch.workloads import NODE_BUDGET, build_raw_arrays
+
+    # The probe's edges: every real edge of the PPI batch, sources in the
+    # merged l * V + u row space; its table: bf16 [3 V, 384].
+    t0 = time.perf_counter()
+    v = NODE_BUDGET
+    _, adjacency, _ = build_raw_arrays(SEED)
+    srcs = np.concatenate([a[:, 0].astype(np.int64) + l * v
+                           for l, a in enumerate(adjacency)])
+    tgts = np.concatenate([a[:, 1] for a in adjacency])
+    rows, h = len(adjacency) * v, PROBE_H
+    plans = {"pair_spmm_unrolled": probes.unrolled_plan(srcs, tgts, rows,
+                                                         v).to(device),
+             "pair_spmm_chunked": probes.chunked_plan(srcs, tgts, rows,
+                                                      v).to(device)}
+    log(f"workload (probes): {srcs.shape[0]} edges over {rows} source rows, "
+        + ", ".join(f"{name} {p.src_blk.shape[0]} chunks in "
+                    f"{p.grp_tgt.shape[0]} groups"
+                    for name, p in plans.items())
+        + f", built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    table = torch.randn((rows, h), generator=gen,
+                        device=device).to(torch.bfloat16)
+    ref = np.zeros((v, h), np.float32)  # the probe's check
+    np.add.at(ref, tgts, table.float().cpu().numpy()[srcs])
+    ref = torch.from_numpy(ref).to(device)
+    r, c, reps = DYNGATHER_SHAPE
+    gtab = torch.randn((r, c), generator=gen, device=device)
+    gidx = torch.randint(0, r, (r, c), generator=gen, device=device,
+                         dtype=torch.int32)
+    gtabs = {"dyngather": gtab, "dyngather bf16": gtab.to(torch.bfloat16)}
+
+    fns = {name: (lambda p=p, fn=getattr(probes, name): fn(table, p, v),
+                  lambda p=p: ps.pair_spmm_plain(table, *p.kernel_args, v))
+           for name, p in plans.items()}
+    for form, t in gtabs.items():
+        fns[form] = (lambda t=t: probes.dyngather(t, gidx, reps),
+                     lambda t=t: probes.dyngather_plain(t, gidx, reps))
+
+    # The probes' own run, with every launch count set to 0 just before
+    # and read just after each call: B3's kernel once for P2 and once for
+    # P1, P3's once a dtype, and nothing else.
+    counters = launch_counters()
+    launches, errs = {}, {}
+    for form, (kernel_fn, plain_fn) in fns.items():
+        for reset, _ in counters:
+            reset()
+        got = kernel_fn()
+        torch.cuda.synchronize()
+        counts = {n: k for _, cs in counters for n, k in cs.items() if k}
+        kernel = "dyngather" if form.startswith("dyngather") else "pair_spmm"
+        if counts != {kernel: 1}:
+            raise AssertionError(f"{form} launched {counts}; expected "
+                                 f"{kernel} once")
+        launches[form] = counts[kernel]
+        want = plain_fn()
+        errs[form] = check_close(form, got, want, KERNEL_RTOL, KERNEL_ATOL)
+        if kernel == "pair_spmm":
+            probe_err = float((got - ref).abs().max() / ref.abs().max())
+            if probe_err > PROBE_CHECK_RTOL:
+                raise AssertionError(f"{form}: rel-max error {probe_err} "
+                                     "against the probe's np.add.at check")
+            log(f"{form}: rel-max error vs the probe's numpy check "
+                f"{probe_err:.2e}")
+        else:
+            log(f"{form}: bit-equal to its plain version: "
+                f"{torch.equal(got, want)}")
+        del got, want
+    log("kernel check: " + ", ".join(f"{form} max_abs_err {err:.3e}"
+                                     for form, err in errs.items())
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); launches {launches}")
+
+    # Bounds as PERF.md counts them: for P1/P2 the distinct table rows read,
+    # the plan (12 B a slot, 4 B a chunk and a group) and the f32 output;
+    # for P3 the table, the indices and the output once each, and one add
+    # a shift and element. Library calls: torch.sparse.mm of the plan's
+    # CSR; for P3 one torch.gather over all the shifted index sets, built
+    # outside the timed window, then a sum.
+    kernels = []
+    replaces = {"pair_spmm_unrolled": "benchmarks/pair_probe.py:189",
+                "pair_spmm_chunked": "benchmarks/pair_probe.py:276",
+                "dyngather": "benchmarks/dyngather_probe.py:37"}
+    table_f32 = table.float()
+    for name, p in plans.items():
+        src, tgt, valid = ps.slot_abs_ids(*p.kernel_args[1:])
+        a32, a16, rows_read, n_valid = slot_matrix(src, tgt, valid,
+                                                   p.kernel_args[0], v, rows)
+        bound = kernel_bound_ms(rows_read, h, 2, p.rel_src.numel(),
+                                p.src_blk.numel(), p.grp_tgt.numel(), v,
+                                n_valid)
+        kernels.append(time_kernel(
+            name, "tf2_gnn_tpu_torch/csrc/pair_stream.cu", replaces[name],
+            launches[name], errs[name], *fns[name],
+            lambda a16=a16: torch.sparse.mm(a16, table),
+            lambda a32=a32: torch.sparse.mm(a32, table_f32), *bound,
+            f"B3's kernel, group {p.group}, bf16 [{rows}, {h}] table, "
+            f"{n_valid} valid of {p.rel_src.numel()} slots"))
+    shifted = (gidx.long()[None] + torch.arange(reps, device=device)[:, None,
+                                                                     None]) % r
+    for form, t in gtabs.items():
+        expanded = t[None].expand(reps, r, c)
+        bound = bound_ms(r * c * (t.element_size() + 4 + 4), reps * r * c)
+        entry = time_kernel(
+            form, "tf2_gnn_tpu_torch/csrc/dyngather.cu",
+            replaces["dyngather"], launches[form], errs[form], *fns[form],
+            lambda e=expanded: torch.gather(e, 1, shifted).sum(
+                0, dtype=torch.float32), None, *bound,
+            f"{t.dtype} [{r}, {c}], {reps} shifts")
+        if form == "dyngather":  # the probe's default dtype is its entry
+            kernels.append(entry)
+    return kernels
+
+
 def main(argv) -> int:
     import torch
 
@@ -1251,7 +1505,7 @@ def main(argv) -> int:
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     # -- 2. PPI_RGCN, 3. PPI_RGAT, 4. GNN_Edge_MLP, 5. scatter plans,
-    # -- 6. RGAT on per-type plans -----------------------------------------
+    # -- 6. RGAT on per-type plans, 7. QM9_RGCN, 8. the probes --------------
     kernels = rgcn_path(device, argv)
     torch.cuda.empty_cache()
     kernels += rgat_path(device, argv)
@@ -1261,6 +1515,13 @@ def main(argv) -> int:
     kernels += sorted_path(device, argv)
     torch.cuda.empty_cache()
     kernels += typed_rgat_path(device, argv)
+    torch.cuda.empty_cache()
+    qm9_path(device, argv)
+    torch.cuda.empty_cache()
+    kernels += probe_path(device, argv)
+    if len(kernels) != len({k["name"] for k in kernels}) or len(kernels) != 18:
+        raise AssertionError(f"kernels line: {[k['name'] for k in kernels]}; "
+                             "expected 18 distinct kernels")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1292,8 +1553,12 @@ def profile_step(train_step, state, batch, labels, step_ms: float,
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
+    # A user annotation on the device (the optimizer's step) spans kernels
+    # that are listed on their own, and the host gaps between them: it is
+    # not kernel time.
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and self_us(e) > 0]
+               if e.device_type == DeviceType.CUDA and self_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
     kernels.sort(key=self_us, reverse=True)
     busy_ms = sum(self_us(e) for e in kernels) / steps / 1e3
     log(f"profile: {steps} steps, kernel time {busy_ms:.3f} ms/step of a "

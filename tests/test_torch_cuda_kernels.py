@@ -1,12 +1,14 @@
 """The hand-written CUDA kernels (tf2_gnn_tpu_torch/csrc/pair_stream.cu:
 K1, K2 and B3; csrc/pair_attention.cu: B8, B9, B10 and B11;
 csrc/pair_edge_mlp.cu: B4, B5, B6 and B7; csrc/sorted_scatter.cu: B12, B13,
-B14 and B15) against their plain PyTorch versions on the card, at small
-shapes with a ragged feature width, f32 and bf16 tables, plans with pad
-slots and an all-padding group (sorted plans: sentinel slots, an unused
-trailing chunk and an all-sentinel chunk of NaN rows; B11: targets with no
-in-edges and a pad head), and through the autograd ops (the attention op in
-its merged and per-type forms). Marked
+B14 and B15; csrc/dyngather.cu: P3) against their plain PyTorch versions on
+the card, at small shapes with a ragged feature width, f32 and bf16 tables,
+plans with pad slots and an all-padding group (sorted plans: sentinel
+slots, an unused trailing chunk and an all-sentinel chunk of NaN rows; B11:
+targets with no in-edges and a pad head), and through the autograd ops (the
+attention op in its merged and per-type forms); K1/K2 also at a QM9-shaped
+plan (5 types, H = 128), B13 with a bf16 stream's rounded scale, and P1/P2
+through B3's kernel on the probe's plans. Marked
 ``cuda``; each test skips without a card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -18,7 +20,8 @@ Tolerance: rtol 1e-5 / atol 1e-5; both sides sum the same f32 products,
 the kernel in a run-dependent order (atomics), and B8/B9 take expf of the
 same f32 argument as torch.exp (each within 2 ulp). Gradients of the
 attention op in bf16 are rounded to bf16 after those sums: rtol 1e-2 /
-atol 1e-4 there (one bf16 ulp). B15 and B11, maxes, match exactly.
+atol 1e-4 there (one bf16 ulp). B15 and B11, maxes, match exactly, as
+does P3 (the same f32 adds in the same order).
 """
 import numpy as np
 import pytest
@@ -575,3 +578,122 @@ def test_typed_attention_op_matches_plain_on_card(device, dtype, stabiliser,
     for i, name in ((2, "d_table"), (3, "d_scores")):
         torch.testing.assert_close(got[i].float(), want[i].float(),
                                    msg=name, **grad_tol)
+
+
+def test_b13_rounds_the_scale_of_a_bf16_stream(device):
+    """B13 with a bf16 stream reads each scale rounded to bf16 (the
+    reference's ``bf16(onehot * scale)``): the kernel equals the plain sum
+    over the rounded scales, and an f32 stream keeps its scales."""
+    host, rel_np, blocks_np = _sorted_case(30)
+    v = 384
+    rel = torch.from_numpy(rel_np).to(device)
+    blocks = torch.from_numpy(blocks_np).to(device)
+    gen = torch.Generator(device=device).manual_seed(31)
+    scale = torch.rand((rel.numel(),), generator=gen, device=device) / 3.0
+    rounded = scale.to(torch.bfloat16).float()
+    assert not torch.equal(rounded, scale)
+    for dtype, used in ((torch.bfloat16, rounded), (torch.float32, scale)):
+        msgs = _stream(rel_np, 40, gen, device, dtype)
+        got = tss.sorted_segment_sum_scaled(msgs, scale, rel, blocks, v)
+        want = tss.segment_sum(
+            msgs.float() * used[:, None],
+            tss._segment_ids(rel, blocks, v, tss.BLOCK_NODES), v)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _qm9_plan(device):
+    """The per-type plans of a QM9-shaped batch (120 molecules of 18 nodes,
+    5 types of 11 edges a molecule, V = 2304) in the streamed layout."""
+    from tf2_gnn_tpu_torch import workloads
+
+    batch, _, _ = workloads.build_qm9_batch(0, device=device, molecules=120,
+                                            node_budget=2304)
+    return batch.pair_stream_joint
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_kernels_at_a_qm9_shaped_plan(device, dtype):
+    """K2 (forward layout, group types 0-4) and K1 (backward layout, the
+    [L*V] output rows) at QM9's H = 128, and the autograd op."""
+    plan = _qm9_plan(device)
+    v, num_types, h = plan.v_out, plan.num_types, 128
+    assert num_types == 5 and int(plan.grp_type_f.max()) == 4
+    gen = torch.Generator(device=device).manual_seed(32)
+    tables = torch.randn((num_types * v, h), generator=gen,
+                         device=device).to(dtype)
+    cot = torch.randn((v, h), generator=gen, device=device).to(dtype)
+    fwd = (plan.scale_fwd, plan.rel_src_f, plan.rel_tgt_f, plan.src_blk_f,
+           plan.grp_tgt_fl, plan.grp_type_f, v, v)
+    bwd = (plan.scale_bwd, plan.rel_src_b, plan.rel_tgt_b, plan.src_blk_b,
+           plan.grp_tgt_b, plan.type_b_zeros, v, num_types * v)
+    torch.testing.assert_close(tps.pair_spmm_stream_joint(tables, *fwd),
+                               tps.pair_spmm_stream_plain(tables, *fwd),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tps.pair_spmm_stream(cot, *bwd),
+                               tps.pair_spmm_stream_plain(cot, *bwd),
+                               rtol=1e-5, atol=1e-5)
+
+    base = tables.float()
+
+    def run():
+        t = base.clone().requires_grad_(True)
+        out = tps.pair_stream_joint(t, plan, True, dtype)
+        (out * cot.float()).sum().backward()
+        return out.detach(), t.grad
+
+    got = run()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tps, "pair_spmm_stream_joint", tps.pair_spmm_stream_plain)
+        mp.setattr(tps, "pair_spmm_stream", tps.pair_spmm_stream_plain)
+        want = run()
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("form", ["unrolled", "chunked"])
+def test_probe_pair_spmm_through_b3(device, form):
+    """P1 (8 chunks a group) and P2 (one) launch B3's kernel on the probe's
+    plan; both equal the plain version and the probe's ``np.add.at``."""
+    from tf2_gnn_tpu_torch.ops import probes
+
+    rng = np.random.RandomState(33)
+    v, h = 384, 200
+    srcs = np.concatenate([rng.randint(0, 3 * v, 4000), np.full(300, 9)])
+    tgts = np.concatenate([rng.randint(0, v, 4000), np.full(300, 2)])
+    build = probes.unrolled_plan if form == "unrolled" else probes.chunked_plan
+    plan = build(srcs, tgts, 3 * v, v).to(device)
+    gen = torch.Generator(device=device).manual_seed(34)
+    table = torch.randn((3 * v, h), generator=gen,
+                        device=device).to(torch.bfloat16)
+    before = tps.LAUNCHES["pair_spmm"]
+    if form == "unrolled":
+        got = probes.pair_spmm_unrolled(table, plan, v)
+    else:
+        got = probes.pair_spmm_chunked(table, plan, v)
+    torch.cuda.synchronize()
+    assert tps.LAUNCHES["pair_spmm"] == before + 1
+    torch.testing.assert_close(
+        got, tps.pair_spmm_plain(table, *plan.kernel_args, v), rtol=1e-5,
+        atol=1e-5)
+    ref = np.zeros((v, h), np.float32)
+    np.add.at(ref, tgts, table.float().cpu().numpy()[srcs])
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,cols,reps", [(8192, 128, 64), (1000, 100, 7)])
+def test_dyngather_matches_plain_version(device, dtype, rows, cols, reps):
+    """P3 exactly: both sum the same f32 values in shift order from 0;
+    indices cover negatives and values beyond R (floor modulo)."""
+    from tf2_gnn_tpu_torch.ops import probes
+
+    gen = torch.Generator(device=device).manual_seed(35)
+    table = torch.randn((rows, cols), generator=gen, device=device).to(dtype)
+    idx = torch.randint(-rows, 2 * rows, (rows, cols), generator=gen,
+                        device=device, dtype=torch.int32)
+    before = probes.LAUNCHES["dyngather"]
+    got = probes.dyngather(table, idx, reps)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["dyngather"] == before + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, probes.dyngather_plain(table, idx, reps))

@@ -18,11 +18,19 @@ import torch
 
 import tf2_gnn_tpu_torch
 from tf2_gnn_tpu_torch import workloads
+from tf2_gnn_tpu_torch.models.graph_binary_classification_task import (
+    GraphBinaryClassificationTask,
+)
+from tf2_gnn_tpu_torch.models.graph_regression_task import (
+    GraphRegressionTask,
+)
 from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
+from tf2_gnn_tpu_torch.models.qm9_regression_task import QM9RegressionTask
 from tf2_gnn_tpu_torch.ops import cuda_build
 from tf2_gnn_tpu_torch.ops import pair_attention as tpa
 from tf2_gnn_tpu_torch.ops import pair_edge_mlp as tpem
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
+from tf2_gnn_tpu_torch.ops import probes as tprobes
 from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
 from tf2_gnn_tpu_torch.utils.device import resolve_device
 
@@ -65,7 +73,11 @@ def test_port_has_its_own_modules():
         "csrc/pair_edge_mlp.cu", "ops/segment.py", "ops/gru.py",
         "layers/mlp.py", "layers/readout.py", "layers/global_exchange.py",
         "layers/dropout.py", "ops/sorted_spmm.py", "csrc/sorted_scatter.cu",
-        "csrc/float_atomics.cuh",
+        "csrc/float_atomics.cuh", "models/graph_regression_task.py",
+        "models/qm9_regression_task.py",
+        "models/graph_binary_classification_task.py",
+        "harness/default_hypers/QM9_RGCN.json", "ops/probes.py",
+        "csrc/dyngather.cu",
     ]
     missing = [p for p in expected if not (PACKAGE / p).is_file()]
     assert not missing
@@ -107,11 +119,23 @@ def test_sorted_entry_points_default_to_the_card(no_card):
                                        input_dim=4, num_edge_types=3)
 
 
+def test_qm9_entry_points_default_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        workloads.build_qm9_batch(0, molecules=4, node_budget=128)
+    for cls in (QM9RegressionTask, GraphRegressionTask,
+                GraphBinaryClassificationTask):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls.from_params(workloads.qm9_shipped_params(), input_dim=4,
+                            num_edge_types=5)
+
+
 class _CudaTensorStandIn:
     """What a wrapper sees of a CUDA tensor before it loads the library:
-    its device. (This machine's torch cannot allocate CUDA tensors.)"""
+    its device and dtype. (This machine's torch cannot allocate CUDA
+    tensors.)"""
 
     device = torch.device("cuda", 0)
+    dtype = torch.float32
 
 
 # Every kernel wrapper: its launch counts and the positional arguments
@@ -132,6 +156,7 @@ WRAPPERS = {
     tss.sorted_segment_sum_scaled: (tss.LAUNCHES, (None,) * 3 + (128,)),
     tss.sorted_segment_max: (tss.LAUNCHES, (None,) * 2 + (128,)),
     tss.attention_scatter_sums: (tss.LAUNCHES, (None,) * 3 + (128,)),
+    tprobes.dyngather: (tprobes.LAUNCHES, (None, 64)),
 }
 
 
@@ -290,6 +315,27 @@ def test_cpu_tensors_take_the_plain_versions_of_the_sorted_kernels():
         want = want if isinstance(want, tuple) else (want,)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert tss.LAUNCHES == before
+
+
+def test_cpu_tensors_take_the_plain_versions_of_the_probes():
+    """P3 on CPU tensors, and P1 / P2 through B3's wrapper: the plain
+    versions' results, no launch counted."""
+    rng = np.random.RandomState(5)
+    v = 256
+    src, tgt = rng.randint(0, 2 * v, 700), rng.randint(0, v, 700)
+    table = torch.randn(2 * v, 8)
+    idx = torch.from_numpy(rng.randint(0, v, (v, 8)).astype(np.int32))
+    before = (dict(tps.LAUNCHES), dict(tprobes.LAUNCHES))
+    for plan, fn in ((tprobes.unrolled_plan(src, tgt, 2 * v, v),
+                      tprobes.pair_spmm_unrolled),
+                     (tprobes.chunked_plan(src, tgt, 2 * v, v),
+                      tprobes.pair_spmm_chunked)):
+        plan = plan.to("cpu")
+        assert torch.equal(fn(table, plan, v),
+                           tps.pair_spmm_plain(table, *plan.kernel_args, v))
+    assert torch.equal(tprobes.dyngather(table[:v], idx, 16),
+                       tprobes.dyngather_plain(table[:v], idx, 16))
+    assert (dict(tps.LAUNCHES), dict(tprobes.LAUNCHES)) == before
 
 
 @pytest.mark.parametrize("style", ["rgcn", "rgat"])

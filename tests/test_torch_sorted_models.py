@@ -4,7 +4,8 @@ mode here), from weights bridged out of the flax params, dropout 0:
 
 * RGCN (source-only edge MLP over ``typed_gather_scatter``, B13) and RGAT
   (the sorted fallback: B12, B14, B15), 2 layers at hidden 16: logits,
-  loss and the gradient of every parameter;
+  loss and the gradient of every parameter; RGCN also with a bf16 stream
+  and 1/deg scales, whose scales B13 rounds to bf16 as the reference does;
 * three Adam steps of the RGCN task along the reference's loss trajectory;
 * one set of bridged RGAT weights serving both routes (merged pair plans
   and scatter plans), each against the reference on the same batch;
@@ -109,9 +110,11 @@ def build_pair(params, jbatch, seed=0):
 
 
 def assert_matches_jax(jmodel, jparams, tmodel, jbatch, tbatch, labels,
-                       edge_dtype: str):
-    """Logits, loss and every parameter gradient of one forward."""
-    out_tol, grad_tol = TOLS[edge_dtype]
+                       edge_dtype: str, tols=None, loss_rtol=None):
+    """Logits, loss and every parameter gradient of one forward (at the
+    edge dtype's tolerances unless ``tols`` = (logits, gradients) and
+    ``loss_rtol`` are given)."""
+    out_tol, grad_tol = tols or TOLS[edge_dtype]
 
     def jloss(p):
         out = jmodel.apply({"params": p}, jbatch, False)
@@ -128,7 +131,7 @@ def assert_matches_jax(jmodel, jparams, tmodel, jbatch, tbatch, labels,
     np.testing.assert_allclose(out[0].detach().numpy(), np.asarray(jlogits),
                                **out_tol)
     np.testing.assert_allclose(float(metrics["loss"].detach()), float(jl),
-                               rtol=LOSS_RTOL[edge_dtype])
+                               rtol=loss_rtol or LOSS_RTOL[edge_dtype])
     want = flax_params_to_state_dict(jax.device_get(jgrads))
     got = dict(tmodel.named_parameters())
     assert set(want) == set(got)
@@ -163,6 +166,25 @@ def test_rgcn_on_scatter_plans_matches_jax(normalize, monkeypatch):
     assert_matches_jax(jmodel, jparams, tmodel, jbatch, tbatch, labels,
                        "float32")
     # B13 once per layer forward and once per layer backward.
+    assert calls == ["sorted_segment_sum_scaled"] * 4
+
+
+def test_bf16_rgcn_on_scatter_plans_rounds_the_scale_as_jax(monkeypatch):
+    """RGCN with a bf16 edge stream and 1/deg scales: the reference's B13
+    rounds ``onehot * scale`` to bf16 before its product, so the port
+    rounds each 1/deg scale to bf16 before B13 (or its plain version)
+    reads it. Both sides then sum the same bf16 products in f32, and the
+    tolerance is that of the per-type bf16 RGCN model test (rtol 2e-3 /
+    atol 1e-4) with the loss at rtol 1e-5. With the scale kept in f32
+    the logits differ by up to 5.4e-3 and the gradients by up to 1.7e-3
+    (rounded scales: 2.4e-7 and 1e-7)."""
+    jbatch, tbatch, labels = scatter_workload(seed=3)
+    params = dict(rgcn_params(normalize=True), gnn_edge_dtype="bfloat16")
+    jmodel, jparams, tmodel = build_pair(params, jbatch)
+    calls = _spy_launches(monkeypatch, ["sorted_segment_sum_scaled"])
+    tol = dict(rtol=2e-3, atol=1e-4)
+    assert_matches_jax(jmodel, jparams, tmodel, jbatch, tbatch, labels,
+                       "bfloat16", tols=(tol, tol), loss_rtol=1e-5)
     assert calls == ["sorted_segment_sum_scaled"] * 4
 
 

@@ -126,10 +126,12 @@ def test_learning_rate_schedules_match(extra):
 
 
 def test_unported_optimizers_and_double_clip_raise():
+    """Every optimizer of the reference is ported (SGD and RMSProp with
+    optax's semantics: tests/test_torch_graph_tasks.py); an unknown name
+    and two clipping modes at once raise."""
     p = [torch.nn.Parameter(torch.zeros(2))]
-    for name in ("SGD", "RMSProp"):
-        with pytest.raises(NotImplementedError):
-            make_optimizer({"optimizer": name}, p)
+    for name in ("SGD", "RMSProp", "Adam"):
+        make_optimizer({"optimizer": name}, p)
     with pytest.raises(ValueError, match="Unknown optimizer"):
         make_optimizer({"optimizer": "Lion"}, p)
     with pytest.raises(ValueError, match="one gradient clipping"):

@@ -19,9 +19,10 @@
 //   sorted_segment_sum_scaled <- spmm_pallas.py:457 (sorted_segment_sum_
 //                                scaled, pallas_call :494): out[row] +=
 //                                msgs[slot] * scale[slot], in that order.
-//                                f32 or bf16 stream, f32 scale (the TPU
-//                                kernel rounds the scale to a bf16 stream's
-//                                dtype; ROADMAP queue C).
+//                                f32 or bf16 stream, f32 scale; with a bf16
+//                                stream the wrapper has rounded the scale
+//                                to bf16 first, as the TPU kernel rounds
+//                                onehot * scale to the stream dtype.
 //   sorted_segment_max        <- spmm_pallas.py:671 (sorted_segment_max,
 //                                pallas_call :705): out[row] =
 //                                max(out[row], vals[slot]) from a -inf fill;

@@ -11,8 +11,8 @@ The padding contract is the JAX package's, unchanged:
 
 ``pad_batch_arrays`` and the label pads are the same numpy code. The
 ``GraphBatch`` here is a plain dataclass holding only the fields the RGCN,
-RGAT and GNN_Edge_MLP node-classification paths read; the SPMD and halo
-fields are not ported yet. ``.to(device)`` moves every array field to a
+RGAT and GNN_Edge_MLP paths and the node- and graph-level task heads
+read; the SPMD and halo fields are not ported yet. ``.to(device)`` moves every array field to a
 device and builds, once per batch, the device forms of the merged pair plan
 (``pair_merged``) and the scatter plan (``scatter_merged``). The per-type
 plans have two device forms, each read by other models: the concatenated
@@ -114,6 +114,14 @@ class GraphBatch:
                   if isinstance(self.node_features, torch.Tensor) else None)
         return (torch.arange(self.num_nodes_padded, device=device)
                 < self.num_nodes).to(torch.float32)
+
+    @property
+    def graph_mask(self) -> torch.Tensor:
+        """f32 [G]: 1.0 for real graphs, 0.0 for padding."""
+        device = (self.node_features.device
+                  if isinstance(self.node_features, torch.Tensor) else None)
+        return (torch.arange(self.num_graphs_padded, device=device)
+                < self.num_graphs).to(torch.float32)
 
     def _typed_form(self, name: str, build):
         if (self.pair_plans_typed is None
@@ -250,5 +258,14 @@ def host_in_degrees(padded_targets: Sequence[np.ndarray],
 def pad_node_label_array(values: np.ndarray, num_nodes_padded: int) -> np.ndarray:
     """Zero-pad a per-node label array [V_real, ...] up to [V_pad, ...]."""
     out = np.zeros((num_nodes_padded,) + values.shape[1:], dtype=values.dtype)
+    out[: values.shape[0]] = values
+    return out
+
+
+def pad_graph_label_array(values: np.ndarray,
+                          num_graphs_padded: int) -> np.ndarray:
+    """Zero-pad a per-graph label array [G_real, ...] up to [G_pad, ...]."""
+    values = np.asarray(values)
+    out = np.zeros((num_graphs_padded,) + values.shape[1:], dtype=values.dtype)
     out[: values.shape[0]] = values
     return out

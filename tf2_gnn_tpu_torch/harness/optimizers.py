@@ -2,12 +2,13 @@
 
 Adam with the reference's Keras epsilon (1e-7): ``torch.optim.Adam`` puts
 eps outside the square root of the bias-corrected second moment with no
-eps inside it, which is ``optax.adam``'s update. The learning rate follows
+eps inside it, which is ``optax.adam``'s update. RMSProp and SGD are
+written out by hand with optax's semantics, which ``torch.optim`` does not
+have (see ``OptaxRMSProp`` and ``OptaxSGD``). The learning rate follows
 ``utils/schedules.py`` (a float or a step schedule, set before each update
 with the 0-based update count, as optax's schedules read it). Gradient
 clipping by value / per-tensor norm / global norm follows optax's
-formulas; the three modes are mutually exclusive. SGD and RMSProp are not
-ported (RMSProp needs optax's eps-inside-the-sqrt form) and raise.
+formulas; the three modes are mutually exclusive.
 """
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
@@ -47,6 +48,67 @@ def _clip_by_global_norm(max_norm: float
     return clip
 
 
+class OptaxRMSProp(torch.optim.Optimizer):
+    """``optax.rmsprop(lr, decay=rho, eps, momentum)`` with its defaults
+    (``eps_in_sqrt=True``, ``initial_scale=0``, not centered): the chain
+    ``scale_by_rms``, ``scale_by_learning_rate``, ``trace(momentum)``::
+
+        nu = (1 - rho) * g**2 + rho * nu
+        t  = -lr * g * rsqrt(nu + eps) + momentum * t
+        p += t
+
+    ``torch.optim.RMSprop`` adds eps outside the root and applies the
+    learning rate after its momentum buffer, so it is not this update."""
+
+    def __init__(self, params, lr: float, rho: float, momentum: float,
+                 eps: float):
+        super().__init__(params, dict(lr=lr, rho=rho, momentum=momentum,
+                                      eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, rho = group["lr"], group["rho"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                    state["trace"] = torch.zeros_like(p)
+                nu, trace = state["nu"], state["trace"]
+                nu.mul_(rho).add_((1.0 - rho) * torch.square(g))
+                update = -lr * (g * torch.rsqrt(nu + group["eps"]))
+                trace.mul_(group["momentum"]).add_(update)
+                p.add_(trace)
+
+
+class OptaxSGD(torch.optim.Optimizer):
+    """``optax.sgd(lr, momentum)``: the chain ``trace(momentum)``, then
+    ``scale_by_learning_rate``::
+
+        t  = g + momentum * t
+        p -= lr * t
+    """
+
+    def __init__(self, params, lr: float, momentum: float):
+        super().__init__(params, dict(lr=lr, momentum=momentum))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["trace"] = torch.zeros_like(p)
+                trace = state["trace"]
+                trace.mul_(group["momentum"]).add_(p.grad)
+                p.add_(-group["lr"] * trace)
+
+
 class Optimizer:
     """A torch optimizer plus the learning-rate schedule and clipping that
     optax chains around it in the reference."""
@@ -79,14 +141,18 @@ def make_optimizer(params: Dict[str, Any],
     learning_rate = make_learning_rate(params)
 
     name = params.get("optimizer", "Adam").lower()
-    if name == "adam":
-        initial = learning_rate(0) if callable(learning_rate) else learning_rate
+    initial = learning_rate(0) if callable(learning_rate) else learning_rate
+    momentum = params.get("momentum", 0.85)
+    if name == "sgd":
+        core = OptaxSGD(list(model_parameters), lr=initial, momentum=momentum)
+    elif name == "rmsprop":
+        core = OptaxRMSProp(list(model_parameters), lr=initial,
+                            rho=params.get("rmsprop_rho", 0.98),
+                            momentum=momentum,
+                            eps=1e-7)  # keras RMSprop epsilon
+    elif name == "adam":
         core = torch.optim.Adam(list(model_parameters), lr=initial,
                                 eps=1e-7)  # keras Adam epsilon
-    elif name in ("sgd", "rmsprop"):
-        raise NotImplementedError(
-            f'optimizer "{params.get("optimizer")}" is not ported yet; only '
-            "Adam is.")
     else:
         raise ValueError(f'Unknown optimizer "{params.get("optimizer")}".')
 

@@ -5,7 +5,10 @@ GNN hypers ride the flat task dict with a ``gnn_`` prefix, stripped when
 the encoder is built (reference graph_task_model.py:94-97). The encoder is
 the submodule ``gnn``, so parameter names follow the flax tree
 (``gnn.mp_layer_0.edge_mlp_layer_0.kernel`` for
-``gnn/mp_layer_0/edge_mlp_layer_0/kernel``).
+``gnn/mp_layer_0/edge_mlp_layer_0/kernel``). With
+``use_intermediate_gnn_results`` the head receives ``(final, all
+representations)``, the second the initial projection's output and every
+message-passing layer's (reference graph_task_model.py:95-111).
 """
 from typing import Any, Dict, Optional
 
@@ -26,9 +29,8 @@ class GraphTaskModel(nn.Module):
         gnn_params = {key[len("gnn_"):]: value for key, value in params.items()
                       if key.startswith("gnn_")}
         self.gnn = GNN.from_params(gnn_params, input_dim, num_edge_types)
-        if params.get("use_intermediate_gnn_results", False):
-            raise NotImplementedError(
-                "use_intermediate_gnn_results=True is not ported.")
+        self.use_intermediate_gnn_results = bool(
+            params.get("use_intermediate_gnn_results", False))
 
     @classmethod
     def get_default_hyperparameters(
@@ -68,13 +70,21 @@ class GraphTaskModel(nn.Module):
         self.gnn.reset_parameters(generator)
 
     def compute_task_output(self, batch: GraphBatch, node_representations,
-                            training: bool):
+                            training: bool,
+                            generator: Optional[torch.Generator] = None):
+        """The task output from the final [V, H] node states, or from the
+        pair (final, all representations) when
+        ``use_intermediate_gnn_results`` is set; ``generator`` draws the
+        head's dropout masks in training."""
         raise NotImplementedError()
 
     def forward(self, batch: GraphBatch, training: bool = False,
                 generator: Optional[torch.Generator] = None):
-        final, _ = self.gnn(batch, training, generator)
-        return self.compute_task_output(batch, final, training)
+        final, all_reprs = self.gnn(batch, training, generator)
+        representations = ((final, all_reprs)
+                           if self.use_intermediate_gnn_results else final)
+        return self.compute_task_output(batch, representations, training,
+                                        generator)
 
     @staticmethod
     def compute_task_metrics(batch: GraphBatch, task_output,

@@ -53,7 +53,8 @@ class NodeMulticlassTask(GraphTaskModel):
         init_dense_(self.node_to_labels, generator)
 
     def compute_task_output(self, batch: GraphBatch, node_representations,
-                            training: bool):
+                            training: bool,
+                            generator: Optional[torch.Generator] = None):
         return (self.node_to_labels(node_representations),)
 
     @staticmethod

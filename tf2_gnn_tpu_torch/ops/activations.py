@@ -24,12 +24,21 @@ def _identity(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.leaky_relu(x, 0.2)``: ``where(x >= 0, x, 0.2 * x)``, slope
+    0.2 as tf.nn.leaky_relu's alpha (torch's default is 0.01). Its gradient
+    at exactly 0 is 1, the reference's; ``F.leaky_relu``'s is 0.2. Message
+    sums are exactly 0 wherever every in-neighbour's row is 0 (a node with
+    no in-edges feeds LayerNorm a constant row, whose output is the zero
+    bias at initialisation), so the choice shows in the gradients."""
+    return torch.where(x >= 0, x, 0.2 * x)
+
+
 _ACTIVATIONS = {
     "linear": _identity,
     "tanh": torch.tanh,
     "relu": torch.relu,
-    # tf.nn.leaky_relu's alpha=0.2 (torch's default slope is 0.01).
-    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.2),
+    "leaky_relu": leaky_relu,
     "elu": F.elu,
     "selu": F.selu,
     "gelu": gelu,

@@ -321,10 +321,23 @@ def sorted_segment_sum_plain(msgs, rel, block_ids, num_nodes: int,
                                                   r), num_nodes)
 
 
+def stream_scale(msgs, scale):
+    """B13's per-slot scale as the reference's kernel applies it: rounded
+    to bf16 (and read as f32 from there on) for a bf16 stream, which
+    ``_scaled_scatter_kernel`` does to ``onehot * scale`` before its
+    product (spmm_pallas.py:360-363); as it is for an f32 stream."""
+    if msgs.dtype == torch.bfloat16:
+        return scale.to(torch.bfloat16).float()
+    return scale
+
+
 def sorted_segment_sum_scaled_plain(msgs, scale, rel, block_ids,
                                     num_nodes: int):
-    """Plain PyTorch version of B13: the sum of ``msgs * scale`` (f32)."""
+    """Plain PyTorch version of B13: the sum of ``msgs * scale`` (f32),
+    with the scale of ``stream_scale`` (idempotent, so the wrapper's
+    rounded scale passes unchanged)."""
     r = _block_rows(num_nodes, None)
+    scale = stream_scale(msgs, scale)
     return segment_sum(msgs.float() * scale.reshape(-1, 1).float(),
                        _segment_ids(rel, block_ids, num_nodes, r), num_nodes)
 
@@ -434,8 +447,12 @@ def sorted_segment_sum(msgs, rel, block_ids, num_nodes: int,
 def sorted_segment_sum_scaled(msgs, scale, rel, block_ids, num_nodes: int):
     """B13: the sum of ``msgs[slot] * scale[slot]`` per output row (R =
     128), f32 [num_nodes, H]; ``msgs`` f32 or bf16, ``scale`` f32, one
-    value per slot."""
-    if _device_type("sorted_segment_sum_scaled", msgs) == "cpu":
+    value per slot. With bf16 ``msgs`` the scale is rounded to bf16 once,
+    here, before either route (``stream_scale``), so the kernel and the
+    plain version see the same value."""
+    device = _device_type("sorted_segment_sum_scaled", msgs)
+    scale = stream_scale(msgs, scale)
+    if device == "cpu":
         return sorted_segment_sum_scaled_plain(msgs, scale, rel, block_ids,
                                                num_nodes)
     out, _ = _launch("sorted_segment_sum_scaled_launch", msgs, scale, rel,

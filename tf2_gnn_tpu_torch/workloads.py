@@ -20,6 +20,13 @@ times on the scatter-plan route (its ``"sorted"`` path).
 ``rgat_eight_heads_params`` is the shipped PPI_RGAT at the head layout of
 GAT's transductive models (8 heads of 8 features), a layout whose
 attention sums take the hk-major aggregation kernel.
+
+The QM9-shaped workload is a numpy copy of ``bench.py::build_qm9_batch``:
+909 molecules of 18 nodes, 5 edge types of 11 random edges a molecule,
+V padded to 16384, 910 graph slots, 32 input features, per-type pair
+plans grouped from type 0 and one regression target a molecule.
+``qm9_shipped_params`` is the shipped QM9_RGCN configuration that
+``bench.py::measure_qm9`` times.
 """
 import json
 from pathlib import Path
@@ -31,6 +38,7 @@ from .data.graph_batch import (
     GraphBatch,
     PaddingConfig,
     pad_batch_arrays,
+    pad_graph_label_array,
     pad_node_label_array,
 )
 from .ops.pair_spmm import build_pair_plans, choose_pair_groups
@@ -44,6 +52,13 @@ GRAPHS_PER_BATCH = 3
 NUM_LABELS = 121
 FEATURE_DIM = 50
 NODE_BUDGET = 8064  # 63 * 128 node blocks
+
+QM9_MOLECULES = 909
+QM9_NODES_PER_MOLECULE = 18
+QM9_EDGE_TYPES = 5
+QM9_EDGES_PER_MOLECULE = 11  # per edge type
+QM9_NODE_BUDGET = 16384  # 128 * 128 node blocks
+QM9_FEATURE_DIM = 32
 
 
 def edge_mlp_default_params() -> Dict[str, Any]:
@@ -93,6 +108,23 @@ def shipped_params(hypers_file: str, style: str) -> Dict[str, Any]:
     params = NodeMulticlassTask.get_default_hyperparameters(style)
     params.update(shipped["model_params"])
     params["learning_rate"] = 0.001
+    return params
+
+
+def qm9_shipped_params() -> Dict[str, Any]:
+    """The shipped QM9_RGCN (``harness/default_hypers/QM9_RGCN.json``'s
+    model params over ``QM9RegressionTask.get_default_hyperparameters(
+    "rgcn")``): 8 layers, hidden 128, leaky_relu messages, residual every
+    2, LayerNorm, dense every 32 (at layer 0 only), a bf16 edge stream,
+    RMSProp (lr 0.000572, rho 0.98, momentum 0.85) with clipping by value
+    at 1.0, and from the GNN defaults the GRU global exchange at layers 2,
+    4 and 6 with dropout 0.2."""
+    from .models.qm9_regression_task import QM9RegressionTask
+
+    shipped = json.loads((Path(__file__).resolve().parent / "harness"
+                          / "default_hypers" / "QM9_RGCN.json").read_text())
+    params = QM9RegressionTask.get_default_hyperparameters("rgcn")
+    params.update(shipped["model_params"])
     return params
 
 
@@ -217,3 +249,67 @@ def build_ppi_batch(seed: int, device="cuda", merged: bool = False,
     batch = batch.to(dev)
     labels = {k: torch.as_tensor(v, device=dev) for k, v in labels.items()}
     return batch, labels, real_edges
+
+
+def build_qm9_batch_host(seed: int, molecules: int = QM9_MOLECULES,
+                         nodes_per_molecule: int = QM9_NODES_PER_MOLECULE,
+                         num_types: int = QM9_EDGE_TYPES,
+                         edges_per_molecule: int = QM9_EDGES_PER_MOLECULE,
+                         node_budget: int = QM9_NODE_BUDGET,
+                         feature_dim: int = QM9_FEATURE_DIM
+                         ) -> Tuple[GraphBatch, Dict[str, np.ndarray], int]:
+    """(host batch with per-type pair plans, labels, molecule count), the
+    arrays of ``bench.py::build_qm9_batch(seed)`` at the default counts.
+    Edge budgets round each type's edge count up to 512; the plans' groups
+    are chosen from type 0 alone, as the dataset path chooses them."""
+    rng = np.random.RandomState(seed)
+    v = molecules * nodes_per_molecule
+    base = (np.arange(molecules) * nodes_per_molecule)[:, None]
+    adjacency = []
+    for _ in range(num_types):
+        src = rng.randint(0, nodes_per_molecule,
+                          (molecules, edges_per_molecule))
+        tgt = rng.randint(0, nodes_per_molecule,
+                          (molecules, edges_per_molecule))
+        adjacency.append(np.stack(
+            [(src + base).reshape(-1), (tgt + base).reshape(-1)],
+            axis=1).astype(np.int32))
+    config = PaddingConfig(
+        num_nodes=node_budget,
+        num_graphs=molecules + 1,
+        edge_budgets=tuple(round_up(a.shape[0], 512) for a in adjacency),
+    )
+    batch = pad_batch_arrays(
+        node_features=rng.randn(v, feature_dim).astype(np.float32),
+        adjacency_lists=adjacency,
+        node_to_graph=np.repeat(np.arange(molecules, dtype=np.int32),
+                                nodes_per_molecule),
+        num_graphs=molecules,
+        config=config,
+    )
+    srcs = list(batch.edge_sources)
+    tgts = list(batch.edge_targets)
+    cnts = [int(c) for c in batch.num_edges]
+    gf, gb = choose_pair_groups([srcs[0]], [tgts[0]], [cnts[0]], node_budget)
+    typed = tuple(
+        build_pair_plans([srcs[t]], [tgts[t]], [cnts[t]], node_budget,
+                         group_fwd=gf, group_bwd=gb).astuple()
+        for t in range(num_types)
+    )
+    batch = batch.replace(pair_plans_typed=typed)
+    labels = {"target_value": pad_graph_label_array(
+        rng.randn(molecules).astype(np.float32), molecules + 1)}
+    return batch, labels, molecules
+
+
+def build_qm9_batch(seed: int, device="cuda", **counts):
+    """The QM9-shaped batch (per-type pair plans) and labels as tensors on
+    ``device``, and the molecule count; ``counts`` are
+    ``build_qm9_batch_host``'s keyword arguments."""
+    import torch
+
+    dev = resolve_device(device)
+    batch, labels, molecules = build_qm9_batch_host(seed, **counts)
+    batch = batch.to(dev)
+    labels = {k: torch.as_tensor(v, device=dev) for k, v in labels.items()}
+    return batch, labels, molecules
