@@ -10,10 +10,11 @@ Phases, each of which fails the run by raising:
 1. Build the hand-written CUDA kernels from ``tf2_gnn_tpu_torch/csrc``
    (one nvcc per source, started together) and print the card.
 2. PPI_RGCN on the per-type-plan PPI batch:
-   a. kernel checks at the real plan shapes: the joint kernel (K2, forward
-      layout) and the stream kernel (K1, backward layout with all-zero
-      types) against their plain PyTorch versions on the card, bf16
-      tables, f32 outputs;
+   a. kernel checks at the real plan shapes: the joint kernel (K2, over
+      the forward plan's compact form) and the stream kernel (K1, backward
+      layout with all-zero types) against their plain PyTorch versions (over
+      the plan arrays) on the card, bf16 tables, f32 outputs; two launches
+      of K2 bit-equal;
    b. the shipped PPI_RGCN model at full width (4 layers, hidden 320, bf16
       edge stream, input dropout 0.1, Adam at lr 1e-3), random weights
       from a seed: one eval forward held against the same model run
@@ -23,11 +24,14 @@ Phases, each of which fails the run by raising:
    c. timings (CUDA events): each kernel, its plain version and one
       PyTorch library call computing the same function
       (``torch.sparse.mm``, CSR built from the plan outside the timed
-      window), the train step and the eval forward.
+      window), the train step and the eval forward; for the SpMMs (K1, K2,
+      B3, P1, P2) and their library calls also the device time
+      (torch.profiler over 20 launches, at the end of the run, after every
+      path's step time; ``--profile`` traces each path's steps as it goes).
 3. PPI_RGAT on the merged-plan PPI batch, the same three steps:
-   a. the expd kernel (B8), one head's merged-plan SpMM (B3) and the fused
-      attention backward (B9) against their plain versions at the real
-      plan shapes;
+   a. the expd kernel (B8), one head's merged-plan SpMM (B3, over the
+      plan's compact form; two launches bit-equal) and the fused attention
+      backward (B9) against their plain versions at the real plan shapes;
    b. the shipped PPI_RGAT model at full width (3 layers, hidden 320, 4
       heads, tanh, bf16 edge stream, input dropout 0.1, Adam at lr 1e-3):
       the eval forward against the plain versions, then its main path
@@ -95,10 +99,10 @@ Phases, each of which fails the run by raising:
 8. The design probes at their own shapes: P1 (8 chunks a group) and P2
    (one) through B3's kernel on the probe's plans of the PPI edges merged
    over 3 types (bf16 [24192, 384] table), against B3's plain version and
-   the probe's own ``np.add.at`` check; P3 in f32 and bf16 at 8192 x 128
-   x 64 shifts against its plain version. Their run is the phase's main
-   path: each launch count set to 0 just before each probe and read just
-   after. Timings as in 2c; the library calls are ``torch.sparse.mm`` of
+   the probe's own ``np.add.at`` check, two launches bit-equal; P3 in f32
+   and bf16 at 8192 x 128 x 64 shifts against its plain version. Their
+   run is the phase's main path: each launch count set to 0 just before
+   each probe and read just after. Timings as in 2c; the library calls are ``torch.sparse.mm`` of
    the plan's CSR (P1, P2) and one ``torch.gather`` over all the shifted
    index sets, then a sum (P3).
 
@@ -177,6 +181,69 @@ def require_card():
     return torch.device("cuda", 0)
 
 
+def _self_device_us(event) -> float:
+    # The attribute's name changed across torch versions.
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0))
+
+
+def device_ms(fn, reps: int = KERNEL_REPS):
+    """The device time of one call of ``fn``: the time torch.profiler
+    records for the CUDA kernels (and copies) of ``reps`` calls, divided by
+    ``reps``; None where the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_self_device_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
+    return us / reps / 1e3 if us > 0 else None
+
+
+def add_device_times(entries) -> None:
+    """The device times of the entries that ``time_kernel`` marked
+    (``device_ms``, ``library_device_ms``), measured after every path's step
+    time: the profiler's tracing, once started, may slow the host's later
+    launches."""
+    for entry in entries:
+        if "_device_calls" not in entry:
+            continue
+        label, source_fn, lib_fn = entry.pop("_device_calls")
+        entry["device_ms"] = device_ms(source_fn)
+        entry["library_device_ms"] = (None if lib_fn is None
+                                      else device_ms(lib_fn))
+        log(f"device time: {label}: kernel {entry['device_ms']} ms, library "
+            f"call {entry['library_device_ms']} ms")
+
+
+def plain_version(plain):
+    """``plain`` under its wrapper's signature: the plan's compact form,
+    which only the kernel reads, is dropped."""
+    def call(*args, compact=None):
+        return plain(*args)
+    return call
+
+
+def check_repeatable(name: str, fn, first) -> None:
+    """A second launch of ``fn`` gives ``first`` bit for bit (a kernel
+    whose sums keep one order on every run)."""
+    import torch
+
+    second = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError(f"{name}: two launches differ (max abs diff "
+                             f"{float((first - second).abs().max())})")
+
+
 def time_ms(fn, reps: int = KERNEL_REPS, warmup: int = 3) -> float:
     import torch
 
@@ -227,15 +294,15 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_bound_ms(rows_read: int, h: int, itemsize: int, slots: int,
-                    chunks: int, groups: int, out_rows: int,
-                    valid_slots: int):
-    """The stream SpMM kernels' bound (K1, K2, B3): bytes = distinct table
-    rows read + the plan (12 B a slot, 4 B a chunk, 8 B a group) + the f32
-    output written once; operations = a multiply and an add per valid slot
-    and column."""
-    nbytes = (rows_read * h * itemsize + slots * 12 + chunks * 4
-              + groups * 8 + out_rows * h * 4)
+def kernel_bound_ms(rows_read: int, h: int, itemsize: int,
+                    valid_slots: int, out_rows: int):
+    """The SpMM's bound (K1, K2, B3, P1, P2), counting what the function
+    needs, whatever implements it: bytes = the distinct table rows read,
+    8 B a valid slot (its source index and scale), 4 B an output row
+    pointer and the f32 output written once; operations = a multiply and
+    an add per valid slot and column."""
+    nbytes = (rows_read * h * itemsize + valid_slots * 8
+              + (out_rows + 1) * 4 + out_rows * h * 4)
     return bound_ms(nbytes, 2.0 * valid_slots * h)
 
 
@@ -404,7 +471,8 @@ def rgcn_path(device, argv):
     model = model_from_params(params, device, plan.num_types,
                               "PPI_RGCN.json")
     check_eval_forward(model, batch, labels, [
-        (ps, "pair_spmm_stream_joint", ps.pair_spmm_stream_plain),
+        (ps, "pair_spmm_stream_joint",
+         plain_version(ps.pair_spmm_stream_plain)),
         (ps, "pair_spmm_stream", ps.pair_spmm_stream_plain)])
     per_step = params["gnn_num_layers"] * TRAIN_STEPS
     state, train_step, eval_step, launches = train_and_count(
@@ -434,7 +502,8 @@ def check_stream_kernels(plan, h: int, device):
     fwd_args, bwd_args = stream_args(plan, "fwd"), stream_args(plan, "bwd")
     fns = {
         "pair_stream_joint": (
-            lambda: ps.pair_spmm_stream_joint(tables, *fwd_args, v, v),
+            lambda: ps.pair_spmm_stream_joint(tables, *fwd_args, v, v,
+                                              compact=plan.fwd_rows),
             lambda: ps.pair_spmm_stream_plain(tables, *fwd_args, v, v)),
         "pair_stream": (
             lambda: ps.pair_spmm_stream(cot, *bwd_args, v, num_types * v),
@@ -446,10 +515,14 @@ def check_stream_kernels(plan, h: int, device):
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         errs[name] = check_close(name, got, want, KERNEL_RTOL, KERNEL_ATOL)
+        if name == "pair_stream_joint":
+            check_repeatable(name, kernel_fn, got)
         del got, want
     log(f"kernel check: pair_stream_joint max_abs_err "
-        f"{errs['pair_stream_joint']:.3e}, pair_stream max_abs_err "
-        f"{errs['pair_stream']:.3e} (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
+        f"{errs['pair_stream_joint']:.3e} (bit-equal across two launches), "
+        f"pair_stream max_abs_err {errs['pair_stream']:.3e} (rtol "
+        f"{KERNEL_RTOL}, atol {KERNEL_ATOL}); the compact form: "
+        f"{plan.fwd_rows.src_row.numel()} slots into {v} rows")
     return tables, cot, fns, errs
 
 
@@ -486,27 +559,32 @@ def stream_kernel_entries(plan, checked, launches):
              lambda: torch.sparse.mm(a_bwd, cot_f32), bwd_args, cot,
              num_types * v, rows_bwd, valid_bwd,
              "tf2_gnn_tpu/ops/pair_spmm.py:895")):
-        bound, bound_by = kernel_bound_ms(
-            rows, h, tab.element_size(), args[1].numel(),
-            args[3].numel(), args[4].numel(), out_rows, valid)
+        bound, bound_by = kernel_bound_ms(rows, h, tab.element_size(),
+                                          valid, out_rows)
         kernels.append(time_kernel(
             name, "tf2_gnn_tpu_torch/csrc/pair_stream.cu", replaces,
             launches[name], errs[name], *fns[name], lib_fn, lib32_fn,
             bound, bound_by,
             f"[{tab.shape[0]}, {h}] table, {valid} valid of "
-            f"{args[1].numel()} slots, {rows} distinct rows read"))
+            f"{args[1].numel()} slots, {rows} distinct rows read",
+            device=True))
     return kernels
 
 
 def time_kernel(name, source, replaces, launches, err, source_fn, plain_fn,
-                lib_fn, lib32_fn, bound, bound_by, detail):
+                lib_fn, lib32_fn, bound, bound_by, detail, device=False):
     """One entry of the kernels line: the kernel, its plain version and
-    (where there is one) the library call, timed with CUDA events."""
+    (where there is one) the library call, timed with CUDA events. With
+    ``device`` the kernel's and the library call's device times
+    (``device_ms``, ``library_device_ms``), which tell a host-bound wrapper
+    from a slow kernel, are added at the end of the run
+    (``add_device_times``) from the calls the entry keeps until then."""
     ms = time_ms(source_fn)
     plain_ms = time_ms(plain_fn)
     library_ms = None if lib_fn is None else time_ms(lib_fn)
     line = (f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({bound_by}), {detail}")
+
     if lib_fn is not None and lib32_fn is None:
         line += f"; library call {library_ms:.4f} ms"
     elif lib_fn is not None:
@@ -516,10 +594,13 @@ def time_kernel(name, source, replaces, launches, err, source_fn, plain_fn,
                  f"{library32_ms:.4f} ms (max abs diff to the kernel "
                  f"{lib_err:.2e})")
     log(line)
-    return {"name": name, "route": "cuda", "source": source,
+    entry = {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": library_ms}
+    if device:
+        entry["_device_calls"] = (f"{name}, {detail}", source_fn, lib_fn)
+    return entry
 
 
 def rgat_path(device, argv):
@@ -568,8 +649,10 @@ def rgat_path(device, argv):
     def b8_plain():
         return pa.pair_attention_expd_plain(scores, m, *plan.fwd, v, k)
 
+    compact = plan.fwd_rows(v, rows)
+
     def b3():
-        return ps.pair_spmm(head0, scale0, *plan.fwd, v)
+        return ps.pair_spmm(head0, scale0, *plan.fwd, v, compact=compact)
 
     def b3_plain():
         return ps.pair_spmm_plain(head0, scale0, *plan.fwd, v)
@@ -584,20 +667,25 @@ def rgat_path(device, argv):
 
     err8 = check_close("pair_attention_expd", b8(), expd_want, KERNEL_RTOL,
                        KERNEL_ATOL)
-    err3 = check_close("pair_spmm", b3(), b3_plain(), KERNEL_RTOL,
+    got3 = b3()
+    err3 = check_close("pair_spmm", got3, b3_plain(), KERNEL_RTOL,
                        KERNEL_ATOL)
+    check_repeatable("pair_spmm", b3, got3)
+    del got3
     err9 = max(check_close(f"pair_attention_bwd_fused {part}", got, want,
                            KERNEL_RTOL, KERNEL_ATOL)
                for part, got, want in zip(("d_ss", "d_ts", "d_table"),
                                           b9(), b9_plain()))
     torch.cuda.synchronize()
     log(f"kernel check: pair_attention_expd max_abs_err {err8:.3e}, "
-        f"pair_spmm max_abs_err {err3:.3e}, pair_attention_bwd_fused "
+        f"pair_spmm max_abs_err {err3:.3e} (bit-equal across two launches; "
+        f"compact form {compact.src_row.numel()} slots into {v} rows), "
+        f"pair_attention_bwd_fused "
         f"max_abs_err {err9:.3e} (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
 
     check_eval_forward(model, batch, labels, [
-        (ps, "pair_spmm", ps.pair_spmm_plain),
-        (pa, "pair_spmm", ps.pair_spmm_plain),
+        (ps, "pair_spmm", plain_version(ps.pair_spmm_plain)),
+        (pa, "pair_spmm", plain_version(ps.pair_spmm_plain)),
         (pa, "pair_attention_expd", pa.pair_attention_expd_plain),
         (pa, "pair_attention_bwd_fused", pa.pair_attention_bwd_fused_plain)])
     per_step = params["gnn_num_layers"] * TRAIN_STEPS
@@ -623,8 +711,7 @@ def rgat_path(device, argv):
         6.0 * fwd_valid * k)   # add, leaky, subtract, exp per slot and head
     a_s, a_s16, rows_read, _ = slot_matrix(srcabs, tgtabs, valid, scale0, v,
                                            rows)
-    b3_bound = kernel_bound_ms(rows_read, head0.shape[1], 2, fwd_slots,
-                               fwd_chunks, fwd_groups, v, fwd_valid)
+    b3_bound = kernel_bound_ms(rows_read, head0.shape[1], 2, fwd_valid, v)
     b_src, b_tgt, b_valid = ps.slot_abs_ids(*plan.bwd)
     bwd_valid = int(b_valid.sum())
     bwd_bytes = (plan.rel_src_b.numel() * 8 + plan.src_blk_b.numel() * 4
@@ -644,7 +731,8 @@ def rgat_path(device, argv):
                     lambda: torch.sparse.mm(a_s16, head0),
                     lambda: torch.sparse.mm(a_s, head0_f32), *b3_bound,
                     f"one head's launch, [{rows}, {head0.shape[1]}] bf16 "
-                    f"table, {fwd_valid} valid of {fwd_slots} slots"),
+                    f"table, {fwd_valid} valid of {fwd_slots} slots",
+                    device=True),
         time_kernel("pair_attention_expd",
                     "tf2_gnn_tpu_torch/csrc/pair_attention.cu",
                     "tf2_gnn_tpu/ops/pair_attention.py:427",
@@ -1165,8 +1253,8 @@ def typed_rgat_path(device, argv):
 
     counters = launch_counters()
     zero = zero_counts(counters)
-    patches = [(ps, "pair_spmm", ps.pair_spmm_plain),
-               (pa, "pair_spmm", ps.pair_spmm_plain)]
+    patches = [(ps, "pair_spmm", plain_version(ps.pair_spmm_plain)),
+               (pa, "pair_spmm", plain_version(ps.pair_spmm_plain))]
     patches += [(pa, name, getattr(pa, f"{name}_plain"))
                 for name in pa.LAUNCHES]
 
@@ -1275,8 +1363,9 @@ def typed_rgat_path(device, argv):
 
 def qm9_path(device, argv):
     """Phase 7: the shipped QM9_RGCN on the QM9-shaped batch through K2 and
-    K1, at the QM9 plan's shapes. Returns nothing for the kernels line
-    (K1 and K2 have their entries from phase 2); logs their times here."""
+    K1, at the QM9 plan's shapes. Returns their entries at this shape,
+    which stay off the kernels line (K1 and K2 have theirs from phase 2)
+    and are logged."""
     import torch
 
     from tf2_gnn_tpu_torch.models.qm9_regression_task import (
@@ -1319,7 +1408,8 @@ def qm9_path(device, argv):
     for reset, _ in counters:
         reset()
     check_eval_forward(model, batch, labels, [
-        (ps, "pair_spmm_stream_joint", ps.pair_spmm_stream_plain),
+        (ps, "pair_spmm_stream_joint",
+         plain_version(ps.pair_spmm_stream_plain)),
         (ps, "pair_spmm_stream", ps.pair_spmm_stream_plain)],
         QM9_LOGIT_RTOL, QM9_ATOL, QM9_LOSS_RTOL,
         shape=(batch.num_graphs_padded,))
@@ -1339,7 +1429,7 @@ def qm9_path(device, argv):
         f"{molecules / eval_ms * 1e3:.1f} molecules/s evaluating")
     del model, state, train_step, eval_step
     torch.cuda.empty_cache()
-    stream_kernel_entries(plan, checked, launches)
+    return stream_kernel_entries(plan, checked, launches)
 
 
 def launch_counters():
@@ -1423,6 +1513,8 @@ def probe_path(device, argv):
             raise AssertionError(f"{form} launched {counts}; expected "
                                  f"{kernel} once")
         launches[form] = counts[kernel]
+        if kernel == "pair_spmm":
+            check_repeatable(form, kernel_fn, got)
         want = plain_fn()
         errs[form] = check_close(form, got, want, KERNEL_RTOL, KERNEL_ATOL)
         if kernel == "pair_spmm":
@@ -1431,7 +1523,7 @@ def probe_path(device, argv):
                 raise AssertionError(f"{form}: rel-max error {probe_err} "
                                      "against the probe's np.add.at check")
             log(f"{form}: rel-max error vs the probe's numpy check "
-                f"{probe_err:.2e}")
+                f"{probe_err:.2e}; bit-equal across two launches")
         else:
             log(f"{form}: bit-equal to its plain version: "
                 f"{torch.equal(got, want)}")
@@ -1440,8 +1532,7 @@ def probe_path(device, argv):
                                      for form, err in errs.items())
         + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); launches {launches}")
 
-    # Bounds as PERF.md counts them: for P1/P2 the distinct table rows read,
-    # the plan (12 B a slot, 4 B a chunk and a group) and the f32 output;
+    # Bounds as PERF.md counts them: for P1/P2 B3's (``kernel_bound_ms``);
     # for P3 the table, the indices and the output once each, and one add
     # a shift and element. Library calls: torch.sparse.mm of the plan's
     # CSR; for P3 one torch.gather over all the shifted index sets, built
@@ -1455,16 +1546,14 @@ def probe_path(device, argv):
         src, tgt, valid = ps.slot_abs_ids(*p.kernel_args[1:])
         a32, a16, rows_read, n_valid = slot_matrix(src, tgt, valid,
                                                    p.kernel_args[0], v, rows)
-        bound = kernel_bound_ms(rows_read, h, 2, p.rel_src.numel(),
-                                p.src_blk.numel(), p.grp_tgt.numel(), v,
-                                n_valid)
+        bound = kernel_bound_ms(rows_read, h, 2, n_valid, v)
         kernels.append(time_kernel(
             name, "tf2_gnn_tpu_torch/csrc/pair_stream.cu", replaces[name],
             launches[name], errs[name], *fns[name],
             lambda a16=a16: torch.sparse.mm(a16, table),
             lambda a32=a32: torch.sparse.mm(a32, table_f32), *bound,
             f"B3's kernel, group {p.group}, bf16 [{rows}, {h}] table, "
-            f"{n_valid} valid of {p.rel_src.numel()} slots"))
+            f"{n_valid} valid of {p.rel_src.numel()} slots", device=True))
     shifted = (gidx.long()[None] + torch.arange(reps, device=device)[:, None,
                                                                      None]) % r
     for form, t in gtabs.items():
@@ -1516,9 +1605,10 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     kernels += typed_rgat_path(device, argv)
     torch.cuda.empty_cache()
-    qm9_path(device, argv)
+    qm9_entries = qm9_path(device, argv)
     torch.cuda.empty_cache()
     kernels += probe_path(device, argv)
+    add_device_times(kernels + qm9_entries)
     if len(kernels) != len({k["name"] for k in kernels}) or len(kernels) != 18:
         raise AssertionError(f"kernels line: {[k['name'] for k in kernels]}; "
                              "expected 18 distinct kernels")
@@ -1549,18 +1639,14 @@ def profile_step(train_step, state, batch, labels, step_ms: float,
             state, metrics = train_step(state, batch, labels)
         torch.cuda.synchronize()
 
-    def self_us(e):  # the attribute's name changed across torch versions
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     # A user annotation on the device (the optimizer's step) spans kernels
     # that are listed on their own, and the host gaps between them: it is
     # not kernel time.
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and self_us(e) > 0
+               if e.device_type == DeviceType.CUDA and _self_device_us(e) > 0
                and not getattr(e, "is_user_annotation", False)]
-    kernels.sort(key=self_us, reverse=True)
-    busy_ms = sum(self_us(e) for e in kernels) / steps / 1e3
+    kernels.sort(key=_self_device_us, reverse=True)
+    busy_ms = sum(_self_device_us(e) for e in kernels) / steps / 1e3
     log(f"profile: {steps} steps, kernel time {busy_ms:.3f} ms/step of a "
         f"{step_ms:.3f} ms unprofiled step (device busy share "
         f"{busy_ms / step_ms:.3f})")
@@ -1570,7 +1656,7 @@ def profile_step(train_step, state, batch, labels, step_ms: float,
     shown = [e for i, e in enumerate(kernels)
              if i < 15 or "(anonymous namespace)" in e.key]
     for e in shown:
-        log(f"  {self_us(e) / steps / 1e3:8.4f} ms/step  "
+        log(f"  {_self_device_us(e) / steps / 1e3:8.4f} ms/step  "
             f"{e.count // steps:4d}x  {e.key[:100]}")
 
 

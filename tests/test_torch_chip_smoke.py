@@ -29,7 +29,7 @@ def qm9_case():
 
 
 def _reordered_k2(tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-                  grp_type, v, out_rows):
+                  grp_type, v, out_rows, compact=None):
     """K2's sum over the same slots, added in a random order."""
     srcabs, tgtabs, valid = tps._stream_slot_abs_ids(
         rel_src, rel_tgt, src_blk, grp_tgt, grp_type, v)
@@ -40,7 +40,7 @@ def _reordered_k2(tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
 
 
 def _type1_doubled_k2(tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-                      grp_type, v, out_rows):
+                      grp_type, v, out_rows, compact=None):
     """K2 with edge type 1's scales doubled."""
     group = tps.plan_group(src_blk, grp_tgt)
     slot_type = grp_type.long().repeat_interleave(group * tps.E_C)
@@ -53,7 +53,8 @@ def _type1_doubled_k2(tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
 def _check(model, batch, labels):
     chip_smoke.check_eval_forward(
         model, batch, labels,
-        [(tps, "pair_spmm_stream_joint", tps.pair_spmm_stream_plain)],
+        [(tps, "pair_spmm_stream_joint",
+          chip_smoke.plain_version(tps.pair_spmm_stream_plain))],
         chip_smoke.QM9_LOGIT_RTOL, chip_smoke.QM9_ATOL,
         chip_smoke.QM9_LOSS_RTOL, shape=(batch.num_graphs_padded,))
 

@@ -1,15 +1,18 @@
 """The hand-written CUDA kernels (tf2_gnn_tpu_torch/csrc/pair_stream.cu:
-K1, K2 and B3; csrc/pair_attention.cu: B8, B9, B10 and B11;
-csrc/pair_edge_mlp.cu: B4, B5, B6 and B7; csrc/sorted_scatter.cu: B12, B13,
-B14 and B15; csrc/dyngather.cu: P3) against their plain PyTorch versions on
-the card, at small shapes with a ragged feature width, f32 and bf16 tables,
-plans with pad slots and an all-padding group (sorted plans: sentinel
-slots, an unused trailing chunk and an all-sentinel chunk of NaN rows; B11:
-targets with no in-edges and a pad head), and through the autograd ops (the
-attention op in its merged and per-type forms); K1/K2 also at a QM9-shaped
-plan (5 types, H = 128), B13 with a bf16 stream's rounded scale, and P1/P2
-through B3's kernel on the probe's plans. Marked
-``cuda``; each test skips without a card. On a machine with one:
+K1, and K2 and B3 over their plans' compact form; csrc/pair_attention.cu:
+B8, B9, B10 and B11; csrc/pair_edge_mlp.cu: B4, B5, B6 and B7;
+csrc/sorted_scatter.cu: B12, B13, B14 and B15; csrc/dyngather.cu: P3)
+against their plain PyTorch versions on the card, at small shapes with a
+ragged feature width, f32 and bf16 tables, plans with pad slots and an
+all-padding group (sorted plans: sentinel slots, an unused trailing chunk
+and an all-sentinel chunk of NaN rows; B11: targets with no in-edges and a
+pad head), and through the autograd ops (the attention op in its merged
+and per-type forms); K1/K2 also at a QM9-shaped plan (5 types, H = 128),
+B13 with a bf16 stream's rounded scale, and P1/P2 through B3's kernel on
+the probe's plans; B3's kernel on its vector (16-byte) and narrow paths,
+with an empty target row, targets past the output, clipped sources, a
+misaligned table and two launches bit-equal. Marked ``cuda``; each test
+skips without a card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -17,8 +20,9 @@ through B3's kernel on the probe's plans. Marked
 machines need not have.)
 
 Tolerance: rtol 1e-5 / atol 1e-5; both sides sum the same f32 products,
-the kernel in a run-dependent order (atomics), and B8/B9 take expf of the
-same f32 argument as torch.exp (each within 2 ulp). Gradients of the
+in other orders (run-dependent where a kernel adds with atomics; K2 and B3
+keep one order, and fuse each product into its add), and B8/B9 take expf
+of the same f32 argument as torch.exp (each within 2 ulp). Gradients of the
 attention op in bf16 are rounded to bf16 after those sums: rtol 1e-2 /
 atol 1e-4 there (one bf16 ulp). B15 and B11, maxes, match exactly, as
 does P3 (the same f32 adds in the same order).
@@ -27,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import plain_version
 from tf2_gnn_tpu_torch.ops import pair_attention as tpa
 from tf2_gnn_tpu_torch.ops import pair_edge_mlp as tpem
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
@@ -68,7 +73,7 @@ def test_kernels_match_plain_versions(device, dtype, h):
     bwd = (plan.scale_bwd, plan.rel_src_b, plan.rel_tgt_b, plan.src_blk_b,
            plan.grp_tgt_b, plan.type_b_zeros, v, num_types * v)
     before = dict(tps.LAUNCHES)
-    got = tps.pair_spmm_stream_joint(tables, *fwd)
+    got = tps.pair_spmm_stream_joint(tables, *fwd, compact=plan.fwd_rows)
     got_b = tps.pair_spmm_stream(cot, *bwd)
     torch.cuda.synchronize()
     assert tps.LAUNCHES["pair_stream_joint"] == before["pair_stream_joint"] + 1
@@ -94,7 +99,8 @@ def test_autograd_op_matches_plain_on_card(device):
 
     out, grad = run()
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tps, "pair_spmm_stream_joint", tps.pair_spmm_stream_plain)
+        mp.setattr(tps, "pair_spmm_stream_joint",
+                   plain_version(tps.pair_spmm_stream_plain))
         mp.setattr(tps, "pair_spmm_stream", tps.pair_spmm_stream_plain)
         out_p, grad_p = run()
     torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
@@ -132,9 +138,10 @@ def test_pair_spmm_matches_plain_version(device, dtype, h):
     scale = torch.rand((plan.rel_src_f.numel(),), generator=gen,
                        device=device)
     before = tps.LAUNCHES["pair_spmm"]
-    got = tps.pair_spmm(table, scale, *plan.fwd, v)
+    got = tps.pair_spmm(table, scale, *plan.fwd, v,
+                        compact=plan.fwd_rows(v, 3 * v))
     got_b = tps.pair_spmm(table[:v].contiguous(), plan.inv_bwd, *plan.bwd,
-                          3 * v)
+                          3 * v, compact=tps.slot_rows(*plan.bwd, v, 3 * v))
     torch.cuda.synchronize()
     assert tps.LAUNCHES["pair_spmm"] == before + 2
     torch.testing.assert_close(
@@ -191,8 +198,8 @@ def test_attention_op_matches_plain_on_card(device, dtype):
 
     got = run()
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tps, "pair_spmm", tps.pair_spmm_plain)
-        mp.setattr(tpa, "pair_spmm", tps.pair_spmm_plain)
+        mp.setattr(tps, "pair_spmm", plain_version(tps.pair_spmm_plain))
+        mp.setattr(tpa, "pair_spmm", plain_version(tps.pair_spmm_plain))
         mp.setattr(tpa, "pair_attention_expd", tpa.pair_attention_expd_plain)
         mp.setattr(tpa, "pair_attention_bwd_fused",
                    tpa.pair_attention_bwd_fused_plain)
@@ -565,8 +572,8 @@ def test_typed_attention_op_matches_plain_on_card(device, dtype, stabiliser,
         "pair_attention_max": 3 if stabiliser == "exact" else 0,
         "pair_attention_agg": 3 if k == 8 else 0}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tps, "pair_spmm", tps.pair_spmm_plain)
-        mp.setattr(tpa, "pair_spmm", tps.pair_spmm_plain)
+        mp.setattr(tps, "pair_spmm", plain_version(tps.pair_spmm_plain))
+        mp.setattr(tpa, "pair_spmm", plain_version(tps.pair_spmm_plain))
         for name in tpa.LAUNCHES:
             mp.setattr(tpa, name, getattr(tpa, f"{name}_plain"))
         want = run()
@@ -626,7 +633,8 @@ def test_stream_kernels_at_a_qm9_shaped_plan(device, dtype):
            plan.grp_tgt_fl, plan.grp_type_f, v, v)
     bwd = (plan.scale_bwd, plan.rel_src_b, plan.rel_tgt_b, plan.src_blk_b,
            plan.grp_tgt_b, plan.type_b_zeros, v, num_types * v)
-    torch.testing.assert_close(tps.pair_spmm_stream_joint(tables, *fwd),
+    torch.testing.assert_close(tps.pair_spmm_stream_joint(
+                                   tables, *fwd, compact=plan.fwd_rows),
                                tps.pair_spmm_stream_plain(tables, *fwd),
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(tps.pair_spmm_stream(cot, *bwd),
@@ -643,7 +651,8 @@ def test_stream_kernels_at_a_qm9_shaped_plan(device, dtype):
 
     got = run()
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tps, "pair_spmm_stream_joint", tps.pair_spmm_stream_plain)
+        mp.setattr(tps, "pair_spmm_stream_joint",
+                   plain_version(tps.pair_spmm_stream_plain))
         mp.setattr(tps, "pair_spmm_stream", tps.pair_spmm_stream_plain)
         want = run()
     for x, y in zip(got, want):
@@ -697,3 +706,76 @@ def test_dyngather_matches_plain_version(device, dtype, rows, cols, reps):
     assert probes.LAUNCHES["dyngather"] == before + 1
     assert got.dtype == torch.float32
     assert torch.equal(got, probes.dyngather_plain(table, idx, reps))
+
+
+def _row_owner_plan(seed, v=384, empty_row=7):
+    """A merged plan over 3 types of random edges, none into
+    ``empty_row``."""
+    rng = np.random.RandomState(seed)
+    srcs, tgts, counts = [], [], []
+    for _ in range(3):
+        e = rng.randint(v, 6 * v)
+        tgt = rng.randint(0, v, e)
+        tgt[tgt == empty_row] = empty_row + 1
+        srcs.append(rng.randint(0, v, e))
+        tgts.append(tgt)
+        counts.append(e)
+    return tps.MergedPlan(*tps.build_pair_plans(srcs, tgts, counts,
+                                                v).astuple())
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+@pytest.mark.parametrize("dtype,h", [
+    (torch.bfloat16, 320), (torch.bfloat16, 128), (torch.float32, 320),
+    (torch.float32, 128), (torch.float32, 5), (torch.float32, 81),
+    (torch.float32, 100), (torch.bfloat16, 5), (torch.bfloat16, 81),
+    (torch.bfloat16, 100)])
+def test_row_owner_kernel(device, dtype, h, cut):
+    """B3's wrapper over ``slot_rows``, on the vector path (H * itemsize a
+    multiple of 16 B) and the narrow one: the row without slots stores 0;
+    with ``cut`` the output stops short of the plan's targets (those slots
+    are dropped) and the table short of its sources (they clip); two
+    launches are bit-equal."""
+    v = 384
+    plan = _row_owner_plan(50).to(device)
+    table_rows, out_rows = (2 * v, v - 40) if cut else (3 * v, v)
+    gen = torch.Generator(device=device).manual_seed(51)
+    table = torch.randn((table_rows, h), generator=gen,
+                        device=device).to(dtype)
+    scale = torch.rand((plan.rel_src_f.numel(),), generator=gen,
+                       device=device)
+    compact = tps.slot_rows(*plan.fwd, table_rows, out_rows)
+    assert int(compact.row_ptr[7]) == int(compact.row_ptr[8])
+    src, tgt, valid = tps.slot_abs_ids(*plan.fwd)
+    assert bool((valid & (tgt >= out_rows)).any()) == cut
+    assert bool((valid & (src >= table_rows)).any()) == cut
+    before = tps.LAUNCHES["pair_spmm"]
+    got = tps.pair_spmm(table, scale, *plan.fwd, out_rows, compact=compact)
+    again = tps.pair_spmm(table, scale, *plan.fwd, out_rows,
+                          compact=compact)
+    torch.cuda.synchronize()
+    assert tps.LAUNCHES["pair_spmm"] == before + 2
+    assert torch.equal(got, again)
+    assert bool((got[7] == 0).all())
+    torch.testing.assert_close(
+        got, tps.pair_spmm_plain(table, scale, *plan.fwd, out_rows),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_row_owner_kernel_on_a_misaligned_table(device):
+    """A bf16 table whose rows are whole 16-byte vectors but whose start is
+    not 16-byte aligned takes the narrow path and gives the same sums."""
+    v, h = 384, 320
+    plan = _row_owner_plan(52).to(device)
+    gen = torch.Generator(device=device).manual_seed(53)
+    flat = torch.randn((3 * v * h + 1,), generator=gen,
+                       device=device).to(torch.bfloat16)
+    table = flat[1:].view(3 * v, h)
+    assert table.is_contiguous() and table.data_ptr() % 16 != 0
+    scale = torch.rand((plan.rel_src_f.numel(),), generator=gen,
+                       device=device)
+    got = tps.pair_spmm(table, scale, *plan.fwd, v,
+                        compact=plan.fwd_rows(v, 3 * v))
+    torch.testing.assert_close(
+        got, tps.pair_spmm_plain(table, scale, *plan.fwd, v), rtol=1e-5,
+        atol=1e-5)

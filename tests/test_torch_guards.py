@@ -138,12 +138,17 @@ class _CudaTensorStandIn:
     dtype = torch.float32
 
 
+# What a wrapper sees of a plan's compact form before it loads the library:
+# that it was given.
+_COMPACT_STAND_IN = object()
+
 # Every kernel wrapper: its launch counts and the positional arguments
-# after its first tensor.
+# after its first tensor (K2 and B3 end with the plan's compact form).
 WRAPPERS = {
     tps.pair_spmm_stream: (tps.LAUNCHES, (None,) * 6 + (128, 128)),
-    tps.pair_spmm_stream_joint: (tps.LAUNCHES, (None,) * 6 + (128, 128)),
-    tps.pair_spmm: (tps.LAUNCHES, (None,) * 5 + (128,)),
+    tps.pair_spmm_stream_joint: (
+        tps.LAUNCHES, (None,) * 6 + (128, 128, _COMPACT_STAND_IN)),
+    tps.pair_spmm: (tps.LAUNCHES, (None,) * 5 + (128, _COMPACT_STAND_IN)),
     tpa.pair_attention_expd: (tpa.LAUNCHES, (None,) * 5 + (128, 4)),
     tpa.pair_attention_bwd_fused: (tpa.LAUNCHES, (None,) * 8 + (128, 4)),
     tpa.pair_attention_max: (tpa.LAUNCHES, (None,) * 4 + (128, 4)),
@@ -172,6 +177,23 @@ def test_cuda_tensor_without_library_raises(wrapper, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         wrapper(_CudaTensorStandIn(), *args)
     assert launches == before
+
+
+@pytest.mark.parametrize("wrapper", [tps.pair_spmm_stream_joint,
+                                     tps.pair_spmm])
+def test_cuda_call_without_compact_form_raises(wrapper, monkeypatch,
+                                               tmp_path):
+    """K2 and B3 on a CUDA tensor without the plan's compact form raise
+    before they load the library: no per-call build, no fallback to the
+    plain version, no launch counted."""
+    launches, args = WRAPPERS[wrapper]
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    before = dict(launches)
+    with pytest.raises(ValueError, match="needs the plan's compact form"):
+        wrapper(_CudaTensorStandIn(), *args[:-1])
+    assert launches == before
+    assert not (tmp_path / "build").exists()
 
 
 def test_wrappers_refuse_other_devices():

@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tf2_gnn_tpu_torch"
@@ -91,11 +91,18 @@ def build_all(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source``, building it first if needed."""
+def load_library(source: str,
+                 signatures: Optional[Dict[str, tuple]] = None
+                 ) -> ctypes.CDLL:
+    """The loaded library of ``source``, building it first if needed.
+    ``signatures`` (``{entry: (restype, argtypes)}``) are set on the
+    library's functions once, when it is loaded."""
     lib = _LOADED.get(source)
     if lib is None:
         build_all([source])
         lib = ctypes.CDLL(str(library_path(source)))
+        for name, (restype, argtypes) in (signatures or {}).items():
+            fn = getattr(lib, name)  # CDLL keeps this object for the name
+            fn.restype, fn.argtypes = restype, argtypes
         _LOADED[source] = lib
     return lib

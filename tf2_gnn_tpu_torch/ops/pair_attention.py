@@ -512,19 +512,21 @@ def pair_attention_agg(table, expd, rel_src, rel_tgt, src_blk, grp_tgt,
 # The attention op.
 
 
-def _headmajor_sums(table, expd_f, fwd_plan, v: int, k: int):
+def _headmajor_sums(table, expd_f, plan: MergedPlan, v: int, k: int):
     """(denom, weighted) through K ``pair_spmm`` launches, one per head, on
     a head-major layout: head kk's table is its head_dim columns plus a
     column of ones, whose output column is the head's denominator; its
-    per-slot scale is row kk of ``expd_f``. The reference pads each head's
-    table to the TPU's 128-lane tile; the CUDA kernel masks the ragged
-    edge, so the port does not."""
+    per-slot scale is row kk of ``expd_f``. Every launch reads the plan's
+    one compact form (``plan.fwd_rows``, built at the batch's first
+    forward). The reference pads each head's table to the TPU's 128-lane
+    tile; the CUDA kernel masks the ragged edge, so the port does not."""
     rows = table.shape[0]
     head_dim = table.shape[1] // k
     heads_km = table.reshape(rows, head_dim, k).permute(2, 0, 1)
     t_heads = torch.cat(
         [heads_km, table.new_ones((k, rows, 1))], dim=2).contiguous()
-    outs = [pair_spmm(t_heads[kk], expd_f[kk], *fwd_plan, v)
+    compact = plan.fwd_rows(v, rows)
+    outs = [pair_spmm(t_heads[kk], expd_f[kk], *plan.fwd, v, compact=compact)
             for kk in range(k)]
     denom = torch.stack([o[:, head_dim] for o in outs], dim=-1)
     weighted = torch.stack([o[:, :head_dim] for o in outs],
@@ -562,7 +564,7 @@ def _launch_sums(table, scores, m_safe, plan: MergedPlan, v: int, k: int,
     expd_f = pair_attention_expd(scores, m_safe, *plan.fwd, v, k,
                                  src_space=src_space)
     if head_dim + 1 <= TILE and k <= 4 * h_tiles:
-        denom, weighted = _headmajor_sums(table, expd_f, plan.fwd, v, k)
+        denom, weighted = _headmajor_sums(table, expd_f, plan, v, k)
     else:
         denom, weighted = pair_attention_agg(table, expd_f, *plan.fwd, v, k)
     if plan.ovf_src.shape[0] == 0:  # no spilled edges (the common case)

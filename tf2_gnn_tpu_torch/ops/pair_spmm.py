@@ -14,13 +14,17 @@ forward runs the joint kernel (K2, ``pair_spmm_stream_joint``) and whose
 backward runs the stream kernel (K1, ``pair_spmm_stream``) over the
 backward plan. ``pair_spmm`` (B3) is the same SpMM over one direction of a
 merged plan (``MergedPlan``); RGAT's head-major sums run it once per head.
-All three kernels are hand-written CUDA (``csrc/pair_stream.cu``). Each
-wrapper runs its plain PyTorch version on a CPU tensor and launches the
-kernel on a CUDA tensor, or raises; there is no fallback between the two.
+All three kernels are hand-written CUDA (``csrc/pair_stream.cu``). K1 reads
+the plan arrays; K2 and B3 read the plan direction's compact form
+(``slot_rows``: its valid slots as a CSR over output rows), which each plan
+object builds at first read and keeps, so it is built once per batch. Each
+wrapper runs its plain PyTorch version (over the plan arrays) on a CPU
+tensor and launches the kernel on a CUDA tensor, or raises; there is no
+fallback between the two.
 """
 import ctypes
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -466,7 +470,9 @@ class StreamJointPlan:
     concatenated per-type plans with LOCAL forward output blocks and LOCAL
     overflow targets (sentinel ``v_out``), and the all-zero backward types
     (one un-broadcast [Vo, H] cotangent slab). Built once per batch on the
-    host (``stream_joint_plan``) and moved with ``.to(device)``."""
+    host (``stream_joint_plan``) and moved with ``.to(device)``; the forward
+    direction's compact form (``fwd_rows``) is built at its first read and
+    kept (a moved plan starts without it)."""
 
     scale_fwd: object
     scale_bwd: object
@@ -486,12 +492,25 @@ class StreamJointPlan:
     v_src: int
     v_out: int
     num_types: int
+    _rows: Dict[object, "SlotRows"] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     def to(self, device) -> "StreamJointPlan":
         """Every array field as a tensor on ``device``."""
         return dataclasses.replace(self, **{
             f.name: as_tensor(getattr(self, f.name), device)
             for f in dataclasses.fields(self) if f.type is object})
+
+    @property
+    def fwd_rows(self) -> "SlotRows":
+        """The forward direction's compact form, which K2 reads: sources in
+        the stacked [L * v_src] table, targets in [v_out]."""
+        if "fwd" not in self._rows:
+            self._rows["fwd"] = slot_rows(
+                self.rel_src_f, self.rel_tgt_f, self.src_blk_f,
+                self.grp_tgt_fl, self.num_types * self.v_src, self.v_out,
+                self.grp_type_f, self.v_src)
+        return self._rows["fwd"]
 
 
 def stream_joint_plan(plans_typed, v_src: int,
@@ -521,7 +540,8 @@ class MergedPlan:
     batch from the host tuple (``MergedPlan(*arrays, out_rows=...)``) and
     moved with ``.to(device)``. ``out_rows`` is the forward output row
     count: V, or L * V for merged targets (None where the caller passes
-    it)."""
+    it). The forward direction's compact forms (``fwd_rows``) are built at
+    their first read and kept (a moved plan starts without them)."""
 
     rel_src_f: object
     rel_tgt_f: object
@@ -537,10 +557,20 @@ class MergedPlan:
     inv_bwd: object
     inv_ovf: object
     out_rows: Optional[int] = None
+    _rows: Dict[object, "SlotRows"] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def fwd(self) -> tuple:
         return (self.rel_src_f, self.rel_tgt_f, self.src_blk_f, self.grp_tgt_f)
+
+    def fwd_rows(self, out_rows: int, table_rows: int) -> "SlotRows":
+        """The forward direction's compact form into ``out_rows`` rows from
+        a table of ``table_rows``, which B3 reads."""
+        key = (out_rows, table_rows)
+        if key not in self._rows:
+            self._rows[key] = slot_rows(*self.fwd, table_rows, out_rows)
+        return self._rows[key]
 
     @property
     def bwd(self) -> tuple:
@@ -609,6 +639,49 @@ def _stream_slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt, grp_type,
     return ty * v + srcabs, tgtabs, valid
 
 
+@dataclasses.dataclass(frozen=True)
+class SlotRows:
+    """The compact form of one plan direction (``slot_rows``): its ``n``
+    valid slots with a target row in the output, sorted stably by target
+    row into a CSR. Row ``t``'s slots are ``row_ptr[t]:row_ptr[t + 1]``, in
+    ascending slot order; ``src_row`` is each one's absolute table row
+    (clipped into the table) and ``slot`` its plan slot, whose per-call
+    scale is ``scale[slot]``. Built with torch ops on the plan's device."""
+
+    row_ptr: torch.Tensor    # int32 [out_rows + 1]
+    src_row: torch.Tensor    # int32 [n]
+    slot: torch.Tensor       # int32 [n]
+    table_rows: int
+    out_rows: int
+    num_slots: int           # the plan direction's slots (a scale's length)
+
+
+def slot_rows(rel_src, rel_tgt, src_blk, grp_tgt, table_rows: int,
+              out_rows: int, grp_type=None, v: int = 0) -> SlotRows:
+    """The compact form of one plan direction, as K2 and B3 read it.
+
+    A slot is valid where ``rel_src < BLK`` and ``rel_tgt < BLK``; its
+    source row is ``src_blk[chunk] * BLK + rel_src``, plus ``grp_type[g] *
+    v`` where ``grp_type`` is given (the streamed layout), clipped into
+    ``[0, table_rows)`` as the twins' ``jnp.take(mode="clip")``; a target
+    outside ``[0, out_rows)`` drops the slot (segment-sum semantics). No
+    slot's position in its chunk is assumed."""
+    if grp_type is None:
+        src, tgt, valid = slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt)
+    else:
+        src, tgt, valid = _stream_slot_abs_ids(rel_src, rel_tgt, src_blk,
+                                               grp_tgt, grp_type, v)
+    kept = torch.nonzero(valid & (tgt >= 0) & (tgt < out_rows)).reshape(-1)
+    tgt = tgt[kept]
+    slot = kept[torch.sort(tgt, stable=True).indices]
+    counts = torch.bincount(tgt, minlength=out_rows)
+    row_ptr = torch.cat([counts.new_zeros((1,)), torch.cumsum(counts, 0)])
+    return SlotRows(row_ptr.to(torch.int32),
+                    torch.clamp(src[slot], 0, table_rows - 1).to(torch.int32),
+                    slot.to(torch.int32), table_rows, out_rows,
+                    rel_src.numel())
+
+
 def pair_spmm_stream_plain(tables, scale, rel_src, rel_tgt, src_blk,
                            grp_tgt, grp_type, v: int, out_rows: int):
     """Plain PyTorch version of K1 and K2: gather every slot's row
@@ -641,35 +714,60 @@ def _scatter_slots(tables, scale, srcabs, tgtabs, valid, out_rows: int):
     return out[:out_rows]
 
 
-def _launch(entry: str, tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-            grp_type, v: int, out_rows: int):
-    """Launch one CUDA kernel of ``csrc/pair_stream.cu`` on the current
-    stream into a fresh zero-initialised f32 output. ``grp_type`` None
-    reads every group as type 0 (B3)."""
+_INT, _INT64, _PTR = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+# (restype, argtypes) of the library's C entry points, set once at load.
+_ROW_OWNER_ARGTYPES = [_INT, _INT, _PTR, _INT, _PTR, _PTR, _PTR, _PTR,
+                       _INT64, _PTR, _PTR]
+_SIGNATURES = {
+    "pair_stream_launch": (ctypes.c_int, [
+        _INT, _INT, _PTR, _INT64, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+        _INT, _INT, _INT, _PTR, _INT64, _PTR]),
+    "pair_stream_joint_launch": (ctypes.c_int, _ROW_OWNER_ARGTYPES),
+    "pair_spmm_launch": (ctypes.c_int, _ROW_OWNER_ARGTYPES),
+    "pair_stream_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def _library():
     from .cuda_build import load_library
 
-    lib = load_library(_SOURCE)
+    return load_library(_SOURCE, _SIGNATURES)
+
+
+def _raise_on(lib, entry: str, err: int) -> None:
+    if err != 0:
+        msg = lib.pair_stream_error_string(err).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
+
+
+def _check_table(entry: str, tables, scale) -> None:
     if tables.dtype not in _DTYPE_CODES:
         raise TypeError(f"{entry}: tables must be float32 or bfloat16, "
                         f"got {tables.dtype}")
     if tables.dim() != 2 or not tables.is_contiguous():
         raise ValueError(f"{entry}: tables must be a contiguous 2-D tensor")
+    if (scale.dtype != torch.float32 or not scale.is_contiguous()
+            or scale.device != tables.device):
+        raise TypeError(f"{entry}: scale must be contiguous float32 on the "
+                        "tables' device")
+
+
+def _launch(entry: str, tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
+            grp_type, v: int, out_rows: int):
+    """Launch K1 (``pair_stream_kernel``) on the current stream into a
+    fresh zero-initialised f32 output (it adds with atomics)."""
+    lib = _library()
+    _check_table(entry, tables, scale)
     ints = {"rel_src": rel_src, "rel_tgt": rel_tgt, "src_blk": src_blk,
-            "grp_tgt": grp_tgt}
-    if grp_type is not None:
-        ints["grp_type"] = grp_type
-        if grp_type.shape != grp_tgt.shape:
-            raise ValueError(f"{entry}: grp_type and grp_tgt differ in shape")
+            "grp_tgt": grp_tgt, "grp_type": grp_type}
     for name, a in ints.items():
         if a.dtype != torch.int32 or not a.is_contiguous():
             raise TypeError(f"{entry}: {name} must be contiguous int32")
         if a.device != tables.device:
             raise ValueError(f"{entry}: {name} is on {a.device}, tables on "
                              f"{tables.device}")
-    if (scale.dtype != torch.float32 or not scale.is_contiguous()
-            or scale.device != tables.device):
-        raise TypeError(f"{entry}: scale must be contiguous float32 on the "
-                        "tables' device")
+    if grp_type.shape != grp_tgt.shape:
+        raise ValueError(f"{entry}: grp_type and grp_tgt differ in shape")
     num_chunks = src_blk.shape[0]
     group = plan_group(src_blk, grp_tgt)
     num_groups = grp_tgt.shape[0]
@@ -679,70 +777,101 @@ def _launch(entry: str, tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
         raise ValueError(f"{entry}: inconsistent plan shapes")
     h = tables.shape[1]
     out = torch.zeros((out_rows, h), dtype=torch.float32, device=tables.device)
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_void_p]
     stream = torch.cuda.current_stream(tables.device).cuda_stream
-    err = fn(tables.device.index or 0, _DTYPE_CODES[tables.dtype],
-             tables.data_ptr(), tables.shape[0], h, scale.data_ptr(),
-             rel_src.data_ptr(), rel_tgt.data_ptr(), src_blk.data_ptr(),
-             grp_tgt.data_ptr(),
-             None if grp_type is None else grp_type.data_ptr(), num_groups,
-             group, v, out.data_ptr(), out_rows, stream)
-    if err != 0:
-        lib.pair_stream_error_string.restype = ctypes.c_char_p
-        lib.pair_stream_error_string.argtypes = [ctypes.c_int]
-        msg = lib.pair_stream_error_string(err).decode()
-        raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
+    _raise_on(lib, entry, getattr(lib, entry)(
+        tables.device.index or 0, _DTYPE_CODES[tables.dtype],
+        tables.data_ptr(), tables.shape[0], h, scale.data_ptr(),
+        rel_src.data_ptr(), rel_tgt.data_ptr(), src_blk.data_ptr(),
+        grp_tgt.data_ptr(), grp_type.data_ptr(), num_groups, group, v,
+        out.data_ptr(), out_rows, stream))
     return out
 
 
-def _dispatch(name: str, entry: str, tables, *args):
-    if tables.device.type == "cpu":
-        return pair_spmm_stream_plain(tables, *args)
-    if tables.device.type != "cuda":
+def _launch_rows(entry: str, tables, scale, compact: SlotRows,
+                 out_rows: int):
+    """Launch the row-owner kernel of K2 and B3 on the current stream over
+    the plan's compact form; every output element is stored once, so the
+    output is not initialised. The compact form's own tensors were checked
+    when it was built; here only its sizes are held to the call's."""
+    lib = _library()
+    _check_table(entry, tables, scale)
+    if (compact.out_rows != out_rows or compact.table_rows != tables.shape[0]
+            or compact.num_slots != scale.numel()):
+        raise ValueError(
+            f"{entry}: the compact form is of a [{compact.table_rows}]-row "
+            f"table into {compact.out_rows} rows over {compact.num_slots} "
+            f"slots; the call has a [{tables.shape[0]}]-row table, "
+            f"{out_rows} output rows and {scale.numel()} scales")
+    if compact.row_ptr.device != tables.device:
+        raise ValueError(f"{entry}: the compact form is on "
+                         f"{compact.row_ptr.device}, tables on "
+                         f"{tables.device}")
+    h = tables.shape[1]
+    out = torch.empty((out_rows, h), dtype=torch.float32, device=tables.device)
+    stream = torch.cuda.current_stream(tables.device).cuda_stream
+    _raise_on(lib, entry, getattr(lib, entry)(
+        tables.device.index or 0, _DTYPE_CODES[tables.dtype],
+        tables.data_ptr(), h, scale.data_ptr(), compact.row_ptr.data_ptr(),
+        compact.src_row.data_ptr(), compact.slot.data_ptr(), out_rows,
+        out.data_ptr(), stream))
+    return out
+
+
+def _on_cpu(name: str, tables) -> bool:
+    if tables.device.type not in ("cpu", "cuda"):
         raise TypeError(f"{name}: unsupported device {tables.device}")
-    out = _launch(entry, tables, *args)
-    LAUNCHES[name] += 1
-    return out
+    return tables.device.type == "cpu"
+
+
+def _require_compact(name: str, compact) -> None:
+    if compact is None:
+        raise ValueError(
+            f"{name}: a CUDA call needs the plan's compact form (compact=, "
+            "from slot_rows or the plan's fwd_rows), built once per batch")
 
 
 def pair_spmm_stream(tables, scale, rel_src, rel_tgt, src_blk, grp_tgt_g,
                      grp_type, v: int, out_rows: int):
     """K1, the streamed per-type kernel: f32 [out_rows, H] with GLOBAL
     output blocks ``grp_tgt_g``; ``tables`` [L*v, H] f32 or bf16."""
-    return _dispatch("pair_stream", "pair_stream_launch", tables, scale,
-                     rel_src, rel_tgt, src_blk, grp_tgt_g, grp_type, v,
-                     out_rows)
+    args = (scale, rel_src, rel_tgt, src_blk, grp_tgt_g, grp_type, v,
+            out_rows)
+    if _on_cpu("pair_stream", tables):
+        return pair_spmm_stream_plain(tables, *args)
+    out = _launch("pair_stream_launch", tables, *args)
+    LAUNCHES["pair_stream"] += 1
+    return out
 
 
 def pair_spmm_stream_joint(tables, scale, rel_src, rel_tgt, src_blk,
-                           grp_tgt_l, grp_type, v: int, v_out: int):
+                           grp_tgt_l, grp_type, v: int, v_out: int,
+                           compact: Optional[SlotRows] = None):
     """K2, the joint kernel: the sum over all types into f32 [v_out, H],
-    with LOCAL output blocks ``grp_tgt_l``."""
-    return _dispatch("pair_stream_joint", "pair_stream_joint_launch", tables,
-                     scale, rel_src, rel_tgt, src_blk, grp_tgt_l, grp_type,
-                     v, v_out)
+    with LOCAL output blocks ``grp_tgt_l``. On the card it reads only the
+    plan's ``compact`` form (``StreamJointPlan.fwd_rows``) and the scales;
+    on the CPU the plain version reads the plan arrays."""
+    if _on_cpu("pair_stream_joint", tables):
+        return pair_spmm_stream_plain(tables, scale, rel_src, rel_tgt,
+                                      src_blk, grp_tgt_l, grp_type, v, v_out)
+    _require_compact("pair_stream_joint", compact)
+    out = _launch_rows("pair_stream_joint_launch", tables, scale, compact,
+                       v_out)
+    LAUNCHES["pair_stream_joint"] += 1
+    return out
 
 
 def pair_spmm(table, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-              out_rows: int):
+              out_rows: int, compact: Optional[SlotRows] = None):
     """B3, the merged-plan kernel: ``out[tgt] += scale * table[src]`` over
     one plan direction into f32 [out_rows, H] (``table`` [rows, H] f32 or
-    bf16, ``scale`` a contiguous f32 row of one value per slot). It is K1
-    with every group of type 0 and global output blocks."""
-    if table.device.type == "cpu":
+    bf16, ``scale`` a contiguous f32 row of one value per slot). On the card
+    it reads only the direction's ``compact`` form (``slot_rows``) and the
+    scales; on the CPU the plain version reads the plan arrays."""
+    if _on_cpu("pair_spmm", table):
         return pair_spmm_plain(table, scale, rel_src, rel_tgt, src_blk,
                                grp_tgt, out_rows)
-    if table.device.type != "cuda":
-        raise TypeError(f"pair_spmm: unsupported device {table.device}")
-    out = _launch("pair_spmm_launch", table, scale, rel_src, rel_tgt,
-                  src_blk, grp_tgt, None, 0, out_rows)
+    _require_compact("pair_spmm", compact)
+    out = _launch_rows("pair_spmm_launch", table, scale, compact, out_rows)
     LAUNCHES["pair_spmm"] += 1
     return out
 
@@ -751,13 +880,14 @@ class PairStreamJoint(torch.autograd.Function):
     """JOINT sum over types, f32 [Vo, H]: ``out[t] = sum over ALL edges
     (u -> t, type l) of scale_e * tables[l*Vs + u]``.
 
-    Forward: the tables cast to ``stream_dtype``, the joint kernel K2, plus
-    the overflow edges in plain torch. Backward: the stream kernel K1 over
-    the backward plan with all-zero types, so every backward group reads
-    the one un-broadcast [Vo, H] cotangent slab. Unlike the TPU, where a
-    VMEM budget routes large windows to stream-plus-reduce, the joint output
-    always lives in device memory here, so the forward is always the joint
-    kernel.
+    Forward: the tables cast to ``stream_dtype``, the joint kernel K2 over
+    the plan's compact form (``plan.fwd_rows``, built at the batch's first
+    forward), plus the overflow edges in plain torch. Backward: the stream
+    kernel K1 over the backward plan with all-zero types, so every backward
+    group reads the one un-broadcast [Vo, H] cotangent slab. Unlike the
+    TPU, where a VMEM budget routes large windows to stream-plus-reduce, the
+    joint output always lives in device memory here, so the forward is
+    always the joint kernel.
 
     The cast to the stream dtype happens inside the op so that the table
     gradient leaves it in f32: in the reference the transpose of
@@ -772,7 +902,7 @@ class PairStreamJoint(torch.autograd.Function):
         out = pair_spmm_stream_joint(
             tables, scale_fwd, plan.rel_src_f, plan.rel_tgt_f,
             plan.src_blk_f, plan.grp_tgt_fl, plan.grp_type_f, plan.v_src,
-            plan.v_out)
+            plan.v_out, compact=plan.fwd_rows)
         if plan.ovf_src.shape[0]:
             msgs = tables[plan.ovf_src.long()].to(torch.float32)
             msgs = msgs * ovf_scale[:, None]

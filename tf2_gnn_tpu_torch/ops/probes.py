@@ -12,9 +12,10 @@ plan builders; the probes' timing harness is not ported.
 Both are B3's function on B3's own plan encoding (``rel_src``/``rel_tgt``
 [C, 128] with sentinel 128, ``src_blk`` [C], the group's target block
 ``grp_tgt = tgt_blk[::group]``), so both launch B3's kernel
-(``csrc/pair_stream.cu::pair_spmm_kernel``) through ``pair_spmm``, which
-takes any group: 1 for P2, 8 for P1. The plan's f32 scale row is the
-kernel's scale; the TPU probes round ``onehot * scale`` and each (row, row)
+(``csrc/pair_stream.cu::row_owner_kernel``) through ``pair_spmm`` over
+the plan's compact form (``ProbePlan.fwd_rows``), whatever the group: 1
+for P2, 8 for P1. The plan's f32 scale row is the kernel's scale; the TPU
+probes round ``onehot * scale`` and each (row, row)
 pair sum to bf16 before their products, which is exact for the unit
 scales and multiplicities below 256 that the planner emits. The plain
 version is ``pair_spmm_plain``.
@@ -32,13 +33,22 @@ kernel on a CUDA tensor, or raises.
 """
 import ctypes
 import dataclasses
+from typing import Dict
 
 import numpy as np
 import torch
 
 from ..utils.device import as_tensor
 from .pair_edge_mlp import _device_type
-from .pair_spmm import BLK, E_C, _DTYPE_CODES, pair_spmm, plan_group
+from .pair_spmm import (
+    BLK,
+    E_C,
+    _DTYPE_CODES,
+    SlotRows,
+    pair_spmm,
+    plan_group,
+    slot_rows,
+)
 
 # Launch counts of the CUDA kernels of this module: the wrapper adds one
 # where it launches its kernel, and nowhere else. P1 and P2 launch B3's
@@ -136,13 +146,17 @@ def regroup_for_unroll(rel_src, rel_tgt, scale, src_blk, tgt_blk,
 class ProbePlan:
     """A probe's plan as B3's kernel reads it: ``rel_src``/``rel_tgt``
     [C, E_C], the f32 ``scale`` [C, E_C], ``src_blk`` [C] and the groups'
-    target blocks ``grp_tgt`` [C // group]."""
+    target blocks ``grp_tgt`` [C // group]. Its compact forms
+    (``fwd_rows``) are built at their first read and kept (a moved plan
+    starts without them)."""
 
     rel_src: object
     rel_tgt: object
     scale: object
     src_blk: object
     grp_tgt: object
+    _rows: Dict[tuple, SlotRows] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def group(self) -> int:
@@ -151,7 +165,7 @@ class ProbePlan:
     def to(self, device) -> "ProbePlan":
         return dataclasses.replace(self, **{
             f.name: as_tensor(getattr(self, f.name), device)
-            for f in dataclasses.fields(self)})
+            for f in dataclasses.fields(self) if f.init})
 
     @property
     def kernel_args(self) -> tuple:
@@ -159,6 +173,15 @@ class ProbePlan:
         arguments of ``pair_spmm`` / ``pair_spmm_plain``."""
         return (self.scale.reshape(-1), self.rel_src, self.rel_tgt,
                 self.src_blk, self.grp_tgt)
+
+    def fwd_rows(self, out_rows: int, table_rows: int) -> SlotRows:
+        """The plan's compact form (``slot_rows``), which B3's kernel
+        reads."""
+        key = (out_rows, table_rows)
+        if key not in self._rows:
+            self._rows[key] = slot_rows(*self.kernel_args[1:], table_rows,
+                                        out_rows)
+        return self._rows[key]
 
 
 def chunked_plan(src, tgt, num_rows: int, num_nodes: int) -> ProbePlan:
@@ -187,7 +210,8 @@ def pair_spmm_chunked(table, plan: ProbePlan, num_nodes: int):
     if plan.group != 1:
         raise ValueError(f"pair_spmm_chunked: plan has {plan.group} chunks "
                          "a group, expected 1")
-    return pair_spmm(table, *plan.kernel_args, num_nodes)
+    return pair_spmm(table, *plan.kernel_args, num_nodes,
+                     compact=plan.fwd_rows(num_nodes, table.shape[0]))
 
 
 def pair_spmm_unrolled(table, plan: ProbePlan, num_nodes: int,
@@ -197,7 +221,8 @@ def pair_spmm_unrolled(table, plan: ProbePlan, num_nodes: int,
     if plan.group != group:
         raise ValueError(f"pair_spmm_unrolled: plan has {plan.group} chunks "
                          f"a group, expected {group}")
-    return pair_spmm(table, *plan.kernel_args, num_nodes)
+    return pair_spmm(table, *plan.kernel_args, num_nodes,
+                     compact=plan.fwd_rows(num_nodes, table.shape[0]))
 
 
 def dyngather_plain(table, idx, reps: int):
