@@ -10,11 +10,11 @@ Phases, each of which fails the run by raising:
 1. Build the hand-written CUDA kernels from ``tf2_gnn_tpu_torch/csrc``
    (one nvcc per source, started together) and print the card.
 2. PPI_RGCN on the per-type-plan PPI batch:
-   a. kernel checks at the real plan shapes: the joint kernel (K2, over
-      the forward plan's compact form) and the stream kernel (K1, backward
-      layout with all-zero types) against their plain PyTorch versions (over
-      the plan arrays) on the card, bf16 tables, f32 outputs; two launches
-      of K2 bit-equal;
+   a. kernel checks at the real plan shapes: the joint SpMM (K2, over the
+      forward plan's compact form) and the stream SpMM (K1, over the
+      backward plan's, all-zero types) against their plain PyTorch versions
+      (over the plan arrays) on the card, bf16 tables, f32 outputs; two
+      launches of each bit-equal;
    b. the shipped PPI_RGCN model at full width (4 layers, hidden 320, bf16
       edge stream, input dropout 0.1, Adam at lr 1e-3), random weights
       from a seed: one eval forward held against the same model run
@@ -25,7 +25,7 @@ Phases, each of which fails the run by raising:
       PyTorch library call computing the same function
       (``torch.sparse.mm``, CSR built from the plan outside the timed
       window), the train step and the eval forward; for the SpMMs (K1, K2,
-      B3, P1, P2) and their library calls also the device time
+      B3, B12, P1, P2) and their library calls also the device time
       (torch.profiler over 20 launches, at the end of the run, after every
       path's step time; ``--profile`` traces each path's steps as it goes).
 3. PPI_RGAT on the merged-plan PPI batch, the same three steps:
@@ -55,11 +55,15 @@ Phases, each of which fails the run by raising:
 5. The scatter-plan PPI batch (``bench.py``'s ``"sorted"`` path), two
    models on one batch, the same three steps:
    a. the sorted-scatter kernels against their plain versions at the real
-      plan shapes, in all four call forms: B13 in forward (f32 [245760,
+      plan shapes, in all their call forms: B13 in forward (f32 [245760,
       320] into the 8064 target rows) and backward layout (f32 [311296,
-      320] into the 24192 source rows), B12 with a bf16 [311296, 324]
-      stream (R = 128) and an f32 [245760, 4] one (R = 384), B14 (f32 expd
-      and a strided f32 message view) and B15 (exactly);
+      320] into the 24192 source rows); B12 over the plan's compact forms,
+      each form bit-equal across two launches: the stream form (a bf16
+      [311296, 324] stream, R = 128), the gathered form (``plan_gather_src``'s
+      gradient: a bf16 [245760, 324] cotangent read through
+      ``bwd_to_fwd_idx``) and the typed form (an f32 [245760, 4] stream,
+      R = 384); B14 (f32 expd and a strided f32 message view) and B15
+      (exactly);
    b. ``workloads.rgcn_sorted_params()`` (PPI_RGCN as the bench's sorted
       path runs it: 4 layers, hidden 320, f32 edge stream) and the shipped
       PPI_RGAT on its sorted fallback: each model's eval forward against
@@ -68,8 +72,10 @@ Phases, each of which fails the run by raising:
       per layer; RGAT's B15 and B14 once per layer, B12 twice per layer);
       no kernel of phases 2-4 launches;
    c. timings as in 2c; the library calls are ``torch.sparse.mm`` of the
-      plan's [rows, slots] CSR (B12, B13) and one ``scatter_reduce_``
-      (B15); B14 has none.
+      plan's [rows, slots] CSR (B12's stream and typed forms, B13), of the
+      [rows, forward slots] CSR (B12's gathered form) and one
+      ``scatter_reduce_`` (B15); B14 has none. B12's forms also get their
+      device times.
 6. RGAT on the per-type-plan PPI batch of phase 2 (one launch of each
    attention kernel per edge type), the same three steps:
    a. the max kernel (B11) against its plain version, exactly, on the
@@ -88,7 +94,8 @@ Phases, each of which fails the run by raising:
 7. The shipped QM9_RGCN on the QM9-shaped batch (``bench.py::measure_qm9``'s:
    909 molecules, 5 edge types on per-type pair plans, V = 16384):
    a. K2 and K1 against their plain versions at the QM9 plan's shapes
-      (bf16 [81920, 128] tables, a [16384, 128] cotangent);
+      (bf16 [81920, 128] tables, a [16384, 128] cotangent), two launches
+      of each bit-equal;
    b. ``workloads.qm9_shipped_params()`` at full width (8 layers, hidden
       128, bf16 edge stream, RMSProp, clipping by value at 1.0): the eval
       forward against the plain versions (K2 once per layer, nothing
@@ -129,8 +136,8 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 peak outside the tensor cores
 # Kernel vs plain version: both sum f32 products, in different orders
-# (the kernel's atomics reorder run to run); B8/B9 take expf of the same
-# f32 arguments as torch.exp.
+# (the atomics of B4-B11 and B13-B15 reorder run to run); B8/B9 take expf
+# of the same f32 arguments as torch.exp.
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
 # Whole model, kernels vs plain versions: besides the f32 reorder, a sum
 # that lands on the other side of a bf16 rounding boundary re-rounds one
@@ -227,8 +234,8 @@ def add_device_times(entries) -> None:
 def plain_version(plain):
     """``plain`` under its wrapper's signature: the plan's compact form,
     which only the kernel reads, is dropped."""
-    def call(*args, compact=None):
-        return plain(*args)
+    def call(*args, compact=None, **kwargs):
+        return plain(*args, **kwargs)
     return call
 
 
@@ -473,7 +480,7 @@ def rgcn_path(device, argv):
     check_eval_forward(model, batch, labels, [
         (ps, "pair_spmm_stream_joint",
          plain_version(ps.pair_spmm_stream_plain)),
-        (ps, "pair_spmm_stream", ps.pair_spmm_stream_plain)])
+        (ps, "pair_spmm_stream", plain_version(ps.pair_spmm_stream_plain))])
     per_step = params["gnn_num_layers"] * TRAIN_STEPS
     state, train_step, eval_step, launches = train_and_count(
         model, params, batch, labels, launch_counters(),
@@ -487,9 +494,10 @@ def rgcn_path(device, argv):
 
 def check_stream_kernels(plan, h: int, device):
     """K2 (forward layout) and K1 (backward layout, all-zero types) on
-    ``plan``'s streamed layout against their plain versions, with bf16
-    [L*V, h] tables and a bf16 [V, h] cotangent from the seed. Returns
-    (tables, cot, {name: (kernel, plain version)}, {name: max abs err})."""
+    ``plan``'s streamed layout, each over its compact form, against their
+    plain versions, with bf16 [L*V, h] tables and a bf16 [V, h] cotangent
+    from the seed; each bit-equal across two launches. Returns (tables,
+    cot, {name: (kernel, plain version)}, {name: max abs err})."""
     import torch
 
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
@@ -506,7 +514,8 @@ def check_stream_kernels(plan, h: int, device):
                                               compact=plan.fwd_rows),
             lambda: ps.pair_spmm_stream_plain(tables, *fwd_args, v, v)),
         "pair_stream": (
-            lambda: ps.pair_spmm_stream(cot, *bwd_args, v, num_types * v),
+            lambda: ps.pair_spmm_stream(cot, *bwd_args, v, num_types * v,
+                                        compact=plan.bwd_rows),
             lambda: ps.pair_spmm_stream_plain(cot, *bwd_args, v,
                                               num_types * v)),
     }
@@ -515,14 +524,14 @@ def check_stream_kernels(plan, h: int, device):
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         errs[name] = check_close(name, got, want, KERNEL_RTOL, KERNEL_ATOL)
-        if name == "pair_stream_joint":
-            check_repeatable(name, kernel_fn, got)
+        check_repeatable(name, kernel_fn, got)
         del got, want
     log(f"kernel check: pair_stream_joint max_abs_err "
-        f"{errs['pair_stream_joint']:.3e} (bit-equal across two launches), "
-        f"pair_stream max_abs_err {errs['pair_stream']:.3e} (rtol "
-        f"{KERNEL_RTOL}, atol {KERNEL_ATOL}); the compact form: "
-        f"{plan.fwd_rows.src_row.numel()} slots into {v} rows")
+        f"{errs['pair_stream_joint']:.3e}, pair_stream max_abs_err "
+        f"{errs['pair_stream']:.3e} (rtol {KERNEL_RTOL}, atol "
+        f"{KERNEL_ATOL}; each bit-equal across two launches); the compact "
+        f"forms: {plan.fwd_rows.src_row.numel()} slots into {v} rows, "
+        f"{plan.bwd_rows.src_row.numel()} into {num_types * v}")
     return tables, cot, fns, errs
 
 
@@ -915,10 +924,22 @@ def sorted_bound_ms(valid: int, slots: int, chunks: int, h: int,
     return bound_ms(nbytes, ops_per_value * valid * h)
 
 
+def b12_bound_ms(compact, row_bytes: int, cols: int):
+    """B12's bound, counting what the function needs, whatever implements
+    it: bytes = the distinct stream rows its entries read, 4 B an entry (its
+    stream row), 4 B an output row pointer and the f32 output written once;
+    operations = an add per entry and column."""
+    n = compact.src_row.numel()
+    rows_read = int(compact.src_row.unique().numel())
+    nbytes = (rows_read * row_bytes + n * 4 + (compact.out_rows + 1) * 4
+              + compact.out_rows * cols * 4)
+    return bound_ms(nbytes, 1.0 * n * cols)
+
+
 def sorted_path(device, argv):
     """Phase 5: the scatter-plan PPI batch; PPI_RGCN (the bench's sorted
     path) through B13, the shipped PPI_RGAT's sorted fallback through B12,
-    B14 and B15. Returns the four entries."""
+    B14 and B15. Returns the four entries and B12's other two forms'."""
     import torch
 
     from tf2_gnn_tpu_torch.layers.message_passing import rgat as rgat_layer
@@ -954,7 +975,9 @@ def sorted_path(device, argv):
     # [slots, 320] streams in both slot orders with the 1/deg scales;
     # RGAT's bf16 [slots, 324] bundle cotangent in backward slot order, its
     # f32 [slots, 4] target-score cotangent over the type-minor rows, f32
-    # expd and a strided f32 view of the gathered bundle, f32 logits.
+    # expd and a strided f32 view of the gathered bundle, f32 logits; the
+    # bf16 bundle cotangent in forward slot order, as plan_gather_src's
+    # backward receives it.
     h, k = 320, 4
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     tables = torch.randn((rows, h), generator=gen, device=device)
@@ -969,27 +992,42 @@ def sorted_path(device, argv):
     expd = torch.rand((n_fwd, k), generator=gen, device=device)
     expd.masked_fill_(plan.fwd_sentinel[:, None], 0.0)
     logits = torch.randn((n_fwd, k), generator=gen, device=device)
+    g_fwd = torch.randn((n_fwd, h + k), generator=gen,
+                        device=device).to(torch.bfloat16)
     r_typed = ss.BLOCK_NODES * num_types
     fwd = (plan.rel_tgt, plan.tgt_blocks, v)
+    # form: (wrapper, arguments, keyword arguments, B12's compact form).
     forms = {
         "sorted_segment_sum_scaled": (
-            (stream_f, plan.inv_fwd) + fwd, {}),
+            "sorted_segment_sum_scaled", (stream_f, plan.inv_fwd) + fwd, {},
+            None),
         "sorted_segment_sum_scaled backward": (
+            "sorted_segment_sum_scaled",
             (stream_b, plan.inv_bwd, plan.rel_src, plan.src_blocks, rows),
-            {}),
+            {}, None),
         "sorted_segment_sum": (
-            (bundle_cot, plan.rel_src, plan.src_blocks, rows), {}),
+            "sorted_segment_sum",
+            (bundle_cot, plan.rel_src, plan.src_blocks, rows), {},
+            plan.sum_rows("bwd", rows)),
+        "sorted_segment_sum gathered": (
+            "sorted_segment_sum_gathered",
+            (g_fwd, plan.bwd_to_fwd_idx, plan.bwd_sentinel, plan.rel_src,
+             plan.src_blocks, rows), {}, plan.sum_rows("bwd_fused", rows)),
         "sorted_segment_sum typed": (
+            "sorted_segment_sum",
             (score_cot, plan.rel_typed, plan.tgt_blocks, rows),
-            {"block_rows": r_typed}),
-        "attention_scatter_sums": ((expd, msgs) + fwd, {}),
-        "sorted_segment_max": ((logits,) + fwd, {}),
+            {"block_rows": r_typed}, plan.sum_rows("fwd_typed", rows)),
+        "attention_scatter_sums": (
+            "attention_scatter_sums", (expd, msgs) + fwd, {}, None),
+        "sorted_segment_max": ("sorted_segment_max", (logits,) + fwd, {},
+                               None),
     }
 
     def fns(form):
-        args, kwargs = forms[form]
-        wrapper = form.split()[0]
-        return (lambda: getattr(ss, wrapper)(*args, **kwargs),
+        wrapper, args, kwargs, compact = forms[form]
+        launch_kwargs = kwargs if compact is None else dict(kwargs,
+                                                            compact=compact)
+        return (lambda: getattr(ss, wrapper)(*args, **launch_kwargs),
                 lambda: getattr(ss, f"{wrapper}_plain")(*args, **kwargs))
 
     errs = {}
@@ -997,6 +1035,8 @@ def sorted_path(device, argv):
         kernel_fn, plain_fn = fns(form)
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
+        if forms[form][3] is not None:  # B12: one sum order on every run
+            check_repeatable(form, kernel_fn, got)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         if form == "sorted_segment_max":
@@ -1011,11 +1051,17 @@ def sorted_path(device, argv):
         del got, want
     log("kernel check: " + ", ".join(f"{form} max_abs_err {err:.3e}"
                                      for form, err in errs.items())
-        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; the max exactly)")
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; the max exactly; "
+        "B12's three forms bit-equal across two launches); B12's compact "
+        "forms: " + ", ".join(
+            f"{form.split()[-1]} {forms[form][3].src_row.numel()} entries "
+            f"into {forms[form][3].out_rows} rows"
+            for form in forms if forms[form][3] is not None))
 
     counters = launch_counters()
     earlier = {name: 0 for _, counts in counters[:3] for name in counts}
-    patches = [(ss, name, getattr(ss, f"{name}_plain")) for name in ss.LAUNCHES]
+    patches = [(ss, name, plain_version(getattr(ss, f"{name}_plain")))
+               for name in (*ss.LAUNCHES, "sorted_segment_sum_gathered")]
     patches.append((rgat_layer, "sorted_segment_max",
                     ss.sorted_segment_max_plain))
 
@@ -1079,25 +1125,34 @@ def sorted_path(device, argv):
     torch.cuda.empty_cache()
 
     # Bounds from this run's plan and the library yardsticks: the plan's
-    # [rows, slots] CSR (1/deg scales or ones) times the same stream, and
-    # one scatter_reduce_ for the max.
+    # [rows, slots] CSR (1/deg scales or ones) times the same stream, the
+    # [rows, forward slots] CSR of the backward slots' forward slots times
+    # the forward-ordered cotangent, and one scatter_reduce_ for the max.
     def csr(rel, blocks, scale, out_rows, block_rows=ss.BLOCK_NODES,
-            dtype=torch.float32):
+            dtype=torch.float32, cols=None, in_rows=None):
         seg = ss._segment_ids(rel, blocks, out_rows, block_rows)
         valid = seg < out_rows
-        slot = torch.arange(seg.numel(), device=device)
-        idx = torch.stack([seg[valid], slot[valid]])
+        cols = torch.arange(seg.numel(), device=device) if cols is None \
+            else cols.reshape(-1)
+        idx = torch.stack([seg[valid], cols[valid]])
         return torch.sparse_coo_tensor(
             idx, scale.reshape(-1)[valid].to(dtype),
-            (out_rows, seg.numel())).coalesce().to_sparse_csr()
+            (out_rows, in_rows or seg.numel())).coalesce().to_sparse_csr()
 
     ones_b = torch.ones((n_bwd,), device=device)
+    ones_f = torch.ones((n_fwd,), device=device)
     a_fwd = csr(plan.rel_tgt, plan.tgt_blocks, plan.inv_fwd, v)
     a_bwd = csr(plan.rel_src, plan.src_blocks, plan.inv_bwd, rows)
     a_src16 = csr(plan.rel_src, plan.src_blocks, ones_b, rows,
                   dtype=torch.bfloat16)
     a_src32 = csr(plan.rel_src, plan.src_blocks, ones_b, rows)
-    bundle_cot32 = bundle_cot.float()
+    a_gath16, a_gath32 = (
+        csr(plan.rel_src, plan.src_blocks, ones_b, rows, dtype=dtype,
+            cols=plan.bwd_to_fwd_idx, in_rows=n_fwd)
+        for dtype in (torch.bfloat16, torch.float32))
+    a_typed = csr(plan.rel_typed, plan.tgt_blocks, ones_f, rows,
+                  block_rows=r_typed)
+    bundle_cot32, g_fwd32 = bundle_cot.float(), g_fwd.float()
     seg_max = ss._segment_ids(plan.rel_tgt, plan.tgt_blocks, v,
                               ss.BLOCK_NODES)[:, None].expand(
                                   logits.shape).contiguous()
@@ -1110,6 +1165,11 @@ def sorted_path(device, argv):
         "sorted_segment_sum": (
             lambda: torch.sparse.mm(a_src16, bundle_cot),
             lambda: torch.sparse.mm(a_src32, bundle_cot32)),
+        "sorted_segment_sum gathered": (
+            lambda: torch.sparse.mm(a_gath16, g_fwd),
+            lambda: torch.sparse.mm(a_gath32, g_fwd32)),
+        "sorted_segment_sum typed": (
+            lambda: torch.sparse.mm(a_typed, score_cot), None),
         "sorted_segment_max": (
             lambda: max_out.scatter_reduce_(0, seg_max, logits, "amax",
                                             include_self=False), None),
@@ -1119,10 +1179,12 @@ def sorted_path(device, argv):
             valid_f, n_fwd, c_fwd, h, 4, 1, v, h, 2.0),
         "sorted_segment_sum_scaled backward": sorted_bound_ms(
             valid_b, n_bwd, c_bwd, h, 4, 1, rows, h, 2.0),
-        "sorted_segment_sum": sorted_bound_ms(
-            valid_b, n_bwd, c_bwd, h + k, 2, 0, rows, h + k, 1.0),
-        "sorted_segment_sum typed": sorted_bound_ms(
-            valid_f, n_fwd, c_fwd, k, 4, 0, rows, k, 1.0),
+        "sorted_segment_sum": b12_bound_ms(forms["sorted_segment_sum"][3],
+                                           (h + k) * 2, h + k),
+        "sorted_segment_sum gathered": b12_bound_ms(
+            forms["sorted_segment_sum gathered"][3], (h + k) * 2, h + k),
+        "sorted_segment_sum typed": b12_bound_ms(
+            forms["sorted_segment_sum typed"][3], k * 4, k),
         # Per valid slot: a multiply-add per column, and an add per head
         # for the denominators (counted as a column's share).
         "attention_scatter_sums": sorted_bound_ms(
@@ -1139,6 +1201,14 @@ def sorted_path(device, argv):
         "attention_scatter_sums": "tf2_gnn_tpu/ops/spmm_pallas.py:835",
         "sorted_segment_max": "tf2_gnn_tpu/ops/spmm_pallas.py:705",
     }
+    # B12's bound as the sorted-scatter kernels count theirs (the valid
+    # slots' rows, 4 B a slot and a chunk, the output), logged beside it.
+    b12_per_slot = {
+        "sorted_segment_sum": sorted_bound_ms(
+            valid_b, n_bwd, c_bwd, h + k, 2, 0, rows, h + k, 1.0)[0],
+        "sorted_segment_sum typed": sorted_bound_ms(
+            valid_f, n_fwd, c_fwd, k, 4, 0, rows, k, 1.0)[0],
+    }
     details = {
         "sorted_segment_sum_scaled": f"RGCN forward, f32 [{n_fwd}, {h}] "
                                      f"-> [{v}, {h}]",
@@ -1147,6 +1217,10 @@ def sorted_path(device, argv):
                                               f"{h}]",
         "sorted_segment_sum": f"RGAT bundle gradient, bf16 [{n_bwd}, "
                               f"{h + k}] -> f32 [{rows}, {h + k}]",
+        "sorted_segment_sum gathered": f"RGAT bundle gradient in one pass, "
+                                       f"bf16 [{n_fwd}, {h + k}] through "
+                                       f"bwd_to_fwd_idx -> f32 [{rows}, "
+                                       f"{h + k}]",
         "sorted_segment_sum typed": f"RGAT target-score gradient, f32 "
                                     f"[{n_fwd}, {k}] -> [{rows}, {k}], R = "
                                     f"{r_typed}",
@@ -1154,18 +1228,24 @@ def sorted_path(device, argv):
                                   f"f32 [{n_fwd}, {h}] view",
         "sorted_segment_max": f"f32 [{n_fwd}, {k}] -> [{v}, {k}]",
     }
-    kernels = []
+    kernels, other_forms = [], []
     for form in forms:
         kernel_fn, plain_fn = fns(form)
         lib_fn, lib32_fn = library.get(form, (None, None))
         name = form.split()[0]
+        b12 = forms[form][3] is not None
+        detail = details[form]
+        if form in b12_per_slot:
+            detail += f"; per-slot bound count {b12_per_slot[form]:.4f} ms"
         entry = time_kernel(
-            form, "tf2_gnn_tpu_torch/csrc/sorted_scatter.cu", replaces[name],
-            launches[name], errs[form], kernel_fn, plain_fn, lib_fn,
-            lib32_fn, *bounds[form], details[form])
-        if form == name:  # the main call form of each kernel is its entry
-            kernels.append(entry)
-    return kernels
+            form, "tf2_gnn_tpu_torch/csrc/" + (
+                "pair_stream.cu" if b12 else "sorted_scatter.cu"),
+            replaces[name], launches[name], errs[form], kernel_fn, plain_fn,
+            lib_fn, lib32_fn, *bounds[form], detail, device=b12)
+        # The main call form of each kernel is its entry on the kernels
+        # line; the others are logged.
+        (kernels if form == name else other_forms).append(entry)
+    return kernels, other_forms
 
 
 def typed_rgat_path(device, argv):
@@ -1410,7 +1490,7 @@ def qm9_path(device, argv):
     check_eval_forward(model, batch, labels, [
         (ps, "pair_spmm_stream_joint",
          plain_version(ps.pair_spmm_stream_plain)),
-        (ps, "pair_spmm_stream", ps.pair_spmm_stream_plain)],
+        (ps, "pair_spmm_stream", plain_version(ps.pair_spmm_stream_plain))],
         QM9_LOGIT_RTOL, QM9_ATOL, QM9_LOSS_RTOL,
         shape=(batch.num_graphs_padded,))
     torch.cuda.synchronize()
@@ -1601,14 +1681,15 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     kernels += edge_mlp_path(device, argv)
     torch.cuda.empty_cache()
-    kernels += sorted_path(device, argv)
+    sorted_kernels, sorted_forms = sorted_path(device, argv)
+    kernels += sorted_kernels
     torch.cuda.empty_cache()
     kernels += typed_rgat_path(device, argv)
     torch.cuda.empty_cache()
     qm9_entries = qm9_path(device, argv)
     torch.cuda.empty_cache()
     kernels += probe_path(device, argv)
-    add_device_times(kernels + qm9_entries)
+    add_device_times(kernels + sorted_forms + qm9_entries)
     if len(kernels) != len({k["name"] for k in kernels}) or len(kernels) != 18:
         raise AssertionError(f"kernels line: {[k['name'] for k in kernels]}; "
                              "expected 18 distinct kernels")

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (tf2_gnn_tpu_torch/csrc/pair_stream.cu:
-K1, and K2 and B3 over their plans' compact form; csrc/pair_attention.cu:
-B8, B9, B10 and B11; csrc/pair_edge_mlp.cu: B4, B5, B6 and B7;
-csrc/sorted_scatter.cu: B12, B13, B14 and B15; csrc/dyngather.cu: P3)
+K1, K2, B3 and B12, one row-owner kernel over their plans' compact form;
+csrc/pair_attention.cu: B8, B9, B10 and B11; csrc/pair_edge_mlp.cu: B4,
+B5, B6 and B7; csrc/sorted_scatter.cu: B13, B14 and B15;
+csrc/dyngather.cu: P3)
 against their plain PyTorch versions on the card, at small shapes with a
 ragged feature width, f32 and bf16 tables, plans with pad slots and an
 all-padding group (sorted plans: sentinel slots, an unused trailing chunk
@@ -11,8 +12,13 @@ and per-type forms); K1/K2 also at a QM9-shaped plan (5 types, H = 128),
 B13 with a bf16 stream's rounded scale, and P1/P2 through B3's kernel on
 the probe's plans; B3's kernel on its vector (16-byte) and narrow paths,
 with an empty target row, targets past the output, clipped sources, a
-misaligned table and two launches bit-equal. Marked ``cuda``; each test
-skips without a card. On a machine with one:
+misaligned table and two launches bit-equal; the row-owner kernel's
+sub-warp split (rows of 1-16 lane units, several rows a warp, empty rows
+among them); K1 at the PPI and QM9 shapes with rows that have no slot; B12
+on its 16-byte, 8-byte and element paths, on a row-strided and a
+misaligned stream, and in its gathered form (equal bit for bit to the
+unfused one), every launch bit-equal to a second. Marked ``cuda``; each
+test skips without a card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -20,11 +26,11 @@ skips without a card. On a machine with one:
 machines need not have.)
 
 Tolerance: rtol 1e-5 / atol 1e-5; both sides sum the same f32 products,
-in other orders (run-dependent where a kernel adds with atomics; K2 and B3
-keep one order, and fuse each product into its add), and B8/B9 take expf
-of the same f32 argument as torch.exp (each within 2 ulp). Gradients of the
-attention op in bf16 are rounded to bf16 after those sums: rtol 1e-2 /
-atol 1e-4 there (one bf16 ulp). B15 and B11, maxes, match exactly, as
+in other orders (run-dependent where a kernel adds with atomics; K1, K2,
+B3 and B12 keep one order, and fuse each product into its add), and B8/B9
+take expf of the same f32 argument as torch.exp (each within 2 ulp).
+Gradients of the attention op in bf16 are rounded to bf16 after those
+sums: rtol 1e-2 / atol 1e-4 there (one bf16 ulp). B15 and B11, maxes, match exactly, as
 does P3 (the same f32 adds in the same order).
 """
 import numpy as np
@@ -74,7 +80,7 @@ def test_kernels_match_plain_versions(device, dtype, h):
            plan.grp_tgt_b, plan.type_b_zeros, v, num_types * v)
     before = dict(tps.LAUNCHES)
     got = tps.pair_spmm_stream_joint(tables, *fwd, compact=plan.fwd_rows)
-    got_b = tps.pair_spmm_stream(cot, *bwd)
+    got_b = tps.pair_spmm_stream(cot, *bwd, compact=plan.bwd_rows)
     torch.cuda.synchronize()
     assert tps.LAUNCHES["pair_stream_joint"] == before["pair_stream_joint"] + 1
     assert tps.LAUNCHES["pair_stream"] == before["pair_stream"] + 1
@@ -82,6 +88,16 @@ def test_kernels_match_plain_versions(device, dtype, h):
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got_b, tps.pair_spmm_stream_plain(cot, *bwd),
                                rtol=1e-5, atol=1e-5)
+    assert torch.equal(got_b, tps.pair_spmm_stream(cot, *bwd,
+                                                   compact=plan.bwd_rows))
+    _assert_empty_rows_zero(got_b, plan.bwd_rows)
+
+
+def _assert_empty_rows_zero(out, compact):
+    """The rows without an entry hold 0, and there is one."""
+    empty = torch.diff(compact.row_ptr) == 0
+    assert bool(empty.any())
+    assert float(out[empty].abs().max()) == 0.0
 
 
 def test_autograd_op_matches_plain_on_card(device):
@@ -101,7 +117,8 @@ def test_autograd_op_matches_plain_on_card(device):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tps, "pair_spmm_stream_joint",
                    plain_version(tps.pair_spmm_stream_plain))
-        mp.setattr(tps, "pair_spmm_stream", tps.pair_spmm_stream_plain)
+        mp.setattr(tps, "pair_spmm_stream",
+                   plain_version(tps.pair_spmm_stream_plain))
         out_p, grad_p = run()
     torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(grad, grad_p, rtol=1e-5, atol=1e-5)
@@ -345,8 +362,9 @@ def test_sorted_sums_match_plain_versions(device, dtype, h):
     gen = torch.Generator(device=device).manual_seed(21)
     msgs = _stream(rel_np, h, gen, device, dtype)
     scale = torch.rand((rel.numel(),), generator=gen, device=device)
+    compact = tss.sorted_rows(rel, blocks, v, tss.BLOCK_NODES)
     before = dict(tss.LAUNCHES)
-    got = tss.sorted_segment_sum(msgs, rel, blocks, v)
+    got = tss.sorted_segment_sum(msgs, rel, blocks, v, compact=compact)
     got_s = tss.sorted_segment_sum_scaled(msgs, scale, rel, blocks, v)
     torch.cuda.synchronize()
     assert tss.LAUNCHES["sorted_segment_sum"] == \
@@ -362,8 +380,9 @@ def test_sorted_sums_match_plain_versions(device, dtype, h):
     # A row-strided view of a wider stream reads the same columns.
     wide = torch.cat([msgs, msgs[:, :3]], dim=1)
     torch.testing.assert_close(tss.sorted_segment_sum(wide[:, :h], rel,
-                                                      blocks, v), want,
-                               rtol=1e-5, atol=1e-5)
+                                                      blocks, v,
+                                                      compact=compact),
+                               want, rtol=1e-5, atol=1e-5)
 
 
 def test_sorted_segment_sum_type_minor_rows(device):
@@ -375,10 +394,13 @@ def test_sorted_segment_sum_type_minor_rows(device):
     g = torch.randn((plan.rel_typed.numel(), 4), generator=gen,
                     device=device)
     args = (g, plan.rel_typed, plan.tgt_blocks, v * num_types)
-    got = tss.sorted_segment_sum(*args, block_rows=384)
+    compact = plan.sum_rows("fwd_typed", v * num_types)
+    got = tss.sorted_segment_sum(*args, block_rows=384, compact=compact)
     torch.testing.assert_close(
         got, tss.sorted_segment_sum_plain(*args, block_rows=384),
         rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, tss.sorted_segment_sum(*args, block_rows=384,
+                                                   compact=compact))
 
 
 def test_sorted_segment_max_matches_exactly(device):
@@ -420,7 +442,8 @@ def test_attention_scatter_sums_match_plain_version(device, k, head_dim):
 
 
 _SORTED_WRAPPERS = ("sorted_segment_sum", "sorted_segment_sum_scaled",
-                    "sorted_segment_max", "attention_scatter_sums")
+                    "sorted_segment_max", "attention_scatter_sums",
+                    "sorted_segment_sum_gathered")
 
 
 @pytest.mark.parametrize("stream_dtype", [torch.float32, torch.bfloat16])
@@ -459,7 +482,7 @@ def test_sorted_ops_match_plain_on_card(device, stream_dtype):
     got = run()
     with pytest.MonkeyPatch.context() as mp:
         for name in _SORTED_WRAPPERS:
-            mp.setattr(tss, name, getattr(tss, f"{name}_plain"))
+            mp.setattr(tss, name, plain_version(getattr(tss, f"{name}_plain")))
         want = run()
     for name, x, y in zip(("out", "weighted", "d_tables", "d_tgt"), got,
                           want):
@@ -637,9 +660,12 @@ def test_stream_kernels_at_a_qm9_shaped_plan(device, dtype):
                                    tables, *fwd, compact=plan.fwd_rows),
                                tps.pair_spmm_stream_plain(tables, *fwd),
                                rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(tps.pair_spmm_stream(cot, *bwd),
-                               tps.pair_spmm_stream_plain(cot, *bwd),
+    got_b = tps.pair_spmm_stream(cot, *bwd, compact=plan.bwd_rows)
+    torch.testing.assert_close(got_b, tps.pair_spmm_stream_plain(cot, *bwd),
                                rtol=1e-5, atol=1e-5)
+    assert torch.equal(got_b, tps.pair_spmm_stream(cot, *bwd,
+                                                   compact=plan.bwd_rows))
+    _assert_empty_rows_zero(got_b, plan.bwd_rows)
 
     base = tables.float()
 
@@ -653,7 +679,8 @@ def test_stream_kernels_at_a_qm9_shaped_plan(device, dtype):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tps, "pair_spmm_stream_joint",
                    plain_version(tps.pair_spmm_stream_plain))
-        mp.setattr(tps, "pair_spmm_stream", tps.pair_spmm_stream_plain)
+        mp.setattr(tps, "pair_spmm_stream",
+                   plain_version(tps.pair_spmm_stream_plain))
         want = run()
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
@@ -778,4 +805,141 @@ def test_row_owner_kernel_on_a_misaligned_table(device):
                         compact=plan.fwd_rows(v, 3 * v))
     torch.testing.assert_close(
         got, tps.pair_spmm_plain(table, scale, *plan.fwd, v), rtol=1e-5,
+        atol=1e-5)
+
+
+def test_k1_at_the_ppi_shape(device):
+    """K1 over the PPI batch's backward plan (3 types, a bf16 [8064, 320]
+    cotangent into [24192, 320]): the plain version's sums, bit-equal
+    across two launches, 0 on the padded nodes' rows (no slot)."""
+    from tf2_gnn_tpu_torch import workloads
+
+    batch, _, _ = workloads.build_ppi_batch(0, device=device)
+    plan = batch.pair_stream_joint
+    v, num_types = plan.v_out, plan.num_types
+    gen = torch.Generator(device=device).manual_seed(55)
+    cot = torch.randn((v, 320), generator=gen,
+                      device=device).to(torch.bfloat16)
+    bwd = (plan.scale_bwd, plan.rel_src_b, plan.rel_tgt_b, plan.src_blk_b,
+           plan.grp_tgt_b, plan.type_b_zeros, v, num_types * plan.v_src)
+    got = tps.pair_spmm_stream(cot, *bwd, compact=plan.bwd_rows)
+    again = tps.pair_spmm_stream(cot, *bwd, compact=plan.bwd_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, tps.pair_spmm_stream_plain(cot, *bwd),
+                               rtol=1e-5, atol=1e-5)
+    _assert_empty_rows_zero(got, plan.bwd_rows)
+
+
+def _sparse_plan(seed, v=384):
+    """A merged plan of 3 types whose edges all enter even targets below
+    200: runs of rows without slots inside and after the used rows."""
+    rng = np.random.RandomState(seed)
+    srcs = [rng.randint(0, v, 400) for _ in range(3)]
+    tgts = [2 * rng.randint(0, 100, 400) for _ in range(3)]
+    return tps.MergedPlan(*tps.build_pair_plans(srcs, tgts, [400] * 3,
+                                                v).astuple())
+
+
+@pytest.mark.parametrize("dtype,h", [
+    (torch.float32, 4), (torch.bfloat16, 16), (torch.float32, 6),
+    (torch.float32, 3), (torch.bfloat16, 48), (torch.float32, 64),
+    (torch.bfloat16, 128)])
+def test_row_owner_sub_warp_split(device, dtype, h):
+    """Rows of 1, 2, 4 (8-byte and element units), 8 and 16 lane units:
+    a warp owns 32, 16, 8, 4 or 2 rows, empty rows among them; each row
+    gets the plain version's sum and 0 where it has no slot, and two
+    launches are bit-equal."""
+    v = 384
+    plan = _sparse_plan(56).to(device)
+    gen = torch.Generator(device=device).manual_seed(57)
+    table = torch.randn((3 * v, h), generator=gen, device=device).to(dtype)
+    scale = torch.rand((plan.rel_src_f.numel(),), generator=gen,
+                       device=device)
+    compact = plan.fwd_rows(v, 3 * v)
+    got = tps.pair_spmm(table, scale, *plan.fwd, v, compact=compact)
+    again = tps.pair_spmm(table, scale, *plan.fwd, v, compact=compact)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got, tps.pair_spmm_plain(table, scale, *plan.fwd, v), rtol=1e-5,
+        atol=1e-5)
+    _assert_empty_rows_zero(got, compact)
+    assert float(got[1:200:2].abs().max()) == 0.0
+
+
+def _misaligned(x):
+    """A copy of ``x`` whose start lies 2 bytes past a 16-byte boundary."""
+    flat = torch.empty((x.numel() + 8,), dtype=x.dtype, device=x.device)
+    view = flat[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("dtype,h,layout", [
+    (torch.bfloat16, 324, "contiguous"),   # 8-byte units (648-byte rows)
+    (torch.bfloat16, 320, "contiguous"),   # 16-byte units
+    (torch.float32, 4, "contiguous"),      # one 16-byte unit, 32 rows a warp
+    (torch.float32, 6, "contiguous"),      # three 8-byte f32 units
+    (torch.bfloat16, 81, "contiguous"),    # one element a lane (odd H)
+    (torch.bfloat16, 324, "strided"),      # 8-byte units, row stride 328
+    (torch.float32, 320, "strided"),       # 16-byte units, row stride 324
+    (torch.bfloat16, 320, "misaligned"),   # element path
+])
+def test_b12_unit_paths(device, dtype, h, layout):
+    """B12 over the sorted plan's compact form on each of its load paths:
+    the plain version's sums, 0 on the empty node block, NaN sentinel rows
+    never read, two launches bit-equal."""
+    _, rel_np, blocks_np = _sorted_case(58)
+    v = 384
+    rel = torch.from_numpy(rel_np).to(device)
+    blocks = torch.from_numpy(blocks_np).to(device)
+    gen = torch.Generator(device=device).manual_seed(59)
+    pad = 4 if layout == "strided" else 0
+    msgs = _stream(rel_np, h + pad, gen, device, dtype)[:, :h]
+    if layout == "misaligned":
+        msgs = _misaligned(msgs)
+        assert msgs.data_ptr() % 16 != 0
+    assert (msgs.stride(0) != h) == (layout == "strided")
+    compact = tss.sorted_rows(rel, blocks, v, tss.BLOCK_NODES)
+    before = tss.LAUNCHES["sorted_segment_sum"]
+    got = tss.sorted_segment_sum(msgs, rel, blocks, v, compact=compact)
+    again = tss.sorted_segment_sum(msgs, rel, blocks, v, compact=compact)
+    torch.cuda.synchronize()
+    assert tss.LAUNCHES["sorted_segment_sum"] == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got, tss.sorted_segment_sum_plain(msgs, rel, blocks, v), rtol=1e-5,
+        atol=1e-5)
+    assert float(got[128:256].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b12_gathered_form_equals_the_unfused_one(device, dtype):
+    """``plan_gather_src``'s gradient in one launch, reading the cotangent
+    through ``bwd_to_fwd_idx``: bit-equal to B12 over the written-out
+    re-ordered stream, and to a second launch; the plain version's sums."""
+    host, _, _ = _sorted_case(60)
+    v, num_types, h = 384, 3, 324
+    plan = tss.ScatterPlan.from_host(host, v, num_types).to(device)
+    rows = num_types * v
+    gen = torch.Generator(device=device).manual_seed(61)
+    g = torch.randn((plan.rel_tgt.numel(), h), generator=gen,
+                    device=device).to(dtype)
+    args = (g, plan.bwd_to_fwd_idx, plan.bwd_sentinel, plan.rel_src,
+            plan.src_blocks, rows)
+    before = tss.LAUNCHES["sorted_segment_sum"]
+    got = tss.sorted_segment_sum_gathered(
+        *args, compact=plan.sum_rows("bwd_fused", rows))
+    again = tss.sorted_segment_sum_gathered(
+        *args, compact=plan.sum_rows("bwd_fused", rows))
+    g_b = g.index_select(0, plan.bwd_to_fwd_idx).masked_fill_(
+        plan.bwd_sentinel[:, None], 0.0)
+    unfused = tss.sorted_segment_sum(g_b, plan.rel_src, plan.src_blocks,
+                                     rows, compact=plan.sum_rows("bwd", rows))
+    torch.cuda.synchronize()
+    assert tss.LAUNCHES["sorted_segment_sum"] == before + 3
+    assert torch.equal(got, again) and torch.equal(got, unfused)
+    torch.testing.assert_close(
+        got, tss.sorted_segment_sum_gathered_plain(*args), rtol=1e-5,
         atol=1e-5)

@@ -5,7 +5,9 @@
 * the entry points default to the card and raise without one instead of
   running on the CPU;
 * a CUDA tensor given to a kernel wrapper whose library cannot be built
-  raises; it does not fall back to the plain version;
+  raises; it does not fall back to the plain version; nor does a CUDA call
+  of a row-owner wrapper (K1, K2, B3, B12 in both forms) without the
+  plan's compact form;
 * a batch with neither the pair plans nor the scatter plan a flavour
   reads raises ``NotImplementedError``.
 """
@@ -143,9 +145,11 @@ class _CudaTensorStandIn:
 _COMPACT_STAND_IN = object()
 
 # Every kernel wrapper: its launch counts and the positional arguments
-# after its first tensor (K2 and B3 end with the plan's compact form).
+# after its first tensor (K1, K2, B3 and B12 end with the plan's compact
+# form).
 WRAPPERS = {
-    tps.pair_spmm_stream: (tps.LAUNCHES, (None,) * 6 + (128, 128)),
+    tps.pair_spmm_stream: (
+        tps.LAUNCHES, (None,) * 6 + (128, 128, _COMPACT_STAND_IN)),
     tps.pair_spmm_stream_joint: (
         tps.LAUNCHES, (None,) * 6 + (128, 128, _COMPACT_STAND_IN)),
     tps.pair_spmm: (tps.LAUNCHES, (None,) * 5 + (128, _COMPACT_STAND_IN)),
@@ -157,11 +161,14 @@ WRAPPERS = {
     tpem.relu_pair_fwd_m: (tpem.LAUNCHES, (None,) * 6 + (128,)),
     tpem.relu_pair_da: (tpem.LAUNCHES, (None,) * 7 + (128,)),
     tpem.relu_pair_db: (tpem.LAUNCHES, (None,) * 7 + (128,)),
-    tss.sorted_segment_sum: (tss.LAUNCHES, (None,) * 2 + (128,)),
+    tss.sorted_segment_sum: (
+        tss.LAUNCHES, (None,) * 2 + (128, None, _COMPACT_STAND_IN)),
     tss.sorted_segment_sum_scaled: (tss.LAUNCHES, (None,) * 3 + (128,)),
     tss.sorted_segment_max: (tss.LAUNCHES, (None,) * 2 + (128,)),
     tss.attention_scatter_sums: (tss.LAUNCHES, (None,) * 3 + (128,)),
     tprobes.dyngather: (tprobes.LAUNCHES, (None, 64)),
+    tss.sorted_segment_sum_gathered: (
+        tss.LAUNCHES, (None,) * 4 + (128, _COMPACT_STAND_IN)),
 }
 
 
@@ -180,12 +187,14 @@ def test_cuda_tensor_without_library_raises(wrapper, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("wrapper", [tps.pair_spmm_stream_joint,
-                                     tps.pair_spmm])
+                                     tps.pair_spmm, tps.pair_spmm_stream,
+                                     tss.sorted_segment_sum,
+                                     tss.sorted_segment_sum_gathered])
 def test_cuda_call_without_compact_form_raises(wrapper, monkeypatch,
                                                tmp_path):
-    """K2 and B3 on a CUDA tensor without the plan's compact form raise
-    before they load the library: no per-call build, no fallback to the
-    plain version, no launch counted."""
+    """K1, K2, B3 and B12 (both forms) on a CUDA tensor without the plan's
+    compact form raise before they load the library: no per-call build,
+    no fallback to the plain version, no launch counted."""
     launches, args = WRAPPERS[wrapper]
     monkeypatch.setattr(cuda_build, "_LOADED", {})
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
@@ -305,8 +314,8 @@ def test_cpu_tensors_take_the_plain_versions_of_the_relu_pair_kernels():
 
 
 def test_cpu_tensors_take_the_plain_versions_of_the_sorted_kernels():
-    """B12, B13, B14 and B15 on CPU tensors: the plain versions' results,
-    no launch counted."""
+    """B12 (both forms), B13, B14 and B15 on CPU tensors: the plain
+    versions' results, no launch counted."""
     rng = np.random.RandomState(3)
     v, k = 256, 4
     srcs = list(rng.randint(0, v, (2, 300)))
@@ -317,6 +326,8 @@ def test_cpu_tensors_take_the_plain_versions_of_the_sorted_kernels():
     msgs = torch.randn(slots, 8 * k)
     scale, expd = torch.rand(slots), torch.rand(slots, k)
     fwd = (plan.rel_tgt, plan.tgt_blocks, v)
+    bwd = (plan.bwd_to_fwd_idx, plan.bwd_sentinel, plan.rel_src,
+           plan.src_blocks, 2 * v)
     before = dict(tss.LAUNCHES)
     pairs = (
         (tss.sorted_segment_sum(msgs, *fwd),
@@ -331,7 +342,9 @@ def test_cpu_tensors_take_the_plain_versions_of_the_sorted_kernels():
         (tss.sorted_segment_max(expd, *fwd),
          tss.sorted_segment_max_plain(expd, *fwd)),
         (tss.attention_scatter_sums(expd, msgs, *fwd),
-         tss.attention_scatter_sums_plain(expd, msgs, *fwd)))
+         tss.attention_scatter_sums_plain(expd, msgs, *fwd)),
+        (tss.sorted_segment_sum_gathered(msgs, *bwd),
+         tss.sorted_segment_sum_gathered_plain(msgs, *bwd)))
     for got, want in pairs:
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)

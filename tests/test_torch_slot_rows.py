@@ -1,13 +1,16 @@
 """The compact form of a plan direction (``ops/pair_spmm.py::slot_rows``),
-which the card's K2 and B3 read instead of the plan arrays, on the CPU:
+which the card's K1, K2 and B3 read instead of the plan arrays, on the CPU:
 
 * against the plan's own slot ids (``slot_abs_ids`` /
-  ``_stream_slot_abs_ids``) on a small merged plan, a per-type joint plan,
-  a QM9-shaped plan and both probe plans (groups 1 and 8), whole and with
-  the output and the table cut to half their rows: each row holds the
+  ``_stream_slot_abs_ids``) on a small merged plan, a per-type joint plan
+  (PPI-like: 3 types) and a QM9-shaped plan in both directions (the
+  backward one as K1 reads it: all-zero types, the [V] cotangent into the
+  stacked [L * V] rows) and both probe plans (groups 1 and 8), whole and
+  with the output and the table cut to half their rows: each row holds the
   same (target, source, slot) triples, in ascending slot order;
   ``row_ptr`` is monotone and ends at ``n``; targets at or past
   ``out_rows`` are dropped and sources clipped into the table;
+* ``StreamJointPlan.bwd_rows`` is that backward form, built once and kept;
 * an all-sentinel plan gives ``n = 0``;
 * an ``index_add_`` over the compact form's slots equals the plain
   versions ``pair_spmm_plain`` / ``pair_spmm_stream_plain`` over the plan
@@ -16,13 +19,21 @@ which the card's K2 and B3 read instead of the plan arrays, on the CPU:
   exact;
 * the models build it once per batch: two forwards of RGCN (per-type
   plans) and RGAT (merged and per-type plans) build one form per plan and
-  hand the same object to every kernel call.
+  hand the same object to every kernel call; three RGCN train steps build
+  the forward (K2) and backward (K1) forms once each.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from tf2_gnn_tpu_torch import workloads
+from tf2_gnn_tpu_torch.harness.optimizers import make_optimizer
+from tf2_gnn_tpu_torch.harness.training import (
+    create_train_state,
+    make_train_step,
+)
 from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
 from tf2_gnn_tpu_torch.ops import pair_attention as tpa
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
@@ -51,23 +62,34 @@ def _merged():
     return plan.fwd, None, 0, 3 * V, V
 
 
-def _joint():
+@functools.lru_cache(maxsize=None)
+def _joint_plan():
     srcs, tgts, counts = _edges(1)
     typed = tuple(tps.build_pair_plans([s], [t], [c], V, group_fwd=8,
                                        group_bwd=8).astuple()
                   for s, t, c in zip(srcs, tgts, counts))
-    plan = tps.stream_joint_plan(typed, V, V).to("cpu")
-    return (plan.rel_src_f, plan.rel_tgt_f, plan.src_blk_f,
-            plan.grp_tgt_fl), plan.grp_type_f, V, 3 * V, V
+    return tps.stream_joint_plan(typed, V, V).to("cpu")
 
 
-def _qm9():
+@functools.lru_cache(maxsize=None)
+def _qm9_plan():
     batch, _, _ = workloads.build_qm9_batch(0, device="cpu", molecules=120,
                                             node_budget=2304)
-    plan = batch.pair_stream_joint
-    v = plan.v_src
+    return batch.pair_stream_joint
+
+
+def _fwd(plan):
     return (plan.rel_src_f, plan.rel_tgt_f, plan.src_blk_f,
-            plan.grp_tgt_fl), plan.grp_type_f, v, plan.num_types * v, v
+            plan.grp_tgt_fl), plan.grp_type_f, plan.v_src, \
+        plan.num_types * plan.v_src, plan.v_out
+
+
+def _bwd(plan):
+    """K1's layout: the [v_out] cotangent's rows (all-zero types) into the
+    stacked [L * v_src] table rows."""
+    return (plan.rel_src_b, plan.rel_tgt_b, plan.src_blk_b,
+            plan.grp_tgt_b), plan.type_b_zeros, plan.v_out, plan.v_out, \
+        plan.num_types * plan.v_src
 
 
 def _probe(build):
@@ -78,7 +100,10 @@ def _probe(build):
     return plan.kernel_args[1:], None, 0, 3 * V, V
 
 
-PLANS = {"merged": _merged, "joint": _joint, "qm9": _qm9,
+PLANS = {"merged": _merged, "joint": lambda: _fwd(_joint_plan()),
+         "qm9": lambda: _fwd(_qm9_plan()),
+         "joint_bwd": lambda: _bwd(_joint_plan()),
+         "qm9_bwd": lambda: _bwd(_qm9_plan()),
          "probe_group1": lambda: _probe(probes.chunked_plan),
          "probe_group8": lambda: _probe(probes.unrolled_plan)}
 
@@ -150,6 +175,28 @@ def test_slot_rows_matches_the_plans_slot_ids(plans, name, cut):
         assert dropped > 0 and clipped > 0
     else:
         assert dropped == 0 and clipped == 0
+
+
+@pytest.mark.parametrize("name", ["joint", "qm9"])
+def test_stream_plan_bwd_rows_is_the_backward_form(name):
+    """``StreamJointPlan.bwd_rows``, which K1 reads: the backward layout's
+    (target, source, slot) triples from ``_stream_slot_abs_ids`` with the
+    all-zero types, into the stacked [L * v_src] rows from the [v_out]
+    cotangent, kept on the plan."""
+    plan = {"joint": _joint_plan, "qm9": _qm9_plan}[name]()
+    case = _bwd(plan)
+    compact = plan.bwd_rows
+    assert compact is plan.bwd_rows
+    assert int(plan.type_b_zeros.abs().max()) == 0
+    assert (compact.table_rows, compact.out_rows) == (
+        plan.v_out, plan.num_types * plan.v_src)
+    assert compact.num_slots == plan.scale_bwd.numel()
+    tgt, src, slot, dropped, clipped = _reference(case, plan.v_out,
+                                                  plan.num_types * plan.v_src)
+    assert dropped == 0 and clipped == 0 and slot.size > 0
+    np.testing.assert_array_equal(_rows_of(compact), tgt)
+    np.testing.assert_array_equal(compact.src_row.numpy(), src)
+    np.testing.assert_array_equal(compact.slot.numpy(), slot)
 
 
 def test_all_sentinel_plan_has_no_slots():
@@ -235,3 +282,35 @@ def test_compact_form_is_built_once_per_batch(style, form, monkeypatch):
     # Each plan hands its one form to both forwards.
     per_forward = len(seen) // 2
     assert all(a is b for a, b in zip(seen[:per_forward], seen[per_forward:]))
+
+
+def test_rgcn_builds_its_two_forms_once_per_batch(monkeypatch):
+    """Three train steps of RGCN on per-type plans: K2's forward form and
+    K1's backward form are each built once, and every K2 (K1) call of every
+    layer and step gets the one forward (backward) form."""
+    _, batch, labels = small_workload(seed=2)
+    params = NodeMulticlassTask.get_default_hyperparameters("rgcn")
+    params.update({"gnn_hidden_dim": 8, "gnn_num_layers": 2,
+                   "gnn_layer_input_dropout_rate": 0.0,
+                   "gnn_global_exchange_every_num_layers": 10000})
+    model = NodeMulticlassTask.from_params(
+        params, input_dim=FEATURES, num_edge_types=3, device="cpu",
+        num_labels=NUM_LABELS)
+    optimizer = make_optimizer(params, model.parameters())
+    state = create_train_state(model, optimizer)
+    train_step = make_train_step(model, optimizer)
+    built, fwd_seen, bwd_seen = [], [], []
+    real_build = tps.slot_rows
+    monkeypatch.setattr(tps, "slot_rows",
+                        lambda *a: built.append(real_build(*a)) or built[-1])
+    _spy(monkeypatch, tps, "pair_spmm_stream_joint", fwd_seen)
+    _spy(monkeypatch, tps, "pair_spmm_stream", bwd_seen)
+    targets = {"node_labels": torch.from_numpy(labels)}
+    for _ in range(3):
+        state, _ = train_step(state, batch, targets)
+    plan = batch.pair_stream_joint
+    assert len(built) == 2
+    assert len(fwd_seen) == len(bwd_seen) == 2 * 3
+    assert all(c is plan.fwd_rows for c in fwd_seen)
+    assert all(c is plan.bwd_rows for c in bwd_seen)
+    assert {id(plan.fwd_rows), id(plan.bwd_rows)} == {id(b) for b in built}

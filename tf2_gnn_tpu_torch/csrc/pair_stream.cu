@@ -1,28 +1,33 @@
-// Streamed block-pair SpMM kernels for Hopper (sm_90a), bound through a
-// plain C interface (ctypes) by tf2_gnn_tpu_torch/ops/pair_spmm.py.
+// The row-owner SpMM kernel for Hopper (sm_90a), bound through a plain C
+// interface (ctypes) by tf2_gnn_tpu_torch/ops/pair_spmm.py and
+// ops/sorted_spmm.py.
 //
-// The three entry points compute the plan-slot semantics of the JAX
-// package's jnp twins (tf2_gnn_tpu/ops/pair_spmm.py::_pair_spmm_stream_jnp,
-// ::_pair_spmm_stream_joint_jnp and ::_pair_spmm_jnp):
+// One kernel, row_owner_kernel, computes the function of four TPU kernels.
+// Each reads the compact form of its plan direction (ops/pair_spmm.py::
+// SlotRows, built once per batch by pair_spmm.py::slot_rows for the pair
+// plans and by sorted_spmm.py::sorted_rows for the sorted plans): the valid
+// slots whose output row lies in the output, sorted stably by output row
+// into a CSR (row_ptr [out_rows + 1]; per entry its table row src_row and
+// its plan slot), and computes
 //
-//   for every slot s of group g (chunk c = s / E_C) with rel_src, rel_tgt < BLK:
-//     out[grp_tgt[g] * BLK + rel_tgt[s], :] +=
-//         scale[s] * f32(tables[grp_type[g] * v + src_blk[c] * BLK + rel_src[s], :])
+//   out[t, :] = sum over the entries e of row t, in slot order, of
+//               scale[slot[e]] * f32(table[src_row[e], :])
 //
-// into an f32 output, rows outside it dropped. They replace three Pallas
-// TPU kernels:
+// into an f32 output, every element stored once (scale 1 where the caller
+// passes none). Its C entries:
 //
 //   pair_stream_launch        <- tf2_gnn_tpu/ops/pair_spmm.py:800
 //                                (_pair_spmm_stream_device, pallas_call :895).
-//                                K1: GLOBAL output blocks (ty * V/BLK +
-//                                local), the backward of every layer over the
-//                                backward plan with all-zero types. Kernel:
-//                                pair_stream_kernel, over the plan arrays.
+//                                K1: the backward of every RGCN layer over
+//                                the backward plan with all-zero types, the
+//                                [Vo, H] cotangent slab into the stacked
+//                                [L * Vs] source rows (StreamJointPlan.
+//                                bwd_rows).
 //   pair_stream_joint_launch  <- tf2_gnn_tpu/ops/pair_spmm.py:973
 //                                (_pair_spmm_stream_joint_device, pallas_call
 //                                :1057). K2: the joint sum over edge types
 //                                into one [Vo, H] output, the forward of
-//                                every layer. Kernel: row_owner_kernel.
+//                                every RGCN layer (StreamJointPlan.fwd_rows).
 //   pair_spmm_launch          <- tf2_gnn_tpu/ops/pair_spmm.py:585
 //                                (_pair_spmm_device, pallas_call :678; its
 //                                jnp twin _pair_spmm_jnp). B3: one direction
@@ -31,433 +36,347 @@
 //                                whose last column is ones (the
 //                                denominators), with that head's expd row as
 //                                the scale; the probes P1/P2 run it on their
-//                                plans. Kernel: row_owner_kernel. Unlike the
-//                                TPU kernel, which rounds onehot * scale to
-//                                the table dtype, the scale stays f32, as in
-//                                the jnp twin.
+//                                plans. Unlike the TPU kernel, which rounds
+//                                onehot * scale to the table dtype, the scale
+//                                stays f32, as in the jnp twin.
+//   sorted_segment_sum_launch <- tf2_gnn_tpu/ops/spmm_pallas.py:378
+//                                (sorted_segment_sum, pallas_call :442).
+//                                B12: no scale. Over a sorted plan's compact
+//                                form, either the stream itself, read row by
+//                                row (src_row = slot), or, for
+//                                plan_gather_src's gradient, the cotangent's
+//                                forward-slot rows through the plan's
+//                                bwd_to_fwd_slot map (src_row =
+//                                bwd_to_fwd_idx[slot]), so the re-ordered
+//                                [slots, H] stream is never written.
 //
-// K1's design (pair_stream_kernel). One thread block per (plan group,
-// 64-column tile) accumulates into a [128, 64] f32 shared tile with
-// shared-memory atomics and adds the touched rows into a zero-initialised
-// output with global atomics; it walks every slot of the plan, padded or
-// not.
+// Design. The TPU kernels build one-hot matmuls and accumulate each output
+// block on its first visit, walking every padded or sentinel slot. Here a
+// group of G lanes owns one output row: it loads its row's entries with one
+// coalesced load each, gathers their scales, broadcasts them within the
+// group (__shfl_sync with width G) and gathers IN_FLIGHT = 8 table rows per
+// lane into registers before their FMAs (register unrolling, not a cp.async
+// ring: each value is used once, so a ring would only add a trip through
+// shared memory and its waits; 16 in flight doubled the narrow path's
+// registers and slowed it). The sum is f32 in registers, in the row's slot
+// order, and each output element is stored exactly once (0 for a row
+// without entries): no shared tile, no atomics, no zero-fill, and the same
+// sum order on every run. A row of 32 or more lane units takes a whole warp
+// (G = 32); a shorter one takes G = the next power of two of its units, and
+// a warp owns 32 / G rows (QM9's H = 128 bf16 rows: 16 vectors, two rows a
+// warp; B12's [., 4] f32 rows: one vector, 32 rows a warp). The groups of a
+// warp walk their rows in lockstep, for as many rounds as the warp's
+// longest row needs; a group whose row has ended is masked. In-degrees are
+// even (PPI: mean 29 into a target, 8.7 out of a source; QM9: 3.2, 0.6), so
+// the lockstep costs little.
 //
-// K2 and B3's design (row_owner_kernel). They read the plan's compact form
-// (ops/pair_spmm.py::slot_rows), built once per batch: the valid slots whose
-// target lies in the output, sorted stably by target row into a CSR
-// (row_ptr [out_rows + 1]; per slot its clipped absolute source row and its
-// plan slot, whose per-call scale is scale[slot]). One warp owns one output
-// row (8 rows a block): it loads up to 32 of the row's (source, slot)
-// entries with one coalesced load each, gathers their scales, broadcasts
-// them with __shfl_sync, and gathers 8 source rows at a time into registers
-// before their FMAs, so 8 independent row loads are in flight per warp
-// (register unrolling, not a cp.async ring: each value is used once, so a
-// ring would only add a trip through shared memory and its waits; 16 in
-// flight doubled the narrow path's registers and slowed it). The sum
-// is f32 in registers, in the row's slot order, and each output element is
-// stored exactly once (0 for a row without slots): no shared tile, no
-// atomics, no zero-fill, and the same sum order on every run. The in-degree
-// of a node is even (PPI: mean 29, max 49; QM9: mean 3.2, max 11), so a
-// warp a row is balanced.
-//
-// Loads. Where a row is a whole number of 16-byte vectors (H * itemsize %
-// 16 == 0) and the table and output are 16-byte aligned, a lane loads 16 B
-// (8 bf16 or 4 f32 columns) per instruction: 512 B per warp instruction
-// (K2 at H = 320 and 128 in bf16; at H = 128 half the lanes hold the row's
-// 16 vectors, 256 B per instruction). Otherwise (B3's H = 81, rows of 162 B)
-// a lane loads one element: 64 B per warp instruction in bf16, 128 B in f32.
-// Lanes past H are masked; the table is not padded. A lane holds up to 2
-// vectors or 4 columns of a row; wider rows take more column tiles
-// (gridDim.y), each walking the row's entries again.
+// Loads. A lane unit is 16 bytes (8 bf16 or 4 f32 columns), 8 bytes (4 bf16
+// or 2 f32; B12's bf16 rows of 648 B) or one element, the widest that
+// divides the row (h * itemsize), the row stride (ld * itemsize) and the
+// table's address; the output must be 16-byte aligned for the vector
+// units. A lane holds up to 2 16-byte, 3 8-byte or 4 element units of a
+// row; wider rows take more column tiles (gridDim.y), each walking the
+// row's entries again. Lanes past H are masked; the table is not padded,
+// and its rows may be strided (a row-strided view is not copied).
 //
 // Why not the tensor cores or TMA. There is no dense product: each gathered
 // element takes one multiply-add, 2 flops per element, far below the card's
 // ridge. Hopper's TMA copies tiles and has no row-gather mode, so the
 // gathers are per-lane loads.
 //
-// Bound. Bytes: the distinct table rows the valid slots read, 8 B per valid
-// slot (its source index and its scale), 4 B per output row pointer and the
-// f32 output written once; 2 flops per valid slot and column. Bytes bound
-// it: the tables fit in the 50 MB L2 (PPI [24192, 320] bf16 15.5 MB, QM9
-// [81920, 128] bf16 21 MB), so the gathers wait on L2 latency, and the
-// number of gathers in flight per warp sets the time.
+// Bound. Bytes: the distinct table rows the entries read, 8 B an entry
+// (its row and its scale; 4 B for B12, which reads no scale), 4 B an output
+// row pointer and the f32 output written once; 2 flops per entry and column
+// (1 for B12). Bytes bound it. The pair tables fit in the 50 MB L2 (PPI
+// [24192, 320] bf16 15.5 MB, QM9 [81920, 128] bf16 21 MB), so their gathers
+// wait on L2 latency; B12's streams (bf16 [311296, 324] 202 MB, the
+// cotangent [245760, 324] 159 MB) do not, so its rows come from HBM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <limits>
 #include <type_traits>
 
 namespace {
 
-constexpr int BLK = 128;     // rows per node block
-constexpr int E_C = 128;     // slots per chunk
-constexpr int HT = 64;       // feature columns per thread block (K1)
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int COLS_PER_LANE = HT / 32;
-constexpr int UNROLL = 4;    // valid slots gathered before their adds (K1)
-constexpr int ROW_WARPS = 8;                 // output rows per block
+constexpr int ROW_WARPS = 8;                 // warps per block
 constexpr int ROW_THREADS = 32 * ROW_WARPS;
 constexpr int IN_FLIGHT = 8;                 // row gathers before their FMAs
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-struct StreamArgs {
-  const void* tables;
-  int64_t table_rows;
-  int h;
-  const float* scale;
-  const int32_t* rel_src;
-  const int32_t* rel_tgt;
-  const int32_t* src_blk;
-  const int32_t* grp_tgt;
-  const int32_t* grp_type;
-  int group;
-  int v;
-  float* out;
-  int64_t out_rows;
-};
-
-template <typename T>
-__device__ __forceinline__ void accumulate_group(const StreamArgs& a) {
-  __shared__ float acc[BLK * HT];
-  __shared__ int touched[BLK];
-  const T* __restrict__ tables = static_cast<const T*>(a.tables);
-  const int g = blockIdx.x;
-  const int col0 = blockIdx.y * HT;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  for (int i = threadIdx.x; i < BLK * HT; i += THREADS) acc[i] = 0.0f;
-  for (int i = threadIdx.x; i < BLK; i += THREADS) touched[i] = 0;
-  __syncthreads();
-
-  const int64_t type_base =
-      a.grp_type ? static_cast<int64_t>(a.grp_type[g]) * a.v : 0;
-  const int64_t slot0 = static_cast<int64_t>(g) * a.group * E_C;
-  const int num_slots = a.group * E_C;
-
-  for (int base = warp * 32; base < num_slots; base += WARPS * 32) {
-    const int64_t s = slot0 + base + lane;
-    const int rs = a.rel_src[s];
-    const int rt = a.rel_tgt[s];
-    const float sc = a.scale[s];
-    const bool valid = rs >= 0 && rs < BLK && rt >= 0 && rt < BLK;
-    int64_t row = type_base + static_cast<int64_t>(a.src_blk[s / E_C]) * BLK
-                  + (valid ? rs : 0);
-    // Out-of-range rows clip, as the twins' jnp.take(mode="clip") does.
-    row = row < 0 ? 0 : (row >= a.table_rows ? a.table_rows - 1 : row);
-    if (valid) touched[rt] = 1;
-    unsigned mask = __ballot_sync(FULL, valid);
-    while (mask) {
-      int64_t r[UNROLL];
-      int t[UNROLL];
-      float c[UNROLL];
-      bool ok[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        ok[u] = mask != 0;
-        const int j = ok[u] ? __ffs(mask) - 1 : 0;
-        if (ok[u]) mask &= mask - 1;
-        r[u] = __shfl_sync(FULL, row, j);
-        t[u] = __shfl_sync(FULL, rt, j);
-        c[u] = __shfl_sync(FULL, sc, j);
-      }
-      float val[UNROLL][COLS_PER_LANE];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-#pragma unroll
-        for (int k = 0; k < COLS_PER_LANE; ++k) {
-          const int col = col0 + lane + 32 * k;
-          val[u][k] = (ok[u] && col < a.h)
-                          ? to_f32(tables[r[u] * a.h + col])
-                          : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        if (!ok[u]) continue;
-#pragma unroll
-        for (int k = 0; k < COLS_PER_LANE; ++k) {
-          const int col = lane + 32 * k;
-          if (col0 + col < a.h) atomicAdd(&acc[t[u] * HT + col], val[u][k] * c[u]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // Segment-sum semantics: rows outside the output are dropped.
-  const int64_t out_base = static_cast<int64_t>(a.grp_tgt[g]) * BLK;
-  for (int i = threadIdx.x; i < BLK * HT; i += THREADS) {
-    const int r = i / HT;
-    const int col = col0 + i % HT;
-    const int64_t orow = out_base + r;
-    if (touched[r] && col < a.h && orow >= 0 && orow < a.out_rows) {
-      atomicAdd(&a.out[orow * a.h + col], acc[i]);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) pair_stream_kernel(StreamArgs a) {
-  accumulate_group<T>(a);
-}
-
-// ---------------------------------------------------------------------------
-// The row-owner kernel of K2 and B3.
-
 struct RowArgs {
-  const void* tables;
+  const void* table;
+  int ld_units;             // the table's row stride, in lane units (32
+                            // bits: a 64-bit stride cost B3 12 registers)
   int h;
-  const float* scale;
+  const float* scale;       // null: every entry's scale is 1
   const int32_t* row_ptr;   // [out_rows + 1]
-  const int32_t* src_row;   // [n] clipped absolute table rows
+  const int32_t* src_row;   // [n] table rows
   const int32_t* slot;      // [n] plan slots (the scale's index)
   int64_t out_rows;
   float* out;               // [out_rows, h]
 };
 
-// A table element's bits as a 32-bit word, and its f32 value.
-template <typename T>
-struct Elem;
+// A lane unit of UB bytes of a row of T (UB = 16 or 8, or sizeof(T) for
+// one element) as 32-bit words: its load and its FMAs into kElems f32
+// sums, in column order. bf16 is the upper half of an f32, so its
+// conversion is a shift (the low element of a word) or a mask (the high).
+template <typename T, int UB>
+struct Unit {
+  static constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+  static constexpr int kElems = UB / static_cast<int>(sizeof(T));
+  static constexpr int kWords = UB >= 4 ? UB / 4 : 1;
+  struct Raw {
+    uint32_t w[kWords];
+  };
 
-template <>
-struct Elem<float> {
-  static constexpr int kPerVector = 4;
-  __device__ static __forceinline__ uint32_t load(const void* p, int64_t i) {
-    return __ldg(static_cast<const unsigned int*>(p) + i);
-  }
-  __device__ static __forceinline__ float value(uint32_t bits) {
-    return __uint_as_float(bits);
-  }
-  __device__ static __forceinline__ void fma_vector(float* acc, uint4 x,
-                                                    float c) {
-    acc[0] = fmaf(c, __uint_as_float(x.x), acc[0]);
-    acc[1] = fmaf(c, __uint_as_float(x.y), acc[1]);
-    acc[2] = fmaf(c, __uint_as_float(x.z), acc[2]);
-    acc[3] = fmaf(c, __uint_as_float(x.w), acc[3]);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kPerVector = 8;
-  __device__ static __forceinline__ uint32_t load(const void* p, int64_t i) {
-    return __ldg(static_cast<const unsigned short*>(p) + i);
-  }
-  // bf16 is the upper half of an f32: the conversion is a shift.
-  __device__ static __forceinline__ float value(uint32_t bits) {
-    return __uint_as_float(bits << 16);
-  }
-  __device__ static __forceinline__ void fma_vector(float* acc, uint4 x,
-                                                    float c) {
-    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  __device__ static __forceinline__ Raw zero() {
+    Raw x;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc[2 * i] = fmaf(c, __uint_as_float(w[i] << 16), acc[2 * i]);
-      acc[2 * i + 1] = fmaf(c, __uint_as_float(w[i] & 0xffff0000u),
-                            acc[2 * i + 1]);
+    for (int i = 0; i < kWords; ++i) x.w[i] = 0u;
+    return x;
+  }
+
+  __device__ static __forceinline__ Raw load(const void* p, int64_t i) {
+    Raw x;
+    if constexpr (UB == 16) {
+      const uint4 v = __ldg(static_cast<const uint4*>(p) + i);
+      x.w[0] = v.x; x.w[1] = v.y; x.w[2] = v.z; x.w[3] = v.w;
+    } else if constexpr (UB == 8) {
+      const uint2 v = __ldg(static_cast<const uint2*>(p) + i);
+      x.w[0] = v.x; x.w[1] = v.y;
+    } else if constexpr (UB == 4) {
+      x.w[0] = __ldg(static_cast<const unsigned int*>(p) + i);
+    } else {
+      x.w[0] = __ldg(static_cast<const unsigned short*>(p) + i);
+    }
+    return x;
+  }
+
+  __device__ static __forceinline__ void fma(float* acc, const Raw& x,
+                                             float c) {
+    if constexpr (!kBf16) {
+#pragma unroll
+      for (int i = 0; i < kWords; ++i)
+        acc[i] = fmaf(c, __uint_as_float(x.w[i]), acc[i]);
+    } else if constexpr (UB == 2) {
+      acc[0] = fmaf(c, __uint_as_float(x.w[0] << 16), acc[0]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) {
+        acc[2 * i] = fmaf(c, __uint_as_float(x.w[i] << 16), acc[2 * i]);
+        acc[2 * i + 1] = fmaf(c, __uint_as_float(x.w[i] & 0xffff0000u),
+                              acc[2 * i + 1]);
+      }
     }
   }
 };
 
-// kVector: a lane's unit is a 16-byte vector of the row, else one element;
-// W: units per lane in this column tile (blockIdx.y).
-template <typename T, bool kVector, int W>
+// G lanes own a row (32 / G rows a warp); W units a lane in this column
+// tile (blockIdx.y).
+template <typename T, int UB, int G, int W>
 __global__ void __launch_bounds__(ROW_THREADS) row_owner_kernel(RowArgs a) {
-  using Unit = std::conditional_t<kVector, uint4, uint32_t>;
-  constexpr int kElems = kVector ? Elem<T>::kPerVector : 1;  // per unit
+  using U = Unit<T, UB>;
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of 2");
+  constexpr int kRows = 32 / G;                          // rows a warp
+  constexpr int kRound = G > IN_FLIGHT ? G : IN_FLIGHT;  // entries a round
+  constexpr int kPer = kRound / G;                       // ... a lane
   const int lane = threadIdx.x & 31;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5);
-  if (row >= a.out_rows) return;  // warp-uniform
-  const int units = a.h / kElems;  // per table row
-  const int unit0 = blockIdx.y * 32 * W + lane;
+  const int sub = lane & (G - 1);  // the lane in its group
+  const int64_t first =
+      (static_cast<int64_t>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5))
+      * kRows;
+  if (first >= a.out_rows) return;  // warp-uniform
+  const int64_t row = first + lane / G;
+  const bool live = row < a.out_rows;
+  const int units = a.h / U::kElems;  // per table row
+  const int unit0 = blockIdx.y * G * W + sub;
 
-  float acc[W][kElems];
+  float acc[W][U::kElems];
 #pragma unroll
   for (int k = 0; k < W; ++k)
 #pragma unroll
-    for (int e = 0; e < kElems; ++e) acc[k][e] = 0.0f;
+    for (int e = 0; e < U::kElems; ++e) acc[k][e] = 0.0f;
 
-  const int begin = __ldg(a.row_ptr + row);
-  const int end = __ldg(a.row_ptr + row + 1);
-  for (int base = begin; base < end; base += 32) {
-    const int count = min(32, end - base);  // warp-uniform
-    int src = 0;
-    float sc = 0.0f;
-    if (lane < count) {
-      src = __ldg(a.src_row + base + lane);
-      sc = __ldg(a.scale + __ldg(a.slot + base + lane));
+  const int begin = live ? __ldg(a.row_ptr + row) : 0;
+  const int len = live ? __ldg(a.row_ptr + row + 1) - begin : 0;
+  // The warp's longest row sets its rounds (warp-uniform).
+  const int most = kRows == 1 ? len : __reduce_max_sync(FULL, len);
+  for (int base = 0; base < most; base += kRound) {
+    const int count = len - base;  // this row's entries left; may be <= 0
+    // Entry j of the round sits in lane j % G of the group, register j / G.
+    int src[kPer];
+    float sc[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int j = sub + G * i;
+      src[i] = 0;
+      sc[i] = 0.0f;
+      if (j < count) {
+        const int e = begin + base + j;
+        src[i] = __ldg(a.src_row + e);
+        sc[i] = a.scale ? __ldg(a.scale + __ldg(a.slot + e)) : 1.0f;
+      }
     }
-    // j0 is a multiple of IN_FLIGHT (which divides 32) below count <= 32,
-    // so j0 + u < 32: every shuffle reads a lane of this warp.
-    for (int j0 = 0; j0 < count; j0 += IN_FLIGHT) {
-      Unit val[IN_FLIGHT][W];
+    const int trips = min(kRound, most - base);  // warp-uniform
+    // With G >= IN_FLIGHT, j0 is a multiple of IN_FLIGHT (which divides G)
+    // below trips <= G, so j0 + u < G; with G < IN_FLIGHT, trips <=
+    // IN_FLIGHT and j0 is 0. Every shuffle reads a lane of the group.
+    for (int j0 = 0; j0 < trips; j0 += IN_FLIGHT) {
+      typename U::Raw val[IN_FLIGHT][W];
       float c[IN_FLIGHT];
 #pragma unroll
       for (int u = 0; u < IN_FLIGHT; ++u) {
-        const int64_t r = __shfl_sync(FULL, src, j0 + u);
-        c[u] = __shfl_sync(FULL, sc, j0 + u);
+        const int reg = G >= IN_FLIGHT ? 0 : u / G;
+        const int from = G >= IN_FLIGHT ? j0 + u : u % G;
+        const int64_t r = __shfl_sync(FULL, src[reg], from, G);
+        c[u] = __shfl_sync(FULL, sc[reg], from, G);
         const bool ok = j0 + u < count;
 #pragma unroll
         for (int k = 0; k < W; ++k) {
-          const int unit = unit0 + 32 * k;
-          if constexpr (kVector) {
-            val[u][k] = (ok && unit < units)
-                            ? __ldg(static_cast<const uint4*>(a.tables)
-                                    + r * units + unit)
-                            : make_uint4(0u, 0u, 0u, 0u);
-          } else {
-            val[u][k] = (ok && unit < units)
-                            ? Elem<T>::load(a.tables, r * units + unit)
-                            : 0u;
-          }
+          const int unit = unit0 + G * k;
+          val[u][k] = (ok && unit < units)
+                          ? U::load(a.table, r * a.ld_units + unit)
+                          : U::zero();
         }
       }
 #pragma unroll
       for (int u = 0; u < IN_FLIGHT; ++u) {
-        if (j0 + u >= count) break;  // warp-uniform
+        if (j0 + u >= count) break;  // uniform within the group
 #pragma unroll
-        for (int k = 0; k < W; ++k) {
-          if constexpr (kVector) {
-            Elem<T>::fma_vector(acc[k], val[u][k], c[u]);
-          } else {
-            acc[k][0] = fmaf(c[u], Elem<T>::value(val[u][k]), acc[k][0]);
-          }
-        }
+        for (int k = 0; k < W; ++k) U::fma(acc[k], val[u][k], c[u]);
       }
     }
   }
+  if (!live) return;
 
   float* out_row = a.out + row * a.h;
 #pragma unroll
   for (int k = 0; k < W; ++k) {
-    const int unit = unit0 + 32 * k;
+    const int unit = unit0 + G * k;
     if (unit >= units) continue;
-    if constexpr (kVector) {
-      float4* o = reinterpret_cast<float4*>(out_row + unit * kElems);
+    float* o = out_row + static_cast<int64_t>(unit) * U::kElems;
+    if constexpr (U::kElems % 4 == 0) {
 #pragma unroll
-      for (int e = 0; e < kElems; e += 4) {
-        o[e / 4] = make_float4(acc[k][e], acc[k][e + 1], acc[k][e + 2],
-                               acc[k][e + 3]);
+      for (int e = 0; e < U::kElems; e += 4) {
+        reinterpret_cast<float4*>(o)[e / 4] = make_float4(
+            acc[k][e], acc[k][e + 1], acc[k][e + 2], acc[k][e + 3]);
       }
+    } else if constexpr (U::kElems == 2) {
+      *reinterpret_cast<float2*>(o) = make_float2(acc[k][0], acc[k][1]);
     } else {
-      out_row[unit] = acc[k][0];
+      *o = acc[k][0];
     }
   }
 }
 
+template <typename T, int UB, int G, int W>
+void launch_one(dim3 grid, cudaStream_t s, const RowArgs& a) {
+  row_owner_kernel<T, UB, G, W><<<grid, ROW_THREADS, 0, s>>>(a);
+}
+
+// A whole warp a row, w <= W units a lane.
+template <typename T, int UB, int W>
+void launch_wide(int w, dim3 grid, cudaStream_t s, const RowArgs& a) {
+  if (w >= W) {
+    launch_one<T, UB, 32, W>(grid, s, a);
+  } else if constexpr (W > 1) {
+    launch_wide<T, UB, W - 1>(w, grid, s, a);
+  }
+}
+
+template <typename T, int UB, int MAX_W>
+void launch_by_lanes(int g, int w, dim3 grid, cudaStream_t s,
+                     const RowArgs& a) {
+  switch (g) {
+    case 1: launch_one<T, UB, 1, 1>(grid, s, a); break;
+    case 2: launch_one<T, UB, 2, 1>(grid, s, a); break;
+    case 4: launch_one<T, UB, 4, 1>(grid, s, a); break;
+    case 8: launch_one<T, UB, 8, 1>(grid, s, a); break;
+    case 16: launch_one<T, UB, 16, 1>(grid, s, a); break;
+    default: launch_wide<T, UB, MAX_W>(w, grid, s, a); break;
+  }
+}
+
+// The widest unit first; an element-wide unit holds up to 4 a lane.
 template <typename T>
-void launch_row_owner(bool vector, int w, dim3 grid, cudaStream_t s,
-                      const RowArgs& a) {
-  if (vector) {
-    if (w == 1) {
-      row_owner_kernel<T, true, 1><<<grid, ROW_THREADS, 0, s>>>(a);
-    } else {
-      row_owner_kernel<T, true, 2><<<grid, ROW_THREADS, 0, s>>>(a);
-    }
-    return;
-  }
-  switch (w) {
-    case 1: row_owner_kernel<T, false, 1><<<grid, ROW_THREADS, 0, s>>>(a); break;
-    case 2: row_owner_kernel<T, false, 2><<<grid, ROW_THREADS, 0, s>>>(a); break;
-    case 3: row_owner_kernel<T, false, 3><<<grid, ROW_THREADS, 0, s>>>(a); break;
-    default: row_owner_kernel<T, false, 4><<<grid, ROW_THREADS, 0, s>>>(a); break;
+void launch_by_unit(int ub, int g, int w, dim3 grid, cudaStream_t s,
+                    const RowArgs& a) {
+  if (ub == 16) {
+    launch_by_lanes<T, 16, 2>(g, w, grid, s, a);
+  } else if (ub == 8) {
+    launch_by_lanes<T, 8, 3>(g, w, grid, s, a);
+  } else {
+    launch_by_lanes<T, static_cast<int>(sizeof(T)), 4>(g, w, grid, s, a);
   }
 }
 
-// dtype codes shared with the Python wrapper.
+// dtype codes shared with the Python wrappers.
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-int row_owner_launch(int device, int dtype, const void* tables, int h,
-                     const float* scale, const int32_t* row_ptr,
+int row_owner_launch(int device, int dtype, const void* table, int64_t ld,
+                     int h, const float* scale, const int32_t* row_ptr,
                      const int32_t* src_row, const int32_t* slot,
                      int64_t out_rows, float* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (h <= 0 || out_rows <= 0 || (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
+  if (h <= 0 || ld < h || out_rows <= 0 || (scale && !slot)
+      || (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   const int itemsize = dtype == DTYPE_F32 ? 4 : 2;
-  const bool vector = static_cast<int64_t>(h) * itemsize % 16 == 0 &&
-                      aligned16(tables) && aligned16(out);
-  const int units = vector ? h * itemsize / 16 : h;
-  const int max_w = vector ? 2 : 4;
-  const int w = min((units + 31) / 32, max_w);
-  RowArgs a{tables, h, scale, row_ptr, src_row, slot, out_rows, out};
-  dim3 grid(static_cast<unsigned>((out_rows + ROW_WARPS - 1) / ROW_WARPS),
-            (units + 32 * w - 1) / (32 * w));
+  auto fits = [&](int ub) {
+    return static_cast<int64_t>(h) * itemsize % ub == 0
+           && ld * itemsize % ub == 0 && aligned(table, ub)
+           && aligned(out, 16);
+  };
+  const int ub = fits(16) ? 16 : (fits(8) ? 8 : itemsize);
+  if (ld * itemsize / ub > std::numeric_limits<int>::max())
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int units = h * itemsize / ub;
+  const int max_w = ub == 16 ? 2 : (ub == 8 ? 3 : 4);
+  int g = 1;
+  while (g < 32 && g < units) g *= 2;
+  const int w = g == 32 ? min((units + 31) / 32, max_w) : 1;
+  const RowArgs a{table, static_cast<int>(ld * itemsize / ub), h, scale,
+                  row_ptr, src_row, slot, out_rows, out};
+  const int64_t rows_per_block = static_cast<int64_t>(ROW_WARPS) * (32 / g);
+  const dim3 grid(
+      static_cast<unsigned>((out_rows + rows_per_block - 1) / rows_per_block),
+      (units + g * w - 1) / (g * w));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32) {
-    launch_row_owner<float>(vector, w, grid, s, a);
+    launch_by_unit<float>(ub, g, w, grid, s, a);
   } else {
-    launch_row_owner<__nv_bfloat16>(vector, w, grid, s, a);
+    launch_by_unit<__nv_bfloat16>(ub, g, w, grid, s, a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entry points. Each returns the cudaError_t of the launch
-// (cudaGetLastError right after it); 0 is success.
+// C entry points, one per TPU kernel, all with one signature (scale is null
+// for B12). Each returns the cudaError_t of its launch (cudaGetLastError
+// right after it); 0 is success.
 
-extern "C" int pair_stream_launch(int device, int dtype, const void* tables,
-                                  int64_t table_rows, int h,
-                                  const float* scale, const int32_t* rel_src,
-                                  const int32_t* rel_tgt,
-                                  const int32_t* src_blk,
-                                  const int32_t* grp_tgt,
-                                  const int32_t* grp_type, int num_groups,
-                                  int group, int v, float* out,
-                                  int64_t out_rows, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_groups <= 0 || group <= 0 || h <= 0 || table_rows <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  StreamArgs a{tables, table_rows, h, scale, rel_src, rel_tgt, src_blk,
-               grp_tgt, grp_type, group, v, out, out_rows};
-  dim3 grid(num_groups, (h + HT - 1) / HT);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) {
-    pair_stream_kernel<float><<<grid, THREADS, 0, s>>>(a);
-  } else if (dtype == DTYPE_BF16) {
-    pair_stream_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(a);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+#define DEFINE_LAUNCH(NAME)                                                   \
+  extern "C" int NAME(int device, int dtype, const void* table, int64_t ld,  \
+                      int h, const float* scale, const int32_t* row_ptr,      \
+                      const int32_t* src_row, const int32_t* slot,            \
+                      int64_t out_rows, float* out, void* stream) {           \
+    return row_owner_launch(device, dtype, table, ld, h, scale, row_ptr,      \
+                            src_row, slot, out_rows, out, stream);            \
   }
-  return static_cast<int>(cudaGetLastError());
-}
 
-// K2 and B3: the same kernel over the compact form of their plans.
-extern "C" int pair_stream_joint_launch(int device, int dtype,
-                                        const void* tables, int h,
-                                        const float* scale,
-                                        const int32_t* row_ptr,
-                                        const int32_t* src_row,
-                                        const int32_t* slot, int64_t out_rows,
-                                        float* out, void* stream) {
-  return row_owner_launch(device, dtype, tables, h, scale, row_ptr, src_row,
-                          slot, out_rows, out, stream);
-}
-
-extern "C" int pair_spmm_launch(int device, int dtype, const void* tables,
-                                int h, const float* scale,
-                                const int32_t* row_ptr,
-                                const int32_t* src_row, const int32_t* slot,
-                                int64_t out_rows, float* out, void* stream) {
-  return row_owner_launch(device, dtype, tables, h, scale, row_ptr, src_row,
-                          slot, out_rows, out, stream);
-}
+DEFINE_LAUNCH(pair_stream_launch)
+DEFINE_LAUNCH(pair_stream_joint_launch)
+DEFINE_LAUNCH(pair_spmm_launch)
+DEFINE_LAUNCH(sorted_segment_sum_launch)
 
 extern "C" const char* pair_stream_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,21 +1,18 @@
 // Sorted-segment scatter kernels of the scatter-plan route, for Hopper
 // (sm_90a), bound through a plain C interface (ctypes) by
-// tf2_gnn_tpu_torch/ops/sorted_spmm.py. All four read one plan layout
+// tf2_gnn_tpu_torch/ops/sorted_spmm.py. All three read one plan layout
 // (ops/sorted_spmm.py::build_merged_plans): a chunk-ordered stream of
-// CHUNK = 512 slots a chunk, every chunk inside one block of R output rows,
+// CHUNK = 512 slots a chunk, every chunk inside one block of R = 128
+// output rows,
 //
 //   out[block_ids[slot / CHUNK] * R + rel[slot]]  <-  stream row `slot`,
 //
 // where rel outside [0, R) marks a sentinel slot, which is skipped. Each
 // computes the semantics of its TPU kernel in f32 into an f32 output that
-// the wrapper allocates and fills (0, or -inf for the max):
+// the wrapper allocates and fills (0, or -inf for the max). The plain sum
+// of this family (B12, spmm_pallas.py:442) is pair_stream.cu's row-owner
+// kernel over the plan's compact form:
 //
-//   sorted_segment_sum        <- tf2_gnn_tpu/ops/spmm_pallas.py:378
-//                                (sorted_segment_sum, pallas_call :442):
-//                                out[row] += msgs[slot]; R is 128, or 128 * L
-//                                for the type-minor rows rel * L + type of
-//                                plan_gather_tgt_typed's gradient. f32 or
-//                                bf16 stream.
 //   sorted_segment_sum_scaled <- spmm_pallas.py:457 (sorted_segment_sum_
 //                                scaled, pallas_call :494): out[row] +=
 //                                msgs[slot] * scale[slot], in that order.
@@ -47,7 +44,7 @@
 // column while rel stays the same and flushing it with one atomic per
 // column when rel changes. The forward plans are target-sorted inside a
 // chunk, so runs are long (about 26 slots on the PPI batch) and atomics are
-// few; the unsorted rel * L + type order only flushes more often. Loads are
+// few. Loads are
 // issued UNROLL slots at a time (rel first, then the rows), so each thread
 // keeps several row loads in flight; neighbouring lanes read neighbouring
 // columns. The float max flushes with the integer trick (atomicMax on the
@@ -66,8 +63,7 @@
 // row segments. At the PPI batch of the scatter-plan route (211,200 valid
 // slots; chip_smoke.py computes these from its plan, at 3.35 TB/s): B13
 // 0.084 ms forward ([245760, 320] f32 into 8064 rows) and 0.091 ms backward
-// ([311296, 320] into 24192 rows), B12 0.051 ms (bf16 [311296, 324]), B14
-// 0.085 ms, B15 and the [., 4] B12 about 0.0014 ms.
+// ([311296, 320] into 24192 rows), B14 0.085 ms, B15 about 0.0013 ms.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -82,7 +78,7 @@ constexpr int CHUNK = 512;   // slots per chunk
 constexpr int THREADS = 128;
 constexpr int UNROLL = 8;    // slots loaded before they are combined
 
-enum Mode : int { kSum = 0, kScaled = 1, kMax = 2, kAttention = 3 };
+enum Mode : int { kScaled = 1, kMax = 2, kAttention = 3 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -177,7 +173,6 @@ __global__ void __launch_bounds__(THREADS) sorted_scatter_kernel(Args a) {
       }
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
-        if (MODE == kSum) acc[c] += x[u][c];
         if (MODE == kScaled || MODE == kAttention) acc[c] += x[u][c] * e[u][c];
         if (MODE == kMax) acc[c] = fmaxf(acc[c], x[u][c]);
       }
@@ -225,7 +220,7 @@ int dispatch(int device, int dtype, const void* msgs, int64_t ld, int h,
                num_nodes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32) return by_width<float, MODE>(a, num_chunks, s);
-  if constexpr (MODE == kSum || MODE == kScaled) {
+  if constexpr (MODE == kScaled) {
     if (dtype == DTYPE_BF16) {
       return by_width<__nv_bfloat16, MODE>(a, num_chunks, s);
     }
@@ -250,7 +245,6 @@ int dispatch(int device, int dtype, const void* msgs, int64_t ld, int h,
                           stream);                                            \
   }
 
-DEFINE_LAUNCH(sorted_segment_sum_launch, kSum)
 DEFINE_LAUNCH(sorted_segment_sum_scaled_launch, kScaled)
 DEFINE_LAUNCH(sorted_segment_max_launch, kMax)
 DEFINE_LAUNCH(attention_scatter_launch, kAttention)

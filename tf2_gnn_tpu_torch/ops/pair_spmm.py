@@ -10,17 +10,17 @@ single-launch layout. Only the numpy planner is ported; the JAX package's
 C++ planner (``native/src/graphpack.cc``) produces the same layout faster.
 
 Device half: ``pair_stream_joint`` is a ``torch.autograd.Function`` whose
-forward runs the joint kernel (K2, ``pair_spmm_stream_joint``) and whose
-backward runs the stream kernel (K1, ``pair_spmm_stream``) over the
-backward plan. ``pair_spmm`` (B3) is the same SpMM over one direction of a
-merged plan (``MergedPlan``); RGAT's head-major sums run it once per head.
-All three kernels are hand-written CUDA (``csrc/pair_stream.cu``). K1 reads
-the plan arrays; K2 and B3 read the plan direction's compact form
-(``slot_rows``: its valid slots as a CSR over output rows), which each plan
-object builds at first read and keeps, so it is built once per batch. Each
-wrapper runs its plain PyTorch version (over the plan arrays) on a CPU
-tensor and launches the kernel on a CUDA tensor, or raises; there is no
-fallback between the two.
+forward runs the joint SpMM (K2, ``pair_spmm_stream_joint``) and whose
+backward runs the stream SpMM (K1, ``pair_spmm_stream``) over the backward
+plan. ``pair_spmm`` (B3) is the same SpMM over one direction of a merged
+plan (``MergedPlan``); RGAT's head-major sums run it once per head. All
+three launch one hand-written CUDA kernel (``csrc/pair_stream.cu``'s
+``row_owner_kernel``), which reads the plan direction's compact form
+(``slot_rows``: its valid slots as a CSR over output rows); each plan
+object builds it at first read and keeps it, so it is built once per
+batch. Each wrapper runs its plain PyTorch version (over the plan arrays)
+on a CPU tensor and launches the kernel on a CUDA tensor, or raises; there
+is no fallback between the two.
 """
 import ctypes
 import dataclasses
@@ -470,9 +470,9 @@ class StreamJointPlan:
     concatenated per-type plans with LOCAL forward output blocks and LOCAL
     overflow targets (sentinel ``v_out``), and the all-zero backward types
     (one un-broadcast [Vo, H] cotangent slab). Built once per batch on the
-    host (``stream_joint_plan``) and moved with ``.to(device)``; the forward
-    direction's compact form (``fwd_rows``) is built at its first read and
-    kept (a moved plan starts without it)."""
+    host (``stream_joint_plan``) and moved with ``.to(device)``; each
+    direction's compact form (``fwd_rows``, ``bwd_rows``) is built at its
+    first read and kept (a moved plan starts without them)."""
 
     scale_fwd: object
     scale_bwd: object
@@ -511,6 +511,18 @@ class StreamJointPlan:
                 self.grp_tgt_fl, self.num_types * self.v_src, self.v_out,
                 self.grp_type_f, self.v_src)
         return self._rows["fwd"]
+
+    @property
+    def bwd_rows(self) -> "SlotRows":
+        """The backward direction's compact form, which K1 reads: sources
+        in the one [v_out] cotangent slab (all-zero types), targets in the
+        stacked [L * v_src] table rows."""
+        if "bwd" not in self._rows:
+            self._rows["bwd"] = slot_rows(
+                self.rel_src_b, self.rel_tgt_b, self.src_blk_b,
+                self.grp_tgt_b, self.v_out, self.num_types * self.v_src,
+                self.type_b_zeros, self.v_out)
+        return self._rows["bwd"]
 
 
 def stream_joint_plan(plans_typed, v_src: int,
@@ -597,7 +609,8 @@ def pair_unit_scales(plan: MergedPlan, out_rows: int):
 
 
 # ---------------------------------------------------------------------------
-# Device half: the three kernels, their plain versions and the autograd op
+# Device half: the three SpMMs (one kernel), their plain versions and the
+# autograd op
 
 # Launch counts of the CUDA kernels of this module: each wrapper adds one
 # where it launches its kernel, and nowhere else.
@@ -641,12 +654,13 @@ def _stream_slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt, grp_type,
 
 @dataclasses.dataclass(frozen=True)
 class SlotRows:
-    """The compact form of one plan direction (``slot_rows``): its ``n``
-    valid slots with a target row in the output, sorted stably by target
-    row into a CSR. Row ``t``'s slots are ``row_ptr[t]:row_ptr[t + 1]``, in
-    ascending slot order; ``src_row`` is each one's absolute table row
-    (clipped into the table) and ``slot`` its plan slot, whose per-call
-    scale is ``scale[slot]``. Built with torch ops on the plan's device."""
+    """The compact form of one plan direction (``slot_rows``, or
+    ``sorted_spmm.sorted_rows`` for a sorted plan): its ``n`` valid slots
+    with a target row in the output, sorted stably by target row into a
+    CSR. Row ``t``'s slots are ``row_ptr[t]:row_ptr[t + 1]``, in ascending
+    slot order; ``src_row`` is each one's table row (clipped into the
+    table) and ``slot`` its plan slot, whose per-call scale is
+    ``scale[slot]``. Built with torch ops on the plan's device."""
 
     row_ptr: torch.Tensor    # int32 [out_rows + 1]
     src_row: torch.Tensor    # int32 [n]
@@ -658,7 +672,7 @@ class SlotRows:
 
 def slot_rows(rel_src, rel_tgt, src_blk, grp_tgt, table_rows: int,
               out_rows: int, grp_type=None, v: int = 0) -> SlotRows:
-    """The compact form of one plan direction, as K2 and B3 read it.
+    """The compact form of one plan direction, as K1, K2 and B3 read it.
 
     A slot is valid where ``rel_src < BLK`` and ``rel_tgt < BLK``; its
     source row is ``src_blk[chunk] * BLK + rel_src``, plus ``grp_type[g] *
@@ -715,15 +729,15 @@ def _scatter_slots(tables, scale, srcabs, tgtabs, valid, out_rows: int):
 
 
 _INT, _INT64, _PTR = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-# (restype, argtypes) of the library's C entry points, set once at load.
-_ROW_OWNER_ARGTYPES = [_INT, _INT, _PTR, _INT, _PTR, _PTR, _PTR, _PTR,
-                       _INT64, _PTR, _PTR]
+# (restype, argtypes) of the library's C entry points, set once at load:
+# one row-owner signature for K1, K2, B3 and B12 (sorted_spmm.py).
+_ROW_OWNER = (ctypes.c_int, [_INT, _INT, _PTR, _INT64, _INT, _PTR, _PTR,
+                             _PTR, _PTR, _INT64, _PTR, _PTR])
 _SIGNATURES = {
-    "pair_stream_launch": (ctypes.c_int, [
-        _INT, _INT, _PTR, _INT64, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-        _INT, _INT, _INT, _PTR, _INT64, _PTR]),
-    "pair_stream_joint_launch": (ctypes.c_int, _ROW_OWNER_ARGTYPES),
-    "pair_spmm_launch": (ctypes.c_int, _ROW_OWNER_ARGTYPES),
+    "pair_stream_launch": _ROW_OWNER,
+    "pair_stream_joint_launch": _ROW_OWNER,
+    "pair_spmm_launch": _ROW_OWNER,
+    "sorted_segment_sum_launch": _ROW_OWNER,
     "pair_stream_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -740,80 +754,60 @@ def _raise_on(lib, entry: str, err: int) -> None:
         raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
 
 
-def _check_table(entry: str, tables, scale) -> None:
-    if tables.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{entry}: tables must be float32 or bfloat16, "
-                        f"got {tables.dtype}")
-    if tables.dim() != 2 or not tables.is_contiguous():
-        raise ValueError(f"{entry}: tables must be a contiguous 2-D tensor")
-    if (scale.dtype != torch.float32 or not scale.is_contiguous()
-            or scale.device != tables.device):
+def _rows_view(x):
+    """``x`` where its rows are contiguous (a row stride is fine), else a
+    contiguous copy."""
+    if x.stride(1) == 1 and x.stride(0) >= x.shape[1]:
+        return x
+    return x.contiguous()
+
+
+def _check_table(entry: str, table, scale) -> None:
+    if table.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{entry}: the table must be float32 or bfloat16, "
+                        f"got {table.dtype}")
+    if table.dim() != 2:
+        raise ValueError(f"{entry}: the table must be 2-D")
+    if scale is not None and (scale.dtype != torch.float32
+                              or not scale.is_contiguous()
+                              or scale.device != table.device):
         raise TypeError(f"{entry}: scale must be contiguous float32 on the "
-                        "tables' device")
+                        "table's device")
 
 
-def _launch(entry: str, tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-            grp_type, v: int, out_rows: int):
-    """Launch K1 (``pair_stream_kernel``) on the current stream into a
-    fresh zero-initialised f32 output (it adds with atomics)."""
-    lib = _library()
-    _check_table(entry, tables, scale)
-    ints = {"rel_src": rel_src, "rel_tgt": rel_tgt, "src_blk": src_blk,
-            "grp_tgt": grp_tgt, "grp_type": grp_type}
-    for name, a in ints.items():
-        if a.dtype != torch.int32 or not a.is_contiguous():
-            raise TypeError(f"{entry}: {name} must be contiguous int32")
-        if a.device != tables.device:
-            raise ValueError(f"{entry}: {name} is on {a.device}, tables on "
-                             f"{tables.device}")
-    if grp_type.shape != grp_tgt.shape:
-        raise ValueError(f"{entry}: grp_type and grp_tgt differ in shape")
-    num_chunks = src_blk.shape[0]
-    group = plan_group(src_blk, grp_tgt)
-    num_groups = grp_tgt.shape[0]
-    if (rel_src.numel() != num_chunks * E_C or rel_tgt.numel() != rel_src.numel()
-            or scale.numel() != rel_src.numel()
-            or group * num_groups != num_chunks or num_groups == 0):
-        raise ValueError(f"{entry}: inconsistent plan shapes")
-    h = tables.shape[1]
-    out = torch.zeros((out_rows, h), dtype=torch.float32, device=tables.device)
-    stream = torch.cuda.current_stream(tables.device).cuda_stream
-    _raise_on(lib, entry, getattr(lib, entry)(
-        tables.device.index or 0, _DTYPE_CODES[tables.dtype],
-        tables.data_ptr(), tables.shape[0], h, scale.data_ptr(),
-        rel_src.data_ptr(), rel_tgt.data_ptr(), src_blk.data_ptr(),
-        grp_tgt.data_ptr(), grp_type.data_ptr(), num_groups, group, v,
-        out.data_ptr(), out_rows, stream))
-    return out
-
-
-def _launch_rows(entry: str, tables, scale, compact: SlotRows,
+def _launch_rows(entry: str, table, scale, compact: SlotRows,
                  out_rows: int):
-    """Launch the row-owner kernel of K2 and B3 on the current stream over
-    the plan's compact form; every output element is stored once, so the
-    output is not initialised. The compact form's own tensors were checked
-    when it was built; here only its sizes are held to the call's."""
+    """Launch ``row_owner_kernel`` (K1, K2, B3 or B12, by ``entry``) on the
+    current stream over the plan's compact form: f32 [out_rows, H], every
+    element stored once, so the output is not initialised. ``table`` may be
+    a row-strided view (its row stride is passed, not copied; other
+    layouts are copied); ``scale`` None reads every entry at scale 1. The
+    compact form's own tensors were checked when it was built; here only
+    its sizes are held to the call's."""
     lib = _library()
-    _check_table(entry, tables, scale)
-    if (compact.out_rows != out_rows or compact.table_rows != tables.shape[0]
-            or compact.num_slots != scale.numel()):
+    _check_table(entry, table, scale)
+    table = _rows_view(table)
+    if (compact.out_rows != out_rows or compact.table_rows != table.shape[0]
+            or (scale is not None and compact.num_slots != scale.numel())):
         raise ValueError(
             f"{entry}: the compact form is of a [{compact.table_rows}]-row "
             f"table into {compact.out_rows} rows over {compact.num_slots} "
-            f"slots; the call has a [{tables.shape[0]}]-row table, "
-            f"{out_rows} output rows and {scale.numel()} scales")
-    if compact.row_ptr.device != tables.device:
+            f"slots; the call has a [{table.shape[0]}]-row table and "
+            f"{out_rows} output rows"
+            + ("" if scale is None else f" and {scale.numel()} scales"))
+    if compact.row_ptr.device != table.device:
         raise ValueError(f"{entry}: the compact form is on "
-                         f"{compact.row_ptr.device}, tables on "
-                         f"{tables.device}")
-    h = tables.shape[1]
-    out = torch.empty((out_rows, h), dtype=torch.float32, device=tables.device)
-    stream = torch.cuda.current_stream(tables.device).cuda_stream
+                         f"{compact.row_ptr.device}, the table on "
+                         f"{table.device}")
+    h = table.shape[1]
+    out = torch.empty((out_rows, h), dtype=torch.float32, device=table.device)
+    stream = torch.cuda.current_stream(table.device).cuda_stream
     _raise_on(lib, entry, getattr(lib, entry)(
-        tables.device.index or 0, _DTYPE_CODES[tables.dtype],
-        tables.data_ptr(), h, scale.data_ptr(), compact.row_ptr.data_ptr(),
-        compact.src_row.data_ptr(), compact.slot.data_ptr(), out_rows,
-        out.data_ptr(), stream))
+        table.device.index or 0, _DTYPE_CODES[table.dtype],
+        table.data_ptr(), table.stride(0), h,
+        None if scale is None else scale.data_ptr(),
+        compact.row_ptr.data_ptr(), compact.src_row.data_ptr(),
+        compact.slot.data_ptr(), out_rows, out.data_ptr(), stream))
     return out
 
 
@@ -827,18 +821,25 @@ def _require_compact(name: str, compact) -> None:
     if compact is None:
         raise ValueError(
             f"{name}: a CUDA call needs the plan's compact form (compact=, "
-            "from slot_rows or the plan's fwd_rows), built once per batch")
+            "from slot_rows / sorted_rows or the form the plan keeps), "
+            "built once per batch")
 
 
 def pair_spmm_stream(tables, scale, rel_src, rel_tgt, src_blk, grp_tgt_g,
-                     grp_type, v: int, out_rows: int):
+                     grp_type, v: int, out_rows: int,
+                     compact: Optional[SlotRows] = None):
     """K1, the streamed per-type kernel: f32 [out_rows, H] with GLOBAL
-    output blocks ``grp_tgt_g``; ``tables`` [L*v, H] f32 or bf16."""
-    args = (scale, rel_src, rel_tgt, src_blk, grp_tgt_g, grp_type, v,
-            out_rows)
+    output blocks ``grp_tgt_g``; ``tables`` [L*v, H] f32 or bf16. On the
+    card it reads only the plan's ``compact`` form
+    (``StreamJointPlan.bwd_rows``) and the scales; on the CPU the plain
+    version reads the plan arrays."""
     if _on_cpu("pair_stream", tables):
-        return pair_spmm_stream_plain(tables, *args)
-    out = _launch("pair_stream_launch", tables, *args)
+        return pair_spmm_stream_plain(tables, scale, rel_src, rel_tgt,
+                                      src_blk, grp_tgt_g, grp_type, v,
+                                      out_rows)
+    _require_compact("pair_stream", compact)
+    out = _launch_rows("pair_stream_launch", tables, scale, compact,
+                       out_rows)
     LAUNCHES["pair_stream"] += 1
     return out
 
@@ -883,8 +884,9 @@ class PairStreamJoint(torch.autograd.Function):
     Forward: the tables cast to ``stream_dtype``, the joint kernel K2 over
     the plan's compact form (``plan.fwd_rows``, built at the batch's first
     forward), plus the overflow edges in plain torch. Backward: the stream
-    kernel K1 over the backward plan with all-zero types, so every backward
-    group reads the one un-broadcast [Vo, H] cotangent slab. Unlike the
+    kernel K1 over the backward plan's compact form (``plan.bwd_rows``,
+    built at the batch's first backward) with all-zero types, so every
+    entry reads the one un-broadcast [Vo, H] cotangent slab. Unlike the
     TPU, where a VMEM budget routes large windows to stream-plus-reduce, the
     joint output always lives in device memory here, so the forward is
     always the joint kernel.
@@ -926,7 +928,7 @@ class PairStreamJoint(torch.autograd.Function):
         d_tables = pair_spmm_stream(
             g_stream, scale_bwd, plan.rel_src_b, plan.rel_tgt_b,
             plan.src_blk_b, plan.grp_tgt_b, plan.type_b_zeros, plan.v_out,
-            rows)
+            rows, compact=plan.bwd_rows)
         if plan.ovf_src.shape[0]:
             g_rows = g[torch.clamp(plan.ovf_tgt_l.long(), max=plan.v_out - 1)]
             g_rows = g_rows.to(torch.float32) * ovf_scale[:, None]

@@ -16,25 +16,32 @@ chunk-ordered stream into ``out[block_ids[slot // 512] * R + rel[slot]]``
 (``rel >= R`` marks a sentinel slot):
 
 * ``sorted_segment_sum`` (B12), a sum; R is 128, or 128 * L for the
-  type-minor transpose of ``plan_gather_tgt_typed``;
+  type-minor transpose of ``plan_gather_tgt_typed``.
+  ``sorted_segment_sum_gathered`` is the same kernel over a stream read
+  through a row map: ``plan_gather_src``'s gradient, the cotangent's
+  forward-slot rows summed by source, without writing the re-ordered
+  stream;
 * ``sorted_segment_sum_scaled`` (B13), the sum of ``msgs * scale``;
 * ``sorted_segment_max`` (B15), a max (forward only; empty rows give 0);
 * ``attention_scatter_sums`` (B14), the attention denominators and the
   expd-weighted sums of hk-major messages in one pass.
 
-All four are hand-written CUDA (``csrc/sorted_scatter.cu``). Each wrapper
-runs its plain PyTorch version (``index_add_`` or ``scatter_reduce_``,
-accumulating in f32) on a CPU tensor and launches its kernel on a CUDA
-tensor, or raises. The autograd ops ``typed_gather_scatter``,
-``plan_gather_src``, ``plan_gather_tgt_typed``, ``plan_scatter`` and
-``attention_scatter`` mirror the reference's custom VJPs; their row
-gathers stay ``index_select``, as the reference's ``jnp.take`` calls sit
-outside its kernels.
+All four are hand-written CUDA. B12 launches the row-owner kernel of
+``csrc/pair_stream.cu`` over the plan's compact form (``sorted_rows``, a
+CSR of the valid slots by output row, which ``ScatterPlan.sum_rows``
+builds at first read and keeps); B13-B15 are ``csrc/sorted_scatter.cu``'s.
+Each wrapper runs its plain PyTorch version (``index_add_`` or
+``scatter_reduce_``, accumulating in f32) on a CPU tensor and launches its
+kernel on a CUDA tensor, or raises. The autograd ops
+``typed_gather_scatter``, ``plan_gather_src``, ``plan_gather_tgt_typed``,
+``plan_scatter`` and ``attention_scatter`` mirror the reference's custom
+VJPs; their other row gathers stay ``index_select``, as the reference's
+``jnp.take`` calls sit outside its kernels.
 """
 import ctypes
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +50,12 @@ from ..utils.constants import SMALL_NUMBER
 from ..utils.device import as_tensor
 from .pair_attention import _check
 from .pair_edge_mlp import _device_type
-from .pair_spmm import _DTYPE_CODES
+from .pair_spmm import (
+    _DTYPE_CODES,
+    SlotRows,
+    _launch_rows,
+    _require_compact,
+)
 from .segment import segment_logits_max, segment_sum
 
 BLOCK_NODES = 128   # output rows per node block
@@ -219,6 +231,9 @@ class ScatterPlan:
     * the sentinel masks of both slot orders, and ``rel_typed``, the
       type-minor relative rows ``rel * L + type`` (sentinel 128 * L) of
       ``plan_gather_tgt_typed``'s gradient.
+
+    B12's compact forms (``sum_rows``) are built on the device at their
+    first read and kept (a moved plan starts without them).
     """
 
     src_merged: object
@@ -243,6 +258,8 @@ class ScatterPlan:
     bwd_sentinel: object
     num_nodes: int
     num_types: int
+    _rows: Dict[object, SlotRows] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @classmethod
     def from_host(cls, arrays, num_nodes: int,
@@ -275,6 +292,31 @@ class ScatterPlan:
         return dataclasses.replace(self, **{
             f.name: as_tensor(getattr(self, f.name), device)
             for f in dataclasses.fields(self) if f.type is object})
+
+    def sum_rows(self, form: str, out_rows: int) -> SlotRows:
+        """B12's compact form (``sorted_rows``) into ``out_rows`` rows, in
+        one of its call forms: ``"fwd"``, the forward slots by target
+        (``plan_scatter``); ``"fwd_typed"``, the forward slots by type-minor
+        row ``rel * L + type`` (R = 128 * L, ``plan_gather_tgt_typed``'s
+        gradient); ``"bwd"``, the backward slots by merged source, each
+        reading its own stream row; ``"bwd_fused"``, the same rows, each
+        entry reading the forward slot ``bwd_to_fwd_idx[slot]`` of the
+        cotangent (``plan_gather_src``'s gradient)."""
+        key = (form, out_rows)
+        if key not in self._rows:
+            fused = dict(stream_row=self.bwd_to_fwd_idx,
+                         stream_rows=self.rel_tgt.numel())
+            rel, blocks, block_rows, kwargs = {
+                "fwd": (self.rel_tgt, self.tgt_blocks, BLOCK_NODES, {}),
+                "fwd_typed": (self.rel_typed, self.tgt_blocks,
+                              BLOCK_NODES * self.num_types, {}),
+                "bwd": (self.rel_src, self.src_blocks, BLOCK_NODES, {}),
+                "bwd_fused": (self.rel_src, self.src_blocks, BLOCK_NODES,
+                              fused),
+            }[form]
+            self._rows[key] = sorted_rows(rel, blocks, out_rows, block_rows,
+                                          **kwargs)
+        return self._rows[key]
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +354,31 @@ def _segment_ids(rel, block_ids, num_nodes: int, block_rows: int):
     return torch.where(valid, rows, torch.full_like(rows, num_nodes))
 
 
+def sorted_rows(rel, block_ids, num_nodes: int, block_rows: int,
+                stream_row=None, stream_rows: int = None) -> SlotRows:
+    """The compact form of a sorted plan, as B12's kernel reads it: the
+    valid slots (``rel`` in [0, R), output row ``block_ids[slot // 512] *
+    R + rel`` below ``num_nodes``) as a CSR by output row, sorted stably,
+    so each row's entries keep slot order whatever the order inside a
+    chunk. Each entry's ``src_row`` is its stream row: the slot
+    itself, or ``stream_row[slot]`` where a row map is given, into a
+    stream of ``stream_rows`` rows (default: one per slot). Built with
+    torch ops on the plan's device."""
+    seg = _segment_ids(rel, block_ids, num_nodes, block_rows)
+    kept = torch.nonzero(seg < num_nodes).reshape(-1)
+    rows = seg[kept]
+    slot = kept[torch.sort(rows, stable=True).indices]
+    counts = torch.bincount(rows, minlength=num_nodes)
+    row_ptr = torch.cat([counts.new_zeros((1,)), torch.cumsum(counts, 0)])
+    if stream_row is None:
+        src, stream_rows = slot, rel.numel()
+    else:
+        src = stream_row.reshape(-1).long()[slot]
+    return SlotRows(row_ptr.to(torch.int32), src.to(torch.int32),
+                    slot.to(torch.int32), stream_rows, num_nodes,
+                    rel.numel())
+
+
 def sorted_segment_sum_plain(msgs, rel, block_ids, num_nodes: int,
                              block_rows: int = None):
     """Plain PyTorch version of B12: f32 [num_nodes, H], the sum of the
@@ -342,6 +409,21 @@ def sorted_segment_sum_scaled_plain(msgs, scale, rel, block_ids,
                        _segment_ids(rel, block_ids, num_nodes, r), num_nodes)
 
 
+def _gathered_stream(g, stream_row, sentinel):
+    """The rows ``g[stream_row]``, zero where ``sentinel``."""
+    g_b = g.index_select(0, stream_row)
+    return g_b.masked_fill_(sentinel[:, None], 0.0)
+
+
+def sorted_segment_sum_gathered_plain(g, stream_row, sentinel, rel,
+                                      block_ids, num_nodes: int):
+    """Plain PyTorch version of B12's gathered form: the stream
+    ``g[stream_row]`` written out, its sentinel slots zeroed, then B12's
+    plain sum over it (R = 128)."""
+    return sorted_segment_sum_plain(_gathered_stream(g, stream_row, sentinel),
+                                    rel, block_ids, num_nodes)
+
+
 def sorted_segment_max_plain(vals, rel, block_ids, num_nodes: int):
     """Plain PyTorch version of B15: f32 [num_nodes, K], the max per output
     row from a -inf fill; rows left non-finite (no slot) become 0."""
@@ -366,11 +448,10 @@ def attention_scatter_sums_plain(expd, msgs, rel, block_ids, num_nodes: int):
 
 
 def _launch(entry: str, msgs, aux, rel, block_ids, num_nodes: int,
-            block_rows: Optional[int], stream_dtypes, fill: float,
-            heads: bool = False):
-    """Launch one kernel of ``csrc/sorted_scatter.cu`` on the current
-    stream into a fresh f32 [num_nodes, H] output filled with ``fill``.
-    ``msgs`` [slots, H] may be a row-strided view (its columns contiguous);
+            stream_dtypes, fill: float, heads: bool = False):
+    """Launch one kernel of ``csrc/sorted_scatter.cu`` (B13-B15) on the
+    current stream into a fresh f32 [num_nodes, H] output filled with
+    ``fill`` (R = 128). ``msgs`` [slots, H] may be a row-strided view (its columns contiguous);
     ``aux`` is the f32 per-slot scale (B13), the f32 [slots, K] expd (B14,
     ``heads``: also a zeroed [num_nodes, K] denominator) or None. Returns
     (out, denominator or None)."""
@@ -378,7 +459,7 @@ def _launch(entry: str, msgs, aux, rel, block_ids, num_nodes: int,
 
     lib = load_library(_SOURCE)
     dev = msgs.device
-    r = _block_rows(num_nodes, block_rows)
+    r = _block_rows(num_nodes, None)
     i32 = (torch.int32,)
     _check(entry, dev, rel=(rel, i32), block_ids=(block_ids, i32))
     if msgs.device != dev or msgs.dtype not in stream_dtypes:
@@ -430,16 +511,45 @@ _F32 = (torch.float32,)
 
 
 def sorted_segment_sum(msgs, rel, block_ids, num_nodes: int,
-                       block_rows: int = None):
+                       block_rows: int = None,
+                       compact: Optional[SlotRows] = None):
     """B12: ``out[block_ids[slot // 512] * R + rel[slot]] += msgs[slot]``
     over the valid slots (``rel < R``), f32 [num_nodes, H]; R is
     ``block_rows`` (default 128) and must divide ``num_nodes``. ``msgs``
-    [slots, H] f32 or bf16."""
+    [slots, H] f32 or bf16, possibly a row-strided view. On the card it
+    reads only the plan's ``compact`` form (``sorted_rows``, from
+    ``ScatterPlan.sum_rows``) and the stream's valid rows; on the CPU the
+    plain version reads the plan arrays."""
     if _device_type("sorted_segment_sum", msgs) == "cpu":
         return sorted_segment_sum_plain(msgs, rel, block_ids, num_nodes,
                                         block_rows)
-    out, _ = _launch("sorted_segment_sum_launch", msgs, None, rel, block_ids,
-                     num_nodes, block_rows, _STREAM_DTYPES, 0.0)
+    _require_compact("sorted_segment_sum", compact)
+    _block_rows(num_nodes, block_rows)
+    out = _launch_rows("sorted_segment_sum_launch", msgs, None, compact,
+                       num_nodes)
+    LAUNCHES["sorted_segment_sum"] += 1
+    return out
+
+
+def sorted_segment_sum_gathered(g, stream_row, sentinel, rel, block_ids,
+                                num_nodes: int,
+                                compact: Optional[SlotRows] = None):
+    """B12 over the stream ``where(sentinel, 0, g[stream_row])``, R = 128:
+    ``plan_gather_src``'s gradient (``_pgs_bwd``, spmm_pallas.py:584-590),
+    the cotangent ``g`` [forward slots, H] (f32 or bf16) re-ordered into
+    backward slots and summed by merged source. On the card one launch of
+    B12's kernel reads g's rows directly through the ``compact`` form
+    (``ScatterPlan.sum_rows("bwd_fused", ...)``), whose entries carry
+    ``stream_row[slot]``, so the re-ordered stream is never written; it
+    counts as a launch of B12. On the CPU the unfused composite runs: the
+    re-ordered stream, then B12's wrapper (its plain version there)."""
+    if _device_type("sorted_segment_sum_gathered", g) == "cpu":
+        return sorted_segment_sum(_gathered_stream(g, stream_row, sentinel),
+                                  rel, block_ids, num_nodes)
+    _require_compact("sorted_segment_sum_gathered", compact)
+    _block_rows(num_nodes, None)
+    out = _launch_rows("sorted_segment_sum_launch", g, None, compact,
+                       num_nodes)
     LAUNCHES["sorted_segment_sum"] += 1
     return out
 
@@ -456,7 +566,7 @@ def sorted_segment_sum_scaled(msgs, scale, rel, block_ids, num_nodes: int):
         return sorted_segment_sum_scaled_plain(msgs, scale, rel, block_ids,
                                                num_nodes)
     out, _ = _launch("sorted_segment_sum_scaled_launch", msgs, scale, rel,
-                     block_ids, num_nodes, None, _STREAM_DTYPES, 0.0)
+                     block_ids, num_nodes, _STREAM_DTYPES, 0.0)
     LAUNCHES["sorted_segment_sum_scaled"] += 1
     return out
 
@@ -468,7 +578,7 @@ def sorted_segment_max(vals, rel, block_ids, num_nodes: int):
     if _device_type("sorted_segment_max", vals) == "cpu":
         return sorted_segment_max_plain(vals, rel, block_ids, num_nodes)
     out, _ = _launch("sorted_segment_max_launch", vals, None, rel, block_ids,
-                     num_nodes, None, _F32, -math.inf)
+                     num_nodes, _F32, -math.inf)
     LAUNCHES["sorted_segment_max"] += 1
     # Non-finite -> 0, as the plain version's where(isfinite), in place.
     return out.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0)
@@ -483,8 +593,7 @@ def attention_scatter_sums(expd, msgs, rel, block_ids, num_nodes: int):
         return attention_scatter_sums_plain(expd, msgs, rel, block_ids,
                                             num_nodes)
     weighted, denom = _launch("attention_scatter_launch", msgs, expd, rel,
-                              block_ids, num_nodes, None, _F32, 0.0,
-                              heads=True)
+                              block_ids, num_nodes, _F32, 0.0, heads=True)
     LAUNCHES["attention_scatter_sums"] += 1
     return denom, weighted
 
@@ -537,12 +646,13 @@ def typed_gather_scatter(tables_flat, plan: ScatterPlan, scale_fwd, scale_bwd,
 
 class PlanGatherSrc(torch.autograd.Function):
     """``msgs[slot] = tables[src_merged[slot]]`` in ``stream_dtype``
-    (``plan_gather_src``, spmm_pallas.py:569-593). The backward re-orders
-    the cotangent into backward (source-sorted) slots, zeroes the
-    sentinels and runs B12 over the table rows: an f32 gradient, read from
-    a stream in the cotangent's dtype (the caller's cast of the output to
-    f32 rounds it to ``stream_dtype`` on the way back, as the transpose of
-    ``astype`` does in the reference)."""
+    (``plan_gather_src``, spmm_pallas.py:569-593). The backward sums the
+    cotangent, re-ordered into backward (source-sorted) slots with the
+    sentinels zeroed, by table row (B12's gathered form, one pass on the
+    card): an f32 gradient, read from a stream in the cotangent's dtype
+    (the caller's cast of the output to f32 rounds it to ``stream_dtype``
+    on the way back, as the transpose of ``astype`` does in the
+    reference)."""
 
     @staticmethod
     def forward(ctx, tables, plan: ScatterPlan, stream_dtype):
@@ -552,10 +662,10 @@ class PlanGatherSrc(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         plan = ctx.plan
-        g_b = g.index_select(0, plan.bwd_to_fwd_idx)
-        g_b.masked_fill_(plan.bwd_sentinel[:, None], 0.0)
-        d_tables = sorted_segment_sum(g_b, plan.rel_src, plan.src_blocks,
-                                      ctx.rows)
+        d_tables = sorted_segment_sum_gathered(
+            g, plan.bwd_to_fwd_idx, plan.bwd_sentinel, plan.rel_src,
+            plan.src_blocks, ctx.rows,
+            compact=plan.sum_rows("bwd_fused", ctx.rows))
         return d_tables, None, None
 
 
@@ -584,7 +694,9 @@ class PlanGatherTgtTyped(torch.autograd.Function):
         g = g.masked_fill(plan.fwd_sentinel[:, None], 0.0).contiguous()
         d_table = sorted_segment_sum(g, plan.rel_typed, plan.tgt_blocks,
                                      ctx.rows,
-                                     block_rows=BLOCK_NODES * plan.num_types)
+                                     block_rows=BLOCK_NODES * plan.num_types,
+                                     compact=plan.sum_rows("fwd_typed",
+                                                           ctx.rows))
         return d_table, None
 
 
@@ -602,7 +714,8 @@ class PlanScatter(torch.autograd.Function):
     def forward(ctx, weighted, plan: ScatterPlan):
         ctx.plan = plan
         return sorted_segment_sum(weighted, plan.rel_tgt, plan.tgt_blocks,
-                                  plan.num_nodes)
+                                  plan.num_nodes,
+                                  compact=plan.sum_rows("fwd", plan.num_nodes))
 
     @staticmethod
     def backward(ctx, g):
