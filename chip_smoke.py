@@ -24,14 +24,17 @@ Phases, each of which fails the run by raising:
    c. timings (CUDA events): each kernel, its plain version and one
       PyTorch library call computing the same function
       (``torch.sparse.mm``, CSR built from the plan outside the timed
-      window), the train step and the eval forward; for the SpMMs (K1, K2,
-      B3, B12, P1, P2) and their library calls also the device time
-      (torch.profiler over 20 launches, at the end of the run, after every
-      path's step time; ``--profile`` traces each path's steps as it goes).
+      window), the train step and the eval forward; for the row owners
+      (K1, K2, B3, B4, B9, B12, P1, P2) and the library calls also the
+      device time (torch.profiler over 20 launches, at the end of the run,
+      after every path's step time; ``--profile`` traces each path's steps
+      as it goes).
 3. PPI_RGAT on the merged-plan PPI batch, the same three steps:
    a. the expd kernel (B8), one head's merged-plan SpMM (B3, over the
       plan's compact form; two launches bit-equal) and the fused attention
-      backward (B9) against their plain versions at the real plan shapes;
+      backward (B9, over the backward plan's two compact forms; two
+      launches bit-equal) against their plain versions at the real plan
+      shapes, with the compact forms' sizes;
    b. the shipped PPI_RGAT model at full width (3 layers, hidden 320, 4
       heads, tanh, bf16 edge stream, input dropout 0.1, Adam at lr 1e-3):
       the eval forward against the plain versions, then its main path
@@ -42,10 +45,12 @@ Phases, each of which fails the run by raising:
 4. The reference-default GNN_Edge_MLP (target-state input, one hidden
    edge-MLP layer, GRU global exchange after layer 2) on the merged-target
    PPI batch, the same three steps:
-   a. the relu-pair kernels B4 (training forward, R and the mask sum M),
-      B5 (dA over the backward plan), B6 (eval forward) and B7 (dB over
-      the forward plan, on no call path) against their plain versions at
-      the real plan shapes: bf16 A and B, f32 cotangent, unit scales;
+   a. the relu-pair kernels B4 (training forward, R and the mask sum M,
+      over the forward plan's compact form; two launches bit-equal), B5
+      (dA over the backward plan), B6 (eval
+      forward) and B7 (dB over the forward plan, on no call path) against
+      their plain versions at the real plan shapes: bf16 A and B, f32
+      cotangent, unit scales;
    b. ``workloads.edge_mlp_default_params()`` at full width (4 layers,
       hidden 320, bf16 edge stream, Adam at lr 1e-3): the eval forward
       against the plain versions (B6 once per layer, B4 and B5 never),
@@ -82,7 +87,8 @@ Phases, each of which fails the run by raising:
       largest type's plan (bf16 [8064, 8] scores) and on the merged plan
       of phase 3 (bf16 [24192, 8]); the hk-major aggregation kernel (B10)
       in its two call forms (K = 8, H = 64 and K = 4, H = 512; bf16
-      table, B8's f32 expd);
+      table, B8's f32 expd); B9 on the same plan at the two models'
+      shapes (K = 4, H = 320 and K = 8, H = 64), two launches bit-equal;
    b. the shipped PPI_RGAT with the ``"exact"`` stabiliser (per step
       B11, B8 and B9 once per type and layer, B3 once per head, type and
       layer) and ``workloads.rgat_eight_heads_params()`` (GAT's 8 heads of
@@ -90,7 +96,8 @@ Phases, each of which fails the run by raising:
       eval forward against the plain versions, then 5 train steps; no
       kernel of phases 2-5 launches;
    c. timings as in 2c; B11's library call is one ``scatter_reduce_`` of
-      the per-slot logits; B10 has none (it would take K sparse products).
+      the per-slot logits; B10 has none (it would take K sparse products);
+      B9 at the two shapes of 6a is logged.
 7. The shipped QM9_RGCN on the QM9-shaped batch (``bench.py::measure_qm9``'s:
    909 molecules, 5 edge types on per-type pair plans, V = 16384):
    a. K2 and K1 against their plain versions at the QM9 plan's shapes
@@ -136,8 +143,9 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 peak outside the tensor cores
 # Kernel vs plain version: both sum f32 products, in different orders
-# (the atomics of B4-B11 and B13-B15 reorder run to run); B8/B9 take expf
-# of the same f32 arguments as torch.exp.
+# (the atomics of B5-B8, B10, B11 and B13-B15 reorder run to run; the row
+# owners K1, K2, B3, B4, B9 and B12 keep one order); B8/B9 take expf of the
+# same f32 arguments as torch.exp.
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
 # Whole model, kernels vs plain versions: besides the f32 reorder, a sum
 # that lands on the other side of a bf16 rounding boundary re-rounds one
@@ -232,23 +240,27 @@ def add_device_times(entries) -> None:
 
 
 def plain_version(plain):
-    """``plain`` under its wrapper's signature: the plan's compact form,
-    which only the kernel reads, is dropped."""
-    def call(*args, compact=None, **kwargs):
+    """``plain`` under its wrapper's signature: the plan's compact forms,
+    which only the kernel reads, are dropped."""
+    def call(*args, compact=None, ts_rows=None, **kwargs):
         return plain(*args, **kwargs)
     return call
 
 
 def check_repeatable(name: str, fn, first) -> None:
-    """A second launch of ``fn`` gives ``first`` bit for bit (a kernel
-    whose sums keep one order on every run)."""
+    """A second launch of ``fn`` gives ``first`` (a tensor or a tuple of
+    them) bit for bit (a kernel whose sums keep one order on every run)."""
     import torch
 
     second = fn()
     torch.cuda.synchronize()
-    if not torch.equal(first, second):
-        raise AssertionError(f"{name}: two launches differ (max abs diff "
-                             f"{float((first - second).abs().max())})")
+    pairs = (zip(first, second) if isinstance(first, tuple)
+             else ((first, second),))
+    for i, (x, y) in enumerate(pairs):
+        if not torch.equal(x, y):
+            raise AssertionError(
+                f"{name}: two launches differ in output {i} (max abs diff "
+                f"{float((x - y).abs().max())})")
 
 
 def time_ms(fn, reps: int = KERNEL_REPS, warmup: int = 3) -> float:
@@ -311,6 +323,21 @@ def kernel_bound_ms(rows_read: int, h: int, itemsize: int,
     nbytes = (rows_read * h * itemsize + valid_slots * 8
               + (out_rows + 1) * 4 + out_rows * h * 4)
     return bound_ms(nbytes, 2.0 * valid_slots * h)
+
+
+def check_outputs(name: str, fn, want) -> float:
+    """A kernel of several outputs (B4, B9): ``fn()`` against the plain
+    version's outputs ``want`` (a tuple), and bit-equal across two
+    launches. Returns the max abs error."""
+    import torch
+
+    got = fn()
+    torch.cuda.synchronize()
+    err = max(check_close(f"{name} output {i}", x, y, KERNEL_RTOL,
+                          KERNEL_ATOL)
+              for i, (x, y) in enumerate(zip(got, want)))
+    check_repeatable(name, fn, got)
+    return err
 
 
 def check_close(name: str, got, want, rtol: float, atol: float) -> float:
@@ -667,9 +694,11 @@ def rgat_path(device, argv):
         return ps.pair_spmm_plain(head0, scale0, *plan.fwd, v)
 
     bwd_args = (table, dw, d_denom, scores, m, *plan.bwd, v, k)
+    bwd_rows, ts_rows = plan.bwd_rows(rows, v), plan.bwd_ts_rows(rows, v, v)
 
     def b9():
-        return pa.pair_attention_bwd_fused(*bwd_args)
+        return pa.pair_attention_bwd_fused(*bwd_args, compact=bwd_rows,
+                                           ts_rows=ts_rows)
 
     def b9_plain():
         return pa.pair_attention_bwd_fused_plain(*bwd_args)
@@ -681,22 +710,23 @@ def rgat_path(device, argv):
                        KERNEL_ATOL)
     check_repeatable("pair_spmm", b3, got3)
     del got3
-    err9 = max(check_close(f"pair_attention_bwd_fused {part}", got, want,
-                           KERNEL_RTOL, KERNEL_ATOL)
-               for part, got, want in zip(("d_ss", "d_ts", "d_table"),
-                                          b9(), b9_plain()))
-    torch.cuda.synchronize()
+    err9 = check_outputs("pair_attention_bwd_fused", b9, b9_plain())
     log(f"kernel check: pair_attention_expd max_abs_err {err8:.3e}, "
         f"pair_spmm max_abs_err {err3:.3e} (bit-equal across two launches; "
         f"compact form {compact.src_row.numel()} slots into {v} rows), "
-        f"pair_attention_bwd_fused "
-        f"max_abs_err {err9:.3e} (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
+        f"pair_attention_bwd_fused max_abs_err {err9:.3e} (rtol "
+        f"{KERNEL_RTOL}, atol {KERNEL_ATOL}; bit-equal across two "
+        f"launches; compact forms "
+        f"{bwd_rows.src_row.numel()} entries into {rows} source rows from "
+        f"{v} dw rows, d_ts {ts_rows.sums.src_row.numel()} entries into "
+        f"{rows} rows)")
 
     check_eval_forward(model, batch, labels, [
         (ps, "pair_spmm", plain_version(ps.pair_spmm_plain)),
         (pa, "pair_spmm", plain_version(ps.pair_spmm_plain)),
         (pa, "pair_attention_expd", pa.pair_attention_expd_plain),
-        (pa, "pair_attention_bwd_fused", pa.pair_attention_bwd_fused_plain)])
+        (pa, "pair_attention_bwd_fused",
+         plain_version(pa.pair_attention_bwd_fused_plain))])
     per_step = params["gnn_num_layers"] * TRAIN_STEPS
     counters = launch_counters()
     state, train_step, eval_step, launches = train_and_count(
@@ -723,15 +753,18 @@ def rgat_path(device, argv):
     b3_bound = kernel_bound_ms(rows_read, head0.shape[1], 2, fwd_valid, v)
     b_src, b_tgt, b_valid = ps.slot_abs_ids(*plan.bwd)
     bwd_valid = int(b_valid.sum())
+    # B9's bound as its first port counted it (12 B a plan slot, the
+    # whole score table and stabiliser), logged beside the recount.
     bwd_bytes = (plan.rel_src_b.numel() * 8 + plan.src_blk_b.numel() * 4
                  + plan.grp_tgt_b.numel() * 4
                  + int(torch.unique(b_tgt[b_valid]).numel()) * h * 2
                  + int(torch.unique(b_src[b_valid]).numel()) * h * 2
                  + scores.numel() * 2 + (m.numel() + d_denom.numel()) * 4
                  + rows * (h + 2 * k) * 4)
-    # Per valid slot and column: the head sum's multiply-add and the
-    # d_table multiply-add.
-    b9_bound = bound_ms(bwd_bytes, 4.0 * bwd_valid * h)
+    b9_old = bound_ms(bwd_bytes, 4.0 * bwd_valid * h)[0]
+    b9_bound = b9_bound_ms(bwd_rows, ts_rows, h, k, 2)
+    b9_detail = (f"{bwd_valid} valid of {plan.rel_src_b.numel()} slots, "
+                 f"[{rows}, {h}] bf16 table, K = {k}")
     head0_f32 = head0.float()
     return [
         time_kernel("pair_spmm", "tf2_gnn_tpu_torch/csrc/pair_stream.cu",
@@ -753,8 +786,45 @@ def rgat_path(device, argv):
                     "tf2_gnn_tpu/ops/pair_attention.py:860",
                     launches["pair_attention_bwd_fused"], err9, b9, b9_plain,
                     None, None, *b9_bound,
-                    f"{bwd_valid} valid of {plan.rel_src_b.numel()} slots"),
+                    f"{b9_detail}; padded-slot bound count "
+                    f"{b9_old:.4f} ms", device=True),
     ]
+
+
+def b9_bound_ms(compact, ts_rows, h: int, k: int, itemsize: int):
+    """B9's bound, counting what the function needs, whatever implements
+    it: bytes = the distinct table rows with their source-score halves,
+    the distinct dw rows with their f32 stabiliser and d_denom rows, the
+    distinct target-score halves, 4 B an entry, 4 B a row pointer of each
+    of the two CSRs, and d_ss, d_ts and d_table in f32 written once;
+    operations = 4 a valid slot and column (the head sum's and d_table's
+    multiply-adds)."""
+    import torch
+
+    n, rows = compact.src_row.numel(), compact.out_rows
+    u_rows = int((torch.diff(compact.row_ptr) > 0).sum())
+    t_rows = int(compact.src_row.unique().numel())
+    ts_read = int(ts_rows.score_row.unique().numel())
+    nbytes = (u_rows * (h + k) * itemsize + t_rows * (h * itemsize + 8 * k)
+              + ts_read * k * itemsize + n * 4 + 2 * (rows + 1) * 4
+              + rows * (h + 2 * k) * 4)
+    return bound_ms(nbytes, 4.0 * n * h)
+
+
+def b4_bound_ms(compact, h: int, itemsize: int):
+    """B4's bound, counting what the function needs, whatever implements
+    it: bytes = the distinct rows of A its entries read and of B (one per
+    output row with an entry), 8 B an entry (its row and scale), 4 B an
+    output row pointer and R and M in f32 written once; operations = 7 a
+    valid slot and column."""
+    import torch
+
+    n, out_rows = compact.src_row.numel(), compact.out_rows
+    rows_read = (int(compact.src_row.unique().numel())
+                 + int((torch.diff(compact.row_ptr) > 0).sum()))
+    nbytes = (rows_read * h * itemsize + n * 8 + (out_rows + 1) * 4
+              + 2 * out_rows * h * 4)
+    return bound_ms(nbytes, 7.0 * n * h)
 
 
 def relu_pair_bound_ms(plan_args, table_rows_read, cot_rows_read, h: int,
@@ -825,8 +895,13 @@ def edge_mlp_path(device, argv):
     fwd_args = (a, b, sf, *plan.fwd, rows)
     da_args = (a, b, g, sb, *plan.bwd, rows)
     db_args = (a, b, g, sf, *plan.fwd, rows)
+    b4_rows = plan.fwd_rows(rows, rows)
+
+    def b4():
+        return pem.relu_pair_fwd_m(*fwd_args, compact=b4_rows)
+
     fns = {
-        "relu_pair_fwd_m": (lambda: pem.relu_pair_fwd_m(*fwd_args),
+        "relu_pair_fwd_m": (b4,
                             lambda: pem.relu_pair_fwd_m_plain(*fwd_args)),
         "relu_pair_da": (lambda: pem.relu_pair_da(*da_args),
                          lambda: pem.relu_pair_da_plain(*da_args)),
@@ -835,8 +910,11 @@ def edge_mlp_path(device, argv):
         "relu_pair_db": (lambda: pem.relu_pair_db(*db_args),
                          lambda: pem.relu_pair_db_plain(*db_args)),
     }
-    errs = {}
+    errs = {"relu_pair_fwd_m": check_outputs(
+        "relu_pair_fwd_m", b4, fns["relu_pair_fwd_m"][1]())}
     for name, (kernel_fn, plain_fn) in fns.items():
+        if name in errs:
+            continue
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -847,15 +925,17 @@ def edge_mlp_path(device, argv):
         del got, want
     log("kernel check: " + ", ".join(f"{name} max_abs_err {err:.3e}"
                                      for name, err in errs.items())
-        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); B4 bit-equal across "
+        f"two launches, its compact form "
+        f"{b4_rows.src_row.numel()} entries into {rows} rows")
 
     counters = launch_counters()
     layers = params["gnn_num_layers"]
     for reset, _ in counters:
         reset()
     check_eval_forward(model, batch, labels, [
-        (pem, name, getattr(pem, f"{name}_plain")) for name in fns],
-        logit_rtol=EDGE_MLP_LOGIT_RTOL)
+        (pem, name, plain_version(getattr(pem, f"{name}_plain")))
+        for name in fns], logit_rtol=EDGE_MLP_LOGIT_RTOL)
     torch.cuda.synchronize()
     eval_launches = dict(pem.LAUNCHES)
     log(f"eval forward launches {eval_launches}")
@@ -886,11 +966,15 @@ def edge_mlp_path(device, argv):
     # Per valid slot and column: z = a + b, then relu, scale and add (B6);
     # also compare, select and add for M (B4); compare, select, scale and
     # add (B5); compare, select and add, and g's multiply per output (B7).
+    # B4 counts what the function needs (``b4_bound_ms``); its first
+    # port's count (12 B a plan slot) is logged beside it.
+    b4_old = relu_pair_bound_ms(plan.fwd, a_rows + t_rows, 0, h, 2, rows,
+                                7.0)[0][0]
     bounds = {
         "relu_pair_fwd": relu_pair_bound_ms(plan.fwd, a_rows + t_rows, 0, h,
                                             1, rows, 4.0),
-        "relu_pair_fwd_m": relu_pair_bound_ms(plan.fwd, a_rows + t_rows, 0,
-                                              h, 2, rows, 7.0),
+        "relu_pair_fwd_m": (b4_bound_ms(b4_rows, h, 2),
+                            b4_rows.src_row.numel()),
         "relu_pair_da": relu_pair_bound_ms(plan.bwd, da_a_rows + da_t_rows,
                                            da_t_rows, h, 1, rows, 5.0),
         "relu_pair_db": relu_pair_bound_ms(plan.fwd, a_rows + t_rows,
@@ -903,11 +987,14 @@ def edge_mlp_path(device, argv):
     kernels = []
     for name, (kernel_fn, plain_fn) in fns.items():
         (bound, bound_by), valid = bounds[name]
+        detail = f"[{rows}, {h}] bf16 A and B, {valid} valid slots"
+        b4_entry = name == "relu_pair_fwd_m"
+        if b4_entry:
+            detail += f"; padded-slot bound count {b4_old:.4f} ms"
         kernels.append(time_kernel(
             name, "tf2_gnn_tpu_torch/csrc/pair_edge_mlp.cu", replaces[name],
             launches[name], errs[name], kernel_fn, plain_fn, None, None,
-            bound, bound_by,
-            f"[{rows}, {h}] bf16 A and B, {valid} valid slots"))
+            bound, bound_by, detail, device=b4_entry))
     return kernels
 
 
@@ -1252,7 +1339,7 @@ def typed_rgat_path(device, argv):
     """Phase 6: RGAT on the per-type-plan PPI batch; the shipped PPI_RGAT
     with the exact stabiliser through B11 (and B8, B3, B9), and GAT's
     8-head layout through B10 (and B8, B9). Returns the B11 and B10
-    entries."""
+    entries, and B9's at the two models' shapes."""
     import torch
 
     from tf2_gnn_tpu_torch.ops import pair_attention as pa
@@ -1331,11 +1418,46 @@ def typed_rgat_path(device, argv):
                                      for form, err in errs.items())
         + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; the max exactly)")
 
+    # B9 on the largest type's plan at the shapes of the two models' main
+    # paths: PPI_RGAT's one-type slab (K = 4, H = 320) and GAT's head
+    # layout (K = 8, H = 64), bf16; phase 3 holds its entry on the merged
+    # plan.
+    b9_rows, b9_ts = big.bwd_rows(v, v), big.bwd_ts_rows(v, v, v)
+    b9_shapes = {}
+    for kk, hh in ((4, 320), (8, 64)):
+        table9, dw9 = (torch.randn((v, hh), generator=gen,
+                                   device=device).to(torch.bfloat16)
+                       for _ in range(2))
+        d_denom9 = torch.randn((v, kk), generator=gen, device=device)
+        scores9 = (0.5 * torch.randn((v, 2 * kk), generator=gen,
+                                     device=device)).to(torch.bfloat16)
+        m9 = pa._stabilise(pa._bound_stabiliser(scores9, v, kk),
+                           torch.bfloat16)
+        b9_args = (table9, dw9, d_denom9, scores9, m9, *big.bwd, v, kk)
+
+        def b9(b9_args=b9_args):
+            return pa.pair_attention_bwd_fused(*b9_args, compact=b9_rows,
+                                               ts_rows=b9_ts)
+
+        def b9_plain(b9_args=b9_args):
+            return pa.pair_attention_bwd_fused_plain(*b9_args)
+
+        name9 = f"pair_attention_bwd_fused K = {kk}, H = {hh}, one type"
+        b9_shapes[(kk, hh)] = (name9, b9, b9_plain,
+                               check_outputs(name9, b9, b9_plain()))
+    log("kernel check: " + ", ".join(
+        f"{name9} max_abs_err {err:.3e}"
+        for name9, _, _, err in b9_shapes.values())
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; bit-equal across two "
+        f"launches); its compact forms on the largest type's plan: "
+        f"{b9_rows.src_row.numel()} entries into {v} source rows, d_ts "
+        f"{b9_ts.sums.src_row.numel()} entries")
+
     counters = launch_counters()
     zero = zero_counts(counters)
     patches = [(ps, "pair_spmm", plain_version(ps.pair_spmm_plain)),
                (pa, "pair_spmm", plain_version(ps.pair_spmm_plain))]
-    patches += [(pa, name, getattr(pa, f"{name}_plain"))
+    patches += [(pa, name, plain_version(getattr(pa, f"{name}_plain")))
                 for name in pa.LAUNCHES]
 
     def run_config(model, params, name, counts):
@@ -1438,7 +1560,15 @@ def typed_rgat_path(device, argv):
             libraries.get(form), None, *bound, detail)
         if form == name:  # the main call form of each kernel is its entry
             kernels.append(entry)
-    return kernels
+    b9_launches = {(4, 320): exact_launches["pair_attention_bwd_fused"],
+                   (8, 64): agg_launches["pair_attention_bwd_fused"]}
+    other_forms = [time_kernel(
+        name9, "tf2_gnn_tpu_torch/csrc/pair_attention.cu",
+        "tf2_gnn_tpu/ops/pair_attention.py:860", b9_launches[(kk, hh)], err,
+        b9, b9_plain, None, None, *b9_bound_ms(b9_rows, b9_ts, hh, kk, 2),
+        f"K = {kk}, bf16 table [{v}, {hh}], one type's plan", device=True)
+        for (kk, hh), (name9, b9, b9_plain, err) in b9_shapes.items()]
+    return kernels, other_forms
 
 
 def qm9_path(device, argv):
@@ -1675,21 +1805,23 @@ def main(argv) -> int:
 
     # -- 2. PPI_RGCN, 3. PPI_RGAT, 4. GNN_Edge_MLP, 5. scatter plans,
     # -- 6. RGAT on per-type plans, 7. QM9_RGCN, 8. the probes --------------
+    # Each path returns its kernels-line entries, and phases 5 and 6 also
+    # the entries of other call forms, which are logged.
     kernels = rgcn_path(device, argv)
-    torch.cuda.empty_cache()
-    kernels += rgat_path(device, argv)
-    torch.cuda.empty_cache()
-    kernels += edge_mlp_path(device, argv)
-    torch.cuda.empty_cache()
-    sorted_kernels, sorted_forms = sorted_path(device, argv)
-    kernels += sorted_kernels
-    torch.cuda.empty_cache()
-    kernels += typed_rgat_path(device, argv)
+    for path in (rgat_path, edge_mlp_path):
+        torch.cuda.empty_cache()
+        kernels += path(device, argv)
+    other_forms = []
+    for path in (sorted_path, typed_rgat_path):
+        torch.cuda.empty_cache()
+        path_kernels, path_forms = path(device, argv)
+        kernels += path_kernels
+        other_forms += path_forms
     torch.cuda.empty_cache()
     qm9_entries = qm9_path(device, argv)
     torch.cuda.empty_cache()
     kernels += probe_path(device, argv)
-    add_device_times(kernels + sorted_forms + qm9_entries)
+    add_device_times(kernels + other_forms + qm9_entries)
     if len(kernels) != len({k["name"] for k in kernels}) or len(kernels) != 18:
         raise AssertionError(f"kernels line: {[k['name'] for k in kernels]}; "
                              "expected 18 distinct kernels")

@@ -17,8 +17,12 @@ sub-warp split (rows of 1-16 lane units, several rows a warp, empty rows
 among them); K1 at the PPI and QM9 shapes with rows that have no slot; B12
 on its 16-byte, 8-byte and element paths, on a row-strided and a
 misaligned stream, and in its gathered form (equal bit for bit to the
-unfused one), every launch bit-equal to a second. Marked ``cuda``; each
-test skips without a card. On a machine with one:
+unfused one), every launch bit-equal to a second; B4 and B9, the row
+owners over the merged plans' compact forms, in both lane units, at the
+main paths' widths and odd ones, on whole and cut plans (merged-target for
+B4; merged and per-type for B9), on misaligned tables (B4), two launches
+bit-equal. Marked ``cuda``; each test skips without a card. On a machine
+with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -27,8 +31,8 @@ machines need not have.)
 
 Tolerance: rtol 1e-5 / atol 1e-5; both sides sum the same f32 products,
 in other orders (run-dependent where a kernel adds with atomics; K1, K2,
-B3 and B12 keep one order, and fuse each product into its add), and B8/B9
-take expf of the same f32 argument as torch.exp (each within 2 ulp).
+B3, B12, B4 and B9 keep one order, and fuse products into their adds),
+and B8/B9 take expf of the same f32 argument as torch.exp (each within 2 ulp).
 Gradients of the attention op in bf16 are rounded to bf16 after those
 sums: rtol 1e-2 / atol 1e-4 there (one bf16 ulp). B15 and B11, maxes, match exactly, as
 does P3 (the same f32 adds in the same order).
@@ -181,8 +185,9 @@ def test_attention_kernels_match_plain_versions(device, dtype, k, head_dim):
     d_denom = torch.randn((v, k), generator=gen, device=device)
     before = dict(tpa.LAUNCHES)
     expd = tpa.pair_attention_expd(scores, m, *plan.fwd, v, k)
-    grads = tpa.pair_attention_bwd_fused(table, dw, d_denom, scores, m,
-                                         *plan.bwd, v, k)
+    grads = tpa.pair_attention_bwd_fused(
+        table, dw, d_denom, scores, m, *plan.bwd, v, k,
+        compact=plan.bwd_rows(3 * v, v), ts_rows=plan.bwd_ts_rows(3 * v, v, v))
     torch.cuda.synchronize()
     assert tpa.LAUNCHES["pair_attention_expd"] == \
         before["pair_attention_expd"] + 1
@@ -219,7 +224,7 @@ def test_attention_op_matches_plain_on_card(device, dtype):
         mp.setattr(tpa, "pair_spmm", plain_version(tps.pair_spmm_plain))
         mp.setattr(tpa, "pair_attention_expd", tpa.pair_attention_expd_plain)
         mp.setattr(tpa, "pair_attention_bwd_fused",
-                   tpa.pair_attention_bwd_fused_plain)
+                   plain_version(tpa.pair_attention_bwd_fused_plain))
         want = run()
     grad_tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
                 else dict(rtol=1e-2, atol=1e-4))
@@ -270,7 +275,8 @@ def test_relu_pair_kernels_match_plain_versions(device, dtype, h):
     sb = torch.rand((plan.rel_src_b.numel(),), generator=gen, device=device)
     before = dict(tpem.LAUNCHES)
     got = {"relu_pair_fwd": (tpem.relu_pair_fwd(a, b, sf, *plan.fwd, rows),),
-           "relu_pair_fwd_m": tpem.relu_pair_fwd_m(a, b, sf, *plan.fwd, rows),
+           "relu_pair_fwd_m": tpem.relu_pair_fwd_m(
+               a, b, sf, *plan.fwd, rows, compact=plan.fwd_rows(rows, rows)),
            "relu_pair_da": (tpem.relu_pair_da(a, b, g, sb, *plan.bwd, rows),),
            "relu_pair_db": (tpem.relu_pair_db(a, b, g, sf, *plan.fwd, rows),)}
     torch.cuda.synchronize()
@@ -314,7 +320,8 @@ def test_relu_pair_op_matches_plain_on_card(device, stream_dtype):
     got = run()
     with pytest.MonkeyPatch.context() as mp:
         for name in ("relu_pair_fwd", "relu_pair_fwd_m", "relu_pair_da"):
-            mp.setattr(tpem, name, getattr(tpem, f"{name}_plain"))
+            mp.setattr(tpem, name, plain_version(getattr(tpem,
+                                                         f"{name}_plain")))
         want = run()
     for name, x, y in zip(("out", "out_eval", "d_a", "d_b"), got, want):
         assert x.dtype == torch.float32
@@ -598,7 +605,8 @@ def test_typed_attention_op_matches_plain_on_card(device, dtype, stabiliser,
         mp.setattr(tps, "pair_spmm", plain_version(tps.pair_spmm_plain))
         mp.setattr(tpa, "pair_spmm", plain_version(tps.pair_spmm_plain))
         for name in tpa.LAUNCHES:
-            mp.setattr(tpa, name, getattr(tpa, f"{name}_plain"))
+            mp.setattr(tpa, name, plain_version(getattr(tpa,
+                                                        f"{name}_plain")))
         want = run()
     grad_tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
                 else dict(rtol=1e-2, atol=1e-4))
@@ -943,3 +951,119 @@ def test_b12_gathered_form_equals_the_unfused_one(device, dtype):
     torch.testing.assert_close(
         got, tss.sorted_segment_sum_gathered_plain(*args), rtol=1e-5,
         atol=1e-5)
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+@pytest.mark.parametrize("dtype,h", [
+    (torch.bfloat16, 320), (torch.float32, 320), (torch.bfloat16, 64),
+    (torch.float32, 64), (torch.bfloat16, 5), (torch.float32, 5),
+    (torch.bfloat16, 100), (torch.float32, 700), (torch.bfloat16, 322),
+    (torch.float32, 65)])
+def test_b4_row_owner(device, dtype, h, cut):
+    """B4 over the merged-target plan's compact form (pad slots, an
+    all-padding group, targets without slots), on rows of one tile or
+    several (f32 H = 700 in 8-byte units, bf16 H = 322 in element units),
+    in 8-byte lane units where a row is whole 8-byte units and one element
+    a lane at odd widths (5, 65, 322): the plain version's R and M, 0 on
+    the rows without an entry, two launches bit-equal. With ``cut`` A is
+    shorter than the plan's sources (they clip), B shorter than the output
+    (its rows clip) and the output shorter than the plan's targets (those
+    slots drop)."""
+    plan = _merged_target_plan(60).to(device)
+    rows = plan.out_rows
+    rows_a, rows_b, out_rows = ((rows // 2, rows // 3, rows // 2) if cut
+                                else (rows, rows, rows))
+    gen = torch.Generator(device=device).manual_seed(61)
+    a = torch.randn((rows_a, h), generator=gen, device=device).to(dtype)
+    b = torch.randn((rows_b, h), generator=gen, device=device).to(dtype)
+    sf = torch.rand((plan.rel_src_f.numel(),), generator=gen, device=device)
+    compact = plan.fwd_rows(out_rows, rows_a)
+    src, tgt, valid = tps.slot_abs_ids(*plan.fwd)
+    assert bool((valid & (tgt >= out_rows)).any()) == cut
+    assert bool((valid & (src >= rows_a)).any()) == cut
+
+    def b4():
+        return tpem.relu_pair_fwd_m(a, b, sf, *plan.fwd, out_rows,
+                                    compact=compact)
+
+    before = dict(tpem.LAUNCHES)
+    got, again = b4(), b4()
+    torch.cuda.synchronize()
+    assert tpem.LAUNCHES["relu_pair_fwd_m"] == before["relu_pair_fwd_m"] + 2
+    want = tpem.relu_pair_fwd_m_plain(a, b, sf, *plan.fwd, out_rows)
+    for name, x, y, z in zip(("R", "M"), got, again, want):
+        assert torch.equal(x, y), name
+        torch.testing.assert_close(x, z, rtol=1e-5, atol=1e-5, msg=name)
+        _assert_empty_rows_zero(x, compact)
+
+
+def test_b4_on_misaligned_tables(device):
+    """A and B whose starts are not 8-byte aligned take the element path
+    at a width that would otherwise take 8-byte units, and give the plain
+    version's sums."""
+    plan = _merged_target_plan(62).to(device)
+    rows, h = plan.out_rows, 320
+    gen = torch.Generator(device=device).manual_seed(63)
+    a, b = (_misaligned(torch.randn((rows, h), generator=gen,
+                                    device=device).to(torch.bfloat16))
+            for _ in range(2))
+    assert a.data_ptr() % 8 != 0 and b.data_ptr() % 8 != 0
+    sf = torch.rand((plan.rel_src_f.numel(),), generator=gen, device=device)
+    got = tpem.relu_pair_fwd_m(a, b, sf, *plan.fwd, rows,
+                               compact=plan.fwd_rows(rows, rows))
+    want = tpem.relu_pair_fwd_m_plain(a, b, sf, *plan.fwd, rows)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+# (plan form, rows of u, rows of dw, one type's rows): B9's plans.
+_B9_CASES = {"merged": ("merged", 3, 384, 384),
+             "typed": ("typed", 1, 384, 384),
+             "merged_cut": ("merged", 2, 256, 384)}
+
+
+@pytest.mark.parametrize("case", list(_B9_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,head_dim", [(4, 80), (8, 8), (8, 40), (2, 160),
+                                        (4, 128), (4, 32), (4, 3), (1, 5)])
+def test_b9_row_owner(device, dtype, k, head_dim, case):
+    """B9's two passes over the backward plan's compact forms, on a merged
+    plan (3 types), one type's plan and a cut merged plan (source rows past
+    the table drop, targets past dw's rows clip for the gathers and keep
+    their d_ts row), at H = 320 with K = 4, 8 and 2, H = 64 with K = 8,
+    H = 128 and 512 and odd widths: 8-byte lane units where a row has a
+    warp of them (bf16 H = 128 and 320, f32 H = 64 and 128), one element a
+    lane otherwise (bf16 H = 64, f32 H = 320, both at H = 512 and the odd
+    widths). The plain version's three gradients, 0 on the rows without an
+    entry, two launches bit-equal, one launch counted a call and none of
+    the row owner's own."""
+    form, types, v, vs = _B9_CASES[case]
+    typed, merged = _typed_plans_empty_targets(64)
+    plan = (merged if form == "merged" else typed[0]).to(device)
+    rows = types * vs
+    table, scores, m, gen = _attention_inputs(device, dtype, rows, v, k,
+                                              head_dim, 65)
+    dw = torch.randn((v, head_dim * k), generator=gen,
+                     device=device).to(dtype)
+    d_denom = torch.randn((v, k), generator=gen, device=device)
+    compact = plan.bwd_rows(rows, v)
+    ts = plan.bwd_ts_rows(rows, v, vs)
+    args = (table, dw, d_denom, scores, m, *plan.bwd, v, k)
+
+    def b9():
+        return tpa.pair_attention_bwd_fused(*args, src_space=vs,
+                                            compact=compact, ts_rows=ts)
+
+    before = (dict(tpa.LAUNCHES), dict(tps.LAUNCHES))
+    got, again = b9(), b9()
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["pair_attention_bwd_fused"] == \
+        before[0]["pair_attention_bwd_fused"] + 2
+    assert tps.LAUNCHES == before[1]
+    want = tpa.pair_attention_bwd_fused_plain(*args, src_space=vs)
+    for name, x, y, z, form_rows in zip(("d_ss", "d_ts", "d_table"), got,
+                                        again, want,
+                                        (compact, ts.sums, compact)):
+        assert torch.equal(x, y), name
+        torch.testing.assert_close(x, z, rtol=1e-5, atol=1e-5, msg=name)
+        _assert_empty_rows_zero(x, form_rows)

@@ -280,9 +280,9 @@ def test_routes_by_grad_mode():
     def spy(name):
         real = getattr(tpem, name)
 
-        def wrapper(*args):
+        def wrapper(*args, **kwargs):
             calls.append(name)
-            return real(*args)
+            return real(*args, **kwargs)
         return wrapper
 
     x = torch.randn(tbatch.num_nodes_padded, 8)

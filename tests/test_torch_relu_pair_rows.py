@@ -1,0 +1,176 @@
+"""B4's compact form and its row-owner sum on the CPU. The card's B4
+(``relu_pair_fwd_m``) reads the forward plan's compact form,
+``MergedPlan.fwd_rows(out_rows, rows of A)`` (``ops/pair_spmm.py::
+slot_rows``), instead of the plan arrays:
+
+* on a merged-target plan (the GNN_Edge_MLP layout), a merged plan and a
+  per-type plan, whole and with A, B and the output cut to fewer rows:
+  each row holds the (target, clipped source, slot) triples of the plan's
+  own slot ids, in slot order; targets at or past the output are dropped,
+  sources clipped into A; some rows are empty; the form is kept on the
+  plan;
+* an all-sentinel plan has no entries;
+* a float64 emulation of B4's kernel over the compact form (a row owner:
+  B read once per row at ``clip(t)``, then per entry ``z = A[src] + B``,
+  ``R += relu(z) * s``, ``M += (z > 0) * s``, in entry order) equals the
+  plain version ``relu_pair_fwd_m_plain`` over the plan arrays exactly:
+  the tables hold small integers and the scales are powers of two;
+* the GNN_Edge_MLP model builds the form once over 3 train steps and hands
+  the one object to every B4 call.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from tf2_gnn_tpu_torch.harness.optimizers import make_optimizer
+from tf2_gnn_tpu_torch.harness.training import (
+    create_train_state,
+    make_train_step,
+)
+from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
+from tf2_gnn_tpu_torch.ops import pair_edge_mlp as tpem
+from tf2_gnn_tpu_torch.ops import pair_spmm as tps
+
+from .test_torch_rgcn_model import FEATURES, NUM_LABELS, small_workload
+
+V = 384
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(form: str):
+    """(plan, rows of A, output rows) of a plan over 3 random edge types
+    with empty target rows (no edge reaches a target of 100-199)."""
+    rng = np.random.RandomState({"targets": 0, "merged": 1, "typed": 2}[form])
+    srcs, tgts, counts = [], [], []
+    for _ in range(3 if form != "typed" else 1):
+        e = rng.randint(V, 4 * V)
+        srcs.append(rng.randint(0, V, e))
+        tgts.append(rng.choice(np.r_[0:100, 200:V], e))
+        counts.append(e)
+    host = tps.build_pair_plans(srcs, tgts, counts, V,
+                                merge_targets=form == "targets")
+    out_rows = 3 * V if form == "targets" else V
+    plan = tps.MergedPlan(*host.astuple(), out_rows=out_rows).to("cpu")
+    return plan, len(srcs) * V, out_rows
+
+
+def _shape(form, cut):
+    """(rows of A, rows of B, output rows): the plan's, or cut."""
+    _, rows_a, out_rows = _plan(form)
+    if cut:
+        return rows_a // 2, out_rows // 3, out_rows // 2
+    return rows_a, out_rows, out_rows
+
+
+def _rows_of(compact):
+    return torch.repeat_interleave(
+        torch.arange(compact.out_rows),
+        torch.diff(compact.row_ptr.long())).numpy()
+
+
+FORMS = ["targets", "merged", "typed"]
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+@pytest.mark.parametrize("form", FORMS)
+def test_fwd_rows_matches_the_plans_slot_ids(form, cut):
+    plan = _plan(form)[0]
+    rows_a, _, out_rows = _shape(form, cut)
+    compact = plan.fwd_rows(out_rows, rows_a)
+    assert compact is plan.fwd_rows(out_rows, rows_a)
+    src, tgt, valid = (x.numpy() for x in tps.slot_abs_ids(*plan.fwd))
+    slot = np.flatnonzero(valid & (tgt < out_rows))
+    slot = slot[np.lexsort((slot, tgt[slot]))]
+    for t in (compact.row_ptr, compact.src_row, compact.slot):
+        assert t.dtype == torch.int32 and t.is_contiguous()
+    assert (compact.table_rows, compact.out_rows) == (rows_a, out_rows)
+    assert compact.num_slots == plan.rel_src_f.numel()
+    np.testing.assert_array_equal(_rows_of(compact), tgt[slot])
+    np.testing.assert_array_equal(compact.src_row.numpy(),
+                                  np.minimum(src[slot], rows_a - 1))
+    np.testing.assert_array_equal(compact.slot.numpy(), slot)
+    assert (np.diff(compact.row_ptr.numpy()) == 0).any()  # empty rows
+    dropped = int((valid & (tgt >= out_rows)).sum())
+    clipped = int((src[slot] >= rows_a).sum())
+    assert (dropped > 0 and clipped > 0) if cut else dropped == clipped == 0
+
+
+def test_all_sentinel_plan_has_no_entries():
+    host = tps.build_pair_plans([np.zeros(0, np.int32)] * 3,
+                                [np.zeros(0, np.int32)] * 3, [0, 0, 0], 256,
+                                merge_targets=True)
+    plan = tps.MergedPlan(*host.astuple(), out_rows=768).to("cpu")
+    compact = plan.fwd_rows(768, 768)
+    assert compact.src_row.numel() == 0
+    assert torch.equal(compact.row_ptr, torch.zeros(769, dtype=torch.int32))
+    a = b = torch.ones(768, 5)
+    r, m = tpem.relu_pair_fwd_m_plain(a, b, plan.inv_fwd, *plan.fwd, 768)
+    assert float(r.abs().max()) == float(m.abs().max()) == 0.0
+
+
+def _row_owner_sum(a, b, scale, compact):
+    """B4's kernel in float64: per output row t, B[clip(t)] once, then its
+    entries in order."""
+    t = torch.from_numpy(_rows_of(compact))
+    z = (a.double()[compact.src_row.long()]
+         + b.double()[torch.clamp(t, max=b.shape[0] - 1)])
+    s = scale.double()[compact.slot.long()][:, None]
+    r = torch.zeros((compact.out_rows, a.shape[1]), dtype=torch.float64)
+    m = torch.zeros_like(r)
+    return (r.index_add_(0, t, torch.relu(z) * s),
+            m.index_add_(0, t, (z > 0).double() * s))
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+@pytest.mark.parametrize("form", FORMS)
+def test_row_owner_sum_equals_the_plain_version(form, cut):
+    plan = _plan(form)[0]
+    rows_a, rows_b, out_rows = _shape(form, cut)
+    rng = np.random.RandomState(5)
+    a, b = (torch.from_numpy(rng.randint(-6, 7, (n, 9)).astype(np.float32))
+            for n in (rows_a, rows_b))
+    scale = torch.from_numpy(rng.choice(
+        [0.25, 0.5, 1.0, 2.0, -1.0], plan.rel_src_f.numel()).astype(
+            np.float32))
+    want = tpem.relu_pair_fwd_m_plain(a, b, scale, *plan.fwd, out_rows)
+    got = _row_owner_sum(a, b, scale, plan.fwd_rows(out_rows, rows_a))
+    for name, g, w in zip(("R", "M"), got, want):
+        assert w.abs().max() > 0
+        torch.testing.assert_close(g, w.double(), rtol=0.0, atol=0.0,
+                                   msg=name)
+
+
+def test_edge_mlp_builds_its_form_once_per_batch(monkeypatch):
+    """Three train steps of GNN_Edge_MLP on a merged-target batch: B4's
+    form is built once and every B4 call of every layer and step gets it."""
+    _, batch, labels = small_workload(seed=6, merged=True,
+                                      merge_targets=True)
+    params = NodeMulticlassTask.get_default_hyperparameters("gnn_edge_mlp")
+    params.update({"gnn_hidden_dim": 8, "gnn_num_layers": 2,
+                   "gnn_num_edge_MLP_hidden_layers": 1,
+                   "gnn_layer_input_dropout_rate": 0.0})
+    model = NodeMulticlassTask.from_params(
+        params, input_dim=FEATURES, num_edge_types=3, device="cpu",
+        num_labels=NUM_LABELS)
+    optimizer = make_optimizer(params, model.parameters())
+    state = create_train_state(model, optimizer)
+    train_step = make_train_step(model, optimizer)
+    built, seen = [], []
+    real_build, real_b4 = tps.slot_rows, tpem.relu_pair_fwd_m
+    monkeypatch.setattr(tps, "slot_rows",
+                        lambda *a: built.append(real_build(*a)) or built[-1])
+
+    def spy(*args, compact=None):
+        seen.append(compact)
+        return real_b4(*args, compact=compact)
+
+    monkeypatch.setattr(tpem, "relu_pair_fwd_m", spy)
+    targets = {"node_labels": torch.from_numpy(labels)}
+    for _ in range(3):
+        state, _ = train_step(state, batch, targets)
+    plan = batch.pair_merged
+    assert len(built) == 1 and len(seen) == 2 * 3
+    assert all(c is built[0] for c in seen)
+    assert built[0] is plan.fwd_rows(plan.out_rows, built[0].table_rows)

@@ -69,39 +69,58 @@
 //                 coalesced stores. Bound: bytes (the plan's 8 B a slot, the
 //                 score and stabiliser rows, 4K B a slot written).
 //
-// bwd_fused_kernel <- tf2_gnn_tpu/ops/pair_attention.py:661
+// bwd_rows_kernel <- tf2_gnn_tpu/ops/pair_attention.py:661
 //                 (_bwd_fused_device, pallas_call :860; jnp twin
-//                 _bwd_fused_jnp), backward plan (a = target node t, b =
-//                 source row u). Per valid slot, with e = expd recomputed
-//                 from the scores and m, slope = p >= 0 ? 1 : 0.2 and
+//                 _bwd_fused_jnp), B9, over the backward plan (its plan-"src"
+//                 is the target node t, its plan-"tgt" the source row u). Per
+//                 valid slot, with e = expd recomputed from the scores and m,
+//                 slope = p >= 0 ? 1 : 0.2 and
 //                   de[k] = sum over hd of table[u, hd*K+k] * dw[t, hd*K+k]
 //                           + d_denom[t, k],   d_p = e * slope * de:
 //                   d_ss[u] += d_p,   d_ts[(u / vs) * vs + t] += d_p,
 //                   d_table[u, hd*K+k] += e[k] * dw[t, hd*K+k].
-//                 One thread block per backward group: its chunks share one
-//                 128-row source block. Phase 1: one warp per valid slot
-//                 reads the two whole rows (the head sum needs all H
-//                 columns); lane l sums the columns of head l % K (K divides
-//                 32), an xor-shuffle reduce leaves head k's sum in lane k,
-//                 which computes e and d_p, keeps e in shared memory, adds
-//                 d_p into a shared [128, K] d_ss tile and d_ts with a global
-//                 atomicAdd (its rows l * vs + t are scattered). Phase 2
-//                 sweeps 64-column tiles as K1 does: each valid slot's dw row
-//                 segment times e, summed into a shared [128, 64] f32 tile
-//                 with shared atomics, then added into d_table with one
-//                 global atomicAdd per touched element. Groups of one source
-//                 block run concurrently, so d_ss and d_table take global
-//                 atomics too, and f32 sums land in a run-dependent order.
-//                 Bound: bytes, the table and cotangent rows read and the
-//                 f32 outputs written; the f32 operations (4 a valid slot
-//                 and column) take about a quarter of that time on the PPI
-//                 shapes.
+//                 The row owner by source row u, over the backward plan's
+//                 compact form (ops/pair_spmm.py::slot_rows into the rows of
+//                 u from the v rows of dw, MergedPlan.bwd_rows: the valid
+//                 slots as a CSR by u, each with clip(t, v)) and each
+//                 entry's target-score row clip((u / vs) * vs + t, rows)
+//                 (ops/pair_spmm.py::TsRows), both built once per batch and
+//                 kept on the plan. One warp owns u: it holds table[u] in
+//                 registers, gathers each entry's dw row (with its m,
+//                 d_denom and target score), folds the entry's head sums
+//                 across the warp, computes e and d_p, and keeps d_ss[u]
+//                 and d_table[u] as f32 register sums in the row's slot
+//                 order, each stored once. d_ts is scattered to other rows,
+//                 so each entry's d_p goes to an f32 [n, K] scratch row,
+//                 and a second pass, csrc/pair_stream.cu's row owner
+//                 (pair_attention_ts_launch), sums those rows by d_ts row
+//                 over the second CSR of TsRows. No padded slot is walked,
+//                 nothing goes through shared memory, there are no atomics
+//                 and two launches give the same bits. Heads: the columns
+//                 are hk-major (head = column % K, K divides 32). A lane
+//                 unit is 8 bytes (4 bf16 or 2 f32 columns, so a lane holds
+//                 min(K, 4 or 2) heads) or one element (every column of a
+//                 lane of head lane % K): 8-byte units where a row has at
+//                 least a warp of them; the head sums fold by a
+//                 reduce-scatter (below), so each lane computes one head's
+//                 e and d_p. The whole row lives in one warp's registers: H
+//                 up to 512 with element units, 384 bf16 (192 f32) with
+//                 8-byte units; wider rows are refused, and the route gate
+//                 (ops/pair_attention.py::pair_attention_applicable) sends
+//                 their layers to the sorted-scatter route. Bound: bytes (the distinct table, dw and
+//                 score rows, the f32 m and d_denom rows, the compact
+//                 forms, the f32 outputs); the f32 operations (4 a valid
+//                 slot and column) take about a quarter of that time on
+//                 the PPI shapes. Like the other row owners it waits on L2
+//                 latency: few gathers in flight and low registers (more
+//                 resident warps) ran faster on an H100 than deep unrolling.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "float_atomics.cuh"
+#include "lane_units.cuh"
 
 namespace {
 
@@ -116,17 +135,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int HT = 64;       // d_table feature tile
 constexpr int COLS_PER_LANE = HT / 32;
 constexpr int UNROLL = 4;    // valid slots gathered before their adds
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Row indices clip into [0, n), as the twins' jnp.take(mode="clip").
-__device__ __forceinline__ int64_t clip(int64_t i, int64_t n) {
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
-}
 
 __device__ __forceinline__ float leaky(float p) {
   return p >= 0.0f ? p : LEAKY_SLOPE * p;
@@ -318,170 +326,235 @@ __global__ void __launch_bounds__(THREADS) agg_kernel(AggArgs a) {
   }
 }
 
-struct BwdArgs {
-  const void* table;      // [rows, h] stream dtype
-  const void* dw;         // [v, h] stream dtype
-  const float* d_denom;   // [v, k]
-  const void* scores;     // [rows, 2k] stream dtype
-  const float* maxes;     // [v, k]
+// B9, pass 1: the row owner by source row u.
+
+struct BwdRowsArgs {
+  const void* table;         // [rows, h] stream dtype, hk-major heads
+  const void* dw;            // [v, h] stream dtype
+  const float* d_denom;      // [v, k]
+  const void* scores;        // [rows, 2k] stream dtype
+  const float* maxes;        // [v, k]
+  int h;
+  const int32_t* row_ptr;    // [rows + 1]: entries by source row u
+  const int32_t* t_row;      // [n] the target node, clipped into [0, v)
+  const int32_t* score_row;  // [n] clip((u / vs) * vs + t, rows)
   int64_t rows;
-  int h, k, v, vs;
-  const int32_t* rel_src;
-  const int32_t* rel_tgt;
-  const int32_t* src_blk;
-  const int32_t* grp_tgt;
-  int group;
-  float* d_ss;            // [rows, k]
-  float* d_ts;            // [rows, k]
-  float* d_table;         // [rows, h]
+  float* d_ss;               // [rows, k]
+  float* d_table;            // [rows, h]
+  float* d_p;                // [n, k]: each entry's d_p, for pass 2
 };
 
-// Dynamic shared memory: e per slot and head, the d_table tile, the d_ss
-// tile and the touched-row flags.
-__host__ __device__ inline size_t bwd_smem_bytes(int group, int k) {
-  return (static_cast<size_t>(group) * E_C * k + BLK * HT + BLK * k)
-             * sizeof(float)
-         + BLK * sizeof(int);
+// One warp owns source row u; W units of UB bytes a lane cover the row.
+// Element i of each of a lane's units lies in a column of head
+// (lane * E + i) % K, the same for all its units (K divides 32 and 32 * E
+// columns separate them), so a lane folds its products into HL head sums;
+// lanes that differ only in bits >= STOP hold the same heads. A
+// reduce-scatter folds those sums across the warp: its first log2(HL)
+// steps (xor 16, 8, ...) halve the sums a lane keeps, so that afterwards
+// a lane holds the warp's whole sum of one head, head0 + sel with sel its
+// top log2(HL) bits; it computes that head's e and d_p alone, and takes
+// the e of its other heads from the lanes that hold them.
+template <typename T, int UB, int W, int K>
+__global__ void __launch_bounds__(ROW_THREADS) bwd_rows_kernel(BwdRowsArgs a) {
+  using U = Unit<T, UB>;
+  constexpr int E = U::kElems;
+  constexpr int HL = K < E ? K : E;         // heads a lane holds
+  constexpr int STOP = K > E ? K / E : 1;
+  constexpr int LOG_HL = HL == 1 ? 0 : (HL == 2 ? 1 : 2);
+  static_assert(HL == 1 << LOG_HL, "HL: 1, 2 or 4");
+  // The lanes of one head after the reduce-scatter differ in the bits of
+  // PLAIN_MASK; lane & ~SEL_MASK | j << SEL_SHIFT holds head head0 + j.
+  constexpr int SEL_SHIFT = 5 - LOG_HL;
+  constexpr int SEL_MASK = (HL - 1) << SEL_SHIFT;
+  constexpr int PLAIN_MASK = ((32 >> LOG_HL) - 1) & ~(STOP - 1);
+  // Gathers in flight: one at H = 320 (64 registers, 4 blocks an SM), two
+  // at H = 64; on an H100 deeper unrolling ran slower, its registers
+  // costing resident warps.
+  constexpr int IN_FLIGHT = W * U::kWords <= 4 ? 2 : 1;
+  const int lane = threadIdx.x & 31;
+  const int64_t u =
+      static_cast<int64_t>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5);
+  if (u >= a.rows) return;  // warp-uniform
+  const int units = a.h / E;
+  const int head0 = (lane * E) % K;  // the lane's heads: head0 + j, j < HL
+  const int head = head0 + (lane >> SEL_SHIFT) % HL;  // after the fold
+  const bool writer = (lane & PLAIN_MASK) == 0;       // one lane a head
+
+  float tab[W][E], acc[W][E];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int unit = lane + 32 * k;
+    U::unpack(unit < units ? U::load(a.table, u * units + unit) : U::zero(),
+              tab[k]);
+#pragma unroll
+    for (int i = 0; i < E; ++i) acc[k][i] = 0.0f;
+  }
+  const float ss = to_f32(static_cast<const T*>(a.scores)[u * 2 * K + head]);
+  float dss = 0.0f;
+
+  const int begin = __ldg(a.row_ptr + u);
+  const int end = __ldg(a.row_ptr + u + 1);
+  for (int base = begin; base < end; base += 32) {
+    const int count = min(32, end - base);  // warp-uniform
+    // Entry j of the round sits in lane j.
+    int t = 0, sr = 0;
+    if (lane < count) {
+      t = __ldg(a.t_row + base + lane);
+      sr = __ldg(a.score_row + base + lane);
+    }
+    for (int j0 = 0; j0 < count; j0 += IN_FLIGHT) {
+      typename U::Raw val[IN_FLIGHT][W];
+      float ts[IN_FLIGHT], mx[IN_FLIGHT], dd[IN_FLIGHT];
+#pragma unroll
+      for (int q = 0; q < IN_FLIGHT; ++q) {
+        const int j = (j0 + q) & 31;
+        const int64_t tq = __shfl_sync(FULL, t, j);
+        const int64_t sq = __shfl_sync(FULL, sr, j);
+        const bool ok = j0 + q < count;
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          const int unit = lane + 32 * k;
+          val[q][k] = (ok && unit < units) ? U::load(a.dw, tq * units + unit)
+                                           : U::zero();
+        }
+        // The target score, m and d_denom of the lane's head after the fold.
+        ts[q] = ok ? to_f32(static_cast<const T*>(a.scores)[sq * 2 * K + K
+                                                             + head])
+                   : 0.0f;
+        mx[q] = ok ? __ldg(a.maxes + tq * K + head) : 0.0f;
+        dd[q] = ok ? __ldg(a.d_denom + tq * K + head) : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < IN_FLIGHT; ++q) {
+        if (j0 + q >= count) break;  // warp-uniform
+        float x[W][E];
+        float part[HL];
+#pragma unroll
+        for (int jh = 0; jh < HL; ++jh) part[jh] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          U::unpack(val[q][k], x[k]);
+#pragma unroll
+          for (int i = 0; i < E; ++i) {
+            part[i % HL] = fmaf(tab[k][i], x[k][i], part[i % HL]);
+          }
+        }
+        // The reduce-scatter: halve the kept sums, then fold the rest.
+#pragma unroll
+        for (int s = 0; s < LOG_HL; ++s) {
+          const int off = 16 >> s;
+          const int half = HL >> (s + 1);
+          const bool upper = lane & off;
+#pragma unroll
+          for (int j = 0; j < half; ++j) {
+            const float keep = upper ? part[j + half] : part[j];
+            const float give = upper ? part[j] : part[j + half];
+            part[j] = keep + __shfl_xor_sync(FULL, give, off);
+          }
+        }
+        float sum = part[0];
+#pragma unroll
+        for (int off = 16 >> LOG_HL; off >= STOP; off >>= 1) {
+          sum += __shfl_xor_sync(FULL, sum, off);
+        }
+        const float p = ss + ts[q];
+        const float e = expf(leaky(p) - mx[q]);
+        const float slope = p >= 0.0f ? 1.0f : LEAKY_SLOPE;
+        const float d_p = e * slope * (sum + dd[q]);
+        dss += d_p;
+        if (writer) {
+          a.d_p[static_cast<int64_t>(base + j0 + q) * K + head] = d_p;
+        }
+        float eh[HL];
+#pragma unroll
+        for (int jh = 0; jh < HL; ++jh) {
+          eh[jh] = HL == 1 ? e
+                           : __shfl_sync(FULL, e,
+                                         (lane & ~SEL_MASK)
+                                             | (jh << SEL_SHIFT));
+        }
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+#pragma unroll
+          for (int i = 0; i < E; ++i) {
+            acc[k][i] = fmaf(x[k][i], eh[i % HL], acc[k][i]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int unit = lane + 32 * k;
+    if (unit < units) {
+      store_f32<E>(a.d_table + u * a.h + static_cast<int64_t>(unit) * E,
+                   acc[k]);
+    }
+  }
+  if (writer) a.d_ss[u * K + head] = dss;
 }
 
+template <typename T, int UB, int W, int K>
+void launch_bwd_w(dim3 grid, cudaStream_t s, const BwdRowsArgs& a) {
+  bwd_rows_kernel<T, UB, W, K><<<grid, ROW_THREADS, 0, s>>>(a);
+}
+
+// Units a lane, instantiated: 8-byte units 1 or 3, element units 1, 2, 4,
+// 10 or 16; the smallest that holds the row. (5 8-byte units a lane
+// spilled at bf16.)
+template <typename T, int UB, int K>
+void launch_bwd_units(int units, dim3 grid, cudaStream_t s,
+                      const BwdRowsArgs& a) {
+  const int need = (units + 31) / 32;
+  if constexpr (UB == 8) {
+    if (need <= 1) launch_bwd_w<T, UB, 1, K>(grid, s, a);
+    else launch_bwd_w<T, UB, 3, K>(grid, s, a);
+  } else {
+    if (need <= 1) launch_bwd_w<T, UB, 1, K>(grid, s, a);
+    else if (need <= 2) launch_bwd_w<T, UB, 2, K>(grid, s, a);
+    else if (need <= 4) launch_bwd_w<T, UB, 4, K>(grid, s, a);
+    else if (need <= 10) launch_bwd_w<T, UB, 10, K>(grid, s, a);
+    else launch_bwd_w<T, UB, 16, K>(grid, s, a);
+  }
+}
+
+template <typename T, int UB>
+void launch_bwd_heads(int k, int units, dim3 grid, cudaStream_t s,
+                      const BwdRowsArgs& a) {
+  switch (k) {
+    case 1: launch_bwd_units<T, UB, 1>(units, grid, s, a); break;
+    case 2: launch_bwd_units<T, UB, 2>(units, grid, s, a); break;
+    case 4: launch_bwd_units<T, UB, 4>(units, grid, s, a); break;
+    default: launch_bwd_units<T, UB, 8>(units, grid, s, a); break;
+  }
+}
+
+// The most lane units a row may have: 3 8-byte or 16 element units a lane.
+constexpr int MAX_UNITS_8 = 32 * 3;
+constexpr int MAX_UNITS_1 = 32 * 16;
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS) bwd_fused_kernel(BwdArgs a) {
-  extern __shared__ float smem[];
-  const int num_slots = a.group * E_C;
-  const int k = a.k;
-  float* e_s = smem;                                   // [num_slots, k]
-  float* acc = e_s + static_cast<size_t>(num_slots) * k;  // [BLK, HT]
-  float* dss = acc + BLK * HT;                         // [BLK, k]
-  int* touched = reinterpret_cast<int*>(dss + BLK * k);  // [BLK]
-
-  const T* __restrict__ table = static_cast<const T*>(a.table);
-  const T* __restrict__ dw = static_cast<const T*>(a.dw);
-  const T* __restrict__ scores = static_cast<const T*>(a.scores);
-  const int g = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t u_base = static_cast<int64_t>(a.grp_tgt[g]) * BLK;
-  const int64_t slot0 = static_cast<int64_t>(g) * num_slots;
-
-  for (int i = threadIdx.x; i < BLK * k; i += THREADS) dss[i] = 0.0f;
-  for (int i = threadIdx.x; i < BLK; i += THREADS) touched[i] = 0;
-  __syncthreads();
-
-  // Phase 1: e and d_p per valid slot, one warp per slot.
-  for (int base = warp * 32; base < num_slots; base += WARPS * 32) {
-    const int64_t s = slot0 + base + lane;
-    const int rs = a.rel_src[s];   // plan-"src": the target node
-    const int rt = a.rel_tgt[s];   // plan-"tgt": the source row
-    const bool valid = rs >= 0 && rs < BLK && rt >= 0 && rt < BLK;
-    const int64_t t = static_cast<int64_t>(a.src_blk[s / E_C]) * BLK
-                      + (valid ? rs : 0);
-    if (valid) touched[rt] = 1;
-    unsigned mask = __ballot_sync(FULL, valid);
-    while (mask) {
-      const int j = __ffs(mask) - 1;
-      mask &= mask - 1;
-      const int64_t tj = __shfl_sync(FULL, t, j);
-      const int ru = __shfl_sync(FULL, rt, j);
-      const int64_t u = u_base + ru;
-      const T* urow = table + clip(u, a.rows) * a.h;
-      const T* trow = dw + clip(tj, a.v) * a.h;
-      float partial = 0.0f;
-#pragma unroll 4
-      for (int col = lane; col < a.h; col += 32) {
-        partial += to_f32(urow[col]) * to_f32(trow[col]);
-      }
-      // Lane l summed the columns of head l % k; fold lanes of one head.
-      for (int off = 16; off >= k; off >>= 1) {
-        partial += __shfl_xor_sync(FULL, partial, off);
-      }
-      if (lane < k) {
-        const int64_t ltype_base = (u / a.vs) * a.vs;
-        const float p =
-            to_f32(scores[clip(u, a.rows) * 2 * k + lane])
-            + to_f32(scores[clip(ltype_base + tj, a.rows) * 2 * k + k + lane]);
-        const int64_t tc = clip(tj, a.v);
-        const float e = expf(leaky(p) - a.maxes[tc * k + lane]);
-        const float slope = p >= 0.0f ? 1.0f : LEAKY_SLOPE;
-        const float d_p = e * slope * (partial + a.d_denom[tc * k + lane]);
-        e_s[(base + j) * k + lane] = e;
-        if (u < a.rows) atomicAdd(&dss[ru * k + lane], d_p);
-        const int64_t ts_row = ltype_base + tj;
-        if (ts_row < a.rows) atomicAdd(&a.d_ts[ts_row * k + lane], d_p);
-      }
-    }
+int launch_bwd(int k, const BwdRowsArgs& a, cudaStream_t s) {
+  constexpr int kItem = static_cast<int>(sizeof(T));
+  const int64_t row_bytes = static_cast<int64_t>(a.h) * kItem;
+  // 8-byte units where a row has a warp of them and the row and the
+  // tables' alignment allow them: on an H100 the faster at K = 4, H = 320
+  // bf16, and element units at K = 8, H = 64 bf16 (PERF.md).
+  const bool eight = row_bytes % 8 == 0 && row_bytes / 8 >= 32
+                     && row_bytes / 8 <= MAX_UNITS_8 && aligned(a.table, 8)
+                     && aligned(a.dw, 8) && aligned(a.d_table, 16);
+  if (!eight && a.h > MAX_UNITS_1) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  __syncthreads();
-
-  // Phase 2: d_table, one 64-column tile at a time.
-  for (int col0 = 0; col0 < a.h; col0 += HT) {
-    for (int i = threadIdx.x; i < BLK * HT; i += THREADS) acc[i] = 0.0f;
-    __syncthreads();
-    for (int base = warp * 32; base < num_slots; base += WARPS * 32) {
-      const int64_t s = slot0 + base + lane;
-      const int rs = a.rel_src[s];
-      const int rt = a.rel_tgt[s];
-      const bool valid = rs >= 0 && rs < BLK && rt >= 0 && rt < BLK;
-      const int64_t trow = clip(
-          static_cast<int64_t>(a.src_blk[s / E_C]) * BLK + (valid ? rs : 0),
-          a.v);
-      unsigned mask = __ballot_sync(FULL, valid);
-      while (mask) {
-        int64_t r[UNROLL];
-        int ru[UNROLL];
-        float e[UNROLL];
-        bool ok[UNROLL];
-#pragma unroll
-        for (int q = 0; q < UNROLL; ++q) {
-          ok[q] = mask != 0;
-          const int j = ok[q] ? __ffs(mask) - 1 : 0;
-          if (ok[q]) mask &= mask - 1;
-          r[q] = __shfl_sync(FULL, trow, j);
-          ru[q] = __shfl_sync(FULL, rt, j);
-          // Every column a lane touches belongs to head lane % k.
-          e[q] = ok[q] ? e_s[(base + j) * k + lane % k] : 0.0f;
-        }
-        float val[UNROLL][COLS_PER_LANE];
-#pragma unroll
-        for (int q = 0; q < UNROLL; ++q) {
-#pragma unroll
-          for (int c = 0; c < COLS_PER_LANE; ++c) {
-            const int col = col0 + lane + 32 * c;
-            val[q][c] = (ok[q] && col < a.h) ? to_f32(dw[r[q] * a.h + col])
-                                             : 0.0f;
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < UNROLL; ++q) {
-          if (!ok[q]) continue;
-#pragma unroll
-          for (int c = 0; c < COLS_PER_LANE; ++c) {
-            const int col = lane + 32 * c;
-            if (col0 + col < a.h) {
-              atomicAdd(&acc[ru[q] * HT + col], val[q][c] * e[q]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BLK * HT; i += THREADS) {
-      const int rr = i / HT;
-      const int col = col0 + i % HT;
-      const int64_t row = u_base + rr;
-      if (touched[rr] && col < a.h && row < a.rows) {
-        atomicAdd(&a.d_table[row * a.h + col], acc[i]);
-      }
-    }
-    __syncthreads();
+  const dim3 grid(
+      static_cast<unsigned>((a.rows + ROW_WARPS - 1) / ROW_WARPS));
+  if (eight) {
+    launch_bwd_heads<T, 8>(k, a.h * kItem / 8, grid, s, a);
+  } else {
+    launch_bwd_heads<T, kItem>(k, a.h, grid, s, a);
   }
-
-  for (int i = threadIdx.x; i < BLK * k; i += THREADS) {
-    const int rr = i / k;
-    const int64_t row = u_base + rr;
-    if (touched[rr] && row < a.rows) {
-      atomicAdd(&a.d_ss[row * k + i % k], dss[i]);
-    }
-  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dtype codes shared with the Python wrapper.
@@ -583,37 +656,25 @@ extern "C" int pair_attention_agg_launch(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
-static int launch_bwd(const BwdArgs& a, int num_groups, cudaStream_t s) {
-  const size_t smem = bwd_smem_bytes(a.group, a.k);
-  // Above 48 KB a block's shared memory must be raised explicitly.
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_fused_kernel<T><<<num_groups, THREADS, smem, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int pair_attention_bwd_fused_launch(
+// B9's first pass: d_ss and d_table, f32 [rows, k] and [rows, h], every
+// element stored once, and each entry's d_p into d_p [n, k].
+extern "C" int pair_attention_bwd_rows_launch(
     int device, int dtype, const void* table, const void* dw,
     const float* d_denom, const void* scores, const float* maxes,
-    int64_t rows, int h, int k, int v, int vs, const int32_t* rel_src,
-    const int32_t* rel_tgt, const int32_t* src_blk, const int32_t* grp_tgt,
-    int group, int num_groups, float* d_ss, float* d_ts, float* d_table,
+    int64_t rows, int h, int k, const int32_t* row_ptr, const int32_t* t_row,
+    const int32_t* score_row, float* d_ss, float* d_table, float* d_p,
     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!heads_ok(k) || h <= 0 || h % k || group <= 0 || num_groups <= 0
-      || rows <= 0 || v <= 0 || vs <= 0) {
+  if (!(k == 1 || k == 2 || k == 4 || k == 8) || h <= 0 || h % k
+      || rows <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const BwdArgs a{table, dw, d_denom, scores, maxes, rows, h, k, v, vs,
-                  rel_src, rel_tgt, src_blk, grp_tgt, group, d_ss, d_ts,
-                  d_table};
+  const BwdRowsArgs a{table, dw, d_denom, scores, maxes, h, row_ptr, t_row,
+                      score_row, rows, d_ss, d_table, d_p};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) return launch_bwd<float>(a, num_groups, s);
-  if (dtype == DTYPE_BF16) return launch_bwd<__nv_bfloat16>(a, num_groups, s);
+  if (dtype == DTYPE_F32) return launch_bwd<float>(k, a, s);
+  if (dtype == DTYPE_BF16) return launch_bwd<__nv_bfloat16>(k, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -19,7 +19,8 @@
 //   relu_pair_fwd_m <- pair_edge_mlp.py:188 (_relu_pair_fwd_m_device,
 //                      pallas_call :289), forward plan: R as above and
 //                      M[tgt] += (z > 0 ? s : 0) in the same sweep. The
-//                      training forward (the backward's dB is M * g).
+//                      training forward (the backward's dB is M * g). Its
+//                      own kernel, relu_pair_rows_kernel (below).
 //   relu_pair_da    <- pair_edge_mlp.py:420 (_relu_pair_da_device,
 //                      pallas_call :523), BACKWARD plan, whose "source" is
 //                      the original target t (rows of B and of the f32
@@ -35,39 +36,55 @@
 // Unlike the TPU kernels, which round the cotangent g to the stream dtype
 // (pair_edge_mlp.py:416, 537), g stays f32 here, as in the jnp twins.
 //
-// Design. The TPU kernels build one-hot factors and run three or four MXU
-// matmuls per chunk, because Mosaic cannot gather rows: the source half
-// stays resident in VMEM and the target half streams through the output
-// block index. Hopper gathers rows natively, so each slot is a row gather,
-// an add, a compare and an add into shared memory; the design is K1's
-// (csrc/pair_stream.cu). One thread block per (plan group, 64-column
-// feature tile): a group's chunks share one 128-row output block, so the
-// block first stages that block's rows of the table indexed by the output
-// (B for the forward plan, A for the backward plan) as a [128, 64] slab in
-// shared memory, the counterpart of the TPU's "slab through the output
-// block index". Each warp then loads 32 slots' plan entries with coalesced
-// loads and walks its valid slots four at a time: the 32 lanes gather a row
-// segment of the other table (neighbouring lanes on neighbouring columns),
-// add the staged row, and add relu(z) * s (and the mask term) into f32
-// [128, 64] shared tiles with shared-memory atomics. The touched rows are
-// then added into the output with one global atomicAdd per element: groups
-// of one output block run concurrently, so f32 sums land in a run-dependent
-// order. relu and the mask are per element, so the column tiling is exact.
-// Shared memory: one f32 tile (two for the training forward), the slab and
-// the touched-row flags, 48.5 KB to 96.5 KB, so the launch raises the
+// Design of B5-B7. The TPU kernels build one-hot factors and run three or
+// four MXU matmuls per chunk, because Mosaic cannot gather rows: the source
+// half stays resident in VMEM and the target half streams through the
+// output block index. Hopper gathers rows natively, so each slot is a row
+// gather, an add, a compare and an add into shared memory. One thread
+// block per (plan group, 64-column feature tile): a group's chunks share
+// one 128-row output block, so the block first stages that block's rows of
+// the table indexed by the output (B for the forward plan, A for the
+// backward plan) as a [128, 64] slab in shared memory, the counterpart of
+// the TPU's "slab through the output block index". Each warp then loads 32
+// slots' plan entries with coalesced loads and walks its valid slots four
+// at a time: the 32 lanes gather a row segment of the other table
+// (neighbouring lanes on neighbouring columns), add the staged row, and add
+// the slot's term into an f32 [128, 64] shared tile with shared-memory
+// atomics. The touched rows are then added into the output with one global
+// atomicAdd per element: groups of one output block run concurrently, so
+// f32 sums land in a run-dependent order. relu and the mask are per
+// element, so the column tiling is exact. Shared memory: the tile, the slab
+// and the touched-row flags, 48.5 KB to 64.5 KB, so the launch raises the
 // dynamic shared-memory limit with cudaFuncSetAttribute. H needs no
 // padding: columns >= H are masked.
 //
+// Design of B4, the row owner. The forward plan's output row t is also B's
+// row t, so one warp owns an output row: it reads the row's entries from
+// the plan's compact form (ops/pair_spmm.py::slot_rows, the valid slots as
+// a CSR by output row, each with its clipped source row and its plan slot,
+// built once per batch and kept on the plan as MergedPlan.fwd_rows), holds
+// B[clip(t)] in registers, gathers 2 rows of A per lane before their
+// adds, and keeps R and M as f32 register sums in the row's slot
+// order, each element stored once: no padded slot is walked, nothing is
+// staged in shared memory, there are no atomics and two launches give the
+// same bits. A lane unit is 8 bytes (4 bf16 or 2 f32 columns; bf16 H = 320
+// is 80 units, 3 a lane) where the row and its tables' alignment allow
+// them, else one element (10 a lane at H = 320); wider rows take more
+// column tiles (gridDim.y), each walking the row's entries again.
+//
 // Bound. Memory: each input read once (the distinct gathered rows, the
-// staged table's rows, for dA and dB the f32 cotangent rows), the plan (12 B
-// a slot: rel_src, rel_tgt, scale) and the f32 outputs written once. The
-// arithmetic (3 to 6 f32 operations a valid slot and column) is far below
-// the card's f32 rate. Like K1, a warp's gathers are dependent rounds of
-// short row segments, so the kernels sit well above that bound (PERF.md).
+// staged table's rows, for dA and dB the f32 cotangent rows), the plan and
+// the f32 outputs written once; B4 reads its compact form (8 B an entry and
+// 4 B an output row) in place of the plan. The arithmetic (3 to 6 f32
+// operations a valid slot and column) is far below the card's f32 rate.
+// B5-B7 sit well above that bound (PERF.md): a warp's gathers are dependent
+// rounds of short row segments, flushed through shared and global atomics.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "lane_units.cuh"
 
 namespace {
 
@@ -78,34 +95,19 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int COLS_PER_LANE = HT / 32;
 constexpr int UNROLL = 4;    // valid slots gathered before their adds
-constexpr unsigned FULL = 0xffffffffu;
 
-enum Mode : int { kFwd = 0, kFwdM = 1, kDa = 2, kDb = 3 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+enum Mode : int { kFwd = 0, kDa = 1, kDb = 2 };
 
 __device__ __forceinline__ void set_zero(float& x) { x = 0.0f; }
 __device__ __forceinline__ void set_zero(__nv_bfloat16& x) {
   x = __float2bfloat16(0.0f);
 }
 
-// Row indices clip into [0, n), as the twins' jnp.take(mode="clip").
-__device__ __forceinline__ int64_t clip(int64_t i, int64_t n) {
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
-}
-
-__host__ __device__ constexpr int num_acc(int mode) {
-  return mode == kFwdM ? 2 : 1;
-}
-
-// Dynamic shared memory: the f32 accumulator tile(s), the staged slab and
-// the touched-row flags.
+// Dynamic shared memory: the f32 accumulator tile, the staged slab and the
+// touched-row flags.
 template <typename T>
-constexpr size_t smem_bytes(int mode) {
-  return static_cast<size_t>(num_acc(mode)) * BLK * HT * sizeof(float)
+constexpr size_t smem_bytes() {
+  return static_cast<size_t>(BLK) * HT * sizeof(float)
          + static_cast<size_t>(BLK) * HT * sizeof(T) + BLK * sizeof(int);
 }
 
@@ -124,7 +126,6 @@ struct Args {
   const int32_t* grp_tgt;
   int group;
   float* out;             // R, dA or dB
-  float* out_m;           // M (training forward only)
   int64_t out_rows;
 };
 
@@ -132,8 +133,7 @@ template <typename T, int MODE>
 __global__ void __launch_bounds__(THREADS) relu_pair_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* acc = reinterpret_cast<float*>(smem);                  // [BLK, HT]
-  float* acc_m = acc + (MODE == kFwdM ? BLK * HT : 0);          // [BLK, HT]
-  T* slab = reinterpret_cast<T*>(acc + num_acc(MODE) * BLK * HT);
+  T* slab = reinterpret_cast<T*>(acc + BLK * HT);               // [BLK, HT]
   int* touched = reinterpret_cast<int*>(slab + BLK * HT);       // [BLK]
 
   const T* __restrict__ gathered = static_cast<const T*>(a.gathered);
@@ -144,9 +144,7 @@ __global__ void __launch_bounds__(THREADS) relu_pair_kernel(Args a) {
   const int warp = threadIdx.x >> 5;
   const int64_t out_base = static_cast<int64_t>(a.grp_tgt[g]) * BLK;
 
-  for (int i = threadIdx.x; i < num_acc(MODE) * BLK * HT; i += THREADS) {
-    acc[i] = 0.0f;
-  }
+  for (int i = threadIdx.x; i < BLK * HT; i += THREADS) acc[i] = 0.0f;
   for (int i = threadIdx.x; i < BLK; i += THREADS) touched[i] = 0;
   // The output block's rows of the staged table, this block's columns.
   for (int i = threadIdx.x; i < BLK * HT; i += THREADS) {
@@ -210,10 +208,7 @@ __global__ void __launch_bounds__(THREADS) relu_pair_kernel(Args a) {
           const float y = to_f32(slab[i]);
           // The twins add the source half first: z = A[src] + B[tgt].
           const float z = MODE == kDa ? y + x[u][k] : x[u][k] + y;
-          if (MODE == kFwd || MODE == kFwdM) {
-            atomicAdd(&acc[i], fmaxf(z, 0.0f) * c[u]);
-          }
-          if (MODE == kFwdM) atomicAdd(&acc_m[i], z > 0.0f ? c[u] : 0.0f);
+          if (MODE == kFwd) atomicAdd(&acc[i], fmaxf(z, 0.0f) * c[u]);
           if (MODE == kDb) atomicAdd(&acc[i], z > 0.0f ? c[u] : 0.0f);
           if (MODE == kDa) {
             atomicAdd(&acc[i], (z > 0.0f ? gv[u][k] : 0.0f) * c[u]);
@@ -234,13 +229,12 @@ __global__ void __launch_bounds__(THREADS) relu_pair_kernel(Args a) {
     }
     const int64_t o = orow * a.h + col;
     atomicAdd(&a.out[o], MODE == kDb ? acc[i] * a.g[o] : acc[i]);
-    if (MODE == kFwdM) atomicAdd(&a.out_m[o], acc_m[i]);
   }
 }
 
 template <typename T, int MODE>
 int launch(const Args& a, int num_groups, cudaStream_t s) {
-  const size_t smem = smem_bytes<T>(MODE);
+  const size_t smem = smem_bytes<T>();
   // Above 48 KB a block's shared memory must be raised explicitly.
   cudaError_t err = cudaFuncSetAttribute(
       relu_pair_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -262,7 +256,7 @@ int dispatch(int device, int dtype, const void* a_tab, int64_t a_rows,
              const float* scale, const int32_t* rel_src,
              const int32_t* rel_tgt, const int32_t* src_blk,
              const int32_t* grp_tgt, int num_groups, int group, float* out,
-             float* out_m, int64_t out_rows, void* stream) {
+             int64_t out_rows, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_groups <= 0 || group <= 0 || h <= 0 || a_rows <= 0 || b_rows <= 0
@@ -275,7 +269,7 @@ int dispatch(int device, int dtype, const void* a_tab, int64_t a_rows,
   const Args a{bwd ? b_tab : a_tab, bwd ? b_rows : a_rows,
                bwd ? a_tab : b_tab, bwd ? a_rows : b_rows,
                g, h, scale, rel_src, rel_tgt, src_blk, grp_tgt, group,
-               out, out_m, out_rows};
+               out, out_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32) return launch<float, MODE>(a, num_groups, s);
   if (dtype == DTYPE_BF16) {
@@ -284,11 +278,165 @@ int dispatch(int device, int dtype, const void* a_tab, int64_t a_rows,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// B4: the row owner over the forward plan's compact form.
+
+struct RowsArgs {
+  const void* a;            // [a_rows, h], rows contiguous
+  const void* b;            // [b_rows, h]
+  int64_t b_rows;
+  int h;
+  const float* scale;       // [slots]
+  const int32_t* row_ptr;   // [out_rows + 1]
+  const int32_t* src_row;   // [n] rows of A, clipped
+  const int32_t* slot;      // [n] plan slots (the scale's index)
+  int64_t out_rows;
+  float* r;                 // [out_rows, h]
+  float* m;                 // [out_rows, h]
+};
+
+// One warp owns output row t; W units of UB bytes a lane in this column
+// tile (blockIdx.y). IN_FLIGHT = 2 rows of A are gathered before their
+// adds: the kernel waits on L2 latency, and on an H100 more resident warps
+// (64 registers at H = 320, 4 blocks an SM) hid it better than deeper
+// unrolling did, whose registers cost resident warps.
+template <typename T, int UB, int W>
+__global__ void __launch_bounds__(ROW_THREADS)
+    relu_pair_rows_kernel(RowsArgs a) {
+  using U = Unit<T, UB>;
+  constexpr int E = U::kElems;
+  constexpr int IN_FLIGHT = 2;
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5);
+  if (row >= a.out_rows) return;  // warp-uniform
+  const int units = a.h / E;      // per table row
+  const int unit0 = blockIdx.y * 32 * W + lane;
+  const int64_t b_row = row < a.b_rows ? row : a.b_rows - 1;
+
+  float bv[W][E], r[W][E], m[W][E];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int unit = unit0 + 32 * k;
+    U::unpack(unit < units ? U::load(a.b, b_row * units + unit) : U::zero(),
+              bv[k]);
+#pragma unroll
+    for (int e = 0; e < E; ++e) r[k][e] = m[k][e] = 0.0f;
+  }
+
+  const int begin = __ldg(a.row_ptr + row);
+  const int end = __ldg(a.row_ptr + row + 1);
+  for (int base = begin; base < end; base += 32) {
+    const int count = min(32, end - base);  // warp-uniform
+    // Entry j of the round sits in lane j.
+    int src = 0;
+    float sc = 0.0f;
+    if (lane < count) {
+      src = __ldg(a.src_row + base + lane);
+      sc = __ldg(a.scale + __ldg(a.slot + base + lane));
+    }
+    for (int j0 = 0; j0 < count; j0 += IN_FLIGHT) {
+      typename U::Raw val[IN_FLIGHT][W];
+      float c[IN_FLIGHT];
+#pragma unroll
+      for (int u = 0; u < IN_FLIGHT; ++u) {
+        const int j = (j0 + u) & 31;
+        const int64_t s = __shfl_sync(FULL, src, j);
+        c[u] = __shfl_sync(FULL, sc, j);
+        const bool ok = j0 + u < count;
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          const int unit = unit0 + 32 * k;
+          val[u][k] = (ok && unit < units) ? U::load(a.a, s * units + unit)
+                                           : U::zero();
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < IN_FLIGHT; ++u) {
+        if (j0 + u >= count) break;  // warp-uniform
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          float x[E];
+          U::unpack(val[u][k], x);
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            // The twins add the source half first: z = A[src] + B[tgt].
+            const float z = x[e] + bv[k][e];
+            r[k][e] += fmaxf(z, 0.0f) * c[u];
+            m[k][e] += z > 0.0f ? c[u] : 0.0f;
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int unit = unit0 + 32 * k;
+    if (unit >= units) continue;
+    const int64_t o = row * a.h + static_cast<int64_t>(unit) * E;
+    store_f32<E>(a.r + o, r[k]);
+    store_f32<E>(a.m + o, m[k]);
+  }
+}
+
+template <typename T, int UB, int W>
+void launch_rows_w(dim3 grid, cudaStream_t s, const RowsArgs& a) {
+  relu_pair_rows_kernel<T, UB, W><<<grid, ROW_THREADS, 0, s>>>(a);
+}
+
+// Units a lane, instantiated: 8-byte units 1, 3 or 5 (bf16 H up to 128,
+// 384, 640 in one tile; f32 half that), element units 1, 2, 4 or 10 (H up
+// to 32, 64, 128, 320); the smallest that holds the row, else the largest
+// and more column tiles.
+int rows_w(bool eight, int units) {
+  const int need = (units + 31) / 32;
+  if (eight) return need <= 1 ? 1 : (need <= 3 ? 3 : 5);
+  return need <= 1 ? 1 : (need <= 2 ? 2 : (need <= 4 ? 4 : 10));
+}
+
+template <typename T, int UB>
+void launch_rows(dim3 grid, int w, cudaStream_t s, const RowsArgs& a) {
+  if constexpr (UB == 8) {
+    if (w == 1) launch_rows_w<T, UB, 1>(grid, s, a);
+    else if (w == 3) launch_rows_w<T, UB, 3>(grid, s, a);
+    else launch_rows_w<T, UB, 5>(grid, s, a);
+  } else {
+    if (w == 1) launch_rows_w<T, UB, 1>(grid, s, a);
+    else if (w == 2) launch_rows_w<T, UB, 2>(grid, s, a);
+    else if (w == 4) launch_rows_w<T, UB, 4>(grid, s, a);
+    else launch_rows_w<T, UB, 10>(grid, s, a);
+  }
+}
+
+template <typename T>
+int launch_rows_by_unit(const RowsArgs& a, cudaStream_t s) {
+  constexpr int kItem = static_cast<int>(sizeof(T));
+  // 8-byte units where the row, both tables and both outputs allow them
+  // (on an H100 2.5 times faster at bf16 H = 320 than one element a lane,
+  // PERF.md); else one element a lane.
+  const bool eight = static_cast<int64_t>(a.h) * kItem % 8 == 0
+                     && aligned(a.a, 8) && aligned(a.b, 8)
+                     && aligned(a.r, 16) && aligned(a.m, 16);
+  const int units = eight ? a.h * kItem / 8 : a.h;
+  const int w = rows_w(eight, units);
+  const dim3 grid(
+      static_cast<unsigned>((a.out_rows + ROW_WARPS - 1) / ROW_WARPS),
+      static_cast<unsigned>((units + 32 * w - 1) / (32 * w)));
+  if (eight) {
+    launch_rows<T, 8>(grid, w, s, a);
+  } else {
+    launch_rows<T, kItem>(grid, w, s, a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// One C entry point per kernel, all with one signature (g and out_m are
-// null where a kernel reads or writes none). Each returns the cudaError_t
-// of its launch (cudaGetLastError right after it); 0 is success.
+// One C entry point per kernel. B5-B7 share one signature (g is null where
+// a kernel reads none); B4 reads the compact form. Each returns the
+// cudaError_t of its launch (cudaGetLastError right after it); 0 is
+// success.
 
 #define DEFINE_LAUNCH(NAME, MODE)                                             \
   extern "C" int NAME(int device, int dtype, const void* a_tab,              \
@@ -296,17 +444,35 @@ int dispatch(int device, int dtype, const void* a_tab, int64_t a_rows,
                       const float* g, int h, const float* scale,              \
                       const int32_t* rel_src, const int32_t* rel_tgt,         \
                       const int32_t* src_blk, const int32_t* grp_tgt,         \
-                      int num_groups, int group, float* out, float* out_m,    \
+                      int num_groups, int group, float* out,                  \
                       int64_t out_rows, void* stream) {                       \
     return dispatch<MODE>(device, dtype, a_tab, a_rows, b_tab, b_rows, g, h,  \
                           scale, rel_src, rel_tgt, src_blk, grp_tgt,          \
-                          num_groups, group, out, out_m, out_rows, stream);   \
+                          num_groups, group, out, out_rows, stream);          \
   }
 
 DEFINE_LAUNCH(relu_pair_fwd_launch, kFwd)
-DEFINE_LAUNCH(relu_pair_fwd_m_launch, kFwdM)
 DEFINE_LAUNCH(relu_pair_da_launch, kDa)
 DEFINE_LAUNCH(relu_pair_db_launch, kDb)
+
+// B4: R and M, f32 [out_rows, h], every element stored once.
+extern "C" int relu_pair_fwd_m_launch(
+    int device, int dtype, const void* a_tab, const void* b_tab,
+    int64_t b_rows, int h, const float* scale, const int32_t* row_ptr,
+    const int32_t* src_row, const int32_t* slot, int64_t out_rows, float* r,
+    float* m, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (h <= 0 || b_rows <= 0 || out_rows <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const RowsArgs a{a_tab, b_tab, b_rows, h, scale, row_ptr, src_row, slot,
+                   out_rows, r, m};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_F32) return launch_rows_by_unit<float>(a, s);
+  if (dtype == DTYPE_BF16) return launch_rows_by_unit<__nv_bfloat16>(a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 extern "C" const char* relu_pair_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,14 +1,15 @@
 // The row-owner SpMM kernel for Hopper (sm_90a), bound through a plain C
-// interface (ctypes) by tf2_gnn_tpu_torch/ops/pair_spmm.py and
-// ops/sorted_spmm.py.
+// interface (ctypes) by tf2_gnn_tpu_torch/ops/pair_spmm.py,
+// ops/sorted_spmm.py and ops/pair_attention.py.
 //
-// One kernel, row_owner_kernel, computes the function of four TPU kernels.
-// Each reads the compact form of its plan direction (ops/pair_spmm.py::
-// SlotRows, built once per batch by pair_spmm.py::slot_rows for the pair
-// plans and by sorted_spmm.py::sorted_rows for the sorted plans): the valid
-// slots whose output row lies in the output, sorted stably by output row
-// into a CSR (row_ptr [out_rows + 1]; per entry its table row src_row and
-// its plan slot), and computes
+// One kernel, row_owner_kernel, computes the function of four TPU kernels
+// and the second pass of a fifth. Each reads the compact form of its plan
+// direction (ops/pair_spmm.py::SlotRows, built once per batch by
+// pair_spmm.py::slot_rows for the pair plans and by sorted_spmm.py::
+// sorted_rows for the sorted plans): the valid slots whose output row lies
+// in the output, sorted stably by output row into a CSR (row_ptr
+// [out_rows + 1]; per entry its table row src_row and its plan slot), and
+// computes
 //
 //   out[t, :] = sum over the entries e of row t, in slot order, of
 //               scale[slot[e]] * f32(table[src_row[e], :])
@@ -49,6 +50,12 @@
 //                                bwd_to_fwd_slot map (src_row =
 //                                bwd_to_fwd_idx[slot]), so the re-ordered
 //                                [slots, H] stream is never written.
+//   pair_attention_ts_launch  the second pass of B9 (csrc/pair_attention.cu,
+//                                ops/pair_attention.py::
+//                                pair_attention_bwd_fused): no scale; the
+//                                f32 [n, K] d_p of the first pass's entries
+//                                summed into d_ts by its row (u / vs) * vs +
+//                                t (ops/pair_spmm.py::TsRows).
 //
 // Design. The TPU kernels build one-hot matmuls and accumulate each output
 // block on its first visit, walking every padded or sentinel slot. Here a
@@ -96,14 +103,12 @@
 
 #include <cstdint>
 #include <limits>
-#include <type_traits>
+
+#include "lane_units.cuh"
 
 namespace {
 
-constexpr int ROW_WARPS = 8;                 // warps per block
-constexpr int ROW_THREADS = 32 * ROW_WARPS;
 constexpr int IN_FLIGHT = 8;                 // row gathers before their FMAs
-constexpr unsigned FULL = 0xffffffffu;
 
 struct RowArgs {
   const void* table;
@@ -116,61 +121,6 @@ struct RowArgs {
   const int32_t* slot;      // [n] plan slots (the scale's index)
   int64_t out_rows;
   float* out;               // [out_rows, h]
-};
-
-// A lane unit of UB bytes of a row of T (UB = 16 or 8, or sizeof(T) for
-// one element) as 32-bit words: its load and its FMAs into kElems f32
-// sums, in column order. bf16 is the upper half of an f32, so its
-// conversion is a shift (the low element of a word) or a mask (the high).
-template <typename T, int UB>
-struct Unit {
-  static constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
-  static constexpr int kElems = UB / static_cast<int>(sizeof(T));
-  static constexpr int kWords = UB >= 4 ? UB / 4 : 1;
-  struct Raw {
-    uint32_t w[kWords];
-  };
-
-  __device__ static __forceinline__ Raw zero() {
-    Raw x;
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) x.w[i] = 0u;
-    return x;
-  }
-
-  __device__ static __forceinline__ Raw load(const void* p, int64_t i) {
-    Raw x;
-    if constexpr (UB == 16) {
-      const uint4 v = __ldg(static_cast<const uint4*>(p) + i);
-      x.w[0] = v.x; x.w[1] = v.y; x.w[2] = v.z; x.w[3] = v.w;
-    } else if constexpr (UB == 8) {
-      const uint2 v = __ldg(static_cast<const uint2*>(p) + i);
-      x.w[0] = v.x; x.w[1] = v.y;
-    } else if constexpr (UB == 4) {
-      x.w[0] = __ldg(static_cast<const unsigned int*>(p) + i);
-    } else {
-      x.w[0] = __ldg(static_cast<const unsigned short*>(p) + i);
-    }
-    return x;
-  }
-
-  __device__ static __forceinline__ void fma(float* acc, const Raw& x,
-                                             float c) {
-    if constexpr (!kBf16) {
-#pragma unroll
-      for (int i = 0; i < kWords; ++i)
-        acc[i] = fmaf(c, __uint_as_float(x.w[i]), acc[i]);
-    } else if constexpr (UB == 2) {
-      acc[0] = fmaf(c, __uint_as_float(x.w[0] << 16), acc[0]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kWords; ++i) {
-        acc[2 * i] = fmaf(c, __uint_as_float(x.w[i] << 16), acc[2 * i]);
-        acc[2 * i + 1] = fmaf(c, __uint_as_float(x.w[i] & 0xffff0000u),
-                              acc[2 * i + 1]);
-      }
-    }
-  }
 };
 
 // G lanes own a row (32 / G rows a warp); W units a lane in this column
@@ -256,18 +206,8 @@ __global__ void __launch_bounds__(ROW_THREADS) row_owner_kernel(RowArgs a) {
   for (int k = 0; k < W; ++k) {
     const int unit = unit0 + G * k;
     if (unit >= units) continue;
-    float* o = out_row + static_cast<int64_t>(unit) * U::kElems;
-    if constexpr (U::kElems % 4 == 0) {
-#pragma unroll
-      for (int e = 0; e < U::kElems; e += 4) {
-        reinterpret_cast<float4*>(o)[e / 4] = make_float4(
-            acc[k][e], acc[k][e + 1], acc[k][e + 2], acc[k][e + 3]);
-      }
-    } else if constexpr (U::kElems == 2) {
-      *reinterpret_cast<float2*>(o) = make_float2(acc[k][0], acc[k][1]);
-    } else {
-      *o = acc[k][0];
-    }
+    store_f32<U::kElems>(out_row + static_cast<int64_t>(unit) * U::kElems,
+                         acc[k]);
   }
 }
 
@@ -316,10 +256,6 @@ void launch_by_unit(int ub, int g, int w, dim3 grid, cudaStream_t s,
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
 
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
 int row_owner_launch(int device, int dtype, const void* table, int64_t ld,
                      int h, const float* scale, const int32_t* row_ptr,
                      const int32_t* src_row, const int32_t* slot,
@@ -360,9 +296,10 @@ int row_owner_launch(int device, int dtype, const void* table, int64_t ld,
 
 }  // namespace
 
-// C entry points, one per TPU kernel, all with one signature (scale is null
-// for B12). Each returns the cudaError_t of its launch (cudaGetLastError
-// right after it); 0 is success.
+// C entry points, one per TPU kernel and one for B9's second pass, all with
+// one signature (scale is null for B12 and B9). Each returns the
+// cudaError_t of its launch (cudaGetLastError right after it); 0 is
+// success.
 
 #define DEFINE_LAUNCH(NAME)                                                   \
   extern "C" int NAME(int device, int dtype, const void* table, int64_t ld,  \
@@ -377,6 +314,7 @@ DEFINE_LAUNCH(pair_stream_launch)
 DEFINE_LAUNCH(pair_stream_joint_launch)
 DEFINE_LAUNCH(pair_spmm_launch)
 DEFINE_LAUNCH(sorted_segment_sum_launch)
+DEFINE_LAUNCH(pair_attention_ts_launch)
 
 extern "C" const char* pair_stream_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

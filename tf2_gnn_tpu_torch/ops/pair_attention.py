@@ -21,7 +21,10 @@ either the merged-plan SpMM (B3, ``pair_spmm``) once per head on a
 head-major table or, for heads wider than a tile or more heads than that
 route takes, the hk-major aggregation kernel (B10, ``pair_attention_agg``)
 once. The backward runs the fused backward kernel (B9,
-``pair_attention_bwd_fused``) once over the backward plan. The per-type
+``pair_attention_bwd_fused``) once over the backward plan: a row owner by
+source row over the plan's compact forms (``MergedPlan.bwd_rows`` and
+``bwd_ts_rows``, built at the batch's first backward and kept), then a
+second pass that sums the target-score gradient by its row. The per-type
 form launches each of these once per edge type on that type's ``[V]``-row
 slab, with one stabiliser over all types. All five kernels are hand-written
 CUDA (``csrc/pair_attention.cu`` and ``csrc/pair_stream.cu``). Each wrapper
@@ -39,6 +42,10 @@ from .pair_spmm import (
     BLK,
     E_C,
     MergedPlan,
+    SlotRows,
+    TsRows,
+    _launch_rows,
+    _require_compact,
     pair_spmm,
     plan_group,
     slot_abs_ids,
@@ -57,6 +64,10 @@ ACC_W = 16
 SCORE_BUDGET_BYTES = 12 * 1024 * 1024
 TABLE_BUDGET_BYTES = 11 * 1024 * 1024
 RESIDENT_BUDGET_BYTES = 13 * 1024 * 1024
+# B9's row owner holds a whole table row in one warp's registers: at most
+# 512 columns (the reference's backward tiles columns and has no such
+# limit).
+BWD_MAX_COLUMNS = 512
 
 
 def _expd_width(num_heads: int) -> int:
@@ -72,8 +83,13 @@ def pair_attention_applicable(rows: int, num_nodes: int, hidden_dim: int,
                               src_space: int = None) -> bool:
     """The reference's static gate of the pair-attention path (its VMEM
     budgets included), so that the port takes the path the reference takes
-    on the same shapes. ``src_space`` is one type's source-row count."""
+    on the same shapes, and the port's own width limit of B9
+    (``BWD_MAX_COLUMNS``): wider layers take the sorted-scatter route, as
+    layers of more than 8 heads do in both. ``src_space`` is one type's
+    source-row count."""
     if num_heads <= 0 or hidden_dim % num_heads or TILE % num_heads:
+        return False
+    if hidden_dim > BWD_MAX_COLUMNS:
         return False
     if num_heads > min(ACC_W, 8):
         return False
@@ -371,12 +387,19 @@ def pair_attention_expd(scores, maxes, rel_src, rel_tgt, src_blk, grp_tgt,
 def pair_attention_bwd_fused(table, d_weighted, d_denom, scores, maxes,
                              rel_src, rel_tgt, src_blk, grp_tgt,
                              num_nodes: int, num_heads: int,
-                             src_space: int = None):
+                             src_space: int = None,
+                             compact: Optional[SlotRows] = None,
+                             ts_rows: Optional[TsRows] = None):
     """B9: the three gradients of one backward-plan pass, (d_src_scores
     [rows, K], d_tgt_scores [rows, K], d_table [rows, H]) in f32 (see
     ``pair_attention_bwd_fused_plain``). ``table``, ``d_weighted`` and
     ``scores`` share the stream dtype (f32 or bf16); ``d_denom`` and
-    ``maxes`` are f32 [V, K]."""
+    ``maxes`` are f32 [V, K]. On the card it reads only the plan's compact
+    forms, ``compact`` (``MergedPlan.bwd_rows(rows, V)``) and ``ts_rows``
+    (``MergedPlan.bwd_ts_rows(rows, V, src_space or V)``), in two launches
+    counted as one: the row owner by source row and the d_ts sum over
+    ``ts_rows.sums`` (``csrc/pair_stream.cu``'s row owner); on the CPU the
+    plain version reads the plan arrays."""
     if table.device.type == "cpu":
         return pair_attention_bwd_fused_plain(
             table, d_weighted, d_denom, scores, maxes, rel_src, rel_tgt,
@@ -384,10 +407,12 @@ def pair_attention_bwd_fused(table, d_weighted, d_denom, scores, maxes,
     if table.device.type != "cuda":
         raise TypeError(f"pair_attention_bwd_fused: unsupported device "
                         f"{table.device}")
+    _require_compact("pair_attention_bwd_fused", compact)
+    _require_compact("pair_attention_bwd_fused", ts_rows, "ts_rows")
     from .cuda_build import load_library
 
     lib = load_library(_SOURCE)
-    entry = "pair_attention_bwd_fused_launch"
+    entry = "pair_attention_bwd_rows_launch"
     k, v = num_heads, num_nodes
     vs = v if src_space is None else src_space
     stream = (table.dtype,)
@@ -396,29 +421,52 @@ def pair_attention_bwd_fused(table, d_weighted, d_denom, scores, maxes,
            d_weighted=(d_weighted, stream), scores=(scores, stream),
            d_denom=(d_denom, f32), maxes=(maxes, f32))
     _heads_checks(entry, k, scores)
-    group, num_groups = _plan_checks(entry, table.device, rel_src, rel_tgt,
-                                     src_blk, grp_tgt)
     if table.dim() != 2:
         raise ValueError(f"{entry}: table must be 2-D")
     rows, h = table.shape
-    if (h % k or tuple(d_weighted.shape) != (v, h)
-            or scores.shape[0] != rows or tuple(d_denom.shape) != (v, k)
-            or tuple(maxes.shape) != (v, k) or vs <= 0):
-        raise ValueError(f"{entry}: inconsistent operand shapes")
+    if (k > 8 or h % k or h > BWD_MAX_COLUMNS
+            or tuple(d_weighted.shape) != (v, h)):
+        raise ValueError(f"{entry}: needs num_heads 1, 2, 4 or 8 dividing "
+                         f"the table's width of at most {BWD_MAX_COLUMNS} "
+                         f"columns and d_weighted of [{v}, {h}], got "
+                         f"num_heads={k}, table of {tuple(table.shape)}, "
+                         f"d_weighted of {tuple(d_weighted.shape)}")
+    if (scores.shape[0] != rows or tuple(d_denom.shape) != (v, k)
+            or tuple(maxes.shape) != (v, k) or vs <= 0 or rows % vs):
+        raise ValueError(f"{entry}: inconsistent operand shapes (scores "
+                         f"{tuple(scores.shape)}, d_denom "
+                         f"{tuple(d_denom.shape)}, maxes "
+                         f"{tuple(maxes.shape)}, {rows} rows of {vs})")
+    n = compact.src_row.numel()
+    if ((compact.out_rows, compact.table_rows) != (rows, v)
+            or compact.num_slots != rel_src.numel()
+            or ts_rows.score_row.numel() != n
+            or (ts_rows.sums.out_rows, ts_rows.sums.table_rows) != (rows, n)):
+        raise ValueError(
+            f"{entry}: the compact forms are of {compact.num_slots} slots "
+            f"into {compact.out_rows} rows from {compact.table_rows} (d_ts "
+            f"over {ts_rows.sums.table_rows} entries into "
+            f"{ts_rows.sums.out_rows} rows); the call has {rel_src.numel()} "
+            f"slots, {rows} rows, a [{v}]-row d_weighted and {n} entries")
+    if compact.row_ptr.device != table.device:
+        raise ValueError(f"{entry}: the compact form is on "
+                         f"{compact.row_ptr.device}, the table on "
+                         f"{table.device}")
     dev = table.device
-    d_ss = torch.zeros((rows, k), dtype=torch.float32, device=dev)
-    d_ts = torch.zeros((rows, k), dtype=torch.float32, device=dev)
-    d_table = torch.zeros((rows, h), dtype=torch.float32, device=dev)
+    d_ss = torch.empty((rows, k), dtype=torch.float32, device=dev)
+    d_table = torch.empty((rows, h), dtype=torch.float32, device=dev)
+    d_p = torch.empty((n, k), dtype=torch.float32, device=dev)
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     _call(lib, entry,
-          [i, i, p, p, p, p, p, i64, i, i, i, i, p, p, p, p, i, i, p, p, p,
-           p],
+          [i, i, p, p, p, p, p, i64, i, i, p, p, p, p, p, p, p],
           dev.index or 0, _DTYPE_CODES[table.dtype], table.data_ptr(),
           d_weighted.data_ptr(), d_denom.data_ptr(), scores.data_ptr(),
-          maxes.data_ptr(), rows, h, k, v, vs, rel_src.data_ptr(),
-          rel_tgt.data_ptr(), src_blk.data_ptr(), grp_tgt.data_ptr(), group,
-          num_groups, d_ss.data_ptr(), d_ts.data_ptr(), d_table.data_ptr(),
+          maxes.data_ptr(), rows, h, k, compact.row_ptr.data_ptr(),
+          compact.src_row.data_ptr(), ts_rows.score_row.data_ptr(),
+          d_ss.data_ptr(), d_table.data_ptr(), d_p.data_ptr(),
           torch.cuda.current_stream(dev).cuda_stream)
+    d_ts = _launch_rows("pair_attention_ts_launch", d_p, None, ts_rows.sums,
+                        rows)
     LAUNCHES["pair_attention_bwd_fused"] += 1
     return d_ss, d_ts, d_table
 
@@ -591,12 +639,15 @@ def _launch_sums(table, scores, m_safe, plan: MergedPlan, v: int, k: int,
 def _launch_bwd(table, scores, m_safe, d_denom, d_weighted, dw_stream,
                 plan: MergedPlan, expd_o, slope_o, v: int, k: int,
                 src_space: Optional[int]):
-    """(d_src_scores, d_tgt_scores, d_table): B9 plus the overflow terms."""
+    """(d_src_scores, d_tgt_scores, d_table): B9 over the plan's compact
+    forms (built at the batch's first backward) plus the overflow terms."""
     rows = table.shape[0]
     head_dim = table.shape[1] // k
+    vs = v if src_space is None else src_space
     d_ss, d_ts, d_table = pair_attention_bwd_fused(
         table, dw_stream, d_denom, scores, m_safe, *plan.bwd, v, k,
-        src_space=src_space)
+        src_space=src_space, compact=plan.bwd_rows(rows, v),
+        ts_rows=plan.bwd_ts_rows(rows, v, vs))
     if plan.ovf_src.shape[0] == 0:
         return d_ss, d_ts, d_table
     ovf_src, ovf_tgt = plan.ovf_src.long(), plan.ovf_tgt.long()
@@ -609,7 +660,6 @@ def _launch_bwd(table, scores, m_safe, d_denom, d_weighted, dw_stream,
     d_p_o = expd_o * slope_o * de_o
     d_table = d_table.index_add(0, ovf_src, dwg_o * expd_o.repeat(1, head_dim))
     d_ss = d_ss.index_add(0, ovf_src, d_p_o)
-    vs = v if src_space is None else src_space
     seg = torch.where(ovf_tgt < v, (ovf_src // vs) * vs + tgt_o,
                       torch.full_like(ovf_tgt, rows))
     d_ts = torch.cat([d_ts, d_ts.new_zeros((1, k))]).index_add_(

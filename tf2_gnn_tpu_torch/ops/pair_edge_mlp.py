@@ -16,22 +16,33 @@ R and sums over the types.
 forward runs B4 (``relu_pair_fwd_m``), which also emits the mask sum
 ``M[t] = sum of s_e * (A[src_e] + B[t] > 0)``, so the backward's ``dB`` is
 the elementwise ``M * g`` and its ``dA`` is one B5 launch
-(``relu_pair_da``) over the backward plan. Where no gradient is needed
-(the eval step runs under ``torch.no_grad``) the function runs B6
+(``relu_pair_da``) over the backward plan. B4's kernel is a row owner over
+the forward plan's compact form (``MergedPlan.fwd_rows``, built at the
+batch's first training forward and kept on the plan). Where no gradient is
+needed (the eval step runs under ``torch.no_grad``) the function runs B6
 (``relu_pair_fwd``, R only), as the reference's primal rule does. B7
 (``relu_pair_db``, ``dB`` recomputed from the forward plan) is on no call
 path, in the reference either; it has its wrapper and plain version like
 the others. The overflow edges are plain torch. All four kernels are
 hand-written CUDA (``csrc/pair_edge_mlp.cu``); each wrapper runs its plain
-PyTorch version (a mirror of the reference's jnp twin) on a CPU tensor and
-launches its kernel on a CUDA tensor, or raises.
+PyTorch version (a mirror of the reference's jnp twin, over the plan
+arrays) on a CPU tensor and launches its kernel on a CUDA tensor, or
+raises.
 """
 import ctypes
+from typing import Optional
 
 import torch
 
 from .pair_attention import _check, _plan_checks
-from .pair_spmm import _DTYPE_CODES, TILE, MergedPlan, slot_abs_ids
+from .pair_spmm import (
+    _DTYPE_CODES,
+    TILE,
+    MergedPlan,
+    SlotRows,
+    _require_compact,
+    slot_abs_ids,
+)
 from .segment import segment_sum
 
 # The reference's resident VMEM budgets (bytes), read only by
@@ -131,9 +142,9 @@ def relu_pair_da_plain(a, b, g, scale_bwd, rel_src, rel_tgt, src_blk,
 
 
 def _launch(entry: str, a, b, g, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-            out_rows: int, with_m: bool):
-    """Launch one kernel of ``csrc/pair_edge_mlp.cu`` on the current stream
-    into fresh zero-initialised f32 outputs (two with ``with_m``)."""
+            out_rows: int):
+    """Launch one of B5-B7 (``csrc/pair_edge_mlp.cu``) on the current
+    stream into a fresh zero-initialised f32 output."""
     from .cuda_build import load_library
 
     lib = load_library(_SOURCE)
@@ -156,24 +167,66 @@ def _launch(entry: str, a, b, g, scale, rel_src, rel_tgt, src_blk, grp_tgt,
             raise ValueError(f"{entry}: g must be [{rows_g}, {h}], got "
                              f"{tuple(g.shape)}")
     out = torch.zeros((out_rows, h), dtype=torch.float32, device=dev)
-    out_m = torch.zeros_like(out) if with_m else None
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [i, i, p, i64, p, i64, p, i, p, p, p, p, p, i, i, p, p,
-                   i64, p]
-    err = fn(dev.index or 0, _DTYPE_CODES[a.dtype], a.data_ptr(), a.shape[0],
-             b.data_ptr(), b.shape[0], None if g is None else g.data_ptr(),
-             h, scale.data_ptr(), rel_src.data_ptr(), rel_tgt.data_ptr(),
-             src_blk.data_ptr(), grp_tgt.data_ptr(), num_groups, group,
-             out.data_ptr(), None if out_m is None else out_m.data_ptr(),
-             out_rows, torch.cuda.current_stream(dev).cuda_stream)
+    fn.argtypes = [i, i, p, i64, p, i64, p, i, p, p, p, p, p, i, i, p, i64,
+                   p]
+    _raise_on(lib, entry, fn(
+        dev.index or 0, _DTYPE_CODES[a.dtype], a.data_ptr(), a.shape[0],
+        b.data_ptr(), b.shape[0], None if g is None else g.data_ptr(), h,
+        scale.data_ptr(), rel_src.data_ptr(), rel_tgt.data_ptr(),
+        src_blk.data_ptr(), grp_tgt.data_ptr(), num_groups, group,
+        out.data_ptr(), out_rows, torch.cuda.current_stream(dev).cuda_stream))
+    return out
+
+
+def _raise_on(lib, entry: str, err: int) -> None:
     if err != 0:
         lib.relu_pair_error_string.restype = ctypes.c_char_p
         lib.relu_pair_error_string.argtypes = [ctypes.c_int]
         msg = lib.relu_pair_error_string(err).decode()
         raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
-    return out, out_m
+
+
+def _launch_fwd_m(a, b, scale, compact: SlotRows, out_rows: int):
+    """Launch B4's row-owner kernel on the current stream over the forward
+    plan's compact form: (R, M), f32 [out_rows, H], every element stored
+    once, so the outputs are not initialised."""
+    from .cuda_build import load_library
+
+    lib = load_library(_SOURCE)
+    entry = "relu_pair_fwd_m_launch"
+    dev = a.device
+    _check(entry, dev, a=(a, tuple(_DTYPE_CODES)), b=(b, (a.dtype,)),
+           scale=(scale, (torch.float32,)))
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
+        raise ValueError(f"{entry}: a and b must be 2-D of one width")
+    h = a.shape[1]
+    if (compact.out_rows != out_rows or compact.table_rows != a.shape[0]
+            or compact.num_slots != scale.numel() or h <= 0
+            or b.shape[0] <= 0):
+        raise ValueError(
+            f"{entry}: the compact form is of a [{compact.table_rows}]-row "
+            f"A into {compact.out_rows} rows over {compact.num_slots} slots; "
+            f"the call has a [{a.shape[0]}, {h}] A, {out_rows} output rows "
+            f"and {scale.numel()} scales")
+    if compact.row_ptr.device != dev:
+        raise ValueError(f"{entry}: the compact form is on "
+                         f"{compact.row_ptr.device}, A on {dev}")
+    r = torch.empty((out_rows, h), dtype=torch.float32, device=dev)
+    m = torch.empty_like(r)
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn = lib.relu_pair_fwd_m_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [i, i, p, p, i64, i, p, p, p, p, i64, p, p, p]
+    _raise_on(lib, entry, fn(
+        dev.index or 0, _DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
+        b.shape[0], h, scale.data_ptr(), compact.row_ptr.data_ptr(),
+        compact.src_row.data_ptr(), compact.slot.data_ptr(), out_rows,
+        r.data_ptr(), m.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream))
+    return r, m
 
 
 def _device_type(name: str, a) -> str:
@@ -190,23 +243,25 @@ def relu_pair_fwd(a, b, scale, rel_src, rel_tgt, src_blk, grp_tgt,
     if _device_type("relu_pair_fwd", a) == "cpu":
         return relu_pair_fwd_plain(a, b, scale, rel_src, rel_tgt, src_blk,
                                    grp_tgt, out_rows)
-    out, _ = _launch("relu_pair_fwd_launch", a, b, None, scale, rel_src,
-                     rel_tgt, src_blk, grp_tgt, out_rows, with_m=False)
+    out = _launch("relu_pair_fwd_launch", a, b, None, scale, rel_src,
+                  rel_tgt, src_blk, grp_tgt, out_rows)
     LAUNCHES["relu_pair_fwd"] += 1
     return out
 
 
 def relu_pair_fwd_m(a, b, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-                    out_rows: int):
+                    out_rows: int, compact: Optional[SlotRows] = None):
     """B4, the training forward: (R, M), both f32 [out_rows, H], in one
-    sweep of the forward plan."""
+    sweep of the forward plan. On the card it reads only the plan's
+    ``compact`` form (``MergedPlan.fwd_rows(out_rows, rows of a)``) and the
+    scales; on the CPU the plain version reads the plan arrays."""
     if _device_type("relu_pair_fwd_m", a) == "cpu":
         return relu_pair_fwd_m_plain(a, b, scale, rel_src, rel_tgt, src_blk,
                                      grp_tgt, out_rows)
-    out, m = _launch("relu_pair_fwd_m_launch", a, b, None, scale, rel_src,
-                     rel_tgt, src_blk, grp_tgt, out_rows, with_m=True)
+    _require_compact("relu_pair_fwd_m", compact)
+    out = _launch_fwd_m(a, b, scale, compact, out_rows)
     LAUNCHES["relu_pair_fwd_m"] += 1
-    return out, m
+    return out
 
 
 def relu_pair_da(a, b, g, scale_bwd, rel_src, rel_tgt, src_blk, grp_tgt,
@@ -216,8 +271,8 @@ def relu_pair_da(a, b, g, scale_bwd, rel_src, rel_tgt, src_blk, grp_tgt,
     if _device_type("relu_pair_da", a) == "cpu":
         return relu_pair_da_plain(a, b, g, scale_bwd, rel_src, rel_tgt,
                                   src_blk, grp_tgt, rows_a)
-    out, _ = _launch("relu_pair_da_launch", a, b, g, scale_bwd, rel_src,
-                     rel_tgt, src_blk, grp_tgt, rows_a, with_m=False)
+    out = _launch("relu_pair_da_launch", a, b, g, scale_bwd, rel_src,
+                  rel_tgt, src_blk, grp_tgt, rows_a)
     LAUNCHES["relu_pair_da"] += 1
     return out
 
@@ -230,8 +285,8 @@ def relu_pair_db(a, b, g, scale, rel_src, rel_tgt, src_blk, grp_tgt,
     if _device_type("relu_pair_db", a) == "cpu":
         return relu_pair_db_plain(a, b, g, scale, rel_src, rel_tgt, src_blk,
                                   grp_tgt, out_rows)
-    out, _ = _launch("relu_pair_db_launch", a, b, g, scale, rel_src,
-                     rel_tgt, src_blk, grp_tgt, out_rows, with_m=False)
+    out = _launch("relu_pair_db_launch", a, b, g, scale, rel_src,
+                  rel_tgt, src_blk, grp_tgt, out_rows)
     LAUNCHES["relu_pair_db"] += 1
     return out
 
@@ -250,9 +305,10 @@ def _overflow_sum(a, b, plan: MergedPlan, ovf_scale, out_rows: int):
 
 
 class PairReluMlpAggregate(torch.autograd.Function):
-    """The training form of ``pair_relu_mlp_aggregate``: B4 forward (R and
-    the mask sum M, saved), backward ``dB = M * g`` in plain torch and
-    ``dA`` through B5, plus the overflow edges in plain torch.
+    """The training form of ``pair_relu_mlp_aggregate``: B4 forward over
+    the plan's compact form (R and the mask sum M, saved), backward ``dB =
+    M * g`` in plain torch and ``dA`` through B5, plus the overflow edges
+    in plain torch.
 
     The casts to the stream dtype happen inside the op and the gradients
     leave it in f32: in the reference the transpose of ``astype(bf16)``
@@ -263,7 +319,9 @@ class PairReluMlpAggregate(torch.autograd.Function):
                 ovf_scale, out_rows: int, stream_dtype):
         a_s = a.to(stream_dtype).contiguous()
         b_s = b.to(stream_dtype).contiguous()
-        out, m = relu_pair_fwd_m(a_s, b_s, scale_fwd, *plan.fwd, out_rows)
+        out, m = relu_pair_fwd_m(
+            a_s, b_s, scale_fwd, *plan.fwd, out_rows,
+            compact=plan.fwd_rows(out_rows, a_s.shape[0]))
         if plan.ovf_src.shape[0]:
             out = out + _overflow_sum(a_s, b_s, plan, ovf_scale, out_rows)
         ctx.save_for_backward(a_s, b_s, m, scale_bwd, ovf_scale)

@@ -552,8 +552,9 @@ class MergedPlan:
     batch from the host tuple (``MergedPlan(*arrays, out_rows=...)``) and
     moved with ``.to(device)``. ``out_rows`` is the forward output row
     count: V, or L * V for merged targets (None where the caller passes
-    it). The forward direction's compact forms (``fwd_rows``) are built at
-    their first read and kept (a moved plan starts without them)."""
+    it). The compact forms (``fwd_rows``, ``bwd_rows``, ``bwd_ts_rows``)
+    are built at their first read and kept (a moved plan starts without
+    them)."""
 
     rel_src_f: object
     rel_tgt_f: object
@@ -578,8 +579,8 @@ class MergedPlan:
 
     def fwd_rows(self, out_rows: int, table_rows: int) -> "SlotRows":
         """The forward direction's compact form into ``out_rows`` rows from
-        a table of ``table_rows``, which B3 reads."""
-        key = (out_rows, table_rows)
+        a table of ``table_rows``, which B3 and B4 read."""
+        key = ("fwd", out_rows, table_rows)
         if key not in self._rows:
             self._rows[key] = slot_rows(*self.fwd, table_rows, out_rows)
         return self._rows[key]
@@ -587,6 +588,26 @@ class MergedPlan:
     @property
     def bwd(self) -> tuple:
         return (self.rel_src_b, self.rel_tgt_b, self.src_blk_b, self.grp_tgt_b)
+
+    def bwd_rows(self, out_rows: int, table_rows: int) -> "SlotRows":
+        """The backward direction's compact form into ``out_rows`` rows
+        (its plan-"tgt" rows, the source rows u) from a table of
+        ``table_rows`` (its plan-"src" rows, the targets t), which B9's
+        first pass reads."""
+        key = ("bwd", out_rows, table_rows)
+        if key not in self._rows:
+            self._rows[key] = slot_rows(*self.bwd, table_rows, out_rows)
+        return self._rows[key]
+
+    def bwd_ts_rows(self, out_rows: int, table_rows: int,
+                    vs: int) -> "TsRows":
+        """B9's second compact form over ``bwd_rows(out_rows,
+        table_rows)``, with target-score rows ``(u // vs) * vs + t``."""
+        key = ("bwd_ts", out_rows, table_rows, vs)
+        if key not in self._rows:
+            self._rows[key] = ts_rows(self.bwd_rows(out_rows, table_rows),
+                                      *self.bwd, vs)
+        return self._rows[key]
 
     def to(self, device) -> "MergedPlan":
         """Every array as a tensor on ``device``."""
@@ -696,6 +717,41 @@ def slot_rows(rel_src, rel_tgt, src_blk, grp_tgt, table_rows: int,
                     rel_src.numel())
 
 
+@dataclasses.dataclass(frozen=True)
+class TsRows:
+    """The second compact form of an attention backward plan, which B9
+    reads beside the plan's ``bwd_rows`` form (``compact``, whose entry e
+    is a slot with source row u and target t): ``score_row[e]`` is the
+    entry's target-score row ``clip((u // vs) * vs + t, rows)``, and
+    ``sums`` the CSR of the same entries by their d_ts row ``(u // vs) *
+    vs + t`` (t unclipped; entries with a row at or past ``rows`` are
+    dropped), whose ``src_row`` is the entry's index e in ``compact``:
+    B9's second pass sums each entry's d_p into d_ts over it."""
+
+    score_row: torch.Tensor  # int32 [n]
+    sums: "SlotRows"         # into compact.out_rows rows from n entries
+
+
+def ts_rows(compact: "SlotRows", rel_src, rel_tgt, src_blk, grp_tgt,
+            vs: int) -> TsRows:
+    """``TsRows`` of the backward plan direction whose compact form (into
+    the source rows u, from the target nodes t) is ``compact``. Entries
+    whose u lies at or past the output are not in ``compact``, and none
+    of them has a d_ts row below it where ``vs`` divides the rows."""
+    t_abs, u_abs, _ = slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt)
+    slot = compact.slot.long()
+    rows = compact.out_rows
+    key = (u_abs[slot] // vs) * vs + t_abs[slot]
+    kept = torch.nonzero(key < rows).reshape(-1)
+    entry = kept[torch.sort(key[kept], stable=True).indices]
+    counts = torch.bincount(key[kept], minlength=rows)
+    row_ptr = torch.cat([counts.new_zeros((1,)), torch.cumsum(counts, 0)])
+    sums = SlotRows(row_ptr.to(torch.int32), entry.to(torch.int32),
+                    compact.slot[entry], slot.numel(), rows,
+                    compact.num_slots)
+    return TsRows(torch.clamp(key, 0, rows - 1).to(torch.int32), sums)
+
+
 def pair_spmm_stream_plain(tables, scale, rel_src, rel_tgt, src_blk,
                            grp_tgt, grp_type, v: int, out_rows: int):
     """Plain PyTorch version of K1 and K2: gather every slot's row
@@ -730,7 +786,8 @@ def _scatter_slots(tables, scale, srcabs, tgtabs, valid, out_rows: int):
 
 _INT, _INT64, _PTR = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 # (restype, argtypes) of the library's C entry points, set once at load:
-# one row-owner signature for K1, K2, B3 and B12 (sorted_spmm.py).
+# one row-owner signature for K1, K2, B3, B12 (sorted_spmm.py) and B9's
+# second pass (pair_attention.py).
 _ROW_OWNER = (ctypes.c_int, [_INT, _INT, _PTR, _INT64, _INT, _PTR, _PTR,
                              _PTR, _PTR, _INT64, _PTR, _PTR])
 _SIGNATURES = {
@@ -738,6 +795,7 @@ _SIGNATURES = {
     "pair_stream_joint_launch": _ROW_OWNER,
     "pair_spmm_launch": _ROW_OWNER,
     "sorted_segment_sum_launch": _ROW_OWNER,
+    "pair_attention_ts_launch": _ROW_OWNER,
     "pair_stream_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -777,13 +835,13 @@ def _check_table(entry: str, table, scale) -> None:
 
 def _launch_rows(entry: str, table, scale, compact: SlotRows,
                  out_rows: int):
-    """Launch ``row_owner_kernel`` (K1, K2, B3 or B12, by ``entry``) on the
-    current stream over the plan's compact form: f32 [out_rows, H], every
-    element stored once, so the output is not initialised. ``table`` may be
-    a row-strided view (its row stride is passed, not copied; other
-    layouts are copied); ``scale`` None reads every entry at scale 1. The
-    compact form's own tensors were checked when it was built; here only
-    its sizes are held to the call's."""
+    """Launch ``row_owner_kernel`` (K1, K2, B3, B12 or B9's second pass, by
+    ``entry``) on the current stream over the plan's compact form: f32
+    [out_rows, H], every element stored once, so the output is not
+    initialised. ``table`` may be a row-strided view (its row stride is
+    passed, not copied; other layouts are copied); ``scale`` None reads
+    every entry at scale 1. The compact form's own tensors were checked
+    when it was built; here only its sizes are held to the call's."""
     lib = _library()
     _check_table(entry, table, scale)
     table = _rows_view(table)
@@ -817,12 +875,12 @@ def _on_cpu(name: str, tables) -> bool:
     return tables.device.type == "cpu"
 
 
-def _require_compact(name: str, compact) -> None:
+def _require_compact(name: str, compact, keyword: str = "compact") -> None:
     if compact is None:
         raise ValueError(
-            f"{name}: a CUDA call needs the plan's compact form (compact=, "
-            "from slot_rows / sorted_rows or the form the plan keeps), "
-            "built once per batch")
+            f"{name}: a CUDA call needs the plan's compact form ({keyword}=, "
+            "from slot_rows / sorted_rows / ts_rows or the form the plan "
+            "keeps), built once per batch")
 
 
 def pair_spmm_stream(tables, scale, rel_src, rel_tgt, src_blk, grp_tgt_g,
