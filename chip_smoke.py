@@ -25,7 +25,7 @@ Phases, each of which fails the run by raising:
       PyTorch library call computing the same function
       (``torch.sparse.mm``, CSR built from the plan outside the timed
       window), the train step and the eval forward; for the row owners
-      (K1, K2, B3, B4, B9, B12, P1, P2) and the library calls also the
+      (K1, K2, B3, B4-B6, B9, B12, P1, P2) and the library calls also the
       device time (torch.profiler over 20 launches, at the end of the run,
       after every path's step time; ``--profile`` traces each path's steps
       as it goes).
@@ -45,12 +45,13 @@ Phases, each of which fails the run by raising:
 4. The reference-default GNN_Edge_MLP (target-state input, one hidden
    edge-MLP layer, GRU global exchange after layer 2) on the merged-target
    PPI batch, the same three steps:
-   a. the relu-pair kernels B4 (training forward, R and the mask sum M,
-      over the forward plan's compact form; two launches bit-equal), B5
-      (dA over the backward plan), B6 (eval
-      forward) and B7 (dB over the forward plan, on no call path) against
-      their plain versions at the real plan shapes: bf16 A and B, f32
-      cotangent, unit scales;
+   a. the relu-pair kernels B4 (training forward, R and the mask sum M)
+      and B6 (eval forward, R), one row owner over the forward plan's
+      compact form, B5 (dA, a row owner by A's row over the backward plan's
+      compact form; each of the three two launches bit-equal) and B7 (dB
+      over the forward plan's arrays, on no call path) against their plain
+      versions at the real plan shapes: bf16 A and B, f32 cotangent, unit
+      scales;
    b. ``workloads.edge_mlp_default_params()`` at full width (4 layers,
       hidden 320, bf16 edge stream, Adam at lr 1e-3): the eval forward
       against the plain versions (B6 once per layer, B4 and B5 never),
@@ -143,8 +144,8 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 peak outside the tensor cores
 # Kernel vs plain version: both sum f32 products, in different orders
-# (the atomics of B5-B8, B10, B11 and B13-B15 reorder run to run; the row
-# owners K1, K2, B3, B4, B9 and B12 keep one order); B8/B9 take expf of the
+# (the atomics of B7, B8, B10, B11 and B13-B15 reorder run to run; the row
+# owners K1, K2, B3, B4-B6, B9 and B12 keep one order); B8/B9 take expf of the
 # same f32 arguments as torch.exp.
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
 # Whole model, kernels vs plain versions: besides the f32 reorder, a sum
@@ -326,16 +327,18 @@ def kernel_bound_ms(rows_read: int, h: int, itemsize: int,
 
 
 def check_outputs(name: str, fn, want) -> float:
-    """A kernel of several outputs (B4, B9): ``fn()`` against the plain
-    version's outputs ``want`` (a tuple), and bit-equal across two
-    launches. Returns the max abs error."""
+    """A row owner (B4-B6, B9): ``fn()`` against the plain version's
+    output or outputs ``want`` (a tensor or a tuple), and bit-equal across
+    two launches. Returns the max abs error."""
     import torch
 
     got = fn()
     torch.cuda.synchronize()
+    pairs = (zip(got, want) if isinstance(got, tuple)
+             else ((got, want),))
     err = max(check_close(f"{name} output {i}", x, y, KERNEL_RTOL,
                           KERNEL_ATOL)
-              for i, (x, y) in enumerate(zip(got, want)))
+              for i, (x, y) in enumerate(pairs))
     check_repeatable(name, fn, got)
     return err
 
@@ -811,20 +814,24 @@ def b9_bound_ms(compact, ts_rows, h: int, k: int, itemsize: int):
     return bound_ms(nbytes, 4.0 * n * h)
 
 
-def b4_bound_ms(compact, h: int, itemsize: int):
-    """B4's bound, counting what the function needs, whatever implements
-    it: bytes = the distinct rows of A its entries read and of B (one per
-    output row with an entry), 8 B an entry (its row and scale), 4 B an
-    output row pointer and R and M in f32 written once; operations = 7 a
-    valid slot and column."""
+def relu_rows_bound_ms(compact, h: int, itemsize: int, outputs: int,
+                       ops_per_entry: float, cot_itemsize: int = 0):
+    """A relu-pair row owner's bound (B4, B5, B6), counting what the
+    function needs, whatever implements it: bytes = the distinct rows of
+    the table its entries gather (A for B4 and B6; B, and the f32 cotangent
+    of ``cot_itemsize`` bytes an element, for B5), one row of the table
+    indexed by the output (B; A for B5) per output row with an entry, 8 B
+    an entry (its row and scale), 4 B an output row pointer and the
+    ``outputs`` f32 outputs written once; operations = ``ops_per_entry``
+    a valid slot and column."""
     import torch
 
     n, out_rows = compact.src_row.numel(), compact.out_rows
-    rows_read = (int(compact.src_row.unique().numel())
-                 + int((torch.diff(compact.row_ptr) > 0).sum()))
-    nbytes = (rows_read * h * itemsize + n * 8 + (out_rows + 1) * 4
-              + 2 * out_rows * h * 4)
-    return bound_ms(nbytes, 7.0 * n * h)
+    gathered = int(compact.src_row.unique().numel())
+    owned = int((torch.diff(compact.row_ptr) > 0).sum())
+    nbytes = (gathered * h * (itemsize + cot_itemsize) + owned * h * itemsize
+              + n * 8 + (out_rows + 1) * 4 + outputs * out_rows * h * 4)
+    return bound_ms(nbytes, ops_per_entry * n * h)
 
 
 def relu_pair_bound_ms(plan_args, table_rows_read, cot_rows_read, h: int,
@@ -895,39 +902,37 @@ def edge_mlp_path(device, argv):
     fwd_args = (a, b, sf, *plan.fwd, rows)
     da_args = (a, b, g, sb, *plan.bwd, rows)
     db_args = (a, b, g, sf, *plan.fwd, rows)
-    b4_rows = plan.fwd_rows(rows, rows)
-
-    def b4():
-        return pem.relu_pair_fwd_m(*fwd_args, compact=b4_rows)
+    fwd_rows = plan.fwd_rows(rows, rows)
+    bwd_rows = plan.bwd_rows(rows, rows)
 
     fns = {
-        "relu_pair_fwd_m": (b4,
-                            lambda: pem.relu_pair_fwd_m_plain(*fwd_args)),
-        "relu_pair_da": (lambda: pem.relu_pair_da(*da_args),
-                         lambda: pem.relu_pair_da_plain(*da_args)),
-        "relu_pair_fwd": (lambda: pem.relu_pair_fwd(*fwd_args),
-                          lambda: pem.relu_pair_fwd_plain(*fwd_args)),
+        "relu_pair_fwd_m": (
+            lambda: pem.relu_pair_fwd_m(*fwd_args, compact=fwd_rows),
+            lambda: pem.relu_pair_fwd_m_plain(*fwd_args)),
+        "relu_pair_da": (
+            lambda: pem.relu_pair_da(*da_args, compact=bwd_rows),
+            lambda: pem.relu_pair_da_plain(*da_args)),
+        "relu_pair_fwd": (
+            lambda: pem.relu_pair_fwd(*fwd_args, compact=fwd_rows),
+            lambda: pem.relu_pair_fwd_plain(*fwd_args)),
         "relu_pair_db": (lambda: pem.relu_pair_db(*db_args),
                          lambda: pem.relu_pair_db_plain(*db_args)),
     }
-    errs = {"relu_pair_fwd_m": check_outputs(
-        "relu_pair_fwd_m", b4, fns["relu_pair_fwd_m"][1]())}
-    for name, (kernel_fn, plain_fn) in fns.items():
-        if name in errs:
-            continue
-        got, want = kernel_fn(), plain_fn()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        errs[name] = max(check_close(f"{name} output {i}", x, y, KERNEL_RTOL,
-                                     KERNEL_ATOL)
-                         for i, (x, y) in enumerate(zip(got, want)))
-        del got, want
+    row_owners = ("relu_pair_fwd_m", "relu_pair_da", "relu_pair_fwd")
+    errs = {name: check_outputs(name, fns[name][0], fns[name][1]())
+            for name in row_owners}
+    got = pem.relu_pair_db(*db_args)
+    torch.cuda.synchronize()
+    errs["relu_pair_db"] = check_close("relu_pair_db", got,
+                                       pem.relu_pair_db_plain(*db_args),
+                                       KERNEL_RTOL, KERNEL_ATOL)
+    del got
     log("kernel check: " + ", ".join(f"{name} max_abs_err {err:.3e}"
                                      for name, err in errs.items())
-        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); B4 bit-equal across "
-        f"two launches, its compact form "
-        f"{b4_rows.src_row.numel()} entries into {rows} rows")
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); B4, B5 and B6 "
+        f"bit-equal across two launches, the forward compact form "
+        f"{fwd_rows.src_row.numel()} entries into {rows} rows, the backward "
+        f"one {bwd_rows.src_row.numel()} into {rows}")
 
     counters = launch_counters()
     layers = params["gnn_num_layers"]
@@ -955,30 +960,36 @@ def edge_mlp_path(device, argv):
     time_path(state, train_step, eval_step, batch, labels, real_edges,
               device, argv, "GNN_Edge_MLP")
 
-    # Bounds from this run's plan: distinct rows of A, B and g read once,
-    # the plan, the f32 outputs written once.
+    # Bounds from this run's plan. The row owners count what the function
+    # needs (``relu_rows_bound_ms``), operations a valid slot and column:
+    # z = a + b, relu, scale and add (B6), also compare, select and add for
+    # M (B4); add, compare, select, scale and add (B5). Each logs its first
+    # port's count beside it (``relu_pair_bound_ms``: the distinct rows, 12
+    # B a plan slot, padded ones included). B7 keeps that count: compare,
+    # select and add, and g's multiply per output.
     f_src, f_tgt, f_valid = ps.slot_abs_ids(*plan.fwd)
     a_rows = int(torch.unique(f_src[f_valid]).numel())
     t_rows = int(torch.unique(f_tgt[f_valid]).numel())
     b_tgt, b_src, b_valid = ps.slot_abs_ids(*plan.bwd)
     da_a_rows = int(torch.unique(b_src[b_valid]).numel())
     da_t_rows = int(torch.unique(b_tgt[b_valid]).numel())
-    # Per valid slot and column: z = a + b, then relu, scale and add (B6);
-    # also compare, select and add for M (B4); compare, select, scale and
-    # add (B5); compare, select and add, and g's multiply per output (B7).
-    # B4 counts what the function needs (``b4_bound_ms``); its first
-    # port's count (12 B a plan slot) is logged beside it.
-    b4_old = relu_pair_bound_ms(plan.fwd, a_rows + t_rows, 0, h, 2, rows,
-                                7.0)[0][0]
     bounds = {
-        "relu_pair_fwd": relu_pair_bound_ms(plan.fwd, a_rows + t_rows, 0, h,
-                                            1, rows, 4.0),
-        "relu_pair_fwd_m": (b4_bound_ms(b4_rows, h, 2),
-                            b4_rows.src_row.numel()),
-        "relu_pair_da": relu_pair_bound_ms(plan.bwd, da_a_rows + da_t_rows,
-                                           da_t_rows, h, 1, rows, 5.0),
+        "relu_pair_fwd_m": (relu_rows_bound_ms(fwd_rows, h, 2, 2, 7.0),
+                            fwd_rows.src_row.numel()),
+        "relu_pair_da": (relu_rows_bound_ms(bwd_rows, h, 2, 1, 5.0, 4),
+                         bwd_rows.src_row.numel()),
+        "relu_pair_fwd": (relu_rows_bound_ms(fwd_rows, h, 2, 1, 4.0),
+                          fwd_rows.src_row.numel()),
         "relu_pair_db": relu_pair_bound_ms(plan.fwd, a_rows + t_rows,
                                            t_rows, h, 1, rows, 4.0),
+    }
+    first_counts = {
+        "relu_pair_fwd_m": relu_pair_bound_ms(plan.fwd, a_rows + t_rows, 0,
+                                              h, 2, rows, 7.0),
+        "relu_pair_da": relu_pair_bound_ms(plan.bwd, da_a_rows + da_t_rows,
+                                           da_t_rows, h, 1, rows, 5.0),
+        "relu_pair_fwd": relu_pair_bound_ms(plan.fwd, a_rows + t_rows, 0, h,
+                                            1, rows, 4.0),
     }
     replaces = {"relu_pair_fwd_m": "tf2_gnn_tpu/ops/pair_edge_mlp.py:289",
                 "relu_pair_da": "tf2_gnn_tpu/ops/pair_edge_mlp.py:523",
@@ -988,13 +999,13 @@ def edge_mlp_path(device, argv):
     for name, (kernel_fn, plain_fn) in fns.items():
         (bound, bound_by), valid = bounds[name]
         detail = f"[{rows}, {h}] bf16 A and B, {valid} valid slots"
-        b4_entry = name == "relu_pair_fwd_m"
-        if b4_entry:
-            detail += f"; padded-slot bound count {b4_old:.4f} ms"
+        if name in first_counts:
+            detail += (f"; padded-slot bound count "
+                       f"{first_counts[name][0][0]:.4f} ms")
         kernels.append(time_kernel(
             name, "tf2_gnn_tpu_torch/csrc/pair_edge_mlp.cu", replaces[name],
             launches[name], errs[name], kernel_fn, plain_fn, None, None,
-            bound, bound_by, detail, device=b4_entry))
+            bound, bound_by, detail, device=name in row_owners))
     return kernels
 
 

@@ -17,12 +17,12 @@ sub-warp split (rows of 1-16 lane units, several rows a warp, empty rows
 among them); K1 at the PPI and QM9 shapes with rows that have no slot; B12
 on its 16-byte, 8-byte and element paths, on a row-strided and a
 misaligned stream, and in its gathered form (equal bit for bit to the
-unfused one), every launch bit-equal to a second; B4 and B9, the row
-owners over the merged plans' compact forms, in both lane units, at the
-main paths' widths and odd ones, on whole and cut plans (merged-target for
-B4; merged and per-type for B9), on misaligned tables (B4), two launches
-bit-equal. Marked ``cuda``; each test skips without a card. On a machine
-with one:
+unfused one), every launch bit-equal to a second; B4, B5, B6 and B9, the
+row owners over the merged plans' compact forms, in both lane units, at
+the main paths' widths and odd ones, on whole and cut plans (merged-target
+for B4-B6; merged and per-type for B9), on misaligned tables (B4-B6) and
+an all-sentinel plan (B4-B6: zeros), two launches bit-equal. Marked
+``cuda``; each test skips without a card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -31,7 +31,7 @@ machines need not have.)
 
 Tolerance: rtol 1e-5 / atol 1e-5; both sides sum the same f32 products,
 in other orders (run-dependent where a kernel adds with atomics; K1, K2,
-B3, B12, B4 and B9 keep one order, and fuse products into their adds),
+B3, B12, B4-B6 and B9 keep one order, and fuse products into their adds),
 and B8/B9 take expf of the same f32 argument as torch.exp (each within 2 ulp).
 Gradients of the attention op in bf16 are rounded to bf16 after those
 sums: rtol 1e-2 / atol 1e-4 there (one bf16 ulp). B15 and B11, maxes, match exactly, as
@@ -274,10 +274,13 @@ def test_relu_pair_kernels_match_plain_versions(device, dtype, h):
     sf = torch.rand((plan.rel_src_f.numel(),), generator=gen, device=device)
     sb = torch.rand((plan.rel_src_b.numel(),), generator=gen, device=device)
     before = dict(tpem.LAUNCHES)
-    got = {"relu_pair_fwd": (tpem.relu_pair_fwd(a, b, sf, *plan.fwd, rows),),
+    fwd_rows, bwd_rows = plan.fwd_rows(rows, rows), plan.bwd_rows(rows, rows)
+    got = {"relu_pair_fwd": (tpem.relu_pair_fwd(a, b, sf, *plan.fwd, rows,
+                                                compact=fwd_rows),),
            "relu_pair_fwd_m": tpem.relu_pair_fwd_m(
-               a, b, sf, *plan.fwd, rows, compact=plan.fwd_rows(rows, rows)),
-           "relu_pair_da": (tpem.relu_pair_da(a, b, g, sb, *plan.bwd, rows),),
+               a, b, sf, *plan.fwd, rows, compact=fwd_rows),
+           "relu_pair_da": (tpem.relu_pair_da(a, b, g, sb, *plan.bwd, rows,
+                                              compact=bwd_rows),),
            "relu_pair_db": (tpem.relu_pair_db(a, b, g, sf, *plan.fwd, rows),)}
     torch.cuda.synchronize()
     want = {"relu_pair_fwd": (tpem.relu_pair_fwd_plain(a, b, sf, *plan.fwd,
@@ -1014,6 +1017,133 @@ def test_b4_on_misaligned_tables(device):
     want = tpem.relu_pair_fwd_m_plain(a, b, sf, *plan.fwd, rows)
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+@pytest.mark.parametrize("dtype,h", [
+    (torch.bfloat16, 320), (torch.float32, 320), (torch.bfloat16, 5),
+    (torch.float32, 5), (torch.bfloat16, 100), (torch.float32, 700),
+    (torch.bfloat16, 322)])
+def test_b6_row_owner(device, dtype, h, cut):
+    """B6, B4's row owner without M, over the same compact form and cases
+    as ``test_b4_row_owner``: the plain version's R, 0 on the rows without
+    an entry, two launches bit-equal, bit-equal to B4's R."""
+    plan = _merged_target_plan(66).to(device)
+    rows = plan.out_rows
+    rows_a, rows_b, out_rows = ((rows // 2, rows // 3, rows // 2) if cut
+                                else (rows, rows, rows))
+    gen = torch.Generator(device=device).manual_seed(67)
+    a = torch.randn((rows_a, h), generator=gen, device=device).to(dtype)
+    b = torch.randn((rows_b, h), generator=gen, device=device).to(dtype)
+    sf = torch.rand((plan.rel_src_f.numel(),), generator=gen, device=device)
+    compact = plan.fwd_rows(out_rows, rows_a)
+
+    def b6():
+        return tpem.relu_pair_fwd(a, b, sf, *plan.fwd, out_rows,
+                                  compact=compact)
+
+    before = dict(tpem.LAUNCHES)
+    got, again = b6(), b6()
+    r4, _ = tpem.relu_pair_fwd_m(a, b, sf, *plan.fwd, out_rows,
+                                 compact=compact)
+    torch.cuda.synchronize()
+    assert tpem.LAUNCHES["relu_pair_fwd"] == before["relu_pair_fwd"] + 2
+    assert torch.equal(got, again) and torch.equal(got, r4)
+    torch.testing.assert_close(
+        got, tpem.relu_pair_fwd_plain(a, b, sf, *plan.fwd, out_rows),
+        rtol=1e-5, atol=1e-5)
+    _assert_empty_rows_zero(got, compact)
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+@pytest.mark.parametrize("dtype,h", [
+    (torch.bfloat16, 320), (torch.float32, 320), (torch.bfloat16, 64),
+    (torch.float32, 64), (torch.bfloat16, 5), (torch.float32, 5),
+    (torch.bfloat16, 100), (torch.float32, 700), (torch.bfloat16, 322),
+    (torch.float32, 65)])
+def test_b5_row_owner(device, dtype, h, cut):
+    """B5 by A's row over the merged-target plan's backward compact form
+    (pad slots, an all-padding group, rows without entries), on rows of one
+    tile or several (f32 H = 700 in 8-byte units, bf16 H = 322 in element
+    units), in 8-byte lane units of A and B (with g's 16 or 8 bytes) where
+    a row is whole 8-byte units, one element a lane at odd widths: the
+    plain version's dA, 0 on the rows without an entry, two launches
+    bit-equal. With ``cut`` A and the output are shorter than the plan's
+    rows u (those slots drop) and B and g shorter than its targets (they
+    clip)."""
+    plan = _merged_target_plan(68).to(device)
+    rows = plan.out_rows
+    rows_a, rows_b = (rows // 2, rows // 3) if cut else (rows, rows)
+    gen = torch.Generator(device=device).manual_seed(69)
+    a = torch.randn((rows_a, h), generator=gen, device=device).to(dtype)
+    b = torch.randn((rows_b, h), generator=gen, device=device).to(dtype)
+    g = torch.randn((rows_b, h), generator=gen, device=device)
+    sb = torch.rand((plan.rel_src_b.numel(),), generator=gen, device=device)
+    compact = plan.bwd_rows(rows_a, rows_b)
+    t, u, valid = tps.slot_abs_ids(*plan.bwd)
+    assert bool((valid & (u >= rows_a)).any()) == cut
+    assert bool((valid & (t >= rows_b)).any()) == cut
+
+    def b5():
+        return tpem.relu_pair_da(a, b, g, sb, *plan.bwd, rows_a,
+                                 compact=compact)
+
+    before = dict(tpem.LAUNCHES)
+    got, again = b5(), b5()
+    torch.cuda.synchronize()
+    assert tpem.LAUNCHES["relu_pair_da"] == before["relu_pair_da"] + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got, tpem.relu_pair_da_plain(a, b, g, sb, *plan.bwd, rows_a),
+        rtol=1e-5, atol=1e-5)
+    _assert_empty_rows_zero(got, compact)
+
+
+def test_b5_and_b6_on_misaligned_tables(device):
+    """A, B and g whose starts are not 8-byte aligned (g's not 16-byte
+    aligned) take the element path at a width that would otherwise take
+    8-byte units, and give the plain versions' sums."""
+    plan = _merged_target_plan(70).to(device)
+    rows, h = plan.out_rows, 320
+    gen = torch.Generator(device=device).manual_seed(71)
+    a, b = (_misaligned(torch.randn((rows, h), generator=gen,
+                                    device=device).to(torch.bfloat16))
+            for _ in range(2))
+    g = _misaligned(torch.randn((rows, h), generator=gen, device=device))
+    assert a.data_ptr() % 8 and b.data_ptr() % 8 and g.data_ptr() % 16
+    sf = torch.rand((plan.rel_src_f.numel(),), generator=gen, device=device)
+    sb = torch.rand((plan.rel_src_b.numel(),), generator=gen, device=device)
+    got6 = tpem.relu_pair_fwd(a, b, sf, *plan.fwd, rows,
+                              compact=plan.fwd_rows(rows, rows))
+    got5 = tpem.relu_pair_da(a, b, g, sb, *plan.bwd, rows,
+                             compact=plan.bwd_rows(rows, rows))
+    torch.testing.assert_close(
+        got6, tpem.relu_pair_fwd_plain(a, b, sf, *plan.fwd, rows),
+        rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        got5, tpem.relu_pair_da_plain(a, b, g, sb, *plan.bwd, rows),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relu_pair_row_owners_on_an_all_sentinel_plan(device, dtype):
+    """A merged-target plan with no edge: B4, B6 and B5 store zeros into
+    their uninitialised outputs (every row is empty)."""
+    host = tps.build_pair_plans([np.zeros(0, np.int32)] * 3,
+                                [np.zeros(0, np.int32)] * 3, [0, 0, 0], 256,
+                                merge_targets=True)
+    plan = tps.MergedPlan(*host.astuple(), out_rows=768).to(device)
+    a = b = torch.ones((768, 320), device=device, dtype=dtype)
+    g = torch.ones((768, 320), device=device)
+    outs = (tpem.relu_pair_fwd(a, b, plan.inv_fwd, *plan.fwd, 768,
+                               compact=plan.fwd_rows(768, 768)),
+            *tpem.relu_pair_fwd_m(a, b, plan.inv_fwd, *plan.fwd, 768,
+                                  compact=plan.fwd_rows(768, 768)),
+            tpem.relu_pair_da(a, b, g, plan.inv_bwd, *plan.bwd, 768,
+                              compact=plan.bwd_rows(768, 768)))
+    torch.cuda.synchronize()
+    for out in outs:
+        assert out.shape == (768, 320) and float(out.abs().max()) == 0.0
 
 
 # (plan form, rows of u, rows of dw, one type's rows): B9's plans.

@@ -6,8 +6,8 @@
   running on the CPU;
 * a CUDA tensor given to a kernel wrapper whose library cannot be built
   raises; it does not fall back to the plain version; nor does a CUDA call
-  of a row-owner wrapper (K1, K2, B3, B12 in both forms, B4, B9) without
-  the plan's compact form (B9: either of its two);
+  of a row-owner wrapper (K1, K2, B3, B12 in both forms, B4, B5, B6, B9)
+  without the plan's compact form (B9: either of its two);
 * a batch with neither the pair plans nor the scatter plan a flavour
   reads raises ``NotImplementedError``.
 """
@@ -145,8 +145,8 @@ class _CudaTensorStandIn:
 _COMPACT_STAND_IN = object()
 
 # Every kernel wrapper: its launch counts and the positional arguments
-# after its first tensor (K1, K2, B3, B12 and B4 end with the plan's
-# compact form, B9 with its two).
+# after its first tensor (K1, K2, B3, B12, B4, B5 and B6 end with the
+# plan's compact form, B9 with its two).
 WRAPPERS = {
     tps.pair_spmm_stream: (
         tps.LAUNCHES, (None,) * 6 + (128, 128, _COMPACT_STAND_IN)),
@@ -159,10 +159,12 @@ WRAPPERS = {
         (None,) * 8 + (128, 4, None, _COMPACT_STAND_IN, _COMPACT_STAND_IN)),
     tpa.pair_attention_max: (tpa.LAUNCHES, (None,) * 4 + (128, 4)),
     tpa.pair_attention_agg: (tpa.LAUNCHES, (None,) * 5 + (128, 4)),
-    tpem.relu_pair_fwd: (tpem.LAUNCHES, (None,) * 6 + (128,)),
+    tpem.relu_pair_fwd: (
+        tpem.LAUNCHES, (None,) * 6 + (128, _COMPACT_STAND_IN)),
     tpem.relu_pair_fwd_m: (
         tpem.LAUNCHES, (None,) * 6 + (128, _COMPACT_STAND_IN)),
-    tpem.relu_pair_da: (tpem.LAUNCHES, (None,) * 7 + (128,)),
+    tpem.relu_pair_da: (
+        tpem.LAUNCHES, (None,) * 7 + (128, _COMPACT_STAND_IN)),
     tpem.relu_pair_db: (tpem.LAUNCHES, (None,) * 7 + (128,)),
     tss.sorted_segment_sum: (
         tss.LAUNCHES, (None,) * 2 + (128, None, _COMPACT_STAND_IN)),
@@ -194,11 +196,12 @@ def test_cuda_tensor_without_library_raises(wrapper, monkeypatch, tmp_path):
                                      tss.sorted_segment_sum,
                                      tss.sorted_segment_sum_gathered,
                                      tpem.relu_pair_fwd_m,
+                                     tpem.relu_pair_fwd, tpem.relu_pair_da,
                                      tpa.pair_attention_bwd_fused])
 def test_cuda_call_without_compact_form_raises(wrapper, monkeypatch,
                                                tmp_path):
-    """K1, K2, B3, B12 (both forms), B4 and B9 (without its second form,
-    ``ts_rows``) on a CUDA tensor without the plan's compact form raise
+    """K1, K2, B3, B12 (both forms), B4, B6, B5 and B9 (without its second
+    form, ``ts_rows``) on a CUDA tensor without the plan's compact form raise
     before they load the library: no per-call build, no fallback to the
     plain version, no launch counted."""
     launches, args = WRAPPERS[wrapper]

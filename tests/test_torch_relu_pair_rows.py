@@ -1,32 +1,42 @@
-"""B4's compact form and its row-owner sum on the CPU. The card's B4
-(``relu_pair_fwd_m``) reads the forward plan's compact form,
-``MergedPlan.fwd_rows(out_rows, rows of A)`` (``ops/pair_spmm.py::
-slot_rows``), instead of the plan arrays:
+"""The relu-pair row owners' compact forms and sums on the CPU. On the card
+B4 (``relu_pair_fwd_m``) and B6 (``relu_pair_fwd``) read the forward
+plan's compact form, ``MergedPlan.fwd_rows(out_rows, rows of A)``, and B5
+(``relu_pair_da``) the backward plan's, ``MergedPlan.bwd_rows(rows of A,
+rows of B)`` (both ``ops/pair_spmm.py::slot_rows``), instead of the plan
+arrays:
 
 * on a merged-target plan (the GNN_Edge_MLP layout), a merged plan and a
   per-type plan, whole and with A, B and the output cut to fewer rows:
-  each row holds the (target, clipped source, slot) triples of the plan's
-  own slot ids, in slot order; targets at or past the output are dropped,
-  sources clipped into A; some rows are empty; the form is kept on the
-  plan;
-* an all-sentinel plan has no entries;
-* a float64 emulation of B4's kernel over the compact form (a row owner:
-  B read once per row at ``clip(t)``, then per entry ``z = A[src] + B``,
-  ``R += relu(z) * s``, ``M += (z > 0) * s``, in entry order) equals the
-  plain version ``relu_pair_fwd_m_plain`` over the plan arrays exactly:
-  the tables hold small integers and the scales are powers of two;
-* the GNN_Edge_MLP model builds the form once over 3 train steps and hands
-  the one object to every B4 call.
+  each forward row holds the (target, clipped source, slot) triples of the
+  plan's own slot ids, in slot order; targets at or past the output are
+  dropped, sources clipped into A; each backward row u holds its (target t
+  clipped into B, slot) pairs in slot order, u at or past A's rows
+  dropped; some rows are empty; the forms are kept on the plan;
+* an all-sentinel plan has no entries in either form, and the plain
+  versions give zeros;
+* float64 emulations of the kernels over the compact forms equal the plain
+  versions over the plan arrays exactly (the tables and the cotangent hold
+  small integers and the scales are powers of two): B4's (a row owner: B
+  read once per row at ``clip(t)``, then per entry ``z = A[src] + B``,
+  ``R += relu(z) * s``, ``M += (z > 0) * s``, in entry order), B6's (B4's
+  without M) and B5's (A[u] read once, then per entry ``z = A[u] +
+  B[t]``, ``dA += (z > 0) * g[t] * s``); B5's also equals the reference's
+  jnp twin ``_relu_pair_da_jnp`` on the same plan;
+* the GNN_Edge_MLP model builds each form once over 3 train steps and an
+  eval forward, and hands the one object to every B4, B6 and B5 call.
 """
 import functools
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tf2_gnn_tpu.ops import pair_edge_mlp as jpem
 from tf2_gnn_tpu_torch.harness.optimizers import make_optimizer
 from tf2_gnn_tpu_torch.harness.training import (
     create_train_state,
+    make_eval_step,
     make_train_step,
 )
 from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
@@ -97,17 +107,48 @@ def test_fwd_rows_matches_the_plans_slot_ids(form, cut):
     assert (dropped > 0 and clipped > 0) if cut else dropped == clipped == 0
 
 
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+@pytest.mark.parametrize("form", FORMS)
+def test_bwd_rows_matches_the_plans_slot_ids(form, cut):
+    """B5's form: the backward plan's valid slots by A's row u (its
+    plan-"tgt"), each with its target t (its plan-"src") clipped into B's
+    rows, in slot order; u at or past A's rows dropped."""
+    plan = _plan(form)[0]
+    rows_a, rows_b, _ = _shape(form, cut)
+    compact = plan.bwd_rows(rows_a, rows_b)
+    assert compact is plan.bwd_rows(rows_a, rows_b)
+    t, u, valid = (x.numpy() for x in tps.slot_abs_ids(*plan.bwd))
+    slot = np.flatnonzero(valid & (u < rows_a))
+    slot = slot[np.lexsort((slot, u[slot]))]
+    for x in (compact.row_ptr, compact.src_row, compact.slot):
+        assert x.dtype == torch.int32 and x.is_contiguous()
+    assert (compact.table_rows, compact.out_rows) == (rows_b, rows_a)
+    assert compact.num_slots == plan.rel_src_b.numel()
+    np.testing.assert_array_equal(_rows_of(compact), u[slot])
+    np.testing.assert_array_equal(compact.src_row.numpy(),
+                                  np.minimum(t[slot], rows_b - 1))
+    np.testing.assert_array_equal(compact.slot.numpy(), slot)
+    assert (np.diff(compact.row_ptr.numpy()) == 0).any()  # empty rows
+    dropped = int((valid & (u >= rows_a)).sum())
+    clipped = int((t[slot] >= rows_b).sum())
+    assert (dropped > 0 and clipped > 0) if cut else dropped == clipped == 0
+
+
 def test_all_sentinel_plan_has_no_entries():
     host = tps.build_pair_plans([np.zeros(0, np.int32)] * 3,
                                 [np.zeros(0, np.int32)] * 3, [0, 0, 0], 256,
                                 merge_targets=True)
     plan = tps.MergedPlan(*host.astuple(), out_rows=768).to("cpu")
-    compact = plan.fwd_rows(768, 768)
-    assert compact.src_row.numel() == 0
-    assert torch.equal(compact.row_ptr, torch.zeros(769, dtype=torch.int32))
-    a = b = torch.ones(768, 5)
+    for compact in (plan.fwd_rows(768, 768), plan.bwd_rows(768, 768)):
+        assert compact.src_row.numel() == 0
+        assert torch.equal(compact.row_ptr,
+                           torch.zeros(769, dtype=torch.int32))
+    a = b = g = torch.ones(768, 5)
     r, m = tpem.relu_pair_fwd_m_plain(a, b, plan.inv_fwd, *plan.fwd, 768)
-    assert float(r.abs().max()) == float(m.abs().max()) == 0.0
+    r6 = tpem.relu_pair_fwd_plain(a, b, plan.inv_fwd, *plan.fwd, 768)
+    da = tpem.relu_pair_da_plain(a, b, g, plan.inv_bwd, *plan.bwd, 768)
+    for x in (r, m, r6, da):
+        assert float(x.abs().max()) == 0.0
 
 
 def _row_owner_sum(a, b, scale, compact):
@@ -142,9 +183,77 @@ def test_row_owner_sum_equals_the_plain_version(form, cut):
                                    msg=name)
 
 
+def _inputs(plan, rows_a, rows_b, seed):
+    """Integer A, B and g (g with B's rows) and power-of-two forward and
+    backward scales, so every sum is exact in f32 and float64."""
+    rng = np.random.RandomState(seed)
+    a, b, g = (torch.from_numpy(rng.randint(-6, 7, (n, 9)).astype(np.float32))
+               for n in (rows_a, rows_b, rows_b))
+    sf, sb = (torch.from_numpy(rng.choice(
+        [0.25, 0.5, 1.0, 2.0, -1.0], n).astype(np.float32))
+              for n in (plan.rel_src_f.numel(), plan.rel_src_b.numel()))
+    return a, b, g, sf, sb
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+@pytest.mark.parametrize("form", FORMS)
+def test_b6_row_owner_sum_equals_the_plain_version(form, cut):
+    """B6 is B4's row owner without M: its R equals ``relu_pair_fwd_plain``
+    over the plan arrays."""
+    plan = _plan(form)[0]
+    rows_a, rows_b, out_rows = _shape(form, cut)
+    a, b, _, sf, _ = _inputs(plan, rows_a, rows_b, 7)
+    want = tpem.relu_pair_fwd_plain(a, b, sf, *plan.fwd, out_rows)
+    got, _ = _row_owner_sum(a, b, sf, plan.fwd_rows(out_rows, rows_a))
+    assert want.abs().max() > 0
+    torch.testing.assert_close(got, want.double(), rtol=0.0, atol=0.0)
+
+
+def _da_row_owner_sum(a, b, g, scale, compact):
+    """B5's kernel in float64: per A row u, A[u] once, then its entries in
+    order, each with B and g at the entry's clipped target."""
+    u = torch.from_numpy(_rows_of(compact))
+    t = compact.src_row.long()
+    z = a.double()[u] + b.double()[t]
+    s = scale.double()[compact.slot.long()][:, None]
+    out = torch.zeros((compact.out_rows, a.shape[1]), dtype=torch.float64)
+    return out.index_add_(0, u, (z > 0).double() * g.double()[t] * s)
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+@pytest.mark.parametrize("form", FORMS)
+def test_b5_row_owner_sum_equals_the_plain_version(form, cut):
+    plan = _plan(form)[0]
+    rows_a, rows_b, _ = _shape(form, cut)
+    a, b, g, _, sb = _inputs(plan, rows_a, rows_b, 8)
+    want = tpem.relu_pair_da_plain(a, b, g, sb, *plan.bwd, rows_a)
+    got = _da_row_owner_sum(a, b, g, sb, plan.bwd_rows(rows_a, rows_b))
+    assert want.abs().max() > 0
+    torch.testing.assert_close(got, want.double(), rtol=0.0, atol=0.0)
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+def test_b5_row_owner_sum_equals_the_jax_twin(cut):
+    """The chain to the reference: B5's emulation over the merged-target
+    plan's backward form equals ``_relu_pair_da_jnp`` over its arrays."""
+    plan = _plan("targets")[0]
+    rows_a, rows_b, _ = _shape("targets", cut)
+    a, b, g, _, sb = _inputs(plan, rows_a, rows_b, 9)
+    want = jpem._relu_pair_da_jnp(
+        jnp.asarray(a.numpy()), jnp.asarray(b.numpy()),
+        jnp.asarray(g.numpy()), jnp.asarray(sb.numpy()),
+        *(jnp.asarray(x.numpy()) for x in plan.bwd), rows_a)
+    got = _da_row_owner_sum(a, b, g, sb, plan.bwd_rows(rows_a, rows_b))
+    assert float(np.abs(np.asarray(want)).max()) > 0
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).astype(np.float64))
+
+
 def test_edge_mlp_builds_its_form_once_per_batch(monkeypatch):
-    """Three train steps of GNN_Edge_MLP on a merged-target batch: B4's
-    form is built once and every B4 call of every layer and step gets it."""
+    """Three train steps and an eval forward of GNN_Edge_MLP on a
+    merged-target batch: the forward and backward forms are each built
+    once; every B4 and B6 call of every layer and step gets the one forward
+    form, every B5 call the one backward form."""
     _, batch, labels = small_workload(seed=6, merged=True,
                                       merge_targets=True)
     params = NodeMulticlassTask.get_default_hyperparameters("gnn_edge_mlp")
@@ -157,20 +266,35 @@ def test_edge_mlp_builds_its_form_once_per_batch(monkeypatch):
     optimizer = make_optimizer(params, model.parameters())
     state = create_train_state(model, optimizer)
     train_step = make_train_step(model, optimizer)
-    built, seen = [], []
-    real_build, real_b4 = tps.slot_rows, tpem.relu_pair_fwd_m
+    built = []
+    seen = {name: [] for name in ("relu_pair_fwd_m", "relu_pair_fwd",
+                                  "relu_pair_da")}
+    real_build = tps.slot_rows
     monkeypatch.setattr(tps, "slot_rows",
                         lambda *a: built.append(real_build(*a)) or built[-1])
 
-    def spy(*args, compact=None):
-        seen.append(compact)
-        return real_b4(*args, compact=compact)
+    def spy(name):
+        real = getattr(tpem, name)
 
-    monkeypatch.setattr(tpem, "relu_pair_fwd_m", spy)
+        def call(*args, compact=None):
+            seen[name].append(compact)
+            return real(*args, compact=compact)
+        return call
+
+    for name in seen:
+        monkeypatch.setattr(tpem, name, spy(name))
     targets = {"node_labels": torch.from_numpy(labels)}
     for _ in range(3):
         state, _ = train_step(state, batch, targets)
+    make_eval_step(model)(batch, targets)
     plan = batch.pair_merged
-    assert len(built) == 1 and len(seen) == 2 * 3
-    assert all(c is built[0] for c in seen)
-    assert built[0] is plan.fwd_rows(plan.out_rows, built[0].table_rows)
+    assert len(built) == 2
+    fwd, bwd = built
+    assert fwd is plan.fwd_rows(plan.out_rows, fwd.table_rows)
+    assert bwd is plan.bwd_rows(bwd.out_rows, plan.out_rows)
+    assert bwd.out_rows == fwd.table_rows
+    assert {name: len(calls) for name, calls in seen.items()} == {
+        "relu_pair_fwd_m": 2 * 3, "relu_pair_fwd": 2, "relu_pair_da": 2 * 3}
+    assert all(c is fwd
+               for c in seen["relu_pair_fwd_m"] + seen["relu_pair_fwd"])
+    assert all(c is bwd for c in seen["relu_pair_da"])

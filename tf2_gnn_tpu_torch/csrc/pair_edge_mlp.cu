@@ -1,8 +1,9 @@
 // Relu-pair kernels of the target-state edge MLP with one hidden layer, for
 // Hopper (sm_90a), bound through a plain C interface (ctypes) by
-// tf2_gnn_tpu_torch/ops/pair_edge_mlp.py. All four read a MERGED-TARGET pair
-// plan (ops/pair_spmm.py::build_pair_plans(merge_targets=True)): per slot s
-// of group g (chunk c = s / E_C), padded where rel >= BLK,
+// tf2_gnn_tpu_torch/ops/pair_edge_mlp.py. All four compute a function of a
+// MERGED-TARGET pair plan (ops/pair_spmm.py::build_pair_plans(
+// merge_targets=True)): per slot s of group g (chunk c = s / E_C), padded
+// where rel >= BLK,
 //
 //   src = src_blk[c] * BLK + rel_src[s],   tgt = grp_tgt[g] * BLK + rel_tgt[s],
 //
@@ -10,79 +11,81 @@
 // [L*V, H] in merged-target layout, whose row space IS the forward plan's
 // output row space. They compute the plan-slot semantics of the JAX
 // package's jnp twins (tf2_gnn_tpu/ops/pair_edge_mlp.py::_relu_pair_*_jnp),
-// in f32 from stream-dtype (f32 or bf16) tables, into zero-initialised f32
-// outputs, each sum term in the twins' order, z = A[src] + B[tgt]:
+// in f32 from stream-dtype (f32 or bf16) tables into f32 outputs, each sum
+// term in the twins' order, z = A[src] + B[tgt]:
 //
 //   relu_pair_fwd   <- tf2_gnn_tpu/ops/pair_edge_mlp.py:84
-//                      (_relu_pair_fwd_device, pallas_call :171), forward
+//                      (_relu_pair_fwd_device, pallas_call :171), B6, forward
 //                      plan: R[tgt] += max(z, 0) * s. The eval forward.
 //   relu_pair_fwd_m <- pair_edge_mlp.py:188 (_relu_pair_fwd_m_device,
-//                      pallas_call :289), forward plan: R as above and
+//                      pallas_call :289), B4, forward plan: R as above and
 //                      M[tgt] += (z > 0 ? s : 0) in the same sweep. The
-//                      training forward (the backward's dB is M * g). Its
-//                      own kernel, relu_pair_rows_kernel (below).
+//                      training forward (the backward's dB is M * g).
 //   relu_pair_da    <- pair_edge_mlp.py:420 (_relu_pair_da_device,
-//                      pallas_call :523), BACKWARD plan, whose "source" is
-//                      the original target t (rows of B and of the f32
+//                      pallas_call :523), B5, BACKWARD plan, whose "source"
+//                      is the original target t (rows of B and of the f32
 //                      cotangent g) and whose output rows are A's rows u:
 //                      dA[u] += (A[u] + B[t] > 0 ? g[t] : 0) * s.
 //   relu_pair_db    <- pair_edge_mlp.py:308 (_relu_pair_db_device,
-//                      pallas_call :402), forward plan:
-//                      dB[tgt] += g[tgt] * sum of (z > 0 ? s : 0); g is
-//                      constant per output row, so each block multiplies its
-//                      accumulated rows by g before the global add. No call
+//                      pallas_call :402), B7, forward plan:
+//                      dB[tgt] += g[tgt] * sum of (z > 0 ? s : 0). No call
 //                      path runs it, in the JAX package either.
 //
 // Unlike the TPU kernels, which round the cotangent g to the stream dtype
 // (pair_edge_mlp.py:416, 537), g stays f32 here, as in the jnp twins.
 //
-// Design of B5-B7. The TPU kernels build one-hot factors and run three or
-// four MXU matmuls per chunk, because Mosaic cannot gather rows: the source
-// half stays resident in VMEM and the target half streams through the
-// output block index. Hopper gathers rows natively, so each slot is a row
-// gather, an add, a compare and an add into shared memory. One thread
-// block per (plan group, 64-column feature tile): a group's chunks share
-// one 128-row output block, so the block first stages that block's rows of
-// the table indexed by the output (B for the forward plan, A for the
-// backward plan) as a [128, 64] slab in shared memory, the counterpart of
-// the TPU's "slab through the output block index". Each warp then loads 32
-// slots' plan entries with coalesced loads and walks its valid slots four
-// at a time: the 32 lanes gather a row segment of the other table
-// (neighbouring lanes on neighbouring columns), add the staged row, and add
-// the slot's term into an f32 [128, 64] shared tile with shared-memory
-// atomics. The touched rows are then added into the output with one global
-// atomicAdd per element: groups of one output block run concurrently, so
-// f32 sums land in a run-dependent order. relu and the mask are per
-// element, so the column tiling is exact. Shared memory: the tile, the slab
-// and the touched-row flags, 48.5 KB to 64.5 KB, so the launch raises the
-// dynamic shared-memory limit with cudaFuncSetAttribute. H needs no
-// padding: columns >= H are masked.
+// The TPU kernels build one-hot factors and run three or four MXU matmuls
+// per chunk, because Mosaic cannot gather rows: the source half stays
+// resident in VMEM and the target half streams through the output block
+// index. Hopper gathers rows natively.
 //
-// Design of B4, the row owner. The forward plan's output row t is also B's
-// row t, so one warp owns an output row: it reads the row's entries from
-// the plan's compact form (ops/pair_spmm.py::slot_rows, the valid slots as
-// a CSR by output row, each with its clipped source row and its plan slot,
-// built once per batch and kept on the plan as MergedPlan.fwd_rows), holds
-// B[clip(t)] in registers, gathers 2 rows of A per lane before their
-// adds, and keeps R and M as f32 register sums in the row's slot
-// order, each element stored once: no padded slot is walked, nothing is
-// staged in shared memory, there are no atomics and two launches give the
-// same bits. A lane unit is 8 bytes (4 bf16 or 2 f32 columns; bf16 H = 320
-// is 80 units, 3 a lane) where the row and its tables' alignment allow
-// them, else one element (10 a lane at H = 320); wider rows take more
-// column tiles (gridDim.y), each walking the row's entries again.
+// B4 and B6, one row owner (relu_pair_rows_kernel, M compiled in for B4
+// only). The forward plan's output row t is also B's row t, so one warp
+// owns an output row: it reads the row's entries from the plan's compact
+// form (ops/pair_spmm.py::slot_rows, the valid slots as a CSR by output
+// row, each with its clipped source row and its plan slot, built once per
+// batch and kept on the plan as MergedPlan.fwd_rows, which both read),
+// holds B[clip(t)] in registers, gathers the entries' rows of A one at a
+// time and keeps R (and M) as f32 register sums in the row's slot order,
+// each element stored once.
+//
+// B5, a row owner by A's row (relu_pair_da_rows_kernel). The backward
+// plan's output row u is A's row u: one warp holds A[u] in registers and
+// walks u's entries from the backward plan's compact form
+// (MergedPlan.bwd_rows: u's valid slots in slot order, u past A's rows
+// dropped, each with its target t clipped into B's rows and its slot); for
+// each it gathers B[t] and the f32 g[t] over the same columns and adds
+// (z > 0 ? g : 0) * s into f32 registers, stored once.
+//
+// In all three no padded slot is walked, nothing is staged in shared
+// memory, there are no atomics and two launches give the same bits. A lane
+// unit is 8 bytes of the stream dtype (4 bf16 or 2 f32 columns; bf16
+// H = 320 is 80 units, 3 a lane; B5 reads g's matching 16 or 8 bytes) where
+// the row and its tables' alignment allow them, else one element (10 a lane
+// at H = 320); wider rows take more column tiles (gridDim.y), each walking
+// the row's entries again.
+//
+// B7 alone stays on the first port's shared-tile kernel (relu_pair_kernel):
+// one thread block per (plan group, 64-column feature tile) stages the
+// group's 128-row output block of B as a slab in shared memory, walks every
+// slot of the group, adds each valid slot's mask term into an f32 [128, 64]
+// shared tile with shared-memory atomics, and adds the touched rows times g
+// into a zeroed output with global atomics (f32 sums in a run-dependent
+// order; 48.5 KB to 64.5 KB of shared memory a block).
 //
 // Bound. Memory: each input read once (the distinct gathered rows, the
-// staged table's rows, for dA and dB the f32 cotangent rows), the plan and
-// the f32 outputs written once; B4 reads its compact form (8 B an entry and
-// 4 B an output row) in place of the plan. The arithmetic (3 to 6 f32
-// operations a valid slot and column) is far below the card's f32 rate.
-// B5-B7 sit well above that bound (PERF.md): a warp's gathers are dependent
-// rounds of short row segments, flushed through shared and global atomics.
+// output-indexed table's rows, for dA and dB the f32 cotangent rows), the
+// plan (B7) or the compact form (8 B an entry and 4 B an output row) and
+// the f32 outputs written once. The arithmetic (3 to 7 f32 operations a
+// valid slot and column) is far below the card's f32 rate. The row owners
+// wait on L2 latency: a warp's gathers are dependent rounds of short row
+// segments, and more of them in flight cost registers, which cost resident
+// warps (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "lane_units.cuh"
 
@@ -96,7 +99,15 @@ constexpr int WARPS = THREADS / 32;
 constexpr int COLS_PER_LANE = HT / 32;
 constexpr int UNROLL = 4;    // valid slots gathered before their adds
 
-enum Mode : int { kFwd = 0, kDa = 1, kDb = 2 };
+// dtype codes shared with the Python wrapper.
+constexpr int DTYPE_F32 = 0;
+constexpr int DTYPE_BF16 = 1;
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// ---------------------------------------------------------------------------
+// B7: the shared-tile kernel over the forward plan.
 
 __device__ __forceinline__ void set_zero(float& x) { x = 0.0f; }
 __device__ __forceinline__ void set_zero(__nv_bfloat16& x) {
@@ -111,13 +122,12 @@ constexpr size_t smem_bytes() {
          + static_cast<size_t>(BLK) * HT * sizeof(T) + BLK * sizeof(int);
 }
 
-struct Args {
-  const void* gathered;   // [gathered_rows, h]: A (fwd plan) or B (bwd plan)
-  int64_t gathered_rows;
-  const void* staged;     // [staged_rows, h]: B (fwd plan) or A (bwd plan)
-  int64_t staged_rows;
-  const float* g;         // f32 cotangent: [gathered_rows, h] for dA,
-                          // [out_rows, h] for dB, unused otherwise
+struct DbArgs {
+  const void* a;          // [a_rows, h], gathered at the slots' sources
+  int64_t a_rows;
+  const void* b;          // [b_rows, h], staged by output block
+  int64_t b_rows;
+  const float* g;         // [out_rows, h] f32 cotangent
   int h;
   const float* scale;
   const int32_t* rel_src;
@@ -125,19 +135,19 @@ struct Args {
   const int32_t* src_blk;
   const int32_t* grp_tgt;
   int group;
-  float* out;             // R, dA or dB
+  float* out;             // dB, zero-initialised
   int64_t out_rows;
 };
 
-template <typename T, int MODE>
-__global__ void __launch_bounds__(THREADS) relu_pair_kernel(Args a) {
+template <typename T>
+__global__ void __launch_bounds__(THREADS) relu_pair_kernel(DbArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* acc = reinterpret_cast<float*>(smem);                  // [BLK, HT]
   T* slab = reinterpret_cast<T*>(acc + BLK * HT);               // [BLK, HT]
   int* touched = reinterpret_cast<int*>(slab + BLK * HT);       // [BLK]
 
-  const T* __restrict__ gathered = static_cast<const T*>(a.gathered);
-  const T* __restrict__ staged = static_cast<const T*>(a.staged);
+  const T* __restrict__ gathered = static_cast<const T*>(a.a);
+  const T* __restrict__ staged = static_cast<const T*>(a.b);
   const int g = blockIdx.x;
   const int col0 = blockIdx.y * HT;
   const int lane = threadIdx.x & 31;
@@ -146,10 +156,10 @@ __global__ void __launch_bounds__(THREADS) relu_pair_kernel(Args a) {
 
   for (int i = threadIdx.x; i < BLK * HT; i += THREADS) acc[i] = 0.0f;
   for (int i = threadIdx.x; i < BLK; i += THREADS) touched[i] = 0;
-  // The output block's rows of the staged table, this block's columns.
+  // The output block's rows of B, this block's columns.
   for (int i = threadIdx.x; i < BLK * HT; i += THREADS) {
     const int col = col0 + i % HT;
-    const int64_t row = clip(out_base + i / HT, a.staged_rows);
+    const int64_t row = clip(out_base + i / HT, a.b_rows);
     if (col < a.h) {
       slab[i] = staged[row * a.h + col];
     } else {
@@ -168,7 +178,7 @@ __global__ void __launch_bounds__(THREADS) relu_pair_kernel(Args a) {
     const bool valid = rs >= 0 && rs < BLK && rt >= 0 && rt < BLK;
     const int64_t row = clip(
         static_cast<int64_t>(a.src_blk[s / E_C]) * BLK + (valid ? rs : 0),
-        a.gathered_rows);
+        a.a_rows);
     if (valid) touched[rt] = 1;
     unsigned mask = __ballot_sync(FULL, valid);
     while (mask) {
@@ -186,15 +196,13 @@ __global__ void __launch_bounds__(THREADS) relu_pair_kernel(Args a) {
         c[u] = __shfl_sync(FULL, sc, j);
       }
       float x[UNROLL][COLS_PER_LANE];
-      float gv[UNROLL][COLS_PER_LANE];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
 #pragma unroll
         for (int k = 0; k < COLS_PER_LANE; ++k) {
           const int col = col0 + lane + 32 * k;
-          const bool in = ok[u] && col < a.h;
-          x[u][k] = in ? to_f32(gathered[r[u] * a.h + col]) : 0.0f;
-          gv[u][k] = (MODE == kDa && in) ? a.g[r[u] * a.h + col] : 0.0f;
+          x[u][k] = ok[u] && col < a.h ? to_f32(gathered[r[u] * a.h + col])
+                                       : 0.0f;
         }
       }
 #pragma unroll
@@ -205,14 +213,9 @@ __global__ void __launch_bounds__(THREADS) relu_pair_kernel(Args a) {
           const int col = lane + 32 * k;
           if (col0 + col >= a.h) continue;
           const int i = t[u] * HT + col;
-          const float y = to_f32(slab[i]);
           // The twins add the source half first: z = A[src] + B[tgt].
-          const float z = MODE == kDa ? y + x[u][k] : x[u][k] + y;
-          if (MODE == kFwd) atomicAdd(&acc[i], fmaxf(z, 0.0f) * c[u]);
-          if (MODE == kDb) atomicAdd(&acc[i], z > 0.0f ? c[u] : 0.0f);
-          if (MODE == kDa) {
-            atomicAdd(&acc[i], (z > 0.0f ? gv[u][k] : 0.0f) * c[u]);
-          }
+          const float z = x[u][k] + to_f32(slab[i]);
+          atomicAdd(&acc[i], z > 0.0f ? c[u] : 0.0f);
         }
       }
     }
@@ -228,58 +231,26 @@ __global__ void __launch_bounds__(THREADS) relu_pair_kernel(Args a) {
       continue;
     }
     const int64_t o = orow * a.h + col;
-    atomicAdd(&a.out[o], MODE == kDb ? acc[i] * a.g[o] : acc[i]);
+    atomicAdd(&a.out[o], acc[i] * a.g[o]);
   }
 }
 
-template <typename T, int MODE>
-int launch(const Args& a, int num_groups, cudaStream_t s) {
+template <typename T>
+int launch_db(const DbArgs& a, int num_groups, cudaStream_t s) {
   const size_t smem = smem_bytes<T>();
   // Above 48 KB a block's shared memory must be raised explicitly.
   cudaError_t err = cudaFuncSetAttribute(
-      relu_pair_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      relu_pair_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(num_groups),
                   static_cast<unsigned>((a.h + HT - 1) / HT));
-  relu_pair_kernel<T, MODE><<<grid, THREADS, smem, s>>>(a);
+  relu_pair_kernel<T><<<grid, THREADS, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype codes shared with the Python wrapper.
-constexpr int DTYPE_F32 = 0;
-constexpr int DTYPE_BF16 = 1;
-
-template <int MODE>
-int dispatch(int device, int dtype, const void* a_tab, int64_t a_rows,
-             const void* b_tab, int64_t b_rows, const float* g, int h,
-             const float* scale, const int32_t* rel_src,
-             const int32_t* rel_tgt, const int32_t* src_blk,
-             const int32_t* grp_tgt, int num_groups, int group, float* out,
-             int64_t out_rows, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_groups <= 0 || group <= 0 || h <= 0 || a_rows <= 0 || b_rows <= 0
-      || out_rows <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // The forward plan gathers A and stages B; the backward plan (dA) the
-  // other way round.
-  const bool bwd = MODE == kDa;
-  const Args a{bwd ? b_tab : a_tab, bwd ? b_rows : a_rows,
-               bwd ? a_tab : b_tab, bwd ? a_rows : b_rows,
-               g, h, scale, rel_src, rel_tgt, src_blk, grp_tgt, group,
-               out, out_rows};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) return launch<float, MODE>(a, num_groups, s);
-  if (dtype == DTYPE_BF16) {
-    return launch<__nv_bfloat16, MODE>(a, num_groups, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // ---------------------------------------------------------------------------
-// B4: the row owner over the forward plan's compact form.
+// B4 and B6: the row owner over the forward plan's compact form.
 
 struct RowsArgs {
   const void* a;            // [a_rows, h], rows contiguous
@@ -292,20 +263,25 @@ struct RowsArgs {
   const int32_t* slot;      // [n] plan slots (the scale's index)
   int64_t out_rows;
   float* r;                 // [out_rows, h]
-  float* m;                 // [out_rows, h]
+  float* m;                 // [out_rows, h], B4 only
 };
 
 // One warp owns output row t; W units of UB bytes a lane in this column
-// tile (blockIdx.y). IN_FLIGHT = 2 rows of A are gathered before their
-// adds: the kernel waits on L2 latency, and on an H100 more resident warps
-// (64 registers at H = 320, 4 blocks an SM) hid it better than deeper
-// unrolling did, whose registers cost resident warps.
-template <typename T, int UB, int W>
+// tile (blockIdx.y); kM adds M (B4), without it R alone (B6). IN_FLIGHT
+// entries' rows of A are gathered before their adds (a lane's W units of
+// one row are always in flight together). The kernel waits on L2 latency,
+// and on an H100 at H = 320 (PERF.md, tools/relu_pair_variants.py) more
+// resident warps hid it better than more rows in flight: one row takes B6
+// from 57 to 48 registers (5 blocks an SM against 4) and 7-12% less time,
+// and with element units halves B4's and B6's time; B4 in 8-byte units
+// (64 registers either way) ran as fast with one as with two. At H = 64
+// the choice made no difference.
+template <typename T, int UB, int W, bool kM>
 __global__ void __launch_bounds__(ROW_THREADS)
     relu_pair_rows_kernel(RowsArgs a) {
   using U = Unit<T, UB>;
   constexpr int E = U::kElems;
-  constexpr int IN_FLIGHT = 2;
+  constexpr int IN_FLIGHT = 1;
   const int lane = threadIdx.x & 31;
   const int64_t row =
       static_cast<int64_t>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5);
@@ -363,7 +339,7 @@ __global__ void __launch_bounds__(ROW_THREADS)
             // The twins add the source half first: z = A[src] + B[tgt].
             const float z = x[e] + bv[k][e];
             r[k][e] += fmaxf(z, 0.0f) * c[u];
-            m[k][e] += z > 0.0f ? c[u] : 0.0f;
+            if constexpr (kM) m[k][e] += z > 0.0f ? c[u] : 0.0f;
           }
         }
       }
@@ -376,14 +352,116 @@ __global__ void __launch_bounds__(ROW_THREADS)
     if (unit >= units) continue;
     const int64_t o = row * a.h + static_cast<int64_t>(unit) * E;
     store_f32<E>(a.r + o, r[k]);
-    store_f32<E>(a.m + o, m[k]);
+    if constexpr (kM) store_f32<E>(a.m + o, m[k]);
   }
 }
 
+// ---------------------------------------------------------------------------
+// B5: the row owner by A's row over the backward plan's compact form.
+
+struct DaRowsArgs {
+  const void* a;            // [out_rows, h] or more rows: row u is owned
+  const void* b;            // [b_rows, h]
+  const float* g;           // [b_rows, h] f32 cotangent, rows contiguous
+  int h;
+  const float* scale;       // [slots] the backward plan's
+  const int32_t* row_ptr;   // [out_rows + 1]: entries by A's row u
+  const int32_t* t_row;     // [n] the target t, clipped into B's rows
+  const int32_t* slot;      // [n] plan slots (the scale's index)
+  int64_t out_rows;
+  float* da;                // [out_rows, h]
+};
+
+// One warp owns A's row u; W units of UB bytes of the stream dtype a lane
+// in this column tile (blockIdx.y), and g's units G of the same E columns
+// (16 bytes beside 8-byte bf16 units, 8 beside f32 ones, one f32 beside an
+// element). IN_FLIGHT entries' rows of B and g are gathered before their
+// adds: on an H100 at H = 320 (PERF.md, tools/relu_pair_variants.py) two
+// took 80 registers against one's 64 (3 blocks an SM against 4) and ran
+// slower, by a third in element units.
 template <typename T, int UB, int W>
-void launch_rows_w(dim3 grid, cudaStream_t s, const RowsArgs& a) {
-  relu_pair_rows_kernel<T, UB, W><<<grid, ROW_THREADS, 0, s>>>(a);
+__global__ void __launch_bounds__(ROW_THREADS)
+    relu_pair_da_rows_kernel(DaRowsArgs a) {
+  using U = Unit<T, UB>;
+  constexpr int E = U::kElems;
+  using G = Unit<float, 4 * E>;
+  constexpr int IN_FLIGHT = 1;
+  const int lane = threadIdx.x & 31;
+  const int64_t u =
+      static_cast<int64_t>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5);
+  if (u >= a.out_rows) return;  // warp-uniform
+  const int units = a.h / E;    // per table row, in B and in g
+  const int unit0 = blockIdx.y * 32 * W + lane;
+
+  float av[W][E], acc[W][E];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int unit = unit0 + 32 * k;
+    U::unpack(unit < units ? U::load(a.a, u * units + unit) : U::zero(),
+              av[k]);
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[k][e] = 0.0f;
+  }
+
+  const int begin = __ldg(a.row_ptr + u);
+  const int end = __ldg(a.row_ptr + u + 1);
+  for (int base = begin; base < end; base += 32) {
+    const int count = min(32, end - base);  // warp-uniform
+    // Entry j of the round sits in lane j.
+    int t = 0;
+    float sc = 0.0f;
+    if (lane < count) {
+      t = __ldg(a.t_row + base + lane);
+      sc = __ldg(a.scale + __ldg(a.slot + base + lane));
+    }
+    for (int j0 = 0; j0 < count; j0 += IN_FLIGHT) {
+      typename U::Raw bv[IN_FLIGHT][W];
+      typename G::Raw gv[IN_FLIGHT][W];
+      float c[IN_FLIGHT];
+#pragma unroll
+      for (int q = 0; q < IN_FLIGHT; ++q) {
+        const int j = (j0 + q) & 31;
+        const int64_t tq = __shfl_sync(FULL, t, j);
+        c[q] = __shfl_sync(FULL, sc, j);
+        const bool ok = j0 + q < count;
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          const int unit = unit0 + 32 * k;
+          const bool in = ok && unit < units;
+          bv[q][k] = in ? U::load(a.b, tq * units + unit) : U::zero();
+          gv[q][k] = in ? G::load(a.g, tq * units + unit) : G::zero();
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < IN_FLIGHT; ++q) {
+        if (j0 + q >= count) break;  // warp-uniform
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          float x[E], y[E];
+          U::unpack(bv[q][k], x);
+          G::unpack(gv[q][k], y);
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            // The twins' order: z = A[u] + B[t].
+            const float z = av[k][e] + x[e];
+            acc[k][e] += (z > 0.0f ? y[e] : 0.0f) * c[q];
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int unit = unit0 + 32 * k;
+    if (unit < units) {
+      store_f32<E>(a.da + u * a.h + static_cast<int64_t>(unit) * E, acc[k]);
+    }
+  }
 }
+
+// ---------------------------------------------------------------------------
+// The row owners' launch: lane unit, units a lane, grid.
 
 // Units a lane, instantiated: 8-byte units 1, 3 or 5 (bf16 H up to 128,
 // 384, 640 in one tile; f32 half that), element units 1, 2, 4 or 10 (H up
@@ -395,68 +473,79 @@ int rows_w(bool eight, int units) {
   return need <= 1 ? 1 : (need <= 2 ? 2 : (need <= 4 ? 4 : 10));
 }
 
-template <typename T, int UB>
-void launch_rows(dim3 grid, int w, cudaStream_t s, const RowsArgs& a) {
-  if constexpr (UB == 8) {
-    if (w == 1) launch_rows_w<T, UB, 1>(grid, s, a);
-    else if (w == 3) launch_rows_w<T, UB, 3>(grid, s, a);
-    else launch_rows_w<T, UB, 5>(grid, s, a);
-  } else {
-    if (w == 1) launch_rows_w<T, UB, 1>(grid, s, a);
-    else if (w == 2) launch_rows_w<T, UB, 2>(grid, s, a);
-    else if (w == 4) launch_rows_w<T, UB, 4>(grid, s, a);
-    else launch_rows_w<T, UB, 10>(grid, s, a);
-  }
-}
-
-template <typename T>
-int launch_rows_by_unit(const RowsArgs& a, cudaStream_t s) {
+// Calls kernel(Int<UB>, Int<W>, grid) for a row of h elements of T over
+// `rows` warps: 8-byte units where `eight` (the caller checked the row and
+// the pointers), else one element a lane.
+template <typename T, typename F>
+int launch_rows(bool eight, int h, int64_t rows, F&& kernel) {
   constexpr int kItem = static_cast<int>(sizeof(T));
-  // 8-byte units where the row, both tables and both outputs allow them
-  // (on an H100 2.5 times faster at bf16 H = 320 than one element a lane,
-  // PERF.md); else one element a lane.
-  const bool eight = static_cast<int64_t>(a.h) * kItem % 8 == 0
-                     && aligned(a.a, 8) && aligned(a.b, 8)
-                     && aligned(a.r, 16) && aligned(a.m, 16);
-  const int units = eight ? a.h * kItem / 8 : a.h;
+  const int units = eight ? h * kItem / 8 : h;
   const int w = rows_w(eight, units);
-  const dim3 grid(
-      static_cast<unsigned>((a.out_rows + ROW_WARPS - 1) / ROW_WARPS),
-      static_cast<unsigned>((units + 32 * w - 1) / (32 * w)));
+  const dim3 grid(static_cast<unsigned>((rows + ROW_WARPS - 1) / ROW_WARPS),
+                  static_cast<unsigned>((units + 32 * w - 1) / (32 * w)));
+  auto by_w = [&](auto ub) {
+    if constexpr (decltype(ub)::value == 8) {
+      if (w == 1) kernel(ub, Int<1>{}, grid);
+      else if (w == 3) kernel(ub, Int<3>{}, grid);
+      else kernel(ub, Int<5>{}, grid);
+    } else {
+      if (w == 1) kernel(ub, Int<1>{}, grid);
+      else if (w == 2) kernel(ub, Int<2>{}, grid);
+      else if (w == 4) kernel(ub, Int<4>{}, grid);
+      else kernel(ub, Int<10>{}, grid);
+    }
+  };
   if (eight) {
-    launch_rows<T, 8>(grid, w, s, a);
+    by_w(Int<8>{});
   } else {
-    launch_rows<T, kItem>(grid, w, s, a);
+    by_w(Int<kItem>{});
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_fwd(const RowsArgs& a, cudaStream_t s) {
+  // 8-byte units where the row, both tables and the outputs allow them (on
+  // an H100 2.5 times faster at bf16 H = 320 than one element a lane,
+  // PERF.md); else one element a lane.
+  const bool with_m = a.m != nullptr;
+  const bool eight = static_cast<int64_t>(a.h) * sizeof(T) % 8 == 0
+                     && aligned(a.a, 8) && aligned(a.b, 8)
+                     && aligned(a.r, 16) && (!with_m || aligned(a.m, 16));
+  return launch_rows<T>(eight, a.h, a.out_rows,
+                        [&](auto ub, auto w, dim3 grid) {
+    constexpr int UB = decltype(ub)::value, W = decltype(w)::value;
+    if (with_m) {
+      relu_pair_rows_kernel<T, UB, W, true><<<grid, ROW_THREADS, 0, s>>>(a);
+    } else {
+      relu_pair_rows_kernel<T, UB, W, false><<<grid, ROW_THREADS, 0, s>>>(a);
+    }
+  });
+}
+
+template <typename T>
+int launch_da(const DaRowsArgs& a, cudaStream_t s) {
+  // 8-byte units of B and A where the row and the tables allow them, with
+  // g's 16 (bf16) or 8 (f32) bytes of the same columns.
+  const bool eight = static_cast<int64_t>(a.h) * sizeof(T) % 8 == 0
+                     && aligned(a.a, 8) && aligned(a.b, 8)
+                     && aligned(a.g, static_cast<int>(32 / sizeof(T)))
+                     && aligned(a.da, 16);
+  return launch_rows<T>(eight, a.h, a.out_rows,
+                        [&](auto ub, auto w, dim3 grid) {
+    relu_pair_da_rows_kernel<T, decltype(ub)::value, decltype(w)::value>
+        <<<grid, ROW_THREADS, 0, s>>>(a);
+  });
+}
+
 }  // namespace
 
-// One C entry point per kernel. B5-B7 share one signature (g is null where
-// a kernel reads none); B4 reads the compact form. Each returns the
-// cudaError_t of its launch (cudaGetLastError right after it); 0 is
-// success.
+// C entry points. Each returns the cudaError_t of its launch
+// (cudaGetLastError right after it); 0 is success.
 
-#define DEFINE_LAUNCH(NAME, MODE)                                             \
-  extern "C" int NAME(int device, int dtype, const void* a_tab,              \
-                      int64_t a_rows, const void* b_tab, int64_t b_rows,      \
-                      const float* g, int h, const float* scale,              \
-                      const int32_t* rel_src, const int32_t* rel_tgt,         \
-                      const int32_t* src_blk, const int32_t* grp_tgt,         \
-                      int num_groups, int group, float* out,                  \
-                      int64_t out_rows, void* stream) {                       \
-    return dispatch<MODE>(device, dtype, a_tab, a_rows, b_tab, b_rows, g, h,  \
-                          scale, rel_src, rel_tgt, src_blk, grp_tgt,          \
-                          num_groups, group, out, out_rows, stream);          \
-  }
-
-DEFINE_LAUNCH(relu_pair_fwd_launch, kFwd)
-DEFINE_LAUNCH(relu_pair_da_launch, kDa)
-DEFINE_LAUNCH(relu_pair_db_launch, kDb)
-
-// B4: R and M, f32 [out_rows, h], every element stored once.
-extern "C" int relu_pair_fwd_m_launch(
+// B4 (m given) and B6 (m null): R (and M), f32 [out_rows, h], every element
+// stored once.
+extern "C" int relu_pair_rows_launch(
     int device, int dtype, const void* a_tab, const void* b_tab,
     int64_t b_rows, int h, const float* scale, const int32_t* row_ptr,
     const int32_t* src_row, const int32_t* slot, int64_t out_rows, float* r,
@@ -469,8 +558,49 @@ extern "C" int relu_pair_fwd_m_launch(
   const RowsArgs a{a_tab, b_tab, b_rows, h, scale, row_ptr, src_row, slot,
                    out_rows, r, m};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) return launch_rows_by_unit<float>(a, s);
-  if (dtype == DTYPE_BF16) return launch_rows_by_unit<__nv_bfloat16>(a, s);
+  if (dtype == DTYPE_F32) return launch_fwd<float>(a, s);
+  if (dtype == DTYPE_BF16) return launch_fwd<__nv_bfloat16>(a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B5: dA, f32 [out_rows, h] (A's first out_rows rows), every element
+// stored once.
+extern "C" int relu_pair_da_rows_launch(
+    int device, int dtype, const void* a_tab, const void* b_tab,
+    const float* g, int h, const float* scale, const int32_t* row_ptr,
+    const int32_t* t_row, const int32_t* slot, int64_t out_rows, float* da,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (h <= 0 || out_rows <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DaRowsArgs a{a_tab, b_tab, g, h, scale, row_ptr, t_row, slot,
+                     out_rows, da};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_F32) return launch_da<float>(a, s);
+  if (dtype == DTYPE_BF16) return launch_da<__nv_bfloat16>(a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B7: dB, f32 [out_rows, h], added into the zero-initialised output.
+extern "C" int relu_pair_db_launch(
+    int device, int dtype, const void* a_tab, int64_t a_rows,
+    const void* b_tab, int64_t b_rows, const float* g, int h,
+    const float* scale, const int32_t* rel_src, const int32_t* rel_tgt,
+    const int32_t* src_blk, const int32_t* grp_tgt, int num_groups,
+    int group, float* out, int64_t out_rows, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_groups <= 0 || group <= 0 || h <= 0 || a_rows <= 0 || b_rows <= 0
+      || out_rows <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DbArgs a{a_tab, a_rows, b_tab, b_rows, g, h, scale, rel_src,
+                 rel_tgt, src_blk, grp_tgt, group, out, out_rows};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_F32) return launch_db<float>(a, num_groups, s);
+  if (dtype == DTYPE_BF16) return launch_db<__nv_bfloat16>(a, num_groups, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -16,18 +16,20 @@ R and sums over the types.
 forward runs B4 (``relu_pair_fwd_m``), which also emits the mask sum
 ``M[t] = sum of s_e * (A[src_e] + B[t] > 0)``, so the backward's ``dB`` is
 the elementwise ``M * g`` and its ``dA`` is one B5 launch
-(``relu_pair_da``) over the backward plan. B4's kernel is a row owner over
-the forward plan's compact form (``MergedPlan.fwd_rows``, built at the
-batch's first training forward and kept on the plan). Where no gradient is
-needed (the eval step runs under ``torch.no_grad``) the function runs B6
-(``relu_pair_fwd``, R only), as the reference's primal rule does. B7
-(``relu_pair_db``, ``dB`` recomputed from the forward plan) is on no call
-path, in the reference either; it has its wrapper and plain version like
-the others. The overflow edges are plain torch. All four kernels are
-hand-written CUDA (``csrc/pair_edge_mlp.cu``); each wrapper runs its plain
-PyTorch version (a mirror of the reference's jnp twin, over the plan
-arrays) on a CPU tensor and launches its kernel on a CUDA tensor, or
-raises.
+(``relu_pair_da``). Where no gradient is needed (the eval step runs under
+``torch.no_grad``) the function runs B6 (``relu_pair_fwd``, R only), as
+the reference's primal rule does. B4 and B6 are one row-owner kernel (M
+compiled in for B4) over the forward plan's compact form
+(``MergedPlan.fwd_rows``), B5 a row owner by A's row over the backward
+plan's (``MergedPlan.bwd_rows``); each form is built at its first read
+and kept on the plan, so a batch builds each once. B7 (``relu_pair_db``,
+``dB`` recomputed from the forward plan) is on no call path, in the
+reference either; it keeps the first port's shared-tile kernel over the
+plan arrays, and its wrapper and plain version like the others. The
+overflow edges are plain torch. All four kernels are hand-written CUDA
+(``csrc/pair_edge_mlp.cu``); each wrapper runs its plain PyTorch version
+(a mirror of the reference's jnp twin, over the plan arrays) on a CPU
+tensor and launches its kernel on a CUDA tensor, or raises.
 """
 import ctypes
 from typing import Optional
@@ -74,6 +76,20 @@ LAUNCHES = {"relu_pair_fwd_m": 0, "relu_pair_da": 0, "relu_pair_fwd": 0,
             "relu_pair_db": 0}
 
 _SOURCE = "pair_edge_mlp.cu"
+_INT, _INT64, _PTR = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+# (restype, argtypes) of the library's C entry points, set once at load.
+_SIGNATURES = {
+    "relu_pair_rows_launch": (ctypes.c_int, [
+        _INT, _INT, _PTR, _PTR, _INT64, _INT, _PTR, _PTR, _PTR, _PTR, _INT64,
+        _PTR, _PTR, _PTR]),
+    "relu_pair_da_rows_launch": (ctypes.c_int, [
+        _INT, _INT, _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT64,
+        _PTR, _PTR]),
+    "relu_pair_db_launch": (ctypes.c_int, [
+        _INT, _INT, _PTR, _INT64, _PTR, _INT64, _PTR, _INT, _PTR, _PTR, _PTR,
+        _PTR, _PTR, _INT, _INT, _PTR, _INT64, _PTR]),
+    "relu_pair_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
 
 
 def reset_launch_counts() -> None:
@@ -141,92 +157,119 @@ def relu_pair_da_plain(a, b, g, scale_bwd, rel_src, rel_tgt, src_blk,
     return segment_sum(val, seg, rows_a)
 
 
-def _launch(entry: str, a, b, g, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-            out_rows: int):
-    """Launch one of B5-B7 (``csrc/pair_edge_mlp.cu``) on the current
-    stream into a fresh zero-initialised f32 output."""
+def _library():
     from .cuda_build import load_library
 
-    lib = load_library(_SOURCE)
-    dev = a.device
-    stream_dtypes = tuple(_DTYPE_CODES)
-    _check(entry, dev, a=(a, stream_dtypes), b=(b, (a.dtype,)),
-           scale=(scale, (torch.float32,)))
-    group, num_groups = _plan_checks(entry, dev, rel_src, rel_tgt, src_blk,
-                                     grp_tgt)
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
-        raise ValueError(f"{entry}: a and b must be 2-D of one width")
-    h = a.shape[1]
-    if scale.numel() != rel_src.numel() or out_rows <= 0 or h <= 0:
-        raise ValueError(f"{entry}: inconsistent operand shapes")
-    if g is not None:
-        _check(entry, dev, g=(g, (torch.float32,)))
-        # dA reads g at B's rows; dB at the output rows.
-        rows_g = b.shape[0] if entry == "relu_pair_da_launch" else out_rows
-        if tuple(g.shape) != (rows_g, h):
-            raise ValueError(f"{entry}: g must be [{rows_g}, {h}], got "
-                             f"{tuple(g.shape)}")
-    out = torch.zeros((out_rows, h), dtype=torch.float32, device=dev)
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [i, i, p, i64, p, i64, p, i, p, p, p, p, p, i, i, p, i64,
-                   p]
-    _raise_on(lib, entry, fn(
-        dev.index or 0, _DTYPE_CODES[a.dtype], a.data_ptr(), a.shape[0],
-        b.data_ptr(), b.shape[0], None if g is None else g.data_ptr(), h,
-        scale.data_ptr(), rel_src.data_ptr(), rel_tgt.data_ptr(),
-        src_blk.data_ptr(), grp_tgt.data_ptr(), num_groups, group,
-        out.data_ptr(), out_rows, torch.cuda.current_stream(dev).cuda_stream))
-    return out
+    return load_library(_SOURCE, _SIGNATURES)
 
 
 def _raise_on(lib, entry: str, err: int) -> None:
     if err != 0:
-        lib.relu_pair_error_string.restype = ctypes.c_char_p
-        lib.relu_pair_error_string.argtypes = [ctypes.c_int]
         msg = lib.relu_pair_error_string(err).decode()
         raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
 
 
-def _launch_fwd_m(a, b, scale, compact: SlotRows, out_rows: int):
-    """Launch B4's row-owner kernel on the current stream over the forward
-    plan's compact form: (R, M), f32 [out_rows, H], every element stored
-    once, so the outputs are not initialised."""
-    from .cuda_build import load_library
-
-    lib = load_library(_SOURCE)
-    entry = "relu_pair_fwd_m_launch"
-    dev = a.device
-    _check(entry, dev, a=(a, tuple(_DTYPE_CODES)), b=(b, (a.dtype,)),
+def _check_tables(entry: str, a, b, scale):
+    """A and B 2-D of one width and one stream dtype, the f32 scale beside
+    them; returns the width."""
+    _check(entry, a.device, a=(a, tuple(_DTYPE_CODES)), b=(b, (a.dtype,)),
            scale=(scale, (torch.float32,)))
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"{entry}: a and b must be 2-D of one width")
-    h = a.shape[1]
-    if (compact.out_rows != out_rows or compact.table_rows != a.shape[0]
-            or compact.num_slots != scale.numel() or h <= 0
-            or b.shape[0] <= 0):
+    if a.shape[1] <= 0 or b.shape[0] <= 0:
+        raise ValueError(f"{entry}: empty table")
+    return a.shape[1]
+
+
+def _check_compact(entry: str, compact: SlotRows, table, table_rows: int,
+                   out_rows: int, scale) -> None:
+    """The compact form's sizes against the call's: the table it gathers
+    (``table``, of ``table_rows`` rows), the output rows and the scales.
+    Its own tensors were checked when it was built."""
+    if (compact.out_rows != out_rows or compact.table_rows != table_rows
+            or compact.num_slots != scale.numel()):
         raise ValueError(
             f"{entry}: the compact form is of a [{compact.table_rows}]-row "
-            f"A into {compact.out_rows} rows over {compact.num_slots} slots; "
-            f"the call has a [{a.shape[0]}, {h}] A, {out_rows} output rows "
-            f"and {scale.numel()} scales")
-    if compact.row_ptr.device != dev:
+            f"table into {compact.out_rows} rows over {compact.num_slots} "
+            f"slots; the call has a [{table_rows}]-row table, {out_rows} "
+            f"output rows and {scale.numel()} scales")
+    if compact.row_ptr.device != table.device:
         raise ValueError(f"{entry}: the compact form is on "
-                         f"{compact.row_ptr.device}, A on {dev}")
+                         f"{compact.row_ptr.device}, the tables on "
+                         f"{table.device}")
+
+
+def _launch_fwd_rows(a, b, scale, compact: SlotRows, out_rows: int,
+                     with_m: bool):
+    """Launch the forward row owner (B4 ``with_m``, else B6) on the current
+    stream over the forward plan's compact form: R, or (R, M), f32
+    [out_rows, H], every element stored once, so the outputs are not
+    initialised."""
+    lib = _library()
+    entry = "relu_pair_rows_launch"
+    h = _check_tables(entry, a, b, scale)
+    _check_compact(entry, compact, a, a.shape[0], out_rows, scale)
+    dev = a.device
     r = torch.empty((out_rows, h), dtype=torch.float32, device=dev)
-    m = torch.empty_like(r)
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn = lib.relu_pair_fwd_m_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [i, i, p, p, i64, i, p, p, p, p, i64, p, p, p]
-    _raise_on(lib, entry, fn(
+    m = torch.empty_like(r) if with_m else None
+    _raise_on(lib, entry, lib.relu_pair_rows_launch(
         dev.index or 0, _DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
         b.shape[0], h, scale.data_ptr(), compact.row_ptr.data_ptr(),
         compact.src_row.data_ptr(), compact.slot.data_ptr(), out_rows,
-        r.data_ptr(), m.data_ptr(),
+        r.data_ptr(), None if m is None else m.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream))
-    return r, m
+    return (r, m) if with_m else r
+
+
+def _launch_da_rows(a, b, g, scale, compact: SlotRows, rows_a: int):
+    """Launch B5's row owner on the current stream over the backward plan's
+    compact form (into A's first ``rows_a`` rows from B's and g's rows):
+    f32 [rows_a, H], every element stored once."""
+    lib = _library()
+    entry = "relu_pair_da_rows_launch"
+    h = _check_tables(entry, a, b, scale)
+    _check(entry, a.device, g=(g, (torch.float32,)))
+    if tuple(g.shape) != (b.shape[0], h):
+        raise ValueError(f"{entry}: g must be [{b.shape[0]}, {h}], got "
+                         f"{tuple(g.shape)}")
+    if rows_a > a.shape[0]:
+        raise ValueError(f"{entry}: {rows_a} output rows from a "
+                         f"[{a.shape[0]}]-row A")
+    _check_compact(entry, compact, b, b.shape[0], rows_a, scale)
+    dev = a.device
+    out = torch.empty((rows_a, h), dtype=torch.float32, device=dev)
+    _raise_on(lib, entry, lib.relu_pair_da_rows_launch(
+        dev.index or 0, _DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
+        g.data_ptr(), h, scale.data_ptr(), compact.row_ptr.data_ptr(),
+        compact.src_row.data_ptr(), compact.slot.data_ptr(), rows_a,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+    return out
+
+
+def _launch_db(a, b, g, scale, rel_src, rel_tgt, src_blk, grp_tgt,
+               out_rows: int):
+    """Launch B7's shared-tile kernel on the current stream over the
+    forward plan's arrays into a fresh zero-initialised f32 output."""
+    lib = _library()
+    entry = "relu_pair_db_launch"
+    h = _check_tables(entry, a, b, scale)
+    dev = a.device
+    group, num_groups = _plan_checks(entry, dev, rel_src, rel_tgt, src_blk,
+                                     grp_tgt)
+    if scale.numel() != rel_src.numel() or out_rows <= 0:
+        raise ValueError(f"{entry}: inconsistent operand shapes")
+    _check(entry, dev, g=(g, (torch.float32,)))
+    if tuple(g.shape) != (out_rows, h):
+        raise ValueError(f"{entry}: g must be [{out_rows}, {h}], got "
+                         f"{tuple(g.shape)}")
+    out = torch.zeros((out_rows, h), dtype=torch.float32, device=dev)
+    _raise_on(lib, entry, lib.relu_pair_db_launch(
+        dev.index or 0, _DTYPE_CODES[a.dtype], a.data_ptr(), a.shape[0],
+        b.data_ptr(), b.shape[0], g.data_ptr(), h, scale.data_ptr(),
+        rel_src.data_ptr(), rel_tgt.data_ptr(), src_blk.data_ptr(),
+        grp_tgt.data_ptr(), num_groups, group, out.data_ptr(), out_rows,
+        torch.cuda.current_stream(dev).cuda_stream))
+    return out
 
 
 def _device_type(name: str, a) -> str:
@@ -236,15 +279,18 @@ def _device_type(name: str, a) -> str:
 
 
 def relu_pair_fwd(a, b, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-                  out_rows: int):
+                  out_rows: int, compact: Optional[SlotRows] = None):
     """B6, the eval forward: f32 [out_rows, H] R over the forward plan.
     ``a`` [rows_a, H] and ``b`` [rows_b, H] share the stream dtype (f32 or
-    bf16); ``scale`` is f32, one value per slot."""
+    bf16); ``scale`` is f32, one value per slot. On the card it reads only
+    the plan's ``compact`` form (``MergedPlan.fwd_rows(out_rows, rows of
+    a)``, B4's) and the scales; on the CPU the plain version reads the plan
+    arrays."""
     if _device_type("relu_pair_fwd", a) == "cpu":
         return relu_pair_fwd_plain(a, b, scale, rel_src, rel_tgt, src_blk,
                                    grp_tgt, out_rows)
-    out = _launch("relu_pair_fwd_launch", a, b, None, scale, rel_src,
-                  rel_tgt, src_blk, grp_tgt, out_rows)
+    _require_compact("relu_pair_fwd", compact)
+    out = _launch_fwd_rows(a, b, scale, compact, out_rows, with_m=False)
     LAUNCHES["relu_pair_fwd"] += 1
     return out
 
@@ -259,20 +305,23 @@ def relu_pair_fwd_m(a, b, scale, rel_src, rel_tgt, src_blk, grp_tgt,
         return relu_pair_fwd_m_plain(a, b, scale, rel_src, rel_tgt, src_blk,
                                      grp_tgt, out_rows)
     _require_compact("relu_pair_fwd_m", compact)
-    out = _launch_fwd_m(a, b, scale, compact, out_rows)
+    out = _launch_fwd_rows(a, b, scale, compact, out_rows, with_m=True)
     LAUNCHES["relu_pair_fwd_m"] += 1
     return out
 
 
 def relu_pair_da(a, b, g, scale_bwd, rel_src, rel_tgt, src_blk, grp_tgt,
-                 rows_a: int):
+                 rows_a: int, compact: Optional[SlotRows] = None):
     """B5, the backward's dA over the backward plan: f32 [rows_a, H].
-    ``g`` is the f32 cotangent [rows_b, H]."""
+    ``g`` is the f32 cotangent [rows_b, H]. On the card it reads only the
+    backward plan's ``compact`` form (``MergedPlan.bwd_rows(rows_a,
+    rows_b)``, by A's row, each entry with its target clipped into B) and
+    the scales; on the CPU the plain version reads the plan arrays."""
     if _device_type("relu_pair_da", a) == "cpu":
         return relu_pair_da_plain(a, b, g, scale_bwd, rel_src, rel_tgt,
                                   src_blk, grp_tgt, rows_a)
-    out = _launch("relu_pair_da_launch", a, b, g, scale_bwd, rel_src,
-                  rel_tgt, src_blk, grp_tgt, rows_a)
+    _require_compact("relu_pair_da", compact)
+    out = _launch_da_rows(a, b, g, scale_bwd, compact, rows_a)
     LAUNCHES["relu_pair_da"] += 1
     return out
 
@@ -285,8 +334,8 @@ def relu_pair_db(a, b, g, scale, rel_src, rel_tgt, src_blk, grp_tgt,
     if _device_type("relu_pair_db", a) == "cpu":
         return relu_pair_db_plain(a, b, g, scale, rel_src, rel_tgt, src_blk,
                                   grp_tgt, out_rows)
-    out = _launch("relu_pair_db_launch", a, b, g, scale, rel_src,
-                  rel_tgt, src_blk, grp_tgt, out_rows)
+    out = _launch_db(a, b, g, scale, rel_src, rel_tgt, src_blk, grp_tgt,
+                     out_rows)
     LAUNCHES["relu_pair_db"] += 1
     return out
 
@@ -306,9 +355,9 @@ def _overflow_sum(a, b, plan: MergedPlan, ovf_scale, out_rows: int):
 
 class PairReluMlpAggregate(torch.autograd.Function):
     """The training form of ``pair_relu_mlp_aggregate``: B4 forward over
-    the plan's compact form (R and the mask sum M, saved), backward ``dB =
-    M * g`` in plain torch and ``dA`` through B5, plus the overflow edges
-    in plain torch.
+    the forward plan's compact form (R and the mask sum M, saved), backward
+    ``dB = M * g`` in plain torch and ``dA`` through B5 over the backward
+    plan's, plus the overflow edges in plain torch.
 
     The casts to the stream dtype happen inside the op and the gradients
     leave it in f32: in the reference the transpose of ``astype(bf16)``
@@ -335,7 +384,8 @@ class PairReluMlpAggregate(torch.autograd.Function):
         rows_a = a_s.shape[0]
         g = g.float().contiguous()
         d_b = m * g
-        d_a = relu_pair_da(a_s, b_s, g, scale_bwd, *plan.bwd, rows_a)
+        d_a = relu_pair_da(a_s, b_s, g, scale_bwd, *plan.bwd, rows_a,
+                           compact=plan.bwd_rows(rows_a, b_s.shape[0]))
         if plan.ovf_src.shape[0]:
             ovf_src, ovf_tgt = plan.ovf_src.long(), plan.ovf_tgt.long()
             tgt_c = torch.clamp(ovf_tgt, max=out_rows - 1)
@@ -362,7 +412,8 @@ def pair_relu_mlp_aggregate(a, b, plan: MergedPlan, scale_fwd, scale_bwd,
                                           ovf_scale, out_rows, stream_dtype)
     a_s = a.to(stream_dtype).contiguous()
     b_s = b.to(stream_dtype).contiguous()
-    out = relu_pair_fwd(a_s, b_s, scale_fwd, *plan.fwd, out_rows)
+    out = relu_pair_fwd(a_s, b_s, scale_fwd, *plan.fwd, out_rows,
+                        compact=plan.fwd_rows(out_rows, a_s.shape[0]))
     if plan.ovf_src.shape[0]:
         out = out + _overflow_sum(a_s, b_s, plan, ovf_scale, out_rows)
     return out

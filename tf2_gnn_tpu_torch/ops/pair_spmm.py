@@ -579,7 +579,7 @@ class MergedPlan:
 
     def fwd_rows(self, out_rows: int, table_rows: int) -> "SlotRows":
         """The forward direction's compact form into ``out_rows`` rows from
-        a table of ``table_rows``, which B3 and B4 read."""
+        a table of ``table_rows``, which B3, B4 and B6 read."""
         key = ("fwd", out_rows, table_rows)
         if key not in self._rows:
             self._rows[key] = slot_rows(*self.fwd, table_rows, out_rows)
@@ -593,7 +593,7 @@ class MergedPlan:
         """The backward direction's compact form into ``out_rows`` rows
         (its plan-"tgt" rows, the source rows u) from a table of
         ``table_rows`` (its plan-"src" rows, the targets t), which B9's
-        first pass reads."""
+        first pass and B5 read."""
         key = ("bwd", out_rows, table_rows)
         if key not in self._rows:
             self._rows[key] = slot_rows(*self.bwd, table_rows, out_rows)
@@ -693,7 +693,7 @@ class SlotRows:
 
 def slot_rows(rel_src, rel_tgt, src_blk, grp_tgt, table_rows: int,
               out_rows: int, grp_type=None, v: int = 0) -> SlotRows:
-    """The compact form of one plan direction, as K1, K2 and B3 read it.
+    """The compact form of one plan direction, as the row owners read it.
 
     A slot is valid where ``rel_src < BLK`` and ``rel_tgt < BLK``; its
     source row is ``src_blk[chunk] * BLK + rel_src``, plus ``grp_type[g] *
