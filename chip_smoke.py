@@ -25,7 +25,8 @@ Phases, each of which fails the run by raising:
       PyTorch library call computing the same function
       (``torch.sparse.mm``, CSR built from the plan outside the timed
       window), the train step and the eval forward; for the row owners
-      (K1, K2, B3, B4-B6, B9, B12, P1, P2) and the library calls also the
+      (K1, K2, B3, B4-B6, B9, B10, B12, B14, P1, P2) and the library calls
+      also the
       device time (torch.profiler over 20 launches, at the end of the run,
       after every path's step time; ``--profile`` traces each path's steps
       as it goes).
@@ -33,13 +34,17 @@ Phases, each of which fails the run by raising:
    a. the expd kernel (B8), one head's merged-plan SpMM (B3, over the
       plan's compact form; two launches bit-equal) and the fused attention
       backward (B9, over the backward plan's two compact forms; two
-      launches bit-equal) against their plain versions at the real plan
-      shapes, with the compact forms' sizes;
+      launches bit-equal; also at K = 4, H = 576 and 1024, its tiled
+      form) against their plain versions at the real plan shapes, with
+      the compact forms' sizes;
    b. the shipped PPI_RGAT model at full width (3 layers, hidden 320, 4
       heads, tanh, bf16 edge stream, input dropout 0.1, Adam at lr 1e-3):
       the eval forward against the plain versions, then its main path
       (per step B8 and B9 launch once per layer, B3 once per head and
-      layer);
+      layer); then one layer of it at hidden 576 (4 heads of 144, wider
+      than B9's register row) on the same batch, which has no scatter
+      plans: its eval forward against the plain versions, and one train
+      step through B8, B10 and B9, once each;
    c. timings as in 2c (B3's library call is ``torch.sparse.mm`` of the
       expd-scaled CSR; B8 and B9 have no single PyTorch call).
 4. The reference-default GNN_Edge_MLP (target-state input, one hidden
@@ -68,7 +73,8 @@ Phases, each of which fails the run by raising:
       [311296, 324] stream, R = 128), the gathered form (``plan_gather_src``'s
       gradient: a bf16 [245760, 324] cotangent read through
       ``bwd_to_fwd_idx``) and the typed form (an f32 [245760, 4] stream,
-      R = 384); B14 (f32 expd and a strided f32 message view) and B15
+      R = 384); B14 over the forward compact form (f32 expd and a
+      strided f32 message view; two launches bit-equal) and B15
       (exactly);
    b. ``workloads.rgcn_sorted_params()`` (PPI_RGCN as the bench's sorted
       path runs it: 4 layers, hidden 320, f32 edge stream) and the shipped
@@ -80,16 +86,17 @@ Phases, each of which fails the run by raising:
    c. timings as in 2c; the library calls are ``torch.sparse.mm`` of the
       plan's [rows, slots] CSR (B12's stream and typed forms, B13), of the
       [rows, forward slots] CSR (B12's gathered form) and one
-      ``scatter_reduce_`` (B15); B14 has none. B12's forms also get their
-      device times.
+      ``scatter_reduce_`` (B15); B14 has none. B12's forms and B14 also
+      get their device times.
 6. RGAT on the per-type-plan PPI batch of phase 2 (one launch of each
    attention kernel per edge type), the same three steps:
    a. the max kernel (B11) against its plain version, exactly, on the
       largest type's plan (bf16 [8064, 8] scores) and on the merged plan
       of phase 3 (bf16 [24192, 8]); the hk-major aggregation kernel (B10)
-      in its two call forms (K = 8, H = 64 and K = 4, H = 512; bf16
-      table, B8's f32 expd); B9 on the same plan at the two models'
-      shapes (K = 4, H = 320 and K = 8, H = 64), two launches bit-equal;
+      over the plan's forward compact form in its two call forms (K = 8,
+      H = 64 and K = 4, H = 512; bf16 table, B8's f32 expd), two launches
+      bit-equal; B9 on the same plan at the two models' shapes (K = 4,
+      H = 320 and K = 8, H = 64), two launches bit-equal;
    b. the shipped PPI_RGAT with the ``"exact"`` stabiliser (per step
       B11, B8 and B9 once per type and layer, B3 once per head, type and
       layer) and ``workloads.rgat_eight_heads_params()`` (GAT's 8 heads of
@@ -98,7 +105,7 @@ Phases, each of which fails the run by raising:
       kernel of phases 2-5 launches;
    c. timings as in 2c; B11's library call is one ``scatter_reduce_`` of
       the per-slot logits; B10 has none (it would take K sparse products);
-      B9 at the two shapes of 6a is logged.
+      B9 at the two shapes of 6a and B10's second form are logged.
 7. The shipped QM9_RGCN on the QM9-shaped batch (``bench.py::measure_qm9``'s:
    909 molecules, 5 edge types on per-type pair plans, V = 16384):
    a. K2 and K1 against their plain versions at the QM9 plan's shapes
@@ -144,9 +151,9 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 peak outside the tensor cores
 # Kernel vs plain version: both sum f32 products, in different orders
-# (the atomics of B7, B8, B10, B11 and B13-B15 reorder run to run; the row
-# owners K1, K2, B3, B4-B6, B9 and B12 keep one order); B8/B9 take expf of the
-# same f32 arguments as torch.exp.
+# (the atomics of B7, B11, B13 and B15 reorder run to run; the row owners
+# K1, K2, B3, B4-B6, B9, B10, B12 and B14 keep one order); B8/B9 take expf
+# of the same f32 arguments as torch.exp.
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
 # Whole model, kernels vs plain versions: besides the f32 reorder, a sum
 # that lands on the other side of a bf16 rounding boundary re-rounds one
@@ -159,7 +166,8 @@ MODEL_ATOL = 2e-2
 # (observed up to 1.3 ulps on an H100).
 EDGE_MLP_LOGIT_RTOL = 2e-2
 LOSS_RTOL = 1e-3
-# Phase 6's RGAT models at random weights give logits below 0.1, where a
+# Phase 6's RGAT models (and phase 3b's wide layer) at random weights give
+# logits below 0.1, where a
 # fixed 2e-2 would pass a mis-scaled attention sum: their check allows 1e-4
 # plus one bf16 ulp (2**-8) of the largest |logit|, and 1e-5 of the loss
 # (observed on an H100: 2e-5 of logits up to 8.8e-2, 1.8e-7 of the loss).
@@ -224,16 +232,24 @@ def device_ms(fn, reps: int = KERNEL_REPS):
     return us / reps / 1e3 if us > 0 else None
 
 
-def add_device_times(entries) -> None:
+def add_device_times(entries, tries: int = 3) -> None:
     """The device times of the entries that ``time_kernel`` marked
     (``device_ms``, ``library_device_ms``), measured after every path's step
     time: the profiler's tracing, once started, may slow the host's later
-    launches."""
+    launches. A kernel's window that reads below its bound has lost
+    records (seen on an H100: 0.0003 ms against a bound of 0.0062) and is
+    measured again, up to ``tries`` windows in all."""
     for entry in entries:
         if "_device_calls" not in entry:
             continue
         label, source_fn, lib_fn = entry.pop("_device_calls")
-        entry["device_ms"] = device_ms(source_fn)
+        for i in range(tries):
+            entry["device_ms"] = device_ms(source_fn)
+            if entry["device_ms"] is None \
+                    or entry["device_ms"] >= entry["bound_ms"]:
+                break
+            log(f"device time: {label}: window {i + 1} read "
+                f"{entry['device_ms']} ms, below the bound; measured again")
         entry["library_device_ms"] = (None if lib_fn is None
                                       else device_ms(lib_fn))
         log(f"device time: {label}: kernel {entry['device_ms']} ms, library "
@@ -419,11 +435,13 @@ def _patched(patches):
     return stack
 
 
-def train_and_count(model, params, batch, labels, counters, expected):
-    """The path's main run: TRAIN_STEPS train steps with every launch
-    count set to 0 just before and read just after; each kernel in
-    ``expected`` must have launched exactly that many times. Returns
-    (state, train_step, eval_step, launches)."""
+def train_and_count(model, params, batch, labels, counters, expected,
+                    steps: int = TRAIN_STEPS):
+    """The path's main run: ``steps`` train steps with every launch count
+    set to 0 just before and read just after; each kernel in ``expected``
+    must have launched exactly that many times, and the loss must fall
+    over more than one step. Returns (state, train_step, eval_step,
+    launches)."""
     import torch
 
     from tf2_gnn_tpu_torch.harness.optimizers import make_optimizer
@@ -441,7 +459,7 @@ def train_and_count(model, params, batch, labels, counters, expected):
     for reset, _ in counters:
         reset()
     losses = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         state, metrics = train_step(state, batch, labels)
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
@@ -449,16 +467,16 @@ def train_and_count(model, params, batch, labels, counters, expected):
     for _, counts in counters:
         launches.update(counts)
     losses = [float(x) for x in losses]
-    log(f"train: {TRAIN_STEPS} steps, losses {losses}, launches {launches}")
+    log(f"train: {steps} steps, losses {losses}, launches {launches}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    if not losses[-1] < losses[0]:
+    if steps > 1 and not losses[-1] < losses[0]:
         raise AssertionError(f"training did not lower the loss: {losses}")
     for name, count in expected.items():
         if launches[name] != count:
             raise AssertionError(
-                f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
-                f"steps; expected {count}")
+                f"{name} launched {launches[name]} times in {steps} steps; "
+                f"expected {count}")
     final = eval_step(batch, labels)
     if not math.isfinite(float(final["loss"])):
         raise AssertionError("non-finite eval loss after training")
@@ -643,7 +661,9 @@ def time_kernel(name, source, replaces, launches, err, source_fn, plain_fn,
 
 
 def rgat_path(device, argv):
-    """Phase 3: PPI_RGAT through B8, B3 and B9. Returns their entries."""
+    """Phase 3: PPI_RGAT through B8, B3 and B9, then one wide layer of it
+    (3b) through B8, B10 and B9's tiled form. Returns the entries of B3, B8
+    and B9, and B9's at the wide shapes."""
     import torch
 
     from tf2_gnn_tpu_torch.ops import pair_attention as pa
@@ -714,6 +734,25 @@ def rgat_path(device, argv):
     check_repeatable("pair_spmm", b3, got3)
     del got3
     err9 = check_outputs("pair_attention_bwd_fused", b9, b9_plain())
+    # B9 past its register row (its tiled form) on the same plan: K = 4 at
+    # H = 576 and 1024, bf16.
+    b9_wide = {}
+    for hh in (576, 1024):
+        table9, dw9 = (torch.randn((rows if i == 0 else v, hh), generator=gen,
+                                   device=device).to(torch.bfloat16)
+                       for i in range(2))
+        args9 = (table9, dw9, d_denom, scores, m, *plan.bwd, v, k)
+
+        def b9w(args9=args9):
+            return pa.pair_attention_bwd_fused(*args9, compact=bwd_rows,
+                                               ts_rows=ts_rows)
+
+        def b9w_plain(args9=args9):
+            return pa.pair_attention_bwd_fused_plain(*args9)
+
+        name9 = f"pair_attention_bwd_fused K = {k}, H = {hh}"
+        b9_wide[hh] = (name9, b9w, b9w_plain,
+                       check_outputs(name9, b9w, b9w_plain()))
     log(f"kernel check: pair_attention_expd max_abs_err {err8:.3e}, "
         f"pair_spmm max_abs_err {err3:.3e} (bit-equal across two launches; "
         f"compact form {compact.src_row.numel()} slots into {v} rows), "
@@ -722,7 +761,9 @@ def rgat_path(device, argv):
         f"launches; compact forms "
         f"{bwd_rows.src_row.numel()} entries into {rows} source rows from "
         f"{v} dw rows, d_ts {ts_rows.sums.src_row.numel()} entries into "
-        f"{rows} rows)")
+        f"{rows} rows); " + ", ".join(
+            f"{name9} (tiled) max_abs_err {err:.3e}"
+            for name9, _, _, err in b9_wide.values()))
 
     check_eval_forward(model, batch, labels, [
         (ps, "pair_spmm", plain_version(ps.pair_spmm_plain)),
@@ -740,6 +781,9 @@ def rgat_path(device, argv):
          "pair_attention_agg": 0})
     time_path(state, train_step, eval_step, batch, labels, real_edges,
               device, argv, "PPI_RGAT")
+    del model, state, train_step, eval_step
+    torch.cuda.empty_cache()
+    wide_launches = wide_rgat_step(device, batch, labels)
 
     # Bounds from this run's plan: the bytes each kernel must move (each
     # input read once, each output written once) and its f32 operations.
@@ -769,6 +813,15 @@ def rgat_path(device, argv):
     b9_detail = (f"{bwd_valid} valid of {plan.rel_src_b.numel()} slots, "
                  f"[{rows}, {h}] bf16 table, K = {k}")
     head0_f32 = head0.float()
+    wide_forms = [time_kernel(
+        name9, "tf2_gnn_tpu_torch/csrc/pair_attention.cu",
+        "tf2_gnn_tpu/ops/pair_attention.py:860",
+        wide_launches["pair_attention_bwd_fused"] if hh == 576 else 0, err,
+        b9w, b9w_plain, None, None,
+        *b9_bound_ms(bwd_rows, ts_rows, hh, k, 2),
+        f"K = {k}, bf16 table [{rows}, {hh}], the merged plan, tiled form",
+        device=True)
+        for hh, (name9, b9w, b9w_plain, err) in b9_wide.items()]
     return [
         time_kernel("pair_spmm", "tf2_gnn_tpu_torch/csrc/pair_stream.cu",
                     "tf2_gnn_tpu/ops/pair_spmm.py:678", launches["pair_spmm"],
@@ -791,7 +844,43 @@ def rgat_path(device, argv):
                     None, None, *b9_bound,
                     f"{b9_detail}; padded-slot bound count "
                     f"{b9_old:.4f} ms", device=True),
-    ]
+    ], wide_forms
+
+
+def wide_rgat_step(device, batch, labels):
+    """Phase 3b: one layer of the shipped PPI_RGAT at hidden 576 (4 heads
+    of 144, wider than B9's register row) on the merged-plan batch, which
+    carries no scatter plans: the reference's gate takes the pair path
+    there, with B10 for the sums (a head is wider than a 128-column tile)
+    and B9's tiled form. Its eval forward against the plain versions, then
+    one train step in which B8, B10 and B9 launch once each. Returns the
+    step's launches."""
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_attention as pa
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.workloads import shipped_params
+
+    if batch.scatter_merged is not None:
+        raise AssertionError("phase 3b needs a batch without scatter plans")
+    params = dict(shipped_params("PPI_RGAT.json", "rgat"), gnn_num_layers=1,
+                  gnn_hidden_dim=576)
+    model = model_from_params(params, device, batch.num_edge_types,
+                              "PPI_RGAT.json at hidden 576, one layer")
+    patches = [(ps, "pair_spmm", plain_version(ps.pair_spmm_plain)),
+               (pa, "pair_spmm", plain_version(ps.pair_spmm_plain))]
+    patches += [(pa, name, plain_version(getattr(pa, f"{name}_plain")))
+                for name in pa.LAUNCHES]
+    check_eval_forward(model, batch, labels, patches, TYPED_RGAT_LOGIT_RTOL,
+                       TYPED_RGAT_ATOL, TYPED_RGAT_LOSS_RTOL)
+    counters = launch_counters()
+    _, _, _, launches = train_and_count(
+        model, params, batch, labels, counters,
+        dict(zero_counts(counters), pair_attention_expd=1,
+             pair_attention_agg=1, pair_attention_bwd_fused=1), steps=1)
+    del model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def b9_bound_ms(compact, ts_rows, h: int, k: int, itemsize: int):
@@ -812,6 +901,22 @@ def b9_bound_ms(compact, ts_rows, h: int, k: int, itemsize: int):
               + ts_read * k * itemsize + n * 4 + 2 * (rows + 1) * 4
               + rows * (h + 2 * k) * 4)
     return bound_ms(nbytes, 4.0 * n * h)
+
+
+def head_rows_bound_ms(compact, h: int, itemsize: int, k: int,
+                       entry_bytes: int):
+    """B10's and B14's bound, counting what the function needs, whatever
+    implements it: bytes = the distinct table (or stream) rows the entries
+    read, ``entry_bytes`` an entry (its row and slot, 8 B; 4 B for B14,
+    whose row is its slot) and its K f32 expd values, 4 B an output row
+    pointer, and the f32 outputs (the weighted sums and the denominators)
+    written once; operations = a multiply-add a valid slot and column and
+    an add a valid slot and head."""
+    n, out_rows = compact.src_row.numel(), compact.out_rows
+    rows_read = int(compact.src_row.unique().numel())
+    nbytes = (rows_read * h * itemsize + n * (entry_bytes + 4 * k)
+              + (out_rows + 1) * 4 + out_rows * (h + k) * 4)
+    return bound_ms(nbytes, n * (2.0 * h + k))
 
 
 def relu_rows_bound_ms(compact, h: int, itemsize: int, outputs: int,
@@ -852,7 +957,8 @@ def relu_pair_bound_ms(plan_args, table_rows_read, cot_rows_read, h: int,
 
 def edge_mlp_path(device, argv):
     """Phase 4: the reference-default GNN_Edge_MLP through B4, B5 and B6
-    (B7 checked and timed beside them). Returns the four entries."""
+    (B7 checked and timed beside them). Returns the four entries and no
+    other call form."""
     import torch
 
     from tf2_gnn_tpu_torch.models.node_multiclass_task import (
@@ -1006,7 +1112,7 @@ def edge_mlp_path(device, argv):
             name, "tf2_gnn_tpu_torch/csrc/pair_edge_mlp.cu", replaces[name],
             launches[name], errs[name], kernel_fn, plain_fn, None, None,
             bound, bound_by, detail, device=name in row_owners))
-    return kernels
+    return kernels, []
 
 
 def sorted_bound_ms(valid: int, slots: int, chunks: int, h: int,
@@ -1037,7 +1143,8 @@ def b12_bound_ms(compact, row_bytes: int, cols: int):
 def sorted_path(device, argv):
     """Phase 5: the scatter-plan PPI batch; PPI_RGCN (the bench's sorted
     path) through B13, the shipped PPI_RGAT's sorted fallback through B12,
-    B14 and B15. Returns the four entries and B12's other two forms'."""
+    B14 and B15. Returns the four entries and the other call forms' (B12's
+    two, B13's backward)."""
     import torch
 
     from tf2_gnn_tpu_torch.layers.message_passing import rgat as rgat_layer
@@ -1094,7 +1201,8 @@ def sorted_path(device, argv):
                         device=device).to(torch.bfloat16)
     r_typed = ss.BLOCK_NODES * num_types
     fwd = (plan.rel_tgt, plan.tgt_blocks, v)
-    # form: (wrapper, arguments, keyword arguments, B12's compact form).
+    # form: (wrapper, arguments, keyword arguments, the compact form of a
+    # row owner, B12 or B14).
     forms = {
         "sorted_segment_sum_scaled": (
             "sorted_segment_sum_scaled", (stream_f, plan.inv_fwd) + fwd, {},
@@ -1116,7 +1224,8 @@ def sorted_path(device, argv):
             (score_cot, plan.rel_typed, plan.tgt_blocks, rows),
             {"block_rows": r_typed}, plan.sum_rows("fwd_typed", rows)),
         "attention_scatter_sums": (
-            "attention_scatter_sums", (expd, msgs) + fwd, {}, None),
+            "attention_scatter_sums", (expd, msgs) + fwd, {},
+            plan.sum_rows("fwd", v)),
         "sorted_segment_max": ("sorted_segment_max", (logits,) + fwd, {},
                                None),
     }
@@ -1133,7 +1242,7 @@ def sorted_path(device, argv):
         kernel_fn, plain_fn = fns(form)
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
-        if forms[form][3] is not None:  # B12: one sum order on every run
+        if forms[form][3] is not None:  # row owners: one sum order a run
             check_repeatable(form, kernel_fn, got)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -1150,9 +1259,9 @@ def sorted_path(device, argv):
     log("kernel check: " + ", ".join(f"{form} max_abs_err {err:.3e}"
                                      for form, err in errs.items())
         + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; the max exactly; "
-        "B12's three forms bit-equal across two launches); B12's compact "
-        "forms: " + ", ".join(
-            f"{form.split()[-1]} {forms[form][3].src_row.numel()} entries "
+        "B12's three forms and B14 bit-equal across two launches); their "
+        "compact forms: " + ", ".join(
+            f"{form} {forms[form][3].src_row.numel()} entries "
             f"into {forms[form][3].out_rows} rows"
             for form in forms if forms[form][3] is not None))
 
@@ -1283,10 +1392,8 @@ def sorted_path(device, argv):
             forms["sorted_segment_sum gathered"][3], (h + k) * 2, h + k),
         "sorted_segment_sum typed": b12_bound_ms(
             forms["sorted_segment_sum typed"][3], k * 4, k),
-        # Per valid slot: a multiply-add per column, and an add per head
-        # for the denominators (counted as a column's share).
-        "attention_scatter_sums": sorted_bound_ms(
-            valid_f, n_fwd, c_fwd, h, 4, k, v, h + k, 2.0 + k / h),
+        "attention_scatter_sums": head_rows_bound_ms(
+            forms["attention_scatter_sums"][3], h, 4, k, 4),
         "sorted_segment_max": sorted_bound_ms(
             valid_f, n_fwd, c_fwd, k, 4, 0, v, k, 1.0),
     }
@@ -1299,13 +1406,17 @@ def sorted_path(device, argv):
         "attention_scatter_sums": "tf2_gnn_tpu/ops/spmm_pallas.py:835",
         "sorted_segment_max": "tf2_gnn_tpu/ops/spmm_pallas.py:705",
     }
-    # B12's bound as the sorted-scatter kernels count theirs (the valid
-    # slots' rows, 4 B a slot and a chunk, the output), logged beside it.
-    b12_per_slot = {
+    # The row owners' bounds as the sorted-scatter kernels count theirs
+    # (the valid slots' rows and per-slot operand, 4 B a slot and a chunk,
+    # the outputs; B14: a multiply-add per column and an add per head),
+    # logged beside them.
+    per_slot = {
         "sorted_segment_sum": sorted_bound_ms(
             valid_b, n_bwd, c_bwd, h + k, 2, 0, rows, h + k, 1.0)[0],
         "sorted_segment_sum typed": sorted_bound_ms(
             valid_f, n_fwd, c_fwd, k, 4, 0, rows, k, 1.0)[0],
+        "attention_scatter_sums": sorted_bound_ms(
+            valid_f, n_fwd, c_fwd, h, 4, k, v, h + k, 2.0 + k / h)[0],
     }
     details = {
         "sorted_segment_sum_scaled": f"RGCN forward, f32 [{n_fwd}, {h}] "
@@ -1331,15 +1442,15 @@ def sorted_path(device, argv):
         kernel_fn, plain_fn = fns(form)
         lib_fn, lib32_fn = library.get(form, (None, None))
         name = form.split()[0]
-        b12 = forms[form][3] is not None
+        row_owner = forms[form][3] is not None
         detail = details[form]
-        if form in b12_per_slot:
-            detail += f"; per-slot bound count {b12_per_slot[form]:.4f} ms"
+        if form in per_slot:
+            detail += f"; per-slot bound count {per_slot[form]:.4f} ms"
         entry = time_kernel(
             form, "tf2_gnn_tpu_torch/csrc/" + (
-                "pair_stream.cu" if b12 else "sorted_scatter.cu"),
+                "pair_stream.cu" if row_owner else "sorted_scatter.cu"),
             replaces[name], launches[name], errs[form], kernel_fn, plain_fn,
-            lib_fn, lib32_fn, *bounds[form], detail, device=b12)
+            lib_fn, lib32_fn, *bounds[form], detail, device=row_owner)
         # The main call form of each kernel is its entry on the kernels
         # line; the others are logged.
         (kernels if form == name else other_forms).append(entry)
@@ -1379,7 +1490,7 @@ def typed_rgat_path(device, argv):
     # Kernel inputs at the main path's shapes and dtypes: bf16 scores of
     # the 4-head model, one type's [V, 8] slab and the merged [L*V, 8]
     # table; for B10 a bf16 [V, H] slab of each call form with B8's f32
-    # expd on the largest type's plan.
+    # expd on the largest type's plan, over its forward compact form.
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     k = 4
     scores_t = (0.5 * torch.randn((v, 2 * k), generator=gen,
@@ -1400,34 +1511,36 @@ def typed_rgat_path(device, argv):
         expd = pa.pair_attention_expd(sc, m, *big.fwd, v, agg_k)
         forms[form] = (table, big.fwd, agg_k, expd)
 
+    agg_rows = big.fwd_rows(v, v)
+
     def fns(form):
         first, plan, kk, expd = forms[form]
         if expd is None:
             return (lambda: pa.pair_attention_max(first, *plan, v, kk),
                     lambda: pa.pair_attention_max_plain(first, *plan, v, kk))
-        return (lambda: pa.pair_attention_agg(first, expd, *plan, v, kk),
+        return (lambda: pa.pair_attention_agg(first, expd, *plan, v, kk,
+                                              compact=agg_rows),
                 lambda: pa.pair_attention_agg_plain(first, expd, *plan, v,
                                                     kk))
 
     errs = {}
     for form in forms:
         kernel_fn, plain_fn = fns(form)
-        got, want = kernel_fn(), plain_fn()
-        torch.cuda.synchronize()
         if form.startswith("pair_attention_max"):
+            got, want = kernel_fn(), plain_fn()
+            torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"{form}: kernel differs from its plain "
                                      "version (must match exactly)")
             errs[form] = float((got - want).abs().max())
-        else:
-            errs[form] = max(check_close(f"{form} {part}", x, y, KERNEL_RTOL,
-                                         KERNEL_ATOL)
-                             for part, x, y in zip(("denom", "weighted"),
-                                                   got, want))
-        del got, want
+            del got, want
+        else:  # B10, a row owner: also bit-equal across two launches
+            errs[form] = check_outputs(form, kernel_fn, plain_fn())
     log("kernel check: " + ", ".join(f"{form} max_abs_err {err:.3e}"
                                      for form, err in errs.items())
-        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; the max exactly)")
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; the max exactly; B10 "
+        f"bit-equal across two launches, its compact form "
+        f"{agg_rows.src_row.numel()} entries into {v} rows)")
 
     # B9 on the largest type's plan at the shapes of the two models' main
     # paths: PPI_RGAT's one-type slab (K = 4, H = 320) and GAT's head
@@ -1526,15 +1639,15 @@ def typed_rgat_path(device, argv):
                         + plan_bytes(plan) + v * kk * 4,
                         4.0 * int(valid.sum()) * kk)
 
-    def agg_bound(table, plan, kk):
-        # The distinct table rows and the f32 expd of the valid slots (the
-        # kernel reads no padded slot's), the plan, both f32 outputs.
+    def agg_first_count(table, plan, kk):
+        # B10's first port's count, logged: the distinct table rows and
+        # the f32 expd of the valid slots, the plan, both f32 outputs.
         src, _, valid = ps.slot_abs_ids(*plan)
         h = table.shape[1]
         rows_read = int(torch.unique(src[valid]).numel())
         return bound_ms(rows_read * h * table.element_size()
                         + kk * int(valid.sum()) * 4 + plan_bytes(plan)
-                        + v * (h + kk) * 4, 2.0 * int(valid.sum()) * h)
+                        + v * (h + kk) * 4, 2.0 * int(valid.sum()) * h)[0]
 
     # The library yardstick for B11: one scatter_reduce_ of the per-slot
     # logits, built outside the timed window (B10 has no single call).
@@ -1553,7 +1666,7 @@ def typed_rgat_path(device, argv):
                 "pair_attention_agg": agg_launches["pair_attention_agg"]}
     replaces = {"pair_attention_max": "tf2_gnn_tpu/ops/pair_attention.py:262",
                 "pair_attention_agg": "tf2_gnn_tpu/ops/pair_attention.py:596"}
-    kernels = []
+    kernels, other_forms = [], []
     for form, (first, plan, kk, expd) in forms.items():
         name = form.split()[0]
         kernel_fn, plain_fn = fns(form)
@@ -1562,18 +1675,22 @@ def typed_rgat_path(device, argv):
             detail = (f"bf16 scores [{first.shape[0]}, {2 * kk}] -> f32 "
                       f"[{v}, {kk}]")
         else:
-            bound = agg_bound(first, plan, kk)
+            bound = head_rows_bound_ms(agg_rows, first.shape[1], 2, kk, 8)
             detail = (f"K = {kk}, bf16 table [{v}, {first.shape[1]}], f32 "
-                      f"expd [{kk}, {plan[0].numel()}]")
+                      f"expd [{kk}, {plan[0].numel()}]; padded-slot bound "
+                      f"count {agg_first_count(first, plan, kk):.4f} ms")
         entry = time_kernel(
-            form, "tf2_gnn_tpu_torch/csrc/pair_attention.cu", replaces[name],
-            launches[name], errs[form], kernel_fn, plain_fn,
-            libraries.get(form), None, *bound, detail)
-        if form == name:  # the main call form of each kernel is its entry
-            kernels.append(entry)
+            form, "tf2_gnn_tpu_torch/csrc/" + (
+                "pair_attention.cu" if expd is None else "pair_stream.cu"),
+            replaces[name], launches[name], errs[form], kernel_fn, plain_fn,
+            libraries.get(form), None, *bound, detail,
+            device=expd is not None)
+        # The main call form of each kernel is its entry; the others are
+        # logged.
+        (kernels if form == name else other_forms).append(entry)
     b9_launches = {(4, 320): exact_launches["pair_attention_bwd_fused"],
                    (8, 64): agg_launches["pair_attention_bwd_fused"]}
-    other_forms = [time_kernel(
+    other_forms += [time_kernel(
         name9, "tf2_gnn_tpu_torch/csrc/pair_attention.cu",
         "tf2_gnn_tpu/ops/pair_attention.py:860", b9_launches[(kk, hh)], err,
         b9, b9_plain, None, None, *b9_bound_ms(b9_rows, b9_ts, hh, kk, 2),
@@ -1816,14 +1933,11 @@ def main(argv) -> int:
 
     # -- 2. PPI_RGCN, 3. PPI_RGAT, 4. GNN_Edge_MLP, 5. scatter plans,
     # -- 6. RGAT on per-type plans, 7. QM9_RGCN, 8. the probes --------------
-    # Each path returns its kernels-line entries, and phases 5 and 6 also
-    # the entries of other call forms, which are logged.
+    # Each path returns its kernels-line entries, and phases 3-6 also the
+    # entries of other call forms (none for phase 4), which are logged.
     kernels = rgcn_path(device, argv)
-    for path in (rgat_path, edge_mlp_path):
-        torch.cuda.empty_cache()
-        kernels += path(device, argv)
     other_forms = []
-    for path in (sorted_path, typed_rgat_path):
+    for path in (rgat_path, edge_mlp_path, sorted_path, typed_rgat_path):
         torch.cuda.empty_cache()
         path_kernels, path_forms = path(device, argv)
         kernels += path_kernels

@@ -16,14 +16,15 @@ t``):
 * a float64 emulation of the two passes over the forms (pass 1 per source
   row: e, d_p, d_ss and d_table; pass 2: each entry's d_p summed by d_ts
   row) equals the plain version ``pair_attention_bwd_fused_plain`` over
-  the plan arrays, at K = 4 and K = 8, within f32 rounding (rtol 1e-5);
+  the plan arrays, at K = 4 and K = 8, and at H = 576 and 1024 (rows that
+  the kernel's tiled form takes), within f32 rounding (rtol 1e-5);
 * RGAT on a merged plan, on per-type plans and at 8 heads (the hk-major
   route) builds each plan's forms once over 3 train steps and hands the
   same objects to every B9 call;
-* B9 holds a whole table row in one warp (at most ``BWD_MAX_COLUMNS``
-  columns), so the route gate sends a wider RGAT to the sorted-scatter
-  route, where the reference's gate (which has no such limit) takes the
-  pair path.
+* B9 takes any width (a row its registers cannot hold takes the tiled
+  form), so the route gate is the reference's: an RGAT layer of 512, 576
+  or 1024 columns takes the pair path and reaches B9, even on a batch
+  that also carries scatter plans.
 """
 import functools
 
@@ -166,7 +167,8 @@ def _two_passes(table, dw, d_denom, scores, maxes, compact, ts, k):
     return d_ss, d_ts, d_table
 
 
-@pytest.mark.parametrize("k,head_dim", [(4, 20), (8, 8)])
+@pytest.mark.parametrize("k,head_dim", [(4, 20), (8, 8), (4, 144),
+                                        (4, 256)])
 @pytest.mark.parametrize("case", list(CASES))
 def test_two_passes_equal_the_plain_version(case, k, head_dim):
     form, rows, v, vs = CASES[case]
@@ -186,8 +188,8 @@ def test_two_passes_equal_the_plain_version(case, k, head_dim):
                                         ("typed", 8)])
 def test_rgat_builds_its_forms_once_per_batch(form, heads, monkeypatch):
     """Three train steps of RGAT: each plan's two B9 forms are built once
-    (and its forward form once where the head-major route reads it), and
-    every B9 call of every layer and step gets that plan's forms."""
+    (and its forward form once, which the head-major route and B10 read),
+    and every B9 call of every layer and step gets that plan's forms."""
     _, batch, labels = small_workload(seed=7, merged=form == "merged")
     params = NodeMulticlassTask.get_default_hyperparameters("rgat")
     params.update({"gnn_hidden_dim": 2 * heads, "gnn_num_layers": 2,
@@ -218,8 +220,7 @@ def test_rgat_builds_its_forms_once_per_batch(form, heads, monkeypatch):
     for _ in range(3):
         state, _ = train_step(state, batch, targets)
     plans = (batch.pair_merged,) if form == "merged" else batch.pair_typed
-    head_major = heads <= 4
-    assert len(built) == len(plans) * (2 if head_major else 1)
+    assert len(built) == 2 * len(plans)
     assert len(built_ts) == len(plans)
     assert len(seen) == 2 * 3 * len(plans)
     v = batch.num_nodes_padded
@@ -232,22 +233,28 @@ def test_rgat_builds_its_forms_once_per_batch(form, heads, monkeypatch):
         assert any(ts is b for b in built_ts)
 
 
-@pytest.mark.parametrize("hidden", [512, 576])
+@pytest.mark.parametrize("hidden", [512, 576, 1024])
 def test_rgat_wider_than_b9s_row_takes_the_sorted_route(hidden,
                                                         monkeypatch):
-    """At 4 heads of 128 columns the layer takes the pair path (B9 holds
-    the row); at 4 heads of 144, where the reference's gate (the PPI
-    shape's budgets at bf16 included) still takes the pair path, the
-    port's gate sends it to the sorted-scatter route, and a train step
-    runs there without reaching B9."""
+    """Wider than B9's register row the port's gate is the reference's:
+    at the PPI shape in bf16 both take the pair path at 4 heads of 128
+    and 144 columns and, by the reference's VMEM budgets, not at 256; on
+    this batch, which also carries scatter plans, both take it at all
+    three widths, and a train step reaches B9 (its register form at 512
+    columns, its tiled form at 576 and 1024) and never the sorted-scatter
+    route. (The name is kept from the port's narrower gate, which sent
+    the wider layers to the sorted route.)"""
     rows, v = 3 * 8064, 8064
-    assert jpa.pair_attention_applicable(rows, v, hidden, 4, jnp.bfloat16,
-                                         jnp.bfloat16, v)
-    assert tpa.pair_attention_applicable(
-        rows, v, hidden, 4, torch.bfloat16, torch.bfloat16,
-        v) is (hidden <= tpa.BWD_MAX_COLUMNS)
+    assert (tpa.pair_attention_applicable(rows, v, hidden, 4, torch.bfloat16,
+                                          torch.bfloat16, v)
+            == jpa.pair_attention_applicable(rows, v, hidden, 4,
+                                             jnp.bfloat16, jnp.bfloat16, v)
+            == (hidden < 1024))
 
     _, batch, labels = small_workload(seed=8, merged=True)
+    small = (3 * batch.num_nodes_padded, batch.num_nodes_padded)
+    assert jpa.pair_attention_applicable(*small, hidden, 4, jnp.float32,
+                                         jnp.float32, small[1])
     srcs = [np.asarray(x) for x in batch.edge_sources]
     tgts = [np.asarray(x) for x in batch.edge_targets]
     cnts = [int(c) for c in np.asarray(batch.num_edges)]
@@ -276,7 +283,4 @@ def test_rgat_wider_than_b9s_row_takes_the_sorted_route(hidden,
     state, metrics = make_train_step(model, optimizer)(
         state, batch, {"node_labels": torch.from_numpy(labels)})
     assert np.isfinite(float(metrics["loss"]))
-    if hidden <= tpa.BWD_MAX_COLUMNS:
-        assert calls == ["pair_attention", "pair_attention_bwd_fused"]
-    else:
-        assert calls == ["sorted_segment_max"]
+    assert calls == ["pair_attention", "pair_attention_bwd_fused"]

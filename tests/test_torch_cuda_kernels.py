@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels (tf2_gnn_tpu_torch/csrc/pair_stream.cu:
-K1, K2, B3 and B12, one row-owner kernel over their plans' compact form;
-csrc/pair_attention.cu: B8, B9, B10 and B11; csrc/pair_edge_mlp.cu: B4,
-B5, B6 and B7; csrc/sorted_scatter.cu: B13, B14 and B15;
-csrc/dyngather.cu: P3)
+K1, K2, B3 and B12, one row-owner kernel over their plans' compact form,
+and B10 and B14, its per-head twin; csrc/pair_attention.cu: B8, B9 and
+B11; csrc/pair_edge_mlp.cu: B4, B5, B6 and B7; csrc/sorted_scatter.cu:
+B13 and B15; csrc/dyngather.cu: P3)
 against their plain PyTorch versions on the card, at small shapes with a
 ragged feature width, f32 and bf16 tables, plans with pad slots and an
 all-padding group (sorted plans: sentinel slots, an unused trailing chunk
@@ -20,8 +20,12 @@ misaligned stream, and in its gathered form (equal bit for bit to the
 unfused one), every launch bit-equal to a second; B4, B5, B6 and B9, the
 row owners over the merged plans' compact forms, in both lane units, at
 the main paths' widths and odd ones, on whole and cut plans (merged-target
-for B4-B6; merged and per-type for B9), on misaligned tables (B4-B6) and
-an all-sentinel plan (B4-B6: zeros), two launches bit-equal. Marked
+for B4-B6; merged and per-type for B9, also at H = 576 and 1024, its
+tiled form), on misaligned tables (B4-B6) and an all-sentinel plan
+(B4-B6: zeros), two launches bit-equal; B10 and B14 over their plans'
+compact forms in both of B10's call forms, at a head count that does not
+divide 32 for B14, two launches bit-equal, and each wrapper raising
+without the form. Marked
 ``cuda``; each test skips without a card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -31,7 +35,8 @@ machines need not have.)
 
 Tolerance: rtol 1e-5 / atol 1e-5; both sides sum the same f32 products,
 in other orders (run-dependent where a kernel adds with atomics; K1, K2,
-B3, B12, B4-B6 and B9 keep one order, and fuse products into their adds),
+B3, B12, B4-B6, B9, B10 and B14 keep one order, and fuse products into
+their adds),
 and B8/B9 take expf of the same f32 argument as torch.exp (each within 2 ulp).
 Gradients of the attention op in bf16 are rounded to bf16 after those
 sums: rtol 1e-2 / atol 1e-4 there (one bf16 ulp). B15 and B11, maxes, match exactly, as
@@ -431,24 +436,37 @@ def test_sorted_segment_max_matches_exactly(device):
     assert float(got[128:256].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("k,head_dim", [(4, 80), (2, 3), (1, 4)])
+@pytest.mark.parametrize("k,head_dim", [(4, 80), (2, 3), (1, 4), (3, 5),
+                                        (8, 40)])
 def test_attention_scatter_sums_match_plain_version(device, k, head_dim):
+    """B14 over the sorted plan's forward compact form (entries read
+    their own stream row), with the layer's strided message view: the
+    plain version's sums, 0 on rows without a slot, two launches
+    bit-equal; a head count that does not divide 32 (3) takes one unit a
+    lane. Without the form the wrapper raises."""
     host, rel_np, blocks_np = _sorted_case(26)
     v = 384
     rel = torch.from_numpy(rel_np).to(device)
     blocks = torch.from_numpy(blocks_np).to(device)
+    compact = tss.sorted_rows(rel, blocks, v, tss.BLOCK_NODES)
     gen = torch.Generator(device=device).manual_seed(27)
     expd = torch.rand((rel.numel(), k), generator=gen, device=device)
     bundle = _stream(rel_np, head_dim * k + k, gen, device)
     msgs = bundle[:, :head_dim * k]  # the layer's strided message view
     before = tss.LAUNCHES["attention_scatter_sums"]
-    denom, weighted = tss.attention_scatter_sums(expd, msgs, rel, blocks, v)
+    got = tss.attention_scatter_sums(expd, msgs, rel, blocks, v,
+                                     compact=compact)
+    again = tss.attention_scatter_sums(expd, msgs, rel, blocks, v,
+                                       compact=compact)
     torch.cuda.synchronize()
-    assert tss.LAUNCHES["attention_scatter_sums"] == before + 1
-    want_d, want_w = tss.attention_scatter_sums_plain(expd, msgs, rel, blocks,
-                                                      v)
-    torch.testing.assert_close(denom, want_d, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(weighted, want_w, rtol=1e-5, atol=1e-5)
+    assert tss.LAUNCHES["attention_scatter_sums"] == before + 2
+    want = tss.attention_scatter_sums_plain(expd, msgs, rel, blocks, v)
+    for name, x, y, z in zip(("denom", "weighted"), got, again, want):
+        assert torch.equal(x, y), name
+        torch.testing.assert_close(x, z, rtol=1e-5, atol=1e-5, msg=name)
+        _assert_empty_rows_zero(x, compact)
+    with pytest.raises(ValueError, match="compact form"):
+        tss.attention_scatter_sums(expd, msgs, rel, blocks, v)
 
 
 _SORTED_WRAPPERS = ("sorted_segment_sum", "sorted_segment_sum_scaled",
@@ -548,13 +566,18 @@ def test_max_kernel_matches_exactly(device, dtype, form, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,head_dim", [(8, 2), (8, 8), (4, 128), (1, 160)])
+@pytest.mark.parametrize("k,head_dim", [(8, 2), (8, 8), (4, 128), (1, 160),
+                                        (4, 144)])
 def test_agg_kernel_matches_plain_version(device, dtype, k, head_dim):
-    """Both call forms of B10 (K > 4 heads a tile; head_dim + 1 > 128),
-    with a ragged last column tile at 160 features."""
+    """Both call forms of B10 (K > 4 heads a tile: 8 heads of 8, GAT's
+    layout; head_dim + 1 > 128: 4 heads of 128, and of 144, the H = 576
+    layer) over the plan's forward compact form, with targets that have
+    no in-edge (0 in both outputs): the plain version's sums, two
+    launches bit-equal. Without the form the wrapper raises."""
     typed, _ = _typed_plans_empty_targets(42)
     v = 384
     plan = typed[2].to(device)
+    compact = plan.fwd_rows(v, v)
     gen = torch.Generator(device=device).manual_seed(43)
     table = torch.randn((v, head_dim * k), generator=gen,
                         device=device).to(dtype)
@@ -563,13 +586,19 @@ def test_agg_kernel_matches_plain_version(device, dtype, k, head_dim):
     m = tpa._stabilise(tpa._bound_stabiliser(scores, v, k), dtype)
     expd = tpa.pair_attention_expd_plain(scores, m, *plan.fwd, v, k)
     before = tpa.LAUNCHES["pair_attention_agg"]
-    denom, weighted = tpa.pair_attention_agg(table, expd, *plan.fwd, v, k)
+    got = tpa.pair_attention_agg(table, expd, *plan.fwd, v, k,
+                                 compact=compact)
+    again = tpa.pair_attention_agg(table, expd, *plan.fwd, v, k,
+                                   compact=compact)
     torch.cuda.synchronize()
-    assert tpa.LAUNCHES["pair_attention_agg"] == before + 1
-    want_d, want_w = tpa.pair_attention_agg_plain(table, expd, *plan.fwd, v,
-                                                  k)
-    torch.testing.assert_close(denom, want_d, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(weighted, want_w, rtol=1e-5, atol=1e-5)
+    assert tpa.LAUNCHES["pair_attention_agg"] == before + 2
+    want = tpa.pair_attention_agg_plain(table, expd, *plan.fwd, v, k)
+    for name, x, y, z in zip(("denom", "weighted"), got, again, want):
+        assert torch.equal(x, y), name
+        torch.testing.assert_close(x, z, rtol=1e-5, atol=1e-5, msg=name)
+        _assert_empty_rows_zero(x, compact)
+    with pytest.raises(ValueError, match="compact form"):
+        tpa.pair_attention_agg(table, expd, *plan.fwd, v, k)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1155,7 +1184,9 @@ _B9_CASES = {"merged": ("merged", 3, 384, 384),
 @pytest.mark.parametrize("case", list(_B9_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k,head_dim", [(4, 80), (8, 8), (8, 40), (2, 160),
-                                        (4, 128), (4, 32), (4, 3), (1, 5)])
+                                        (4, 128), (4, 32), (4, 3), (1, 5),
+                                        (4, 144), (4, 256), (8, 73),
+                                        (1, 577)])
 def test_b9_row_owner(device, dtype, k, head_dim, case):
     """B9's two passes over the backward plan's compact forms, on a merged
     plan (3 types), one type's plan and a cut merged plan (source rows past
@@ -1164,7 +1195,9 @@ def test_b9_row_owner(device, dtype, k, head_dim, case):
     H = 128 and 512 and odd widths: 8-byte lane units where a row has a
     warp of them (bf16 H = 128 and 320, f32 H = 64 and 128), one element a
     lane otherwise (bf16 H = 64, f32 H = 320, both at H = 512 and the odd
-    widths). The plain version's three gradients, 0 on the rows without an
+    widths); past the register form the tiled form, in 8-byte units (H =
+    576 and 1024 with K = 4, 584 with K = 8) or one element a lane (an odd
+    577). The plain version's three gradients, 0 on the rows without an
     entry, two launches bit-equal, one launch counted a call and none of
     the row owner's own."""
     form, types, v, vs = _B9_CASES[case]

@@ -145,8 +145,8 @@ class _CudaTensorStandIn:
 _COMPACT_STAND_IN = object()
 
 # Every kernel wrapper: its launch counts and the positional arguments
-# after its first tensor (K1, K2, B3, B12, B4, B5 and B6 end with the
-# plan's compact form, B9 with its two).
+# after its first tensor (K1, K2, B3, B12, B4, B5, B6, B10 and B14 end with
+# the plan's compact form, B9 with its two).
 WRAPPERS = {
     tps.pair_spmm_stream: (
         tps.LAUNCHES, (None,) * 6 + (128, 128, _COMPACT_STAND_IN)),
@@ -158,7 +158,8 @@ WRAPPERS = {
         tpa.LAUNCHES,
         (None,) * 8 + (128, 4, None, _COMPACT_STAND_IN, _COMPACT_STAND_IN)),
     tpa.pair_attention_max: (tpa.LAUNCHES, (None,) * 4 + (128, 4)),
-    tpa.pair_attention_agg: (tpa.LAUNCHES, (None,) * 5 + (128, 4)),
+    tpa.pair_attention_agg: (
+        tpa.LAUNCHES, (None,) * 5 + (128, 4, _COMPACT_STAND_IN)),
     tpem.relu_pair_fwd: (
         tpem.LAUNCHES, (None,) * 6 + (128, _COMPACT_STAND_IN)),
     tpem.relu_pair_fwd_m: (
@@ -170,7 +171,8 @@ WRAPPERS = {
         tss.LAUNCHES, (None,) * 2 + (128, None, _COMPACT_STAND_IN)),
     tss.sorted_segment_sum_scaled: (tss.LAUNCHES, (None,) * 3 + (128,)),
     tss.sorted_segment_max: (tss.LAUNCHES, (None,) * 2 + (128,)),
-    tss.attention_scatter_sums: (tss.LAUNCHES, (None,) * 3 + (128,)),
+    tss.attention_scatter_sums: (
+        tss.LAUNCHES, (None,) * 3 + (128, _COMPACT_STAND_IN)),
     tprobes.dyngather: (tprobes.LAUNCHES, (None, 64)),
     tss.sorted_segment_sum_gathered: (
         tss.LAUNCHES, (None,) * 4 + (128, _COMPACT_STAND_IN)),
@@ -197,11 +199,14 @@ def test_cuda_tensor_without_library_raises(wrapper, monkeypatch, tmp_path):
                                      tss.sorted_segment_sum_gathered,
                                      tpem.relu_pair_fwd_m,
                                      tpem.relu_pair_fwd, tpem.relu_pair_da,
-                                     tpa.pair_attention_bwd_fused])
+                                     tpa.pair_attention_bwd_fused,
+                                     tpa.pair_attention_agg,
+                                     tss.attention_scatter_sums])
 def test_cuda_call_without_compact_form_raises(wrapper, monkeypatch,
                                                tmp_path):
-    """K1, K2, B3, B12 (both forms), B4, B6, B5 and B9 (without its second
-    form, ``ts_rows``) on a CUDA tensor without the plan's compact form raise
+    """K1, K2, B3, B12 (both forms), B4, B6, B5, B9 (without its second
+    form, ``ts_rows``), B10 and B14 on a CUDA tensor without the plan's
+    compact form raise
     before they load the library: no per-call build, no fallback to the
     plain version, no launch counted."""
     launches, args = WRAPPERS[wrapper]

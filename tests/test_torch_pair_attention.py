@@ -359,6 +359,8 @@ def test_unported_routes_raise():
 
 @pytest.mark.parametrize("case", [
     (24192, 8064, 320, 4, "bfloat16"), (24192, 8064, 320, 16, "bfloat16"),
+    (24192, 8064, 512, 4, "bfloat16"), (24192, 8064, 576, 4, "bfloat16"),
+    (24192, 8064, 1024, 4, "bfloat16"),
     (768, 256, 16, 4, "float32"), (768, 256, 12, 3, "float32"),
     (1000, 256, 16, 4, "float32"), (3 * 60000, 60000, 256, 4, "float32")])
 def test_applicability_gate_matches_jax(case):

@@ -4,7 +4,9 @@ weights bridged out of the flax params: logits, loss and the gradient of
 every parameter, at hidden 24 with 4 heads and at hidden 12 with 3 heads
 (padded to 4) on merged plans; on per-type plans under both stabilisers;
 at hidden 16 with 8 heads (whose attention sums take the hk-major
-aggregation kernel, B10) on both plan forms; and three Adam steps along the
+aggregation kernel, B10) on both plan forms; one layer at hidden 576 with
+4 heads (wider than B9's register row) on a batch with pair plans only;
+and three Adam steps along the
 reference's loss trajectory, on merged plans and on per-type plans with the
 "exact" stabiliser (B11). Dropout is 0, since the two frameworks' dropout
 bits cannot match.
@@ -56,6 +58,7 @@ TOLS = {"float32": (dict(rtol=1e-4, atol=1e-6), dict(rtol=1e-4, atol=1e-6)),
 LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
 WIDTHS = {"h24_k4": (24, 4), "h12_k3": (12, 3)}
 EIGHT_HEADS = (16, 8)   # head_dim 2: K = 8 > 4 heads a 128-column tile
+WIDE = (576, 4)         # wider than B9's register row (512 columns)
 
 
 def make_params(width, edge_dtype: str, stabiliser: str = "bound"):
@@ -165,6 +168,19 @@ def test_eight_heads_match_jax(merged, edge_dtype):
     jbatch, tbatch, labels = small_workload(seed=8, merged=merged)
     check_forward_loss_and_gradients(make_params(EIGHT_HEADS, edge_dtype),
                                      edge_dtype, jbatch, tbatch, labels)
+
+
+@pytest.mark.parametrize("edge_dtype", ["float32", "bfloat16"])
+def test_layer_wider_than_b9s_register_row_matches_jax(edge_dtype):
+    """One layer of 4 heads of 144 features (H = 576: B10 for the sums,
+    since a head does not fit a 128-column tile, and B9's tiled form on
+    the card) on a batch with pair plans only, the form of the shipped
+    PPI_RGAT batches, where the port once raised."""
+    jbatch, tbatch, labels = small_workload(seed=11, merged=True)
+    assert tbatch.scatter_merged is None
+    params = dict(make_params(WIDE, edge_dtype), gnn_num_layers=1)
+    check_forward_loss_and_gradients(params, edge_dtype, jbatch, tbatch,
+                                     labels)
 
 
 def check_three_adam_steps(params, edge_dtype, jbatch, tbatch, labels):

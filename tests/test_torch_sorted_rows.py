@@ -18,8 +18,9 @@ which the card's B12 reads instead of the plan arrays, on the CPU:
 * a float64 ``index_add_`` over each compact form equals B12's plain
   version and the gathered form's plain version exactly (the streams hold
   small integers, so every f32 sum is exact);
-* the sorted RGAT model builds B12's two forms once per batch: three train
-  steps hand the same two objects to every launch.
+* the sorted RGAT model builds B12's two forms, and B14's forward form,
+  once per batch: three train steps hand the same two objects to every
+  B12 launch.
 """
 import numpy as np
 import pytest
@@ -177,8 +178,9 @@ def test_compact_sum_equals_the_plain_versions(plan, form, cut):
 def test_sorted_rgat_builds_b12_forms_once_per_batch(monkeypatch):
     """Three train steps of the sorted RGAT model (2 layers): B12's
     gathered form (``plan_gather_src``'s gradient) and its type-minor form
-    (``plan_gather_tgt_typed``'s) are built once each, and every B12 call
-    of every layer and step gets one of the two."""
+    (``plan_gather_tgt_typed``'s), and the forward form that B14 reads,
+    are built once each, and every B12 call of every layer and step gets
+    one of the first two."""
     _, batch, labels = scatter_workload(seed=6)
     params = sorted_rgat_params("bfloat16")
     model = NodeMulticlassTask.from_params(
@@ -205,8 +207,9 @@ def test_sorted_rgat_builds_b12_forms_once_per_batch(monkeypatch):
     plan = batch.scatter_merged
     fused = plan.sum_rows("bwd_fused", L * batch.num_nodes_padded)
     typed = plan.sum_rows("fwd_typed", L * batch.num_nodes_padded)
-    assert len(built) == 2 and {id(b) for b in built} == {id(fused),
-                                                          id(typed)}
+    fwd = plan.sum_rows("fwd", batch.num_nodes_padded)
+    assert len(built) == 3 and {id(b) for b in built} == {id(fused),
+                                                          id(typed), id(fwd)}
     assert len(seen["sorted_segment_sum_gathered"]) == 2 * 3
     assert all(c is fused for c in seen["sorted_segment_sum_gathered"])
     # On the CPU the gathered form runs B12's wrapper on the re-ordered

@@ -99,6 +99,15 @@ struct Unit {
       }
     }
   }
+
+  // As fma, with a scale per element (c[0:kElems]).
+  __device__ static __forceinline__ void fma_each(float* acc, const Raw& x,
+                                                  const float* c) {
+    float v[kElems];
+    unpack(x, v);
+#pragma unroll
+    for (int i = 0; i < kElems; ++i) acc[i] = fmaf(c[i], v[i], acc[i]);
+  }
 };
 
 // kElems f32 values to out[0:kElems], as one vector store where kElems is

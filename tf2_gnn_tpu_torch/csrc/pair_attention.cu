@@ -1,5 +1,5 @@
 // Relational-attention kernels for Hopper (sm_90a), bound through a plain C
-// interface (ctypes) by tf2_gnn_tpu_torch/ops/pair_attention.py. All four
+// interface (ctypes) by tf2_gnn_tpu_torch/ops/pair_attention.py. All three
 // read a pair plan (ops/pair_spmm.py::build_pair_plans; merged over the edge
 // types, or one type's plan over its [V]-row slab): per slot s of group g
 // (chunk c = s / E_C), padded where rel >= BLK,
@@ -31,30 +31,6 @@
 //                 depend on order, so the kernel equals its plain version
 //                 exactly. Bound: bytes (the plan's 8 B a slot, the score
 //                 rows, the f32 output); 4 f32 operations a slot and head.
-//
-// agg_kernel   <- tf2_gnn_tpu/ops/pair_attention.py:484
-//                 (_agg_kernel_device, pallas_call :596; jnp twin
-//                 _agg_kernel_jnp), forward plan, the hk-major aggregation
-//                 that RGAT takes where K > 4 * ceil(H / 128) or head_dim + 1
-//                 > 128. Per valid slot, with e = expd[:, s] (B8's [K, slots]
-//                 output; the TPU streams its transpose, [slots, 16]):
-//                   weighted[t, hd*K + k] += e[k] * table[u, hd*K + k],
-//                   denom[t, k] += e[k].
-//                 B3's structure: one thread block per (plan group, 64-column
-//                 tile) gathers its valid slots' row segments warp-wide, adds
-//                 e-scaled values into a shared [128, 64] f32 tile with
-//                 shared atomics and adds the touched rows into the zeroed
-//                 output with global atomics. K divides 32 and 64, so lane l
-//                 always holds columns of head l % K and reads one e per
-//                 slot. Only the blocks of column tile 0 sum the
-//                 denominators (lanes l < K, into a shared [128, K] tile), as
-//                 only the TPU's t == 0 sweep does; otherwise they would be
-//                 counted once a tile. The TPU kernel rounds each scaled
-//                 message to the table dtype before its one-hot product; like
-//                 the jnp twin, this kernel keeps it f32 (ROADMAP queue C).
-//                 Bound: bytes (the distinct table rows, the valid slots'
-//                 f32 expd, the plan, the f32 outputs); 2 operations a valid
-//                 slot and column.
 //
 // expd_kernel  <- tf2_gnn_tpu/ops/pair_attention.py:304
 //                 (_expd_kernel_device, pallas_call :427; jnp twin
@@ -105,15 +81,26 @@
 //                 reduce-scatter (below), so each lane computes one head's
 //                 e and d_p. The whole row lives in one warp's registers: H
 //                 up to 512 with element units, 384 bf16 (192 f32) with
-//                 8-byte units; wider rows are refused, and the route gate
-//                 (ops/pair_attention.py::pair_attention_applicable) sends
-//                 their layers to the sorted-scatter route. Bound: bytes (the distinct table, dw and
-//                 score rows, the f32 m and d_denom rows, the compact
-//                 forms, the f32 outputs); the f32 operations (4 a valid
+//                 8-byte units. Wider rows take the tiled form,
+//                 bwd_rows_tiled_kernel, as the reference's kernel takes any
+//                 width: per entry, in slot order, the head sums over every
+//                 column tile of table[u] (re-read from L1 a tile at a
+//                 time) and dw[t], then e and d_p; then per column tile of
+//                 d_table[u] the entries again (dw[t] and e, recomputed
+//                 from the same f32 inputs by the same instructions), into
+//                 f32 register sums stored once a tile. Bound: bytes (the
+//                 distinct table, dw and score rows, the f32 m and d_denom
+//                 rows, the compact forms, the f32 outputs); the f32
+//                 operations (4 a valid
 //                 slot and column) take about a quarter of that time on
 //                 the PPI shapes. Like the other row owners it waits on L2
 //                 latency: few gathers in flight and low registers (more
 //                 resident warps) ran faster on an H100 than deep unrolling.
+//                 The tiled form reads dw[t] twice and table[u] once an
+//                 entry (from L1), for rows its registers cannot hold.
+//
+// B10, RGAT's hk-major aggregation, is csrc/pair_stream.cu's
+// head_rows_kernel over the forward plan's compact form.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -131,10 +118,6 @@ constexpr float NEG = -1e30f;   // the stabiliser of a target with no in-edges
 constexpr int MAX_HEADS = 32;
 constexpr int EXPD_THREADS = 256;
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int HT = 64;       // d_table feature tile
-constexpr int COLS_PER_LANE = HT / 32;
-constexpr int UNROLL = 4;    // valid slots gathered before their adds
 
 __device__ __forceinline__ float leaky(float p) {
   return p >= 0.0f ? p : LEAKY_SLOPE * p;
@@ -209,123 +192,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-struct AggArgs {
-  const void* table;      // [rows, h] stream dtype, hk-major heads
-  int64_t rows;
-  int h, k, v;
-  const float* expd;      // [k, slots]
-  int64_t slots;
-  const int32_t* rel_src;
-  const int32_t* rel_tgt;
-  const int32_t* src_blk;
-  const int32_t* grp_tgt;
-  int group;
-  float* denom;           // [v, k], zeroed
-  float* weighted;        // [v, h], zeroed
-};
-
-// Dynamic shared memory: the weighted tile, the denominator tile and the
-// touched-row flags.
-__host__ __device__ inline size_t agg_smem_bytes(int k) {
-  return (static_cast<size_t>(BLK) * HT + BLK * k) * sizeof(float)
-         + BLK * sizeof(int);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) agg_kernel(AggArgs a) {
-  extern __shared__ float smem[];
-  const int k = a.k;
-  float* acc = smem;                                     // [BLK, HT]
-  float* den = acc + BLK * HT;                           // [BLK, k]
-  int* touched = reinterpret_cast<int*>(den + BLK * k);  // [BLK]
-
-  const T* __restrict__ table = static_cast<const T*>(a.table);
-  const int g = blockIdx.x;
-  const int col0 = blockIdx.y * HT;
-  const bool with_denom = blockIdx.y == 0;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // Column col0 + lane + 32 * c belongs to head lane % k (k divides 32).
-  const float* __restrict__ e_row = a.expd + (lane % k) * a.slots;
-
-  for (int i = threadIdx.x; i < BLK * HT; i += THREADS) acc[i] = 0.0f;
-  for (int i = threadIdx.x; i < BLK * k; i += THREADS) den[i] = 0.0f;
-  for (int i = threadIdx.x; i < BLK; i += THREADS) touched[i] = 0;
-  __syncthreads();
-
-  const int num_slots = a.group * E_C;
-  const int64_t slot0 = static_cast<int64_t>(g) * num_slots;
-  for (int base = warp * 32; base < num_slots; base += WARPS * 32) {
-    const int64_t s = slot0 + base + lane;
-    const int rs = a.rel_src[s];
-    const int rt = a.rel_tgt[s];
-    const bool valid = rs >= 0 && rs < BLK && rt >= 0 && rt < BLK;
-    const int64_t row = clip(
-        static_cast<int64_t>(a.src_blk[s / E_C]) * BLK + (valid ? rs : 0),
-        a.rows);
-    if (valid) touched[rt] = 1;
-    unsigned mask = __ballot_sync(FULL, valid);
-    while (mask) {
-      int64_t r[UNROLL];
-      int t[UNROLL];
-      float e[UNROLL];
-      bool ok[UNROLL];
-#pragma unroll
-      for (int q = 0; q < UNROLL; ++q) {
-        ok[q] = mask != 0;
-        const int j = ok[q] ? __ffs(mask) - 1 : 0;
-        if (ok[q]) mask &= mask - 1;
-        r[q] = __shfl_sync(FULL, row, j);
-        t[q] = __shfl_sync(FULL, rt, j);
-        e[q] = ok[q] ? e_row[slot0 + base + j] : 0.0f;
-      }
-      float val[UNROLL][COLS_PER_LANE];
-#pragma unroll
-      for (int q = 0; q < UNROLL; ++q) {
-#pragma unroll
-        for (int c = 0; c < COLS_PER_LANE; ++c) {
-          const int col = col0 + lane + 32 * c;
-          val[q][c] = (ok[q] && col < a.h) ? to_f32(table[r[q] * a.h + col])
-                                           : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < UNROLL; ++q) {
-        if (!ok[q]) continue;
-#pragma unroll
-        for (int c = 0; c < COLS_PER_LANE; ++c) {
-          const int col = lane + 32 * c;
-          if (col0 + col < a.h) {
-            atomicAdd(&acc[t[q] * HT + col], val[q][c] * e[q]);
-          }
-        }
-        // Lane l < k holds head l's e.
-        if (with_denom && lane < k) atomicAdd(&den[t[q] * k + lane], e[q]);
-      }
-    }
-  }
-  __syncthreads();
-
-  const int64_t out_base = static_cast<int64_t>(a.grp_tgt[g]) * BLK;
-  for (int i = threadIdx.x; i < BLK * HT; i += THREADS) {
-    const int rr = i / HT;
-    const int col = col0 + i % HT;
-    const int64_t orow = out_base + rr;
-    if (touched[rr] && col < a.h && orow < a.v) {
-      atomicAdd(&a.weighted[orow * a.h + col], acc[i]);
-    }
-  }
-  if (with_denom) {
-    for (int i = threadIdx.x; i < BLK * k; i += THREADS) {
-      const int rr = i / k;
-      const int64_t orow = out_base + rr;
-      if (touched[rr] && orow < a.v) {
-        atomicAdd(&a.denom[orow * k + i % k], den[i]);
-      }
-    }
-  }
-}
-
 // B9, pass 1: the row owner by source row u.
 
 struct BwdRowsArgs {
@@ -344,41 +210,81 @@ struct BwdRowsArgs {
   float* d_p;                // [n, k]: each entry's d_p, for pass 2
 };
 
-// One warp owns source row u; W units of UB bytes a lane cover the row.
-// Element i of each of a lane's units lies in a column of head
-// (lane * E + i) % K, the same for all its units (K divides 32 and 32 * E
-// columns separate them), so a lane folds its products into HL head sums;
-// lanes that differ only in bits >= STOP hold the same heads. A
-// reduce-scatter folds those sums across the warp: its first log2(HL)
-// steps (xor 16, 8, ...) halve the sums a lane keeps, so that afterwards
-// a lane holds the warp's whole sum of one head, head0 + sel with sel its
-// top log2(HL) bits; it computes that head's e and d_p alone, and takes
-// the e of its other heads from the lanes that hold them.
-template <typename T, int UB, int W, int K>
-__global__ void __launch_bounds__(ROW_THREADS) bwd_rows_kernel(BwdRowsArgs a) {
-  using U = Unit<T, UB>;
-  constexpr int E = U::kElems;
-  constexpr int HL = K < E ? K : E;         // heads a lane holds
-  constexpr int STOP = K > E ? K / E : 1;
-  constexpr int LOG_HL = HL == 1 ? 0 : (HL == 2 ? 1 : 2);
+// One warp owns source row u; units of E elements, W a lane (a tile, in
+// the tiled form), cover the row. Element i of each of a lane's units lies
+// in a column of head (lane * E + i) % K, the same for all its units (K
+// divides 32 and 32 * E columns separate them), so a lane folds its
+// products into HL head sums; lanes that differ only in bits >= STOP hold
+// the same heads. A reduce-scatter folds those sums across the warp: its
+// first log2(HL) steps (xor 16, 8, ...) halve the sums a lane keeps, so
+// that afterwards a lane holds the warp's whole sum of one head, head0 +
+// sel with sel its top log2(HL) bits; it computes that head's e and d_p
+// alone, and takes the e of its other heads from the lanes that hold them.
+template <int E, int K>
+struct Heads {
+  static constexpr int HL = K < E ? K : E;  // heads a lane holds
+  static constexpr int STOP = K > E ? K / E : 1;
+  static constexpr int LOG_HL = HL == 1 ? 0 : (HL == 2 ? 1 : 2);
   static_assert(HL == 1 << LOG_HL, "HL: 1, 2 or 4");
   // The lanes of one head after the reduce-scatter differ in the bits of
   // PLAIN_MASK; lane & ~SEL_MASK | j << SEL_SHIFT holds head head0 + j.
-  constexpr int SEL_SHIFT = 5 - LOG_HL;
-  constexpr int SEL_MASK = (HL - 1) << SEL_SHIFT;
-  constexpr int PLAIN_MASK = ((32 >> LOG_HL) - 1) & ~(STOP - 1);
-  // Gathers in flight: one at H = 320 (64 registers, 4 blocks an SM), two
-  // at H = 64; on an H100 deeper unrolling ran slower, its registers
-  // costing resident warps.
-  constexpr int IN_FLIGHT = W * U::kWords <= 4 ? 2 : 1;
+  static constexpr int SEL_SHIFT = 5 - LOG_HL;
+  static constexpr int SEL_MASK = (HL - 1) << SEL_SHIFT;
+  static constexpr int PLAIN_MASK = ((32 >> LOG_HL) - 1) & ~(STOP - 1);
+
+  // The warp's sum of the lane's head (head0 + (lane >> SEL_SHIFT) % HL)
+  // from each lane's HL partial head sums.
+  __device__ static __forceinline__ float fold(float* part, int lane) {
+#pragma unroll
+    for (int s = 0; s < LOG_HL; ++s) {
+      const int off = 16 >> s;
+      const int half = HL >> (s + 1);
+      const bool upper = lane & off;
+#pragma unroll
+      for (int j = 0; j < half; ++j) {
+        const float keep = upper ? part[j + half] : part[j];
+        const float give = upper ? part[j] : part[j + half];
+        part[j] = keep + __shfl_xor_sync(FULL, give, off);
+      }
+    }
+    float sum = part[0];
+#pragma unroll
+    for (int off = 16 >> LOG_HL; off >= STOP; off >>= 1) {
+      sum += __shfl_xor_sync(FULL, sum, off);
+    }
+    return sum;
+  }
+
+  // eh[j]: the e of head head0 + j, from the lane that computed it.
+  __device__ static __forceinline__ void share(float e, int lane,
+                                               float* eh) {
+#pragma unroll
+    for (int jh = 0; jh < HL; ++jh) {
+      eh[jh] = HL == 1 ? e
+                       : __shfl_sync(FULL, e,
+                                     (lane & ~SEL_MASK) | (jh << SEL_SHIFT));
+    }
+  }
+};
+
+template <typename T, int UB, int W, int K>
+__global__ void __launch_bounds__(ROW_THREADS) bwd_rows_kernel(BwdRowsArgs a) {
+  using U = Unit<T, UB>;
+  using H = Heads<U::kElems, K>;
+  constexpr int E = U::kElems;
+  constexpr int HL = H::HL;
+  // Gathers in flight: one (64 registers at H = 320, 4 blocks an SM); on
+  // an H100 two ran slower at H = 64 too, and deeper unrolling slower
+  // still, its registers costing resident warps (PERF.md).
+  constexpr int IN_FLIGHT = 1;
   const int lane = threadIdx.x & 31;
   const int64_t u =
       static_cast<int64_t>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5);
   if (u >= a.rows) return;  // warp-uniform
   const int units = a.h / E;
   const int head0 = (lane * E) % K;  // the lane's heads: head0 + j, j < HL
-  const int head = head0 + (lane >> SEL_SHIFT) % HL;  // after the fold
-  const bool writer = (lane & PLAIN_MASK) == 0;       // one lane a head
+  const int head = head0 + (lane >> H::SEL_SHIFT) % HL;  // after the fold
+  const bool writer = (lane & H::PLAIN_MASK) == 0;       // one lane a head
 
   float tab[W][E], acc[W][E];
 #pragma unroll
@@ -439,24 +345,7 @@ __global__ void __launch_bounds__(ROW_THREADS) bwd_rows_kernel(BwdRowsArgs a) {
             part[i % HL] = fmaf(tab[k][i], x[k][i], part[i % HL]);
           }
         }
-        // The reduce-scatter: halve the kept sums, then fold the rest.
-#pragma unroll
-        for (int s = 0; s < LOG_HL; ++s) {
-          const int off = 16 >> s;
-          const int half = HL >> (s + 1);
-          const bool upper = lane & off;
-#pragma unroll
-          for (int j = 0; j < half; ++j) {
-            const float keep = upper ? part[j + half] : part[j];
-            const float give = upper ? part[j] : part[j + half];
-            part[j] = keep + __shfl_xor_sync(FULL, give, off);
-          }
-        }
-        float sum = part[0];
-#pragma unroll
-        for (int off = 16 >> LOG_HL; off >= STOP; off >>= 1) {
-          sum += __shfl_xor_sync(FULL, sum, off);
-        }
+        const float sum = H::fold(part, lane);
         const float p = ss + ts[q];
         const float e = expf(leaky(p) - mx[q]);
         const float slope = p >= 0.0f ? 1.0f : LEAKY_SLOPE;
@@ -466,13 +355,7 @@ __global__ void __launch_bounds__(ROW_THREADS) bwd_rows_kernel(BwdRowsArgs a) {
           a.d_p[static_cast<int64_t>(base + j0 + q) * K + head] = d_p;
         }
         float eh[HL];
-#pragma unroll
-        for (int jh = 0; jh < HL; ++jh) {
-          eh[jh] = HL == 1 ? e
-                           : __shfl_sync(FULL, e,
-                                         (lane & ~SEL_MASK)
-                                             | (jh << SEL_SHIFT));
-        }
+        H::share(e, lane, eh);
 #pragma unroll
         for (int k = 0; k < W; ++k) {
 #pragma unroll
@@ -495,42 +378,177 @@ __global__ void __launch_bounds__(ROW_THREADS) bwd_rows_kernel(BwdRowsArgs a) {
   if (writer) a.d_ss[u * K + head] = dss;
 }
 
-template <typename T, int UB, int W, int K>
-void launch_bwd_w(dim3 grid, cudaStream_t s, const BwdRowsArgs& a) {
-  bwd_rows_kernel<T, UB, W, K><<<grid, ROW_THREADS, 0, s>>>(a);
+// e = exp(leaky(p) - m) with no step contracted into an FMA, so that the
+// tiled form's two walks over an entry compute one value.
+__device__ __forceinline__ float entry_e(float p, float mx) {
+  return expf(__fsub_rn(p >= 0.0f ? p : __fmul_rn(LEAKY_SLOPE, p), mx));
 }
 
-// Units a lane, instantiated: 8-byte units 1 or 3, element units 1, 2, 4,
-// 10 or 16; the smallest that holds the row. (5 8-byte units a lane
-// spilled at bf16.)
+// B9's tiled form, for rows wider than the register form holds: W units a
+// lane make a column tile of 32 * W units. One walk over u's entries sums
+// each entry's heads over every tile (table[u]'s tile re-read from L1
+// with dw[t]'s), then computes its e and d_p; then, per tile, a second
+// walk sums d_table[u]'s tile in registers and stores it once.
+template <typename T, int UB, int W, int K>
+__global__ void __launch_bounds__(ROW_THREADS)
+    bwd_rows_tiled_kernel(BwdRowsArgs a) {
+  using U = Unit<T, UB>;
+  using H = Heads<U::kElems, K>;
+  constexpr int E = U::kElems;
+  constexpr int HL = H::HL;
+  constexpr int TILE = 32 * W;  // units
+  const int lane = threadIdx.x & 31;
+  const int64_t u =
+      static_cast<int64_t>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5);
+  if (u >= a.rows) return;  // warp-uniform
+  const int units = a.h / E;
+  const int head = (lane * E) % K + (lane >> H::SEL_SHIFT) % HL;
+  const bool writer = (lane & H::PLAIN_MASK) == 0;
+  const T* scores = static_cast<const T*>(a.scores);
+  const float ss = to_f32(scores[u * 2 * K + head]);
+  const int begin = __ldg(a.row_ptr + u);
+  const int end = __ldg(a.row_ptr + u + 1);
+
+  float dss = 0.0f;
+  for (int base = begin; base < end; base += 32) {
+    const int count = min(32, end - base);  // warp-uniform
+    int t = 0, sr = 0;
+    if (lane < count) {
+      t = __ldg(a.t_row + base + lane);
+      sr = __ldg(a.score_row + base + lane);
+    }
+    for (int j = 0; j < count; ++j) {
+      const int64_t tq = __shfl_sync(FULL, t, j);
+      const int64_t sq = __shfl_sync(FULL, sr, j);
+      const float ts = to_f32(scores[sq * 2 * K + K + head]);
+      const float mx = __ldg(a.maxes + tq * K + head);
+      const float dd = __ldg(a.d_denom + tq * K + head);
+      float part[HL];
+#pragma unroll
+      for (int jh = 0; jh < HL; ++jh) part[jh] = 0.0f;
+      for (int tile = 0; tile < units; tile += TILE) {
+        typename U::Raw tv[W], xv[W];
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          const int unit = tile + lane + 32 * k;
+          const bool ok = unit < units;
+          tv[k] = ok ? U::load(a.table, u * units + unit) : U::zero();
+          xv[k] = ok ? U::load(a.dw, tq * units + unit) : U::zero();
+        }
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          float tf[E], xf[E];
+          U::unpack(tv[k], tf);
+          U::unpack(xv[k], xf);
+#pragma unroll
+          for (int i = 0; i < E; ++i) {
+            part[i % HL] = fmaf(tf[i], xf[i], part[i % HL]);
+          }
+        }
+      }
+      const float sum = H::fold(part, lane);
+      const float p = ss + ts;
+      const float d_p = entry_e(p, mx) * (p >= 0.0f ? 1.0f : LEAKY_SLOPE)
+                        * (sum + dd);
+      dss += d_p;
+      if (writer) a.d_p[static_cast<int64_t>(base + j) * K + head] = d_p;
+    }
+  }
+  if (writer) a.d_ss[u * K + head] = dss;
+
+  for (int tile = 0; tile < units; tile += TILE) {
+    float acc[W][E];
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+#pragma unroll
+      for (int i = 0; i < E; ++i) acc[k][i] = 0.0f;
+    for (int base = begin; base < end; base += 32) {
+      const int count = min(32, end - base);  // warp-uniform
+      int t = 0, sr = 0;
+      if (lane < count) {
+        t = __ldg(a.t_row + base + lane);
+        sr = __ldg(a.score_row + base + lane);
+      }
+      for (int j = 0; j < count; ++j) {
+        const int64_t tq = __shfl_sync(FULL, t, j);
+        const int64_t sq = __shfl_sync(FULL, sr, j);
+        typename U::Raw xv[W];
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          const int unit = tile + lane + 32 * k;
+          xv[k] = unit < units ? U::load(a.dw, tq * units + unit)
+                               : U::zero();
+        }
+        const float e = entry_e(ss + to_f32(scores[sq * 2 * K + K + head]),
+                                __ldg(a.maxes + tq * K + head));
+        float eh[HL];
+        H::share(e, lane, eh);
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          float xf[E];
+          U::unpack(xv[k], xf);
+#pragma unroll
+          for (int i = 0; i < E; ++i) {
+            acc[k][i] = fmaf(xf[i], eh[i % HL], acc[k][i]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int unit = tile + lane + 32 * k;
+      if (unit < units) {
+        store_f32<E>(a.d_table + u * a.h + static_cast<int64_t>(unit) * E,
+                     acc[k]);
+      }
+    }
+  }
+}
+
+template <typename T, int UB, int W, int K, bool kTiled>
+void launch_bwd_w(dim3 grid, cudaStream_t s, const BwdRowsArgs& a) {
+  if constexpr (kTiled) {
+    bwd_rows_tiled_kernel<T, UB, W, K><<<grid, ROW_THREADS, 0, s>>>(a);
+  } else {
+    bwd_rows_kernel<T, UB, W, K><<<grid, ROW_THREADS, 0, s>>>(a);
+  }
+}
+
+// Units a lane, instantiated: in the register form 8-byte units 1 or 3,
+// element units 1, 2, 4, 10 or 16, the smallest that holds the row (5
+// 8-byte units a lane spilled at bf16); in the tiled form 3 8-byte or 8
+// element units a tile.
 template <typename T, int UB, int K>
-void launch_bwd_units(int units, dim3 grid, cudaStream_t s,
+void launch_bwd_units(int units, bool tiled, dim3 grid, cudaStream_t s,
                       const BwdRowsArgs& a) {
   const int need = (units + 31) / 32;
   if constexpr (UB == 8) {
-    if (need <= 1) launch_bwd_w<T, UB, 1, K>(grid, s, a);
-    else launch_bwd_w<T, UB, 3, K>(grid, s, a);
+    if (tiled) launch_bwd_w<T, UB, 3, K, true>(grid, s, a);
+    else if (need <= 1) launch_bwd_w<T, UB, 1, K, false>(grid, s, a);
+    else launch_bwd_w<T, UB, 3, K, false>(grid, s, a);
   } else {
-    if (need <= 1) launch_bwd_w<T, UB, 1, K>(grid, s, a);
-    else if (need <= 2) launch_bwd_w<T, UB, 2, K>(grid, s, a);
-    else if (need <= 4) launch_bwd_w<T, UB, 4, K>(grid, s, a);
-    else if (need <= 10) launch_bwd_w<T, UB, 10, K>(grid, s, a);
-    else launch_bwd_w<T, UB, 16, K>(grid, s, a);
+    if (tiled) launch_bwd_w<T, UB, 8, K, true>(grid, s, a);
+    else if (need <= 1) launch_bwd_w<T, UB, 1, K, false>(grid, s, a);
+    else if (need <= 2) launch_bwd_w<T, UB, 2, K, false>(grid, s, a);
+    else if (need <= 4) launch_bwd_w<T, UB, 4, K, false>(grid, s, a);
+    else if (need <= 10) launch_bwd_w<T, UB, 10, K, false>(grid, s, a);
+    else launch_bwd_w<T, UB, 16, K, false>(grid, s, a);
   }
 }
 
 template <typename T, int UB>
-void launch_bwd_heads(int k, int units, dim3 grid, cudaStream_t s,
-                      const BwdRowsArgs& a) {
+void launch_bwd_heads(int k, int units, bool tiled, dim3 grid,
+                      cudaStream_t s, const BwdRowsArgs& a) {
   switch (k) {
-    case 1: launch_bwd_units<T, UB, 1>(units, grid, s, a); break;
-    case 2: launch_bwd_units<T, UB, 2>(units, grid, s, a); break;
-    case 4: launch_bwd_units<T, UB, 4>(units, grid, s, a); break;
-    default: launch_bwd_units<T, UB, 8>(units, grid, s, a); break;
+    case 1: launch_bwd_units<T, UB, 1>(units, tiled, grid, s, a); break;
+    case 2: launch_bwd_units<T, UB, 2>(units, tiled, grid, s, a); break;
+    case 4: launch_bwd_units<T, UB, 4>(units, tiled, grid, s, a); break;
+    default: launch_bwd_units<T, UB, 8>(units, tiled, grid, s, a); break;
   }
 }
 
-// The most lane units a row may have: 3 8-byte or 16 element units a lane.
+// The most lane units a row of the register form may have: 3 8-byte or
+// 16 element units a lane.
 constexpr int MAX_UNITS_8 = 32 * 3;
 constexpr int MAX_UNITS_1 = 32 * 16;
 
@@ -540,19 +558,20 @@ int launch_bwd(int k, const BwdRowsArgs& a, cudaStream_t s) {
   const int64_t row_bytes = static_cast<int64_t>(a.h) * kItem;
   // 8-byte units where a row has a warp of them and the row and the
   // tables' alignment allow them: on an H100 the faster at K = 4, H = 320
-  // bf16, and element units at K = 8, H = 64 bf16 (PERF.md).
-  const bool eight = row_bytes % 8 == 0 && row_bytes / 8 >= 32
-                     && row_bytes / 8 <= MAX_UNITS_8 && aligned(a.table, 8)
-                     && aligned(a.dw, 8) && aligned(a.d_table, 16);
-  if (!eight && a.h > MAX_UNITS_1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // bf16, and element units at K = 8, H = 64 bf16 (PERF.md). A row that
+  // neither register form holds takes the tiled form, in 8-byte units
+  // where they fit.
+  const bool eight_fits = row_bytes % 8 == 0 && row_bytes / 8 >= 32
+                          && aligned(a.table, 8) && aligned(a.dw, 8)
+                          && aligned(a.d_table, 16);
+  const bool eight = eight_fits && row_bytes / 8 <= MAX_UNITS_8;
+  const bool tiled = !eight && a.h > MAX_UNITS_1;
   const dim3 grid(
       static_cast<unsigned>((a.rows + ROW_WARPS - 1) / ROW_WARPS));
-  if (eight) {
-    launch_bwd_heads<T, 8>(k, a.h * kItem / 8, grid, s, a);
+  if (eight || (tiled && eight_fits)) {
+    launch_bwd_heads<T, 8>(k, a.h * kItem / 8, tiled, grid, s, a);
   } else {
-    launch_bwd_heads<T, kItem>(k, a.h, grid, s, a);
+    launch_bwd_heads<T, kItem>(k, a.h, tiled, grid, s, a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -620,40 +639,6 @@ extern "C" int pair_attention_max_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-static int launch_agg(const AggArgs& a, int num_groups, cudaStream_t s) {
-  const size_t smem = agg_smem_bytes(a.k);
-  cudaError_t err = cudaFuncSetAttribute(
-      agg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(num_groups),
-                  static_cast<unsigned>((a.h + HT - 1) / HT));
-  agg_kernel<T><<<grid, THREADS, smem, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int pair_attention_agg_launch(
-    int device, int dtype, const void* table, int64_t rows, int h, int k,
-    const float* expd, int64_t slots, const int32_t* rel_src,
-    const int32_t* rel_tgt, const int32_t* src_blk, const int32_t* grp_tgt,
-    int group, int num_groups, int v, float* denom, float* weighted,
-    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!heads_ok(k) || h <= 0 || h % k || group <= 0 || num_groups <= 0
-      || rows <= 0 || v <= 0
-      || slots != static_cast<int64_t>(num_groups) * group * E_C) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const AggArgs a{table, rows, h, k, v, expd, slots, rel_src, rel_tgt,
-                  src_blk, grp_tgt, group, denom, weighted};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) return launch_agg<float>(a, num_groups, s);
-  if (dtype == DTYPE_BF16) return launch_agg<__nv_bfloat16>(a, num_groups, s);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // B9's first pass: d_ss and d_table, f32 [rows, k] and [rows, h], every

@@ -57,6 +57,47 @@
 //                                summed into d_ts by its row (u / vs) * vs +
 //                                t (ops/pair_spmm.py::TsRows).
 //
+// Its twin, head_rows_kernel, scales column c of an entry by the entry's
+// head c % K and also sums the heads themselves, the attention sums
+//
+//   weighted[t, c] = sum over the entries e of row t, in slot order, of
+//                    expd(slot[e], c % K) * f32(table[src_row[e], c]),
+//   denom[t, k]    = sum over the same entries of expd(slot[e], k),
+//
+// with expd(s, k) = expd[k * head_stride + s * slot_stride]. Its C entries:
+//
+//   pair_attention_agg_launch <- tf2_gnn_tpu/ops/pair_attention.py:484
+//                                (_agg_kernel_device, pallas_call :596; jnp
+//                                twin _agg_kernel_jnp). B10: RGAT's hk-major
+//                                sums where K > 4 * ceil(H / 128) or
+//                                head_dim + 1 > 128, over a merged or one
+//                                type's forward plan (MergedPlan.fwd_rows, the
+//                                form B3 reads), B8's [K, slots] expd (head
+//                                stride slots). The TPU kernel rounds each
+//                                scaled message to the table dtype; like the
+//                                jnp twin, this one keeps it f32.
+//   attention_scatter_launch  <- tf2_gnn_tpu/ops/spmm_pallas.py:755
+//                                (attention_scatter, pallas_call :835). B14:
+//                                the sorted RGAT forward over the sorted
+//                                plan's compact form (ScatterPlan.sum_rows(
+//                                "fwd"), src_row = slot, the stream row), a
+//                                row-strided f32 [slots, H] view of the
+//                                gathered bundle and the [slots, K] expd
+//                                (slot stride K).
+//
+// For these, lanes j < K of a row's group load head j's expd of each entry
+// (one load of each value per entry: K contiguous floats for B14, K rows of
+// B8's output for B10) and the group shares them with __shfl_sync; element
+// i of a lane's units lies in head (unit * E + i) % K, the same for all its
+// units where K divides G * E (any power-of-two K; otherwise W = 1 and the
+// columns take more tiles). The lanes j < K of column tile 0 sum the
+// denominators in the same slot order. Every output element is stored
+// once: the first port's B10 (one block per plan group and 64-column tile,
+// shared and global atomics into a zero-filled output, every padded slot
+// walked) and B14 (a block per 512-slot chunk and 64-column tile, scalar
+// loads, an expd load per slot and column, an atomic per column and run)
+// are retired.
+//
 // Design. The TPU kernels build one-hot matmuls and accumulate each output
 // block on its first visit, walking every padded or sentinel slot. Here a
 // group of G lanes owns one output row: it loads its row's entries with one
@@ -81,9 +122,9 @@
 // or 2 f32; B12's bf16 rows of 648 B) or one element, the widest that
 // divides the row (h * itemsize), the row stride (ld * itemsize) and the
 // table's address; the output must be 16-byte aligned for the vector
-// units. A lane holds up to 2 16-byte, 3 8-byte or 4 element units of a
-// row; wider rows take more column tiles (gridDim.y), each walking the
-// row's entries again. Lanes past H are masked; the table is not padded,
+// units. A lane holds up to 2 16-byte (3 in head_rows_kernel), 3 8-byte or
+// 4 element units of a row; wider rows take more column tiles (gridDim.y),
+// each walking the row's entries again. Lanes past H are masked; the table is not padded,
 // and its rows may be strided (a row-strided view is not copied).
 //
 // Why not the tensor cores or TMA. There is no dense product: each gathered
@@ -92,23 +133,30 @@
 // gathers are per-lane loads.
 //
 // Bound. Bytes: the distinct table rows the entries read, 8 B an entry
-// (its row and its scale; 4 B for B12, which reads no scale), 4 B an output
-// row pointer and the f32 output written once; 2 flops per entry and column
-// (1 for B12). Bytes bound it. The pair tables fit in the 50 MB L2 (PPI
+// (its row and its scale; 4 B for B12, which reads no scale, and for B14,
+// whose row is its slot; 4 K B more of expd for B10 and B14), 4 B an output
+// row pointer and the f32 outputs written once; 2 flops per entry and
+// column (1 for B12). Bytes bound it. The pair tables fit in the 50 MB L2 (PPI
 // [24192, 320] bf16 15.5 MB, QM9 [81920, 128] bf16 21 MB), so their gathers
 // wait on L2 latency; B12's streams (bf16 [311296, 324] 202 MB, the
-// cotangent [245760, 324] 159 MB) do not, so its rows come from HBM.
+// cotangent [245760, 324] 159 MB) and B14's (f32 [245760, 324], 318 MB)
+// do not, so their rows come from HBM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <limits>
+#include <type_traits>
 
 #include "lane_units.cuh"
 
 namespace {
 
 constexpr int IN_FLIGHT = 8;                 // row gathers before their FMAs
+// head_rows_kernel's: with up to 3 16-byte units a lane (B14's f32 rows of
+// 320 in one column tile), 2 in flight ran faster on an H100 than 4 or 8
+// (127 registers at 2 units a lane) (PERF.md).
+constexpr int HEAD_IN_FLIGHT = 2;
 
 struct RowArgs {
   const void* table;
@@ -211,14 +259,137 @@ __global__ void __launch_bounds__(ROW_THREADS) row_owner_kernel(RowArgs a) {
   }
 }
 
+struct HeadArgs {
+  const void* table;
+  int ld_units;             // the table's row stride, in lane units
+  int h;
+  int k;                    // heads: column c takes head c % k
+  const float* expd;        // entry (slot s, head j) at
+  int64_t head_stride;      //   j * head_stride + s * slot_stride
+  int64_t slot_stride;
+  const int32_t* row_ptr;   // [out_rows + 1]
+  const int32_t* src_row;   // [n] table rows
+  const int32_t* slot;      // [n] plan slots (expd's index)
+  int64_t out_rows;
+  float* out;               // [out_rows, h]
+  float* denom;             // [out_rows, k]
+};
+
+// row_owner_kernel with a scale per head (B10, B14): G lanes own a row, W
+// units a lane in this column tile; lanes sub < k load head sub's expd of
+// each entry, and element i of the lane's units takes head from[i].
 template <typename T, int UB, int G, int W>
-void launch_one(dim3 grid, cudaStream_t s, const RowArgs& a) {
-  row_owner_kernel<T, UB, G, W><<<grid, ROW_THREADS, 0, s>>>(a);
+__global__ void __launch_bounds__(ROW_THREADS) head_rows_kernel(HeadArgs a) {
+  using U = Unit<T, UB>;
+  constexpr int E = U::kElems;
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of 2");
+  constexpr int kRows = 32 / G;
+  constexpr int kRound = G > HEAD_IN_FLIGHT ? G : HEAD_IN_FLIGHT;
+  constexpr int kPer = kRound / G;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);
+  const int64_t first =
+      (static_cast<int64_t>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5))
+      * kRows;
+  if (first >= a.out_rows) return;  // warp-uniform
+  const int64_t row = first + lane / G;
+  const bool live = row < a.out_rows;
+  const int units = a.h / E;
+  const int unit0 = blockIdx.y * G * W + sub;
+  // The launcher keeps every unit of a lane on one head pattern (k divides
+  // G * E, or W = 1), so the heads of unit0 serve all of them.
+  int from[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) from[i] = (unit0 * E + i) % a.k;
+  const bool head_lane = sub < a.k;
+  const int64_t head_off = static_cast<int64_t>(sub) * a.head_stride;
+
+  float acc[W][E];
+#pragma unroll
+  for (int k = 0; k < W; ++k)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[k][e] = 0.0f;
+  float dsum = 0.0f;
+
+  const int begin = live ? __ldg(a.row_ptr + row) : 0;
+  const int len = live ? __ldg(a.row_ptr + row + 1) - begin : 0;
+  const int most = kRows == 1 ? len : __reduce_max_sync(FULL, len);
+  for (int base = 0; base < most; base += kRound) {
+    const int count = len - base;  // this row's entries left; may be <= 0
+    int src[kPer], sl[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int j = sub + G * i;
+      src[i] = 0;
+      sl[i] = 0;
+      if (j < count) {
+        src[i] = __ldg(a.src_row + begin + base + j);
+        sl[i] = __ldg(a.slot + begin + base + j);
+      }
+    }
+    const int trips = min(kRound, most - base);  // warp-uniform
+    for (int j0 = 0; j0 < trips; j0 += HEAD_IN_FLIGHT) {
+      typename U::Raw val[HEAD_IN_FLIGHT][W];
+      float e[HEAD_IN_FLIGHT];
+#pragma unroll
+      for (int u = 0; u < HEAD_IN_FLIGHT; ++u) {
+        const int reg = G >= HEAD_IN_FLIGHT ? 0 : u / G;
+        const int from_lane = G >= HEAD_IN_FLIGHT ? j0 + u : u % G;
+        const int64_t r = __shfl_sync(FULL, src[reg], from_lane, G);
+        const int64_t s = __shfl_sync(FULL, sl[reg], from_lane, G);
+        const bool ok = j0 + u < count;
+        e[u] = (ok && head_lane)
+                   ? __ldg(a.expd + head_off + s * a.slot_stride)
+                   : 0.0f;
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          const int unit = unit0 + G * k;
+          val[u][k] = (ok && unit < units)
+                          ? U::load(a.table, r * a.ld_units + unit)
+                          : U::zero();
+        }
+      }
+      // Entries past a group's row hold zeros (e and the units), so their
+      // FMAs add +0 and leave the sums' bits; the shuffles below need the
+      // whole warp, so the loop ends where the warp's longest row does.
+#pragma unroll
+      for (int u = 0; u < HEAD_IN_FLIGHT; ++u) {
+        if (j0 + u >= trips) break;  // warp-uniform
+        dsum += e[u];
+        float eh[E];
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          eh[i] = __shfl_sync(FULL, e[u], from[i], G);
+        }
+#pragma unroll
+        for (int k = 0; k < W; ++k) U::fma_each(acc[k], val[u][k], eh);
+      }
+    }
+  }
+  if (!live) return;
+
+  float* out_row = a.out + row * a.h;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int unit = unit0 + G * k;
+    if (unit >= units) continue;
+    store_f32<E>(out_row + static_cast<int64_t>(unit) * E, acc[k]);
+  }
+  if (head_lane && blockIdx.y == 0) a.denom[row * a.k + sub] = dsum;
+}
+
+template <typename T, int UB, int G, int W, typename A>
+void launch_one(dim3 grid, cudaStream_t s, const A& a) {
+  if constexpr (std::is_same_v<A, HeadArgs>) {
+    head_rows_kernel<T, UB, G, W><<<grid, ROW_THREADS, 0, s>>>(a);
+  } else {
+    row_owner_kernel<T, UB, G, W><<<grid, ROW_THREADS, 0, s>>>(a);
+  }
 }
 
 // A whole warp a row, w <= W units a lane.
-template <typename T, int UB, int W>
-void launch_wide(int w, dim3 grid, cudaStream_t s, const RowArgs& a) {
+template <typename T, int UB, int W, typename A>
+void launch_wide(int w, dim3 grid, cudaStream_t s, const A& a) {
   if (w >= W) {
     launch_one<T, UB, 32, W>(grid, s, a);
   } else if constexpr (W > 1) {
@@ -226,9 +397,8 @@ void launch_wide(int w, dim3 grid, cudaStream_t s, const RowArgs& a) {
   }
 }
 
-template <typename T, int UB, int MAX_W>
-void launch_by_lanes(int g, int w, dim3 grid, cudaStream_t s,
-                     const RowArgs& a) {
+template <typename T, int UB, int MAX_W, typename A>
+void launch_by_lanes(int g, int w, dim3 grid, cudaStream_t s, const A& a) {
   switch (g) {
     case 1: launch_one<T, UB, 1, 1>(grid, s, a); break;
     case 2: launch_one<T, UB, 2, 1>(grid, s, a); break;
@@ -240,11 +410,12 @@ void launch_by_lanes(int g, int w, dim3 grid, cudaStream_t s,
 }
 
 // The widest unit first; an element-wide unit holds up to 4 a lane.
-template <typename T>
+template <typename T, typename A>
 void launch_by_unit(int ub, int g, int w, dim3 grid, cudaStream_t s,
-                    const RowArgs& a) {
+                    const A& a) {
   if (ub == 16) {
-    launch_by_lanes<T, 16, 2>(g, w, grid, s, a);
+    launch_by_lanes<T, 16, std::is_same_v<A, HeadArgs> ? 3 : 2>(g, w, grid,
+                                                                 s, a);
   } else if (ub == 8) {
     launch_by_lanes<T, 8, 3>(g, w, grid, s, a);
   } else {
@@ -256,6 +427,52 @@ void launch_by_unit(int ub, int g, int w, dim3 grid, cudaStream_t s,
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
 
+// The lane unit (bytes), the lanes a row (g) and the units a lane (w) of
+// a row of h elements: the widest unit that divides the row, the row stride
+// and the table's address (and keeps the f32 output's vector stores
+// aligned); g the next power of two of the row's units, at least min_g; a
+// whole warp holds up to max_w16 16-byte (2 in row_owner_kernel, 3 in
+// head_rows_kernel), 3 8-byte or 4 element units a lane.
+struct Lanes {
+  int ub, units, g, w;
+};
+
+Lanes choose_lanes(int itemsize, int64_t ld, int h, const void* table,
+                   const float* out, int min_g, int max_w16) {
+  auto fits = [&](int ub) {
+    return static_cast<int64_t>(h) * itemsize % ub == 0
+           && ld * itemsize % ub == 0 && aligned(table, ub)
+           && aligned(out, 16);
+  };
+  Lanes l;
+  l.ub = fits(16) ? 16 : (fits(8) ? 8 : itemsize);
+  l.units = h * itemsize / l.ub;
+  const int max_w = l.ub == 16 ? max_w16 : (l.ub == 8 ? 3 : 4);
+  l.g = 1;
+  while (l.g < 32 && (l.g < l.units || l.g < min_g)) l.g *= 2;
+  l.w = l.g == 32 ? min((l.units + 31) / 32, max_w) : 1;
+  return l;
+}
+
+dim3 row_grid(int64_t out_rows, const Lanes& l) {
+  const int64_t rows_per_block = static_cast<int64_t>(ROW_WARPS) * (32 / l.g);
+  return dim3(
+      static_cast<unsigned>((out_rows + rows_per_block - 1) / rows_per_block),
+      (l.units + l.g * l.w - 1) / (l.g * l.w));
+}
+
+template <typename A>
+int launch_rows(int dtype, const Lanes& l, dim3 grid, void* stream,
+                const A& a) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_F32) {
+    launch_by_unit<float>(l.ub, l.g, l.w, grid, s, a);
+  } else {
+    launch_by_unit<__nv_bfloat16>(l.ub, l.g, l.w, grid, s, a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 int row_owner_launch(int device, int dtype, const void* table, int64_t ld,
                      int h, const float* scale, const int32_t* row_ptr,
                      const int32_t* src_row, const int32_t* slot,
@@ -266,32 +483,37 @@ int row_owner_launch(int device, int dtype, const void* table, int64_t ld,
       || (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   const int itemsize = dtype == DTYPE_F32 ? 4 : 2;
-  auto fits = [&](int ub) {
-    return static_cast<int64_t>(h) * itemsize % ub == 0
-           && ld * itemsize % ub == 0 && aligned(table, ub)
-           && aligned(out, 16);
-  };
-  const int ub = fits(16) ? 16 : (fits(8) ? 8 : itemsize);
-  if (ld * itemsize / ub > std::numeric_limits<int>::max())
+  const Lanes l = choose_lanes(itemsize, ld, h, table, out, 1, 2);
+  if (ld * itemsize / l.ub > std::numeric_limits<int>::max())
     return static_cast<int>(cudaErrorInvalidValue);
-  const int units = h * itemsize / ub;
-  const int max_w = ub == 16 ? 2 : (ub == 8 ? 3 : 4);
-  int g = 1;
-  while (g < 32 && g < units) g *= 2;
-  const int w = g == 32 ? min((units + 31) / 32, max_w) : 1;
-  const RowArgs a{table, static_cast<int>(ld * itemsize / ub), h, scale,
+  const RowArgs a{table, static_cast<int>(ld * itemsize / l.ub), h, scale,
                   row_ptr, src_row, slot, out_rows, out};
-  const int64_t rows_per_block = static_cast<int64_t>(ROW_WARPS) * (32 / g);
-  const dim3 grid(
-      static_cast<unsigned>((out_rows + rows_per_block - 1) / rows_per_block),
-      (units + g * w - 1) / (g * w));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) {
-    launch_by_unit<float>(ub, g, w, grid, s, a);
-  } else {
-    launch_by_unit<__nv_bfloat16>(ub, g, w, grid, s, a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows(dtype, l, row_grid(out_rows, l), stream, a);
+}
+
+int head_rows_launch(int device, int dtype, const void* table, int64_t ld,
+                     int h, int k, const float* expd, int64_t head_stride,
+                     int64_t slot_stride, const int32_t* row_ptr,
+                     const int32_t* src_row, const int32_t* slot,
+                     int64_t out_rows, float* out, float* denom,
+                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (h <= 0 || ld < h || out_rows <= 0 || k <= 0 || k > 32 || h % k
+      || !expd || !denom || (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int itemsize = dtype == DTYPE_F32 ? 4 : 2;
+  // A group holds at least k lanes, one to load each head.
+  Lanes l = choose_lanes(itemsize, ld, h, table, out, k, 3);
+  if (ld * itemsize / l.ub > std::numeric_limits<int>::max())
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Where k does not divide g * E (k not a power of two), the heads of a
+  // lane's units differ: one unit a lane, and more column tiles.
+  if (l.g * (l.ub / itemsize) % k) l.w = 1;
+  const HeadArgs a{table, static_cast<int>(ld * itemsize / l.ub), h, k,
+                   expd, head_stride, slot_stride, row_ptr, src_row, slot,
+                   out_rows, out, denom};
+  return launch_rows(dtype, l, row_grid(out_rows, l), stream, a);
 }
 
 }  // namespace
@@ -315,6 +537,24 @@ DEFINE_LAUNCH(pair_stream_joint_launch)
 DEFINE_LAUNCH(pair_spmm_launch)
 DEFINE_LAUNCH(sorted_segment_sum_launch)
 DEFINE_LAUNCH(pair_attention_ts_launch)
+
+// B10 and B14: head_rows_kernel, one signature (expd's element (slot s,
+// head j) at j * head_stride + s * slot_stride; weighted [out_rows, h] and
+// denom [out_rows, k] in f32, every element stored once).
+#define DEFINE_HEAD_LAUNCH(NAME)                                              \
+  extern "C" int NAME(int device, int dtype, const void* table, int64_t ld,  \
+                      int h, int k, const float* expd, int64_t head_stride,   \
+                      int64_t slot_stride, const int32_t* row_ptr,            \
+                      const int32_t* src_row, const int32_t* slot,            \
+                      int64_t out_rows, float* out, float* denom,             \
+                      void* stream) {                                         \
+    return head_rows_launch(device, dtype, table, ld, h, k, expd,             \
+                            head_stride, slot_stride, row_ptr, src_row, slot, \
+                            out_rows, out, denom, stream);                    \
+  }
+
+DEFINE_HEAD_LAUNCH(pair_attention_agg_launch)
+DEFINE_HEAD_LAUNCH(attention_scatter_launch)
 
 extern "C" const char* pair_stream_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -20,14 +20,16 @@ forward then runs the expd kernel (B8, ``pair_attention_expd``) once, and
 either the merged-plan SpMM (B3, ``pair_spmm``) once per head on a
 head-major table or, for heads wider than a tile or more heads than that
 route takes, the hk-major aggregation kernel (B10, ``pair_attention_agg``)
-once. The backward runs the fused backward kernel (B9,
-``pair_attention_bwd_fused``) once over the backward plan: a row owner by
-source row over the plan's compact forms (``MergedPlan.bwd_rows`` and
-``bwd_ts_rows``, built at the batch's first backward and kept), then a
-second pass that sums the target-score gradient by its row. The per-type
+once, over the same compact form. The backward runs the fused backward
+kernel (B9, ``pair_attention_bwd_fused``) once over the backward plan: a
+row owner by source row over the plan's compact forms
+(``MergedPlan.bwd_rows`` and ``bwd_ts_rows``, built at the batch's first
+backward and kept), then a second pass that sums the target-score
+gradient by its row. The per-type
 form launches each of these once per edge type on that type's ``[V]``-row
 slab, with one stabiliser over all types. All five kernels are hand-written
-CUDA (``csrc/pair_attention.cu`` and ``csrc/pair_stream.cu``). Each wrapper
+CUDA (``csrc/pair_attention.cu``: B8, B9 and B11; ``csrc/pair_stream.cu``:
+B3, B10 and B9's second pass). Each wrapper
 runs its plain PyTorch version on a CPU tensor and launches its kernel on a
 CUDA tensor, or raises.
 """
@@ -45,7 +47,9 @@ from .pair_spmm import (
     SlotRows,
     TsRows,
     _launch_rows,
+    _library,
     _require_compact,
+    launch_head_rows,
     pair_spmm,
     plan_group,
     slot_abs_ids,
@@ -64,10 +68,6 @@ ACC_W = 16
 SCORE_BUDGET_BYTES = 12 * 1024 * 1024
 TABLE_BUDGET_BYTES = 11 * 1024 * 1024
 RESIDENT_BUDGET_BYTES = 13 * 1024 * 1024
-# B9's row owner holds a whole table row in one warp's registers: at most
-# 512 columns (the reference's backward tiles columns and has no such
-# limit).
-BWD_MAX_COLUMNS = 512
 
 
 def _expd_width(num_heads: int) -> int:
@@ -83,13 +83,8 @@ def pair_attention_applicable(rows: int, num_nodes: int, hidden_dim: int,
                               src_space: int = None) -> bool:
     """The reference's static gate of the pair-attention path (its VMEM
     budgets included), so that the port takes the path the reference takes
-    on the same shapes, and the port's own width limit of B9
-    (``BWD_MAX_COLUMNS``): wider layers take the sorted-scatter route, as
-    layers of more than 8 heads do in both. ``src_space`` is one type's
-    source-row count."""
+    on the same shapes. ``src_space`` is one type's source-row count."""
     if num_heads <= 0 or hidden_dim % num_heads or TILE % num_heads:
-        return False
-    if hidden_dim > BWD_MAX_COLUMNS:
         return False
     if num_heads > min(ACC_W, 8):
         return False
@@ -178,8 +173,8 @@ def _stabilise(m, stream_dtype):
 
 
 # ---------------------------------------------------------------------------
-# The four kernels of csrc/pair_attention.cu, their plain versions and
-# wrappers.
+# The four attention kernels (B8, B9 and B11 in csrc/pair_attention.cu, B10
+# in csrc/pair_stream.cu), their plain versions and wrappers.
 
 # Launch counts of the CUDA kernels of this module: each wrapper adds one
 # where it launches its kernel, and nowhere else.
@@ -424,12 +419,10 @@ def pair_attention_bwd_fused(table, d_weighted, d_denom, scores, maxes,
     if table.dim() != 2:
         raise ValueError(f"{entry}: table must be 2-D")
     rows, h = table.shape
-    if (k > 8 or h % k or h > BWD_MAX_COLUMNS
-            or tuple(d_weighted.shape) != (v, h)):
+    if k > 8 or h % k or tuple(d_weighted.shape) != (v, h):
         raise ValueError(f"{entry}: needs num_heads 1, 2, 4 or 8 dividing "
-                         f"the table's width of at most {BWD_MAX_COLUMNS} "
-                         f"columns and d_weighted of [{v}, {h}], got "
-                         f"num_heads={k}, table of {tuple(table.shape)}, "
+                         f"the table's width and d_weighted of [{v}, {h}], "
+                         f"got num_heads={k}, table of {tuple(table.shape)}, "
                          f"d_weighted of {tuple(d_weighted.shape)}")
     if (scores.shape[0] != rows or tuple(d_denom.shape) != (v, k)
             or tuple(maxes.shape) != (v, k) or vs <= 0 or rows % vs):
@@ -509,11 +502,15 @@ def pair_attention_max(scores, rel_src, rel_tgt, src_blk, grp_tgt,
 
 
 def pair_attention_agg(table, expd, rel_src, rel_tgt, src_blk, grp_tgt,
-                       num_nodes: int, num_heads: int):
+                       num_nodes: int, num_heads: int,
+                       compact: Optional[SlotRows] = None):
     """B10: (denom [V, K], weighted [V, H]) in f32, the softmax denominators
     and expd-weighted hk-major message sums over the forward plan's valid
     slots (see ``pair_attention_agg_plain``). ``table`` [rows, H] f32 or
-    bf16, ``expd`` B8's f32 ``[K, slots]``."""
+    bf16, ``expd`` B8's f32 ``[K, slots]``. On the card it reads only the
+    plan's ``compact`` form (``MergedPlan.fwd_rows(V, rows)``, the form B3
+    reads) and expd, through ``csrc/pair_stream.cu``'s per-head row owner;
+    on the CPU the plain version reads the plan arrays."""
     if table.device.type == "cpu":
         return pair_attention_agg_plain(table, expd, rel_src, rel_tgt,
                                         src_blk, grp_tgt, num_nodes,
@@ -521,39 +518,21 @@ def pair_attention_agg(table, expd, rel_src, rel_tgt, src_blk, grp_tgt,
     if table.device.type != "cuda":
         raise TypeError(f"pair_attention_agg: unsupported device "
                         f"{table.device}")
-    from .cuda_build import load_library
-
-    lib = load_library(_SOURCE)
+    _require_compact("pair_attention_agg", compact)
+    _library()
     entry = "pair_attention_agg_launch"
-    k, v = num_heads, num_nodes
-    _check(entry, table.device, table=(table, tuple(_DTYPE_CODES)),
-           expd=(expd, (torch.float32,)))
-    group, num_groups = _plan_checks(entry, table.device, rel_src, rel_tgt,
-                                     src_blk, grp_tgt)
-    slots = rel_src.numel()
-    if table.dim() != 2:
-        raise ValueError(f"{entry}: table must be 2-D")
-    rows, h = table.shape
-    if (k <= 0 or 32 % k or h % k or tuple(expd.shape) != (k, slots)
-            or v <= 0):
-        raise ValueError(f"{entry}: needs 32 % num_heads == 0, a table "
-                         f"width that num_heads divides and expd of "
-                         f"[{k}, {slots}], got num_heads={k}, table of "
-                         f"{tuple(table.shape)}, expd of "
+    k, slots = num_heads, rel_src.numel()
+    if k <= 0 or 32 % k or tuple(expd.shape) != (k, slots):
+        raise ValueError(f"{entry}: needs 32 % num_heads == 0 and expd of "
+                         f"[{k}, {slots}], got num_heads={k} and expd of "
                          f"{tuple(expd.shape)}")
-    dev = table.device
-    denom = torch.zeros((v, k), dtype=torch.float32, device=dev)
-    weighted = torch.zeros((v, h), dtype=torch.float32, device=dev)
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    _call(lib, entry, [i, i, p, i64, i, i, p, i64, p, p, p, p, i, i, i, p, p,
-                       p],
-          dev.index or 0, _DTYPE_CODES[table.dtype], table.data_ptr(), rows,
-          h, k, expd.data_ptr(), slots, rel_src.data_ptr(),
-          rel_tgt.data_ptr(), src_blk.data_ptr(), grp_tgt.data_ptr(), group,
-          num_groups, v, denom.data_ptr(), weighted.data_ptr(),
-          torch.cuda.current_stream(dev).cuda_stream)
+    if compact.num_slots != slots:
+        raise ValueError(f"{entry}: the compact form is over "
+                         f"{compact.num_slots} slots, the plan has {slots}")
+    out = launch_head_rows(entry, table, expd, slots, 1, k, compact,
+                           num_nodes)
     LAUNCHES["pair_attention_agg"] += 1
-    return denom, weighted
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -614,7 +593,9 @@ def _launch_sums(table, scores, m_safe, plan: MergedPlan, v: int, k: int,
     if head_dim + 1 <= TILE and k <= 4 * h_tiles:
         denom, weighted = _headmajor_sums(table, expd_f, plan, v, k)
     else:
-        denom, weighted = pair_attention_agg(table, expd_f, *plan.fwd, v, k)
+        denom, weighted = pair_attention_agg(
+            table, expd_f, *plan.fwd, v, k,
+            compact=plan.fwd_rows(v, table.shape[0]))
     if plan.ovf_src.shape[0] == 0:  # no spilled edges (the common case)
         zero_o = table.new_zeros((0, k), dtype=torch.float32)
         return denom, weighted, zero_o, zero_o

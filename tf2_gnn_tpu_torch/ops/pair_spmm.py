@@ -20,7 +20,9 @@ three launch one hand-written CUDA kernel (``csrc/pair_stream.cu``'s
 object builds it at first read and keeps it, so it is built once per
 batch. Each wrapper runs its plain PyTorch version (over the plan arrays)
 on a CPU tensor and launches the kernel on a CUDA tensor, or raises; there
-is no fallback between the two.
+is no fallback between the two. ``launch_head_rows`` launches the kernel's
+per-head twin (``head_rows_kernel``) for the attention sums B10
+(``pair_attention.py``) and B14 (``sorted_spmm.py``).
 """
 import ctypes
 import dataclasses
@@ -787,15 +789,21 @@ def _scatter_slots(tables, scale, srcabs, tgtabs, valid, out_rows: int):
 _INT, _INT64, _PTR = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 # (restype, argtypes) of the library's C entry points, set once at load:
 # one row-owner signature for K1, K2, B3, B12 (sorted_spmm.py) and B9's
-# second pass (pair_attention.py).
+# second pass (pair_attention.py), one per-head signature for B10
+# (pair_attention.py) and B14 (sorted_spmm.py).
 _ROW_OWNER = (ctypes.c_int, [_INT, _INT, _PTR, _INT64, _INT, _PTR, _PTR,
                              _PTR, _PTR, _INT64, _PTR, _PTR])
+_HEAD_ROWS = (ctypes.c_int, [_INT, _INT, _PTR, _INT64, _INT, _INT, _PTR,
+                             _INT64, _INT64, _PTR, _PTR, _PTR, _INT64, _PTR,
+                             _PTR, _PTR])
 _SIGNATURES = {
     "pair_stream_launch": _ROW_OWNER,
     "pair_stream_joint_launch": _ROW_OWNER,
     "pair_spmm_launch": _ROW_OWNER,
     "sorted_segment_sum_launch": _ROW_OWNER,
     "pair_attention_ts_launch": _ROW_OWNER,
+    "pair_attention_agg_launch": _HEAD_ROWS,
+    "attention_scatter_launch": _HEAD_ROWS,
     "pair_stream_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -818,6 +826,22 @@ def _rows_view(x):
     if x.stride(1) == 1 and x.stride(0) >= x.shape[1]:
         return x
     return x.contiguous()
+
+
+def _check_compact(entry: str, table, compact: SlotRows,
+                   out_rows: int) -> None:
+    """The compact form's sizes held to the call's (its own tensors were
+    checked when it was built)."""
+    if (compact.out_rows != out_rows
+            or compact.table_rows != table.shape[0]):
+        raise ValueError(
+            f"{entry}: the compact form is of a [{compact.table_rows}]-row "
+            f"table into {compact.out_rows} rows; the call has a "
+            f"[{table.shape[0]}]-row table and {out_rows} output rows")
+    if compact.row_ptr.device != table.device:
+        raise ValueError(f"{entry}: the compact form is on "
+                         f"{compact.row_ptr.device}, the table on "
+                         f"{table.device}")
 
 
 def _check_table(entry: str, table, scale) -> None:
@@ -845,18 +869,11 @@ def _launch_rows(entry: str, table, scale, compact: SlotRows,
     lib = _library()
     _check_table(entry, table, scale)
     table = _rows_view(table)
-    if (compact.out_rows != out_rows or compact.table_rows != table.shape[0]
-            or (scale is not None and compact.num_slots != scale.numel())):
-        raise ValueError(
-            f"{entry}: the compact form is of a [{compact.table_rows}]-row "
-            f"table into {compact.out_rows} rows over {compact.num_slots} "
-            f"slots; the call has a [{table.shape[0]}]-row table and "
-            f"{out_rows} output rows"
-            + ("" if scale is None else f" and {scale.numel()} scales"))
-    if compact.row_ptr.device != table.device:
-        raise ValueError(f"{entry}: the compact form is on "
-                         f"{compact.row_ptr.device}, the table on "
-                         f"{table.device}")
+    _check_compact(entry, table, compact, out_rows)
+    if scale is not None and compact.num_slots != scale.numel():
+        raise ValueError(f"{entry}: the compact form is over "
+                         f"{compact.num_slots} slots, the call has "
+                         f"{scale.numel()} scales")
     h = table.shape[1]
     out = torch.empty((out_rows, h), dtype=torch.float32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
@@ -867,6 +884,45 @@ def _launch_rows(entry: str, table, scale, compact: SlotRows,
         compact.row_ptr.data_ptr(), compact.src_row.data_ptr(),
         compact.slot.data_ptr(), out_rows, out.data_ptr(), stream))
     return out
+
+
+def launch_head_rows(entry: str, table, expd, head_stride: int,
+                     slot_stride: int, num_heads: int, compact: SlotRows,
+                     out_rows: int):
+    """Launch ``head_rows_kernel`` (B10 or B14, by ``entry``) on the
+    current stream over the plan's compact form: (denom f32 [out_rows, K],
+    weighted f32 [out_rows, H]) with ``weighted[t, c]`` the sum over row
+    t's entries of ``expd(slot, c % K) * table[src_row, c]`` and ``denom[t,
+    k]`` that of ``expd(slot, k)``, where ``expd(s, k)`` is the element
+    ``k * head_stride + s * slot_stride`` of the contiguous f32 ``expd``.
+    Every element is stored once, so neither output is initialised;
+    ``table`` may be a row-strided view."""
+    lib = _library()
+    _check_table(entry, table, None)
+    table = _rows_view(table)
+    _check_compact(entry, table, compact, out_rows)
+    k, h = num_heads, table.shape[1]
+    if not 0 < k <= 32 or h % k:
+        raise ValueError(f"{entry}: needs 0 < num_heads <= 32 dividing the "
+                         f"table's width, got {k} heads and {h} columns")
+    last = (k - 1) * head_stride + (compact.num_slots - 1) * slot_stride
+    if (expd.dtype != torch.float32 or expd.device != table.device
+            or not expd.is_contiguous() or last >= expd.numel()):
+        raise ValueError(f"{entry}: expd must be contiguous f32 on the "
+                         f"table's device holding {k} heads of "
+                         f"{compact.num_slots} slots, got {expd.dtype} "
+                         f"{tuple(expd.shape)} on {expd.device}")
+    denom = torch.empty((out_rows, k), dtype=torch.float32,
+                        device=table.device)
+    out = torch.empty((out_rows, h), dtype=torch.float32, device=table.device)
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    _raise_on(lib, entry, getattr(lib, entry)(
+        table.device.index or 0, _DTYPE_CODES[table.dtype],
+        table.data_ptr(), table.stride(0), h, k, expd.data_ptr(),
+        head_stride, slot_stride, compact.row_ptr.data_ptr(),
+        compact.src_row.data_ptr(), compact.slot.data_ptr(), out_rows,
+        out.data_ptr(), denom.data_ptr(), stream))
+    return denom, out
 
 
 def _on_cpu(name: str, tables) -> bool:

@@ -29,7 +29,8 @@ chunk-ordered stream into ``out[block_ids[slot // 512] * R + rel[slot]]``
 All four are hand-written CUDA. B12 launches the row-owner kernel of
 ``csrc/pair_stream.cu`` over the plan's compact form (``sorted_rows``, a
 CSR of the valid slots by output row, which ``ScatterPlan.sum_rows``
-builds at first read and keeps); B13-B15 are ``csrc/sorted_scatter.cu``'s.
+builds at first read and keeps), and B14 its per-head twin over the
+forward form; B13 and B15 are ``csrc/sorted_scatter.cu``'s.
 Each wrapper runs its plain PyTorch version (``index_add_`` or
 ``scatter_reduce_``, accumulating in f32) on a CPU tensor and launches its
 kernel on a CUDA tensor, or raises. The autograd ops
@@ -54,7 +55,9 @@ from .pair_spmm import (
     _DTYPE_CODES,
     SlotRows,
     _launch_rows,
+    _library,
     _require_compact,
+    launch_head_rows,
 )
 from .segment import segment_logits_max, segment_sum
 
@@ -294,9 +297,10 @@ class ScatterPlan:
             for f in dataclasses.fields(self) if f.type is object})
 
     def sum_rows(self, form: str, out_rows: int) -> SlotRows:
-        """B12's compact form (``sorted_rows``) into ``out_rows`` rows, in
+        """The compact form (``sorted_rows``) into ``out_rows`` rows, in
         one of its call forms: ``"fwd"``, the forward slots by target
-        (``plan_scatter``); ``"fwd_typed"``, the forward slots by type-minor
+        (B12 in ``plan_scatter``, B14 in ``attention_scatter``);
+        ``"fwd_typed"``, the forward slots by type-minor
         row ``rel * L + type`` (R = 128 * L, ``plan_gather_tgt_typed``'s
         gradient); ``"bwd"``, the backward slots by merged source, each
         reading its own stream row; ``"bwd_fused"``, the same rows, each
@@ -320,8 +324,8 @@ class ScatterPlan:
 
 
 # ---------------------------------------------------------------------------
-# The four kernels of csrc/sorted_scatter.cu, their plain versions and
-# wrappers.
+# The four sorted-scatter kernels (B12 and B14 in csrc/pair_stream.cu, B13
+# and B15 in csrc/sorted_scatter.cu), their plain versions and wrappers.
 
 # Launch counts of the CUDA kernels of this module: each wrapper adds one
 # where it launches its kernel, and nowhere else.
@@ -448,13 +452,12 @@ def attention_scatter_sums_plain(expd, msgs, rel, block_ids, num_nodes: int):
 
 
 def _launch(entry: str, msgs, aux, rel, block_ids, num_nodes: int,
-            stream_dtypes, fill: float, heads: bool = False):
-    """Launch one kernel of ``csrc/sorted_scatter.cu`` (B13-B15) on the
+            stream_dtypes, fill: float):
+    """Launch one kernel of ``csrc/sorted_scatter.cu`` (B13, B15) on the
     current stream into a fresh f32 [num_nodes, H] output filled with
-    ``fill`` (R = 128). ``msgs`` [slots, H] may be a row-strided view (its columns contiguous);
-    ``aux`` is the f32 per-slot scale (B13), the f32 [slots, K] expd (B14,
-    ``heads``: also a zeroed [num_nodes, K] denominator) or None. Returns
-    (out, denominator or None)."""
+    ``fill`` (R = 128). ``msgs`` [slots, H] may be a row-strided view (its
+    columns contiguous); ``aux`` is the f32 per-slot scale (B13) or
+    None."""
     from .cuda_build import load_library
 
     lib = load_library(_SOURCE)
@@ -474,36 +477,27 @@ def _launch(entry: str, msgs, aux, rel, block_ids, num_nodes: int,
         raise ValueError(f"{entry}: inconsistent plan shapes (msgs "
                          f"{tuple(msgs.shape)}, rel {rel.numel()}, "
                          f"{num_chunks} chunks)")
-    k = 0
-    if heads:
-        k = aux.shape[1] if aux.dim() == 2 else 0
-        if not 0 < k <= 32 or h % k:
-            raise ValueError(f"{entry}: needs 0 < K <= 32 heads dividing H, "
-                             f"got expd {tuple(aux.shape)} and msgs "
-                             f"{tuple(msgs.shape)}")
     if aux is not None:
         _check(entry, dev, aux=(aux, (torch.float32,)))
-        if aux.numel() != slots * max(k, 1):
+        if aux.numel() != slots:
             raise ValueError(f"{entry}: the per-slot operand must be a "
-                             f"contiguous f32 [{slots}, {max(k, 1)}]")
+                             f"contiguous f32 [{slots}]")
     out = torch.full((num_nodes, h), fill, dtype=torch.float32, device=dev)
-    denom = (torch.zeros((num_nodes, k), dtype=torch.float32, device=dev)
-             if heads else None)
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [i, i, p, i64, i, p, i, p, p, i, i, p, p, i64, p]
+    fn.argtypes = [i, i, p, i64, i, p, p, p, i, i, p, i64, p]
     err = fn(dev.index or 0, _DTYPE_CODES[msgs.dtype], msgs.data_ptr(),
-             msgs.stride(0), h, None if aux is None else aux.data_ptr(), k,
+             msgs.stride(0), h, None if aux is None else aux.data_ptr(),
              rel.data_ptr(), block_ids.data_ptr(), num_chunks, r,
-             out.data_ptr(), None if denom is None else denom.data_ptr(),
-             num_nodes, torch.cuda.current_stream(dev).cuda_stream)
+             out.data_ptr(), num_nodes,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         lib.sorted_scatter_error_string.restype = ctypes.c_char_p
         lib.sorted_scatter_error_string.argtypes = [ctypes.c_int]
         msg = lib.sorted_scatter_error_string(err).decode()
         raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
-    return out, denom
+    return out
 
 
 _STREAM_DTYPES = tuple(_DTYPE_CODES)
@@ -565,8 +559,8 @@ def sorted_segment_sum_scaled(msgs, scale, rel, block_ids, num_nodes: int):
     if device == "cpu":
         return sorted_segment_sum_scaled_plain(msgs, scale, rel, block_ids,
                                                num_nodes)
-    out, _ = _launch("sorted_segment_sum_scaled_launch", msgs, scale, rel,
-                     block_ids, num_nodes, _STREAM_DTYPES, 0.0)
+    out = _launch("sorted_segment_sum_scaled_launch", msgs, scale, rel,
+                  block_ids, num_nodes, _STREAM_DTYPES, 0.0)
     LAUNCHES["sorted_segment_sum_scaled"] += 1
     return out
 
@@ -577,25 +571,41 @@ def sorted_segment_max(vals, rel, block_ids, num_nodes: int):
     and other non-finite entries become 0. Forward only."""
     if _device_type("sorted_segment_max", vals) == "cpu":
         return sorted_segment_max_plain(vals, rel, block_ids, num_nodes)
-    out, _ = _launch("sorted_segment_max_launch", vals, None, rel, block_ids,
-                     num_nodes, _F32, -math.inf)
+    out = _launch("sorted_segment_max_launch", vals, None, rel, block_ids,
+                  num_nodes, _F32, -math.inf)
     LAUNCHES["sorted_segment_max"] += 1
     # Non-finite -> 0, as the plain version's where(isfinite), in place.
     return out.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0)
 
 
-def attention_scatter_sums(expd, msgs, rel, block_ids, num_nodes: int):
+def attention_scatter_sums(expd, msgs, rel, block_ids, num_nodes: int,
+                           compact: Optional[SlotRows] = None):
     """B14: (denom f32 [num_nodes, K], weighted f32 [num_nodes, H]) in one
     pass (see ``attention_scatter_sums_plain``). ``expd`` f32 [slots, K]
     with K <= 32 dividing H, ``msgs`` f32 [slots, H] in hk-major layout,
-    possibly a row-strided view."""
+    possibly a row-strided view. On the card it reads only the plan's
+    ``compact`` form (``ScatterPlan.sum_rows("fwd", num_nodes)``: each
+    entry's stream row is its slot), the valid slots' rows and their expd,
+    through ``csrc/pair_stream.cu``'s per-head row owner; on the CPU the
+    plain version reads the plan arrays."""
     if _device_type("attention_scatter_sums", expd) == "cpu":
         return attention_scatter_sums_plain(expd, msgs, rel, block_ids,
                                             num_nodes)
-    weighted, denom = _launch("attention_scatter_launch", msgs, expd, rel,
-                              block_ids, num_nodes, _F32, 0.0, heads=True)
+    _require_compact("attention_scatter_sums", compact)
+    _library()
+    entry = "attention_scatter_launch"
+    _block_rows(num_nodes, None)
+    if msgs.dtype != torch.float32 or expd.dim() != 2:
+        raise TypeError(f"{entry}: needs f32 msgs and a 2-D expd, got "
+                        f"{msgs.dtype} msgs and expd of {tuple(expd.shape)}")
+    slots, k = expd.shape
+    if msgs.shape[0] != slots or compact.num_slots != slots:
+        raise ValueError(f"{entry}: expd has {slots} slots, msgs "
+                         f"{msgs.shape[0]} and the compact form "
+                         f"{compact.num_slots}")
+    out = launch_head_rows(entry, msgs, expd, 1, k, k, compact, num_nodes)
     LAUNCHES["attention_scatter_sums"] += 1
-    return denom, weighted
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -732,7 +742,8 @@ def plan_scatter(weighted, plan: ScatterPlan) -> torch.Tensor:
 
 class AttentionScatter(torch.autograd.Function):
     """Fused attention aggregation (``attention_scatter``,
-    spmm_pallas.py:755-873): B14 forward; the backward is plain PyTorch,
+    spmm_pallas.py:755-873): B14 forward over the plan's forward compact
+    form (shared with ``plan_scatter``'s B12); the backward is plain PyTorch,
     as the reference's ``_as_bwd`` is XLA:
 
         d_msgs[s, c] = expd[s, c % K] * d_weighted[tgt_s, c]
@@ -743,9 +754,9 @@ class AttentionScatter(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, expd, msgs, plan: ScatterPlan):
-        denom, weighted = attention_scatter_sums(expd, msgs, plan.rel_tgt,
-                                                 plan.tgt_blocks,
-                                                 plan.num_nodes)
+        denom, weighted = attention_scatter_sums(
+            expd, msgs, plan.rel_tgt, plan.tgt_blocks, plan.num_nodes,
+            compact=plan.sum_rows("fwd", plan.num_nodes))
         ctx.plan = plan
         ctx.save_for_backward(expd, msgs)
         return denom, weighted

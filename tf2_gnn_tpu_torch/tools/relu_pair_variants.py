@@ -39,8 +39,9 @@ VARIANTS = {
 WIDTHS = (320, 64)
 
 
-def _variant_csrc(cuda_build, shipped: Path, name: str, edits) -> Path:
-    """The ``shipped`` ``csrc/`` with ``edits`` applied to ``SOURCE``: the
+def _variant_csrc(cuda_build, shipped: Path, name: str, edits,
+                  source: str = SOURCE) -> Path:
+    """The ``shipped`` ``csrc/`` with ``edits`` applied to ``source``: the
     directory itself where there are none, else a copy under the build
     directory."""
     if not edits:
@@ -48,11 +49,11 @@ def _variant_csrc(cuda_build, shipped: Path, name: str, edits) -> Path:
     slug = re.sub(r"\W+", "_", name).strip("_")
     root = cuda_build.BUILD_DIR.parent / "variants" / slug / "csrc"
     shutil.copytree(shipped, root, dirs_exist_ok=True)
-    text = (root / SOURCE).read_text()
+    text = (root / source).read_text()
     for anchor, old, new in edits:
         at = text.index(old, text.index(anchor))
         text = text[:at] + new + text[at + len(old):]
-    (root / SOURCE).write_text(text)
+    (root / source).write_text(text)
     return root
 
 
@@ -65,9 +66,9 @@ def _demangle(names):
         return list(names)
 
 
-def _ptxas_report(log: str):
-    """(kernel, registers, spill stores, spill loads) of every relu-pair
-    entry function in ``nvcc -Xptxas -v``'s output."""
+def _ptxas_report(log: str, match: str = "relu_pair"):
+    """(kernel, registers, spill stores, spill loads) of every entry
+    function whose name holds ``match`` in ``nvcc -Xptxas -v``'s output."""
     rows, name, spills = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -78,7 +79,7 @@ def _ptxas_report(log: str):
         if m:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and "relu_pair" in name:
+        if m and name and match in name:
             rows.append((name, int(m.group(1))) + spills)
     names = _demangle([r[0] for r in rows])
     return [(n,) + r[1:] for n, r in zip(names, rows)]
