@@ -25,7 +25,7 @@ Phases, each of which fails the run by raising:
       PyTorch library call computing the same function
       (``torch.sparse.mm``, CSR built from the plan outside the timed
       window), the train step and the eval forward; for the row owners
-      (K1, K2, B3, B4-B6, B9, B10, B12, B14, P1, P2) and the library calls
+      (K1, K2, B3, B4-B6, B9-B12, B14, B15, P1, P2) and the library calls
       also the
       device time (torch.profiler over 20 launches, at the end of the run,
       after every path's step time; ``--profile`` traces each path's steps
@@ -73,9 +73,9 @@ Phases, each of which fails the run by raising:
       [311296, 324] stream, R = 128), the gathered form (``plan_gather_src``'s
       gradient: a bf16 [245760, 324] cotangent read through
       ``bwd_to_fwd_idx``) and the typed form (an f32 [245760, 4] stream,
-      R = 384); B14 over the forward compact form (f32 expd and a
-      strided f32 message view; two launches bit-equal) and B15
-      (exactly);
+      R = 384); B14 and B15 over the forward compact form (B14: f32 expd
+      and a strided f32 message view; B15: f32 logits, exactly), each two
+      launches bit-equal;
    b. ``workloads.rgcn_sorted_params()`` (PPI_RGCN as the bench's sorted
       path runs it: 4 layers, hidden 320, f32 edge stream) and the shipped
       PPI_RGAT on its sorted fallback: each model's eval forward against
@@ -86,17 +86,20 @@ Phases, each of which fails the run by raising:
    c. timings as in 2c; the library calls are ``torch.sparse.mm`` of the
       plan's [rows, slots] CSR (B12's stream and typed forms, B13), of the
       [rows, forward slots] CSR (B12's gathered form) and one
-      ``scatter_reduce_`` (B15); B14 has none. B12's forms and B14 also
-      get their device times.
+      ``scatter_reduce_`` (B15); B14 has none. B12's forms, B14 and B15
+      also get their device times.
 6. RGAT on the per-type-plan PPI batch of phase 2 (one launch of each
    attention kernel per edge type), the same three steps:
-   a. the max kernel (B11) against its plain version, exactly, on the
-      largest type's plan (bf16 [8064, 8] scores) and on the merged plan
-      of phase 3 (bf16 [24192, 8]); the hk-major aggregation kernel (B10)
-      over the plan's forward compact form in its two call forms (K = 8,
-      H = 64 and K = 4, H = 512; bf16 table, B8's f32 expd), two launches
-      bit-equal; B9 on the same plan at the two models' shapes (K = 4,
-      H = 320 and K = 8, H = 64), two launches bit-equal;
+   a. the max kernel (B11) over the forward compact form against its
+      plain version, exactly, on the largest type's plan (bf16 [8064, 8]
+      scores; also starting from an ``init``, as the per-type forward
+      chains its launches) and on the merged plan of phase 3 (bf16
+      [24192, 8]), two launches bit-equal; the hk-major aggregation
+      kernel (B10) over the plan's forward compact form in its two call
+      forms (K = 8, H = 64 and K = 4, H = 512; bf16 table, B8's f32
+      expd), two launches bit-equal; B9 on the same plan at the two
+      models' shapes (K = 4, H = 320 and K = 8, H = 64), two launches
+      bit-equal;
    b. the shipped PPI_RGAT with the ``"exact"`` stabiliser (per step
       B11, B8 and B9 once per type and layer, B3 once per head, type and
       layer) and ``workloads.rgat_eight_heads_params()`` (GAT's 8 heads of
@@ -105,7 +108,8 @@ Phases, each of which fails the run by raising:
       kernel of phases 2-5 launches;
    c. timings as in 2c; B11's library call is one ``scatter_reduce_`` of
       the per-slot logits; B10 has none (it would take K sparse products);
-      B9 at the two shapes of 6a and B10's second form are logged.
+      B11 and B10 also get their device times; B9 at the two shapes of 6a,
+      B11's merged form and B10's second form are logged.
 7. The shipped QM9_RGCN on the QM9-shaped batch (``bench.py::measure_qm9``'s:
    909 molecules, 5 edge types on per-type pair plans, V = 16384):
    a. K2 and K1 against their plain versions at the QM9 plan's shapes
@@ -151,9 +155,9 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 peak outside the tensor cores
 # Kernel vs plain version: both sum f32 products, in different orders
-# (the atomics of B7, B11, B13 and B15 reorder run to run; the row owners
-# K1, K2, B3, B4-B6, B9, B10, B12 and B14 keep one order); B8/B9 take expf
-# of the same f32 arguments as torch.exp.
+# (the atomics of B7 and B13 reorder run to run; the row owners K1, K2,
+# B3, B4-B6, B9, B10, B12 and B14 keep one order); B8/B9 take expf of the
+# same f32 arguments as torch.exp. The maxes B11 and B15 match exactly.
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
 # Whole model, kernels vs plain versions: besides the f32 reorder, a sum
 # that lands on the other side of a bf16 rounding boundary re-rounds one
@@ -919,6 +923,19 @@ def head_rows_bound_ms(compact, h: int, itemsize: int, k: int,
     return bound_ms(nbytes, n * (2.0 * h + k))
 
 
+def max_rows_bound_ms(compact, k: int, read_bytes: int,
+                      ops_per_value: float, init: bool = False):
+    """B11's and B15's bound, counting what the function needs, whatever
+    implements it: bytes = ``read_bytes`` (the distinct score halves, or
+    value rows, the entries read), 4 B an entry (its row), 4 B an output
+    row pointer and the f32 output written once (and the f32 ``init`` read
+    once); operations = ``ops_per_value`` an entry and column."""
+    n, out_rows = compact.src_row.numel(), compact.out_rows
+    nbytes = (read_bytes + n * 4 + (out_rows + 1) * 4
+              + out_rows * k * 4 * (2 if init else 1))
+    return bound_ms(nbytes, ops_per_value * n * k)
+
+
 def relu_rows_bound_ms(compact, h: int, itemsize: int, outputs: int,
                        ops_per_entry: float, cot_itemsize: int = 0):
     """A relu-pair row owner's bound (B4, B5, B6), counting what the
@@ -1202,7 +1219,7 @@ def sorted_path(device, argv):
     r_typed = ss.BLOCK_NODES * num_types
     fwd = (plan.rel_tgt, plan.tgt_blocks, v)
     # form: (wrapper, arguments, keyword arguments, the compact form of a
-    # row owner, B12 or B14).
+    # row owner, B12, B14 or B15).
     forms = {
         "sorted_segment_sum_scaled": (
             "sorted_segment_sum_scaled", (stream_f, plan.inv_fwd) + fwd, {},
@@ -1227,7 +1244,7 @@ def sorted_path(device, argv):
             "attention_scatter_sums", (expd, msgs) + fwd, {},
             plan.sum_rows("fwd", v)),
         "sorted_segment_max": ("sorted_segment_max", (logits,) + fwd, {},
-                               None),
+                               plan.sum_rows("fwd", v)),
     }
 
     def fns(form):
@@ -1259,8 +1276,8 @@ def sorted_path(device, argv):
     log("kernel check: " + ", ".join(f"{form} max_abs_err {err:.3e}"
                                      for form, err in errs.items())
         + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; the max exactly; "
-        "B12's three forms and B14 bit-equal across two launches); their "
-        "compact forms: " + ", ".join(
+        "B12's three forms, B14 and B15 bit-equal across two launches); "
+        "their compact forms: " + ", ".join(
             f"{form} {forms[form][3].src_row.numel()} entries "
             f"into {forms[form][3].out_rows} rows"
             for form in forms if forms[form][3] is not None))
@@ -1270,7 +1287,7 @@ def sorted_path(device, argv):
     patches = [(ss, name, plain_version(getattr(ss, f"{name}_plain")))
                for name in (*ss.LAUNCHES, "sorted_segment_sum_gathered")]
     patches.append((rgat_layer, "sorted_segment_max",
-                    ss.sorted_segment_max_plain))
+                    plain_version(ss.sorted_segment_max_plain)))
 
     def eval_launches(model):
         for reset, _ in counters:
@@ -1394,8 +1411,9 @@ def sorted_path(device, argv):
             forms["sorted_segment_sum typed"][3], k * 4, k),
         "attention_scatter_sums": head_rows_bound_ms(
             forms["attention_scatter_sums"][3], h, 4, k, 4),
-        "sorted_segment_max": sorted_bound_ms(
-            valid_f, n_fwd, c_fwd, k, 4, 0, v, k, 1.0),
+        "sorted_segment_max": max_rows_bound_ms(
+            forms["sorted_segment_max"][3], k,
+            forms["sorted_segment_max"][3].src_row.numel() * k * 4, 1.0),
     }
     launches = dict(rgat_launches)
     launches["sorted_segment_sum_scaled"] = \
@@ -1417,6 +1435,8 @@ def sorted_path(device, argv):
             valid_f, n_fwd, c_fwd, k, 4, 0, rows, k, 1.0)[0],
         "attention_scatter_sums": sorted_bound_ms(
             valid_f, n_fwd, c_fwd, h, 4, k, v, h + k, 2.0 + k / h)[0],
+        "sorted_segment_max": sorted_bound_ms(
+            valid_f, n_fwd, c_fwd, k, 4, 0, v, k, 1.0)[0],
     }
     details = {
         "sorted_segment_sum_scaled": f"RGCN forward, f32 [{n_fwd}, {h}] "
@@ -1479,7 +1499,8 @@ def typed_rgat_path(device, argv):
     v, num_types = batch.num_nodes_padded, batch.num_edge_types
     plans = batch.pair_typed
     valid_slots = [int(ps.slot_abs_ids(*p.fwd)[2].sum()) for p in plans]
-    big = plans[valid_slots.index(max(valid_slots))]
+    big_i = valid_slots.index(max(valid_slots))
+    big = plans[big_i]
     log(f"workload (per-type plans): {real_edges} edges, V={v}, valid "
         f"slots per type {valid_slots}, forward / backward chunks per type "
         f"{[(p.rel_src_f.shape[0], p.rel_src_b.shape[0]) for p in plans]}, "
@@ -1489,17 +1510,27 @@ def typed_rgat_path(device, argv):
 
     # Kernel inputs at the main path's shapes and dtypes: bf16 scores of
     # the 4-head model, one type's [V, 8] slab and the merged [L*V, 8]
-    # table; for B10 a bf16 [V, H] slab of each call form with B8's f32
-    # expd on the largest type's plan, over its forward compact form.
+    # table, over their forward compact forms; for one type's plan also
+    # from an init, the max of another type's slab, as the per-type
+    # forward chains its launches; for B10 a bf16 [V, H] slab of each call
+    # form with B8's f32 expd on the largest type's plan, over its forward
+    # compact form.
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     k = 4
     scores_t = (0.5 * torch.randn((v, 2 * k), generator=gen,
                                   device=device)).to(torch.bfloat16)
     scores_m = (0.5 * torch.randn((num_types * v, 2 * k), generator=gen,
                                   device=device)).to(torch.bfloat16)
+    other = plans[(big_i + 1) % num_types]
+    init = pa.pair_attention_max_plain(
+        (0.5 * torch.randn((v, 2 * k), generator=gen,
+                           device=device)).to(torch.bfloat16),
+        *other.fwd, v, k)
+    # form: (scores or table, the plan, heads, B10's expd, B11's init).
     forms = {
-        "pair_attention_max": (scores_t, big.fwd, k, None),
-        "pair_attention_max merged": (scores_m, merged.fwd, k, None),
+        "pair_attention_max": (scores_t, big, k, None, None),
+        "pair_attention_max merged": (scores_m, merged, k, None, None),
+        "pair_attention_max init": (scores_t, big, k, None, init),
     }
     for agg_k, agg_h, form in ((8, 64, "pair_attention_agg"),
                                (4, 512, "pair_attention_agg heads512")):
@@ -1509,38 +1540,46 @@ def typed_rgat_path(device, argv):
                                 device=device)).to(torch.bfloat16)
         m = pa._stabilise(pa._bound_stabiliser(sc, v, agg_k), torch.bfloat16)
         expd = pa.pair_attention_expd(sc, m, *big.fwd, v, agg_k)
-        forms[form] = (table, big.fwd, agg_k, expd)
+        forms[form] = (table, big, agg_k, expd, None)
 
     agg_rows = big.fwd_rows(v, v)
 
     def fns(form):
-        first, plan, kk, expd = forms[form]
+        first, plan, kk, expd, init_m = forms[form]
         if expd is None:
-            return (lambda: pa.pair_attention_max(first, *plan, v, kk),
-                    lambda: pa.pair_attention_max_plain(first, *plan, v, kk))
-        return (lambda: pa.pair_attention_agg(first, expd, *plan, v, kk,
+            rows = plan.fwd_rows(v, first.shape[0])
+            return (lambda: pa.pair_attention_max(
+                        first, *plan.fwd, v, kk, compact=rows, init=init_m),
+                    lambda: pa.pair_attention_max_plain(
+                        first, *plan.fwd, v, kk, init=init_m))
+        return (lambda: pa.pair_attention_agg(first, expd, *plan.fwd, v, kk,
                                               compact=agg_rows),
-                lambda: pa.pair_attention_agg_plain(first, expd, *plan, v,
-                                                    kk))
+                lambda: pa.pair_attention_agg_plain(first, expd, *plan.fwd,
+                                                    v, kk))
 
+    # All row owners: B11 exactly, B10 within the tolerance; both bit-equal
+    # across two launches.
     errs = {}
     for form in forms:
         kernel_fn, plain_fn = fns(form)
-        if form.startswith("pair_attention_max"):
+        if forms[form][3] is None:
             got, want = kernel_fn(), plain_fn()
             torch.cuda.synchronize()
+            check_repeatable(form, kernel_fn, got)
             if not torch.equal(got, want):
                 raise AssertionError(f"{form}: kernel differs from its plain "
                                      "version (must match exactly)")
             errs[form] = float((got - want).abs().max())
             del got, want
-        else:  # B10, a row owner: also bit-equal across two launches
+        else:
             errs[form] = check_outputs(form, kernel_fn, plain_fn())
     log("kernel check: " + ", ".join(f"{form} max_abs_err {err:.3e}"
                                      for form, err in errs.items())
-        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; the max exactly; B10 "
-        f"bit-equal across two launches, its compact form "
-        f"{agg_rows.src_row.numel()} entries into {v} rows)")
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; the max exactly; B11 "
+        f"and B10 bit-equal across two launches; the compact form of the "
+        f"largest type's plan {agg_rows.src_row.numel()} entries into {v} "
+        f"rows, the merged plan's "
+        f"{merged.fwd_rows(v, num_types * v).src_row.numel()})")
 
     # B9 on the largest type's plan at the shapes of the two models' main
     # paths: PPI_RGAT's one-type slab (K = 4, H = 320) and GAT's head
@@ -1627,17 +1666,32 @@ def typed_rgat_path(device, argv):
         return (plan[0].numel() * 8 + plan[2].numel() * 4
                 + plan[3].numel() * 4)
 
-    def max_bound(scores, plan, kk):
-        # The source half of each distinct source row, the target half of
-        # each distinct target row; per valid slot and head an add, the
-        # leaky multiply and select, and the max.
+    def max_first_count(scores, plan, kk):
+        # B11's first port's count, logged: the source half of each
+        # distinct source row, the target half of each distinct target
+        # row, the plan, the output.
         src, tgt, valid = ps.slot_abs_ids(*plan)
         halves = (int(torch.unique(src[valid]).numel())
                   + int(torch.unique((src[valid] // v) * v
                                      + tgt[valid]).numel()))
         return bound_ms(halves * kk * scores.element_size()
                         + plan_bytes(plan) + v * kk * 4,
-                        4.0 * int(valid.sum()) * kk)
+                        4.0 * int(valid.sum()) * kk)[0]
+
+    def max_bound(scores, plan, kk, init_m):
+        # The recount as the row owner counts it: the distinct score
+        # halves the compact form's entries read (source rows u, target
+        # rows (u // v) * v + t); per entry and head an add, the leaky
+        # multiply and select, and the max.
+        rows = plan.fwd_rows(v, scores.shape[0])
+        u = rows.src_row.long()
+        t = torch.repeat_interleave(torch.arange(v, device=device),
+                                    torch.diff(rows.row_ptr.long()))
+        halves = (int(torch.unique(u).numel())
+                  + int(torch.unique((u // v) * v + t).numel()))
+        return max_rows_bound_ms(rows, kk,
+                                 halves * kk * scores.element_size(), 4.0,
+                                 init=init_m is not None)
 
     def agg_first_count(table, plan, kk):
         # B10's first port's count, logged: the distinct table rows and
@@ -1653,8 +1707,8 @@ def typed_rgat_path(device, argv):
     # logits, built outside the timed window (B10 has no single call).
     libraries = {}
     for form in ("pair_attention_max", "pair_attention_max merged"):
-        scores, plan, kk, _ = forms[form]
-        _, logit, tgt, _, valid = pa._slot_logits(scores, *plan, v,
+        scores, plan, kk, _, _ = forms[form]
+        _, logit, tgt, _, valid = pa._slot_logits(scores, *plan.fwd, v,
                                                   swap=False)
         seg = torch.where(valid, tgt, torch.full_like(tgt, v))
         seg = seg[:, None].expand(logit.shape).contiguous()
@@ -1667,24 +1721,25 @@ def typed_rgat_path(device, argv):
     replaces = {"pair_attention_max": "tf2_gnn_tpu/ops/pair_attention.py:262",
                 "pair_attention_agg": "tf2_gnn_tpu/ops/pair_attention.py:596"}
     kernels, other_forms = [], []
-    for form, (first, plan, kk, expd) in forms.items():
+    for form, (first, plan, kk, expd, init_m) in forms.items():
         name = form.split()[0]
         kernel_fn, plain_fn = fns(form)
         if expd is None:
-            bound = max_bound(first, plan, kk)
+            bound = max_bound(first, plan, kk, init_m)
+            start = "" if init_m is None else ", from an init"
             detail = (f"bf16 scores [{first.shape[0]}, {2 * kk}] -> f32 "
-                      f"[{v}, {kk}]")
+                      f"[{v}, {kk}]{start}; padded-slot bound count "
+                      f"{max_first_count(first, plan.fwd, kk):.4f} ms")
         else:
             bound = head_rows_bound_ms(agg_rows, first.shape[1], 2, kk, 8)
             detail = (f"K = {kk}, bf16 table [{v}, {first.shape[1]}], f32 "
-                      f"expd [{kk}, {plan[0].numel()}]; padded-slot bound "
-                      f"count {agg_first_count(first, plan, kk):.4f} ms")
+                      f"expd [{kk}, {plan.fwd[0].numel()}]; padded-slot "
+                      f"bound count "
+                      f"{agg_first_count(first, plan.fwd, kk):.4f} ms")
         entry = time_kernel(
-            form, "tf2_gnn_tpu_torch/csrc/" + (
-                "pair_attention.cu" if expd is None else "pair_stream.cu"),
-            replaces[name], launches[name], errs[form], kernel_fn, plain_fn,
-            libraries.get(form), None, *bound, detail,
-            device=expd is not None)
+            form, "tf2_gnn_tpu_torch/csrc/pair_stream.cu", replaces[name],
+            launches[name], errs[form], kernel_fn, plain_fn,
+            libraries.get(form), None, *bound, detail, device=True)
         # The main call form of each kernel is its entry; the others are
         # logged.
         (kernels if form == name else other_forms).append(entry)

@@ -171,13 +171,29 @@ def _two_passes(table, dw, d_denom, scores, maxes, compact, ts, k):
                                         (4, 256)])
 @pytest.mark.parametrize("case", list(CASES))
 def test_two_passes_equal_the_plain_version(case, k, head_dim):
+    """Each side runs twice and must give the same bits both times, so
+    that a run-to-run change (once seen at [typed-8-8]: d_ss 1.4e-4 off,
+    not reproduced since; ROADMAP queue C) names the side that moved."""
     form, rows, v, vs = CASES[case]
     plan = _plan(form)
     args = _inputs(rows, v, k, head_dim, seed=k)
-    want = tpa.pair_attention_bwd_fused_plain(*args, *plan.bwd, v, k,
-                                              src_space=vs)
-    got = _two_passes(*args, plan.bwd_rows(rows, v),
-                      plan.bwd_ts_rows(rows, v, vs), k)
+
+    def plain():
+        return tpa.pair_attention_bwd_fused_plain(*args, *plan.bwd, v, k,
+                                                  src_space=vs)
+
+    def emulation():
+        return _two_passes(*args, plan.bwd_rows(rows, v),
+                           plan.bwd_ts_rows(rows, v, vs), k)
+
+    want, got = plain(), emulation()
+    for side, fn, first in (("plain version", plain, want),
+                            ("emulation", emulation, got)):
+        for name, x, y in zip(("d_ss", "d_ts", "d_table"), first, fn()):
+            assert torch.equal(x, y), (
+                f"the {side}'s {name} moved between two runs by "
+                f"{float((x - y).abs().max())} "
+                f"({torch.get_num_threads()} torch threads)")
     for name, g, w in zip(("d_ss", "d_ts", "d_table"), got, want):
         assert w.abs().max() > 0
         torch.testing.assert_close(g, w.double(), rtol=1e-5, atol=1e-5,
@@ -187,24 +203,27 @@ def test_two_passes_equal_the_plain_version(case, k, head_dim):
 @pytest.mark.parametrize("form,heads", [("merged", 2), ("typed", 2),
                                         ("typed", 8)])
 def test_rgat_builds_its_forms_once_per_batch(form, heads, monkeypatch):
-    """Three train steps of RGAT: each plan's two B9 forms are built once
-    (and its forward form once, which the head-major route and B10 read),
-    and every B9 call of every layer and step gets that plan's forms."""
+    """Three train steps of RGAT under the "exact" stabiliser: each
+    plan's two B9 forms are built once (and its forward form once, which
+    B11, the head-major route and B10 read), every B9 call of every layer
+    and step gets that plan's forms, and every B11 call its forward
+    form."""
     _, batch, labels = small_workload(seed=7, merged=form == "merged")
     params = NodeMulticlassTask.get_default_hyperparameters("rgat")
     params.update({"gnn_hidden_dim": 2 * heads, "gnn_num_layers": 2,
                    "gnn_num_heads": heads,
                    "gnn_layer_input_dropout_rate": 0.0,
-                   "gnn_global_exchange_every_num_layers": 10000})
+                   "gnn_global_exchange_every_num_layers": 10000,
+                   "gnn_attention_stabiliser": "exact"})
     model = NodeMulticlassTask.from_params(
         params, input_dim=FEATURES, num_edge_types=3, device="cpu",
         num_labels=NUM_LABELS)
     optimizer = make_optimizer(params, model.parameters())
     state = create_train_state(model, optimizer)
     train_step = make_train_step(model, optimizer)
-    built, built_ts, seen = [], [], []
+    built, built_ts, seen, seen_b11 = [], [], [], []
     real_rows, real_ts = tps.slot_rows, tps.ts_rows
-    real_b9 = tpa.pair_attention_bwd_fused
+    real_b9, real_b11 = tpa.pair_attention_bwd_fused, tpa.pair_attention_max
     monkeypatch.setattr(tps, "slot_rows",
                         lambda *a: built.append(real_rows(*a)) or built[-1])
     monkeypatch.setattr(tps, "ts_rows",
@@ -215,7 +234,12 @@ def test_rgat_builds_its_forms_once_per_batch(form, heads, monkeypatch):
         seen.append((compact, ts_rows))
         return real_b9(*args, compact=compact, ts_rows=ts_rows, **kwargs)
 
+    def spy_b11(*args, compact=None, **kwargs):
+        seen_b11.append(compact)
+        return real_b11(*args, compact=compact, **kwargs)
+
     monkeypatch.setattr(tpa, "pair_attention_bwd_fused", spy)
+    monkeypatch.setattr(tpa, "pair_attention_max", spy_b11)
     targets = {"node_labels": torch.from_numpy(labels)}
     for _ in range(3):
         state, _ = train_step(state, batch, targets)
@@ -231,6 +255,11 @@ def test_rgat_builds_its_forms_once_per_batch(form, heads, monkeypatch):
         assert ts is plan.bwd_ts_rows(rows, v, v)
         assert any(compact is b for b in built)
         assert any(ts is b for b in built_ts)
+    assert len(seen_b11) == 2 * 3 * len(plans)
+    for i, compact in enumerate(seen_b11):
+        plan = plans[i % len(plans)]
+        assert compact is plan.fwd_rows(v, compact.table_rows)
+        assert any(compact is b for b in built)
 
 
 @pytest.mark.parametrize("hidden", [512, 576, 1024])

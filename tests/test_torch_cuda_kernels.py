@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels (tf2_gnn_tpu_torch/csrc/pair_stream.cu:
 K1, K2, B3 and B12, one row-owner kernel over their plans' compact form,
-and B10 and B14, its per-head twin; csrc/pair_attention.cu: B8, B9 and
-B11; csrc/pair_edge_mlp.cu: B4, B5, B6 and B7; csrc/sorted_scatter.cu:
-B13 and B15; csrc/dyngather.cu: P3)
+B10 and B14, its per-head twin, and B11 and B15, its max twin;
+csrc/pair_attention.cu: B8 and B9; csrc/pair_edge_mlp.cu: B4, B5, B6 and
+B7; csrc/sorted_scatter.cu: B13; csrc/dyngather.cu: P3)
 against their plain PyTorch versions on the card, at small shapes with a
 ragged feature width, f32 and bf16 tables, plans with pad slots and an
 all-padding group (sorted plans: sentinel slots, an unused trailing chunk
@@ -25,7 +25,11 @@ tiled form), on misaligned tables (B4-B6) and an all-sentinel plan
 (B4-B6: zeros), two launches bit-equal; B10 and B14 over their plans'
 compact forms in both of B10's call forms, at a head count that does not
 divide 32 for B14, two launches bit-equal, and each wrapper raising
-without the form. Marked
+without the form; B11 and B15 over their forward compact forms at every
+lane unit, B11 from an init as the per-type forward chains
+it, B15 with non-finite values and on a row-strided view, two launches
+equal bit for bit, each wrapper raising without the form, and
+sorted_scatter.cu built with B13 alone. Marked
 ``cuda``; each test skips without a card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -427,8 +431,9 @@ def test_sorted_segment_max_matches_exactly(device):
     vals = _stream(rel_np, 4, gen, device)
     vals[::7] = -vals[::7].abs()  # runs of negatives, and a -0.0
     vals[3, 1] = -0.0
+    compact = tss.sorted_rows(rel, blocks, v, tss.BLOCK_NODES)
     before = tss.LAUNCHES["sorted_segment_max"]
-    got = tss.sorted_segment_max(vals, rel, blocks, v)
+    got = tss.sorted_segment_max(vals, rel, blocks, v, compact=compact)
     torch.cuda.synchronize()
     assert tss.LAUNCHES["sorted_segment_max"] == before + 1
     want = tss.sorted_segment_max_plain(vals, rel, blocks, v)
@@ -498,7 +503,8 @@ def test_sorted_ops_match_plain_on_card(device, stream_dtype):
         bundle = tss.plan_gather_src(tables, plan, stream_dtype).float()
         logits = bundle[:, h:] + tss.plan_gather_tgt_typed(tgt, plan)
         m = tss.sorted_segment_max(logits.detach(), plan.rel_tgt,
-                                   plan.tgt_blocks, v)
+                                   plan.tgt_blocks, v,
+                                   compact=plan.sum_rows("fwd", v))
         expd = torch.where(plan.fwd_sentinel[:, None], 0.0,
                            torch.exp(logits - m[plan.tgtabs_idx]))
         denom, weighted = tss.attention_scatter(expd, bundle[:, :h], plan)
@@ -555,7 +561,8 @@ def test_max_kernel_matches_exactly(device, dtype, form, k):
     scores[::3, k] = -0.0
     scores = scores.to(dtype)
     before = tpa.LAUNCHES["pair_attention_max"]
-    got = tpa.pair_attention_max(scores, *plan.fwd, v, k)
+    got = tpa.pair_attention_max(scores, *plan.fwd, v, k,
+                                 compact=plan.fwd_rows(v, rows))
     torch.cuda.synchronize()
     assert tpa.LAUNCHES["pair_attention_max"] == before + 1
     want = tpa.pair_attention_max_plain(scores, *plan.fwd, v, k)
@@ -1230,3 +1237,149 @@ def test_b9_row_owner(device, dtype, k, head_dim, case):
         assert torch.equal(x, y), name
         torch.testing.assert_close(x, z, rtol=1e-5, atol=1e-5, msg=name)
         _assert_empty_rows_zero(x, form_rows)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _b11_case(device, form, k, dtype, seed=70):
+    """B11's call over one type's plan or the merged plan (targets with no
+    in-edges), with -0.0 beside +0.0 among the logits."""
+    typed, merged = _typed_plans_empty_targets(seed)
+    v = 384
+    plan = (merged if form == "merged" else typed[1]).to(device)
+    rows = 3 * v if form == "merged" else v
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    scores = 0.5 * torch.randn((rows, 2 * k), generator=gen, device=device)
+    scores[::3, 0] = -0.0
+    scores[::3, k] = -0.0
+    return plan, rows, scores.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16, 32])
+def test_max_kernel_at_every_lane_unit(device, dtype, k):
+    """B11 at every lane unit its launcher picks (one head up to 16 bytes
+    of a score half: 8 bf16 or 4 f32 heads, column tiles past that): the
+    plain version exactly, two launches equal bit for bit."""
+    plan, rows, scores = _b11_case(device, "typed", k, dtype)
+    v = 384
+    compact = plan.fwd_rows(v, rows)
+    got = tpa.pair_attention_max(scores, *plan.fwd, v, k, compact=compact)
+    again = tpa.pair_attention_max(scores, *plan.fwd, v, k, compact=compact)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(again))
+    assert torch.equal(got, tpa.pair_attention_max_plain(scores, *plan.fwd,
+                                                         v, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["merged", "typed"])
+def test_max_kernel_repeats_bit_for_bit(device, dtype, form):
+    """Two launches of B11 over the forward compact form, at the lanes the
+    wrapper picks, give the same bits, signs of zero included."""
+    plan, rows, scores = _b11_case(device, form, 4, dtype)
+    compact = plan.fwd_rows(384, rows)
+    got, again = (tpa.pair_attention_max(scores, *plan.fwd, 384, 4,
+                                         compact=compact) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_max_kernel_from_an_init(device, dtype):
+    """B11 with ``init``: the plain version with the same init exactly,
+    and the per-type forward's chain of three launches equals
+    ``reduce(torch.maximum, ...)`` of separate plain launches."""
+    typed, _ = _typed_plans_empty_targets(72)
+    plans = [p.to(device) for p in typed]
+    v, k = 384, 4
+    gen = torch.Generator(device=device).manual_seed(73)
+    scores = [(0.5 * torch.randn((v, 2 * k), generator=gen,
+                                 device=device)).to(dtype) for _ in plans]
+    separate = [tpa.pair_attention_max_plain(s, *p.fwd, v, k)
+                for s, p in zip(scores, plans)]
+    chain = None
+    for s, p, plain in zip(scores, plans, separate):
+        step = tpa.pair_attention_max(s, *p.fwd, v, k,
+                                      compact=p.fwd_rows(v, v), init=chain)
+        if chain is not None:
+            assert torch.equal(step, tpa.pair_attention_max_plain(
+                s, *p.fwd, v, k, init=chain))
+        chain = step
+    torch.cuda.synchronize()
+    want = separate[0]
+    for plain in separate[1:]:
+        want = torch.maximum(want, plain)
+    assert torch.equal(chain, want)
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+def test_sorted_segment_max_units_and_nonfinite_values(device, k):
+    """B15 at 16-, 8- and 4-byte lane units (K = 4 and 8, the row-strided
+    view of K + 2 columns, K = 1 and 3) with -inf, +inf and NaN among the
+    valid slots' values: the plain version (on the CPU, whose amax takes
+    a NaN over any number) exactly, 0 wherever a max is not finite; two
+    launches bit-equal."""
+    host, rel_np, blocks_np = _sorted_case(74)
+    v = 384
+    rel = torch.from_numpy(rel_np).to(device)
+    blocks = torch.from_numpy(blocks_np).to(device)
+    compact = tss.sorted_rows(rel, blocks, v, tss.BLOCK_NODES)
+    gen = torch.Generator(device=device).manual_seed(75)
+    wide = torch.randn((rel.numel(), k + 2), generator=gen, device=device)
+    valid = compact.src_row.long()
+    pick = valid[torch.randperm(valid.numel(), generator=gen,
+                                device=device)[:60]]
+    wide[pick[:20], 0] = -torch.inf
+    wide[pick[20:40], 0] = torch.inf
+    wide[pick[40:], 0] = torch.nan
+    for vals in (wide[:, :k], wide[:, :k].contiguous()):
+        got = tss.sorted_segment_max(vals, rel, blocks, v, compact=compact)
+        again = tss.sorted_segment_max(vals, rel, blocks, v,
+                                       compact=compact)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(again))
+        want = tss.sorted_segment_max_plain(vals.cpu(), rel.cpu(),
+                                            blocks.cpu(), v)
+        assert torch.equal(got.cpu(), want)
+        assert bool(torch.isfinite(got).all())
+
+
+def test_max_wrappers_raise_without_compact_form(device):
+    """B11 and B15 on CUDA tensors without the plan's compact form raise
+    and count no launch."""
+    plan, rows, scores = _b11_case(device, "typed", 4, torch.bfloat16)
+    _, rel_np, blocks_np = _sorted_case(76)
+    rel = torch.from_numpy(rel_np).to(device)
+    blocks = torch.from_numpy(blocks_np).to(device)
+    vals = torch.randn((rel.numel(), 4), device=device)
+    before = (dict(tpa.LAUNCHES), dict(tss.LAUNCHES))
+    with pytest.raises(ValueError, match="compact form"):
+        tpa.pair_attention_max(scores, *plan.fwd, 384, 4)
+    with pytest.raises(ValueError, match="compact form"):
+        tss.sorted_segment_max(vals, rel, blocks, 384)
+    assert (tpa.LAUNCHES, tss.LAUNCHES) == before
+
+
+def test_sorted_scatter_holds_b13_alone(device):
+    """``csrc/sorted_scatter.cu`` builds with B13's entry and no other
+    kernel's, and B13 still matches its plain version, f32 and bf16."""
+    from tf2_gnn_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load_library("sorted_scatter.cu")
+    assert hasattr(lib, "sorted_segment_sum_scaled_launch")
+    assert not hasattr(lib, "sorted_segment_max_launch")
+    _, rel_np, blocks_np = _sorted_case(78)
+    v = 384
+    rel = torch.from_numpy(rel_np).to(device)
+    blocks = torch.from_numpy(blocks_np).to(device)
+    gen = torch.Generator(device=device).manual_seed(79)
+    scale = torch.rand((rel.numel(),), generator=gen, device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        msgs = _stream(rel_np, 40, gen, device, dtype)
+        torch.testing.assert_close(
+            tss.sorted_segment_sum_scaled(msgs, scale, rel, blocks, v),
+            tss.sorted_segment_sum_scaled_plain(msgs, scale, rel, blocks, v),
+            rtol=1e-5, atol=1e-5)

@@ -75,7 +75,7 @@ def test_port_has_its_own_modules():
         "csrc/pair_edge_mlp.cu", "ops/segment.py", "ops/gru.py",
         "layers/mlp.py", "layers/readout.py", "layers/global_exchange.py",
         "layers/dropout.py", "ops/sorted_spmm.py", "csrc/sorted_scatter.cu",
-        "csrc/float_atomics.cuh", "models/graph_regression_task.py",
+        "csrc/lane_units.cuh", "models/graph_regression_task.py",
         "models/qm9_regression_task.py",
         "models/graph_binary_classification_task.py",
         "harness/default_hypers/QM9_RGCN.json", "ops/probes.py",
@@ -145,8 +145,8 @@ class _CudaTensorStandIn:
 _COMPACT_STAND_IN = object()
 
 # Every kernel wrapper: its launch counts and the positional arguments
-# after its first tensor (K1, K2, B3, B12, B4, B5, B6, B10 and B14 end with
-# the plan's compact form, B9 with its two).
+# after its first tensor (K1, K2, B3, B12, B4, B5, B6, B10, B11, B14 and
+# B15 end with the plan's compact form, B9 with its two).
 WRAPPERS = {
     tps.pair_spmm_stream: (
         tps.LAUNCHES, (None,) * 6 + (128, 128, _COMPACT_STAND_IN)),
@@ -157,7 +157,8 @@ WRAPPERS = {
     tpa.pair_attention_bwd_fused: (
         tpa.LAUNCHES,
         (None,) * 8 + (128, 4, None, _COMPACT_STAND_IN, _COMPACT_STAND_IN)),
-    tpa.pair_attention_max: (tpa.LAUNCHES, (None,) * 4 + (128, 4)),
+    tpa.pair_attention_max: (
+        tpa.LAUNCHES, (None,) * 4 + (128, 4, None, _COMPACT_STAND_IN)),
     tpa.pair_attention_agg: (
         tpa.LAUNCHES, (None,) * 5 + (128, 4, _COMPACT_STAND_IN)),
     tpem.relu_pair_fwd: (
@@ -170,7 +171,8 @@ WRAPPERS = {
     tss.sorted_segment_sum: (
         tss.LAUNCHES, (None,) * 2 + (128, None, _COMPACT_STAND_IN)),
     tss.sorted_segment_sum_scaled: (tss.LAUNCHES, (None,) * 3 + (128,)),
-    tss.sorted_segment_max: (tss.LAUNCHES, (None,) * 2 + (128,)),
+    tss.sorted_segment_max: (
+        tss.LAUNCHES, (None,) * 2 + (128, _COMPACT_STAND_IN)),
     tss.attention_scatter_sums: (
         tss.LAUNCHES, (None,) * 3 + (128, _COMPACT_STAND_IN)),
     tprobes.dyngather: (tprobes.LAUNCHES, (None, 64)),
@@ -201,12 +203,14 @@ def test_cuda_tensor_without_library_raises(wrapper, monkeypatch, tmp_path):
                                      tpem.relu_pair_fwd, tpem.relu_pair_da,
                                      tpa.pair_attention_bwd_fused,
                                      tpa.pair_attention_agg,
-                                     tss.attention_scatter_sums])
+                                     tss.attention_scatter_sums,
+                                     tpa.pair_attention_max,
+                                     tss.sorted_segment_max])
 def test_cuda_call_without_compact_form_raises(wrapper, monkeypatch,
                                                tmp_path):
     """K1, K2, B3, B12 (both forms), B4, B6, B5, B9 (without its second
-    form, ``ts_rows``), B10 and B14 on a CUDA tensor without the plan's
-    compact form raise
+    form, ``ts_rows``), B10, B14, B11 and B15 on a CUDA tensor without the
+    plan's compact form raise
     before they load the library: no per-call build, no fallback to the
     plain version, no launch counted."""
     launches, args = WRAPPERS[wrapper]

@@ -1,5 +1,5 @@
 // Relational-attention kernels for Hopper (sm_90a), bound through a plain C
-// interface (ctypes) by tf2_gnn_tpu_torch/ops/pair_attention.py. All three
+// interface (ctypes) by tf2_gnn_tpu_torch/ops/pair_attention.py. Both
 // read a pair plan (ops/pair_spmm.py::build_pair_plans; merged over the edge
 // types, or one type's plan over its [V]-row slab): per slot s of group g
 // (chunk c = s / E_C), padded where rel >= BLK,
@@ -11,26 +11,6 @@
 // stabiliser, already rounded to the stream dtype by the caller. Products
 // and sums run in f32; exp is expf (not __expf), so a kernel agrees with
 // its plain version to f32 rounding.
-//
-// max_kernel   <- tf2_gnn_tpu/ops/pair_attention.py:174
-//                 (_max_kernel_device, pallas_call :262; jnp twin
-//                 _max_kernel_jnp), forward plan, the "exact" stabiliser.
-//                 Per valid slot (a = source row u, b = target node t):
-//                   out[t, k] = max(out[t, k],
-//                                   leaky(ss[u, k] + ts[(u / vs) * vs + t, k]))
-//                 into an output the wrapper fills with NEG, so a target
-//                 with no in-edges reads NEG. The TPU kernel gathers both
-//                 score halves with one-hot matmuls and takes a masked
-//                 [BLK, E_C] max per head, carrying the output block across
-//                 its sequential grid. Here one thread block takes one plan
-//                 group (its chunks share one target block); each thread
-//                 takes slots in turn, computes the K logits in f32 and folds
-//                 them into a shared [128, K] max tile; the tile's entries
-//                 then go out with one global atomic max each. Both maxes are
-//                 the integer atomic of float_atomics.cuh, and a max does not
-//                 depend on order, so the kernel equals its plain version
-//                 exactly. Bound: bytes (the plan's 8 B a slot, the score
-//                 rows, the f32 output); 4 f32 operations a slot and head.
 //
 // expd_kernel  <- tf2_gnn_tpu/ops/pair_attention.py:304
 //                 (_expd_kernel_device, pallas_call :427; jnp twin
@@ -100,13 +80,13 @@
 //                 entry (from L1), for rows its registers cannot hold.
 //
 // B10, RGAT's hk-major aggregation, is csrc/pair_stream.cu's
-// head_rows_kernel over the forward plan's compact form.
+// head_rows_kernel over the forward plan's compact form, and B11, the
+// "exact" stabiliser, its max_rows_kernel over the same form.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "float_atomics.cuh"
 #include "lane_units.cuh"
 
 namespace {
@@ -114,10 +94,7 @@ namespace {
 constexpr int BLK = 128;
 constexpr int E_C = 128;
 constexpr float LEAKY_SLOPE = 0.2f;
-constexpr float NEG = -1e30f;   // the stabiliser of a target with no in-edges
-constexpr int MAX_HEADS = 32;
 constexpr int EXPD_THREADS = 256;
-constexpr int THREADS = 256;
 
 __device__ __forceinline__ float leaky(float p) {
   return p >= 0.0f ? p : LEAKY_SLOPE * p;
@@ -150,45 +127,6 @@ __global__ void __launch_bounds__(EXPD_THREADS)
   for (int j = 0; j < k; ++j) {
     const float p = to_f32(ss[j]) + to_f32(ts[j]);
     out[j * slots + s] = expf(leaky(p) - mx[j]);
-  }
-}
-
-template <typename S>
-__global__ void __launch_bounds__(THREADS)
-    max_kernel(const S* __restrict__ scores, int64_t rows, int v, int k,
-               const int32_t* __restrict__ rel_src,
-               const int32_t* __restrict__ rel_tgt,
-               const int32_t* __restrict__ src_blk,
-               const int32_t* __restrict__ grp_tgt, int group, int vs,
-               float* __restrict__ out) {
-  __shared__ float tile[BLK * MAX_HEADS];
-  for (int i = threadIdx.x; i < BLK * k; i += THREADS) tile[i] = NEG;
-  __syncthreads();
-
-  const int num_slots = group * E_C;
-  const int64_t slot0 = static_cast<int64_t>(blockIdx.x) * num_slots;
-  const int64_t t_base = static_cast<int64_t>(grp_tgt[blockIdx.x]) * BLK;
-  for (int i = threadIdx.x; i < num_slots; i += THREADS) {
-    const int64_t s = slot0 + i;
-    const int rs = rel_src[s];
-    const int rt = rel_tgt[s];
-    if (!(rs >= 0 && rs < BLK && rt >= 0 && rt < BLK)) continue;
-    const int64_t u = static_cast<int64_t>(src_blk[s / E_C]) * BLK + rs;
-    const S* ss = scores + clip(u, rows) * 2 * k;
-    const S* ts = scores + clip((u / vs) * vs + t_base + rt, rows) * 2 * k + k;
-    for (int j = 0; j < k; ++j) {
-      atomic_max_f32(&tile[rt * k + j], leaky(to_f32(ss[j]) + to_f32(ts[j])));
-    }
-  }
-  __syncthreads();
-
-  // Entries still at the NEG fill leave the output's NEG as it is.
-  for (int i = threadIdx.x; i < BLK * k; i += THREADS) {
-    const int64_t t = t_base + i / k;
-    const float m = tile[i];
-    if (t < v && __float_as_int(m) != __float_as_int(NEG)) {
-      atomic_max_f32(&out[t * k + i % k], m);
-    }
   }
 }
 
@@ -609,32 +547,6 @@ extern "C" int pair_attention_expd_launch(
     expd_kernel<__nv_bfloat16><<<grid, EXPD_THREADS, 0, s>>>(
         static_cast<const __nv_bfloat16*>(scores), rows, maxes, v, k,
         rel_src, rel_tgt, src_blk, grp_tgt, group, slots, vs, out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int pair_attention_max_launch(
-    int device, int dtype, const void* scores, int64_t rows, int v, int k,
-    const int32_t* rel_src, const int32_t* rel_tgt, const int32_t* src_blk,
-    const int32_t* grp_tgt, int group, int num_groups, int vs, float* out,
-    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!heads_ok(k) || group <= 0 || num_groups <= 0 || rows <= 0 || v <= 0
-      || vs <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) {
-    max_kernel<float><<<num_groups, THREADS, 0, s>>>(
-        static_cast<const float*>(scores), rows, v, k, rel_src, rel_tgt,
-        src_blk, grp_tgt, group, vs, out);
-  } else if (dtype == DTYPE_BF16) {
-    max_kernel<__nv_bfloat16><<<num_groups, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(scores), rows, v, k, rel_src,
-        rel_tgt, src_blk, grp_tgt, group, vs, out);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -98,6 +98,53 @@
 // loads, an expd load per slot and column, an atomic per column and run)
 // are retired.
 //
+// Its max twin, max_rows_kernel, takes a per-column max over the same
+// entries, in place of the sum:
+//
+//   pair_attention_max_launch <- tf2_gnn_tpu/ops/pair_attention.py:174
+//                                (_max_kernel_device, pallas_call :262; jnp
+//                                twin _max_kernel_jnp). B11: RGAT's "exact"
+//                                stabiliser over a merged or one type's
+//                                forward plan (MergedPlan.fwd_rows, the form
+//                                B3 and B10 read; src_row the source row u):
+//                                  m[t, k] = max(init[t, k], NEG, max over
+//                                    row t's entries of leaky(ss[u, k] +
+//                                    ts[clip((u / vs) * vs + t, rows), k]))
+//                                over the packed [rows, 2K] score table
+//                                (source halves | target halves), with init
+//                                NEG where the caller passes none; the
+//                                per-type forward chains its launches
+//                                through init. The compact form carries u
+//                                clipped into the table, as the first port's
+//                                kernel clipped it; it also clipped the
+//                                target-score row from the unclipped u, which
+//                                gives the same row wherever u < rows, as on
+//                                every plan build_pair_plans builds.
+//   sorted_segment_max_launch <- tf2_gnn_tpu/ops/spmm_pallas.py:671
+//                                (sorted_segment_max, pallas_call :705). B15:
+//                                the sorted RGAT's stabiliser over the sorted
+//                                plan's forward compact form
+//                                (ScatterPlan.sum_rows("fwd"), src_row = slot)
+//                                and the f32 [slots, K] values: the max of
+//                                row t's entries, stored as 0 where it is not
+//                                finite (an empty row included), as the
+//                                reference's where(isfinite(out), out, 0).
+//
+// Its max is that of an order on the bits: a NaN above everything, then
+// the numbers with +0.0 above -0.0 (the integer key of max_key). Values
+// match the CPU's scatter_reduce_ amax, which the plain versions take, NaN
+// included; where a row's max is a zero of either sign, the kernel stores
+// +0.0 and the plain version the sign of the row's first zero. The max
+// does not depend on the order of its operands, so G lanes own a row,
+// each folds whole entries (one in flight) into E running maxes, the group
+// folds them with __shfl_xor_sync, and lane 0 stores the row's E columns
+// once: no fill, no atomics, no padded slot, the same bits every launch.
+// A column tile (blockIdx.y) is one lane unit of E columns of a row (16 B
+// where the width and the table's alignment allow; for B11 one unit of
+// each score half). The first port's kernels are retired: B11's shared
+// [128, K] tile and global atomic max a cell into a NEG fill, B15's
+// atomics a run into a -inf fill and its nan_to_num_ launch.
+//
 // Design. The TPU kernels build one-hot matmuls and accumulate each output
 // block on its first visit, walking every padded or sentinel slot. Here a
 // group of G lanes owns one output row: it loads its row's entries with one
@@ -131,6 +178,13 @@
 // element takes one multiply-add, 2 flops per element, far below the card's
 // ridge. Hopper's TMA copies tiles and has no row-gather mode, so the
 // gathers are per-lane loads.
+//
+// Bound. B11 and B15: the distinct score halves (B11) or value rows (B15)
+// the entries read, 4 B an entry's src_row, 4 B a row pointer and the f32
+// output written once (B11 also the f32 init); bytes bound them. Rows
+// are short (PPI: 8.7 entries into a target on one type's plan, 26 on the
+// merged and the sorted plans): G = 8 (MAX_LANES) ran fastest of 4, 8, 16
+// and 32 on an H100 at all three (tools/max_rows_lanes.py, PERF.md).
 //
 // Bound. Bytes: the distinct table rows the entries read, 8 B an entry
 // (its row and its scale; 4 B for B12, which reads no scale, and for B14,
@@ -378,6 +432,97 @@ __global__ void __launch_bounds__(ROW_THREADS) head_rows_kernel(HeadArgs a) {
   if (head_lane && blockIdx.y == 0) a.denom[row * a.k + sub] = dsum;
 }
 
+struct MaxArgs {
+  const void* table;        // B11: scores [rows, 2k]; B15: values [slots, ld]
+  int64_t ld_units;         // the table's row stride, in lane units
+  int k;                    // heads (B11) or columns (B15)
+  int rows;                 // B11: the table's rows (a score row's clip)
+  int vs;                   // B11: one type's source rows
+  const float* init;        // B11: [out_rows, k] or null
+  const int32_t* row_ptr;   // [out_rows + 1]
+  const int32_t* src_row;   // [n]: B11 the source row u, B15 the slot
+  int64_t out_rows;
+  float* out;               // [out_rows, k]
+};
+
+constexpr float NEG = -1e30f;  // B11's stabiliser of a target with no entry
+constexpr float LEAKY_SLOPE = 0.2f;
+constexpr int MAX_LANES = 8;   // max_rows_kernel's G, lanes a row
+
+// The max's order on the bits: NaN above everything, then the numbers,
+// +0.0 above -0.0 (a negative float's key flips its magnitude bits).
+__device__ __forceinline__ int max_key(float x) {
+  const int i = __float_as_int(x);
+  return isnan(x) ? 0x7fffffff : (i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+__device__ __forceinline__ float max_of(float a, float b) {
+  return max_key(b) > max_key(a) ? b : a;
+}
+
+// G lanes own a row (32 / G rows a warp); column tile blockIdx.y is one
+// lane unit of E columns. PAIR: B11's logits of two score halves; else
+// B15's values.
+template <typename T, int UB, int G, bool PAIR>
+__global__ void __launch_bounds__(ROW_THREADS) max_rows_kernel(MaxArgs a) {
+  using U = Unit<T, UB>;
+  constexpr int E = U::kElems;
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of 2");
+  constexpr int kRows = 32 / G;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);
+  const int64_t first =
+      (static_cast<int64_t>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5))
+      * kRows;
+  if (first >= a.out_rows) return;  // warp-uniform
+  const int64_t row = first + lane / G;
+  const bool live = row < a.out_rows;
+  const int tile = blockIdx.y;
+
+  float m[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) m[i] = PAIR ? NEG : __uint_as_float(0xff800000u);
+  if (live) {
+    const int end = __ldg(a.row_ptr + row + 1);
+    for (int e = __ldg(a.row_ptr + row) + sub; e < end; e += G) {
+      const int u = __ldg(a.src_row + e);
+      float x[E];
+      U::unpack(U::load(a.table, u * a.ld_units + tile), x);
+      if constexpr (PAIR) {
+        const int64_t r = clip(static_cast<int64_t>(u / a.vs) * a.vs + row,
+                               a.rows);
+        float y[E];
+        U::unpack(U::load(a.table, r * a.ld_units + a.k / E + tile), y);
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          const float p = x[i] + y[i];
+          x[i] = p >= 0.0f ? p : LEAKY_SLOPE * p;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < E; ++i) m[i] = max_of(m[i], x[i]);
+    }
+  }
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < E; ++i)
+      m[i] = max_of(m[i], __shfl_xor_sync(FULL, m[i], off));
+  }
+  if (!live || sub != 0) return;
+
+  const int64_t at = row * a.k + static_cast<int64_t>(tile) * E;
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    if constexpr (PAIR) {
+      if (a.init) m[i] = max_of(__ldg(a.init + at + i), m[i]);
+    } else {
+      if (!isfinite(m[i])) m[i] = 0.0f;
+    }
+  }
+  store_f32<E>(a.out + at, m);
+}
+
 template <typename T, int UB, int G, int W, typename A>
 void launch_one(dim3 grid, cudaStream_t s, const A& a) {
   if constexpr (std::is_same_v<A, HeadArgs>) {
@@ -516,6 +661,67 @@ int head_rows_launch(int device, int dtype, const void* table, int64_t ld,
   return launch_rows(dtype, l, row_grid(out_rows, l), stream, a);
 }
 
+// The widest lane unit (at most 16 bytes) whose columns divide k and the
+// row stride and whose size the table's address is aligned to.
+template <bool PAIR, typename T>
+void launch_max(dim3 grid_rows, cudaStream_t s, MaxArgs a, int64_t ld) {
+  auto fits = [&](int e) {
+    return a.k % e == 0 && ld % e == 0
+           && aligned(a.table, e * static_cast<int>(sizeof(T)));
+  };
+  auto go = [&](auto unit) {
+    constexpr int UB = decltype(unit)::value;
+    constexpr int E = UB / static_cast<int>(sizeof(T));
+    a.ld_units = ld / E;
+    const dim3 grid(grid_rows.x, a.k / E);
+    max_rows_kernel<T, UB, MAX_LANES, PAIR><<<grid, ROW_THREADS, 0, s>>>(a);
+  };
+  if (fits(16 / sizeof(T))) {
+    go(std::integral_constant<int, 16>());
+  } else if (fits(8 / sizeof(T))) {
+    go(std::integral_constant<int, 8>());
+  } else if constexpr (sizeof(T) == 2) {
+    if (fits(2)) {
+      go(std::integral_constant<int, 4>());
+    } else {
+      go(std::integral_constant<int, 2>());
+    }
+  } else {
+    go(std::integral_constant<int, 4>());
+  }
+}
+
+// B11 (pair) and B15: f32 [out_rows, k], every element stored once.
+int max_rows_launch(bool pair, int device, int dtype, const void* table,
+                    int64_t ld, int64_t rows, int k, int vs,
+                    const float* init, const int32_t* row_ptr,
+                    const int32_t* src_row, int64_t out_rows, float* out,
+                    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (k <= 0 || out_rows <= 0 || rows <= 0
+      || rows > std::numeric_limits<int>::max()
+      || !aligned(out, 16)
+      || (pair ? (ld != 2 * k || vs <= 0 || k > 32) : (ld < k || init))
+      || (dtype != DTYPE_F32 && (pair ? dtype != DTYPE_BF16 : true)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t rows_per_block =
+      static_cast<int64_t>(ROW_WARPS) * (32 / MAX_LANES);
+  const dim3 grid(static_cast<unsigned>(
+      (out_rows + rows_per_block - 1) / rows_per_block));
+  const MaxArgs a{table, 0, k, static_cast<int>(rows), vs, init, row_ptr,
+                  src_row, out_rows, out};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!pair) {
+    launch_max<false, float>(grid, s, a, ld);
+  } else if (dtype == DTYPE_F32) {
+    launch_max<true, float>(grid, s, a, ld);
+  } else {
+    launch_max<true, __nv_bfloat16>(grid, s, a, ld);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry points, one per TPU kernel and one for B9's second pass, all with
@@ -555,6 +761,21 @@ DEFINE_LAUNCH(pair_attention_ts_launch)
 
 DEFINE_HEAD_LAUNCH(pair_attention_agg_launch)
 DEFINE_HEAD_LAUNCH(attention_scatter_launch)
+
+// B11 and B15: max_rows_kernel, one signature (table rows of ld elements;
+// B11: rows, vs and an optional f32 init [out_rows, k], its table the
+// [rows, 2k] scores; B15: f32 values, vs 0 and no init).
+#define DEFINE_MAX_LAUNCH(NAME, PAIR)                                         \
+  extern "C" int NAME(int device, int dtype, const void* table, int64_t ld,  \
+                      int64_t rows, int k, int vs, const float* init,         \
+                      const int32_t* row_ptr, const int32_t* src_row,         \
+                      int64_t out_rows, float* out, void* stream) {           \
+    return max_rows_launch(PAIR, device, dtype, table, ld, rows, k, vs,       \
+                           init, row_ptr, src_row, out_rows, out, stream);    \
+  }
+
+DEFINE_MAX_LAUNCH(pair_attention_max_launch, true)
+DEFINE_MAX_LAUNCH(sorted_segment_max_launch, false)
 
 extern "C" const char* pair_stream_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

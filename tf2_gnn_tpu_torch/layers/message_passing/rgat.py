@@ -212,8 +212,10 @@ class RGAT(MessagePassing):
             plan)
         logits = F.leaky_relu(src_score_g + tgt_score_g, negative_slope=0.2)
         # The stabiliser is never differentiated (its true gradient is 0).
+        # B15 reads the forward compact form that B14 reads after it.
         maxes = sorted_segment_max(logits.detach(), plan.rel_tgt,
-                                   plan.tgt_blocks, v)
+                                   plan.tgt_blocks, v,
+                                   compact=plan.sum_rows("fwd", v))
         shifted = logits - maxes.index_select(0, plan.tgtabs_idx)
         expd = torch.where(plan.fwd_sentinel[:, None], 0.0,
                            torch.exp(shifted))

@@ -15,8 +15,9 @@ use the HK-MAJOR head layout (column ``hd*K + k``). The caller divides and
 re-layouts heads.
 
 The ``"bound"`` stabiliser is a dense node-space bound; ``"exact"`` runs
-the max kernel (B11, ``pair_attention_max``) over the forward plan. The
-forward then runs the expd kernel (B8, ``pair_attention_expd``) once, and
+the max kernel (B11, ``pair_attention_max``) over the forward plan's
+compact form, the per-type form chaining its launches through ``init``.
+The forward then runs the expd kernel (B8, ``pair_attention_expd``) once, and
 either the merged-plan SpMM (B3, ``pair_spmm``) once per head on a
 head-major table or, for heads wider than a tile or more heads than that
 route takes, the hk-major aggregation kernel (B10, ``pair_attention_agg``)
@@ -28,8 +29,8 @@ backward and kept), then a second pass that sums the target-score
 gradient by its row. The per-type
 form launches each of these once per edge type on that type's ``[V]``-row
 slab, with one stabiliser over all types. All five kernels are hand-written
-CUDA (``csrc/pair_attention.cu``: B8, B9 and B11; ``csrc/pair_stream.cu``:
-B3, B10 and B9's second pass). Each wrapper
+CUDA (``csrc/pair_attention.cu``: B8 and B9; ``csrc/pair_stream.cu``: B3,
+B10, B11 and B9's second pass). Each wrapper
 runs its plain PyTorch version on a CPU tensor and launches its kernel on a
 CUDA tensor, or raises.
 """
@@ -50,6 +51,7 @@ from .pair_spmm import (
     _library,
     _require_compact,
     launch_head_rows,
+    launch_max_rows,
     pair_spmm,
     plan_group,
     slot_abs_ids,
@@ -173,8 +175,8 @@ def _stabilise(m, stream_dtype):
 
 
 # ---------------------------------------------------------------------------
-# The four attention kernels (B8, B9 and B11 in csrc/pair_attention.cu, B10
-# in csrc/pair_stream.cu), their plain versions and wrappers.
+# The four attention kernels (B8 and B9 in csrc/pair_attention.cu, B10 and
+# B11 in csrc/pair_stream.cu), their plain versions and wrappers.
 
 # Launch counts of the CUDA kernels of this module: each wrapper adds one
 # where it launches its kernel, and nowhere else.
@@ -202,11 +204,13 @@ def _segment_max(values, seg, num_segments: int):
 
 def pair_attention_max_plain(scores, rel_src, rel_tgt, src_blk, grp_tgt,
                              num_nodes: int, num_heads: int,
-                             src_space: int = None):
+                             src_space: int = None, init=None):
     """Plain PyTorch version of B11, a mirror of the reference's
     ``_max_kernel_jnp`` with its interpret path's ``maximum(out, NEG)``:
     f32 ``[V, K]``, the per-(target, head) max logit over the forward
-    plan's valid slots, NEG where a target has none."""
+    plan's valid slots, NEG where a target has none; with ``init`` (f32
+    [V, K]) the elementwise ``maximum(init, ...)``, as the TPU kernel
+    starts from its aliased output."""
     del num_heads  # the scores' width, 2K
     v = num_nodes
     _, logit, tgt, _, valid = _slot_logits(
@@ -214,7 +218,8 @@ def pair_attention_max_plain(scores, rel_src, rel_tgt, src_blk, grp_tgt,
         src_space=src_space)
     logit = torch.where(valid[:, None], logit, torch.full_like(logit, NEG))
     seg = torch.where(valid, tgt, torch.full_like(tgt, v))
-    return _segment_max(logit, seg, v)
+    out = _segment_max(logit, seg, v)
+    return out if init is None else torch.maximum(init, out)
 
 
 def pair_attention_agg_plain(table, expd, rel_src, rel_tgt, src_blk, grp_tgt,
@@ -466,37 +471,36 @@ def pair_attention_bwd_fused(table, d_weighted, d_denom, scores, maxes,
 
 def pair_attention_max(scores, rel_src, rel_tgt, src_blk, grp_tgt,
                        num_nodes: int, num_heads: int,
-                       src_space: int = None):
+                       src_space: int = None,
+                       compact: Optional[SlotRows] = None, init=None):
     """B11: the per-(target, head) max logit over the forward plan's valid
-    slots, f32 ``[V, K]``, NEG on targets without in-edges. ``scores``
-    [rows, 2K] f32 or bf16."""
+    slots, f32 ``[V, K]``, NEG on targets without in-edges; with ``init``
+    (f32 [V, K]) the elementwise max of ``init`` and that. ``scores``
+    [rows, 2K] f32 or bf16. On the card it reads only the plan's
+    ``compact`` form (``MergedPlan.fwd_rows(V, rows)``, the form B3 and
+    B10 read), through ``csrc/pair_stream.cu``'s max row owner; on the
+    CPU the plain version reads the plan arrays."""
     if scores.device.type == "cpu":
         return pair_attention_max_plain(scores, rel_src, rel_tgt, src_blk,
                                         grp_tgt, num_nodes, num_heads,
-                                        src_space)
+                                        src_space, init)
     if scores.device.type != "cuda":
         raise TypeError(f"pair_attention_max: unsupported device "
                         f"{scores.device}")
-    from .cuda_build import load_library
-
-    lib = load_library(_SOURCE)
+    _require_compact("pair_attention_max", compact)
+    _library()
     entry = "pair_attention_max_launch"
     k, v = num_heads, num_nodes
     vs = v if src_space is None else src_space
-    _check(entry, scores.device, scores=(scores, tuple(_DTYPE_CODES)))
     _heads_checks(entry, k, scores)
-    group, num_groups = _plan_checks(entry, scores.device, rel_src, rel_tgt,
-                                     src_blk, grp_tgt)
-    if v <= 0 or vs <= 0:
-        raise ValueError(f"{entry}: needs num_nodes and src_space > 0")
-    out = torch.full((v, k), NEG, dtype=torch.float32, device=scores.device)
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    _call(lib, entry, [i, i, p, i64, i, i, p, p, p, p, i, i, i, p, p],
-          scores.device.index or 0, _DTYPE_CODES[scores.dtype],
-          scores.data_ptr(), scores.shape[0], v, k, rel_src.data_ptr(),
-          rel_tgt.data_ptr(), src_blk.data_ptr(), grp_tgt.data_ptr(), group,
-          num_groups, vs, out.data_ptr(),
-          torch.cuda.current_stream(scores.device).cuda_stream)
+    if not scores.is_contiguous() or vs <= 0:
+        raise ValueError(f"{entry}: needs contiguous scores and src_space "
+                         f"> 0, got src_space {vs}")
+    if compact.num_slots != rel_src.numel():
+        raise ValueError(f"{entry}: the compact form is over "
+                         f"{compact.num_slots} slots, the plan has "
+                         f"{rel_src.numel()}")
+    out = launch_max_rows(entry, scores, k, compact, v, vs, init)
     LAUNCHES["pair_attention_max"] += 1
     return out
 
@@ -562,11 +566,14 @@ def _headmajor_sums(table, expd_f, plan: MergedPlan, v: int, k: int):
 
 
 def _launch_max(scores, plan: MergedPlan, v: int, k: int,
-                src_space: Optional[int]):
+                src_space: Optional[int], init=None):
     """The raw per-(target, head) max of one launch, f32 [V, K] with NEG
-    on empty targets: B11 over the plan's slots and the overflow edges in
-    plain torch."""
-    m_k = pair_attention_max(scores, *plan.fwd, v, k, src_space=src_space)
+    on empty targets, or its max with ``init``: B11 over the plan's
+    compact form (``plan.fwd_rows``, built at the batch's first forward and
+    shared with B3 and B10) and the overflow edges in plain torch."""
+    m_k = pair_attention_max(scores, *plan.fwd, v, k, src_space=src_space,
+                             compact=plan.fwd_rows(v, scores.shape[0]),
+                             init=init)
     if plan.ovf_src.shape[0] == 0:  # no spilled edges (the common case)
         return m_k
     ovf_tgt = plan.ovf_tgt.long()
@@ -659,13 +666,14 @@ class PairAttention(torch.autograd.Function):
     over ``plans``: one merged plan over the whole tables, or one plan per
     edge type over the type's [V]-row slab (the reference's ``_pat_fwd`` /
     ``_pat_bwd``). The forward takes one stabiliser for all plans (the
-    bound over the stacked scores, or the elementwise max of the B11
-    launches), sums B8 and B3 or B10 over the plans, and saves the rounded
-    stabiliser and the overflow edges' expd and slope; the backward runs B9
-    per plan with the same full cotangents and stacks the gradients along
-    rows. Gradients come back in the input dtypes (bf16 inputs get bf16
-    gradients, as the reference's custom VJP returns them), so callers cast
-    to the stream dtype OUTSIDE the op."""
+    bound over the stacked scores, or the B11 launches chained through
+    ``init``: each starts from the max of the plans before it), sums B8
+    and B3 or B10 over the plans, and saves the rounded stabiliser and the
+    overflow edges' expd and slope; the backward runs B9 per plan with the
+    same full cotangents and stacks the gradients along rows. Gradients
+    come back in the input dtypes (bf16 inputs get bf16 gradients, as the
+    reference's custom VJP returns them), so callers cast to the stream
+    dtype OUTSIDE the op."""
 
     @staticmethod
     def forward(ctx, table_hk, scores, plans, num_nodes: int,
@@ -681,9 +689,11 @@ class PairAttention(torch.autograd.Function):
             # stacked scores, no max kernel.
             m = _bound_stabiliser(scores, v, k, src_space)
         else:
-            m = functools.reduce(torch.maximum, (
-                _launch_max(s, plan, v, k, src_space)
-                for s, plan in zip(sc, plans)))
+            # One launch a plan, each starting from the maxes of the
+            # plans before it (a max does not depend on the order).
+            m = None
+            for s, plan in zip(sc, plans):
+                m = _launch_max(s, plan, v, k, src_space, m)
         m_safe = _stabilise(m, table.dtype)
         sums = [_launch_sums(t, s, m_safe, plan, v, k, src_space)
                 for t, s, plan in zip(tables, sc, plans)]

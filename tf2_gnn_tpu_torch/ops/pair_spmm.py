@@ -790,12 +790,15 @@ _INT, _INT64, _PTR = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 # (restype, argtypes) of the library's C entry points, set once at load:
 # one row-owner signature for K1, K2, B3, B12 (sorted_spmm.py) and B9's
 # second pass (pair_attention.py), one per-head signature for B10
-# (pair_attention.py) and B14 (sorted_spmm.py).
+# (pair_attention.py) and B14 (sorted_spmm.py), one max signature for B11
+# (pair_attention.py) and B15 (sorted_spmm.py).
 _ROW_OWNER = (ctypes.c_int, [_INT, _INT, _PTR, _INT64, _INT, _PTR, _PTR,
                              _PTR, _PTR, _INT64, _PTR, _PTR])
 _HEAD_ROWS = (ctypes.c_int, [_INT, _INT, _PTR, _INT64, _INT, _INT, _PTR,
                              _INT64, _INT64, _PTR, _PTR, _PTR, _INT64, _PTR,
                              _PTR, _PTR])
+_MAX_ROWS = (ctypes.c_int, [_INT, _INT, _PTR, _INT64, _INT64, _INT, _INT,
+                            _PTR, _PTR, _PTR, _INT64, _PTR, _PTR])
 _SIGNATURES = {
     "pair_stream_launch": _ROW_OWNER,
     "pair_stream_joint_launch": _ROW_OWNER,
@@ -804,6 +807,8 @@ _SIGNATURES = {
     "pair_attention_ts_launch": _ROW_OWNER,
     "pair_attention_agg_launch": _HEAD_ROWS,
     "attention_scatter_launch": _HEAD_ROWS,
+    "pair_attention_max_launch": _MAX_ROWS,
+    "sorted_segment_max_launch": _MAX_ROWS,
     "pair_stream_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -923,6 +928,39 @@ def launch_head_rows(entry: str, table, expd, head_stride: int,
         compact.src_row.data_ptr(), compact.slot.data_ptr(), out_rows,
         out.data_ptr(), denom.data_ptr(), stream))
     return denom, out
+
+
+def launch_max_rows(entry: str, table, num_cols: int, compact: SlotRows,
+                    out_rows: int, src_space: int = 0, init=None):
+    """Launch ``max_rows_kernel`` (B11 or B15, by ``entry``) on the current
+    stream over the plan's compact form: f32 [out_rows, num_cols], every
+    element stored once, so the output is not initialised. B11's ``table``
+    is the contiguous [rows, 2K] score table (``num_cols`` = K,
+    ``src_space`` one type's source rows, ``init`` an optional f32
+    [out_rows, K] that the maxes start from); B15's the f32 [slots, K]
+    values, possibly a row-strided view."""
+    lib = _library()
+    _check_table(entry, table, None)
+    table = _rows_view(table)
+    _check_compact(entry, table, compact, out_rows)
+    if init is not None and (init.dtype != torch.float32
+                             or init.device != table.device
+                             or not init.is_contiguous()
+                             or tuple(init.shape) != (out_rows, num_cols)):
+        raise ValueError(f"{entry}: init must be a contiguous f32 "
+                         f"[{out_rows}, {num_cols}] on the table's device, "
+                         f"got {init.dtype} {tuple(init.shape)} on "
+                         f"{init.device}")
+    out = torch.empty((out_rows, num_cols), dtype=torch.float32,
+                      device=table.device)
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    _raise_on(lib, entry, getattr(lib, entry)(
+        table.device.index or 0, _DTYPE_CODES[table.dtype],
+        table.data_ptr(), table.stride(0), table.shape[0], num_cols,
+        src_space, None if init is None else init.data_ptr(),
+        compact.row_ptr.data_ptr(), compact.src_row.data_ptr(), out_rows,
+        out.data_ptr(), stream))
+    return out
 
 
 def _on_cpu(name: str, tables) -> bool:

@@ -29,8 +29,8 @@ chunk-ordered stream into ``out[block_ids[slot // 512] * R + rel[slot]]``
 All four are hand-written CUDA. B12 launches the row-owner kernel of
 ``csrc/pair_stream.cu`` over the plan's compact form (``sorted_rows``, a
 CSR of the valid slots by output row, which ``ScatterPlan.sum_rows``
-builds at first read and keeps), and B14 its per-head twin over the
-forward form; B13 and B15 are ``csrc/sorted_scatter.cu``'s.
+builds at first read and keeps), and B14 and B15 its per-head and max
+twins over the forward form; B13 is ``csrc/sorted_scatter.cu``'s.
 Each wrapper runs its plain PyTorch version (``index_add_`` or
 ``scatter_reduce_``, accumulating in f32) on a CPU tensor and launches its
 kernel on a CUDA tensor, or raises. The autograd ops
@@ -58,6 +58,7 @@ from .pair_spmm import (
     _library,
     _require_compact,
     launch_head_rows,
+    launch_max_rows,
 )
 from .segment import segment_logits_max, segment_sum
 
@@ -299,7 +300,8 @@ class ScatterPlan:
     def sum_rows(self, form: str, out_rows: int) -> SlotRows:
         """The compact form (``sorted_rows``) into ``out_rows`` rows, in
         one of its call forms: ``"fwd"``, the forward slots by target
-        (B12 in ``plan_scatter``, B14 in ``attention_scatter``);
+        (B12 in ``plan_scatter``, B14 in ``attention_scatter``, B15 in the
+        sorted RGAT's stabiliser);
         ``"fwd_typed"``, the forward slots by type-minor
         row ``rel * L + type`` (R = 128 * L, ``plan_gather_tgt_typed``'s
         gradient); ``"bwd"``, the backward slots by merged source, each
@@ -324,8 +326,8 @@ class ScatterPlan:
 
 
 # ---------------------------------------------------------------------------
-# The four sorted-scatter kernels (B12 and B14 in csrc/pair_stream.cu, B13
-# and B15 in csrc/sorted_scatter.cu), their plain versions and wrappers.
+# The four sorted-scatter kernels (B12, B14 and B15 in csrc/pair_stream.cu,
+# B13 in csrc/sorted_scatter.cu), their plain versions and wrappers.
 
 # Launch counts of the CUDA kernels of this module: each wrapper adds one
 # where it launches its kernel, and nowhere else.
@@ -451,23 +453,23 @@ def attention_scatter_sums_plain(expd, msgs, rel, block_ids, num_nodes: int):
                         num_nodes))
 
 
-def _launch(entry: str, msgs, aux, rel, block_ids, num_nodes: int,
-            stream_dtypes, fill: float):
-    """Launch one kernel of ``csrc/sorted_scatter.cu`` (B13, B15) on the
-    current stream into a fresh f32 [num_nodes, H] output filled with
-    ``fill`` (R = 128). ``msgs`` [slots, H] may be a row-strided view (its
-    columns contiguous); ``aux`` is the f32 per-slot scale (B13) or
-    None."""
+def _launch_scaled(msgs, scale, rel, block_ids, num_nodes: int):
+    """Launch B13 (``csrc/sorted_scatter.cu``) on the current stream into
+    a fresh zero-filled f32 [num_nodes, H] output (R = 128). ``msgs``
+    [slots, H] f32 or bf16 may be a row-strided view (its columns
+    contiguous); ``scale`` is the f32 per-slot scale."""
     from .cuda_build import load_library
 
     lib = load_library(_SOURCE)
+    entry = "sorted_segment_sum_scaled_launch"
     dev = msgs.device
     r = _block_rows(num_nodes, None)
     i32 = (torch.int32,)
-    _check(entry, dev, rel=(rel, i32), block_ids=(block_ids, i32))
-    if msgs.device != dev or msgs.dtype not in stream_dtypes:
-        raise TypeError(f"{entry}: msgs must be one of {stream_dtypes} on "
-                        f"{dev}, got {msgs.dtype} on {msgs.device}")
+    _check(entry, dev, rel=(rel, i32), block_ids=(block_ids, i32),
+           scale=(scale, (torch.float32,)))
+    if msgs.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{entry}: msgs must be f32 or bf16, got "
+                        f"{msgs.dtype}")
     if msgs.dim() != 2 or msgs.stride(1) != 1 or msgs.stride(0) < msgs.shape[1]:
         raise ValueError(f"{entry}: msgs must be 2-D with contiguous rows")
     slots, h = msgs.shape
@@ -477,18 +479,16 @@ def _launch(entry: str, msgs, aux, rel, block_ids, num_nodes: int,
         raise ValueError(f"{entry}: inconsistent plan shapes (msgs "
                          f"{tuple(msgs.shape)}, rel {rel.numel()}, "
                          f"{num_chunks} chunks)")
-    if aux is not None:
-        _check(entry, dev, aux=(aux, (torch.float32,)))
-        if aux.numel() != slots:
-            raise ValueError(f"{entry}: the per-slot operand must be a "
-                             f"contiguous f32 [{slots}]")
-    out = torch.full((num_nodes, h), fill, dtype=torch.float32, device=dev)
+    if scale.numel() != slots:
+        raise ValueError(f"{entry}: the scale must be a contiguous f32 "
+                         f"[{slots}]")
+    out = torch.zeros((num_nodes, h), dtype=torch.float32, device=dev)
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [i, i, p, i64, i, p, p, p, i, i, p, i64, p]
     err = fn(dev.index or 0, _DTYPE_CODES[msgs.dtype], msgs.data_ptr(),
-             msgs.stride(0), h, None if aux is None else aux.data_ptr(),
+             msgs.stride(0), h, scale.data_ptr(),
              rel.data_ptr(), block_ids.data_ptr(), num_chunks, r,
              out.data_ptr(), num_nodes,
              torch.cuda.current_stream(dev).cuda_stream)
@@ -498,10 +498,6 @@ def _launch(entry: str, msgs, aux, rel, block_ids, num_nodes: int,
         msg = lib.sorted_scatter_error_string(err).decode()
         raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
     return out
-
-
-_STREAM_DTYPES = tuple(_DTYPE_CODES)
-_F32 = (torch.float32,)
 
 
 def sorted_segment_sum(msgs, rel, block_ids, num_nodes: int,
@@ -559,23 +555,36 @@ def sorted_segment_sum_scaled(msgs, scale, rel, block_ids, num_nodes: int):
     if device == "cpu":
         return sorted_segment_sum_scaled_plain(msgs, scale, rel, block_ids,
                                                num_nodes)
-    out = _launch("sorted_segment_sum_scaled_launch", msgs, scale, rel,
-                  block_ids, num_nodes, _STREAM_DTYPES, 0.0)
+    out = _launch_scaled(msgs, scale, rel, block_ids, num_nodes)
     LAUNCHES["sorted_segment_sum_scaled"] += 1
     return out
 
 
-def sorted_segment_max(vals, rel, block_ids, num_nodes: int):
+def sorted_segment_max(vals, rel, block_ids, num_nodes: int,
+                       compact: Optional[SlotRows] = None):
     """B15: the per-row, per-column max of the f32 ``vals`` [slots, K],
-    f32 [num_nodes, K]; rows that no slot reaches (left at the -inf fill)
-    and other non-finite entries become 0. Forward only."""
+    f32 [num_nodes, K]; rows that no slot reaches and other non-finite
+    maxes become 0. Forward only. ``vals`` may be a row-strided view. On
+    the card it reads only the plan's ``compact`` form
+    (``ScatterPlan.sum_rows("fwd", num_nodes)``: each entry's row is its
+    slot) and the valid slots' values, through ``csrc/pair_stream.cu``'s
+    max row owner; on the CPU the plain version reads the plan arrays."""
     if _device_type("sorted_segment_max", vals) == "cpu":
         return sorted_segment_max_plain(vals, rel, block_ids, num_nodes)
-    out = _launch("sorted_segment_max_launch", vals, None, rel, block_ids,
-                  num_nodes, _F32, -math.inf)
+    _require_compact("sorted_segment_max", compact)
+    _library()
+    entry = "sorted_segment_max_launch"
+    _block_rows(num_nodes, None)
+    if vals.dtype != torch.float32 or vals.dim() != 2:
+        raise TypeError(f"{entry}: needs 2-D f32 values, got {vals.dtype} "
+                        f"{tuple(vals.shape)}")
+    if compact.num_slots != vals.shape[0]:
+        raise ValueError(f"{entry}: the compact form is over "
+                         f"{compact.num_slots} slots, vals has "
+                         f"{vals.shape[0]}")
+    out = launch_max_rows(entry, vals, vals.shape[1], compact, num_nodes)
     LAUNCHES["sorted_segment_max"] += 1
-    # Non-finite -> 0, as the plain version's where(isfinite), in place.
-    return out.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0)
+    return out
 
 
 def attention_scatter_sums(expd, msgs, rel, block_ids, num_nodes: int,
@@ -743,8 +752,8 @@ def plan_scatter(weighted, plan: ScatterPlan) -> torch.Tensor:
 class AttentionScatter(torch.autograd.Function):
     """Fused attention aggregation (``attention_scatter``,
     spmm_pallas.py:755-873): B14 forward over the plan's forward compact
-    form (shared with ``plan_scatter``'s B12); the backward is plain PyTorch,
-    as the reference's ``_as_bwd`` is XLA:
+    form (shared with ``plan_scatter``'s B12 and B15); the backward is
+    plain PyTorch, as the reference's ``_as_bwd`` is XLA:
 
         d_msgs[s, c] = expd[s, c % K] * d_weighted[tgt_s, c]
         d_expd[s, k] = sum over hd of msgs[s, hd*K + k] * d_weighted[tgt_s,
