@@ -25,18 +25,19 @@ Phases, each of which fails the run by raising:
       PyTorch library call computing the same function
       (``torch.sparse.mm``, CSR built from the plan outside the timed
       window), the train step and the eval forward; for the row owners
-      (K1, K2, B3, B4-B6, B9-B12, B14, B15, P1, P2) and the library calls
-      also the
+      (K1, K2, B3-B12, B14, B15, P1, P2) and the library calls also the
       device time (torch.profiler over 20 launches, at the end of the run,
       after every path's step time; ``--profile`` traces each path's steps
       as it goes).
 3. PPI_RGAT on the merged-plan PPI batch, the same three steps:
-   a. the expd kernel (B8), one head's merged-plan SpMM (B3, over the
-      plan's compact form; two launches bit-equal) and the fused attention
-      backward (B9, over the backward plan's two compact forms; two
-      launches bit-equal; also at K = 4, H = 576 and 1024, its tiled
-      form) against their plain versions at the real plan shapes, with
-      the compact forms' sizes;
+   a. the expd kernel (B8, over the plan's forward compact form, by entry,
+      against the plain version at the form's slots), one head's
+      merged-plan SpMM (B3, over the same form, reading B8's output by
+      entry as the main path does and, in its other form, a scale by
+      slot) and the fused attention backward (B9, over the backward plan's
+      two compact forms; also at K = 4, H = 576 and 1024, its tiled form)
+      against their plain versions at the real plan shapes, each launch
+      bit-equal to a second, with the compact forms' sizes;
    b. the shipped PPI_RGAT model at full width (3 layers, hidden 320, 4
       heads, tanh, bf16 edge stream, input dropout 0.1, Adam at lr 1e-3):
       the eval forward against the plain versions, then its main path
@@ -46,17 +47,18 @@ Phases, each of which fails the run by raising:
       plans: its eval forward against the plain versions, and one train
       step through B8, B10 and B9, once each;
    c. timings as in 2c (B3's library call is ``torch.sparse.mm`` of the
-      expd-scaled CSR; B8 and B9 have no single PyTorch call).
+      expd-scaled CSR; B8 and B9 have no single PyTorch call; B3's by-slot
+      form is logged).
 4. The reference-default GNN_Edge_MLP (target-state input, one hidden
    edge-MLP layer, GRU global exchange after layer 2) on the merged-target
    PPI batch, the same three steps:
    a. the relu-pair kernels B4 (training forward, R and the mask sum M)
       and B6 (eval forward, R), one row owner over the forward plan's
       compact form, B5 (dA, a row owner by A's row over the backward plan's
-      compact form; each of the three two launches bit-equal) and B7 (dB
-      over the forward plan's arrays, on no call path) against their plain
-      versions at the real plan shapes: bf16 A and B, f32 cotangent, unit
-      scales;
+      compact form) and B7 (dB = M times g, the forward row owner's third
+      mode over B4's form, on no call path) against their plain versions
+      at the real plan shapes, each launch bit-equal to a second: bf16 A
+      and B, f32 cotangent, unit scales;
    b. ``workloads.edge_mlp_default_params()`` at full width (4 layers,
       hidden 320, bf16 edge stream, Adam at lr 1e-3): the eval forward
       against the plain versions (B6 once per layer, B4 and B5 never),
@@ -97,7 +99,9 @@ Phases, each of which fails the run by raising:
       [24192, 8]), two launches bit-equal; the hk-major aggregation
       kernel (B10) over the plan's forward compact form in its two call
       forms (K = 8, H = 64 and K = 4, H = 512; bf16 table, B8's f32
-      expd), two launches bit-equal; B9 on the same plan at the two
+      expd by entry, as the main path reads it), two launches bit-equal;
+      B8 on the same plan at both models' head counts (K = 4 and 8, by
+      entry, two launches bit-equal); B9 on the same plan at the two
       models' shapes (K = 4, H = 320 and K = 8, H = 64), two launches
       bit-equal;
    b. the shipped PPI_RGAT with the ``"exact"`` stabiliser (per step
@@ -108,8 +112,8 @@ Phases, each of which fails the run by raising:
       kernel of phases 2-5 launches;
    c. timings as in 2c; B11's library call is one ``scatter_reduce_`` of
       the per-slot logits; B10 has none (it would take K sparse products);
-      B11 and B10 also get their device times; B9 at the two shapes of 6a,
-      B11's merged form and B10's second form are logged.
+      B11 and B10 also get their device times; B9 and B8 at the two
+      shapes of 6a, B11's merged form and B10's second form are logged.
 7. The shipped QM9_RGCN on the QM9-shaped batch (``bench.py::measure_qm9``'s:
    909 molecules, 5 edge types on per-type pair plans, V = 16384):
    a. K2 and K1 against their plain versions at the QM9 plan's shapes
@@ -155,9 +159,9 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 peak outside the tensor cores
 # Kernel vs plain version: both sum f32 products, in different orders
-# (the atomics of B7 and B13 reorder run to run; the row owners K1, K2,
-# B3, B4-B6, B9, B10, B12 and B14 keep one order); B8/B9 take expf of the
-# same f32 arguments as torch.exp. The maxes B11 and B15 match exactly.
+# (the atomics of B13 reorder run to run; the row owners K1, K2, B3-B7,
+# B9, B10, B12 and B14 keep one order); B8/B9 take expf of the same f32
+# arguments as torch.exp. The maxes B11 and B15 match exactly.
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
 # Whole model, kernels vs plain versions: besides the f32 reorder, a sum
 # that lands on the other side of a bf16 rounding boundary re-rounds one
@@ -262,8 +266,10 @@ def add_device_times(entries, tries: int = 3) -> None:
 
 def plain_version(plain):
     """``plain`` under its wrapper's signature: the plan's compact forms,
-    which only the kernel reads, are dropped."""
-    def call(*args, compact=None, ts_rows=None, **kwargs):
+    which only the kernel reads, are dropped, and with them the by-entry
+    layout (``by_entry``): B8's plain version writes its expd by slot, and
+    B3's and B10's read it so."""
+    def call(*args, compact=None, ts_rows=None, by_entry=False, **kwargs):
         return plain(*args, **kwargs)
     return call
 
@@ -667,7 +673,7 @@ def time_kernel(name, source, replaces, launches, err, source_fn, plain_fn,
 def rgat_path(device, argv):
     """Phase 3: PPI_RGAT through B8, B3 and B9, then one wide layer of it
     (3b) through B8, B10 and B9's tiled form. Returns the entries of B3, B8
-    and B9, and B9's at the wide shapes."""
+    and B9, and B9's at the wide shapes and B3's by-slot form."""
     import torch
 
     from tf2_gnn_tpu_torch.ops import pair_attention as pa
@@ -701,20 +707,29 @@ def rgat_path(device, argv):
     m = pa._stabilise(pa._bound_stabiliser(scores, v, k), torch.bfloat16)
     dw = torch.randn((v, h), generator=gen, device=device).to(torch.bfloat16)
     d_denom = torch.randn((v, k), generator=gen, device=device)
+    compact = plan.fwd_rows(v, rows)
+    slot = compact.slot.long()
     expd_want = pa.pair_attention_expd_plain(scores, m, *plan.fwd, v, k)
     head0 = torch.cat([table.reshape(rows, head_dim, k)[:, :, 0],
                        table.new_ones((rows, 1))], dim=1).contiguous()
+    # Head 0's scale by slot (the plain version's layout) and by entry of
+    # the compact form (B8's, the main path's).
     scale0 = expd_want[0]
+    scale0_e = expd_want[0, slot].contiguous()
 
     def b8():
-        return pa.pair_attention_expd(scores, m, *plan.fwd, v, k)
+        return pa.pair_attention_expd(scores, m, *plan.fwd, v, k,
+                                      compact=compact)
 
     def b8_plain():
-        return pa.pair_attention_expd_plain(scores, m, *plan.fwd, v, k)
-
-    compact = plan.fwd_rows(v, rows)
+        return pa.pair_attention_expd_plain(scores, m, *plan.fwd, v,
+                                            k)[:, slot]
 
     def b3():
+        return ps.pair_spmm(head0, scale0_e, *plan.fwd, v, compact=compact,
+                            by_entry=True)
+
+    def b3_slot():
         return ps.pair_spmm(head0, scale0, *plan.fwd, v, compact=compact)
 
     def b3_plain():
@@ -730,13 +745,11 @@ def rgat_path(device, argv):
     def b9_plain():
         return pa.pair_attention_bwd_fused_plain(*bwd_args)
 
-    err8 = check_close("pair_attention_expd", b8(), expd_want, KERNEL_RTOL,
-                       KERNEL_ATOL)
-    got3 = b3()
-    err3 = check_close("pair_spmm", got3, b3_plain(), KERNEL_RTOL,
-                       KERNEL_ATOL)
-    check_repeatable("pair_spmm", b3, got3)
-    del got3
+    err8 = check_outputs("pair_attention_expd", b8, b8_plain())
+    want3 = b3_plain()
+    err3 = check_outputs("pair_spmm", b3, want3)
+    err3_slot = check_outputs("pair_spmm by slot", b3_slot, want3)
+    del want3
     err9 = check_outputs("pair_attention_bwd_fused", b9, b9_plain())
     # B9 past its register row (its tiled form) on the same plan: K = 4 at
     # H = 576 and 1024, bf16.
@@ -757,9 +770,10 @@ def rgat_path(device, argv):
         name9 = f"pair_attention_bwd_fused K = {k}, H = {hh}"
         b9_wide[hh] = (name9, b9w, b9w_plain,
                        check_outputs(name9, b9w, b9w_plain()))
-    log(f"kernel check: pair_attention_expd max_abs_err {err8:.3e}, "
-        f"pair_spmm max_abs_err {err3:.3e} (bit-equal across two launches; "
-        f"compact form {compact.src_row.numel()} slots into {v} rows), "
+    log(f"kernel check: pair_attention_expd max_abs_err {err8:.3e} (by "
+        f"entry, against the plain version at the form's slots), pair_spmm "
+        f"max_abs_err {err3:.3e} by entry, {err3_slot:.3e} by slot (compact "
+        f"form {compact.src_row.numel()} entries into {v} rows), "
         f"pair_attention_bwd_fused max_abs_err {err9:.3e} (rtol "
         f"{KERNEL_RTOL}, atol {KERNEL_ATOL}; bit-equal across two "
         f"launches; compact forms "
@@ -772,7 +786,8 @@ def rgat_path(device, argv):
     check_eval_forward(model, batch, labels, [
         (ps, "pair_spmm", plain_version(ps.pair_spmm_plain)),
         (pa, "pair_spmm", plain_version(ps.pair_spmm_plain)),
-        (pa, "pair_attention_expd", pa.pair_attention_expd_plain),
+        (pa, "pair_attention_expd",
+         plain_version(pa.pair_attention_expd_plain)),
         (pa, "pair_attention_bwd_fused",
          plain_version(pa.pair_attention_bwd_fused_plain))])
     per_step = params["gnn_num_layers"] * TRAIN_STEPS
@@ -796,9 +811,12 @@ def rgat_path(device, argv):
     fwd_groups = plan.grp_tgt_f.numel()
     fwd_valid = int(valid.sum())
     plan_bytes = fwd_slots * 8 + fwd_chunks * 4 + fwd_groups * 4
-    b8_bound = bound_ms(
+    # B8's first port's count, logged beside the recount: the plan, the
+    # whole score table and stabiliser, K f32 values a plan slot written.
+    b8_old = bound_ms(
         plan_bytes + scores.numel() * 2 + m.numel() * 4 + k * fwd_slots * 4,
-        6.0 * fwd_valid * k)   # add, leaky, subtract, exp per slot and head
+        6.0 * fwd_valid * k)[0]
+    b8_bound = expd_rows_bound_ms(compact, k, 2, v)
     a_s, a_s16, rows_read, _ = slot_matrix(srcabs, tgtabs, valid, scale0, v,
                                            rows)
     b3_bound = kernel_bound_ms(rows_read, head0.shape[1], 2, fwd_valid, v)
@@ -817,6 +835,8 @@ def rgat_path(device, argv):
     b9_detail = (f"{bwd_valid} valid of {plan.rel_src_b.numel()} slots, "
                  f"[{rows}, {h}] bf16 table, K = {k}")
     head0_f32 = head0.float()
+    b3_detail = (f"one head's launch, [{rows}, {head0.shape[1]}] bf16 table, "
+                 f"{fwd_valid} valid of {fwd_slots} slots")
     wide_forms = [time_kernel(
         name9, "tf2_gnn_tpu_torch/csrc/pair_attention.cu",
         "tf2_gnn_tpu/ops/pair_attention.py:860",
@@ -826,21 +846,28 @@ def rgat_path(device, argv):
         f"K = {k}, bf16 table [{rows}, {hh}], the merged plan, tiled form",
         device=True)
         for hh, (name9, b9w, b9w_plain, err) in b9_wide.items()]
+    # B3's other form, a scale by slot (K1's, K2's and the probes' reads
+    # through the slot map), is logged.
+    wide_forms.append(time_kernel(
+        "pair_spmm by slot", "tf2_gnn_tpu_torch/csrc/pair_stream.cu",
+        "tf2_gnn_tpu/ops/pair_spmm.py:678", 0, err3_slot, b3_slot,
+        b3_plain, None, None, *b3_bound, b3_detail + ", scale by slot",
+        device=True))
     return [
         time_kernel("pair_spmm", "tf2_gnn_tpu_torch/csrc/pair_stream.cu",
                     "tf2_gnn_tpu/ops/pair_spmm.py:678", launches["pair_spmm"],
                     err3, b3, b3_plain,
                     lambda: torch.sparse.mm(a_s16, head0),
                     lambda: torch.sparse.mm(a_s, head0_f32), *b3_bound,
-                    f"one head's launch, [{rows}, {head0.shape[1]}] bf16 "
-                    f"table, {fwd_valid} valid of {fwd_slots} slots",
-                    device=True),
+                    b3_detail + ", B8's scale by entry", device=True),
         time_kernel("pair_attention_expd",
-                    "tf2_gnn_tpu_torch/csrc/pair_attention.cu",
+                    "tf2_gnn_tpu_torch/csrc/pair_stream.cu",
                     "tf2_gnn_tpu/ops/pair_attention.py:427",
                     launches["pair_attention_expd"], err8, b8, b8_plain,
                     None, None, *b8_bound,
-                    f"[{k}, {fwd_slots}] f32 out"),
+                    f"bf16 scores [{rows}, {2 * k}] -> f32 [{k}, "
+                    f"{compact.src_row.numel()}] by entry; padded-slot "
+                    f"bound count {b8_old:.4f} ms", device=True),
         time_kernel("pair_attention_bwd_fused",
                     "tf2_gnn_tpu_torch/csrc/pair_attention.cu",
                     "tf2_gnn_tpu/ops/pair_attention.py:860",
@@ -912,7 +939,8 @@ def head_rows_bound_ms(compact, h: int, itemsize: int, k: int,
     """B10's and B14's bound, counting what the function needs, whatever
     implements it: bytes = the distinct table (or stream) rows the entries
     read, ``entry_bytes`` an entry (its row and slot, 8 B; 4 B for B14,
-    whose row is its slot) and its K f32 expd values, 4 B an output row
+    whose row is its slot, and for B10 reading B8's expd by entry) and its
+    K f32 expd values, 4 B an output row
     pointer, and the f32 outputs (the weighted sums and the denominators)
     written once; operations = a multiply-add a valid slot and column and
     an add a valid slot and head."""
@@ -936,22 +964,48 @@ def max_rows_bound_ms(compact, k: int, read_bytes: int,
     return bound_ms(nbytes, ops_per_value * n * k)
 
 
+def expd_rows_bound_ms(compact, k: int, itemsize: int, vs: int):
+    """B8's bound, counting what the function needs, whatever implements
+    it: bytes = the distinct source-score halves and target-score halves
+    the compact form's entries read (rows u and (u // vs) * vs + t), the
+    f32 stabiliser rows of the output rows with an entry, 4 B an entry
+    (its row), 4 B an output row pointer and K f32 values an entry written
+    once; operations = 6 an entry and head (add, leaky's compare, multiply
+    and select, subtract, exp)."""
+    import torch
+
+    n, out_rows = compact.src_row.numel(), compact.out_rows
+    counts = torch.diff(compact.row_ptr.long())
+    u = compact.src_row.long()
+    t = torch.repeat_interleave(
+        torch.arange(out_rows, device=counts.device), counts)
+    halves = (int(u.unique().numel())
+              + int(((u // vs) * vs + t).unique().numel()))
+    owned = int((counts > 0).sum())
+    nbytes = (halves * k * itemsize + owned * k * 4 + n * 4
+              + (out_rows + 1) * 4 + n * k * 4)
+    return bound_ms(nbytes, 6.0 * n * k)
+
+
 def relu_rows_bound_ms(compact, h: int, itemsize: int, outputs: int,
-                       ops_per_entry: float, cot_itemsize: int = 0):
-    """A relu-pair row owner's bound (B4, B5, B6), counting what the
-    function needs, whatever implements it: bytes = the distinct rows of
-    the table its entries gather (A for B4 and B6; B, and the f32 cotangent
-    of ``cot_itemsize`` bytes an element, for B5), one row of the table
-    indexed by the output (B; A for B5) per output row with an entry, 8 B
-    an entry (its row and scale), 4 B an output row pointer and the
-    ``outputs`` f32 outputs written once; operations = ``ops_per_entry``
-    a valid slot and column."""
+                       ops_per_entry: float, cot_itemsize: int = 0,
+                       owned_cot_itemsize: int = 0):
+    """A relu-pair row owner's bound (B4-B7), counting what the function
+    needs, whatever implements it: bytes = the distinct rows of the table
+    its entries gather (A for B4, B6 and B7; B, and the f32 cotangent of
+    ``cot_itemsize`` bytes an element, for B5), one row of the table
+    indexed by the output (B; A for B5) per output row with an entry, and
+    for B7 one f32 cotangent row of ``owned_cot_itemsize`` bytes an
+    element per such row, 8 B an entry (its row and scale), 4 B an output
+    row pointer and the ``outputs`` f32 outputs written once; operations =
+    ``ops_per_entry`` a valid slot and column."""
     import torch
 
     n, out_rows = compact.src_row.numel(), compact.out_rows
     gathered = int(compact.src_row.unique().numel())
     owned = int((torch.diff(compact.row_ptr) > 0).sum())
-    nbytes = (gathered * h * (itemsize + cot_itemsize) + owned * h * itemsize
+    nbytes = (gathered * h * (itemsize + cot_itemsize)
+              + owned * h * (itemsize + owned_cot_itemsize)
               + n * 8 + (out_rows + 1) * 4 + outputs * out_rows * h * 4)
     return bound_ms(nbytes, ops_per_entry * n * h)
 
@@ -974,8 +1028,8 @@ def relu_pair_bound_ms(plan_args, table_rows_read, cot_rows_read, h: int,
 
 def edge_mlp_path(device, argv):
     """Phase 4: the reference-default GNN_Edge_MLP through B4, B5 and B6
-    (B7 checked and timed beside them). Returns the four entries and no
-    other call form."""
+    (B7, the forward row owner's third mode, checked and timed beside
+    them). Returns the four entries and no other call form."""
     import torch
 
     from tf2_gnn_tpu_torch.models.node_multiclass_task import (
@@ -1038,21 +1092,15 @@ def edge_mlp_path(device, argv):
         "relu_pair_fwd": (
             lambda: pem.relu_pair_fwd(*fwd_args, compact=fwd_rows),
             lambda: pem.relu_pair_fwd_plain(*fwd_args)),
-        "relu_pair_db": (lambda: pem.relu_pair_db(*db_args),
-                         lambda: pem.relu_pair_db_plain(*db_args)),
+        "relu_pair_db": (
+            lambda: pem.relu_pair_db(*db_args, compact=fwd_rows),
+            lambda: pem.relu_pair_db_plain(*db_args)),
     }
-    row_owners = ("relu_pair_fwd_m", "relu_pair_da", "relu_pair_fwd")
-    errs = {name: check_outputs(name, fns[name][0], fns[name][1]())
-            for name in row_owners}
-    got = pem.relu_pair_db(*db_args)
-    torch.cuda.synchronize()
-    errs["relu_pair_db"] = check_close("relu_pair_db", got,
-                                       pem.relu_pair_db_plain(*db_args),
-                                       KERNEL_RTOL, KERNEL_ATOL)
-    del got
+    errs = {name: check_outputs(name, kernel_fn, plain_fn())
+            for name, (kernel_fn, plain_fn) in fns.items()}
     log("kernel check: " + ", ".join(f"{name} max_abs_err {err:.3e}"
                                      for name, err in errs.items())
-        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); B4, B5 and B6 "
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); B4-B7 "
         f"bit-equal across two launches, the forward compact form "
         f"{fwd_rows.src_row.numel()} entries into {rows} rows, the backward "
         f"one {bwd_rows.src_row.numel()} into {rows}")
@@ -1086,10 +1134,11 @@ def edge_mlp_path(device, argv):
     # Bounds from this run's plan. The row owners count what the function
     # needs (``relu_rows_bound_ms``), operations a valid slot and column:
     # z = a + b, relu, scale and add (B6), also compare, select and add for
-    # M (B4); add, compare, select, scale and add (B5). Each logs its first
+    # M (B4); add, compare, select, scale and add (B5); add, compare,
+    # select and add, and g's multiply counted a slot (B7, which also reads
+    # the f32 g row of each output row with an entry). Each logs its first
     # port's count beside it (``relu_pair_bound_ms``: the distinct rows, 12
-    # B a plan slot, padded ones included). B7 keeps that count: compare,
-    # select and add, and g's multiply per output.
+    # B a plan slot, padded ones included).
     f_src, f_tgt, f_valid = ps.slot_abs_ids(*plan.fwd)
     a_rows = int(torch.unique(f_src[f_valid]).numel())
     t_rows = int(torch.unique(f_tgt[f_valid]).numel())
@@ -1103,8 +1152,9 @@ def edge_mlp_path(device, argv):
                          bwd_rows.src_row.numel()),
         "relu_pair_fwd": (relu_rows_bound_ms(fwd_rows, h, 2, 1, 4.0),
                           fwd_rows.src_row.numel()),
-        "relu_pair_db": relu_pair_bound_ms(plan.fwd, a_rows + t_rows,
-                                           t_rows, h, 1, rows, 4.0),
+        "relu_pair_db": (relu_rows_bound_ms(fwd_rows, h, 2, 1, 4.0,
+                                            owned_cot_itemsize=4),
+                         fwd_rows.src_row.numel()),
     }
     first_counts = {
         "relu_pair_fwd_m": relu_pair_bound_ms(plan.fwd, a_rows + t_rows, 0,
@@ -1113,6 +1163,8 @@ def edge_mlp_path(device, argv):
                                            da_t_rows, h, 1, rows, 5.0),
         "relu_pair_fwd": relu_pair_bound_ms(plan.fwd, a_rows + t_rows, 0, h,
                                             1, rows, 4.0),
+        "relu_pair_db": relu_pair_bound_ms(plan.fwd, a_rows + t_rows,
+                                           t_rows, h, 1, rows, 4.0),
     }
     replaces = {"relu_pair_fwd_m": "tf2_gnn_tpu/ops/pair_edge_mlp.py:289",
                 "relu_pair_da": "tf2_gnn_tpu/ops/pair_edge_mlp.py:523",
@@ -1121,14 +1173,13 @@ def edge_mlp_path(device, argv):
     kernels = []
     for name, (kernel_fn, plain_fn) in fns.items():
         (bound, bound_by), valid = bounds[name]
-        detail = f"[{rows}, {h}] bf16 A and B, {valid} valid slots"
-        if name in first_counts:
-            detail += (f"; padded-slot bound count "
-                       f"{first_counts[name][0][0]:.4f} ms")
+        detail = (f"[{rows}, {h}] bf16 A and B, {valid} valid slots; "
+                  f"padded-slot bound count {first_counts[name][0][0]:.4f} "
+                  f"ms")
         kernels.append(time_kernel(
             name, "tf2_gnn_tpu_torch/csrc/pair_edge_mlp.cu", replaces[name],
             launches[name], errs[name], kernel_fn, plain_fn, None, None,
-            bound, bound_by, detail, device=name in row_owners))
+            bound, bound_by, detail, device=True))
     return kernels, []
 
 
@@ -1481,7 +1532,7 @@ def typed_rgat_path(device, argv):
     """Phase 6: RGAT on the per-type-plan PPI batch; the shipped PPI_RGAT
     with the exact stabiliser through B11 (and B8, B3, B9), and GAT's
     8-head layout through B10 (and B8, B9). Returns the B11 and B10
-    entries, and B9's at the two models' shapes."""
+    entries, and B9's and B8's at the two models' shapes."""
     import torch
 
     from tf2_gnn_tpu_torch.ops import pair_attention as pa
@@ -1513,8 +1564,8 @@ def typed_rgat_path(device, argv):
     # table, over their forward compact forms; for one type's plan also
     # from an init, the max of another type's slab, as the per-type
     # forward chains its launches; for B10 a bf16 [V, H] slab of each call
-    # form with B8's f32 expd on the largest type's plan, over its forward
-    # compact form.
+    # form with B8's f32 expd by entry on the largest type's plan, over its
+    # forward compact form.
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     k = 4
     scores_t = (0.5 * torch.randn((v, 2 * k), generator=gen,
@@ -1532,6 +1583,8 @@ def typed_rgat_path(device, argv):
         "pair_attention_max merged": (scores_m, merged, k, None, None),
         "pair_attention_max init": (scores_t, big, k, None, init),
     }
+    agg_rows = big.fwd_rows(v, v)
+    b8_inputs = {}  # heads -> (scores, stabiliser) of B10's two forms
     for agg_k, agg_h, form in ((8, 64, "pair_attention_agg"),
                                (4, 512, "pair_attention_agg heads512")):
         table = torch.randn((v, agg_h), generator=gen,
@@ -1539,10 +1592,10 @@ def typed_rgat_path(device, argv):
         sc = (0.5 * torch.randn((v, 2 * agg_k), generator=gen,
                                 device=device)).to(torch.bfloat16)
         m = pa._stabilise(pa._bound_stabiliser(sc, v, agg_k), torch.bfloat16)
-        expd = pa.pair_attention_expd(sc, m, *big.fwd, v, agg_k)
+        expd = pa.pair_attention_expd(sc, m, *big.fwd, v, agg_k,
+                                      compact=agg_rows)
         forms[form] = (table, big, agg_k, expd, None)
-
-    agg_rows = big.fwd_rows(v, v)
+        b8_inputs[agg_k] = (sc, m)
 
     def fns(form):
         first, plan, kk, expd, init_m = forms[form]
@@ -1552,10 +1605,12 @@ def typed_rgat_path(device, argv):
                         first, *plan.fwd, v, kk, compact=rows, init=init_m),
                     lambda: pa.pair_attention_max_plain(
                         first, *plan.fwd, v, kk, init=init_m))
+        expd_slot = ps.by_slot(expd, agg_rows)
         return (lambda: pa.pair_attention_agg(first, expd, *plan.fwd, v, kk,
-                                              compact=agg_rows),
-                lambda: pa.pair_attention_agg_plain(first, expd, *plan.fwd,
-                                                    v, kk))
+                                              compact=agg_rows,
+                                              by_entry=True),
+                lambda: pa.pair_attention_agg_plain(first, expd_slot,
+                                                    *plan.fwd, v, kk))
 
     # All row owners: B11 exactly, B10 within the tolerance; both bit-equal
     # across two launches.
@@ -1580,6 +1635,29 @@ def typed_rgat_path(device, argv):
         f"largest type's plan {agg_rows.src_row.numel()} entries into {v} "
         f"rows, the merged plan's "
         f"{merged.fwd_rows(v, num_types * v).src_row.numel()})")
+
+    # B8 on the largest type's plan at the two models' head counts (GAT's
+    # K = 8, PPI_RGAT's K = 4), by entry against the plain version at the
+    # form's slots, two launches bit-equal; phase 3 holds its entry on the
+    # merged plan.
+    b8_typed = {}
+    for kk, (sc, m) in b8_inputs.items():
+        def b8(sc=sc, m=m, kk=kk):
+            return pa.pair_attention_expd(sc, m, *big.fwd, v, kk,
+                                          compact=agg_rows)
+
+        def b8_plain(sc=sc, m=m, kk=kk):
+            return pa.pair_attention_expd_plain(
+                sc, m, *big.fwd, v, kk)[:, agg_rows.slot.long()]
+
+        name8 = f"pair_attention_expd K = {kk}, one type"
+        b8_typed[kk] = (name8, b8, b8_plain,
+                        check_outputs(name8, b8, b8_plain()))
+    log("kernel check: " + ", ".join(
+        f"{name8} max_abs_err {err:.3e}"
+        for name8, _, _, err in b8_typed.values())
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; bit-equal across two "
+        f"launches)")
 
     # B9 on the largest type's plan at the shapes of the two models' main
     # paths: PPI_RGAT's one-type slab (K = 4, H = 320) and GAT's head
@@ -1731,10 +1809,10 @@ def typed_rgat_path(device, argv):
                       f"[{v}, {kk}]{start}; padded-slot bound count "
                       f"{max_first_count(first, plan.fwd, kk):.4f} ms")
         else:
-            bound = head_rows_bound_ms(agg_rows, first.shape[1], 2, kk, 8)
-            detail = (f"K = {kk}, bf16 table [{v}, {first.shape[1]}], f32 "
-                      f"expd [{kk}, {plan.fwd[0].numel()}]; padded-slot "
-                      f"bound count "
+            bound = head_rows_bound_ms(agg_rows, first.shape[1], 2, kk, 4)
+            detail = (f"K = {kk}, bf16 table [{v}, {first.shape[1]}], B8's "
+                      f"f32 expd [{kk}, {agg_rows.src_row.numel()}] by "
+                      f"entry; padded-slot bound count "
                       f"{agg_first_count(first, plan.fwd, kk):.4f} ms")
         entry = time_kernel(
             form, "tf2_gnn_tpu_torch/csrc/pair_stream.cu", replaces[name],
@@ -1751,6 +1829,16 @@ def typed_rgat_path(device, argv):
         b9, b9_plain, None, None, *b9_bound_ms(b9_rows, b9_ts, hh, kk, 2),
         f"K = {kk}, bf16 table [{v}, {hh}], one type's plan", device=True)
         for (kk, hh), (name9, b9, b9_plain, err) in b9_shapes.items()]
+    b8_launches = {4: exact_launches["pair_attention_expd"],
+                   8: agg_launches["pair_attention_expd"]}
+    other_forms += [time_kernel(
+        name8, "tf2_gnn_tpu_torch/csrc/pair_stream.cu",
+        "tf2_gnn_tpu/ops/pair_attention.py:427", b8_launches[kk], err, b8,
+        b8_plain, None, None, *expd_rows_bound_ms(agg_rows, kk, 2, v),
+        f"bf16 scores [{v}, {2 * kk}] -> f32 [{kk}, "
+        f"{agg_rows.src_row.numel()}] by entry, one type's plan",
+        device=True)
+        for kk, (name8, b8, b8_plain, err) in b8_typed.items()]
     return kernels, other_forms
 
 
@@ -1983,6 +2071,16 @@ def main(argv) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {source}: {line.strip()}")
+    # By name: the registers and spills of B8's kernel and of each mode
+    # of the relu-pair row owner (B4, B6, B7).
+    from tf2_gnn_tpu_torch.tools.relu_pair_variants import _ptxas_report
+
+    for source, match in (("pair_stream.cu", "expd_rows"),
+                          ("pair_edge_mlp.cu", "relu_pair_rows")):
+        for name, regs, stores, loads in _ptxas_report(logs.get(source, ""),
+                                                       match):
+            log(f"  ptxas {name}: {regs} registers, spill stores {stores} "
+                f"B, loads {loads} B")
     log(f"device: {torch.cuda.get_device_name(device)} "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
 

@@ -205,9 +205,11 @@ def test_two_passes_equal_the_plain_version(case, k, head_dim):
 def test_rgat_builds_its_forms_once_per_batch(form, heads, monkeypatch):
     """Three train steps of RGAT under the "exact" stabiliser: each
     plan's two B9 forms are built once (and its forward form once, which
-    B11, the head-major route and B10 read), every B9 call of every layer
-    and step gets that plan's forms, and every B11 call its forward
-    form."""
+    B11, B8, the head-major route and B10 read), every B9 call of every
+    layer and step gets that plan's forms, and every B11 call its forward
+    form; every B8 call gets the object its B11 call got, and every B3
+    (2 heads) or B10 (8 heads) call after it that object too, reading
+    B8's output by entry."""
     _, batch, labels = small_workload(seed=7, merged=form == "merged")
     params = NodeMulticlassTask.get_default_hyperparameters("rgat")
     params.update({"gnn_hidden_dim": 2 * heads, "gnn_num_layers": 2,
@@ -222,6 +224,7 @@ def test_rgat_builds_its_forms_once_per_batch(form, heads, monkeypatch):
     state = create_train_state(model, optimizer)
     train_step = make_train_step(model, optimizer)
     built, built_ts, seen, seen_b11 = [], [], [], []
+    seen_fwd = {"b8": [], "sums": []}
     real_rows, real_ts = tps.slot_rows, tps.ts_rows
     real_b9, real_b11 = tpa.pair_attention_bwd_fused, tpa.pair_attention_max
     monkeypatch.setattr(tps, "slot_rows",
@@ -238,8 +241,18 @@ def test_rgat_builds_its_forms_once_per_batch(form, heads, monkeypatch):
         seen_b11.append(compact)
         return real_b11(*args, compact=compact, **kwargs)
 
+    def spy_fwd(key, real):
+        def call(*args, compact=None, **kwargs):
+            seen_fwd[key].append((compact, kwargs.get("by_entry")))
+            return real(*args, compact=compact, **kwargs)
+        return call
+
     monkeypatch.setattr(tpa, "pair_attention_bwd_fused", spy)
     monkeypatch.setattr(tpa, "pair_attention_max", spy_b11)
+    monkeypatch.setattr(tpa, "pair_attention_expd",
+                        spy_fwd("b8", tpa.pair_attention_expd))
+    sums = "pair_spmm" if heads == 2 else "pair_attention_agg"
+    monkeypatch.setattr(tpa, sums, spy_fwd("sums", getattr(tpa, sums)))
     targets = {"node_labels": torch.from_numpy(labels)}
     for _ in range(3):
         state, _ = train_step(state, batch, targets)
@@ -260,6 +273,12 @@ def test_rgat_builds_its_forms_once_per_batch(form, heads, monkeypatch):
         plan = plans[i % len(plans)]
         assert compact is plan.fwd_rows(v, compact.table_rows)
         assert any(compact is b for b in built)
+    assert len(seen_fwd["b8"]) == len(seen_b11)
+    assert all(b8 is b11 for (b8, _), b11 in zip(seen_fwd["b8"], seen_b11))
+    per_b8 = heads if heads == 2 else 1
+    assert len(seen_fwd["sums"]) == per_b8 * len(seen_b11)
+    for i, (compact, by_entry) in enumerate(seen_fwd["sums"]):
+        assert by_entry and compact is seen_b11[i // per_b8]
 
 
 @pytest.mark.parametrize("hidden", [512, 576, 1024])

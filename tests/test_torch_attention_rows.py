@@ -2,7 +2,8 @@
 run ``csrc/pair_stream.cu``'s per-head row owner (``head_rows_kernel``)
 over the valid slots of a plan direction as a CSR by output row: B10
 (``pair_attention_agg``) over ``MergedPlan.fwd_rows(V, rows)``, the form
-B3 reads, with B8's ``[K, slots]`` expd; B14 (``attention_scatter_sums``)
+B3 reads, with B8's ``[K, n]`` expd by entry of that form (or a ``[K,
+slots]`` expd by slot); B14 (``attention_scatter_sums``)
 over ``ScatterPlan.sum_rows("fwd", V)``, B12's forward form, whose entries
 read their own stream row, with the ``[slots, K]`` expd. A float64
 emulation of the kernel over the form (per output row, its entries in
@@ -19,7 +20,11 @@ order: ``weighted[t, c] += expd(slot, c % K) * table[src_row, c]`` and
   version ``attention_scatter_sums_plain``;
 
 exactly: the tables hold small integers and expd powers of two, so every
-product and sum is exact in f32 and float64. Every B10 and B14 call of
+product and sum is exact in f32 and float64. Read by entry (``expd_at``
+of the entry's index, no slot map), B10's emulation, and B3's (the row
+owner with one scale a column), equal their by-slot forms exactly, and so
+do the wrappers with ``by_entry=True`` on a CPU tensor. Every B10 and B14
+call of
 an RGAT model's train steps gets the one compact form its plan keeps, and
 on a CPU tensor the wrappers take their plain versions with or without
 the form.
@@ -83,11 +88,14 @@ def _rows_of(compact):
         torch.diff(compact.row_ptr.long()))
 
 
-def _head_rows(table, expd_at, k, compact):
+def _head_rows(table, expd_at, k, compact, by_entry=False):
     """The per-head row owner in float64: per output row, its entries in
-    order; ``expd_at(slots)`` gives their [n, K] head values."""
+    order; ``expd_at(index)`` gives their [n, K] head values, index the
+    entries' slots, or with ``by_entry`` the entries' own indices."""
     t = _rows_of(compact)
-    e = expd_at(compact.slot.long()).double()
+    index = (torch.arange(compact.src_row.numel()) if by_entry
+             else compact.slot.long())
+    e = expd_at(index).double()
     x = table.double()[compact.src_row.long()]
     h = table.shape[1]
     heads = torch.arange(h) % k
@@ -131,6 +139,43 @@ def test_b10_row_owner_sum_equals_the_jax_twin(form, k, head_dim):
         torch.testing.assert_close(g, p.double(), rtol=0.0, atol=0.0,
                                    msg=name)
     assert float(got[0][100:200].abs().max()) == 0.0  # rows without entries
+
+
+@pytest.mark.parametrize("route,k,head_dim", [("b3", 1, 7), ("b10", 8, 2),
+                                              ("b10", 4, 128)])
+@pytest.mark.parametrize("form", ["merged", "typed"])
+def test_by_entry_sums_equal_the_by_slot_sums(form, route, k, head_dim):
+    """B10's and B3's emulations reading expd by entry (B8's [K, n]
+    output, ``expd_at`` of the entry's index) equal the same emulations
+    reading it by slot, exactly; on a CPU tensor the wrappers with
+    ``by_entry=True`` equal their plain versions over the by-slot expd."""
+    host, plan, rows = _pair_plan(form)
+    rng = np.random.RandomState(20 + k)
+    slots = plan.rel_src_f.numel()
+    valid = tps.slot_abs_ids(*plan.fwd)[2].numpy()
+    table, expd = _exact_inputs(rng, rows, head_dim * k, k, slots, valid)
+    table = torch.from_numpy(table)
+    expd_km = torch.from_numpy(np.ascontiguousarray(expd.T))
+    compact = plan.fwd_rows(V, rows)
+    expd_e = expd_km[:, compact.slot.long()].contiguous()  # B8's layout
+    by_slot = _head_rows(table, lambda s: expd_km.t()[s], k, compact)
+    by_entry = _head_rows(table, lambda e: expd_e.t()[e], k, compact,
+                          by_entry=True)
+    for name, g, w in zip(("denom", "weighted"), by_entry, by_slot):
+        assert float(w.abs().max()) > 0
+        torch.testing.assert_close(g, w, rtol=0.0, atol=0.0, msg=name)
+    if route == "b10":
+        got = tpa.pair_attention_agg(table, expd_e, *plan.fwd, V, k,
+                                     compact=compact, by_entry=True)
+        want = tpa.pair_attention_agg_plain(table, expd_km, *plan.fwd, V, k)
+    else:
+        got = (tps.pair_spmm(table, expd_e[0], *plan.fwd, V,
+                             compact=compact, by_entry=True),)
+        want = (tps.pair_spmm_plain(table, expd_km[0], *plan.fwd, V),)
+        torch.testing.assert_close(got[0], by_entry[1].float(), rtol=0.0,
+                                   atol=0.0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("k,head_dim", [(4, 80), (2, 3), (3, 5)])

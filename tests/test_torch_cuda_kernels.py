@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels (tf2_gnn_tpu_torch/csrc/pair_stream.cu:
 K1, K2, B3 and B12, one row-owner kernel over their plans' compact form,
-B10 and B14, its per-head twin, and B11 and B15, its max twin;
-csrc/pair_attention.cu: B8 and B9; csrc/pair_edge_mlp.cu: B4, B5, B6 and
-B7; csrc/sorted_scatter.cu: B13; csrc/dyngather.cu: P3)
+B10 and B14, its per-head twin, B11 and B15, its max twin, and B8, its
+expd twin; csrc/pair_attention.cu: B9; csrc/pair_edge_mlp.cu: B4, B5, B6
+and B7; csrc/sorted_scatter.cu: B13; csrc/dyngather.cu: P3)
 against their plain PyTorch versions on the card, at small shapes with a
 ragged feature width, f32 and bf16 tables, plans with pad slots and an
 all-padding group (sorted plans: sentinel slots, an unused trailing chunk
@@ -25,11 +25,16 @@ tiled form), on misaligned tables (B4-B6) and an all-sentinel plan
 (B4-B6: zeros), two launches bit-equal; B10 and B14 over their plans'
 compact forms in both of B10's call forms, at a head count that does not
 divide 32 for B14, two launches bit-equal, and each wrapper raising
-without the form; B11 and B15 over their forward compact forms at every
+without the form; B3 and B10 reading B8's expd by entry equal to their
+by-slot launches; B11 and B15 over their forward compact forms at every
 lane unit, B11 from an init as the per-type forward chains
 it, B15 with non-finite values and on a row-strided view, two launches
 equal bit for bit, each wrapper raising without the form, and
-sorted_scatter.cu built with B13 alone. Marked
+sorted_scatter.cu built with B13 alone; B8 over the forward compact form
+by entry (the plain version at the form's slots) at every lane unit, on
+merged, per-type and partly padded plans, and B7 in the forward row
+owner's third mode in both lane units, each two launches bit-equal and
+each wrapper raising without the form. Marked
 ``cuda``; each test skips without a card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -192,8 +197,10 @@ def test_attention_kernels_match_plain_versions(device, dtype, k, head_dim):
     dw = torch.randn((v, head_dim * k), generator=gen,
                      device=device).to(dtype)
     d_denom = torch.randn((v, k), generator=gen, device=device)
+    compact = plan.fwd_rows(v, 3 * v)
     before = dict(tpa.LAUNCHES)
-    expd = tpa.pair_attention_expd(scores, m, *plan.fwd, v, k)
+    expd = tpa.pair_attention_expd(scores, m, *plan.fwd, v, k,
+                                   compact=compact)
     grads = tpa.pair_attention_bwd_fused(
         table, dw, d_denom, scores, m, *plan.bwd, v, k,
         compact=plan.bwd_rows(3 * v, v), ts_rows=plan.bwd_ts_rows(3 * v, v, v))
@@ -203,7 +210,8 @@ def test_attention_kernels_match_plain_versions(device, dtype, k, head_dim):
     assert tpa.LAUNCHES["pair_attention_bwd_fused"] == \
         before["pair_attention_bwd_fused"] + 1
     torch.testing.assert_close(
-        expd, tpa.pair_attention_expd_plain(scores, m, *plan.fwd, v, k),
+        expd, tpa.pair_attention_expd_plain(scores, m, *plan.fwd, v,
+                                            k)[:, compact.slot.long()],
         rtol=1e-5, atol=1e-5)
     want = tpa.pair_attention_bwd_fused_plain(table, dw, d_denom, scores, m,
                                               *plan.bwd, v, k)
@@ -231,7 +239,8 @@ def test_attention_op_matches_plain_on_card(device, dtype):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tps, "pair_spmm", plain_version(tps.pair_spmm_plain))
         mp.setattr(tpa, "pair_spmm", plain_version(tps.pair_spmm_plain))
-        mp.setattr(tpa, "pair_attention_expd", tpa.pair_attention_expd_plain)
+        mp.setattr(tpa, "pair_attention_expd",
+                   plain_version(tpa.pair_attention_expd_plain))
         mp.setattr(tpa, "pair_attention_bwd_fused",
                    plain_version(tpa.pair_attention_bwd_fused_plain))
         want = run()
@@ -290,7 +299,8 @@ def test_relu_pair_kernels_match_plain_versions(device, dtype, h):
                a, b, sf, *plan.fwd, rows, compact=fwd_rows),
            "relu_pair_da": (tpem.relu_pair_da(a, b, g, sb, *plan.bwd, rows,
                                               compact=bwd_rows),),
-           "relu_pair_db": (tpem.relu_pair_db(a, b, g, sf, *plan.fwd, rows),)}
+           "relu_pair_db": (tpem.relu_pair_db(a, b, g, sf, *plan.fwd, rows,
+                                              compact=fwd_rows),)}
     torch.cuda.synchronize()
     want = {"relu_pair_fwd": (tpem.relu_pair_fwd_plain(a, b, sf, *plan.fwd,
                                                        rows),),
@@ -1383,3 +1393,144 @@ def test_sorted_scatter_holds_b13_alone(device):
             tss.sorted_segment_sum_scaled(msgs, scale, rel, blocks, v),
             tss.sorted_segment_sum_scaled_plain(msgs, scale, rel, blocks, v),
             rtol=1e-5, atol=1e-5)
+
+
+def _b8_plan(form, v=384):
+    """(plan, score rows) for B8: one type's plan or the merged plan of
+    ``_typed_plans_empty_targets``, or a merged plan whose last source
+    block is partly padded (no source at or past node 300)."""
+    if form == "padded":
+        rng = np.random.RandomState(80)
+        srcs = [rng.randint(0, 300, 4 * v) for _ in range(3)]
+        tgts = [rng.randint(0, v, 4 * v) for _ in range(3)]
+        return tps.MergedPlan(*tps.build_pair_plans(
+            srcs, tgts, [4 * v] * 3, v).astuple()), 3 * v
+    typed, merged = _typed_plans_empty_targets(81)
+    return (merged, 3 * v) if form == "merged" else (typed[2], v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["merged", "typed", "padded"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+def test_b8_row_owner(device, dtype, form, k):
+    """B8 over the forward compact form at every lane unit its launcher
+    picks (bf16: 2, 4, 8 and 16 bytes of a score half; f32: 4, 8 and 16;
+    two column tiles at K = 16): f32 [K, n] by entry, the plain version at
+    the form's slots (expf and torch.exp of the same f32 argument), two
+    launches bit-equal, one launch counted a call; on a merged plan, one
+    type's plan and a plan whose last source block is partly padded."""
+    plan, rows = _b8_plan(form)
+    plan = plan.to(device)
+    v = 384
+    gen = torch.Generator(device=device).manual_seed(82 + k)
+    scores = (0.5 * torch.randn((rows, 2 * k), generator=gen,
+                                device=device)).to(dtype)
+    m = tpa._stabilise(tpa._bound_stabiliser(scores, v, k), dtype)
+    compact = plan.fwd_rows(v, rows)
+    before = tpa.LAUNCHES["pair_attention_expd"]
+    got, again = (tpa.pair_attention_expd(scores, m, *plan.fwd, v, k,
+                                          compact=compact) for _ in range(2))
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["pair_attention_expd"] == before + 2
+    assert tuple(got.shape) == (k, compact.src_row.numel())
+    assert torch.equal(got, again)
+    want = tpa.pair_attention_expd_plain(scores, m, *plan.fwd, v, k)
+    torch.testing.assert_close(got, want[:, compact.slot.long()], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,k,head_dim", [("b3", 4, 80), ("b3", 1, 5),
+                                              ("b10", 8, 8), ("b10", 4, 128)])
+def test_b3_and_b10_read_b8s_expd_by_entry(device, dtype, route, k,
+                                           head_dim):
+    """B3 (one head's launch, on its head-major table) and B10 reading B8's
+    expd by entry, with no slot load, give the bits of the same launch
+    reading that expd put back in slot order, and the plain version's
+    sums; two by-entry launches bit-equal."""
+    typed, merged = _typed_plans_empty_targets(84)
+    plan = (merged if route == "b3" else typed[1]).to(device)
+    v = 384
+    rows = 3 * v if route == "b3" else v
+    table, scores, m, _ = _attention_inputs(device, dtype, rows, v, k,
+                                            head_dim, 85)
+    compact = plan.fwd_rows(v, rows)
+    expd_e = tpa.pair_attention_expd(scores, m, *plan.fwd, v, k,
+                                     compact=compact)
+    expd_s = tps.by_slot(expd_e, compact)
+    if route == "b3":
+        head = torch.cat([table.reshape(rows, head_dim, k)[:, :, 0],
+                          table.new_ones((rows, 1))], dim=1).contiguous()
+
+        def run(by_entry):
+            return (tps.pair_spmm(head, (expd_e if by_entry else expd_s)[0],
+                                  *plan.fwd, v, compact=compact,
+                                  by_entry=by_entry),)
+
+        want = (tps.pair_spmm_plain(head, expd_s[0], *plan.fwd, v),)
+    else:
+        def run(by_entry):
+            return tpa.pair_attention_agg(
+                table, expd_e if by_entry else expd_s, *plan.fwd, v, k,
+                compact=compact, by_entry=by_entry)
+
+        want = tpa.pair_attention_agg_plain(table, expd_s, *plan.fwd, v, k)
+    got, again, by_slot = run(True), run(True), run(False)
+    torch.cuda.synchronize()
+    for x, y, z, w in zip(got, again, by_slot, want):
+        assert torch.equal(x, y) and torch.equal(x, z)
+        torch.testing.assert_close(x, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+@pytest.mark.parametrize("dtype,h,layout", [
+    (torch.bfloat16, 320, "contiguous"), (torch.float32, 320, "contiguous"),
+    (torch.bfloat16, 64, "contiguous"), (torch.float32, 5, "contiguous"),
+    (torch.bfloat16, 322, "contiguous"), (torch.float32, 700, "contiguous"),
+    (torch.bfloat16, 320, "misaligned")])
+def test_b7_row_owner(device, dtype, h, layout, cut):
+    """B7, the forward row owner's third mode (M times g, no R), over B4's
+    compact form, in 8-byte units (with g's 16 or 8 bytes) and one element
+    a lane (odd widths, misaligned A and B), on whole and cut plans: the
+    plain version's dB, 0 on the rows without an entry, two launches
+    bit-equal, one launch counted a call."""
+    plan = _merged_target_plan(86).to(device)
+    rows = plan.out_rows
+    rows_a, rows_b, out_rows = ((rows // 2, rows // 3, rows // 2) if cut
+                                else (rows, rows, rows))
+    gen = torch.Generator(device=device).manual_seed(87)
+    a = torch.randn((rows_a, h), generator=gen, device=device).to(dtype)
+    b = torch.randn((rows_b, h), generator=gen, device=device).to(dtype)
+    if layout == "misaligned":
+        a, b = _misaligned(a), _misaligned(b)
+    g = torch.randn((out_rows, h), generator=gen, device=device)
+    sf = torch.rand((plan.rel_src_f.numel(),), generator=gen, device=device)
+    compact = plan.fwd_rows(out_rows, rows_a)
+    before = tpem.LAUNCHES["relu_pair_db"]
+    got, again = (tpem.relu_pair_db(a, b, g, sf, *plan.fwd, out_rows,
+                                    compact=compact) for _ in range(2))
+    torch.cuda.synchronize()
+    assert tpem.LAUNCHES["relu_pair_db"] == before + 2
+    assert torch.equal(got, again)
+    want = tpem.relu_pair_db_plain(a, b, g, sf, *plan.fwd, out_rows)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    _assert_empty_rows_zero(got, compact)
+
+
+def test_b8_and_b7_raise_without_compact_form(device):
+    """B8 and B7 on CUDA tensors without the plan's compact form raise and
+    count no launch."""
+    plan, rows = _b8_plan("typed")
+    plan = plan.to(device)
+    scores = torch.randn((rows, 8), device=device)
+    m = torch.zeros((384, 4), device=device)
+    tplan = _merged_target_plan(88).to(device)
+    trows = tplan.out_rows
+    a = b = torch.randn((trows, 16), device=device)
+    before = (dict(tpa.LAUNCHES), dict(tpem.LAUNCHES))
+    with pytest.raises(ValueError, match="compact form"):
+        tpa.pair_attention_expd(scores, m, *plan.fwd, 384, 4)
+    with pytest.raises(ValueError, match="compact form"):
+        tpem.relu_pair_db(a, b, torch.zeros_like(a), tplan.inv_fwd,
+                          *tplan.fwd, trows)
+    assert (tpa.LAUNCHES, tpem.LAUNCHES) == before

@@ -145,15 +145,16 @@ class _CudaTensorStandIn:
 _COMPACT_STAND_IN = object()
 
 # Every kernel wrapper: its launch counts and the positional arguments
-# after its first tensor (K1, K2, B3, B12, B4, B5, B6, B10, B11, B14 and
-# B15 end with the plan's compact form, B9 with its two).
+# after its first tensor (K1, K2, B3, B12, B4, B5, B6, B7, B8, B10, B11,
+# B14 and B15 end with the plan's compact form, B9 with its two).
 WRAPPERS = {
     tps.pair_spmm_stream: (
         tps.LAUNCHES, (None,) * 6 + (128, 128, _COMPACT_STAND_IN)),
     tps.pair_spmm_stream_joint: (
         tps.LAUNCHES, (None,) * 6 + (128, 128, _COMPACT_STAND_IN)),
     tps.pair_spmm: (tps.LAUNCHES, (None,) * 5 + (128, _COMPACT_STAND_IN)),
-    tpa.pair_attention_expd: (tpa.LAUNCHES, (None,) * 5 + (128, 4)),
+    tpa.pair_attention_expd: (
+        tpa.LAUNCHES, (None,) * 5 + (128, 4, None, _COMPACT_STAND_IN)),
     tpa.pair_attention_bwd_fused: (
         tpa.LAUNCHES,
         (None,) * 8 + (128, 4, None, _COMPACT_STAND_IN, _COMPACT_STAND_IN)),
@@ -167,7 +168,8 @@ WRAPPERS = {
         tpem.LAUNCHES, (None,) * 6 + (128, _COMPACT_STAND_IN)),
     tpem.relu_pair_da: (
         tpem.LAUNCHES, (None,) * 7 + (128, _COMPACT_STAND_IN)),
-    tpem.relu_pair_db: (tpem.LAUNCHES, (None,) * 7 + (128,)),
+    tpem.relu_pair_db: (
+        tpem.LAUNCHES, (None,) * 7 + (128, _COMPACT_STAND_IN)),
     tss.sorted_segment_sum: (
         tss.LAUNCHES, (None,) * 2 + (128, None, _COMPACT_STAND_IN)),
     tss.sorted_segment_sum_scaled: (tss.LAUNCHES, (None,) * 3 + (128,)),
@@ -201,6 +203,8 @@ def test_cuda_tensor_without_library_raises(wrapper, monkeypatch, tmp_path):
                                      tss.sorted_segment_sum_gathered,
                                      tpem.relu_pair_fwd_m,
                                      tpem.relu_pair_fwd, tpem.relu_pair_da,
+                                     tpem.relu_pair_db,
+                                     tpa.pair_attention_expd,
                                      tpa.pair_attention_bwd_fused,
                                      tpa.pair_attention_agg,
                                      tss.attention_scatter_sums,
@@ -208,9 +212,9 @@ def test_cuda_tensor_without_library_raises(wrapper, monkeypatch, tmp_path):
                                      tss.sorted_segment_max])
 def test_cuda_call_without_compact_form_raises(wrapper, monkeypatch,
                                                tmp_path):
-    """K1, K2, B3, B12 (both forms), B4, B6, B5, B9 (without its second
-    form, ``ts_rows``), B10, B14, B11 and B15 on a CUDA tensor without the
-    plan's compact form raise
+    """K1, K2, B3, B12 (both forms), B4, B6, B5, B7, B8, B9 (without its
+    second form, ``ts_rows``), B10, B14, B11 and B15 on a CUDA tensor
+    without the plan's compact form raise
     before they load the library: no per-call build, no fallback to the
     plain version, no launch counted."""
     launches, args = WRAPPERS[wrapper]
@@ -249,8 +253,10 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_cpu_tensors_take_the_plain_versions_of_the_attention_kernels():
-    """B3, B8 and B9 on CPU tensors: the plain versions' results, no
-    launch counted."""
+    """B3, B8 and B9 on CPU tensors, with and without the plan's compact
+    forms: the plain versions' results (B8's at the forward form's slots,
+    B3's over a by-entry scale put back in slot order), no launch
+    counted."""
     rng = np.random.RandomState(1)
     v, k = 128, 4
     src = rng.randint(0, v, (2, 200))
@@ -262,22 +268,40 @@ def test_cpu_tensors_take_the_plain_versions_of_the_attention_kernels():
     maxes = torch.randn(v, k)
     scale = torch.rand(plan.rel_src_f.numel())
     dw, d_denom = torch.randn(v, 8 * k), torch.randn(v, k)
+    fwd_rows = plan.fwd_rows(v, 2 * v)
+    slot = fwd_rows.slot.long()
     before = (dict(tps.LAUNCHES), dict(tpa.LAUNCHES))
-    assert torch.equal(tps.pair_spmm(table, scale, *plan.fwd, v),
-                       tps.pair_spmm_plain(table, scale, *plan.fwd, v))
+    want3 = tps.pair_spmm_plain(table, scale, *plan.fwd, v)
+    assert torch.equal(tps.pair_spmm(table, scale, *plan.fwd, v), want3)
+    assert torch.equal(tps.pair_spmm(table, scale, *plan.fwd, v,
+                                     compact=fwd_rows), want3)
+    valid = tps.slot_abs_ids(*plan.fwd)[2]
     assert torch.equal(
-        tpa.pair_attention_expd(scores, maxes, *plan.fwd, v, k),
-        tpa.pair_attention_expd_plain(scores, maxes, *plan.fwd, v, k))
+        tps.pair_spmm(table, scale[slot], *plan.fwd, v, compact=fwd_rows,
+                      by_entry=True),
+        tps.pair_spmm_plain(table, scale * valid, *plan.fwd, v))
+    want8 = tpa.pair_attention_expd_plain(scores, maxes, *plan.fwd, v, k)
+    assert torch.equal(
+        tpa.pair_attention_expd(scores, maxes, *plan.fwd, v, k), want8)
+    assert torch.equal(
+        tpa.pair_attention_expd(scores, maxes, *plan.fwd, v, k,
+                                compact=fwd_rows), want8[:, slot])
     bwd_args = (table, dw, d_denom, scores, maxes, *plan.bwd, v, k)
-    for got, want in zip(tpa.pair_attention_bwd_fused(*bwd_args),
-                         tpa.pair_attention_bwd_fused_plain(*bwd_args)):
-        assert torch.equal(got, want)
+    for compact, ts_rows in ((None, None),
+                             (plan.bwd_rows(2 * v, v),
+                              plan.bwd_ts_rows(2 * v, v, v))):
+        for got, want in zip(
+                tpa.pair_attention_bwd_fused(*bwd_args, compact=compact,
+                                             ts_rows=ts_rows),
+                tpa.pair_attention_bwd_fused_plain(*bwd_args)):
+            assert torch.equal(got, want)
     assert (dict(tps.LAUNCHES), dict(tpa.LAUNCHES)) == before
 
 
 def test_cpu_tensors_take_the_plain_versions_of_max_and_agg_kernels():
     """B11 and B10 on CPU tensors, in the merged form and on one type's
-    plan: the plain versions' results, no launch counted."""
+    plan, without and with the forward compact form (B10 also with B8's
+    expd by entry): the plain versions' results, no launch counted."""
     rng = np.random.RandomState(4)
     v, k = 128, 8
     src = rng.randint(0, v, (2, 200))
@@ -288,22 +312,27 @@ def test_cpu_tensors_take_the_plain_versions_of_max_and_agg_kernels():
         [src[0]], [tgt[0]], [200], v).astuple(), out_rows=v).to("cpu")
     before = dict(tpa.LAUNCHES)
     for plan, rows in ((merged, 2 * v), (typed, v)):
+        fwd_rows = plan.fwd_rows(v, rows)
         scores = torch.randn(rows, 2 * k)
-        assert torch.equal(
-            tpa.pair_attention_max(scores, *plan.fwd, v, k),
-            tpa.pair_attention_max_plain(scores, *plan.fwd, v, k))
+        want = tpa.pair_attention_max_plain(scores, *plan.fwd, v, k)
+        for compact in (None, fwd_rows):
+            assert torch.equal(tpa.pair_attention_max(
+                scores, *plan.fwd, v, k, compact=compact), want)
         table = torch.randn(rows, 2 * k)
-        expd = torch.rand(k, plan.rel_src_f.numel())
-        for got, want in zip(
-                tpa.pair_attention_agg(table, expd, *plan.fwd, v, k),
-                tpa.pair_attention_agg_plain(table, expd, *plan.fwd, v, k)):
-            assert torch.equal(got, want)
+        valid = tps.slot_abs_ids(*plan.fwd)[2]
+        expd = torch.rand(k, plan.rel_src_f.numel()) * valid
+        want = tpa.pair_attention_agg_plain(table, expd, *plan.fwd, v, k)
+        for got in (tpa.pair_attention_agg(table, expd, *plan.fwd, v, k),
+                    tpa.pair_attention_agg(
+                        table, expd[:, fwd_rows.slot.long()], *plan.fwd, v,
+                        k, compact=fwd_rows, by_entry=True)):
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert dict(tpa.LAUNCHES) == before
 
 
 def test_cpu_tensors_take_the_plain_versions_of_the_relu_pair_kernels():
-    """B4, B5, B6 and B7 on CPU tensors: the plain versions' results, no
-    launch counted."""
+    """B4, B5, B6 and B7 on CPU tensors, with the plans' compact forms: the
+    plain versions' results, no launch counted."""
     rng = np.random.RandomState(2)
     v = 128
     src = rng.randint(0, v, (2, 200))
@@ -313,15 +342,17 @@ def test_cpu_tensors_take_the_plain_versions_of_the_relu_pair_kernels():
         merge_targets=True).astuple()).to("cpu")
     a, b, g = (torch.randn(2 * v, 8) for _ in range(3))
     sf, sb = plan.inv_fwd, plan.inv_bwd
+    fwd_rows, bwd_rows = plan.fwd_rows(2 * v, 2 * v), plan.bwd_rows(2 * v,
+                                                                    2 * v)
     before = dict(tpem.LAUNCHES)
     pairs = (
-        (tpem.relu_pair_fwd(a, b, sf, *plan.fwd, 2 * v),
+        (tpem.relu_pair_fwd(a, b, sf, *plan.fwd, 2 * v, compact=fwd_rows),
          tpem.relu_pair_fwd_plain(a, b, sf, *plan.fwd, 2 * v)),
-        (tpem.relu_pair_fwd_m(a, b, sf, *plan.fwd, 2 * v),
+        (tpem.relu_pair_fwd_m(a, b, sf, *plan.fwd, 2 * v, compact=fwd_rows),
          tpem.relu_pair_fwd_m_plain(a, b, sf, *plan.fwd, 2 * v)),
-        (tpem.relu_pair_da(a, b, g, sb, *plan.bwd, 2 * v),
+        (tpem.relu_pair_da(a, b, g, sb, *plan.bwd, 2 * v, compact=bwd_rows),
          tpem.relu_pair_da_plain(a, b, g, sb, *plan.bwd, 2 * v)),
-        (tpem.relu_pair_db(a, b, g, sf, *plan.fwd, 2 * v),
+        (tpem.relu_pair_db(a, b, g, sf, *plan.fwd, 2 * v, compact=fwd_rows),
          tpem.relu_pair_db_plain(a, b, g, sf, *plan.fwd, 2 * v)))
     for got, want in pairs:
         got = got if isinstance(got, tuple) else (got,)

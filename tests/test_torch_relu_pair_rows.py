@@ -1,6 +1,6 @@
 """The relu-pair row owners' compact forms and sums on the CPU. On the card
-B4 (``relu_pair_fwd_m``) and B6 (``relu_pair_fwd``) read the forward
-plan's compact form, ``MergedPlan.fwd_rows(out_rows, rows of A)``, and B5
+B4 (``relu_pair_fwd_m``), B6 (``relu_pair_fwd``) and B7 (``relu_pair_db``)
+read the forward plan's compact form, ``MergedPlan.fwd_rows(out_rows, rows of A)``, and B5
 (``relu_pair_da``) the backward plan's, ``MergedPlan.bwd_rows(rows of A,
 rows of B)`` (both ``ops/pair_spmm.py::slot_rows``), instead of the plan
 arrays:
@@ -19,9 +19,12 @@ arrays:
   small integers and the scales are powers of two): B4's (a row owner: B
   read once per row at ``clip(t)``, then per entry ``z = A[src] + B``,
   ``R += relu(z) * s``, ``M += (z > 0) * s``, in entry order), B6's (B4's
-  without M) and B5's (A[u] read once, then per entry ``z = A[u] +
-  B[t]``, ``dA += (z > 0) * g[t] * s``); B5's also equals the reference's
-  jnp twin ``_relu_pair_da_jnp`` on the same plan;
+  without M), B7's (B4's M without R, times g[t] once at the store) and
+  B5's (A[u] read once, then per entry ``z = A[u] + B[t]``, ``dA += (z >
+  0) * g[t] * s``); B5's also equals the reference's jnp twin
+  ``_relu_pair_da_jnp`` on the same plan; B7's f32 emulation, its mask
+  sum in slot order, equals its plain version exactly with f32 scales
+  too;
 * the GNN_Edge_MLP model builds each form once over 3 train steps and an
   eval forward, and hands the one object to every B4, B6 and B5 call.
 """
@@ -151,17 +154,17 @@ def test_all_sentinel_plan_has_no_entries():
         assert float(x.abs().max()) == 0.0
 
 
-def _row_owner_sum(a, b, scale, compact):
-    """B4's kernel in float64: per output row t, B[clip(t)] once, then its
-    entries in order."""
+def _row_owner_sum(a, b, scale, compact, dtype=torch.float64):
+    """B4's kernel in ``dtype`` (float64 unless given): per output row t,
+    B[clip(t)] once, then its entries in order."""
     t = torch.from_numpy(_rows_of(compact))
-    z = (a.double()[compact.src_row.long()]
-         + b.double()[torch.clamp(t, max=b.shape[0] - 1)])
-    s = scale.double()[compact.slot.long()][:, None]
-    r = torch.zeros((compact.out_rows, a.shape[1]), dtype=torch.float64)
+    z = (a.to(dtype)[compact.src_row.long()]
+         + b.to(dtype)[torch.clamp(t, max=b.shape[0] - 1)])
+    s = scale.to(dtype)[compact.slot.long()][:, None]
+    r = torch.zeros((compact.out_rows, a.shape[1]), dtype=dtype)
     m = torch.zeros_like(r)
     return (r.index_add_(0, t, torch.relu(z) * s),
-            m.index_add_(0, t, (z > 0).double() * s))
+            m.index_add_(0, t, (z > 0).to(dtype) * s))
 
 
 @pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
@@ -207,6 +210,40 @@ def test_b6_row_owner_sum_equals_the_plain_version(form, cut):
     got, _ = _row_owner_sum(a, b, sf, plan.fwd_rows(out_rows, rows_a))
     assert want.abs().max() > 0
     torch.testing.assert_close(got, want.double(), rtol=0.0, atol=0.0)
+
+
+def _db_row_owner(a, b, g, scale, compact, dtype=torch.float64):
+    """B7's kernel in ``dtype``: B4's M (the mask sum of row t's entries in
+    order, from 0), then times g[t] once."""
+    _, m = _row_owner_sum(a, b, scale, compact, dtype)
+    return m * g.to(dtype)
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+@pytest.mark.parametrize("form", FORMS)
+def test_b7_row_owner_equals_the_plain_version(form, cut):
+    """B7's emulation over B4's form equals ``relu_pair_db_plain`` over the
+    plan arrays exactly: in float64 on integer inputs with power-of-two
+    scales, and in f32 with random f32 scales (both sum the mask terms in
+    slot order and multiply by g once)."""
+    plan = _plan(form)[0]
+    rows_a, rows_b, out_rows = _shape(form, cut)
+    a, b, _, sf, _ = _inputs(plan, rows_a, rows_b, 10)
+    g = torch.from_numpy(np.random.RandomState(11).randint(
+        -6, 7, (out_rows, 9)).astype(np.float32))
+    compact = plan.fwd_rows(out_rows, rows_a)
+    want = tpem.relu_pair_db_plain(a, b, g, sf, *plan.fwd, out_rows)
+    assert want.abs().max() > 0
+    torch.testing.assert_close(_db_row_owner(a, b, g, sf, compact),
+                               want.double(), rtol=0.0, atol=0.0)
+    rng = np.random.RandomState(12)
+    scale = torch.from_numpy(rng.rand(sf.numel()).astype(np.float32))
+    g = torch.from_numpy(rng.randn(out_rows, 9).astype(np.float32))
+    got = _db_row_owner(a, b, g, scale, compact, torch.float32)
+    want = tpem.relu_pair_db_plain(a, b, g, scale, *plan.fwd, out_rows)
+    assert torch.equal(got, want)
+    assert torch.equal(tpem.relu_pair_db(a, b, g, scale, *plan.fwd,
+                                         out_rows, compact=compact), want)
 
 
 def _da_row_owner_sum(a, b, g, scale, compact):

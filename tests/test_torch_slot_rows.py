@@ -240,12 +240,13 @@ def test_compact_sum_equals_the_plain_versions(plans, name, cut):
 
 
 def _spy(monkeypatch, module, name, seen):
-    """Record the ``compact`` argument of each call of ``module.name``."""
+    """Record the ``compact`` argument of each call of ``module.name``
+    (other keywords, such as B3's ``by_entry``, pass through)."""
     real = getattr(module, name)
 
-    def spy(*args, compact=None):
+    def spy(*args, compact=None, **kwargs):
         seen.append(compact)
-        return real(*args, compact=compact)
+        return real(*args, compact=compact, **kwargs)
 
     monkeypatch.setattr(module, name, spy)
 

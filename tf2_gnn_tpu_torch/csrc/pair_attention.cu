@@ -1,29 +1,13 @@
-// Relational-attention kernels for Hopper (sm_90a), bound through a plain C
-// interface (ctypes) by tf2_gnn_tpu_torch/ops/pair_attention.py. Both
-// read a pair plan (ops/pair_spmm.py::build_pair_plans; merged over the edge
-// types, or one type's plan over its [V]-row slab): per slot s of group g
-// (chunk c = s / E_C), padded where rel >= BLK,
-//
-//   a = src_blk[c] * BLK + rel_src[s],   b = grp_tgt[g] * BLK + rel_tgt[s].
-//
-// The packed score table is [rows, 2K] (source halves | target halves, both
-// in the stacked l * vs + node row space); m is the f32 [V, K] softmax
+// The relational-attention backward kernel for Hopper (sm_90a), bound
+// through a plain C interface (ctypes) by
+// tf2_gnn_tpu_torch/ops/pair_attention.py. It reads a backward pair plan
+// (ops/pair_spmm.py::build_pair_plans; merged over the edge types, or one
+// type's plan over its [V]-row slab) through its compact forms. The packed
+// score table is [rows, 2K] (source halves | target halves, both in the
+// stacked l * vs + node row space); m is the f32 [V, K] softmax
 // stabiliser, already rounded to the stream dtype by the caller. Products
-// and sums run in f32; exp is expf (not __expf), so a kernel agrees with
+// and sums run in f32; exp is expf (not __expf), so the kernel agrees with
 // its plain version to f32 rounding.
-//
-// expd_kernel  <- tf2_gnn_tpu/ops/pair_attention.py:304
-//                 (_expd_kernel_device, pallas_call :427; jnp twin
-//                 _expd_kernel_jnp), forward plan, no slope output. Per slot
-//                 (a = source row u, b = target node t):
-//                   out[k, s] = exp(leaky(ss[u, k] + ts[(u / vs) * vs + t, k])
-//                                   - m[t, k]),  0 on padded slots.
-//                 Output [K, slots]: each head's row is the contiguous
-//                 per-slot scale of its head-major B3 launch. The TPU kernel
-//                 builds one-hot gather matmuls and tiles the K columns to 16
-//                 lanes; here one thread takes one slot: gathers, exp, K
-//                 coalesced stores. Bound: bytes (the plan's 8 B a slot, the
-//                 score and stabiliser rows, 4K B a slot written).
 //
 // bwd_rows_kernel <- tf2_gnn_tpu/ops/pair_attention.py:661
 //                 (_bwd_fused_device, pallas_call :860; jnp twin
@@ -79,9 +63,10 @@
 //                 The tiled form reads dw[t] twice and table[u] once an
 //                 entry (from L1), for rows its registers cannot hold.
 //
-// B10, RGAT's hk-major aggregation, is csrc/pair_stream.cu's
-// head_rows_kernel over the forward plan's compact form, and B11, the
-// "exact" stabiliser, its max_rows_kernel over the same form.
+// The forward's kernels read the forward plan's compact form in
+// csrc/pair_stream.cu: B8, the expd, is its expd_rows_kernel, B10, RGAT's
+// hk-major aggregation, its head_rows_kernel, and B11, the "exact"
+// stabiliser, its max_rows_kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -91,43 +76,10 @@
 
 namespace {
 
-constexpr int BLK = 128;
-constexpr int E_C = 128;
 constexpr float LEAKY_SLOPE = 0.2f;
-constexpr int EXPD_THREADS = 256;
 
 __device__ __forceinline__ float leaky(float p) {
   return p >= 0.0f ? p : LEAKY_SLOPE * p;
-}
-
-template <typename S>
-__global__ void __launch_bounds__(EXPD_THREADS)
-    expd_kernel(const S* __restrict__ scores, int64_t rows,
-                const float* __restrict__ maxes, int v, int k,
-                const int32_t* __restrict__ rel_src,
-                const int32_t* __restrict__ rel_tgt,
-                const int32_t* __restrict__ src_blk,
-                const int32_t* __restrict__ grp_tgt, int group, int64_t slots,
-                int vs, float* __restrict__ out) {
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * EXPD_THREADS
-                    + threadIdx.x;
-  if (s >= slots) return;
-  const int rs = rel_src[s];
-  const int rt = rel_tgt[s];
-  if (!(rs < BLK && rt < BLK)) {
-    for (int j = 0; j < k; ++j) out[j * slots + s] = 0.0f;
-    return;
-  }
-  const int64_t c = s / E_C;
-  const int64_t u = static_cast<int64_t>(src_blk[c]) * BLK + rs;
-  const int64_t t = static_cast<int64_t>(grp_tgt[c / group]) * BLK + rt;
-  const S* ss = scores + clip(u, rows) * 2 * k;
-  const S* ts = scores + clip((u / vs) * vs + t, rows) * 2 * k + k;
-  const float* mx = maxes + clip(t, v) * k;
-  for (int j = 0; j < k; ++j) {
-    const float p = to_f32(ss[j]) + to_f32(ts[j]);
-    out[j * slots + s] = expf(leaky(p) - mx[j]);
-  }
 }
 
 // B9, pass 1: the row owner by source row u.
@@ -518,40 +470,10 @@ int launch_bwd(int k, const BwdRowsArgs& a, cudaStream_t s) {
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
 
-bool heads_ok(int k) { return k > 0 && k <= 32 && 32 % k == 0; }
-
 }  // namespace
 
 // C entry points. Each returns the cudaError_t of its launch
 // (cudaGetLastError right after it); 0 is success.
-
-extern "C" int pair_attention_expd_launch(
-    int device, int dtype, const void* scores, int64_t rows,
-    const float* maxes, int v, int k, const int32_t* rel_src,
-    const int32_t* rel_tgt, const int32_t* src_blk, const int32_t* grp_tgt,
-    int group, int64_t slots, int vs, float* out, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!heads_ok(k) || group <= 0 || slots <= 0 || rows <= 0 || v <= 0
-      || vs <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid(static_cast<unsigned>((slots + EXPD_THREADS - 1)
-                                        / EXPD_THREADS));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) {
-    expd_kernel<float><<<grid, EXPD_THREADS, 0, s>>>(
-        static_cast<const float*>(scores), rows, maxes, v, k, rel_src,
-        rel_tgt, src_blk, grp_tgt, group, slots, vs, out);
-  } else if (dtype == DTYPE_BF16) {
-    expd_kernel<__nv_bfloat16><<<grid, EXPD_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(scores), rows, maxes, v, k,
-        rel_src, rel_tgt, src_blk, grp_tgt, group, slots, vs, out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // B9's first pass: d_ss and d_table, f32 [rows, k] and [rows, h], every
 // element stored once, and each entry's d_p into d_p [n, k].

@@ -28,7 +28,8 @@
 //                      dA[u] += (A[u] + B[t] > 0 ? g[t] : 0) * s.
 //   relu_pair_db    <- pair_edge_mlp.py:308 (_relu_pair_db_device,
 //                      pallas_call :402), B7, forward plan:
-//                      dB[tgt] += g[tgt] * sum of (z > 0 ? s : 0). No call
+//                      dB[tgt] = g[tgt] * sum of (z > 0 ? s : 0), the sum
+//                      first and g's product once, as the jnp twin. No call
 //                      path runs it, in the JAX package either.
 //
 // Unlike the TPU kernels, which round the cotangent g to the stream dtype
@@ -39,14 +40,17 @@
 // resident in VMEM and the target half streams through the output block
 // index. Hopper gathers rows natively.
 //
-// B4 and B6, one row owner (relu_pair_rows_kernel, M compiled in for B4
-// only). The forward plan's output row t is also B's row t, so one warp
+// B4, B6 and B7, one row owner (relu_pair_rows_kernel, in one of three
+// modes: R for B6, R and M for B4, M times g for B7, which computes no R
+// and multiplies its M by g[t]'s units of the same columns, read as B5
+// reads g, once at the store). The forward plan's output row t is also B's
+// row t, so one warp
 // owns an output row: it reads the row's entries from the plan's compact
 // form (ops/pair_spmm.py::slot_rows, the valid slots as a CSR by output
 // row, each with its clipped source row and its plan slot, built once per
 // batch and kept on the plan as MergedPlan.fwd_rows, which both read),
 // holds B[clip(t)] in registers, gathers the entries' rows of A one at a
-// time and keeps R (and M) as f32 register sums in the row's slot order,
+// time and keeps R and M as f32 register sums in the row's slot order,
 // each element stored once.
 //
 // B5, a row owner by A's row (relu_pair_da_rows_kernel). The backward
@@ -57,26 +61,22 @@
 // each it gathers B[t] and the f32 g[t] over the same columns and adds
 // (z > 0 ? g : 0) * s into f32 registers, stored once.
 //
-// In all three no padded slot is walked, nothing is staged in shared
+// In all four no padded slot is walked, nothing is staged in shared
 // memory, there are no atomics and two launches give the same bits. A lane
 // unit is 8 bytes of the stream dtype (4 bf16 or 2 f32 columns; bf16
-// H = 320 is 80 units, 3 a lane; B5 reads g's matching 16 or 8 bytes) where
-// the row and its tables' alignment allow them, else one element (10 a lane
-// at H = 320); wider rows take more column tiles (gridDim.y), each walking
-// the row's entries again.
-//
-// B7 alone stays on the first port's shared-tile kernel (relu_pair_kernel):
-// one thread block per (plan group, 64-column feature tile) stages the
-// group's 128-row output block of B as a slab in shared memory, walks every
-// slot of the group, adds each valid slot's mask term into an f32 [128, 64]
-// shared tile with shared-memory atomics, and adds the touched rows times g
-// into a zeroed output with global atomics (f32 sums in a run-dependent
-// order; 48.5 KB to 64.5 KB of shared memory a block).
+// H = 320 is 80 units, 3 a lane; B5 and B7 read g's matching 16 or 8
+// bytes) where the row and its tables' alignment allow them, else one
+// element (10 a lane at H = 320); wider rows take more column tiles
+// (gridDim.y), each walking the row's entries again. The first port's B7
+// (a block a plan group and 64-column tile, B's output block staged in
+// 48.5-64.5 KB of shared memory, every slot walked, shared and global
+// atomics into a zero-filled output, its sums in a run-dependent order) is
+// retired.
 //
 // Bound. Memory: each input read once (the distinct gathered rows, the
 // output-indexed table's rows, for dA and dB the f32 cotangent rows), the
-// plan (B7) or the compact form (8 B an entry and 4 B an output row) and
-// the f32 outputs written once. The arithmetic (3 to 7 f32 operations a
+// compact form (8 B an entry and 4 B an output row) and the f32 outputs
+// written once. The arithmetic (3 to 7 f32 operations a
 // valid slot and column) is far below the card's f32 rate. The row owners
 // wait on L2 latency: a warp's gathers are dependent rounds of short row
 // segments, and more of them in flight cost registers, which cost resident
@@ -91,14 +91,6 @@
 
 namespace {
 
-constexpr int BLK = 128;     // rows per node block
-constexpr int E_C = 128;     // slots per chunk
-constexpr int HT = 64;       // feature columns per thread block
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int COLS_PER_LANE = HT / 32;
-constexpr int UNROLL = 4;    // valid slots gathered before their adds
-
 // dtype codes shared with the Python wrapper.
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
@@ -107,167 +99,29 @@ template <int V>
 using Int = std::integral_constant<int, V>;
 
 // ---------------------------------------------------------------------------
-// B7: the shared-tile kernel over the forward plan.
+// B4, B6 and B7: the row owner over the forward plan's compact form.
 
-__device__ __forceinline__ void set_zero(float& x) { x = 0.0f; }
-__device__ __forceinline__ void set_zero(__nv_bfloat16& x) {
-  x = __float2bfloat16(0.0f);
-}
-
-// Dynamic shared memory: the f32 accumulator tile, the staged slab and the
-// touched-row flags.
-template <typename T>
-constexpr size_t smem_bytes() {
-  return static_cast<size_t>(BLK) * HT * sizeof(float)
-         + static_cast<size_t>(BLK) * HT * sizeof(T) + BLK * sizeof(int);
-}
-
-struct DbArgs {
-  const void* a;          // [a_rows, h], gathered at the slots' sources
-  int64_t a_rows;
-  const void* b;          // [b_rows, h], staged by output block
-  int64_t b_rows;
-  const float* g;         // [out_rows, h] f32 cotangent
-  int h;
-  const float* scale;
-  const int32_t* rel_src;
-  const int32_t* rel_tgt;
-  const int32_t* src_blk;
-  const int32_t* grp_tgt;
-  int group;
-  float* out;             // dB, zero-initialised
-  int64_t out_rows;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) relu_pair_kernel(DbArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* acc = reinterpret_cast<float*>(smem);                  // [BLK, HT]
-  T* slab = reinterpret_cast<T*>(acc + BLK * HT);               // [BLK, HT]
-  int* touched = reinterpret_cast<int*>(slab + BLK * HT);       // [BLK]
-
-  const T* __restrict__ gathered = static_cast<const T*>(a.a);
-  const T* __restrict__ staged = static_cast<const T*>(a.b);
-  const int g = blockIdx.x;
-  const int col0 = blockIdx.y * HT;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t out_base = static_cast<int64_t>(a.grp_tgt[g]) * BLK;
-
-  for (int i = threadIdx.x; i < BLK * HT; i += THREADS) acc[i] = 0.0f;
-  for (int i = threadIdx.x; i < BLK; i += THREADS) touched[i] = 0;
-  // The output block's rows of B, this block's columns.
-  for (int i = threadIdx.x; i < BLK * HT; i += THREADS) {
-    const int col = col0 + i % HT;
-    const int64_t row = clip(out_base + i / HT, a.b_rows);
-    if (col < a.h) {
-      slab[i] = staged[row * a.h + col];
-    } else {
-      set_zero(slab[i]);
-    }
-  }
-  __syncthreads();
-
-  const int64_t slot0 = static_cast<int64_t>(g) * a.group * E_C;
-  const int num_slots = a.group * E_C;
-  for (int base = warp * 32; base < num_slots; base += WARPS * 32) {
-    const int64_t s = slot0 + base + lane;
-    const int rs = a.rel_src[s];
-    const int rt = a.rel_tgt[s];
-    const float sc = a.scale[s];
-    const bool valid = rs >= 0 && rs < BLK && rt >= 0 && rt < BLK;
-    const int64_t row = clip(
-        static_cast<int64_t>(a.src_blk[s / E_C]) * BLK + (valid ? rs : 0),
-        a.a_rows);
-    if (valid) touched[rt] = 1;
-    unsigned mask = __ballot_sync(FULL, valid);
-    while (mask) {
-      int64_t r[UNROLL];
-      int t[UNROLL];
-      float c[UNROLL];
-      bool ok[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        ok[u] = mask != 0;
-        const int j = ok[u] ? __ffs(mask) - 1 : 0;
-        if (ok[u]) mask &= mask - 1;
-        r[u] = __shfl_sync(FULL, row, j);
-        t[u] = __shfl_sync(FULL, rt, j);
-        c[u] = __shfl_sync(FULL, sc, j);
-      }
-      float x[UNROLL][COLS_PER_LANE];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-#pragma unroll
-        for (int k = 0; k < COLS_PER_LANE; ++k) {
-          const int col = col0 + lane + 32 * k;
-          x[u][k] = ok[u] && col < a.h ? to_f32(gathered[r[u] * a.h + col])
-                                       : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        if (!ok[u]) continue;
-#pragma unroll
-        for (int k = 0; k < COLS_PER_LANE; ++k) {
-          const int col = lane + 32 * k;
-          if (col0 + col >= a.h) continue;
-          const int i = t[u] * HT + col;
-          // The twins add the source half first: z = A[src] + B[tgt].
-          const float z = x[u][k] + to_f32(slab[i]);
-          atomicAdd(&acc[i], z > 0.0f ? c[u] : 0.0f);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // Segment-sum semantics: rows outside the output are dropped.
-  for (int i = threadIdx.x; i < BLK * HT; i += THREADS) {
-    const int rr = i / HT;
-    const int col = col0 + i % HT;
-    const int64_t orow = out_base + rr;
-    if (!touched[rr] || col >= a.h || orow < 0 || orow >= a.out_rows) {
-      continue;
-    }
-    const int64_t o = orow * a.h + col;
-    atomicAdd(&a.out[o], acc[i] * a.g[o]);
-  }
-}
-
-template <typename T>
-int launch_db(const DbArgs& a, int num_groups, cudaStream_t s) {
-  const size_t smem = smem_bytes<T>();
-  // Above 48 KB a block's shared memory must be raised explicitly.
-  cudaError_t err = cudaFuncSetAttribute(
-      relu_pair_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(num_groups),
-                  static_cast<unsigned>((a.h + HT - 1) / HT));
-  relu_pair_kernel<T><<<grid, THREADS, smem, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// B4 and B6: the row owner over the forward plan's compact form.
+// What it computes: R (B6), R and M (B4), or M times g (B7).
+enum class Mode { kR, kRM, kMG };
 
 struct RowsArgs {
   const void* a;            // [a_rows, h], rows contiguous
   const void* b;            // [b_rows, h]
   int64_t b_rows;
+  const float* g;           // [out_rows, h] f32 cotangent, B7 only
   int h;
   const float* scale;       // [slots]
   const int32_t* row_ptr;   // [out_rows + 1]
   const int32_t* src_row;   // [n] rows of A, clipped
   const int32_t* slot;      // [n] plan slots (the scale's index)
   int64_t out_rows;
-  float* r;                 // [out_rows, h]
+  float* out;               // [out_rows, h]: R (B4, B6) or dB (B7)
   float* m;                 // [out_rows, h], B4 only
 };
 
 // One warp owns output row t; W units of UB bytes a lane in this column
-// tile (blockIdx.y); kM adds M (B4), without it R alone (B6). IN_FLIGHT
+// tile (blockIdx.y); kMode picks the sums (R, M or both) and the store
+// (B7 multiplies M by g's units G of the same E columns). IN_FLIGHT
 // entries' rows of A are gathered before their adds (a lane's W units of
 // one row are always in flight together). The kernel waits on L2 latency,
 // and on an H100 at H = 320 (PERF.md, tools/relu_pair_variants.py) more
@@ -276,11 +130,14 @@ struct RowsArgs {
 // and with element units halves B4's and B6's time; B4 in 8-byte units
 // (64 registers either way) ran as fast with one as with two. At H = 64
 // the choice made no difference.
-template <typename T, int UB, int W, bool kM>
+template <typename T, int UB, int W, Mode kMode>
 __global__ void __launch_bounds__(ROW_THREADS)
     relu_pair_rows_kernel(RowsArgs a) {
   using U = Unit<T, UB>;
   constexpr int E = U::kElems;
+  using G = Unit<float, 4 * E>;
+  constexpr bool kR = kMode != Mode::kMG;
+  constexpr bool kM = kMode != Mode::kR;
   constexpr int IN_FLIGHT = 1;
   const int lane = threadIdx.x & 31;
   const int64_t row =
@@ -338,7 +195,7 @@ __global__ void __launch_bounds__(ROW_THREADS)
           for (int e = 0; e < E; ++e) {
             // The twins add the source half first: z = A[src] + B[tgt].
             const float z = x[e] + bv[k][e];
-            r[k][e] += fmaxf(z, 0.0f) * c[u];
+            if constexpr (kR) r[k][e] += fmaxf(z, 0.0f) * c[u];
             if constexpr (kM) m[k][e] += z > 0.0f ? c[u] : 0.0f;
           }
         }
@@ -351,8 +208,16 @@ __global__ void __launch_bounds__(ROW_THREADS)
     const int unit = unit0 + 32 * k;
     if (unit >= units) continue;
     const int64_t o = row * a.h + static_cast<int64_t>(unit) * E;
-    store_f32<E>(a.r + o, r[k]);
-    if constexpr (kM) store_f32<E>(a.m + o, m[k]);
+    if constexpr (kMode == Mode::kMG) {
+      float y[E];
+      G::unpack(G::load(a.g, row * units + unit), y);
+#pragma unroll
+      for (int e = 0; e < E; ++e) m[k][e] *= y[e];
+      store_f32<E>(a.out + o, m[k]);
+    } else {
+      store_f32<E>(a.out + o, r[k]);
+      if constexpr (kM) store_f32<E>(a.m + o, m[k]);
+    }
   }
 }
 
@@ -504,23 +369,45 @@ int launch_rows(bool eight, int h, int64_t rows, F&& kernel) {
 }
 
 template <typename T>
-int launch_fwd(const RowsArgs& a, cudaStream_t s) {
+int launch_fwd(const RowsArgs& a, Mode mode, cudaStream_t s) {
   // 8-byte units where the row, both tables and the outputs allow them (on
   // an H100 2.5 times faster at bf16 H = 320 than one element a lane,
-  // PERF.md); else one element a lane.
-  const bool with_m = a.m != nullptr;
+  // PERF.md), with B7's g the same columns' 16 (bf16) or 8 (f32) bytes;
+  // else one element a lane.
   const bool eight = static_cast<int64_t>(a.h) * sizeof(T) % 8 == 0
                      && aligned(a.a, 8) && aligned(a.b, 8)
-                     && aligned(a.r, 16) && (!with_m || aligned(a.m, 16));
+                     && aligned(a.out, 16)
+                     && (mode != Mode::kRM || aligned(a.m, 16))
+                     && (mode != Mode::kMG
+                         || aligned(a.g, static_cast<int>(32 / sizeof(T))));
   return launch_rows<T>(eight, a.h, a.out_rows,
                         [&](auto ub, auto w, dim3 grid) {
     constexpr int UB = decltype(ub)::value, W = decltype(w)::value;
-    if (with_m) {
-      relu_pair_rows_kernel<T, UB, W, true><<<grid, ROW_THREADS, 0, s>>>(a);
+    if (mode == Mode::kR) {
+      relu_pair_rows_kernel<T, UB, W, Mode::kR>
+          <<<grid, ROW_THREADS, 0, s>>>(a);
+    } else if (mode == Mode::kRM) {
+      relu_pair_rows_kernel<T, UB, W, Mode::kRM>
+          <<<grid, ROW_THREADS, 0, s>>>(a);
     } else {
-      relu_pair_rows_kernel<T, UB, W, false><<<grid, ROW_THREADS, 0, s>>>(a);
+      relu_pair_rows_kernel<T, UB, W, Mode::kMG>
+          <<<grid, ROW_THREADS, 0, s>>>(a);
     }
   });
+}
+
+int rows_launch(int device, int dtype, Mode mode, const RowsArgs& a,
+                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.h <= 0 || a.b_rows <= 0 || a.out_rows <= 0
+      || (mode == Mode::kMG && !a.g)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_F32) return launch_fwd<float>(a, mode, s);
+  if (dtype == DTYPE_BF16) return launch_fwd<__nv_bfloat16>(a, mode, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -550,17 +437,20 @@ extern "C" int relu_pair_rows_launch(
     int64_t b_rows, int h, const float* scale, const int32_t* row_ptr,
     const int32_t* src_row, const int32_t* slot, int64_t out_rows, float* r,
     float* m, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (h <= 0 || b_rows <= 0 || out_rows <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const RowsArgs a{a_tab, b_tab, b_rows, h, scale, row_ptr, src_row, slot,
-                   out_rows, r, m};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) return launch_fwd<float>(a, s);
-  if (dtype == DTYPE_BF16) return launch_fwd<__nv_bfloat16>(a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const RowsArgs a{a_tab, b_tab, b_rows, nullptr, h, scale, row_ptr,
+                   src_row, slot, out_rows, r, m};
+  return rows_launch(device, dtype, m ? Mode::kRM : Mode::kR, a, stream);
+}
+
+// B7: dB = M * g, f32 [out_rows, h], every element stored once.
+extern "C" int relu_pair_db_rows_launch(
+    int device, int dtype, const void* a_tab, const void* b_tab,
+    int64_t b_rows, const float* g, int h, const float* scale,
+    const int32_t* row_ptr, const int32_t* src_row, const int32_t* slot,
+    int64_t out_rows, float* db, void* stream) {
+  const RowsArgs a{a_tab, b_tab, b_rows, g, h, scale, row_ptr, src_row, slot,
+                   out_rows, db, nullptr};
+  return rows_launch(device, dtype, Mode::kMG, a, stream);
 }
 
 // B5: dA, f32 [out_rows, h] (A's first out_rows rows), every element
@@ -580,27 +470,6 @@ extern "C" int relu_pair_da_rows_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32) return launch_da<float>(a, s);
   if (dtype == DTYPE_BF16) return launch_da<__nv_bfloat16>(a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// B7: dB, f32 [out_rows, h], added into the zero-initialised output.
-extern "C" int relu_pair_db_launch(
-    int device, int dtype, const void* a_tab, int64_t a_rows,
-    const void* b_tab, int64_t b_rows, const float* g, int h,
-    const float* scale, const int32_t* rel_src, const int32_t* rel_tgt,
-    const int32_t* src_blk, const int32_t* grp_tgt, int num_groups,
-    int group, float* out, int64_t out_rows, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_groups <= 0 || group <= 0 || h <= 0 || a_rows <= 0 || b_rows <= 0
-      || out_rows <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const DbArgs a{a_tab, a_rows, b_tab, b_rows, g, h, scale, rel_src,
-                 rel_tgt, src_blk, grp_tgt, group, out, out_rows};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) return launch_db<float>(a, num_groups, s);
-  if (dtype == DTYPE_BF16) return launch_db<__nv_bfloat16>(a, num_groups, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

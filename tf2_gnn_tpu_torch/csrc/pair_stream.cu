@@ -15,7 +15,8 @@
 //               scale[slot[e]] * f32(table[src_row[e], :])
 //
 // into an f32 output, every element stored once (scale 1 where the caller
-// passes none). Its C entries:
+// passes none; scale[e], with no slot load, where the caller passes the
+// scale by entry, as a null slot). Its C entries:
 //
 //   pair_stream_launch        <- tf2_gnn_tpu/ops/pair_spmm.py:800
 //                                (_pair_spmm_stream_device, pallas_call :895).
@@ -35,11 +36,12 @@
 //                                of a MERGED plan; RGAT runs it once per head
 //                                on a head-major [L*V, head_dim + 1] table
 //                                whose last column is ones (the
-//                                denominators), with that head's expd row as
-//                                the scale; the probes P1/P2 run it on their
-//                                plans. Unlike the TPU kernel, which rounds
-//                                onehot * scale to the table dtype, the scale
-//                                stays f32, as in the jnp twin.
+//                                denominators), with that head's row of B8's
+//                                by-entry expd as the scale (scale[e]); the
+//                                probes P1/P2 run it on their plans. Unlike
+//                                the TPU kernel, which rounds onehot * scale
+//                                to the table dtype, the scale stays f32, as
+//                                in the jnp twin.
 //   sorted_segment_sum_launch <- tf2_gnn_tpu/ops/spmm_pallas.py:378
 //                                (sorted_segment_sum, pallas_call :442).
 //                                B12: no scale. Over a sorted plan's compact
@@ -64,7 +66,8 @@
 //                    expd(slot[e], c % K) * f32(table[src_row[e], c]),
 //   denom[t, k]    = sum over the same entries of expd(slot[e], k),
 //
-// with expd(s, k) = expd[k * head_stride + s * slot_stride]. Its C entries:
+// with expd(s, k) = expd[k * head_stride + s * slot_stride] (s = e where the
+// caller passes expd by entry, as a null slot). Its C entries:
 //
 //   pair_attention_agg_launch <- tf2_gnn_tpu/ops/pair_attention.py:484
 //                                (_agg_kernel_device, pallas_call :596; jnp
@@ -72,8 +75,8 @@
 //                                sums where K > 4 * ceil(H / 128) or
 //                                head_dim + 1 > 128, over a merged or one
 //                                type's forward plan (MergedPlan.fwd_rows, the
-//                                form B3 reads), B8's [K, slots] expd (head
-//                                stride slots). The TPU kernel rounds each
+//                                form B3 reads), B8's [K, n] expd by entry
+//                                (head stride n). The TPU kernel rounds each
 //                                scaled message to the table dtype; like the
 //                                jnp twin, this one keeps it f32.
 //   attention_scatter_launch  <- tf2_gnn_tpu/ops/spmm_pallas.py:755
@@ -87,10 +90,10 @@
 //
 // For these, lanes j < K of a row's group load head j's expd of each entry
 // (one load of each value per entry: K contiguous floats for B14, K rows of
-// B8's output for B10) and the group shares them with __shfl_sync; element
-// i of a lane's units lies in head (unit * E + i) % K, the same for all its
-// units where K divides G * E (any power-of-two K; otherwise W = 1 and the
-// columns take more tiles). The lanes j < K of column tile 0 sum the
+// B8's by-entry output for B10) and the group shares them with
+// __shfl_sync; element i of a lane's units lies in head (unit * E + i) % K,
+// the same for all its units where K divides G * E (any power-of-two K;
+// otherwise W = 1 and the columns take more tiles). The lanes j < K of column tile 0 sum the
 // denominators in the same slot order. Every output element is stored
 // once: the first port's B10 (one block per plan group and 64-column tile,
 // shared and global atomics into a zero-filled output, every padded slot
@@ -108,8 +111,9 @@
 //                                forward plan (MergedPlan.fwd_rows, the form
 //                                B3 and B10 read; src_row the source row u):
 //                                  m[t, k] = max(init[t, k], NEG, max over
-//                                    row t's entries of leaky(ss[u, k] +
-//                                    ts[clip((u / vs) * vs + t, rows), k]))
+//                                    row t's entries of logit(e, k)),
+//                                  logit(e, k) = leaky(ss[u, k] +
+//                                    ts[clip((u / vs) * vs + t, rows), k])
 //                                over the packed [rows, 2K] score table
 //                                (source halves | target halves), with init
 //                                NEG where the caller passes none; the
@@ -129,6 +133,39 @@
 //                                row t's entries, stored as 0 where it is not
 //                                finite (an empty row included), as the
 //                                reference's where(isfinite(out), out, 0).
+//
+// Its expd twin, expd_rows_kernel, maps each entry's logits, computed by
+// the same device function as B11's (pair_logits, so the two cannot
+// disagree on a logit), through the stabiliser:
+//
+//   pair_attention_expd_launch <- tf2_gnn_tpu/ops/pair_attention.py:304
+//                                (_expd_kernel_device, pallas_call :427; jnp
+//                                twin _expd_kernel_jnp). B8: over the forward
+//                                plan's compact form (MergedPlan.fwd_rows,
+//                                the form B11, B3 and B10 read),
+//                                  expd[k, e] = exp(logit(e, k) - m[t, k]),
+//                                f32 [K, n] by entry: the TPU kernel's value
+//                                at the entry's slot, so B3 and B10 read
+//                                entry e's scale at e, with no slot load,
+//                                and no padded slot is written. Like B11 it
+//                                clips the target-score row from the
+//                                compact form's clipped u, where the first
+//                                port's kernel clipped it from the
+//                                unclipped u: the same row wherever u <
+//                                rows, as on every plan build_pair_plans
+//                                builds. The subtraction is not contracted
+//                                into an FMA and exp is expf (not __expf),
+//                                so expf's argument is the plain version's
+//                                bits. G = EXPD_LANES lanes (a warp) own a
+//                                row, each takes whole entries (one in
+//                                flight), loads the row's m once and
+//                                stores each entry's E heads at k * n + e:
+//                                consecutive lanes hold consecutive
+//                                entries, so each head's stores coalesce. The first port's
+//                                kernel (a thread a plan slot, padded slots
+//                                written as zeros, scalar score loads, read
+//                                through the slot map by B3 and B10) is
+//                                retired.
 //
 // Its max is that of an order on the bits: a NaN above everything, then
 // the numbers with +0.0 above -0.0 (the integer key of max_key). Values
@@ -184,7 +221,11 @@
 // output written once (B11 also the f32 init); bytes bound them. Rows
 // are short (PPI: 8.7 entries into a target on one type's plan, 26 on the
 // merged and the sorted plans): G = 8 (MAX_LANES) ran fastest of 4, 8, 16
-// and 32 on an H100 at all three (tools/max_rows_lanes.py, PERF.md).
+// and 32 on an H100 at all three (tools/max_rows_lanes.py, PERF.md). B8:
+// B11's reads with the f32 m rows of the rows that have entries in place
+// of the init, and 4K B written an entry; bytes bound it, mostly its
+// output and src_row. It has no fold across lanes, and a warp a row
+// (EXPD_LANES = 32) ran fastest.
 //
 // Bound. Bytes: the distinct table rows the entries read, 8 B an entry
 // (its row and its scale; 4 B for B12, which reads no scale, and for B14,
@@ -220,7 +261,8 @@ struct RowArgs {
   const float* scale;       // null: every entry's scale is 1
   const int32_t* row_ptr;   // [out_rows + 1]
   const int32_t* src_row;   // [n] table rows
-  const int32_t* slot;      // [n] plan slots (the scale's index)
+  const int32_t* slot;      // [n] plan slots (the scale's index); null:
+                            // the scale is by entry (scale[e])
   int64_t out_rows;
   float* out;               // [out_rows, h]
 };
@@ -268,7 +310,8 @@ __global__ void __launch_bounds__(ROW_THREADS) row_owner_kernel(RowArgs a) {
       if (j < count) {
         const int e = begin + base + j;
         src[i] = __ldg(a.src_row + e);
-        sc[i] = a.scale ? __ldg(a.scale + __ldg(a.slot + e)) : 1.0f;
+        sc[i] = a.scale ? __ldg(a.scale + (a.slot ? __ldg(a.slot + e) : e))
+                        : 1.0f;
       }
     }
     const int trips = min(kRound, most - base);  // warp-uniform
@@ -323,7 +366,8 @@ struct HeadArgs {
   int64_t slot_stride;
   const int32_t* row_ptr;   // [out_rows + 1]
   const int32_t* src_row;   // [n] table rows
-  const int32_t* slot;      // [n] plan slots (expd's index)
+  const int32_t* slot;      // [n] plan slots (expd's index); null: expd
+                            // is by entry (s = e)
   int64_t out_rows;
   float* out;               // [out_rows, h]
   float* denom;             // [out_rows, k]
@@ -377,8 +421,9 @@ __global__ void __launch_bounds__(ROW_THREADS) head_rows_kernel(HeadArgs a) {
       src[i] = 0;
       sl[i] = 0;
       if (j < count) {
-        src[i] = __ldg(a.src_row + begin + base + j);
-        sl[i] = __ldg(a.slot + begin + base + j);
+        const int e = begin + base + j;
+        src[i] = __ldg(a.src_row + e);
+        sl[i] = a.slot ? __ldg(a.slot + e) : e;
       }
     }
     const int trips = min(kRound, most - base);  // warp-uniform
@@ -448,6 +493,11 @@ struct MaxArgs {
 constexpr float NEG = -1e30f;  // B11's stabiliser of a target with no entry
 constexpr float LEAKY_SLOPE = 0.2f;
 constexpr int MAX_LANES = 8;   // max_rows_kernel's G, lanes a row
+// expd_rows_kernel's G. Its lanes share nothing, so more of a row's
+// entries are in flight with more lanes: on an H100 (PERF.md,
+// tools/max_rows_lanes.py) 32 ran fastest of 4, 8, 16 and 32 on the merged
+// and one type's plans.
+constexpr int EXPD_LANES = 32;
 
 // The max's order on the bits: NaN above everything, then the numbers,
 // +0.0 above -0.0 (a negative float's key flips its magnitude bits).
@@ -458,6 +508,28 @@ __device__ __forceinline__ int max_key(float x) {
 
 __device__ __forceinline__ float max_of(float a, float b) {
   return max_key(b) > max_key(a) ? b : a;
+}
+
+// B11's and B8's logits of one compact-form entry: the E heads of lane
+// unit `tile` of leaky(ss[u] + ts[clip((u / vs) * vs + row, rows)]) over
+// the packed scores (k / E units a half). Neither step is contracted into
+// an FMA with the caller's next one.
+template <typename T, int UB>
+__device__ __forceinline__ void pair_logits(const void* scores,
+                                            int64_t ld_units, int k,
+                                            int rows, int vs, int u,
+                                            int64_t row, int tile, float* x) {
+  using U = Unit<T, UB>;
+  constexpr int E = U::kElems;
+  U::unpack(U::load(scores, u * ld_units + tile), x);
+  const int64_t r = clip(static_cast<int64_t>(u / vs) * vs + row, rows);
+  float y[E];
+  U::unpack(U::load(scores, r * ld_units + k / E + tile), y);
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const float p = __fadd_rn(x[i], y[i]);
+    x[i] = p >= 0.0f ? p : __fmul_rn(LEAKY_SLOPE, p);
+  }
 }
 
 // G lanes own a row (32 / G rows a warp); column tile blockIdx.y is one
@@ -487,17 +559,11 @@ __global__ void __launch_bounds__(ROW_THREADS) max_rows_kernel(MaxArgs a) {
     for (int e = __ldg(a.row_ptr + row) + sub; e < end; e += G) {
       const int u = __ldg(a.src_row + e);
       float x[E];
-      U::unpack(U::load(a.table, u * a.ld_units + tile), x);
       if constexpr (PAIR) {
-        const int64_t r = clip(static_cast<int64_t>(u / a.vs) * a.vs + row,
-                               a.rows);
-        float y[E];
-        U::unpack(U::load(a.table, r * a.ld_units + a.k / E + tile), y);
-#pragma unroll
-        for (int i = 0; i < E; ++i) {
-          const float p = x[i] + y[i];
-          x[i] = p >= 0.0f ? p : LEAKY_SLOPE * p;
-        }
+        pair_logits<T, UB>(a.table, a.ld_units, a.k, a.rows, a.vs, u, row,
+                           tile, x);
+      } else {
+        U::unpack(U::load(a.table, u * a.ld_units + tile), x);
       }
 #pragma unroll
       for (int i = 0; i < E; ++i) m[i] = max_of(m[i], x[i]);
@@ -521,6 +587,51 @@ __global__ void __launch_bounds__(ROW_THREADS) max_rows_kernel(MaxArgs a) {
     }
   }
   store_f32<E>(a.out + at, m);
+}
+
+struct ExpdArgs {
+  const void* scores;       // [rows, 2k]
+  int64_t ld_units;         // the scores' row stride, in lane units
+  int k;
+  int rows;
+  int vs;
+  const float* maxes;       // [out_rows, k], the stabiliser
+  const int32_t* row_ptr;   // [out_rows + 1]
+  const int32_t* src_row;   // [n] the source row u
+  int64_t n;
+  int64_t out_rows;
+  float* out;               // [k, n], by entry
+};
+
+// G lanes own a row (32 / G rows a warp), each taking whole entries; column
+// tile blockIdx.y is one lane unit of E heads of each score half. No lane
+// shuffles, so a lane leaves as soon as its row has no entry left for it.
+template <typename T, int UB, int G>
+__global__ void __launch_bounds__(ROW_THREADS) expd_rows_kernel(ExpdArgs a) {
+  constexpr int E = Unit<T, UB>::kElems;
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of 2");
+  constexpr int kRows = 32 / G;
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * ROW_WARPS + (threadIdx.x >> 5))
+          * kRows + lane / G;
+  if (row >= a.out_rows) return;
+  const int end = __ldg(a.row_ptr + row + 1);
+  int e = __ldg(a.row_ptr + row) + (lane & (G - 1));
+  if (e >= end) return;
+  const int tile = blockIdx.y;
+  float m[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i)
+    m[i] = __ldg(a.maxes + row * a.k + static_cast<int64_t>(tile) * E + i);
+  float* out = a.out + static_cast<int64_t>(tile) * E * a.n;
+  for (; e < end; e += G) {
+    float x[E];
+    pair_logits<T, UB>(a.scores, a.ld_units, a.k, a.rows, a.vs,
+                       __ldg(a.src_row + e), row, tile, x);
+#pragma unroll
+    for (int i = 0; i < E; ++i) out[i * a.n + e] = expf(__fsub_rn(x[i], m[i]));
+  }
 }
 
 template <typename T, int UB, int G, int W, typename A>
@@ -624,7 +735,7 @@ int row_owner_launch(int device, int dtype, const void* table, int64_t ld,
                      int64_t out_rows, float* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (h <= 0 || ld < h || out_rows <= 0 || (scale && !slot)
+  if (h <= 0 || ld < h || out_rows <= 0
       || (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   const int itemsize = dtype == DTYPE_F32 ? 4 : 2;
@@ -661,20 +772,14 @@ int head_rows_launch(int device, int dtype, const void* table, int64_t ld,
   return launch_rows(dtype, l, row_grid(out_rows, l), stream, a);
 }
 
-// The widest lane unit (at most 16 bytes) whose columns divide k and the
-// row stride and whose size the table's address is aligned to.
-template <bool PAIR, typename T>
-void launch_max(dim3 grid_rows, cudaStream_t s, MaxArgs a, int64_t ld) {
+// Calls go(the widest lane unit, at most 16 bytes, whose columns divide k
+// and the row stride ld and whose size the table's address is aligned to),
+// as a std::integral_constant of its bytes.
+template <typename T, typename F>
+void by_unit(int k, int64_t ld, const void* table, F&& go) {
   auto fits = [&](int e) {
-    return a.k % e == 0 && ld % e == 0
-           && aligned(a.table, e * static_cast<int>(sizeof(T)));
-  };
-  auto go = [&](auto unit) {
-    constexpr int UB = decltype(unit)::value;
-    constexpr int E = UB / static_cast<int>(sizeof(T));
-    a.ld_units = ld / E;
-    const dim3 grid(grid_rows.x, a.k / E);
-    max_rows_kernel<T, UB, MAX_LANES, PAIR><<<grid, ROW_THREADS, 0, s>>>(a);
+    return k % e == 0 && ld % e == 0
+           && aligned(table, e * static_cast<int>(sizeof(T)));
   };
   if (fits(16 / sizeof(T))) {
     go(std::integral_constant<int, 16>());
@@ -691,6 +796,25 @@ void launch_max(dim3 grid_rows, cudaStream_t s, MaxArgs a, int64_t ld) {
   }
 }
 
+template <bool PAIR, typename T>
+void launch_max(dim3 grid_rows, cudaStream_t s, MaxArgs a, int64_t ld) {
+  by_unit<T>(a.k, ld, a.table, [&](auto unit) {
+    constexpr int UB = decltype(unit)::value;
+    constexpr int E = UB / static_cast<int>(sizeof(T));
+    a.ld_units = ld / E;
+    const dim3 grid(grid_rows.x, a.k / E);
+    max_rows_kernel<T, UB, MAX_LANES, PAIR><<<grid, ROW_THREADS, 0, s>>>(a);
+  });
+}
+
+// One block a ROW_WARPS * (32 / lanes) rows.
+dim3 lanes_grid(int64_t out_rows, int lanes) {
+  const int64_t rows_per_block =
+      static_cast<int64_t>(ROW_WARPS) * (32 / lanes);
+  return dim3(static_cast<unsigned>(
+      (out_rows + rows_per_block - 1) / rows_per_block));
+}
+
 // B11 (pair) and B15: f32 [out_rows, k], every element stored once.
 int max_rows_launch(bool pair, int device, int dtype, const void* table,
                     int64_t ld, int64_t rows, int k, int vs,
@@ -705,10 +829,7 @@ int max_rows_launch(bool pair, int device, int dtype, const void* table,
       || (pair ? (ld != 2 * k || vs <= 0 || k > 32) : (ld < k || init))
       || (dtype != DTYPE_F32 && (pair ? dtype != DTYPE_BF16 : true)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t rows_per_block =
-      static_cast<int64_t>(ROW_WARPS) * (32 / MAX_LANES);
-  const dim3 grid(static_cast<unsigned>(
-      (out_rows + rows_per_block - 1) / rows_per_block));
+  const dim3 grid = lanes_grid(out_rows, MAX_LANES);
   const MaxArgs a{table, 0, k, static_cast<int>(rows), vs, init, row_ptr,
                   src_row, out_rows, out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -722,10 +843,44 @@ int max_rows_launch(bool pair, int device, int dtype, const void* table,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+void launch_expd(cudaStream_t s, ExpdArgs a) {
+  by_unit<T>(a.k, 2 * static_cast<int64_t>(a.k), a.scores, [&](auto unit) {
+    constexpr int UB = decltype(unit)::value;
+    constexpr int E = UB / static_cast<int>(sizeof(T));
+    a.ld_units = 2 * a.k / E;
+    const dim3 grid(lanes_grid(a.out_rows, EXPD_LANES).x, a.k / E);
+    expd_rows_kernel<T, UB, EXPD_LANES><<<grid, ROW_THREADS, 0, s>>>(a);
+  });
+}
+
+// B8: f32 [k, n] by entry, every element stored once.
+int expd_rows_launch(int device, int dtype, const void* scores, int64_t rows,
+                     int k, int vs, const float* maxes,
+                     const int32_t* row_ptr, const int32_t* src_row,
+                     int64_t n, int64_t out_rows, float* out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (k <= 0 || k > 32 || 32 % k || out_rows <= 0 || rows <= 0
+      || rows > std::numeric_limits<int>::max() || vs <= 0 || n < 0
+      || !maxes || (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ExpdArgs a{scores, 0, k, static_cast<int>(rows), vs, maxes, row_ptr,
+                   src_row, n, out_rows, out};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_F32) {
+    launch_expd<float>(s, a);
+  } else {
+    launch_expd<__nv_bfloat16>(s, a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry points, one per TPU kernel and one for B9's second pass, all with
-// one signature (scale is null for B12 and B9). Each returns the
+// one signature (scale is null for B12 and B9; slot is null where the scale
+// is by entry, as B3's in RGAT's head-major sums). Each returns the
 // cudaError_t of its launch (cudaGetLastError right after it); 0 is
 // success.
 
@@ -745,8 +900,9 @@ DEFINE_LAUNCH(sorted_segment_sum_launch)
 DEFINE_LAUNCH(pair_attention_ts_launch)
 
 // B10 and B14: head_rows_kernel, one signature (expd's element (slot s,
-// head j) at j * head_stride + s * slot_stride; weighted [out_rows, h] and
-// denom [out_rows, k] in f32, every element stored once).
+// head j) at j * head_stride + s * slot_stride, s = e where slot is null;
+// weighted [out_rows, h] and denom [out_rows, k] in f32, every element
+// stored once).
 #define DEFINE_HEAD_LAUNCH(NAME)                                              \
   extern "C" int NAME(int device, int dtype, const void* table, int64_t ld,  \
                       int h, int k, const float* expd, int64_t head_stride,   \
@@ -776,6 +932,16 @@ DEFINE_HEAD_LAUNCH(attention_scatter_launch)
 
 DEFINE_MAX_LAUNCH(pair_attention_max_launch, true)
 DEFINE_MAX_LAUNCH(sorted_segment_max_launch, false)
+
+// B8: expd_rows_kernel over the forward compact form (scores [rows, 2k],
+// the f32 stabiliser [out_rows, k]; expd f32 [k, n], n the form's entries).
+extern "C" int pair_attention_expd_launch(
+    int device, int dtype, const void* scores, int64_t rows, int k, int vs,
+    const float* maxes, const int32_t* row_ptr, const int32_t* src_row,
+    int64_t n, int64_t out_rows, float* out, void* stream) {
+  return expd_rows_launch(device, dtype, scores, rows, k, vs, maxes, row_ptr,
+                          src_row, n, out_rows, out, stream);
+}
 
 extern "C" const char* pair_stream_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -17,11 +17,13 @@ re-layouts heads.
 The ``"bound"`` stabiliser is a dense node-space bound; ``"exact"`` runs
 the max kernel (B11, ``pair_attention_max``) over the forward plan's
 compact form, the per-type form chaining its launches through ``init``.
-The forward then runs the expd kernel (B8, ``pair_attention_expd``) once, and
-either the merged-plan SpMM (B3, ``pair_spmm``) once per head on a
-head-major table or, for heads wider than a tile or more heads than that
-route takes, the hk-major aggregation kernel (B10, ``pair_attention_agg``)
-once, over the same compact form. The backward runs the fused backward
+The forward then runs the expd kernel (B8, ``pair_attention_expd``) once
+over the same form, which writes expd by entry of the form, and either the
+merged-plan SpMM (B3, ``pair_spmm``) once per head on a head-major table
+or, for heads wider than a tile or more heads than that route takes, the
+hk-major aggregation kernel (B10, ``pair_attention_agg``) once, each
+reading B8's output by entry (``by_entry=True``) over the same compact
+form. The backward runs the fused backward
 kernel (B9, ``pair_attention_bwd_fused``) once over the backward plan: a
 row owner by source row over the plan's compact forms
 (``MergedPlan.bwd_rows`` and ``bwd_ts_rows``, built at the batch's first
@@ -29,7 +31,7 @@ backward and kept), then a second pass that sums the target-score
 gradient by its row. The per-type
 form launches each of these once per edge type on that type's ``[V]``-row
 slab, with one stabiliser over all types. All five kernels are hand-written
-CUDA (``csrc/pair_attention.cu``: B8 and B9; ``csrc/pair_stream.cu``: B3,
+CUDA (``csrc/pair_attention.cu``: B9; ``csrc/pair_stream.cu``: B3, B8,
 B10, B11 and B9's second pass). Each wrapper
 runs its plain PyTorch version on a CPU tensor and launches its kernel on a
 CUDA tensor, or raises.
@@ -43,17 +45,17 @@ import torch
 from .pair_spmm import (
     _DTYPE_CODES,
     BLK,
-    E_C,
     MergedPlan,
     SlotRows,
     TsRows,
     _launch_rows,
     _library,
     _require_compact,
+    by_slot,
+    launch_expd_rows,
     launch_head_rows,
     launch_max_rows,
     pair_spmm,
-    plan_group,
     slot_abs_ids,
 )
 
@@ -61,9 +63,9 @@ TILE = 128
 NEG = -1e30
 LEAKY_SLOPE = 0.2
 # Lane width of the reference's streamed expd arrays and transposed VMEM
-# accumulators: a TPU layout artefact that the port drops (its expd stream
-# is [K, slots]); kept for ``pair_attention_applicable``, whose routing the
-# port mirrors.
+# accumulators: a TPU layout artefact that the port drops (its expd is
+# [K, n] by entry of the forward compact form); kept for
+# ``pair_attention_applicable``, whose routing the port mirrors.
 ACC_W = 16
 # The reference's resident VMEM budgets (bytes), read only by
 # ``pair_attention_applicable``.
@@ -175,8 +177,8 @@ def _stabilise(m, stream_dtype):
 
 
 # ---------------------------------------------------------------------------
-# The four attention kernels (B8 and B9 in csrc/pair_attention.cu, B10 and
-# B11 in csrc/pair_stream.cu), their plain versions and wrappers.
+# The four attention kernels (B9 in csrc/pair_attention.cu, B8, B10 and B11
+# in csrc/pair_stream.cu), their plain versions and wrappers.
 
 # Launch counts of the CUDA kernels of this module: each wrapper adds one
 # where it launches its kernel, and nowhere else.
@@ -313,18 +315,6 @@ def _check(entry: str, device, **tensors) -> None:
             raise ValueError(f"{entry}: {name} must be contiguous")
 
 
-def _plan_checks(entry: str, device, rel_src, rel_tgt, src_blk, grp_tgt):
-    i32 = (torch.int32,)
-    _check(entry, device, rel_src=(rel_src, i32), rel_tgt=(rel_tgt, i32),
-           src_blk=(src_blk, i32), grp_tgt=(grp_tgt, i32))
-    num_chunks, num_groups = src_blk.shape[0], grp_tgt.shape[0]
-    if (num_groups == 0 or num_chunks % num_groups
-            or rel_src.numel() != num_chunks * E_C
-            or rel_tgt.numel() != rel_src.numel()):
-        raise ValueError(f"{entry}: inconsistent plan shapes")
-    return plan_group(src_blk, grp_tgt), num_groups
-
-
 def _heads_checks(entry: str, k: int, scores) -> None:
     if k <= 0 or 32 % k or scores.dim() != 2 or scores.shape[1] != 2 * k:
         raise ValueError(f"{entry}: needs 32 % num_heads == 0 and scores of "
@@ -346,40 +336,38 @@ def _call(lib, entry: str, argtypes, *args) -> None:
 
 def pair_attention_expd(scores, maxes, rel_src, rel_tgt, src_blk, grp_tgt,
                         num_nodes: int, num_heads: int,
-                        src_space: int = None):
-    """B8: per-slot expd of the forward plan, f32 ``[K, slots]`` (each
-    head's row is the contiguous per-slot scale of its B3 launch).
-    ``scores`` [rows, 2K] f32 or bf16, ``maxes`` the f32 [V, K]
-    stabiliser."""
+                        src_space: int = None,
+                        compact: Optional[SlotRows] = None):
+    """B8: the forward plan's expd, f32 ``[K, n]`` by entry of ``compact``
+    (``MergedPlan.fwd_rows(V, rows)``, the form B11, B3 and B10 read):
+    column e is the value of the entry's plan slot, so each head's row is
+    the by-entry scale of its B3 launch and B10's expd
+    (``by_entry=True``). ``scores`` [rows, 2K] f32 or bf16, ``maxes`` the
+    f32 [V, K] stabiliser. On the card it reads only the compact form,
+    through ``csrc/pair_stream.cu``'s expd row owner; on the CPU it is the
+    plain version at the form's slots. Without ``compact`` (the CPU only)
+    it is the plain version, ``[K, slots]`` by slot."""
     if scores.device.type == "cpu":
-        return pair_attention_expd_plain(
+        expd = pair_attention_expd_plain(
             scores, maxes, rel_src, rel_tgt, src_blk, grp_tgt, num_nodes,
             num_heads, src_space)
+        if compact is None:
+            return expd
+        return expd[:, compact.slot.long()].contiguous()
     if scores.device.type != "cuda":
         raise TypeError(f"pair_attention_expd: unsupported device "
                         f"{scores.device}")
-    from .cuda_build import load_library
-
-    lib = load_library(_SOURCE)
+    _require_compact("pair_attention_expd", compact)
+    _library()
     entry = "pair_attention_expd_launch"
     k, v = num_heads, num_nodes
     vs = v if src_space is None else src_space
-    _check(entry, scores.device, scores=(scores, tuple(_DTYPE_CODES)),
-           maxes=(maxes, (torch.float32,)))
     _heads_checks(entry, k, scores)
-    group, _ = _plan_checks(entry, scores.device, rel_src, rel_tgt, src_blk,
-                            grp_tgt)
-    if tuple(maxes.shape) != (v, k) or vs <= 0:
-        raise ValueError(f"{entry}: maxes must be [{v}, {k}]")
-    slots = rel_src.numel()
-    out = torch.empty((k, slots), dtype=torch.float32, device=scores.device)
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    _call(lib, entry, [i, i, p, i64, p, i, i, p, p, p, p, i, i64, i, p, p],
-          scores.device.index or 0, _DTYPE_CODES[scores.dtype],
-          scores.data_ptr(), scores.shape[0], maxes.data_ptr(), v, k,
-          rel_src.data_ptr(), rel_tgt.data_ptr(), src_blk.data_ptr(),
-          grp_tgt.data_ptr(), group, slots, vs, out.data_ptr(),
-          torch.cuda.current_stream(scores.device).cuda_stream)
+    if compact.num_slots != rel_src.numel():
+        raise ValueError(f"{entry}: the compact form is over "
+                         f"{compact.num_slots} slots, the plan has "
+                         f"{rel_src.numel()}")
+    out = launch_expd_rows(scores, maxes, k, compact, v, vs)
     LAUNCHES["pair_attention_expd"] += 1
     return out
 
@@ -507,15 +495,20 @@ def pair_attention_max(scores, rel_src, rel_tgt, src_blk, grp_tgt,
 
 def pair_attention_agg(table, expd, rel_src, rel_tgt, src_blk, grp_tgt,
                        num_nodes: int, num_heads: int,
-                       compact: Optional[SlotRows] = None):
+                       compact: Optional[SlotRows] = None,
+                       by_entry: bool = False):
     """B10: (denom [V, K], weighted [V, H]) in f32, the softmax denominators
     and expd-weighted hk-major message sums over the forward plan's valid
     slots (see ``pair_attention_agg_plain``). ``table`` [rows, H] f32 or
-    bf16, ``expd`` B8's f32 ``[K, slots]``. On the card it reads only the
-    plan's ``compact`` form (``MergedPlan.fwd_rows(V, rows)``, the form B3
-    reads) and expd, through ``csrc/pair_stream.cu``'s per-head row owner;
-    on the CPU the plain version reads the plan arrays."""
+    bf16, ``expd`` f32 ``[K, slots]``, or with ``by_entry`` B8's ``[K, n]``
+    by entry of ``compact``. On the card it reads only the plan's
+    ``compact`` form (``MergedPlan.fwd_rows(V, rows)``, the form B3 reads)
+    and expd, through ``csrc/pair_stream.cu``'s per-head row owner; on the
+    CPU the plain version reads the plan arrays (a by-entry expd put back
+    in slot order)."""
     if table.device.type == "cpu":
+        if by_entry:
+            expd = by_slot(expd, compact)
         return pair_attention_agg_plain(table, expd, rel_src, rel_tgt,
                                         src_blk, grp_tgt, num_nodes,
                                         num_heads)
@@ -526,15 +519,16 @@ def pair_attention_agg(table, expd, rel_src, rel_tgt, src_blk, grp_tgt,
     _library()
     entry = "pair_attention_agg_launch"
     k, slots = num_heads, rel_src.numel()
-    if k <= 0 or 32 % k or tuple(expd.shape) != (k, slots):
+    count = compact.src_row.numel() if by_entry else slots
+    if k <= 0 or 32 % k or tuple(expd.shape) != (k, count):
         raise ValueError(f"{entry}: needs 32 % num_heads == 0 and expd of "
-                         f"[{k}, {slots}], got num_heads={k} and expd of "
+                         f"[{k}, {count}], got num_heads={k} and expd of "
                          f"{tuple(expd.shape)}")
     if compact.num_slots != slots:
         raise ValueError(f"{entry}: the compact form is over "
                          f"{compact.num_slots} slots, the plan has {slots}")
-    out = launch_head_rows(entry, table, expd, slots, 1, k, compact,
-                           num_nodes)
+    out = launch_head_rows(entry, table, expd, count, 1, k, compact,
+                           num_nodes, by_entry)
     LAUNCHES["pair_attention_agg"] += 1
     return out
 
@@ -543,12 +537,12 @@ def pair_attention_agg(table, expd, rel_src, rel_tgt, src_blk, grp_tgt,
 # The attention op.
 
 
-def _headmajor_sums(table, expd_f, plan: MergedPlan, v: int, k: int):
+def _headmajor_sums(table, expd_e, plan: MergedPlan, v: int, k: int):
     """(denom, weighted) through K ``pair_spmm`` launches, one per head, on
     a head-major layout: head kk's table is its head_dim columns plus a
     column of ones, whose output column is the head's denominator; its
-    per-slot scale is row kk of ``expd_f``. Every launch reads the plan's
-    one compact form (``plan.fwd_rows``, built at the batch's first
+    by-entry scale is row kk of B8's ``expd_e``. Every launch reads the
+    plan's one compact form (``plan.fwd_rows``, built at the batch's first
     forward). The reference pads each head's table to the TPU's 128-lane
     tile; the CUDA kernel masks the ragged edge, so the port does not."""
     rows = table.shape[0]
@@ -557,7 +551,8 @@ def _headmajor_sums(table, expd_f, plan: MergedPlan, v: int, k: int):
     t_heads = torch.cat(
         [heads_km, table.new_ones((k, rows, 1))], dim=2).contiguous()
     compact = plan.fwd_rows(v, rows)
-    outs = [pair_spmm(t_heads[kk], expd_f[kk], *plan.fwd, v, compact=compact)
+    outs = [pair_spmm(t_heads[kk], expd_e[kk], *plan.fwd, v, compact=compact,
+                      by_entry=True)
             for kk in range(k)]
     denom = torch.stack([o[:, head_dim] for o in outs], dim=-1)
     weighted = torch.stack([o[:, :head_dim] for o in outs],
@@ -588,21 +583,23 @@ def _launch_max(scores, plan: MergedPlan, v: int, k: int,
 
 def _launch_sums(table, scores, m_safe, plan: MergedPlan, v: int, k: int,
                  src_space: Optional[int]):
-    """(denom, weighted, expd_o, slope_o) under a given stabiliser: B8,
-    then the head-major B3 launches or B10, as the reference routes them
-    (its measured TPU cost model: head-major when its K sweeps beat B10's
+    """(denom, weighted, expd_o, slope_o) under a given stabiliser: B8 by
+    entry of the plan's forward compact form (``plan.fwd_rows``, built at
+    the batch's first forward and shared with B11), then the head-major B3
+    launches or B10 reading it by entry, as the reference routes them (its
+    measured TPU cost model: head-major when its K sweeps beat B10's
     feature-tile sweeps with a factor-4 margin), and the overflow edges in
     plain torch."""
     head_dim = table.shape[1] // k
     h_tiles = max(-(-table.shape[1] // TILE), 1)
-    expd_f = pair_attention_expd(scores, m_safe, *plan.fwd, v, k,
-                                 src_space=src_space)
+    compact = plan.fwd_rows(v, table.shape[0])
+    expd_e = pair_attention_expd(scores, m_safe, *plan.fwd, v, k,
+                                 src_space=src_space, compact=compact)
     if head_dim + 1 <= TILE and k <= 4 * h_tiles:
-        denom, weighted = _headmajor_sums(table, expd_f, plan, v, k)
+        denom, weighted = _headmajor_sums(table, expd_e, plan, v, k)
     else:
         denom, weighted = pair_attention_agg(
-            table, expd_f, *plan.fwd, v, k,
-            compact=plan.fwd_rows(v, table.shape[0]))
+            table, expd_e, *plan.fwd, v, k, compact=compact, by_entry=True)
     if plan.ovf_src.shape[0] == 0:  # no spilled edges (the common case)
         zero_o = table.new_zeros((0, k), dtype=torch.float32)
         return denom, weighted, zero_o, zero_o

@@ -18,15 +18,15 @@ forward runs B4 (``relu_pair_fwd_m``), which also emits the mask sum
 the elementwise ``M * g`` and its ``dA`` is one B5 launch
 (``relu_pair_da``). Where no gradient is needed (the eval step runs under
 ``torch.no_grad``) the function runs B6 (``relu_pair_fwd``, R only), as
-the reference's primal rule does. B4 and B6 are one row-owner kernel (M
-compiled in for B4) over the forward plan's compact form
+the reference's primal rule does. B4, B6 and B7 (``relu_pair_db``, ``dB``
+recomputed from the forward plan: M times g) are one row-owner kernel in
+three modes over the forward plan's compact form
 (``MergedPlan.fwd_rows``), B5 a row owner by A's row over the backward
 plan's (``MergedPlan.bwd_rows``); each form is built at its first read
-and kept on the plan, so a batch builds each once. B7 (``relu_pair_db``,
-``dB`` recomputed from the forward plan) is on no call path, in the
-reference either; it keeps the first port's shared-tile kernel over the
-plan arrays, and its wrapper and plain version like the others. The
-overflow edges are plain torch. All four kernels are hand-written CUDA
+and kept on the plan, so a batch builds each once. B7 is on no call path,
+in the reference either; it has its wrapper and plain version like the
+others. The overflow edges are plain torch. All four kernels are
+hand-written CUDA
 (``csrc/pair_edge_mlp.cu``); each wrapper runs its plain PyTorch version
 (a mirror of the reference's jnp twin, over the plan arrays) on a CPU
 tensor and launches its kernel on a CUDA tensor, or raises.
@@ -36,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from .pair_attention import _check, _plan_checks
+from .pair_attention import _check
 from .pair_spmm import (
     _DTYPE_CODES,
     TILE,
@@ -85,9 +85,9 @@ _SIGNATURES = {
     "relu_pair_da_rows_launch": (ctypes.c_int, [
         _INT, _INT, _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT64,
         _PTR, _PTR]),
-    "relu_pair_db_launch": (ctypes.c_int, [
-        _INT, _INT, _PTR, _INT64, _PTR, _INT64, _PTR, _INT, _PTR, _PTR, _PTR,
-        _PTR, _PTR, _INT, _INT, _PTR, _INT64, _PTR]),
+    "relu_pair_db_rows_launch": (ctypes.c_int, [
+        _INT, _INT, _PTR, _PTR, _INT64, _PTR, _INT, _PTR, _PTR, _PTR, _PTR,
+        _INT64, _PTR, _PTR]),
     "relu_pair_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -199,26 +199,43 @@ def _check_compact(entry: str, compact: SlotRows, table, table_rows: int,
                          f"{table.device}")
 
 
+def _check_g(entry: str, g, rows: int, h: int, device) -> None:
+    _check(entry, device, g=(g, (torch.float32,)))
+    if tuple(g.shape) != (rows, h):
+        raise ValueError(f"{entry}: g must be [{rows}, {h}], got "
+                         f"{tuple(g.shape)}")
+
+
 def _launch_fwd_rows(a, b, scale, compact: SlotRows, out_rows: int,
-                     with_m: bool):
-    """Launch the forward row owner (B4 ``with_m``, else B6) on the current
-    stream over the forward plan's compact form: R, or (R, M), f32
+                     with_m: bool = False, g=None):
+    """Launch the forward row owner (B4 ``with_m``, B7 with the f32
+    cotangent ``g`` [out_rows, H], else B6) on the current stream over the
+    forward plan's compact form: R, (R, M) or B7's dB = M * g, f32
     [out_rows, H], every element stored once, so the outputs are not
     initialised."""
     lib = _library()
-    entry = "relu_pair_rows_launch"
+    entry = ("relu_pair_rows_launch" if g is None
+             else "relu_pair_db_rows_launch")
     h = _check_tables(entry, a, b, scale)
     _check_compact(entry, compact, a, a.shape[0], out_rows, scale)
     dev = a.device
-    r = torch.empty((out_rows, h), dtype=torch.float32, device=dev)
-    m = torch.empty_like(r) if with_m else None
+    out = torch.empty((out_rows, h), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if g is not None:
+        _check_g(entry, g, out_rows, h, dev)
+        _raise_on(lib, entry, lib.relu_pair_db_rows_launch(
+            dev.index or 0, _DTYPE_CODES[a.dtype], a.data_ptr(),
+            b.data_ptr(), b.shape[0], g.data_ptr(), h, scale.data_ptr(),
+            compact.row_ptr.data_ptr(), compact.src_row.data_ptr(),
+            compact.slot.data_ptr(), out_rows, out.data_ptr(), stream))
+        return out
+    m = torch.empty_like(out) if with_m else None
     _raise_on(lib, entry, lib.relu_pair_rows_launch(
         dev.index or 0, _DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
         b.shape[0], h, scale.data_ptr(), compact.row_ptr.data_ptr(),
         compact.src_row.data_ptr(), compact.slot.data_ptr(), out_rows,
-        r.data_ptr(), None if m is None else m.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream))
-    return (r, m) if with_m else r
+        out.data_ptr(), None if m is None else m.data_ptr(), stream))
+    return (out, m) if with_m else out
 
 
 def _launch_da_rows(a, b, g, scale, compact: SlotRows, rows_a: int):
@@ -228,10 +245,7 @@ def _launch_da_rows(a, b, g, scale, compact: SlotRows, rows_a: int):
     lib = _library()
     entry = "relu_pair_da_rows_launch"
     h = _check_tables(entry, a, b, scale)
-    _check(entry, a.device, g=(g, (torch.float32,)))
-    if tuple(g.shape) != (b.shape[0], h):
-        raise ValueError(f"{entry}: g must be [{b.shape[0]}, {h}], got "
-                         f"{tuple(g.shape)}")
+    _check_g(entry, g, b.shape[0], h, a.device)
     if rows_a > a.shape[0]:
         raise ValueError(f"{entry}: {rows_a} output rows from a "
                          f"[{a.shape[0]}]-row A")
@@ -243,32 +257,6 @@ def _launch_da_rows(a, b, g, scale, compact: SlotRows, rows_a: int):
         g.data_ptr(), h, scale.data_ptr(), compact.row_ptr.data_ptr(),
         compact.src_row.data_ptr(), compact.slot.data_ptr(), rows_a,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
-    return out
-
-
-def _launch_db(a, b, g, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-               out_rows: int):
-    """Launch B7's shared-tile kernel on the current stream over the
-    forward plan's arrays into a fresh zero-initialised f32 output."""
-    lib = _library()
-    entry = "relu_pair_db_launch"
-    h = _check_tables(entry, a, b, scale)
-    dev = a.device
-    group, num_groups = _plan_checks(entry, dev, rel_src, rel_tgt, src_blk,
-                                     grp_tgt)
-    if scale.numel() != rel_src.numel() or out_rows <= 0:
-        raise ValueError(f"{entry}: inconsistent operand shapes")
-    _check(entry, dev, g=(g, (torch.float32,)))
-    if tuple(g.shape) != (out_rows, h):
-        raise ValueError(f"{entry}: g must be [{out_rows}, {h}], got "
-                         f"{tuple(g.shape)}")
-    out = torch.zeros((out_rows, h), dtype=torch.float32, device=dev)
-    _raise_on(lib, entry, lib.relu_pair_db_launch(
-        dev.index or 0, _DTYPE_CODES[a.dtype], a.data_ptr(), a.shape[0],
-        b.data_ptr(), b.shape[0], g.data_ptr(), h, scale.data_ptr(),
-        rel_src.data_ptr(), rel_tgt.data_ptr(), src_blk.data_ptr(),
-        grp_tgt.data_ptr(), num_groups, group, out.data_ptr(), out_rows,
-        torch.cuda.current_stream(dev).cuda_stream))
     return out
 
 
@@ -327,15 +315,18 @@ def relu_pair_da(a, b, g, scale_bwd, rel_src, rel_tgt, src_blk, grp_tgt,
 
 
 def relu_pair_db(a, b, g, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-                 out_rows: int):
+                 out_rows: int, compact: Optional[SlotRows] = None):
     """B7, dB recomputed over the forward plan: f32 [out_rows, H]
     ``g * M`` (``g`` the f32 cotangent [out_rows, H]). No call path runs
-    it: the training forward's M gives dB directly."""
+    it: the training forward's M gives dB directly. On the card it reads
+    only the plan's ``compact`` form (``MergedPlan.fwd_rows(out_rows, rows
+    of a)``, B4's), the scales and g; on the CPU the plain version reads
+    the plan arrays."""
     if _device_type("relu_pair_db", a) == "cpu":
         return relu_pair_db_plain(a, b, g, scale, rel_src, rel_tgt, src_blk,
                                   grp_tgt, out_rows)
-    out = _launch_db(a, b, g, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-                     out_rows)
+    _require_compact("relu_pair_db", compact)
+    out = _launch_fwd_rows(a, b, scale, compact, out_rows, g=g)
     LAUNCHES["relu_pair_db"] += 1
     return out
 

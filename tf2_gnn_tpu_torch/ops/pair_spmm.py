@@ -683,7 +683,9 @@ class SlotRows:
     CSR. Row ``t``'s slots are ``row_ptr[t]:row_ptr[t + 1]``, in ascending
     slot order; ``src_row`` is each one's table row (clipped into the
     table) and ``slot`` its plan slot, whose per-call scale is
-    ``scale[slot]``. Built with torch ops on the plan's device."""
+    ``scale[slot]`` (or ``scale[e]`` where the call passes its scale by
+    entry, ``by_entry=True``). Built with torch ops on the plan's
+    device."""
 
     row_ptr: torch.Tensor    # int32 [out_rows + 1]
     src_row: torch.Tensor    # int32 [n]
@@ -754,6 +756,18 @@ def ts_rows(compact: "SlotRows", rel_src, rel_tgt, src_blk, grp_tgt,
     return TsRows(torch.clamp(key, 0, rows - 1).to(torch.int32), sums)
 
 
+def by_slot(values, compact: Optional[SlotRows]):
+    """A by-entry ``values`` ([n] or [K, n], entry e of ``compact`` at
+    column e) in the plan's slot order: entry e's value at its slot, 0 at
+    every other slot. The plain versions read a scale by slot; a slot that
+    is not in the form is padded or outside the output, and the plain
+    versions drop it."""
+    _require_compact("by_slot", compact)
+    out = values.new_zeros(values.shape[:-1] + (compact.num_slots,))
+    out[..., compact.slot.long()] = values
+    return out
+
+
 def pair_spmm_stream_plain(tables, scale, rel_src, rel_tgt, src_blk,
                            grp_tgt, grp_type, v: int, out_rows: int):
     """Plain PyTorch version of K1 and K2: gather every slot's row
@@ -791,7 +805,7 @@ _INT, _INT64, _PTR = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 # one row-owner signature for K1, K2, B3, B12 (sorted_spmm.py) and B9's
 # second pass (pair_attention.py), one per-head signature for B10
 # (pair_attention.py) and B14 (sorted_spmm.py), one max signature for B11
-# (pair_attention.py) and B15 (sorted_spmm.py).
+# (pair_attention.py) and B15 (sorted_spmm.py), and B8's (pair_attention.py).
 _ROW_OWNER = (ctypes.c_int, [_INT, _INT, _PTR, _INT64, _INT, _PTR, _PTR,
                              _PTR, _PTR, _INT64, _PTR, _PTR])
 _HEAD_ROWS = (ctypes.c_int, [_INT, _INT, _PTR, _INT64, _INT, _INT, _PTR,
@@ -799,6 +813,8 @@ _HEAD_ROWS = (ctypes.c_int, [_INT, _INT, _PTR, _INT64, _INT, _INT, _PTR,
                              _PTR, _PTR])
 _MAX_ROWS = (ctypes.c_int, [_INT, _INT, _PTR, _INT64, _INT64, _INT, _INT,
                             _PTR, _PTR, _PTR, _INT64, _PTR, _PTR])
+_EXPD_ROWS = (ctypes.c_int, [_INT, _INT, _PTR, _INT64, _INT, _INT, _PTR,
+                             _PTR, _PTR, _INT64, _INT64, _PTR, _PTR])
 _SIGNATURES = {
     "pair_stream_launch": _ROW_OWNER,
     "pair_stream_joint_launch": _ROW_OWNER,
@@ -809,6 +825,7 @@ _SIGNATURES = {
     "attention_scatter_launch": _HEAD_ROWS,
     "pair_attention_max_launch": _MAX_ROWS,
     "sorted_segment_max_launch": _MAX_ROWS,
+    "pair_attention_expd_launch": _EXPD_ROWS,
     "pair_stream_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -862,23 +879,32 @@ def _check_table(entry: str, table, scale) -> None:
                         "table's device")
 
 
+def _scale_count(compact: SlotRows, by_entry: bool) -> int:
+    """The values a scale holds: one an entry of the form (``by_entry``)
+    or one a plan slot."""
+    return compact.src_row.numel() if by_entry else compact.num_slots
+
+
 def _launch_rows(entry: str, table, scale, compact: SlotRows,
-                 out_rows: int):
+                 out_rows: int, by_entry: bool = False):
     """Launch ``row_owner_kernel`` (K1, K2, B3, B12 or B9's second pass, by
     ``entry``) on the current stream over the plan's compact form: f32
     [out_rows, H], every element stored once, so the output is not
     initialised. ``table`` may be a row-strided view (its row stride is
     passed, not copied; other layouts are copied); ``scale`` None reads
-    every entry at scale 1. The compact form's own tensors were checked
-    when it was built; here only its sizes are held to the call's."""
+    every entry at scale 1, ``by_entry`` reads entry e's scale at e (no
+    slot load) rather than at its slot. The compact form's own tensors
+    were checked when it was built; here only its sizes are held to the
+    call's."""
     lib = _library()
     _check_table(entry, table, scale)
     table = _rows_view(table)
     _check_compact(entry, table, compact, out_rows)
-    if scale is not None and compact.num_slots != scale.numel():
-        raise ValueError(f"{entry}: the compact form is over "
-                         f"{compact.num_slots} slots, the call has "
-                         f"{scale.numel()} scales")
+    count = _scale_count(compact, by_entry)
+    if scale is not None and scale.numel() != count:
+        raise ValueError(f"{entry}: the compact form has {count} "
+                         f"{'entries' if by_entry else 'slots'}, the call "
+                         f"has {scale.numel()} scales")
     h = table.shape[1]
     out = torch.empty((out_rows, h), dtype=torch.float32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
@@ -887,21 +913,23 @@ def _launch_rows(entry: str, table, scale, compact: SlotRows,
         table.data_ptr(), table.stride(0), h,
         None if scale is None else scale.data_ptr(),
         compact.row_ptr.data_ptr(), compact.src_row.data_ptr(),
-        compact.slot.data_ptr(), out_rows, out.data_ptr(), stream))
+        None if by_entry else compact.slot.data_ptr(), out_rows,
+        out.data_ptr(), stream))
     return out
 
 
 def launch_head_rows(entry: str, table, expd, head_stride: int,
                      slot_stride: int, num_heads: int, compact: SlotRows,
-                     out_rows: int):
+                     out_rows: int, by_entry: bool = False):
     """Launch ``head_rows_kernel`` (B10 or B14, by ``entry``) on the
     current stream over the plan's compact form: (denom f32 [out_rows, K],
     weighted f32 [out_rows, H]) with ``weighted[t, c]`` the sum over row
     t's entries of ``expd(slot, c % K) * table[src_row, c]`` and ``denom[t,
     k]`` that of ``expd(slot, k)``, where ``expd(s, k)`` is the element
-    ``k * head_stride + s * slot_stride`` of the contiguous f32 ``expd``.
-    Every element is stored once, so neither output is initialised;
-    ``table`` may be a row-strided view."""
+    ``k * head_stride + s * slot_stride`` of the contiguous f32 ``expd``
+    (``s`` the entry's index e where ``by_entry``). Every element is
+    stored once, so neither output is initialised; ``table`` may be a
+    row-strided view."""
     lib = _library()
     _check_table(entry, table, None)
     table = _rows_view(table)
@@ -910,13 +938,15 @@ def launch_head_rows(entry: str, table, expd, head_stride: int,
     if not 0 < k <= 32 or h % k:
         raise ValueError(f"{entry}: needs 0 < num_heads <= 32 dividing the "
                          f"table's width, got {k} heads and {h} columns")
-    last = (k - 1) * head_stride + (compact.num_slots - 1) * slot_stride
+    count = _scale_count(compact, by_entry)
+    last = (k - 1) * head_stride + (count - 1) * slot_stride
     if (expd.dtype != torch.float32 or expd.device != table.device
             or not expd.is_contiguous() or last >= expd.numel()):
         raise ValueError(f"{entry}: expd must be contiguous f32 on the "
-                         f"table's device holding {k} heads of "
-                         f"{compact.num_slots} slots, got {expd.dtype} "
-                         f"{tuple(expd.shape)} on {expd.device}")
+                         f"table's device holding {k} heads of {count} "
+                         f"{'entries' if by_entry else 'slots'}, got "
+                         f"{expd.dtype} {tuple(expd.shape)} on "
+                         f"{expd.device}")
     denom = torch.empty((out_rows, k), dtype=torch.float32,
                         device=table.device)
     out = torch.empty((out_rows, h), dtype=torch.float32, device=table.device)
@@ -925,7 +955,8 @@ def launch_head_rows(entry: str, table, expd, head_stride: int,
         table.device.index or 0, _DTYPE_CODES[table.dtype],
         table.data_ptr(), table.stride(0), h, k, expd.data_ptr(),
         head_stride, slot_stride, compact.row_ptr.data_ptr(),
-        compact.src_row.data_ptr(), compact.slot.data_ptr(), out_rows,
+        compact.src_row.data_ptr(),
+        None if by_entry else compact.slot.data_ptr(), out_rows,
         out.data_ptr(), denom.data_ptr(), stream))
     return denom, out
 
@@ -960,6 +991,39 @@ def launch_max_rows(entry: str, table, num_cols: int, compact: SlotRows,
         src_space, None if init is None else init.data_ptr(),
         compact.row_ptr.data_ptr(), compact.src_row.data_ptr(), out_rows,
         out.data_ptr(), stream))
+    return out
+
+
+def launch_expd_rows(scores, maxes, num_heads: int, compact: SlotRows,
+                     out_rows: int, src_space: int):
+    """Launch ``expd_rows_kernel`` (B8) on the current stream over the
+    forward plan's compact form: f32 [K, n] by entry, ``exp(logit - m)``
+    of each entry's K logits (B11's, over the contiguous [rows, 2K]
+    ``scores``) against its target row's f32 stabiliser ``maxes``
+    [out_rows, K]. Every element is stored once, so the output is not
+    initialised."""
+    entry = "pair_attention_expd_launch"
+    lib = _library()
+    _check_table(entry, scores, None)
+    _check_compact(entry, scores, compact, out_rows)
+    k = num_heads
+    if not scores.is_contiguous() or src_space <= 0:
+        raise ValueError(f"{entry}: needs contiguous scores and src_space "
+                         f"> 0, got src_space {src_space}")
+    if (maxes.dtype != torch.float32 or maxes.device != scores.device
+            or not maxes.is_contiguous()
+            or tuple(maxes.shape) != (out_rows, k)):
+        raise ValueError(f"{entry}: maxes must be a contiguous f32 "
+                         f"[{out_rows}, {k}] on the scores' device, got "
+                         f"{maxes.dtype} {tuple(maxes.shape)} on "
+                         f"{maxes.device}")
+    n = compact.src_row.numel()
+    out = torch.empty((k, n), dtype=torch.float32, device=scores.device)
+    _raise_on(lib, entry, lib.pair_attention_expd_launch(
+        scores.device.index or 0, _DTYPE_CODES[scores.dtype],
+        scores.data_ptr(), scores.shape[0], k, src_space, maxes.data_ptr(),
+        compact.row_ptr.data_ptr(), compact.src_row.data_ptr(), n, out_rows,
+        out.data_ptr(), torch.cuda.current_stream(scores.device).cuda_stream))
     return out
 
 
@@ -1014,17 +1078,23 @@ def pair_spmm_stream_joint(tables, scale, rel_src, rel_tgt, src_blk,
 
 
 def pair_spmm(table, scale, rel_src, rel_tgt, src_blk, grp_tgt,
-              out_rows: int, compact: Optional[SlotRows] = None):
+              out_rows: int, compact: Optional[SlotRows] = None,
+              by_entry: bool = False):
     """B3, the merged-plan kernel: ``out[tgt] += scale * table[src]`` over
     one plan direction into f32 [out_rows, H] (``table`` [rows, H] f32 or
-    bf16, ``scale`` a contiguous f32 row of one value per slot). On the card
-    it reads only the direction's ``compact`` form (``slot_rows``) and the
-    scales; on the CPU the plain version reads the plan arrays."""
+    bf16, ``scale`` a contiguous f32 row of one value per slot, or with
+    ``by_entry`` one per entry of ``compact``, in its order, as B8 writes
+    it). On the card it reads only the direction's ``compact`` form
+    (``slot_rows``) and the scales; on the CPU the plain version reads
+    the plan arrays (a by-entry scale put back in slot order)."""
     if _on_cpu("pair_spmm", table):
+        if by_entry:
+            scale = by_slot(scale, compact)
         return pair_spmm_plain(table, scale, rel_src, rel_tgt, src_blk,
                                grp_tgt, out_rows)
     _require_compact("pair_spmm", compact)
-    out = _launch_rows("pair_spmm_launch", table, scale, compact, out_rows)
+    out = _launch_rows("pair_spmm_launch", table, scale, compact, out_rows,
+                       by_entry)
     LAUNCHES["pair_spmm"] += 1
     return out
 

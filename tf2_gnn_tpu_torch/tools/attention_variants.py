@@ -17,7 +17,8 @@ of the changed kernels, then each call's wrapper time (CUDA events) and
 device time (torch.profiler, ``chip_smoke.device_ms``): B9 on the merged
 PPI plan at K = 4, H = 320 (PPI_RGAT), 576 and 1024 (the tiled form) and
 K = 8, H = 64 (GAT's head layout), bf16; B10 on the largest type's plan
-at K = 8, H = 64 and K = 4, H = 512, bf16; B14 on the scatter-plan batch,
+at K = 8, H = 64 and K = 4, H = 512, bf16, with B8's expd by entry (the
+main path's form) and by slot; B14 on the scatter-plan batch,
 K = 4, H = 320, f32. Every
 output should equal the shipped sources' bit for bit (a variant changes
 how many entries are in flight or the registers, not the order of any
@@ -92,8 +93,13 @@ def _calls(device):
         scores = randn(v, 2 * k, scale=0.5)
         m = pa._stabilise(pa._bound_stabiliser(scores, v, k), bf16)
         expd = pa.pair_attention_expd_plain(scores, m, *big.fwd, v, k)
+        expd_e = expd[:, fwd_rows.slot.long()].contiguous()
         table = randn(v, h)
         calls[f"B10 K = {k}, H = {h}, one type's plan"] = (
+            lambda table=table, expd_e=expd_e, k=k: pa.pair_attention_agg(
+                table, expd_e, *big.fwd, v, k, compact=fwd_rows,
+                by_entry=True))
+        calls[f"B10 K = {k}, H = {h}, one type's plan, expd by slot"] = (
             lambda table=table, expd=expd, k=k: pa.pair_attention_agg(
                 table, expd, *big.fwd, v, k, compact=fwd_rows))
 

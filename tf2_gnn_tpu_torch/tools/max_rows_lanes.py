@@ -1,6 +1,7 @@
 """Time RGAT's two stabilisers, B11 and B15 (``csrc/pair_stream.cu``'s
-``max_rows_kernel``), at each lane count a row, at ``chip_smoke.py``'s
-shapes, on one CUDA card. From the repository root:
+``max_rows_kernel``), and B8, the expd (its ``expd_rows_kernel``), at
+each lane count a row, at ``chip_smoke.py``'s shapes, on one CUDA card.
+From the repository root:
 
     python -m tf2_gnn_tpu_torch.tools.max_rows_lanes
 
@@ -8,16 +9,18 @@ The calls: B11 over the largest type's forward compact form of the
 per-type PPI batch (bf16 [8064, 8] scores), the same from an init (the
 per-type forward's second and third launches), and over the merged
 plan's (bf16 [24192, 8]); B15 over the scatter-plan batch's forward
-compact form (f32 [245760, 4] logits). Each variant sets the kernel's
-lanes a row (``MAX_LANES``: 4, 8, 16 or 32; 8 ships) in a copy of
-``csrc/`` under ``build/``, built with ``ops/cuda_build.py``'s flags.
+compact form (f32 [245760, 4] logits); B8 over the same two pair forms
+as B11, with the bound stabiliser. Each variant sets both kernels' lanes
+a row (``MAX_LANES`` and ``EXPD_LANES``: 4, 8, 16 or 32; 8 and 32 ship)
+in a copy of ``csrc/`` under ``build/``, built with
+``ops/cuda_build.py``'s flags.
 After a few seconds of every call in turn, so that the card's clocks
 settle, each variant runs twice, in turns: its ptxas registers and
 spills, then for each call its wrapper time (CUDA events) and device time
 (torch.profiler, ``chip_smoke.device_ms``). A max does not depend on the
-order of its operands, so every variant must give the shipped source's
-bits: each line says whether it does, and the tool exits 1 if one does
-not.
+order of its operands, and B8 computes each entry alone, so every variant
+must give the shipped source's bits: each line says whether it does, and
+the tool exits 1 if one does not.
 """
 import subprocess
 import sys
@@ -27,13 +30,14 @@ from .relu_pair_variants import _ptxas_report, _variant_csrc
 
 SOURCE = "pair_stream.cu"
 LANES = (4, 8, 16, 32)
-SHIPPED_LANES = 8
+# The shipped lanes a row of each kernel, by the constant that sets them.
+SHIPPED_LANES = {"MAX_LANES": 8, "EXPD_LANES": 32}
 ROUNDS = 2
 WARM_UP_S = 5.0
 
 
 def _calls(device):
-    """{label: call} of B11 and B15 at chip_smoke.py's shapes."""
+    """{label: call} of B11, B15 and B8 at chip_smoke.py's shapes."""
     import torch
 
     import chip_smoke
@@ -63,6 +67,8 @@ def _calls(device):
     logits = torch.randn((splan.rel_tgt.numel(), k), generator=gen,
                          device=device)
     rows_s = splan.sum_rows("fwd", v)
+    m_t = pa._stabilise(pa._bound_stabiliser(s_t, v, k), torch.bfloat16)
+    m_m = pa._stabilise(pa._bound_stabiliser(s_m, v, k), torch.bfloat16)
     return {
         "B11 one type's plan": lambda: pa.pair_attention_max(
             s_t, *big.fwd, v, k, compact=rows_t),
@@ -72,6 +78,10 @@ def _calls(device):
             s_m, *merged.fwd, v, k, compact=rows_m),
         "B15 scatter plan": lambda: ss.sorted_segment_max(
             logits, splan.rel_tgt, splan.tgt_blocks, v, compact=rows_s),
+        "B8 one type's plan": lambda: pa.pair_attention_expd(
+            s_t, m_t, *big.fwd, v, k, compact=rows_t),
+        "B8 merged plan": lambda: pa.pair_attention_expd(
+            s_m, m_m, *merged.fwd, v, k, compact=rows_m),
     }
 
 
@@ -97,19 +107,21 @@ def main() -> int:
     shipped, failed = {}, False
     for _ in range(ROUNDS):
         for lanes in LANES:
-            edits = ([] if lanes == SHIPPED_LANES else
-                     [("constexpr int MAX_LANES", f"= {SHIPPED_LANES};",
-                       f"= {lanes};")])
+            edits = [(f"constexpr int {name}", f"= {shipped_g};",
+                      f"= {lanes};")
+                     for name, shipped_g in SHIPPED_LANES.items()
+                     if lanes != shipped_g]
             cuda_build.CSRC_DIR = _variant_csrc(
                 cuda_build, shipped_csrc, f"max rows {lanes} lanes", edits,
                 SOURCE)
             cuda_build._LOADED.pop(SOURCE, None)
             logs = cuda_build.build_all([SOURCE])
             print(f"== {lanes} lanes a row", flush=True)
-            for name, regs, stores, loads in _ptxas_report(
-                    logs.get(SOURCE, ""), "max_rows"):
-                print(f"  ptxas {name}: {regs} registers, spill stores "
-                      f"{stores} B, loads {loads} B")
+            for match in ("max_rows", "expd_rows"):
+                for name, regs, stores, loads in _ptxas_report(
+                        logs.get(SOURCE, ""), match):
+                    print(f"  ptxas {name}: {regs} registers, spill "
+                          f"stores {stores} B, loads {loads} B")
             for label, fn in calls.items():
                 out = fn()
                 torch.cuda.synchronize()

@@ -1,5 +1,5 @@
-"""Time the relu-pair row owners of ``csrc/pair_edge_mlp.cu`` (B4, B5, B6)
-in variants of their source on one CUDA card, at the GNN_Edge_MLP path's
+"""Time the relu-pair row owners of ``csrc/pair_edge_mlp.cu`` (B4-B7) in
+variants of their source on one CUDA card, at the GNN_Edge_MLP path's
 shapes (``chip_smoke.py`` phase 4's inputs). From the repository root:
 
     python -m tf2_gnn_tpu_torch.tools.relu_pair_variants
@@ -32,8 +32,8 @@ VARIANTS = {
     "shipped (1 in flight)": [],
     "B5 2 in flight": [("relu_pair_da_rows_kernel(DaRowsArgs a) {", _ONE,
                         _TWO)],
-    "B4/B6 2 in flight": [("relu_pair_rows_kernel(RowsArgs a) {", _ONE,
-                           _TWO)],
+    "B4/B6/B7 2 in flight": [("relu_pair_rows_kernel(RowsArgs a) {", _ONE,
+                              _TWO)],
     "shipped, again": [],
 }
 WIDTHS = (320, 64)
@@ -138,6 +138,8 @@ def main() -> int:
                 a, b, sf, *plan.fwd, rows, compact=fwd_rows),
             "B5 relu_pair_da": lambda: pem.relu_pair_da(
                 a, b, g, sb, *plan.bwd, rows, compact=bwd_rows),
+            "B7 relu_pair_db": lambda: pem.relu_pair_db(
+                a, b, g, sf, *plan.fwd, rows, compact=fwd_rows),
         }
 
     print(f"[{rows}, H] bf16 A and B, f32 g, H in {WIDTHS}; "
