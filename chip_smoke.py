@@ -25,7 +25,7 @@ Phases, each of which fails the run by raising:
       PyTorch library call computing the same function
       (``torch.sparse.mm``, CSR built from the plan outside the timed
       window), the train step and the eval forward; for the row owners
-      (K1, K2, B3-B12, B14, B15, P1, P2) and the library calls also the
+      (K1, K2, B3-B12, B14, B15, P1, P2), P3 and the library calls also the
       device time (torch.profiler over 20 launches, at the end of the run,
       after every path's step time; ``--profile`` traces each path's steps
       as it goes).
@@ -130,11 +130,13 @@ Phases, each of which fails the run by raising:
    (one) through B3's kernel on the probe's plans of the PPI edges merged
    over 3 types (bf16 [24192, 384] table), against B3's plain version and
    the probe's own ``np.add.at`` check, two launches bit-equal; P3 in f32
-   and bf16 at 8192 x 128 x 64 shifts against its plain version. Their
+   and bf16 at 8192 x 128 x 64 shifts (its shared form, the form logged)
+   against its plain version, bit for bit, and two launches bit-equal. Their
    run is the phase's main path: each launch count set to 0 just before
    each probe and read just after. Timings as in 2c; the library calls are ``torch.sparse.mm`` of
    the plan's CSR (P1, P2) and one ``torch.gather`` over all the shifted
-   index sets, then a sum (P3).
+   index sets, then a sum (P3); P1, P2 and P3 (both dtypes) also get
+   their device times.
 
 The line before the last two is the JSON ``kernels`` line (all eighteen
 kernels); then the card's
@@ -1933,7 +1935,7 @@ def zero_counts(counters):
 def probe_path(device, argv):
     """Phase 8: the design probes at their own shapes; P1 and P2 through
     B3's kernel on the probe's plans of the PPI edges, P3 in f32 and bf16.
-    Returns their three entries."""
+    Returns their three entries, and P3's bf16 entry."""
     import numpy as np
     import torch
 
@@ -1994,8 +1996,7 @@ def probe_path(device, argv):
             raise AssertionError(f"{form} launched {counts}; expected "
                                  f"{kernel} once")
         launches[form] = counts[kernel]
-        if kernel == "pair_spmm":
-            check_repeatable(form, kernel_fn, got)
+        check_repeatable(form, kernel_fn, got)
         want = plain_fn()
         errs[form] = check_close(form, got, want, KERNEL_RTOL, KERNEL_ATOL)
         if kernel == "pair_spmm":
@@ -2006,8 +2007,13 @@ def probe_path(device, argv):
             log(f"{form}: rel-max error vs the probe's numpy check "
                 f"{probe_err:.2e}; bit-equal across two launches")
         else:
-            log(f"{form}: bit-equal to its plain version: "
-                f"{torch.equal(got, want)}")
+            if not torch.equal(got, want):
+                raise AssertionError(f"{form}: differs from its plain "
+                                     "version")
+            log(f"{form}: {probes.dyngather_form(r, c, gtabs[form].dtype)} "
+                f"form, {probes.strip_cols(r, c, gtabs[form].dtype)} columns "
+                "a strip; bit-equal to its plain version and across two "
+                "launches")
         del got, want
     log("kernel check: " + ", ".join(f"{form} max_abs_err {err:.3e}"
                                      for form, err in errs.items())
@@ -2037,6 +2043,7 @@ def probe_path(device, argv):
             f"{n_valid} valid of {p.rel_src.numel()} slots", device=True))
     shifted = (gidx.long()[None] + torch.arange(reps, device=device)[:, None,
                                                                      None]) % r
+    forms = []
     for form, t in gtabs.items():
         expanded = t[None].expand(reps, r, c)
         bound = bound_ms(r * c * (t.element_size() + 4 + 4), reps * r * c)
@@ -2045,10 +2052,11 @@ def probe_path(device, argv):
             replaces["dyngather"], launches[form], errs[form], *fns[form],
             lambda e=expanded: torch.gather(e, 1, shifted).sum(
                 0, dtype=torch.float32), None, *bound,
-            f"{t.dtype} [{r}, {c}], {reps} shifts")
-        if form == "dyngather":  # the probe's default dtype is its entry
-            kernels.append(entry)
-    return kernels
+            f"{t.dtype} [{r}, {c}], {reps} shifts, "
+            f"{probes.dyngather_form(r, c, t.dtype)} form", device=True)
+        # The probe's default dtype is its entry; bf16 is another form.
+        (kernels if form == "dyngather" else forms).append(entry)
+    return kernels, forms
 
 
 def main(argv) -> int:
@@ -2098,8 +2106,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     qm9_entries = qm9_path(device, argv)
     torch.cuda.empty_cache()
-    kernels += probe_path(device, argv)
-    add_device_times(kernels + other_forms + qm9_entries)
+    probe_kernels, probe_forms = probe_path(device, argv)
+    kernels += probe_kernels
+    add_device_times(kernels + other_forms + probe_forms + qm9_entries)
     if len(kernels) != len({k["name"] for k in kernels}) or len(kernels) != 18:
         raise AssertionError(f"kernels line: {[k['name'] for k in kernels]}; "
                              "expected 18 distinct kernels")

@@ -34,7 +34,11 @@ sorted_scatter.cu built with B13 alone; B8 over the forward compact form
 by entry (the plain version at the form's slots) at every lane unit, on
 merged, per-type and partly padded plans, and B7 in the forward row
 owner's third mode in both lane units, each two launches bit-equal and
-each wrapper raising without the form. Marked
+each wrapper raising without the form; P3 in both forms (the shared
+form's 16-byte, element-staged, partial and one- and two-column strips,
+no shift and more shifts than rows, a misaligned table; the global form
+past a block's shared memory), each case's form asserted, two launches
+bit-equal. Marked
 ``cuda``; each test skips without a card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -773,13 +777,32 @@ def test_probe_pair_spmm_through_b3(device, form):
     np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
+# P3's cases: (rows, cols, reps) and the form each dtype takes (f32, bf16).
+DYNGATHER_CASES = [
+    ((8192, 128, 64), ("shared", "shared")),   # the probe's: 16-byte strips
+    ((1000, 100, 7), ("shared", "shared")),    # bf16 rows of 200 bytes
+    ((512, 20, 9), ("shared", "shared")),      # bf16: a partial last strip
+    ((96, 20, 0), ("shared", "shared")),       # no shift: zeros
+    ((96, 20, 200), ("shared", "shared")),     # more shifts than rows
+    ((40000, 6, 5), ("shared", "shared")),     # strips of 1 and 2 columns
+    ((65536, 4, 5), ("global", "shared")),     # f32: one column too many
+    ((131072, 2, 3), ("global", "global")),    # neither fits
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,cols,reps", [(8192, 128, 64), (1000, 100, 7)])
-def test_dyngather_matches_plain_version(device, dtype, rows, cols, reps):
-    """P3 exactly: both sum the same f32 values in shift order from 0;
-    indices cover negatives and values beyond R (floor modulo)."""
+@pytest.mark.parametrize("shape,forms", DYNGATHER_CASES,
+                         ids=[f"{r}x{c}x{s}" for (r, c, s), _ in
+                              DYNGATHER_CASES])
+def test_dyngather_matches_plain_version(device, dtype, shape, forms):
+    """P3 exactly, in the form its shape takes: both sum the same f32
+    values in shift order from 0; indices cover negatives and values
+    beyond R (floor modulo); two launches bit-equal."""
     from tf2_gnn_tpu_torch.ops import probes
 
+    rows, cols, reps = shape
+    assert probes.dyngather_form(rows, cols, dtype) == forms[
+        dtype == torch.bfloat16]
     gen = torch.Generator(device=device).manual_seed(35)
     table = torch.randn((rows, cols), generator=gen, device=device).to(dtype)
     idx = torch.randint(-rows, 2 * rows, (rows, cols), generator=gen,
@@ -789,6 +812,24 @@ def test_dyngather_matches_plain_version(device, dtype, rows, cols, reps):
     torch.cuda.synchronize()
     assert probes.LAUNCHES["dyngather"] == before + 1
     assert got.dtype == torch.float32
+    assert torch.equal(got, probes.dyngather_plain(table, idx, reps))
+    assert torch.equal(got, probes.dyngather(table, idx, reps))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dyngather_on_a_misaligned_table(device, dtype):
+    """A table whose start lies one element past a 16-byte boundary stages
+    its strips element by element."""
+    from tf2_gnn_tpu_torch.ops import probes
+
+    rows, cols, reps = 2048, 64, 33
+    gen = torch.Generator(device=device).manual_seed(36)
+    table = _misaligned(torch.randn((rows, cols), generator=gen,
+                                    device=device).to(dtype))
+    assert table.data_ptr() % 16 != 0
+    idx = torch.randint(0, rows, (rows, cols), generator=gen, device=device,
+                        dtype=torch.int32)
+    got = probes.dyngather(table, idx, reps)
     assert torch.equal(got, probes.dyngather_plain(table, idx, reps))
 
 

@@ -12,6 +12,13 @@
 * P3's plain version equals a jnp loop of ``take_along_axis`` over the
   shifts, the probe kernel's body (the probe passes no ``interpret``, so
   its kernel cannot run here), exactly, in f32 and bf16;
+* P3's plain version also with no shift and with more shifts than rows;
+* P3's form on the card, a function of the table's shape and dtype:
+  strips of 16 bytes at the probe's shape, narrower strips where a
+  16-byte one exceeds a block's shared memory or the table's columns,
+  the global form where a one-column strip does not fit;
+* ``tools/dyngather_variants.py`` edits the shipped source's threads a
+  block into each variant's copy, and times the shipped strip widths;
 * the wrappers take the plain versions on CPU tensors and count no
   launch, and refuse a plan of the other group.
 """
@@ -22,8 +29,9 @@ import torch
 
 from benchmarks import pair_probe
 from tf2_gnn_tpu_torch import workloads
+from tf2_gnn_tpu_torch.ops import cuda_build, probes
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
-from tf2_gnn_tpu_torch.ops import probes
+from tf2_gnn_tpu_torch.tools import dyngather_variants
 
 V = workloads.NODE_BUDGET
 
@@ -126,7 +134,8 @@ def _probe_body(table, idx, reps):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows,cols,reps", [(256, 128, 8), (96, 20, 5)])
+@pytest.mark.parametrize("rows,cols,reps", [(256, 128, 8), (96, 20, 5),
+                                            (96, 20, 0), (96, 20, 200)])
 def test_dyngather_plain_matches_the_probe_body(dtype, rows, cols, reps):
     rng = np.random.RandomState(rows + reps)
     table32 = rng.randn(rows, cols).astype(np.float32)
@@ -152,3 +161,40 @@ def test_dyngather_wraps_negative_and_large_indices():
     want = _probe_body(jnp.asarray(table.numpy()), jnp.asarray(idx.numpy()),
                        3)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("rows,cols,dtype,width", [
+    (8192, 128, torch.float32, 4),      # the probe's shape
+    (8192, 128, torch.bfloat16, 8),
+    (40000, 6, torch.float32, 1),       # 16-byte strips do not fit
+    (40000, 6, torch.bfloat16, 2),
+    (58112, 4, torch.float32, 1),       # the largest one-column strips
+    (116224, 4, torch.bfloat16, 1),
+    (100, 2, torch.float32, 2),         # tables narrower than a strip
+    (100, 3, torch.float32, 4),
+    (100, 1, torch.bfloat16, 1),
+    (58113, 4, torch.float32, 0),       # one column past the limit
+    (65536, 4, torch.float32, 0),
+    (116225, 4, torch.bfloat16, 0)])
+def test_dyngather_form(rows, cols, dtype, width):
+    assert probes.strip_cols(rows, cols, dtype) == width
+    assert probes.dyngather_form(rows, cols, dtype) == (
+        "shared" if width else "global")
+    if width:
+        assert rows * width * dtype.itemsize <= probes.MAX_STRIP_BYTES
+    else:
+        assert rows * dtype.itemsize > probes.MAX_STRIP_BYTES
+
+
+@pytest.mark.parametrize("threads", dyngather_variants.THREADS)
+def test_dyngather_variants_set_the_threads(threads, tmp_path, monkeypatch):
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build" / "lib")
+    root = dyngather_variants._variant_csrc(
+        cuda_build, cuda_build.CSRC_DIR, f"threads {threads}",
+        dyngather_variants.thread_edits(threads), dyngather_variants.SOURCE)
+    text = (root / dyngather_variants.SOURCE).read_text()
+    assert f"constexpr int SHARED_THREADS = {threads};" in text
+    assert text.count("constexpr int SHARED_THREADS") == 1
+    assert dyngather_variants.SHIPPED_THREADS in dyngather_variants.THREADS
+    for dtype, width in probes.STRIP_COLS.items():
+        assert width in dyngather_variants.WIDTHS[str(dtype).split(".")[1]]

@@ -23,7 +23,11 @@ version is ``pair_spmm_plain``.
 * P3, ``dyngather`` (``dyngather_probe.py``'s kernel): ``out[r, c] = sum
   over s < reps of f32(table[(idx[r, c] + s) % R, c])``, a per-lane
   dynamic row gather summed over shifted index sets, in a hand-written
-  CUDA kernel (``csrc/dyngather.cu``). The probe adds into an output it
+  CUDA kernel (``csrc/dyngather.cu``). The probe gathers from a table held
+  on the chip (VMEM); the kernel's shared form stages each block's strip
+  of ``strip_cols`` columns in shared memory and gathers from there, and a
+  table whose one-column strip exceeds a block's shared memory takes its
+  global form (``dyngather_form``). The probe adds into an output it
   never zeroes; here the sum starts from zero. The plain version
   (``dyngather_plain``) is one ``torch.gather`` a shift, summed in f32 in
   shift order.
@@ -56,6 +60,19 @@ from .pair_spmm import (
 LAUNCHES = {"dyngather": 0}
 
 _SOURCE = "dyngather.cu"
+_SIGNATURES = {
+    "dyngather_launch": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]),
+    "dyngather_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+# P3's shared form: the columns of the table a block stages in shared
+# memory (16 bytes of each row), and the shared memory a block of an H100
+# may take (227 KB, with the kernel's opt-in attribute).
+STRIP_COLS = {torch.float32: 4, torch.bfloat16: 8}
+MAX_STRIP_BYTES = 232448
 
 
 def reset_launch_counts() -> None:
@@ -236,15 +253,35 @@ def dyngather_plain(table, idx, reps: int):
     return out
 
 
+def strip_cols(rows: int, cols: int, dtype) -> int:
+    """The columns a block of P3's shared form stages: ``STRIP_COLS``,
+    halved while half of them still covers ``cols`` or the strip (``rows``
+    of them) exceeds ``MAX_STRIP_BYTES``; 0, the global form, where one
+    column does not fit."""
+    width = STRIP_COLS[dtype]
+    while width > 1 and (width // 2 >= cols or
+                         rows * width * dtype.itemsize > MAX_STRIP_BYTES):
+        width //= 2
+    return width if rows * width * dtype.itemsize <= MAX_STRIP_BYTES else 0
+
+
+def dyngather_form(rows: int, cols: int, dtype) -> str:
+    """The form of P3's kernel that a [rows, cols] table of ``dtype``
+    takes: ``"shared"`` (a gather from a column strip held in shared
+    memory) or ``"global"`` (a gather from global memory)."""
+    return "shared" if strip_cols(rows, cols, dtype) else "global"
+
+
 def dyngather(table, idx, reps: int):
     """P3: f32 [R, C] ``out[r, c] = sum over s < reps of
     f32(table[(idx[r, c] + s) % R, c])``; ``table`` [R, C] f32 or bf16,
-    ``idx`` int32 [R, C]."""
+    ``idx`` int32 [R, C]. On the card the kernel's form is
+    ``dyngather_form``'s."""
     if _device_type("dyngather", table) == "cpu":
         return dyngather_plain(table, idx, reps)
     from .cuda_build import load_library
 
-    lib = load_library(_SOURCE)
+    lib = load_library(_SOURCE, _SIGNATURES)
     if table.dtype not in _DTYPE_CODES:
         raise TypeError(f"dyngather: table must be float32 or bfloat16, got "
                         f"{table.dtype}")
@@ -256,17 +293,12 @@ def dyngather(table, idx, reps: int):
                         "the table's shape on its device")
     rows, cols = table.shape
     out = torch.empty((rows, cols), dtype=torch.float32, device=table.device)
-    fn = lib.dyngather_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    err = fn(table.device.index or 0, _DTYPE_CODES[table.dtype],
-             table.data_ptr(), rows, cols, idx.data_ptr(), reps,
-             out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream)
+    err = lib.dyngather_launch(
+        table.device.index or 0, _DTYPE_CODES[table.dtype], table.data_ptr(),
+        rows, cols, idx.data_ptr(), reps,
+        strip_cols(rows, cols, table.dtype), out.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream)
     if err != 0:
-        lib.dyngather_error_string.restype = ctypes.c_char_p
-        lib.dyngather_error_string.argtypes = [ctypes.c_int]
         msg = lib.dyngather_error_string(err).decode()
         raise RuntimeError(f"dyngather failed: CUDA error {err} ({msg})")
     LAUNCHES["dyngather"] += 1
