@@ -137,10 +137,33 @@ Phases, each of which fails the run by raising:
    the plan's CSR (P1, P2) and one ``torch.gather`` over all the shifted
    index sets, then a sum (P3); P1, P2 and P3 (both dtypes) also get
    their device times.
+9. Four more shipped PPI configurations on the per-type-plan PPI batch of
+   phase 2 (built once more, with its per-type in-degrees):
+   a. K1 in the per-type op's two call forms (``StreamTypedPlan``: the
+      forward, f32 [24192, 256] tables into the stacked [24192] outputs
+      with global output blocks; the backward, an f32 [24192, 256]
+      cotangent whose types' groups read their own slabs, into the
+      [24192] table rows), each over its compact form, against the plain
+      version, two launches bit-equal, with the forms' sizes;
+   b. PPI_GGNN (3 layers, hidden 320, GRU update, bf16, the joint op: K2
+      and K1 once per layer and step), PPI_RGIN (5 layers, hidden 256, one
+      hidden edge-MLP layer, 1/deg, LayerNorm, bf16, the joint op),
+      PPI_GNN_Edge_MLP (target-state input with 0 hidden layers, 5 layers,
+      hidden 256, gelu, f32) and PPI_GNN_FiLM (target-state input with 0
+      hidden layers, 4 layers, hidden 256, f32), the last two through the
+      per-type op (K1 twice per layer and step), each from
+      ``workloads.shipped_params`` with Adam at lr 1e-3: the eval forward
+      against the plain versions (K2 or K1 once per layer, nothing else),
+      then 5 train steps with the launch counts read (no other kernel);
+   c. timings: K1's two per-type forms as in 2c (their library call
+      ``torch.sparse.mm`` of the form's f32 CSR, with device times; logged,
+      K1 keeps its phase 2 entry), each model's train step and eval
+      forward.
 
-The line before the last two is the JSON ``kernels`` line (all eighteen
-kernels); then the card's
-name and power limit (nvidia-smi); the last line is the JSON result. Exits
+A line before those below gives the script's wall time. The line before
+the last two is the JSON ``kernels`` line (all eighteen kernels); then
+the card's name and power limit (nvidia-smi); the last line is the JSON
+result. Exits
 non-zero, printing no result, without a card or without the repository
 beside this script.
 """
@@ -193,6 +216,26 @@ TYPED_RGAT_LOSS_RTOL = 1e-5
 # the plain version's. So outputs within 1e-4 plus 2**-5 of the largest
 # |output|, the loss within 3e-3.
 QM9_ATOL, QM9_LOGIT_RTOL, QM9_LOSS_RTOL = 1e-4, 2.0 ** -5, 3e-3
+# Phase 9's models, kernels vs plain versions: (atol, share of the largest
+# |logit|, loss rtol). On the CPU, at the PPI batch cut to 3 graphs of 600
+# nodes and 8500 forward edges (V = 1920, the same mean in-degree) and at
+# 150 / 1500 (tests/test_torch_chip_smoke.py), stand-ins for K1 and K2
+# that sum the same slots in a random order move the logits of the
+# f32-stream models (PPI_GNN_Edge_MLP, PPI_GNN_FiLM) by at most 1.6e-5 of
+# the largest |logit| (8.9e-5 of 5.6) and their loss not at all: they
+# differ only by the order of f32 sums, so 1e-4 plus 2**-12 of the largest
+# |logit|, and 1e-5 of the loss. The bf16-stream models re-round a stream
+# entry that a sum in another order puts across a bf16 rounding boundary,
+# and later layers carry it: PPI_GGNN (3 layers, unnormalised sums) by up
+# to 1.6e-3 of the largest |logit| (5.4e-3 of 3.4), PPI_RGIN (5 layers,
+# LayerNorm, as QM9) by up to 2.2e-3 (9.0e-3 of 4.1), the loss by 2.5e-6:
+# 1e-4 plus 2**-7 (GGNN) and 2**-6 (RGIN) of the largest |logit|, and 1e-4
+# of the loss. One edge type's scales doubled moves each model's logits by
+# 0.78-1.1 of the largest and its loss by 2e-3 to 4e-2, which each check
+# catches.
+F32_STREAM_TOLS = (1e-4, 2.0 ** -12, 1e-5)
+GGNN_TOLS = (1e-4, 2.0 ** -7, 1e-4)
+RGIN_TOLS = (1e-4, 2.0 ** -6, 1e-4)
 # Phase 8: the probe's shapes (dyngather_probe.py: R, C, shifts; the
 # pair probe's feature width) and its own check's limit on the
 # rel-max error (f32 sums in another order).
@@ -1915,6 +1958,162 @@ def qm9_path(device, argv):
     return stream_kernel_entries(plan, checked, launches)
 
 
+# Phase 9's models: (name, shipped file, style, (K2, K1) launches a layer
+# and train step, the eval check's tolerances, as above).
+FLAVOUR_MODELS = (
+    ("PPI_GGNN", "PPI_GGNN.json", "ggnn", (1, 1), GGNN_TOLS),
+    ("PPI_RGIN", "PPI_RGIN.json", "rgin", (1, 1), RGIN_TOLS),
+    ("PPI_GNN_Edge_MLP", "PPI_GNN_Edge_MLP.json", "gnn_edge_mlp", (0, 2),
+     F32_STREAM_TOLS),
+    ("PPI_GNN_FiLM", "PPI_GNN_FiLM.json", "gnn_film", (0, 2),
+     F32_STREAM_TOLS),
+)
+FLAVOUR_H = 256  # the width of the per-type models' K1 calls
+
+
+def check_typed_forms(plan, h: int, device):
+    """K1 in the per-type op's two call forms on ``plan``
+    (``StreamTypedPlan``): the forward (f32 [L*V, h] tables into the
+    stacked [L*V] outputs, global output blocks) and the backward (an f32
+    [L*V, h] cotangent, each type's groups reading its own slab, into the
+    [L*V] table rows), each over its compact form, against the plain
+    version; each bit-equal across two launches. Returns (tables, cot,
+    {form: (kernel, plain version, args, compact)}, {form: max abs
+    err})."""
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+
+    rows = plan.out_rows
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    tables = torch.randn((plan.num_types * plan.v_src, h), generator=gen,
+                         device=device)
+    cot = torch.randn((rows, h), generator=gen, device=device)
+    fwd = (tables, plan.scale_fwd, plan.rel_src_f, plan.rel_tgt_f,
+           plan.src_blk_f, plan.grp_tgt_f, plan.grp_type_f, plan.v_src, rows)
+    bwd = (cot, plan.scale_bwd, plan.rel_src_b, plan.rel_tgt_b,
+           plan.src_blk_b, plan.grp_tgt_b, plan.grp_type_b, plan.v_out,
+           plan.num_types * plan.v_src)
+    fns = {}
+    for form, args, compact in (("per-type forward", fwd, plan.fwd_rows),
+                                ("per-type backward", bwd, plan.bwd_rows)):
+        fns[form] = (
+            lambda a=args, c=compact: ps.pair_spmm_stream(*a, compact=c),
+            lambda a=args: ps.pair_spmm_stream_plain(*a), args, compact)
+    errs = {}
+    for form, (kernel_fn, plain_fn, _, _) in fns.items():
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        errs[form] = check_close(f"pair_stream {form}", got, want,
+                                 KERNEL_RTOL, KERNEL_ATOL)
+        check_repeatable(f"pair_stream {form}", kernel_fn, got)
+        del got, want
+    log("kernel check: " + ", ".join(
+        f"pair_stream {form} max_abs_err {err:.3e}"
+        for form, err in errs.items())
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; each bit-equal across "
+        f"two launches); the compact forms: forward "
+        f"{plan.fwd_rows.src_row.numel()} slots of "
+        f"{plan.fwd_rows.num_slots} into {rows} rows, backward "
+        f"{plan.bwd_rows.src_row.numel()} of {plan.bwd_rows.num_slots} into "
+        f"{plan.num_types * plan.v_src}")
+    return tables, cot, fns, errs
+
+
+def typed_form_entries(checked, launches):
+    """Time K1's two per-type call forms (``checked``, what
+    ``check_typed_forms`` returned) beside their bounds and
+    ``torch.sparse.mm`` of the forms' f32 CSR; returns their two entries,
+    which stay off the kernels line (K1 has its entry from phase 2)."""
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+
+    _, _, fns, errs = checked
+    entries = []
+    for form, (kernel_fn, plain_fn, args, compact) in fns.items():
+        table, h = args[0], args[0].shape[1]
+        a32, _, rows_read, valid = slot_matrix(
+            *ps._stream_slot_abs_ids(*args[2:8]), args[1], args[8],
+            table.shape[0])
+        bound, bound_by = kernel_bound_ms(rows_read, h, table.element_size(),
+                                          valid, args[8])
+        entries.append(time_kernel(
+            f"pair_stream {form}", "tf2_gnn_tpu_torch/csrc/pair_stream.cu",
+            "tf2_gnn_tpu/ops/pair_spmm.py:895", launches[form], errs[form],
+            kernel_fn, plain_fn, lambda a=a32, t=table: torch.sparse.mm(a, t),
+            None, bound, bound_by,
+            f"f32 [{table.shape[0]}, {h}] into {args[8]} rows, {valid} valid "
+            f"of {args[2].numel()} slots, {rows_read} distinct rows read",
+            device=True))
+    return entries
+
+
+def flavours_path(device, argv):
+    """Phase 9: PPI_GGNN and PPI_RGIN through K2 and K1 (the joint op),
+    PPI_GNN_Edge_MLP and PPI_GNN_FiLM through K1 in both directions (the
+    per-type op), on the per-type-plan PPI batch. Returns no kernels-line
+    entry (K1 and K2 have theirs from phase 2) and the entries of K1's two
+    per-type call forms."""
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.workloads import build_ppi_batch, shipped_params
+
+    t0 = time.perf_counter()
+    batch, labels, real_edges = build_ppi_batch(SEED, device=device)
+    plan = batch.pair_stream_typed
+    log(f"workload (per-type plans, per-type aggregates): {real_edges} "
+        f"edges, V={batch.num_nodes_padded}, {plan.out_rows} output rows, "
+        f"{plan.rel_src_f.shape[0]} forward / {plan.rel_src_b.shape[0]} "
+        f"backward chunks, {plan.ovf_src.shape[0]} overflow slots, "
+        f"in-degrees {tuple(batch.in_degrees.shape)}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    checked = check_typed_forms(plan, FLAVOUR_H, device)
+
+    patches = [
+        (ps, "pair_spmm_stream_joint",
+         plain_version(ps.pair_spmm_stream_plain)),
+        (ps, "pair_spmm_stream", plain_version(ps.pair_spmm_stream_plain))]
+    counters = launch_counters()
+    per_form = {"per-type forward": 0, "per-type backward": 0}
+    for name, hypers, style, (k2, k1), tols in FLAVOUR_MODELS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        params = shipped_params(hypers, style)
+        model = model_from_params(params, device, batch.num_edge_types,
+                                  hypers)
+        layers = params["gnn_num_layers"]
+        atol, logit_rtol, loss_rtol = tols
+        for reset, _ in counters:
+            reset()
+        check_eval_forward(model, batch, labels, patches, logit_rtol, atol,
+                           loss_rtol)
+        torch.cuda.synchronize()
+        got = {n: c for _, counts in counters for n, c in counts.items()}
+        want = dict(zero_counts(counters), pair_stream_joint=k2 * layers,
+                    pair_stream=0 if k2 else layers)
+        if got != want:
+            raise AssertionError(f"{name} eval forward launched {got}; "
+                                 f"expected {want}")
+        per_step = {"pair_stream_joint": k2 * layers,
+                    "pair_stream": k1 * layers}
+        state, train_step, eval_step, launches = train_and_count(
+            model, params, batch, labels, counters,
+            dict(zero_counts(counters),
+                 **{n: c * TRAIN_STEPS for n, c in per_step.items()}))
+        log(f"{name}: per train step K2 {k2 * layers}, K1 {k1 * layers} "
+            f"launches; nothing else launched")
+        if not k2:
+            for form in per_form:
+                per_form[form] += launches["pair_stream"] // 2
+        time_path(state, train_step, eval_step, batch, labels, real_edges,
+                  device, argv, name)
+        del model, state, train_step, eval_step
+    torch.cuda.empty_cache()
+    return [], typed_form_entries(checked, per_form)
+
+
 def launch_counters():
     """(reset, counts) of every kernel module's launch counts, in the order
     of the phases that introduced them."""
@@ -2062,6 +2261,7 @@ def probe_path(device, argv):
 def main(argv) -> int:
     import torch
 
+    t_start = time.perf_counter()
     device = require_card()
     sys.path.insert(0, str(ROOT))
     from tf2_gnn_tpu_torch.ops import cuda_build
@@ -2093,7 +2293,8 @@ def main(argv) -> int:
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     # -- 2. PPI_RGCN, 3. PPI_RGAT, 4. GNN_Edge_MLP, 5. scatter plans,
-    # -- 6. RGAT on per-type plans, 7. QM9_RGCN, 8. the probes --------------
+    # -- 6. RGAT on per-type plans, 7. QM9_RGCN, 8. the probes, 9. GGNN,
+    # -- RGIN, PPI_GNN_Edge_MLP and GNN-FiLM ---------------------------------
     # Each path returns its kernels-line entries, and phases 3-6 also the
     # entries of other call forms (none for phase 4), which are logged.
     kernels = rgcn_path(device, argv)
@@ -2108,11 +2309,17 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     probe_kernels, probe_forms = probe_path(device, argv)
     kernels += probe_kernels
-    add_device_times(kernels + other_forms + probe_forms + qm9_entries)
+    torch.cuda.empty_cache()
+    flavour_kernels, flavour_forms = flavours_path(device, argv)
+    kernels += flavour_kernels
+    add_device_times(kernels + other_forms + probe_forms + qm9_entries
+                     + flavour_forms)
     if len(kernels) != len({k["name"] for k in kernels}) or len(kernels) != 18:
         raise AssertionError(f"kernels line: {[k['name'] for k in kernels]}; "
                              "expected 18 distinct kernels")
 
+    log(f"wall time: {time.perf_counter() - t_start:.1f} s for the whole "
+        "script, the build included")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

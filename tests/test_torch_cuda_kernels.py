@@ -9,6 +9,9 @@ all-padding group (sorted plans: sentinel slots, an unused trailing chunk
 and an all-sentinel chunk of NaN rows; B11: targets with no in-edges and a
 pad head), and through the autograd ops (the attention op in its merged
 and per-type forms); K1/K2 also at a QM9-shaped plan (5 types, H = 128),
+K1 in the per-type op's two call forms (``StreamTypedPlan``'s forward and
+backward compact forms, at small shapes and the PPI shape, two launches
+bit-equal) and through that op with spilled pairs,
 B13 with a bf16 stream's rounded scale, and P1/P2 through B3's kernel on
 the probe's plans; B3's kernel on its vector (16-byte) and narrow paths,
 with an empty target row, targets past the output, clipped sources, a
@@ -927,6 +930,112 @@ def test_k1_at_the_ppi_shape(device):
     torch.testing.assert_close(got, tps.pair_spmm_stream_plain(cot, *bwd),
                                rtol=1e-5, atol=1e-5)
     _assert_empty_rows_zero(got, plan.bwd_rows)
+
+
+def _typed_forms(plan, tables, cot):
+    """K1's two call forms of the per-type op on ``plan``
+    (``StreamTypedPlan``): (name, kernel call, plain call)."""
+    rows = plan.out_rows
+    fwd = (tables, plan.scale_fwd, plan.rel_src_f, plan.rel_tgt_f,
+           plan.src_blk_f, plan.grp_tgt_f, plan.grp_type_f, plan.v_src, rows)
+    bwd = (cot, plan.scale_bwd, plan.rel_src_b, plan.rel_tgt_b,
+           plan.src_blk_b, plan.grp_tgt_b, plan.grp_type_b, plan.v_out,
+           plan.num_types * plan.v_src)
+    return (("forward", lambda: tps.pair_spmm_stream(
+                 *fwd, compact=plan.fwd_rows),
+             lambda: tps.pair_spmm_stream_plain(*fwd), plan.fwd_rows),
+            ("backward", lambda: tps.pair_spmm_stream(
+                *bwd, compact=plan.bwd_rows),
+             lambda: tps.pair_spmm_stream_plain(*bwd), plan.bwd_rows))
+
+
+def _check_typed_forms(plan, tables, cot):
+    for name, kernel, plain, compact in _typed_forms(plan, tables, cot):
+        before = tps.LAUNCHES["pair_stream"]
+        got = kernel()
+        torch.cuda.synchronize()
+        assert tps.LAUNCHES["pair_stream"] == before + 1, name
+        torch.testing.assert_close(got, plain(), rtol=1e-5, atol=1e-5,
+                                   msg=name)
+        assert torch.equal(got, kernel()), name
+        _assert_empty_rows_zero(got, compact)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [64, 100, 256])
+def test_k1_per_type_forms_match_plain_versions(device, dtype, h):
+    """K1 over the per-type op's forward form (sources in the stacked
+    tables, global output blocks) and backward form (each type's groups
+    reading its own slab of the [L * V] cotangent), against the plain
+    version, two launches bit-equal."""
+    rng = np.random.RandomState(8)
+    v, num_types = 384, 3
+    plans = []
+    for _ in range(num_types):
+        e = rng.randint(v, 6 * v)
+        src, tgt = rng.randint(0, v, e), rng.randint(0, v, e)
+        plans.append(tps.build_pair_plans([src], [tgt], [e], v, group_fwd=8,
+                                          group_bwd=8).astuple())
+    plan = tps.stream_typed_plan(tuple(plans), v, v).to(device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    tables = torch.randn((num_types * v, h), generator=gen,
+                         device=device).to(dtype)
+    cot = torch.randn((num_types * v, h), generator=gen,
+                      device=device).to(dtype)
+    _check_typed_forms(plan, tables, cot)
+
+
+def test_k1_per_type_forms_at_the_ppi_shape(device):
+    """K1's two per-type call forms over the PPI batch's per-type plans
+    (f32 [24192, 256] tables and cotangent, the shipped GNN_Edge_MLP and
+    FiLM width): the plain version's sums, two launches bit-equal."""
+    from tf2_gnn_tpu_torch import workloads
+
+    batch, _, _ = workloads.build_ppi_batch(0, device=device)
+    plan = batch.pair_stream_typed
+    gen = torch.Generator(device=device).manual_seed(56)
+    tables = torch.randn((plan.out_rows, 256), generator=gen, device=device)
+    cot = torch.randn((plan.out_rows, 256), generator=gen, device=device)
+    _check_typed_forms(plan, tables, cot)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("stream_dtype", [torch.float32, torch.bfloat16])
+def test_per_type_op_matches_plain_on_card(device, normalize, stream_dtype):
+    """The per-type autograd op with spilled pairs (its overflow term and
+    its transpose): output and table gradient against the op run through
+    the plain version."""
+    rng = np.random.RandomState(10)
+    v, num_types = 384, 3
+    plans = []
+    for _ in range(num_types):
+        e = rng.randint(2 * v, 6 * v)
+        src, tgt = rng.randint(0, v, e), rng.randint(0, v, e)
+        plans.append(tps.build_pair_plans(
+            [src], [tgt], [e], v, chunk_budget_fwd=8, chunk_budget_bwd=8,
+            group_fwd=8, group_bwd=8,
+            overflow_budget=((e + 63) // 64) * 64).astuple())
+    plan = tps.stream_typed_plan(tuple(plans), v, v).to(device)
+    assert int((plan.ovf_tgt < plan.out_rows).sum()) > 0
+    gen = torch.Generator(device=device).manual_seed(11)
+    base = torch.randn((num_types * v, 72), generator=gen, device=device)
+    cot = torch.randn((num_types * v, 72), generator=gen, device=device)
+
+    def run():
+        t = base.clone().requires_grad_(True)
+        out = tps.pair_stream_typed(t, plan, normalize, stream_dtype)
+        (out * cot).sum().backward()
+        return out.detach(), t.grad
+
+    before = tps.LAUNCHES["pair_stream"]
+    out, grad = run()
+    assert tps.LAUNCHES["pair_stream"] == before + 2
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tps, "pair_spmm_stream",
+                   plain_version(tps.pair_spmm_stream_plain))
+        out_p, grad_p = run()
+    torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grad, grad_p, rtol=1e-5, atol=1e-5)
 
 
 def _sparse_plan(seed, v=384):

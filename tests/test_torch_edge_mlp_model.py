@@ -302,11 +302,18 @@ def test_unported_forms_raise():
     _, merged_batch, _ = small_workload(seed=5, merged=True)
     _, targets_batch, _ = small_workload(seed=5, merged=True,
                                          merge_targets=True)
-    for hidden_layers in (0, 2):
-        with pytest.raises(NotImplementedError, match="one hidden layer"):
-            NodeMulticlassTask.from_params(
-                dict(params, gnn_num_edge_MLP_hidden_layers=hidden_layers),
-                input_dim=FEATURES, num_edge_types=3, device="cpu")
+    with pytest.raises(NotImplementedError, match="one hidden layer"):
+        NodeMulticlassTask.from_params(
+            dict(params, gnn_num_edge_MLP_hidden_layers=2),
+            input_dim=FEATURES, num_edge_types=3, device="cpu")
+    # The 0-hidden form reads per-type plans; over a merged-target plan it
+    # would need the per-type aggregates of pair_typed_gather_scatter (B3).
+    zero_hidden = NodeMulticlassTask.from_params(
+        dict(params, gnn_num_edge_MLP_hidden_layers=0), input_dim=FEATURES,
+        num_edge_types=3, device="cpu", num_labels=NUM_LABELS)
+    with pytest.raises(NotImplementedError,
+                       match="pair_typed_gather_scatter, over B3"):
+        zero_hidden(targets_batch, False)
     model = NodeMulticlassTask.from_params(
         params, input_dim=FEATURES, num_edge_types=3, device="cpu",
         num_labels=NUM_LABELS)

@@ -79,7 +79,13 @@ def test_port_has_its_own_modules():
         "models/qm9_regression_task.py",
         "models/graph_binary_classification_task.py",
         "harness/default_hypers/QM9_RGCN.json", "ops/probes.py",
-        "csrc/dyngather.cu",
+        "csrc/dyngather.cu", "layers/message_passing/ggnn.py",
+        "layers/message_passing/rgin.py",
+        "layers/message_passing/gnn_film.py",
+        "harness/default_hypers/PPI_GGNN.json",
+        "harness/default_hypers/PPI_RGIN.json",
+        "harness/default_hypers/PPI_GNN_Edge_MLP.json",
+        "harness/default_hypers/PPI_GNN_FiLM.json",
     ]
     missing = [p for p in expected if not (PACKAGE / p).is_file()]
     assert not missing

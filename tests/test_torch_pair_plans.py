@@ -39,11 +39,12 @@ def test_workload_copy_is_array_identical(bench_batches):
     assert edges == ref_edges == 211200
     assert_same_arrays(
         [batch.node_features, batch.node_to_graph, batch.num_edges,
-         *batch.edge_sources, *batch.edge_targets,
+         *batch.edge_sources, *batch.edge_targets, batch.in_degrees,
          labels["node_labels"]],
         [ref_batch.node_features, ref_batch.node_to_graph,
          ref_batch.num_edges, *ref_batch.edge_sources,
-         *ref_batch.edge_targets, ref_labels["node_labels"]])
+         *ref_batch.edge_targets, ref_batch.in_degrees,
+         ref_labels["node_labels"]])
     assert batch.num_nodes == int(ref_batch.num_nodes)
     assert batch.num_graphs == int(ref_batch.num_graphs)
     assert batch.num_graphs_padded == ref_batch.num_graphs_padded

@@ -31,7 +31,8 @@ def batches():
 def test_batch_arrays_are_the_bench_batch(batches):
     (jbatch, jlabels, jmols), (tbatch, tlabels, tmols) = batches
     assert tmols == jmols == 909
-    for name in ("node_features", "node_to_graph", "num_edges"):
+    for name in ("node_features", "node_to_graph", "num_edges",
+                 "in_degrees"):
         np.testing.assert_array_equal(getattr(tbatch, name),
                                       np.asarray(getattr(jbatch, name)),
                                       err_msg=name)

@@ -197,7 +197,8 @@ def test_batch_without_pair_plans_raises():
 
 @pytest.mark.parametrize("override", [
     {"gnn_message_activation_before_aggregation": True},
-    {"gnn_use_target_state_as_input": True},
+    {"gnn_use_target_state_as_input": True,
+     "gnn_num_edge_MLP_hidden_layers": 2},
     {"gnn_aggregation_function": "mean"},
     {"gnn_use_remat": True},
 ])

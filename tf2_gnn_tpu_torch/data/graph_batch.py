@@ -9,17 +9,21 @@ The padding contract is the JAX package's, unchanged:
 * graphs padded to ``num_graphs_padded`` segments; pad nodes map to the
   last graph slot.
 
-``pad_batch_arrays`` and the label pads are the same numpy code. The
-``GraphBatch`` here is a plain dataclass holding only the fields the RGCN,
-RGAT and GNN_Edge_MLP paths and the node- and graph-level task heads
-read; the SPMD and halo fields are not ported yet. ``.to(device)`` moves every array field to a
-device and builds, once per batch, the device forms of the merged pair plan
-(``pair_merged``) and the scatter plan (``scatter_merged``). The per-type
-plans have two device forms, each read by other models: the concatenated
-streamed plan (``pair_stream_joint``, RGCN and GNN_Edge_MLP) and the plans
-one by one (``pair_typed``, RGAT). Each is built and moved at its first
-read and kept with the batch, so a batch moves only the form its model
-reads.
+``pad_batch_arrays`` and the label pads are the same numpy code, and
+``pad_batch_arrays`` fills the per-type in-degrees (``host_in_degrees``).
+The ``GraphBatch`` here is a plain dataclass holding only the fields the
+message-passing flavours and the node- and graph-level task heads read;
+the SPMD and halo fields are not ported yet. ``.to(device)`` moves every
+array field to a device and builds, once per batch, the device forms of
+the merged pair plan (``pair_merged``) and the scatter plan
+(``scatter_merged``). The per-type plans have three device forms, each
+read by other models: the concatenated streamed plan for the joint sum
+over types (``pair_stream_joint``: RGCN, GGNN, RGIN and the source-only
+GNN_Edge_MLP), the same concatenation for per-type aggregates
+(``pair_stream_typed``: GNN-FiLM and the 0-hidden target-state
+GNN_Edge_MLP) and the plans one by one (``pair_typed``, RGAT). Each is
+built and moved at its first read and kept with the batch, so a batch
+moves only the form its model reads.
 """
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -27,7 +31,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.pair_spmm import MergedPlan, StreamJointPlan, stream_joint_plan
+from ..ops.pair_spmm import (
+    MergedPlan,
+    StreamJointPlan,
+    StreamTypedPlan,
+    stream_joint_plan,
+    stream_typed_plan,
+)
 from ..ops.sorted_spmm import ScatterPlan
 from ..utils.device import as_tensor, resolve_device
 
@@ -57,10 +67,16 @@ class GraphBatch:
     * ``node_to_graph``: int32 [V] (pad nodes -> G - 1)
     * ``num_nodes`` / ``num_graphs``: python ints (real counts)
     * ``num_edges``: int32 [L] (real counts per type)
+    * ``in_degrees``: f32 [L, V] per-type in-degree over the padded edge
+      lists (``host_in_degrees``; the pad row counts the padded edges),
+      or None
     * ``pair_plans_typed``: one 13-array ``PairPlans.astuple()`` per edge
       type (ops/pair_spmm.py), or None; host (numpy) plan data
     * ``pair_stream_joint`` (property): the per-type plans concatenated
-      into the streamed layout on the batch's device, or None
+      into the streamed layout on the batch's device, for the joint sum
+      over types, or None
+    * ``pair_stream_typed`` (property): the same concatenation for the
+      per-type aggregates (``out_rows`` L * V), or None
     * ``pair_typed`` (property): the per-type plans as they are, one
       ``MergedPlan`` per type (``out_rows`` V, sources in that type's
       [V]-row slab) on the batch's device, as RGAT's per-type attention
@@ -88,6 +104,7 @@ class GraphBatch:
     num_edges: object
     num_graphs: int
     num_graphs_padded: int
+    in_degrees: object = None
     pair_plans_typed: Optional[Tuple[Tuple[object, ...], ...]] = None
     pair_plans: Optional[Tuple[object, ...]] = None
     pair_targets_merged: bool = False
@@ -138,6 +155,12 @@ class GraphBatch:
             self.pair_plans_typed, v, v).to(dev))
 
     @property
+    def pair_stream_typed(self) -> Optional[StreamTypedPlan]:
+        v = self.num_nodes_padded
+        return self._typed_form("stream_typed", lambda dev: stream_typed_plan(
+            self.pair_plans_typed, v, v).to(dev))
+
+    @property
     def pair_typed(self) -> Optional[Tuple[MergedPlan, ...]]:
         v = self.num_nodes_padded
         return self._typed_form("typed", lambda dev: tuple(
@@ -172,6 +195,8 @@ class GraphBatch:
             edge_targets=tuple(as_tensor(t, dev) for t in self.edge_targets),
             node_to_graph=as_tensor(self.node_to_graph, dev),
             num_edges=as_tensor(self.num_edges, dev),
+            in_degrees=(None if self.in_degrees is None
+                        else as_tensor(self.in_degrees, dev)),
             pair_merged=None if merged is None else merged.to(dev),
             scatter_merged=None if scatter is None else scatter.to(dev),
         )
@@ -239,6 +264,7 @@ def pad_batch_arrays(
         num_edges=np.asarray(real_edge_counts, dtype=np.int32),
         num_graphs=int(num_graphs),
         num_graphs_padded=config.num_graphs,
+        in_degrees=host_in_degrees(targets, v_pad),
     )
 
 

@@ -14,8 +14,12 @@ as follows:
 * ``<path>/edge_attention_parameters`` (RGAT's raw [L, K, 2 * head_dim]
   parameter) -> ``<path>.edge_attention_parameters`` as is;
 * ``<path>/gru_cell/{kernel, recurrent_kernel, input_bias,
-  recurrent_bias}`` (the global exchange's GRU cell, ``ops/gru.py``, which
-  keeps flax's packed ``[in, 3H]`` layout) -> the same names as is.
+  recurrent_bias}`` (the GRU cell of the global exchange and of each GGNN
+  layer, ``ops/gru.py``, which keeps flax's packed ``[in, 3H]`` layout)
+  -> the same names as is.
+
+RGIN's ``aggregation_mlp/{hidden_i, out}`` are Dense kernels and GNN-FiLM's
+``film_mlp_layer_i`` TypedLinear ones, so the rules above cover them.
 
 A leaf of another name, or one the model does not hold, raises; so does a
 model parameter that the tree leaves unset.

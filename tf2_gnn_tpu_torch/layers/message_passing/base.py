@@ -39,12 +39,32 @@ def get_message_passing_class(name: str):
     return cls
 
 
+def calculate_type_to_num_incoming_edges(batch: GraphBatch) -> torch.Tensor:
+    """f32 [L, V]: the per-type in-degree of every node (reference
+    base.py:60-79). Padded edges target the pad row, so the real rows are
+    exact without a mask. A batch from ``pad_batch_arrays`` carries it
+    (``in_degrees``, counted on the host); otherwise the edge targets are
+    counted on their device, targets outside [0, V) dropped."""
+    if batch.in_degrees is not None:
+        return batch.in_degrees
+    v = batch.num_nodes_padded
+    return torch.stack([
+        torch.bincount(tgt.long()[(tgt >= 0) & (tgt < v)],
+                       minlength=v).to(torch.float32)
+        for tgt in batch.edge_targets])
+
+
 class MessagePassing(nn.Module):
     """Template for one message-passing step: ``[V, D] -> [V, hidden_dim]``.
 
     Subclasses implement ``_fused_sum_aggregate`` (the [V, H] sum-aggregated
-    messages) and may override ``_post_aggregate``.
+    messages) and may override ``_post_aggregate``; one whose update never
+    applies the message activation (GGNN's GRU, RGIN's aggregation MLP)
+    sets ``_apply_message_activation`` False, and then the activation's
+    place is no reason to leave the fused path (reference base.py:140-142).
     """
+
+    _apply_message_activation = True
 
     def __init__(self, num_edge_types: int, input_dim: int,
                  hidden_dim: int = 7,
@@ -58,7 +78,8 @@ class MessagePassing(nn.Module):
             raise NotImplementedError(
                 f"aggregation_function={aggregation_function!r}: only 'sum' "
                 "(the pair kernels' aggregation) is ported.")
-        if message_activation_before_aggregation:
+        if (message_activation_before_aggregation
+                and self._apply_message_activation):
             raise NotImplementedError(
                 "message_activation_before_aggregation=True needs the "
                 "per-edge segment path, which is not ported.")

@@ -12,9 +12,11 @@ C++ planner (``native/src/graphpack.cc``) produces the same layout faster.
 Device half: ``pair_stream_joint`` is a ``torch.autograd.Function`` whose
 forward runs the joint SpMM (K2, ``pair_spmm_stream_joint``) and whose
 backward runs the stream SpMM (K1, ``pair_spmm_stream``) over the backward
-plan. ``pair_spmm`` (B3) is the same SpMM over one direction of a merged
-plan (``MergedPlan``); RGAT's head-major sums run it once per head. All
-three launch one hand-written CUDA kernel (``csrc/pair_stream.cu``'s
+plan. ``pair_stream_typed`` gives the per-type aggregates instead, with
+K1 in both directions (``StreamTypedPlan``: global forward output blocks
+and the backward plan's real types). ``pair_spmm`` (B3) is the same SpMM
+over one direction of a merged plan (``MergedPlan``); RGAT's head-major
+sums run it once per head. All three launch one hand-written CUDA kernel (``csrc/pair_stream.cu``'s
 ``row_owner_kernel``), which reads the plan direction's compact form
 (``slot_rows``: its valid slots as a CSR over output rows); each plan
 object builds it at first read and keeps it, so it is built once per
@@ -466,8 +468,19 @@ def concat_typed_plans(plans_typed, v_src: int, v_out: int,
             np.concatenate(ovf_srcs), np.concatenate(ovf_tgts))
 
 
+class _DevicePlan:
+    """A frozen dataclass of plan arrays (the fields typed ``object``)
+    and sizes, which ``to`` moves."""
+
+    def to(self, device):
+        """Every array field as a tensor on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: as_tensor(getattr(self, f.name), device)
+            for f in dataclasses.fields(self) if f.type is object})
+
+
 @dataclasses.dataclass(frozen=True)
-class StreamJointPlan:
+class StreamJointPlan(_DevicePlan):
     """The operands of ``pair_stream_joint`` for one batch: the
     concatenated per-type plans with LOCAL forward output blocks and LOCAL
     overflow targets (sentinel ``v_out``), and the all-zero backward types
@@ -496,12 +509,6 @@ class StreamJointPlan:
     num_types: int
     _rows: Dict[object, "SlotRows"] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
-
-    def to(self, device) -> "StreamJointPlan":
-        """Every array field as a tensor on ``device``."""
-        return dataclasses.replace(self, **{
-            f.name: as_tensor(getattr(self, f.name), device)
-            for f in dataclasses.fields(self) if f.type is object})
 
     @property
     def fwd_rows(self) -> "SlotRows":
@@ -546,7 +553,79 @@ def stream_joint_plan(plans_typed, v_src: int,
 
 
 @dataclasses.dataclass(frozen=True)
-class MergedPlan:
+class StreamTypedPlan(_DevicePlan):
+    """The operands of ``pair_stream_typed`` for one batch: the
+    concatenated per-type plans as ``concat_typed_plans`` gives them, with
+    GLOBAL forward output blocks (targets in the stacked [L * v_out] rows),
+    the backward plan's real types (each type's groups read its own
+    [v_out] slab of the [L * v_out] cotangent) and global overflow ids
+    (sentinel target ``L * v_out``). Built once per batch on the host
+    (``stream_typed_plan``) and moved with ``.to(device)``; each
+    direction's compact form (``fwd_rows``, ``bwd_rows``) is built at its
+    first read and kept (a moved plan starts without them)."""
+
+    scale_fwd: object
+    scale_bwd: object
+    ovf_scale: object
+    rel_src_f: object
+    rel_tgt_f: object
+    src_blk_f: object
+    grp_tgt_f: object
+    grp_type_f: object
+    rel_src_b: object
+    rel_tgt_b: object
+    src_blk_b: object
+    grp_tgt_b: object
+    grp_type_b: object
+    ovf_src: object
+    ovf_tgt: object
+    v_src: int
+    v_out: int
+    num_types: int
+    _rows: Dict[object, "SlotRows"] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    @property
+    def out_rows(self) -> int:
+        return self.num_types * self.v_out
+
+    @property
+    def fwd_rows(self) -> "SlotRows":
+        """The forward direction's compact form, which K1 reads in the
+        forward: sources in the stacked [L * v_src] table, targets in the
+        stacked [L * v_out] output."""
+        if "fwd" not in self._rows:
+            self._rows["fwd"] = slot_rows(
+                self.rel_src_f, self.rel_tgt_f, self.src_blk_f,
+                self.grp_tgt_f, self.num_types * self.v_src, self.out_rows,
+                self.grp_type_f, self.v_src)
+        return self._rows["fwd"]
+
+    @property
+    def bwd_rows(self) -> "SlotRows":
+        """The backward direction's compact form, which K1 reads in the
+        backward: sources in the [L * v_out] cotangent (type l's groups in
+        its slab), targets in the stacked [L * v_src] table rows."""
+        if "bwd" not in self._rows:
+            self._rows["bwd"] = slot_rows(
+                self.rel_src_b, self.rel_tgt_b, self.src_blk_b,
+                self.grp_tgt_b, self.out_rows, self.num_types * self.v_src,
+                self.grp_type_b, self.v_out)
+        return self._rows["bwd"]
+
+
+def stream_typed_plan(plans_typed, v_src: int,
+                      v_out: int) -> StreamTypedPlan:
+    """Concatenate per-type plans (``concat_typed_plans``, with the 1/deg
+    scales; ``pair_stream_typed`` substitutes unit scales) and keep them
+    global, as the reference's ``pair_stream_from_typed`` reads them."""
+    return StreamTypedPlan(
+        *concat_typed_plans(plans_typed, v_src, v_out, True), v_src, v_out,
+        len(plans_typed))
+
+
+@dataclasses.dataclass(frozen=True)
+class MergedPlan(_DevicePlan):
     """A merged plan over all edge types (``PairPlans.astuple()``, 13
     arrays: sources in the stacked ``l * src_space + u`` row space, targets
     local, or merged ``l * V + t`` when the plan was built with
@@ -610,12 +689,6 @@ class MergedPlan:
             self._rows[key] = ts_rows(self.bwd_rows(out_rows, table_rows),
                                       *self.bwd, vs)
         return self._rows[key]
-
-    def to(self, device) -> "MergedPlan":
-        """Every array as a tensor on ``device``."""
-        return dataclasses.replace(self, **{
-            f.name: as_tensor(getattr(self, f.name), device)
-            for f in dataclasses.fields(self) if f.type is object})
 
 
 def pair_unit_scales(plan: MergedPlan, out_rows: int):
@@ -1047,8 +1120,9 @@ def pair_spmm_stream(tables, scale, rel_src, rel_tgt, src_blk, grp_tgt_g,
     """K1, the streamed per-type kernel: f32 [out_rows, H] with GLOBAL
     output blocks ``grp_tgt_g``; ``tables`` [L*v, H] f32 or bf16. On the
     card it reads only the plan's ``compact`` form
-    (``StreamJointPlan.bwd_rows``) and the scales; on the CPU the plain
-    version reads the plan arrays."""
+    (``StreamJointPlan.bwd_rows``, ``StreamTypedPlan.fwd_rows`` or
+    ``bwd_rows``) and the scales; on the CPU the plain version reads the
+    plan arrays."""
     if _on_cpu("pair_stream", tables):
         return pair_spmm_stream_plain(tables, scale, rel_src, rel_tgt,
                                       src_blk, grp_tgt_g, grp_type, v,
@@ -1099,6 +1173,34 @@ def pair_spmm(table, scale, rel_src, rel_tgt, src_blk, grp_tgt,
     return out
 
 
+def _overflow_sums(tables, ovf_src, ovf_tgt, ovf_scale, out_rows: int):
+    """The overflow edges' f32 [out_rows, H] sums in plain torch
+    (sentinel targets ``out_rows`` land in a dropped row)."""
+    msgs = tables[ovf_src.long()].to(torch.float32) * ovf_scale[:, None]
+    ext = torch.zeros((out_rows + 1, tables.shape[1]), dtype=torch.float32,
+                      device=tables.device)
+    ext.index_add_(0, ovf_tgt.long(), msgs)
+    return ext[:out_rows]
+
+
+def _add_overflow_grads(d_tables, g, ovf_src, ovf_tgt, ovf_scale) -> None:
+    """The overflow edges' share of the table gradient, added in place:
+    each edge's (clipped) cotangent row, scaled, into its source row."""
+    g_rows = g[torch.clamp(ovf_tgt.long(), max=g.shape[0] - 1)]
+    d_tables.index_add_(0, ovf_src.long(),
+                        g_rows.to(torch.float32) * ovf_scale[:, None])
+
+
+def _stream_scales(plan, normalize: bool, ovf_tgt, out_rows: int):
+    """(scale_fwd, scale_bwd, ovf_scale): the plan's 1/deg scales, or
+    unit scales with the overflow slots' validity mask (sentinel slots are
+    skipped either way)."""
+    if normalize:
+        return plan.scale_fwd, plan.scale_bwd, plan.ovf_scale
+    return (torch.ones_like(plan.scale_fwd), torch.ones_like(plan.scale_bwd),
+            (ovf_tgt < out_rows).to(torch.float32))
+
+
 class PairStreamJoint(torch.autograd.Function):
     """JOINT sum over types, f32 [Vo, H]: ``out[t] = sum over ALL edges
     (u -> t, type l) of scale_e * tables[l*Vs + u]``.
@@ -1128,12 +1230,8 @@ class PairStreamJoint(torch.autograd.Function):
             plan.src_blk_f, plan.grp_tgt_fl, plan.grp_type_f, plan.v_src,
             plan.v_out, compact=plan.fwd_rows)
         if plan.ovf_src.shape[0]:
-            msgs = tables[plan.ovf_src.long()].to(torch.float32)
-            msgs = msgs * ovf_scale[:, None]
-            ext = torch.zeros((plan.v_out + 1, out.shape[1]),
-                              dtype=torch.float32, device=out.device)
-            ext.index_add_(0, plan.ovf_tgt_l.long(), msgs)
-            out = out + ext[:plan.v_out]
+            out = out + _overflow_sums(tables, plan.ovf_src, plan.ovf_tgt_l,
+                                       ovf_scale, plan.v_out)
         ctx.plan = plan
         ctx.stream_dtype = stream_dtype
         ctx.save_for_backward(scale_bwd, ovf_scale)
@@ -1152,9 +1250,8 @@ class PairStreamJoint(torch.autograd.Function):
             plan.src_blk_b, plan.grp_tgt_b, plan.type_b_zeros, plan.v_out,
             rows, compact=plan.bwd_rows)
         if plan.ovf_src.shape[0]:
-            g_rows = g[torch.clamp(plan.ovf_tgt_l.long(), max=plan.v_out - 1)]
-            g_rows = g_rows.to(torch.float32) * ovf_scale[:, None]
-            d_tables.index_add_(0, plan.ovf_src.long(), g_rows)
+            _add_overflow_grads(d_tables, g, plan.ovf_src, plan.ovf_tgt_l,
+                                ovf_scale)
         return d_tables, None, None, None, None, None
 
 
@@ -1164,14 +1261,10 @@ def pair_stream_joint(tables_flat, plan: StreamJointPlan, normalize: bool,
     (``normalize``) or unit scales (sentinel slots are skipped either way;
     overflow slots keep their validity mask). ``stream_dtype`` (default:
     the tables' dtype) is the dtype the kernels gather."""
-    if normalize:
-        sf, sb, so = plan.scale_fwd, plan.scale_bwd, plan.ovf_scale
-    else:
-        sf = torch.ones_like(plan.scale_fwd)
-        sb = torch.ones_like(plan.scale_bwd)
-        so = (plan.ovf_tgt_l < plan.v_out).to(torch.float32)
-    return PairStreamJoint.apply(tables_flat, plan, sf, sb, so,
-                                 stream_dtype or tables_flat.dtype)
+    return PairStreamJoint.apply(
+        tables_flat, plan,
+        *_stream_scales(plan, normalize, plan.ovf_tgt_l, plan.v_out),
+        stream_dtype or tables_flat.dtype)
 
 
 def pair_stream_joint_from_typed(tables_flat, plans_typed, v_out: int,
@@ -1186,3 +1279,61 @@ def pair_stream_joint_from_typed(tables_flat, plans_typed, v_out: int,
     plan = stream_joint_plan(plans_typed, v_src, v_out)
     return pair_stream_joint(tables_flat, plan.to(tables_flat.device),
                              normalize, stream_dtype)
+
+
+class PairStreamTyped(torch.autograd.Function):
+    """PER-TYPE aggregates, f32 [L*Vo, H]: ``out[l*Vo + t] = sum over type-l
+    edges (u -> t) of scale_e * tables[l*Vs + u]`` (the reference's
+    ``pair_stream_gather_scatter``).
+
+    Forward: the tables cast to ``stream_dtype``, the stream kernel K1
+    over the forward plan's compact form (``plan.fwd_rows``, global output
+    blocks), plus the overflow edges in plain torch. Backward: K1 again
+    over the backward plan's compact form (``plan.bwd_rows``), whose
+    entries read their own type's slab of the [L*Vo] cotangent, streamed at
+    the stream dtype as in the reference's ``_psgs_bwd``; the table
+    gradient leaves in f32 (``PairStreamJoint``'s reason).
+    """
+
+    @staticmethod
+    def forward(ctx, tables_flat, plan: StreamTypedPlan, scale_fwd,
+                scale_bwd, ovf_scale, stream_dtype):
+        tables = tables_flat.to(stream_dtype).contiguous()
+        out = pair_spmm_stream(
+            tables, scale_fwd, plan.rel_src_f, plan.rel_tgt_f,
+            plan.src_blk_f, plan.grp_tgt_f, plan.grp_type_f, plan.v_src,
+            plan.out_rows, compact=plan.fwd_rows)
+        if plan.ovf_src.shape[0]:
+            out = out + _overflow_sums(tables, plan.ovf_src, plan.ovf_tgt,
+                                       ovf_scale, plan.out_rows)
+        ctx.plan = plan
+        ctx.stream_dtype = stream_dtype
+        ctx.save_for_backward(scale_bwd, ovf_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        plan: StreamTypedPlan = ctx.plan
+        scale_bwd, ovf_scale = ctx.saved_tensors
+        g_stream = g.to(ctx.stream_dtype).contiguous()
+        d_tables = pair_spmm_stream(
+            g_stream, scale_bwd, plan.rel_src_b, plan.rel_tgt_b,
+            plan.src_blk_b, plan.grp_tgt_b, plan.grp_type_b, plan.v_out,
+            plan.num_types * plan.v_src, compact=plan.bwd_rows)
+        if plan.ovf_src.shape[0]:
+            _add_overflow_grads(d_tables, g, plan.ovf_src, plan.ovf_tgt,
+                                ovf_scale)
+        return d_tables, None, None, None, None, None
+
+
+def pair_stream_typed(tables_flat, plan: StreamTypedPlan, normalize: bool,
+                      stream_dtype: torch.dtype = None) -> torch.Tensor:
+    """Apply the per-type streamed op with the plan's 1/deg scales
+    (``normalize``) or unit scales (overflow slots keep their validity
+    mask). ``stream_dtype`` (default: the tables' dtype) is the dtype the
+    kernels gather."""
+    return PairStreamTyped.apply(
+        tables_flat, plan,
+        *_stream_scales(plan, normalize, plan.ovf_tgt, plan.out_rows),
+        stream_dtype or tables_flat.dtype)
+
