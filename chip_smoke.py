@@ -88,8 +88,8 @@ Phases, each of which fails the run by raising:
    c. timings as in 2c; the library calls are ``torch.sparse.mm`` of the
       plan's [rows, slots] CSR (B12's stream and typed forms, B13), of the
       [rows, forward slots] CSR (B12's gathered form) and one
-      ``scatter_reduce_`` (B15); B14 has none. B12's forms, B14 and B15
-      also get their device times.
+      ``scatter_reduce_`` (B15); B14 has none. Every form (B12's three,
+      B13's two, B14 and B15) also gets its device time.
 6. RGAT on the per-type-plan PPI batch of phase 2 (one launch of each
    attention kernel per edge type), the same three steps:
    a. the max kernel (B11) over the forward compact form against its
@@ -159,6 +159,37 @@ Phases, each of which fails the run by raising:
       ``torch.sparse.mm`` of the form's f32 CSR, with device times; logged,
       K1 keeps its phase 2 entry), each model's train step and eval
       forward.
+
+10. The edge-MLP family on the other plan kinds, and the shipped
+    GraphRegression_GNN_Edge_MLP (``ROUTE_MODELS``), on the batches of
+    phases 3, 4, 5 and 7 (built once more):
+   a. B3 over the merged plan's two directions in the new call forms of
+      ``pair_typed_gather_scatter`` (phase 3's plan: bf16 [24192, 320]
+      tables into the [8064] targets with the 1/deg scales, and a bf16
+      [8064, 320] cotangent into the [24192] table rows; phase 4's
+      merged-target plan: f32 [24192, 256] both ways, unit scales) and
+      B12's three forms over the scatter plan at the routes' widths (the
+      stream form bf16 [245760, 320] and f32 [245760, 256]; the gathered
+      form, the same two; the typed form bf16 320, f32 256 and f32 512),
+      each over its compact form against its plain version, two launches
+      bit-equal;
+   b. seven routes, each from its shipped or benchmark configuration at
+      full width with random weights from the seed: PPI_RGCN on the
+      merged plan (``pair_typed_gather_scatter``: B3 twice per layer and
+      step), PPI_GNN_Edge_MLP and PPI_GNN_FiLM on the merged-target plan
+      (the factorised forms: B3 twice per layer and step), the
+      reference-default GNN_Edge_MLP (``edge_mlp_default_params()``,
+      one hidden layer, bf16: B12 five times per layer and step, three
+      type-masked stream sums forward), PPI_GNN_Edge_MLP (B12 three
+      times) and the source-only PPI_GNN_FiLM (B12 three times) on the
+      scatter plan, and GraphRegression_GNN_Edge_MLP on the QM9 batch
+      (12 layers, hidden 64: K1 twice per layer and step): the eval
+      forward against the plain versions with its launch counts, then 5
+      train steps with the launch counts read (no other kernel), the
+      train step, eval forward and peak memory;
+   c. timings of 10a's forms as in 2c (their library call
+      ``torch.sparse.mm`` of the form's CSR, with device times; logged,
+      B3 and B12 keep their entries), and the phase's wall time.
 
 A line before those below gives the script's wall time. The line before
 the last two is the JSON ``kernels`` line (all eighteen kernels); then
@@ -1566,7 +1597,7 @@ def sorted_path(device, argv):
             form, "tf2_gnn_tpu_torch/csrc/" + (
                 "pair_stream.cu" if row_owner else "sorted_scatter.cu"),
             replaces[name], launches[name], errs[form], kernel_fn, plain_fn,
-            lib_fn, lib32_fn, *bounds[form], detail, device=row_owner)
+            lib_fn, lib32_fn, *bounds[form], detail, device=True)
         # The main call form of each kernel is its entry on the kernels
         # line; the others are logged.
         (kernels if form == name else other_forms).append(entry)
@@ -2114,6 +2145,330 @@ def flavours_path(device, argv):
     return [], typed_form_entries(checked, per_form)
 
 
+# Phase 10's routes: (name, the params, the batch kind, launches a layer
+# and train step of each counted wrapper, launches a layer of the eval
+# forward, the eval check's tolerances, launches a layer and train step of
+# each of 10a's call forms). The tolerances are those of the phases that
+# run the same models (2, 4 and 9); the f32-stream routes differ from their
+# plain versions only by the order of f32 sums. On the CPU, at the cut
+# batches of tests/test_torch_chip_smoke.py, stand-ins for B3, B12 and K1
+# that sum the same slots in a random order move the f32 routes' outputs
+# by at most 8e-6 of the largest |output| (4.1e-5 of 5.1) and PPI_RGCN's
+# bf16 logits by 1.1e-3; one edge type's scales doubled (B3, K1) or one
+# chunk's slots doubled (B12) fail every route's check.
+ROUTE_MODELS = (
+    ("PPI_RGCN (merged plan)", "PPI_RGCN.json", "pairs",
+     {"pair_spmm": 2}, {"pair_spmm": 1}, (MODEL_ATOL, 0.0, LOSS_RTOL),
+     {"pair_spmm pairs forward": 1, "pair_spmm pairs backward": 1}),
+    ("PPI_GNN_Edge_MLP (merged-target plan)", "PPI_GNN_Edge_MLP.json",
+     "merged_targets", {"pair_spmm": 2}, {"pair_spmm": 1}, F32_STREAM_TOLS,
+     {"pair_spmm merged-target forward": 1,
+      "pair_spmm merged-target backward": 1}),
+    ("PPI_GNN_FiLM (merged-target plan)", "PPI_GNN_FiLM.json",
+     "merged_targets", {"pair_spmm": 2}, {"pair_spmm": 1}, F32_STREAM_TOLS,
+     {"pair_spmm merged-target forward": 1,
+      "pair_spmm merged-target backward": 1}),
+    ("GNN_Edge_MLP reference default (scatter plans)",
+     "edge_mlp_default_params()", "scatter", {"sorted_segment_sum": 5},
+     {"sorted_segment_sum": 3}, (MODEL_ATOL, EDGE_MLP_LOGIT_RTOL, LOSS_RTOL),
+     {"sorted_segment_sum stream bf16 320": 3,
+      "sorted_segment_sum gathered bf16 320": 1,
+      "sorted_segment_sum typed bf16 320": 1}),
+    ("PPI_GNN_Edge_MLP (scatter plans)", "PPI_GNN_Edge_MLP.json", "scatter",
+     {"sorted_segment_sum": 3}, {"sorted_segment_sum": 1}, F32_STREAM_TOLS,
+     {"sorted_segment_sum stream f32 256": 1,
+      "sorted_segment_sum gathered f32 256": 1,
+      "sorted_segment_sum typed f32 256": 1}),
+    ("PPI_GNN_FiLM source-only (scatter plans)",
+     "PPI_GNN_FiLM.json, source-only", "scatter",
+     {"sorted_segment_sum": 3}, {"sorted_segment_sum": 1}, F32_STREAM_TOLS,
+     {"sorted_segment_sum stream f32 256": 1,
+      "sorted_segment_sum gathered f32 256": 1,
+      "sorted_segment_sum typed f32 512": 1}),
+    ("GraphRegression_GNN_Edge_MLP (QM9 per-type plans)",
+     "GraphRegression_GNN_Edge_MLP.json", "qm9", {"pair_stream": 2},
+     {"pair_stream": 1}, F32_STREAM_TOLS, {}),
+)
+
+
+def route_params(source: str):
+    """The hyperparameters of a phase 10 route, by their source."""
+    from tf2_gnn_tpu_torch import workloads
+
+    if source == "edge_mlp_default_params()":
+        return workloads.edge_mlp_default_params()
+    if source == "GraphRegression_GNN_Edge_MLP.json":
+        return workloads.graph_regression_edge_mlp_params()
+    if source == "PPI_GNN_FiLM.json, source-only":
+        return dict(workloads.shipped_params("PPI_GNN_FiLM.json",
+                                             "gnn_film"),
+                    gnn_use_target_state_as_input=False)
+    style = {"PPI_RGCN.json": "rgcn", "PPI_GNN_Edge_MLP.json":
+             "gnn_edge_mlp", "PPI_GNN_FiLM.json": "gnn_film"}[source]
+    return workloads.shipped_params(source, style)
+
+
+def route_batch(kind: str, device):
+    """(batch, labels, real edge count) of a phase 10 route's batch kind:
+    phase 3's merged plan (``"pairs"``), phase 4's merged-target plan,
+    phase 5's scatter plan, or phase 7's QM9 batch."""
+    from tf2_gnn_tpu_torch.workloads import build_ppi_batch, build_qm9_batch
+
+    if kind == "qm9":
+        batch, labels, _ = build_qm9_batch(SEED, device=device)
+        return batch, labels, int(batch.num_edges.sum())
+    kwargs = {"pairs": dict(merged=True),
+              "merged_targets": dict(merged=True, merge_targets=True),
+              "scatter": dict(scatter=True)}[kind]
+    return build_ppi_batch(SEED, device=device, **kwargs)
+
+
+def route_model(params, batch, device, name: str):
+    """The route's model on the card, random weights from the seed: the
+    graph regression task on the QM9 batch, else node classification."""
+    from tf2_gnn_tpu_torch.models.graph_regression_task import (
+        GraphRegressionTask,
+    )
+    from tf2_gnn_tpu_torch.workloads import QM9_FEATURE_DIM
+
+    if "graph_aggregation_layers" not in params:
+        return model_from_params(params, device, batch.num_edge_types, name)
+    model = GraphRegressionTask.from_params(
+        params, input_dim=QM9_FEATURE_DIM,
+        num_edge_types=batch.num_edge_types, device=device, seed=SEED)
+    log(f"model {name}: {sum(p.numel() for p in model.parameters())} "
+        f"parameters, {params['gnn_num_layers']} layers, hidden "
+        f"{params['gnn_hidden_dim']}, edge stream {params['gnn_edge_dtype']}"
+        f", {params['optimizer']} (lr {params['learning_rate']}, clip by "
+        f"value {params['gradient_clip_value']})")
+    return model
+
+
+def compact_csr(compact, dtype):
+    """The [out_rows, table_rows] CSR of a compact form's entries (one a
+    stream row read, duplicates summed) in ``dtype``, B12's library
+    yardstick."""
+    import torch
+
+    dev = compact.row_ptr.device
+    rows = torch.repeat_interleave(
+        torch.arange(compact.out_rows, device=dev),
+        torch.diff(compact.row_ptr.long()))
+    ones = torch.ones(rows.numel(), device=dev)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows, compact.src_row.long()]), ones,
+        (compact.out_rows, compact.table_rows)).coalesce()
+    return torch.sparse_coo_tensor(
+        coo.indices(), coo.values().to(dtype),
+        coo.shape).coalesce().to_sparse_csr()
+
+
+def merged_scatter_forms(batches, device):
+    """Phase 10a: B3 over the merged plans' two directions (the
+    ``"pairs"`` plan in bf16 at H = 320 with its 1/deg scales, the
+    merged-target plan in f32 at H = 256 with unit scales) and B12's three
+    forms over the scatter plan at the routes' widths, each over its
+    compact form against its plain version, two launches bit-equal.
+    Returns {form: (kernel, plain version, library calls, bound, detail,
+    max abs err)}."""
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.ops import sorted_spmm as ss
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    dtype_names = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    forms = {}
+    for kind, h, dtype, normalize in (("pairs", 320, torch.bfloat16, True),
+                                      ("merged_targets", 256, torch.float32,
+                                       False)):
+        batch = batches[kind][0]
+        plan = batch.pair_merged
+        rows = batch.num_edge_types * batch.num_nodes_padded
+        out_rows = plan.out_rows
+        scales = ((plan.inv_fwd, plan.inv_bwd) if normalize
+                  else ps.pair_unit_scales(plan, out_rows)[:2])
+        label = {"pairs": "pairs", "merged_targets": "merged-target"}[kind]
+        for direction, table_rows, into, arrays, scale, compact in (
+                ("forward", rows, out_rows, plan.fwd, scales[0],
+                 plan.fwd_rows(out_rows, rows)),
+                ("backward", out_rows, rows, plan.bwd, scales[1],
+                 plan.bwd_rows(rows, out_rows))):
+            table = randn((table_rows, h), dtype)
+            a32, a16, rows_read, valid = slot_matrix(
+                *ps.slot_abs_ids(*arrays), scale, into, table_rows)
+            bf16 = dtype == torch.bfloat16
+            forms[f"pair_spmm {label} {direction}"] = (
+                lambda t=table, s=scale, a=arrays, n=into, c=compact:
+                ps.pair_spmm(t, s, *a, n, compact=c),
+                lambda t=table, s=scale, a=arrays, n=into:
+                ps.pair_spmm_plain(t, s, *a, n),
+                (lambda a=(a16 if bf16 else a32), t=table:
+                 torch.sparse.mm(a, t),
+                 (lambda a=a32, t=table.float(): torch.sparse.mm(a, t))
+                 if bf16 else None),
+                kernel_bound_ms(rows_read, h, table.element_size(), valid,
+                                into),
+                f"{dtype_names[dtype]} [{table_rows}, {h}] -> f32 [{into}, "
+                f"{h}], {valid} valid of {scale.numel()} slots, {rows_read} "
+                f"distinct rows read")
+
+    batch = batches["scatter"][0]
+    plan = batch.scatter_merged
+    v = batch.num_nodes_padded
+    rows = batch.num_edge_types * v
+    slots = plan.rel_tgt.numel()
+    r_typed = ss.BLOCK_NODES * batch.num_edge_types
+    calls = {
+        "stream": lambda g, c: (
+            lambda: ss.sorted_segment_sum(g, plan.rel_tgt, plan.tgt_blocks,
+                                          v, compact=c),
+            lambda: ss.sorted_segment_sum_plain(g, plan.rel_tgt,
+                                                plan.tgt_blocks, v)),
+        "gathered": lambda g, c: (
+            lambda: ss.sorted_segment_sum_gathered(
+                g, plan.bwd_to_fwd_idx, plan.bwd_sentinel, plan.rel_src,
+                plan.src_blocks, rows, compact=c),
+            lambda: ss.sorted_segment_sum_gathered_plain(
+                g, plan.bwd_to_fwd_idx, plan.bwd_sentinel, plan.rel_src,
+                plan.src_blocks, rows)),
+        "typed": lambda g, c: (
+            lambda: ss.sorted_segment_sum(g, plan.rel_typed, plan.tgt_blocks,
+                                          rows, block_rows=r_typed,
+                                          compact=c),
+            lambda: ss.sorted_segment_sum_plain(g, plan.rel_typed,
+                                                plan.tgt_blocks, rows,
+                                                block_rows=r_typed)),
+    }
+    compacts = {"stream": plan.sum_rows("fwd", v),
+                "gathered": plan.sum_rows("bwd_fused", rows),
+                "typed": plan.sum_rows("fwd_typed", rows)}
+    for form, dtype, h in (("stream", torch.bfloat16, 320),
+                           ("stream", torch.float32, 256),
+                           ("gathered", torch.bfloat16, 320),
+                           ("gathered", torch.float32, 256),
+                           ("typed", torch.bfloat16, 320),
+                           ("typed", torch.float32, 256),
+                           ("typed", torch.float32, 512)):
+        stream = randn((slots, h), dtype)
+        compact = compacts[form]
+        a32 = compact_csr(compact, torch.float32)
+        bf16 = dtype == torch.bfloat16
+        a16 = compact_csr(compact, torch.bfloat16) if bf16 else None
+        kernel_fn, plain_fn = calls[form](stream, compact)
+        forms[f"sorted_segment_sum {form} {dtype_names[dtype]} {h}"] = (
+            kernel_fn, plain_fn,
+            (lambda a=(a16 if bf16 else a32), t=stream: torch.sparse.mm(a, t),
+             (lambda a=a32, t=stream.float(): torch.sparse.mm(a, t))
+             if bf16 else None),
+            b12_bound_ms(compact, h * stream.element_size(), h),
+            f"{dtype_names[dtype]} [{slots}, {h}] -> f32 [{compact.out_rows}, "
+            f"{h}], {compact.src_row.numel()} entries")
+
+    errs = {}
+    for form, (kernel_fn, plain_fn, *_rest) in forms.items():
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        errs[form] = check_close(form, got, want, KERNEL_RTOL, KERNEL_ATOL)
+        check_repeatable(form, kernel_fn, got)
+        del got, want
+    log("kernel check: " + ", ".join(f"{form} max_abs_err {err:.3e}"
+                                     for form, err in errs.items())
+        + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}; each bit-equal across "
+        "two launches)")
+    return {form: forms[form] + (errs[form],) for form in forms}
+
+
+def merged_scatter_path(device, argv):
+    """Phase 10: the edge-MLP family on merged pair plans (B3 both ways,
+    ``pair_typed_gather_scatter``), on merged-target plans (the factorised
+    forms, B3) and on scatter plans (B12's three forms), and the shipped
+    GraphRegression_GNN_Edge_MLP on the QM9 batch (K1). Returns no
+    kernels-line entry and the entries of B3's and B12's new call
+    forms."""
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.ops import sorted_spmm as ss
+
+    t_phase = time.perf_counter()
+    batches = {}
+    for kind in ("pairs", "merged_targets", "scatter", "qm9"):
+        t0 = time.perf_counter()
+        batches[kind] = route_batch(kind, device)
+        log(f"workload ({kind}): {batches[kind][2]} edges, V="
+            f"{batches[kind][0].num_nodes_padded}, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+    forms = merged_scatter_forms(batches, device)
+
+    patches = [(ps, name, plain_version(plain)) for name, plain in (
+        ("pair_spmm", ps.pair_spmm_plain),
+        ("pair_spmm_stream", ps.pair_spmm_stream_plain),
+        ("pair_spmm_stream_joint", ps.pair_spmm_stream_plain))]
+    patches += [(ss, name, plain_version(getattr(ss, f"{name}_plain")))
+                for name in (*ss.LAUNCHES, "sorted_segment_sum_gathered")]
+    counters = launch_counters()
+    form_launches = {form: 0 for form in forms}
+    for name, source, kind, per_layer, eval_per_layer, tols, \
+            form_per_layer in ROUTE_MODELS:
+        batch, labels, real_edges = batches[kind]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        held_gib = torch.cuda.memory_allocated(device) / 2**30
+        params = route_params(source)
+        model = route_model(params, batch, device, source)
+        layers = params["gnn_num_layers"]
+        route = model.gnn.mp_layer_0._route(batch)
+        atol, logit_rtol, loss_rtol = tols
+        for reset, _ in counters:
+            reset()
+        shape = ((batch.num_graphs_padded,) if kind == "qm9" else None)
+        check_eval_forward(model, batch, labels, patches, logit_rtol, atol,
+                           loss_rtol, shape=shape)
+        torch.cuda.synchronize()
+        got = {n: c for _, counts in counters for n, c in counts.items()}
+        want = dict(zero_counts(counters),
+                    **{n: c * layers for n, c in eval_per_layer.items()})
+        if got != want:
+            raise AssertionError(f"{name} eval forward launched {got}; "
+                                 f"expected {want}")
+        state, train_step, eval_step, _ = train_and_count(
+            model, params, batch, labels, counters,
+            dict(zero_counts(counters), **{
+                n: c * layers * TRAIN_STEPS for n, c in per_layer.items()}))
+        log(f"{name}: route {route}; per train step "
+            + ", ".join(f"{n} {c * layers}" for n, c in per_layer.items())
+            + " launches, nothing else launched; eval forward "
+            + ", ".join(f"{n} {c * layers}"
+                        for n, c in eval_per_layer.items()))
+        for form, count in form_per_layer.items():
+            form_launches[form] += count * layers * TRAIN_STEPS
+        time_path(state, train_step, eval_step, batch, labels, real_edges,
+                  device, argv, name)
+        log(f"{name}: {held_gib:.2f} GiB were held before the route (the "
+            "phase's batches and kernel inputs)")
+        del model, state, train_step, eval_step
+    torch.cuda.empty_cache()
+
+    entries = []
+    for form, (kernel_fn, plain_fn, (lib_fn, lib32_fn), (bound, bound_by),
+               detail, err) in forms.items():
+        b3 = form.startswith("pair_spmm")
+        entries.append(time_kernel(
+            form, "tf2_gnn_tpu_torch/csrc/pair_stream.cu",
+            "tf2_gnn_tpu/ops/pair_spmm.py:678" if b3
+            else "tf2_gnn_tpu/ops/spmm_pallas.py:442",
+            form_launches[form], err, kernel_fn, plain_fn, lib_fn, lib32_fn,
+            bound, bound_by, detail + f"; {form_launches[form]} launches in "
+            "the routes' train steps", device=True))
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return [], entries
+
+
 def launch_counters():
     """(reset, counts) of every kernel module's launch counts, in the order
     of the phases that introduced them."""
@@ -2294,7 +2649,8 @@ def main(argv) -> int:
 
     # -- 2. PPI_RGCN, 3. PPI_RGAT, 4. GNN_Edge_MLP, 5. scatter plans,
     # -- 6. RGAT on per-type plans, 7. QM9_RGCN, 8. the probes, 9. GGNN,
-    # -- RGIN, PPI_GNN_Edge_MLP and GNN-FiLM ---------------------------------
+    # -- RGIN, PPI_GNN_Edge_MLP and GNN-FiLM, 10. the edge-MLP family on
+    # -- merged, merged-target and scatter plans, GraphRegression ----------
     # Each path returns its kernels-line entries, and phases 3-6 also the
     # entries of other call forms (none for phase 4), which are logged.
     kernels = rgcn_path(device, argv)
@@ -2312,8 +2668,11 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     flavour_kernels, flavour_forms = flavours_path(device, argv)
     kernels += flavour_kernels
+    torch.cuda.empty_cache()
+    route_kernels, route_forms = merged_scatter_path(device, argv)
+    kernels += route_kernels
     add_device_times(kernels + other_forms + probe_forms + qm9_entries
-                     + flavour_forms)
+                     + flavour_forms + route_forms)
     if len(kernels) != len({k["name"] for k in kernels}) or len(kernels) != 18:
         raise AssertionError(f"kernels line: {[k['name'] for k in kernels]}; "
                              "expected 18 distinct kernels")

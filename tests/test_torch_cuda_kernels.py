@@ -1684,3 +1684,151 @@ def test_b8_and_b7_raise_without_compact_form(device):
         tpem.relu_pair_db(a, b, torch.zeros_like(a), tplan.inv_fwd,
                           *tplan.fwd, trows)
     assert (tpa.LAUNCHES, tpem.LAUNCHES) == before
+
+
+def _spilled_merged_plan(seed, merge_targets, v=384, num_types=3):
+    """A merged plan of 3 types, with local or merged targets, whose chunk
+    budgets (one group short of what the edges need) spill the smallest
+    pairs into the overflow list and keep the rest."""
+    rng = np.random.RandomState(seed)
+    srcs, tgts, counts = [], [], []
+    for _ in range(num_types):
+        e = rng.randint(2 * v, 6 * v)
+        srcs.append(rng.randint(0, v, e))
+        tgts.append(rng.randint(0, v, e))
+        counts.append(e)
+    need_f, need_b = tps.measure_pair_chunks(
+        srcs, tgts, counts, v, merge_targets=merge_targets, group_fwd=8,
+        group_bwd=8)
+    plan = tps.MergedPlan(*tps.build_pair_plans(
+        srcs, tgts, counts, v, chunk_budget_fwd=need_f - 8,
+        chunk_budget_bwd=need_b - 8, group_fwd=8, group_bwd=8,
+        merge_targets=merge_targets,
+        overflow_budget=((sum(counts) + 63) // 64) * 64).astuple(),
+        out_rows=num_types * v if merge_targets else v)
+    assert 0 < int((plan.ovf_tgt < plan.out_rows).sum()) < sum(counts) // 2
+    return plan
+
+
+@pytest.mark.parametrize("merge_targets", [False, True])
+@pytest.mark.parametrize("h", [64, 256, 320])
+def test_b3_backward_form_with_a_bf16_cotangent(device, merge_targets, h):
+    """B3 over a merged plan's BACKWARD compact form (``bwd_rows``: the
+    [out_rows] cotangent is the table, the [L*V] table rows the output),
+    with a bf16 cotangent and the plan's backward scales, as
+    ``pair_typed_gather_scatter``'s backward launches it; the plain
+    version's sums, and two launches bit-equal."""
+    plan = _spilled_merged_plan(90 + merge_targets, merge_targets).to(device)
+    rows, out_rows = 3 * 384, plan.out_rows
+    gen = torch.Generator(device=device).manual_seed(91)
+    cot = torch.randn((out_rows, h), generator=gen,
+                      device=device).to(torch.bfloat16)
+    compact = plan.bwd_rows(rows, out_rows)
+    assert compact.num_slots == plan.inv_bwd.numel() == plan.rel_src_b.numel()
+    assert compact.src_row.numel() > 0
+    before = tps.LAUNCHES["pair_spmm"]
+    got, again = (tps.pair_spmm(cot, plan.inv_bwd, *plan.bwd, rows,
+                                compact=compact) for _ in range(2))
+    torch.cuda.synchronize()
+    assert tps.LAUNCHES["pair_spmm"] == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got, tps.pair_spmm_plain(cot, plan.inv_bwd, *plan.bwd, rows),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("merge_targets", [False, True])
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("stream_dtype", [torch.float32, torch.bfloat16])
+def test_merged_op_matches_plain_on_card(device, merge_targets, normalize,
+                                         stream_dtype):
+    """``pair_typed_gather_scatter`` with spilled pairs (its overflow term
+    and its transpose): B3 once each way, output and table gradient
+    against the op run through the plain version."""
+    plan = _spilled_merged_plan(92 + merge_targets, merge_targets).to(device)
+    gen = torch.Generator(device=device).manual_seed(93)
+    base = torch.randn((3 * 384, 72), generator=gen, device=device)
+    cot = torch.randn((plan.out_rows, 72), generator=gen, device=device)
+
+    def run():
+        t = base.clone().requires_grad_(True)
+        out = tps.pair_typed_gather_scatter(t, plan, normalize,
+                                            stream_dtype=stream_dtype)
+        (out * cot).sum().backward()
+        return out.detach(), t.grad
+
+    before = tps.LAUNCHES["pair_spmm"]
+    out, grad = run()
+    assert tps.LAUNCHES["pair_spmm"] == before + 2
+    assert grad.dtype == torch.float32
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tps, "pair_spmm", plain_version(tps.pair_spmm_plain))
+        out_p, grad_p = run()
+    torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grad, grad_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,h", [
+    (torch.float32, 256), (torch.float32, 512), (torch.bfloat16, 320)])
+def test_b12_typed_form_at_model_widths(device, dtype, h):
+    """B12's typed form (``plan_gather_tgt_typed``'s gradient, R = 128 *
+    L) at the widths of the edge-MLP family's scatter routes: 64 to 128
+    lane units a row; the plain version's sums and two launches
+    bit-equal."""
+    host, _, _ = _sorted_case(94)
+    v, num_types = 384, 3
+    plan = tss.ScatterPlan.from_host(host, v, num_types).to(device)
+    gen = torch.Generator(device=device).manual_seed(95)
+    g = torch.randn((plan.rel_typed.numel(), h), generator=gen,
+                    device=device).to(dtype)
+    args = (g, plan.rel_typed, plan.tgt_blocks, v * num_types)
+    compact = plan.sum_rows("fwd_typed", v * num_types)
+    got, again = (tss.sorted_segment_sum(*args, block_rows=384,
+                                         compact=compact) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got, tss.sorted_segment_sum_plain(*args, block_rows=384),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("stream_dtype", [torch.float32, torch.bfloat16])
+def test_scatter_target_gathers_match_plain_on_card(device, stream_dtype):
+    """The compositions of the edge-MLP family's scatter routes: the
+    halves gathered by source and from the type-minor target table, a
+    relu, L type-masked scatters and the FiLM-style modulation, output and
+    both gradients against the same ops through the plain versions."""
+    host, _, _ = _sorted_case(96)
+    v, num_types, h = 384, 3, 40
+    plan = tss.ScatterPlan.from_host(host, v, num_types).to(device)
+    gen = torch.Generator(device=device).manual_seed(97)
+    src0 = torch.randn((num_types * v, h), generator=gen, device=device)
+    tgt0 = torch.randn((v * num_types, 2 * h), generator=gen, device=device)
+    cot = torch.randn((num_types, v, h), generator=gen, device=device)
+
+    def run():
+        src = src0.clone().requires_grad_(True)
+        tgt = tgt0.clone().requires_grad_(True)
+        z = (tss.plan_gather_src(src, plan, stream_dtype)
+             + tss.plan_gather_tgt_typed(tgt[:, :h], plan, stream_dtype))
+        r = torch.relu(z.float()) * plan.inv_fwd[:, None]
+        film = tss.plan_gather_tgt_typed(tgt, plan, stream_dtype).float()
+        sums = [tss.plan_scatter(torch.where((plan.type_fwd == l)[:, None],
+                                             r, 0.0), plan, stream_dtype)
+                for l in range(num_types)]
+        sums[0] = sums[0] + tss.plan_scatter(film[:, :h] * r + film[:, h:],
+                                             plan)
+        (torch.stack(sums) * cot).sum().backward()
+        return torch.stack(sums).detach(), src.grad, tgt.grad
+
+    before = tss.LAUNCHES["sorted_segment_sum"]
+    got = run()
+    # 4 scatters forward; the gathered form once, the typed form twice.
+    assert tss.LAUNCHES["sorted_segment_sum"] == before + 7
+    with pytest.MonkeyPatch.context() as mp:
+        for name in _SORTED_WRAPPERS:
+            mp.setattr(tss, name, plain_version(getattr(tss, f"{name}_plain")))
+        want = run()
+    for name, x, y in zip(("sums", "d_src", "d_tgt"), got, want):
+        assert x.dtype == torch.float32
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5, msg=name)

@@ -12,7 +12,13 @@ PPI-shaped batch:
   loss trajectory with every dropout at 0 (the two frameworks' dropout bits
   cannot match; the readout MLPs' hard-wired 0.2 is patched to 0 on both
   sides);
-* ``workloads.edge_mlp_default_params()`` equal to the probe's dict.
+* ``workloads.edge_mlp_default_params()`` equal to the probe's dict;
+* the model on the scatter-plan route (``_scatter_target_state_one_hidden``:
+  per-edge gathers, a relu and L type-masked scatters through B12), with
+  and without 1/deg, f32 and bf16 streams; and on a batch carrying both a
+  merged-target plan and scatter plans, with the relu-pair gate failing
+  on the port's side only, the port routes to the scatter-plan form and
+  still matches the JAX package, which takes the relu-pair op there.
 
 Tolerances. f32 edge streams: rtol 1e-4 / atol 1e-6 for the layer (the
 same products summed in other orders), atol 1e-5 for the whole model
@@ -60,14 +66,24 @@ from tf2_gnn_tpu_torch.layers.message_passing import (
 from tf2_gnn_tpu_torch.layers.mlp import MLP
 from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
 from tf2_gnn_tpu_torch.ops import pair_edge_mlp as tpem
+from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
 
 from .test_torch_rgcn_model import FEATURES, NUM_LABELS, small_workload
+from .test_torch_sorted_models import scatter_workload, with_scatter_plans
 
 TOLS = {"float32": (dict(rtol=1e-4, atol=1e-6), dict(rtol=1e-4, atol=1e-6)),
         "bfloat16": (dict(rtol=1e-2, atol=1e-3), dict(rtol=2e-2, atol=3e-5))}
 # The whole model in f32: three layers, the exchange's softmax and GRU and
 # the head add reorderings (observed 3e-6 absolute on logits near 1e-3).
 MODEL_F32_TOL = dict(rtol=1e-4, atol=1e-5)
+# The whole model on the scatter-plan route with a bf16 stream: its
+# unnormalised sums of up to a dozen relu messages reach logits of 3.5,
+# and the JAX package's own logits move by 7.0e-3 (2.0e-3 of the largest)
+# when its weights are scaled by 1 + 1e-7 noise, the bf16 re-rounding of
+# A and B that the two frameworks' f32 matmuls reach as well. So logits
+# within 2**-8 of the largest |logit| (observed 2.3e-3 of it) and each
+# gradient tensor within 2**-6 of its largest |entry| (observed 6.4e-3).
+SCATTER_BF16_SHARES = (2.0 ** -8, 2.0 ** -6)
 
 
 def probe_params(edge_dtype: str = "bfloat16", hidden: int = 24,
@@ -297,7 +313,104 @@ def test_routes_by_grad_mode():
         assert calls == ["relu_pair_fwd"]
 
 
+def _share_close(got, want, share: float, what: str) -> None:
+    err, largest = np.abs(got - want).max(), np.abs(want).max()
+    assert err <= share * largest, (what, err, largest, err / largest)
+
+
+def _model_matches_jax(params, jbatch, tbatch, labels):
+    """Logits, loss and every parameter gradient of the whole model:
+    f32 streams at ``MODEL_F32_TOL``; bf16 streams (the scatter-plan
+    route) each tensor within ``SCATTER_BF16_SHARES`` of its largest
+    |entry|, the loss at rtol 1e-2."""
+    jmodel, jparams, tmodel = build_pair(params, jbatch)
+    edge_dtype = params["gnn_edge_dtype"]
+    out_tol = grad_tol = MODEL_F32_TOL
+    jlabels = {"node_labels": jnp.asarray(labels)}
+
+    def jloss(p):
+        out = jmodel.apply({"params": p}, jbatch, False)
+        return jmodel.compute_task_metrics(jbatch, out, jlabels)["loss"], out[0]
+
+    (jl, jlogits), jgrads = jax.value_and_grad(jloss, has_aux=True)(jparams)
+    out = tmodel(tbatch, False)
+    metrics = tmodel.compute_task_metrics(
+        tbatch, out, {"node_labels": torch.from_numpy(labels)})
+    metrics["loss"].backward()
+    want = flax_params_to_state_dict(jax.device_get(jgrads))
+    if edge_dtype == "bfloat16":
+        out_share, grad_share = SCATTER_BF16_SHARES
+        _share_close(out[0].detach().numpy(), np.asarray(jlogits), out_share,
+                     "logits")
+        np.testing.assert_allclose(float(metrics["loss"].detach()),
+                                   float(jl), rtol=1e-2)
+        for name, param in tmodel.named_parameters():
+            _share_close(param.grad.numpy(), want[name].numpy(), grad_share,
+                         name)
+        return tmodel
+    np.testing.assert_allclose(out[0].detach().numpy(), np.asarray(jlogits),
+                               **out_tol)
+    np.testing.assert_allclose(float(metrics["loss"].detach()), float(jl),
+                               rtol=out_tol["rtol"])
+    for name, param in tmodel.named_parameters():
+        np.testing.assert_allclose(param.grad.numpy(), want[name].numpy(),
+                                   err_msg=name, **grad_tol)
+    return tmodel
+
+
+def _spy_scatters(monkeypatch):
+    """Record the calls of ``plan_scatter`` (B12's stream form)."""
+    calls = []
+    real = tss.plan_scatter
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tss, "plan_scatter", spy)
+    from tf2_gnn_tpu_torch.layers.message_passing import gnn_edge_mlp
+
+    monkeypatch.setattr(gnn_edge_mlp, "plan_scatter", spy)
+    return calls
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("edge_dtype", ["float32", "bfloat16"])
+def test_scatter_route_matches_jax(normalize, edge_dtype, monkeypatch):
+    """The model on scatter plans alone: per layer L type-masked scatters
+    forward."""
+    jbatch, tbatch, labels = scatter_workload(seed=8)
+    params = dict(probe_params(edge_dtype),
+                  gnn_normalize_by_num_incoming=normalize)
+    calls = _spy_scatters(monkeypatch)
+    tmodel = _model_matches_jax(params, jbatch, tbatch, labels)
+    assert tmodel.gnn.mp_layer_0._route(tbatch) == "scatter_one_hidden"
+    assert len(calls) == 3 * params["gnn_num_layers"]
+
+
+def test_failed_relu_pair_gate_routes_to_scatter_plans(monkeypatch):
+    """A batch with a merged-target plan and scatter plans: with the
+    relu-pair gate passing the port takes the relu-pair op, as the JAX
+    package does; with the port's gate failing (its budget set to 0) the
+    scatter-plan form, which gives the JAX package's results all the
+    same."""
+    jbatch, tbatch, labels = with_scatter_plans(
+        *small_workload(seed=9, merged=True, merge_targets=True))
+    params = probe_params("float32")
+    calls = _spy_scatters(monkeypatch)
+    tmodel = _model_matches_jax(params, jbatch, tbatch, labels)
+    assert tmodel.gnn.mp_layer_0._route(tbatch) == "relu_pair" and not calls
+    monkeypatch.setattr(tpem, "VMEM_DUAL_TABLE_BUDGET_BYTES", 0)
+    tmodel = _model_matches_jax(params, jbatch, tbatch, labels)
+    assert tmodel.gnn.mp_layer_0._route(tbatch) == "scatter_one_hidden"
+    assert len(calls) == 3 * params["gnn_num_layers"]
+
+
 def test_unported_forms_raise():
+    """Two hidden layers need per-edge matmuls; the one-hidden form on a
+    merged plan with local targets, or with the relu-pair gate failing,
+    and no scatter plans takes the unfused path in the JAX package: each
+    raises, naming it."""
     params = probe_params("float32", hidden=8, layers=2)
     _, merged_batch, _ = small_workload(seed=5, merged=True)
     _, targets_batch, _ = small_workload(seed=5, merged=True,
@@ -306,20 +419,12 @@ def test_unported_forms_raise():
         NodeMulticlassTask.from_params(
             dict(params, gnn_num_edge_MLP_hidden_layers=2),
             input_dim=FEATURES, num_edge_types=3, device="cpu")
-    # The 0-hidden form reads per-type plans; over a merged-target plan it
-    # would need the per-type aggregates of pair_typed_gather_scatter (B3).
-    zero_hidden = NodeMulticlassTask.from_params(
-        dict(params, gnn_num_edge_MLP_hidden_layers=0), input_dim=FEATURES,
-        num_edge_types=3, device="cpu", num_labels=NUM_LABELS)
-    with pytest.raises(NotImplementedError,
-                       match="pair_typed_gather_scatter, over B3"):
-        zero_hidden(targets_batch, False)
     model = NodeMulticlassTask.from_params(
         params, input_dim=FEATURES, num_edge_types=3, device="cpu",
         num_labels=NUM_LABELS)
     with pytest.raises(NotImplementedError, match="merged-target"):
         model(merged_batch, False)
-    with pytest.raises(NotImplementedError, match="B12 and B13"):
+    with pytest.raises(NotImplementedError, match="queue A item 6"):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(tpem, "VMEM_DUAL_TABLE_BUDGET_BYTES", 0)
             model(targets_batch, False)

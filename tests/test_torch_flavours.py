@@ -3,11 +3,16 @@ GNN-FiLM against the JAX package's on the CPU, each in its shipped PPI
 configuration (``harness/default_hypers/PPI_*.json``) cut to 2 layers of
 hidden 16 with every dropout at 0, on a small per-type-plan PPI-shaped
 batch, from weights bridged out of the flax params: logits, loss and the
-gradient of every parameter; the flavours' own flax leaves (GGNN's
-``gru_cell``, RGIN's ``aggregation_mlp``, FiLM's ``film_mlp_layer_i``)
-landing where the strict bridge puts them; the port's copies of the four
-JSONs equal to the JAX package's; and the routes that stay unported
-raising.
+gradient of every parameter; the same on the other plan kinds, each route
+as the JAX package takes it on the same batch (``ROUTES``: RGCN, GGNN,
+RGIN and the source-only GNN_Edge_MLP over a merged pair plan with local
+targets, ``pair_typed_gather_scatter``; the factorised forms over a
+merged-target plan; the 0-hidden target-state GNN_Edge_MLP and the
+source-only GNN-FiLM over scatter plans); the flavours' own flax leaves
+(GGNN's ``gru_cell``, RGIN's ``aggregation_mlp``, FiLM's
+``film_mlp_layer_i``) landing where the strict bridge puts them; the
+port's copies of the five JSONs equal to the JAX package's; and the routes
+that stay unported raising.
 
 Tolerances, as ``test_torch_rgcn_model.py``: f32 edge streams rtol 1e-4 /
 atol 1e-5 (the same products summed in other orders by XLA and PyTorch);
@@ -19,7 +24,15 @@ so such a flip moves a logit further: by 1.7e-3 (GGNN, logits up to 1.9)
 and 8.9e-4 (RGIN), exactly what nudging the port's own f32 tables by one
 f32 ulp before the cast moves them; their logits get atol
 ``BF16_LOGIT_ATOL`` = 4e-3 (gradients and loss keep the bf16 tolerance:
-observed 7.5e-5 and 1.5e-6 relative).
+observed 7.5e-5 and 1.5e-6 relative). On ``ROUTES``' batch the shipped
+bf16 RGIN's gradients take one such flip further: two entries of
+``edge_mlp_layer_1``'s kernel gradient differ by 1.4e-4 (3% of
+themselves), on per-type plans (the route the first table holds) exactly
+as on the merged plan, while the same route with an f32 stream matches at
+the f32 tolerance. So the bf16 routes' gradients are held, instead of
+elementwise, to ``BF16_ROUTE_GRAD_SHARE`` = 2**-8 of each tensor's
+largest |entry| (observed 5.1e-4 of it), as ``test_torch_graph_tasks.py``
+holds its bf16 gradients.
 """
 import json
 import types
@@ -42,10 +55,13 @@ from tf2_gnn_tpu_torch.harness.import_jax import (
 from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
 
 from .test_torch_rgcn_model import FEATURES, NUM_LABELS, TOLS, small_workload
+from .test_torch_sorted_models import scatter_workload
 
 REPO = Path(__file__).resolve().parents[1]
 BF16_LOGIT_ATOL = 4e-3
-SHIPPED = {"ggnn": "PPI_GGNN.json", "rgin": "PPI_RGIN.json",
+BF16_ROUTE_GRAD_SHARE = 2.0 ** -8
+SHIPPED = {"rgcn": "PPI_RGCN.json", "ggnn": "PPI_GGNN.json",
+           "rgin": "PPI_RGIN.json",
            "gnn_edge_mlp": "PPI_GNN_Edge_MLP.json",
            "gnn_film": "PPI_GNN_FiLM.json"}
 
@@ -72,11 +88,63 @@ CASES = {
 }
 
 
+# The routes over the other plan kinds: (style, overrides of the shipped
+# configuration, plan kind, the port's route).
+ROUTES = {
+    "rgcn_pairs": ("rgcn", {}, "pairs", "pair_merged"),
+    "rgcn_merged_targets": ("rgcn", {"gnn_edge_dtype": "float32"},
+                            "merged_targets", "pair_merged"),
+    "ggnn_pairs": ("ggnn", {}, "pairs", "pair_merged"),
+    "rgin_pairs": ("rgin", {}, "pairs", "pair_merged"),
+    "edge_mlp_source_pairs": ("gnn_edge_mlp", {
+        "gnn_use_target_state_as_input": False,
+        "gnn_normalize_by_num_incoming": True}, "pairs", "pair_merged"),
+    "edge_mlp_target_0_merged_targets": ("gnn_edge_mlp", {},
+                                         "merged_targets", "factorised"),
+    "edge_mlp_target_0_norm_bf16_merged_targets": ("gnn_edge_mlp", {
+        "gnn_normalize_by_num_incoming": True,
+        "gnn_edge_dtype": "bfloat16"}, "merged_targets", "factorised"),
+    "film_target_merged_targets": ("gnn_film", {}, "merged_targets",
+                                   "factorised"),
+    "film_source_norm_merged_targets": ("gnn_film", {
+        "gnn_use_target_state_as_input": False,
+        "gnn_normalize_by_num_incoming": True}, "merged_targets",
+        "factorised"),
+    "edge_mlp_target_0_scatter": ("gnn_edge_mlp", {}, "scatter",
+                                  "scatter_zero_hidden"),
+    "edge_mlp_target_0_norm_bf16_scatter": ("gnn_edge_mlp", {
+        "gnn_normalize_by_num_incoming": True,
+        "gnn_edge_dtype": "bfloat16"}, "scatter", "scatter_zero_hidden"),
+    "film_source_scatter": ("gnn_film", {
+        "gnn_use_target_state_as_input": False}, "scatter", "scatter_film"),
+    "film_source_film_hidden_norm_bf16_scatter": ("gnn_film", {
+        "gnn_use_target_state_as_input": False,
+        "gnn_num_edge_MLP_hidden_layers": 1,
+        "gnn_film_parameter_MLP_hidden_layers": [8],
+        "gnn_normalize_by_num_incoming": True,
+        "gnn_edge_dtype": "bfloat16"}, "scatter", "scatter_film"),
+}
+PLAN_KINDS = {
+    "pairs": dict(merged=True),
+    "merged_targets": dict(merged=True, merge_targets=True),
+}
+
+
+def plan_workload(kind: str, seed: int):
+    """``small_workload``'s batch, planned by both packages, with the plan
+    kind of a route: a merged pair plan with local (``"pairs"``) or merged
+    targets, or the merged scatter plan (``"scatter"``)."""
+    if kind == "scatter":
+        return scatter_workload(seed)
+    return small_workload(seed, **PLAN_KINDS[kind])
+
+
 def case_params(name: str):
     """The shipped configuration of the case's flavour over the JAX
     package's defaults, cut to 2 layers of hidden 16, dropout 0, and the
     case's overrides."""
-    style, overrides = CASES[name]
+    style, overrides = (CASES[name] if name in CASES
+                        else ROUTES[name][:2])
     params = JaxNodeMulticlassTask.get_default_hyperparameters(style)
     shipped = json.loads((REPO / "tf2_gnn_tpu" / "harness" / "default_hypers"
                           / SHIPPED[style]).read_text())
@@ -105,8 +173,26 @@ def workload():
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_forward_loss_and_gradients_match_jax(case, workload):
-    jbatch, tbatch, labels = workload
-    params = case_params(case)
+    assert_matches_jax(case_params(case), *workload)
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_route_matches_jax(route):
+    """Each route over another plan kind against the JAX package on the
+    same batch, which takes its own fused route there."""
+    _, _, kind, port_route = ROUTES[route]
+    jbatch, tbatch, labels = plan_workload(kind, seed=13)
+    tmodel = assert_matches_jax(case_params(route), jbatch, tbatch, labels,
+                                grad_share=BF16_ROUTE_GRAD_SHARE)
+    assert tmodel.gnn.mp_layer_0._route(tbatch) == port_route
+
+
+def assert_matches_jax(params, jbatch, tbatch, labels, grad_share=None):
+    """Logits, loss and every parameter gradient of the port's model
+    against the JAX package's, at the edge dtype's tolerance (bf16 logits
+    at ``BF16_LOGIT_ATOL``; with ``grad_share``, bf16 gradients within
+    that share of each tensor's largest |entry| instead). Returns the
+    port's model."""
     jmodel, jparams, tmodel = build_pair(params, jbatch)
     tols = TOLS[params["gnn_edge_dtype"]]
 
@@ -133,8 +219,13 @@ def test_forward_loss_and_gradients_match_jax(case, workload):
     got = dict(tmodel.named_parameters())
     assert set(want) == set(got)
     for name, grad in want.items():
-        np.testing.assert_allclose(got[name].grad.numpy(), grad.numpy(),
-                                   err_msg=name, **tols)
+        mine, grad = got[name].grad.numpy(), grad.numpy()
+        if grad_share and params["gnn_edge_dtype"] == "bfloat16":
+            err, largest = np.abs(mine - grad).max(), np.abs(grad).max()
+            assert err <= grad_share * largest, (name, err, largest)
+        else:
+            np.testing.assert_allclose(mine, grad, err_msg=name, **tols)
+    return tmodel
 
 
 FLAVOUR_LEAVES = {
@@ -194,24 +285,22 @@ def test_shipped_json_copies_are_the_jax_packages(style):
 
 
 def test_unported_routes_raise(workload):
-    """GNN-FiLM and the 0-hidden target-state edge MLP read per-type plans:
-    on a merged-target batch they raise naming the per-type aggregates
-    over merged plans, on a batch without plans the missing plans; FiLM's
-    target-state form with a hidden edge-MLP layer and GGNN on a state
-    narrower than hidden_dim raise too."""
-    _, merged_targets, _ = small_workload(seed=12, merged=True,
-                                          merge_targets=True)
+    """GNN-FiLM and the 0-hidden target-state edge MLP need per-type sums:
+    on a merged plan with local targets (and no scatter plans) and on a
+    batch without plans they raise, naming the unfused path the JAX
+    package takes there; FiLM's target-state form with a hidden edge-MLP
+    layer and GGNN on a state narrower than hidden_dim raise too."""
+    _, local_targets, _ = small_workload(seed=12, merged=True)
     _, typed, _ = workload
     bare = typed.replace(pair_plans_typed=None)
     for case in ("film_target", "edge_mlp_target_0"):
         model = NodeMulticlassTask.from_params(
             case_params(case), input_dim=FEATURES, num_edge_types=3,
             device="cpu", num_labels=NUM_LABELS)
-        with pytest.raises(NotImplementedError,
-                           match="pair_typed_gather_scatter"):
-            model(merged_targets, False)
-        with pytest.raises(NotImplementedError, match="per-type pair plans"):
-            model(bare, False)
+        for batch in (local_targets, bare):
+            with pytest.raises(NotImplementedError,
+                               match="queue A item 6"):
+                model(batch, False)
     with pytest.raises(NotImplementedError, match="per-edge path"):
         NodeMulticlassTask.from_params(
             dict(case_params("film_target"),

@@ -8,7 +8,10 @@ package on the CPU, from weights bridged out of the flax params:
   V = 768): 3 RGCN layers at hidden 32 in QM9_RGCN's layout (leaky_relu,
   residual every 2, LayerNorm, dense at layer 0, the GRU exchange after
   layer 2), f32 and bf16 edge streams, every dropout at 0: outputs, loss
-  and the gradient of every parameter;
+  and the gradient of every parameter; the same for the shipped
+  GraphRegression_GNN_Edge_MLP (the port's copy of its JSON, whose
+  0-hidden target-state edge MLP takes the factorised form) cut to 3
+  layers of hidden 32;
 * optax's RMSProp and SGD: parameters along 3 updates, with and without
   clipping and schedules, and small gradients, where optax's eps inside
   the square root sets the step size;
@@ -30,7 +33,9 @@ largest |entry| (observed up to 3.1e-2), losses rtol 1e-4 (observed
 3.6e-5). Optimizer updates rtol 1e-5 / atol 1e-8.
 """
 import functools
+import json
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -73,6 +78,7 @@ from tf2_gnn_tpu_torch.models.graph_regression_task import (
 )
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 
+REPO = Path(__file__).resolve().parents[1]
 MOLECULES, NODES, TYPES, EDGES, FEATURES, V_PAD = 40, 18, 5, 11, 32, 768
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_OUT_SHARE, BF16_GRAD_SHARE = 2.0 ** -8, 5e-2
@@ -81,7 +87,9 @@ TASKS = {
     "qm9": (jqm9.QM9RegressionTask, tqm9.QM9RegressionTask),
     "regression": (JaxRegression, GraphRegressionTask),
     "binary": (JaxBinary, GraphBinaryClassificationTask),
+    "graph_regression-gnn_edge_mlp": (JaxRegression, GraphRegressionTask),
 }
+EDGE_MLP_JSON = "GraphRegression_GNN_Edge_MLP.json"
 
 
 def qm9_workload(seed: int):
@@ -124,8 +132,31 @@ def qm9_workload(seed: int):
     return planned(jgb, jps), planned(tgb, tps).to("cpu"), labels
 
 
+def edge_mlp_task_params(edge_dtype: str = "float32", **extra):
+    """The port's copy of the shipped GraphRegression_GNN_Edge_MLP over the
+    JAX package's defaults, at 3 layers and hidden 32, every dropout at
+    0."""
+    params = JaxRegression.get_default_hyperparameters("gnn_edge_mlp")
+    params.update(json.loads((REPO / "tf2_gnn_tpu_torch" / "harness"
+                              / "default_hypers" / EDGE_MLP_JSON)
+                             .read_text())["model_params"])
+    params.update({
+        "gnn_num_layers": 3, "gnn_hidden_dim": 32,
+        "gnn_edge_dtype": edge_dtype,
+        "gnn_layer_input_dropout_rate": 0.0,
+        "gnn_global_exchange_dropout_rate": 0.0,
+        "graph_aggregation_dropout_rate": 0.0,
+        "regression_mlp_dropout": 0.0,
+    })
+    params.update(extra)
+    return params
+
+
 def task_params(task: str, edge_dtype: str = "float32", **extra):
-    """QM9_RGCN's layout at 3 layers and hidden 32, every dropout at 0."""
+    """QM9_RGCN's layout at 3 layers and hidden 32, every dropout at 0
+    (the shipped GraphRegression_GNN_Edge_MLP's for its task)."""
+    if task == "graph_regression-gnn_edge_mlp":
+        return edge_mlp_task_params(edge_dtype, **extra)
     jcls, _ = TASKS[task]
     params = jcls.get_default_hyperparameters("rgcn")
     params.update({
@@ -172,6 +203,7 @@ def _labels(task, labels):
     ("regression", "float32", {"use_intermediate_gnn_results": False}),
     ("binary", "float32", {}),
     ("binary", "bfloat16", {}),
+    ("graph_regression-gnn_edge_mlp", "float32", {}),
 ])
 def test_task_matches_jax(task, edge_dtype, extra):
     jbatch, tbatch, labels = qm9_workload(seed=1)
@@ -224,6 +256,28 @@ def assert_close(got, want, edge_dtype: str, bf16_share: float, what: str):
         return
     err, largest = np.abs(got - want).max(), np.abs(want).max()
     assert err <= bf16_share * largest, (what, err, largest)
+
+
+def test_graph_regression_edge_mlp_copy_and_params():
+    """The port's copy of the JSON is the JAX package's, and
+    ``workloads.graph_regression_edge_mlp_params`` is its model params over
+    the task's defaults for the flavour, the JAX package's."""
+    from tf2_gnn_tpu_torch import workloads
+
+    port = REPO / "tf2_gnn_tpu_torch" / "harness" / "default_hypers"
+    ref = REPO / "tf2_gnn_tpu" / "harness" / "default_hypers"
+    shipped = json.loads((ref / EDGE_MLP_JSON).read_text())
+    assert json.loads((port / EDGE_MLP_JSON).read_text()) == shipped
+    want = JaxRegression.get_default_hyperparameters("gnn_edge_mlp")
+    assert GraphRegressionTask.get_default_hyperparameters(
+        "gnn_edge_mlp") == want
+    want.update(shipped["model_params"])
+    got = workloads.graph_regression_edge_mlp_params()
+    assert got == want
+    assert (got["optimizer"], got["learning_rate"],
+            got["gradient_clip_value"]) == ("Adam", 0.0001, 1.0)
+    assert got["gnn_use_target_state_as_input"]
+    assert got["gnn_num_edge_MLP_hidden_layers"] == 0
 
 
 def test_readout_width_counts_the_intermediates():

@@ -9,7 +9,12 @@
   of a row-owner wrapper (K1, K2, B3, B12 in both forms, B4, B5, B6, B9)
   without the plan's compact form (B9: either of its two);
 * a batch with neither the pair plans nor the scatter plan a flavour
-  reads raises ``NotImplementedError``.
+  reads raises ``NotImplementedError``; so does every edge-MLP form on a
+  batch where the JAX package takes its unfused per-edge path, naming it
+  (ROADMAP.md, queue A item 6): the target-state forms on scatter plans
+  with ``fused_target_gather=False``, the target-state GNN-FiLM on scatter
+  plans, the 0-hidden target-state form on a merged plan with local
+  targets, and the target-state form with 2 hidden layers.
 """
 import ast
 from pathlib import Path
@@ -443,3 +448,48 @@ def test_batch_without_any_plan_raises(style):
         device="cpu", num_labels=workloads.NUM_LABELS)
     with pytest.raises(NotImplementedError, match="scatter plans"):
         model(bare, False)
+
+
+@pytest.fixture(scope="module")
+def small_ppi_batches():
+    """The PPI-shaped batch cut to 3 graphs of 150 nodes (V = 512), with
+    scatter plans and with a merged plan of local targets."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(workloads, "NODES_PER_GRAPH", 150)
+        mp.setattr(workloads, "FWD_EDGES_PER_GRAPH", 1500)
+        mp.setattr(workloads, "NODE_BUDGET", 512)
+        return {kind: workloads.build_ppi_batch_host(0, **kwargs)[0].to("cpu")
+                for kind, kwargs in (("scatter", dict(scatter=True)),
+                                     ("pairs", dict(merged=True)))}
+
+
+# (shipped file, style, overrides, batch), each a route the JAX package
+# leaves to its unfused path.
+UNFUSED_CASES = {
+    "edge_mlp_0_hidden_no_fused_target_gather": (
+        "PPI_GNN_Edge_MLP.json", "gnn_edge_mlp",
+        {"gnn_fused_target_gather": False}, "scatter"),
+    "edge_mlp_1_hidden_no_fused_target_gather": (
+        "PPI_GNN_Edge_MLP.json", "gnn_edge_mlp",
+        {"gnn_fused_target_gather": False,
+         "gnn_num_edge_MLP_hidden_layers": 1}, "scatter"),
+    "film_target_state_on_scatter_plans": (
+        "PPI_GNN_FiLM.json", "gnn_film", {}, "scatter"),
+    "edge_mlp_0_hidden_on_local_targets": (
+        "PPI_GNN_Edge_MLP.json", "gnn_edge_mlp", {}, "pairs"),
+    "edge_mlp_2_hidden": (
+        "PPI_GNN_Edge_MLP.json", "gnn_edge_mlp",
+        {"gnn_num_edge_MLP_hidden_layers": 2}, None),
+}
+
+
+@pytest.mark.parametrize("case", list(UNFUSED_CASES))
+def test_unfused_routes_raise(case, small_ppi_batches):
+    hypers, style, overrides, kind = UNFUSED_CASES[case]
+    params = dict(workloads.shipped_params(hypers, style),
+                  gnn_hidden_dim=8, gnn_num_layers=1, **overrides)
+    with pytest.raises(NotImplementedError, match="queue A item 6"):
+        model = NodeMulticlassTask.from_params(
+            params, input_dim=workloads.FEATURE_DIM, num_edge_types=3,
+            device="cpu", num_labels=workloads.NUM_LABELS)
+        model(small_ppi_batches[kind], False)

@@ -66,15 +66,20 @@ def scatter_workload(seed: int):
     pair plans, planned by each package (the form of
     ``bench.py::build_batch(use_pallas=True, use_pairs=False)``)."""
     jbatch, tbatch, labels = small_workload(seed)
+    return with_scatter_plans(jbatch.replace(pair_plans_typed=None),
+                              tbatch.replace(pair_plans_typed=None), labels)
+
+
+def with_scatter_plans(jbatch, tbatch, labels):
+    """The batches with the merged scatter plan added, planned by each
+    package (beside whatever pair plans they carry)."""
     srcs = [np.asarray(s) for s in jbatch.edge_sources]
     tgts = [np.asarray(t) for t in jbatch.edge_targets]
     cnts = [int(c) for c in np.asarray(jbatch.num_edges)]
     v = tbatch.num_nodes_padded
     jbatch = jbatch.replace(
-        pair_plans_typed=None,
         scatter_plans=jsp.build_merged_plans(srcs, tgts, cnts, v).astuple())
     tbatch = tbatch.replace(
-        pair_plans_typed=None,
         scatter_plans=tss.build_merged_plans(srcs, tgts, cnts,
                                              v).astuple()).to("cpu")
     return jbatch, tbatch, labels
@@ -292,12 +297,21 @@ def test_batches_without_plans_raise():
         model(tbatch, False)
         with pytest.raises(NotImplementedError, match="scatter plans"):
             model(bare, False)
-    # The target-state edge MLP has no scatter-plan form in the port yet.
+    # The target-state edge MLP takes its scatter-plan form only with
+    # fused_target_gather, the reference's switch; without it the
+    # reference takes the unfused path, which is not ported.
     edge_mlp = dict(JaxNodeMulticlassTask.get_default_hyperparameters(
         "gnn_edge_mlp"), gnn_hidden_dim=8, gnn_num_layers=2,
         gnn_global_exchange_every_num_layers=10000)
-    model = NodeMulticlassTask.from_params(
-        edge_mlp, input_dim=FEATURES, num_edge_types=3, device="cpu",
-        num_labels=NUM_LABELS)
-    with pytest.raises(NotImplementedError, match="scatter-plan"):
-        model(tbatch, False)
+    for fused_target_gather in (True, False):
+        model = NodeMulticlassTask.from_params(
+            dict(edge_mlp, gnn_fused_target_gather=fused_target_gather),
+            input_dim=FEATURES, num_edge_types=3, device="cpu",
+            num_labels=NUM_LABELS)
+        if fused_target_gather:
+            model(tbatch, False)
+            continue
+        with pytest.raises(NotImplementedError, match="queue A item 6"):
+            model(tbatch, False)
+        with pytest.raises(NotImplementedError, match="scatter plans"):
+            model(bare, False)

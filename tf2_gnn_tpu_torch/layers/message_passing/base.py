@@ -5,10 +5,10 @@ A layer maps node states ``[V, D] -> [V, hidden_dim]``: node-space
 transforms run densely first, the block-pair streamed op aggregates them
 over the edges, and ``_post_aggregate`` applies the message activation.
 
-Only the fused pair paths are ported. The unfused per-edge segment path
-and the SPMD halo branches are not; a batch without the plans a flavour's
-fused path reads (``_check_batch``) raises ``NotImplementedError`` instead
-of silently taking another path.
+Only the fused paths (over pair plans and scatter plans) are ported. The
+unfused per-edge segment path and the SPMD halo branches are not; a batch
+without the plans a flavour's fused path reads (``_check_batch``) raises
+``NotImplementedError`` instead of silently taking another path.
 """
 import inspect
 from typing import Any, Dict
@@ -20,6 +20,11 @@ from ...data.graph_batch import GraphBatch
 from ...ops.activations import get_activation_function
 
 MESSAGE_PASSING_IMPLEMENTATIONS: Dict[str, type] = {}
+
+# What the reference runs where no fused route applies; the port raises
+# there, naming it.
+UNFUSED_PATH = ("the unfused per-edge segment path, which is not ported "
+                "(ROADMAP.md, queue A item 6)")
 
 
 def register_message_passing_implementation(cls):

@@ -32,13 +32,14 @@ class GGNN(GNN_Edge_MLP):
                  dense_dtype: str = "float32",
                  use_target_state_as_input: bool = False,
                  normalize_by_num_incoming: bool = True,
-                 num_edge_MLP_hidden_layers: int = 0):
+                 num_edge_MLP_hidden_layers: int = 0,
+                 fused_target_gather: bool = True):
         super().__init__(num_edge_types, input_dim, hidden_dim,
                          aggregation_function, message_activation_function,
                          message_activation_before_aggregation, edge_dtype,
                          dense_dtype, use_target_state_as_input,
                          normalize_by_num_incoming,
-                         num_edge_MLP_hidden_layers)
+                         num_edge_MLP_hidden_layers, fused_target_gather)
         self.gru_cell = GRUCell(hidden_dim, hidden_dim)
 
     @classmethod

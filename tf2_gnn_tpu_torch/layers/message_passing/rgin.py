@@ -34,13 +34,14 @@ class RGIN(GNN_Edge_MLP):
                  use_target_state_as_input: bool = False,
                  normalize_by_num_incoming: bool = False,
                  num_edge_MLP_hidden_layers: int = 1,
-                 num_aggr_MLP_hidden_layers: Optional[int] = None):
+                 num_aggr_MLP_hidden_layers: Optional[int] = None,
+                 fused_target_gather: bool = True):
         super().__init__(num_edge_types, input_dim, hidden_dim,
                          aggregation_function, message_activation_function,
                          message_activation_before_aggregation, edge_dtype,
                          dense_dtype, use_target_state_as_input,
                          normalize_by_num_incoming,
-                         num_edge_MLP_hidden_layers)
+                         num_edge_MLP_hidden_layers, fused_target_gather)
         self.num_aggr_MLP_hidden_layers = num_aggr_MLP_hidden_layers
         if num_aggr_MLP_hidden_layers is not None:
             self.aggregation_mlp = MLP(

@@ -16,7 +16,8 @@ plan. ``pair_stream_typed`` gives the per-type aggregates instead, with
 K1 in both directions (``StreamTypedPlan``: global forward output blocks
 and the backward plan's real types). ``pair_spmm`` (B3) is the same SpMM
 over one direction of a merged plan (``MergedPlan``); RGAT's head-major
-sums run it once per head. All three launch one hand-written CUDA kernel (``csrc/pair_stream.cu``'s
+sums run it once per head, and ``pair_typed_gather_scatter`` (the
+edge-MLP family on merged plans) once in each direction. All three launch one hand-written CUDA kernel (``csrc/pair_stream.cu``'s
 ``row_owner_kernel``), which reads the plan direction's compact form
 (``slot_rows``: its valid slots as a CSR over output rows); each plan
 object builds it at first read and keeps it, so it is built once per
@@ -1337,3 +1338,69 @@ def pair_stream_typed(tables_flat, plan: StreamTypedPlan, normalize: bool,
         *_stream_scales(plan, normalize, plan.ovf_tgt, plan.out_rows),
         stream_dtype or tables_flat.dtype)
 
+
+
+class PairTypedGatherScatter(torch.autograd.Function):
+    """All-type sums over a MERGED plan, f32 [out_rows, H] (the
+    reference's ``pair_typed_gather_scatter``, pair_spmm.py:718-797):
+    ``out[t] = sum over edges e = (u -> t, type l) of scale_e *
+    tables[l*Vs + u]``, with t a local target (``out_rows`` V, the joint
+    sum) or a merged one ``l * V + t`` (``out_rows`` L * V, per-type
+    aggregates).
+
+    Forward: the tables cast to ``stream_dtype``, B3 over the forward
+    plan's compact form (``plan.fwd_rows(out_rows, rows)``) with the
+    forward scales by slot, plus the overflow edges in plain torch.
+    Backward: B3 over the backward plan's compact form
+    (``plan.bwd_rows(rows, out_rows)``: the [out_rows] cotangent is its
+    table, the [rows] table gradient its output) with the backward scales;
+    the cotangent streams at the stream dtype and the overflow share reads
+    it unrounded, as in the reference's ``_ptgs_bwd``; the table gradient
+    leaves in f32 (``PairStreamJoint``'s reason).
+    """
+
+    @staticmethod
+    def forward(ctx, tables_flat, plan: MergedPlan, scale_fwd, scale_bwd,
+                ovf_scale, out_rows: int, stream_dtype):
+        tables = tables_flat.to(stream_dtype).contiguous()
+        rows = tables.shape[0]
+        out = pair_spmm(tables, scale_fwd, *plan.fwd, out_rows,
+                        compact=plan.fwd_rows(out_rows, rows))
+        if plan.ovf_src.shape[0]:
+            out = out + _overflow_sums(tables, plan.ovf_src, plan.ovf_tgt,
+                                       ovf_scale, out_rows)
+        ctx.plan, ctx.rows, ctx.out_rows = plan, rows, out_rows
+        ctx.stream_dtype = stream_dtype
+        ctx.save_for_backward(scale_bwd, ovf_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        plan: MergedPlan = ctx.plan
+        scale_bwd, ovf_scale = ctx.saved_tensors
+        g_stream = g.to(ctx.stream_dtype).contiguous()
+        d_tables = pair_spmm(g_stream, scale_bwd, *plan.bwd, ctx.rows,
+                             compact=plan.bwd_rows(ctx.rows, ctx.out_rows))
+        if plan.ovf_src.shape[0]:
+            _add_overflow_grads(d_tables, g, plan.ovf_src, plan.ovf_tgt,
+                                ovf_scale)
+        return d_tables, None, None, None, None, None, None
+
+
+def pair_typed_gather_scatter(tables_flat, plan: MergedPlan, normalize: bool,
+                              out_rows: int = None,
+                              stream_dtype: torch.dtype = None
+                              ) -> torch.Tensor:
+    """Apply the merged-plan op into ``out_rows`` rows (default: the
+    plan's own, V or L * V) with the plan's 1/deg scales (``normalize``)
+    or unit scales (``pair_unit_scales``: sentinel slots are skipped
+    either way; overflow slots keep their validity mask).
+    ``stream_dtype`` (default: the tables' dtype) is the dtype the kernels
+    gather."""
+    out_rows = plan.out_rows if out_rows is None else out_rows
+    if normalize:
+        scales = (plan.inv_fwd, plan.inv_bwd, plan.inv_ovf)
+    else:
+        scales = pair_unit_scales(plan, out_rows)
+    return PairTypedGatherScatter.apply(tables_flat, plan, *scales, out_rows,
+                                        stream_dtype or tables_flat.dtype)

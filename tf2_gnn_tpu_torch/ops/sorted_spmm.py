@@ -697,15 +697,16 @@ def plan_gather_src(tables, plan: ScatterPlan,
 
 class PlanGatherTgtTyped(torch.autograd.Function):
     """Per-slot rows of a TYPE-MINOR target table [V*L, F] (row
-    ``tgt * L + type``; ``plan_gather_tgt_typed``, spmm_pallas.py:716-752).
-    A forward chunk's rows stay inside one expanded block of 128 * L rows,
-    so the backward runs B12 over the forward plan itself with
-    ``rel * L + type`` and ``block_rows = 128 * L``."""
+    ``tgt * L + type``; ``plan_gather_tgt_typed``, spmm_pallas.py:716-752)
+    in ``stream_dtype``. A forward chunk's rows stay inside one expanded
+    block of 128 * L rows, so the backward runs B12 over the forward plan
+    itself with ``rel * L + type`` and ``block_rows = 128 * L``: an f32
+    gradient, read from a stream in the cotangent's dtype."""
 
     @staticmethod
-    def forward(ctx, table_tl, plan: ScatterPlan):
+    def forward(ctx, table_tl, plan: ScatterPlan, stream_dtype):
         ctx.plan, ctx.rows = plan, table_tl.shape[0]
-        return table_tl.index_select(0, plan.tgt_typed_idx)
+        return table_tl.to(stream_dtype).index_select(0, plan.tgt_typed_idx)
 
     @staticmethod
     def backward(ctx, g):
@@ -716,37 +717,44 @@ class PlanGatherTgtTyped(torch.autograd.Function):
                                      block_rows=BLOCK_NODES * plan.num_types,
                                      compact=plan.sum_rows("fwd_typed",
                                                            ctx.rows))
-        return d_table, None
+        return d_table, None, None
 
 
-def plan_gather_tgt_typed(table_tl, plan: ScatterPlan) -> torch.Tensor:
-    """The forward-slot rows ``tgt * L + type`` of ``table_tl`` [V*L, F]."""
-    return PlanGatherTgtTyped.apply(table_tl, plan)
+def plan_gather_tgt_typed(table_tl, plan: ScatterPlan,
+                          stream_dtype: torch.dtype = None) -> torch.Tensor:
+    """The forward-slot rows ``tgt * L + type`` of ``table_tl`` [V*L, F],
+    in ``stream_dtype`` (default: the table's dtype)."""
+    return PlanGatherTgtTyped.apply(table_tl, plan,
+                                    stream_dtype or table_tl.dtype)
 
 
 class PlanScatter(torch.autograd.Function):
     """``out[v] = sum over forward slots of v of weighted[slot]`` through
-    B12 (``plan_scatter``, spmm_pallas.py:597-619); the gradient is a
-    gather by absolute target, zero on sentinels."""
+    B12 (``plan_scatter``, spmm_pallas.py:597-619), the stream cast to
+    ``stream_dtype``; the gradient is a gather by absolute target, zero on
+    sentinels, in the cotangent's f32 (the reference's transpose of the
+    cast passes it unrounded)."""
 
     @staticmethod
-    def forward(ctx, weighted, plan: ScatterPlan):
+    def forward(ctx, weighted, plan: ScatterPlan, stream_dtype):
         ctx.plan = plan
-        return sorted_segment_sum(weighted, plan.rel_tgt, plan.tgt_blocks,
-                                  plan.num_nodes,
+        return sorted_segment_sum(weighted.to(stream_dtype), plan.rel_tgt,
+                                  plan.tgt_blocks, plan.num_nodes,
                                   compact=plan.sum_rows("fwd", plan.num_nodes))
 
     @staticmethod
     def backward(ctx, g):
         plan = ctx.plan
         d = g.index_select(0, plan.tgtabs_idx)
-        return d.masked_fill_(plan.fwd_sentinel[:, None], 0.0), None
+        return d.masked_fill_(plan.fwd_sentinel[:, None], 0.0), None, None
 
 
-def plan_scatter(weighted, plan: ScatterPlan) -> torch.Tensor:
+def plan_scatter(weighted, plan: ScatterPlan,
+                 stream_dtype: torch.dtype = None) -> torch.Tensor:
     """The f32 [V, H] per-target sum of the forward-slot stream
-    ``weighted`` [slots, H]."""
-    return PlanScatter.apply(weighted, plan)
+    ``weighted`` [slots, H], streamed in ``stream_dtype`` (default: the
+    stream's dtype)."""
+    return PlanScatter.apply(weighted, plan, stream_dtype or weighted.dtype)
 
 
 class AttentionScatter(torch.autograd.Function):

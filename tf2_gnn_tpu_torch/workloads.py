@@ -26,7 +26,8 @@ The QM9-shaped workload is a numpy copy of ``bench.py::build_qm9_batch``:
 V padded to 16384, 910 graph slots, 32 input features, per-type pair
 plans grouped from type 0 and one regression target a molecule.
 ``qm9_shipped_params`` is the shipped QM9_RGCN configuration that
-``bench.py::measure_qm9`` times.
+``bench.py::measure_qm9`` times; ``graph_regression_edge_mlp_params`` the
+shipped GraphRegression_GNN_Edge_MLP, which reads the same batch.
 """
 import json
 from pathlib import Path
@@ -97,16 +98,21 @@ def rgcn_sorted_params() -> Dict[str, Any]:
     return params
 
 
+def _shipped_model_params(hypers_file: str) -> Dict[str, Any]:
+    """The model params of ``harness/default_hypers/<hypers_file>``."""
+    return json.loads((Path(__file__).resolve().parent / "harness"
+                       / "default_hypers" / hypers_file).read_text()
+                      )["model_params"]
+
+
 def shipped_params(hypers_file: str, style: str) -> Dict[str, Any]:
     """The shipped configuration ``harness/default_hypers/<hypers_file>``
     over ``NodeMulticlassTask.get_default_hyperparameters(style)``, with
     Adam at lr 1e-3."""
     from .models.node_multiclass_task import NodeMulticlassTask
 
-    shipped = json.loads((Path(__file__).resolve().parent / "harness"
-                          / "default_hypers" / hypers_file).read_text())
     params = NodeMulticlassTask.get_default_hyperparameters(style)
-    params.update(shipped["model_params"])
+    params.update(_shipped_model_params(hypers_file))
     params["learning_rate"] = 0.001
     return params
 
@@ -121,10 +127,25 @@ def qm9_shipped_params() -> Dict[str, Any]:
     4 and 6 with dropout 0.2."""
     from .models.qm9_regression_task import QM9RegressionTask
 
-    shipped = json.loads((Path(__file__).resolve().parent / "harness"
-                          / "default_hypers" / "QM9_RGCN.json").read_text())
     params = QM9RegressionTask.get_default_hyperparameters("rgcn")
-    params.update(shipped["model_params"])
+    params.update(_shipped_model_params("QM9_RGCN.json"))
+    return params
+
+
+def graph_regression_edge_mlp_params() -> Dict[str, Any]:
+    """The shipped GraphRegression_GNN_Edge_MLP
+    (``harness/default_hypers/GraphRegression_GNN_Edge_MLP.json``'s model
+    params over ``GraphRegressionTask.get_default_hyperparameters(
+    "gnn_edge_mlp")``): 12 layers, hidden 64, target-state input with 0
+    hidden edge-MLP layers (the factorised form), gelu messages, residual
+    every 2, LayerNorm, dense every 10000 (at layer 0 only), input dropout
+    0.1, no global exchange (every 40 layers), an f32 edge stream, a
+    [64]-layer readout of 32 features in 4 heads, and Adam at lr 1e-4 with
+    clipping by value at 1.0."""
+    from .models.graph_regression_task import GraphRegressionTask
+
+    params = GraphRegressionTask.get_default_hyperparameters("gnn_edge_mlp")
+    params.update(_shipped_model_params("GraphRegression_GNN_Edge_MLP.json"))
     return params
 
 
