@@ -191,6 +191,27 @@ Phases, each of which fails the run by raising:
       ``torch.sparse.mm`` of the form's CSR, with device times; logged,
       B3 and B12 keep their entries), and the phase's wall time.
 
+11. The unfused per-edge path (``UNFUSED_MODELS``) on the batches without
+    plans, the JAX package's default route, at full width with random
+    weights from the seed:
+   a. PPI_RGCN as ``bench.py``'s ``"xla"`` path (the shipped
+      PPI_RGCN.json on ``build_batch(0, use_pallas=False,
+      use_pairs=False)``'s arrays), 3 train steps;
+   b. the shipped GraphRegression_GNN_Edge_MLP on the QM9 batch without
+      plans, its dataset default, 3 train steps;
+   c. PPI_RGAT, PPI_GGNN, PPI_RGIN, PPI_GNN_Edge_MLP and PPI_GNN_FiLM on
+      the PPI batch without plans, 2 train steps each;
+   d. the options without a fused route, 2 train steps each: PPI_RGIN
+      with the mean, max and sqrt_n aggregations, PPI_RGCN with the
+      activation before the aggregation, the reference-default
+      GNN_Edge_MLP with 2 hidden edge-MLP layers.
+   Every hand-written kernel's launch count reads 0 over the steps, and
+   the losses fall; the eval forward is held against the same weights
+   on the batch's per-type-plan form (a-c, a fused route with kernels) or
+   against the same model on the CPU (d), over the real rows; each
+   model's train step and eval forward are timed beside the fused
+   route's, with the peak memory, and the phase's wall time.
+
 A line before those below gives the script's wall time. The line before
 the last two is the JSON ``kernels`` line (all eighteen kernels); then
 the card's name and power limit (nvidia-smi); the last line is the JSON
@@ -481,35 +502,56 @@ def check_eval_forward(model, batch, labels, patches,
     ``loss_rtol``."""
     import torch
 
-    from tf2_gnn_tpu_torch.workloads import NUM_LABELS
-
-    shape = shape or (batch.num_nodes_padded, NUM_LABELS)
     with torch.no_grad():
         out = model(batch, False)
         with _patched(patches):
             out_plain = model(batch, False)
+    check_outputs_agree("kernels vs plain versions", model, batch, labels,
+                        out, out_plain, logit_rtol, atol, loss_rtol, shape)
+
+
+def check_outputs_agree(what: str, model, batch, labels, out, out_ref,
+                        logit_rtol: float, atol: float, loss_rtol: float,
+                        shape=None, ref_batch=None, ref_labels=None,
+                        rows=None) -> None:
+    """Two eval forwards' outputs (``out`` on ``batch``, ``out_ref`` on
+    ``ref_batch``, by default the same) within ``atol`` plus
+    ``logit_rtol`` of the largest reference |logit|, over the first
+    ``rows`` rows (by default all), their losses within ``loss_rtol``;
+    the outputs finite and of ``shape`` (by default [V, labels])."""
+    import torch
+
+    from tf2_gnn_tpu_torch.workloads import NUM_LABELS
+
+    shape = shape or (batch.num_nodes_padded, NUM_LABELS)
+    ref_batch = batch if ref_batch is None else ref_batch
+    ref_labels = labels if ref_labels is None else ref_labels
+    with torch.no_grad():
         loss = model.compute_task_metrics(batch, out, labels)["loss"]
-        loss_plain = model.compute_task_metrics(batch, out_plain,
-                                                labels)["loss"]
+        loss_ref = model.compute_task_metrics(ref_batch, out_ref,
+                                              ref_labels)["loss"]
     logits = out[0] if isinstance(out, tuple) else out
-    logits_plain = out_plain[0] if isinstance(out, tuple) else out_plain
+    logits_ref = out_ref[0] if isinstance(out_ref, tuple) else out_ref
     if tuple(logits.shape) != tuple(shape):
         raise AssertionError(f"eval forward: outputs of shape "
                              f"{tuple(logits.shape)}, expected {tuple(shape)}")
-    model_err = float((logits - logits_plain).abs().max())
-    largest = float(logits_plain.abs().max())
+    logits_ref = logits_ref.to(logits.device)[:rows]
+    finite = bool(torch.isfinite(logits).all())
+    logits = logits[:rows]
+    model_err = float((logits - logits_ref).abs().max())
+    largest = float(logits_ref.abs().max())
     limit = atol + logit_rtol * largest
-    if not (torch.isfinite(logits).all() and model_err <= limit
-            and abs(float(loss) - float(loss_plain))
-            <= loss_rtol * abs(float(loss_plain))):
+    if not (finite and model_err <= limit
+            and abs(float(loss) - float(loss_ref))
+            <= loss_rtol * abs(float(loss_ref))):
         raise AssertionError(
-            f"eval forward: kernels vs plain versions max abs logit err "
+            f"eval forward: {what} max abs logit err "
             f"{model_err} (limit {limit}: atol {atol} + {logit_rtol} of the "
             f"largest |logit| {largest}), loss {float(loss)} vs "
-            f"{float(loss_plain)} (rtol {loss_rtol})")
-    log(f"eval forward vs plain versions: max abs logit err {model_err:.3e} "
+            f"{float(loss_ref)} (rtol {loss_rtol})")
+    log(f"eval forward, {what}: max abs logit err {model_err:.3e} "
         f"(limit {limit:.3e}, largest |logit| {largest:.3e}), loss "
-        f"{float(loss):.6f} vs {float(loss_plain):.6f}")
+        f"{float(loss):.6f} vs {float(loss_ref):.6f}")
 
 
 def _patched(patches):
@@ -573,16 +615,16 @@ def train_and_count(model, params, batch, labels, counters, expected,
 
 
 def time_path(state, train_step, eval_step, batch, labels, real_edges,
-              device, argv, name: str) -> None:
+              device, argv, name: str, steps: int = TIMED_STEPS):
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(steps):
         state, metrics = train_step(state, batch, labels)
     float(metrics["loss"])
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
     eval_ms = time_ms(lambda: eval_step(batch, labels), reps=10)
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     log(f"{name} train step: {step_ms:.3f} ms ({real_edges / step_ms * 1e3:.4g} "
@@ -2469,6 +2511,187 @@ def merged_scatter_path(device, argv):
     return [], entries
 
 
+# Phase 11's models on the batches without plans, the unfused per-edge
+# path: (name, the params' source, the batch, train steps, what the eval
+# forward is held against, the check's tolerances (atol, share of the
+# largest reference |logit|, loss rtol)). "fused": the same weights on the
+# batch's per-type-plan form, whose route is fused; "cpu": the same model
+# on the CPU, on the same batch (the options have no fused route). The
+# tolerances are those of the phases that run the same models against
+# their plain versions (2, 9, 10), held over the real rows (the padded
+# edges reach the pad row on the unfused path alone): on both sides the
+# same bf16 stream entries are summed in f32, in other orders. PPI_RGAT's
+# fused route rounds its tables and scores to bf16 and stabilises by the
+# bound, where the unfused path stays f32 under the exact max, so it is
+# held to 1e-4 plus 2**-6 of the largest |logit| (four bf16 ulps) and
+# 1e-3 of the loss. On the CPU, at the batches of
+# tests/test_torch_chip_smoke.py, the unfused eval forwards lie within
+# 3.6e-3 of the fused ones' largest |logit| 6.4 for PPI_RGCN, 3.4e-3 of
+# 3.4 for PPI_RGIN, 2.3e-5 of 4.0 for PPI_GGNN, 3.0e-4 of 0.37 for
+# PPI_RGAT and 4.5e-5 of 5.0 or less for the f32 models; with one edge
+# type's messages doubled on the unfused side every check fails.
+UNFUSED_RGAT_TOLS = (1e-4, 2.0 ** -6, LOSS_RTOL)
+UNFUSED_MODELS = (
+    ("PPI_RGCN (bench.py's \"xla\" path)", "PPI_RGCN.json", "ppi", 3,
+     "fused", (MODEL_ATOL, 0.0, LOSS_RTOL)),
+    ("GraphRegression_GNN_Edge_MLP (QM9, no plans)",
+     "GraphRegression_GNN_Edge_MLP.json", "qm9", 3, "fused",
+     F32_STREAM_TOLS),
+    ("PPI_RGAT", "PPI_RGAT.json", "ppi", 2, "fused", UNFUSED_RGAT_TOLS),
+    ("PPI_GGNN", "PPI_GGNN.json", "ppi", 2, "fused", GGNN_TOLS),
+    ("PPI_RGIN", "PPI_RGIN.json", "ppi", 2, "fused", RGIN_TOLS),
+    ("PPI_GNN_Edge_MLP", "PPI_GNN_Edge_MLP.json", "ppi", 2, "fused",
+     F32_STREAM_TOLS),
+    ("PPI_GNN_FiLM", "PPI_GNN_FiLM.json", "ppi", 2, "fused",
+     F32_STREAM_TOLS),
+    ("PPI_RGIN, mean aggregation", "PPI_RGIN.json, mean", "ppi", 2, "cpu",
+     RGIN_TOLS),
+    ("PPI_RGIN, max aggregation", "PPI_RGIN.json, max", "ppi", 2, "cpu",
+     RGIN_TOLS),
+    ("PPI_RGIN, sqrt_n aggregation", "PPI_RGIN.json, sqrt_n", "ppi", 2,
+     "cpu", RGIN_TOLS),
+    ("PPI_RGCN, activation before aggregation",
+     "PPI_RGCN.json, activation before", "ppi", 2, "cpu",
+     (MODEL_ATOL, 0.0, LOSS_RTOL)),
+    ("GNN_Edge_MLP reference default, 2 hidden layers",
+     "edge_mlp_default_params(), 2 hidden layers", "ppi", 2, "cpu",
+     F32_STREAM_TOLS),
+)
+UNFUSED_TIMED_STEPS = 10  # train steps in each step-time window of phase 11
+
+
+def unfused_params(source: str):
+    """The hyperparameters of a phase 11 model, by their source: a shipped
+    file or a phase 10 source, and the option it changes."""
+    from tf2_gnn_tpu_torch import workloads
+
+    base, _, option = source.partition(", ")
+    if base == "edge_mlp_default_params()":
+        return dict(workloads.edge_mlp_default_params(),
+                    gnn_num_edge_MLP_hidden_layers=2)
+    if base in ("PPI_RGAT.json", "PPI_GGNN.json", "PPI_RGIN.json"):
+        params = workloads.shipped_params(
+            base, base[len("PPI_"):-len(".json")].lower())
+    else:
+        params = route_params(base)
+    if option in ("mean", "max", "sqrt_n"):
+        params["gnn_aggregation_function"] = option
+    elif option == "activation before":
+        params["gnn_message_activation_before_aggregation"] = True
+    return params
+
+
+def unfused_batches(device):
+    """Phase 11's batches by (kind, with plans): the PPI batch without a
+    plan (``bench.py``'s ``"xla"`` batch) and with per-type plans (phase
+    2's), the QM9 batch without a plan and with per-type plans (phase 7's);
+    each (batch, labels, real edge count)."""
+    from tf2_gnn_tpu_torch.workloads import build_ppi_batch, build_qm9_batch
+
+    batches = {}
+    for kind, build in (("ppi", build_ppi_batch), ("qm9", build_qm9_batch)):
+        for plans in (False, True):
+            t0 = time.perf_counter()
+            batch, labels, _ = build(SEED, device=device, plans=plans)
+            edges = int(batch.num_edges.sum())
+            batches[kind, plans] = (batch, labels, edges)
+            log(f"workload ({kind}, {'per-type plans' if plans else 'no plan'}"
+                f"): {edges} edges, V={batch.num_nodes_padded}, built in "
+                f"{time.perf_counter() - t0:.1f} s")
+    return batches
+
+
+def unfused_reference(model, batch, labels, against: str):
+    """The eval forward phase 11 holds the card's against: (what, its
+    outputs, the batch and labels it ran on)."""
+    import copy
+
+    import torch
+
+    if against == "fused":
+        route = model.gnn.mp_layer_0._route(batch)
+        if route == "unfused":
+            raise AssertionError("the per-type-plan batch took the unfused "
+                                 "path")
+        with torch.no_grad():
+            out = model(batch, False)
+        return f"unfused vs the same weights on the {route} route", out, \
+            batch, labels
+    cpu = torch.device("cpu")
+    cpu_batch = batch.to(cpu)
+    cpu_labels = {k: v.to(cpu) for k, v in labels.items()}
+    with torch.no_grad():
+        out = copy.deepcopy(model).to(cpu)(cpu_batch, False)
+    return "card vs the CPU", out, cpu_batch, cpu_labels
+
+
+def unfused_path(device, argv):
+    """Phase 11: the unfused per-edge path on the batches without plans
+    (``UNFUSED_MODELS``): each model's train steps launch no hand-written
+    kernel; its eval forward is held against the same weights on a fused
+    route, or against the CPU; its step and eval times beside the fused
+    route's, and the peak memory."""
+    import torch
+
+    t_phase = time.perf_counter()
+    batches = unfused_batches(device)
+    log(f"phase 11: {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB "
+        "held before its models (its batches)")
+    counters = launch_counters()
+    peak = 0
+    for name, source, kind, steps, against, tols in UNFUSED_MODELS:
+        bare, labels, edges = batches[kind, False]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        params = unfused_params(source)
+        model = route_model(params, bare, device, name)
+        layers = params["gnn_num_layers"]
+        routes = {getattr(model.gnn, f"mp_layer_{i}")._route(bare)
+                  for i in range(layers)}
+        if routes != {"unfused"}:
+            raise AssertionError(f"{name}: routes {routes} on the batch "
+                                 "without plans")
+        state, train_step, eval_step, _ = train_and_count(
+            model, params, bare, labels, counters, zero_counts(counters),
+            steps=steps)
+        log(f"{name}: no kernel launched in {steps} unfused train steps")
+        ref_batch = batches[kind, True] if against == "fused" else \
+            batches[kind, False]
+        what, out_ref, ref_batch, ref_labels = unfused_reference(
+            model, *ref_batch[:2], against)
+        with torch.no_grad():
+            out = model(bare, False)
+        atol, logit_rtol, loss_rtol = tols
+        # Real rows only: the padded edges reach the pad node's row on the
+        # unfused path, never on a fused one, whose plans hold real edges.
+        graphs = kind == "qm9"
+        check_outputs_agree(
+            what, model, bare, labels, out, out_ref, logit_rtol, atol,
+            loss_rtol, shape=(bare.num_graphs_padded,) if graphs else None,
+            ref_batch=ref_batch, ref_labels=ref_labels,
+            rows=bare.num_graphs if graphs else bare.num_nodes)
+        del out, out_ref
+        time_path(state, train_step, eval_step, bare, labels, edges, device,
+                  argv, f"{name}, unfused", steps=UNFUSED_TIMED_STEPS)
+        peak = max(peak, torch.cuda.max_memory_allocated(device))
+        if against == "fused":
+            torch.cuda.reset_peak_memory_stats(device)
+            fused, fused_labels, _ = batches[kind, True]
+            # Warm-up: the plan's backward compact forms are built at the
+            # first backward that reads them.
+            for _ in range(2):
+                train_step(state, fused, fused_labels)
+            time_path(state, train_step, eval_step, fused, fused_labels,
+                      edges, device, argv,
+                      f"{name}, fused ({model.gnn.mp_layer_0._route(fused)})",
+                      steps=UNFUSED_TIMED_STEPS)
+            peak = max(peak, torch.cuda.max_memory_allocated(device))
+        del model, state, train_step, eval_step
+    torch.cuda.empty_cache()
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s, peak memory "
+        f"{peak / 2**30:.2f} GiB")
+
+
 def launch_counters():
     """(reset, counts) of every kernel module's launch counts, in the order
     of the phases that introduced them."""
@@ -2650,7 +2873,8 @@ def main(argv) -> int:
     # -- 2. PPI_RGCN, 3. PPI_RGAT, 4. GNN_Edge_MLP, 5. scatter plans,
     # -- 6. RGAT on per-type plans, 7. QM9_RGCN, 8. the probes, 9. GGNN,
     # -- RGIN, PPI_GNN_Edge_MLP and GNN-FiLM, 10. the edge-MLP family on
-    # -- merged, merged-target and scatter plans, GraphRegression ----------
+    # -- merged, merged-target and scatter plans, GraphRegression, 11. the
+    # -- unfused per-edge path on the batches without plans ---------------
     # Each path returns its kernels-line entries, and phases 3-6 also the
     # entries of other call forms (none for phase 4), which are logged.
     kernels = rgcn_path(device, argv)
@@ -2671,6 +2895,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     route_kernels, route_forms = merged_scatter_path(device, argv)
     kernels += route_kernels
+    torch.cuda.empty_cache()
+    unfused_path(device, argv)
     add_device_times(kernels + other_forms + probe_forms + qm9_entries
                      + flavour_forms + route_forms)
     if len(kernels) != len({k["name"] for k in kernels}) or len(kernels) != 18:

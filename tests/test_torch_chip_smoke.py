@@ -23,15 +23,30 @@ take their plain versions.
   doubled (B12) fail; and each route's eval forward and train step launch
   the wrappers exactly as often as ``ROUTE_MODELS`` states, counted
   through the wrappers' plain versions.
+* Phase 11 (``UNFUSED_MODELS``, at full width on the same cut batches):
+  every model takes the unfused path on the batch without plans, and its
+  eval forward and a train step reach no kernel wrapper (each counted
+  where the layers look it up); its eval check, as the phase runs it,
+  passes (against the same weights on the per-type-plan batch through
+  the plain versions, or, for the options without a fused route, against
+  a CPU forward whose segment sums run in another order, as the card's
+  atomics would) and fails with one edge type's messages doubled on the
+  unfused side.
 """
 import pytest
 import torch
 
 import chip_smoke
 from tf2_gnn_tpu_torch import workloads
+from tf2_gnn_tpu_torch.layers.message_passing import base as tbase
+from tf2_gnn_tpu_torch.layers.message_passing import rgat as trgat
 from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
 from tf2_gnn_tpu_torch.models.qm9_regression_task import QM9RegressionTask
+from tf2_gnn_tpu_torch.ops import pair_attention as tpa
+from tf2_gnn_tpu_torch.ops import pair_edge_mlp as tpem
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
+from tf2_gnn_tpu_torch.ops import probes as tprobes
+from tf2_gnn_tpu_torch.ops import segment as tseg
 from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
 
 
@@ -304,3 +319,163 @@ def test_route_launch_counts(name, route_batches, monkeypatch):
         model, params, batch, labels, counters,
         dict(chip_smoke.zero_counts(counters),
              **{n: c * layers for n, c in per_layer.items()}), steps=1)
+
+
+@pytest.fixture(scope="module")
+def unfused_batches():
+    """Phase 11's batches, cut as ``route_batches``, by (kind, plans)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(workloads, "NODES_PER_GRAPH", 150)
+        mp.setattr(workloads, "FWD_EDGES_PER_GRAPH", 1500)
+        mp.setattr(workloads, "NODE_BUDGET", 512)
+        real = workloads.build_qm9_batch
+        mp.setattr(workloads, "build_qm9_batch",
+                   lambda seed, device="cuda", **kw: real(
+                       seed, device, molecules=120, node_budget=2304, **kw))
+        return chip_smoke.unfused_batches("cpu")
+
+
+UNFUSED = [m[0] for m in chip_smoke.UNFUSED_MODELS]
+
+
+def _unfused_case(name, unfused_batches):
+    _, source, kind, _, against, tols = next(
+        m for m in chip_smoke.UNFUSED_MODELS if m[0] == name)
+    params = chip_smoke.unfused_params(source)
+    bare, labels, _ = unfused_batches[kind, False]
+    model = chip_smoke.route_model(params, bare, "cpu", name)
+    return model, params, kind, against, tols, unfused_batches
+
+
+# Every kernel wrapper by the name its callers look it up under, and the
+# launch count it runs under; the modules that import one by name.
+WRAPPERS = {
+    "pair_spmm_stream": "pair_stream",
+    "pair_spmm_stream_joint": "pair_stream_joint",
+    "pair_spmm": "pair_spmm",
+    **{name: name for name in (*tpa.LAUNCHES, *tpem.LAUNCHES, *tss.LAUNCHES,
+                               *tprobes.LAUNCHES)},
+    "sorted_segment_sum_gathered": "sorted_segment_sum",
+}
+CALLERS = (tps, tpa, tpem, tss, tprobes, trgat)
+
+
+def _count_every_wrapper(monkeypatch):
+    """Each wrapper counted under its launch count wherever a caller looks
+    it up; returns the counts."""
+    counts = {key: 0 for key in WRAPPERS.values()}
+    for module in CALLERS:
+        for name, key in WRAPPERS.items():
+            real = getattr(module, name, None)
+            if real is None:
+                continue
+
+            def call(*args, _real=real, _key=key, **kwargs):
+                counts[_key] += 1
+                return _real(*args, **kwargs)
+            monkeypatch.setattr(module, name, call)
+    return counts
+
+
+@pytest.mark.parametrize("name", UNFUSED)
+def test_unfused_models_launch_no_kernel(name, unfused_batches, monkeypatch):
+    """On the batch without plans every layer names the unfused route, and
+    the eval forward and a train step reach no kernel wrapper, while the
+    same model's eval forward on a planned batch reaches one (the counts
+    see the layers' calls)."""
+    model, params, kind, against, _, batches = _unfused_case(
+        name, unfused_batches)
+    bare, labels, _ = batches[kind, False]
+    counts = _count_every_wrapper(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    layers = params["gnn_num_layers"]
+    assert {getattr(model.gnn, f"mp_layer_{i}")._route(bare)
+            for i in range(layers)} == {"unfused"}
+    counters = chip_smoke.launch_counters()
+    with torch.no_grad():
+        model(bare, False)
+    chip_smoke.train_and_count(model, params, bare, labels, counters,
+                               chip_smoke.zero_counts(counters), steps=1)
+    assert not any(counts.values()), counts
+    if against == "fused":
+        with torch.no_grad():
+            model(batches[kind, True][0], False)
+        assert any(counts.values())
+
+
+def _unfused_check(model, kind, against, tols, batches):
+    """Phase 11's eval check of ``model`` on the batch without plans."""
+    bare, labels, _ = batches[kind, False]
+    ref = batches[kind, True] if against == "fused" else batches[kind, False]
+    what, out_ref, ref_batch, ref_labels = chip_smoke.unfused_reference(
+        model, ref[0], ref[1], against)
+    with torch.no_grad():
+        out = model(bare, False)
+    atol, logit_rtol, loss_rtol = tols
+    graphs = kind == "qm9"
+    chip_smoke.check_outputs_agree(
+        what, model, bare, labels, out, out_ref, logit_rtol, atol, loss_rtol,
+        shape=(bare.num_graphs_padded,) if graphs else None,
+        ref_batch=ref_batch, ref_labels=ref_labels,
+        rows=bare.num_graphs if graphs else bare.num_nodes)
+
+
+_SEGMENT_SUM = tseg.segment_sum
+
+
+def _reordered_segment_sum(data, segment_ids, num_segments):
+    """``segment_sum`` over the same rows, added in a random order."""
+    perm = torch.randperm(data.shape[0],
+                          generator=torch.Generator().manual_seed(1))
+    return _SEGMENT_SUM(data[perm], segment_ids[perm], num_segments)
+
+
+def _type1_messages_doubled(monkeypatch, model):
+    """The model's unfused messages with edge type 1's doubled (RGAT's
+    per-edge messages, not its logits)."""
+    cls = type(model.gnn.mp_layer_0)
+    real = cls._compute_messages_per_type
+
+    def doubled(self, *args, **kwargs):
+        messages = list(real(self, *args, **kwargs))
+        first = messages[1]
+        messages[1] = ((2.0 * first[0],) + tuple(first[1:])
+                       if isinstance(first, tuple) else 2.0 * first)
+        return messages
+    monkeypatch.setattr(cls, "_compute_messages_per_type", doubled)
+
+
+@pytest.mark.parametrize("name", UNFUSED)
+def test_unfused_eval_check_passes(name, unfused_batches, monkeypatch):
+    model, _, kind, against, tols, batches = _unfused_case(
+        name, unfused_batches)
+    if against == "cpu":
+        # The reference is the same model on the same device here: the
+        # card's side sums in another order.
+        real = chip_smoke.unfused_reference
+
+        def reference(*args):
+            with monkeypatch.context() as mp:
+                mp.setattr(tseg, "segment_sum", _reordered_segment_sum)
+                mp.setattr(tbase, "get_aggregation_function",
+                           lambda n: {"sum": _reordered_segment_sum}.get(
+                               n, tseg.get_aggregation_function(n)))
+                return real(*args)
+        monkeypatch.setattr(chip_smoke, "unfused_reference", reference)
+    _unfused_check(model, kind, against, tols, batches)
+
+
+@pytest.mark.parametrize("name", UNFUSED)
+def test_unfused_eval_check_catches_doubled_messages(name, unfused_batches,
+                                                     monkeypatch):
+    model, _, kind, against, tols, batches = _unfused_case(
+        name, unfused_batches)
+    if against == "cpu":
+        real = chip_smoke.unfused_reference
+        # The reference runs before the patch below takes effect.
+        reference = real(model, *batches[kind, False][:2], against)
+        monkeypatch.setattr(chip_smoke, "unfused_reference",
+                            lambda *args: reference)
+    _type1_messages_doubled(monkeypatch, model)
+    with pytest.raises(AssertionError, match="eval forward"):
+        _unfused_check(model, kind, against, tols, batches)

@@ -18,7 +18,11 @@ PPI-shaped batch:
   and without 1/deg, f32 and bf16 streams; and on a batch carrying both a
   merged-target plan and scatter plans, with the relu-pair gate failing
   on the port's side only, the port routes to the scatter-plan form and
-  still matches the JAX package, which takes the relu-pair op there.
+  still matches the JAX package, which takes the relu-pair op there;
+* the forms that the fused routes leave to the unfused per-edge path (2
+  hidden layers, a merged plan with local targets, the relu-pair gate
+  failing without scatter plans) against the JAX package on the same
+  batch.
 
 Tolerances. f32 edge streams: rtol 1e-4 / atol 1e-6 for the layer (the
 same products summed in other orders), atol 1e-5 for the whole model
@@ -409,22 +413,22 @@ def test_failed_relu_pair_gate_routes_to_scatter_plans(monkeypatch):
 def test_unported_forms_raise():
     """Two hidden layers need per-edge matmuls; the one-hidden form on a
     merged plan with local targets, or with the relu-pair gate failing,
-    and no scatter plans takes the unfused path in the JAX package: each
-    raises, naming it."""
+    and no scatter plans takes the unfused path in the JAX package. Each
+    now runs the port's unfused path and matches the JAX package's (the
+    test's name is its id from when these forms raised); with the gate
+    failing on the port's side only, the JAX package takes the relu-pair
+    op, whose sums are the same."""
     params = probe_params("float32", hidden=8, layers=2)
     _, merged_batch, _ = small_workload(seed=5, merged=True)
-    _, targets_batch, _ = small_workload(seed=5, merged=True,
-                                         merge_targets=True)
-    with pytest.raises(NotImplementedError, match="one hidden layer"):
-        NodeMulticlassTask.from_params(
-            dict(params, gnn_num_edge_MLP_hidden_layers=2),
-            input_dim=FEATURES, num_edge_types=3, device="cpu")
-    model = NodeMulticlassTask.from_params(
-        params, input_dim=FEATURES, num_edge_types=3, device="cpu",
-        num_labels=NUM_LABELS)
-    with pytest.raises(NotImplementedError, match="merged-target"):
-        model(merged_batch, False)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(tpem, "VMEM_DUAL_TABLE_BUDGET_BYTES", 0)
-            model(targets_batch, False)
+    jtargets, targets_batch, labels = small_workload(seed=5, merged=True,
+                                                     merge_targets=True)
+    jmerged = small_workload(seed=5, merged=True)[0]
+    deep = dict(params, gnn_num_edge_MLP_hidden_layers=2)
+    for case_params, jbatch, batch in ((deep, jtargets, targets_batch),
+                                       (params, jmerged, merged_batch)):
+        model = _model_matches_jax(case_params, jbatch, batch, labels)
+        assert model.gnn.mp_layer_0._route(batch) == "unfused"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tpem, "VMEM_DUAL_TABLE_BUDGET_BYTES", 0)
+        model = _model_matches_jax(params, jtargets, targets_batch, labels)
+        assert model.gnn.mp_layer_0._route(targets_batch) == "unfused"

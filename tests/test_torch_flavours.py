@@ -12,7 +12,8 @@ source-only GNN-FiLM over scatter plans); the flavours' own flax leaves
 (GGNN's ``gru_cell``, RGIN's ``aggregation_mlp``, FiLM's
 ``film_mlp_layer_i``) landing where the strict bridge puts them; the
 port's copies of the five JSONs equal to the JAX package's; and the routes
-that stay unported raising.
+that the JAX package leaves to its unfused path taking the port's, and
+matching it.
 
 Tolerances, as ``test_torch_rgcn_model.py``: f32 edge streams rtol 1e-4 /
 atol 1e-5 (the same products summed in other orders by XLA and PyTorch);
@@ -285,27 +286,26 @@ def test_shipped_json_copies_are_the_jax_packages(style):
 
 
 def test_unported_routes_raise(workload):
-    """GNN-FiLM and the 0-hidden target-state edge MLP need per-type sums:
-    on a merged plan with local targets (and no scatter plans) and on a
-    batch without plans they raise, naming the unfused path the JAX
-    package takes there; FiLM's target-state form with a hidden edge-MLP
-    layer and GGNN on a state narrower than hidden_dim raise too."""
-    _, local_targets, _ = small_workload(seed=12, merged=True)
-    _, typed, _ = workload
-    bare = typed.replace(pair_plans_typed=None)
-    for case in ("film_target", "edge_mlp_target_0"):
-        model = NodeMulticlassTask.from_params(
-            case_params(case), input_dim=FEATURES, num_edge_types=3,
-            device="cpu", num_labels=NUM_LABELS)
-        for batch in (local_targets, bare):
-            with pytest.raises(NotImplementedError,
-                               match="queue A item 6"):
-                model(batch, False)
-    with pytest.raises(NotImplementedError, match="per-edge path"):
-        NodeMulticlassTask.from_params(
-            dict(case_params("film_target"),
-                 gnn_num_edge_MLP_hidden_layers=1),
-            input_dim=FEATURES, num_edge_types=3, device="cpu")
+    """GNN-FiLM and the 0-hidden target-state edge MLP on a merged plan
+    with local targets (and no scatter plans) and on a batch without
+    plans, and FiLM's target-state form with a hidden edge-MLP layer, take
+    the unfused per-edge path, as the JAX package does there, and match it
+    (the test's name is its id from when they raised); GGNN on a state
+    narrower than hidden_dim still raises."""
+    jlocal, local_targets, labels = small_workload(seed=12, merged=True)
+    jtyped, typed, typed_labels = workload
+    cases = [(case, jlocal, local_targets, labels)
+             for case in ("film_target", "edge_mlp_target_0")]
+    cases += [(case, jtyped.replace(pair_plans_typed=None),
+               typed.replace(pair_plans_typed=None), typed_labels)
+              for case in ("film_target", "edge_mlp_target_0")]
+    for case, jbatch, batch, batch_labels in cases:
+        model = assert_matches_jax(case_params(case), jbatch, batch,
+                                   batch_labels)
+        assert model.gnn.mp_layer_0._route(batch) == "unfused"
+    deep = dict(case_params("film_target"), gnn_num_edge_MLP_hidden_layers=1)
+    model = assert_matches_jax(deep, jtyped, typed, typed_labels)
+    assert model.gnn.mp_layer_0._route(typed) == "unfused"
     from tf2_gnn_tpu_torch.layers.message_passing import GGNN
 
     layer = GGNN(num_edge_types=3, input_dim=8, hidden_dim=16)

@@ -8,13 +8,17 @@
   raises; it does not fall back to the plain version; nor does a CUDA call
   of a row-owner wrapper (K1, K2, B3, B12 in both forms, B4, B5, B6, B9)
   without the plan's compact form (B9: either of its two);
-* a batch with neither the pair plans nor the scatter plan a flavour
-  reads raises ``NotImplementedError``; so does every edge-MLP form on a
-  batch where the JAX package takes its unfused per-edge path, naming it
-  (ROADMAP.md, queue A item 6): the target-state forms on scatter plans
-  with ``fused_target_gather=False``, the target-state GNN-FiLM on scatter
+* a batch with neither pair plans nor a scatter plan, and every edge-MLP
+  form on a batch where the JAX package takes its unfused per-edge path
+  (the target-state forms on scatter plans with
+  ``fused_target_gather=False``, the target-state GNN-FiLM on scatter
   plans, the 0-hidden target-state form on a merged plan with local
-  targets, and the target-state form with 2 hidden layers.
+  targets, and the target-state form with 2 hidden layers), take the
+  port's unfused path (``_route`` names ``"unfused"``) and match the JAX
+  package's on the same batch (``test_torch_flavours.py::
+  assert_matches_jax``);
+* a batch with plans whose kernel library cannot be built on the card
+  raises; it does not drop to the unfused path.
 """
 import ast
 from pathlib import Path
@@ -435,35 +439,24 @@ def test_cpu_tensors_take_the_plain_versions_of_the_probes():
 
 @pytest.mark.parametrize("style", ["rgcn", "rgat"])
 def test_batch_without_any_plan_raises(style):
-    """A batch with neither pair plans nor a scatter plan: the unfused
-    segment path is not ported, so the model raises."""
-    host, _, _ = workloads.build_ppi_batch_host(0, scatter=True)
-    bare = host.replace(scatter_plans=None).to("cpu")
+    """A batch with neither pair plans nor a scatter plan takes the
+    unfused per-edge path, which matches the JAX package's (the test's
+    name is its id from when this path raised)."""
+    from .test_torch_flavours import assert_matches_jax
+    from .test_torch_rgcn_model import small_workload
+
+    jbatch, tbatch, labels = small_workload(seed=21)
+    jbatch = jbatch.replace(pair_plans_typed=None)
+    bare = tbatch.replace(pair_plans_typed=None)
     params = NodeMulticlassTask.get_default_hyperparameters(style)
     params.update({"gnn_hidden_dim": 8, "gnn_num_layers": 1,
-                   "gnn_num_heads": 2,
+                   "gnn_num_heads": 2, "gnn_layer_input_dropout_rate": 0.0,
                    "gnn_global_exchange_every_num_layers": 10000})
-    model = NodeMulticlassTask.from_params(
-        params, input_dim=workloads.FEATURE_DIM, num_edge_types=3,
-        device="cpu", num_labels=workloads.NUM_LABELS)
-    with pytest.raises(NotImplementedError, match="scatter plans"):
-        model(bare, False)
+    model = assert_matches_jax(params, jbatch, bare, labels)
+    assert model.gnn.mp_layer_0._route(bare) == "unfused"
 
 
-@pytest.fixture(scope="module")
-def small_ppi_batches():
-    """The PPI-shaped batch cut to 3 graphs of 150 nodes (V = 512), with
-    scatter plans and with a merged plan of local targets."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(workloads, "NODES_PER_GRAPH", 150)
-        mp.setattr(workloads, "FWD_EDGES_PER_GRAPH", 1500)
-        mp.setattr(workloads, "NODE_BUDGET", 512)
-        return {kind: workloads.build_ppi_batch_host(0, **kwargs)[0].to("cpu")
-                for kind, kwargs in (("scatter", dict(scatter=True)),
-                                     ("pairs", dict(merged=True)))}
-
-
-# (shipped file, style, overrides, batch), each a route the JAX package
+# (shipped file, style, overrides, plan kind), each a route the JAX package
 # leaves to its unfused path.
 UNFUSED_CASES = {
     "edge_mlp_0_hidden_no_fused_target_gather": (
@@ -484,12 +477,60 @@ UNFUSED_CASES = {
 
 
 @pytest.mark.parametrize("case", list(UNFUSED_CASES))
-def test_unfused_routes_raise(case, small_ppi_batches):
+def test_unfused_routes_raise(case):
+    """Each route runs the port's unfused path, as the JAX package does on
+    the same batch, and matches it (the test's name is its id from when
+    these routes raised)."""
+    from .test_torch_flavours import assert_matches_jax
+    from .test_torch_rgcn_model import small_workload
+    from .test_torch_sorted_models import scatter_workload
+
     hypers, style, overrides, kind = UNFUSED_CASES[case]
     params = dict(workloads.shipped_params(hypers, style),
-                  gnn_hidden_dim=8, gnn_num_layers=1, **overrides)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        model = NodeMulticlassTask.from_params(
-            params, input_dim=workloads.FEATURE_DIM, num_edge_types=3,
-            device="cpu", num_labels=workloads.NUM_LABELS)
-        model(small_ppi_batches[kind], False)
+                  gnn_hidden_dim=8, gnn_num_layers=1,
+                  gnn_layer_input_dropout_rate=0.0, **overrides)
+    if kind == "scatter":
+        jbatch, tbatch, labels = scatter_workload(seed=22)
+    else:
+        jbatch, tbatch, labels = small_workload(seed=22,
+                                                merged=kind == "pairs")
+        if kind is None:
+            jbatch = jbatch.replace(pair_plans_typed=None)
+            tbatch = tbatch.replace(pair_plans_typed=None)
+    model = assert_matches_jax(params, jbatch, tbatch, labels)
+    assert model.gnn.mp_layer_0._route(tbatch) == "unfused"
+
+
+def test_cuda_batch_with_plans_does_not_drop_to_the_unfused_path(
+        monkeypatch, tmp_path):
+    """A batch with per-type plans whose kernel library cannot be built
+    on the card: the model raises where K2 would launch (its wrapper sees
+    a CUDA tensor), and the unfused path never runs."""
+    from tf2_gnn_tpu_torch.layers.message_passing import GNN_Edge_MLP
+
+    from .test_torch_rgcn_model import small_workload
+
+    _, batch, _ = small_workload(seed=23)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "DEFAULT_NVCC", tmp_path / "no-nvcc")
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    real = tps.pair_spmm_stream_joint
+    monkeypatch.setattr(
+        tps, "pair_spmm_stream_joint",
+        lambda tables, *args, **kwargs: real(_CudaTensorStandIn(), *args,
+                                             **kwargs))
+    unfused = []
+    monkeypatch.setattr(GNN_Edge_MLP, "_compute_messages_per_type",
+                        lambda *args: unfused.append(args))
+    params = dict(workloads.shipped_params("PPI_RGCN.json", "rgcn"),
+                  gnn_hidden_dim=8, gnn_num_layers=1)
+    model = NodeMulticlassTask.from_params(
+        params, input_dim=batch.node_features.shape[1], num_edge_types=3,
+        device="cpu", num_labels=7)
+    assert model.gnn.mp_layer_0._route(batch) == "pair_joint"
+    before = dict(tps.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        model(batch, False)
+    assert not unfused and tps.LAUNCHES == before

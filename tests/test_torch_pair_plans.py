@@ -1,7 +1,7 @@
 """The port's host planner (tf2_gnn_tpu_torch/ops/pair_spmm.py) against the
 JAX package's: plans, groups and the streamed concatenation must be
-byte-identical, on the full PPI bench workload (per-type and merged plans)
-and on degenerate fuzz cases
+byte-identical, on the full PPI bench workload (per-type and merged plans,
+and the bench's batch without plans) and on degenerate fuzz cases
 (empty edge types, tiny types, one hot target row, self loops, and a chunk
 budget small enough to spill pairs into the overflow list)."""
 import numpy as np
@@ -48,6 +48,33 @@ def test_workload_copy_is_array_identical(bench_batches):
     assert batch.num_nodes == int(ref_batch.num_nodes)
     assert batch.num_graphs == int(ref_batch.num_graphs)
     assert batch.num_graphs_padded == ref_batch.num_graphs_padded
+
+
+def test_bare_workload_is_the_bench_xla_batch(bench_batches):
+    """``build_ppi_batch_host(0, plans=False)`` is array-identical to
+    ``bench.build_batch(0, use_pallas=False, use_pairs=False)``, the batch
+    of the bench's ``"xla"`` path, and neither carries a plan; its arrays
+    are those of the per-type-plan batch."""
+    ref_batch, ref_labels, ref_edges = bench.build_batch(
+        0, use_pallas=False, use_pairs=False)
+    batch, labels, edges = workloads.build_ppi_batch_host(0, plans=False)
+    (_, _, _), (typed, typed_labels, _) = bench_batches
+    assert edges == ref_edges == 211200
+    fields = ("node_features", "node_to_graph", "num_edges", "in_degrees")
+    for got in (batch, typed):
+        assert_same_arrays(
+            [getattr(got, f) for f in fields] + [*got.edge_sources,
+                                                 *got.edge_targets],
+            [getattr(ref_batch, f) for f in fields]
+            + [*ref_batch.edge_sources, *ref_batch.edge_targets])
+    assert_same_arrays([labels["node_labels"], typed_labels["node_labels"]],
+                       [ref_labels["node_labels"]] * 2)
+    assert (ref_batch.pair_plans, ref_batch.pair_plans_typed,
+            ref_batch.scatter_plans) == (None, None, None)
+    assert (batch.pair_plans, batch.pair_plans_typed, batch.scatter_plans,
+            batch.pair_targets_merged) == (None, None, None, False)
+    with pytest.raises(ValueError, match="plans=False"):
+        workloads.build_ppi_batch_host(0, merged=True, plans=False)
 
 
 def test_bench_typed_plans_are_byte_identical(bench_batches):

@@ -1,7 +1,8 @@
 """The port's QM9-shaped workload against ``bench.py``'s: the batch of
 ``workloads.build_qm9_batch_host(0)`` is array-identical to
 ``bench.build_qm9_batch(0)`` (features, edges, graph map, the five
-per-type pair plans and the labels); ``workloads.qm9_shipped_params()`` is
+per-type pair plans and the labels), and its form without plans has the
+same arrays; ``workloads.qm9_shipped_params()`` is
 the dict ``bench.py::measure_qm9`` builds; the port's copy of
 ``QM9_RGCN.json`` is the JAX package's; the graph mask and the per-graph
 label pad are the JAX package's.
@@ -51,6 +52,31 @@ def test_batch_arrays_are_the_bench_batch(batches):
     np.testing.assert_array_equal(tlabels["target_value"],
                                   np.asarray(jlabels["target_value"]))
     assert tlabels["target_value"].shape == (910,)
+
+
+def test_bare_batch_is_the_bench_batch_without_its_plans(batches):
+    """``build_qm9_batch_host(0, plans=False)``, the dataset's default
+    form, has ``bench.build_qm9_batch(0)``'s arrays and no plan."""
+    (jbatch, jlabels, _), _ = batches
+    bare, labels, mols = workloads.build_qm9_batch_host(0, plans=False)
+    assert mols == 909
+    for name in ("node_features", "node_to_graph", "num_edges",
+                 "in_degrees"):
+        got, want = getattr(bare, name), np.asarray(getattr(jbatch, name))
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        assert got.dtype == want.dtype, name
+    for name in ("edge_sources", "edge_targets"):
+        for t, (got, want) in enumerate(zip(getattr(bare, name),
+                                            getattr(jbatch, name))):
+            np.testing.assert_array_equal(got, np.asarray(want),
+                                          err_msg=f"{name}[{t}]")
+    for name in ("num_nodes", "num_graphs", "num_graphs_padded"):
+        assert int(getattr(bare, name)) == int(getattr(jbatch, name)), name
+    np.testing.assert_array_equal(labels["target_value"],
+                                  np.asarray(jlabels["target_value"]))
+    assert jbatch.pair_plans_typed is not None
+    assert (bare.pair_plans_typed, bare.pair_plans,
+            bare.scatter_plans) == (None, None, None)
 
 
 def test_per_type_plans_are_the_bench_plans(batches):

@@ -8,8 +8,10 @@ aggregation kernel, B10) on both plan forms; one layer at hidden 576 with
 4 heads (wider than B9's register row) on a batch with pair plans only;
 and three Adam steps along the
 reference's loss trajectory, on merged plans and on per-type plans with the
-"exact" stabiliser (B11). Dropout is 0, since the two frameworks' dropout
-bits cannot match.
+"exact" stabiliser (B11); and the unfused per-edge path, which both
+packages take on a batch without plans and on merged targets without
+scatter plans. Dropout is 0, since the two frameworks' dropout bits
+cannot match.
 
 Tolerances. f32 edge streams: rtol 1e-4 / atol 1e-6 (the same products
 summed in other orders; observed 1e-7 absolute on logits, 1e-8 on
@@ -238,23 +240,28 @@ def test_attention_parameters_get_batch_axis_glorot_init():
 
 
 def test_unported_routes_raise():
-    """The per-type route and the exact stabiliser are ported now; what
-    still raises: a batch with no plans, merged targets (outside the pair
-    path, without the scatter plans of the B14 fallback), a hidden width
-    the heads do not divide, and an unknown stabiliser."""
+    """The per-type route and the exact stabiliser are ported; a batch
+    with no plans and merged targets (outside the pair path, without the
+    scatter plans of the B14 fallback) take the unfused per-edge path and
+    match the JAX package's (the test's name is its id from when they
+    raised); a hidden width the heads do not divide raises the reference's
+    ValueError, and an unknown stabiliser raises."""
     params = make_params("h24_k4", "float32")
     _, typed_batch, _ = small_workload(seed=5)
-    _, merged_batch, _ = small_workload(seed=5, merged=True)
+    jmerged, merged_batch, labels = small_workload(seed=5, merged=True)
     model = NodeMulticlassTask.from_params(
         params, input_dim=FEATURES, num_edge_types=3, device="cpu",
         num_labels=NUM_LABELS)
     (logits,) = model(typed_batch, False)
     assert bool(torch.isfinite(logits).all())
     bare = merged_batch.replace(pair_plans=None, pair_merged=None)
-    with pytest.raises(NotImplementedError, match="merged pair plans"):
-        model(bare, False)
-    with pytest.raises(NotImplementedError, match="B14"):
-        model(merged_batch.replace(pair_targets_merged=True), False)
+    targets = merged_batch.replace(pair_targets_merged=True)
+    for jbatch, batch in (
+            (jmerged.replace(pair_plans=None), bare),
+            (jmerged.replace(pair_targets_merged=True), targets)):
+        check_forward_loss_and_gradients(params, "float32", jbatch, batch,
+                                         labels)
+        assert model.gnn.mp_layer_0._route(batch) == "unfused"
     exact = NodeMulticlassTask.from_params(
         dict(params, gnn_attention_stabiliser="exact"), input_dim=FEATURES,
         num_edge_types=3, device="cpu", num_labels=NUM_LABELS)

@@ -1,7 +1,11 @@
 """The port's NodeMulticlassTask (RGCN over per-type pair plans) against the
 JAX package's on the CPU, from weights bridged out of the flax params:
-logits, loss and the gradient of every parameter. Dropout is 0, since the
-two frameworks' dropout bits cannot match.
+logits, loss and the gradient of every parameter; also on the batch
+without plans, and with the options that leave the fused route (the
+activation before the aggregation, a mean aggregation, the target-state
+input with 2 hidden layers), where both packages take the unfused
+per-edge path. Dropout is 0, since the two frameworks' dropout bits
+cannot match.
 
 Tolerances: f32 edge streams rtol 1e-4 / atol 1e-5 (the same products
 summed in other orders by XLA and PyTorch; observed at most 4e-6 absolute
@@ -132,9 +136,16 @@ def build_pair(params, jbatch, seed=0):
     ("residual_dense_layernorm", "float32")])
 def test_forward_loss_and_gradients_match_jax(config, edge_dtype):
     jbatch, tbatch, labels = small_workload(seed=3)
-    params = make_params(config, edge_dtype)
+    check_matches_jax(make_params(config, edge_dtype), jbatch, tbatch,
+                      labels)
+
+
+def check_matches_jax(params, jbatch, tbatch, labels):
+    """Logits, loss, F1 counts and every parameter gradient of the port's
+    model against the JAX package's, at the edge dtype's tolerance.
+    Returns the port's model."""
     jmodel, jparams, tmodel = build_pair(params, jbatch)
-    tols = TOLS[edge_dtype]
+    tols = TOLS[params["gnn_edge_dtype"]]
 
     def jloss(p):
         out = jmodel.apply({"params": p}, jbatch, False)
@@ -163,6 +174,7 @@ def test_forward_loss_and_gradients_match_jax(config, edge_dtype):
     for name, grad in want.items():
         np.testing.assert_allclose(got[name].grad.numpy(), grad.numpy(),
                                    err_msg=name, **tols)
+    return tmodel
 
 
 def test_bridge_rejects_unmapped_leaves():
@@ -185,14 +197,16 @@ def test_bridge_rejects_unmapped_leaves():
 
 
 def test_batch_without_pair_plans_raises():
-    _, tbatch, _ = small_workload(seed=5)
-    params = make_params("ppi", "float32")
-    tmodel = NodeMulticlassTask.from_params(
-        params, input_dim=FEATURES, num_edge_types=3, device="cpu",
-        num_labels=NUM_LABELS)
+    """A batch without pair plans takes the unfused per-edge path, as in
+    the JAX package, and matches it (the test's name is its id from when
+    this path raised)."""
+    jbatch, tbatch, labels = small_workload(seed=5)
     bare = tbatch.replace(pair_plans_typed=None)
-    with pytest.raises(NotImplementedError, match="pair plans"):
-        tmodel(bare, False)
+    params = make_params("ppi", "float32")
+    tmodel = check_matches_jax(params, jbatch.replace(pair_plans_typed=None),
+                               bare, labels)
+    for i in range(params["gnn_num_layers"]):
+        assert getattr(tmodel.gnn, f"mp_layer_{i}")._route(bare) == "unfused"
 
 
 @pytest.mark.parametrize("override", [
@@ -203,8 +217,17 @@ def test_batch_without_pair_plans_raises():
     {"gnn_use_remat": True},
 ])
 def test_unported_options_raise(override):
+    """``use_remat`` still raises, naming the item that will port it; the
+    other options send the per-type-plan batch to the unfused path, which
+    matches the JAX package's (the test's name is its id from when they
+    raised)."""
     params = make_params("ppi", "float32")
     params.update(override)
-    with pytest.raises(NotImplementedError):
-        NodeMulticlassTask.from_params(params, input_dim=FEATURES,
-                                       num_edge_types=3, device="cpu")
+    if "gnn_use_remat" in override:
+        with pytest.raises(NotImplementedError, match="queue A item 7"):
+            NodeMulticlassTask.from_params(params, input_dim=FEATURES,
+                                           num_edge_types=3, device="cpu")
+        return
+    jbatch, tbatch, labels = small_workload(seed=6)
+    tmodel = check_matches_jax(params, jbatch, tbatch, labels)
+    assert tmodel.gnn.mp_layer_0._route(tbatch) == "unfused"

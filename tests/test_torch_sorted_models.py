@@ -12,6 +12,10 @@ mode here), from weights bridged out of the flax params, dropout 0:
 * ``workloads.rgcn_sorted_params()`` equal to the dict that ``bench.py``
   builds for its ``"sorted"`` path.
 
+The same batch without its scatter plans, and the target-state edge MLP
+without ``fused_target_gather``, take the unfused per-edge path in both
+packages and match.
+
 Tolerances. f32 edge streams: rtol 1e-4 / atol 1e-5 on logits and
 gradients (the same products summed in other orders), losses rtol 1e-4.
 bf16 edge streams (RGAT): logits rtol 1e-2 / atol 1e-3, gradients rtol
@@ -288,30 +292,29 @@ def test_rgcn_sorted_params_are_the_bench_sorted_config():
 
 
 def test_batches_without_plans_raise():
-    _, tbatch, _ = scatter_workload(seed=7)
+    """Without its scatter plans, the batch takes the unfused per-edge
+    path, and so does the target-state edge MLP on scatter plans without
+    ``fused_target_gather`` (the reference's switch); each matches the
+    JAX package on the same batch (the test's name is its id from when
+    these raised)."""
+    jbatch, tbatch, labels = scatter_workload(seed=7)
+    jbare = jbatch.replace(scatter_plans=None)
     bare = tbatch.replace(scatter_plans=None, scatter_merged=None)
-    for params in (rgcn_params(), sorted_rgat_params("float32")):
-        model = NodeMulticlassTask.from_params(
-            params, input_dim=FEATURES, num_edge_types=3, device="cpu",
-            num_labels=NUM_LABELS)
-        model(tbatch, False)
-        with pytest.raises(NotImplementedError, match="scatter plans"):
-            model(bare, False)
-    # The target-state edge MLP takes its scatter-plan form only with
-    # fused_target_gather, the reference's switch; without it the
-    # reference takes the unfused path, which is not ported.
     edge_mlp = dict(JaxNodeMulticlassTask.get_default_hyperparameters(
         "gnn_edge_mlp"), gnn_hidden_dim=8, gnn_num_layers=2,
-        gnn_global_exchange_every_num_layers=10000)
-    for fused_target_gather in (True, False):
-        model = NodeMulticlassTask.from_params(
-            dict(edge_mlp, gnn_fused_target_gather=fused_target_gather),
-            input_dim=FEATURES, num_edge_types=3, device="cpu",
-            num_labels=NUM_LABELS)
-        if fused_target_gather:
-            model(tbatch, False)
-            continue
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            model(tbatch, False)
-        with pytest.raises(NotImplementedError, match="scatter plans"):
-            model(bare, False)
+        gnn_global_exchange_every_num_layers=10000,
+        gnn_layer_input_dropout_rate=0.0)
+    for params, edge_dtype in (
+            (rgcn_params(), "float32"),
+            (sorted_rgat_params("float32"), "float32"),
+            (dict(edge_mlp, gnn_fused_target_gather=True), "float32")):
+        jmodel, jparams, model = build_pair(params, jbatch)
+        assert model.gnn.mp_layer_0._route(tbatch) != "unfused"
+        assert_matches_jax(jmodel, jparams, model, jbare, bare, labels,
+                           edge_dtype)
+        assert model.gnn.mp_layer_0._route(bare) == "unfused"
+    jmodel, jparams, model = build_pair(
+        dict(edge_mlp, gnn_fused_target_gather=False), jbatch)
+    assert_matches_jax(jmodel, jparams, model, jbatch, tbatch, labels,
+                       "float32")
+    assert model.gnn.mp_layer_0._route(tbatch) == "unfused"

@@ -38,6 +38,7 @@ from ..ops.pair_spmm import (
     stream_joint_plan,
     stream_typed_plan,
 )
+from ..ops.segment import gather_rows
 from ..ops.sorted_spmm import ScatterPlan
 from ..utils.device import as_tensor, resolve_device
 
@@ -92,6 +93,10 @@ class GraphBatch:
       data. ``scatter_merged``: it on the batch's device (``.to`` builds
       it)
 
+    A batch without any plan takes the unfused per-edge path
+    (``gather_source_rows``, ``gather_target_rows``, then a segment
+    aggregation over ``aggregation_segments``).
+
     Array fields hold numpy arrays after ``pad_batch_arrays`` and tensors
     after ``.to(device)``.
     """
@@ -139,6 +144,30 @@ class GraphBatch:
                   if isinstance(self.node_features, torch.Tensor) else None)
         return (torch.arange(self.num_graphs_padded, device=device)
                 < self.num_graphs).to(torch.float32)
+
+    # The unfused per-edge path's views (single-chip forms of the
+    # reference's, graph_batch.py:174-207; the SPMD discard row and the
+    # all_gather of the source table wait for scale-out).
+    @property
+    def aggregation_segments(self) -> int:
+        """Segment count of the scatter-reduces over edge targets."""
+        return self.num_nodes_padded
+
+    def slice_aggregated(self, aggregated: torch.Tensor) -> torch.Tensor:
+        """The node rows of an ``[aggregation_segments, ...]`` array."""
+        return aggregated
+
+    def gather_source_rows(self, table: torch.Tensor,
+                           edge_type: int) -> torch.Tensor:
+        """Per-edge rows of a node-space ``table`` ([V, ...]) at the
+        sources of type ``edge_type``'s edges (padded edges clamp)."""
+        return gather_rows(table, self.edge_sources[edge_type])
+
+    def gather_target_rows(self, table: torch.Tensor,
+                           edge_type: int) -> torch.Tensor:
+        """Per-edge rows of ``table`` at the targets of type
+        ``edge_type``'s edges."""
+        return gather_rows(table, self.edge_targets[edge_type])
 
     def _typed_form(self, name: str, build):
         if (self.pair_plans_typed is None

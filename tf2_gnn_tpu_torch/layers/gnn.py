@@ -58,7 +58,8 @@ class GNN(nn.Module):
                  mp_hypers: Optional[Dict[str, Any]] = None):
         super().__init__()
         if use_remat:
-            raise NotImplementedError("use_remat=True is not ported.")
+            raise NotImplementedError(
+                "use_remat=True is not ported (ROADMAP.md, queue A item 7).")
         self.num_layers = num_layers
         self.hidden_dim = hidden_dim
         self.dense_every_num_layers = dense_every_num_layers

@@ -1,30 +1,34 @@
 """Message-passing template + registry (port of
 ``tf2_gnn_tpu/layers/message_passing/base.py``).
 
-A layer maps node states ``[V, D] -> [V, hidden_dim]``: node-space
-transforms run densely first, the block-pair streamed op aggregates them
-over the edges, and ``_post_aggregate`` applies the message activation.
-
-Only the fused paths (over pair plans and scatter plans) are ported. The
-unfused per-edge segment path and the SPMD halo branches are not; a batch
-without the plans a flavour's fused path reads (``_check_batch``) raises
-``NotImplementedError`` instead of silently taking another path.
+A layer maps node states ``[V, D] -> [V, hidden_dim]``. Where the batch
+carries plans that a flavour's fused route reads, node-space transforms
+run densely first, a hand-written kernel aggregates them over the edges
+(``_fused_sum_aggregate``), and ``_post_aggregate`` applies the message
+activation. Where the reference's ``_fused_sum_aggregate`` returns None
+(a batch without plans, an aggregation other than sum, the activation
+before the aggregation, a flavour's form that no fused route computes),
+the unfused per-edge path runs, as in the reference: the flavour's
+per-edge messages of each type (``_compute_messages_per_type``, gathers
+and per-edge products in PyTorch ops), then ``_compute_new_node_embeddings``
+concatenates them, applies the activation before the aggregation where
+asked, and aggregates them over the edge targets by the configured
+segment op. Which path a batch takes is decided from its plans and the
+hyperparameters alone, never from whether a kernel builds. The SPMD halo
+branches are not ported (ROADMAP.md, queue A item 10).
 """
 import inspect
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
 
 from ...data.graph_batch import GraphBatch
 from ...ops.activations import get_activation_function
+from ...ops.segment import gather_rows, get_aggregation_function
+from ...utils.constants import SMALL_NUMBER
 
 MESSAGE_PASSING_IMPLEMENTATIONS: Dict[str, type] = {}
-
-# What the reference runs where no fused route applies; the port raises
-# there, naming it.
-UNFUSED_PATH = ("the unfused per-edge segment path, which is not ported "
-                "(ROADMAP.md, queue A item 6)")
 
 
 def register_message_passing_implementation(cls):
@@ -63,10 +67,13 @@ class MessagePassing(nn.Module):
     """Template for one message-passing step: ``[V, D] -> [V, hidden_dim]``.
 
     Subclasses implement ``_fused_sum_aggregate`` (the [V, H] sum-aggregated
-    messages) and may override ``_post_aggregate``; one whose update never
-    applies the message activation (GGNN's GRU, RGIN's aggregation MLP)
-    sets ``_apply_message_activation`` False, and then the activation's
-    place is no reason to leave the fused path (reference base.py:140-142).
+    messages, or None where no fused route applies) and
+    ``_compute_messages_per_type`` (the unfused path's per-type per-edge
+    messages), and may override ``_compute_new_node_embeddings`` (RGAT's
+    softmax) and ``_post_aggregate``; one whose update never applies the
+    message activation (GGNN's GRU, RGIN's aggregation MLP) sets
+    ``_apply_message_activation`` False, and then the activation's place
+    is no reason to leave the fused path (reference base.py:140-142).
     """
 
     _apply_message_activation = True
@@ -79,19 +86,15 @@ class MessagePassing(nn.Module):
                  edge_dtype: str = "float32",
                  dense_dtype: str = "float32"):
         super().__init__()
-        if aggregation_function != "sum":
-            raise NotImplementedError(
-                f"aggregation_function={aggregation_function!r}: only 'sum' "
-                "(the pair kernels' aggregation) is ported.")
-        if (message_activation_before_aggregation
-                and self._apply_message_activation):
-            raise NotImplementedError(
-                "message_activation_before_aggregation=True needs the "
-                "per-edge segment path, which is not ported.")
+        # Fails early on an unknown name, as the reference's first call does.
+        get_aggregation_function(aggregation_function)
         self.num_edge_types = num_edge_types
         self.input_dim = input_dim
         self.hidden_dim = hidden_dim
+        self.aggregation_function = aggregation_function
         self.message_activation_function = message_activation_function
+        self.message_activation_before_aggregation = (
+            message_activation_before_aggregation)
         # Dtype of the per-edge message stream the kernels gather; the
         # aggregation accumulates in float32.
         self.edge_dtype = getattr(torch, edge_dtype)
@@ -122,25 +125,76 @@ class MessagePassing(nn.Module):
         for module in self.children():
             module.reset_parameters(generator)
 
+    def _fused_plan_applicable(self, batch: GraphBatch) -> bool:
+        """The reference's gate before any fused route (gnn_edge_mlp.py:
+        134-142, rgat.py:211-218): the batch carries plans, the
+        aggregation is the sum, and the activation, if this flavour
+        applies one, comes after it."""
+        return not (
+            (batch.scatter_merged is None and batch.pair_merged is None
+             and batch.pair_plans_typed is None)
+            or self.aggregation_function != "sum"
+            or (self._apply_message_activation
+                and self.message_activation_before_aggregation))
+
     def _fused_sum_aggregate(self, node_states: torch.Tensor,
                              batch: GraphBatch,
-                             training: bool) -> torch.Tensor:
+                             training: bool) -> Optional[torch.Tensor]:
+        """The [V, H] sum-aggregated messages over a fused route, or None
+        where the reference takes its unfused path."""
+        return None
+
+    def _compute_messages_per_type(self, node_states: torch.Tensor,
+                                   batch: GraphBatch,
+                                   training: bool) -> List[Any]:
+        """The unfused path's messages: one entry per edge type, [E_l, H]
+        (or a flavour's own tuple, as RGAT's)."""
         raise NotImplementedError
 
-    def _check_batch(self, batch: GraphBatch) -> None:
-        """Raise ``NotImplementedError`` when ``batch`` lacks the device
-        plans this flavour's fused path reads."""
-        raise NotImplementedError
+    def _compute_new_node_embeddings(self, node_states: torch.Tensor,
+                                     messages_per_type: List[Any],
+                                     batch: GraphBatch,
+                                     training: bool) -> torch.Tensor:
+        """All types' messages concatenated in f32, the activation before
+        the configured segment aggregation over the edge targets where
+        asked, then ``_post_aggregate`` (reference base.py:145-167)."""
+        aggregation = get_aggregation_function(self.aggregation_function)
+        messages = torch.cat(messages_per_type, dim=0).to(torch.float32)
+        targets = torch.cat(batch.edge_targets, dim=0)
+        if (self._apply_message_activation
+                and self.message_activation_before_aggregation):
+            messages = get_activation_function(
+                self.message_activation_function)(messages)
+        aggregated = batch.slice_aggregated(
+            aggregation(messages, targets, batch.aggregation_segments))
+        return self._post_aggregate(aggregated, node_states, batch, training)
 
     def _post_aggregate(self, aggregated: torch.Tensor,
                         node_states: torch.Tensor, batch: GraphBatch,
                         training: bool) -> torch.Tensor:
-        """The (after-aggregation) message activation."""
-        return get_activation_function(self.message_activation_function)(
-            aggregated)
+        """The (after-aggregation) message activation; GGNN's GRU and
+        RGIN's MLP override it."""
+        if (self._apply_message_activation
+                and not self.message_activation_before_aggregation):
+            aggregated = get_activation_function(
+                self.message_activation_function)(aggregated)
+        return aggregated
 
     def forward(self, node_states: torch.Tensor, batch: GraphBatch,
                 training: bool = False) -> torch.Tensor:
-        self._check_batch(batch)
         fused = self._fused_sum_aggregate(node_states, batch, training)
-        return self._post_aggregate(fused, node_states, batch, training)
+        if fused is not None:
+            return self._post_aggregate(fused, node_states, batch, training)
+        messages = self._compute_messages_per_type(node_states, batch,
+                                                   training)
+        return self._compute_new_node_embeddings(node_states, messages,
+                                                 batch, training)
+
+    def _normalize_by_incoming(self, messages: torch.Tensor, edge_type: int,
+                               batch: GraphBatch,
+                               in_degrees: torch.Tensor) -> torch.Tensor:
+        """Each message over the in-degree of its target for this type,
+        plus ``SMALL_NUMBER`` (reference base.py:305-317)."""
+        per_edge = gather_rows(in_degrees[edge_type],
+                               batch.edge_targets[edge_type])
+        return messages * (1.0 / (per_edge + SMALL_NUMBER))[:, None]

@@ -47,11 +47,19 @@ are ported:
 ``_route`` picks, per batch, the first fused route that the reference's
 ``_fused_sum_aggregate`` takes; the scatter-plan forms of the
 target-state input need ``fused_target_gather`` (the reference's A/B
-switch). Where the reference takes none, its unfused per-edge path runs,
-which is not ported: the layer raises, as it does for the target-state
-forms with 2 or more hidden layers.
+switch). Where the reference takes none (a batch without plans, an
+aggregation other than sum, the activation before the aggregation, the
+target-state forms with 2 or more hidden layers, or a plan kind that no
+fused form of this input reads), ``_route`` names ``"unfused"`` and the
+reference's unfused per-edge path runs (``_compute_messages_per_type``):
+the source-only MLP in node space, cast to the edge dtype and gathered
+per edge; the target-state input's first layer as two node-space halves
+gathered per edge and added, then its other layers per edge and type
+(``TypedLinear(x, edge_type=l)``), in f32 whatever the edge dtype; each
+message over its target's per-type in-degree where asked. One module
+set serves every route.
 """
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -74,7 +82,6 @@ from ...ops.sorted_spmm import (
 )
 from ...utils.constants import SMALL_NUMBER
 from .base import (
-    UNFUSED_PATH,
     MessagePassing,
     calculate_type_to_num_incoming_edges,
     register_message_passing_implementation,
@@ -100,22 +107,17 @@ class GNN_Edge_MLP(MessagePassing):
                          aggregation_function, message_activation_function,
                          message_activation_before_aggregation, edge_dtype,
                          dense_dtype)
-        if use_target_state_as_input and num_edge_MLP_hidden_layers > 1:
-            raise NotImplementedError(
-                "use_target_state_as_input=True with "
-                f"num_edge_MLP_hidden_layers={num_edge_MLP_hidden_layers} "
-                f"needs per-edge matmuls, {UNFUSED_PATH}; the target-state "
-                "forms with 0 hidden layers and with one hidden layer are "
-                "ported.")
         self.use_target_state_as_input = use_target_state_as_input
         self.normalize_by_num_incoming = normalize_by_num_incoming
         self.num_edge_MLP_hidden_layers = num_edge_MLP_hidden_layers
         self.fused_target_gather = fused_target_gather
         if use_target_state_as_input:
-            names = [("edge_mlp_src_0", input_dim), ("edge_mlp_tgt_0",
-                                                     input_dim)]
-            if num_edge_MLP_hidden_layers:
-                names.append(("edge_mlp_layer_1", hidden_dim))
+            # The first layer split into its source and target halves, the
+            # others as they are (reference gnn_edge_mlp.py:88-106).
+            names = [("edge_mlp_src_0", input_dim),
+                     ("edge_mlp_tgt_0", input_dim)]
+            names += [(f"edge_mlp_layer_{i}", hidden_dim)
+                      for i in range(1, num_edge_MLP_hidden_layers + 1)]
             for name, dim in names:
                 self.add_module(name, TypedLinear(
                     num_edge_types, dim, hidden_dim,
@@ -308,60 +310,80 @@ class GNN_Edge_MLP(MessagePassing):
     def _route(self, batch: GraphBatch) -> str:
         """The fused route the reference's ``_fused_sum_aggregate``
         (gnn_edge_mlp.py:512-628) takes on ``batch``: per-type pair plans
-        first, then a merged pair plan, then scatter plans. Its budget
-        gates of the pair kernels (the TPU's VMEM) are not kept, since the
-        row owners take any shape; the relu-pair op's gate is. Raises
-        ``NotImplementedError`` where the reference would take its unfused
-        path."""
+        first, then a merged pair plan, then scatter plans; ``"unfused"``
+        where it returns None. Its budget gates of the pair kernels (the
+        TPU's VMEM) are not kept, since the row owners take any shape; the
+        relu-pair op's gate is."""
+        if not self._fused_plan_applicable(batch):
+            return "unfused"
         typed = batch.pair_plans_typed is not None
         merged = batch.pair_merged is not None
         merged_targets = merged and batch.pair_targets_merged
-        scatter = batch.scatter_merged is not None
-        target_scatter = scatter and self.fused_target_gather
+        target_scatter = (batch.scatter_merged is not None
+                          and self.fused_target_gather)
         if not self.use_target_state_as_input:
             if typed:
                 return "pair_joint"
-            if merged:
-                return "pair_merged"
-            if scatter:
-                return "scatter_sum"
-            raise NotImplementedError(
-                "this batch has neither pair plans nor scatter plans on its "
-                "device: build it with pair_plans_typed, pair_plans or "
-                "scatter_plans and move it with .to(device). The reference "
-                f"takes {UNFUSED_PATH} there (the SPMD halo branches are not "
-                "ported either).")
+            return "pair_merged" if merged else "scatter_sum"
         if self.num_edge_MLP_hidden_layers == 1:
             v = batch.num_nodes_padded
             if merged_targets and pair_edge_mlp_applicable(
                     self.num_edge_types * v, self.num_edge_types * v,
                     self.edge_dtype):
                 return "relu_pair"
-            if target_scatter:
-                return "scatter_one_hidden"
-            raise NotImplementedError(
-                "the target-state edge MLP with one hidden layer needs a "
-                "merged-target pair plan inside the relu-pair budget, or "
-                "scatter plans with fused_target_gather=True; on this batch "
-                f"the reference takes {UNFUSED_PATH}.")
+            return "scatter_one_hidden" if target_scatter else "unfused"
+        # Deeper target-state MLPs neither factorise nor commute past their
+        # inner relus: the reference keeps their per-edge matmuls.
+        if self.num_edge_MLP_hidden_layers:
+            return "unfused"
         if typed or merged_targets:
             return "factorised"
-        if target_scatter:
-            return "scatter_zero_hidden"
-        raise NotImplementedError(
-            "the target-state edge MLP with 0 hidden layers needs per-type "
-            "pair plans, a merged-target pair plan, or scatter plans with "
-            "fused_target_gather=True (a merged plan with local targets "
-            f"gives no per-type sums); on this batch the reference takes "
-            f"{UNFUSED_PATH}.")
+        return "scatter_zero_hidden" if target_scatter else "unfused"
 
-    def _check_batch(self, batch: GraphBatch) -> None:
-        self._route(batch)
+    def _compute_raw_messages_per_type(self, node_states: torch.Tensor,
+                                       batch: GraphBatch
+                                       ) -> List[torch.Tensor]:
+        """Per-type [E_l, H] messages before the in-degree normalisation
+        (reference gnn_edge_mlp.py:62-120)."""
+        num_types = self.num_edge_types
+        if not self.use_target_state_as_input:
+            hidden = self._fused_node_space_tables(node_states, batch)
+            hidden = hidden.reshape(num_types, -1, hidden.shape[-1]).to(
+                self.edge_dtype)
+            return [batch.gather_source_rows(hidden[l], l)
+                    for l in range(num_types)]
+        num_hidden = self.num_edge_MLP_hidden_layers
+        src_half = self.edge_mlp_src_0(node_states)       # [L, V, H]
+        tgt_half = self.edge_mlp_tgt_0(node_states)       # [L, V, H]
+        messages = []
+        for l in range(num_types):
+            h = (batch.gather_source_rows(src_half[l], l)
+                 + batch.gather_target_rows(tgt_half[l], l))
+            if num_hidden:
+                h = torch.relu(h)
+            for i in range(1, num_hidden + 1):
+                h = getattr(self, f"edge_mlp_layer_{i}")(h, edge_type=l)
+                if i < num_hidden:
+                    h = torch.relu(h)
+            messages.append(h)
+        return messages
+
+    def _compute_messages_per_type(self, node_states: torch.Tensor,
+                                   batch: GraphBatch,
+                                   training: bool) -> List[torch.Tensor]:
+        messages = self._compute_raw_messages_per_type(node_states, batch)
+        if self.normalize_by_num_incoming:
+            in_degrees = calculate_type_to_num_incoming_edges(batch)
+            messages = [self._normalize_by_incoming(m, l, batch, in_degrees)
+                        for l, m in enumerate(messages)]
+        return messages
 
     def _fused_sum_aggregate(self, node_states: torch.Tensor,
                              batch: GraphBatch,
-                             training: bool) -> torch.Tensor:
+                             training: bool) -> Optional[torch.Tensor]:
         route = self._route(batch)
+        if route == "unfused":
+            return None
         if route == "factorised":
             return self._pair_factorised_typed_sums(node_states,
                                                     batch).sum(dim=0)

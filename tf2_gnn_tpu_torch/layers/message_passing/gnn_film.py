@@ -1,4 +1,4 @@
-"""GNN-FiLM message passing (port of the factorised pair path of
+"""GNN-FiLM message passing (port of
 ``tf2_gnn_tpu/layers/message_passing/gnn_film.py``).
 
 ``msg' = gamma_l(h_tgt) * msg + beta_l(h_tgt)``, the FiLM modulation of
@@ -17,11 +17,15 @@ _pair_factorised_typed_sums``: the per-type streamed op over per-type pair
 plans, or ``pair_typed_gather_scatter`` over a merged-target plan) and
 ``deg`` the per-type in-degree. On scatter plans a source-only FiLM
 gathers its messages and gamma and beta per edge and sums ``gamma * msg +
-beta`` by target (reference :86-132, ``_scatter_film``). The per-edge path
-(:134-150), which the reference takes elsewhere, is not ported: there the
-layer raises.
+beta`` by target (reference :86-132, ``_scatter_film``). Elsewhere
+(``_route`` names ``"unfused"``: a batch without plans, an aggregation
+other than sum, the activation before the aggregation, the target-state
+input with hidden edge-MLP layers, or a plan kind neither form reads)
+the per-edge path runs (:134-150): each edge's (normalised) message,
+then ``gamma * m + beta`` with the FiLM table's row of its target and
+type, aggregated by the base.
 """
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -32,7 +36,6 @@ from ...ops.sorted_spmm import (
     plan_scatter,
 )
 from .base import (
-    UNFUSED_PATH,
     calculate_type_to_num_incoming_edges,
     register_message_passing_implementation,
 )
@@ -55,12 +58,6 @@ class GNN_FiLM(GNN_Edge_MLP):
                  num_edge_MLP_hidden_layers: int = 0,
                  film_parameter_MLP_hidden_layers: Sequence[int] = (),
                  fused_target_gather: bool = True):
-        if use_target_state_as_input and num_edge_MLP_hidden_layers:
-            raise NotImplementedError(
-                "GNN-FiLM with use_target_state_as_input=True and "
-                f"num_edge_MLP_hidden_layers={num_edge_MLP_hidden_layers} "
-                f"takes the per-edge path, {UNFUSED_PATH}; with 0 hidden "
-                "layers it factorises.")
         super().__init__(num_edge_types, input_dim, hidden_dim,
                          aggregation_function, message_activation_function,
                          message_activation_before_aggregation, edge_dtype,
@@ -101,20 +98,39 @@ class GNN_FiLM(GNN_Edge_MLP):
     def _route(self, batch: GraphBatch) -> str:
         """The fused route of the reference's ``_fused_sum_aggregate``
         (gnn_film.py:63-132): the factorised form over per-type or
-        merged-target pair plans, else the scatter-plan form of a
-        source-only FiLM with ``fused_target_gather``; raises where the
-        reference takes its per-edge path."""
-        if batch.pair_plans_typed is not None or (
-                batch.pair_merged is not None and batch.pair_targets_merged):
+        merged-target pair plans (of a source-only MLP of any depth, or of
+        the 0-hidden target-state form), else the scatter-plan form of a
+        source-only FiLM with ``fused_target_gather``; else
+        ``"unfused"``."""
+        if not self._fused_plan_applicable(batch):
+            return "unfused"
+        factorisable = not (self.use_target_state_as_input
+                            and self.num_edge_MLP_hidden_layers)
+        if factorisable and (batch.pair_plans_typed is not None or (
+                batch.pair_merged is not None
+                and batch.pair_targets_merged)):
             return "factorised"
         if (batch.scatter_merged is not None and self.fused_target_gather
                 and not self.use_target_state_as_input):
             return "scatter_film"
-        raise NotImplementedError(
-            "GNN-FiLM needs per-type pair plans or a merged-target pair plan "
-            "(the factorised form), or, source-only with "
-            "fused_target_gather=True, scatter plans; on this batch the "
-            f"reference takes {UNFUSED_PATH}.")
+        return "unfused"
+
+    def _compute_messages_per_type(self, node_states: torch.Tensor,
+                                   batch: GraphBatch,
+                                   training: bool) -> List[torch.Tensor]:
+        """The per-edge FiLM (reference gnn_film.py:134-150): each type's
+        (normalised) edge-MLP messages, modulated by gamma and beta of the
+        FiLM table's rows at their targets."""
+        messages = super()._compute_messages_per_type(node_states, batch,
+                                                      training)
+        film = self._film_parameter_tables(node_states)    # [L, V, 2H]
+        modulated = []
+        for l, msgs in enumerate(messages):
+            per_edge = batch.gather_target_rows(film[l], l)
+            gamma = per_edge[:, :self.hidden_dim]
+            beta = per_edge[:, self.hidden_dim:]
+            modulated.append(gamma * msgs + beta)
+        return modulated
 
     def _scatter_film(self, node_states: torch.Tensor,
                       batch: GraphBatch) -> torch.Tensor:
@@ -139,8 +155,11 @@ class GNN_FiLM(GNN_Edge_MLP):
 
     def _fused_sum_aggregate(self, node_states: torch.Tensor,
                              batch: GraphBatch,
-                             training: bool) -> torch.Tensor:
-        if self._route(batch) == "scatter_film":
+                             training: bool) -> Optional[torch.Tensor]:
+        route = self._route(batch)
+        if route == "unfused":
+            return None
+        if route == "scatter_film":
             return self._scatter_film(node_states, batch)
         typed = self._pair_factorised_typed_sums(node_states, batch)
         film = self._film_parameter_tables(node_states)

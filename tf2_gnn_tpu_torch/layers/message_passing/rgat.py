@@ -1,7 +1,8 @@
 """RGAT message passing, relational multi-head graph attention (port of
 ``tf2_gnn_tpu/layers/message_passing/rgat.py``: the single-chip
 pair-attention route over merged or per-type plans, under either softmax
-stabiliser, and the sorted fallback over scatter plans).
+stabiliser, the sorted fallback over scatter plans, and the unfused
+per-edge path).
 
 Per edge type l and head k the attention logit of an edge u -> v is
 ``LeakyReLU(a_l_k . concat(W_l h_u, W_l h_v))``, normalised by a softmax
@@ -17,16 +18,24 @@ batch's scatter plan (``ops/sorted_spmm.py``): gathers of the source
 bundle and the target scores, the exact per-target max (B15) and one pass
 for the denominators and weighted sums (B14).
 
-Not ported, and raising: batches outside the pair path without scatter
-plans (the reference's unfused segment path).
+Where the reference's gate sends a batch off both (no plans, an
+aggregation other than sum, the activation before the aggregation, or a
+batch outside the pair path without scatter plans; ``_route`` names
+``"unfused"``), the per-edge path runs (reference rgat.py:309-376): per
+type the gathered source messages and the leaky_relu (slope 0.2) of the
+gathered score halves, in f32 whatever the edge dtype; then ``exp`` of the
+segment log-softmax per (target, head) over all types jointly, the
+weighted segment sum and the activation (after the aggregation, whatever
+``message_activation_before_aggregation`` says, as in the reference).
 """
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...data.graph_batch import GraphBatch
+from ...ops.activations import get_activation_function
 from ...ops.pair_attention import (
     NEG,
     TILE,
@@ -34,6 +43,7 @@ from ...ops.pair_attention import (
     pair_attention_applicable,
     pair_attention_typed,
 )
+from ...ops.segment import segment_log_softmax, segment_sum
 from ...ops.sorted_spmm import (
     attention_scatter,
     plan_gather_src,
@@ -108,14 +118,17 @@ class RGAT(MessagePassing):
             rows, v, head_dim * k_pad, k_pad, self.edge_dtype,
             self.edge_dtype, src_space=v)
 
-    def _check_batch(self, batch: GraphBatch) -> None:
-        if (batch.pair_merged is None and batch.pair_typed is None
-                and batch.scatter_merged is None):
-            raise NotImplementedError(
-                "this batch has neither merged pair plans, per-type pair "
-                "plans nor scatter plans on its device: build it with "
-                "pair_plans, pair_plans_typed or scatter_plans and move it "
-                "with .to(device). The unfused segment path is not ported.")
+    def _route(self, batch: GraphBatch) -> str:
+        """The route of the reference's ``_fused_sum_aggregate``
+        (rgat.py:211-222): ``"pair_attention"`` where the pair-attention
+        gate holds, else ``"sorted"`` on scatter plans, else
+        ``"unfused"``; a batch without plans, an aggregation other than
+        sum or the activation before the aggregation go unfused first."""
+        if not self._fused_plan_applicable(batch):
+            return "unfused"
+        if self._pair_attention_applicable_static(batch):
+            return "pair_attention"
+        return "unfused" if batch.scatter_merged is None else "sorted"
 
     def _pair_attention_aggregate(self, node_states: torch.Tensor,
                                   batch: GraphBatch) -> torch.Tensor:
@@ -227,13 +240,51 @@ class RGAT(MessagePassing):
 
     def _fused_sum_aggregate(self, node_states: torch.Tensor,
                              batch: GraphBatch,
-                             training: bool) -> torch.Tensor:
-        if self._pair_attention_applicable_static(batch):
+                             training: bool) -> Optional[torch.Tensor]:
+        route = self._route(batch)
+        if route == "pair_attention":
             return self._pair_attention_aggregate(node_states, batch)
-        if batch.scatter_merged is None:
-            raise NotImplementedError(
-                "this batch's shapes fall outside the pair-attention path "
-                "and it has no scatter plans for the sorted fallback "
-                "(attention_scatter, B14, and sorted_segment_max, B15); the "
-                "unfused segment path is not ported.")
-        return self._sorted_attention_aggregate(node_states, batch)
+        if route == "sorted":
+            return self._sorted_attention_aggregate(node_states, batch)
+        return None
+
+    def _compute_messages_per_type(
+            self, node_states: torch.Tensor, batch: GraphBatch,
+            training: bool) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Per type, the [E_l, K, H/K] source messages and the [E_l, K]
+        attention logits (reference rgat.py:309-350)."""
+        heads = self.num_heads
+        head_dim = self.hidden_dim // heads
+        transformed = self.edge_weights(node_states).reshape(
+            self.num_edge_types, -1, heads, head_dim)
+        attention = self.edge_attention_parameters
+        src_scores = torch.einsum("lvkd,lkd->lvk", transformed,
+                                  attention[:, :, :head_dim])
+        tgt_scores = torch.einsum("lvkd,lkd->lvk", transformed,
+                                  attention[:, :, head_dim:])
+        results = []
+        for l in range(self.num_edge_types):
+            logits = F.leaky_relu(
+                batch.gather_source_rows(src_scores[l], l)
+                + batch.gather_target_rows(tgt_scores[l], l),
+                negative_slope=0.2)
+            results.append((batch.gather_source_rows(transformed[l], l),
+                            logits))
+        return results
+
+    def _compute_new_node_embeddings(
+            self, node_states: torch.Tensor,
+            messages_per_type: List[Tuple[torch.Tensor, torch.Tensor]],
+            batch: GraphBatch, training: bool) -> torch.Tensor:
+        """The softmax per (target, head) over all types jointly, as
+        ``exp(segment_log_softmax)``, the weighted sum per target, then
+        the activation (reference rgat.py:352-376)."""
+        segments = batch.aggregation_segments
+        messages = torch.cat([m for m, _ in messages_per_type], dim=0)
+        logits = torch.cat([s for _, s in messages_per_type], dim=0)
+        targets = torch.cat(batch.edge_targets, dim=0)
+        attention = torch.exp(segment_log_softmax(logits, targets, segments))
+        aggregated = batch.slice_aggregated(segment_sum(
+            attention[:, :, None] * messages, targets, segments))
+        return get_activation_function(self.message_activation_function)(
+            aggregated.reshape(batch.num_nodes_padded, self.hidden_dim))

@@ -6,6 +6,8 @@ every type is one batched matmul. The JAX module's ``pad_out_to`` is not
 ported: it padded the output to the TPU's 128-lane feature tile for the
 Pallas kernels, and the CUDA kernels mask the ragged feature edge instead.
 """
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -17,9 +19,11 @@ class TypedLinear(nn.Module):
 
     * ``forward(x)`` with x [V, D] -> [L, V, out_size] (all types)
     * ``forward(x)`` with x [L, V, D] -> [L, V, out_size] (per-type batched)
+    * ``forward(x, edge_type=l)`` with x [N, D] -> [N, out_size] (one type,
+      the unfused path's per-edge layers)
 
     Products run in float32 (the JAX module's ``compute_dtype`` other than
-    float32 is not ported and raises).
+    float32 is not ported and raises; ROADMAP.md, queue A item 7).
     """
 
     def __init__(self, num_types: int, in_size: int, out_size: int,
@@ -28,7 +32,7 @@ class TypedLinear(nn.Module):
         if compute_dtype != "float32":
             raise NotImplementedError(
                 f"TypedLinear compute_dtype={compute_dtype!r} is not ported; "
-                "only float32 products are.")
+                "only float32 products are (ROADMAP.md, queue A item 7).")
         self.num_types = num_types
         self.in_size = in_size
         self.out_size = out_size
@@ -37,7 +41,10 @@ class TypedLinear(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         glorot_uniform_(self.kernel, self.in_size, self.out_size, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                edge_type: Optional[int] = None) -> torch.Tensor:
+        if edge_type is not None:
+            return torch.matmul(x, self.kernel[edge_type])
         if x.dim() in (2, 3):
             return torch.matmul(x, self.kernel)
         raise ValueError(

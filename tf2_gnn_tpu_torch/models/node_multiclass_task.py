@@ -64,9 +64,14 @@ class NodeMulticlassTask(GraphTaskModel):
         (x,) = task_output
         z = labels["node_labels"]
         mask = batch.node_mask
-        # Numerically-stable sigmoid BCE with logits, summed over labels.
-        per_entry = (torch.clamp(x, min=0.0) - x * z
-                     + torch.log1p(torch.exp(-torch.abs(x))))
+        # Numerically-stable sigmoid BCE with logits, summed over labels,
+        # with the reference's derivatives at a logit of exactly 0 (a node
+        # whose representation is all zeros): jnp.maximum's 1/2 and
+        # jnp.abs's 1, so the two terms' slopes cancel there, where
+        # clamp's 1 and abs's 0 would add 1.
+        magnitude = torch.where(x >= 0.0, x, -x)
+        per_entry = (torch.maximum(x, torch.zeros_like(x)) - x * z
+                     + torch.log1p(torch.exp(-magnitude)))
         per_node = torch.sum(per_entry, dim=-1) * mask
         loss = torch.sum(per_node) / max(float(batch.num_nodes), 1.0)
         tp, fp, fn = masked_f1_counts(x, z, mask)

@@ -1,6 +1,8 @@
 """Segment (scatter-reduce) primitives over a static segment count (port of
-the parts of ``tf2_gnn_tpu/ops/segment.py`` that the readouts and the
-global exchange use).
+``tf2_gnn_tpu/ops/segment.py``): the readouts' and the global exchange's
+sums and softmaxes, and the unfused per-edge path's aggregations
+(``get_aggregation_function``: sum, mean, max, sqrt_n) and RGAT's
+``segment_log_softmax``.
 
 Segment ids outside ``[0, num_segments)`` are dropped, as in
 ``jax.ops.segment_sum``. The SPMD forms (``spmd_axis``) are not ported.
@@ -26,15 +28,53 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     return out[:num_segments]
 
 
+def segment_count(segment_ids: torch.Tensor, num_segments: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Number of entries per segment (in-degree when ids are edge
+    targets)."""
+    return segment_sum(torch.ones(segment_ids.shape, dtype=dtype,
+                                  device=segment_ids.device),
+                       segment_ids, num_segments)
+
+
+def _counts_like(segment_ids: torch.Tensor, num_segments: int,
+                 values: torch.Tensor) -> torch.Tensor:
+    """``segment_count`` in ``values``' dtype, shaped to broadcast over its
+    trailing axes."""
+    counts = segment_count(segment_ids, num_segments, values.dtype)
+    return counts.reshape(counts.shape + (1,) * (values.dim() - 1))
+
+
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
                  num_segments: int) -> torch.Tensor:
     """Mean per segment; empty segments yield 0 (tf.unsorted_segment_mean)."""
     totals = segment_sum(data, segment_ids, num_segments)
-    counts = segment_sum(torch.ones(segment_ids.shape, dtype=totals.dtype,
-                                    device=totals.device),
-                         segment_ids, num_segments)
-    counts = counts.reshape(counts.shape + (1,) * (totals.dim() - 1))
+    counts = _counts_like(segment_ids, num_segments, totals)
     return totals / torch.clamp(counts, min=1.0)
+
+
+def segment_sqrt_n(data: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """Sum per segment over the root of its size
+    (tf.unsorted_segment_sqrt_n); empty segments yield 0."""
+    totals = segment_sum(data, segment_ids, num_segments)
+    counts = _counts_like(segment_ids, num_segments, totals)
+    return totals / torch.sqrt(torch.clamp(counts, min=1.0))
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, empty_value: float = 0.0) -> torch.Tensor:
+    """Max per segment, ``empty_value`` where a segment is empty (where
+    tf.unsorted_segment_max gives the dtype's lowest value). Ties share
+    the gradient evenly, as under ``jax.ops.segment_max``."""
+    ids = _valid_ids(segment_ids, num_segments)
+    index = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    maxes = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+    maxes = maxes.scatter_reduce(0, index, data, reduce="amax",
+                                 include_self=False)[:num_segments]
+    counts = _counts_like(segment_ids, num_segments, maxes)
+    return torch.where(counts > 0, maxes,
+                       torch.full_like(maxes, empty_value))
 
 
 def segment_logits_max(logits: torch.Tensor, segment_ids: torch.Tensor,
@@ -67,6 +107,42 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
     return exp_shifted / denom.index_select(0, ids)
 
 
+def segment_log_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
+                        num_segments: int) -> torch.Tensor:
+    """Log-softmax within each segment, with dpu-utils'
+    ``unsorted_segment_log_softmax`` semantics: ``x - max - log(max(sum,
+    eps))``, the epsilon under the log (``segment_softmax`` adds it to the
+    denominator instead). ``logits`` may be [M] or [M, K]; the ids index
+    the per-segment rows back, so they must lie in ``[0, num_segments)``."""
+    maxes = segment_logits_max(logits, segment_ids, num_segments)
+    ids = segment_ids.long()
+    shifted = logits - maxes.index_select(0, ids)
+    sum_exp = segment_sum(torch.exp(shifted), segment_ids, num_segments)
+    log_norm = torch.log(torch.clamp(sum_exp, min=SMALL_NUMBER))
+    return shifted - log_norm.index_select(0, ids)
+
+
+_AGGREGATORS = {
+    "sum": segment_sum,
+    "mean": segment_mean,
+    "max": segment_max,
+    "sqrt_n": segment_sqrt_n,
+}
+
+
+def get_aggregation_function(name: str):
+    """Name -> segment aggregation function (reference
+    utils/param_helpers.py:7-18)."""
+    fn = _AGGREGATORS.get(name)
+    if fn is None:
+        raise ValueError(f"Unknown aggregation function: {name}")
+    return fn
+
+
+def get_known_aggregation_names():
+    return sorted(_AGGREGATORS.keys())
+
+
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, params, indices):
@@ -77,11 +153,15 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (indices,) = ctx.saved_tensors
-        return segment_sum(g, indices, ctx.num_rows), None
+        # Summed in f32 and rounded once, on the CPU and the card alike (a
+        # bf16 index_add_ on the card rounds at every atomic add).
+        return segment_sum(g.float(), indices, ctx.num_rows).to(g.dtype), None
 
 
 def gather_rows(params: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """Row gather whose out-of-range indices CLAMP (``jnp.take`` with
     ``mode="clip"``), with a scatter-add gradient that drops them (their
-    rows are discarded downstream, so their cotangents are 0)."""
+    rows are discarded downstream, so their cotangents are 0) and sums in
+    f32 (the reference's XLA scatter-add of a bf16 cotangent rounds to
+    bf16 at every add)."""
     return _GatherRows.apply(params, indices)

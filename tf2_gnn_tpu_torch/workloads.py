@@ -10,7 +10,9 @@ form, ``pair_per_type``), or one merged plan over all three types with
 groups chosen from all of them and an overflow budget of 256 (the RGAT
 form, and with merged targets the target-state edge-MLP form), as the
 dataset path chooses them; or, on the scatter-plan route, one merged
-sorted-scatter plan over all three types (``bench.py --no-pairs``).
+sorted-scatter plan over all three types (``bench.py --no-pairs``); or no
+plan at all (``bench.py``'s ``"xla"`` path, the dataset's default), for
+the unfused per-edge path.
 
 ``edge_mlp_default_params`` is the configuration of the JAX repo's
 ``benchmarks/edge_mlp_probe.py``: the reference-default GNN_Edge_MLP.
@@ -24,7 +26,8 @@ attention sums take the hk-major aggregation kernel.
 The QM9-shaped workload is a numpy copy of ``bench.py::build_qm9_batch``:
 909 molecules of 18 nodes, 5 edge types of 11 random edges a molecule,
 V padded to 16384, 910 graph slots, 32 input features, per-type pair
-plans grouped from type 0 and one regression target a molecule.
+plans grouped from type 0 (or none, the dataset's default) and one
+regression target a molecule.
 ``qm9_shipped_params`` is the shipped QM9_RGCN configuration that
 ``bench.py::measure_qm9`` times; ``graph_regression_edge_mlp_params`` the
 shipped GraphRegression_GNN_Edge_MLP, which reads the same batch.
@@ -192,7 +195,8 @@ def build_raw_arrays(seed: int):
 
 
 def build_ppi_batch_host(seed: int, merged: bool = False,
-                         merge_targets: bool = False, scatter: bool = False
+                         merge_targets: bool = False, scatter: bool = False,
+                         plans: bool = True
                          ) -> Tuple[GraphBatch, Dict[str, np.ndarray], int]:
     """(host batch, labels, real edge count). The batch carries per-type
     pair plans, or with ``merged`` one merged plan over all three types
@@ -200,9 +204,14 @@ def build_ppi_batch_host(seed: int, merged: bool = False,
     ``merge_targets`` puts that plan's targets in the merged ``l * V + t``
     row space (the target-state edge-MLP form, ``pair_merge_targets=True``).
     With ``scatter`` it carries the merged scatter plan instead, and no
-    pair plans (``build_batch(use_pallas=True, use_pairs=False)``)."""
+    pair plans (``build_batch(use_pallas=True, use_pairs=False)``); without
+    ``plans`` no plan at all (``build_batch(use_pallas=False,
+    use_pairs=False)``, the batch of the bench's ``"xla"`` path)."""
     if merge_targets and not merged:
         raise ValueError("merge_targets needs merged=True")
+    if not plans and (merged or scatter):
+        raise ValueError("plans=False builds no plan: merged and scatter "
+                         "need plans=True")
     if scatter and merged:
         raise ValueError("scatter=True builds scatter plans only, without "
                          "pair plans")
@@ -238,7 +247,7 @@ def build_ppi_batch_host(seed: int, merged: bool = False,
                                  group_bwd=gb)
         batch = batch.replace(pair_plans=pairs.astuple(),
                               pair_targets_merged=merge_targets)
-    else:
+    elif plans:
         gf, gb = choose_pair_groups([srcs[0]], [tgts[0]], [cnts[0]],
                                     NODE_BUDGET)
         typed = tuple(
@@ -257,16 +266,18 @@ def build_ppi_batch_host(seed: int, merged: bool = False,
 
 
 def build_ppi_batch(seed: int, device="cuda", merged: bool = False,
-                    merge_targets: bool = False, scatter: bool = False):
+                    merge_targets: bool = False, scatter: bool = False,
+                    plans: bool = True):
     """The PPI-shaped batch (per-type plans, or with ``merged`` the merged
     plan, with merged targets under ``merge_targets``, or with ``scatter``
-    the scatter plan) and labels as tensors on ``device``, and the real
-    edge count."""
+    the scatter plan, or without ``plans`` none) and labels as tensors on
+    ``device``, and the real edge count."""
     import torch
 
     dev = resolve_device(device)
     batch, labels, real_edges = build_ppi_batch_host(seed, merged,
-                                                     merge_targets, scatter)
+                                                     merge_targets, scatter,
+                                                     plans)
     batch = batch.to(dev)
     labels = {k: torch.as_tensor(v, device=dev) for k, v in labels.items()}
     return batch, labels, real_edges
@@ -277,12 +288,14 @@ def build_qm9_batch_host(seed: int, molecules: int = QM9_MOLECULES,
                          num_types: int = QM9_EDGE_TYPES,
                          edges_per_molecule: int = QM9_EDGES_PER_MOLECULE,
                          node_budget: int = QM9_NODE_BUDGET,
-                         feature_dim: int = QM9_FEATURE_DIM
+                         feature_dim: int = QM9_FEATURE_DIM,
+                         plans: bool = True
                          ) -> Tuple[GraphBatch, Dict[str, np.ndarray], int]:
     """(host batch with per-type pair plans, labels, molecule count), the
     arrays of ``bench.py::build_qm9_batch(seed)`` at the default counts.
     Edge budgets round each type's edge count up to 512; the plans' groups
-    are chosen from type 0 alone, as the dataset path chooses them."""
+    are chosen from type 0 alone, as the dataset path chooses them.
+    Without ``plans`` the batch carries none (the dataset's default)."""
     rng = np.random.RandomState(seed)
     v = molecules * nodes_per_molecule
     base = (np.arange(molecules) * nodes_per_molecule)[:, None]
@@ -308,25 +321,25 @@ def build_qm9_batch_host(seed: int, molecules: int = QM9_MOLECULES,
         num_graphs=molecules,
         config=config,
     )
-    srcs = list(batch.edge_sources)
-    tgts = list(batch.edge_targets)
-    cnts = [int(c) for c in batch.num_edges]
-    gf, gb = choose_pair_groups([srcs[0]], [tgts[0]], [cnts[0]], node_budget)
-    typed = tuple(
-        build_pair_plans([srcs[t]], [tgts[t]], [cnts[t]], node_budget,
-                         group_fwd=gf, group_bwd=gb).astuple()
-        for t in range(num_types)
-    )
-    batch = batch.replace(pair_plans_typed=typed)
+    if plans:
+        srcs = list(batch.edge_sources)
+        tgts = list(batch.edge_targets)
+        cnts = [int(c) for c in batch.num_edges]
+        gf, gb = choose_pair_groups([srcs[0]], [tgts[0]], [cnts[0]],
+                                    node_budget)
+        batch = batch.replace(pair_plans_typed=tuple(
+            build_pair_plans([srcs[t]], [tgts[t]], [cnts[t]], node_budget,
+                             group_fwd=gf, group_bwd=gb).astuple()
+            for t in range(num_types)))
     labels = {"target_value": pad_graph_label_array(
         rng.randn(molecules).astype(np.float32), molecules + 1)}
     return batch, labels, molecules
 
 
 def build_qm9_batch(seed: int, device="cuda", **counts):
-    """The QM9-shaped batch (per-type pair plans) and labels as tensors on
-    ``device``, and the molecule count; ``counts`` are
-    ``build_qm9_batch_host``'s keyword arguments."""
+    """The QM9-shaped batch (per-type pair plans, or none without
+    ``plans``) and labels as tensors on ``device``, and the molecule
+    count; ``counts`` are ``build_qm9_batch_host``'s keyword arguments."""
     import torch
 
     dev = resolve_device(device)
