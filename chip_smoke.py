@@ -211,13 +211,39 @@ Phases, each of which fails the run by raising:
    against the same model on the CPU (d), over the real rows; each
    model's train step and eval forward are timed beside the fused
    route's, with the peak memory, and the phase's wall time.
+12. Training and testing from the command line: PPI files in the DGL
+    format (train 6, valid 3, test 3 graphs of 2400 nodes and 34,000
+    forward links, 50 features, 121 labels) and QM9 files in JSONL (1776,
+    888 and 888 molecules of 18 nodes, 11 bonds of each of 4 raw types,
+    32 features, one target), written from the seed
+    (``workloads.write_ppi_files`` / ``write_qm9_files``) under
+    ``build/phase12``; then, through the train entry's own
+    ``cli/train.py::run`` in this process (``CLI_RUNS``):
+   a. ``RGCN PPI`` on the shipped PPI_RGCN.json (4 layers, hidden 320,
+      bf16 edge stream, per-type plans at V = 8064, 64 overflow slots a
+      type), 2 epochs;
+   b. ``RGCN QM9`` on QM9_RGCN.json (8 layers, hidden 128, RMSProp,
+      V = 16000), 2 epochs;
+   c. ``GGNN PPI --gnn_use_remat True --gnn_dense_dtype bfloat16``, 1
+      epoch;
+   d. the test entry's ``cli/test.py::run`` on (a)'s and (b)'s best
+      checkpoints, whose TEST metric must equal the saved weights' in
+      memory.
+   Each train epoch's launch counts (set to 0 just before it, read just
+   after) must be K1 one a layer and step and K2 one (two under remat),
+   every other kernel 0; losses finite; on the first TRAIN batch of (a)
+   and (b) the eval forward is held against the plain versions at phase
+   2's and phase 7's tolerances. Logged per run: the host ms a batch of
+   packing and planning, the first TRAIN batch's ``.to(device)``, joint
+   plan and its compact forms, the edges each batch spilled into its
+   overflow slots, each epoch's graphs/s and step spans, the peak memory
+   and the wall time.
 
-A line before those below gives the script's wall time. The line before
-the last two is the JSON ``kernels`` line (all eighteen kernels); then
-the card's name and power limit (nvidia-smi); the last line is the JSON
-result. Exits
-non-zero, printing no result, without a card or without the repository
-beside this script.
+Each phase logs its wall time, and a line before those below the
+script's. The line before the last two is the JSON ``kernels`` line (all
+eighteen kernels); then the card's name and power limit (nvidia-smi); the
+last line is the JSON result. Exits non-zero, printing no result, without
+a card or without the repository beside this script.
 """
 import json
 import math
@@ -2557,7 +2583,7 @@ UNFUSED_MODELS = (
      "edge_mlp_default_params(), 2 hidden layers", "ppi", 2, "cpu",
      F32_STREAM_TOLS),
 )
-UNFUSED_TIMED_STEPS = 10  # train steps in each step-time window of phase 11
+UNFUSED_TIMED_STEPS = 5  # train steps in each step-time window of phase 11
 
 
 def unfused_params(source: str):
@@ -2657,8 +2683,11 @@ def unfused_path(device, argv):
         log(f"{name}: no kernel launched in {steps} unfused train steps")
         ref_batch = batches[kind, True] if against == "fused" else \
             batches[kind, False]
+        t_ref = time.perf_counter()
         what, out_ref, ref_batch, ref_labels = unfused_reference(
             model, *ref_batch[:2], against)
+        log(f"{name}: the reference forward ({against}) in "
+            f"{time.perf_counter() - t_ref:.1f} s")
         with torch.no_grad():
             out = model(bare, False)
         atol, logit_rtol, loss_rtol = tols
@@ -2690,6 +2719,281 @@ def unfused_path(device, argv):
     torch.cuda.empty_cache()
     log(f"phase 11: {time.perf_counter() - t_phase:.1f} s, peak memory "
         f"{peak / 2**30:.2f} GiB")
+
+
+# Phase 12's command-line runs: (name, the train entry's argv before the
+# data path, after it, the dataset, the eval check's tolerances on the first
+# TRAIN batch (atol, share of the largest |output|, loss rtol; phases 2 and
+# 7's for the same models) or None, and whether the test entry reloads its
+# best checkpoint).
+CLI_RUNS = (
+    ("PPI_RGCN", ["RGCN", "PPI"], ["--max-epochs", "2"], "ppi",
+     (MODEL_ATOL, 0.0, LOSS_RTOL), True),
+    ("QM9_RGCN", ["RGCN", "QM9"], ["--max-epochs", "2"], "qm9",
+     (QM9_ATOL, QM9_LOGIT_RTOL, QM9_LOSS_RTOL), True),
+    ("PPI_GGNN_remat_bf16", ["GGNN", "PPI"],
+     ["--max-epochs", "1", "--gnn_use_remat", "True", "--gnn_dense_dtype",
+      "bfloat16"], "ppi", None, False),
+)
+
+
+class CliRecorder:
+    """What phase 12 reads of one command-line training run, through
+    patches of the harness's own functions (``patches``): per finalised
+    batch the host ms of packing and planning and the edges its plans
+    spilled; per train epoch the steps, each step's device span (CUDA
+    events around the step), the launch counts (set to 0 just before the
+    epoch, read just after) and the loss; the first TRAIN batch's
+    ``.to(device)`` and first compact forms (synchronised), and its eval
+    forward against the plain versions; the model, dataset and weights of
+    the last checkpoint written."""
+
+    def __init__(self, name, counters, tols, device, profile: bool):
+        import threading
+
+        self.name, self.counters, self.tols = name, counters, tols
+        self.device, self.profile = device, profile
+        self.batches, self.epochs = [], []
+        self.first = None
+        self.saved = None
+        self._local = threading.local()
+
+    def patches(self):
+        from tf2_gnn_tpu_torch.data import graph_dataset
+        from tf2_gnn_tpu_torch.harness import run, training
+
+        return _patched([
+            (graph_dataset.GraphDataset, "_finalise_batch",
+             self._finalise(graph_dataset.GraphDataset._finalise_batch)),
+            (graph_dataset, "build_pair_plans",
+             self._plans(graph_dataset.build_pair_plans)),
+            (training, "run_train_epoch",
+             self._epoch(training.run_train_epoch)),
+            (run, "save_model", self._save(run.save_model)),
+        ])
+
+    def _finalise(self, original):
+        def finalise(dataset, batch_graphs, config):
+            self._local.plan_s, self._local.spilled = 0.0, 0
+            t0 = time.perf_counter()
+            out = original(dataset, batch_graphs, config)
+            total = time.perf_counter() - t0
+            self.batches.append((total - self._local.plan_s,
+                                 self._local.plan_s, self._local.spilled))
+            return out
+        return finalise
+
+    def _plans(self, original):
+        def build(*args, **kwargs):
+            t0 = time.perf_counter()
+            plans = original(*args, **kwargs)
+            self._local.plan_s += time.perf_counter() - t0
+            # Sentinel overflow targets are the output row count (args[3]).
+            self._local.spilled += int((plans.ovf_tgt < args[3]).sum())
+            return plans
+        return build
+
+    def _first_batch(self, model, batch, labels):
+        """The first TRAIN batch: ``.to(device)``, its joint plan and that
+        plan's compact forms, each timed between synchronisations, and the
+        eval forward against the plain versions."""
+        import torch
+
+        from tf2_gnn_tpu_torch.harness.training import to_device
+        from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch, labels = to_device(batch, labels, self.device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plan = batch.pair_stream_joint
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _ = (plan.fwd_rows, plan.bwd_rows)
+        torch.cuda.synchronize()
+        self.first = ((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                      (time.perf_counter() - t2) * 1e3)
+        if self.tols is not None:
+            atol, logit_rtol, loss_rtol = self.tols
+            graphs = "target_value" in labels
+            check_eval_forward(
+                model, batch, labels, [
+                    (ps, "pair_spmm_stream_joint",
+                     plain_version(ps.pair_spmm_stream_plain)),
+                    (ps, "pair_spmm_stream",
+                     plain_version(ps.pair_spmm_stream_plain))],
+                logit_rtol, atol, loss_rtol,
+                shape=(batch.num_graphs_padded,) if graphs else None)
+
+    def _epoch(self, original):
+        import itertools
+
+        import torch
+
+        def epoch(train_step, state, batches, device=None, **kwargs):
+            if not self.epochs:
+                batches = iter(batches)
+                first = next(batches)
+                self._first_batch(state.model, *first)
+                batches = itertools.chain([first], batches)
+            spans = []
+
+            def timed_step(state, batch, labels):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = train_step(state, batch, labels)
+                end.record()
+                spans.append((start, end))
+                return out
+
+            for reset, _ in self.counters:
+                reset()
+            t0 = time.perf_counter()
+            if self.profile:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    result = original(timed_step, state, batches, device,
+                                      **kwargs)
+                    torch.cuda.synchronize()
+            else:
+                result = original(timed_step, state, batches, device,
+                                  **kwargs)
+            torch.cuda.synchronize()
+            epoch_ms = (time.perf_counter() - t0) * 1e3
+            launches = {n: c for _, counts in self.counters
+                        for n, c in counts.items()}
+            gnn = state.model.gnn
+            steps = len(spans)
+            forward = gnn.num_layers * steps * (2 if gnn.use_remat else 1)
+            expected = dict(zero_counts(self.counters),
+                            pair_stream=gnn.num_layers * steps,
+                            pair_stream_joint=forward)
+            if launches != expected:
+                raise AssertionError(
+                    f"{self.name} epoch {len(self.epochs) + 1}: launches "
+                    f"{ {k: v for k, v in launches.items() if v} } in "
+                    f"{steps} steps; expected K1 (pair_stream) "
+                    f"{expected['pair_stream']} and K2 (pair_stream_joint) "
+                    f"{forward}, every other kernel 0")
+            loss, graphs_per_s = result[1], result[2]
+            if not math.isfinite(loss):
+                raise AssertionError(f"{self.name}: train loss {loss}")
+            self.epochs.append(dict(
+                steps=steps, loss=loss, graphs_per_s=graphs_per_s,
+                step_ms=[s.elapsed_time(e) for s, e in spans],
+                k1=launches["pair_stream"],
+                k2=launches["pair_stream_joint"]))
+            if self.profile:
+                kernels = kernel_events(prof)
+                busy_ms = sum(_self_device_us(e) for e in kernels) / 1e3
+                log(f"{self.name} epoch {len(self.epochs)} profile: kernel "
+                    f"time {busy_ms:.3f} ms of a {epoch_ms:.3f} ms profiled "
+                    f"epoch (device busy share {busy_ms / epoch_ms:.3f})")
+                log_kernels(kernels, steps)
+            return result
+        return epoch
+
+    def _save(self, original):
+        def save(path, model, model_params, dataset, **kwargs):
+            original(path, model, model_params, dataset, **kwargs)
+            self.saved = (model, dataset, {
+                k: v.detach().clone() for k, v in model.state_dict().items()})
+        return save
+
+    def report(self, seconds: float, peak_bytes: int) -> None:
+        pack, plan, spilled = (list(x) for x in zip(*self.batches))
+        log(f"{self.name}: {len(self.batches)} batches finalised, host ms "
+            f"a batch: pack {1e3 * sum(pack) / len(pack):.1f}, plan "
+            f"{1e3 * sum(plan) / len(plan):.1f}; first TRAIN batch: "
+            f".to(device) {self.first[0]:.1f} ms, joint plan (host build "
+            f"and copy) {self.first[1]:.1f} ms, its forward and backward "
+            f"compact forms {self.first[2]:.1f} ms")
+        if any(spilled):
+            log(f"{self.name}: overflow edges spilled a batch, in finalising "
+                f"order: {spilled}")
+        else:
+            slots = self.saved[1].padding_config.pair_overflow
+            log(f"{self.name}: no batch spilled an edge into its overflow "
+                f"slots (each type's plan holds {slots}); "
+                "tests/test_torch_datasets.py::test_spilled_batch_matches_jax"
+                " carries the spilled case")
+        for i, e in enumerate(self.epochs, 1):
+            step_ms = sorted(e["step_ms"])
+            log(f"{self.name} epoch {i}: {e['steps']} steps, loss "
+                f"{e['loss']:.6f}, {e['graphs_per_s']:.2f} graphs/s, step "
+                f"ms (device span) {[round(x, 3) for x in e['step_ms']]}, "
+                f"K1 {e['k1']}, K2 {e['k2']}")
+        log(f"{self.name}: {seconds:.1f} s, peak memory "
+            f"{peak_bytes / 2**30:.2f} GiB")
+
+
+def cli_path(device, argv):
+    """Phase 12: train and test from the command line. Datasets written
+    from the seed in the loaders' formats; ``CLI_RUNS`` through the train
+    entry's own ``run`` (in process, so the kernels are built once) with
+    ``CliRecorder`` watching, then the test entry on the best checkpoints,
+    whose TEST metric must equal the saved model's in memory."""
+    import torch
+
+    from tf2_gnn_tpu_torch import workloads
+    from tf2_gnn_tpu_torch.cli import test as cli_test
+    from tf2_gnn_tpu_torch.cli import train as cli_train
+    from tf2_gnn_tpu_torch.data.graph_dataset import DataFold
+    from tf2_gnn_tpu_torch.harness.training import (
+        make_eval_step,
+        run_eval_epoch,
+    )
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "phase12"
+    data = {"ppi": workloads.write_ppi_files(root / "ppi", SEED),
+            "qm9": workloads.write_qm9_files(root / "qm9", SEED)}
+    log(f"phase 12: PPI files ({workloads.PPI_FOLD_GRAPHS} graphs of "
+        f"{workloads.NODES_PER_GRAPH} nodes, {workloads.FWD_EDGES_PER_GRAPH} "
+        f"forward links each) and QM9 files ({workloads.QM9_FOLD_MOLECULES} "
+        f"molecules) written in {time.perf_counter() - t_phase:.1f} s")
+    counters = launch_counters()
+    for name, head, tail, kind, tols, reload in CLI_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        recorder = CliRecorder(name, counters, tols, device,
+                               "--profile" in argv)
+        with recorder.patches():
+            best = cli_train.run(
+                head + [str(data[kind]), "--save-dir", str(root / "trained"),
+                        "--run-name", name, "--seed", str(SEED), "--quiet",
+                        "--device", str(device)] + tail)
+        recorder.report(time.perf_counter() - t0,
+                        torch.cuda.max_memory_allocated(device))
+        if not reload:
+            continue
+        model, dataset, weights = recorder.saved
+        model.load_state_dict(weights)
+        dataset.load_data(data[kind], {DataFold.TEST})
+        _, _, results = run_eval_epoch(make_eval_step(model),
+                                       dataset.batch_iterator(DataFold.TEST),
+                                       device)
+        in_memory = model.compute_epoch_metrics(results)[0]
+        del model, dataset, weights, recorder
+        t0 = time.perf_counter()
+        reloaded = cli_test.run([str(best), str(data[kind]), "--device",
+                                 str(device)])
+        log(f"{name}: test entry on {best.name}: TEST metric {reloaded!r} "
+            f"in {time.perf_counter() - t0:.1f} s; the saved model in "
+            f"memory: {in_memory!r}")
+        if not (math.isfinite(reloaded)
+                and abs(reloaded - in_memory) <= 1e-6 * max(1.0,
+                                                             abs(in_memory))):
+            raise AssertionError(f"{name}: the reloaded checkpoint's TEST "
+                                 f"metric {reloaded} differs from the model "
+                                 f"in memory's {in_memory}")
+    torch.cuda.empty_cache()
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
 
 def launch_counters():
@@ -2874,31 +3178,45 @@ def main(argv) -> int:
     # -- 6. RGAT on per-type plans, 7. QM9_RGCN, 8. the probes, 9. GGNN,
     # -- RGIN, PPI_GNN_Edge_MLP and GNN-FiLM, 10. the edge-MLP family on
     # -- merged, merged-target and scatter plans, GraphRegression, 11. the
-    # -- unfused per-edge path on the batches without plans ---------------
+    # -- unfused per-edge path on the batches without plans, 12. training
+    # -- and testing from the command line ---------------------------------
     # Each path returns its kernels-line entries, and phases 3-6 also the
     # entries of other call forms (none for phase 4), which are logged.
-    kernels = rgcn_path(device, argv)
+    def timed(phase: int, path):
+        t_phase = time.perf_counter()
+        result = path(device, argv)
+        log(f"phase {phase} ({path.__name__}): "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        return result
+
+    kernels = timed(2, rgcn_path)
     other_forms = []
-    for path in (rgat_path, edge_mlp_path, sorted_path, typed_rgat_path):
+    for phase, path in ((3, rgat_path), (4, edge_mlp_path), (5, sorted_path),
+                        (6, typed_rgat_path)):
         torch.cuda.empty_cache()
-        path_kernels, path_forms = path(device, argv)
+        path_kernels, path_forms = timed(phase, path)
         kernels += path_kernels
         other_forms += path_forms
     torch.cuda.empty_cache()
-    qm9_entries = qm9_path(device, argv)
+    qm9_entries = timed(7, qm9_path)
     torch.cuda.empty_cache()
-    probe_kernels, probe_forms = probe_path(device, argv)
+    probe_kernels, probe_forms = timed(8, probe_path)
     kernels += probe_kernels
     torch.cuda.empty_cache()
-    flavour_kernels, flavour_forms = flavours_path(device, argv)
+    flavour_kernels, flavour_forms = timed(9, flavours_path)
     kernels += flavour_kernels
     torch.cuda.empty_cache()
     route_kernels, route_forms = merged_scatter_path(device, argv)
     kernels += route_kernels
     torch.cuda.empty_cache()
     unfused_path(device, argv)
+    torch.cuda.empty_cache()
+    cli_path(device, argv)
+    t0 = time.perf_counter()
     add_device_times(kernels + other_forms + probe_forms + qm9_entries
                      + flavour_forms + route_forms)
+    log(f"device times of the kernels' entries: "
+        f"{time.perf_counter() - t0:.1f} s")
     if len(kernels) != len({k["name"] for k in kernels}) or len(kernels) != 18:
         raise AssertionError(f"kernels line: {[k['name'] for k in kernels]}; "
                              "expected 18 distinct kernels")
@@ -2921,7 +3239,6 @@ def profile_step(train_step, state, batch, labels, step_ms: float,
     """Device time by kernel over a few train steps (torch.profiler), and
     the device's busy share of the unprofiled step time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2931,20 +3248,33 @@ def profile_step(train_step, state, batch, labels, step_ms: float,
             state, metrics = train_step(state, batch, labels)
         torch.cuda.synchronize()
 
-    # A user annotation on the device (the optimizer's step) spans kernels
-    # that are listed on their own, and the host gaps between them: it is
-    # not kernel time.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _self_device_us(e) > 0
-               and not getattr(e, "is_user_annotation", False)]
-    kernels.sort(key=_self_device_us, reverse=True)
+    kernels = kernel_events(prof)
     busy_ms = sum(_self_device_us(e) for e in kernels) / steps / 1e3
     log(f"profile: {steps} steps, kernel time {busy_ms:.3f} ms/step of a "
         f"{step_ms:.3f} ms unprofiled step (device busy share "
         f"{busy_ms / step_ms:.3f})")
-    # The 15 largest, then the rest of the hand-written kernels (all in
-    # anonymous namespaces of csrc/*.cu), whose device time a wrapper's
-    # CUDA-event timing hides when the host is slower than the kernel.
+    log_kernels(kernels, steps)
+
+
+def kernel_events(prof):
+    """The profile's CUDA kernels by device time, largest first. A user
+    annotation on the device (the optimizer's step) spans kernels that are
+    listed on their own, and the host gaps between them: it is not kernel
+    time."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _self_device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
+    kernels.sort(key=_self_device_us, reverse=True)
+    return kernels
+
+
+def log_kernels(kernels, steps: int) -> None:
+    """The 15 largest kernels a step, then the rest of the hand-written
+    ones (all in anonymous namespaces of csrc/*.cu), whose device time a
+    wrapper's CUDA-event timing hides when the host is slower than the
+    kernel."""
     shown = [e for i, e in enumerate(kernels)
              if i < 15 or "(anonymous namespace)" in e.key]
     for e in shown:

@@ -3,7 +3,8 @@
 * no module of ``tf2_gnn_tpu_torch`` and not ``chip_smoke.py`` imports
   jax, flax, optax, the JAX package or ``bench``;
 * the entry points default to the card and raise without one instead of
-  running on the CPU;
+  running on the CPU, the command-line train and test runs too (without
+  ``--device cpu``);
 * a CUDA tensor given to a kernel wrapper whose library cannot be built
   raises; it does not fall back to the plain version; nor does a CUDA call
   of a row-owner wrapper (K1, K2, B3, B12 in both forms, B4, B5, B6, B9)
@@ -144,6 +145,25 @@ def test_qm9_entry_points_default_to_the_card(no_card):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls.from_params(workloads.qm9_shipped_params(), input_dim=4,
                             num_edge_types=5)
+
+
+def test_cli_runs_default_to_the_card(no_card, tmp_path):
+    """The command-line training and test runs without ``--device cpu``
+    raise before reading any data; with it they would run on the CPU."""
+    from tf2_gnn_tpu_torch.cli import test as cli_test
+    from tf2_gnn_tpu_torch.cli import train as cli_train
+    from tf2_gnn_tpu_torch.harness import run
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_train.run(["RGCN", "PPI", str(tmp_path / "absent"),
+                       "--save-dir", str(tmp_path / "out")])
+    args = run.get_train_cli_arg_parser().parse_args(
+        ["RGCN", "PPI", str(tmp_path), "--save-dir", str(tmp_path / "out")])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.run_train_from_args(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_test.run([str(tmp_path / "absent.pkl"), str(tmp_path)])
 
 
 class _CudaTensorStandIn:

@@ -134,8 +134,19 @@ def test_expd_plain_matches_jnp(dtype, k):
     """B8's plain version (the wrapper on a CPU tensor without the compact
     form) against ``_expd_kernel_jnp``, slot for slot. Each side runs
     twice and must give the same bits both times, so that a run that
-    differs (seen once under load, not reproduced since; ROADMAP queue C)
-    names the side that moved."""
+    differs (seen once under load, "the plain version moved ... 8 torch
+    threads"; ROADMAP queue C) names the side that moved. The port's side
+    runs on one torch thread, so that its sums keep one order whatever
+    the load."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _check_expd_plain_matches_jnp(dtype, k)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _check_expd_plain_matches_jnp(dtype, k):
     rng, plans = _plans(1)
     jdt, tdt = DTYPES[dtype]
     v = 256

@@ -217,17 +217,14 @@ def test_batch_without_pair_plans_raises():
     {"gnn_use_remat": True},
 ])
 def test_unported_options_raise(override):
-    """``use_remat`` still raises, naming the item that will port it; the
-    other options send the per-type-plan batch to the unfused path, which
-    matches the JAX package's (the test's name is its id from when they
-    raised)."""
+    """Each option matches the JAX package's model with it (the test's name
+    is its id from when they raised): ``use_remat`` on the fused route
+    (remat changes no value), the others on the unfused path, where they
+    send the per-type-plan batch."""
     params = make_params("ppi", "float32")
     params.update(override)
-    if "gnn_use_remat" in override:
-        with pytest.raises(NotImplementedError, match="queue A item 7"):
-            NodeMulticlassTask.from_params(params, input_dim=FEATURES,
-                                           num_edge_types=3, device="cpu")
-        return
     jbatch, tbatch, labels = small_workload(seed=6)
     tmodel = check_matches_jax(params, jbatch, tbatch, labels)
-    assert tmodel.gnn.mp_layer_0._route(tbatch) == "unfused"
+    route = tmodel.gnn.mp_layer_0._route(tbatch)
+    assert route == ("pair_joint" if "gnn_use_remat" in override
+                     else "unfused")

@@ -50,6 +50,18 @@ class PaddingConfig:
     num_nodes: int
     num_graphs: int
     edge_budgets: Tuple[int, ...]
+    # Static chunk budgets of the merged pair plan (ops/pair_spmm.py), and
+    # its overflow slots; None when the dataset builds no pair plans.
+    pair_chunks_fwd: Optional[int] = None
+    pair_chunks_bwd: Optional[int] = None
+    pair_overflow: Optional[int] = None
+    # Per-type (fwd, bwd) chunk budgets when the dataset builds one pair
+    # plan per edge type (``pair_per_type``).
+    pair_chunks_typed: Optional[Tuple[Tuple[int, int], ...]] = None
+    # The plans' groups (chunks sharing one output block; chosen per
+    # dataset by ops/pair_spmm.py::choose_pair_groups).
+    pair_group_fwd: Optional[int] = None
+    pair_group_bwd: Optional[int] = None
 
     @property
     def num_edge_types(self) -> int:

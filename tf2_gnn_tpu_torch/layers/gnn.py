@@ -12,13 +12,19 @@ reference order (gnn.py:116-180):
 3. returns the final [V, H] plus all MP outputs (captured raw, before the
    exchange).
 
-Rematerialisation is not ported; a configuration that asks for it raises
-at construction.
+With ``use_remat`` each message-passing layer runs under
+``torch.utils.checkpoint`` (the reference's ``nn.remat`` around the layer):
+its activations are dropped after the forward and recomputed in the
+backward, so the layer's forward kernels launch twice a train step. The
+checkpointed region draws no random numbers (the layers take no
+generator; the input dropout before them draws from the caller's
+generator outside the region), so the recompute is exact.
 """
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data.graph_batch import GraphBatch
 from ..ops.activations import get_activation_function
@@ -57,9 +63,7 @@ class GNN(nn.Module):
                  global_exchange_dropout_rate: float = 0.2,
                  mp_hypers: Optional[Dict[str, Any]] = None):
         super().__init__()
-        if use_remat:
-            raise NotImplementedError(
-                "use_remat=True is not ported (ROADMAP.md, queue A item 7).")
+        self.use_remat = use_remat
         self.num_layers = num_layers
         self.hidden_dim = hidden_dim
         self.dense_every_num_layers = dense_every_num_layers
@@ -171,7 +175,12 @@ class GNN(nn.Module):
                     cur = (cur + last) / 2.0
                 last = tmp
 
-            cur = getattr(self, f"mp_layer_{layer_idx}")(cur, batch, training)
+            layer = getattr(self, f"mp_layer_{layer_idx}")
+            if self.use_remat and torch.is_grad_enabled():
+                cur = checkpoint(layer, cur, batch, training,
+                                 use_reentrant=False)
+            else:
+                cur = layer(cur, batch, training)
             # Intermediate representations are captured before
             # exchange/layernorm/dense (reference gnn.py:305).
             all_reprs.append(cur)

@@ -13,6 +13,13 @@ from torch import nn
 
 from ..init import glorot_uniform_
 
+_OPERAND_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def _rounded(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` and held in float32 again."""
+    return x if dtype is None else x.to(dtype).to(torch.float32)
+
 
 class TypedLinear(nn.Module):
     """Stacked per-type linear map (no bias, glorot init).
@@ -22,17 +29,22 @@ class TypedLinear(nn.Module):
     * ``forward(x, edge_type=l)`` with x [N, D] -> [N, out_size] (one type,
       the unfused path's per-edge layers)
 
-    Products run in float32 (the JAX module's ``compute_dtype`` other than
-    float32 is not ported and raises; ROADMAP.md, queue A item 7).
+    ``compute_dtype="bfloat16"`` rounds both operands to bf16 and takes
+    their product in float32, as the JAX module's ``preferred_element_type
+    =float32`` einsum does: the product of two bf16 values is exact in
+    f32, the sums accumulate in f32 and the output is f32, not rounded to
+    bf16 (``torch.matmul`` of two bf16 tensors would round it). The
+    gradients pass the casts, so they are rounded to bf16 on the way to
+    the f32 parameters and inputs, as the reference's are.
     """
 
     def __init__(self, num_types: int, in_size: int, out_size: int,
                  compute_dtype: str = "float32"):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"TypedLinear compute_dtype={compute_dtype!r} is not ported; "
-                "only float32 products are (ROADMAP.md, queue A item 7).")
+        if compute_dtype not in _OPERAND_DTYPES:
+            raise ValueError(f"TypedLinear compute_dtype={compute_dtype!r}; "
+                             f"expected one of {sorted(_OPERAND_DTYPES)}")
+        self.operand_dtype = _OPERAND_DTYPES[compute_dtype]
         self.num_types = num_types
         self.in_size = in_size
         self.out_size = out_size
@@ -43,9 +55,11 @@ class TypedLinear(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 edge_type: Optional[int] = None) -> torch.Tensor:
+        kernel = _rounded(self.kernel, self.operand_dtype)
+        x = _rounded(x, self.operand_dtype)
         if edge_type is not None:
-            return torch.matmul(x, self.kernel[edge_type])
+            return torch.matmul(x, kernel[edge_type])
         if x.dim() in (2, 3):
-            return torch.matmul(x, self.kernel)
+            return torch.matmul(x, kernel)
         raise ValueError(
             f"TypedLinear expects rank-2 or rank-3 input, got {x.dim()}.")

@@ -14,6 +14,8 @@ from .graph_regression_task import GraphRegressionTask
 
 
 class GraphBinaryClassificationTask(GraphRegressionTask):
+    EVAL_KIND = "binary_classification"
+
     def compute_task_output(self, batch: GraphBatch, node_representations,
                             training: bool,
                             generator: Optional[torch.Generator] = None):

@@ -33,6 +33,9 @@ HEAD_DEFAULTS = {
 
 
 class GraphRegressionTask(GraphTaskModel):
+    # The detailed evaluation of harness/evaluation.py.
+    EVAL_KIND = "regression"
+
     def __init__(self, params: Dict[str, Any], input_dim: int,
                  num_edge_types: int):
         params = {**HEAD_DEFAULTS, **params}

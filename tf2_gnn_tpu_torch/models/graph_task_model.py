@@ -10,7 +10,7 @@ the submodule ``gnn``, so parameter names follow the flax tree
 representations)``, the second the initial projection's output and every
 message-passing layer's (reference graph_task_model.py:95-111).
 """
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -66,6 +66,23 @@ class GraphTaskModel(nn.Module):
         model.reset_parameters(torch.Generator().manual_seed(seed))
         return model.to(dev)
 
+    @classmethod
+    def from_dataset(cls, params: Dict[str, Any], dataset, device="cuda",
+                     seed: int = 0) -> "GraphTaskModel":
+        """``from_params`` with the dimensions the dataset holds: the node
+        feature width, the edge type count and the task's own
+        (``_dataset_kwargs``), as the reference's ``from_params(params,
+        dataset)`` reads them."""
+        return cls.from_params(
+            params, input_dim=int(dataset.node_feature_shape[-1]),
+            num_edge_types=dataset.num_edge_types, device=device, seed=seed,
+            **cls._dataset_kwargs(params, dataset))
+
+    @classmethod
+    def _dataset_kwargs(cls, params: Dict[str, Any],
+                        dataset) -> Dict[str, Any]:
+        return {}
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.gnn.reset_parameters(generator)
 
@@ -91,4 +108,11 @@ class GraphTaskModel(nn.Module):
                              labels: Dict[str, torch.Tensor]
                              ) -> Dict[str, torch.Tensor]:
         """Per-batch loss/metrics; must contain key "loss"."""
+        raise NotImplementedError()
+
+    @staticmethod
+    def compute_epoch_metrics(task_results: List[Dict[str, Any]]
+                              ) -> Tuple[float, str]:
+        """Host-side epoch reduction of the per-batch metrics -> (metric
+        where lower is better, text)."""
         raise NotImplementedError()

@@ -5,8 +5,9 @@ A dense layer with bias maps final node states to per-node logits; the loss
 is sigmoid cross-entropy summed over labels and averaged over REAL nodes;
 the tracked metric is batch micro-F1, negated so that lower is better.
 """
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -48,6 +49,15 @@ class NodeMulticlassTask(GraphTaskModel):
             cls, mp_style: Optional[str] = None) -> Dict[str, Any]:
         return super().get_default_hyperparameters(mp_style)
 
+    @classmethod
+    def _dataset_kwargs(cls, params: Dict[str, Any],
+                        dataset) -> Dict[str, Any]:
+        if not hasattr(dataset, "num_node_target_labels"):
+            raise ValueError(
+                f"Provided dataset of type {type(dataset)} does not provide "
+                "num_node_target_labels information.")
+        return {"num_labels": dataset.num_node_target_labels}
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         super().reset_parameters(generator)
         init_dense_(self.node_to_labels, generator)
@@ -78,3 +88,21 @@ class NodeMulticlassTask(GraphTaskModel):
         return {"loss": loss, "f1_score": f1_from_counts(tp, fp, fn),
                 "num_graphs": batch.num_graphs,
                 "f1_tp": tp, "f1_fp": fp, "f1_fn": fn}
+
+    @staticmethod
+    def compute_epoch_metrics(task_results: List[Dict[str, Any]]
+                              ) -> Tuple[float, str]:
+        """The unweighted mean of the batch F1s (the selection metric,
+        negated), and the epoch's micro-F1 from the pooled TP/FP/FN
+        counts, which small trailing batches do not bias."""
+        avg_f1 = float(np.average([float(r["f1_score"])
+                                   for r in task_results]))
+        tp = float(np.sum([float(r.get("f1_tp", 0.0)) for r in task_results]))
+        fp = float(np.sum([float(r.get("f1_fp", 0.0)) for r in task_results]))
+        fn = float(np.sum([float(r.get("f1_fn", 0.0)) for r in task_results]))
+        precision = tp / max(tp + fp, SMALL_NUMBER)
+        recall = tp / max(tp + fn, SMALL_NUMBER)
+        exact_f1 = (2.0 * precision * recall
+                    / max(precision + recall, SMALL_NUMBER))
+        return -avg_f1, (f"Avg MicroF1: {avg_f1:.3f} (exact epoch MicroF1: "
+                         f"{exact_f1:.3f})")

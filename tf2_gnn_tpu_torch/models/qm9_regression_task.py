@@ -64,6 +64,11 @@ class QM9RegressionTask(GraphTaskModel):
         )
         return params
 
+    @classmethod
+    def _dataset_kwargs(cls, params: Dict[str, Any],
+                        dataset) -> Dict[str, Any]:
+        return {"task_id": int(dataset.params.get("task_id", 0))}
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         super().reset_parameters(generator)
         self.regression_transform.reset_parameters(generator)
@@ -84,6 +89,7 @@ class QM9RegressionTask(GraphTaskModel):
         return segment_sum(per_node_weighted, batch.node_to_graph,
                            batch.num_graphs_padded)  # [G]
 
+    EVAL_KIND = "regression"
     compute_task_metrics = staticmethod(GraphRegressionTask.compute_task_metrics)
     compute_epoch_metrics = staticmethod(
         GraphRegressionTask.compute_epoch_metrics)

@@ -31,7 +31,16 @@ regression target a molecule.
 ``qm9_shipped_params`` is the shipped QM9_RGCN configuration that
 ``bench.py::measure_qm9`` times; ``graph_regression_edge_mlp_params`` the
 shipped GraphRegression_GNN_Edge_MLP, which reads the same batch.
+
+``write_ppi_files`` and ``write_qm9_files`` write datasets in the formats
+the loaders read (``data/ppi_dataset.py``, ``data/qm9_dataset.py``), for
+the command-line path: PPI graphs of ``NODES_PER_GRAPH`` nodes at
+``build_raw_arrays``' density (the loader adds the self loops and the
+reverse edges), and QM9 molecules of ``QM9_NODES_PER_MOLECULE`` nodes with
+``QM9_EDGES_PER_MOLECULE`` bonds of each of the 4 raw types (the loader's
+tied reverse edges and self loops give ``QM9_EDGE_TYPES`` types).
 """
+import gzip
 import json
 from pathlib import Path
 from typing import Any, Dict, Tuple
@@ -347,3 +356,68 @@ def build_qm9_batch(seed: int, device="cuda", **counts):
     batch = batch.to(dev)
     labels = {k: torch.as_tensor(v, device=dev) for k, v in labels.items()}
     return batch, labels, molecules
+
+
+PPI_FOLD_GRAPHS = {"train": 6, "valid": 3, "test": 3}
+QM9_FOLD_MOLECULES = {"train": 1776, "valid": 888, "test": 888}
+QM9_RAW_EDGE_TYPES = 4
+
+
+def write_ppi_files(path, seed: int) -> Path:
+    """The DGL-format PPI files ``{fold}_graph.json`` (``links``),
+    ``{fold}_feats.npy`` (``FEATURE_DIM`` features), ``{fold}_labels.npy``
+    (``NUM_LABELS`` labels, 10% positive) and ``{fold}_graph_id.npy``, with
+    ``PPI_FOLD_GRAPHS`` graphs a fold of ``NODES_PER_GRAPH`` nodes and
+    ``FWD_EDGES_PER_GRAPH`` random forward links within each graph.
+    Returns ``path``."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    n, e = NODES_PER_GRAPH, FWD_EDGES_PER_GRAPH
+    for fold, graphs in PPI_FOLD_GRAPHS.items():
+        base = np.repeat(np.arange(graphs) * n, e)
+        src = base + rng.randint(0, n, graphs * e)
+        tgt = base + rng.randint(0, n, graphs * e)
+        # The JSON text written directly: json.dump of a list of dicts
+        # takes several times as long.
+        with open(path / f"{fold}_graph.json", "w") as f:
+            f.write('{"links": [' + ", ".join(
+                f'{{"source": {s}, "target": {t}}}'
+                for s, t in zip(src.tolist(), tgt.tolist())) + "]}")
+        np.save(path / f"{fold}_feats.npy",
+                rng.randn(graphs * n, FEATURE_DIM).astype(np.float32))
+        np.save(path / f"{fold}_labels.npy",
+                (rng.rand(graphs * n, NUM_LABELS) > 0.9).astype(np.float32))
+        np.save(path / f"{fold}_graph_id.npy",
+                np.repeat(np.arange(graphs), n))
+    return path
+
+
+def write_qm9_files(path, seed: int) -> Path:
+    """The QM9-format ``{train,valid,test}.jsonl.gz``: each molecule a
+    ``graph`` of (source, raw type 1-4, target) triples,
+    ``QM9_EDGES_PER_MOLECULE`` random bonds of each raw type among its
+    ``QM9_NODES_PER_MOLECULE`` nodes, its ``node_features``
+    (``QM9_FEATURE_DIM``, normal, to three decimals) and one regression target (``targets``
+    [[value]]), with ``QM9_FOLD_MOLECULES`` molecules a fold. Returns
+    ``path``."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    n = QM9_NODES_PER_MOLECULE
+    for fold, molecules in QM9_FOLD_MOLECULES.items():
+        ends = rng.randint(0, n, (molecules, QM9_RAW_EDGE_TYPES,
+                                  QM9_EDGES_PER_MOLECULE, 2))
+        # Three decimals: encoding floats is most of the writing time.
+        features = rng.randn(molecules, n, QM9_FEATURE_DIM).round(3)
+        targets = rng.randn(molecules).astype(np.float32)
+        # Fast gzip: the default level takes most of the writing time.
+        with gzip.open(path / f"{fold}.jsonl.gz", "wt", compresslevel=1) as f:
+            for m in range(molecules):
+                graph = [[int(s), t + 1, int(d)]
+                         for t in range(QM9_RAW_EDGE_TYPES)
+                         for s, d in ends[m, t]]
+                f.write(json.dumps({"graph": graph,
+                                    "node_features": features[m].tolist(),
+                                    "targets": [[float(targets[m])]]}) + "\n")
+    return path
