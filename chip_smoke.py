@@ -8,7 +8,9 @@
 Phases, each of which fails the run by raising:
 
 1. Build the hand-written CUDA kernels from ``tf2_gnn_tpu_torch/csrc``
-   (one nvcc per source, started together) and print the card.
+   (one nvcc per source, started together) and the C++ host engine
+   (``tf2_gnn_tpu_torch/native/graphpack.cc``, g++; the phase fails if it
+   does not build), and print the card.
 2. PPI_RGCN on the per-type-plan PPI batch:
    a. kernel checks at the real plan shapes: the joint SpMM (K2, over the
       forward plan's compact form) and the stream SpMM (K1, over the
@@ -233,11 +235,43 @@ Phases, each of which fails the run by raising:
    after) must be K1 one a layer and step and K2 one (two under remat),
    every other kernel 0; losses finite; on the first TRAIN batch of (a)
    and (b) the eval forward is held against the plain versions at phase
-   2's and phase 7's tolerances. Logged per run: the host ms a batch of
-   packing and planning, the first TRAIN batch's ``.to(device)``, joint
-   plan and its compact forms, the edges each batch spilled into its
-   overflow slots, each epoch's graphs/s and step spans, the peak memory
-   and the wall time.
+   2's and phase 7's tolerances. Batches are packed and planned by the
+   C++ engine (``native``); every batch of the first epoch is finalised
+   once more on the numpy forms (``native.numpy_forms()``) and must be
+   array-identical, plans included; a batch planned without the binding
+   fails the phase. Logged per run: the host ms a batch of packing and
+   planning (and the first epoch's both ways), the planners that planned
+   each batch (the binding, or the numpy planner where a plan spilled),
+   the first TRAIN batch's ``.to(device)``, joint plan and its compact
+   forms, the edges each batch spilled into its overflow slots, each
+   epoch's graphs/s and step spans, the peak memory and the wall time.
+13. The TF reference's own recorded runs on the card
+    (``tests/fixtures/reference_dumps``, through
+    ``harness/reference_parity.py``; f32 products without TF32, asserted):
+   a-c. for each of the eight dumps (``reference_parity.CASES``), twice:
+      on the batch without plans (the unfused route) and on the plan kind
+      of the flavour's fused route (per-type pair plans: K2 and K1 for
+      RGCN, GGNN and RGIN, K1 both ways for GNN-FiLM and the 12-layer
+      target-state GNN_Edge_MLP; RGAT's merged pair plan: B8, B3 and B9).
+      The dump's data through the port's loaders with its
+      ``dataset_params`` and an f32 edge stream, the first VALIDATION
+      batch checked against the dump's; the dump's weights imported
+      (``import_reference_weights``, nothing left unmatched); one eval
+      forward and one backward with the launch counts set to 0 just
+      before and read just after (``REFERENCE_LAUNCHES`` a layer on the
+      fused route, none without plans); each layer's representation, the
+      final representations, the task output, the loss and every gradient
+      held to the dump at the parity test's tolerances (rtol 2e-4 + atol
+      1e-4; loss rtol 5e-4; gradients 5e-3 of each tensor's largest
+      entry). One line a run: the route, the launches and each largest
+      error as a share of its limit;
+   d. the public API at full width: a ``GNNInput`` of phase 12's 3
+      VALIDATION PPI graphs through ``batch_from_gnn_input`` and ``GNN``
+      at PPI_RGCN's width (f32 stream), one forward and one backward on
+      the unfused route (no kernel), held over the real rows against the
+      same encoder on the dataset's batch of those graphs (K2, K1), its
+      relu keeping that run's signs; a relu input the two runs put on
+      opposite sides of 0 must lie within the states' tolerance of it.
 
 Each phase logs its wall time, and a line before those below the
 script's. The line before the last two is the JSON ``kernels`` line (all
@@ -245,6 +279,7 @@ eighteen kernels); then the card's name and power limit (nvidia-smi); the
 last line is the JSON result. Exits non-zero, printing no result, without
 a card or without the repository beside this script.
 """
+import contextlib
 import json
 import math
 import subprocess
@@ -2737,16 +2772,57 @@ CLI_RUNS = (
 )
 
 
+def batch_arrays(batch):
+    """A host ``GraphBatch``'s arrays by name: the packed nodes and edges,
+    the in-degrees and every plan array."""
+    arrays = {"node_features": batch.node_features,
+              "node_to_graph": batch.node_to_graph,
+              "num_edges": batch.num_edges, "in_degrees": batch.in_degrees}
+    for t, (s, g) in enumerate(zip(batch.edge_sources, batch.edge_targets)):
+        arrays[f"edge_sources[{t}]"], arrays[f"edge_targets[{t}]"] = s, g
+    for name in ("pair_plans", "scatter_plans"):
+        for i, a in enumerate(getattr(batch, name) or ()):
+            arrays[f"{name}[{i}]"] = a
+    for t, plans in enumerate(batch.pair_plans_typed or ()):
+        for i, a in enumerate(plans):
+            arrays[f"pair_plans_typed[{t}][{i}]"] = a
+    return arrays
+
+
+def check_same_batch(what: str, got, want) -> None:
+    """Two host batches hold the same arrays, bit for bit."""
+    import numpy as np
+
+    got, want = batch_arrays(got), batch_arrays(want)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: arrays {sorted(got)} vs "
+                             f"{sorted(want)}")
+    for name, a in got.items():
+        b = want[name]
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                raise AssertionError(f"{what}: {name} is None on one side")
+            continue
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+                a, b):
+            raise AssertionError(f"{what}: {name} differs")
+
+
 class CliRecorder:
     """What phase 12 reads of one command-line training run, through
     patches of the harness's own functions (``patches``): per finalised
-    batch the host ms of packing and planning and the edges its plans
-    spilled; per train epoch the steps, each step's device span (CUDA
-    events around the step), the launch counts (set to 0 just before the
-    epoch, read just after) and the loss; the first TRAIN batch's
-    ``.to(device)`` and first compact forms (synchronised), and its eval
-    forward against the plain versions; the model, dataset and weights of
-    the last checkpoint written."""
+    batch the host ms of packing and planning, the planners that ran
+    (``native.PLANNED``: the C++ binding, or the numpy planner where a
+    plan spilled) and the edges its plans spilled; for each batch of the
+    first epoch the same batch finalised again on the numpy forms
+    (``native.numpy_forms()``), timed, and held array-identical; per train
+    epoch the steps, each step's device span (CUDA events around the step),
+    the launch counts (set to 0 just before the epoch, read just after)
+    and the loss; the first TRAIN batch's ``.to(device)`` and first
+    compact forms (synchronised), and its eval forward against the plain
+    versions; the model, dataset and weights of the last checkpoint
+    written."""
 
     def __init__(self, name, counters, tols, device, profile: bool):
         import threading
@@ -2773,13 +2849,28 @@ class CliRecorder:
         ])
 
     def _finalise(self, original):
-        def finalise(dataset, batch_graphs, config):
+        from tf2_gnn_tpu_torch import native
+
+        def timed(dataset, batch_graphs, config):
             self._local.plan_s, self._local.spilled = 0.0, 0
+            before = native.PLANNED.copy()
             t0 = time.perf_counter()
             out = original(dataset, batch_graphs, config)
             total = time.perf_counter() - t0
-            self.batches.append((total - self._local.plan_s,
-                                 self._local.plan_s, self._local.spilled))
+            return out, dict(pack=total - self._local.plan_s,
+                             plan=self._local.plan_s,
+                             spilled=self._local.spilled,
+                             planners=dict(native.PLANNED - before))
+
+        def finalise(dataset, batch_graphs, config):
+            out, record = timed(dataset, batch_graphs, config)
+            if not self.epochs:
+                with native.numpy_forms():
+                    ref, numpy_record = timed(dataset, batch_graphs, config)
+                check_same_batch(f"{self.name} batch {len(self.batches)} "
+                                 "(binding vs numpy forms)", out[0], ref[0])
+                record["numpy"] = numpy_record
+            self.batches.append(record)
             return out
         return finalise
 
@@ -2905,13 +2996,29 @@ class CliRecorder:
         return save
 
     def report(self, seconds: float, peak_bytes: int) -> None:
-        pack, plan, spilled = (list(x) for x in zip(*self.batches))
+        def mean_ms(records, key):
+            return 1e3 * sum(r[key] for r in records) / len(records)
+
+        spilled = [b["spilled"] for b in self.batches]
+        compared = [b for b in self.batches if "numpy" in b]
+        numpy_forms = [b["numpy"] for b in compared]
         log(f"{self.name}: {len(self.batches)} batches finalised, host ms "
-            f"a batch: pack {1e3 * sum(pack) / len(pack):.1f}, plan "
-            f"{1e3 * sum(plan) / len(plan):.1f}; first TRAIN batch: "
+            f"a batch: pack {mean_ms(self.batches, 'pack'):.1f}, plan "
+            f"{mean_ms(self.batches, 'plan'):.1f}; the first epoch's "
+            f"{len(compared)} batches, binding vs numpy forms: pack "
+            f"{mean_ms(compared, 'pack'):.1f} vs "
+            f"{mean_ms(numpy_forms, 'pack'):.1f}, plan "
+            f"{mean_ms(compared, 'plan'):.1f} vs "
+            f"{mean_ms(numpy_forms, 'plan'):.1f}, batches and plans "
+            "array-identical; first TRAIN batch: "
             f".to(device) {self.first[0]:.1f} ms, joint plan (host build "
             f"and copy) {self.first[1]:.1f} ms, its forward and backward "
             f"compact forms {self.first[2]:.1f} ms")
+        log(f"{self.name}: planners a batch, in finalising order: "
+            f"{[b['planners'] for b in self.batches]}")
+        if not all(b["planners"].get("pair binding") for b in self.batches):
+            raise AssertionError(f"{self.name}: a batch was planned without "
+                                 "the C++ binding")
         if any(spilled):
             log(f"{self.name}: overflow edges spilled a batch, in finalising "
                 f"order: {spilled}")
@@ -2994,6 +3101,292 @@ def cli_path(device, argv):
                                  f"in memory's {in_memory}")
     torch.cuda.empty_cache()
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
+# Phase 13: the kernel wrappers each flavour's fused route launches in one
+# run of a dump (``reference_parity.run``: the encoder's eval forward, the
+# model's forward and one backward), per layer; the runs without plans
+# launch none.
+REFERENCE_LAUNCHES = {
+    "RGCN": {"pair_stream_joint": 2, "pair_stream": 1},
+    "GGNN": {"pair_stream_joint": 2, "pair_stream": 1},
+    "RGIN": {"pair_stream_joint": 2, "pair_stream": 1},
+    "GNN_FiLM": {"pair_stream": 3},
+    "GNN_Edge_MLP": {"pair_stream": 3},
+    "RGAT": {"pair_attention_expd": 2, "pair_spmm": 8,
+             "pair_attention_bwd_fused": 1},
+}
+# Phase 13d's check of the encoder on a ``GNNInput`` batch against the same
+# graphs batched by the dataset (f32 edge stream): states within
+# GNN_INPUT_ATOL plus GNN_INPUT_RTOL of the largest |reference entry|,
+# gradients within GNN_INPUT_GRAD_RTOL of each tensor's largest entry. The
+# GNNInput batch's message activation (relu) takes the dataset batch's
+# signs (``relu_inputs``): the unfused route's atomic sums put a relu input
+# that lies within rounding of 0 on either side of it from run to run, and
+# one such input moved a weight's gradient by 0.6% of its largest entry on
+# an H100. Each relu input whose sign the two runs disagree on must lie
+# within the states' tolerance of 0 (``check_relu_flips``).
+GNN_INPUT_ATOL = 1e-4
+GNN_INPUT_RTOL = 2.0 ** -12
+GNN_INPUT_GRAD_RTOL = 1e-3
+
+
+def reference_run(dump, data, kind: str, device, counters):
+    """Phase 13 on one dump and plan kind: the dump's data through the
+    port's loaders (the batch checked against the dump's), its weights
+    imported, then one eval forward and one backward on ``device`` with
+    every launch count set to 0 just before and read just after, held
+    against the dump at the parity test's tolerances. Returns (route of
+    layer 0, launches, ``reference_parity.compare``'s report)."""
+    import torch
+
+    from tf2_gnn_tpu_torch.harness import reference_parity as rp
+
+    model, dataset = rp.build(dump, data, kind, device)
+    batch, labels = rp.first_batch(dataset)
+    rp.check_batch(batch, labels, dump)
+    rp.import_weights(model, dump)
+    route = model.gnn.mp_layer_0._route(batch.to(device))
+    if (route == "unfused") != (kind == "none"):
+        raise AssertionError(f"{dump.name} on {kind} plans takes route "
+                             f"{route}")
+    for reset, _ in counters:
+        reset()
+    outputs = rp.run(model, batch, labels)
+    torch.cuda.synchronize()
+    launches = {n: c for _, counts in counters for n, c in counts.items()
+                if c}
+    layers = model.gnn.num_layers
+    expected = {} if kind == "none" else {
+        n: c * layers for n, c in REFERENCE_LAUNCHES[dump.model].items()}
+    if launches != expected:
+        raise AssertionError(f"{dump.name} on {kind} plans launched "
+                             f"{launches}; expected {expected}")
+    return route, launches, rp.compare(outputs, dump)
+
+
+def gnn_input_case(device, ppi_dir: Path):
+    """Phase 13d's encoder and batches. A ``GNNInput`` of the 3 VALIDATION
+    graphs of the PPI files (their real rows, as the dataset batched
+    them), padded by ``batch_from_gnn_input`` (no plans, the unfused
+    route), the dataset's batch of the same graphs (per-type plans, K2 and
+    K1), and ``GNN`` at PPI_RGCN's width (f32 edge stream, random weights
+    from the seed). Returns (``run``, the GNNInput batch, the dataset's
+    batch, real rows, real edges): ``run(batch, pinned)`` is one forward
+    and one backward of the encoder on ``batch`` under ``relu_inputs(v,
+    pinned)``, with every launch count set to 0 just before and read just
+    after, returning (the real rows of the final and every layer's states,
+    {parameter: gradient}, {kernel: launches}, the relu inputs)."""
+    import numpy as np
+    import torch
+
+    from tf2_gnn_tpu_torch import workloads
+    from tf2_gnn_tpu_torch.data import DataFold, PPIDataset
+    from tf2_gnn_tpu_torch.harness.config import (
+        load_default_hypers,
+        merge_params,
+    )
+    from tf2_gnn_tpu_torch.layers import GNN, GNNInput, batch_from_gnn_input
+
+    if not (ppi_dir / "valid_graph.json").exists():
+        workloads.write_ppi_files(ppi_dir, SEED)
+    shipped = load_default_hypers("PPI", "RGCN")
+    dataset = PPIDataset(merge_params(PPIDataset.get_default_hyperparameters(),
+                                      shipped["task_params"]),
+                         rng=np.random.RandomState(SEED))
+    dataset.load_data(ppi_dir, {DataFold.VALIDATION})
+    planned, _ = next(iter(dataset.batch_iterator(DataFold.VALIDATION)))
+    v = planned.num_nodes
+    counts = [int(c) for c in planned.num_edges]
+    gnn_input = GNNInput(
+        node_features=planned.node_features[:v],
+        adjacency_lists=[np.stack([s[:c], t[:c]], axis=1) for s, t, c in zip(
+            planned.edge_sources, planned.edge_targets, counts)],
+        node_to_graph_map=planned.node_to_graph[:v],
+        num_graphs=planned.num_graphs)
+    bare = batch_from_gnn_input(gnn_input).to(device)
+    planned = planned.to(device)
+    params = {k[len("gnn_"):]: value for k, value in merge_params(
+        workloads.shipped_params("PPI_RGCN.json", "rgcn"),
+        {"gnn_edge_dtype": "float32"}).items() if k.startswith("gnn_")}
+    gnn = GNN.from_params(params, input_dim=workloads.FEATURE_DIM,
+                          num_edge_types=dataset.num_edge_types)
+    gnn.reset_parameters(torch.Generator().manual_seed(SEED))
+    gnn = gnn.to(device)
+    routes = (gnn.mp_layer_0._route(bare), gnn.mp_layer_0._route(planned))
+    if routes != ("unfused", "pair_joint"):
+        raise AssertionError(f"GNNInput batch / dataset batch routes {routes}")
+    cot = torch.randn((v, gnn.hidden_dim),
+                      generator=torch.Generator().manual_seed(SEED + 13)
+                      ).to(device)
+    counters = launch_counters()
+
+    def run(batch, pinned):
+        for reset, _ in counters:
+            reset()
+        gnn.zero_grad(set_to_none=True)
+        with relu_inputs(v, pinned) as inputs:
+            final, reps = gnn(batch, False)
+            (final[:v] * cot).sum().backward()
+        torch.cuda.synchronize()
+        return ([final[:v].detach()] + [r[:v].detach() for r in reps],
+                {n: p.grad.detach().clone()
+                 for n, p in gnn.named_parameters()},
+                {n: c for _, cs in counters for n, c in cs.items() if c},
+                inputs)
+
+    return run, bare, planned, v, sum(counts)
+
+
+def gradient_shares(got, want):
+    """{parameter: largest |got - want| as a share of its largest |want|}."""
+    return {name: float((got[name] - w).abs().max())
+            / max(float(w.abs().max()), 1e-30) for name, w in want.items()}
+
+
+def gnn_input_check(device, ppi_dir: Path) -> None:
+    """Phase 13d: the public API at full width (``gnn_input_case``). The
+    dataset's batch runs first (K2 and K1 once a layer), then the GNNInput
+    batch (no kernel launched) with its relu keeping the first run's signs
+    (``relu_inputs``, ``GNN_INPUT_*``); the two are held together over the
+    real rows, states and gradients."""
+    import torch
+
+    t0 = time.perf_counter()
+    run, bare, planned, v, edges = gnn_input_case(device, ppi_dir)
+    want = run(planned, None)
+    got = run(bare, [x > 0 for x in want[3]])
+    layers = len(want[3])
+    expected = ({}, {"pair_stream_joint": layers, "pair_stream": layers})
+    if (got[2], want[2]) != expected:
+        raise AssertionError(f"GNNInput batch launched {got[2]}, the "
+                             f"dataset batch {want[2]}; expected "
+                             f"{expected}")
+    flips, flip_max = check_relu_flips(got[3], want[3])
+    state_err = 0.0
+    for g, w in zip(got[0], want[0]):
+        if not torch.isfinite(g).all():
+            raise AssertionError("GNNInput batch: non-finite states")
+        err = float((g - w).abs().max())
+        limit = GNN_INPUT_ATOL + GNN_INPUT_RTOL * float(w.abs().max())
+        if err > limit:
+            raise AssertionError(f"GNNInput batch: states differ by {err} "
+                                 f"from the dataset batch's (limit {limit})")
+        state_err = max(state_err, err / limit)
+    shares = gradient_shares(got[1], want[1])
+    for name, share in shares.items():
+        if not share <= GNN_INPUT_GRAD_RTOL:
+            raise AssertionError(f"GNNInput batch: gradient of {name} "
+                                 f"differs by {share} of its largest entry")
+    log(f"phase 13d: GNNInput of {planned.num_graphs} graphs ({v} nodes, "
+        f"{edges} edges) padded to V = {bare.num_nodes_padded} (the "
+        f"dataset's: {planned.num_nodes_padded}), GNN at hidden "
+        f"{want[0][0].shape[1]}, {layers} layers, f32: routes "
+        f"('unfused', 'pair_joint'), launches {got[2]} / {want[2]}; relu "
+        f"inputs on opposite sides of 0 in the two runs {flips} (largest "
+        f"|x| {flip_max:.3g}); states within {state_err:.3g} of their "
+        f"limit ({GNN_INPUT_ATOL} + {GNN_INPUT_RTOL:.3g} of the largest), "
+        f"gradients within {max(shares.values()):.3g} of their largest "
+        f"entries (limit {GNN_INPUT_GRAD_RTOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def relu_inputs(v: int, pinned=None):
+    """For a ``with`` block, every message-passing layer's after-aggregation
+    relu records its input's first ``v`` rows in the list the block gets,
+    and, given ``pinned`` (one bool mask of [v, H] a layer, in call order),
+    keeps exactly the entries its layer's mask marks on those rows (the
+    input's own sign on the rest). Raises on a layer whose message
+    activation is not relu after the aggregation."""
+    from tf2_gnn_tpu_torch.layers.message_passing import base
+
+    inputs = []
+    plain = base.MessagePassing._post_aggregate
+
+    def post_aggregate(layer, aggregated, node_states, batch, training):
+        if (not layer._apply_message_activation
+                or layer.message_activation_before_aggregation
+                or layer.message_activation_function != "relu"):
+            raise AssertionError(f"{type(layer).__name__}: no relu after "
+                                 "the aggregation")
+        inputs.append(aggregated.detach()[:v].clone())
+        if pinned is None:
+            return plain(layer, aggregated, node_states, batch, training)
+        keep = aggregated.detach() > 0
+        keep[:v] = pinned[len(inputs) - 1]
+        return aggregated * keep
+
+    with mock.patch.object(base.MessagePassing, "_post_aggregate",
+                           post_aggregate):
+        yield inputs
+
+
+def check_relu_flips(got, want):
+    """(count, largest |x|) of the relu inputs, layer by layer, that lie on
+    opposite sides of 0 in ``got`` and ``want``. Raises where one lies
+    farther from 0 than the states' tolerance (GNN_INPUT_ATOL plus
+    GNN_INPUT_RTOL of the layer's largest |want| entry)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} relu calls against {len(want)}")
+    count, largest = 0, 0.0
+    for layer, (g, w) in enumerate(zip(got, want)):
+        flipped = (g > 0) != (w > 0)
+        n = int(flipped.sum())
+        if not n:
+            continue
+        size = float(g.abs().maximum(w.abs())[flipped].max())
+        limit = GNN_INPUT_ATOL + GNN_INPUT_RTOL * float(w.abs().max())
+        if size > limit:
+            raise AssertionError(f"layer {layer}: {n} relu inputs on "
+                                 f"opposite sides of 0, one {size} from it "
+                                 f"(limit {limit})")
+        count, largest = count + n, max(largest, size)
+    return count, largest
+
+
+def reference_path(device, argv):
+    """Phase 13: the TF reference's own recorded runs on the card. Each of
+    the eight dumps (``reference_parity.CASES``) on the batch without
+    plans and on its flavour's fused plan kind (``reference_run``), then
+    the public API at full width (``gnn_input_check``)."""
+    import torch
+
+    from tf2_gnn_tpu_torch.harness import reference_parity as rp
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 13 needs f32 products without TF32")
+    counters = launch_counters()
+    root = ROOT / "build" / "phase13"
+    totals = {}
+    limits = (f"limits: rtol {rp.RTOL} + atol {rp.ATOL} for representations "
+              f"and outputs, loss rtol {rp.LOSS_RTOL}, gradients "
+              f"{rp.GRAD_RTOL} of each tensor's largest entry")
+    for name, task, _ in rp.CASES:
+        dump = rp.load_dump(name)
+        data = rp.write_data(task, root)
+        for kind in ("none", rp.FUSED_PLANS[dump.model]):
+            t0 = time.perf_counter()
+            route, launches, report = reference_run(dump, data, kind, device,
+                                                    counters)
+            for n, c in launches.items():
+                totals[n] = totals.get(n, 0) + c
+            reps = max((v for k, v in report.items()
+                        if k.startswith("rep::")), key=lambda x: x[0])
+            shown = {"reps": reps, **{k: v for k, v in report.items()
+                                      if not k.startswith("rep::")}}
+            log(f"phase 13 {name} ({dump.model}, {task}) on {kind} plans: "
+                f"route {route}, launches {launches or 'none'}; largest "
+                "error as a share of its limit (abs): " + ", ".join(
+                    f"{k} {share:.3g} ({err:.2e})"
+                    for k, (share, err) in shown.items())
+                + f"; {time.perf_counter() - t0:.2f} s")
+    log(f"phase 13: every dump within the reference's tolerances on both "
+        f"routes ({limits}); launches by kernel over the fused runs: "
+        f"{totals}")
+    gnn_input_check(device, ROOT / "build" / "phase12" / "ppi")
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
 def launch_counters():
@@ -3161,6 +3554,14 @@ def main(argv) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {source}: {line.strip()}")
+    from tf2_gnn_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.build()
+    native.available()
+    log(f"build: the C++ host engine ({native.library_path().name}, g++ "
+        f"{' '.join(native.CXX_FLAGS)}) ready in "
+        f"{time.perf_counter() - t0:.1f} s")
     # By name: the registers and spills of B8's kernel and of each mode
     # of the relu-pair row owner (B4, B6, B7).
     from tf2_gnn_tpu_torch.tools.relu_pair_variants import _ptxas_report
@@ -3179,7 +3580,8 @@ def main(argv) -> int:
     # -- RGIN, PPI_GNN_Edge_MLP and GNN-FiLM, 10. the edge-MLP family on
     # -- merged, merged-target and scatter plans, GraphRegression, 11. the
     # -- unfused per-edge path on the batches without plans, 12. training
-    # -- and testing from the command line ---------------------------------
+    # -- and testing from the command line, 13. the TF reference's recorded
+    # -- runs and the public API ------------------------------------------
     # Each path returns its kernels-line entries, and phases 3-6 also the
     # entries of other call forms (none for phase 4), which are logged.
     def timed(phase: int, path):
@@ -3212,6 +3614,8 @@ def main(argv) -> int:
     unfused_path(device, argv)
     torch.cuda.empty_cache()
     cli_path(device, argv)
+    torch.cuda.empty_cache()
+    reference_path(device, argv)
     t0 = time.perf_counter()
     add_device_times(kernels + other_forms + probe_forms + qm9_entries
                      + flavour_forms + route_forms)

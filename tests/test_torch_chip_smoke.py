@@ -38,6 +38,7 @@ import torch
 
 import chip_smoke
 from tf2_gnn_tpu_torch import workloads
+from tf2_gnn_tpu_torch.harness import reference_parity as rp
 from tf2_gnn_tpu_torch.layers.message_passing import base as tbase
 from tf2_gnn_tpu_torch.layers.message_passing import rgat as trgat
 from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
@@ -479,3 +480,205 @@ def test_unfused_eval_check_catches_doubled_messages(name, unfused_batches,
     _type1_messages_doubled(monkeypatch, model)
     with pytest.raises(AssertionError, match="eval forward"):
         _unfused_check(model, kind, against, tols, batches)
+
+
+# ---- phase 13: the reference's recorded runs -------------------------------------
+REFERENCE = [c[0] for c in rp.CASES]
+# The module whose ``LAUNCHES`` counts each key.
+LAUNCH_OWNERS = {key: module for module in (tps, tpa, tpem, tss, tprobes)
+                 for key in module.LAUNCHES}
+
+
+def _count_into_launches(monkeypatch):
+    """Each wrapper, wherever a caller looks it up, adds one to its
+    kernel's launch count, as the wrappers do where they launch on the
+    card; ``torch.cuda.synchronize`` is a no-op."""
+    for module in CALLERS:
+        for name, key in WRAPPERS.items():
+            real = getattr(module, name, None)
+            if real is None:
+                continue
+
+            def call(*args, _real=real, _key=key, **kwargs):
+                LAUNCH_OWNERS[_key].LAUNCHES[_key] += 1
+                return _real(*args, **kwargs)
+            monkeypatch.setattr(module, name, call)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for phase 13's tests: under parallel test workers
+    torch's CPU thread pool oversubscribes the cores, and these small ops
+    then run many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def reference_data(tmp_path_factory):
+    root = tmp_path_factory.mktemp("phase13")
+    return {task: rp.write_data(task, root)
+            for task in ("GraphRegression", "PPI", "QM9")}
+
+
+@pytest.mark.parametrize("name", REFERENCE)
+@pytest.mark.usefixtures("one_torch_thread")
+def test_reference_runs_reach_the_named_wrappers(name, reference_data,
+                                                 monkeypatch):
+    """Phase 13's runs on the CPU, each wrapper counted where it is looked
+    up: the fused run reaches exactly the wrappers ``REFERENCE_LAUNCHES``
+    names, that often, the run without plans none; both within the
+    reference's tolerances."""
+    _count_into_launches(monkeypatch)
+    dump = rp.load_dump(name)
+    counters = chip_smoke.launch_counters()
+    for kind in ("none", rp.FUSED_PLANS[dump.model]):
+        route, launches, report = chip_smoke.reference_run(
+            dump, reference_data[dump.task], kind, "cpu", counters)
+        assert (route == "unfused") == (kind == "none")
+        assert bool(launches) == (kind != "none")
+        assert all(share <= 1.0 for share, _ in report.values())
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_reference_check_passes_a_reordered_sum(reference_data, monkeypatch):
+    """K2 and K1 stand-ins that add the same slots in a random order (as
+    the card's kernels may) pass the check on a fused run."""
+    monkeypatch.setattr(tps, "pair_spmm_stream_joint", _reordered_k2)
+    monkeypatch.setattr(tps, "pair_spmm_stream", _reordered_k2)
+    _count_into_launches(monkeypatch)
+    for name in ("rgcn", "GNN_Edge_MLP"):
+        dump = rp.load_dump(name)
+        chip_smoke.reference_run(dump, reference_data[dump.task], "per_type",
+                                 "cpu", chip_smoke.launch_counters())
+
+
+@pytest.mark.parametrize("kind", ["none", "per_type"])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_reference_check_catches_swapped_edge_types(kind, reference_data,
+                                                    monkeypatch):
+    """One layer's edge types 0 and 1 swapped at import: the check
+    fails."""
+    _count_into_launches(monkeypatch)
+    dump = rp.load_dump("rgcn")
+    arrays = dict(dump.arrays)
+    first = [k for k in arrays
+             if k.startswith("var::") and "/Layer_1/" in k
+             and "/edge_type_0/" in k]
+    assert first
+    for key in first:
+        other = key.replace("/edge_type_0/", "/edge_type_1/")
+        arrays[key], arrays[other] = arrays[other], arrays[key]
+    with pytest.raises(AssertionError, match="diverges from the reference"):
+        chip_smoke.reference_run(dump._replace(arrays=arrays),
+                                 reference_data[dump.task], kind, "cpu",
+                                 chip_smoke.launch_counters())
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_gnn_input_check_on_cut_files(tmp_path, monkeypatch):
+    """Phase 13d on PPI files cut to 3 graphs of 150 nodes: the GNNInput
+    batch launches nothing, the dataset batch K2 and K1 once a layer, and
+    their real rows agree."""
+    monkeypatch.setattr(workloads, "NODES_PER_GRAPH", 150)
+    monkeypatch.setattr(workloads, "FWD_EDGES_PER_GRAPH", 1500)
+    _count_into_launches(monkeypatch)
+    lines = []
+    monkeypatch.setattr(chip_smoke, "log", lines.append)
+    chip_smoke.gnn_input_check("cpu", tmp_path / "ppi")
+    assert "routes ('unfused', 'pair_joint')" in lines[-1]
+
+
+@pytest.mark.parametrize("pinned", [False, True])
+def test_relu_inputs_records_and_pins_the_activation(pinned):
+    """Phase 13d's hook records each relu input's first v rows and, given
+    masks, keeps exactly the masked entries there (its own sign past v);
+    the layer's own relu otherwise."""
+    from tf2_gnn_tpu_torch.layers.message_passing import base
+    from tf2_gnn_tpu_torch.layers.message_passing.rgcn import RGCN
+
+    layer = RGCN(2, 3, hidden_dim=3)
+    x = torch.tensor([[1e-8, -0.5, 2.0], [-1e-8, 0.25, -1.0],
+                      [3.0, -2.0, 0.0]], requires_grad=True)
+    mask = torch.tensor([[False, True, True], [True, False, True]])
+    with chip_smoke.relu_inputs(2, [mask] if pinned else None) as inputs:
+        out = base.MessagePassing._post_aggregate(layer, x, None, None,
+                                                  False)
+    out.sum().backward()
+    keep = torch.cat([mask, x.detach()[2:] > 0]) if pinned else x > 0
+    assert torch.equal(out, x.detach() * keep)
+    assert torch.equal(x.grad, keep.float())
+    assert len(inputs) == 1 and torch.equal(inputs[0], x.detach()[:2])
+    assert torch.equal(base.MessagePassing._post_aggregate(
+        layer, x.detach(), None, None, False), torch.relu(x.detach()))
+
+
+def test_relu_inputs_refuses_another_activation():
+    from tf2_gnn_tpu_torch.layers.message_passing import base
+    from tf2_gnn_tpu_torch.layers.message_passing.rgcn import RGCN
+
+    layer = RGCN(2, 3, hidden_dim=3, message_activation_function="tanh")
+    with chip_smoke.relu_inputs(1):
+        with pytest.raises(AssertionError, match="no relu after"):
+            base.MessagePassing._post_aggregate(layer, torch.ones(2, 3),
+                                                None, None, False)
+
+
+@pytest.mark.parametrize("size,fails", [(2.0 ** -22, False), (0.5, True)])
+def test_relu_flip_check_bounds_the_flipped_inputs(size, fails):
+    """A relu input the two runs put on opposite sides of 0 passes within
+    the states' tolerance of 0 (the card's atomic sums put such an input
+    about 1e-7 from it) and fails beyond it."""
+    want = [torch.tensor([[1.0, -2.0], [size, 0.5]]), torch.ones(2, 2)]
+    got = [w.clone() for w in want]
+    got[0][1, 0] = -size
+    if fails:
+        with pytest.raises(AssertionError, match="opposite sides of 0"):
+            chip_smoke.check_relu_flips(got, want)
+    else:
+        assert chip_smoke.check_relu_flips(got, want) == (1, size)
+    assert chip_smoke.check_relu_flips(want, want) == (0, 0.0)
+
+
+def _decoded(path):
+    import gzip
+    import json
+
+    with gzip.open(path, "rt") as f:
+        return [json.loads(line) for line in f]
+
+
+def test_dump_writers_match_the_test_writers(tmp_path):
+    """``workloads``' copies of the two writers the PPI and QM9 dumps were
+    recorded on give the same files (decoded) for the dumps' arguments."""
+    import json
+
+    import numpy as np
+
+    from .synthetic_data import write_ppi_dataset, write_qm9_dataset
+
+    ppi = dict(graphs_per_fold=3, nodes_per_graph=40, feature_dim=50,
+               num_labels=121, seed=7)
+    qm9 = dict(num_graphs=12, feature_dim=15, seed=7)
+    for writer, twin, kwargs in (
+            (workloads.write_ppi_dataset, write_ppi_dataset, ppi),
+            (workloads.write_qm9_dataset, write_qm9_dataset, qm9)):
+        got, want = tmp_path / "port" / writer.__name__, tmp_path / "tests" / \
+            writer.__name__
+        writer(got, **kwargs)
+        twin(want, **kwargs)
+        names = sorted(p.name for p in want.iterdir())
+        assert sorted(p.name for p in got.iterdir()) == names
+        for name in names:
+            if name.endswith(".jsonl.gz"):
+                assert _decoded(got / name) == _decoded(want / name), name
+            elif name.endswith(".json"):
+                assert (json.loads((got / name).read_text())
+                        == json.loads((want / name).read_text())), name
+            else:
+                a, b = np.load(got / name), np.load(want / name)
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b, err_msg=name)

@@ -1,8 +1,10 @@
 """``chip_smoke.py`` phase 12 (``cli_path``) on the CPU, at cut sizes: the
 three command-line training runs and the two test-entry reloads pass,
 with K1 and K2 counted through their plain versions (K2 twice a layer and
-step under remat); and the phase fails when K2 launches more often than
-the model's layers ask for.
+step under remat), every batch planned through the C++ binding and the
+first epoch's batches identical on the numpy forms; and the phase fails
+when K2 launches more often than the model's layers ask for, or when the
+binding's plans differ from the numpy planner's.
 
 Sizes: PPI graphs of 150 nodes and 1500 forward links (6 / 3 / 3 graphs
 a fold, one batch a fold at the JSON's ``max_nodes_per_batch``), QM9 40 /
@@ -84,6 +86,32 @@ def test_cli_phase_passes(cut_phase, capsys):
     assert "PPI_GGNN_remat_bf16 epoch 1: 1 steps" in out
     assert "K1 3, K2 6" in out
     assert out.count("test entry on") == 2
+    # Every batch planned through the C++ binding, the first epoch's also
+    # through the numpy forms, and both agreed.
+    assert out.count("binding vs numpy forms") == 3
+    assert out.count("planners a batch") == 3
+    assert "'pair binding'" in out and "'pair numpy'" not in out
+
+
+def test_cli_phase_catches_plans_that_differ(cut_phase):
+    """A binding whose pair plans differ from the numpy planner's (one
+    chunk's source block moved) fails the phase."""
+    from tf2_gnn_tpu_torch import native
+
+    real = native.pair_plan
+
+    def moved(*args):
+        used, rel_src, rel_tgt, src_blk, tgt_blk, edge_slot = real(*args)
+        src_blk[0] += 1
+        return used, rel_src, rel_tgt, src_blk, tgt_blk, edge_slot
+
+    cut_phase.setattr(chip_smoke, "CLI_RUNS", chip_smoke.CLI_RUNS[:1])
+    cut_phase.setattr(native, "pair_plan", moved)
+    cut_phase.setattr(tps, "pair_spmm_stream_joint",
+                      _counted("pair_stream_joint",
+                               tps.pair_spmm_stream_joint))
+    with pytest.raises(AssertionError, match="binding vs numpy forms"):
+        chip_smoke.cli_path(torch.device("cpu"), [])
 
 
 def test_cli_phase_catches_a_miscount(cut_phase):

@@ -379,8 +379,10 @@ class GraphDataset(ABC):
     def _finalise_batch(
         self, batch_graphs: List[GraphSample], config: PaddingConfig
     ) -> Tuple[GraphBatch, Dict[str, np.ndarray]]:
-        """Assemble one padded mega-batch (numpy) with the plans the
-        dataset's parameters ask for."""
+        """Assemble one padded mega-batch with the plans the dataset's
+        parameters ask for: nodes and edges packed by the C++ engine
+        (``native.pack_nodes`` / ``pack_edges``, as the JAX package's
+        graph_dataset.py:411-415), the plans by its planners."""
         num_real_nodes = sum(g.num_nodes for g in batch_graphs)
         v_pad = config.num_nodes
         if num_real_nodes > v_pad - 1:

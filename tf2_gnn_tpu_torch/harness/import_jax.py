@@ -22,7 +22,10 @@ RGIN's ``aggregation_mlp/{hidden_i, out}`` are Dense kernels and GNN-FiLM's
 ``film_mlp_layer_i`` TypedLinear ones, so the rules above cover them.
 
 A leaf of another name, or one the model does not hold, raises; so does a
-model parameter that the tree leaves unset.
+model parameter that the tree leaves unset. ``state_dict_to_flax_params``
+is the inverse: the flax tree of a port ``state_dict`` (or of any
+``{name: tensor}`` under the same names, such as the parameters'
+gradients), the template the reference-checkpoint import fills.
 """
 from typing import Any, Dict, Mapping
 
@@ -33,12 +36,14 @@ from torch import nn
 _GRU_LEAVES = ("kernel", "recurrent_kernel", "input_bias", "recurrent_bias")
 
 
-def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
+def flatten_params(tree: Mapping[str, Any], prefix=()
+                   ) -> Dict[tuple, np.ndarray]:
+    """A nested params tree as ``{path tuple: array}``."""
     flat = {}
     for key, value in tree.items():
         path = prefix + (str(key),)
         if isinstance(value, Mapping):
-            flat.update(_flatten(value, path))
+            flat.update(flatten_params(value, path))
         else:
             flat[path] = np.asarray(value)
     return flat
@@ -50,7 +55,7 @@ def flax_params_to_state_dict(params: Mapping[str, Any]
     if "params" in params and len(params) == 1:
         params = params["params"]
     state = {}
-    for path, value in _flatten(params).items():
+    for path, value in flatten_params(params).items():
         leaf, module = path[-1], ".".join(path[:-1])
         if path[-2:-1] == ("gru_cell",) and leaf in _GRU_LEAVES:
             name = f"{module}.{leaf}"
@@ -69,6 +74,32 @@ def flax_params_to_state_dict(params: Mapping[str, Any]
                              f"{value.shape}) has no counterpart in the port")
         state[name] = torch.tensor(np.asarray(value, np.float32))
     return state
+
+
+def state_dict_to_flax_params(state: Mapping[str, torch.Tensor]
+                              ) -> Dict[str, Any]:
+    """The flax ``params`` tree (nested dicts of f32 numpy arrays) of the
+    port's parameter names and tensors; ``flax_params_to_state_dict``
+    inverts it."""
+    tree: Dict[str, Any] = {}
+    for name, tensor in state.items():
+        value = tensor.detach().float().cpu().numpy()
+        *path, leaf = name.split(".")
+        if path[-1:] == ["gru_cell"] and leaf in _GRU_LEAVES:
+            pass
+        elif leaf == "weight" and value.ndim == 2:
+            leaf, value = "kernel", value.T
+        elif leaf == "weight" and value.ndim == 1:
+            leaf = "scale"
+        elif not ((leaf == "kernel" and value.ndim == 3) or leaf == "bias"
+                  or leaf == "edge_attention_parameters"):
+            raise ValueError(f"parameter {name} (shape {value.shape}) has no "
+                             "flax counterpart")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return tree
 
 
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:

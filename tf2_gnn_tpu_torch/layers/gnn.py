@@ -30,7 +30,7 @@ from ..data.graph_batch import GraphBatch
 from ..ops.activations import get_activation_function
 from .dropout import dropout
 from .global_exchange import get_global_exchange_class
-from .init import init_dense_
+from ..utils.init import init_dense_
 from .message_passing import get_message_passing_class
 
 _GNN_HYPERS = (

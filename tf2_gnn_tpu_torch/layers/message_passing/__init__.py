@@ -6,6 +6,7 @@ from .base import (
     MESSAGE_PASSING_IMPLEMENTATIONS,
     MessagePassing,
     calculate_type_to_num_incoming_edges,
+    get_known_message_passing_classes,
     get_message_passing_class,
     register_message_passing_implementation,
 )
@@ -22,6 +23,7 @@ __all__ = [
     "MessagePassing",
     "TypedLinear",
     "calculate_type_to_num_incoming_edges",
+    "get_known_message_passing_classes",
     "get_message_passing_class",
     "register_message_passing_implementation",
     "GGNN",

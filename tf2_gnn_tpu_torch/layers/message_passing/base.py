@@ -48,6 +48,10 @@ def get_message_passing_class(name: str):
     return cls
 
 
+def get_known_message_passing_classes():
+    return sorted(MESSAGE_PASSING_IMPLEMENTATIONS.keys())
+
+
 def calculate_type_to_num_incoming_edges(batch: GraphBatch) -> torch.Tensor:
     """f32 [L, V]: the per-type in-degree of every node (reference
     base.py:60-79). Padded edges target the pad row, so the real rows are

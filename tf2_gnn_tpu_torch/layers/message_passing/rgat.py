@@ -51,7 +51,7 @@ from ...ops.sorted_spmm import (
     sorted_segment_max,
 )
 from ...utils.constants import SMALL_NUMBER
-from ..init import glorot_uniform_batched_
+from ...utils.init import glorot_uniform_batched_
 from .base import MessagePassing, register_message_passing_implementation
 from .typed_linear import TypedLinear
 

@@ -11,7 +11,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..init import glorot_uniform_
+from ...utils.init import glorot_uniform_
 
 _OPERAND_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 

@@ -17,7 +17,7 @@ from torch import nn
 
 from ..ops.activations import get_activation_function
 from .dropout import dropout
-from .init import init_dense_
+from ..utils.init import init_dense_
 
 
 class MLP(nn.Module):

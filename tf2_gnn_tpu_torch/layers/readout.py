@@ -1,10 +1,10 @@
-"""Nodes-to-graph readout (port of ``WeightedSumGraphRepresentation`` of
-``tf2_gnn_tpu/layers/readout.py``; the reference's
-tf2_gnn/layers/nodes_to_graph_representation.py:51-229).
+"""Nodes-to-graph readouts (port of ``tf2_gnn_tpu/layers/readout.py``;
+the reference's tf2_gnn/layers/nodes_to_graph_representation.py:51-314):
+``WeightedSumGraphRepresentation`` and ``WASGraphRepresentation``, the
+softmax-average and sigmoid-sum readouts concatenated and projected.
 
 Per-graph segment ops use the static padded graph count; padded nodes land
-in the reserved pad-graph slot, so real graphs are unaffected. The WAS
-readout is not ported yet.
+in the reserved pad-graph slot, so real graphs are unaffected.
 """
 from typing import Optional, Sequence, Union
 
@@ -13,6 +13,7 @@ from torch import nn
 
 from ..ops.activations import get_activation_function
 from ..ops.segment import segment_mean, segment_softmax, segment_sum
+from ..utils.init import init_dense_
 from .mlp import MLP
 
 WEIGHTINGS = ("none", "average", "softmax", "sigmoid")
@@ -97,3 +98,53 @@ class WeightedSumGraphRepresentation(nn.Module):
         return segment_sum(
             weighted.reshape(-1, self.graph_representation_size),
             node_to_graph, num_graphs)
+
+
+class WASGraphRepresentation(nn.Module):
+    """Weighted-Average-and-Sum readout: concat(softmax-average readout
+    ``weighted_avg``, sigmoid-sum readout ``weighted_sum``) projected back
+    to ``graph_representation_size`` by ``out_projection`` (no bias)
+    (reference nodes_to_graph_representation.py:232-314). The pooling MLP
+    settings serve both readouts' scoring and transformation MLPs."""
+
+    def __init__(self, input_dim: int, graph_representation_size: int = 128,
+                 num_heads: int = 8,
+                 pooling_mlp_layers: Union[int, Sequence[int]] = (128, 128),
+                 pooling_mlp_activation_fun: str = "elu",
+                 pooling_mlp_use_biases: bool = True,
+                 pooling_mlp_dropout_rate: float = 0.0):
+        super().__init__()
+        common = dict(
+            graph_representation_size=graph_representation_size,
+            num_heads=num_heads,
+            scoring_mlp_layers=pooling_mlp_layers,
+            scoring_mlp_dropout_rate=pooling_mlp_dropout_rate,
+            scoring_mlp_use_biases=pooling_mlp_use_biases,
+            scoring_mlp_activation_fun=pooling_mlp_activation_fun,
+            transformation_mlp_layers=pooling_mlp_layers,
+            transformation_mlp_dropout_rate=pooling_mlp_dropout_rate,
+            transformation_mlp_use_biases=pooling_mlp_use_biases,
+            transformation_mlp_activation_fun=pooling_mlp_activation_fun,
+        )
+        self.weighted_avg = WeightedSumGraphRepresentation(
+            input_dim, weighting_fun="softmax", **common)
+        self.weighted_sum = WeightedSumGraphRepresentation(
+            input_dim, weighting_fun="sigmoid", **common)
+        self.out_projection = nn.Linear(2 * graph_representation_size,
+                                        graph_representation_size,
+                                        bias=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.weighted_avg.reset_parameters(generator)
+        self.weighted_sum.reset_parameters(generator)
+        init_dense_(self.out_projection, generator)
+
+    def forward(self, node_embeddings: torch.Tensor,
+                node_to_graph: torch.Tensor, num_graphs: int,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[V, D] node embeddings -> [G, graph_representation_size]."""
+        args = (node_to_graph, num_graphs, training, generator)
+        return self.out_projection(torch.cat(
+            [self.weighted_avg(node_embeddings, *args),
+             self.weighted_sum(node_embeddings, *args)], dim=-1))

@@ -56,3 +56,6 @@ def get_activation_function(name: Optional[str]) -> Activation:
         raise ValueError(f"Unknown activation function: {name}")
     return fn
 
+
+def get_known_activation_names():
+    return sorted(_ACTIVATIONS.keys())

@@ -11,7 +11,7 @@ weights are ``[3H, in]``.
 import torch
 from torch import nn
 
-from ..layers.init import glorot_uniform_
+from ..utils.init import glorot_uniform_
 
 
 class GRUCell(nn.Module):

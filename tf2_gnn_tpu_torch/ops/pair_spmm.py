@@ -1,13 +1,14 @@
 """Block-pair streamed SpMM for ``out[v] = sum over edges e=(u -> v) of
 scale_e * table[src_e]`` (port of ``tf2_gnn_tpu/ops/pair_spmm.py``).
 
-Host half (numpy, the JAX package's layout byte for byte): the planner sorts
-real edges by (target block, source block), pads each pair's edges into
-chunks of ``E_C`` slots, aligns output-block runs to the plan's grid
-``group`` and spills what does not fit a chunk budget into a small overflow
-list. ``concat_typed_plans`` concatenates per-type plans into the streamed
-single-launch layout. Only the numpy planner is ported; the JAX package's
-C++ planner (``native/src/graphpack.cc``) produces the same layout faster.
+Host half (the JAX package's layout byte for byte): the planner sorts real
+edges by (target block, source block), pads each pair's edges into chunks
+of ``E_C`` slots, aligns output-block runs to the plan's grid ``group`` and
+spills what does not fit a chunk budget into a small overflow list. The
+port's C++ engine (``native/graphpack.cc``) plans a direction and counts
+its chunks where the JAX package's does; the numpy planner is its plain
+version and the spill path. ``concat_typed_plans`` concatenates per-type
+plans into the streamed single-launch layout.
 
 Device half: ``pair_stream_joint`` is a ``torch.autograd.Function`` whose
 forward runs the joint SpMM (K2, ``pair_spmm_stream_joint``) and whose
@@ -34,6 +35,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.constants import SMALL_NUMBER
 from ..utils.device import as_tensor
 from ..utils.shapes import round_up as _round_up
@@ -118,7 +120,35 @@ def _plan_one_direction(
     ``edge_slot[i]`` is input edge i's slot (-1 when spilled). ``group``
     chunks share one target block (runs pad to a multiple of it);
     ``chunk_budget`` must divide by it.
+
+    With a budget, the C++ planner (``native.pair_plan``) plans the edges
+    (the same layout); where they overflow the budget, the numpy planner,
+    the only one that spills, plans them again (the JAX package's one
+    fall-through). ``native.PLANNED`` counts which one planned.
     """
+    n = src.shape[0]
+    if n and chunk_budget is not None and chunk_budget % group == 0:
+        if not native.binding_on():
+            native.PLANNED["pair numpy"] += 1
+            return _plan_one_direction_numpy(src, tgt, chunk_budget, group)
+        used, rel_s, rel_t, src_blk, tgt_blk, edge_slot = native.pair_plan(
+            src, tgt, chunk_budget, group, BLK, E_C)
+        if used >= 0:
+            native.PLANNED["pair binding"] += 1
+            plan = PairPlan(rel_s.reshape(chunk_budget, E_C),
+                            rel_t.reshape(chunk_budget, E_C),
+                            src_blk, tgt_blk[::group].copy())
+            return plan, np.zeros((n,), bool), edge_slot
+        native.PLANNED["pair numpy spill"] += 1
+    return _plan_one_direction_numpy(src, tgt, chunk_budget, group)
+
+
+def _plan_one_direction_numpy(
+    src: np.ndarray, tgt: np.ndarray, chunk_budget: Optional[int],
+    group: int = GROUP,
+) -> Tuple[PairPlan, np.ndarray, np.ndarray]:
+    """``_plan_one_direction``'s numpy form: the plain version of the C++
+    planner, and its spill path."""
     n = src.shape[0]
     overflow_mask = np.zeros((n,), bool)
     edge_slot = np.full((n,), -1, np.int64)
@@ -379,8 +409,15 @@ def measure_pair_chunks(
     all_src, all_tgt = _merged_edges(sources_per_type, targets_per_type,
                                      counts_per_type, v, src_space,
                                      merge_targets)
-    fwd, _, _ = _plan_one_direction(all_src, all_tgt, None, group=group_fwd)
-    bwd, _, _ = _plan_one_direction(all_tgt, all_src, None, group=group_bwd)
+    if native.binding_on():
+        return (max(native.pair_plan_count(all_src, all_tgt, group_fwd,
+                                           BLK, E_C), group_fwd),
+                max(native.pair_plan_count(all_tgt, all_src, group_bwd,
+                                           BLK, E_C), group_bwd))
+    fwd, _, _ = _plan_one_direction_numpy(all_src, all_tgt, None,
+                                          group=group_fwd)
+    bwd, _, _ = _plan_one_direction_numpy(all_tgt, all_src, None,
+                                          group=group_bwd)
     return fwd.rel_src.shape[0], bwd.rel_src.shape[0]
 
 

@@ -1,15 +1,16 @@
 """Sorted-segment scatter over chunk-ordered edge streams, the scatter-plan
 route (port of ``tf2_gnn_tpu/ops/spmm_pallas.py``).
 
-Host half (numpy, the JAX package's layout byte for byte): the planner
-sorts the edges by target and cuts them into chunks of ``CHUNK_EDGES``
+Host half (the JAX package's layout byte for byte): the planner sorts
+the edges by target and cuts them into chunks of ``CHUNK_EDGES``
 slots whose targets share one block of ``BLOCK_NODES`` output rows;
 ``block_ids`` never decrease and trailing chunks repeat the last block.
 ``build_merged_plans`` plans all edge types at once, both ways: forward
 slots by target over the [V] target rows, backward slots by merged source
 ``l * V + u`` over the [L*V] table rows, with the slot maps and the host
-1/deg scales between them. Unlike the reference's per-edge loop (or its
-C++ planner), ``plan_sorted_scatter`` is vectorised numpy.
+1/deg scales between them. ``plan_sorted_scatter`` cuts the chunks in the
+port's C++ engine (``native/graphpack.cc``), as the JAX package does;
+``plan_sorted_scatter_numpy``, vectorised numpy, is its plain version.
 
 Device half: four kernels, each a sorted segment reduction of a
 chunk-ordered stream into ``out[block_ids[slot // 512] * R + rel[slot]]``
@@ -47,6 +48,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.constants import SMALL_NUMBER
 from ..utils.device import as_tensor
 from .pair_attention import _check
@@ -87,7 +89,35 @@ def plan_sorted_scatter(targets: np.ndarray, num_edges_real: int,
     the chunk's node block (``BLOCK_NODES`` on sentinels), ``block_ids``
     int32 [num_chunks] the non-decreasing block of each chunk. Targets at
     index >= ``num_edges_real`` are ignored. A new chunk starts at every
-    change of block and after every ``CHUNK_EDGES`` edges of one block."""
+    change of block and after every ``CHUNK_EDGES`` edges of one block.
+    The C++ planner (``native.scatter_plan``) cuts the chunks;
+    ``plan_sorted_scatter_numpy`` is its plain version."""
+    if not native.binding_on():
+        native.PLANNED["scatter numpy"] += 1
+        return plan_sorted_scatter_numpy(targets, num_edges_real,
+                                         num_nodes_padded, num_chunks)
+    real = np.asarray(targets[:num_edges_real], dtype=np.int64)
+    order = np.argsort(real, kind="stable")
+    slots = num_chunks * CHUNK_EDGES
+    perm = np.empty((slots,), dtype=np.int32)
+    rel_tgt = np.empty((slots,), dtype=np.int32)
+    block_ids = np.empty((num_chunks,), dtype=np.int32)
+    used = native.scatter_plan(real[order].astype(np.int32),
+                               order.astype(np.int32), num_chunks,
+                               CHUNK_EDGES, BLOCK_NODES, perm, rel_tgt,
+                               block_ids)
+    if used < 0:
+        raise ValueError(
+            f"Scatter plan overflow: needs more than {num_chunks} chunks.")
+    native.PLANNED["scatter binding"] += 1
+    return perm, rel_tgt, block_ids
+
+
+def plan_sorted_scatter_numpy(targets: np.ndarray, num_edges_real: int,
+                              num_nodes_padded: int, num_chunks: int
+                              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``plan_sorted_scatter``'s numpy form (vectorised), the plain version
+    of the C++ planner."""
     real = np.asarray(targets[:num_edges_real], dtype=np.int64)
     order = np.argsort(real, kind="stable")
     sorted_tgt = real[order]

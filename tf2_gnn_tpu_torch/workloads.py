@@ -32,6 +32,10 @@ regression target a molecule.
 ``bench.py::measure_qm9`` times; ``graph_regression_edge_mlp_params`` the
 shipped GraphRegression_GNN_Edge_MLP, which reads the same batch.
 
+``write_ppi_dataset`` and ``write_qm9_dataset`` are copies of the test
+writers the TF reference's recorded PPI and QM9 runs read
+(``harness/reference_parity.py``).
+
 ``write_ppi_files`` and ``write_qm9_files`` write datasets in the formats
 the loaders read (``data/ppi_dataset.py``, ``data/qm9_dataset.py``), for
 the command-line path: PPI graphs of ``NODES_PER_GRAPH`` nodes at
@@ -54,6 +58,7 @@ from .data.graph_batch import (
     pad_graph_label_array,
     pad_node_label_array,
 )
+from .data.io import write_jsonl_gz
 from .ops.pair_spmm import build_pair_plans, choose_pair_groups
 from .ops.sorted_spmm import build_merged_plans
 from .utils.device import resolve_device
@@ -420,4 +425,82 @@ def write_qm9_files(path, seed: int) -> Path:
                 f.write(json.dumps({"graph": graph,
                                     "node_features": features[m].tolist(),
                                     "targets": [[float(targets[m])]]}) + "\n")
+    return path
+
+
+# ---------------------------------------------------------------------------
+# The datasets the reference's recorded runs read (``REFERENCE_DUMPS``): the
+# port's own copies of the test writers the PPI and QM9 dumps were made
+# from, draw for draw.
+
+def write_ppi_dataset(path, graphs_per_fold=2, nodes_per_graph=8,
+                      feature_dim=5, num_labels=121, seed=0,
+                      edges_per_graph=None,
+                      folds=("train", "valid", "test")) -> Path:
+    """DGL-format PPI files: {fold}_graph.json + feats/labels/graph_id .npy.
+
+    ``graphs_per_fold``/``edges_per_graph`` may be dicts keyed by fold name.
+    At the default ``edges_per_graph`` (two a node) the links are drawn one
+    at a time, source then target, the stream the ``ppi_rgcn`` dump was
+    recorded on (``graphs_per_fold=3, nodes_per_graph=40, feature_dim=50,
+    num_labels=121, seed=7``)."""
+    path = Path(path)
+    rng = np.random.RandomState(seed)
+    path.mkdir(parents=True, exist_ok=True)
+    for fold in folds:
+        n_graphs = (graphs_per_fold.get(fold)
+                    if isinstance(graphs_per_fold, dict) else graphs_per_fold)
+        e_pg = (edges_per_graph.get(fold)
+                if isinstance(edges_per_graph, dict) else edges_per_graph)
+        if e_pg is None:
+            e_pg = nodes_per_graph * 2
+        total_nodes = n_graphs * nodes_per_graph
+        feats = rng.randn(total_nodes, feature_dim).astype(np.float32)
+        labels = (rng.rand(total_nodes, num_labels) > 0.9).astype(np.float32)
+        graph_ids = np.repeat(np.arange(n_graphs), nodes_per_graph)
+        links = []
+        for g in range(n_graphs):
+            base = g * nodes_per_graph
+            if e_pg == nodes_per_graph * 2:
+                for _ in range(e_pg):
+                    links.append({
+                        "source": int(base + rng.randint(0, nodes_per_graph)),
+                        "target": int(base + rng.randint(0, nodes_per_graph)),
+                    })
+            else:
+                src = base + rng.randint(0, nodes_per_graph, e_pg)
+                tgt = base + rng.randint(0, nodes_per_graph, e_pg)
+                links.extend({"source": int(s), "target": int(t)}
+                             for s, t in zip(src, tgt))
+        with open(path / f"{fold}_graph.json", "w") as f:
+            json.dump({"links": links}, f)
+        np.save(path / f"{fold}_feats.npy", feats)
+        np.save(path / f"{fold}_labels.npy", labels)
+        np.save(path / f"{fold}_graph_id.npy", graph_ids)
+    return path
+
+
+def write_qm9_dataset(path, num_graphs=10, feature_dim=6, seed=0) -> Path:
+    """QM9-format jsonl.gz: graph = (src, 1-indexed type, dst) triples,
+    13 targets a molecule. The ``qm9_rgcn`` dump was recorded on
+    ``num_graphs=12, feature_dim=15, seed=7``."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for fold in ("train", "valid", "test"):
+        records = []
+        for _ in range(num_graphs):
+            num_nodes = rng.randint(4, 9)
+            edges = [
+                [int(rng.randint(0, num_nodes)), int(rng.randint(1, 5)),
+                 int(rng.randint(0, num_nodes))]
+                for _ in range(rng.randint(3, 9))
+            ]
+            features = rng.randn(num_nodes, feature_dim).round(3)
+            records.append({
+                "graph": edges,
+                "node_features": features.tolist(),
+                "targets": [[float(features.sum() * 0.05)] for _ in range(13)],
+            })
+        write_jsonl_gz(path / f"{fold}.jsonl.gz", records)
     return path
