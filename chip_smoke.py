@@ -272,6 +272,44 @@ Phases, each of which fails the run by raising:
       same encoder on the dataset's batch of those graphs (K2, K1), its
       relu keeping that run's signs; a relu input the two runs put on
       opposite sides of 0 must lie within the states' tolerance of it.
+14. Scale-out on the card (``tf2_gnn_tpu_torch/parallel``): ranks are
+    processes started with ``spawn`` (``parallel.launch.run_ranks``, a
+    ``TIMEOUT`` of 600 s; a rank that raises fails the phase) over gloo on this
+    one card, CUDA tensors staged through the host by the collectives
+    (logged); every case held against one process on the same card (the
+    unpartitioned graph, or the same batches combined as the parallel
+    step combines them), input dropout 0, random weights from the seed:
+   a. DP, PPI_RGCN at full width on two ranks, each on its own bench
+      batch (seeds 0 and 1), 3 steps: loss and every parameter after
+      each step against the single process's graph-weighted gradient;
+   b. SPMD of the scaling workload (``workloads.scaling_partition``:
+      RGIN, hidden 256, 4 layers, bf16, merged pair plans; 4096 nodes
+      and 131,072 edges a shard) on two ranks, 3 steps, on the dense and
+      the forced ring halo (B3 both ways over the ext rows);
+   c. SPMD of the PPI batch at PPI_RGCN's width on per-type plans with
+      RCM reordering (K1/K2), 2 steps, the eval forward restored to the
+      node order (``restore_node_order``);
+   d. PPI_RGAT on a merged plan (B8, B3, B9), the reference-default
+      GNN_Edge_MLP on a merged-target plan (B4-B6), and RGCN on scatter
+      plans with ``halo=False`` (the all_gather; B13), each at its
+      shipped width with 2 layers, 2 steps;
+   e. hybrid 2 x 2 on four ranks: PPI_RGCN at hidden 320, 2 layers, 2
+      steps, on two replicas of a graph of ``HYBRID_NODES`` nodes with
+      uniform random edges, so that half the messages cross the halo
+      (per-type plans, ring halo, no reorder); then again with every
+      ring slab zeroed on arrival (a planted fault), which the check
+      must refuse;
+   f. one rank over NCCL in this process: one DP step of PPI_RGCN.
+   Cases (a)-(d) run on one cluster of two ranks, (e) on one of four.
+   Losses, step-1 gradients and eval logits within each case's own
+   ``limits`` (a and f: ``DP_LOSS_RTOL``, ``DP_PARAM_ATOL``), set from
+   its readings on the card with room on both sides; every rank's parameters
+   equal rank 0's; each fused case launches its kernels on every rank
+   (``SCALEOUT_KERNELS``). One line a case: the route and halo form, the
+   launches per rank, the collectives' calls and bytes a step, the step
+   ms of each rank and each largest error against its limit. Also
+   ``gather_scatter_sorted`` (B12 both ways over a dual plan) once
+   against its plain version.
 
 Each phase logs its wall time, and a line before those below the
 script's. The line before the last two is the JSON ``kernels`` line (all
@@ -3389,6 +3427,688 @@ def reference_path(device, argv):
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: scale-out over torch.distributed on the one card
+
+SCALEOUT_STEPS = 3        # train steps of cases (a) and (b)
+SCALEOUT_SHORT_STEPS = 2  # train steps of cases (c), (d) and (e)
+# Case (e)'s replica graphs: uniform random edges, 3 a node, one edge
+# type, of this many nodes each.
+HYBRID_NODES = 32768
+# Limits of phase 14, each case against one process on the same card.
+# (a) and (f): the same kernels on the same batches, and a psum of two
+# (or one) f32 values, which is the single process's own sum: the loss
+# within 1e-6 relative, every parameter within 1e-6 absolute after each
+# step (Adam at lr 1e-3).
+DP_LOSS_RTOL, DP_PARAM_ATOL = 1e-6, 1e-6
+# (b)-(e): each shard sums its own slots in another order than the
+# unpartitioned plan, which a bf16 stream re-rounds now and then. Each
+# case's ``limits`` (loss rtol at every step, step-1 gradients as a share
+# of each tensor's largest |entry|, eval logits atol and share of the
+# largest |logit|) sit 2.5-40 times above what the case reads on the card
+# (PERF.md, phase 14), and far below what a dropped halo gives (case
+# (e): 0.019 and 0.72, against 1e-6 and 2**-8).
+# The kernels each fused case must launch on every rank in its train
+# steps (B7 is on no call path: B4's mask sum gives dB), and in its eval
+# forward.
+SCALEOUT_KERNELS = {
+    "ppi_rgcn": ("pair_stream", "pair_stream_joint"),
+    "scaling": ("pair_spmm",),
+    "ppi_rgat": ("pair_attention_expd", "pair_spmm",
+                 "pair_attention_bwd_fused"),
+    "edge_mlp": ("relu_pair_fwd_m", "relu_pair_da"),
+    "rgcn_sorted": ("sorted_segment_sum_scaled",),
+}
+SCALEOUT_FORWARD_KERNELS = {
+    "ppi_rgcn": ("pair_stream_joint",),
+    "ppi_rgat": ("pair_attention_expd", "pair_spmm"),
+    "edge_mlp": ("relu_pair_fwd",),
+    "rgcn_sorted": ("sorted_segment_sum_scaled",),
+}
+
+
+def scaleout_params(model: str, layers: int = None):
+    """A phase 14 model's hyperparameters, input dropout 0 (the ranks'
+    masks cannot match the single process's)."""
+    from tf2_gnn_tpu_torch import workloads
+
+    params = {
+        "ppi_rgcn": lambda: workloads.shipped_params("PPI_RGCN.json", "rgcn"),
+        "ppi_rgat": lambda: workloads.shipped_params("PPI_RGAT.json", "rgat"),
+        "edge_mlp": workloads.edge_mlp_default_params,
+        "rgcn_sorted": workloads.rgcn_sorted_params,
+        "scaling": workloads.scaling_params,
+    }[model]()
+    params["gnn_layer_input_dropout_rate"] = 0.0
+    if layers is not None:
+        params["gnn_num_layers"] = layers
+    return params
+
+
+def scaleout_cases():
+    """Phase 14's cases (a)-(e), and (e) with a planted halo fault."""
+    from tf2_gnn_tpu_torch import workloads
+
+    ppi = dict(num_graphs_padded=workloads.GRAPHS_PER_BATCH + 1)
+    short = SCALEOUT_SHORT_STEPS
+    scaling = dict(loss=2e-3, grads=2.0 ** -10)
+    e = dict(name="e", kind="hybrid", model="ppi_rgcn", layers=2,
+             data="hybrid", steps=short, limits=dict(loss=1e-6,
+                                                     grads=2.0 ** -8))
+    return [
+        dict(name="a", kind="dp", model="ppi_rgcn", data="ppi_dp",
+             steps=SCALEOUT_STEPS),
+        dict(name="b_dense", kind="spmd", model="scaling", data="scaling",
+             halo="dense", steps=SCALEOUT_STEPS, limits=scaling),
+        dict(name="b_ring", kind="spmd", model="scaling", data="scaling",
+             halo="ring", steps=SCALEOUT_STEPS, limits=scaling),
+        dict(name="c", kind="spmd", model="ppi_rgcn", data="ppi",
+             partition=dict(ppi, build_pair_plans=True, pair_per_type=True,
+                            reorder=True), steps=short, forward=True,
+             limits=dict(loss=5e-5, grads=2.0 ** -7, logits=(1e-4,
+                                                              2.0 ** -7))),
+        dict(name="d_rgat", kind="spmd", model="ppi_rgat", layers=2,
+             data="ppi", partition=dict(ppi, build_pair_plans=True,
+                                        halo="dense", reorder=False),
+             steps=short, forward=True, reference_plans=dict(merged=True),
+             limits=dict(loss=1e-5, grads=2.0 ** -8,
+                         logits=(1e-5, 2.0 ** -10))),
+        dict(name="d_edge_mlp", kind="spmd", model="edge_mlp", layers=2,
+             data="ppi", partition=dict(ppi, build_pair_plans=True,
+                                        pair_merge_targets=True,
+                                        reorder=False),
+             steps=short, forward=True,
+             reference_plans=dict(merged=True, merge_targets=True),
+             limits=dict(loss=1e-5, grads=2.0 ** -14,
+                         logits=(1e-4, 2.0 ** -12))),
+        dict(name="d_rgcn_sorted", kind="spmd", model="rgcn_sorted",
+             layers=2, data="ppi",
+             partition=dict(ppi, build_scatter_plans=True, halo=False,
+                            reorder=False),
+             steps=short, forward=True, reference_plans=dict(scatter=True),
+             limits=dict(loss=1e-6, grads=2.0 ** -16,
+                         logits=(1e-5, 2.0 ** -16))),
+        e,
+        dict(e, name="e_fault", fault="ring_slab"),
+    ]
+
+
+def _ppi_graph():
+    """The PPI bench graph as raw arrays (``build_raw_arrays(SEED)``) and
+    its labels, ``build_ppi_batch_host(SEED)``'s own draw."""
+    import numpy as np
+
+    from tf2_gnn_tpu_torch import workloads
+
+    nf, adj, n2g = workloads.build_raw_arrays(SEED)
+    labels = (np.random.RandomState(SEED).rand(nf.shape[0],
+                                               workloads.NUM_LABELS)
+              > 0.9).astype(np.float32)
+    return nf, adj, n2g, labels
+
+
+def _hybrid_replicas():
+    """Two replica graphs of ``HYBRID_NODES`` nodes, built as
+    tests/test_spmd.py::test_hybrid_mesh_runs_typed_pair_replicas builds
+    them (3 edges a node, one edge type) but with uniform random edges,
+    so that half of them cross between the two node shards, and sharing
+    one edge list, so that their partitions' edge budgets and ring slabs
+    agree: (features, labels) differ by replica."""
+    import numpy as np
+
+    from tf2_gnn_tpu_torch import workloads
+
+    rng = np.random.RandomState(6)
+    v = HYBRID_NODES
+    src = rng.randint(0, v, v * 3)
+    tgt = rng.randint(0, v, v * 3)
+    adj = [np.stack([src, tgt], 1).astype(np.int32)]
+    out = []
+    for _ in range(2):
+        nf = rng.randn(v, workloads.FEATURE_DIM).astype(np.float32)
+        labels = (rng.rand(v, workloads.NUM_LABELS) > 0.9).astype(np.float32)
+        out.append((nf, adj, np.zeros((v,), np.int32), labels))
+    return out
+
+
+def _hybrid_partition(nf, adj, n2g, labels, shards: int):
+    from tf2_gnn_tpu_torch.parallel import partition_graph
+
+    return partition_graph(nf, adj, n2g, 1, shards, num_graphs_padded=2,
+                           node_labels={"node_labels": labels},
+                           build_pair_plans=True, pair_per_type=True,
+                           halo="ring", reorder=False)
+
+
+def scaleout_data(case, shards: int):
+    """(stacked host batch, stacked labels) of a case over ``shards``
+    shards (the replicas' over "data" for the hybrid case)."""
+    from tf2_gnn_tpu_torch import workloads
+    from tf2_gnn_tpu_torch.parallel import (
+        partition_graph,
+        stack_batches,
+        stack_partitioned_batches,
+    )
+
+    if case["data"] == "ppi_dp":
+        pairs = [workloads.build_ppi_batch_host(seed)[:2]
+                 for seed in range(shards)]
+        return stack_batches([b for b, _ in pairs], [l for _, l in pairs])
+    if case["data"] == "scaling":
+        return workloads.scaling_partition(shards, halo=case["halo"])
+    if case["data"] == "ppi":
+        nf, adj, n2g, labels = _ppi_graph()
+        return partition_graph(nf, adj, n2g, workloads.GRAPHS_PER_BATCH,
+                               shards, node_labels={"node_labels": labels},
+                               **case["partition"])
+    parts = [_hybrid_partition(nf, adj, n2g, labels, shards // 2)
+             for nf, adj, n2g, labels in _hybrid_replicas()]
+    return stack_partitioned_batches([b for b, _ in parts],
+                                     [l for _, l in parts])
+
+
+def scaleout_model(case, device, num_types: int):
+    from tf2_gnn_tpu_torch import workloads
+    from tf2_gnn_tpu_torch.models.node_multiclass_task import (
+        NodeMulticlassTask,
+    )
+
+    params = scaleout_params(case["model"], case.get("layers"))
+    dim = (workloads.SCALING_FEATURE_DIM if case["model"] == "scaling"
+           else workloads.FEATURE_DIM)
+    model = NodeMulticlassTask.from_params(
+        params, input_dim=dim, num_edge_types=num_types, device=device,
+        seed=SEED, num_labels=workloads.NUM_LABELS)
+    return model, params
+
+
+class FirstGradients:
+    """An optimizer that keeps the gradients it applies first (f32 numpy,
+    in the parameters' order), then steps as the one it wraps."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.grads = None
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad()
+
+    def step(self, step: int) -> None:
+        if self.grads is None:
+            self.grads = [p.grad.detach().float().cpu().numpy()
+                          for group in self.optimizer.torch_optimizer
+                          .param_groups for p in group["params"]
+                          if p.grad is not None]
+        self.optimizer.step(step)
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _flat_params(model):
+    import numpy as np
+
+    return np.concatenate([p.detach().float().cpu().numpy().reshape(-1)
+                           for p in model.parameters()])
+
+
+def _launches():
+    launches = {}
+    for _, counts in launch_counters():
+        launches.update({k: v for k, v in counts.items() if v})
+    return launches
+
+
+def _reset_launches() -> None:
+    for reset, _ in launch_counters():
+        reset()
+
+
+def scaleout_rank(rank: int, world: int, cases):
+    """One rank of phase 14: every case of ``cases`` in order (all ranks
+    alike), each returning what the main process compares."""
+    import torch
+
+    from tf2_gnn_tpu_torch.parallel import collectives
+
+    device = collectives.process_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = []
+    for case in cases:
+        with (_zeroed_ring_slabs() if case.get("fault") == "ring_slab"
+              else contextlib.nullcontext()):
+            results.append(scaleout_rank_case(rank, world, case, device))
+    return results
+
+
+@contextlib.contextmanager
+def _zeroed_ring_slabs():
+    """A planted fault: every ring slab arrives as zeros (the halo lost,
+    both ways)."""
+    import torch
+
+    from tf2_gnn_tpu_torch.parallel import collectives
+
+    ppermute = collectives.ppermute
+    with mock.patch.object(collectives, "ppermute",
+                           lambda x, axis, k: torch.zeros_like(
+                               ppermute(x, axis, k))):
+        yield
+
+
+def scaleout_rank_case(rank: int, world: int, case, device):
+    """One case of ``scaleout_rank`` on this rank."""
+    import torch
+
+    from tf2_gnn_tpu_torch import parallel as par
+    from tf2_gnn_tpu_torch.harness.optimizers import make_optimizer
+    from tf2_gnn_tpu_torch.harness.training import create_train_state
+    from tf2_gnn_tpu_torch.parallel import collectives
+
+    t_case = time.perf_counter()
+    kind = case["kind"]
+    if kind == "dp":
+        mesh, axes = par.make_mesh(axis_name="data"), "data"
+        make_step = par.make_dp_train_step
+    elif kind == "spmd":
+        mesh, axes = par.make_mesh(axis_name="nodes"), "nodes"
+        make_step = par.make_spmd_train_step
+    else:
+        mesh = par.make_hybrid_mesh(2, world // 2)
+        axes = ("data", "nodes")
+        make_step = par.make_hybrid_train_step
+    host, host_labels = scaleout_data(case, world)
+    batch, labels = par.distribute_batch(mesh, (host, host_labels), axes)
+    model, params = scaleout_model(case, device, batch.num_edge_types)
+    par.replicate_to_mesh(mesh, model)
+    layer = model.gnn.mp_layer_0
+    out = {"rank": rank, "route": (layer._route(batch)
+                                   if hasattr(layer, "_route")
+                                   else "unfused"),
+           "halo": ("ring" if batch.halo_ring_send is not None
+                    else "dense" if batch.halo_send_idx is not None
+                    else "all_gather" if batch.spmd_axis else "none"),
+           "setup_s": time.perf_counter() - t_case}
+    if case.get("forward"):
+        _reset_launches()
+        logits = par.make_spmd_forward(model, mesh)(batch)[0]
+        out["forward_launches"] = _launches()
+        if rank == 0:
+            out["forward"] = par.restore_node_order(logits, host)
+    optimizer = FirstGradients(make_optimizer(params,
+                                              model.parameters()))
+    state = create_train_state(model, optimizer, seed=SEED)
+    step = make_step(model, optimizer, mesh)
+    _reset_launches()
+    collectives.reset_counts()
+    losses, params_by_step, step_s = [], [], []
+    for _ in range(case["steps"]):
+        _sync(device)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, labels)
+        losses.append(float(metrics["loss"]))
+        _sync(device)
+        step_s.append(time.perf_counter() - t0)
+        if kind == "dp" and rank == 0:
+            params_by_step.append(_flat_params(model))
+    steps = case["steps"]
+    out.update(
+        losses=losses, launches=_launches(),
+        collectives={k: {"calls": v["calls"] / steps,
+                         "bytes": v["bytes"] / steps}
+                     for k, v in collectives.counts_snapshot().items()
+                     if v["calls"]},
+        step_ms=1e3 * sum(step_s[1:] or step_s) / len(step_s[1:]
+                                                      or step_s),
+        final_params=_flat_params(model),
+        host_staged=sorted(collectives.HOST_STAGED))
+    if rank == 0:
+        out["grads"] = optimizer.grads
+        out["params_by_step"] = params_by_step
+    return out
+
+
+def reference_steps(model, params, batches, steps: int, device):
+    """The single process's steps over ``batches`` ((batch, labels,
+    weight)), their gradients combined as the parallel step combines them,
+    ``sum_b w_b g_b / max(sum_b w_b, 1)``: (losses, step-1 gradients, flat
+    parameters after each step)."""
+    import torch
+
+    from tf2_gnn_tpu_torch.harness.optimizers import make_optimizer
+
+    optimizer = make_optimizer(params, model.parameters())
+    plist = [p for p in model.parameters() if p.requires_grad]
+    losses, grads, params_by_step = [], None, []
+    for step in range(steps):
+        total, loss_sum, weight_sum = None, None, None
+        for batch, labels, weight in batches:
+            model.train()
+            optimizer.zero_grad()
+            metrics = model.compute_task_metrics(
+                batch, model(batch, True), labels)
+            metrics["loss"].backward()
+            w = torch.tensor(float(weight), device=device)
+            g = [(torch.zeros_like(p) if p.grad is None else p.grad.float())
+                 * w for p in plist]
+            loss = metrics["loss"].detach() * w
+            if total is None:
+                total, loss_sum, weight_sum = g, loss, w
+            else:
+                total = [a + b for a, b in zip(total, g)]
+                loss_sum, weight_sum = loss_sum + loss, weight_sum + w
+        weight_sum = torch.clamp(weight_sum, min=1.0)
+        for p, g in zip(plist, total):
+            p.grad = (g / weight_sum).to(p.dtype)
+        if step == 0:
+            grads = [p.grad.float().cpu().numpy() for p in plist]
+        optimizer.step(step)
+        losses.append(float(loss_sum / weight_sum))
+        params_by_step.append(_flat_params(model))
+    _sync(device)
+    return losses, grads, params_by_step
+
+
+def scaleout_reference(case, device):
+    """One process on the same card: the unpartitioned graph (a shard of
+    one, or the batch the single-chip phases plan), or the same batches,
+    combined as the parallel step combines them."""
+    import torch
+
+    from tf2_gnn_tpu_torch import workloads
+    from tf2_gnn_tpu_torch.harness.training import to_device
+
+    if case["data"] == "ppi_dp":
+        pairs = [to_device(*workloads.build_ppi_batch_host(seed)[:2],
+                           device) for seed in range(2)]
+        batches = [(b, l, b.num_graphs) for b, l in pairs]
+    elif case["data"] == "scaling":
+        # The 2-shard run's graph in one shard: no remote source, so the
+        # ring has no distance and the ext rows are the local rows.
+        host, labels = workloads.scaling_partition(1, halo="ring",
+                                                   graph_shards=2)
+        batches = [(*to_device(host.shard(0).replace(spmd_axis=None),
+                               {k: v[0] for k, v in labels.items()},
+                               device), 1)]
+    elif case["data"] == "ppi":
+        host, labels, _ = workloads.build_ppi_batch_host(
+            SEED, **case.get("reference_plans", {}))
+        batches = [(*to_device(host, labels, device), 1)]
+    else:
+        batches = []
+        for nf, adj, n2g, labels in _hybrid_replicas():
+            host, lab = _hybrid_partition(nf, adj, n2g, labels, 1)
+            batches.append((*to_device(host.shard(0).replace(spmd_axis=None),
+                                       {k: v[0] for k, v in lab.items()},
+                                       device), 1))
+    model, params = scaleout_model(case, device, batches[0][0].num_edge_types)
+    ref = {}
+    if case.get("forward"):
+        model.eval()
+        with torch.no_grad():
+            (logits,) = model(batches[0][0], False)
+        n = int(batches[0][0].num_nodes)
+        ref["forward"] = logits[:n].float().cpu().numpy()
+    ref["losses"], ref["grads"], ref["params_by_step"] = reference_steps(
+        model, params, batches, case["steps"], device)
+    return ref
+
+
+def _share(got, want) -> float:
+    """Largest |got - want| over the largest |want| (1 where want is 0)."""
+    import numpy as np
+
+    scale = float(np.abs(want).max()) or 1.0
+    return float(np.abs(np.asarray(got) - want).max()) / scale
+
+
+def scaleout_errors(case, results, ref):
+    """Hold the ranks' results against the single process's: every rank
+    launched the case's kernels and holds rank 0's parameters (else it
+    raises); returns {check: (largest error, limit)}."""
+    import numpy as np
+
+    first = results[0]
+    errors = {}
+    for r in results:
+        missing = [k for k in SCALEOUT_KERNELS[case["model"]]
+                   if not r["launches"].get(k)]
+        if case.get("forward"):
+            missing += [f"{k} (eval forward)"
+                        for k in SCALEOUT_FORWARD_KERNELS[case["model"]]
+                        if not r["forward_launches"].get(k)]
+        if missing:
+            raise AssertionError(f"phase 14 ({case['name']}): rank "
+                                 f"{r['rank']} launched no {missing}")
+        if not np.array_equal(r["final_params"], first["final_params"]):
+            raise AssertionError(f"phase 14 ({case['name']}): rank "
+                                 f"{r['rank']}'s parameters differ from "
+                                 "rank 0's")
+    losses = np.asarray(first["losses"])
+    want_losses = np.asarray(ref["losses"])
+    loss_err = float(np.max(np.abs(losses - want_losses)
+                            / np.abs(want_losses)))
+    if case["kind"] == "dp":
+        errors["loss (rel)"] = (loss_err, DP_LOSS_RTOL)
+        errors["params (abs)"] = (max(
+            float(np.abs(a - b).max()) for a, b in
+            zip(first["params_by_step"], ref["params_by_step"])),
+            DP_PARAM_ATOL)
+    else:
+        limits = case["limits"]
+        errors["loss (rel)"] = (loss_err, limits["loss"])
+        errors["step-1 gradients (share)"] = (max(
+            _share(g, w) for g, w in zip(first["grads"], ref["grads"])),
+            limits["grads"])
+        if case.get("forward"):
+            want = ref["forward"]
+            got = first["forward"][:want.shape[0]]
+            atol, share = limits["logits"]
+            scale = float(np.abs(want).max())
+            err = float(np.abs(got - want).max())
+            errors["eval logits (abs)"] = (err, atol + share * scale)
+    return errors
+
+
+def _report(errors) -> str:
+    return ", ".join(f"{k} {e:.3g} of {lim:.3g}"
+                     for k, (e, lim) in errors.items())
+
+
+def scaleout_check(case, results, ref) -> str:
+    """``scaleout_errors`` within every limit; returns the case's report
+    (the largest error of each check against its limit). A case with a
+    planted ``fault`` must fail the limits instead: every check but the
+    numbers holds, and some number does not."""
+    errors = scaleout_errors(case, results, ref)
+    report = _report(errors)
+    within = all(e <= lim for e, lim in errors.values())
+    if case.get("fault"):
+        if within:
+            raise AssertionError(f"phase 14 ({case['name']}): the check "
+                                 f"passed a planted {case['fault']} fault: "
+                                 f"{report}")
+        return f"refused as it must be: {report}"
+    if not within:
+        raise AssertionError(f"phase 14 ({case['name']}): {report}")
+    return report
+
+
+def scaleout_log(case, results, report: str) -> None:
+    first = results[0]
+    launches = [r["launches"] for r in results]
+    log(f"phase 14 ({case['name']}, {case['kind']}, {len(results)} ranks): "
+        f"route {first['route']}, halo {first['halo']}; launches per rank "
+        f"in {case['steps']} steps {launches}"
+        + (f", eval forward {[r['forward_launches'] for r in results]}"
+           if case.get("forward") else "")
+        + f"; collectives a step (rank 0) {first['collectives']}; step ms "
+        f"{[round(r['step_ms'], 3) for r in results]}; losses "
+        f"{[round(x, 6) for x in first['losses']]}; {report}; setup "
+        f"{max(r['setup_s'] for r in results):.1f} s")
+
+
+def gather_scatter_sorted_check(device) -> None:
+    """``gather_scatter_sorted`` (B12 both ways over one edge type's dual
+    plan) once on the card against its plain version, at the PPI batch's
+    forward edges and hidden 320."""
+    import numpy as np
+    import torch
+
+    from tf2_gnn_tpu_torch import workloads
+    from tf2_gnn_tpu_torch.ops import sorted_spmm as ss
+
+    batch, _, _ = workloads.build_ppi_batch_host(SEED, plans=False)
+    v = batch.num_nodes_padded
+    src, tgt = batch.edge_sources[1], batch.edge_targets[1]
+    plan = ss.DualScatterPlan.from_host(ss.build_dual_plans(
+        src, tgt, int(batch.num_edges[1]), v,
+        ss.plan_chunk_budget(src.shape[0], v)), v).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    table0 = torch.randn((v, 320), generator=gen, device=device)
+    cot = torch.randn((v, 320), generator=gen, device=device)
+
+    def run():
+        table = table0.clone().requires_grad_(True)
+        out = ss.gather_scatter_sorted(table, plan, torch.bfloat16)
+        (out * cot).sum().backward()
+        return out.detach(), table.grad
+
+    ss.reset_launch_counts()
+    got = run()
+    launches = ss.LAUNCHES["sorted_segment_sum"]
+    with mock.patch.object(ss, "sorted_segment_sum_gathered", plain_version(
+            ss.sorted_segment_sum_gathered_plain)):
+        want = run()
+    errs = [check_close(f"gather_scatter_sorted {name}", x, y, KERNEL_RTOL,
+                        KERNEL_ATOL)
+            for name, x, y in zip(("sums", "table gradient"), got, want)]
+    if launches != 2:
+        raise AssertionError(f"gather_scatter_sorted launched B12 "
+                             f"{launches} times; expected 2")
+    log(f"phase 14: gather_scatter_sorted (B12 over the dual plan of "
+        f"{int(batch.num_edges[1])} edges, H = 320, bf16 stream) against "
+        f"its plain version: max abs err {max(errs):.3g} (limits rtol "
+        f"{KERNEL_RTOL}, atol {KERNEL_ATOL}), {launches} launches")
+
+
+def nccl_case(device) -> None:
+    """Case (f): one rank over the default backend (NCCL on the card) in
+    this process, one DP step of PPI_RGCN on the PPI batch against the
+    single process's step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tf2_gnn_tpu_torch import parallel as par
+    from tf2_gnn_tpu_torch import workloads
+    from tf2_gnn_tpu_torch.harness.optimizers import make_optimizer
+    from tf2_gnn_tpu_torch.harness.training import (
+        create_train_state,
+        to_device,
+    )
+    from tf2_gnn_tpu_torch.parallel import collectives
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    case = dict(name="f", kind="dp", model="ppi_rgcn", steps=1)
+    host, labels, _ = workloads.build_ppi_batch_host(SEED)
+    batch, tlabels = to_device(host, labels, device)
+    model, params = scaleout_model(case, device, batch.num_edge_types)
+    ref = {}
+    ref["losses"], _, ref["params_by_step"] = reference_steps(
+        model, params, [(batch, tlabels, batch.num_graphs)], 1, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        par.initialize_multiprocess(f"file://{tmp}/rendezvous", 1, 0,
+                                    backend=backend, device=device)
+        try:
+            mesh = par.make_mesh()
+            model, params = scaleout_model(case, device,
+                                           batch.num_edge_types)
+            stacked = par.stack_batches([host], [labels])
+            one, one_labels = par.distribute_batch(mesh, stacked)
+            optimizer = make_optimizer(params, model.parameters())
+            state = create_train_state(model, optimizer, seed=SEED)
+            _reset_launches()
+            collectives.reset_counts()
+            t0 = time.perf_counter()
+            _, metrics = par.make_dp_train_step(model, optimizer, mesh)(
+                state, one, one_labels)
+            loss = float(metrics["loss"])
+            _sync(device)
+            step_ms = 1e3 * (time.perf_counter() - t0)
+            got = _flat_params(model)
+            launches = _launches()
+            counts = collectives.counts_snapshot()
+        finally:
+            dist.destroy_process_group()
+            collectives.use_mesh(None)
+            collectives.set_process_device(None)
+    errors = {"loss (rel)": (abs(loss - ref["losses"][0])
+                             / abs(ref["losses"][0]), DP_LOSS_RTOL),
+              "params (abs)": (float(np.abs(got - ref["params_by_step"][0])
+                                     .max()), DP_PARAM_ATOL)}
+    report = ", ".join(f"{k} {e:.3g} of {lim:.3g}"
+                       for k, (e, lim) in errors.items())
+    missing = [k for k in SCALEOUT_KERNELS["ppi_rgcn"] if not launches.get(k)]
+    if missing or any(not e <= lim for e, lim in errors.values()):
+        raise AssertionError(f"phase 14 (f): launched {launches}; {report}")
+    log(f"phase 14 (f, dp, 1 rank over {backend}): launches {launches}; "
+        f"collectives {({k: v for k, v in counts.items() if v['calls']})}; "
+        f"step ms {step_ms:.3f}; {report}")
+
+
+def scaleout_path(device, argv):
+    """Phase 14: scale-out on the card. The ranks are processes started
+    with ``spawn`` (``parallel.launch.run_ranks``) over gloo, on this one
+    card, each case held against one process on the same card running the
+    unpartitioned graph or the same batches: (a) DP of PPI_RGCN on two
+    bench batches, (b) the scaling workload on both halo forms, (c) the
+    PPI batch on per-type plans with RCM reordering, (d) RGAT, the
+    reference-default GNN_Edge_MLP and RGCN on merged, merged-target and
+    scatter plans (the last with the all_gather) on 2 ranks that stay up
+    across the cases; (e) the hybrid 2 x 2 step on 4 ranks; (f) one rank
+    over NCCL in this process. (e) runs again with every ring slab zeroed,
+    which the check must refuse. Also ``gather_scatter_sorted`` once
+    against its plain version."""
+    from tf2_gnn_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    gather_scatter_sorted_check(device)
+    cases = scaleout_cases()
+    clusters = ((2, [c for c in cases if c["kind"] != "hybrid"]),
+                (4, [c for c in cases if c["kind"] == "hybrid"]))
+    staged = set()
+    for world, group in clusters:
+        t0 = time.perf_counter()
+        results = run_ranks(scaleout_rank, world, (group,),
+                            device=device.type)
+        log(f"phase 14: {world} ranks ran {[c['name'] for c in group]} in "
+            f"{time.perf_counter() - t0:.1f} s (spawn included)")
+        refs = {}
+        for i, case in enumerate(group):
+            per_case = [r[i] for r in results]
+            staged.update(*(r["host_staged"] for r in per_case))
+            # A faulted case is held against its healthy twin's reference.
+            key = case["name"].split("_fault")[0]
+            if key not in refs:
+                refs[key] = scaleout_reference(case, device)
+            report = scaleout_check(case, per_case, refs[key])
+            scaleout_log(case, per_case, report)
+    log(f"phase 14: collectives staged through the host (gloo with CUDA "
+        f"tensors): {sorted(staged) or 'none'}")
+    nccl_case(device)
+    log(f"phase 14: every case within its limits; one card's multi-rank "
+        f"step times say nothing of scaling efficiency; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def launch_counters():
     """(reset, counts) of every kernel module's launch counts, in the order
     of the phases that introduced them."""
@@ -3581,7 +4301,7 @@ def main(argv) -> int:
     # -- merged, merged-target and scatter plans, GraphRegression, 11. the
     # -- unfused per-edge path on the batches without plans, 12. training
     # -- and testing from the command line, 13. the TF reference's recorded
-    # -- runs and the public API ------------------------------------------
+    # -- runs and the public API, 14. scale-out over torch.distributed -----
     # Each path returns its kernels-line entries, and phases 3-6 also the
     # entries of other call forms (none for phase 4), which are logged.
     def timed(phase: int, path):
@@ -3616,6 +4336,8 @@ def main(argv) -> int:
     cli_path(device, argv)
     torch.cuda.empty_cache()
     reference_path(device, argv)
+    torch.cuda.empty_cache()
+    scaleout_path(device, argv)
     t0 = time.perf_counter()
     add_device_times(kernels + other_forms + probe_forms + qm9_entries
                      + flavour_forms + route_forms)

@@ -50,6 +50,18 @@ from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
 
 from .test_torch_rgcn_model import FEATURES, NUM_LABELS, small_workload
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 V = 384
 
 

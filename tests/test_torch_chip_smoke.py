@@ -32,6 +32,13 @@ take their plain versions.
   a CPU forward whose segment sums run in another order, as the card's
   atomics would) and fails with one edge type's messages doubled on the
   unfused side.
+* Phase 14's check (``scaleout_check``) on synthetic ranks' results:
+  results equal to the single process's pass; a gradient twice the
+  single process's (a missing pmean), a rank without a kernel launch,
+  ranks whose parameters differ, or a loss off by 1% fail; a case with a
+  planted fault (case (e) with its ring slabs zeroed) fails the phase
+  when its numbers pass, and passes it when they do not. The planted
+  fault itself runs at the case's own size on the card, in the phase.
 """
 import pytest
 import torch
@@ -424,11 +431,12 @@ def _unfused_check(model, kind, against, tols, batches):
 _SEGMENT_SUM = tseg.segment_sum
 
 
-def _reordered_segment_sum(data, segment_ids, num_segments):
+def _reordered_segment_sum(data, segment_ids, num_segments, spmd_axis=None):
     """``segment_sum`` over the same rows, added in a random order."""
     perm = torch.randperm(data.shape[0],
                           generator=torch.Generator().manual_seed(1))
-    return _SEGMENT_SUM(data[perm], segment_ids[perm], num_segments)
+    return _SEGMENT_SUM(data[perm], segment_ids[perm], num_segments,
+                        spmd_axis)
 
 
 def _type1_messages_doubled(monkeypatch, model):
@@ -682,3 +690,71 @@ def test_dump_writers_match_the_test_writers(tmp_path):
                 a, b = np.load(got / name), np.load(want / name)
                 assert a.dtype == b.dtype
                 np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+# -- phase 14's check ----------------------------------------------------------
+
+def _scaleout_results(grads, params, launches):
+    """Two ranks' results of an SPMD case as ``scaleout_rank`` returns
+    them (rank 0 carries the gradients)."""
+    return [{"rank": r, "losses": [2.0, 1.5], "launches": dict(launches),
+             "final_params": params[r], "grads": grads}
+            for r in range(2)]
+
+
+@pytest.mark.parametrize("fault", [None, "gradient_factor", "one_kernel",
+                                   "rank_params", "loss"])
+def test_scaleout_check_catches_faults(fault):
+    """Phase 14's check (``scaleout_check``) on synthetic results at case
+    (b)'s limits: equal ones pass; a gradient twice the single process's
+    (a missing pmean), a rank that launched no kernel, ranks whose
+    parameters differ, or a loss off by 1% fail."""
+    import numpy as np
+
+    case = next(c for c in chip_smoke.scaleout_cases()
+                if c["name"] == "b_dense")
+    grads = [np.linspace(-1.0, 1.0, 12, dtype=np.float32).reshape(3, 4)]
+    ref = {"losses": [2.0, 1.5], "grads": [g.copy() for g in grads]}
+    params = [np.arange(5, dtype=np.float32)] * 2
+    launches = {"pair_spmm": 8}
+    if fault == "gradient_factor":
+        grads = [2.0 * g for g in grads]
+    results = _scaleout_results(grads, params, launches)
+    if fault == "one_kernel":
+        results[1]["launches"] = {}
+    elif fault == "rank_params":
+        results[1]["final_params"] = params[0] + 1e-7
+    elif fault == "loss":
+        results[0]["losses"] = [2.02, 1.5]
+    if fault is None:
+        assert "step-1 gradients (share) 0 of" in chip_smoke.scaleout_check(
+            case, results, ref)
+    else:
+        with pytest.raises(AssertionError, match="phase 14"):
+            chip_smoke.scaleout_check(case, results, ref)
+
+
+@pytest.mark.parametrize("lost", [False, True])
+def test_scaleout_check_needs_a_planted_fault_to_fail(lost):
+    """Phase 14's planted fault (case (e) with every ring slab zeroed):
+    the check refuses the phase if the faulted run's numbers pass (a
+    check that cannot see a lost halo), and reports the refusal if they
+    fail, as they must."""
+    import numpy as np
+
+    cases = {c["name"]: c for c in chip_smoke.scaleout_cases()}
+    case = cases["e_fault"]
+    assert case["fault"] == "ring_slab"
+    assert {k: v for k, v in case.items() if k not in ("name", "fault")} \
+        == {k: v for k, v in cases["e"].items() if k != "name"}
+    grads = [np.linspace(-1.0, 1.0, 12, dtype=np.float32).reshape(3, 4)]
+    ref = {"losses": [2.0, 1.5], "grads": [g.copy() for g in grads]}
+    got = [g * 1.1 for g in grads] if lost else grads
+    results = _scaleout_results(got, [np.zeros(5, np.float32)] * 2,
+                                {"pair_stream": 4, "pair_stream_joint": 4})
+    if lost:
+        assert chip_smoke.scaleout_check(case, results, ref).startswith(
+            "refused as it must be")
+    else:
+        with pytest.raises(AssertionError, match="passed a planted"):
+            chip_smoke.scaleout_check(case, results, ref)

@@ -68,6 +68,18 @@ from tf2_gnn_tpu_torch.ops import pair_edge_mlp as tpem
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 pytestmark = pytest.mark.cuda
 
 
@@ -539,6 +551,44 @@ def test_sorted_ops_match_plain_on_card(device, stream_dtype):
                           want):
         assert x.dtype == torch.float32
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("stream_dtype", [torch.float32, torch.bfloat16])
+def test_gather_scatter_sorted_matches_plain_on_card(device, stream_dtype):
+    """One edge type's dual plan: B12 both ways (its gathered form, each
+    entry reading its table or cotangent row) against the plain versions,
+    forward sums and the table gradient, one launch each way."""
+    v, h, num_edges = 384, 40, 1500
+    rng = np.random.RandomState(33)
+    src = np.full((2048,), v - 1, np.int32)
+    tgt = np.full((2048,), v - 1, np.int32)
+    src[:num_edges] = rng.randint(0, v - 1, num_edges)
+    tgt[:num_edges] = rng.randint(0, v - 1, num_edges)
+    tgt[tgt // tss.BLOCK_NODES == 1] += tss.BLOCK_NODES
+    host = tss.build_dual_plans(src, tgt, num_edges, v,
+                                tss.plan_chunk_budget(2048, v))
+    plan = tss.DualScatterPlan.from_host(host, v).to(device)
+    gen = torch.Generator(device=device).manual_seed(34)
+    table0 = torch.randn((v, h), generator=gen, device=device)
+    cot = torch.randn((v, h), generator=gen, device=device)
+
+    def run():
+        table = table0.clone().requires_grad_(True)
+        out = tss.gather_scatter_sorted(table, plan, stream_dtype)
+        (out * cot).sum().backward()
+        return out.detach(), table.grad
+
+    tss.reset_launch_counts()
+    got = run()
+    assert tss.LAUNCHES["sorted_segment_sum"] == 2
+    with pytest.MonkeyPatch.context() as mp:
+        for name in _SORTED_WRAPPERS:
+            mp.setattr(tss, name, plain_version(getattr(tss, f"{name}_plain")))
+        want = run()
+    for name, x, y in zip(("out", "d_table"), got, want):
+        assert x.dtype == torch.float32
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5, msg=name)
+    assert torch.all(got[0][tss.BLOCK_NODES:2 * tss.BLOCK_NODES] == 0)
 
 
 def _typed_plans_empty_targets(seed, v=384, num_types=3):

@@ -50,6 +50,17 @@ from .test_torch_max_rows import (
 from .test_torch_rgcn_model import FEATURES, NUM_LABELS, small_workload
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _b8_row_owner(scores, maxes, compact, k: int, vs: int):
     """``expd_rows_kernel`` over ``compact``: each entry's f32 logits
     (B11's), minus its target row's stabiliser, through exp; [K, n]."""

@@ -58,6 +58,18 @@ from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
 from .test_torch_rgcn_model import FEATURES, NUM_LABELS, TOLS, small_workload
 from .test_torch_sorted_models import scatter_workload
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 BF16_LOGIT_ATOL = 4e-3
 BF16_ROUTE_GRAD_SHARE = 2.0 ** -8

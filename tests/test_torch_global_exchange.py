@@ -25,6 +25,18 @@ from tf2_gnn_tpu_torch.layers.readout import WeightedSumGraphRepresentation
 from tf2_gnn_tpu_torch.ops import gru as tgru
 from tf2_gnn_tpu_torch.ops import segment as tseg
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 

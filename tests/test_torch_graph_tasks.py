@@ -78,6 +78,18 @@ from tf2_gnn_tpu_torch.models.graph_regression_task import (
 )
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 MOLECULES, NODES, TYPES, EDGES, FEATURES, V_PAD = 40, 18, 5, 11, 32, 768
 F32_TOL = dict(rtol=1e-4, atol=1e-5)

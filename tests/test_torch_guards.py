@@ -1,10 +1,11 @@
 """Guards of the PyTorch port:
 
-* no module of ``tf2_gnn_tpu_torch`` and not ``chip_smoke.py`` imports
-  jax, flax, optax, the JAX package or ``bench``;
+* no module of ``tf2_gnn_tpu_torch`` (``parallel/`` included) and not
+  ``chip_smoke.py`` imports jax, flax, optax, the JAX package, ``bench``
+  or the tests, nor the deprecated ``torch.distributed.nn``;
 * the entry points default to the card and raise without one instead of
   running on the CPU, the command-line train and test runs too (without
-  ``--device cpu``);
+  ``--device cpu``), and ``initialize_multiprocess`` without ``device``;
 * a CUDA tensor given to a kernel wrapper whose library cannot be built
   raises; it does not fall back to the plain version; nor does a CUDA call
   of a row-owner wrapper (K1, K2, B3, B12 in both forms, B4, B5, B6, B9)
@@ -46,9 +47,22 @@ from tf2_gnn_tpu_torch.ops import probes as tprobes
 from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
 from tf2_gnn_tpu_torch.utils.device import resolve_device
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = Path(tf2_gnn_tpu_torch.__file__).resolve().parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tf2_gnn_tpu", "bench"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tf2_gnn_tpu", "bench",
+             "tests"}
 PORT_FILES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -66,6 +80,24 @@ def imported_roots(path: Path):
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_nothing_of_jax(path):
     bad = sorted(set(imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_avoids_torch_distributed_nn(path):
+    bad = [m for m in imported_modules(path)
+           if m.startswith("torch.distributed.nn")]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
@@ -98,7 +130,11 @@ def test_port_has_its_own_modules():
         "harness/default_hypers/PPI_GNN_FiLM.json",
         "harness/import_reference.py", "harness/reference_parity.py",
         "layers/gnn_input.py", "native/__init__.py", "native/plain.py",
-        "native/graphpack.cc",
+        "native/graphpack.cc", "parallel/__init__.py",
+        "parallel/collectives.py", "parallel/data_parallel.py",
+        "parallel/hybrid.py", "parallel/launch.py",
+        "parallel/multiprocess.py", "parallel/reorder.py",
+        "parallel/spmd.py",
     ]
     missing = [p for p in expected if not (PACKAGE / p).is_file()]
     assert not missing
@@ -148,6 +184,26 @@ def test_qm9_entry_points_default_to_the_card(no_card):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls.from_params(workloads.qm9_shipped_params(), input_dim=4,
                             num_edge_types=5)
+
+
+def test_parallel_entry_points_default_to_the_card(no_card, tmp_path):
+    """Joining a group without a device, asking for this rank's device
+    before joining, or spawning ranks without a device raises before any
+    rendezvous or process; the scaling workload's host arrays need no
+    device."""
+    from tf2_gnn_tpu_torch.parallel import collectives, launch, multiprocess
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multiprocess.initialize_multiprocess(
+            f"file://{tmp_path / 'rendezvous'}", 1, 0, backend="gloo")
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        collectives.process_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.run_ranks(len, 2)
+    batch, labels = workloads.scaling_partition(2, nodes_per_shard=64,
+                                                edges_per_shard=256)
+    assert batch.spmd_num_shards == 2 and batch.pair_plans is not None
 
 
 def test_cli_runs_default_to_the_card(no_card, tmp_path):

@@ -6,11 +6,23 @@ and the bench's batch without plans) and on degenerate fuzz cases
 budget small enough to spill pairs into the overflow list)."""
 import numpy as np
 import pytest
+import torch
 
 import bench
 from tf2_gnn_tpu.ops import pair_spmm as jps
 from tf2_gnn_tpu_torch import workloads
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def assert_same_arrays(got, want):

@@ -18,6 +18,18 @@ import torch
 from tf2_gnn_tpu.ops import pair_spmm as jps
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOLS = {"float32": dict(rtol=1e-5, atol=1e-5),
         "bfloat16": dict(rtol=2.0 ** -8, atol=1e-5)}
 

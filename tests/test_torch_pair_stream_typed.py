@@ -31,6 +31,17 @@ from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 from .test_torch_pair_stream import TOLS, _random_edges, _typed_plans
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_value_and_grad(tables, cot, plans, v, normalize, dtype):
     def f(t):
         out = jps.pair_stream_from_typed(t.astype(dtype), plans, v,

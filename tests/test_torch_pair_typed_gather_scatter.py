@@ -25,6 +25,17 @@ from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 from .test_torch_pair_stream import TOLS, _random_edges
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _merged_plans(mod, srcs, tgts, counts, v, merge_targets, spill):
     """One merged plan over all types (host tuple); under ``spill`` each
     direction's chunk budget is one group short of what the edges need,

@@ -33,6 +33,18 @@ from tf2_gnn_tpu_torch.ops import cuda_build, probes
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 from tf2_gnn_tpu_torch.tools import dyngather_variants
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 V = workloads.NODE_BUDGET
 
 

@@ -4,8 +4,8 @@
   ``data``, ``layers``, ``layers.message_passing``, ``models``, ``ops``,
   ``harness`` and ``utils`` packages) is in the port's ``__all__`` of the
   same package under the same name, or in ``NO_COUNTERPART`` with its
-  reason; that table names nothing the port has. The JAX ``parallel``
-  package waits for ROADMAP.md queue A item 10 (10a and 10b).
+  reason; that table names nothing the port has. ``parallel`` exports
+  all twenty names of the JAX package's ``__all__``.
 * The registries: ``get_known_message_passing_classes``,
   ``get_known_activation_names``, ``MODEL_CLASSES`` / ``get_model_class``
   / ``register_model_class`` give the JAX package's names; the
@@ -43,17 +43,10 @@ from tf2_gnn_tpu_torch.layers import (
 )
 
 PACKAGES = ("", ".data", ".layers", ".layers.message_passing", ".models",
-            ".ops", ".harness", ".utils")
+            ".ops", ".harness", ".utils", ".parallel")
 
 # JAX names with no counterpart in the port, by package, with the reason.
-NO_COUNTERPART = {
-    ".parallel": {
-        name: "ROADMAP.md queue A item 10: data_parallel.py and "
-              "multiprocess.py in 10a, spmd.py, reorder.py and hybrid.py "
-              "in 10b"
-        for name in jparallel.__all__
-    },
-}
+NO_COUNTERPART = {}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -84,9 +77,14 @@ def test_exports_match_jax(package):
                     == isinstance(getattr(tmod, name), type)), name
 
 
-def test_parallel_waits_for_item_10():
-    assert importlib.util.find_spec("tf2_gnn_tpu_torch.parallel") is None
-    assert sorted(NO_COUNTERPART[".parallel"]) == sorted(jparallel.__all__)
+def test_parallel_exports_every_name():
+    import tf2_gnn_tpu_torch.parallel as tparallel
+
+    assert sorted(tparallel.__all__) == sorted(jparallel.__all__)
+    assert len(tparallel.__all__) == 20
+    for name in jparallel.__all__:
+        assert callable(getattr(tparallel, name)), name
+    assert not NO_COUNTERPART.get(".parallel")
 
 
 def test_registries_match_jax():

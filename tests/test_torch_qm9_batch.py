@@ -12,6 +12,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import bench
 from tf2_gnn_tpu.data import graph_batch as jgb
@@ -20,6 +21,18 @@ from tf2_gnn_tpu.models.qm9_regression_task import (
 )
 from tf2_gnn_tpu_torch import workloads
 from tf2_gnn_tpu_torch.data import graph_batch as tgb
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = Path(__file__).resolve().parents[1]
 

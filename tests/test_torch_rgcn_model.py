@@ -35,6 +35,18 @@ from tf2_gnn_tpu_torch.harness.import_jax import (
 from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NUM_LABELS = 7
 FEATURES = 12
 TOLS = {"float32": dict(rtol=1e-4, atol=1e-5),

@@ -7,6 +7,7 @@ overflow raises the same ``ValueError``. Also the device form
 (``ScatterPlan``) and its derived gather indices."""
 import numpy as np
 import pytest
+import torch
 
 import bench
 from tf2_gnn_tpu import native as jnative
@@ -15,6 +16,17 @@ from tf2_gnn_tpu_torch import workloads
 from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
 
 from .test_torch_pair_plans import _case, assert_same_arrays
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(params=["native", "python_loop"])

@@ -38,6 +38,18 @@ from .test_torch_rgcn_model import FEATURES, NUM_LABELS
 from .test_torch_sorted_models import scatter_workload, sorted_rgat_params
 from .test_torch_sorted_spmm import L, V, plans
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FORMS = ("fwd", "bwd", "bwd_fused", "fwd_typed")
 
 

@@ -25,6 +25,18 @@ import torch
 from tf2_gnn_tpu.ops import spmm_pallas as jsp
 from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 V, L = 256, 3
 

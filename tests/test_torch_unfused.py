@@ -59,6 +59,18 @@ from .test_torch_graph_tasks import build_pair as build_task_pair
 from .test_torch_graph_tasks import edge_mlp_task_params
 from .test_torch_rgcn_model import small_workload
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under parallel test workers torch's
+    CPU thread pool oversubscribes the cores, and small ops then run many
+    times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 BF16_UNFUSED_GRAD_SHARE = 2.0 ** -7
 SHIPPED = {"rgcn": "PPI_RGCN.json", "ggnn": "PPI_GGNN.json",

@@ -11,9 +11,13 @@ The padding contract is the JAX package's, unchanged:
 
 ``pad_batch_arrays`` and the label pads are the same numpy code, and
 ``pad_batch_arrays`` fills the per-type in-degrees (``host_in_degrees``).
-The ``GraphBatch`` here is a plain dataclass holding only the fields the
-message-passing flavours and the node- and graph-level task heads read;
-the SPMD and halo fields are not ported yet. ``.to(device)`` moves every
+The ``GraphBatch`` here is a plain dataclass holding the fields the
+message-passing flavours and the node- and graph-level task heads read,
+and the SPMD fields of one shard of a node-partitioned graph
+(``parallel/spmd.py::partition_graph``): the mesh axis, the halo send
+lists and ring distances, the ext row count and the node order's
+restore map. ``stack`` and ``shard`` put a leading shard axis on every
+array field and take it off again. ``.to(device)`` moves every
 array field to a device and builds, once per batch, the device forms of
 the merged pair plan (``pair_merged``) and the scatter plan
 (``scatter_merged``). The per-type plans have three device forms, each
@@ -109,6 +113,27 @@ class GraphBatch:
     (``gather_source_rows``, ``gather_target_rows``, then a segment
     aggregation over ``aggregation_segments``).
 
+    One shard of a node-partitioned graph (``parallel/spmd.py``, JAX
+    graph_batch.py:83-147) also carries:
+
+    * ``spmd_axis``: the mesh axis the shards span (graph-level
+      reductions psum over it), and ``spmd_num_shards``; edge targets are
+      local, padded slots at the discard row V, one past the last;
+    * in halo mode (``halo_mode``), EXT-LOCAL edge sources into the
+      ``halo_ext_nodes`` rows ``[local | halo slabs | pad]``, which each
+      layer fills by a boundary exchange: ``halo_send_idx`` int32
+      [S, max_send], the local rows sent to each shard by one all_to_all,
+      or ``halo_ring_send`` (one int32 [m_i] a ring distance
+      ``halo_ring_dists[i]``, one ppermute each); without them, GLOBAL
+      edge sources, resolved by an all_gather of the source table
+      (``gather_source_rows``);
+    * ``node_restore``: int32 [rows], the original node id at each local
+      row (-1 on padding) where the partitioner reordered the nodes.
+
+    A stacked batch (``stack`` of per-shard or per-device batches) holds
+    every array field with a leading shard axis, ``num_nodes`` and
+    ``num_graphs`` as int32 [S]; ``shard(index)`` takes one shard back.
+
     Array fields hold numpy arrays after ``pad_batch_arrays`` and tensors
     after ``.to(device)``.
     """
@@ -128,6 +153,13 @@ class GraphBatch:
     pair_merged: Optional[MergedPlan] = None
     scatter_plans: Optional[Tuple[object, ...]] = None
     scatter_merged: Optional[ScatterPlan] = None
+    spmd_axis: Optional[str] = None
+    spmd_num_shards: Optional[int] = None
+    halo_send_idx: object = None
+    halo_ext_nodes: Optional[int] = None
+    halo_ring_send: Optional[Tuple[object, ...]] = None
+    halo_ring_dists: Optional[Tuple[int, ...]] = None
+    node_restore: object = None
     # The per-type plans' device forms, by name, built at first read; a
     # replaced or moved batch starts with none.
     _typed_forms: Dict[str, object] = dataclasses.field(
@@ -135,7 +167,31 @@ class GraphBatch:
 
     @property
     def num_nodes_padded(self) -> int:
-        return int(self.node_features.shape[0])
+        return int(self.node_features.shape[-2])
+
+    @property
+    def halo_mode(self) -> bool:
+        """True when sources are EXT-LOCAL ids resolved by a per-layer
+        boundary exchange (dense all_to_all or ppermute ring)."""
+        return (self.halo_send_idx is not None
+                or self.halo_ring_send is not None)
+
+    @property
+    def pair_src_space(self) -> int:
+        """Rows of ONE edge type's source table for the plans: the ext row
+        space under SPMD-halo, else the padded node count."""
+        if self.halo_mode and self.halo_ext_nodes is not None:
+            return self.halo_ext_nodes
+        return self.num_nodes_padded
+
+    @property
+    def scatter_src_space(self) -> int:
+        """Rows of one edge type's source table for the scatter plans: the
+        global row count ``V * S`` under SPMD without a halo (global
+        sources, all_gather-ed tables), else ``pair_src_space``."""
+        if self.spmd_axis is not None and not self.halo_mode:
+            return self.num_nodes_padded * self.spmd_num_shards
+        return self.pair_src_space
 
     @property
     def num_edge_types(self) -> int:
@@ -157,22 +213,32 @@ class GraphBatch:
         return (torch.arange(self.num_graphs_padded, device=device)
                 < self.num_graphs).to(torch.float32)
 
-    # The unfused per-edge path's views (single-chip forms of the
-    # reference's, graph_batch.py:174-207; the SPMD discard row and the
-    # all_gather of the source table wait for scale-out).
+    # The unfused per-edge path's views (reference graph_batch.py:174-207).
     @property
     def aggregation_segments(self) -> int:
-        """Segment count of the scatter-reduces over edge targets."""
-        return self.num_nodes_padded
+        """Segment count of the scatter-reduces over edge targets: the
+        node rows, plus under SPMD the trailing discard row of the padded
+        edge slots."""
+        return self.num_nodes_padded + (1 if self.spmd_axis is not None
+                                        else 0)
 
     def slice_aggregated(self, aggregated: torch.Tensor) -> torch.Tensor:
-        """The node rows of an ``[aggregation_segments, ...]`` array."""
-        return aggregated
+        """The node rows of an ``[aggregation_segments, ...]`` array (the
+        SPMD discard row dropped)."""
+        if self.spmd_axis is None:
+            return aggregated
+        return aggregated[:self.num_nodes_padded]
 
     def gather_source_rows(self, table: torch.Tensor,
                            edge_type: int) -> torch.Tensor:
-        """Per-edge rows of a node-space ``table`` ([V, ...]) at the
-        sources of type ``edge_type``'s edges (padded edges clamp)."""
+        """Per-edge rows of a node-space ``table`` ([V, ...], or the ext
+        rows in halo mode) at the sources of type ``edge_type``'s edges
+        (padded edges clamp). Under SPMD without a halo the table is first
+        all_gather-ed over the mesh axis, so GLOBAL sources resolve."""
+        if self.spmd_axis is not None and not self.halo_mode:
+            from ..parallel.collectives import all_gather
+
+            table = all_gather(table, self.spmd_axis)
         return gather_rows(table, self.edge_sources[edge_type])
 
     def gather_target_rows(self, table: torch.Tensor,
@@ -191,15 +257,15 @@ class GraphBatch:
 
     @property
     def pair_stream_joint(self) -> Optional[StreamJointPlan]:
-        v = self.num_nodes_padded
+        v, vs = self.num_nodes_padded, self.pair_src_space
         return self._typed_form("joint", lambda dev: stream_joint_plan(
-            self.pair_plans_typed, v, v).to(dev))
+            self.pair_plans_typed, vs, v).to(dev))
 
     @property
     def pair_stream_typed(self) -> Optional[StreamTypedPlan]:
-        v = self.num_nodes_padded
+        v, vs = self.num_nodes_padded, self.pair_src_space
         return self._typed_form("stream_typed", lambda dev: stream_typed_plan(
-            self.pair_plans_typed, v, v).to(dev))
+            self.pair_plans_typed, vs, v).to(dev))
 
     @property
     def pair_typed(self) -> Optional[Tuple[MergedPlan, ...]]:
@@ -228,7 +294,12 @@ class GraphBatch:
         if scatter is None and self.scatter_plans is not None:
             scatter = ScatterPlan.from_host(self.scatter_plans,
                                             self.num_nodes_padded,
-                                            self.num_edge_types)
+                                            self.num_edge_types,
+                                            self.scatter_src_space)
+
+        def move(x):
+            return None if x is None else as_tensor(x, dev)
+
         return dataclasses.replace(
             self,
             node_features=as_tensor(self.node_features, dev),
@@ -236,11 +307,74 @@ class GraphBatch:
             edge_targets=tuple(as_tensor(t, dev) for t in self.edge_targets),
             node_to_graph=as_tensor(self.node_to_graph, dev),
             num_edges=as_tensor(self.num_edges, dev),
-            in_degrees=(None if self.in_degrees is None
-                        else as_tensor(self.in_degrees, dev)),
+            in_degrees=move(self.in_degrees),
             pair_merged=None if merged is None else merged.to(dev),
             scatter_merged=None if scatter is None else scatter.to(dev),
+            halo_send_idx=move(self.halo_send_idx),
+            halo_ring_send=(None if self.halo_ring_send is None else tuple(
+                as_tensor(x, dev) for x in self.halo_ring_send)),
+            node_restore=move(self.node_restore),
         )
+
+    def array_fields(self) -> List[Tuple[str, object]]:
+        """(path, array) of every array field that a shard axis stacks, in
+        a fixed order; tuple members by index (``edge_sources[0]``,
+        ``pair_plans_typed[1][3]``). The device forms of the plans are
+        not among them: stack and shard host batches."""
+        out = []
+
+        def walk(path, x):
+            if isinstance(x, (tuple, list)):
+                for i, item in enumerate(x):
+                    walk(f"{path}[{i}]", item)
+            elif x is not None:
+                out.append((path, x))
+
+        for name in ARRAY_FIELDS:
+            walk(name, getattr(self, name))
+        return out
+
+    def map_arrays(self, fn) -> "GraphBatch":
+        """A batch whose array fields (``array_fields``) are ``fn(x)``,
+        the tuple structure kept."""
+        def walk(x):
+            if isinstance(x, (tuple, list)):
+                return tuple(walk(item) for item in x)
+            return None if x is None else fn(x)
+
+        return dataclasses.replace(self, **{
+            name: walk(getattr(self, name)) for name in ARRAY_FIELDS})
+
+    def shard(self, index) -> "GraphBatch":
+        """Shard ``index`` (an int, or a tuple for a batch stacked twice)
+        of a stacked batch: every array field at that leading index, and
+        ``num_nodes`` / ``num_graphs`` as python ints."""
+        index = index if isinstance(index, tuple) else (index,)
+        one = self.map_arrays(lambda x: np.asarray(x)[index])
+        return dataclasses.replace(one, num_nodes=int(one.num_nodes),
+                                   num_graphs=int(one.num_graphs))
+
+    @staticmethod
+    def stack(batches: Sequence["GraphBatch"]) -> "GraphBatch":
+        """The host batches stacked along a new leading axis, every array
+        field (``num_nodes`` and ``num_graphs`` as int32 arrays); the
+        other fields are the first batch's."""
+        first = batches[0]
+        fields = [b.array_fields() for b in batches]
+        counts = ("num_nodes", "num_graphs")   # python ints on one batch
+        stacked = iter([np.stack([np.asarray(
+            f[i][1], np.int32 if f[i][0] in counts else None)
+            for f in fields]) for i in range(len(fields[0]))])
+        return first.map_arrays(lambda _: next(stacked))
+
+
+# The array fields of a batch, which a shard axis stacks: the JAX
+# GraphBatch's pytree leaves, in its field order.
+ARRAY_FIELDS = ("node_features", "edge_sources", "edge_targets",
+                "node_to_graph", "num_nodes", "num_edges", "num_graphs",
+                "scatter_plans", "pair_plans", "pair_plans_typed",
+                "in_degrees", "halo_send_idx", "halo_ring_send",
+                "node_restore")
 
 
 def pad_batch_arrays(

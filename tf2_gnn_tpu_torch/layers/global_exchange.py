@@ -6,7 +6,8 @@ A weighted-sum readout computes a summary per graph, which is broadcast
 back to the nodes (``gather_rows`` over ``node_to_graph``), dropped out in
 training and combined with the node states: their mean, a GRU step (the
 summary is the GRU's input, the node state its state) or an MLP of their
-concatenation. Module names follow the flax tree
+concatenation. On one shard of a node-partitioned graph (``spmd_axis``)
+the summary spans every shard. Module names follow the flax tree
 (``node_to_graph_representation``, ``gru_cell``, ``combine_mlp``).
 """
 from typing import Optional
@@ -42,9 +43,11 @@ class GraphGlobalExchange(nn.Module):
     def _per_node_graph_representations(
             self, node_embeddings: torch.Tensor, node_to_graph: torch.Tensor,
             num_graphs: int, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            spmd_axis: Optional[str] = None) -> torch.Tensor:
         graph_reprs = self.node_to_graph_representation(
-            node_embeddings, node_to_graph, num_graphs, training, generator)
+            node_embeddings, node_to_graph, num_graphs, training, generator,
+            spmd_axis)
         per_node = gather_rows(graph_reprs, node_to_graph)  # [V, H]
         if training and self.dropout_rate > 0.0:
             if generator is None:
@@ -56,9 +59,11 @@ class GraphGlobalExchange(nn.Module):
 
 class GraphGlobalMeanExchange(GraphGlobalExchange):
     def forward(self, node_embeddings, node_to_graph, num_graphs: int,
-                training: bool = False, generator=None) -> torch.Tensor:
+                training: bool = False, generator=None,
+                spmd_axis=None) -> torch.Tensor:
         per_node = self._per_node_graph_representations(
-            node_embeddings, node_to_graph, num_graphs, training, generator)
+            node_embeddings, node_to_graph, num_graphs, training, generator,
+            spmd_axis)
         return (node_embeddings + per_node) / 2.0
 
 
@@ -68,9 +73,11 @@ class GraphGlobalGRUExchange(GraphGlobalExchange):
         self.gru_cell = GRUCell(hidden_dim, hidden_dim)
 
     def forward(self, node_embeddings, node_to_graph, num_graphs: int,
-                training: bool = False, generator=None) -> torch.Tensor:
+                training: bool = False, generator=None,
+                spmd_axis=None) -> torch.Tensor:
         per_node = self._per_node_graph_representations(
-            node_embeddings, node_to_graph, num_graphs, training, generator)
+            node_embeddings, node_to_graph, num_graphs, training, generator,
+            spmd_axis)
         return self.gru_cell(per_node, node_embeddings)
 
 
@@ -80,9 +87,11 @@ class GraphGlobalMLPExchange(GraphGlobalExchange):
         self.combine_mlp = MLP(2 * hidden_dim, hidden_dim)
 
     def forward(self, node_embeddings, node_to_graph, num_graphs: int,
-                training: bool = False, generator=None) -> torch.Tensor:
+                training: bool = False, generator=None,
+                spmd_axis=None) -> torch.Tensor:
         per_node = self._per_node_graph_representations(
-            node_embeddings, node_to_graph, num_graphs, training, generator)
+            node_embeddings, node_to_graph, num_graphs, training, generator,
+            spmd_axis)
         return self.combine_mlp(
             torch.cat([per_node, node_embeddings], dim=-1), training,
             generator)

@@ -188,7 +188,7 @@ class GNN(nn.Module):
             if layer_idx in self.exchange_layers:
                 cur = getattr(self, f"global_exchange_{layer_idx}")(
                     cur, batch.node_to_graph, batch.num_graphs_padded,
-                    training, generator)
+                    training, generator, batch.spmd_axis)
 
             if self.use_inter_layer_layernorm:
                 cur = getattr(self, f"layernorm_{layer_idx}")(cur)

@@ -14,8 +14,23 @@ and per-edge products in PyTorch ops), then ``_compute_new_node_embeddings``
 concatenates them, applies the activation before the aggregation where
 asked, and aggregates them over the edge targets by the configured
 segment op. Which path a batch takes is decided from its plans and the
-hyperparameters alone, never from whether a kernel builds. The SPMD halo
-branches are not ported (ROADMAP.md, queue A item 10).
+hyperparameters alone, never from whether a kernel builds.
+
+On one shard of a node-partitioned graph (``batch.spmd_axis``) in halo
+mode, the layer first makes the ext source rows ``[local | halo slabs |
+pad]`` that the shard's ext-local edge sources index (reference
+base.py:191-290): ``_halo_recv`` receives the boundary rows (one
+all_to_all of the rows each shard asked for, or one ppermute a ring
+distance), and ``_exchange_halo`` appends them to the local states. A
+flavour whose fused route takes LOCAL states and assembles its ext source
+tables itself (``_halo_overlap_capable``: the source-only edge MLPs, RGAT
+on the pair-attention route) receives the raw boundary rows and
+transforms them apart from the local rows; any other route reads the
+exchanged ext states for its source side, the local rows for its target
+side. Without a halo, a fused route's source tables are all_gather-ed
+over the mesh axis (``_globalize_tables``), so global sources resolve.
+The backward of each collective carries the boundary rows' gradients
+back to their owners.
 """
 import inspect
 from typing import Any, Dict, List, Optional
@@ -137,6 +152,7 @@ class MessagePassing(nn.Module):
         return not (
             (batch.scatter_merged is None and batch.pair_merged is None
              and batch.pair_plans_typed is None)
+            or (batch.spmd_axis is not None and batch.spmd_num_shards is None)
             or self.aggregation_function != "sum"
             or (self._apply_message_activation
                 and self.message_activation_before_aggregation))
@@ -184,12 +200,98 @@ class MessagePassing(nn.Module):
                 self.message_activation_function)(aggregated)
         return aggregated
 
+    def _halo_overlap_capable(self, batch: GraphBatch) -> bool:
+        """True where the flavour's fused route takes LOCAL node states
+        under SPMD-halo and assembles its ext source tables itself."""
+        return False
+
+    @staticmethod
+    def _globalize_tables(tables_flat: torch.Tensor, batch: GraphBatch,
+                          num_types: int) -> torch.Tensor:
+        """Under SPMD without a halo, the per-type tables [L*V, ...]
+        all_gather-ed over the mesh axis into [L*V*S, ...] (type-major),
+        so the plans' global merged sources resolve; else as they are."""
+        if batch.spmd_axis is None or batch.halo_mode:
+            return tables_flat
+        from ...parallel.collectives import all_gather
+
+        v = batch.num_nodes_padded
+        per_type = tables_flat.reshape(num_types, v, -1).transpose(0, 1)
+        gathered = all_gather(per_type.contiguous(), batch.spmd_axis)
+        return gathered.transpose(0, 1).reshape(
+            num_types * v * batch.spmd_num_shards, -1)
+
+    @staticmethod
+    def _ext_tables(node_states: torch.Tensor, batch: GraphBatch,
+                    transform=None) -> torch.Tensor:
+        """``transform`` (row-wise; default none) of the ext states
+        ``[local | halo slabs | pad]``, ``halo_ext_nodes`` rows on the
+        second-to-last axis: the local rows and the received boundary rows
+        transformed apart, then zero rows."""
+        def apply(x):
+            return x if transform is None else transform(x)
+
+        local = apply(node_states)
+        parts = [local]
+        halo = MessagePassing._halo_recv(node_states, batch)
+        if halo is not None:
+            parts.append(apply(halo))
+        pad = batch.halo_ext_nodes - sum(p.shape[-2] for p in parts)
+        if pad:
+            parts.append(local.new_zeros(local.shape[:-2]
+                                         + (pad, local.shape[-1])))
+        return torch.cat(parts, dim=-2) if len(parts) > 1 else local
+
+    @staticmethod
+    def _exchange_halo(node_states: torch.Tensor,
+                       batch: GraphBatch) -> torch.Tensor:
+        """The ext state table ``[local | halo slabs | pad]`` of
+        ``halo_ext_nodes`` rows that ext-local sources index."""
+        return MessagePassing._ext_tables(node_states, batch)
+
+    @staticmethod
+    def _halo_recv(node_states: torch.Tensor,
+                   batch: GraphBatch) -> Optional[torch.Tensor]:
+        """The boundary rows this shard receives, without the local rows:
+        per ring distance the ppermute of the rows its send list names, or
+        the all_to_all of the dense send lists (one [max_send] block a
+        shard). None where the ring has no active distance (then no shard
+        calls a collective)."""
+        from ...parallel.collectives import all_to_all, ppermute
+
+        axis = batch.spmd_axis
+        if batch.halo_ring_send is not None:
+            parts = [ppermute(gather_rows(node_states, idx), axis, k)
+                     for k, idx in zip(batch.halo_ring_dists,
+                                       batch.halo_ring_send)]
+            if not parts:
+                return None
+            return torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
+        idx = batch.halo_send_idx                 # [S, max_send]
+        send = gather_rows(node_states, idx.reshape(-1))
+        return all_to_all(send, axis)
+
     def forward(self, node_states: torch.Tensor, batch: GraphBatch,
                 training: bool = False) -> torch.Tensor:
-        fused = self._fused_sum_aggregate(node_states, batch, training)
-        if fused is not None:
-            return self._post_aggregate(fused, node_states, batch, training)
-        messages = self._compute_messages_per_type(node_states, batch,
+        halo = batch.spmd_axis is not None and batch.halo_mode
+        if halo and self._halo_overlap_capable(batch):
+            # The fused route assembles its ext source tables from the
+            # local states and the raw boundary rows.
+            fused = self._fused_sum_aggregate(node_states, batch, training)
+            if fused is not None:
+                return self._post_aggregate(fused, node_states, batch,
+                                            training)
+            src_states = self._exchange_halo(node_states, batch)
+        else:
+            # The source side reads [local | halo] rows; the aggregation
+            # and the update stay local.
+            src_states = (self._exchange_halo(node_states, batch) if halo
+                          else node_states)
+            fused = self._fused_sum_aggregate(src_states, batch, training)
+            if fused is not None:
+                return self._post_aggregate(fused, node_states, batch,
+                                            training)
+        messages = self._compute_messages_per_type(src_states, batch,
                                                    training)
         return self._compute_new_node_embeddings(node_states, messages,
                                                  batch, training)

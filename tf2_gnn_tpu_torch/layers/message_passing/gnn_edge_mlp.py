@@ -146,6 +146,12 @@ class GNN_Edge_MLP(MessagePassing):
         return ([self.hidden_dim] * self.num_edge_MLP_hidden_layers
                 + [self.hidden_dim])
 
+    def _halo_overlap_capable(self, batch: GraphBatch) -> bool:
+        """The source-only forms read every source table through
+        ``_fused_node_space_tables``, which assembles the ext rows; the
+        target-state forms read the exchanged ext states."""
+        return not self.use_target_state_as_input
+
     def _fused_node_space_tables(self, node_states: torch.Tensor,
                                  batch: GraphBatch) -> torch.Tensor:
         """The per-type message MLP run densely in node space -> f32
@@ -153,12 +159,25 @@ class GNN_Edge_MLP(MessagePassing):
         pads them to 128 columns for its pair kernels); the port casts
         inside the aggregation op (its ``stream_dtype``) so that their
         gradient stays float32 as in the reference, and its row owners
-        take any width."""
-        hidden = node_states  # [V, D] -> [L, V, *]
-        for i in range(len(self._edge_mlp_layer_sizes())):
-            hidden = getattr(self, f"edge_mlp_layer_{i}")(hidden)
-            if i < self.num_edge_MLP_hidden_layers:
-                hidden = torch.relu(hidden)
+        take any width.
+
+        Under SPMD-halo with LOCAL states (V rows) the tables span the ext
+        rows ``[local | halo | pad]``: the boundary rows are received raw
+        and transformed apart from the local rows (the MLP is row-wise, so
+        this equals transforming the exchanged states; reference
+        gnn_edge_mlp.py:458-509)."""
+        def apply(x):  # [rows, D] -> [L, rows, *]
+            for i in range(len(self._edge_mlp_layer_sizes())):
+                x = getattr(self, f"edge_mlp_layer_{i}")(x)
+                if i < self.num_edge_MLP_hidden_layers:
+                    x = torch.relu(x)
+            return x
+
+        if (batch.spmd_axis is not None and batch.halo_mode
+                and node_states.shape[0] == batch.num_nodes_padded):
+            hidden = self._ext_tables(node_states, batch, apply)
+        else:
+            hidden = apply(node_states)
         return hidden.reshape(self.num_edge_types * hidden.shape[1], -1)
 
     def _pair_sum_aggregate(self, tables: torch.Tensor,
@@ -227,6 +246,7 @@ class GNN_Edge_MLP(MessagePassing):
         gather by target and B13 backward, with the plan's 1/deg scales or
         unit scales (sentinel slots are skipped either way)."""
         plan = batch.scatter_merged
+        tables = self._globalize_tables(tables, batch, self.num_edge_types)
         if self.normalize_by_num_incoming:
             scale_fwd, scale_bwd = plan.inv_fwd, plan.inv_bwd
         else:
@@ -269,8 +289,9 @@ class GNN_Edge_MLP(MessagePassing):
         v = batch.num_nodes_padded
         src_half = self.edge_mlp_src_0(node_states)       # [L, S, H]
         tgt_half = self.edge_mlp_tgt_0(node_states[:v])   # [L, V, H]
-        src_flat = src_half.reshape(self.num_edge_types * src_half.shape[1],
-                                    -1)
+        src_flat = self._globalize_tables(
+            src_half.reshape(self.num_edge_types * src_half.shape[1], -1),
+            batch, self.num_edge_types)
         tgt_tl = tgt_half.transpose(0, 1).reshape(v * self.num_edge_types,
                                                   -1)
         return (plan_gather_src(src_flat, plan, self.edge_dtype)
@@ -316,8 +337,11 @@ class GNN_Edge_MLP(MessagePassing):
         relu-pair op's gate is."""
         if not self._fused_plan_applicable(batch):
             return "unfused"
-        typed = batch.pair_plans_typed is not None
-        merged = batch.pair_merged is not None
+        # Under SPMD the pair plans need the halo form (ext-local sources,
+        # reference gnn_edge_mlp.py:163).
+        pairs = batch.spmd_axis is None or batch.halo_mode
+        typed = pairs and batch.pair_plans_typed is not None
+        merged = pairs and batch.pair_merged is not None
         merged_targets = merged and batch.pair_targets_merged
         target_scatter = (batch.scatter_merged is not None
                           and self.fused_target_gather)
@@ -328,8 +352,8 @@ class GNN_Edge_MLP(MessagePassing):
         if self.num_edge_MLP_hidden_layers == 1:
             v = batch.num_nodes_padded
             if merged_targets and pair_edge_mlp_applicable(
-                    self.num_edge_types * v, self.num_edge_types * v,
-                    self.edge_dtype):
+                    self.num_edge_types * batch.pair_src_space,
+                    self.num_edge_types * v, self.edge_dtype):
                 return "relu_pair"
             return "scatter_one_hidden" if target_scatter else "unfused"
         # Deeper target-state MLPs neither factorise nor commute past their

@@ -141,7 +141,9 @@ class GNN_FiLM(GNN_Edge_MLP):
         ``gamma * msg + beta`` summed by target (B12)."""
         plan = batch.scatter_merged
         v, num_types = batch.num_nodes_padded, self.num_edge_types
-        tables = self._fused_node_space_tables(node_states, batch)
+        tables = self._globalize_tables(
+            self._fused_node_space_tables(node_states, batch), batch,
+            num_types)
         film = self._film_parameter_tables(node_states)    # [L, V, 2H]
         film_tl = film[:, :v].transpose(0, 1).reshape(v * num_types, -1)
         msgs = plan_gather_src(tables, plan, self.edge_dtype).float()
@@ -162,7 +164,10 @@ class GNN_FiLM(GNN_Edge_MLP):
         if route == "scatter_film":
             return self._scatter_film(node_states, batch)
         typed = self._pair_factorised_typed_sums(node_states, batch)
-        film = self._film_parameter_tables(node_states)
+        # Target rows only: under SPMD-halo the target-state form reads
+        # the ext states.
+        film = self._film_parameter_tables(
+            node_states[:batch.num_nodes_padded])
         gamma = film[..., :self.hidden_dim]
         beta = film[..., self.hidden_dim:]
         deg = calculate_type_to_num_incoming_edges(batch)  # [L, V]

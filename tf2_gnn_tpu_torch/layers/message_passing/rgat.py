@@ -104,19 +104,29 @@ class RGAT(MessagePassing):
         return k
 
     def _pair_attention_applicable_static(self, batch: GraphBatch) -> bool:
-        """The reference's shape-only gate of the pair-attention path on one
-        chip (source rows are the padded nodes of each type)."""
+        """The reference's shape-only gate of the pair-attention path
+        (rgat.py:55-83): source rows are one type's ``pair_src_space``
+        (the padded nodes on one chip, the ext rows under SPMD-halo); under
+        SPMD the path needs the halo form and a merged plan."""
         if batch.pair_targets_merged:
+            return False
+        if batch.spmd_axis is not None and (
+                not batch.halo_mode or batch.pair_plans is None):
             return False
         if batch.pair_plans is None and batch.pair_plans_typed is None:
             return False
         k_pad = self._padded_heads()
         head_dim = self.hidden_dim // self.num_heads
-        v = batch.num_nodes_padded
-        rows = v if batch.pair_plans is None else batch.num_edge_types * v
+        vs = batch.pair_src_space
+        rows = vs if batch.pair_plans is None else batch.num_edge_types * vs
         return pair_attention_applicable(
-            rows, v, head_dim * k_pad, k_pad, self.edge_dtype,
-            self.edge_dtype, src_space=v)
+            rows, batch.num_nodes_padded, head_dim * k_pad, k_pad,
+            self.edge_dtype, self.edge_dtype, src_space=vs)
+
+    def _halo_overlap_capable(self, batch: GraphBatch) -> bool:
+        """Only the pair-attention route assembles its ext tables from
+        LOCAL states; the sorted route reads the exchanged ext states."""
+        return self._pair_attention_applicable_static(batch)
 
     def _route(self, batch: GraphBatch) -> str:
         """The route of the reference's ``_fused_sum_aggregate``
@@ -138,8 +148,16 @@ class RGAT(MessagePassing):
         head_dim = self.hidden_dim // heads
         k_pad = self._padded_heads()
 
-        transformed = self.edge_weights(node_states)  # [L, Vs, H]
-        vs = node_states.shape[0]
+        if (batch.spmd_axis is not None and batch.halo_mode
+                and node_states.shape[0] == batch.num_nodes_padded):
+            # LOCAL states under SPMD-halo: the boundary rows received raw
+            # and transformed apart (the per-type map is row-wise), the ext
+            # table [local | halo | pad] assembled here (rgat.py:113-131).
+            transformed = self._ext_tables(node_states, batch,
+                                           self.edge_weights)
+        else:
+            transformed = self.edge_weights(node_states)  # [L, Vs, H]
+        vs = transformed.shape[1]
         attention = self.edge_attention_parameters
         per_head = transformed.reshape(num_types, vs, heads, head_dim)
         src_scores = torch.einsum("lvkd,lkd->lvk", per_head,
@@ -214,9 +232,9 @@ class RGAT(MessagePassing):
         # inside the gather op, so the bundle's gradient leaves it in f32.
         transformed_hk = per_head.permute(0, 1, 3, 2).reshape(
             num_types * vr, self.hidden_dim)
-        src_bundle = torch.cat(
+        src_bundle = self._globalize_tables(torch.cat(
             [transformed_hk, src_scores.reshape(num_types * vr, heads)],
-            dim=1)
+            dim=1), batch, num_types)
         bundle_g = plan_gather_src(src_bundle, plan, self.edge_dtype).float()
         msgs = bundle_g[:, :self.hidden_dim]
         src_score_g = bundle_g[:, self.hidden_dim:]

@@ -71,15 +71,20 @@ class WeightedSumGraphRepresentation(nn.Module):
     def forward(self, node_embeddings: torch.Tensor,
                 node_to_graph: torch.Tensor, num_graphs: int,
                 training: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """[V, D] node embeddings -> [G, graph_representation_size]."""
+                generator: Optional[torch.Generator] = None,
+                spmd_axis: Optional[str] = None) -> torch.Tensor:
+        """[V, D] node embeddings -> [G, graph_representation_size]; with
+        ``spmd_axis`` (the rows one shard of a node-partitioned graph) the
+        per-graph softmax and sums span every shard, and the result is
+        replicated."""
         weights = None
         if self.weighting in ("softmax", "sigmoid"):
             scores = self.scoring_mlp(node_embeddings, training, generator)
             if self.weighting == "sigmoid":
                 weights = torch.sigmoid(scores)
             else:
-                weights = segment_softmax(scores, node_to_graph, num_graphs)
+                weights = segment_softmax(scores, node_to_graph, num_graphs,
+                                          spmd_axis)
 
         node_reprs = self.transformation_act(
             self.transformation_mlp(node_embeddings, training, generator))
@@ -89,15 +94,17 @@ class WeightedSumGraphRepresentation(nn.Module):
             node_reprs = torch.clamp(node_reprs, max=self.upper_bound)
 
         if self.weighting == "none":
-            return segment_sum(node_reprs, node_to_graph, num_graphs)
+            return segment_sum(node_reprs, node_to_graph, num_graphs,
+                               spmd_axis)
         if self.weighting == "average":
-            return segment_mean(node_reprs, node_to_graph, num_graphs)
+            return segment_mean(node_reprs, node_to_graph, num_graphs,
+                                spmd_axis)
         head_dim = self.graph_representation_size // self.num_heads
         weighted = weights[:, :, None] * node_reprs.reshape(
             -1, self.num_heads, head_dim)
         return segment_sum(
             weighted.reshape(-1, self.graph_representation_size),
-            node_to_graph, num_graphs)
+            node_to_graph, num_graphs, spmd_axis)
 
 
 class WASGraphRepresentation(nn.Module):
@@ -142,9 +149,10 @@ class WASGraphRepresentation(nn.Module):
     def forward(self, node_embeddings: torch.Tensor,
                 node_to_graph: torch.Tensor, num_graphs: int,
                 training: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                spmd_axis: Optional[str] = None) -> torch.Tensor:
         """[V, D] node embeddings -> [G, graph_representation_size]."""
-        args = (node_to_graph, num_graphs, training, generator)
+        args = (node_to_graph, num_graphs, training, generator, spmd_axis)
         return self.out_projection(torch.cat(
             [self.weighted_avg(node_embeddings, *args),
              self.weighted_sum(node_embeddings, *args)], dim=-1))

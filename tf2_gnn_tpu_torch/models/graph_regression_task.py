@@ -96,7 +96,7 @@ class GraphRegressionTask(GraphTaskModel):
         node_reprs = self._node_representations_for_readout(
             batch, node_representations)
         args = (batch.node_to_graph, batch.num_graphs_padded, training,
-                generator)
+                generator, batch.spmd_axis)
         graph_reprs = torch.cat([self.weighted_avg_readout(node_reprs, *args),
                                  self.weighted_sum_readout(node_reprs, *args)],
                                 dim=-1)

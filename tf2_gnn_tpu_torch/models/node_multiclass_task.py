@@ -18,14 +18,20 @@ from .graph_task_model import GraphTaskModel
 
 
 def masked_f1_counts(logits: torch.Tensor, labels: torch.Tensor,
-                     mask: torch.Tensor):
-    """(TP, FP, FN) over real nodes."""
+                     mask: torch.Tensor, spmd_axis=None):
+    """(TP, FP, FN) over real nodes, summed over the mesh axis
+    ``spmd_axis`` when the nodes are one shard's."""
     # round(sigmoid(x)) == (x > 0), exactly.
     predicted = (logits > 0.0).to(logits.dtype) * mask[:, None]
     labels = labels * mask[:, None]
     true_pos = torch.sum(predicted * labels)
     false_pos = torch.sum(predicted * (1.0 - labels) * mask[:, None])
     false_neg = torch.sum((1.0 - predicted) * labels)
+    if spmd_axis is not None:
+        from ..parallel.collectives import psum_flat
+
+        true_pos, false_pos, false_neg = psum_flat(
+            [true_pos, false_pos, false_neg], spmd_axis)
     return true_pos, false_pos, false_neg
 
 
@@ -37,10 +43,10 @@ def f1_from_counts(true_pos, false_pos, false_neg):
 
 
 def masked_micro_f1(logits: torch.Tensor, labels: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, spmd_axis=None) -> torch.Tensor:
     """Micro-averaged F1 over real nodes (reference micro_f1,
     node_multiclass_task.py:10-23, with padding masked out)."""
-    return f1_from_counts(*masked_f1_counts(logits, labels, mask))
+    return f1_from_counts(*masked_f1_counts(logits, labels, mask, spmd_axis))
 
 
 class NodeMulticlassTask(GraphTaskModel):
@@ -90,8 +96,18 @@ class NodeMulticlassTask(GraphTaskModel):
         per_entry = (torch.maximum(x, torch.zeros_like(x)) - x * z
                      + torch.log1p(torch.exp(-magnitude)))
         per_node = torch.sum(per_entry, dim=-1) * mask
-        loss = torch.sum(per_node) / max(float(batch.num_nodes), 1.0)
-        tp, fp, fn = masked_f1_counts(x, z, mask)
+        loss_sum = torch.sum(per_node)
+        num_nodes = float(batch.num_nodes)
+        if batch.spmd_axis is not None:
+            # One shard of a node-partitioned graph: the loss over every
+            # shard's nodes (its gradient flows back through the psum).
+            from ..parallel.collectives import psum
+
+            loss_sum = psum(loss_sum, batch.spmd_axis)
+            num_nodes = float(psum(torch.tensor(
+                num_nodes, device=x.device), batch.spmd_axis))
+        loss = loss_sum / max(num_nodes, 1.0)
+        tp, fp, fn = masked_f1_counts(x, z, mask, batch.spmd_axis)
         return {"loss": loss, "f1_score": f1_from_counts(tp, fp, fn),
                 "num_graphs": batch.num_graphs,
                 "f1_tp": tp, "f1_fp": fp, "f1_fn": fn}

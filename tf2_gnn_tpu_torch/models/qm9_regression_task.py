@@ -87,7 +87,7 @@ class QM9RegressionTask(GraphTaskModel):
         per_node_weighted = (torch.sigmoid(per_node_weight)
                              * per_node_output).squeeze(-1)
         return segment_sum(per_node_weighted, batch.node_to_graph,
-                           batch.num_graphs_padded)  # [G]
+                           batch.num_graphs_padded, batch.spmd_axis)  # [G]
 
     EVAL_KIND = "regression"
     compute_task_metrics = staticmethod(GraphRegressionTask.compute_task_metrics)

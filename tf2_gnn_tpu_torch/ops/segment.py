@@ -5,8 +5,14 @@ sums and softmaxes, and the unfused per-edge path's aggregations
 ``segment_log_softmax``.
 
 Segment ids outside ``[0, num_segments)`` are dropped, as in
-``jax.ops.segment_sum``. The SPMD forms (``spmd_axis``) are not ported.
+``jax.ops.segment_sum``. Where the rows of ``data`` are one shard of a
+node-partitioned graph and the segments are global (per-graph readouts,
+JAX segment.py:25-129), ``spmd_axis`` names the mesh axis: the partial
+sums and counts are psum-ed over it (a gradient flows back through the
+psum), and the softmaxes' stabilising max is pmax-ed, without a gradient.
 """
+from typing import Optional
+
 import torch
 
 from ..utils.constants import SMALL_NUMBER
@@ -21,35 +27,46 @@ def _valid_ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """Sum of ``data`` rows per segment; empty segments yield 0."""
+                num_segments: int,
+                spmd_axis: Optional[str] = None) -> torch.Tensor:
+    """Sum of ``data`` rows per segment; empty segments yield 0. With
+    ``spmd_axis``, the sum over every shard of the axis."""
     out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
     out.index_add_(0, _valid_ids(segment_ids, num_segments), data)
-    return out[:num_segments]
+    out = out[:num_segments]
+    if spmd_axis is not None:
+        from ..parallel.collectives import psum
+
+        out = psum(out, spmd_axis)
+    return out
 
 
 def segment_count(segment_ids: torch.Tensor, num_segments: int,
-                  dtype=torch.float32) -> torch.Tensor:
+                  dtype=torch.float32,
+                  spmd_axis: Optional[str] = None) -> torch.Tensor:
     """Number of entries per segment (in-degree when ids are edge
     targets)."""
     return segment_sum(torch.ones(segment_ids.shape, dtype=dtype,
                                   device=segment_ids.device),
-                       segment_ids, num_segments)
+                       segment_ids, num_segments, spmd_axis)
 
 
 def _counts_like(segment_ids: torch.Tensor, num_segments: int,
-                 values: torch.Tensor) -> torch.Tensor:
+                 values: torch.Tensor,
+                 spmd_axis: Optional[str] = None) -> torch.Tensor:
     """``segment_count`` in ``values``' dtype, shaped to broadcast over its
     trailing axes."""
-    counts = segment_count(segment_ids, num_segments, values.dtype)
+    counts = segment_count(segment_ids, num_segments, values.dtype,
+                           spmd_axis)
     return counts.reshape(counts.shape + (1,) * (values.dim() - 1))
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
+                 num_segments: int,
+                 spmd_axis: Optional[str] = None) -> torch.Tensor:
     """Mean per segment; empty segments yield 0 (tf.unsorted_segment_mean)."""
-    totals = segment_sum(data, segment_ids, num_segments)
-    counts = _counts_like(segment_ids, num_segments, totals)
+    totals = segment_sum(data, segment_ids, num_segments, spmd_axis)
+    counts = _counts_like(segment_ids, num_segments, totals, spmd_axis)
     return totals / torch.clamp(counts, min=1.0)
 
 
@@ -78,10 +95,12 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def segment_logits_max(logits: torch.Tensor, segment_ids: torch.Tensor,
-                       num_segments: int) -> torch.Tensor:
+                       num_segments: int,
+                       spmd_axis: Optional[str] = None) -> torch.Tensor:
     """Per-segment max of ``logits``, detached (a stability shift, whose
     true gradient contribution to a softmax is zero), with empty segments
-    pinned to 0 so ``logits - max[ids]`` stays finite."""
+    pinned to 0 so ``logits - max[ids]`` stays finite; with ``spmd_axis``
+    the max over every shard, taken before the pin."""
     ids = _valid_ids(segment_ids, num_segments)
     index = ids.reshape((-1,) + (1,) * (logits.dim() - 1)).expand_as(logits)
     maxes = torch.full((num_segments + 1,) + tuple(logits.shape[1:]),
@@ -89,35 +108,43 @@ def segment_logits_max(logits: torch.Tensor, segment_ids: torch.Tensor,
                        device=logits.device)
     maxes = maxes.scatter_reduce(0, index, logits.detach(), reduce="amax",
                                  include_self=True)[:num_segments]
+    if spmd_axis is not None:
+        from ..parallel.collectives import pmax
+
+        maxes = pmax(maxes, spmd_axis)
     return torch.where(torch.isfinite(maxes), maxes, torch.zeros_like(maxes))
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
-                    num_segments: int) -> torch.Tensor:
+                    num_segments: int,
+                    spmd_axis: Optional[str] = None) -> torch.Tensor:
     """Numerically stable softmax within each segment, with dpu-utils'
     ``unsorted_segment_softmax`` semantics: ``exp(x - max) / (sum + eps)``.
     ``logits`` may be [M] or [M, K] (one softmax per trailing column)."""
-    maxes = segment_logits_max(logits, segment_ids, num_segments)
+    maxes = segment_logits_max(logits, segment_ids, num_segments, spmd_axis)
     ids = segment_ids.long()
     # index_select, not ``denom[ids]``: its gradient is an index_add_, where
     # advanced indexing's backward sorts the ids first (0.4 ms a step at
     # V = 8064 on an H100, chip_smoke.py --profile).
     exp_shifted = torch.exp(logits - maxes.index_select(0, ids))
-    denom = segment_sum(exp_shifted, segment_ids, num_segments) + SMALL_NUMBER
+    denom = segment_sum(exp_shifted, segment_ids, num_segments,
+                        spmd_axis) + SMALL_NUMBER
     return exp_shifted / denom.index_select(0, ids)
 
 
 def segment_log_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
-                        num_segments: int) -> torch.Tensor:
+                        num_segments: int,
+                        spmd_axis: Optional[str] = None) -> torch.Tensor:
     """Log-softmax within each segment, with dpu-utils'
     ``unsorted_segment_log_softmax`` semantics: ``x - max - log(max(sum,
     eps))``, the epsilon under the log (``segment_softmax`` adds it to the
     denominator instead). ``logits`` may be [M] or [M, K]; the ids index
     the per-segment rows back, so they must lie in ``[0, num_segments)``."""
-    maxes = segment_logits_max(logits, segment_ids, num_segments)
+    maxes = segment_logits_max(logits, segment_ids, num_segments, spmd_axis)
     ids = segment_ids.long()
     shifted = logits - maxes.index_select(0, ids)
-    sum_exp = segment_sum(torch.exp(shifted), segment_ids, num_segments)
+    sum_exp = segment_sum(torch.exp(shifted), segment_ids, num_segments,
+                          spmd_axis)
     log_norm = torch.log(torch.clamp(sum_exp, min=SMALL_NUMBER))
     return shifted - log_norm.index_select(0, ids)
 

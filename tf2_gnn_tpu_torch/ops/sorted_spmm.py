@@ -11,6 +11,8 @@ slots by target over the [V] target rows, backward slots by merged source
 1/deg scales between them. ``plan_sorted_scatter`` cuts the chunks in the
 port's C++ engine (``native/graphpack.cc``), as the JAX package does;
 ``plan_sorted_scatter_numpy``, vectorised numpy, is its plain version.
+``build_dual_plans`` plans one edge type both ways (``EdgeScatterPlan``:
+by target forward, by source backward).
 
 Device half: four kernels, each a sorted segment reduction of a
 chunk-ordered stream into ``out[block_ids[slot // 512] * R + rel[slot]]``
@@ -36,9 +38,11 @@ Each wrapper runs its plain PyTorch version (``index_add_`` or
 ``scatter_reduce_``, accumulating in f32) on a CPU tensor and launches its
 kernel on a CUDA tensor, or raises. The autograd ops
 ``typed_gather_scatter``, ``plan_gather_src``, ``plan_gather_tgt_typed``,
-``plan_scatter`` and ``attention_scatter`` mirror the reference's custom
-VJPs; their other row gathers stay ``index_select``, as the reference's
-``jnp.take`` calls sit outside its kernels.
+``plan_scatter``, ``attention_scatter`` and ``gather_scatter_sorted`` (one
+edge type over its ``DualScatterPlan``, B12's gathered form both ways)
+mirror the reference's custom VJPs; their other row gathers stay
+``index_select``, as the reference's ``jnp.take`` calls sit outside its
+kernels.
 """
 import ctypes
 import dataclasses
@@ -157,6 +161,41 @@ def apply_plan_to_sources(sources: np.ndarray, perm: np.ndarray,
     valid = perm >= 0
     out[valid] = np.asarray(sources)[perm[valid]]
     return out
+
+
+class EdgeScatterPlan(NamedTuple):
+    """Host-built dual plan for one edge type's gather/scatter (reference
+    spmm_pallas.py:130-152). Forward: edges chunked by TARGET
+    (``src_by_tgt`` / ``rel_tgt`` / ``tgt_blocks``); backward: the same
+    edges chunked by SOURCE (``tgt_by_src`` / ``rel_src`` /
+    ``src_blocks``), so the gradient is a sorted sum too."""
+
+    src_by_tgt: np.ndarray
+    rel_tgt: np.ndarray
+    tgt_blocks: np.ndarray
+    tgt_by_src: np.ndarray
+    rel_src: np.ndarray
+    src_blocks: np.ndarray
+
+    def astuple(self) -> Tuple[np.ndarray, ...]:
+        return tuple(self)
+
+
+def build_dual_plans(sources: np.ndarray, targets: np.ndarray,
+                     num_edges_real: int, num_nodes_padded: int,
+                     num_chunks: int) -> EdgeScatterPlan:
+    """Forward (by-target) and backward (by-source) scatter plans of one
+    edge type (reference spmm_pallas.py:155-175); sentinel slots point at
+    the pad row."""
+    pad = num_nodes_padded - 1
+    perm_t, rel_tgt, tgt_blocks = plan_sorted_scatter(
+        targets, num_edges_real, num_nodes_padded, num_chunks)
+    src_by_tgt = apply_plan_to_sources(sources, perm_t, pad_source=pad)
+    perm_s, rel_src, src_blocks = plan_sorted_scatter(
+        sources, num_edges_real, num_nodes_padded, num_chunks)
+    tgt_by_src = apply_plan_to_sources(targets, perm_s, pad_source=pad)
+    return EdgeScatterPlan(src_by_tgt, rel_tgt, tgt_blocks, tgt_by_src,
+                           rel_src, src_blocks)
 
 
 PLAN_FIELDS = ("src_merged", "rel_tgt", "tgt_blocks", "type_fwd", "tgtabs_fwd",
@@ -296,12 +335,15 @@ class ScatterPlan:
         default_factory=dict, init=False, repr=False, compare=False)
 
     @classmethod
-    def from_host(cls, arrays, num_nodes: int,
-                  num_types: int) -> "ScatterPlan":
+    def from_host(cls, arrays, num_nodes: int, num_types: int,
+                  src_space: int = None) -> "ScatterPlan":
         """The device form of a host plan tuple (``PLAN_FIELDS`` order)
-        over ``num_types`` edge types and ``num_nodes`` padded nodes."""
+        over ``num_types`` edge types and ``num_nodes`` padded nodes, with
+        ``src_space`` source rows a type (default: ``num_nodes``; under
+        SPMD the ext or global rows the plan was built over)."""
         p = MergedScatterPlan(*(np.asarray(a) for a in arrays))
         v, nt = num_nodes, num_types
+        src_space = v if src_space is None else src_space
 
         def clip(idx, rows):
             return np.clip(idx.astype(np.int64), 0, rows - 1)
@@ -311,7 +353,7 @@ class ScatterPlan:
             fwd_sentinel, BLOCK_NODES * nt,
             p.rel_tgt.astype(np.int64) * nt + p.type_fwd).astype(np.int32)
         return cls(
-            *p, src_idx=clip(p.src_merged, nt * v),
+            *p, src_idx=clip(p.src_merged, nt * src_space),
             tgtabs_idx=clip(p.tgtabs_fwd, v),
             tgt_by_src_idx=clip(p.tgtabs_by_src, v),
             bwd_to_fwd_idx=clip(p.bwd_to_fwd_slot, p.rel_tgt.shape[0]),
@@ -353,6 +395,64 @@ class ScatterPlan:
             self._rows[key] = sorted_rows(rel, blocks, out_rows, block_rows,
                                           **kwargs)
         return self._rows[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class DualScatterPlan:
+    """An ``EdgeScatterPlan`` on a device, as ``gather_scatter_sorted``
+    reads it: the six plan arrays, the int64 row indices of both gathers
+    clipped into the [num_nodes] rows, the sentinel masks, and B12's two
+    compact forms (``fwd_rows``, ``bwd_rows``: each entry reads its row
+    of the table, or of the cotangent, through the plan's gather), built
+    at their first read and kept."""
+
+    src_by_tgt: object
+    rel_tgt: object
+    tgt_blocks: object
+    tgt_by_src: object
+    rel_src: object
+    src_blocks: object
+    src_idx: object
+    tgt_idx: object
+    fwd_sentinel: object
+    bwd_sentinel: object
+    num_nodes: int
+    _rows: Dict[object, SlotRows] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    @classmethod
+    def from_host(cls, plan: EdgeScatterPlan,
+                  num_nodes: int) -> "DualScatterPlan":
+        p = EdgeScatterPlan(*(np.asarray(a) for a in plan))
+        return cls(*p,
+                   src_idx=np.clip(p.src_by_tgt.astype(np.int64), 0,
+                                   num_nodes - 1),
+                   tgt_idx=np.clip(p.tgt_by_src.astype(np.int64), 0,
+                                   num_nodes - 1),
+                   fwd_sentinel=p.rel_tgt >= BLOCK_NODES,
+                   bwd_sentinel=p.rel_src >= BLOCK_NODES,
+                   num_nodes=num_nodes)
+
+    def to(self, device) -> "DualScatterPlan":
+        return dataclasses.replace(self, **{
+            f.name: as_tensor(getattr(self, f.name), device)
+            for f in dataclasses.fields(self) if f.type is object})
+
+    @property
+    def fwd_rows(self) -> SlotRows:
+        if "fwd" not in self._rows:
+            self._rows["fwd"] = sorted_rows(
+                self.rel_tgt, self.tgt_blocks, self.num_nodes, BLOCK_NODES,
+                stream_row=self.src_idx, stream_rows=self.num_nodes)
+        return self._rows["fwd"]
+
+    @property
+    def bwd_rows(self) -> SlotRows:
+        if "bwd" not in self._rows:
+            self._rows["bwd"] = sorted_rows(
+                self.rel_src, self.src_blocks, self.num_nodes, BLOCK_NODES,
+                stream_row=self.tgt_idx, stream_rows=self.num_nodes)
+        return self._rows["bwd"]
 
 
 # ---------------------------------------------------------------------------
@@ -691,6 +791,42 @@ def typed_gather_scatter(tables_flat, plan: ScatterPlan, scale_fwd, scale_bwd,
     ``stream_dtype`` (default: the tables' dtype)."""
     return TypedGatherScatter.apply(tables_flat, plan, scale_fwd, scale_bwd,
                                     stream_dtype or tables_flat.dtype)
+
+
+class GatherScatterSorted(torch.autograd.Function):
+    """``out[v] = sum over edges (u -> v) of table[u]``, f32 [V, H]
+    (reference ``gather_scatter_sorted``, spmm_pallas.py:512-568): B12
+    over the forward plan, each entry reading its source row of the table
+    (the gathered form: the per-slot stream is never written). The
+    backward is the exact transpose, ``d_table[u] = sum over edges (u ->
+    v) of g[v]``: B12 again over the backward plan (edges chunked by
+    source), each entry reading its target's cotangent row. The table is
+    cast to the stream dtype inside the op, so its gradient leaves in f32
+    (the reference's custom VJP returns it unrounded)."""
+
+    @staticmethod
+    def forward(ctx, table, plan: DualScatterPlan, stream_dtype):
+        ctx.plan = plan
+        return sorted_segment_sum_gathered(
+            table.to(stream_dtype).contiguous(), plan.src_idx,
+            plan.fwd_sentinel, plan.rel_tgt, plan.tgt_blocks,
+            plan.num_nodes, compact=plan.fwd_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        return sorted_segment_sum_gathered(
+            g.contiguous(), plan.tgt_idx, plan.bwd_sentinel, plan.rel_src,
+            plan.src_blocks, plan.num_nodes,
+            compact=plan.bwd_rows), None, None
+
+
+def gather_scatter_sorted(table, plan: DualScatterPlan,
+                          stream_dtype: torch.dtype = None) -> torch.Tensor:
+    """The f32 [V, H] sum, per target, of the source rows of ``table``
+    [V, H] over one edge type's dual plan, gathered in ``stream_dtype``
+    (f32 or bf16; default: the table's dtype)."""
+    return GatherScatterSorted.apply(table, plan, stream_dtype or table.dtype)
 
 
 class PlanGatherSrc(torch.autograd.Function):

@@ -36,6 +36,15 @@ shipped GraphRegression_GNN_Edge_MLP, which reads the same batch.
 writers the TF reference's recorded PPI and QM9 runs read
 (``harness/reference_parity.py``).
 
+The scale-out workload is a numpy copy of the giant graph of the JAX
+package's ``benchmarks/scaling.py::run_at`` (BASELINE.json config 5):
+one graph of ``SCALING_NODES_PER_SHARD`` nodes and
+``SCALING_EDGES_PER_SHARD`` uniform random edges a shard, split over 2
+edge types, 32 features and 121 labels, trained by
+``scaling_params()``: RGIN's ``NodeMulticlassTask`` at hidden 256, 4
+layers, a bf16 edge stream and no global exchange, on merged pair plans
+(``scaling_partition``).
+
 ``write_ppi_files`` and ``write_qm9_files`` write datasets in the formats
 the loaders read (``data/ppi_dataset.py``, ``data/qm9_dataset.py``), for
 the command-line path: PPI graphs of ``NODES_PER_GRAPH`` nodes at
@@ -77,6 +86,66 @@ QM9_EDGE_TYPES = 5
 QM9_EDGES_PER_MOLECULE = 11  # per edge type
 QM9_NODE_BUDGET = 16384  # 128 * 128 node blocks
 QM9_FEATURE_DIM = 32
+
+
+SCALING_NODES_PER_SHARD = 4096
+SCALING_EDGES_PER_SHARD = 131072
+SCALING_FEATURE_DIM = 32
+
+
+def scaling_params(hidden: int = 256, layers: int = 4) -> Dict[str, Any]:
+    """``run_at``'s model: the JAX package's RGIN defaults with hidden
+    ``hidden``, ``layers`` layers, a bf16 edge stream and the global
+    exchange pushed past the last layer."""
+    from .models.node_multiclass_task import NodeMulticlassTask
+
+    params = NodeMulticlassTask.get_default_hyperparameters("rgin")
+    params.update({"gnn_hidden_dim": hidden, "gnn_num_layers": layers,
+                   "gnn_edge_dtype": "bfloat16",
+                   "gnn_global_exchange_every_num_layers": 10000})
+    return params
+
+
+def scaling_graph(num_shards: int, nodes_per_shard: int = None,
+                  edges_per_shard: int = None, seed: int = 0):
+    """(node features, [2 edge types], node_to_graph, node labels) of
+    ``run_at(num_shards, nodes_per_shard, edges_per_shard, ...)``, the same
+    draws from ``RandomState(seed)`` in the same order (default sizes:
+    ``SCALING_NODES_PER_SHARD``, ``SCALING_EDGES_PER_SHARD``)."""
+    if nodes_per_shard is None:
+        nodes_per_shard = SCALING_NODES_PER_SHARD
+    if edges_per_shard is None:
+        edges_per_shard = SCALING_EDGES_PER_SHARD
+    num_nodes = nodes_per_shard * num_shards
+    num_edges = edges_per_shard * num_shards
+    rng = np.random.RandomState(seed)
+    nf = rng.randn(num_nodes, SCALING_FEATURE_DIM).astype(np.float32)
+    adjacency = [
+        np.stack([rng.randint(0, num_nodes, num_edges // 2),
+                  rng.randint(0, num_nodes, num_edges // 2)], axis=1
+                 ).astype(np.int32)
+        for _ in range(2)
+    ]
+    node_to_graph = np.zeros(num_nodes, dtype=np.int32)
+    labels = (rng.rand(num_nodes, NUM_LABELS) > 0.9).astype(np.float32)
+    return nf, adjacency, node_to_graph, labels
+
+
+def scaling_partition(num_shards: int, halo="auto", graph_shards=None,
+                      **graph_kwargs):
+    """``run_at``'s partition of ``scaling_graph``: the stacked host batch
+    with merged pair plans over the ext rows and its stacked labels
+    (``halo`` as ``partition_graph`` takes it; ``run_at`` leaves it
+    ``"auto"``). ``graph_shards`` (default ``num_shards``) sizes the graph,
+    so the graph of an S-shard run can be cut into one shard."""
+    from .parallel.spmd import partition_graph
+
+    nf, adjacency, node_to_graph, labels = scaling_graph(
+        num_shards if graph_shards is None else graph_shards, **graph_kwargs)
+    return partition_graph(
+        nf, adjacency, node_to_graph, num_graphs=1, num_shards=num_shards,
+        num_graphs_padded=2, node_labels={"node_labels": labels},
+        build_pair_plans=True, halo=halo)
 
 
 def edge_mlp_default_params() -> Dict[str, Any]:
