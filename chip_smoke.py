@@ -230,7 +230,12 @@ Phases, each of which fails the run by raising:
       epoch;
    d. the test entry's ``cli/test.py::run`` on (a)'s and (b)'s best
       checkpoints, whose TEST metric must equal the saved weights' in
-      memory.
+      memory;
+   e. for each run, its dataset's ``num_batches(fold)`` against the
+      batches the fold's epoch yields: their count on VALIDATION and
+      TEST, and on TRAIN the count of the epoch drawn from the ``rng``
+      state ``num_batches`` started from, which it must leave where that
+      epoch leaves it.
    Each train epoch's launch counts (set to 0 just before it, read just
    after) must be K1 one a layer and step and K2 one (two under remat),
    every other kernel 0; losses finite; on the first TRAIN batch of (a)
@@ -271,7 +276,14 @@ Phases, each of which fails the run by raising:
       the unfused route (no kernel), held over the real rows against the
       same encoder on the dataset's batch of those graphs (K2, K1), its
       relu keeping that run's signs; a relu input the two runs put on
-      opposite sides of 0 must lie within the states' tolerance of it.
+      opposite sides of 0 must lie within the states' tolerance of it;
+   e. the input-feature hook at full width: a subclass of PPI_RGCN whose
+      ``compute_initial_node_features`` scales the features by
+      ``HOOK_FACTOR``, 5 train steps on phase 2's batch (K1 and K2 once a
+      layer and step, the joint plan built once for the batch), its eval
+      logits bit-equal to the base model's with the same weights on the
+      batch transformed beforehand; its train step timed beside phase
+      2's, with the card's name and power limit.
 14. Scale-out on the card (``tf2_gnn_tpu_torch/parallel``): ranks are
     processes started with ``spawn`` (``parallel.launch.run_ranks``, a
     ``TIMEOUT`` of 600 s; a rank that raises fails the phase) over gloo on this
@@ -713,6 +725,18 @@ def train_and_count(model, params, batch, labels, counters, expected,
     return state, train_step, eval_step, launches
 
 
+# Train step ms by path name (``time_path``), for later phases to compare.
+STEP_MS = {}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def time_path(state, train_step, eval_step, batch, labels, real_edges,
               device, argv, name: str, steps: int = TIMED_STEPS):
     import torch
@@ -726,6 +750,7 @@ def time_path(state, train_step, eval_step, batch, labels, real_edges,
     step_ms = (time.perf_counter() - t0) / steps * 1e3
     eval_ms = time_ms(lambda: eval_step(batch, labels), reps=10)
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    STEP_MS[name] = step_ms
     log(f"{name} train step: {step_ms:.3f} ms ({real_edges / step_ms * 1e3:.4g} "
         f"edges/s), eval forward: {eval_ms:.3f} ms, peak memory "
         f"{peak_gib:.2f} GiB")
@@ -2847,6 +2872,37 @@ def check_same_batch(what: str, got, want) -> None:
             raise AssertionError(f"{what}: {name} differs")
 
 
+def check_num_batches(name: str, dataset) -> None:
+    """``num_batches(fold)`` of a run's dataset against the batches the
+    fold's epoch yields: on VALIDATION and TEST their count; on TRAIN the
+    count of the epoch drawn from the ``rng`` state that ``num_batches``
+    started from, which it must leave where that epoch leaves it (one
+    permutation drawn)."""
+    import numpy as np
+
+    from tf2_gnn_tpu_torch.data.graph_dataset import DataFold
+
+    counts = {}
+    for fold in (DataFold.VALIDATION, DataFold.TEST):
+        counts[fold.name] = (dataset.num_batches(fold), sum(
+            1 for _ in dataset.batch_iterator(fold)))
+    rng = dataset._rng
+    start = rng.get_state()
+    counted = dataset.num_batches(DataFold.TRAIN)
+    after = rng.get_state()
+    rng.set_state(start)
+    counts["TRAIN"] = (counted, sum(
+        1 for _ in dataset.batch_iterator(DataFold.TRAIN)))
+    in_step = all(np.array_equal(a, b)
+                  for a, b in zip(after, rng.get_state()))
+    log(f"{name}: num_batches against the epoch's batches by fold: "
+        f"{counts}; TRAIN's shuffle draws in step: {in_step}")
+    if not in_step or any(n != m for n, m in counts.values()):
+        raise AssertionError(f"{name}: num_batches by fold {counts} (ours, "
+                             f"the epoch's); TRAIN's draws in step: "
+                             f"{in_step}")
+
+
 class CliRecorder:
     """What phase 12 reads of one command-line training run, through
     patches of the harness's own functions (``patches``): per finalised
@@ -3115,11 +3171,12 @@ def cli_path(device, argv):
                         "--device", str(device)] + tail)
         recorder.report(time.perf_counter() - t0,
                         torch.cuda.max_memory_allocated(device))
+        model, dataset, weights = recorder.saved
+        dataset.load_data(data[kind], {DataFold.TEST})
+        check_num_batches(name, dataset)
         if not reload:
             continue
-        model, dataset, weights = recorder.saved
         model.load_state_dict(weights)
-        dataset.load_data(data[kind], {DataFold.TEST})
         _, _, results = run_eval_epoch(make_eval_step(model),
                                        dataset.batch_iterator(DataFold.TEST),
                                        device)
@@ -3329,6 +3386,97 @@ def gnn_input_check(device, ppi_dir: Path) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+HOOK_FACTOR = 0.75  # phase 13e's input hook scales the features by it
+
+
+def hook_check(device, argv) -> None:
+    """Phase 13e: ``GraphTaskModel.compute_initial_node_features`` at full
+    width. A subclass of the shipped PPI_RGCN whose hook returns the
+    features times ``HOOK_FACTOR`` (a new tensor, so ``forward`` replaces
+    the batch) takes ``TRAIN_STEPS`` train steps on phase 2's bench batch:
+    K1 and K2 once a layer and step, every other kernel 0, and the joint
+    plan (``stream_joint_plan``) built once for the batch, since the
+    replaced batch shares its plan forms. Its eval logits after training
+    equal, bit for bit, those of the base model with the same weights on
+    the batch transformed beforehand. The train step is timed as phase 2
+    times its own and logged beside phase 2's, with the card's name and
+    power limit."""
+    import torch
+
+    from tf2_gnn_tpu_torch.data import graph_batch
+    from tf2_gnn_tpu_torch.models.node_multiclass_task import (
+        NodeMulticlassTask,
+    )
+    from tf2_gnn_tpu_torch.workloads import (
+        FEATURE_DIM,
+        NUM_LABELS,
+        build_ppi_batch,
+        shipped_params,
+    )
+
+    class ScaledInput(NodeMulticlassTask):
+        def compute_initial_node_features(self, batch, training,
+                                          generator=None):
+            return batch.node_features * HOOK_FACTOR
+
+    t0 = time.perf_counter()
+    params = shipped_params("PPI_RGCN.json", "rgcn")
+    batch, labels, real_edges = build_ppi_batch(SEED, device=device)
+
+    def model(cls):
+        return cls.from_params(params, input_dim=FEATURE_DIM,
+                               num_edge_types=batch.num_edge_types,
+                               device=device, seed=SEED,
+                               num_labels=NUM_LABELS)
+
+    hooked = model(ScaledInput)
+    builds = []
+    build = graph_batch.stream_joint_plan
+
+    def counted(*args, **kwargs):
+        builds.append(1)
+        return build(*args, **kwargs)
+
+    counters = launch_counters()
+    layers = params["gnn_num_layers"]
+    with mock.patch.object(graph_batch, "stream_joint_plan", counted):
+        state, train_step, eval_step, launches = train_and_count(
+            hooked, params, batch, labels, counters,
+            dict(zero_counts(counters), pair_stream=layers * TRAIN_STEPS,
+                 pair_stream_joint=layers * TRAIN_STEPS), steps=TRAIN_STEPS)
+    if len(builds) != 1:
+        raise AssertionError(f"the hook's {TRAIN_STEPS} train steps and "
+                             f"eval forward built the joint plan "
+                             f"{len(builds)} times; expected once for the "
+                             "batch")
+
+    base = model(NodeMulticlassTask)
+    base.load_state_dict(hooked.state_dict())
+    hooked.eval()
+    base.eval()
+    with torch.no_grad():
+        got = hooked(batch, False)[0]
+        want = base(batch.replace(
+            node_features=batch.node_features * HOOK_FACTOR), False)[0]
+    if not (bool(torch.isfinite(got).all()) and torch.equal(got, want)):
+        raise AssertionError(
+            f"the hook's eval logits differ from the base model's on the "
+            f"transformed batch by {float((got - want).abs().max())}")
+    step_ms, _ = time_path(state, train_step, eval_step, batch, labels,
+                           real_edges, device, argv,
+                           "PPI_RGCN with the input hook", steps=TIMED_STEPS)
+    log(f"phase 13e: input hook on PPI_RGCN ({layers} layers, hidden "
+        f"{params['gnn_hidden_dim']}, edge stream {params['gnn_edge_dtype']}"
+        f"): {TRAIN_STEPS} train steps with K1 {launches['pair_stream']} "
+        f"and K2 {launches['pair_stream_joint']} launches, the joint plan "
+        f"built {len(builds)} time(s), eval logits bit-equal to the base "
+        f"model's on the transformed batch; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 13e: train step with the hook {step_ms:.3f} ms, phase 2's "
+        f"without it {STEP_MS.get('PPI_RGCN', float('nan')):.3f} ms "
+        f"({TIMED_STEPS} steps each; {card_line()})")
+
+
 @contextlib.contextmanager
 def relu_inputs(v: int, pinned=None):
     """For a ``with`` block, every message-passing layer's after-aggregation
@@ -3424,6 +3572,7 @@ def reference_path(device, argv):
         f"routes ({limits}); launches by kernel over the fused runs: "
         f"{totals}")
     gnn_input_check(device, ROOT / "build" / "phase12" / "ppi")
+    hook_check(device, argv)
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -4349,11 +4498,9 @@ def main(argv) -> int:
 
     log(f"wall time: {time.perf_counter() - t_start:.1f} s for the whole "
         "script, the build included")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = card_line()
     print(json.dumps({"kernels": kernels}))
-    print(smi.stdout.strip().splitlines()[0])
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -32,6 +32,11 @@ take their plain versions.
   a CPU forward whose segment sums run in another order, as the card's
   atomics would) and fails with one edge type's messages doubled on the
   unfused side.
+* Phase 13e (``hook_check``) on the PPI batch cut to 3 graphs of 150
+  nodes (V = 512), at PPI_RGCN's full width: K1 and K2 once a layer and
+  step, the joint plan built once for the batch, the hook's eval logits
+  bit-equal to the base model's on the transformed batch; with a
+  ``GraphBatch.replace`` that drops the plan forms the check fails.
 * Phase 14's check (``scaleout_check``) on synthetic ranks' results:
   results equal to the single process's pass; a gradient twice the
   single process's (a missing pmean), a rank without a kernel launch,
@@ -598,6 +603,39 @@ def test_gnn_input_check_on_cut_files(tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "log", lines.append)
     chip_smoke.gnn_input_check("cpu", tmp_path / "ppi")
     assert "routes ('unfused', 'pair_joint')" in lines[-1]
+
+
+@pytest.mark.parametrize("forms_kept", [True, False])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_hook_check_on_a_cut_batch(forms_kept, monkeypatch):
+    """Phase 13e on the PPI batch cut to 3 graphs of 150 nodes (V = 512):
+    K1 and K2 once a layer and step, the joint plan built once and the
+    eval logits bit-equal to the base model's. A ``replace`` that drops
+    the plan forms, so that every step builds the joint plan again, fails
+    it."""
+    import dataclasses
+
+    from tf2_gnn_tpu_torch.data import graph_batch as tgb
+
+    monkeypatch.setattr(workloads, "NODES_PER_GRAPH", 150)
+    monkeypatch.setattr(workloads, "FWD_EDGES_PER_GRAPH", 1500)
+    monkeypatch.setattr(workloads, "NODE_BUDGET", 512)
+    _count_into_launches(monkeypatch)
+    lines = []
+    monkeypatch.setattr(chip_smoke, "log", lines.append)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "no card")
+    monkeypatch.setattr(chip_smoke, "time_path",
+                        lambda *args, **kwargs: (1.0, 1.0))
+    if forms_kept:
+        chip_smoke.hook_check("cpu", [])
+        assert "the joint plan built 1 time(s)" in lines[-2]
+        assert "K1 20 and K2 20 launches" in lines[-2]
+        return
+    monkeypatch.setattr(tgb.GraphBatch, "replace",
+                        lambda self, **changes: dataclasses.replace(
+                            self, **changes))
+    with pytest.raises(AssertionError, match="built the joint plan 6 times"):
+        chip_smoke.hook_check("cpu", [])
 
 
 @pytest.mark.parametrize("pinned", [False, True])

@@ -2,9 +2,11 @@
 three command-line training runs and the two test-entry reloads pass,
 with K1 and K2 counted through their plain versions (K2 twice a layer and
 step under remat), every batch planned through the C++ binding and the
-first epoch's batches identical on the numpy forms; and the phase fails
-when K2 launches more often than the model's layers ask for, or when the
-binding's plans differ from the numpy planner's.
+first epoch's batches identical on the numpy forms, each run's
+``num_batches`` equal to its epochs' counts; and the phase fails when K2
+launches more often than the model's layers ask for, when the binding's
+plans differ from the numpy planner's, or when ``num_batches`` miscounts
+or draws TRAIN's permutation twice.
 
 Sizes: PPI graphs of 150 nodes and 1500 forward links (6 / 3 / 3 graphs
 a fold, one batch a fold at the JSON's ``max_nodes_per_batch``), QM9 40 /
@@ -91,6 +93,9 @@ def test_cli_phase_passes(cut_phase, capsys):
     assert out.count("binding vs numpy forms") == 3
     assert out.count("planners a batch") == 3
     assert "'pair binding'" in out and "'pair numpy'" not in out
+    # Each run's num_batches equals its epochs' counts, fold by fold.
+    assert out.count("num_batches against the epoch's batches") == 3
+    assert out.count("TRAIN's shuffle draws in step: True") == 3
 
 
 def test_cli_phase_catches_plans_that_differ(cut_phase):
@@ -120,4 +125,27 @@ def test_cli_phase_catches_a_miscount(cut_phase):
                       _counted("pair_stream_joint",
                                tps.pair_spmm_stream_joint, per_call=2))
     with pytest.raises(AssertionError, match="expected K1"):
+        chip_smoke.cli_path(torch.device("cpu"), [])
+
+
+@pytest.mark.parametrize("fault", ["count", "draws"])
+def test_cli_phase_catches_num_batches_faults(cut_phase, fault):
+    """A ``num_batches`` one off, or one that draws TRAIN's permutation
+    twice, fails the phase."""
+    from tf2_gnn_tpu_torch.data.graph_dataset import GraphDataset
+
+    real = GraphDataset.num_batches
+
+    def faulty(self, fold):
+        if fault == "count":
+            return real(self, fold) + 1
+        self._graph_iterator(fold)
+        return real(self, fold)
+
+    cut_phase.setattr(chip_smoke, "CLI_RUNS", chip_smoke.CLI_RUNS[:1])
+    cut_phase.setattr(GraphDataset, "num_batches", faulty)
+    cut_phase.setattr(tps, "pair_spmm_stream_joint",
+                      _counted("pair_stream_joint",
+                               tps.pair_spmm_stream_joint))
+    with pytest.raises(AssertionError, match="num_batches by fold"):
         chip_smoke.cli_path(torch.device("cpu"), [])

@@ -160,7 +160,9 @@ class GraphBatch:
     halo_ring_send: Optional[Tuple[object, ...]] = None
     halo_ring_dists: Optional[Tuple[int, ...]] = None
     node_restore: object = None
-    # The per-type plans' device forms, by name, built at first read; a
+    # The per-type plans' device forms, by name, built at first read. A
+    # batch replaced in its node features alone, by a tensor with the same
+    # rows on the same device, shares them (``replace``); any other
     # replaced or moved batch starts with none.
     _typed_forms: Dict[str, object] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
@@ -198,6 +200,10 @@ class GraphBatch:
         return len(self.edge_sources)
 
     @property
+    def pad_node_index(self) -> int:
+        return self.num_nodes_padded - 1
+
+    @property
     def node_mask(self) -> torch.Tensor:
         """f32 [V]: 1.0 for real nodes, 0.0 for padding."""
         device = (self.node_features.device
@@ -212,6 +218,16 @@ class GraphBatch:
                   if isinstance(self.node_features, torch.Tensor) else None)
         return (torch.arange(self.num_graphs_padded, device=device)
                 < self.num_graphs).to(torch.float32)
+
+    def edge_mask(self, edge_type: int) -> torch.Tensor:
+        """f32 [E_l]: 1.0 for the real edges of type ``edge_type``."""
+        device = (self.node_features.device
+                  if isinstance(self.node_features, torch.Tensor) else None)
+        budget = self.edge_sources[edge_type].shape[0]
+        real = self.num_edges[edge_type]
+        if not isinstance(real, torch.Tensor):
+            real = int(real)
+        return (torch.arange(budget, device=device) < real).to(torch.float32)
 
     # The unfused per-edge path's views (reference graph_batch.py:174-207).
     @property
@@ -275,7 +291,19 @@ class GraphBatch:
             for p in self.pair_plans_typed))
 
     def replace(self, **changes) -> "GraphBatch":
-        return dataclasses.replace(self, **changes)
+        """``dataclasses.replace``. Where only the node features change, to
+        a tensor with the same rows on the same device, the new batch
+        shares the per-type plans' device forms, so a model that swaps in
+        its own input features builds them once for the batch."""
+        new = dataclasses.replace(self, **changes)
+        old, feats = self.node_features, changes.get("node_features")
+        if (changes.keys() == {"node_features"}
+                and isinstance(old, torch.Tensor)
+                and isinstance(feats, torch.Tensor)
+                and feats.shape[-2] == old.shape[-2]
+                and feats.device == old.device):
+            new._typed_forms = self._typed_forms
+        return new
 
     def to(self, device="cuda") -> "GraphBatch":
         """Every array field as a tensor on ``device``; the host plans stay

@@ -502,3 +502,17 @@ class GraphDataset(ABC):
 
             return prefetch(generate())
         return generate()
+
+    def num_batches(self, data_fold: DataFold) -> int:
+        """Count one epoch's batches (packs without building batches or
+        plans). On TRAIN it draws the epoch's permutation from ``rng``, as
+        ``batch_iterator`` would."""
+        return sum(
+            1
+            for _ in self._pack_graphs(
+                self._graph_iterator(data_fold),
+                self.padding_config.num_nodes,
+                edge_budgets=self.padding_config.edge_budgets,
+                graph_budget=self.padding_config.num_graphs,
+            )
+        )

@@ -1,5 +1,5 @@
 """Small file-format helpers, a local-filesystem RichPath equivalent (port
-of ``tf2_gnn_tpu/data/io.py`` without its staging resolver).
+of ``tf2_gnn_tpu/data/io.py``, its staging resolver included).
 
 The reference reads data through dpu-utils' RichPath
 (``read_by_file_suffix`` over .json / .jsonl.gz / .npy / .pkl.gz). We support
@@ -15,9 +15,12 @@ in configs working once a deployment registers its resolver.
 """
 import gzip
 import json
+import os
 import pickle
+import shutil
+import tempfile
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterator, Union
+from typing import Any, Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
 
@@ -51,6 +54,58 @@ def _resolve(path: PathLike) -> PathLike:
             )
         return resolver(path)
     return path
+
+
+def make_staging_resolver(remote_root: PathLike,
+                          cache_dir: Optional[PathLike] = None
+                          ) -> Callable[[str], Path]:
+    """A read-through staging cache for remote URIs.
+
+    Maps ``<scheme>://bucket/key...`` to ``remote_root/bucket/key...`` and
+    copies the object into ``cache_dir`` on first access (re-staged when
+    the source's size or mtime changes). ``remote_root`` is whatever makes
+    the store look like a filesystem — a blobfuse/gcsfuse/NFS mount point,
+    an azcopy-synced directory, a fixture tree in tests. This is the same
+    topology dpu-utils' AzurePath gives the reference
+    (tf2_gnn/data/graph_dataset.py:7): URIs in configs, local files at
+    read time.
+
+        register_path_resolver("azure", make_staging_resolver("/mnt/blob"))
+
+    With ``cache_dir=None`` objects are read in place from the mount (no
+    copy) — right when ``remote_root`` is already local-fast.
+    """
+    remote_root = Path(remote_root)
+
+    def resolver(uri: str) -> Path:
+        rel = uri.split("://", 1)[1]
+        source = remote_root / rel
+        if not source.exists():
+            raise FileNotFoundError(f"{uri} -> {source} does not exist")
+        if cache_dir is None:
+            return source
+        staged = Path(cache_dir) / rel
+        src_stat = source.stat()
+        if (not staged.exists()
+                or staged.stat().st_size != src_stat.st_size
+                or staged.stat().st_mtime < src_stat.st_mtime):
+            staged.parent.mkdir(parents=True, exist_ok=True)
+            # Unique temp per stager: concurrent processes each copy into
+            # their own file, so the atomic replace below always publishes a
+            # COMPLETE copy (a shared fixed tmp name would interleave writes).
+            fd, tmp_name = tempfile.mkstemp(
+                prefix=staged.name + ".", suffix=".staging",
+                dir=staged.parent)
+            os.close(fd)
+            tmp = Path(tmp_name)
+            try:
+                shutil.copy2(source, tmp)
+                tmp.replace(staged)  # atomic publish: never a partial
+            finally:
+                tmp.unlink(missing_ok=True)
+        return staged
+
+    return resolver
 
 
 def read_by_file_suffix(path: PathLike) -> Any:

@@ -10,6 +10,7 @@ writes a ``torch.profiler`` trace of the training loop.
 """
 import argparse
 import json
+import random
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -52,6 +53,14 @@ def log_line(log_file: Optional[Path], msg: str) -> None:
         with open(log_file, "a") as f:
             f.write(msg + "\n")
     print(msg, flush=True)
+
+
+def set_seeds(seed: int) -> None:
+    """Seed Python's ``random`` and numpy's global generator, as the JAX
+    harness does; the port's own draws take explicit ``RandomState`` and
+    ``torch.Generator`` objects made from the same seed."""
+    random.seed(seed)
+    np.random.seed(seed)
 
 
 def get_model_and_dataset_from_args(
@@ -135,6 +144,8 @@ def run_train_from_args(
             "resolve through data/io.py::register_path_resolver.")
 
     seed = getattr(args, "random_seed", 0)
+    set_seeds(seed)
+
     model, model_params, dataset = get_model_and_dataset_from_args(
         args, hyperdrive_overrides)
     log(f"Dataset parameters: {json.dumps(dict(dataset.params), default=str)}")

@@ -95,8 +95,19 @@ class GraphTaskModel(nn.Module):
         head's dropout masks in training."""
         raise NotImplementedError()
 
+    def compute_initial_node_features(
+            self, batch: GraphBatch, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The GNN's input node features; subclasses override it to build
+        their own (JAX graph_task_model.py:85-88, 102-104)."""
+        return batch.node_features
+
     def forward(self, batch: GraphBatch, training: bool = False,
                 generator: Optional[torch.Generator] = None):
+        initial = self.compute_initial_node_features(batch, training,
+                                                     generator)
+        if initial is not batch.node_features:
+            batch = batch.replace(node_features=initial)
         final, all_reprs = self.gnn(batch, training, generator)
         representations = ((final, all_reprs)
                            if self.use_intermediate_gnn_results else final)

@@ -30,6 +30,7 @@ per-head twin (``head_rows_kernel``) for the attention sums B10
 """
 import ctypes
 import dataclasses
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -108,6 +109,16 @@ class PairPlans(NamedTuple):
         """The 10 plan arrays the merged-plan ops read: both directions and
         the overflow edges."""
         return tuple(self.fwd) + tuple(self.bwd) + (self.ovf_src, self.ovf_tgt)
+
+
+def pair_chunk_budget(total_edge_budget: int, out_rows: int,
+                      inflation: float = 2.0) -> int:
+    """A conservative static chunk budget: the assumed slot inflation over
+    the real edges plus the worst-case group-alignment padding of each
+    output block's run."""
+    dense = math.ceil(max(total_edge_budget, 1) * inflation / E_C)
+    runs = out_rows // BLK
+    return math.ceil((dense + runs) / GROUP) * GROUP + runs * GROUP
 
 
 def _plan_one_direction(
@@ -784,6 +795,45 @@ def _stream_slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt, grp_type,
     chunk = torch.arange(srcabs.shape[0], device=srcabs.device) // E_C
     ty = grp_type.long()[chunk // plan_group(src_blk, grp_tgt)]
     return ty * v + srcabs, tgtabs, valid
+
+
+def pair_slot_abs_ids(plan_arrays, which: str):
+    """``slot_abs_ids`` of one direction (``"fwd"`` or ``"bwd"``) of a
+    13-array ``PairPlans`` tuple, host arrays or tensors; tensors stay on
+    their device."""
+    plans = PairPlans.fromtuple(plan_arrays)
+    p = plans.fwd if which == "fwd" else plans.bwd
+    return slot_abs_ids(*(torch.as_tensor(x) for x in p))
+
+
+def pair_normalisation_scales(plan_arrays, inv_flat: torch.Tensor,
+                              num_nodes: int, src_space: Optional[int] = None):
+    """(scale_fwd, scale_bwd, ovf_scale): per-slot 1/deg-style scales of
+    both directions and the overflow slots, on ``inv_flat``'s device.
+    ``inv_flat`` is [L * V], indexed by ``l * num_nodes + target``; padded
+    slots get 0, and ids past its end clip to its last entry. The plans
+    carry the same scales, built on the host (``inv_fwd`` / ``inv_bwd`` /
+    ``inv_ovf``); no op reads this."""
+    v = num_nodes
+    if src_space is None:
+        src_space = v
+    inv = torch.as_tensor(inv_flat)
+    plans = PairPlans.fromtuple(plan_arrays)
+
+    def take(ids):
+        return inv[torch.clamp(ids.to(inv.device), 0, inv.shape[0] - 1)]
+
+    srcabs, tgtabs, valid = pair_slot_abs_ids(plan_arrays, "fwd")
+    sf = take((srcabs // src_space) * v + tgtabs) * valid.to(inv.device)
+    srcabs_b, tgtabs_b, valid_b = pair_slot_abs_ids(plan_arrays, "bwd")
+    sb = take((tgtabs_b // src_space) * v + srcabs_b) * valid_b.to(inv.device)
+
+    ovf_src = torch.as_tensor(plans.ovf_src).long()
+    ovf_tgt = torch.as_tensor(plans.ovf_tgt).long()
+    ovf_valid = (ovf_tgt < v).to(inv.device)
+    so = take((ovf_src // src_space) * v + torch.clamp(ovf_tgt, max=v - 1)
+              ) * ovf_valid
+    return sf, sb, so
 
 
 @dataclasses.dataclass(frozen=True)
