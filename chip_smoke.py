@@ -674,7 +674,7 @@ def _patched(patches):
     return stack
 
 
-def train_and_count(model, params, batch, labels, counters, expected,
+def train_and_count(model, params, batch, labels, expected,
                     steps: int = TRAIN_STEPS):
     """The path's main run: ``steps`` train steps with every launch count
     set to 0 just before and read just after; each kernel in ``expected``
@@ -689,22 +689,20 @@ def train_and_count(model, params, batch, labels, counters, expected,
         make_eval_step,
         make_train_step,
     )
+    from tf2_gnn_tpu_torch.utils import tracing
 
     optimizer = make_optimizer(params, model.parameters())
     state = create_train_state(model, optimizer, seed=SEED)
     train_step = make_train_step(model, optimizer)
     eval_step = make_eval_step(model)
 
-    for reset, _ in counters:
-        reset()
+    tracing.reset()
     losses = []
     for _ in range(steps):
         state, metrics = train_step(state, batch, labels)
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
-    launches = {}
-    for _, counts in counters:
-        launches.update(counts)
+    launches = tracing.counters("launch")
     losses = [float(x) for x in losses]
     log(f"train: {steps} steps, losses {losses}, launches {launches}")
     if not all(math.isfinite(x) for x in losses):
@@ -783,7 +781,7 @@ def rgcn_path(device, argv):
         (ps, "pair_spmm_stream", plain_version(ps.pair_spmm_stream_plain))])
     per_step = params["gnn_num_layers"] * TRAIN_STEPS
     state, train_step, eval_step, launches = train_and_count(
-        model, params, batch, labels, launch_counters(),
+        model, params, batch, labels,
         {"pair_stream": per_step, "pair_stream_joint": per_step,
          "pair_attention_max": 0, "pair_attention_agg": 0})
     time_path(state, train_step, eval_step, batch, labels, real_edges,
@@ -1033,9 +1031,8 @@ def rgat_path(device, argv):
         (pa, "pair_attention_bwd_fused",
          plain_version(pa.pair_attention_bwd_fused_plain))])
     per_step = params["gnn_num_layers"] * TRAIN_STEPS
-    counters = launch_counters()
     state, train_step, eval_step, launches = train_and_count(
-        model, params, batch, labels, counters,
+        model, params, batch, labels,
         {"pair_attention_expd": per_step, "pair_spmm": k * per_step,
          "pair_attention_bwd_fused": per_step, "pair_stream": 0,
          "pair_stream_joint": 0, "pair_attention_max": 0,
@@ -1132,6 +1129,7 @@ def wide_rgat_step(device, batch, labels):
 
     from tf2_gnn_tpu_torch.ops import pair_attention as pa
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.utils import tracing
     from tf2_gnn_tpu_torch.workloads import shipped_params
 
     if batch.scatter_merged is not None:
@@ -1146,11 +1144,11 @@ def wide_rgat_step(device, batch, labels):
                 for name in pa.LAUNCHES]
     check_eval_forward(model, batch, labels, patches, TYPED_RGAT_LOGIT_RTOL,
                        TYPED_RGAT_ATOL, TYPED_RGAT_LOSS_RTOL)
-    counters = launch_counters()
     _, _, _, launches = train_and_count(
-        model, params, batch, labels, counters,
-        dict(zero_counts(counters), pair_attention_expd=1,
-             pair_attention_agg=1, pair_attention_bwd_fused=1), steps=1)
+        model, params, batch, labels,
+        dict(dict.fromkeys(tracing.counters("launch"), 0),
+             pair_attention_expd=1, pair_attention_agg=1,
+             pair_attention_bwd_fused=1), steps=1)
     del model
     torch.cuda.empty_cache()
     return launches
@@ -1279,6 +1277,7 @@ def edge_mlp_path(device, argv):
     )
     from tf2_gnn_tpu_torch.ops import pair_edge_mlp as pem
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.utils import tracing
     from tf2_gnn_tpu_torch.workloads import (
         FEATURE_DIM,
         NUM_LABELS,
@@ -1347,10 +1346,8 @@ def edge_mlp_path(device, argv):
         f"{fwd_rows.src_row.numel()} entries into {rows} rows, the backward "
         f"one {bwd_rows.src_row.numel()} into {rows}")
 
-    counters = launch_counters()
     layers = params["gnn_num_layers"]
-    for reset, _ in counters:
-        reset()
+    tracing.reset()
     check_eval_forward(model, batch, labels, [
         (pem, name, plain_version(getattr(pem, f"{name}_plain")))
         for name in fns], logit_rtol=EDGE_MLP_LOGIT_RTOL)
@@ -1363,7 +1360,7 @@ def edge_mlp_path(device, argv):
                              f"expected relu_pair_fwd {layers} times only")
     per_step = layers * TRAIN_STEPS
     state, train_step, eval_step, launches = train_and_count(
-        model, params, batch, labels, counters,
+        model, params, batch, labels,
         {"relu_pair_fwd_m": per_step, "relu_pair_da": per_step,
          "relu_pair_fwd": 0, "relu_pair_db": 0, "pair_stream": 0,
          "pair_stream_joint": 0, "pair_spmm": 0, "pair_attention_expd": 0,
@@ -1462,6 +1459,7 @@ def sorted_path(device, argv):
         NodeMulticlassTask,
     )
     from tf2_gnn_tpu_torch.ops import sorted_spmm as ss
+    from tf2_gnn_tpu_torch.utils import tracing
     from tf2_gnn_tpu_torch.workloads import (
         FEATURE_DIM,
         NUM_LABELS,
@@ -1575,16 +1573,14 @@ def sorted_path(device, argv):
             f"into {forms[form][3].out_rows} rows"
             for form in forms if forms[form][3] is not None))
 
-    counters = launch_counters()
-    earlier = {name: 0 for _, counts in counters[:3] for name in counts}
+    zero = dict.fromkeys(tracing.counters("launch"), 0)
     patches = [(ss, name, plain_version(getattr(ss, f"{name}_plain")))
                for name in (*ss.LAUNCHES, "sorted_segment_sum_gathered")]
     patches.append((rgat_layer, "sorted_segment_max",
                     plain_version(ss.sorted_segment_max_plain)))
 
     def eval_launches(model):
-        for reset, _ in counters:
-            reset()
+        tracing.reset()
         check_eval_forward(model, batch, labels, patches)
         torch.cuda.synchronize()
         counts = dict(ss.LAUNCHES)
@@ -1609,8 +1605,8 @@ def sorted_path(device, argv):
                              f"expected sorted_segment_sum_scaled {layers} "
                              "times only")
     state, train_step, eval_step, rgcn_launches = train_and_count(
-        model, params, batch, labels, counters, dict(
-            earlier, sorted_segment_sum=0,
+        model, params, batch, labels, dict(
+            zero, sorted_segment_sum=0,
             sorted_segment_sum_scaled=2 * layers * TRAIN_STEPS,
             sorted_segment_max=0, attention_scatter_sums=0))
     time_path(state, train_step, eval_step, batch, labels, real_edges,
@@ -1632,8 +1628,8 @@ def sorted_path(device, argv):
                              f"attention_scatter_sums {layers} times each")
     per_step = layers * TRAIN_STEPS
     state, train_step, eval_step, rgat_launches = train_and_count(
-        model, params, batch, labels, counters, dict(
-            earlier, sorted_segment_sum=2 * per_step,
+        model, params, batch, labels, dict(
+            zero, sorted_segment_sum=2 * per_step,
             sorted_segment_sum_scaled=0, sorted_segment_max=per_step,
             attention_scatter_sums=per_step))
     time_path(state, train_step, eval_step, batch, labels, real_edges,
@@ -1779,6 +1775,7 @@ def typed_rgat_path(device, argv):
 
     from tf2_gnn_tpu_torch.ops import pair_attention as pa
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.utils import tracing
     from tf2_gnn_tpu_torch.workloads import (
         build_ppi_batch,
         rgat_eight_heads_params,
@@ -1936,8 +1933,7 @@ def typed_rgat_path(device, argv):
         f"{b9_rows.src_row.numel()} entries into {v} source rows, d_ts "
         f"{b9_ts.sums.src_row.numel()} entries")
 
-    counters = launch_counters()
-    zero = zero_counts(counters)
+    zero = dict.fromkeys(tracing.counters("launch"), 0)
     patches = [(ps, "pair_spmm", plain_version(ps.pair_spmm_plain)),
                (pa, "pair_spmm", plain_version(ps.pair_spmm_plain))]
     patches += [(pa, name, plain_version(getattr(pa, f"{name}_plain")))
@@ -1949,7 +1945,7 @@ def typed_rgat_path(device, argv):
                            TYPED_RGAT_LOSS_RTOL)
         per_step = params["gnn_num_layers"] * TRAIN_STEPS * num_types
         state, train_step, eval_step, launches = train_and_count(
-            model, params, batch, labels, counters,
+            model, params, batch, labels,
             dict(zero, **{kernel: per_step * mult
                           for kernel, mult in counts.items()}))
         time_path(state, train_step, eval_step, batch, labels, real_edges,
@@ -2095,11 +2091,14 @@ def qm9_path(device, argv):
         QM9RegressionTask,
     )
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.utils import tracing
     from tf2_gnn_tpu_torch.workloads import (
         QM9_FEATURE_DIM,
         build_qm9_batch,
         qm9_shipped_params,
     )
+
+    zero = dict.fromkeys(tracing.counters("launch"), 0)
 
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -2127,9 +2126,7 @@ def qm9_path(device, argv):
         f"(lr {params['learning_rate']}, clip by value "
         f"{params['gradient_clip_value']}), global exchange after layers "
         f"{list(model.gnn.exchange_layers)}")
-    counters = launch_counters()
-    for reset, _ in counters:
-        reset()
+    tracing.reset()
     check_eval_forward(model, batch, labels, [
         (ps, "pair_spmm_stream_joint",
          plain_version(ps.pair_spmm_stream_plain)),
@@ -2137,14 +2134,14 @@ def qm9_path(device, argv):
         QM9_LOGIT_RTOL, QM9_ATOL, QM9_LOSS_RTOL,
         shape=(batch.num_graphs_padded,))
     torch.cuda.synchronize()
-    eval_launches = {n: c for _, counts in counters for n, c in counts.items()}
-    if eval_launches != dict(zero_counts(counters), pair_stream_joint=layers):
+    eval_launches = tracing.counters("launch")
+    if eval_launches != dict(zero, pair_stream_joint=layers):
         raise AssertionError(f"QM9 eval forward launched {eval_launches}; "
                              f"expected pair_stream_joint {layers} times only")
     per_step = layers * TRAIN_STEPS
     state, train_step, eval_step, launches = train_and_count(
-        model, params, batch, labels, counters,
-        dict(zero_counts(counters), pair_stream=per_step,
+        model, params, batch, labels,
+        dict(zero, pair_stream=per_step,
              pair_stream_joint=per_step))
     step_ms, eval_ms = time_path(state, train_step, eval_step, batch, labels,
                                  real_edges, device, argv, "QM9_RGCN")
@@ -2255,7 +2252,10 @@ def flavours_path(device, argv):
     import torch
 
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+    from tf2_gnn_tpu_torch.utils import tracing
     from tf2_gnn_tpu_torch.workloads import build_ppi_batch, shipped_params
+
+    zero = dict.fromkeys(tracing.counters("launch"), 0)
 
     t0 = time.perf_counter()
     batch, labels, real_edges = build_ppi_batch(SEED, device=device)
@@ -2272,7 +2272,6 @@ def flavours_path(device, argv):
         (ps, "pair_spmm_stream_joint",
          plain_version(ps.pair_spmm_stream_plain)),
         (ps, "pair_spmm_stream", plain_version(ps.pair_spmm_stream_plain))]
-    counters = launch_counters()
     per_form = {"per-type forward": 0, "per-type backward": 0}
     for name, hypers, style, (k2, k1), tols in FLAVOUR_MODELS:
         torch.cuda.empty_cache()
@@ -2282,13 +2281,12 @@ def flavours_path(device, argv):
                                   hypers)
         layers = params["gnn_num_layers"]
         atol, logit_rtol, loss_rtol = tols
-        for reset, _ in counters:
-            reset()
+        tracing.reset()
         check_eval_forward(model, batch, labels, patches, logit_rtol, atol,
                            loss_rtol)
         torch.cuda.synchronize()
-        got = {n: c for _, counts in counters for n, c in counts.items()}
-        want = dict(zero_counts(counters), pair_stream_joint=k2 * layers,
+        got = tracing.counters("launch")
+        want = dict(zero, pair_stream_joint=k2 * layers,
                     pair_stream=0 if k2 else layers)
         if got != want:
             raise AssertionError(f"{name} eval forward launched {got}; "
@@ -2296,8 +2294,8 @@ def flavours_path(device, argv):
         per_step = {"pair_stream_joint": k2 * layers,
                     "pair_stream": k1 * layers}
         state, train_step, eval_step, launches = train_and_count(
-            model, params, batch, labels, counters,
-            dict(zero_counts(counters),
+            model, params, batch, labels,
+            dict(zero,
                  **{n: c * TRAIN_STEPS for n, c in per_step.items()}))
         log(f"{name}: per train step K2 {k2 * layers}, K1 {k1 * layers} "
             f"launches; nothing else launched")
@@ -2560,6 +2558,9 @@ def merged_scatter_path(device, argv):
 
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
     from tf2_gnn_tpu_torch.ops import sorted_spmm as ss
+    from tf2_gnn_tpu_torch.utils import tracing
+
+    zero = dict.fromkeys(tracing.counters("launch"), 0)
 
     t_phase = time.perf_counter()
     batches = {}
@@ -2577,7 +2578,6 @@ def merged_scatter_path(device, argv):
         ("pair_spmm_stream_joint", ps.pair_spmm_stream_plain))]
     patches += [(ss, name, plain_version(getattr(ss, f"{name}_plain")))
                 for name in (*ss.LAUNCHES, "sorted_segment_sum_gathered")]
-    counters = launch_counters()
     form_launches = {form: 0 for form in forms}
     for name, source, kind, per_layer, eval_per_layer, tols, \
             form_per_layer in ROUTE_MODELS:
@@ -2590,21 +2590,20 @@ def merged_scatter_path(device, argv):
         layers = params["gnn_num_layers"]
         route = model.gnn.mp_layer_0._route(batch)
         atol, logit_rtol, loss_rtol = tols
-        for reset, _ in counters:
-            reset()
+        tracing.reset()
         shape = ((batch.num_graphs_padded,) if kind == "qm9" else None)
         check_eval_forward(model, batch, labels, patches, logit_rtol, atol,
                            loss_rtol, shape=shape)
         torch.cuda.synchronize()
-        got = {n: c for _, counts in counters for n, c in counts.items()}
-        want = dict(zero_counts(counters),
+        got = tracing.counters("launch")
+        want = dict(zero,
                     **{n: c * layers for n, c in eval_per_layer.items()})
         if got != want:
             raise AssertionError(f"{name} eval forward launched {got}; "
                                  f"expected {want}")
         state, train_step, eval_step, _ = train_and_count(
-            model, params, batch, labels, counters,
-            dict(zero_counts(counters), **{
+            model, params, batch, labels,
+            dict(zero, **{
                 n: c * layers * TRAIN_STEPS for n, c in per_layer.items()}))
         log(f"{name}: route {route}; per train step "
             + ", ".join(f"{n} {c * layers}" for n, c in per_layer.items())
@@ -2757,11 +2756,14 @@ def unfused_path(device, argv):
     route's, and the peak memory."""
     import torch
 
+    from tf2_gnn_tpu_torch.utils import tracing
+
+    zero = dict.fromkeys(tracing.counters("launch"), 0)
+
     t_phase = time.perf_counter()
     batches = unfused_batches(device)
     log(f"phase 11: {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB "
         "held before its models (its batches)")
-    counters = launch_counters()
     peak = 0
     for name, source, kind, steps, against, tols in UNFUSED_MODELS:
         bare, labels, edges = batches[kind, False]
@@ -2776,7 +2778,7 @@ def unfused_path(device, argv):
             raise AssertionError(f"{name}: routes {routes} on the batch "
                                  "without plans")
         state, train_step, eval_step, _ = train_and_count(
-            model, params, bare, labels, counters, zero_counts(counters),
+            model, params, bare, labels, zero,
             steps=steps)
         log(f"{name}: no kernel launched in {steps} unfused train steps")
         ref_batch = batches[kind, True] if against == "fused" else \
@@ -2912,16 +2914,16 @@ class CliRecorder:
     first epoch the same batch finalised again on the numpy forms
     (``native.numpy_forms()``), timed, and held array-identical; per train
     epoch the steps, each step's device span (CUDA events around the step),
-    the launch counts (set to 0 just before the epoch, read just after)
+    the kernels launched (launch counts read before and after the epoch)
     and the loss; the first TRAIN batch's ``.to(device)`` and first
     compact forms (synchronised), and its eval forward against the plain
     versions; the model, dataset and weights of the last checkpoint
     written."""
 
-    def __init__(self, name, counters, tols, device, profile: bool):
+    def __init__(self, name, tols, device, profile: bool):
         import threading
 
-        self.name, self.counters, self.tols = name, counters, tols
+        self.name, self.tols = name, tols
         self.device, self.profile = device, profile
         self.batches, self.epochs = [], []
         self.first = None
@@ -3016,6 +3018,10 @@ class CliRecorder:
 
         import torch
 
+        from tf2_gnn_tpu_torch.utils import tracing
+
+        zero = dict.fromkeys(tracing.counters("launch"), 0)
+
         def epoch(train_step, state, batches, device=None, **kwargs):
             if not self.epochs:
                 batches = iter(batches)
@@ -3033,8 +3039,9 @@ class CliRecorder:
                 spans.append((start, end))
                 return out
 
-            for reset, _ in self.counters:
-                reset()
+            # Read, not reset: the dataset's worker thread plans batches
+            # meanwhile, and ``native.PLANNED`` counts them.
+            before = tracing.counters("launch")
             t0 = time.perf_counter()
             if self.profile:
                 from torch.profiler import ProfilerActivity, profile
@@ -3049,12 +3056,12 @@ class CliRecorder:
                                   **kwargs)
             torch.cuda.synchronize()
             epoch_ms = (time.perf_counter() - t0) * 1e3
-            launches = {n: c for _, counts in self.counters
-                        for n, c in counts.items()}
+            launches = {n: c - before[n]
+                        for n, c in tracing.counters("launch").items()}
             gnn = state.model.gnn
             steps = len(spans)
             forward = gnn.num_layers * steps * (2 if gnn.use_remat else 1)
-            expected = dict(zero_counts(self.counters),
+            expected = dict(zero,
                             pair_stream=gnn.num_layers * steps,
                             pair_stream_joint=forward)
             if launches != expected:
@@ -3157,13 +3164,11 @@ def cli_path(device, argv):
         f"{workloads.NODES_PER_GRAPH} nodes, {workloads.FWD_EDGES_PER_GRAPH} "
         f"forward links each) and QM9 files ({workloads.QM9_FOLD_MOLECULES} "
         f"molecules) written in {time.perf_counter() - t_phase:.1f} s")
-    counters = launch_counters()
     for name, head, tail, kind, tols, reload in CLI_RUNS:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        recorder = CliRecorder(name, counters, tols, device,
-                               "--profile" in argv)
+        recorder = CliRecorder(name, tols, device, "--profile" in argv)
         with recorder.patches():
             best = cli_train.run(
                 head + [str(data[kind]), "--save-dir", str(root / "trained"),
@@ -3226,7 +3231,7 @@ GNN_INPUT_RTOL = 2.0 ** -12
 GNN_INPUT_GRAD_RTOL = 1e-3
 
 
-def reference_run(dump, data, kind: str, device, counters):
+def reference_run(dump, data, kind: str, device):
     """Phase 13 on one dump and plan kind: the dump's data through the
     port's loaders (the batch checked against the dump's), its weights
     imported, then one eval forward and one backward on ``device`` with
@@ -3236,6 +3241,7 @@ def reference_run(dump, data, kind: str, device, counters):
     import torch
 
     from tf2_gnn_tpu_torch.harness import reference_parity as rp
+    from tf2_gnn_tpu_torch.utils import tracing
 
     model, dataset = rp.build(dump, data, kind, device)
     batch, labels = rp.first_batch(dataset)
@@ -3245,12 +3251,10 @@ def reference_run(dump, data, kind: str, device, counters):
     if (route == "unfused") != (kind == "none"):
         raise AssertionError(f"{dump.name} on {kind} plans takes route "
                              f"{route}")
-    for reset, _ in counters:
-        reset()
+    tracing.reset()
     outputs = rp.run(model, batch, labels)
     torch.cuda.synchronize()
-    launches = {n: c for _, counts in counters for n, c in counts.items()
-                if c}
+    launches = _launches()
     layers = model.gnn.num_layers
     expected = {} if kind == "none" else {
         n: c * layers for n, c in REFERENCE_LAUNCHES[dump.model].items()}
@@ -3282,6 +3286,7 @@ def gnn_input_case(device, ppi_dir: Path):
         merge_params,
     )
     from tf2_gnn_tpu_torch.layers import GNN, GNNInput, batch_from_gnn_input
+    from tf2_gnn_tpu_torch.utils import tracing
 
     if not (ppi_dir / "valid_graph.json").exists():
         workloads.write_ppi_files(ppi_dir, SEED)
@@ -3314,11 +3319,9 @@ def gnn_input_case(device, ppi_dir: Path):
     cot = torch.randn((v, gnn.hidden_dim),
                       generator=torch.Generator().manual_seed(SEED + 13)
                       ).to(device)
-    counters = launch_counters()
 
     def run(batch, pinned):
-        for reset, _ in counters:
-            reset()
+        tracing.reset()
         gnn.zero_grad(set_to_none=True)
         with relu_inputs(v, pinned) as inputs:
             final, reps = gnn(batch, False)
@@ -3327,8 +3330,7 @@ def gnn_input_case(device, ppi_dir: Path):
         return ([final[:v].detach()] + [r[:v].detach() for r in reps],
                 {n: p.grad.detach().clone()
                  for n, p in gnn.named_parameters()},
-                {n: c for _, cs in counters for n, c in cs.items() if c},
-                inputs)
+                _launches(), inputs)
 
     return run, bare, planned, v, sum(counts)
 
@@ -3407,12 +3409,15 @@ def hook_check(device, argv) -> None:
     from tf2_gnn_tpu_torch.models.node_multiclass_task import (
         NodeMulticlassTask,
     )
+    from tf2_gnn_tpu_torch.utils import tracing
     from tf2_gnn_tpu_torch.workloads import (
         FEATURE_DIM,
         NUM_LABELS,
         build_ppi_batch,
         shipped_params,
     )
+
+    zero = dict.fromkeys(tracing.counters("launch"), 0)
 
     class ScaledInput(NodeMulticlassTask):
         def compute_initial_node_features(self, batch, training,
@@ -3437,12 +3442,11 @@ def hook_check(device, argv) -> None:
         builds.append(1)
         return build(*args, **kwargs)
 
-    counters = launch_counters()
     layers = params["gnn_num_layers"]
     with mock.patch.object(graph_batch, "stream_joint_plan", counted):
         state, train_step, eval_step, launches = train_and_count(
-            hooked, params, batch, labels, counters,
-            dict(zero_counts(counters), pair_stream=layers * TRAIN_STEPS,
+            hooked, params, batch, labels,
+            dict(zero, pair_stream=layers * TRAIN_STEPS,
                  pair_stream_joint=layers * TRAIN_STEPS), steps=TRAIN_STEPS)
     if len(builds) != 1:
         raise AssertionError(f"the hook's {TRAIN_STEPS} train steps and "
@@ -3543,7 +3547,6 @@ def reference_path(device, argv):
     t_phase = time.perf_counter()
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("phase 13 needs f32 products without TF32")
-    counters = launch_counters()
     root = ROOT / "build" / "phase13"
     totals = {}
     limits = (f"limits: rtol {rp.RTOL} + atol {rp.ATOL} for representations "
@@ -3554,8 +3557,8 @@ def reference_path(device, argv):
         data = rp.write_data(task, root)
         for kind in ("none", rp.FUSED_PLANS[dump.model]):
             t0 = time.perf_counter()
-            route, launches, report = reference_run(dump, data, kind, device,
-                                                    counters)
+            route, launches, report = reference_run(dump, data, kind,
+                                                    device)
             for n, c in launches.items():
                 totals[n] = totals.get(n, 0) + c
             reps = max((v for k, v in report.items()
@@ -3806,15 +3809,10 @@ def _flat_params(model):
 
 
 def _launches():
-    launches = {}
-    for _, counts in launch_counters():
-        launches.update({k: v for k, v in counts.items() if v})
-    return launches
+    """The kernels launched since the last ``tracing.reset()``, by name."""
+    from tf2_gnn_tpu_torch.utils import tracing
 
-
-def _reset_launches() -> None:
-    for reset, _ in launch_counters():
-        reset()
+    return {k: v for k, v in tracing.counters("launch").items() if v}
 
 
 def scaleout_rank(rank: int, world: int, cases):
@@ -3858,6 +3856,7 @@ def scaleout_rank_case(rank: int, world: int, case, device):
     from tf2_gnn_tpu_torch.harness.optimizers import make_optimizer
     from tf2_gnn_tpu_torch.harness.training import create_train_state
     from tf2_gnn_tpu_torch.parallel import collectives
+    from tf2_gnn_tpu_torch.utils import tracing
 
     t_case = time.perf_counter()
     kind = case["kind"]
@@ -3884,7 +3883,7 @@ def scaleout_rank_case(rank: int, world: int, case, device):
                     else "all_gather" if batch.spmd_axis else "none"),
            "setup_s": time.perf_counter() - t_case}
     if case.get("forward"):
-        _reset_launches()
+        tracing.reset()
         logits = par.make_spmd_forward(model, mesh)(batch)[0]
         out["forward_launches"] = _launches()
         if rank == 0:
@@ -3893,8 +3892,7 @@ def scaleout_rank_case(rank: int, world: int, case, device):
                                               model.parameters()))
     state = create_train_state(model, optimizer, seed=SEED)
     step = make_step(model, optimizer, mesh)
-    _reset_launches()
-    collectives.reset_counts()
+    tracing.reset()
     losses, params_by_step, step_s = [], [], []
     for _ in range(case["steps"]):
         _sync(device)
@@ -4111,6 +4109,7 @@ def gather_scatter_sorted_check(device) -> None:
 
     from tf2_gnn_tpu_torch import workloads
     from tf2_gnn_tpu_torch.ops import sorted_spmm as ss
+    from tf2_gnn_tpu_torch.utils import tracing
 
     batch, _, _ = workloads.build_ppi_batch_host(SEED, plans=False)
     v = batch.num_nodes_padded
@@ -4128,7 +4127,7 @@ def gather_scatter_sorted_check(device) -> None:
         (out * cot).sum().backward()
         return out.detach(), table.grad
 
-    ss.reset_launch_counts()
+    tracing.reset()
     got = run()
     launches = ss.LAUNCHES["sorted_segment_sum"]
     with mock.patch.object(ss, "sorted_segment_sum_gathered", plain_version(
@@ -4164,6 +4163,7 @@ def nccl_case(device) -> None:
         to_device,
     )
     from tf2_gnn_tpu_torch.parallel import collectives
+    from tf2_gnn_tpu_torch.utils import tracing
 
     backend = "nccl" if device.type == "cuda" else "gloo"
     case = dict(name="f", kind="dp", model="ppi_rgcn", steps=1)
@@ -4184,8 +4184,7 @@ def nccl_case(device) -> None:
             one, one_labels = par.distribute_batch(mesh, stacked)
             optimizer = make_optimizer(params, model.parameters())
             state = create_train_state(model, optimizer, seed=SEED)
-            _reset_launches()
-            collectives.reset_counts()
+            tracing.reset()
             t0 = time.perf_counter()
             _, metrics = par.make_dp_train_step(model, optimizer, mesh)(
                 state, one, one_labels)
@@ -4258,23 +4257,6 @@ def scaleout_path(device, argv):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
-def launch_counters():
-    """(reset, counts) of every kernel module's launch counts, in the order
-    of the phases that introduced them."""
-    from tf2_gnn_tpu_torch.ops import pair_attention as pa
-    from tf2_gnn_tpu_torch.ops import pair_edge_mlp as pem
-    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
-    from tf2_gnn_tpu_torch.ops import probes
-    from tf2_gnn_tpu_torch.ops import sorted_spmm as ss
-
-    return [(m.reset_launch_counts, m.LAUNCHES)
-            for m in (ps, pa, pem, ss, probes)]
-
-
-def zero_counts(counters):
-    return {name: 0 for _, counts in counters for name in counts}
-
-
 def probe_path(device, argv):
     """Phase 8: the design probes at their own shapes; P1 and P2 through
     B3's kernel on the probe's plans of the PPI edges, P3 in f32 and bf16.
@@ -4284,6 +4266,7 @@ def probe_path(device, argv):
 
     from tf2_gnn_tpu_torch.ops import pair_spmm as ps
     from tf2_gnn_tpu_torch.ops import probes
+    from tf2_gnn_tpu_torch.utils import tracing
     from tf2_gnn_tpu_torch.workloads import NODE_BUDGET, build_raw_arrays
 
     # The probe's edges: every real edge of the PPI batch, sources in the
@@ -4326,14 +4309,12 @@ def probe_path(device, argv):
     # The probes' own run, with every launch count set to 0 just before
     # and read just after each call: B3's kernel once for P2 and once for
     # P1, P3's once a dtype, and nothing else.
-    counters = launch_counters()
     launches, errs = {}, {}
     for form, (kernel_fn, plain_fn) in fns.items():
-        for reset, _ in counters:
-            reset()
+        tracing.reset()
         got = kernel_fn()
         torch.cuda.synchronize()
-        counts = {n: k for _, cs in counters for n, k in cs.items() if k}
+        counts = _launches()
         kernel = "dyngather" if form.startswith("dyngather") else "pair_spmm"
         if counts != {kernel: 1}:
             raise AssertionError(f"{form} launched {counts}; expected "

@@ -61,6 +61,7 @@ from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 from tf2_gnn_tpu_torch.ops import probes as tprobes
 from tf2_gnn_tpu_torch.ops import segment as tseg
 from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
+from tf2_gnn_tpu_torch.utils import tracing
 
 
 @pytest.fixture(scope="module")
@@ -319,19 +320,16 @@ def test_route_launch_counts(name, route_batches, monkeypatch):
             (tss, "sorted_segment_sum_scaled", "sorted_segment_sum_scaled")):
         monkeypatch.setattr(module, wrapper, _counting(module, wrapper, key))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    counters = chip_smoke.launch_counters()
+    zero = dict.fromkeys(tracing.counters("launch"), 0)
     layers = params["gnn_num_layers"]
-    for reset, _ in counters:
-        reset()
+    tracing.reset()
     with torch.no_grad():
         model(batch, False)
-    got = {n: c for _, counts in counters for n, c in counts.items()}
-    assert got == dict(chip_smoke.zero_counts(counters), **{
+    assert tracing.counters("launch") == dict(zero, **{
         n: c * layers for n, c in eval_per_layer.items()})
     chip_smoke.train_and_count(
-        model, params, batch, labels, counters,
-        dict(chip_smoke.zero_counts(counters),
-             **{n: c * layers for n, c in per_layer.items()}), steps=1)
+        model, params, batch, labels,
+        dict(zero, **{n: c * layers for n, c in per_layer.items()}), steps=1)
 
 
 @pytest.fixture(scope="module")
@@ -404,11 +402,11 @@ def test_unfused_models_launch_no_kernel(name, unfused_batches, monkeypatch):
     layers = params["gnn_num_layers"]
     assert {getattr(model.gnn, f"mp_layer_{i}")._route(bare)
             for i in range(layers)} == {"unfused"}
-    counters = chip_smoke.launch_counters()
     with torch.no_grad():
         model(bare, False)
-    chip_smoke.train_and_count(model, params, bare, labels, counters,
-                               chip_smoke.zero_counts(counters), steps=1)
+    chip_smoke.train_and_count(model, params, bare, labels,
+                               dict.fromkeys(tracing.counters("launch"), 0),
+                               steps=1)
     assert not any(counts.values()), counts
     if against == "fused":
         with torch.no_grad():
@@ -547,10 +545,9 @@ def test_reference_runs_reach_the_named_wrappers(name, reference_data,
     reference's tolerances."""
     _count_into_launches(monkeypatch)
     dump = rp.load_dump(name)
-    counters = chip_smoke.launch_counters()
     for kind in ("none", rp.FUSED_PLANS[dump.model]):
         route, launches, report = chip_smoke.reference_run(
-            dump, reference_data[dump.task], kind, "cpu", counters)
+            dump, reference_data[dump.task], kind, "cpu")
         assert (route == "unfused") == (kind == "none")
         assert bool(launches) == (kind != "none")
         assert all(share <= 1.0 for share, _ in report.values())
@@ -566,7 +563,7 @@ def test_reference_check_passes_a_reordered_sum(reference_data, monkeypatch):
     for name in ("rgcn", "GNN_Edge_MLP"):
         dump = rp.load_dump(name)
         chip_smoke.reference_run(dump, reference_data[dump.task], "per_type",
-                                 "cpu", chip_smoke.launch_counters())
+                                 "cpu")
 
 
 @pytest.mark.parametrize("kind", ["none", "per_type"])
@@ -587,8 +584,7 @@ def test_reference_check_catches_swapped_edge_types(kind, reference_data,
         arrays[key], arrays[other] = arrays[other], arrays[key]
     with pytest.raises(AssertionError, match="diverges from the reference"):
         chip_smoke.reference_run(dump._replace(arrays=arrays),
-                                 reference_data[dump.task], kind, "cpu",
-                                 chip_smoke.launch_counters())
+                                 reference_data[dump.task], kind, "cpu")
 
 
 @pytest.mark.usefixtures("one_torch_thread")

@@ -67,6 +67,7 @@ from tf2_gnn_tpu_torch.ops import pair_attention as tpa
 from tf2_gnn_tpu_torch.ops import pair_edge_mlp as tpem
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
 from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
+from tf2_gnn_tpu_torch.utils import tracing
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -578,7 +579,7 @@ def test_gather_scatter_sorted_matches_plain_on_card(device, stream_dtype):
         (out * cot).sum().backward()
         return out.detach(), table.grad
 
-    tss.reset_launch_counts()
+    tracing.reset()
     got = run()
     assert tss.LAUNCHES["sorted_segment_sum"] == 2
     with pytest.MonkeyPatch.context() as mp:

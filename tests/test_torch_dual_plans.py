@@ -21,6 +21,7 @@ import torch
 from tf2_gnn_tpu.ops import spmm_pallas as jsp
 from tf2_gnn_tpu_torch import native
 from tf2_gnn_tpu_torch.ops import sorted_spmm as tss
+from tf2_gnn_tpu_torch.utils import tracing
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -82,7 +83,7 @@ def test_gather_scatter_sorted_matches_jax(dtype):
         jnp.asarray(table))
 
     plan = tss.DualScatterPlan.from_host(host, v).to("cpu")
-    tss.reset_launch_counts()
+    tracing.reset()
     t = torch.tensor(table, requires_grad=True)
     out = tss.gather_scatter_sorted(t, plan, getattr(torch, dtype))
     (out * torch.tensor(cot)).sum().backward()

@@ -86,6 +86,7 @@ def spmd_case(rank: int, world: int, case) -> Dict[str, Any]:
         restore_node_order,
     )
     from tf2_gnn_tpu_torch.parallel import collectives
+    from tf2_gnn_tpu_torch.utils import tracing
 
     device = collectives.process_device()
     mesh = make_mesh(axis_name="nodes")
@@ -98,7 +99,7 @@ def spmd_case(rank: int, world: int, case) -> Dict[str, Any]:
     replicate_to_mesh(mesh, model)
     batch, labels = distribute_batch(mesh, (host, host_labels), "nodes")
     out: Dict[str, Any] = {"rank": rank, "route": _route(model, batch)}
-    collectives.reset_counts()
+    tracing.reset()
     stacked = make_spmd_forward(model, mesh)(batch)
     out["forward_counts"] = collectives.counts_snapshot()
     logits = stacked[0] if isinstance(stacked, tuple) else stacked

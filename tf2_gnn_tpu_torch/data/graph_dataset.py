@@ -32,6 +32,7 @@ from ..ops.pair_spmm import (
     measure_pair_chunks,
 )
 from ..ops.sorted_spmm import BLOCK_NODES, build_merged_plans
+from ..utils import tracing
 from ..utils.shapes import round_up as _round_up
 from .graph_batch import GraphBatch, PaddingConfig, host_in_degrees
 
@@ -382,7 +383,9 @@ class GraphDataset(ABC):
         """Assemble one padded mega-batch with the plans the dataset's
         parameters ask for: nodes and edges packed by the C++ engine
         (``native.pack_nodes`` / ``pack_edges``, as the JAX package's
-        graph_dataset.py:411-415), the plans by its planners."""
+        graph_dataset.py:411-415), the plans by its planners. With tracing
+        on, the packing records ``data.pack`` and the planning (every
+        planner, then the per-type in-degrees) ``data.plan``."""
         num_real_nodes = sum(g.num_nodes for g in batch_graphs)
         v_pad = config.num_nodes
         if num_real_nodes > v_pad - 1:
@@ -390,59 +393,64 @@ class GraphDataset(ABC):
                 f"Batch has {num_real_nodes} nodes but padded budget {v_pad} "
                 f"requires at most {v_pad - 1}."
             )
-        node_features, node_to_graph = pack_nodes(
-            [g.node_features for g in batch_graphs],
-            v_pad=v_pad,
-            pad_graph_id=config.num_graphs - 1,
-        )
-        graph_num_nodes = [g.num_nodes for g in batch_graphs]
-        pad_node = v_pad - 1
-        sources, targets, real_counts = [], [], []
-        for edge_type in range(self.num_edge_types):
-            src, tgt, count = pack_edges(
-                [g.adjacency_lists[edge_type] for g in batch_graphs],
-                graph_num_nodes,
-                budget=config.edge_budgets[edge_type],
-                pad_node=pad_node,
+        with tracing.span("data.pack", nodes=int(num_real_nodes)):
+            node_features, node_to_graph = pack_nodes(
+                [g.node_features for g in batch_graphs],
+                v_pad=v_pad,
+                pad_graph_id=config.num_graphs - 1,
             )
-            sources.append(src)
-            targets.append(tgt)
-            real_counts.append(count)
+            graph_num_nodes = [g.num_nodes for g in batch_graphs]
+            pad_node = v_pad - 1
+            sources, targets, real_counts = [], [], []
+            for edge_type in range(self.num_edge_types):
+                src, tgt, count = pack_edges(
+                    [g.adjacency_lists[edge_type] for g in batch_graphs],
+                    graph_num_nodes,
+                    budget=config.edge_budgets[edge_type],
+                    pad_node=pad_node,
+                )
+                sources.append(src)
+                targets.append(tgt)
+                real_counts.append(count)
 
-        scatter_plans = None
-        if self._params.get("use_pallas_spmm"):
-            scatter_plans = build_merged_plans(
-                sources, targets, real_counts, v_pad).astuple()
+        with tracing.span("data.plan", nodes=int(num_real_nodes),
+                          edges=int(sum(real_counts))):
+            scatter_plans = None
+            if self._params.get("use_pallas_spmm"):
+                scatter_plans = build_merged_plans(
+                    sources, targets, real_counts, v_pad).astuple()
 
-        pair_plans = None
-        pair_plans_typed = None
-        pair_targets_merged = bool(self._params.get("pair_merge_targets"))
-        if self._params.get("use_pair_spmm"):
-            overflow = config.pair_overflow or 0
-            if config.pair_chunks_typed is not None:
-                pair_plans_typed = tuple(
-                    build_pair_plans(
-                        [sources[t]], [targets[t]], [real_counts[t]], v_pad,
-                        chunk_budget_fwd=config.pair_chunks_typed[t][0],
-                        chunk_budget_bwd=config.pair_chunks_typed[t][1],
+            pair_plans = None
+            pair_plans_typed = None
+            pair_targets_merged = bool(self._params.get("pair_merge_targets"))
+            if self._params.get("use_pair_spmm"):
+                overflow = config.pair_overflow or 0
+                if config.pair_chunks_typed is not None:
+                    pair_plans_typed = tuple(
+                        build_pair_plans(
+                            [sources[t]], [targets[t]], [real_counts[t]],
+                            v_pad,
+                            chunk_budget_fwd=config.pair_chunks_typed[t][0],
+                            chunk_budget_bwd=config.pair_chunks_typed[t][1],
+                            overflow_budget=overflow,
+                            overflow_size=overflow,
+                            group_fwd=config.pair_group_fwd,
+                            group_bwd=config.pair_group_bwd,
+                        ).astuple()
+                        for t in range(self.num_edge_types)
+                    )
+                else:
+                    pair_plans = build_pair_plans(
+                        sources, targets, real_counts, v_pad,
+                        chunk_budget_fwd=config.pair_chunks_fwd,
+                        chunk_budget_bwd=config.pair_chunks_bwd,
                         overflow_budget=overflow,
                         overflow_size=overflow,
+                        merge_targets=pair_targets_merged,
                         group_fwd=config.pair_group_fwd,
                         group_bwd=config.pair_group_bwd,
                     ).astuple()
-                    for t in range(self.num_edge_types)
-                )
-            else:
-                pair_plans = build_pair_plans(
-                    sources, targets, real_counts, v_pad,
-                    chunk_budget_fwd=config.pair_chunks_fwd,
-                    chunk_budget_bwd=config.pair_chunks_bwd,
-                    overflow_budget=overflow,
-                    overflow_size=overflow,
-                    merge_targets=pair_targets_merged,
-                    group_fwd=config.pair_group_fwd,
-                    group_bwd=config.pair_group_bwd,
-                ).astuple()
+            in_degrees = host_in_degrees(targets, v_pad)
 
         graph_batch = GraphBatch(
             node_features=node_features,
@@ -457,7 +465,7 @@ class GraphDataset(ABC):
             pair_plans=pair_plans,
             pair_plans_typed=pair_plans_typed,
             pair_targets_merged=pair_targets_merged and pair_plans is not None,
-            in_degrees=host_in_degrees(targets, v_pad),
+            in_degrees=in_degrees,
         )
         return graph_batch, self._batch_label_arrays(batch_graphs, config)
 

@@ -6,7 +6,8 @@ train loop into ``run_train_from_args`` and ``test_model``. The runs take
 ``device`` (``--device``, default ``cuda``): without a card they raise
 unless the CPU is asked for. The port runs eagerly, so
 ``--disable-tf-func`` changes nothing and is only logged; ``--profile-dir``
-writes a ``torch.profiler`` trace of the training loop.
+writes a ``torch.profiler`` trace of the training loop, with the program's
+spans (``utils/tracing.py``, switched on for the loop) among its events.
 """
 import argparse
 import json
@@ -19,6 +20,7 @@ import numpy as np
 
 from ..data.graph_dataset import DataFold, GraphDataset
 from ..layers.message_passing import MESSAGE_PASSING_IMPLEMENTATIONS
+from ..utils import tracing
 from ..utils.device import resolve_device
 from .checkpoint import (
     load_checkpoint_metadata,
@@ -181,6 +183,7 @@ def run_train_from_args(
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities)
         profiler.__enter__()
+        tracing_was = tracing.set_enabled(True)
 
     try:
         with MetricsLogger(save_dir / f"{run_id}_metrics.jsonl",
@@ -199,6 +202,8 @@ def run_train_from_args(
             mlog.log("run_end", best_valid_metric=float(best_metric))
     finally:
         if profiler is not None:
+            tracing.set_enabled(tracing_was)
+            tracing.drain()
             profiler.__exit__(None, None, None)
     if profiler is not None:
         Path(profile_dir).mkdir(parents=True, exist_ok=True)
@@ -275,7 +280,10 @@ def get_train_cli_arg_parser() -> argparse.ArgumentParser:
                         "training.")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="Write a torch.profiler trace (Chrome trace "
-                        "JSON) of the training loop into this directory.")
+                        "JSON) of the training loop into this directory; "
+                        "it carries the program's spans (steps, their "
+                        "forward, backward and optimizer, GNN layers, "
+                        "message passing, batch packing and planning).")
     parser.add_argument("--no-worker-threads", dest="use_worker_threads",
                         action="store_false", default=True,
                         help="Assemble batches in the main thread instead "

@@ -22,6 +22,7 @@ import torch
 from ..data.graph_batch import GraphBatch
 from ..data.graph_dataset import DataFold, GraphDataset
 from ..models.graph_task_model import GraphTaskModel
+from ..utils import tracing
 from .optimizers import Optimizer, make_optimizer
 
 
@@ -45,17 +46,27 @@ def create_train_state(model: GraphTaskModel, optimizer: Optimizer,
 def make_train_step(model: GraphTaskModel, optimizer: Optimizer
                     ) -> Callable[..., Tuple[TrainState, Dict[str, Any]]]:
     """(state, batch, labels) -> (state, metrics) with dropout; metrics are
-    detached tensors on the device (read them when the host needs them)."""
+    detached tensors on the device (read them when the host needs them).
+    With tracing on, the step records ``step`` (its ``TrainState.step``)
+    around ``step.forward``, ``step.backward`` and ``step.optimizer``
+    (clipping, schedule and update; ``zero_grad`` only drops the
+    gradients)."""
+    optimizer_class = type(optimizer.torch_optimizer).__name__
 
     def train_step(state: TrainState, batch: GraphBatch,
                    labels: Dict[str, torch.Tensor]):
-        model.train()
-        optimizer.zero_grad()
-        task_output = model(batch, True, state.generator)
-        metrics = model.compute_task_metrics(batch, task_output, labels)
-        metrics["loss"].backward()
-        optimizer.step(state.step)
-        state.step += 1
+        with tracing.span("step", step=state.step):
+            model.train()
+            optimizer.zero_grad()
+            with tracing.span("step.forward"):
+                task_output = model(batch, True, state.generator)
+                metrics = model.compute_task_metrics(batch, task_output,
+                                                     labels)
+            with tracing.span("step.backward"):
+                metrics["loss"].backward()
+            with tracing.span("step.optimizer", optimizer=optimizer_class):
+                optimizer.step(state.step)
+            state.step += 1
         return state, {k: v.detach() if isinstance(v, torch.Tensor) else v
                        for k, v in metrics.items()}
 
@@ -93,9 +104,10 @@ def _model_device(model: GraphTaskModel) -> torch.device:
 def to_device(batch: GraphBatch, labels: Dict[str, Any], device
               ) -> Tuple[GraphBatch, Dict[str, torch.Tensor]]:
     """A host (batch, labels) pair as tensors on ``device``."""
-    return batch.to(device), {k: torch.as_tensor(np.asarray(v),
-                                                 device=device)
-                              for k, v in labels.items()}
+    with tracing.span("data.move"):
+        return batch.to(device), {k: torch.as_tensor(np.asarray(v),
+                                                     device=device)
+                                  for k, v in labels.items()}
 
 
 def device_prefetch(batches: Iterable, device) -> Iterable:

@@ -12,6 +12,10 @@ reference order (gnn.py:116-180):
 3. returns the final [V, H] plus all MP outputs (captured raw, before the
    exchange).
 
+With tracing on (``utils/tracing.py``) each message-passing layer records
+``gnn.layer`` and each global exchange ``gnn.exchange``, with the layer's
+index.
+
 With ``use_remat`` each message-passing layer runs under
 ``torch.utils.checkpoint`` (the reference's ``nn.remat`` around the layer):
 its activations are dropped after the forward and recomputed in the
@@ -30,6 +34,7 @@ from ..data.graph_batch import GraphBatch
 from ..ops.activations import get_activation_function
 from .dropout import dropout
 from .global_exchange import get_global_exchange_class
+from ..utils import tracing
 from ..utils.init import init_dense_
 from .message_passing import get_message_passing_class
 
@@ -86,9 +91,11 @@ class GNN(nn.Module):
             i for i in range(num_layers)
             if i and i % global_exchange_every_num_layers == 0)
         for i in range(num_layers):
-            self.add_module(f"mp_layer_{i}", mp_class.from_params(
-                mp_params, num_edge_types=num_edge_types,
-                input_dim=hidden_dim))
+            layer = mp_class.from_params(mp_params,
+                                         num_edge_types=num_edge_types,
+                                         input_dim=hidden_dim)
+            layer.layer_index = i
+            self.add_module(f"mp_layer_{i}", layer)
             if i in self.exchange_layers:
                 exchange_class = get_global_exchange_class(
                     global_exchange_mode)
@@ -176,19 +183,21 @@ class GNN(nn.Module):
                 last = tmp
 
             layer = getattr(self, f"mp_layer_{layer_idx}")
-            if self.use_remat and torch.is_grad_enabled():
-                cur = checkpoint(layer, cur, batch, training,
-                                 use_reentrant=False)
-            else:
-                cur = layer(cur, batch, training)
+            with tracing.span("gnn.layer", layer=layer_idx):
+                if self.use_remat and torch.is_grad_enabled():
+                    cur = checkpoint(layer, cur, batch, training,
+                                     use_reentrant=False)
+                else:
+                    cur = layer(cur, batch, training)
             # Intermediate representations are captured before
             # exchange/layernorm/dense (reference gnn.py:305).
             all_reprs.append(cur)
 
             if layer_idx in self.exchange_layers:
-                cur = getattr(self, f"global_exchange_{layer_idx}")(
-                    cur, batch.node_to_graph, batch.num_graphs_padded,
-                    training, generator, batch.spmd_axis)
+                with tracing.span("gnn.exchange", layer=layer_idx):
+                    cur = getattr(self, f"global_exchange_{layer_idx}")(
+                        cur, batch.node_to_graph, batch.num_graphs_padded,
+                        training, generator, batch.spmd_axis)
 
             if self.use_inter_layer_layernorm:
                 cur = getattr(self, f"layernorm_{layer_idx}")(cur)

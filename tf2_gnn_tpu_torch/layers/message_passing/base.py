@@ -10,11 +10,12 @@ activation. Where the reference's ``_fused_sum_aggregate`` returns None
 before the aggregation, a flavour's form that no fused route computes),
 the unfused per-edge path runs, as in the reference: the flavour's
 per-edge messages of each type (``_compute_messages_per_type``, gathers
-and per-edge products in PyTorch ops), then ``_compute_new_node_embeddings``
+and per-edge products in PyTorch ops), then ``_aggregate_messages``
 concatenates them, applies the activation before the aggregation where
 asked, and aggregates them over the edge targets by the configured
-segment op. Which path a batch takes is decided from its plans and the
-hyperparameters alone, never from whether a kernel builds.
+segment op; ``_post_aggregate`` follows on either path. Which path a
+batch takes is decided from its plans and the hyperparameters alone,
+never from whether a kernel builds.
 
 On one shard of a node-partitioned graph (``batch.spmd_axis``) in halo
 mode, the layer first makes the ext source rows ``[local | halo slabs |
@@ -41,6 +42,7 @@ from torch import nn
 from ...data.graph_batch import GraphBatch
 from ...ops.activations import get_activation_function
 from ...ops.segment import gather_rows, get_aggregation_function
+from ...utils import tracing
 from ...utils.constants import SMALL_NUMBER
 
 MESSAGE_PASSING_IMPLEMENTATIONS: Dict[str, type] = {}
@@ -88,14 +90,22 @@ class MessagePassing(nn.Module):
     Subclasses implement ``_fused_sum_aggregate`` (the [V, H] sum-aggregated
     messages, or None where no fused route applies) and
     ``_compute_messages_per_type`` (the unfused path's per-type per-edge
-    messages), and may override ``_compute_new_node_embeddings`` (RGAT's
-    softmax) and ``_post_aggregate``; one whose update never applies the
+    messages), and may override ``_aggregate_messages`` (RGAT's softmax)
+    and ``_post_aggregate``; one whose update never applies the
     message activation (GGNN's GRU, RGIN's aggregation MLP) sets
     ``_apply_message_activation`` False, and then the activation's place
     is no reason to leave the fused path (reference base.py:140-142).
+
+    With tracing on (``utils/tracing.py``) the work from the layer's states
+    to the aggregated messages, on whichever route, records
+    ``gnn.messages`` (attributes ``route``, ``_route``'s name or
+    ``"unfused"``, and ``layer``, the ``layer_index`` the GNN stack gives
+    it), and its backward ``gnn.messages.backward``, bracketed by hooks on
+    the sums' gradient and on the states' gradient.
     """
 
     _apply_message_activation = True
+    layer_index: Optional[int] = None
 
     def __init__(self, num_edge_types: int, input_dim: int,
                  hidden_dim: int = 7,
@@ -171,13 +181,11 @@ class MessagePassing(nn.Module):
         (or a flavour's own tuple, as RGAT's)."""
         raise NotImplementedError
 
-    def _compute_new_node_embeddings(self, node_states: torch.Tensor,
-                                     messages_per_type: List[Any],
-                                     batch: GraphBatch,
-                                     training: bool) -> torch.Tensor:
+    def _aggregate_messages(self, messages_per_type: List[Any],
+                            batch: GraphBatch) -> torch.Tensor:
         """All types' messages concatenated in f32, the activation before
         the configured segment aggregation over the edge targets where
-        asked, then ``_post_aggregate`` (reference base.py:145-167)."""
+        asked (reference base.py:145-167; ``_post_aggregate`` follows)."""
         aggregation = get_aggregation_function(self.aggregation_function)
         messages = torch.cat(messages_per_type, dim=0).to(torch.float32)
         targets = torch.cat(batch.edge_targets, dim=0)
@@ -185,9 +193,8 @@ class MessagePassing(nn.Module):
                 and self.message_activation_before_aggregation):
             messages = get_activation_function(
                 self.message_activation_function)(messages)
-        aggregated = batch.slice_aggregated(
+        return batch.slice_aggregated(
             aggregation(messages, targets, batch.aggregation_segments))
-        return self._post_aggregate(aggregated, node_states, batch, training)
 
     def _post_aggregate(self, aggregated: torch.Tensor,
                         node_states: torch.Tensor, batch: GraphBatch,
@@ -273,14 +280,27 @@ class MessagePassing(nn.Module):
 
     def forward(self, node_states: torch.Tensor, batch: GraphBatch,
                 training: bool = False) -> torch.Tensor:
+        with tracing.span("gnn.messages", layer=self.layer_index) as traced:
+            sums, fused = self._message_sums(node_states, batch, training)
+            if tracing.is_enabled():
+                route = self._route(batch) if fused else "unfused"
+                traced.note(route=route)
+                tracing.backward_bracket(
+                    sums, node_states, "gnn.messages.backward", route=route,
+                    layer=self.layer_index)
+        return self._post_aggregate(sums, node_states, batch, training)
+
+    def _message_sums(self, node_states: torch.Tensor, batch: GraphBatch,
+                      training: bool):
+        """(the [V, H] aggregated messages, whether a fused route made
+        them)."""
         halo = batch.spmd_axis is not None and batch.halo_mode
         if halo and self._halo_overlap_capable(batch):
             # The fused route assembles its ext source tables from the
             # local states and the raw boundary rows.
             fused = self._fused_sum_aggregate(node_states, batch, training)
             if fused is not None:
-                return self._post_aggregate(fused, node_states, batch,
-                                            training)
+                return fused, True
             src_states = self._exchange_halo(node_states, batch)
         else:
             # The source side reads [local | halo] rows; the aggregation
@@ -289,12 +309,10 @@ class MessagePassing(nn.Module):
                           else node_states)
             fused = self._fused_sum_aggregate(src_states, batch, training)
             if fused is not None:
-                return self._post_aggregate(fused, node_states, batch,
-                                            training)
+                return fused, True
         messages = self._compute_messages_per_type(src_states, batch,
                                                    training)
-        return self._compute_new_node_embeddings(node_states, messages,
-                                                 batch, training)
+        return self._aggregate_messages(messages, batch), False
 
     def _normalize_by_incoming(self, messages: torch.Tensor, edge_type: int,
                                batch: GraphBatch,

@@ -290,13 +290,13 @@ class RGAT(MessagePassing):
                             logits))
         return results
 
-    def _compute_new_node_embeddings(
-            self, node_states: torch.Tensor,
-            messages_per_type: List[Tuple[torch.Tensor, torch.Tensor]],
-            batch: GraphBatch, training: bool) -> torch.Tensor:
+    def _aggregate_messages(
+            self, messages_per_type: List[Tuple[torch.Tensor, torch.Tensor]],
+            batch: GraphBatch) -> torch.Tensor:
         """The softmax per (target, head) over all types jointly, as
-        ``exp(segment_log_softmax)``, the weighted sum per target, then
-        the activation (reference rgat.py:352-376)."""
+        ``exp(segment_log_softmax)``, and the weighted sum per target
+        (reference rgat.py:352-376; the activation follows in
+        ``_post_aggregate``)."""
         segments = batch.aggregation_segments
         messages = torch.cat([m for m, _ in messages_per_type], dim=0)
         logits = torch.cat([s for _, s in messages_per_type], dim=0)
@@ -304,5 +304,14 @@ class RGAT(MessagePassing):
         attention = torch.exp(segment_log_softmax(logits, targets, segments))
         aggregated = batch.slice_aggregated(segment_sum(
             attention[:, :, None] * messages, targets, segments))
+        return aggregated.reshape(batch.num_nodes_padded, self.hidden_dim)
+
+    def _post_aggregate(self, aggregated: torch.Tensor,
+                        node_states: torch.Tensor, batch: GraphBatch,
+                        training: bool) -> torch.Tensor:
+        """The activation, on every route: the reference's unfused RGAT
+        applies it after the softmax-weighted sum whatever
+        ``message_activation_before_aggregation`` says, and its fused
+        routes run only where that flag is off."""
         return get_activation_function(self.message_activation_function)(
-            aggregated.reshape(batch.num_nodes_padded, self.hidden_dim))
+            aggregated)

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..data.graph_batch import GraphBatch
 from ..layers.gnn import GNN
+from ..utils import tracing
 from ..utils.device import resolve_device
 
 
@@ -111,8 +112,9 @@ class GraphTaskModel(nn.Module):
         final, all_reprs = self.gnn(batch, training, generator)
         representations = ((final, all_reprs)
                            if self.use_intermediate_gnn_results else final)
-        return self.compute_task_output(batch, representations, training,
-                                        generator)
+        with tracing.span("gnn.readout"):
+            return self.compute_task_output(batch, representations,
+                                            training, generator)
 
     @staticmethod
     def compute_task_metrics(batch: GraphBatch, task_output,

@@ -17,7 +17,8 @@ forms in ``ops/``) are the plain versions; ``numpy_forms()`` runs the
 packers and planners on them for its duration (process-wide), which is how
 the tests and ``chip_smoke.py`` compare the two. ``PLANNED`` counts which
 planner planned each direction or stream (``pair binding``, ``pair numpy
-spill``, ``pair numpy``, ``scatter binding``, ``scatter numpy``).
+spill``, ``pair numpy``, ``scatter binding``, ``scatter numpy``); the
+tracing registry reads them as ``planned.<name>``.
 """
 import collections
 import contextlib

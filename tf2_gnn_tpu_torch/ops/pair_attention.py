@@ -181,16 +181,13 @@ def _stabilise(m, stream_dtype):
 # in csrc/pair_stream.cu), their plain versions and wrappers.
 
 # Launch counts of the CUDA kernels of this module: each wrapper adds one
-# where it launches its kernel, and nowhere else.
+# where it launches its kernel, and nowhere else. ``utils/tracing.py``'s
+# registry reads them as ``launch.<name>`` and resets them.
 LAUNCHES = {"pair_attention_expd": 0, "pair_attention_bwd_fused": 0,
             "pair_attention_max": 0, "pair_attention_agg": 0}
 
 _SOURCE = "pair_attention.cu"
 
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _segment_max(values, seg, num_segments: int):

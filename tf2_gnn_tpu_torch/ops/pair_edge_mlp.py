@@ -71,7 +71,8 @@ def pair_edge_mlp_applicable(rows_a: int, rows_b: int, dtype) -> bool:
 # wrappers.
 
 # Launch counts of the CUDA kernels of this module: each wrapper adds one
-# where it launches its kernel, and nowhere else.
+# where it launches its kernel, and nowhere else. ``utils/tracing.py``'s
+# registry reads them as ``launch.<name>`` and resets them.
 LAUNCHES = {"relu_pair_fwd_m": 0, "relu_pair_da": 0, "relu_pair_fwd": 0,
             "relu_pair_db": 0}
 
@@ -91,10 +92,6 @@ _SIGNATURES = {
     "relu_pair_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _gather(x, idx):

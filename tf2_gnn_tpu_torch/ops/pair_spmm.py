@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils import tracing
 from ..utils.constants import SMALL_NUMBER
 from ..utils.device import as_tensor
 from ..utils.shapes import round_up as _round_up
@@ -564,6 +565,7 @@ class StreamJointPlan(_DevicePlan):
         """The forward direction's compact form, which K2 reads: sources in
         the stacked [L * v_src] table, targets in [v_out]."""
         if "fwd" not in self._rows:
+            tracing.count("compact.build.stream_joint.fwd")
             self._rows["fwd"] = slot_rows(
                 self.rel_src_f, self.rel_tgt_f, self.src_blk_f,
                 self.grp_tgt_fl, self.num_types * self.v_src, self.v_out,
@@ -576,6 +578,7 @@ class StreamJointPlan(_DevicePlan):
         in the one [v_out] cotangent slab (all-zero types), targets in the
         stacked [L * v_src] table rows."""
         if "bwd" not in self._rows:
+            tracing.count("compact.build.stream_joint.bwd")
             self._rows["bwd"] = slot_rows(
                 self.rel_src_b, self.rel_tgt_b, self.src_blk_b,
                 self.grp_tgt_b, self.v_out, self.num_types * self.v_src,
@@ -644,6 +647,7 @@ class StreamTypedPlan(_DevicePlan):
         forward: sources in the stacked [L * v_src] table, targets in the
         stacked [L * v_out] output."""
         if "fwd" not in self._rows:
+            tracing.count("compact.build.stream_typed.fwd")
             self._rows["fwd"] = slot_rows(
                 self.rel_src_f, self.rel_tgt_f, self.src_blk_f,
                 self.grp_tgt_f, self.num_types * self.v_src, self.out_rows,
@@ -656,6 +660,7 @@ class StreamTypedPlan(_DevicePlan):
         backward: sources in the [L * v_out] cotangent (type l's groups in
         its slab), targets in the stacked [L * v_src] table rows."""
         if "bwd" not in self._rows:
+            tracing.count("compact.build.stream_typed.bwd")
             self._rows["bwd"] = slot_rows(
                 self.rel_src_b, self.rel_tgt_b, self.src_blk_b,
                 self.grp_tgt_b, self.out_rows, self.num_types * self.v_src,
@@ -712,6 +717,7 @@ class MergedPlan(_DevicePlan):
         a table of ``table_rows``, which B3, B4 and B6 read."""
         key = ("fwd", out_rows, table_rows)
         if key not in self._rows:
+            tracing.count("compact.build.merged.fwd")
             self._rows[key] = slot_rows(*self.fwd, table_rows, out_rows)
         return self._rows[key]
 
@@ -726,6 +732,7 @@ class MergedPlan(_DevicePlan):
         first pass and B5 read."""
         key = ("bwd", out_rows, table_rows)
         if key not in self._rows:
+            tracing.count("compact.build.merged.bwd")
             self._rows[key] = slot_rows(*self.bwd, table_rows, out_rows)
         return self._rows[key]
 
@@ -735,6 +742,7 @@ class MergedPlan(_DevicePlan):
         table_rows)``, with target-score rows ``(u // vs) * vs + t``."""
         key = ("bwd_ts", out_rows, table_rows, vs)
         if key not in self._rows:
+            tracing.count("compact.build.merged.bwd_ts")
             self._rows[key] = ts_rows(self.bwd_rows(out_rows, table_rows),
                                       *self.bwd, vs)
         return self._rows[key]
@@ -758,16 +766,13 @@ def pair_unit_scales(plan: MergedPlan, out_rows: int):
 # autograd op
 
 # Launch counts of the CUDA kernels of this module: each wrapper adds one
-# where it launches its kernel, and nowhere else.
+# where it launches its kernel, and nowhere else. ``utils/tracing.py``'s
+# registry reads them as ``launch.<name>`` and resets them.
 LAUNCHES = {"pair_stream": 0, "pair_stream_joint": 0, "pair_spmm": 0}
 
 _SOURCE = "pair_stream.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def slot_abs_ids(rel_src, rel_tgt, src_blk, grp_tgt):

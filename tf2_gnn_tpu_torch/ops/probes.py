@@ -42,6 +42,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..utils import tracing
 from ..utils.device import as_tensor
 from .pair_edge_mlp import _device_type
 from .pair_spmm import (
@@ -56,7 +57,8 @@ from .pair_spmm import (
 
 # Launch counts of the CUDA kernels of this module: the wrapper adds one
 # where it launches its kernel, and nowhere else. P1 and P2 launch B3's
-# kernel and count under ``pair_spmm.LAUNCHES["pair_spmm"]``.
+# kernel and count under ``pair_spmm.LAUNCHES["pair_spmm"]``. The
+# tracing registry reads and resets them (``launch.<name>``).
 LAUNCHES = {"dyngather": 0}
 
 _SOURCE = "dyngather.cu"
@@ -74,10 +76,6 @@ _SIGNATURES = {
 STRIP_COLS = {torch.float32: 4, torch.bfloat16: 8}
 MAX_STRIP_BYTES = 232448
 
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +194,7 @@ class ProbePlan:
         reads."""
         key = (out_rows, table_rows)
         if key not in self._rows:
+            tracing.count("compact.build.probe.fwd")
             self._rows[key] = slot_rows(*self.kernel_args[1:], table_rows,
                                         out_rows)
         return self._rows[key]

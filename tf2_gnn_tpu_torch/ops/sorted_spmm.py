@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils import tracing
 from ..utils.constants import SMALL_NUMBER
 from ..utils.device import as_tensor
 from .pair_attention import _check
@@ -382,6 +383,7 @@ class ScatterPlan:
         cotangent (``plan_gather_src``'s gradient)."""
         key = (form, out_rows)
         if key not in self._rows:
+            tracing.count(f"compact.build.scatter.{form}")
             fused = dict(stream_row=self.bwd_to_fwd_idx,
                          stream_rows=self.rel_tgt.numel())
             rel, blocks, block_rows, kwargs = {
@@ -441,6 +443,7 @@ class DualScatterPlan:
     @property
     def fwd_rows(self) -> SlotRows:
         if "fwd" not in self._rows:
+            tracing.count("compact.build.dual_scatter.fwd")
             self._rows["fwd"] = sorted_rows(
                 self.rel_tgt, self.tgt_blocks, self.num_nodes, BLOCK_NODES,
                 stream_row=self.src_idx, stream_rows=self.num_nodes)
@@ -449,6 +452,7 @@ class DualScatterPlan:
     @property
     def bwd_rows(self) -> SlotRows:
         if "bwd" not in self._rows:
+            tracing.count("compact.build.dual_scatter.bwd")
             self._rows["bwd"] = sorted_rows(
                 self.rel_src, self.src_blocks, self.num_nodes, BLOCK_NODES,
                 stream_row=self.tgt_idx, stream_rows=self.num_nodes)
@@ -460,16 +464,13 @@ class DualScatterPlan:
 # B13 in csrc/sorted_scatter.cu), their plain versions and wrappers.
 
 # Launch counts of the CUDA kernels of this module: each wrapper adds one
-# where it launches its kernel, and nowhere else.
+# where it launches its kernel, and nowhere else. ``utils/tracing.py``'s
+# registry reads them as ``launch.<name>`` and resets them.
 LAUNCHES = {"sorted_segment_sum": 0, "sorted_segment_sum_scaled": 0,
             "sorted_segment_max": 0, "attention_scatter_sums": 0}
 
 _SOURCE = "sorted_scatter.cu"
 
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _block_rows(num_nodes: int, block_rows: Optional[int]) -> int:

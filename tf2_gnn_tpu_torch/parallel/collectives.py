@@ -25,7 +25,8 @@ with JAX's transposes written out:
 call through one flat buffer (the steps' gradients and metrics).
 
 Every call adds one to ``COUNTS[name]["calls"]`` and the bytes this rank
-sends to ``COUNTS[name]["bytes"]``; ``reset_counts`` sets them to 0. A
+sends to ``COUNTS[name]["bytes"]``; ``utils/tracing.py``'s registry reads
+them as ``collective.<name>.calls`` / ``.bytes`` and resets them. A
 CUDA tensor given to a gloo group is copied to the host, reduced or
 exchanged there and copied back (``HOST_STAGED`` names the collectives
 that did so), since gloo's CUDA support differs between collectives and
@@ -86,12 +87,6 @@ def build_mesh(shape: Sequence[int], names: Sequence[str],
                             mesh_dim_names=tuple(names))
     use_mesh(mesh)
     return mesh
-
-
-def reset_counts() -> None:
-    for counts in COUNTS.values():
-        counts["calls"] = 0
-        counts["bytes"] = 0
 
 
 def counts_snapshot() -> Dict[str, Dict[str, int]]:

@@ -60,7 +60,6 @@ def dump_runs(device, repeats: int) -> None:
                                      float(a.min()))
             return _fn(x)
         activations._ACTIVATIONS[key] = recorded
-    counters = chip_smoke.launch_counters()
     root = chip_smoke.ROOT / "build" / "phase13"
     for name, task, _ in rp.CASES:
         dump = rp.load_dump(name)
@@ -71,7 +70,7 @@ def dump_runs(device, repeats: int) -> None:
             for _ in range(repeats if kind == "none" else 2):
                 try:
                     report = chip_smoke.reference_run(dump, data, kind,
-                                                      device, counters)[2]
+                                                      device)[2]
                 except AssertionError as e:
                     fails += 1
                     print(f"{name} on {kind} plans failed: {e}", flush=True)
