@@ -1,16 +1,32 @@
 """Per-edge-type linear maps with stacked weights (port of
 ``tf2_gnn_tpu/layers/message_passing/typed_linear.py``).
 
-All types share one ``[L, D, H]`` parameter, so the node-space transform of
-every type is one batched matmul. The JAX module's ``pad_out_to`` is not
-ported: it padded the output to the TPU's 128-lane feature tile for the
-Pallas kernels, and the CUDA kernels mask the ragged feature edge instead.
+All types share one ``[L, D, H]`` parameter. The all-types form (one
+``[V, D]`` input against every type) writes the type-major ``[L, V, H]``
+tables in place: ``torch.matmul`` of a rank-2 input and a rank-3 kernel
+folds the pair into one product ``kernel.mT [L*H, D] @ x.mT [D, V]``,
+whose ``[L*H, V]`` result it then copies, transposed, into ``[L, V, H]``,
+and in the backward it copies the ``[L, V, H]`` gradient back into the
+folded layout: two strided copies of every table a layer. ``_AllTypes``
+instead takes one batched product with the input at batch stride 0
+forward, the input's gradient as one product a type accumulated into one
+``[V, D]`` (split-K over the types), and the kernel's gradient as one
+product a type into its slice of ``[L, D, H]`` (on an H100 cuBLAS takes
+the batched form with ``x.mT`` at batch stride 0 1.8 to 8 times slower:
+it picks small tiles for the long reduction over V). The per-type batched
+form (``[L, V, D]`` input) and the one-type form keep ``torch.matmul``,
+which maps them to a batched or a single product without a fold.
+
+The JAX module's ``pad_out_to`` is not ported: it padded the output to
+the TPU's 128-lane feature tile for the Pallas kernels, and the CUDA
+kernels mask the ragged feature edge instead.
 """
 from typing import Optional
 
 import torch
 from torch import nn
 
+from ...utils import tracing
 from ...utils.init import glorot_uniform_
 
 _OPERAND_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
@@ -21,10 +37,37 @@ def _rounded(x: torch.Tensor, dtype) -> torch.Tensor:
     return x if dtype is None else x.to(dtype).to(torch.float32)
 
 
+class _AllTypes(torch.autograd.Function):
+    """``x`` [V, D] against every type of ``kernel`` [L, D, H] -> the
+    contiguous [L, V, H], with no transposed copy either way."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, kernel)
+        num_types = kernel.shape[0]
+        out = x.new_empty(num_types, x.shape[0], kernel.shape[2])
+        return torch.bmm(x.expand(num_types, -1, -1), kernel, out=out)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x, kernel = ctx.saved_tensors
+        d_x = d_kernel = None
+        if ctx.needs_input_grad[0]:
+            d_x = torch.mm(grad[0], kernel[0].mT)
+            for l in range(1, kernel.shape[0]):
+                d_x.addmm_(grad[l], kernel[l].mT)
+        if ctx.needs_input_grad[1]:
+            d_kernel = torch.empty_like(kernel)
+            for l in range(kernel.shape[0]):
+                torch.mm(x.mT, grad[l], out=d_kernel[l])
+        return d_x, d_kernel
+
+
 class TypedLinear(nn.Module):
     """Stacked per-type linear map (no bias, glorot init).
 
-    * ``forward(x)`` with x [V, D] -> [L, V, out_size] (all types)
+    * ``forward(x)`` with x [V, D] -> [L, V, out_size] (all types; counted
+      as ``typed_linear.shared_input`` in ``utils/tracing.py``'s registry)
     * ``forward(x)`` with x [L, V, D] -> [L, V, out_size] (per-type batched)
     * ``forward(x, edge_type=l)`` with x [N, D] -> [N, out_size] (one type,
       the unfused path's per-edge layers)
@@ -59,7 +102,10 @@ class TypedLinear(nn.Module):
         x = _rounded(x, self.operand_dtype)
         if edge_type is not None:
             return torch.matmul(x, kernel[edge_type])
-        if x.dim() in (2, 3):
+        if x.dim() == 2:
+            tracing.count("typed_linear.shared_input")
+            return _AllTypes.apply(x, kernel)
+        if x.dim() == 3:
             return torch.matmul(x, kernel)
         raise ValueError(
             f"TypedLinear expects rank-2 or rank-3 input, got {x.dim()}.")

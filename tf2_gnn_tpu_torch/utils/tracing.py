@@ -29,8 +29,10 @@ The records (``SpanRecord``) are kept in memory, at most ``MAX_SPANS``
 with ``drain()``.
 
 **Counters.** One registry: ``count(name, n)`` adds to a counter of its
-own (``compact.build.<plan>.<direction>``, a plan's compact form built),
-and the kernel modules' launch counts, the native planners' counts and
+own (``compact.build.<plan>.<direction>``, a plan's compact form built;
+``typed_linear.shared_input``, a forward of ``TypedLinear``'s all-types
+form, which writes the [L, V, H] tables without transposed copies), and
+the kernel modules' launch counts, the native planners' counts and
 the collectives' counts are read from the stores their modules keep
 (``STORES``: ``launch.*``, ``planned.*``, ``collective.<name>.calls`` /
 ``.bytes``). ``counters()`` is a snapshot of all of them, ``reset()``
