@@ -22,8 +22,8 @@ t``):
   route) builds each plan's forms once over 3 train steps and hands the
   same objects to every B9 call;
 * B9 takes any width (a row its registers cannot hold takes the tiled
-  form), so the route gate is the reference's: an RGAT layer of 512, 576
-  or 1024 columns takes the pair path and reaches B9, even on a batch
+  form), so the port's route gate bounds no width: an RGAT layer of 512,
+  576 or 1024 columns takes the pair path and reaches B9, even on a batch
   that also carries scatter plans.
 """
 import functools
@@ -293,21 +293,19 @@ def test_rgat_builds_its_forms_once_per_batch(form, heads, monkeypatch):
 
 
 @pytest.mark.parametrize("hidden", [512, 576, 1024])
-def test_rgat_wider_than_b9s_row_takes_the_sorted_route(hidden,
-                                                        monkeypatch):
-    """Wider than B9's register row the port's gate is the reference's:
-    at the PPI shape in bf16 both take the pair path at 4 heads of 128
-    and 144 columns and, by the reference's VMEM budgets, not at 256; on
-    this batch, which also carries scatter plans, both take it at all
-    three widths, and a train step reaches B9 (its register form at 512
-    columns, its tiled form at 576 and 1024) and never the sorted-scatter
-    route. (The name is kept from the port's narrower gate, which sent
-    the wider layers to the sorted route.)"""
+def test_rgat_wider_than_b9s_row_takes_the_pair_route(hidden, monkeypatch):
+    """Wider than B9's register row the port takes the pair path: at the
+    PPI shape in bf16 the port's gate, which keeps only the kernels' own
+    limits, takes it at 4 heads of 128, 144 and 256 columns, and the
+    reference's, by its VMEM budgets, at all but 256; on this batch, which
+    also carries scatter plans, both take it at all three widths, and a
+    train step reaches B9 (its register form at 512 columns, its tiled
+    form at 576 and 1024) and never the sorted-scatter route."""
     rows, v = 3 * 8064, 8064
-    assert (tpa.pair_attention_applicable(rows, v, hidden, 4, torch.bfloat16,
-                                          torch.bfloat16, v)
-            == jpa.pair_attention_applicable(rows, v, hidden, 4,
-                                             jnp.bfloat16, jnp.bfloat16, v)
+    assert tpa.pair_attention_applicable(rows, v, hidden, 4, torch.bfloat16,
+                                         torch.bfloat16, v)
+    assert (jpa.pair_attention_applicable(rows, v, hidden, 4, jnp.bfloat16,
+                                          jnp.bfloat16, v)
             == (hidden < 1024))
 
     _, batch, labels = small_workload(seed=8, merged=True)

@@ -50,6 +50,9 @@ NOT_PORTED = {
     "ops/pair_spmm.py::pair_kernel_table_bytes": _VMEM_GATE,
     "ops/pair_spmm.py::JOINT_WINDOW_BUDGET_BYTES": _VMEM_GATE,
     "ops/pair_spmm.py::VMEM_TABLE_BUDGET_BYTES": _VMEM_GATE,
+    "ops/pair_attention.py::SCORE_BUDGET_BYTES": _VMEM_GATE,
+    "ops/pair_attention.py::TABLE_BUDGET_BYTES": _VMEM_GATE,
+    "ops/pair_attention.py::RESIDENT_BUDGET_BYTES": _VMEM_GATE,
     "ops/pair_attention.py::EXACT":
         "jax.lax.Precision.HIGHEST, a TPU matmul precision",
 }

@@ -386,14 +386,92 @@ def test_unported_routes_raise():
                                  "bound")
 
 
-@pytest.mark.parametrize("case", [
-    (24192, 8064, 320, 4, "bfloat16"), (24192, 8064, 320, 16, "bfloat16"),
-    (24192, 8064, 512, 4, "bfloat16"), (24192, 8064, 576, 4, "bfloat16"),
-    (24192, 8064, 1024, 4, "bfloat16"),
-    (768, 256, 16, 4, "float32"), (768, 256, 12, 3, "float32"),
-    (1000, 256, 16, 4, "float32"), (3 * 60000, 60000, 256, 4, "float32")])
-def test_applicability_gate_matches_jax(case):
-    rows, v, h, k, dtype = case
+# (rows, v, h, k, dtype, the port's answer, what the JAX package's gate
+# fails on: None, a structural condition or only a VMEM budget).
+GATE_CASES = [
+    (24192, 8064, 320, 4, "bfloat16", True, None),
+    (24192, 8064, 320, 16, "bfloat16", False, "structure"),
+    (24192, 8064, 512, 4, "bfloat16", True, None),
+    (24192, 8064, 576, 4, "bfloat16", True, None),
+    (24192, 8064, 1024, 4, "bfloat16", True, "budget"),
+    (768, 256, 16, 4, "float32", True, None),
+    (768, 256, 12, 3, "float32", False, "structure"),
+    (1000, 256, 16, 4, "float32", False, "structure"),
+    (3 * 60000, 60000, 256, 4, "float32", False, "structure"),
+    # The first padded size past the old score budget, and PPI's whole
+    # training fold in one batch.
+    (3 * 9856, 9856, 320, 4, "bfloat16", True, "budget"),
+    (3 * 49152, 49152, 320, 4, "bfloat16", True, "budget"),
+]
+JAX_BUDGETS = ("SCORE_BUDGET_BYTES", "TABLE_BUDGET_BYTES",
+               "RESIDENT_BUDGET_BYTES")
+
+
+@pytest.mark.parametrize("case", GATE_CASES)
+def test_applicability_gate_is_jaxs_structure_without_its_budgets(
+        case, monkeypatch):
+    """The port's gate keeps the JAX package's structural conditions and
+    drops its TPU VMEM budgets: the JAX answer where a structural
+    condition fails, True where only a budget term fails; with its
+    budgets lifted, the JAX gate answers as the port's."""
+    rows, v, h, k, dtype, want, jax_fails = case
     jdt, tdt = DTYPES[dtype]
-    assert (tpa.pair_attention_applicable(rows, v, h, k, tdt, tdt, v)
-            == pa.pair_attention_applicable(rows, v, h, k, jdt, jdt, v))
+    assert tpa.pair_attention_applicable(rows, v, h, k, tdt, tdt, v) is want
+    assert (pa.pair_attention_applicable(rows, v, h, k, jdt, jdt, v)
+            == (jax_fails is None))
+    assert want == (jax_fails != "structure")
+    for name in JAX_BUDGETS:
+        monkeypatch.setattr(pa, name, float("inf"))
+    assert pa.pair_attention_applicable(rows, v, h, k, jdt, jdt, v) == want
+
+
+def test_applicability_gate_holds_the_kernels_int32_rows():
+    """The kernels' compact forms and launches index rows with int32: a
+    score table of 2**31 rows or more is refused, one row fewer is not."""
+    v = 2**30
+    bf16 = torch.bfloat16
+    assert tpa.pair_attention_applicable(v, v, 320, 4, bf16, bf16, v)
+    assert not tpa.pair_attention_applicable(2 * v, v, 320, 4, bf16, bf16,
+                                             v)
+    assert tpa.KERNEL_MAX_ROWS == 2**31 - 1
+
+
+@pytest.mark.parametrize("stabiliser", ["bound", "exact"])
+def test_a_sentinel_overflow_counted_on_the_host_is_skipped(stabiliser):
+    """``MergedPlan.from_host`` keeps only the overflow slots that hold an
+    edge: a fixed-size overflow of sentinels only (the data layer's
+    static overflow) becomes empty, so the op skips its overflow term,
+    and a plan with spilled edges keeps each of them, in order, without
+    its sentinels. Outputs and gradients equal those of the same plans
+    kept whole, which sum the sentinels' zeros."""
+    rng = np.random.RandomState(21)
+    v = 256
+    srcs, tgts, counts = _edges(rng, 2, v)
+    budgets = _spill_budgets(counts)
+    spills = int(np.sum(tps.build_pair_plans(
+        srcs, tgts, counts, v, **budgets).ovf_tgt < v))
+    assert spills > 0
+    sentinels = tps.build_pair_plans(srcs, tgts, counts, v, overflow_size=64)
+    spilled = tps.build_pair_plans(srcs, tgts, counts, v,
+                                   overflow_size=spills + 64, **budgets)
+    table, scores = _inputs(rng, 2 * v, 4, 4, 4)
+    for host, kept in ((sentinels, 0), (spilled, spills)):
+        assert host.ovf_src.shape == (kept + 64,)
+        trimmed = tps.MergedPlan.from_host(host.astuple(), v)
+        assert trimmed.ovf_src.shape == (kept,)
+        for got, whole in ((trimmed.ovf_src, host.ovf_src),
+                           (trimmed.ovf_tgt, host.ovf_tgt),
+                           (trimmed.inv_ovf, host.inv_ovf)):
+            np.testing.assert_array_equal(got, whole[:kept])
+        assert np.all(host.ovf_tgt[kept:] == v)
+        results = []
+        for plan in (trimmed, tps.MergedPlan(*host.astuple()).to("cpu")):
+            t = torch.tensor(table).requires_grad_(True)
+            s = torch.tensor(scores).requires_grad_(True)
+            denom, weighted = tpa.pair_attention(t, s, plan.to("cpu"), v, 4,
+                                                 stabiliser)
+            (denom.sum() + (weighted * weighted).sum()).backward()
+            results.append((denom.detach(), weighted.detach(), t.grad,
+                            s.grad))
+        for a, b in zip(*results):
+            assert torch.equal(a, b)

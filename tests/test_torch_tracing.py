@@ -3,7 +3,9 @@ tracing off records nothing and tracing on changes no number; one train
 step records the span tree of its layers on the fused and the unfused
 route; the registry holds every module's counters and resets them; a
 plan's compact forms are built once; a span's host times hold its own
-profiler range (one clock)."""
+profiler range (one clock); an RGAT layer on the pair-attention route
+records its score, attention and normalising spans inside its messages,
+and every RGAT forward counts its route, traced or not."""
 import threading
 
 import numpy as np
@@ -267,3 +269,59 @@ def test_a_span_holds_its_profiler_range():
         host_start = (record.start_ns - origin) / 1e3
         host_end = (record.end_ns - origin) / 1e3
         assert host_start - 50 <= start_us <= end_us <= host_end + 50
+
+
+def _rgat(path, **params):
+    """(model, the first TRAIN batch on the CPU) of a two-layer RGAT of 4
+    heads over a merged plan, the benchmark cell's form."""
+    dataset_params = {**PPIDataset.get_default_hyperparameters(),
+                      "max_nodes_per_batch": 400, "use_pair_spmm": True}
+    dataset = PPIDataset(dataset_params, rng=np.random.RandomState(0))
+    dataset.load_data(path)
+    model_params = NodeMulticlassTask.get_default_hyperparameters("rgat")
+    model_params.update({"gnn_hidden_dim": 16, "gnn_num_layers": LAYERS,
+                         "gnn_num_heads": 4, "gnn_edge_dtype": "bfloat16",
+                         **params})
+    model = NodeMulticlassTask.from_dataset(model_params, dataset,
+                                            device="cpu", seed=1)
+    host = next(iter(dataset.batch_iterator(DataFold.TRAIN)))
+    batch, _ = training.to_device(*host, "cpu")
+    return model, batch
+
+
+def test_rgat_records_its_attention_spans_inside_the_messages(ppi_path):
+    model, batch = _rgat(ppi_path)
+    with tracing.enabled():
+        model(batch, training=False)
+    records = tracing.drain()
+    by_id = {r.id: r for r in records}
+    messages = [r for r in records if r.name == "gnn.messages"]
+    assert [r.attrs for r in messages] == [
+        {"layer": i, "route": "pair_attention"} for i in range(LAYERS)]
+    names = ("rgat.scores", "rgat.attention", "rgat.normalise")
+    for layer, outer in enumerate(messages):
+        inner = [r for r in records if r.parent == outer.id]
+        assert [r.name for r in inner] == list(names)
+        assert all(r.attrs == {"layer": layer} for r in inner)
+        for a, b in zip(inner, inner[1:]):
+            assert a.end_ns <= b.start_ns
+        for r in inner:
+            assert outer.start_ns <= r.start_ns <= r.end_ns <= outer.end_ns
+            assert by_id[r.parent] is outer
+
+
+@pytest.mark.parametrize("plans", [True, False],
+                         ids=["pair_attention", "unfused"])
+def test_rgat_counts_its_route_once_a_layer_with_tracing_off(plans,
+                                                             ppi_path):
+    model, batch = _rgat(ppi_path, **({} if plans else {
+        "gnn_aggregation_function": "mean"}))
+    tracing.reset()
+    model(batch, training=False)
+    model(batch, training=False)
+    route = "pair_attention" if plans else "unfused"
+    assert tracing.counters("rgat.route") == {route: 2 * LAYERS}
+    assert tracing.counters()[f"rgat.route.{route}"] == 2 * LAYERS
+    assert tracing.drain() == []
+    tracing.reset()
+    assert tracing.counters("rgat.route") == {}

@@ -287,7 +287,7 @@ class GraphBatch:
     def pair_typed(self) -> Optional[Tuple[MergedPlan, ...]]:
         v = self.num_nodes_padded
         return self._typed_form("typed", lambda dev: tuple(
-            MergedPlan(*p, out_rows=v).to(dev)
+            MergedPlan.from_host(p, v).to(dev)
             for p in self.pair_plans_typed))
 
     def replace(self, **changes) -> "GraphBatch":
@@ -314,10 +314,9 @@ class GraphBatch:
         merged = self.pair_merged
         if merged is None and self.pair_plans is not None:
             v = self.num_nodes_padded
-            merged = MergedPlan(
-                *self.pair_plans,
-                out_rows=(self.num_edge_types * v if self.pair_targets_merged
-                          else v))
+            merged = MergedPlan.from_host(
+                self.pair_plans,
+                self.num_edge_types * v if self.pair_targets_merged else v)
         scatter = self.scatter_merged
         if scatter is None and self.scatter_plans is not None:
             scatter = ScatterPlan.from_host(self.scatter_plans,

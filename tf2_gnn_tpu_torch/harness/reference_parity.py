@@ -69,10 +69,11 @@ LOSS_RTOL = 5e-4
 GRAD_RTOL = 5e-3
 
 # The dataset parameters of each plan kind. The merged plan is RGAT's, at
-# a node budget of 1024 (the dump's batch is 200 nodes): at the dumps'
-# 10000 the reference's static gate of pair attention (its VMEM budgets,
-# ``ops/pair_attention.py::pair_attention_applicable``) sends RGAT down its
-# unfused path.
+# a node budget of 1024 (the dump's batch is 200 nodes). The port's gate of
+# pair attention (``ops/pair_attention.py::pair_attention_applicable``)
+# keeps only the kernels' own limits and takes the route at the dumps'
+# 10000 too; the JAX package's gate still applies the TPU's VMEM budgets,
+# which there send its RGAT down the unfused path.
 PLAN_PARAMS = {
     "none": {"use_pair_spmm": False, "use_pallas_spmm": False},
     "per_type": {"use_pair_spmm": True, "pair_per_type": True},

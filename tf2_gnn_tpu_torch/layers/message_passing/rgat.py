@@ -12,20 +12,31 @@ per target over all edge types jointly; the message is the head's slice of
 pair-attention op (``ops/pair_attention.py``) does the rest on the plan: a
 merged plan takes ``pair_attention``, per-type plans (``pair_plans_typed``,
 on the device as ``GraphBatch.pair_typed``) take ``pair_attention_typed``,
-one launch of each kernel per edge type. Where the pair-attention gate
-fails or the batch has no pair plans, the sorted fallback runs on the
-batch's scatter plan (``ops/sorted_spmm.py``): gathers of the source
-bundle and the target scores, the exact per-target max (B15) and one pass
-for the denominators and weighted sums (B14).
+one launch of each kernel per edge type. The pair-attention gate
+(``pair_attention_applicable``) keeps the reference's structural
+conditions and the CUDA kernels' own limits in place of the reference's
+TPU VMEM budgets, so a batch of any size the kernels index (under 2**31
+rows) takes the route. Where the gate fails or the batch has no pair
+plans, the sorted fallback runs on the batch's scatter plan
+(``ops/sorted_spmm.py``): gathers of the source bundle and the target
+scores, the exact per-target max (B15) and one pass for the denominators
+and weighted sums (B14).
 
-Where the reference's gate sends a batch off both (no plans, an
-aggregation other than sum, the activation before the aggregation, or a
-batch outside the pair path without scatter plans; ``_route`` names
-``"unfused"``), the per-edge path runs (reference rgat.py:309-376): per
-type the gathered source messages and the leaky_relu (slope 0.2) of the
-gathered score halves, in f32 whatever the edge dtype; then ``exp`` of the
-segment log-softmax per (target, head) over all types jointly, the
-weighted segment sum and the activation (after the aggregation, whatever
+With tracing on (``utils/tracing.py``) the pair-attention route records
+``rgat.scores`` (the score tables, the hk-major table and the casts to
+the stream dtype), ``rgat.attention`` (the attention op) and
+``rgat.normalise`` (the guarded division and the head layout), inside the
+layer's ``gnn.messages``. Every forward, traced or not, counts its route
+under ``rgat.route.<route>`` in the counter registry.
+
+Where the gates send a batch off both (no plans, an aggregation other
+than sum, the activation before the aggregation, or a batch outside the
+pair path without scatter plans; ``_route`` names ``"unfused"``), the
+per-edge path runs (reference rgat.py:309-376): per type the gathered
+source messages and the leaky_relu (slope 0.2) of the gathered score
+halves, in f32 whatever the edge dtype; then ``exp`` of the segment
+log-softmax per (target, head) over all types jointly, the weighted
+segment sum and the activation (after the aggregation, whatever
 ``message_activation_before_aggregation`` says, as in the reference).
 """
 from typing import Any, Dict, List, Optional, Tuple
@@ -50,6 +61,7 @@ from ...ops.sorted_spmm import (
     plan_gather_tgt_typed,
     sorted_segment_max,
 )
+from ...utils import tracing
 from ...utils.constants import SMALL_NUMBER
 from ...utils.init import glorot_uniform_batched_
 from .base import MessagePassing, register_message_passing_implementation
@@ -104,10 +116,12 @@ class RGAT(MessagePassing):
         return k
 
     def _pair_attention_applicable_static(self, batch: GraphBatch) -> bool:
-        """The reference's shape-only gate of the pair-attention path
-        (rgat.py:55-83): source rows are one type's ``pair_src_space``
-        (the padded nodes on one chip, the ext rows under SPMD-halo); under
-        SPMD the path needs the halo form and a merged plan."""
+        """The shape-only gate of the pair-attention path (the
+        reference's rgat.py:55-83, with ``pair_attention_applicable``'s
+        kernel limits in place of its VMEM budgets): source rows are one
+        type's ``pair_src_space`` (the padded nodes on one chip, the ext
+        rows under SPMD-halo); under SPMD the path needs the halo form and
+        a merged plan."""
         if batch.pair_targets_merged:
             return False
         if batch.spmd_axis is not None and (
@@ -158,51 +172,56 @@ class RGAT(MessagePassing):
         else:
             transformed = self.edge_weights(node_states)  # [L, Vs, H]
         vs = transformed.shape[1]
-        attention = self.edge_attention_parameters
-        per_head = transformed.reshape(num_types, vs, heads, head_dim)
-        src_scores = torch.einsum("lvkd,lkd->lvk", per_head,
-                                  attention[:, :, :head_dim])
-        tgt_scores = torch.einsum("lvkd,lkd->lvk", per_head,
-                                  attention[:, :, head_dim:])
-        if k_pad != heads:
-            # Pad heads: source half 0, target half NEG, zero messages.
-            src_scores = F.pad(src_scores, (0, k_pad - heads))
-            tgt_scores = F.pad(tgt_scores, (0, k_pad - heads), value=NEG)
-            per_head = F.pad(per_head, (0, 0, 0, k_pad - heads))
-        # HK-MAJOR message layout: column hd * K + k.
-        table_hk = per_head.permute(0, 1, 3, 2).reshape(
-            num_types * vs, head_dim * k_pad)
-        scores = torch.cat(
-            [src_scores.reshape(num_types * vs, k_pad),
-             tgt_scores.reshape(num_types * vs, k_pad)], dim=1)
-        # The casts to the stream dtype stay outside the autograd op, so
-        # the gradients of both come back rounded to it, as in the
-        # reference (its custom VJP returns them in the stream dtype).
-        table_hk = table_hk.to(self.edge_dtype)
-        scores = scores.to(self.edge_dtype)
+        with tracing.span("rgat.scores", layer=self.layer_index):
+            attention = self.edge_attention_parameters
+            per_head = transformed.reshape(num_types, vs, heads, head_dim)
+            src_scores = torch.einsum("lvkd,lkd->lvk", per_head,
+                                      attention[:, :, :head_dim])
+            tgt_scores = torch.einsum("lvkd,lkd->lvk", per_head,
+                                      attention[:, :, head_dim:])
+            if k_pad != heads:
+                # Pad heads: source half 0, target half NEG, zero messages.
+                src_scores = F.pad(src_scores, (0, k_pad - heads))
+                tgt_scores = F.pad(tgt_scores, (0, k_pad - heads),
+                                   value=NEG)
+                per_head = F.pad(per_head, (0, 0, 0, k_pad - heads))
+            # HK-MAJOR message layout: column hd * K + k.
+            table_hk = per_head.permute(0, 1, 3, 2).reshape(
+                num_types * vs, head_dim * k_pad)
+            scores = torch.cat(
+                [src_scores.reshape(num_types * vs, k_pad),
+                 tgt_scores.reshape(num_types * vs, k_pad)], dim=1)
+            # The casts to the stream dtype stay outside the autograd op,
+            # so the gradients of both come back rounded to it, as in the
+            # reference (its custom VJP returns them in the stream dtype).
+            table_hk = table_hk.to(self.edge_dtype)
+            scores = scores.to(self.edge_dtype)
 
-        if batch.pair_merged is not None:
-            denom, weighted = pair_attention(
-                table_hk, scores, batch.pair_merged, v, k_pad,
-                self.attention_stabiliser, vs if vs != v else None)
-        else:
-            # Row-split form: one launch per edge type, the stabiliser
-            # spanning all of them.
-            denom, weighted = pair_attention_typed(
-                table_hk, scores, batch.pair_typed, v, k_pad,
-                self.attention_stabiliser)
-        # Where-guarded division, not + eps: the reference's softmax has no
-        # epsilon, and targets without in-edges contribute exactly 0.
-        denom_t = denom.repeat(1, head_dim)
-        has_edges = denom_t > 0.0
-        weighted = torch.where(
-            has_edges,
-            weighted / torch.where(has_edges, denom_t,
-                                   torch.ones_like(denom_t)),
-            torch.zeros_like(weighted))
-        # Drop pad heads and restore the concat-head layout.
-        out = weighted.reshape(v, head_dim, k_pad)[:, :, :heads]
-        return out.permute(0, 2, 1).reshape(v, self.hidden_dim)
+        with tracing.span("rgat.attention", layer=self.layer_index):
+            if batch.pair_merged is not None:
+                denom, weighted = pair_attention(
+                    table_hk, scores, batch.pair_merged, v, k_pad,
+                    self.attention_stabiliser, vs if vs != v else None)
+            else:
+                # Row-split form: one launch per edge type, the stabiliser
+                # spanning all of them.
+                denom, weighted = pair_attention_typed(
+                    table_hk, scores, batch.pair_typed, v, k_pad,
+                    self.attention_stabiliser)
+        with tracing.span("rgat.normalise", layer=self.layer_index):
+            # Where-guarded division, not + eps: the reference's softmax
+            # has no epsilon, and targets without in-edges contribute
+            # exactly 0.
+            denom_t = denom.repeat(1, head_dim)
+            has_edges = denom_t > 0.0
+            weighted = torch.where(
+                has_edges,
+                weighted / torch.where(has_edges, denom_t,
+                                       torch.ones_like(denom_t)),
+                torch.zeros_like(weighted))
+            # Drop pad heads and restore the concat-head layout.
+            out = weighted.reshape(v, head_dim, k_pad)[:, :, :heads]
+            return out.permute(0, 2, 1).reshape(v, self.hidden_dim)
 
     def _sorted_attention_aggregate(self, node_states: torch.Tensor,
                                     batch: GraphBatch) -> torch.Tensor:
@@ -260,6 +279,7 @@ class RGAT(MessagePassing):
                              batch: GraphBatch,
                              training: bool) -> Optional[torch.Tensor]:
         route = self._route(batch)
+        tracing.count(f"rgat.route.{route}")
         if route == "pair_attention":
             return self._pair_attention_aggregate(node_states, batch)
         if route == "sorted":

@@ -64,30 +64,44 @@ NEG = -1e30
 LEAKY_SLOPE = 0.2
 # Lane width of the reference's streamed expd arrays and transposed VMEM
 # accumulators: a TPU layout artefact that the port drops (its expd is
-# [K, n] by entry of the forward compact form); kept for
-# ``pair_attention_applicable``, whose routing the port mirrors.
+# [K, n] by entry of the forward compact form); kept for the heads'
+# structural condition of ``pair_attention_applicable``.
 ACC_W = 16
-# The reference's resident VMEM budgets (bytes), read only by
-# ``pair_attention_applicable``.
-SCORE_BUDGET_BYTES = 12 * 1024 * 1024
-TABLE_BUDGET_BYTES = 11 * 1024 * 1024
-RESIDENT_BUDGET_BYTES = 13 * 1024 * 1024
-
-
-def _expd_width(num_heads: int) -> int:
-    return max(ACC_W, num_heads)
-
-
-def _itemsize(dtype) -> int:
-    return torch.empty((), dtype=dtype).element_size()
+# A limit of the kernels themselves: the compact forms' row ids, CSR
+# offsets and entry indices are int32 (``pair_spmm.py::SlotRows`` and
+# ``TsRows``; ``csrc/pair_stream.cu`` and ``csrc/pair_attention.cu`` read
+# them as int32_t), and B8's and B11's launches take the score rows as an
+# int.
+KERNEL_MAX_ROWS = 2**31 - 1
 
 
 def pair_attention_applicable(rows: int, num_nodes: int, hidden_dim: int,
                               num_heads: int, table_dtype, score_dtype,
                               src_space: int = None) -> bool:
-    """The reference's static gate of the pair-attention path (its VMEM
-    budgets included), so that the port takes the path the reference takes
-    on the same shapes. ``src_space`` is one type's source-row count."""
+    """The static gate of the pair-attention route. ``src_space`` is one
+    type's source-row count. It keeps the reference's structural
+    conditions (heads that divide the width and the 128-lane tile, at most
+    min(ACC_W, 8) of them; nodes and source rows in whole BLK blocks;
+    whole types of source rows) and, in place of the reference's TPU VMEM
+    budgets, the limits of the CUDA kernels the route runs (B8, B3 or B10,
+    B9, and B11 under the exact stabiliser):
+
+    * int32 ids: the score and table rows and the nodes stay below
+      ``KERNEL_MAX_ROWS`` (2**31). A plan's slots, which this gate does
+      not see, are int32 ids in the compact forms too: a plan holds
+      fewer than 2**31.
+    * shared memory: none. Each kernel keeps its row's sums in registers
+      and reads its operands from global memory, so no size term of a
+      block's shared memory arises.
+    * B9's register form holds a row of up to 512 element units (96
+      8-byte units) in a warp's registers; wider rows take its tiled form,
+      which takes any width, so the split chooses a form and bounds
+      nothing.
+    * heads: B9 takes K in {1, 2, 4, 8} and B8 a K that divides 32, which
+      the structural conditions already hold to.
+
+    ``table_dtype`` and ``score_dtype`` do not enter; the signature is
+    the reference's."""
     if num_heads <= 0 or hidden_dim % num_heads or TILE % num_heads:
         return False
     if num_heads > min(ACC_W, 8):
@@ -95,17 +109,7 @@ def pair_attention_applicable(rows: int, num_nodes: int, hidden_dim: int,
     vs = num_nodes if src_space is None else src_space
     if num_nodes % BLK or vs % BLK or rows % vs:
         return False
-    t_item = _itemsize(table_dtype)
-    s_item = _itemsize(score_dtype)
-    if rows * 128 * s_item + num_nodes * 128 * 4 > SCORE_BUDGET_BYTES:
-        return False
-    if rows * TILE * t_item + ACC_W * num_nodes * 4 > TABLE_BUDGET_BYTES:
-        return False
-    num_types = max(rows // max(vs, 1), 1)
-    extra = ACC_W + _expd_width(num_heads) + num_heads * num_types
-    haug = max(-(-(hidden_dim + extra) // TILE) * TILE, TILE)
-    return (num_nodes * haug * t_item + ACC_W * rows * 4
-            <= RESIDENT_BUDGET_BYTES)
+    return max(rows, num_nodes) <= KERNEL_MAX_ROWS
 
 
 def _leaky(p):

@@ -687,9 +687,10 @@ class MergedPlan(_DevicePlan):
     batch from the host tuple (``MergedPlan(*arrays, out_rows=...)``) and
     moved with ``.to(device)``. ``out_rows`` is the forward output row
     count: V, or L * V for merged targets (None where the caller passes
-    it). The compact forms (``fwd_rows``, ``bwd_rows``, ``bwd_ts_rows``)
-    are built at their first read and kept (a moved plan starts without
-    them)."""
+    it). ``from_host`` builds it without the overflow slots that hold no
+    edge. The compact forms (``fwd_rows``,
+    ``bwd_rows``, ``bwd_ts_rows``) are built at their first read and kept
+    (a moved plan starts without them)."""
 
     rel_src_f: object
     rel_tgt_f: object
@@ -707,6 +708,21 @@ class MergedPlan(_DevicePlan):
     out_rows: Optional[int] = None
     _rows: Dict[object, "SlotRows"] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
+
+    @classmethod
+    def from_host(cls, arrays, out_rows: int) -> "MergedPlan":
+        """The plan of a host tuple whose forward output has ``out_rows``
+        rows, keeping only the overflow slots that hold an edge: the data
+        layer's fixed-size overflow is mostly sentinels (target
+        ``out_rows``, scale 0), whose sums reach only the discarded row,
+        so a batch with no spilled edge gets empty overflow arrays and the
+        ops skip their overflow term."""
+        arrays = list(arrays)
+        keep = np.asarray(arrays[9]) < out_rows
+        if not keep.all():
+            for i in (8, 9, 12):  # ovf_src, ovf_tgt, inv_ovf
+                arrays[i] = np.asarray(arrays[i])[keep]
+        return cls(*arrays, out_rows=out_rows)
 
     @property
     def fwd(self) -> tuple:

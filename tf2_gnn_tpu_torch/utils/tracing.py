@@ -31,7 +31,8 @@ with ``drain()``.
 **Counters.** One registry: ``count(name, n)`` adds to a counter of its
 own (``compact.build.<plan>.<direction>``, a plan's compact form built;
 ``typed_linear.shared_input``, a forward of ``TypedLinear``'s all-types
-form, which writes the [L, V, H] tables without transposed copies), and
+form, which writes the [L, V, H] tables without transposed copies;
+``rgat.route.<route>``, an RGAT layer's forward by the route it took), and
 the kernel modules' launch counts, the native planners' counts and
 the collectives' counts are read from the stores their modules keep
 (``STORES``: ``launch.*``, ``planned.*``, ``collective.<name>.calls`` /
