@@ -3221,10 +3221,11 @@ REFERENCE_LAUNCHES = {
 # GNN_INPUT_ATOL plus GNN_INPUT_RTOL of the largest |reference entry|,
 # gradients within GNN_INPUT_GRAD_RTOL of each tensor's largest entry. The
 # GNNInput batch's message activation (relu) takes the dataset batch's
-# signs (``relu_inputs``): the unfused route's atomic sums put a relu input
-# that lies within rounding of 0 on either side of it from run to run, and
-# one such input moved a weight's gradient by 0.6% of its largest entry on
-# an H100. Each relu input whose sign the two runs disagree on must lie
+# signs (``relu_inputs``): the unfused route's sums, which add in no fixed
+# order on the card, put a relu input that lies within rounding of 0 on
+# either side of it from run to run, and one such input moved a weight's
+# gradient by 0.6% of its largest entry on an H100. Each relu input whose
+# sign the two runs disagree on must lie
 # within the states' tolerance of 0 (``check_relu_flips``).
 GNN_INPUT_ATOL = 1e-4
 GNN_INPUT_RTOL = 2.0 ** -12

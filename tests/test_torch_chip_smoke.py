@@ -434,8 +434,11 @@ def _unfused_check(model, kind, against, tols, batches):
 _SEGMENT_SUM = tseg.segment_sum
 
 
-def _reordered_segment_sum(data, segment_ids, num_segments, spmd_axis=None):
-    """``segment_sum`` over the same rows, added in a random order."""
+def _reordered_segment_sum(data, segment_ids, num_segments, spmd_axis=None,
+                           order=None):
+    """``segment_sum`` over the same rows, added in a random order (the
+    batch's ``order`` describes the rows as given, so it is not passed
+    on)."""
     perm = torch.randperm(data.shape[0],
                           generator=torch.Generator().manual_seed(1))
     return _SEGMENT_SUM(data[perm], segment_ids[perm], num_segments,

@@ -30,6 +30,7 @@ bf16 at every add, where the port's sums in f32 and rounds once
 in f32 too, the same cases differ by at most 8.5e-4 of the largest
 entry; the f32 cases by at most 2.1e-6 of it.
 """
+import dataclasses
 import json
 import types
 from pathlib import Path
@@ -434,3 +435,98 @@ def test_node_loss_gradient_at_zero_logits_matches_jax():
                                rtol=1e-6, atol=1e-7)
     np.testing.assert_array_equal(logits.grad.numpy()[0, :2],
                                   -z[0, :2] / 2.0)
+
+
+def _unfused_rgcn_steps(tbatch, labels, steps: int, profile=None):
+    """``steps`` train steps of the shipped PPI_RGCN at 2 layers of 16 on
+    a fresh copy of the bare batch (no edge order built yet); the segment
+    counters of each step, and with ``profile`` the profiler's events of
+    the last one."""
+    from tf2_gnn_tpu_torch.harness.optimizers import make_optimizer
+    from tf2_gnn_tpu_torch.harness.training import (
+        create_train_state,
+        make_train_step,
+    )
+    from tf2_gnn_tpu_torch.models.node_multiclass_task import (
+        NodeMulticlassTask,
+    )
+    from tf2_gnn_tpu_torch.utils import tracing
+
+    from .test_torch_rgcn_model import FEATURES, NUM_LABELS
+
+    params = case_params("rgcn_shipped")
+    model = NodeMulticlassTask.from_params(
+        params, input_dim=FEATURES, num_edge_types=3, device="cpu",
+        num_labels=NUM_LABELS)
+    optimizer = make_optimizer(params, model.parameters())
+    state = create_train_state(model, optimizer, seed=0)
+    step = make_train_step(model, optimizer)
+    batch = dataclasses.replace(tbatch)
+    tlabels = {"node_labels": torch.from_numpy(labels)}
+    counts, events = [], None
+    for k in range(steps):
+        tracing.reset()
+        if profile and k == steps - 1:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU],
+                    record_shapes=True) as prof:
+                state, _ = step(state, batch, tlabels)
+            events = prof.events()
+        else:
+            state, _ = step(state, batch, tlabels)
+        counts.append(tracing.counters("segment"))
+    assert_layers_unfused(model.gnn, batch, params["gnn_num_layers"])
+    return params, batch, counts, events
+
+
+def test_unfused_train_step_sums_over_the_edge_orders(workloads_by_plans):
+    """A two-layer unfused RGCN train step sums every layer's messages and
+    every gather's gradient over the batch's orders, none by index_add_;
+    the orders are built in the batch's first step (the targets' and each
+    type's sources') and read in the next."""
+    _, tbatch, labels = workloads_by_plans[None]
+    params, batch, counts, _ = _unfused_rgcn_steps(tbatch, labels, 2)
+    layers, types_ = params["gnn_num_layers"], batch.num_edge_types
+    ordered = layers * (1 + types_)
+    assert counts[0] == {"order.build": 1 + types_, "sum.ordered": ordered}
+    assert counts[1] == {"sum.ordered": ordered}
+    assert sorted(batch._edge_orders) == sorted(
+        [("targets", None, batch.aggregation_segments)]
+        + [("edge_sources", l, batch.num_nodes_padded)
+           for l in range(types_)])
+
+
+def _edge_index_adds(events, batch, hidden):
+    """The profiler's ``aten::index_add_`` calls on an operand of one row
+    an edge (of a type, or of all types) and ``hidden`` columns."""
+    rows = {int(s.shape[0]) for s in batch.edge_sources}
+    rows.add(sum(rows_l.shape[0] for rows_l in batch.edge_sources))
+    return [e for e in events if e.name == "aten::index_add_"
+            and any(len(shape) == 2 and shape[0] in rows
+                    and shape[1] == hidden for shape in e.input_shapes)]
+
+
+@pytest.mark.parametrize("orders", [True, False],
+                         ids=["ordered", "scatter_control"])
+def test_unfused_train_step_runs_no_index_add_over_edges(
+        orders, workloads_by_plans, monkeypatch):
+    """Under the profiler, the steady-state step shows no
+    ``aten::index_add_`` on an [E, H] operand; the control, with the
+    batch's orders taken away (today's scatter form), shows them, so the
+    check catches them."""
+    from tf2_gnn_tpu_torch.data.graph_batch import GraphBatch
+
+    if not orders:
+        monkeypatch.setattr(GraphBatch, "_edge_order",
+                            lambda self, *args: None)
+    _, tbatch, labels = workloads_by_plans[None]
+    params, batch, counts, events = _unfused_rgcn_steps(tbatch, labels, 2,
+                                                        profile=True)
+    found = _edge_index_adds(events, batch, params["gnn_hidden_dim"])
+    if orders:
+        assert found == []
+        assert counts[-1].get("sum.scatter", 0) == 0
+    else:
+        layers = params["gnn_num_layers"]
+        assert len(found) == layers * (1 + batch.num_edge_types)
+        assert counts[-1].get("sum.ordered", 0) == 0

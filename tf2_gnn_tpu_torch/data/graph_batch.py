@@ -27,7 +27,12 @@ GNN_Edge_MLP), the same concatenation for per-type aggregates
 (``pair_stream_typed``: GNN-FiLM and the 0-hidden target-state
 GNN_Edge_MLP) and the plans one by one (``pair_typed``, RGAT). Each is
 built and moved at its first read and kept with the batch, so a batch
-moves only the form its model reads.
+moves only the form its model reads. The unfused per-edge path's sums
+read the edge arrays' orders (``ops/segment.py::SegmentOrder``) the same
+way: the concatenated targets' (``aggregation_order``) at a layer's first
+aggregation, and each type's sources or targets over a table's rows at
+the first gather that needs a gradient, each built on the batch's device
+once and kept.
 """
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -42,7 +47,7 @@ from ..ops.pair_spmm import (
     stream_joint_plan,
     stream_typed_plan,
 )
-from ..ops.segment import gather_rows
+from ..ops.segment import SegmentOrder, gather_rows
 from ..ops.sorted_spmm import ScatterPlan
 from ..utils.device import as_tensor, resolve_device
 
@@ -166,6 +171,10 @@ class GraphBatch:
     # replaced or moved batch starts with none.
     _typed_forms: Dict[str, object] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
+    # The edge arrays' segment orders, by (arrays, edge type, segments),
+    # built at first read and shared as ``_typed_forms`` are.
+    _edge_orders: Dict[tuple, SegmentOrder] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def num_nodes_padded(self) -> int:
@@ -245,23 +254,55 @@ class GraphBatch:
             return aggregated
         return aggregated[:self.num_nodes_padded]
 
+    def _edge_order(self, key: tuple, num_segments: int,
+                    ids) -> Optional[SegmentOrder]:
+        """The order of the edge ids ``ids()`` over ``num_segments``, built
+        at its first read and kept under ``key``; None while the edge
+        arrays are host arrays."""
+        if not (self.edge_targets
+                and isinstance(self.edge_targets[0], torch.Tensor)):
+            return None
+        key = key + (num_segments,)
+        if key not in self._edge_orders:
+            self._edge_orders[key] = SegmentOrder.build(ids(), num_segments)
+        return self._edge_orders[key]
+
+    @property
+    def aggregation_order(self) -> Optional[SegmentOrder]:
+        """The order of every type's edge targets, concatenated in type
+        order, over ``aggregation_segments``: the unfused path's sums of
+        its messages."""
+        return self._edge_order(
+            ("targets", None), self.aggregation_segments,
+            lambda: torch.cat(self.edge_targets, dim=0))
+
+    def _gather(self, table: torch.Tensor, name: str,
+                edge_type: int) -> torch.Tensor:
+        ids = getattr(self, name)[edge_type]
+        order = (self._edge_order((name, edge_type), table.shape[0],
+                                  lambda: ids)
+                 if table.requires_grad else None)
+        return gather_rows(table, ids, order)
+
     def gather_source_rows(self, table: torch.Tensor,
                            edge_type: int) -> torch.Tensor:
         """Per-edge rows of a node-space ``table`` ([V, ...], or the ext
         rows in halo mode) at the sources of type ``edge_type``'s edges
         (padded edges clamp). Under SPMD without a halo the table is first
-        all_gather-ed over the mesh axis, so GLOBAL sources resolve."""
+        all_gather-ed over the mesh axis, so GLOBAL sources resolve. The
+        gradient sums over the sources' order."""
         if self.spmd_axis is not None and not self.halo_mode:
             from ..parallel.collectives import all_gather
 
             table = all_gather(table, self.spmd_axis)
-        return gather_rows(table, self.edge_sources[edge_type])
+        return self._gather(table, "edge_sources", edge_type)
 
     def gather_target_rows(self, table: torch.Tensor,
                            edge_type: int) -> torch.Tensor:
         """Per-edge rows of ``table`` at the targets of type
-        ``edge_type``'s edges."""
-        return gather_rows(table, self.edge_targets[edge_type])
+        ``edge_type``'s edges; the gradient sums over the targets'
+        order."""
+        return self._gather(table, "edge_targets", edge_type)
 
     def _typed_form(self, name: str, build):
         if (self.pair_plans_typed is None
@@ -293,8 +334,9 @@ class GraphBatch:
     def replace(self, **changes) -> "GraphBatch":
         """``dataclasses.replace``. Where only the node features change, to
         a tensor with the same rows on the same device, the new batch
-        shares the per-type plans' device forms, so a model that swaps in
-        its own input features builds them once for the batch."""
+        shares the per-type plans' device forms and the edge orders, so a
+        model that swaps in its own input features builds them once for
+        the batch."""
         new = dataclasses.replace(self, **changes)
         old, feats = self.node_features, changes.get("node_features")
         if (changes.keys() == {"node_features"}
@@ -303,6 +345,7 @@ class GraphBatch:
                 and feats.shape[-2] == old.shape[-2]
                 and feats.device == old.device):
             new._typed_forms = self._typed_forms
+            new._edge_orders = self._edge_orders
         return new
 
     def to(self, device="cuda") -> "GraphBatch":

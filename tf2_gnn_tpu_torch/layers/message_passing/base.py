@@ -185,7 +185,12 @@ class MessagePassing(nn.Module):
                             batch: GraphBatch) -> torch.Tensor:
         """All types' messages concatenated in f32, the activation before
         the configured segment aggregation over the edge targets where
-        asked (reference base.py:145-167; ``_post_aggregate`` follows)."""
+        asked (reference base.py:145-167; ``_post_aggregate`` follows).
+        The aggregation's sum (and mean's and sqrt_n's counts) reads the
+        batch's order of the targets (``GraphBatch.aggregation_order``,
+        built at the batch's first aggregation): the product of its CSR
+        of ones with the messages, not per-edge atomics; its gradient is
+        the row gather at each edge's target."""
         aggregation = get_aggregation_function(self.aggregation_function)
         messages = torch.cat(messages_per_type, dim=0).to(torch.float32)
         targets = torch.cat(batch.edge_targets, dim=0)
@@ -194,7 +199,8 @@ class MessagePassing(nn.Module):
             messages = get_activation_function(
                 self.message_activation_function)(messages)
         return batch.slice_aggregated(
-            aggregation(messages, targets, batch.aggregation_segments))
+            aggregation(messages, targets, batch.aggregation_segments,
+                        order=batch.aggregation_order))
 
     def _post_aggregate(self, aggregated: torch.Tensor,
                         node_states: torch.Tensor, batch: GraphBatch,

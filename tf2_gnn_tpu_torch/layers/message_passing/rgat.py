@@ -314,16 +314,17 @@ class RGAT(MessagePassing):
             self, messages_per_type: List[Tuple[torch.Tensor, torch.Tensor]],
             batch: GraphBatch) -> torch.Tensor:
         """The softmax per (target, head) over all types jointly, as
-        ``exp(segment_log_softmax)``, and the weighted sum per target
-        (reference rgat.py:352-376; the activation follows in
-        ``_post_aggregate``)."""
+        ``exp(segment_log_softmax)``, and the weighted sum per target over
+        the batch's order of the targets (reference rgat.py:352-376; the
+        activation follows in ``_post_aggregate``)."""
         segments = batch.aggregation_segments
         messages = torch.cat([m for m, _ in messages_per_type], dim=0)
         logits = torch.cat([s for _, s in messages_per_type], dim=0)
         targets = torch.cat(batch.edge_targets, dim=0)
         attention = torch.exp(segment_log_softmax(logits, targets, segments))
         aggregated = batch.slice_aggregated(segment_sum(
-            attention[:, :, None] * messages, targets, segments))
+            attention[:, :, None] * messages, targets, segments,
+            order=batch.aggregation_order))
         return aggregated.reshape(batch.num_nodes_padded, self.hidden_dim)
 
     def _post_aggregate(self, aggregated: torch.Tensor,

@@ -10,11 +10,30 @@ node-partitioned graph and the segments are global (per-graph readouts,
 JAX segment.py:25-129), ``spmd_axis`` names the mesh axis: the partial
 sums and counts are psum-ed over it (a gradient flows back through the
 psum), and the softmaxes' stabilising max is pmax-ed, without a gradient.
+
+A sum runs one of two ways. Given a ``SegmentOrder`` (``order=``), the
+segment ids sorted once on their device into a CSR of ones, it is that
+CSR's product with the rows (``torch.sparse.mm``, a library call, no
+hand-written kernel), which reads each row once; its gradient is the row
+gather of the cotangent at each entry's segment. A batch builds the
+orders of its edge arrays once and keeps them
+(``GraphBatch.aggregation_order``, and the gathers' backward in
+``gather_source_rows`` / ``gather_target_rows``), so the unfused per-edge
+path's sums over edges take this way. Without an order the sum is
+``index_add_``, float atomics on the card, as the node-to-graph sums of
+the readouts, the graph-level losses and the global exchange keep. The
+counters ``segment.sum.ordered`` and ``segment.sum.scatter``
+(``utils/tracing.py``) count the sums each way takes,
+``segment.order.build`` the orders built.
 """
+import dataclasses
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from ..utils import tracing
 from ..utils.constants import SMALL_NUMBER
 
 
@@ -26,14 +45,102 @@ def _valid_ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
                        torch.full_like(ids, num_segments))
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class SegmentOrder:
+    """Segment ids sorted once on their device, as the CSR that sums by
+    them.
+
+    * ``ids``: [M], each entry's segment, the out-of-range ones at the
+      discard row ``num_segments``;
+    * ``matrix``: the [num_segments + 1, M] CSR of ones, row ``s`` holding
+      segment ``s``'s entries in their order, the discard row last.
+
+    Indices are int32 (a sum's rows, M × C × 4 bytes, leave M far below
+    2**31): 12 bytes an entry, its id, its column in the CSR and the
+    CSR's one. ``build`` sorts on the ids' device and never waits for it.
+    """
+
+    num_segments: int
+    ids: torch.Tensor
+    matrix: torch.Tensor
+
+    @classmethod
+    def build(cls, segment_ids: torch.Tensor,
+              num_segments: int) -> "SegmentOrder":
+        entries = segment_ids.shape[0]
+        ids = _valid_ids(segment_ids, num_segments).to(torch.int32)
+        ordered, perm = torch.sort(ids, stable=True)
+        rows = torch.searchsorted(
+            ordered, torch.arange(num_segments + 2, dtype=torch.int32,
+                                  device=ids.device), out_int32=True)
+        matrix = torch.sparse_csr_tensor(
+            rows, perm.to(torch.int32), torch.ones(entries, device=ids.device),
+            size=(num_segments + 1, entries), check_invariants=False)
+        tracing.count("segment.order.build")
+        return cls(num_segments, ids, matrix)
+
+    @property
+    def num_entries(self) -> int:
+        return int(self.ids.shape[0])
+
+    def counts(self, dtype=torch.float32) -> torch.Tensor:
+        """[num_segments]: the entries of each segment."""
+        return self.matrix.crow_indices().diff()[:self.num_segments].to(
+            dtype)
+
+    def sum_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """[num_segments, C]: each segment's sum of the [M, C] ``rows``, the
+        CSR's product with them (``torch.sparse.mm``; cuSPARSE on the
+        card, whose additions are in no fixed order). f32 or f64 rows sum
+        in their own precision, narrower ones in f32, rounded once."""
+        wide = rows if rows.dtype in (torch.float32, torch.float64) else (
+            rows.float())
+        matrix = self.matrix if wide.dtype == torch.float32 else (
+            self.matrix.to(wide.dtype))
+        return torch.sparse.mm(matrix, wide)[:self.num_segments].to(
+            rows.dtype)
+
+    def spread(self, g: torch.Tensor) -> torch.Tensor:
+        """[M, C]: each entry's row of the [num_segments, C] ``g``, 0 at the
+        discarded entries (the gradient of ``sum_rows``)."""
+        return F.pad(g, (0, 0, 0, 1)).index_select(0, self.ids)
+
+
+class _OrderedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, order):
+        ctx.order, ctx.shape = order, data.shape
+        tracing.count("segment.sum.ordered")
+        width = math.prod(data.shape[1:])
+        sums = order.sum_rows(data.reshape(data.shape[0], width))
+        return sums.reshape((order.num_segments,) + tuple(data.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = ctx.order.spread(g.reshape(g.shape[0], math.prod(g.shape[1:])))
+        return rows.reshape(ctx.shape), None
+
+
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int,
-                spmd_axis: Optional[str] = None) -> torch.Tensor:
+                spmd_axis: Optional[str] = None,
+                order: Optional[SegmentOrder] = None) -> torch.Tensor:
     """Sum of ``data`` rows per segment; empty segments yield 0. With
-    ``spmd_axis``, the sum over every shard of the axis."""
-    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
-    out.index_add_(0, _valid_ids(segment_ids, num_segments), data)
-    out = out[:num_segments]
+    ``spmd_axis``, the sum over every shard of the axis. With ``order``
+    (built from ``segment_ids``), the product of its CSR with the rows."""
+    if order is not None:
+        if (order.num_segments != num_segments
+                or order.num_entries != data.shape[0]):
+            raise ValueError(
+                f"an order over {order.num_entries} entries and "
+                f"{order.num_segments} segments cannot sum {data.shape[0]} "
+                f"rows into {num_segments} segments")
+        out = _OrderedSum.apply(data, order)
+    else:
+        tracing.count("segment.sum.scatter")
+        out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+        out.index_add_(0, _valid_ids(segment_ids, num_segments), data)
+        out = out[:num_segments]
     if spmd_axis is not None:
         from ..parallel.collectives import psum
 
@@ -43,9 +150,17 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
 
 def segment_count(segment_ids: torch.Tensor, num_segments: int,
                   dtype=torch.float32,
-                  spmd_axis: Optional[str] = None) -> torch.Tensor:
+                  spmd_axis: Optional[str] = None,
+                  order: Optional[SegmentOrder] = None) -> torch.Tensor:
     """Number of entries per segment (in-degree when ids are edge
-    targets)."""
+    targets); with ``order``, read from its offsets."""
+    if order is not None:
+        counts = order.counts(dtype)
+        if spmd_axis is not None:
+            from ..parallel.collectives import psum
+
+            counts = psum(counts, spmd_axis)
+        return counts
     return segment_sum(torch.ones(segment_ids.shape, dtype=dtype,
                                   device=segment_ids.device),
                        segment_ids, num_segments, spmd_axis)
@@ -53,43 +168,49 @@ def segment_count(segment_ids: torch.Tensor, num_segments: int,
 
 def _counts_like(segment_ids: torch.Tensor, num_segments: int,
                  values: torch.Tensor,
-                 spmd_axis: Optional[str] = None) -> torch.Tensor:
+                 spmd_axis: Optional[str] = None,
+                 order: Optional[SegmentOrder] = None) -> torch.Tensor:
     """``segment_count`` in ``values``' dtype, shaped to broadcast over its
     trailing axes."""
     counts = segment_count(segment_ids, num_segments, values.dtype,
-                           spmd_axis)
+                           spmd_axis, order)
     return counts.reshape(counts.shape + (1,) * (values.dim() - 1))
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
                  num_segments: int,
-                 spmd_axis: Optional[str] = None) -> torch.Tensor:
+                 spmd_axis: Optional[str] = None,
+                 order: Optional[SegmentOrder] = None) -> torch.Tensor:
     """Mean per segment; empty segments yield 0 (tf.unsorted_segment_mean)."""
-    totals = segment_sum(data, segment_ids, num_segments, spmd_axis)
-    counts = _counts_like(segment_ids, num_segments, totals, spmd_axis)
+    totals = segment_sum(data, segment_ids, num_segments, spmd_axis, order)
+    counts = _counts_like(segment_ids, num_segments, totals, spmd_axis,
+                          order)
     return totals / torch.clamp(counts, min=1.0)
 
 
 def segment_sqrt_n(data: torch.Tensor, segment_ids: torch.Tensor,
-                   num_segments: int) -> torch.Tensor:
+                   num_segments: int,
+                   order: Optional[SegmentOrder] = None) -> torch.Tensor:
     """Sum per segment over the root of its size
     (tf.unsorted_segment_sqrt_n); empty segments yield 0."""
-    totals = segment_sum(data, segment_ids, num_segments)
-    counts = _counts_like(segment_ids, num_segments, totals)
+    totals = segment_sum(data, segment_ids, num_segments, order=order)
+    counts = _counts_like(segment_ids, num_segments, totals, order=order)
     return totals / torch.sqrt(torch.clamp(counts, min=1.0))
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int, empty_value: float = 0.0) -> torch.Tensor:
+                num_segments: int, empty_value: float = 0.0,
+                order: Optional[SegmentOrder] = None) -> torch.Tensor:
     """Max per segment, ``empty_value`` where a segment is empty (where
     tf.unsorted_segment_max gives the dtype's lowest value). Ties share
-    the gradient evenly, as under ``jax.ops.segment_max``."""
+    the gradient evenly, as under ``jax.ops.segment_max``. ``order``
+    gives the counts only; the max is ``scatter_reduce``'s."""
     ids = _valid_ids(segment_ids, num_segments)
     index = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
     maxes = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
     maxes = maxes.scatter_reduce(0, index, data, reduce="amax",
                                  include_self=False)[:num_segments]
-    counts = _counts_like(segment_ids, num_segments, maxes)
+    counts = _counts_like(segment_ids, num_segments, maxes, order=order)
     return torch.where(counts > 0, maxes,
                        torch.full_like(maxes, empty_value))
 
@@ -172,8 +293,8 @@ def get_known_aggregation_names():
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, params, indices):
-        ctx.num_rows = params.shape[0]
+    def forward(ctx, params, indices, order):
+        ctx.num_rows, ctx.order = params.shape[0], order
         ctx.save_for_backward(indices)
         return params[torch.clamp(indices.long(), 0, params.shape[0] - 1)]
 
@@ -182,13 +303,16 @@ class _GatherRows(torch.autograd.Function):
         (indices,) = ctx.saved_tensors
         # Summed in f32 and rounded once, on the CPU and the card alike (a
         # bf16 index_add_ on the card rounds at every atomic add).
-        return segment_sum(g.float(), indices, ctx.num_rows).to(g.dtype), None
+        return segment_sum(g.float(), indices, ctx.num_rows,
+                           order=ctx.order).to(g.dtype), None, None
 
 
-def gather_rows(params: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+def gather_rows(params: torch.Tensor, indices: torch.Tensor,
+                order: Optional[SegmentOrder] = None) -> torch.Tensor:
     """Row gather whose out-of-range indices CLAMP (``jnp.take`` with
     ``mode="clip"``), with a scatter-add gradient that drops them (their
     rows are discarded downstream, so their cotangents are 0) and sums in
     f32 (the reference's XLA scatter-add of a bf16 cotangent rounds to
-    bf16 at every add)."""
-    return _GatherRows.apply(params, indices)
+    bf16 at every add): over ``order`` (``indices`` ordered over
+    ``params``' rows) where given, else by ``index_add_``."""
+    return _GatherRows.apply(params, indices, order)

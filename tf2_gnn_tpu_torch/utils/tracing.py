@@ -32,7 +32,11 @@ with ``drain()``.
 own (``compact.build.<plan>.<direction>``, a plan's compact form built;
 ``typed_linear.shared_input``, a forward of ``TypedLinear``'s all-types
 form, which writes the [L, V, H] tables without transposed copies;
-``rgat.route.<route>``, an RGAT layer's forward by the route it took), and
+``rgat.route.<route>``, an RGAT layer's forward by the route it took;
+``segment.sum.ordered``, a segment sum over a ``SegmentOrder``, as the
+unfused path's sums over edges run, and ``segment.sum.scatter``, one by
+``index_add_``; ``segment.order.build``, an order built, once a batch and
+edge array in steady state), and
 the kernel modules' launch counts, the native planners' counts and
 the collectives' counts are read from the stores their modules keep
 (``STORES``: ``launch.*``, ``planned.*``, ``collective.<name>.calls`` /
