@@ -332,6 +332,7 @@ a card or without the repository beside this script.
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -4384,6 +4385,36 @@ def probe_path(device, argv):
     return kernels, forms
 
 
+def _demangle(names):
+    """``names`` through ``c++filt``; as given where it is missing or
+    fails."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+        return out.stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return list(names)
+
+
+def _ptxas_report(log: str, match: str):
+    """(kernel, registers, spill stores, spill loads) of every entry
+    function whose name holds ``match`` in ``nvcc -Xptxas -v``'s output."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and match in name:
+            rows.append((name, int(m.group(1))) + spills)
+    names = _demangle([r[0] for r in rows])
+    return [(n,) + r[1:] for n, r in zip(names, rows)]
+
+
 def main(argv) -> int:
     import torch
 
@@ -4415,8 +4446,6 @@ def main(argv) -> int:
         f"{time.perf_counter() - t0:.1f} s")
     # By name: the registers and spills of B8's kernel and of each mode
     # of the relu-pair row owner (B4, B6, B7).
-    from tf2_gnn_tpu_torch.tools.relu_pair_variants import _ptxas_report
-
     for source, match in (("pair_stream.cu", "expd_rows"),
                           ("pair_edge_mlp.cu", "relu_pair_rows")):
         for name, regs, stores, loads in _ptxas_report(logs.get(source, ""),

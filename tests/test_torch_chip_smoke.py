@@ -44,7 +44,14 @@ take their plain versions.
   planted fault (case (e) with its ring slabs zeroed) fails the phase
   when its numbers pass, and passes it when they do not. The planted
   fault itself runs at the case's own size on the card, in the phase.
+* Phase 1's ptxas lines (``_ptxas_report``) on canned ``nvcc -Xptxas -v``
+  output: each entry whose name holds the match, with its registers and
+  the spills printed since its own ``Compiling entry function`` line;
+  other entries skipped; the names through ``c++filt`` where it runs,
+  as printed where it is missing or fails (``_demangle``).
 """
+import subprocess
+
 import pytest
 import torch
 
@@ -795,3 +802,70 @@ def test_scaleout_check_needs_a_planted_fault_to_fail(lost):
     else:
         with pytest.raises(AssertionError, match="passed a planted"):
             chip_smoke.scaleout_check(case, results, ref)
+
+
+# ``nvcc -Xptxas -v`` output for three entries of two sources: the first
+# spills, the second prints no spill line, the third matches neither.
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z21relu_pair_rows_kernelILi1EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z21relu_pair_rows_kernelILi1EEvv
+    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, 392 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z21relu_pair_rows_kernelILi2EEvv' for 'sm_90a'
+ptxas info    : Used 96 registers, 392 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z16expd_rows_kernelv' for 'sm_90a'
+ptxas info    : Function properties for _Z16expd_rows_kernelv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 384 bytes cmem[0]
+"""
+
+
+@pytest.fixture
+def mangled(monkeypatch):
+    """Names as ptxas prints them."""
+    monkeypatch.setattr(chip_smoke, "_demangle", list)
+
+
+def test_ptxas_report_reads_a_matching_entrys_registers(mangled):
+    assert chip_smoke._ptxas_report(PTXAS_LOG, "expd_rows") == [
+        ("_Z16expd_rows_kernelv", 40, 0, 0)]
+
+
+def test_ptxas_report_credits_spills_to_their_entry(mangled):
+    assert chip_smoke._ptxas_report(PTXAS_LOG, "relu_pair_rows") == [
+        ("_Z21relu_pair_rows_kernelILi1EEvv", 168, 8, 12),
+        ("_Z21relu_pair_rows_kernelILi2EEvv", 96, 0, 0)]
+
+
+def test_ptxas_report_skips_other_entries(mangled):
+    assert chip_smoke._ptxas_report(PTXAS_LOG, "relu_pair_da") == []
+    assert [r[0] for r in chip_smoke._ptxas_report(PTXAS_LOG, "kernel")] == [
+        "_Z21relu_pair_rows_kernelILi1EEvv",
+        "_Z21relu_pair_rows_kernelILi2EEvv", "_Z16expd_rows_kernelv"]
+
+
+def test_ptxas_report_names_entries_through_cxxfilt(monkeypatch):
+    def run(cmd, input, **kwargs):
+        assert cmd == ["c++filt"]
+        names = [f"demangled {n}" for n in input.splitlines()]
+        return subprocess.CompletedProcess(cmd, 0, "\n".join(names), "")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+    assert chip_smoke._ptxas_report(PTXAS_LOG, "relu_pair_rows") == [
+        ("demangled _Z21relu_pair_rows_kernelILi1EEvv", 168, 8, 12),
+        ("demangled _Z21relu_pair_rows_kernelILi2EEvv", 96, 0, 0)]
+
+
+@pytest.mark.parametrize("error", [
+    OSError(2, "No such file or directory: 'c++filt'"),
+    subprocess.CalledProcessError(1, ["c++filt"]),
+], ids=["missing", "failed"])
+def test_demangle_keeps_the_mangled_names_without_cxxfilt(error,
+                                                         monkeypatch):
+    def run(*args, **kwargs):
+        raise error
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+    names = ["_Z16expd_rows_kernelv", "_Z21relu_pair_rows_kernelILi1EEvv"]
+    assert chip_smoke._demangle(names) == names

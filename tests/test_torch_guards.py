@@ -1,8 +1,10 @@
 """Guards of the PyTorch port:
 
 * no module of ``tf2_gnn_tpu_torch`` (``parallel/`` included) and not
-  ``chip_smoke.py`` imports jax, flax, optax, the JAX package, ``bench``
-  or the tests, nor the deprecated ``torch.distributed.nn``;
+  ``chip_smoke.py`` imports jax, flax, optax, the JAX package, ``bench``,
+  the tests, ``chip_smoke`` or ``portbench``, at the top or inside a
+  function, nor the deprecated ``torch.distributed.nn``: the package
+  depends on none of the scripts beside it;
 * the entry points default to the card and raise without one instead of
   running on the CPU, the command-line train and test runs too (without
   ``--device cpu``), and ``initialize_multiprocess`` without ``device``;
@@ -62,7 +64,7 @@ def one_torch_thread():
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = Path(tf2_gnn_tpu_torch.__file__).resolve().parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tf2_gnn_tpu", "bench",
-             "tests"}
+             "tests", "chip_smoke", "portbench"}
 PORT_FILES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -76,11 +78,27 @@ def imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
+def forbidden_imports(path: Path):
+    return sorted(set(imported_roots(path)) & FORBIDDEN)
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_nothing_of_jax(path):
-    bad = sorted(set(imported_roots(path)) & FORBIDDEN)
+    bad = forbidden_imports(path)
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+@pytest.mark.parametrize("body", [
+    "import {name}\n",
+    "def main():\n    import {name}\n",
+    "def main():\n    from {name}.sub import thing\n",
+], ids=["top", "function", "function-from"])
+@pytest.mark.parametrize("name", ["chip_smoke", "portbench"])
+def test_guard_refuses_the_scripts_beside_the_package(name, body, tmp_path):
+    module = tmp_path / "module.py"
+    module.write_text("import torch\n\n" + body.format(name=name))
+    assert forbidden_imports(module) == [name]
 
 
 def imported_modules(path: Path):

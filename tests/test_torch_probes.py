@@ -17,11 +17,16 @@
   strips of 16 bytes at the probe's shape, narrower strips where a
   16-byte one exceeds a block's shared memory or the table's columns,
   the global form where a one-column strip does not fit;
-* ``tools/dyngather_variants.py`` edits the shipped source's threads a
-  block into each variant's copy, and times the shipped strip widths;
+* ``csrc/dyngather.cu`` declares the shared form's threads a block
+  (``SHARED_THREADS``) once, and that kernel's launch bounds, strip loops
+  and launch all read the one constant (the thread counts and strip
+  widths were timed with a script since retired; its readings stand in
+  ``PERF.md`` §6);
 * the wrappers take the plain versions on CPU tensors and count no
   launch, and refuse a plan of the other group.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,7 +36,6 @@ from benchmarks import pair_probe
 from tf2_gnn_tpu_torch import workloads
 from tf2_gnn_tpu_torch.ops import cuda_build, probes
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
-from tf2_gnn_tpu_torch.tools import dyngather_variants
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -198,15 +202,15 @@ def test_dyngather_form(rows, cols, dtype, width):
         assert rows * dtype.itemsize > probes.MAX_STRIP_BYTES
 
 
-@pytest.mark.parametrize("threads", dyngather_variants.THREADS)
-def test_dyngather_variants_set_the_threads(threads, tmp_path, monkeypatch):
-    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build" / "lib")
-    root = dyngather_variants._variant_csrc(
-        cuda_build, cuda_build.CSRC_DIR, f"threads {threads}",
-        dyngather_variants.thread_edits(threads), dyngather_variants.SOURCE)
-    text = (root / dyngather_variants.SOURCE).read_text()
-    assert f"constexpr int SHARED_THREADS = {threads};" in text
-    assert text.count("constexpr int SHARED_THREADS") == 1
-    assert dyngather_variants.SHIPPED_THREADS in dyngather_variants.THREADS
-    for dtype, width in probes.STRIP_COLS.items():
-        assert width in dyngather_variants.WIDTHS[str(dtype).split(".")[1]]
+def test_dyngather_shared_threads_is_one_constant():
+    text = (cuda_build.CSRC_DIR / "dyngather.cu").read_text()
+    decl = re.findall(r"constexpr int SHARED_THREADS = (\d+);", text)
+    assert len(decl) == 1 and text.count("SHARED_THREADS =") == 1
+    assert int(decl[0]) % 32 == 0 and 32 <= int(decl[0]) <= 1024
+    assert ("__launch_bounds__(SHARED_THREADS)\n"
+            "    dyngather_shared_kernel(") in text
+    kernel = text[text.index("dyngather_shared_kernel("):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    strides = re.findall(r"\+= (\w+)\)", kernel)
+    assert strides and set(strides) == {"SHARED_THREADS"}
+    assert re.search(r"<<<[^,]+,\s*SHARED_THREADS,", text)
