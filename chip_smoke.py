@@ -22,7 +22,9 @@ Phases, each of which fails the run by raising:
       from a seed: one eval forward held against the same model run
       through the plain versions; then its main path, a few train steps
       with the launch counts set to 0 just before and read just after
-      (K1 and K2 must each launch once per layer per step);
+      (K1 and K2 must each launch once per layer per step; PPI's plan
+      reads 0.977 of its tables' rows, so the tables stay whole: every row
+      computed and no node sum launched, ``PPI_NODE_SUMS``);
    c. timings (CUDA events): each kernel, its plain version and one
       PyTorch library call computing the same function
       (``torch.sparse.mm``, CSR built from the plan outside the timed
@@ -120,12 +122,21 @@ Phases, each of which fails the run by raising:
    909 molecules, 5 edge types on per-type pair plans, V = 16384):
    a. K2 and K1 against their plain versions at the QM9 plan's shapes
       (bf16 [81920, 128] tables, a [16384, 128] cotangent), two launches
-      of each bit-equal;
+      of each bit-equal; then the three launches over the forms of a
+      table of only the rows the plan reads (``check_read_rows_kernels``:
+      K2 over ``ReadRows.fwd_rows``, K1 over ``read_bwd_rows`` with a bf16
+      cotangent, the node sum over ``ReadRows.node_rows`` of an f32 table)
+      against their plain twin over the form, two launches of each
+      bit-equal, each timed;
    b. ``workloads.qm9_shipped_params()`` at full width (8 layers, hidden
-      128, bf16 edge stream, RMSProp, clipping by value at 1.0): the eval
-      forward against the plain versions (K2 once per layer, nothing
-      else), then 5 train steps (per step K2 and K1 once per layer, no
-      other kernel);
+      128, bf16 edge stream, RMSProp, clipping by value at 1.0), whose
+      plan reads fewer than half its tables' rows (0.467), so the tables
+      hold only those rows (``GNN_Edge_MLP.compact_rows``; K2 and K1 over
+      those rows' forms, the plain twin over the form as their plain
+      version): the eval forward against the plain versions (K2 once per
+      layer, nothing else), then 5 train steps (per step K2, K1 and the
+      node sum of the products' input gradient once per layer, no other
+      kernel, and ``table_rows_share`` below 0.5);
    c. timings as in 2c at this shape (logged; K1 and K2 keep their phase
       2 entries), the train step, the eval forward and molecules/s.
 8. The design probes at their own shapes: P1 (8 chunks a group) and P2
@@ -483,6 +494,45 @@ def plain_version(plain):
     return call
 
 
+def rows_plain_version(tables, scale, compact, out_rows):
+    """The plain twin of K1 and K2 over a form alone (a joint plan's read
+    rows' forms, ``pair_spmm_stream_rows`` / ``_joint_rows``) under their
+    wrappers' signature."""
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+
+    return ps.slot_rows_plain(tables, scale, compact)
+
+
+def joint_patches():
+    """K2 and K1 on the pair-joint route, each wrapper with its plain
+    version: the plan-array wrappers, and the wrappers over the forms of
+    tables that hold only the rows the plan reads."""
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+
+    plain = plain_version(ps.pair_spmm_stream_plain)
+    return [(ps, "pair_spmm_stream_joint", plain),
+            (ps, "pair_spmm_stream", plain),
+            (ps, "pair_spmm_stream_joint_rows", rows_plain_version),
+            (ps, "pair_spmm_stream_rows", rows_plain_version)]
+
+
+def table_rows_share(name: str, whole: bool) -> float:
+    """The pair-joint route's table rows computed over those of whole
+    tables since the last ``tracing.reset()`` (the counters
+    ``pair_tables.*``), held to what the path's batch should take: 1.0
+    where ``whole`` (a plan that reads nearly all its tables' rows, as
+    PPI's 0.977), else below 0.5 (QM9's, 0.467)."""
+    from tf2_gnn_tpu_torch.utils import tracing
+
+    rows = tracing.counters("pair_tables")
+    share = rows["rows_computed"] / rows["rows_full"]
+    if (share != 1.0) if whole else not share < 0.5:
+        raise AssertionError(
+            f"{name}: the tables computed {share:.4f} of their rows; "
+            f"expected {'all' if whole else 'fewer than half'}")
+    return share
+
+
 def check_repeatable(name: str, fn, first) -> None:
     """A second launch of ``fn`` gives ``first`` (a tensor or a tuple of
     them) bit for bit (a kernel whose sums keep one order on every run)."""
@@ -724,6 +774,15 @@ def train_and_count(model, params, batch, labels, expected,
     return state, train_step, eval_step, launches
 
 
+# Node sums (``pair_spmm_node_rows``, launch count ``node_rows``) a layer
+# and train step on the pair-joint route over the PPI batches of phases 2,
+# 9, 12, 13d and 13e: none, since their plans read 0.977 of the tables'
+# rows, above ``COMPACT_TABLES_BELOW``, and the tables stay whole. (QM9's
+# batches, in phases 7 and 12, read 0.467: one, the products' input
+# gradient summed by node.) A test that cuts the PPI batches to a few
+# small graphs, whose plans read fewer of the rows, sets it to 1.
+PPI_NODE_SUMS = 0
+
 # Train step ms by path name (``time_path``), for later phases to compare.
 STEP_MS = {}
 
@@ -762,7 +821,6 @@ def rgcn_path(device, argv):
     """Phase 2: PPI_RGCN through K1 and K2. Returns their kernel entries."""
     import torch
 
-    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
     from tf2_gnn_tpu_torch.workloads import build_ppi_batch, shipped_params
 
     torch.cuda.reset_peak_memory_stats(device)
@@ -776,15 +834,14 @@ def rgcn_path(device, argv):
     params = shipped_params("PPI_RGCN.json", "rgcn")
     model = model_from_params(params, device, plan.num_types,
                               "PPI_RGCN.json")
-    check_eval_forward(model, batch, labels, [
-        (ps, "pair_spmm_stream_joint",
-         plain_version(ps.pair_spmm_stream_plain)),
-        (ps, "pair_spmm_stream", plain_version(ps.pair_spmm_stream_plain))])
+    check_eval_forward(model, batch, labels, joint_patches())
     per_step = params["gnn_num_layers"] * TRAIN_STEPS
     state, train_step, eval_step, launches = train_and_count(
         model, params, batch, labels,
         {"pair_stream": per_step, "pair_stream_joint": per_step,
+         "node_rows": per_step * PPI_NODE_SUMS,
          "pair_attention_max": 0, "pair_attention_agg": 0})
+    table_rows_share("PPI_RGCN", whole=True)
     time_path(state, train_step, eval_step, batch, labels, real_edges,
               device, argv, "PPI_RGCN")
 
@@ -832,6 +889,52 @@ def check_stream_kernels(plan, h: int, device):
         f"forms: {plan.fwd_rows.src_row.numel()} slots into {v} rows, "
         f"{plan.bwd_rows.src_row.numel()} into {num_types * v}")
     return tables, cot, fns, errs
+
+
+def check_read_rows_kernels(name: str, plan, h: int, device,
+                            timed: bool = False):
+    """The three launches of the pair-joint route whose tables hold only
+    the rows ``plan`` reads (``plan.read_rows``), each against its plain
+    twin over its form (``slot_rows_plain``) at KERNEL_RTOL / KERNEL_ATOL
+    and bit-equal across two launches: K2 over ``ReadRows.fwd_rows`` (a
+    bf16 [n, h] table, the forward scales), K1 over ``plan.read_bwd_rows``
+    (a bf16 [V, h] cotangent, the backward scales) and the node sum
+    (``pair_spmm_node_rows``: K1 over ``ReadRows.node_rows``, an f32 [n,
+    h] table, every entry at scale 1). With ``timed`` each launch is timed
+    (CUDA events, ``KERNEL_REPS`` launches). Logged."""
+    import torch
+
+    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
+
+    read = plan.read_rows
+    n, v = read.num_rows, plan.v_out
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    rows = torch.randn((n, h), generator=gen, device=device)
+    rows16 = rows.to(torch.bfloat16)
+    cot = torch.randn((v, h), generator=gen, device=device).to(torch.bfloat16)
+    scale_fwd, scale_bwd = plan.scale_fwd, plan.scale_bwd
+    fns = {
+        "pair_stream_joint over the read rows": (
+            lambda: ps.pair_spmm_stream_joint_rows(rows16, scale_fwd,
+                                                   read.fwd_rows, v),
+            lambda: ps.slot_rows_plain(rows16, scale_fwd, read.fwd_rows)),
+        "pair_stream into the read rows": (
+            lambda: ps.pair_spmm_stream_rows(cot, scale_bwd,
+                                             plan.read_bwd_rows, n),
+            lambda: ps.slot_rows_plain(cot, scale_bwd, plan.read_bwd_rows)),
+        "node_rows": (
+            lambda: ps.pair_spmm_node_rows(rows, read),
+            lambda: ps.slot_rows_plain(rows, None, read.node_rows)),
+    }
+    notes = []
+    for form, (kernel_fn, plain_fn) in fns.items():
+        err = check_outputs(f"{name} {form}", kernel_fn, plain_fn())
+        notes.append(f"{form} max_abs_err {err:.3e}"
+                     + (f", {time_ms(kernel_fn):.4f} ms" if timed else ""))
+    log(f"kernel check ({name}, {n} read rows of {plan.num_types * plan.v_src}"
+        f", h {h}): " + "; ".join(notes) + f" (rtol {KERNEL_RTOL}, atol "
+        f"{KERNEL_ATOL}; each bit-equal across two launches"
+        + ("; CUDA events" if timed else "") + ")")
 
 
 def stream_kernel_entries(plan, checked, launches):
@@ -2116,6 +2219,8 @@ def qm9_path(device, argv):
         f"{time.perf_counter() - t0:.1f} s")
     params = qm9_shipped_params()
     checked = check_stream_kernels(plan, params["gnn_hidden_dim"], device)
+    check_read_rows_kernels("QM9", plan, params["gnn_hidden_dim"], device,
+                            timed=True)
 
     model = QM9RegressionTask.from_params(
         params, input_dim=QM9_FEATURE_DIM, num_edge_types=plan.num_types,
@@ -2128,12 +2233,9 @@ def qm9_path(device, argv):
         f"{params['gradient_clip_value']}), global exchange after layers "
         f"{list(model.gnn.exchange_layers)}")
     tracing.reset()
-    check_eval_forward(model, batch, labels, [
-        (ps, "pair_spmm_stream_joint",
-         plain_version(ps.pair_spmm_stream_plain)),
-        (ps, "pair_spmm_stream", plain_version(ps.pair_spmm_stream_plain))],
-        QM9_LOGIT_RTOL, QM9_ATOL, QM9_LOSS_RTOL,
-        shape=(batch.num_graphs_padded,))
+    check_eval_forward(model, batch, labels, joint_patches(),
+                       QM9_LOGIT_RTOL, QM9_ATOL, QM9_LOSS_RTOL,
+                       shape=(batch.num_graphs_padded,))
     torch.cuda.synchronize()
     eval_launches = tracing.counters("launch")
     if eval_launches != dict(zero, pair_stream_joint=layers):
@@ -2142,8 +2244,10 @@ def qm9_path(device, argv):
     per_step = layers * TRAIN_STEPS
     state, train_step, eval_step, launches = train_and_count(
         model, params, batch, labels,
-        dict(zero, pair_stream=per_step,
-             pair_stream_joint=per_step))
+        dict(zero, pair_stream=per_step, pair_stream_joint=per_step,
+             node_rows=per_step))
+    log(f"QM9_RGCN: table_rows_share "
+        f"{table_rows_share('QM9_RGCN', whole=False):.4f}")
     step_ms, eval_ms = time_path(state, train_step, eval_step, batch, labels,
                                  real_edges, device, argv, "QM9_RGCN")
     log(f"QM9_RGCN: {molecules / step_ms * 1e3:.1f} molecules/s training, "
@@ -2252,7 +2356,6 @@ def flavours_path(device, argv):
     per-type call forms."""
     import torch
 
-    from tf2_gnn_tpu_torch.ops import pair_spmm as ps
     from tf2_gnn_tpu_torch.utils import tracing
     from tf2_gnn_tpu_torch.workloads import build_ppi_batch, shipped_params
 
@@ -2269,10 +2372,7 @@ def flavours_path(device, argv):
         f"{time.perf_counter() - t0:.1f} s")
     checked = check_typed_forms(plan, FLAVOUR_H, device)
 
-    patches = [
-        (ps, "pair_spmm_stream_joint",
-         plain_version(ps.pair_spmm_stream_plain)),
-        (ps, "pair_spmm_stream", plain_version(ps.pair_spmm_stream_plain))]
+    patches = joint_patches()
     per_form = {"per-type forward": 0, "per-type backward": 0}
     for name, hypers, style, (k2, k1), tols in FLAVOUR_MODELS:
         torch.cuda.empty_cache()
@@ -2293,11 +2393,14 @@ def flavours_path(device, argv):
             raise AssertionError(f"{name} eval forward launched {got}; "
                                  f"expected {want}")
         per_step = {"pair_stream_joint": k2 * layers,
-                    "pair_stream": k1 * layers}
+                    "pair_stream": k1 * layers,
+                    "node_rows": k2 * PPI_NODE_SUMS * layers}
         state, train_step, eval_step, launches = train_and_count(
             model, params, batch, labels,
             dict(zero,
                  **{n: c * TRAIN_STEPS for n, c in per_step.items()}))
+        if k2 and not PPI_NODE_SUMS:
+            table_rows_share(name, whole=True)
         log(f"{name}: per train step K2 {k2 * layers}, K1 {k1 * layers} "
             f"launches; nothing else launched")
         if not k2:
@@ -2825,16 +2928,19 @@ def unfused_path(device, argv):
 # Phase 12's command-line runs: (name, the train entry's argv before the
 # data path, after it, the dataset, the eval check's tolerances on the first
 # TRAIN batch (atol, share of the largest |output|, loss rtol; phases 2 and
-# 7's for the same models) or None, and whether the test entry reloads its
-# best checkpoint).
+# 7's for the same models) or None, whether the test entry reloads its
+# best checkpoint, and the node sums a layer and train step: 1 where the
+# batches' plans read so few of their tables' rows that the tables hold
+# only those, as QM9's, which ``CliRecorder`` also checks on the first
+# TRAIN batch with ``check_read_rows_kernels``).
 CLI_RUNS = (
     ("PPI_RGCN", ["RGCN", "PPI"], ["--max-epochs", "2"], "ppi",
-     (MODEL_ATOL, 0.0, LOSS_RTOL), True),
+     (MODEL_ATOL, 0.0, LOSS_RTOL), True, PPI_NODE_SUMS),
     ("QM9_RGCN", ["RGCN", "QM9"], ["--max-epochs", "2"], "qm9",
-     (QM9_ATOL, QM9_LOGIT_RTOL, QM9_LOSS_RTOL), True),
+     (QM9_ATOL, QM9_LOGIT_RTOL, QM9_LOSS_RTOL), True, 1),
     ("PPI_GGNN_remat_bf16", ["GGNN", "PPI"],
      ["--max-epochs", "1", "--gnn_use_remat", "True", "--gnn_dense_dtype",
-      "bfloat16"], "ppi", None, False),
+      "bfloat16"], "ppi", None, False, PPI_NODE_SUMS),
 )
 
 
@@ -2921,10 +3027,11 @@ class CliRecorder:
     versions; the model, dataset and weights of the last checkpoint
     written."""
 
-    def __init__(self, name, tols, device, profile: bool):
+    def __init__(self, name, tols, device, profile: bool,
+                 node_sums: int):
         import threading
 
-        self.name, self.tols = name, tols
+        self.name, self.tols, self.node_sums = name, tols, node_sums
         self.device, self.profile = device, profile
         self.batches, self.epochs = [], []
         self.first = None
@@ -2983,12 +3090,14 @@ class CliRecorder:
 
     def _first_batch(self, model, batch, labels):
         """The first TRAIN batch: ``.to(device)``, its joint plan and that
-        plan's compact forms, each timed between synchronisations, and the
-        eval forward against the plain versions."""
+        plan's compact forms, each timed between synchronisations; where
+        the run's tables hold only the rows its plans read
+        (``node_sums``), the three launches over those rows' forms
+        (``check_read_rows_kernels``); and the eval forward against the
+        plain versions."""
         import torch
 
         from tf2_gnn_tpu_torch.harness.training import to_device
-        from tf2_gnn_tpu_torch.ops import pair_spmm as ps
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3002,15 +3111,15 @@ class CliRecorder:
         torch.cuda.synchronize()
         self.first = ((t1 - t0) * 1e3, (t2 - t1) * 1e3,
                       (time.perf_counter() - t2) * 1e3)
+        if self.node_sums:
+            check_read_rows_kernels(self.name, plan,
+                                    model.gnn.mp_layer_0.hidden_dim,
+                                    self.device)
         if self.tols is not None:
             atol, logit_rtol, loss_rtol = self.tols
             graphs = "target_value" in labels
             check_eval_forward(
-                model, batch, labels, [
-                    (ps, "pair_spmm_stream_joint",
-                     plain_version(ps.pair_spmm_stream_plain)),
-                    (ps, "pair_spmm_stream",
-                     plain_version(ps.pair_spmm_stream_plain))],
+                model, batch, labels, joint_patches(),
                 logit_rtol, atol, loss_rtol,
                 shape=(batch.num_graphs_padded,) if graphs else None)
 
@@ -3064,14 +3173,16 @@ class CliRecorder:
             forward = gnn.num_layers * steps * (2 if gnn.use_remat else 1)
             expected = dict(zero,
                             pair_stream=gnn.num_layers * steps,
-                            pair_stream_joint=forward)
+                            pair_stream_joint=forward,
+                            node_rows=gnn.num_layers * steps * self.node_sums)
             if launches != expected:
                 raise AssertionError(
                     f"{self.name} epoch {len(self.epochs) + 1}: launches "
                     f"{ {k: v for k, v in launches.items() if v} } in "
                     f"{steps} steps; expected K1 (pair_stream) "
-                    f"{expected['pair_stream']} and K2 (pair_stream_joint) "
-                    f"{forward}, every other kernel 0")
+                    f"{expected['pair_stream']}, K2 (pair_stream_joint) "
+                    f"{forward} and node sums (node_rows) "
+                    f"{expected['node_rows']}, every other kernel 0")
             loss, graphs_per_s = result[1], result[2]
             if not math.isfinite(loss):
                 raise AssertionError(f"{self.name}: train loss {loss}")
@@ -3079,7 +3190,8 @@ class CliRecorder:
                 steps=steps, loss=loss, graphs_per_s=graphs_per_s,
                 step_ms=[s.elapsed_time(e) for s, e in spans],
                 k1=launches["pair_stream"],
-                k2=launches["pair_stream_joint"]))
+                k2=launches["pair_stream_joint"],
+                node_sums=launches["node_rows"]))
             if self.profile:
                 kernels = kernel_events(prof)
                 busy_ms = sum(_self_device_us(e) for e in kernels) / 1e3
@@ -3135,7 +3247,7 @@ class CliRecorder:
             log(f"{self.name} epoch {i}: {e['steps']} steps, loss "
                 f"{e['loss']:.6f}, {e['graphs_per_s']:.2f} graphs/s, step "
                 f"ms (device span) {[round(x, 3) for x in e['step_ms']]}, "
-                f"K1 {e['k1']}, K2 {e['k2']}")
+                f"K1 {e['k1']}, K2 {e['k2']}, node sums {e['node_sums']}")
         log(f"{self.name}: {seconds:.1f} s, peak memory "
             f"{peak_bytes / 2**30:.2f} GiB")
 
@@ -3165,11 +3277,12 @@ def cli_path(device, argv):
         f"{workloads.NODES_PER_GRAPH} nodes, {workloads.FWD_EDGES_PER_GRAPH} "
         f"forward links each) and QM9 files ({workloads.QM9_FOLD_MOLECULES} "
         f"molecules) written in {time.perf_counter() - t_phase:.1f} s")
-    for name, head, tail, kind, tols, reload in CLI_RUNS:
+    for name, head, tail, kind, tols, reload, node_sums in CLI_RUNS:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        recorder = CliRecorder(name, tols, device, "--profile" in argv)
+        recorder = CliRecorder(name, tols, device, "--profile" in argv,
+                               node_sums)
         with recorder.patches():
             best = cli_train.run(
                 head + [str(data[kind]), "--save-dir", str(root / "trained"),
@@ -3207,11 +3320,13 @@ def cli_path(device, argv):
 # Phase 13: the kernel wrappers each flavour's fused route launches in one
 # run of a dump (``reference_parity.run``: the encoder's eval forward, the
 # model's forward and one backward), per layer; the runs without plans
-# launch none.
+# launch none. The dumps' small batches read 0.47 to 0.80 of their tables'
+# rows, so on the pair-joint route the tables hold only those rows, and
+# the products' input gradient is summed by node once a layer.
 REFERENCE_LAUNCHES = {
-    "RGCN": {"pair_stream_joint": 2, "pair_stream": 1},
-    "GGNN": {"pair_stream_joint": 2, "pair_stream": 1},
-    "RGIN": {"pair_stream_joint": 2, "pair_stream": 1},
+    "RGCN": {"pair_stream_joint": 2, "pair_stream": 1, "node_rows": 1},
+    "GGNN": {"pair_stream_joint": 2, "pair_stream": 1, "node_rows": 1},
+    "RGIN": {"pair_stream_joint": 2, "pair_stream": 1, "node_rows": 1},
     "GNN_FiLM": {"pair_stream": 3},
     "GNN_Edge_MLP": {"pair_stream": 3},
     "RGAT": {"pair_attention_expd": 2, "pair_spmm": 8,
@@ -3356,7 +3471,10 @@ def gnn_input_check(device, ppi_dir: Path) -> None:
     want = run(planned, None)
     got = run(bare, [x > 0 for x in want[3]])
     layers = len(want[3])
-    expected = ({}, {"pair_stream_joint": layers, "pair_stream": layers})
+    planned_launches = {"pair_stream_joint": layers, "pair_stream": layers}
+    if PPI_NODE_SUMS:
+        planned_launches["node_rows"] = layers * PPI_NODE_SUMS
+    expected = ({}, planned_launches)
     if (got[2], want[2]) != expected:
         raise AssertionError(f"GNNInput batch launched {got[2]}, the "
                              f"dataset batch {want[2]}; expected "
@@ -3449,7 +3567,9 @@ def hook_check(device, argv) -> None:
         state, train_step, eval_step, launches = train_and_count(
             hooked, params, batch, labels,
             dict(zero, pair_stream=layers * TRAIN_STEPS,
-                 pair_stream_joint=layers * TRAIN_STEPS), steps=TRAIN_STEPS)
+                 pair_stream_joint=layers * TRAIN_STEPS,
+                 node_rows=layers * TRAIN_STEPS * PPI_NODE_SUMS),
+            steps=TRAIN_STEPS)
     if len(builds) != 1:
         raise AssertionError(f"the hook's {TRAIN_STEPS} train steps and "
                              f"eval forward built the joint plan "
@@ -3474,7 +3594,8 @@ def hook_check(device, argv) -> None:
     log(f"phase 13e: input hook on PPI_RGCN ({layers} layers, hidden "
         f"{params['gnn_hidden_dim']}, edge stream {params['gnn_edge_dtype']}"
         f"): {TRAIN_STEPS} train steps with K1 {launches['pair_stream']} "
-        f"and K2 {launches['pair_stream_joint']} launches, the joint plan "
+        f"and K2 {launches['pair_stream_joint']} launches (node sums "
+        f"{launches['node_rows']}), the joint plan "
         f"built {len(builds)} time(s), eval logits bit-equal to the base "
         f"model's on the transformed batch; "
         f"{time.perf_counter() - t0:.1f} s")

@@ -3,7 +3,9 @@ take their plain versions.
 
 * Phase 7 (``check_eval_forward`` at ``QM9_ATOL`` / ``QM9_LOGIT_RTOL`` /
   ``QM9_LOSS_RTOL``) holds a joint kernel (K2) stand-in against the plain
-  version on the shipped QM9_RGCN at 120 molecules. A stand-in that sums
+  version on the shipped QM9_RGCN at 120 molecules (whose tables hold only
+  the rows the plan reads, so K2 runs over their form: the stand-ins
+  replace both K2 wrappers). A stand-in that sums
   the same slots in another order (as the card's atomics do) passes it:
   the outputs move by 2.8e-3 of the largest |output| (4.0e-2 of 14.5) and
   the loss by 1.5e-4 of itself, through 8 bf16 layers with LayerNorm. A
@@ -104,22 +106,51 @@ def _type1_doubled_k2(tables, scale, rel_src, rel_tgt, src_blk, grp_tgt,
                                       src_blk, grp_tgt, grp_type, v, out_rows)
 
 
+def _reordered_rows(tables, scale, compact, out_rows):
+    """K1's or K2's sum over a form alone (the read rows' forms), its
+    entries added in a random order."""
+    counts = torch.diff(compact.row_ptr).long()
+    tgt = torch.repeat_interleave(torch.arange(out_rows), counts)
+    msgs = tables[compact.src_row.long()].float()
+    if scale is not None:
+        msgs = msgs * scale[compact.slot.long()][:, None]
+    perm = torch.randperm(tgt.shape[0],
+                          generator=torch.Generator().manual_seed(1))
+    out = torch.zeros((out_rows, tables.shape[1]))
+    return out.index_add_(0, tgt[perm], msgs[perm])
+
+
+def _type1_doubled_rows(batch):
+    """K2 over the forward form of ``batch``'s read rows with edge type 1's
+    scales doubled: the entries whose table row is one of type 1's."""
+    offsets = batch.pair_stream_joint.read_rows.type_offsets
+
+    def k2(tables, scale, compact, out_rows):
+        src = compact.src_row.long()
+        doubled = scale.clone()
+        doubled[compact.slot.long()[(src >= offsets[1])
+                                    & (src < offsets[2])]] *= 2.0
+        return tps.slot_rows_plain(tables, doubled, compact)
+    return k2
+
+
 def _check(model, batch, labels):
     chip_smoke.check_eval_forward(
-        model, batch, labels,
-        [(tps, "pair_spmm_stream_joint",
-          chip_smoke.plain_version(tps.pair_spmm_stream_plain))],
+        model, batch, labels, chip_smoke.joint_patches(),
         chip_smoke.QM9_LOGIT_RTOL, chip_smoke.QM9_ATOL,
         chip_smoke.QM9_LOSS_RTOL, shape=(batch.num_graphs_padded,))
 
 
 def test_qm9_eval_check_passes_a_reordered_sum(qm9_case, monkeypatch):
     monkeypatch.setattr(tps, "pair_spmm_stream_joint", _reordered_k2)
+    monkeypatch.setattr(tps, "pair_spmm_stream_joint_rows", _reordered_rows)
     _check(*qm9_case)
 
 
 def test_qm9_eval_check_catches_a_wrong_scale(qm9_case, monkeypatch):
     monkeypatch.setattr(tps, "pair_spmm_stream_joint", _type1_doubled_k2)
+    monkeypatch.setattr(tps, "pair_spmm_stream_joint_rows",
+                        _type1_doubled_rows(qm9_case[1]))
     with pytest.raises(AssertionError, match="eval forward"):
         _check(*qm9_case)
 
@@ -142,11 +173,9 @@ def _check_flavour(model_name, batch, labels):
         input_dim=workloads.FEATURE_DIM, num_edge_types=3, device="cpu",
         seed=0, num_labels=workloads.NUM_LABELS)
     atol, logit_rtol, loss_rtol = tols
-    plain = chip_smoke.plain_version(tps.pair_spmm_stream_plain)
     chip_smoke.check_eval_forward(
-        model, batch, labels,
-        [(tps, "pair_spmm_stream_joint", plain),
-         (tps, "pair_spmm_stream", plain)], logit_rtol, atol, loss_rtol)
+        model, batch, labels, chip_smoke.joint_patches(), logit_rtol, atol,
+        loss_rtol)
 
 
 FLAVOURS = [m[0] for m in chip_smoke.FLAVOUR_MODELS]
@@ -157,6 +186,8 @@ def test_flavour_eval_check_passes_a_reordered_sum(model_name, ppi_case,
                                                    monkeypatch):
     monkeypatch.setattr(tps, "pair_spmm_stream_joint", _reordered_k2)
     monkeypatch.setattr(tps, "pair_spmm_stream", _reordered_k2)
+    monkeypatch.setattr(tps, "pair_spmm_stream_joint_rows", _reordered_rows)
+    monkeypatch.setattr(tps, "pair_spmm_stream_rows", _reordered_rows)
     _check_flavour(model_name, *ppi_case)
 
 
@@ -165,6 +196,8 @@ def test_flavour_eval_check_catches_a_wrong_scale(model_name, ppi_case,
                                                   monkeypatch):
     monkeypatch.setattr(tps, "pair_spmm_stream_joint", _type1_doubled_k2)
     monkeypatch.setattr(tps, "pair_spmm_stream", _type1_doubled_k2)
+    monkeypatch.setattr(tps, "pair_spmm_stream_joint_rows",
+                        _type1_doubled_rows(ppi_case[0]))
     with pytest.raises(AssertionError, match="eval forward"):
         _check_flavour(model_name, *ppi_case)
 
@@ -370,6 +403,9 @@ def _unfused_case(name, unfused_batches):
 WRAPPERS = {
     "pair_spmm_stream": "pair_stream",
     "pair_spmm_stream_joint": "pair_stream_joint",
+    "pair_spmm_stream_rows": "pair_stream",
+    "pair_spmm_stream_joint_rows": "pair_stream_joint",
+    "pair_spmm_node_rows": "node_rows",
     "pair_spmm": "pair_spmm",
     **{name: name for name in (*tpa.LAUNCHES, *tpem.LAUNCHES, *tss.LAUNCHES,
                                *tprobes.LAUNCHES)},
@@ -569,6 +605,8 @@ def test_reference_check_passes_a_reordered_sum(reference_data, monkeypatch):
     the card's kernels may) pass the check on a fused run."""
     monkeypatch.setattr(tps, "pair_spmm_stream_joint", _reordered_k2)
     monkeypatch.setattr(tps, "pair_spmm_stream", _reordered_k2)
+    monkeypatch.setattr(tps, "pair_spmm_stream_joint_rows", _reordered_rows)
+    monkeypatch.setattr(tps, "pair_spmm_stream_rows", _reordered_rows)
     _count_into_launches(monkeypatch)
     for name in ("rgcn", "GNN_Edge_MLP"):
         dump = rp.load_dump(name)
@@ -601,9 +639,13 @@ def test_reference_check_catches_swapped_edge_types(kind, reference_data,
 def test_gnn_input_check_on_cut_files(tmp_path, monkeypatch):
     """Phase 13d on PPI files cut to 3 graphs of 150 nodes: the GNNInput
     batch launches nothing, the dataset batch K2 and K1 once a layer, and
-    their real rows agree."""
+    their real rows agree. The cut dataset batch's plan reads fewer of
+    its tables' rows than ``COMPACT_TABLES_BELOW`` (the full files' reads
+    0.977), so its tables hold only those rows and the node sum launches
+    once a layer too (``PPI_NODE_SUMS`` 1)."""
     monkeypatch.setattr(workloads, "NODES_PER_GRAPH", 150)
     monkeypatch.setattr(workloads, "FWD_EDGES_PER_GRAPH", 1500)
+    monkeypatch.setattr(chip_smoke, "PPI_NODE_SUMS", 1)
     _count_into_launches(monkeypatch)
     lines = []
     monkeypatch.setattr(chip_smoke, "log", lines.append)
@@ -635,7 +677,7 @@ def test_hook_check_on_a_cut_batch(forms_kept, monkeypatch):
     if forms_kept:
         chip_smoke.hook_check("cpu", [])
         assert "the joint plan built 1 time(s)" in lines[-2]
-        assert "K1 20 and K2 20 launches" in lines[-2]
+        assert "K1 20 and K2 20 launches (node sums 0)" in lines[-2]
         return
     monkeypatch.setattr(tgb.GraphBatch, "replace",
                         lambda self, **changes: dataclasses.replace(

@@ -1,7 +1,10 @@
 """``chip_smoke.py`` phase 12 (``cli_path``) on the CPU, at cut sizes: the
 three command-line training runs and the two test-entry reloads pass,
-with K1 and K2 counted through their plain versions (K2 twice a layer and
-step under remat), every batch planned through the C++ binding and the
+with K1, K2 and the node sums counted through their plain versions (K2
+twice a layer and step under remat; at these sizes every run's tables
+hold only the rows its plans read, so the node sum runs once a layer and
+step, and the first TRAIN batch's three launches over those rows' forms
+are checked), every batch planned through the C++ binding and the
 first epoch's batches identical on the numpy forms, each run's
 ``num_batches`` equal to its epochs' counts; and the phase fails when K2
 launches more often than the model's layers ask for, when the binding's
@@ -61,9 +64,12 @@ NARROW = ["--model-params-override", '{"gnn_hidden_dim": 32}']
 @pytest.fixture
 def cut_phase(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "ROOT", tmp_path)
+    # At the cut sizes every run's plans read fewer of the tables' rows
+    # than ``COMPACT_TABLES_BELOW``: the tables hold only those rows, and
+    # the products' input gradient is summed by node once a layer.
     monkeypatch.setattr(chip_smoke, "CLI_RUNS", tuple(
-        (name, head, tail + NARROW, *rest)
-        for name, head, tail, *rest in chip_smoke.CLI_RUNS))
+        (name, head, tail + NARROW, *rest, 1)
+        for name, head, tail, *rest, _ in chip_smoke.CLI_RUNS))
     monkeypatch.setattr(workloads, "NODES_PER_GRAPH", 150)
     monkeypatch.setattr(workloads, "FWD_EDGES_PER_GRAPH", 1500)
     monkeypatch.setattr(workloads, "QM9_FOLD_MOLECULES",
@@ -74,19 +80,29 @@ def cut_phase(monkeypatch, tmp_path):
                         ("max_memory_allocated", lambda *a: 0),
                         ("empty_cache", lambda: None)):
         monkeypatch.setattr(torch.cuda, name, value)
-    monkeypatch.setattr(tps, "pair_spmm_stream",
-                        _counted("pair_stream", tps.pair_spmm_stream))
+    for name in ("pair_spmm_stream", "pair_spmm_stream_rows"):
+        monkeypatch.setattr(tps, name,
+                            _counted("pair_stream", getattr(tps, name)))
+    monkeypatch.setattr(tps, "pair_spmm_node_rows",
+                        _counted("node_rows", tps.pair_spmm_node_rows))
     return monkeypatch
 
 
+def _count_k2(phase, per_call=1):
+    """Both K2 wrappers (over the plan arrays and over the read rows'
+    form) counted, ``per_call`` launches a call."""
+    for name in ("pair_spmm_stream_joint", "pair_spmm_stream_joint_rows"):
+        phase.setattr(tps, name, _counted("pair_stream_joint",
+                                          getattr(tps, name), per_call))
+
+
 def test_cli_phase_passes(cut_phase, capsys):
-    cut_phase.setattr(tps, "pair_spmm_stream_joint",
-                      _counted("pair_stream_joint",
-                               tps.pair_spmm_stream_joint))
+    _count_k2(cut_phase)
     chip_smoke.cli_path(torch.device("cpu"), [])
     out = capsys.readouterr().out
     assert "PPI_GGNN_remat_bf16 epoch 1: 1 steps" in out
-    assert "K1 3, K2 6" in out
+    assert "K1 3, K2 6, node sums 3" in out
+    assert out.count("kernel check (") == 3
     assert out.count("test entry on") == 2
     # Every batch planned through the C++ binding, the first epoch's also
     # through the numpy forms, and both agreed.
@@ -112,18 +128,14 @@ def test_cli_phase_catches_plans_that_differ(cut_phase):
 
     cut_phase.setattr(chip_smoke, "CLI_RUNS", chip_smoke.CLI_RUNS[:1])
     cut_phase.setattr(native, "pair_plan", moved)
-    cut_phase.setattr(tps, "pair_spmm_stream_joint",
-                      _counted("pair_stream_joint",
-                               tps.pair_spmm_stream_joint))
+    _count_k2(cut_phase)
     with pytest.raises(AssertionError, match="binding vs numpy forms"):
         chip_smoke.cli_path(torch.device("cpu"), [])
 
 
 def test_cli_phase_catches_a_miscount(cut_phase):
     cut_phase.setattr(chip_smoke, "CLI_RUNS", chip_smoke.CLI_RUNS[:1])
-    cut_phase.setattr(tps, "pair_spmm_stream_joint",
-                      _counted("pair_stream_joint",
-                               tps.pair_spmm_stream_joint, per_call=2))
+    _count_k2(cut_phase, per_call=2)
     with pytest.raises(AssertionError, match="expected K1"):
         chip_smoke.cli_path(torch.device("cpu"), [])
 
@@ -144,8 +156,6 @@ def test_cli_phase_catches_num_batches_faults(cut_phase, fault):
 
     cut_phase.setattr(chip_smoke, "CLI_RUNS", chip_smoke.CLI_RUNS[:1])
     cut_phase.setattr(GraphDataset, "num_batches", faulty)
-    cut_phase.setattr(tps, "pair_spmm_stream_joint",
-                      _counted("pair_stream_joint",
-                               tps.pair_spmm_stream_joint))
+    _count_k2(cut_phase)
     with pytest.raises(AssertionError, match="num_batches by fold"):
         chip_smoke.cli_path(torch.device("cpu"), [])

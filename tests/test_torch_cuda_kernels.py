@@ -9,6 +9,10 @@ all-padding group (sorted plans: sentinel slots, an unused trailing chunk
 and an all-sentinel chunk of NaN rows; B11: targets with no in-edges and a
 pad head), and through the autograd ops (the attention op in its merged
 and per-type forms); K1/K2 also at a QM9-shaped plan (5 types, H = 128),
+K1/K2 over the forms of a table of only the rows a joint plan reads
+(``ReadRows``, at the QM9-shaped plan and a spilled one with an empty
+type) against the full forms, and ``TypedLinear``'s rows form against the
+all-types products;
 K1 in the per-type op's two call forms (``StreamTypedPlan``'s forward and
 backward compact forms, at small shapes and the PPI shape, two launches
 bit-equal) and through that op with spilled pairs,
@@ -799,6 +803,154 @@ def test_stream_kernels_at_a_qm9_shaped_plan(device, dtype):
         want = run()
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+def _spilled_plan_with_an_empty_type(device, v=384):
+    """A joint plan of four types (a self loop on every row, none, 40 and
+    150 sources) whose pairs spill with a chunk budget of one group."""
+    rng = np.random.RandomState(40)
+    plans = []
+    for sources in (v, 0, 40, 150):
+        if sources == v:
+            src = tgt = np.arange(v)
+        elif sources:
+            src = rng.choice(v, sources, replace=False)[
+                rng.randint(0, sources, 4 * sources)]
+            tgt = rng.randint(0, v, src.shape[0])
+        else:
+            src = tgt = np.zeros((0,), np.int64)
+        budget = max(64, (src.shape[0] + 63) // 64 * 64)
+        s, t = np.full((budget,), v - 1), np.full((budget,), v - 1)
+        s[:src.shape[0]], t[:src.shape[0]] = src, tgt
+        kwargs = dict(group_fwd=8, group_bwd=8)
+        if sources:
+            kwargs.update(chunk_budget_fwd=tps.GROUP,
+                          chunk_budget_bwd=tps.GROUP, overflow_budget=budget)
+        plans.append(tps.build_pair_plans([s], [t], [src.shape[0]], v,
+                                          **kwargs).astuple())
+    return tps.stream_joint_plan(tuple(plans), v, v).to(device)
+
+
+def _read_rows_plan(device, case):
+    return (_qm9_plan(device) if case == "qm9"
+            else _spilled_plan_with_an_empty_type(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["qm9", "spilled"])
+def test_stream_kernels_over_the_read_rows(device, dtype, case):
+    """K2 and K1 over the forms of a table of the rows the plan reads
+    (``ReadRows.fwd_rows``, ``StreamJointPlan.read_bwd_rows``) against
+    the full forms: K2's output, K1's table gradient at the rows read, two
+    launches bit-equal, and the autograd op over the read rows."""
+    plan = _read_rows_plan(device, case)
+    read = plan.read_rows
+    v, num_types, h = plan.v_out, plan.num_types, 128
+    assert read.num_rows < num_types * v
+    gen = torch.Generator(device=device).manual_seed(41)
+    tables = torch.randn((num_types * v, h), generator=gen,
+                         device=device).to(dtype)
+    cot = torch.randn((v, h), generator=gen, device=device).to(dtype)
+    fwd = (plan.scale_fwd, plan.rel_src_f, plan.rel_tgt_f, plan.src_blk_f,
+           plan.grp_tgt_fl, plan.grp_type_f, v, v)
+    bwd = (plan.scale_bwd, plan.rel_src_b, plan.rel_tgt_b, plan.src_blk_b,
+           plan.grp_tgt_b, plan.type_b_zeros, v, num_types * v)
+    compact = tables[read.rows].contiguous()
+    before = dict(tps.LAUNCHES)
+    got = tps.pair_spmm_stream_joint_rows(compact, plan.scale_fwd,
+                                          read.fwd_rows, v)
+    got_b = tps.pair_spmm_stream_rows(cot, plan.scale_bwd,
+                                      plan.read_bwd_rows, read.num_rows)
+    torch.cuda.synchronize()
+    assert tps.LAUNCHES["pair_stream_joint"] == before["pair_stream_joint"] + 1
+    assert tps.LAUNCHES["pair_stream"] == before["pair_stream"] + 1
+    torch.testing.assert_close(
+        got, tps.pair_spmm_stream_joint(tables, *fwd, compact=plan.fwd_rows),
+        rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        got_b, tps.pair_spmm_stream(cot, *bwd, compact=plan.bwd_rows)[
+            read.rows], rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, tps.pair_spmm_stream_joint_rows(
+        compact, plan.scale_fwd, read.fwd_rows, v))
+    assert torch.equal(got_b, tps.pair_spmm_stream_rows(
+        cot, plan.scale_bwd, plan.read_bwd_rows, read.num_rows))
+
+    def run(t, **kw):
+        t = t.float().clone().requires_grad_(True)
+        out = tps.pair_stream_joint(t, plan, True, dtype, **kw)
+        (out * cot.float()).sum().backward()
+        return out.detach(), t.grad
+
+    out, grad = run(tables)
+    out_c, grad_c = run(compact, read=read)
+    torch.testing.assert_close(out_c, out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grad_c, grad[read.rows], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["qm9", "spilled"])
+def test_node_rows_sum_on_card(device, case):
+    """``pair_spmm_node_rows``: K1 over ``ReadRows.node_rows`` sums an f32
+    [n, h] table of the read rows into [v_src, h] by node, as the plain
+    twin and ``index_add_`` do, counted as ``node_rows`` and not as K1's
+    table gradient, two launches bit-equal."""
+    plan = _read_rows_plan(device, case)
+    read = plan.read_rows
+    gen = torch.Generator(device=device).manual_seed(43)
+    rows = torch.randn((read.num_rows, 128), generator=gen, device=device)
+    before = dict(tps.LAUNCHES)
+    got = tps.pair_spmm_node_rows(rows, read)
+    torch.cuda.synchronize()
+    assert tps.LAUNCHES["node_rows"] == before["node_rows"] + 1
+    assert tps.LAUNCHES["pair_stream"] == before["pair_stream"]
+    torch.testing.assert_close(
+        got, tps.slot_rows_plain(rows, None, read.node_rows), rtol=1e-5,
+        atol=1e-5)
+    want = torch.zeros((plan.v_src, 128), device=device)
+    want.index_add_(0, read.node, rows)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, tps.pair_spmm_node_rows(rows, read))
+
+
+def test_type_rows_products_on_card(device):
+    """``TypedLinear``'s rows form (``_TypeRows``) on the card against the
+    all-types form's rows read, f32 with TF32 off, a type with no rows
+    among them: the output, the input's gradient (K1's sum by node over
+    ``ReadRows.node_rows``) and the kernel's, two runs bit-equal."""
+    from tf2_gnn_tpu_torch.layers.message_passing.typed_linear import (
+        _AllTypes, _TypeRows)
+
+    plan = _spilled_plan_with_an_empty_type(device)
+    read = plan.read_rows
+    v, num_types, d, h = plan.v_src, plan.num_types, 96, 128
+    assert read.type_offsets[1] == read.type_offsets[2]
+    gen = torch.Generator(device=device).manual_seed(42)
+    x0 = torch.randn((v, d), generator=gen, device=device)
+    k0 = torch.randn((num_types, d, h), generator=gen, device=device)
+    g = torch.randn((read.num_rows, h), generator=gen, device=device)
+
+    def run(compact):
+        x, kernel = x0.clone().requires_grad_(True), k0.clone()
+        kernel.requires_grad_(True)
+        if compact:
+            y = _TypeRows.apply(x, kernel, read, True)
+            y.backward(g)
+        else:
+            y = _AllTypes.apply(x, kernel).reshape(num_types * v, h)
+            g_full = torch.zeros_like(y)
+            g_full[read.rows] = g
+            y.backward(g_full)
+            y = y[read.rows]
+        return y.detach(), x.grad, kernel.grad
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    got, want = run(True), run(False)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+    assert float(got[2][1].abs().max()) == 0.0
+    for a, b in zip(got, run(True)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("form", ["unrolled", "chunked"])

@@ -25,6 +25,7 @@
   raises; it does not drop to the unfused path.
 """
 import ast
+import types
 from pathlib import Path
 
 import numpy as np
@@ -258,13 +259,21 @@ _COMPACT_STAND_IN = object()
 
 # Every kernel wrapper: its launch counts and the positional arguments
 # after its first tensor (K1, K2, B3, B12, B4, B5, B6, B7, B8, B10, B11,
-# B14 and B15 end with the plan's compact form, B9 with its two).
+# B14 and B15 end with the plan's compact form, B9 with its two; the node
+# sum takes the read rows, which hold its form).
 WRAPPERS = {
     tps.pair_spmm_stream: (
         tps.LAUNCHES, (None,) * 6 + (128, 128, _COMPACT_STAND_IN)),
     tps.pair_spmm_stream_joint: (
         tps.LAUNCHES, (None,) * 6 + (128, 128, _COMPACT_STAND_IN)),
     tps.pair_spmm: (tps.LAUNCHES, (None,) * 5 + (128, _COMPACT_STAND_IN)),
+    tps.pair_spmm_stream_rows: (tps.LAUNCHES, (None, _COMPACT_STAND_IN, 128)),
+    tps.pair_spmm_stream_joint_rows: (
+        tps.LAUNCHES, (None, _COMPACT_STAND_IN, 128)),
+    tps.pair_spmm_node_rows: (
+        tps.LAUNCHES,
+        (types.SimpleNamespace(node_rows=types.SimpleNamespace(
+            out_rows=128)),)),
     tpa.pair_attention_expd: (
         tpa.LAUNCHES, (None,) * 5 + (128, 4, None, _COMPACT_STAND_IN)),
     tpa.pair_attention_bwd_fused: (
@@ -601,8 +610,9 @@ def test_unfused_routes_raise(case):
 def test_cuda_batch_with_plans_does_not_drop_to_the_unfused_path(
         monkeypatch, tmp_path):
     """A batch with per-type plans whose kernel library cannot be built
-    on the card: the model raises where K2 would launch (its wrapper sees
-    a CUDA tensor), and the unfused path never runs."""
+    on the card: the model raises where K2 would launch (its wrapper, over
+    the plan arrays or over the read rows' form, sees a CUDA tensor), and
+    the unfused path never runs."""
     from tf2_gnn_tpu_torch.layers.message_passing import GNN_Edge_MLP
 
     from .test_torch_rgcn_model import small_workload
@@ -613,11 +623,11 @@ def test_cuda_batch_with_plans_does_not_drop_to_the_unfused_path(
     monkeypatch.setattr(cuda_build, "_LOADED", {})
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
-    real = tps.pair_spmm_stream_joint
-    monkeypatch.setattr(
-        tps, "pair_spmm_stream_joint",
-        lambda tables, *args, **kwargs: real(_CudaTensorStandIn(), *args,
-                                             **kwargs))
+    for name in ("pair_spmm_stream_joint", "pair_spmm_stream_joint_rows"):
+        monkeypatch.setattr(
+            tps, name,
+            lambda tables, *args, _real=getattr(tps, name), **kwargs: _real(
+                _CudaTensorStandIn(), *args, **kwargs))
     unfused = []
     monkeypatch.setattr(GNN_Edge_MLP, "_compute_messages_per_type",
                         lambda *args: unfused.append(args))

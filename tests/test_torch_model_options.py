@@ -180,29 +180,36 @@ def test_remat_matches_jax():
     assert tmodel.gnn.use_remat
 
 
-def _counting(monkeypatch, name: str):
+def _counting(monkeypatch, *names: str):
+    """The calls of the wrappers ``names``, in one list."""
     calls = []
-    original = getattr(tps, name)
+    for name in names:
+        def counted(*args, _name=name, _original=getattr(tps, name),
+                    **kwargs):
+            calls.append(_name)
+            return _original(*args, **kwargs)
 
-    def counted(*args, **kwargs):
-        calls.append(name)
-        return original(*args, **kwargs)
-
-    monkeypatch.setattr(tps, name, counted)
+        monkeypatch.setattr(tps, name, counted)
     return calls
 
 
 def test_remat_with_dropout_matches_the_port_without_remat(monkeypatch):
     """Input and exchange dropout 0.3: a train-mode loss and its gradients
     with remat equal those without under the same generator seed (the
-    recompute draws no masks); K2's wrapper runs twice a layer, K1's once."""
+    recompute draws no masks); K2's wrappers run twice a layer, K1's once,
+    and, since this batch's plan reads 0.76 of its tables' rows (under
+    ``COMPACT_TABLES_BELOW``), so that the tables hold only those rows, the
+    node sum of the products' input gradient once a layer."""
     _, tbatch, labels = small_workload(seed=10)
     params = make_params("residual_dense_layernorm", "bfloat16")
     params.update({"gnn_layer_input_dropout_rate": 0.3,
                    "gnn_global_exchange_every_num_layers": 2,
                    "gnn_global_exchange_dropout_rate": 0.3})
-    forward = _counting(monkeypatch, "pair_spmm_stream_joint")
-    backward = _counting(monkeypatch, "pair_spmm_stream")
+    forward = _counting(monkeypatch, "pair_spmm_stream_joint",
+                        "pair_spmm_stream_joint_rows")
+    backward = _counting(monkeypatch, "pair_spmm_stream",
+                         "pair_spmm_stream_rows")
+    nodes = _counting(monkeypatch, "pair_spmm_node_rows")
     results = []
     for remat in (False, True):
         model = NodeMulticlassTask.from_params(
@@ -210,14 +217,15 @@ def test_remat_with_dropout_matches_the_port_without_remat(monkeypatch):
             num_edge_types=3, device="cpu", seed=4, num_labels=NUM_LABELS)
         forward.clear()
         backward.clear()
+        nodes.clear()
         generator = torch.Generator().manual_seed(7)
         out = model(tbatch, True, generator)
         loss = model.compute_task_metrics(
             tbatch, out, {"node_labels": torch.from_numpy(labels)})["loss"]
         loss.backward()
         layers = params["gnn_num_layers"]
-        assert (len(forward), len(backward)) == (
-            (2 if remat else 1) * layers, layers)
+        assert (len(forward), len(backward), len(nodes)) == (
+            (2 if remat else 1) * layers, layers, layers)
         results.append((float(loss.detach()), {n: p.grad.clone()
                                       for n, p in model.named_parameters()}))
         forward.clear()

@@ -140,4 +140,4 @@ def test_plain_version_matches_dense_reference():
                                  v, num_types * v)
     np.testing.assert_allclose(out_g.numpy(), per_type, rtol=1e-5, atol=1e-5)
     assert tps.LAUNCHES == {"pair_stream": 0, "pair_stream_joint": 0,
-                            "pair_spmm": 0}
+                            "pair_spmm": 0, "node_rows": 0}

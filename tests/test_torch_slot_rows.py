@@ -20,7 +20,10 @@ which the card's K1, K2 and B3 read instead of the plan arrays, on the CPU:
 * the models build it once per batch: two forwards of RGCN (per-type
   plans) and RGAT (merged and per-type plans) build one form per plan and
   hand the same object to every kernel call; three RGCN train steps build
-  the forward (K2) and backward (K1) forms once each.
+  the forward (K2) and backward (K1) forms once each. RGCN runs on full
+  tables here (``COMPACT_TABLES_BELOW`` at 0): the forms of tables that
+  hold only the rows a plan reads are held in
+  ``test_torch_compact_tables.py``.
 """
 import functools
 
@@ -34,6 +37,7 @@ from tf2_gnn_tpu_torch.harness.training import (
     create_train_state,
     make_train_step,
 )
+from tf2_gnn_tpu_torch.layers.message_passing import gnn_edge_mlp
 from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
 from tf2_gnn_tpu_torch.ops import pair_attention as tpa
 from tf2_gnn_tpu_torch.ops import pair_spmm as tps
@@ -267,6 +271,7 @@ def _spy(monkeypatch, module, name, seen):
                                         ("rgat", "merged"),
                                         ("rgat", "typed")])
 def test_compact_form_is_built_once_per_batch(style, form, monkeypatch):
+    monkeypatch.setattr(gnn_edge_mlp, "COMPACT_TABLES_BELOW", 0.0)
     _, batch, _ = small_workload(seed=1, merged=form == "merged")
     params = NodeMulticlassTask.get_default_hyperparameters(style)
     params.update({"gnn_hidden_dim": 8, "gnn_num_layers": 2,
@@ -301,6 +306,7 @@ def test_rgcn_builds_its_two_forms_once_per_batch(monkeypatch):
     """Three train steps of RGCN on per-type plans: K2's forward form and
     K1's backward form are each built once, and every K2 (K1) call of every
     layer and step gets the one forward (backward) form."""
+    monkeypatch.setattr(gnn_edge_mlp, "COMPACT_TABLES_BELOW", 0.0)
     _, batch, labels = small_workload(seed=2)
     params = NodeMulticlassTask.get_default_hyperparameters("rgcn")
     params.update({"gnn_hidden_dim": 8, "gnn_num_layers": 2,

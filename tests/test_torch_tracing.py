@@ -16,6 +16,9 @@ from tf2_gnn_tpu_torch import native
 from tf2_gnn_tpu_torch.data import DataFold
 from tf2_gnn_tpu_torch.data.ppi_dataset import PPIDataset
 from tf2_gnn_tpu_torch.harness import training
+from tf2_gnn_tpu_torch.layers.message_passing.gnn_edge_mlp import (
+    GNN_Edge_MLP,
+)
 from tf2_gnn_tpu_torch.models.node_multiclass_task import NodeMulticlassTask
 from tf2_gnn_tpu_torch.ops import pair_attention as tpa
 from tf2_gnn_tpu_torch.ops import pair_edge_mlp as tpem
@@ -243,11 +246,15 @@ def test_compact_forms_are_built_once(ppi_path):
     state, train_step, batch, labels = _training(ppi_path, True)
     tracing.reset()
     state, _ = train_step(state, batch, labels)
-    assert tracing.counters("compact.build") == {"stream_joint.fwd": 1,
-                                                 "stream_joint.bwd": 1}
+    built = tracing.counters("compact.build")
     tracing.reset()
     train_step(state, batch, labels)
     assert tracing.counters("compact.build") == {}
+    # The batch's read rows are below the gate: the tables hold only the
+    # rows the plan reads, whose two forms are built once too.
+    assert GNN_Edge_MLP.compact_rows(batch) is not None
+    assert built == {"stream_joint.fwd": 1, "stream_joint.bwd": 1,
+                     "stream_joint.read": 1, "stream_joint.read_bwd": 1}
 
 
 def test_a_span_holds_its_profiler_range():

@@ -2,7 +2,8 @@
 kernel) on the CPU: the same output and gradients as ``torch.matmul``, no
 copy of an [L, V, H]- or [L, H, V]-sized table in either direction (the
 copies of ``torch.matmul``'s fold), and the ``typed_linear.shared_input``
-counter, once a layer in a train step and never in the other forms.
+counter, once a layer in a train step and never in the other forms (nor
+where the pair-joint route's tables hold only the rows its plan reads).
 
 Tolerances: f32 within 1e-6 of the largest entry (the same products, f32
 sums in other orders); bf16 operands bit-equal to the rounded ones, the
@@ -17,6 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 from tf2_gnn_tpu_torch.data import DataFold
 from tf2_gnn_tpu_torch.data.ppi_dataset import PPIDataset
 from tf2_gnn_tpu_torch.harness import training
+from tf2_gnn_tpu_torch.layers.message_passing import gnn_edge_mlp
 from tf2_gnn_tpu_torch.layers.message_passing.typed_linear import (
     TypedLinear,
     _rounded,
@@ -124,8 +126,18 @@ def ppi_path(tmp_path_factory):
                              feature_dim=5)
 
 
-@pytest.mark.parametrize("plans", [True, False], ids=["planned", "unfused"])
-def test_a_train_step_counts_one_shared_input_a_layer(plans, ppi_path):
+@pytest.mark.parametrize("plans,gate", [(True, 0.0), (False, None),
+                                        (True, None)],
+                         ids=["planned", "unfused", "planned_read_rows"])
+def test_a_train_step_counts_one_shared_input_a_layer(plans, gate, ppi_path,
+                                                      monkeypatch):
+    """The all-types form once a layer in a train step, on the pair-joint
+    route over full tables (``COMPACT_TABLES_BELOW`` at 0) and on the
+    unfused route; where the pair-joint route's tables hold only the rows
+    the plan reads (this batch's, at the shipped gate), never: its rows
+    form is counted as ``pair_tables.rows_computed`` instead."""
+    if gate is not None:
+        monkeypatch.setattr(gnn_edge_mlp, "COMPACT_TABLES_BELOW", gate)
     params = {**PPIDataset.get_default_hyperparameters(),
               "max_nodes_per_batch": 400, "use_pair_spmm": plans,
               "pair_per_type": True}
@@ -143,7 +155,15 @@ def test_a_train_step_counts_one_shared_input_a_layer(plans, ppi_path):
     try:
         with tracing.enabled():
             train_step(state, batch, labels)
-        assert tracing.counters("typed_linear") == {"shared_input": LAYERS}
+        read_rows = plans and gate is None
+        assert tracing.counters("typed_linear") == (
+            {} if read_rows else {"shared_input": LAYERS})
+        rows = tracing.counters("pair_tables")
+        if plans:
+            assert rows["rows_full"] == LAYERS * 3 * batch.num_nodes_padded
+            assert (rows["rows_computed"] < rows["rows_full"]) == read_rows
+        else:
+            assert rows == {}
     finally:
         tracing.drain()
         tracing.reset()

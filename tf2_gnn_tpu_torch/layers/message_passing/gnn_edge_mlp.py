@@ -11,7 +11,9 @@ are ported:
   is pointwise in the source node, so it runs densely in node space for
   all types at once, and its rows are gathered and summed per edge by the
   block-pair streamed op over per-type pair plans (the joint sum, K2 and
-  K1), by ``pair_typed_gather_scatter`` over a merged pair plan (B3 both
+  K1; where the plan reads few of the tables' rows, as in QM9's batches,
+  the MLP runs on those rows alone, ``_pair_joint_sum``), by
+  ``pair_typed_gather_scatter`` over a merged pair plan (B3 both
   ways; with merged targets the per-type sums are then summed over
   types), or, on a batch with scatter plans instead, by
   ``typed_gather_scatter``, the scatter-plan route (``ops/sorted_spmm.py``);
@@ -69,6 +71,7 @@ from ...ops.pair_edge_mlp import (
     pair_relu_mlp_aggregate,
 )
 from ...ops.pair_spmm import (
+    ReadRows,
     pair_stream_joint,
     pair_stream_typed,
     pair_typed_gather_scatter,
@@ -80,6 +83,7 @@ from ...ops.sorted_spmm import (
     plan_scatter,
     typed_gather_scatter,
 )
+from ...utils import tracing
 from ...utils.constants import SMALL_NUMBER
 from .base import (
     MessagePassing,
@@ -87,6 +91,17 @@ from .base import (
     register_message_passing_implementation,
 )
 from .typed_linear import TypedLinear
+
+# The pair-joint route computes only the table rows its plan reads
+# (``_pair_joint_sum``) where they are fewer than this share of the
+# ``L * v_src`` rows of the full tables. One layer's products forward and
+# backward, compact against full, on an H100 (700 W; CUDA events, the two
+# in turns): at QM9's shape (V 131072, 128 wide, 5 types) 0.60 of the full
+# time at a share of 0.45, 0.93 at 0.8, 0.99 at 0.9, 1.06 at 0.95; at
+# PPI's (V 49152, 320 wide, 3 types) 0.56, 0.88, 1.00, 1.02. Both break
+# even near 0.91; the gate sits below it, clear of the spread between
+# calls (the full products read 1.93 and 2.16 ms at QM9's shape).
+COMPACT_TABLES_BELOW = 0.85
 
 
 @register_message_passing_implementation
@@ -180,18 +195,65 @@ class GNN_Edge_MLP(MessagePassing):
             hidden = apply(node_states)
         return hidden.reshape(self.num_edge_types * hidden.shape[1], -1)
 
+    def _node_space_rows(self, node_states: torch.Tensor,
+                         read: ReadRows) -> torch.Tensor:
+        """The rows of ``_fused_node_space_tables`` that a joint plan reads
+        (``read``, ``StreamJointPlan.read_rows``), in its order -> f32 [n,
+        H]: the first layer takes each type's source rows of the states,
+        the others and the relus work row by row."""
+        x = node_states
+        for i in range(len(self._edge_mlp_layer_sizes())):
+            x = getattr(self, f"edge_mlp_layer_{i}").forward_rows(
+                x, read, gather=i == 0)
+            if i < self.num_edge_MLP_hidden_layers:
+                x = torch.relu(x)
+        return x
+
+    @staticmethod
+    def compact_rows(batch: GraphBatch) -> Optional[ReadRows]:
+        """The rows the pair-joint route's tables hold on ``batch``: the
+        joint plan's read rows where they are fewer than
+        ``COMPACT_TABLES_BELOW`` of the full tables' rows, else None (the
+        full tables; always under SPMD, whose ext rows
+        ``_fused_node_space_tables`` assembles). The gate reads only the
+        plan's count of them; their forms are built where it passes."""
+        if batch.spmd_axis is not None:
+            return None
+        plan = batch.pair_stream_joint
+        full = plan.num_types * plan.v_src
+        if 0 < plan.num_read_rows < COMPACT_TABLES_BELOW * full:
+            return plan.read_rows
+        return None
+
+    def _pair_joint_sum(self, node_states: torch.Tensor,
+                        batch: GraphBatch) -> torch.Tensor:
+        """Joint [V, H] sum over all types via the joint streamed op over
+        per-type plans (the joint kernel K2 forward, K1 on the
+        un-broadcast [V, H] cotangent backward), over the full tables or,
+        where ``compact_rows`` gives them, over tables of the rows the plan
+        reads (``_node_space_rows``), which the kernels read through the
+        plan's forms over them. Counted at every call:
+        ``pair_tables.rows_computed``, the rows the tables computed, and
+        ``pair_tables.rows_full``, those of the full tables."""
+        plan = batch.pair_stream_joint
+        read = self.compact_rows(batch)
+        if read is None:
+            tables = self._fused_node_space_tables(node_states, batch)
+        else:
+            tables = self._node_space_rows(node_states, read)
+        tracing.count("pair_tables.rows_computed", tables.shape[0])
+        tracing.count("pair_tables.rows_full",
+                      self.num_edge_types * plan.v_src)
+        return pair_stream_joint(tables, plan,
+                                 self.normalize_by_num_incoming,
+                                 stream_dtype=self.edge_dtype, read=read)
+
     def _pair_sum_aggregate(self, tables: torch.Tensor,
                             batch: GraphBatch) -> torch.Tensor:
-        """Joint [V, H] sum over all types via the pair kernels: over
-        per-type plans the joint streamed op (the joint kernel K2 forward,
-        K1 on the un-broadcast [V, H] cotangent backward); over a merged
-        plan ``pair_typed_gather_scatter`` (B3 both ways), whose per-type
-        sums over merged targets are summed over the type axis (reference
+        """Joint [V, H] sum over all types via a merged plan:
+        ``pair_typed_gather_scatter`` (B3 both ways), whose per-type sums
+        over merged targets are summed over the type axis (reference
         gnn_edge_mlp.py:209-226)."""
-        if batch.pair_stream_joint is not None:
-            return pair_stream_joint(tables, batch.pair_stream_joint,
-                                     self.normalize_by_num_incoming,
-                                     stream_dtype=self.edge_dtype)
         out = pair_typed_gather_scatter(tables, batch.pair_merged,
                                         self.normalize_by_num_incoming,
                                         stream_dtype=self.edge_dtype)
@@ -417,6 +479,8 @@ class GNN_Edge_MLP(MessagePassing):
             return self._scatter_target_state_one_hidden(node_states, batch)
         if route == "scatter_zero_hidden":
             return self._scatter_target_state_zero_hidden(node_states, batch)
+        if route == "pair_joint":
+            return self._pair_joint_sum(node_states, batch)
         tables = self._fused_node_space_tables(node_states, batch)
         if route == "scatter_sum":
             return self._sorted_sum_aggregate(tables, batch)

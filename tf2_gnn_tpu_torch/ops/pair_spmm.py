@@ -13,9 +13,14 @@ plans into the streamed single-launch layout.
 Device half: ``pair_stream_joint`` is a ``torch.autograd.Function`` whose
 forward runs the joint SpMM (K2, ``pair_spmm_stream_joint``) and whose
 backward runs the stream SpMM (K1, ``pair_spmm_stream``) over the backward
-plan. ``pair_stream_typed`` gives the per-type aggregates instead, with
-K1 in both directions (``StreamTypedPlan``: global forward output blocks
-and the backward plan's real types). ``pair_spmm`` (B3) is the same SpMM
+plan; over a table of only the rows the plan reads (``read=``, a
+``StreamJointPlan.read_rows``) the two run over remapped forms
+(``pair_spmm_stream_joint_rows``, ``pair_spmm_stream_rows``, whose CPU
+versions are plain twins over the forms), and ``pair_spmm_node_rows``
+sums such a table's rows back by node. ``pair_stream_typed`` gives the
+per-type aggregates instead, with K1 in both directions
+(``StreamTypedPlan``: global forward output blocks and the backward
+plan's real types). ``pair_spmm`` (B3) is the same SpMM
 over one direction of a merged plan (``MergedPlan``); RGAT's head-major
 sums run it once per head, and ``pair_typed_gather_scatter`` (the
 edge-MLP family on merged plans) once in each direction. All three launch one hand-written CUDA kernel (``csrc/pair_stream.cu``'s
@@ -557,7 +562,7 @@ class StreamJointPlan(_DevicePlan):
     v_src: int
     v_out: int
     num_types: int
-    _rows: Dict[object, "SlotRows"] = dataclasses.field(
+    _rows: Dict[str, object] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
 
     @property
@@ -584,6 +589,71 @@ class StreamJointPlan(_DevicePlan):
                 self.grp_tgt_b, self.v_out, self.num_types * self.v_src,
                 self.type_b_zeros, self.v_out)
         return self._rows["bwd"]
+
+    def _read_marks(self) -> torch.Tensor:
+        """int32 [L * v_src], above 0 at the stacked table rows the plan
+        reads: the forward form's sources and the valid overflow sources.
+        Every edge takes one path both ways (``build_pair_plans``), so the
+        backward form's targets are the same rows."""
+        ovf = self.ovf_src.long()
+        marks = torch.zeros(self.num_types * self.v_src, dtype=torch.int32,
+                            device=ovf.device)
+        marks[self.fwd_rows.src_row.long()] = 1
+        marks.index_put_((ovf,), (self.ovf_tgt_l < self.v_out).int(),
+                         accumulate=True)
+        return marks
+
+    @property
+    def num_read_rows(self) -> int:
+        """How many of the stacked [L * v_src] table rows the plan reads:
+        one host wait, at the first read, and none of ``read_rows``'
+        forms built."""
+        if "num_read" not in self._rows:
+            self._rows["num_read"] = int(
+                torch.count_nonzero(self._read_marks()))
+        return self._rows["num_read"]
+
+    @property
+    def read_rows(self) -> "ReadRows":
+        """The stacked table rows the plan reads and K2's form over a
+        table of those rows alone (``ReadRows``)."""
+        if "read" not in self._rows:
+            tracing.count("compact.build.stream_joint.read")
+            fwd = self.fwd_rows
+            rows = torch.nonzero(self._read_marks()).reshape(-1)
+            device = rows.device
+            pos = torch.zeros(self.num_types * self.v_src,
+                              dtype=torch.int64, device=device)
+            pos[rows] = torch.arange(rows.numel(), device=device)
+            starts = torch.arange(self.num_types + 1,
+                                  device=device) * self.v_src
+            node = rows % self.v_src
+            by_node = torch.sort(node, stable=True).indices.int()
+            counts = torch.bincount(node, minlength=self.v_src)
+            self._rows["read"] = ReadRows(
+                rows, node, tuple(torch.searchsorted(rows, starts).tolist()),
+                SlotRows(fwd.row_ptr, pos[fwd.src_row.long()].int(),
+                         fwd.slot, rows.numel(), fwd.out_rows,
+                         fwd.num_slots),
+                pos[self.ovf_src.long()].int(),
+                SlotRows(torch.cat([counts.new_zeros((1,)),
+                                    torch.cumsum(counts, 0)]).int(),
+                         by_node, by_node, rows.numel(), self.v_src,
+                         rows.numel()))
+        return self._rows["read"]
+
+    @property
+    def read_bwd_rows(self) -> "SlotRows":
+        """K1's form into the ``read_rows`` table alone: the backward form
+        with its CSR kept at the rows read (no other row has an entry)."""
+        if "read_bwd" not in self._rows:
+            tracing.count("compact.build.stream_joint.read_bwd")
+            bwd, rows = self.bwd_rows, self.read_rows.rows
+            self._rows["read_bwd"] = SlotRows(
+                torch.cat([bwd.row_ptr[rows], bwd.row_ptr[-1:]]),
+                bwd.src_row, bwd.slot, bwd.table_rows, rows.numel(),
+                bwd.num_slots)
+        return self._rows["read_bwd"]
 
 
 def stream_joint_plan(plans_typed, v_src: int,
@@ -782,9 +852,12 @@ def pair_unit_scales(plan: MergedPlan, out_rows: int):
 # autograd op
 
 # Launch counts of the CUDA kernels of this module: each wrapper adds one
-# where it launches its kernel, and nowhere else. ``utils/tracing.py``'s
-# registry reads them as ``launch.<name>`` and resets them.
-LAUNCHES = {"pair_stream": 0, "pair_stream_joint": 0, "pair_spmm": 0}
+# where it launches its kernel, and nowhere else (``node_rows`` counts
+# K1's launches that sum a read-rows table by node, apart from its table
+# gradients). ``utils/tracing.py``'s registry reads them as
+# ``launch.<name>`` and resets them.
+LAUNCHES = {"pair_stream": 0, "pair_stream_joint": 0, "pair_spmm": 0,
+            "node_rows": 0}
 
 _SOURCE = "pair_stream.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -904,6 +977,31 @@ def slot_rows(rel_src, rel_tgt, src_blk, grp_tgt, table_rows: int,
 
 
 @dataclasses.dataclass(frozen=True)
+class ReadRows:
+    """The rows of a joint plan's stacked ``[L * v_src]`` table that its
+    edges read (``StreamJointPlan.read_rows``), for a table that holds
+    those rows alone, in ascending order: type ``l``'s are rows
+    ``type_offsets[l]:type_offsets[l + 1]`` of it. ``fwd_rows`` is the
+    plan's forward form with its ``src_row`` remapped into that table,
+    ``ovf_src`` the overflow sources so remapped (a sentinel slot, whose
+    scale is 0, reads row 0), and ``node_rows`` the table's rows as a CSR
+    over their nodes, each node's rows in type order: a row owner's sum
+    over it adds a [n, D] table's rows into [v_src, D] by node, which is
+    how the products' input gradient reaches the node states."""
+
+    rows: torch.Tensor        # int64 [n], sorted stacked rows l * v_src + u
+    node: torch.Tensor        # int64 [n], each row's node u
+    type_offsets: Tuple[int, ...]
+    fwd_rows: "SlotRows"
+    ovf_src: torch.Tensor     # int32, rows of the [n]-row table
+    node_rows: "SlotRows"     # [n] rows into [v_src] by node
+
+    @property
+    def num_rows(self) -> int:
+        return self.rows.numel()
+
+
+@dataclasses.dataclass(frozen=True)
 class TsRows:
     """The second compact form of an attention backward plan, which B9
     reads beside the plan's ``bwd_rows`` form (``compact``, whose entry e
@@ -959,6 +1057,24 @@ def pair_spmm_stream_plain(tables, scale, rel_src, rel_tgt, src_blk,
     srcabs, tgtabs, valid = _stream_slot_abs_ids(
         rel_src, rel_tgt, src_blk, grp_tgt, grp_type, v)
     return _scatter_slots(tables, scale, srcabs, tgtabs, valid, out_rows)
+
+
+def slot_rows_plain(table, scale, compact: SlotRows):
+    """Plain PyTorch version of a row owner over its compact form alone,
+    for forms no plan array describes (``ReadRows.fwd_rows`` and
+    ``node_rows``, ``StreamJointPlan.read_bwd_rows``): each entry's table
+    row ``src_row``, upcast to f32, times its slot's scale (1 where
+    ``scale`` is None), summed into its row by ``row_ptr``, in entry
+    order."""
+    counts = (compact.row_ptr[1:] - compact.row_ptr[:-1]).long()
+    tgt = torch.repeat_interleave(
+        torch.arange(compact.out_rows, device=table.device), counts)
+    msgs = table[compact.src_row.long()].to(torch.float32)
+    if scale is not None:
+        msgs = msgs * scale.reshape(-1)[compact.slot.long()][:, None]
+    out = torch.zeros((compact.out_rows, table.shape[1]),
+                      dtype=torch.float32, device=table.device)
+    return out.index_add_(0, tgt, msgs)
 
 
 def pair_spmm_plain(table, scale, rel_src, rel_tgt, src_blk, grp_tgt,
@@ -1260,6 +1376,48 @@ def pair_spmm_stream_joint(tables, scale, rel_src, rel_tgt, src_blk,
     return out
 
 
+def pair_spmm_stream_rows(tables, scale, compact: SlotRows, out_rows: int):
+    """K1 over a compact form that no plan array describes
+    (``StreamJointPlan.read_bwd_rows``): f32 [out_rows, H]. On the CPU its
+    plain twin over the form (``slot_rows_plain``)."""
+    if _on_cpu("pair_stream", tables):
+        _check_compact("pair_stream", tables, compact, out_rows)
+        return slot_rows_plain(tables, scale, compact)
+    out = _launch_rows("pair_stream_launch", tables, scale, compact,
+                       out_rows)
+    LAUNCHES["pair_stream"] += 1
+    return out
+
+
+def pair_spmm_node_rows(rows, read: "ReadRows"):
+    """The rows of a table of a joint plan's read rows ([n, D], in
+    ``read``'s order) summed by node into f32 [v_src, D]: K1 over
+    ``read.node_rows``, every entry at scale 1, each node's rows in type
+    order. Counted apart from K1's table gradients, as ``node_rows``. On
+    the CPU its plain twin over the form (``slot_rows_plain``)."""
+    form = read.node_rows
+    if _on_cpu("node_rows", rows):
+        _check_compact("node_rows", rows, form, form.out_rows)
+        return slot_rows_plain(rows, None, form)
+    out = _launch_rows("pair_stream_launch", rows, None, form, form.out_rows)
+    LAUNCHES["node_rows"] += 1
+    return out
+
+
+def pair_spmm_stream_joint_rows(tables, scale, compact: SlotRows,
+                                v_out: int):
+    """K2 over a compact form that no plan array describes
+    (``ReadRows.fwd_rows``): f32 [v_out, H]. On the CPU its plain twin
+    over the form (``slot_rows_plain``)."""
+    if _on_cpu("pair_stream_joint", tables):
+        _check_compact("pair_stream_joint", tables, compact, v_out)
+        return slot_rows_plain(tables, scale, compact)
+    out = _launch_rows("pair_stream_joint_launch", tables, scale, compact,
+                       v_out)
+    LAUNCHES["pair_stream_joint"] += 1
+    return out
+
+
 def pair_spmm(table, scale, rel_src, rel_tgt, src_blk, grp_tgt,
               out_rows: int, compact: Optional[SlotRows] = None,
               by_entry: bool = False):
@@ -1322,7 +1480,10 @@ class PairStreamJoint(torch.autograd.Function):
     entry reads the one un-broadcast [Vo, H] cotangent slab. Unlike the
     TPU, where a VMEM budget routes large windows to stream-plus-reduce, the
     joint output always lives in device memory here, so the forward is
-    always the joint kernel.
+    always the joint kernel. Given ``read`` (``plan.read_rows``), the table
+    holds only the rows the plan reads, and K2 and K1 read the forms over
+    it (``read.fwd_rows``, ``plan.read_bwd_rows``): the same entries and
+    scales, the table gradient [n, H].
 
     The cast to the stream dtype happens inside the op so that the table
     gradient leaves it in f32: in the reference the transpose of
@@ -1332,16 +1493,22 @@ class PairStreamJoint(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tables_flat, plan: StreamJointPlan, scale_fwd,
-                scale_bwd, ovf_scale, stream_dtype):
+                scale_bwd, ovf_scale, stream_dtype,
+                read: Optional["ReadRows"]):
         tables = tables_flat.to(stream_dtype).contiguous()
-        out = pair_spmm_stream_joint(
-            tables, scale_fwd, plan.rel_src_f, plan.rel_tgt_f,
-            plan.src_blk_f, plan.grp_tgt_fl, plan.grp_type_f, plan.v_src,
-            plan.v_out, compact=plan.fwd_rows)
-        if plan.ovf_src.shape[0]:
-            out = out + _overflow_sums(tables, plan.ovf_src, plan.ovf_tgt_l,
+        if read is not None:
+            out = pair_spmm_stream_joint_rows(
+                tables, scale_fwd, read.fwd_rows, plan.v_out)
+        else:
+            out = pair_spmm_stream_joint(
+                tables, scale_fwd, plan.rel_src_f, plan.rel_tgt_f,
+                plan.src_blk_f, plan.grp_tgt_fl, plan.grp_type_f,
+                plan.v_src, plan.v_out, compact=plan.fwd_rows)
+        ovf_src = plan.ovf_src if read is None else read.ovf_src
+        if ovf_src.shape[0]:
+            out = out + _overflow_sums(tables, ovf_src, plan.ovf_tgt_l,
                                        ovf_scale, plan.v_out)
-        ctx.plan = plan
+        ctx.plan, ctx.read = plan, read
         ctx.stream_dtype = stream_dtype
         ctx.save_for_backward(scale_bwd, ovf_scale)
         return out
@@ -1350,30 +1517,40 @@ class PairStreamJoint(torch.autograd.Function):
     def backward(ctx, g):
         plan: StreamJointPlan = ctx.plan
         scale_bwd, ovf_scale = ctx.saved_tensors
-        rows = plan.num_types * plan.v_src
         # The cotangent streams at the FORWARD table dtype (bf16 tables:
         # half the gather bytes), as in the reference (pair_spmm.py:1309).
         g_stream = g.to(ctx.stream_dtype).contiguous()
-        d_tables = pair_spmm_stream(
-            g_stream, scale_bwd, plan.rel_src_b, plan.rel_tgt_b,
-            plan.src_blk_b, plan.grp_tgt_b, plan.type_b_zeros, plan.v_out,
-            rows, compact=plan.bwd_rows)
-        if plan.ovf_src.shape[0]:
-            _add_overflow_grads(d_tables, g, plan.ovf_src, plan.ovf_tgt_l,
+        if ctx.read is not None:
+            ovf_src = ctx.read.ovf_src
+            d_tables = pair_spmm_stream_rows(
+                g_stream, scale_bwd, plan.read_bwd_rows,
+                ctx.read.num_rows)
+        else:
+            ovf_src = plan.ovf_src
+            d_tables = pair_spmm_stream(
+                g_stream, scale_bwd, plan.rel_src_b, plan.rel_tgt_b,
+                plan.src_blk_b, plan.grp_tgt_b, plan.type_b_zeros,
+                plan.v_out, plan.num_types * plan.v_src,
+                compact=plan.bwd_rows)
+        if ovf_src.shape[0]:
+            _add_overflow_grads(d_tables, g, ovf_src, plan.ovf_tgt_l,
                                 ovf_scale)
-        return d_tables, None, None, None, None, None
+        return d_tables, None, None, None, None, None, None
 
 
 def pair_stream_joint(tables_flat, plan: StreamJointPlan, normalize: bool,
-                      stream_dtype: torch.dtype = None) -> torch.Tensor:
+                      stream_dtype: torch.dtype = None,
+                      read: Optional["ReadRows"] = None) -> torch.Tensor:
     """Apply the joint streamed op with the plan's 1/deg scales
     (``normalize``) or unit scales (sentinel slots are skipped either way;
     overflow slots keep their validity mask). ``stream_dtype`` (default:
-    the tables' dtype) is the dtype the kernels gather."""
+    the tables' dtype) is the dtype the kernels gather. Given ``read``
+    (``plan.read_rows``), the table holds only the rows the plan reads, in
+    its order, and K2 and K1 take the forms over it."""
     return PairStreamJoint.apply(
         tables_flat, plan,
         *_stream_scales(plan, normalize, plan.ovf_tgt_l, plan.v_out),
-        stream_dtype or tables_flat.dtype)
+        stream_dtype or tables_flat.dtype, read)
 
 
 def pair_stream_joint_from_typed(tables_flat, plans_typed, v_out: int,

@@ -32,7 +32,10 @@ with ``drain()``.
 own (``compact.build.<plan>.<direction>``, a plan's compact form built;
 ``typed_linear.shared_input``, a forward of ``TypedLinear``'s all-types
 form, which writes the [L, V, H] tables without transposed copies;
-``rgat.route.<route>``, an RGAT layer's forward by the route it took;
+``pair_tables.rows_computed`` and ``pair_tables.rows_full``, at every
+pair-joint layer's forward the table rows its products computed (only
+those its plan reads, or all) and the ``L * v_src`` rows of the full
+tables; ``rgat.route.<route>``, an RGAT layer's forward by the route it took;
 ``segment.sum.ordered``, a segment sum over a ``SegmentOrder``, as the
 unfused path's sums over edges run, and ``segment.sum.scatter``, one by
 ``index_add_``; ``segment.order.build``, an order built, once a batch and
